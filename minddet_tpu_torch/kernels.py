@@ -1,0 +1,143 @@
+"""The port's hand-written CUDA kernels: build, binding and launch counts.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
+compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` (listed in
+``.gitignore``) at first use, under a name keyed on a hash of the source and
+the flags, and bound with ``ctypes``: pointers from ``data_ptr()``, the
+stream from ``torch.cuda.current_stream().cuda_stream``, and the C function
+returns ``cudaGetLastError()``, which :meth:`CudaKernel.check` turns into an
+exception. Nothing here runs at import time.
+
+:data:`KERNELS` lists every kernel; ``chip_smoke.py`` builds them all at once
+with :func:`build_all` and reads their ``launches`` counts, which each
+wrapper bumps exactly where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda); "
+                       "the port's CUDA kernels are built on the GPU host")
+
+
+class CudaKernel:
+    """One ``csrc`` source with one exported C function.
+
+    ``argtypes`` are the ctypes types of the C function's arguments; the
+    function returns an ``int`` (a ``cudaError_t``).
+    """
+
+    def __init__(self, name: str, source: str, argtypes: Sequence,
+                 replaces: str):
+        self.name = name
+        self.source = CSRC / source
+        self.argtypes = list(argtypes)
+        self.replaces = replaces
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+
+    def _compile_cmd(self, out: Path) -> List[str]:
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+
+    def _bind(self, path: Path) -> None:
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+
+    def fn(self):
+        """The bound C function, built first if needed."""
+        if self._fn is None:
+            build_all([self])
+        return self._fn
+
+    def check(self, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA launch failed with cudaError_t {err}")
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
+    """Build (one ``nvcc`` per source, all started together) and bind every
+    kernel not built yet. Returns each built kernel's compiler log."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    todo = [k for k in kernels if k._fn is None]
+    procs = []
+    for k in todo:
+        path = k.library_path()
+        if path.exists():
+            procs.append((k, path, None, None))
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
+        p = subprocess.Popen(k._compile_cmd(tmp), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        procs.append((k, path, tmp, p))
+    logs = {}
+    failed = []
+    for k, path, tmp, p in procs:
+        if p is not None:
+            log, _ = p.communicate()
+            k.build_log = log
+            if p.returncode != 0:
+                failed.append(f"{k.source.name} (exit {p.returncode}):\n{log}")
+                continue
+            os.replace(tmp, path)
+        logs[k.name] = k.build_log
+        k._bind(path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def cuda_stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+HAT_SAMPLE_TAPS_FWD = CudaKernel(
+    "hat_sample_taps_fwd", "hat_sample_taps.cu",
+    # x, ys, xs, scale, out, B, H, W, C, K, P, dtype, stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/hat_sample.py:312 _fwd_taps_kernel",
+)
+
+KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD]

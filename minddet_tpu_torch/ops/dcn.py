@@ -1,0 +1,73 @@
+"""Modulated deformable convolution (DCNv2), counterpart of
+``minddet_tpu/ops/dcn.py``.
+
+1. Sampling: all K taps' bilinear samples times the modulation mask in one
+   call of the tap-grouped sampler (``ops/hat_sample.py``, a CUDA kernel on
+   the GPU) when Cin % 128 == 0, else the flat sampler (CPU only for now).
+2. Contraction: samples (B, P, K*Cin) x weights (K*Cin, Cout) as one
+   ``torch.matmul``, as the reference leaves it to XLA.
+
+Layouts (all NHWC, as in the reference): x (B, H, W, Cin); offsets (B, Ho,
+Wo, K, 2) as (dy, dx); mask (B, Ho, Wo, K) already sigmoid-ed; weights (kh,
+kw, Cin, Cout).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from minddet_tpu_torch.ops.hat_sample import hat_sample_2d, hat_sample_2d_taps
+
+
+def deform_conv2d(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    weights: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: int = 1,
+) -> torch.Tensor:
+    """Modulated deformable conv. Returns (B, Ho, Wo, Cout) in x.dtype."""
+    b, h, w, cin = x.shape
+    kh, kw, wcin, cout = weights.shape
+    if wcin != cin:
+        raise ValueError(f"weight Cin {wcin} != input Cin {cin}")
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    k = kh * kw
+    p = ho * wo
+
+    # sample coordinates in f32, position-major (1, P, K): output grid
+    # * stride - pad + tap offset; the learned offsets add on top
+    f32 = dict(dtype=torch.float32, device=x.device)
+    oy = (torch.arange(ho, **f32) * stride - padding)[:, None]
+    ox = (torch.arange(wo, **f32) * stride - padding)[None, :]
+    taps = torch.arange(k, **f32)
+    base_y = oy.expand(ho, wo).reshape(1, p, 1) + torch.div(
+        taps, kw, rounding_mode="floor").reshape(1, 1, k)
+    base_x = ox.expand(ho, wo).reshape(1, p, 1) + (taps % kw).reshape(1, 1, k)
+
+    offs = offsets.reshape(b, p, k, 2).float()
+    wmat = weights.reshape(k * cin, cout)
+
+    if cin % 128 == 0:
+        # tap-grouped sampler: coords (B, K, P), samples come out in the
+        # (B, P, K*Cin) layout the contraction consumes
+        ys = (base_y + offs[..., 0]).transpose(1, 2).contiguous()
+        xs = (base_x + offs[..., 1]).transpose(1, 2).contiguous()
+        scale = None if mask is None else \
+            mask.reshape(b, p, k).float().transpose(1, 2).contiguous()
+        samp = hat_sample_2d_taps(x, ys, xs, scale)
+    else:
+        ys = (base_y + offs[..., 0]).reshape(b, p * k)
+        xs = (base_x + offs[..., 1]).reshape(b, p * k)
+        scale = None if mask is None else mask.reshape(b, p * k)
+        samp = hat_sample_2d(x, ys, xs, scale).reshape(b, p, k * cin)
+
+    out = torch.matmul(samp.to(weights.dtype), wmat)
+    if bias is not None:
+        out = out + bias
+    return out.reshape(b, ho, wo, cout).to(x.dtype)

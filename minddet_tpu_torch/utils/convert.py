@@ -1,0 +1,112 @@
+"""Weights from the JAX package's flax variables into the port's modules.
+
+``centernet_from_flax(model, variables)`` takes the ``{"params",
+"batch_stats"}`` tree of the JAX ``CenterNet`` as nested dicts of numpy
+arrays and loads every parameter and running statistic of the port's
+``CenterNet``. The mapping is a bijection: each flax leaf is used once, each
+port parameter and buffer is set (``num_batches_tracked``, which eval never
+reads, is left alone), and anything missing, left over or of the wrong shape
+raises.
+
+Layouts:
+
+- ``nn.Conv2d`` weight (O, I, kh, kw) <- flax ``kernel`` (kh, kw, I, O);
+- ``nn.ConvTranspose2d`` weight (I, O, kh, kw) <- the flax ``ConvTranspose``
+  kernel (kh, kw, I, O) flipped in space: flax does not flip the kernel and
+  pads SAME k4/s2 by (2, 2), which is torch's ``padding=1`` with the flip
+  (the inverse of ``minddet_tpu/utils/convert.py``'s torch->flax rule);
+- ``ModulatedDeformConv.kernel`` keeps the flax (kh, kw, Cin, Cout) layout;
+- BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+  ``running_mean``/``running_var``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from minddet_tpu_torch.models.layers import DeconvBlock, ModulatedDeformConv
+
+# children whose flax scope has flax's automatic name
+_RENAMES = {DeconvBlock: {"bn1": "BatchNorm_0", "bn2": "BatchNorm_1"}}
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def _flax_leaves(tree: Dict, prefix: Tuple[str, ...] = ()
+                 ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flax_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _flax_scope(model: nn.Module, module_path: str) -> Tuple[str, ...]:
+    scope = []
+    parent = model
+    for name in module_path.split(".") if module_path else ():
+        scope.append(_RENAMES.get(type(parent), {}).get(name, name))
+        parent = getattr(parent, name)
+    return tuple(scope)
+
+
+def _source(module: nn.Module, leaf: str):
+    """(collection, flax leaf, transform) for one port tensor."""
+    if isinstance(module, nn.BatchNorm2d):
+        col, name = _BN_LEAVES[leaf]
+        return col, name, lambda a: a
+    if isinstance(module, ModulatedDeformConv):
+        return "params", leaf, lambda a: a  # the kernel as it is
+    if isinstance(module, nn.ConvTranspose2d) and leaf == "weight":
+        return "params", "kernel", \
+            lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if isinstance(module, nn.Conv2d) and leaf == "weight":
+        return "params", "kernel", lambda a: a.transpose(3, 2, 0, 1)
+    if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)) and leaf == "bias":
+        return "params", "bias", lambda a: a
+    raise KeyError(f"no flax counterpart for {type(module).__name__}.{leaf}")
+
+
+@torch.no_grad()
+def load_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load a flax ``{"params", "batch_stats"}`` tree into ``model`` (whose
+    module paths mirror the flax scopes) as a bijection; returns ``model``."""
+    leaves = {(col,) + path: arr
+              for col in ("params", "batch_stats")
+              for path, arr in _flax_leaves(variables.get(col, {}))}
+    extra_cols = set(variables) - {"params", "batch_stats"}
+    if extra_cols:
+        raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
+    used = set()
+    tensors = list(model.named_parameters()) + [
+        (n, b) for n, b in model.named_buffers()
+        if not n.endswith("num_batches_tracked")]
+    for name, tensor in tensors:
+        module_path, _, leaf = name.rpartition(".")
+        col, flax_leaf, fn = _source(model.get_submodule(module_path), leaf)
+        key = (col,) + _flax_scope(model, module_path) + (flax_leaf,)
+        if key not in leaves:
+            raise KeyError(f"{name}: flax leaf {'/'.join(key)} missing")
+        if key in used:
+            raise ValueError(f"flax leaf {'/'.join(key)} used twice")
+        used.add(key)
+        value = np.array(fn(leaves[key]), order="C")  # a writable copy
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"{name}: shape {tuple(tensor.shape)} != flax "
+                             f"{'/'.join(key)} {value.shape} after layout")
+        tensor.copy_(torch.from_numpy(value).to(tensor.dtype))
+    unused = sorted("/".join(k) for k in set(leaves) - used)
+    if unused:
+        raise ValueError(f"flax leaves with no port tensor: {unused}")
+    return model
+
+
+def centernet_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``CenterNet`` variables into the port's ``CenterNet``."""
+    return load_from_flax(model, variables)

@@ -140,4 +140,12 @@ HAT_SAMPLE_TAPS_FWD = CudaKernel(
     replaces="minddet_tpu/ops/hat_sample.py:312 _fwd_taps_kernel",
 )
 
-KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD]
+HAT_SAMPLE_TAPS_BWD = CudaKernel(
+    "hat_sample_taps_bwd", "hat_sample_taps_bwd.cu",
+    # g, x, ys, xs, scale, acc, dx, dys, dxs, dscale, B, H, W, C, K, P,
+    # dtype, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/hat_sample.py:363 _bwd_taps_kernel",
+)
+
+KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD]

@@ -1,8 +1,10 @@
-"""ResNet backbone with optional DCNv2 stages, eval path (counterpart of
+"""ResNet backbone with optional DCNv2 stages (counterpart of
 ``minddet_tpu/models/backbones/resnet.py``).
 
 Depth 18 (``BasicBlock``) only for now; ``Bottleneck`` and the scan path
-come later. NCHW in ``channels_last`` memory; BN uses running statistics.
+come later. NCHW in ``channels_last`` memory; BN uses the batch's
+statistics in train mode and the running ones in eval mode; convs compute
+in their input's dtype (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -12,24 +14,25 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from minddet_tpu_torch.models.layers import BN_EPS, ModulatedDeformConv
+from minddet_tpu_torch.models.layers import (BN_EPS, BatchNorm, Conv2d,
+                                             ModulatedDeformConv)
 
 
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, strides: int = 1,
                  dcn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, features, 3, stride=strides,
+        self.conv1 = Conv2d(in_channels, features, 3, stride=strides,
                                padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn1 = BatchNorm(features, eps=BN_EPS)
         self.conv2 = (ModulatedDeformConv(features, features) if dcn else
-                      nn.Conv2d(features, features, 3, padding=1, bias=False))
-        self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
+                      Conv2d(features, features, 3, padding=1, bias=False))
+        self.bn2 = BatchNorm(features, eps=BN_EPS)
         if strides != 1 or in_channels != features:
             # flax "SAME" pads a 1x1 stride-s conv by 0
-            self.downsample_conv = nn.Conv2d(in_channels, features, 1,
+            self.downsample_conv = Conv2d(in_channels, features, 1,
                                              stride=strides, bias=False)
-            self.downsample_bn = nn.BatchNorm2d(features, eps=BN_EPS)
+            self.downsample_bn = BatchNorm(features, eps=BN_EPS)
         else:
             self.downsample_conv = None
 
@@ -57,9 +60,9 @@ class ResNet(nn.Module):
             raise NotImplementedError(
                 f"depth {depth}: only {sorted(_ARCH)} is ported so far")
         block_cls, layers = _ARCH[depth]
-        self.conv1 = nn.Conv2d(3, WIDTHS[0], 7, stride=2, padding=3,
+        self.conv1 = Conv2d(3, WIDTHS[0], 7, stride=2, padding=3,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(WIDTHS[0], eps=BN_EPS)
+        self.bn1 = BatchNorm(WIDTHS[0], eps=BN_EPS)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.stage_names = []
         cin = WIDTHS[0]

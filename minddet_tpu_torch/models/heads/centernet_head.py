@@ -2,8 +2,9 @@
 (counterpart of ``minddet_tpu/models/heads/centernet_head.py``).
 
 Each branch is Conv3x3 -> ReLU -> Conv1x1; the heatmap branch's last bias
-starts at -2.19 and its output goes through ``sigmoid_clip`` in f32. Takes
-NCHW, returns NHWC heads as the reference does.
+starts at -2.19 and its output goes through ``sigmoid_clip`` in f32; wh
+and reg stay in the compute dtype. Takes NCHW, returns NHWC heads as the
+reference does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from minddet_tpu_torch.models.layers import Conv2d
 from minddet_tpu_torch.models.losses import sigmoid_clip
 
 
@@ -24,8 +26,8 @@ class _Branch(nn.Module):
     def __init__(self, in_channels: int, out_features: int,
                  final_bias: float = 0.0):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, HEAD_CONV, 3, padding=1)
-        self.out = nn.Conv2d(HEAD_CONV, out_features, 1)
+        self.conv = Conv2d(in_channels, HEAD_CONV, 3, padding=1)
+        self.out = Conv2d(HEAD_CONV, out_features, 1)
         self.final_bias = final_bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

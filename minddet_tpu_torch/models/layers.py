@@ -3,16 +3,75 @@
 Modules take and return NCHW tensors kept in ``torch.channels_last`` memory,
 so the NHWC view the DCN sampler reads (``x.permute(0, 2, 3, 1)``) is
 already contiguous and costs no copy.
+
+Compute dtype: as in flax (``dtype=bf16`` over f32 params), the convs and
+the DCN contraction run in their input's dtype, casting their weights to it
+(a no-op when the weights already have it, as in the serving model), and
+BatchNorm normalises in f32 and returns its input's dtype. ``CenterNet``
+casts the image to its ``dtype`` once; everything downstream follows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from minddet_tpu_torch.ops.dcn import deform_conv2d
 
 BN_EPS = 1e-5
+
+
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (weight and bias cast to
+    it, as flax's ``Conv(dtype=...)`` does)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with flax's ``BatchNorm(momentum=0.9)`` semantics.
+
+    Train mode normalises with the batch's mean and *biased* variance,
+    computed in f32 (f64 for an f64 input) whatever the input's dtype, and
+    updates the running statistics in place as flax does: ``ra = 0.9 * ra
+    + 0.1 * stat``, with the biased variance stored (``nn.BatchNorm2d``
+    stores the unbiased one). ``momentum`` keeps torch's meaning, the
+    weight of the new statistic (0.1 here is flax's 0.9). Eval mode is
+    ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        stat = torch.promote_types(x.dtype, torch.float32)
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight.to(stat), self.bias.to(stat), None, None, True,
+            0.0, self.eps)
+        with torch.no_grad():
+            # native_batch_norm returns invstd = (var + eps) ** -0.5
+            var = invstd.pow(-2) - self.eps
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+        return out
 
 
 class ModulatedDeformConv(nn.Module):
@@ -27,7 +86,7 @@ class ModulatedDeformConv(nn.Module):
 
     def __init__(self, in_channels: int, features: int):
         super().__init__()
-        self.conv_offset = nn.Conv2d(in_channels, 3 * 9, 3, padding=1)
+        self.conv_offset = Conv2d(in_channels, 3 * 9, 3, padding=1)
         self.kernel = nn.Parameter(torch.empty(3, 3, in_channels, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -36,7 +95,8 @@ class ModulatedDeformConv(nn.Module):
         b, ho, wo, _ = off_mask.shape
         offsets = off_mask[..., :2 * k].reshape(b, ho, wo, k, 2)
         mask = torch.sigmoid(off_mask[..., 2 * k:])
-        y = deform_conv2d(x.permute(0, 2, 3, 1), offsets, mask, self.kernel)
+        y = deform_conv2d(x.permute(0, 2, 3, 1), offsets, mask,
+                          self.kernel.to(x.dtype))
         return y.permute(0, 3, 1, 2)
 
 
@@ -51,10 +111,9 @@ class DeconvBlock(nn.Module):
     def __init__(self, in_channels: int, features: int):
         super().__init__()
         self.dcn = ModulatedDeformConv(in_channels, features)
-        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
-        self.up = nn.ConvTranspose2d(features, features, 4, stride=2,
-                                     padding=1)
-        self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn1 = BatchNorm(features, eps=BN_EPS)
+        self.up = ConvTranspose2d(features, features, 4, stride=2, padding=1)
+        self.bn2 = BatchNorm(features, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.dcn(x)))

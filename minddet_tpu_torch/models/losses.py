@@ -1,14 +1,61 @@
 """Losses of the port (counterpart of ``minddet_tpu/models/losses.py``).
 
-Only ``sigmoid_clip`` so far, which the CenterNet heatmap head uses; the
-training losses come with the training step.
+The CenterNet objective: ``sigmoid_clip`` for the heatmap head, the
+penalty-reduced focal loss and the gathered regression loss. All in f32,
+with explicit masks.
 """
 
 from __future__ import annotations
 
 import torch
 
+from minddet_tpu_torch.ops.decode import gather_feature
+
 
 def sigmoid_clip(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Sigmoid clamped to [eps, 1 - eps] so log() is safe."""
     return torch.clamp(torch.sigmoid(x), eps, 1.0 - eps)
+
+
+def centernet_focal_loss(pred: torch.Tensor, target: torch.Tensor,
+                         alpha: float = 2.0, beta: float = 4.0
+                         ) -> torch.Tensor:
+    """Penalty-reduced pixelwise focal loss on an already-sigmoided heatmap.
+
+    Positives are pixels where target == 1; all others are negatives
+    weighted by (1 - target)^beta. Normalised by the positive count (at
+    least 1).
+    """
+    target = target.float()
+    pos = (target == 1.0).float()
+    neg = (target < 1.0).float()
+    neg_weights = torch.pow(1.0 - target, beta)
+    pred = pred.float()
+    pos_loss = torch.log(pred) * torch.pow(1.0 - pred, alpha) * pos
+    neg_loss = (torch.log(1.0 - pred) * torch.pow(pred, alpha) * neg_weights
+                * neg)
+    num_pos = torch.clamp(pos.sum(), min=1.0)
+    return -(pos_loss.sum() + neg_loss.sum()) / num_pos
+
+
+def gather_reg_loss(output: torch.Tensor, mask: torch.Tensor,
+                    ind: torch.Tensor, target: torch.Tensor,
+                    mode: str = "l1") -> torch.Tensor:
+    """Masked regression loss at gathered object centres.
+
+    output (B, H, W, C) dense head; ind (B, O) flat H*W indices; mask (B, O)
+    validity; target (B, O, C). The sum of the L1 (or smooth-L1) terms over
+    2 * sum(mask) + 1e-4, the reference's "num = sum(mask) * 2" included.
+    """
+    if mode not in ("l1", "sl1"):
+        raise ValueError(f"mode must be l1/sl1, got {mode}")
+    pred = gather_feature(output, ind).float()  # (B, O, C)
+    mask = mask.float()
+    num = mask.sum() * 2.0
+    diff = (pred - target.float()) * mask[..., None]
+    absd = torch.abs(diff)
+    if mode == "l1":
+        loss = absd.sum()
+    else:
+        loss = torch.where(absd < 1.0, 0.5 * diff * diff, absd - 0.5).sum()
+    return loss / (num + 1e-4)

@@ -7,6 +7,12 @@
 2. Contraction: samples (B, P, K*Cin) x weights (K*Cin, Cout) as one
    ``torch.matmul``, as the reference leaves it to XLA.
 
+Gradients flow to x, offsets, mask, weights and bias: through the
+sampler's autograd Function (its backward a CUDA kernel on the GPU) and
+autograd of the rest. The backward adds no copy: the contraction's input
+gradient reaches the sampler's backward as the contiguous (B, P, K*Cin)
+tensor it takes.
+
 Layouts (all NHWC, as in the reference): x (B, H, W, Cin); offsets (B, Ho,
 Wo, K, 2) as (dy, dx); mask (B, Ho, Wo, K) already sigmoid-ed; weights (kh,
 kw, Cin, Cout).

@@ -1,4 +1,4 @@
-"""Modulated bilinear sampling, the DCNv2 gather (forward only).
+"""Modulated bilinear sampling, the DCNv2 gather, and its backward.
 
 Counterpart of ``minddet_tpu/ops/hat_sample.py``:
 
@@ -8,36 +8,59 @@ with every corner outside the image contributing zero.
 
 ``hat_sample_2d_taps`` is the tap-grouped form the DCN layers use: x (B, H,
 W, C) sampled at tap-major coordinates (B, K, P) into (B, P, K*C), tap k in
-channels [k*C, (k+1)*C). On a CUDA tensor it launches the hand-written
-kernel ``csrc/hat_sample_taps.cu``; on a CPU tensor it runs the plain version
-``hat_sample_2d_taps_plain``, the corner gather of the reference's XLA path
-(``bilinear.py:bilinear_sample_2d`` + ``_fwd_xla``, i.e. ``_xla_taps``).
+channels [k*C, (k+1)*C). It is differentiable wrt x, ys, xs and scale
+through a ``torch.autograd.Function``. On a CUDA tensor the forward launches
+``csrc/hat_sample_taps.cu`` and the backward ``csrc/hat_sample_taps_bwd.cu``;
+on a CPU tensor they run the plain versions ``hat_sample_2d_taps_plain`` and
+``hat_sample_2d_taps_bwd_plain``.
 
-``hat_sample_2d`` (flat (B, P) coordinates) has only its plain version: its
-kernel (``_fwd_kernel``) is not ported, so on a CUDA tensor it raises.
+The gradient is that of the reference's XLA path, the corner gather
+(``bilinear.py:bilinear_sample_2d`` + ``_fwd_xla``, i.e. ``_xla_taps``):
+the bilinear weights are differentiated with ``floor`` held fixed, so at an
+integer coordinate dys and dxs are forward differences x[y0+1] - x[y0].
+The reference's Pallas backward (``_bwd_taps_kernel``) takes the hat
+function's subgradient on the open support instead and returns zero there,
+which leaves zero-initialised offset convs at zero for good; the port does
+not copy that.
 
-Neither function has a backward yet; the backward kernel comes with the
-training step, and both raise when an input requires grad.
+``hat_sample_2d`` (flat (B, P) coordinates) has only its plain version,
+differentiable by autograd on the CPU: its kernels (``_fwd_kernel``,
+``_bwd_kernel``) are not ported, so on a CUDA tensor it raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from minddet_tpu_torch.kernels import HAT_SAMPLE_TAPS_FWD, cuda_stream
+from minddet_tpu_torch.kernels import (HAT_SAMPLE_TAPS_BWD,
+                                       HAT_SAMPLE_TAPS_FWD, cuda_stream)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
 _INT32_MAX = 2 ** 31 - 1
 
 
-def _no_grad_inputs(name, *tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward yet (the backward kernel comes with the "
-            "training step); call it under torch.no_grad()/inference_mode()")
+def _corners(ys: torch.Tensor, xs: torch.Tensor):
+    """The four (cy, cx, weight) corners of f32 coordinates, from floor."""
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    dy = ys - y0
+    dx = xs - x0
+    return ((y0, x0, (1 - dy) * (1 - dx)), (y0, x0 + 1, (1 - dy) * dx),
+            (y0 + 1, x0, dy * (1 - dx)), (y0 + 1, x0 + 1, dy * dx))
+
+
+def _corner_index(cy, cx, h, w):
+    """(in-bounds mask, flat H*W index clamped into the image)."""
+    inb = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+    return inb, (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long()
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions sum in f32, or in x's type where that is wider."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def _sample_plain(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -45,30 +68,19 @@ def _sample_plain(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     """(B, H, W, C) at coordinates (B, N) -> (B, N, C) in x.dtype.
 
     Four corners from ``floor``; each in-bounds corner is kept on its own;
-    weights and the sum in f32, the scale applied last, one rounding to
-    x.dtype at the end.
+    weights in f32 and the sum in f32 (f64 for an f64 x), the scale applied
+    last, one rounding to x.dtype at the end. No in-place op, so autograd
+    differentiates it.
     """
     b, h, w, c = x.shape
-    flat = x.reshape(b, h * w, c).float()
-    ys = ys.float()
-    xs = xs.float()
-    y0 = torch.floor(ys)
-    x0 = torch.floor(xs)
-    dy = ys - y0
-    dx = xs - x0
-    out = torch.zeros(b, ys.shape[1], c, dtype=torch.float32, device=x.device)
-    for cy, cx, wgt in (
-        (y0, x0, (1 - dy) * (1 - dx)),
-        (y0, x0 + 1, (1 - dy) * dx),
-        (y0 + 1, x0, dy * (1 - dx)),
-        (y0 + 1, x0 + 1, dy * dx),
-    ):
-        inb = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
-        idx = (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long()
+    flat = x.reshape(b, h * w, c).to(_acc_dtype(x))
+    out = 0
+    for cy, cx, wgt in _corners(ys.float(), xs.float()):
+        inb, idx = _corner_index(cy, cx, h, w)
         rows = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-        out += rows * (wgt * inb)[..., None]
+        out = out + rows * (wgt * inb)[..., None]
     if scale is not None:
-        out *= scale.float()[..., None]
+        out = out * scale.float()[..., None]
     return out.to(x.dtype)
 
 
@@ -84,13 +96,65 @@ def hat_sample_2d_taps_plain(x: torch.Tensor, ys: torch.Tensor,
     return out.reshape(b, k, p, c).transpose(1, 2).reshape(b, p, k * c)
 
 
+def hat_sample_2d_taps_bwd_plain(
+        g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+        scale: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the sampler's backward, on any device.
+
+    g (B, P, K*C) -> (dx (B, H, W, C) in x.dtype, dys, dxs, dscale, each
+    (B, K, P) f32; dscale None when scale is None). With fy = ys - floor(ys),
+    fx likewise, v_ij the corner rows (zero out of bounds) and w_ij their
+    bilinear weights, summing over channels:
+
+        dscale = sum g * sum_ij w_ij v_ij
+        dys    = scale * sum g * ((1-fx)(v10 - v00) + fx (v11 - v01))
+        dxs    = scale * sum g * ((1-fy)(v01 - v00) + fy (v11 - v10))
+        dx[corner ij] += scale * w_ij * g   (in-bounds corners only)
+
+    All in f32 (f64 for an f64 x; ``index_add_`` into an image of that
+    type), dx rounded once. It equals autograd of
+    ``hat_sample_2d_taps_plain``.
+    """
+    b, h, w, c = x.shape
+    k, p = ys.shape[1], ys.shape[2]
+    acc = _acc_dtype(x)
+    gf = g.to(acc).reshape(b, p, k, c).transpose(1, 2).reshape(b, k * p, c)
+    flat = x.reshape(b, h * w, c).to(acc)
+    ysf = ys.float().reshape(b, k * p)
+    xsf = xs.float().reshape(b, k * p)
+    sc = (torch.ones_like(ysf) if scale is None
+          else scale.float().reshape(b, k * p))
+    image0 = (torch.arange(b, device=x.device) * (h * w))[:, None]
+    dx = torch.zeros(b * h * w, c, dtype=acc, device=x.device)
+    dots = []
+    weights = []
+    for cy, cx, wgt in _corners(ysf, xsf):
+        inb, idx = _corner_index(cy, cx, h, w)
+        rows = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+        dots.append((rows * gf).sum(-1) * inb)
+        weights.append(wgt)
+        dx.index_add_(0, (idx + image0).reshape(-1),
+                      (gf * (sc * wgt * inb)[..., None]).reshape(-1, c))
+    d00, d01, d10, d11 = dots
+    fy = ysf - torch.floor(ysf)
+    fx = xsf - torch.floor(xsf)
+    dys = sc * ((1 - fx) * (d10 - d00) + fx * (d11 - d01))
+    dxs = sc * ((1 - fy) * (d01 - d00) + fy * (d11 - d10))
+    dsc = sum(wgt * d for wgt, d in zip(weights, dots))
+    shape = (b, k, p)
+    return (dx.reshape(b, h, w, c).to(x.dtype), dys.float().reshape(shape),
+            dxs.float().reshape(shape),
+            None if scale is None else dsc.float().reshape(shape))
+
+
 def _check_taps(x, ys, xs, scale) -> None:
     if x.dim() != 4 or ys.dim() != 3:
         raise ValueError(f"expected x (B,H,W,C) and ys (B,K,P); got "
                          f"{tuple(x.shape)} and {tuple(ys.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    b, _, _, c = x.shape
+    b, h, w, c = x.shape
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8 (16-byte rows)")
     if ys.shape[0] != b:
@@ -110,8 +174,8 @@ def _check_taps(x, ys, xs, scale) -> None:
                          "of a channels_last NCHW activation is)")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    if b * ys.shape[1] * ys.shape[2] * c > _INT32_MAX:
-        raise ValueError("output too large for the kernel's 32-bit indices")
+    if b * max(ys.shape[1] * ys.shape[2], h * w) * c > _INT32_MAX:
+        raise ValueError("tensors too large for the kernels' 32-bit indices")
 
 
 def _taps_cuda(x, ys, xs, scale) -> torch.Tensor:
@@ -130,20 +194,91 @@ def _taps_cuda(x, ys, xs, scale) -> torch.Tensor:
     return out
 
 
+def _taps_bwd_cuda(g, x, ys, xs, scale):
+    sc = torch.ones_like(ys) if scale is None else scale
+    _check_taps(x, ys, xs, sc)
+    b, h, w, c = x.shape
+    k, p = ys.shape[1], ys.shape[2]
+    if (g.shape != (b, p, k * c) or g.dtype != x.dtype
+            or g.device != x.device or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous {x.dtype} (B, P, K*C) = "
+                         f"{(b, p, k * c)} tensor on {x.device}; got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    # each sample's C/VEC threads sum their partial coordinate gradients
+    # with warp shuffles: a power of two up to 32, or whole warps
+    lanes = c // _VEC[x.dtype]
+    if lanes % 32 and lanes & (lanes - 1):
+        raise ValueError(f"C={c}: C/{_VEC[x.dtype]} must be a power of two "
+                         "or a multiple of 32 for the backward kernel")
+    dcoords = torch.zeros(3, b, k, p, dtype=torch.float32, device=x.device)
+    # the f32 scatter-add image; for an f32 x it is dx itself
+    acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
+    dx = acc if x.dtype == torch.float32 else torch.empty(
+        b, h, w, c, dtype=x.dtype, device=x.device)
+    fn = HAT_SAMPLE_TAPS_BWD.fn()
+    HAT_SAMPLE_TAPS_BWD.launches += 1
+    err = fn(g.data_ptr(), x.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+             sc.data_ptr(), acc.data_ptr(), dx.data_ptr(),
+             dcoords[0].data_ptr(), dcoords[1].data_ptr(),
+             dcoords[2].data_ptr(), b, h, w, c, k, p, _DTYPE_CODE[x.dtype],
+             cuda_stream(x.device))
+    HAT_SAMPLE_TAPS_BWD.check(err)
+    return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def hat_sample_2d_taps_bwd(
+        g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+        scale: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The sampler's backward (see ``hat_sample_2d_taps_bwd_plain``): a
+    CUDA ``x`` launches the ``hat_sample_taps_bwd`` kernel (g contiguous in
+    x's dtype; C/VEC a power of two or a multiple of 32, VEC = 4 f32 or 8
+    bf16 values) and raises on anything it does not take; a CPU ``x`` runs
+    the plain version."""
+    if _device_of(x) == "cuda":
+        return _taps_bwd_cuda(g, x, ys, xs, scale)
+    return hat_sample_2d_taps_bwd_plain(g, x, ys, xs, scale)
+
+
+class _TapsSample(torch.autograd.Function):
+    """``hat_sample_2d_taps`` with its backward; saves (x, ys, xs, scale)
+    as the reference's ``_hat_taps_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, ys, xs, scale):
+        ctx.save_for_backward(x, ys, xs, scale)
+        if _device_of(x) == "cuda":
+            return _taps_cuda(x, ys, xs, scale)
+        return hat_sample_2d_taps_plain(x, ys, xs, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ys, xs, scale = ctx.saved_tensors
+        return hat_sample_2d_taps_bwd(g, x, ys, xs, scale)
+
+
 def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Tap-grouped modulated sampling: (B, H, W, C) at (B, K, P) coords ->
     (B, P, K*C) in x.dtype, tap k in channels [k*C, (k+1)*C).
 
-    A CUDA ``x`` launches the ``hat_sample_taps_fwd`` kernel (ys, xs, scale
-    contiguous f32 on the same device; bf16 or f32 x with C % 8 == 0) and
-    raises on anything it does not take; a CPU ``x`` runs the plain version.
+    Differentiable wrt x, ys, xs and scale (``scale=None`` is ones, with no
+    gradient). A CUDA ``x`` launches the ``hat_sample_taps_fwd`` kernel, and
+    ``hat_sample_taps_bwd`` in the backward (ys, xs, scale contiguous f32
+    on the same device; bf16 or f32 x with C % 8 == 0) and raises on
+    anything they do not take; a CPU ``x`` runs the plain versions.
     """
-    _no_grad_inputs("hat_sample_2d_taps", x, ys, xs, scale)
-    if x.device.type == "cuda":
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, ys, xs, scale)):
+        return _TapsSample.apply(x, ys, xs, scale)
+    if _device_of(x) == "cuda":
         return _taps_cuda(x, ys, xs, scale)
-    if x.device.type != "cpu":
-        raise ValueError(f"unsupported device {x.device}")
     return hat_sample_2d_taps_plain(x, ys, xs, scale)
 
 
@@ -151,10 +286,10 @@ def hat_sample_2d(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flat modulated sampling: (B, H, W, C) at (B, P) coords -> (B, P, C).
 
-    Plain version only: on a CUDA tensor it raises, because the flat kernel
-    (``minddet_tpu/ops/hat_sample.py:_fwd_kernel``) is not ported yet.
+    Plain version only, differentiable by autograd: on a CUDA tensor it
+    raises, because the flat kernels (``minddet_tpu/ops/hat_sample.py:
+    _fwd_kernel`` and ``_bwd_kernel``) are not ported yet.
     """
-    _no_grad_inputs("hat_sample_2d", x, ys, xs, scale)
     if x.device.type != "cpu":
         raise NotImplementedError(
             "hat_sample_2d on the GPU needs the flat sampler kernel "

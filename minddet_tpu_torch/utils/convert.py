@@ -18,11 +18,16 @@ Layouts:
 - ``ModulatedDeformConv.kernel`` keeps the flax (kh, kw, Cin, Cout) layout;
 - BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``.
+
+``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
+AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
+``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and
+the same bijection checks, so a JAX training run resumes in the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -73,20 +78,13 @@ def _source(module: nn.Module, leaf: str):
     raise KeyError(f"no flax counterpart for {type(module).__name__}.{leaf}")
 
 
-@torch.no_grad()
-def load_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
-    """Load a flax ``{"params", "batch_stats"}`` tree into ``model`` (whose
-    module paths mirror the flax scopes) as a bijection; returns ``model``."""
-    leaves = {(col,) + path: arr
-              for col in ("params", "batch_stats")
-              for path, arr in _flax_leaves(variables.get(col, {}))}
-    extra_cols = set(variables) - {"params", "batch_stats"}
-    if extra_cols:
-        raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
+def _matched(model: nn.Module, tensors, leaves: Dict
+             ) -> List[Tuple[str, torch.Tensor, np.ndarray]]:
+    """Pair every (name, port tensor) with its flax leaf in ``leaves``
+    (keyed by (collection,) + flax path), laid out as the port's: each leaf
+    used once, none left over, shapes equal; raises otherwise."""
     used = set()
-    tensors = list(model.named_parameters()) + [
-        (n, b) for n, b in model.named_buffers()
-        if not n.endswith("num_batches_tracked")]
+    pairs = []
     for name, tensor in tensors:
         module_path, _, leaf = name.rpartition(".")
         col, flax_leaf, fn = _source(model.get_submodule(module_path), leaf)
@@ -100,13 +98,81 @@ def load_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{name}: shape {tuple(tensor.shape)} != flax "
                              f"{'/'.join(key)} {value.shape} after layout")
-        tensor.copy_(torch.from_numpy(value).to(tensor.dtype))
+        pairs.append((name, tensor, value))
     unused = sorted("/".join(k) for k in set(leaves) - used)
     if unused:
         raise ValueError(f"flax leaves with no port tensor: {unused}")
+    return pairs
+
+
+@torch.no_grad()
+def load_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load a flax ``{"params", "batch_stats"}`` tree into ``model`` (whose
+    module paths mirror the flax scopes) as a bijection; returns ``model``."""
+    leaves = {(col,) + path: arr
+              for col in ("params", "batch_stats")
+              for path, arr in _flax_leaves(variables.get(col, {}))}
+    extra_cols = set(variables) - {"params", "batch_stats"}
+    if extra_cols:
+        raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
+    tensors = list(model.named_parameters()) + [
+        (n, b) for n, b in model.named_buffers()
+        if not n.endswith("num_batches_tracked")]
+    for _, tensor, value in _matched(model, tensors, leaves):
+        tensor.copy_(torch.from_numpy(value).to(tensor.dtype))
     return model
 
 
 def centernet_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     """Load the JAX ``CenterNet`` variables into the port's ``CenterNet``."""
     return load_from_flax(model, variables)
+
+
+def _adam_states(state) -> List:
+    """Every node of an optax state tree with ``mu``, ``nu`` and ``count``
+    (``ScaleByAdamState``), found by its fields: the port imports no optax."""
+    if all(hasattr(state, f) for f in ("mu", "nu", "count")):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [s for sub in state for s in _adam_states(sub)]
+    inner = getattr(state, "inner_state", None)
+    return [] if inner is None else _adam_states(inner)
+
+
+@torch.no_grad()
+def adamw_state_from_optax(model: nn.Module,
+                           optimizer: torch.optim.Optimizer,
+                           opt_state) -> torch.optim.Optimizer:
+    """Load optax's Adam state (``mu``, ``nu``: param-shaped trees of
+    arrays; ``count``) into ``optimizer``'s ``exp_avg``, ``exp_avg_sq`` and
+    ``step`` for every parameter of ``model``. ``opt_state`` is the state of
+    the reference's ``adamw`` chain (clip, then masked AdamW), leaves as
+    numpy or JAX arrays; it must hold exactly one Adam state. Returns
+    ``optimizer``."""
+    found = _adam_states(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state (mu, nu, count) in "
+                         f"opt_state, found {len(found)}")
+    adam = found[0]
+    count = float(np.asarray(adam.count))
+    params = list(model.named_parameters())
+    moments = {}
+    for field, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        leaves = {("params",) + path: arr
+                  for path, arr in _flax_leaves(tree)}
+        for name, _, value in _matched(model, params, leaves):
+            moments.setdefault(name, {})[field] = value
+    names = {id(p): n for n, p in params}
+    if {id(p) for g in optimizer.param_groups for p in g["params"]} != set(
+            names):
+        raise ValueError("the optimizer's parameters are not the model's")
+    for group in optimizer.param_groups:
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            state = optimizer.state[p]
+            for field, value in moments[names[id(p)]].items():
+                state[field] = torch.from_numpy(value).to(p.device, p.dtype)
+            state["step"] = torch.tensor(
+                count, dtype=torch.float32,
+                device=p.device if on_device else "cpu")
+    return optimizer

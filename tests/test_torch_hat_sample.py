@@ -5,8 +5,14 @@ the JAX XLA path (the corner gather) in f32 to 1e-5: same corners, same f32
 weights, scale applied last. Against the Pallas kernel (run in interpret
 mode) the tolerance is 2e-2, because that kernel rounds its hat weights and
 x to bf16 before its MXU dot. Inputs are made with numpy from a seed.
+
+Gradients follow the XLA path's convention (floor held fixed, so forward
+differences at integer coordinates), which the reference's Pallas backward
+does not: ``test_reference_pallas_taps_zero_coord_grad_at_integer_coords``
+pins that difference.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,13 +103,126 @@ def test_flat_plain_matches_jax_xla(h, w, c, p, spread):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_sampler_refuses_grad():
-    """No backward yet: an input that requires grad raises."""
+def test_sampler_backward_on_cpu():
+    """The sampler is differentiable on the CPU through its autograd
+    Function, with and without a scale (scale None gets no gradient)."""
     x, ys, xs, sc = _port(*_taps_case(1, 8, 8, 8, 10, 9, 1.0))
-    with pytest.raises(RuntimeError, match="no backward"):
-        ths.hat_sample_2d_taps(x.requires_grad_(), ys, xs, sc)
+    for t in (x, ys, xs, sc):
+        t.requires_grad_()
+    out = ths.hat_sample_2d_taps(x, ys, xs, sc)
+    out.square().sum().backward()
+    for t in (x, ys, xs, sc):
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert t.grad.dtype == torch.float32 and t.grad.abs().sum() > 0
+    dx, dys, dxs, dsc = ths.hat_sample_2d_taps_bwd(
+        torch.ones_like(out), x.detach(), ys.detach(), xs.detach(), None)
+    assert dsc is None and dx.shape == x.shape and dys.shape == ys.shape
     with torch.no_grad():
         ths.hat_sample_2d_taps(x, ys, xs, sc)
+
+
+def _integer_taps(b, h, w, c, seed=0):
+    """A 3x3 DCN's coordinates with zero offsets: every sample on the
+    integer grid, as a zero-initialised offset conv gives them."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(b, h, w, c).astype(np.float32)
+    iy = np.repeat(np.arange(h), w)[None, None]
+    ix = np.tile(np.arange(w), h)[None, None]
+    taps = np.arange(9)[None, :, None]
+    ys = np.broadcast_to(iy - 1 + taps // 3, (b, 9, h * w)).astype(np.float32)
+    xs = np.broadcast_to(ix - 1 + taps % 3, (b, 9, h * w)).astype(np.float32)
+    sc = rs.rand(b, 9, h * w).astype(np.float32)
+    return x, ys, xs, sc
+
+
+def _bwd_cases():
+    return [
+        ("integer", _integer_taps(2, 8, 8, 128, seed=4)),
+        ("spread1.5", _taps_case(2, 16, 16, 128, 300, 9, 1.5, seed=5)),
+        ("spread80", _taps_case(2, 16, 16, 128, 200, 9, 80.0, seed=6)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(3), ids=["integer", "spread1.5",
+                                                "spread80"])
+def test_taps_bwd_plain_matches_autograd(case):
+    """The explicit backward equals autograd of the plain forward: f32,
+    atol 1e-4 (sums of 4*C products in another order; values up to ~60)."""
+    _, (x, ys, xs, sc) = _bwd_cases()[case]
+    args = [t.requires_grad_() for t in _port(x, ys, xs, sc)]
+    out = ths.hat_sample_2d_taps_plain(*args)
+    g = torch.from_numpy(np.random.RandomState(7).randn(*out.shape)
+                         .astype(np.float32))
+    ref = torch.autograd.grad(out, args, g)
+    got = ths.hat_sample_2d_taps_bwd_plain(g, *[a.detach() for a in args])
+    for name, a, r in zip(("dx", "dys", "dxs", "dscale"), got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("case", range(3), ids=["integer", "spread1.5",
+                                                "spread80"])
+def test_taps_grads_match_jax_xla(case):
+    """The port's backward (through ``hat_sample_2d_taps``) equals
+    ``jax.vjp`` of the reference's XLA path, at integer coordinates too:
+    f32, atol 1e-4 (values up to ~60, summed in another order)."""
+    name, (x, ys, xs, sc) = _bwd_cases()[case]
+    fn = lambda *a: jhs.hat_sample_2d_taps(*a, implementation="xla")
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, (x, ys, xs, sc)))
+    g = np.random.RandomState(8).randn(*out.shape).astype(np.float32)
+    ref = vjp(jnp.asarray(g))
+    args = [t.requires_grad_() for t in _port(x, ys, xs, sc)]
+    got = torch.autograd.grad(ths.hat_sample_2d_taps(*args), args,
+                              torch.from_numpy(g))
+    for label, a, r in zip(("dx", "dys", "dxs", "dscale"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-4, err_msg=label)
+    if name == "integer":  # forward differences, not zero
+        assert np.abs(got[1].numpy()).max() > 1.0
+        assert np.abs(got[2].numpy()).max() > 1.0
+
+
+def test_reference_pallas_taps_zero_coord_grad_at_integer_coords():
+    """Pins a fault of the reference, which the port does not copy: at
+    integer coordinates the Pallas backward (``_bwd_taps_kernel``, hat
+    subgradient ``sign(r - ys)`` on the open support) returns exactly zero
+    coordinate gradients, where the XLA path returns forward differences.
+    dx and dscale agree between the two (within the Pallas kernel's bf16
+    rounding). 8x8x128, 9 taps, f32, interpret mode."""
+    x, ys, xs, sc = _integer_taps(1, 8, 8, 128)
+    g = jnp.asarray(np.random.RandomState(5).randn(1, 64, 9 * 128)
+                    .astype(np.float32))
+    grads = {}
+    for impl, kw in (("pallas", dict(interpret=True)), ("xla", {})):
+        fn = lambda *a: jhs.hat_sample_2d_taps(*a, implementation=impl, **kw)
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, (x, ys, xs, sc)))
+        grads[impl] = [np.asarray(t) for t in vjp(g)]
+    p_dx, p_dys, p_dxs, p_dsc = grads["pallas"]
+    x_dx, x_dys, x_dxs, x_dsc = grads["xla"]
+    assert np.abs(p_dys).max() == 0.0 and np.abs(p_dxs).max() == 0.0
+    assert np.abs(x_dys).max() > 1.0 and np.abs(x_dxs).max() > 1.0
+    np.testing.assert_allclose(p_dx, x_dx, rtol=2e-2, atol=5e-2)
+    np.testing.assert_allclose(p_dsc, x_dsc, rtol=2e-2, atol=5e-1)
+
+
+def test_flat_grads_match_jax_xla():
+    """The flat sampler's plain version under autograd equals ``jax.vjp``
+    of the reference's XLA path (f32, atol 1e-4)."""
+    rs = np.random.RandomState(9)
+    x = rs.randn(2, 10, 12, 16).astype(np.float32)
+    ys = (rs.rand(2, 150) * 10 + rs.randn(2, 150) * 2).astype(np.float32)
+    xs = (rs.rand(2, 150) * 12 + rs.randn(2, 150) * 2).astype(np.float32)
+    ys[:, :20] = np.round(ys[:, :20])  # some on the integer grid
+    sc = rs.rand(2, 150).astype(np.float32)
+    fn = lambda *a: jhs.hat_sample_2d(*a, implementation="xla")
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, (x, ys, xs, sc)))
+    g = rs.randn(*out.shape).astype(np.float32)
+    ref = vjp(jnp.asarray(g))
+    args = [t.requires_grad_() for t in _port(x, ys, xs, sc)]
+    got = torch.autograd.grad(ths.hat_sample_2d(*args), args,
+                              torch.from_numpy(g))
+    for label, a, r in zip(("dx", "dys", "dxs", "dscale"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-4, err_msg=label)
 
 
 @pytest.fixture
@@ -134,3 +253,31 @@ def test_flat_sampler_raises_on_cuda(cuda):
     ys = torch.zeros(1, 10, device=cuda)
     with pytest.raises(NotImplementedError, match="_fwd_kernel"):
         ths.hat_sample_2d(x, ys, ys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spread", [0.0, 1.5])
+def test_taps_bwd_kernel_matches_plain(cuda, dtype, spread):
+    """Backward kernel vs plain version on the card, the plain version in
+    f32 on the same (widened) inputs: dys, dxs, dscale atol 1e-4 + rtol
+    1e-5 (f32 sums in atomic order); dx f32 atol/rtol 1e-5, bf16 within
+    2**-8 relative (one rounding) + 1e-5."""
+    if spread == 0.0:
+        x, ys, xs, sc = _integer_taps(2, 64, 64, 128)
+    else:
+        x, ys, xs, sc = _taps_case(2, 64, 64, 128, 4096, 9, spread)
+    g = np.random.RandomState(3).randn(2, ys.shape[2], 9 * 128)
+    x, ys, xs, sc, g = (t.to(cuda) for t in _port(x, ys, xs, sc,
+                                                  g.astype(np.float32)))
+    got = ths.hat_sample_2d_taps_bwd(g.to(dtype), x.to(dtype), ys, xs, sc)
+    torch.cuda.synchronize()
+    ref = ths.hat_sample_2d_taps_bwd_plain(g.to(dtype).float(),
+                                           x.to(dtype).float(), ys, xs, sc)
+    assert got[0].dtype == dtype
+    dx_tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+              else dict(rtol=2 ** -8, atol=1e-5))
+    torch.testing.assert_close(got[0].float(), ref[0], **dx_tol)
+    for a, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-4)
+    assert got[1].abs().max() > 0 and got[2].abs().max() > 0

@@ -9,12 +9,16 @@ Phases (any failure raises and exits non-zero):
 2. build every hand-written kernel from ``minddet_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it, in f32 and bf16, with its time (CUDA events,
-   warm L2), the plain version's time and the memory/compute bound: the
-   sampler forward (K1f) and its backward (K1b), the latter also at
-   integer coordinates (spread 0, a DCN layer with zero offsets);
+   the main paths give it, with its time (CUDA events, warm L2), the plain
+   version's time and the memory/compute bound: the sampler forward (K1f)
+   and its backward (K1b) in f32 and bf16, the latter also at integer
+   coordinates (spread 0, a DCN layer with zero offsets); the rotated-box
+   intersection (K4) in f32 at the rotated NMS's (B, 900, 5)^2, B = 1 and
+   8, on boxes drawn like decoded candidates, and on exact cases;
 4. end to end in f32 (TF32 off): ``CenterNet`` predict on the card against
    the same model on the CPU (the plain path);
+   b. the same for PointPillars predict from raw points at batch 1: heads,
+      anchor mask, top-900 candidates, IoU matrix, kept lists;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics;
@@ -24,13 +28,16 @@ Phases (any failure raises and exits non-zero):
       512x512, bf16, top-100) answers requests at batch 1 and 16;
    b. training: the flagship train step (``train_entry``: f32 params, bf16
       compute, batch TRAIN_BATCH) takes 2 warm-up and 10 timed steps on one
-      batch; the loss must stay finite and fall.
+      batch; the loss must stay finite and fall;
+   c. PointPillars serving (``pointpillars_entry``: KITTI car, f32, 18,000
+      points per cloud) answers 2 warm-up and 10 timed requests at batch 1
+      and 8; K4 launches once per request and no other kernel launches.
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
-``--profile`` also breaks the serving requests and 3 train steps down with
-``torch.profiler``.
+``--profile`` also breaks the serving requests (both models) and 3 train
+steps down with ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -290,6 +297,142 @@ def check_taps_bwd_kernel(dev, gen):
     return cases
 
 
+# K4: f32 arithmetic and compare operations per pair, counted from
+# csrc/rotated_iou.cu (selects and the integer slot tests not counted):
+# 10 for B's pair-relative corners; per clip edge 2 (edge vector) + 8 x 5
+# (sides) + 8 x 11 (2 inside tests, den, |den| test, t, ix, iy); the
+# shoelace 8 x 4 + 2.
+OPS_PER_PAIR = 10 + 4 * (2 + 8 * 5 + 8 * 11) + 8 * 4 + 2
+# The least work for the same areas: a pair whose centres lie farther apart
+# than the sum of the boxes' circumscribed radii is disjoint, settled at 0 by
+# dx, dy, dx^2 + dy^2 (2), r_a + r_b, its square and the compare; only the
+# other pairs need the clip. A radius is 4 operations per box.
+SEP_OPS_PER_PAIR = 7
+SEP_OPS_PER_BOX = 4
+PP_CANDIDATES = 900  # nms_pre of the PointPillars predict
+PP_BATCHES = (1, 8)
+# the exact cases of tests/test_rotated_iou.py:203-219
+IOU_EXACT_BOXES = ((0.0, 0.0, 2.0, 4.0, 0.0),
+                   (0.0, 0.0, 2.0, 4.0, math.pi / 2),
+                   (10.0, 10.0, 2.0, 2.0, 0.3),
+                   (0.0, 0.0, 1.0, 1.0, 0.0))
+IOU_EXACT_AREAS = {(0, 0): 8.0, (1, 1): 8.0, (2, 2): 4.0, (3, 3): 1.0,
+                   (0, 1): 4.0, (0, 2): 0.0, (0, 3): 1.0}
+IOU_TOL = (1e-4, 1e-5)  # K4 vs plain: atol, rtol (sincos, FMA contraction)
+
+
+def candidate_boxes(b: int, n: int, gen) -> torch.Tensor:
+    """(b, n, 5) BEV boxes drawn like a detector's decoded candidates over
+    the KITTI range: clusters of anchor-sized cars (1.6 x 3.9, sizes
+    jittered) around 60 centres per sample, so a box overlaps its cluster;
+    yaws near 0 and +-pi/2 for a third, uniform for a third, and the rest
+    near-duplicates of another box (centre and size jittered by 1e-3 to
+    5e-2, yaw by 1e-3 or turned by pi); 5 % large boxes (4-10 m) that
+    contain their neighbours and 5 % small ones (0.2-0.5 m)."""
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen)
+
+    clusters = torch.stack([u(0.0, 69.12, b, 60), u(-39.68, 39.68, b, 60)],
+                           -1)
+    which = torch.randint(0, 60, (b, n), generator=gen)
+    centre = torch.gather(clusters, 1, which[..., None].expand(-1, -1, 2))
+    centre = centre + 1.5 * torch.randn(b, n, 2, generator=gen)
+    w = 1.6 * torch.exp(0.1 * torch.randn(b, n, generator=gen))
+    l = 3.9 * torch.exp(0.1 * torch.randn(b, n, generator=gen))
+    kind = torch.rand(b, n, generator=gen)
+    big = kind < 0.05
+    small = (kind >= 0.05) & (kind < 0.1)
+    w = torch.where(big, u(4.0, 10.0, b, n), torch.where(
+        small, u(0.2, 0.5, b, n), w))
+    l = torch.where(big, u(4.0, 10.0, b, n), torch.where(
+        small, u(0.2, 0.5, b, n), l))
+    axis = (torch.randint(-1, 2, (b, n), generator=gen) * math.pi / 2
+            + 0.05 * torch.randn(b, n, generator=gen))
+    yaw = torch.where(torch.rand(b, n, generator=gen) < 0.5, axis,
+                      u(-math.pi, math.pi, b, n))
+    boxes = torch.stack([centre[..., 0], centre[..., 1], w, l, yaw], -1)
+    # the last third: near-duplicates of boxes in the first two thirds
+    m = n // 3
+    src = torch.randint(0, n - m, (b, m), generator=gen)
+    dup = torch.gather(boxes, 1, src[..., None].expand(-1, -1, 5)).clone()
+    jitter = 10 ** u(-3.0, math.log10(5e-2), b, m, 1)
+    dup[..., :4] += jitter * torch.randn(b, m, 4, generator=gen)
+    dup[..., 2:4] = dup[..., 2:4].abs()
+    turn = torch.rand(b, m, generator=gen) < 0.3
+    dup[..., 4] += torch.where(turn, torch.full((b, m), math.pi),
+                               1e-3 * torch.randn(b, m, generator=gen))
+    boxes[:, n - m:] = dup
+    return boxes.contiguous()
+
+
+def _rotated_iou_bound(boxes: torch.Tensor):
+    """K4's bound on these (B, N, 5) boxes against themselves: the larger of
+    the bytes (boxes read twice, the f32 areas written) and the operations
+    of a separation test on every pair plus the clip on the pairs it does
+    not reject. Returns (bound_ms, bound_by, share of pairs clipped)."""
+    b, n, _ = boxes.shape
+    r = 0.5 * torch.hypot(boxes[..., 2], boxes[..., 3])
+    d2 = torch.cdist(boxes[..., :2].double(), boxes[..., :2].double()) ** 2
+    near = int((d2 <= (r[..., :, None] + r[..., None, :]).double() ** 2)
+               .sum())
+    pairs = b * n * n
+    bound_ms, bound_by = _bound(4 * pairs + 2 * 4 * 5 * b * n,
+                                SEP_OPS_PER_PAIR * pairs
+                                + SEP_OPS_PER_BOX * 2 * b * n
+                                + OPS_PER_PAIR * near)
+    return bound_ms, bound_by, near / pairs
+
+
+def check_rotated_iou_kernel(dev, gen):
+    """Phase 3: rotated_iou_intersect (K4) against its plain version at the
+    rotated NMS's shape (B, 900, 5) x (B, 900, 5), B = 1 and 8, and on the
+    exact cases."""
+    from minddet_tpu_torch.ops import rotated_iou as ri
+
+    exact = torch.tensor(IOU_EXACT_BOXES, device=dev)
+    got = ri.rotated_intersection_bev(exact, exact).cpu()
+    torch.cuda.synchronize()
+    for (i, j), area in IOU_EXACT_AREAS.items():
+        if abs(float(got[i, j]) - area) > 1e-4:
+            raise AssertionError(f"K4 exact case ({i}, {j}): {float(got[i, j])}"
+                                 f" != {area}")
+    print(f"  rotated_iou exact cases: {len(IOU_EXACT_AREAS)} areas within "
+          f"1e-4", flush=True)
+    atol, rtol = IOU_TOL
+    cases = []
+    for b in PP_BATCHES:
+        boxes = candidate_boxes(b, PP_CANDIDATES, gen).to(dev)
+        got = ri.rotated_intersection_bev(boxes, boxes)
+        torch.cuda.synchronize()
+        ref = ri.rotated_intersection_bev_plain(boxes, boxes)
+        err = (got - ref).abs()
+        max_abs = float(err.max())
+        ok = bool((err <= atol + rtol * ref.abs()).all())
+        overlapping = float((ref > 0).float().mean())
+        del got, ref, err
+        ms = _cuda_ms(lambda: ri.rotated_intersection_bev(boxes, boxes),
+                      iters=20)
+        plain_ms = _cuda_ms(
+            lambda: ri.rotated_intersection_bev_plain(boxes, boxes),
+            iters=2, warmup=1)
+        bound_ms, bound_by, clipped = _rotated_iou_bound(boxes)
+        case = dict(shape=[b, PP_CANDIDATES, 5], max_abs_err=max_abs,
+                    tolerance=f"abs <= {atol} + {rtol} * |plain|",
+                    overlapping_share=overlapping, clipped_share=clipped,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+        cases.append(case)
+        print(f"  rotated_iou ({b}, {PP_CANDIDATES}, 5)^2 max_abs="
+              f"{max_abs:.3e} overlapping={overlapping:.4f} "
+              f"clipped={clipped:.4f} kernel={ms * 1e3:8.1f}us "
+              f"plain={plain_ms * 1e3:9.1f}us "
+              f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
+        if not ok:
+            raise AssertionError(f"rotated_iou_intersect disagrees with its "
+                                 f"plain version: {case}")
+    return cases
+
+
 @torch.no_grad()
 def randomize_for_check(model, gen):
     """Random offset/mask convs and BN affines, then BN statistics from one
@@ -383,6 +526,192 @@ def check_end_to_end_f32(dev, gen):
     return result
 
 
+# f32 PointPillars predict, card vs CPU (phase 4b)
+PP_HEAD_TOL = (1e-4, 1e-3)  # heads: atol, rtol, as phase 4
+PP_TIE = 1e-5     # candidate scores this close may trade places
+PP_NEAR = 1e-5    # IoUs this close to the NMS threshold may flip a keep
+PP_BOX_TOL = (1e-3, 1e-5)  # decoded boxes (m, rad): atol, rtol; x = xt *
+#   4.2 m + xa carries the heads' 1e-4; rtol * 70 m (the range's far end)
+#   stays under atol
+PP_IOU_TOL = 1e-4  # K4 on the CPU's candidates vs the plain version
+PP_IOU_E2E_TOL = 1e-3  # IoUs of the card's vs the CPU's candidates
+PP_DIR_TIE = 1e-3  # a heading may turn by pi where the dir logits tie
+PP_BOX_CODE_STD = 0.15  # box head's std after calibrate_heads
+
+
+@torch.no_grad()
+def calibrate_heads(model, points, mask):
+    """Scale the three 1x1 heads so that, on this cloud, the class logits
+    have std 2, the box codes std PP_BOX_CODE_STD and the direction logits
+    std 1 (the biases are zero). With flax's default initialisers and
+    identity BN the RPN's activations shrink layer by layer and every score
+    sits near 0.5, where card-vs-CPU rounding would reorder most of the top
+    900. Small box codes keep the decoded boxes near the anchors' car size
+    (the sizes are exp(code) times the anchor's)."""
+    preds, _ = model(points, mask)
+    for name, head, std in (("cls_preds", model.conv_cls, 2.0),
+                            ("box_preds", model.conv_box, PP_BOX_CODE_STD),
+                            ("dir_preds", model.conv_dir, 1.0)):
+        head.weight.mul_(std / float(preds[name].std()))
+    return model
+
+
+def _candidate_checks(cand_g, cand_c, top_c, dir_c):
+    """Candidates (one sample) of the card vs the CPU: sorted scores;
+    anchors on one side only must tie with the CPU's last score; boxes of
+    the common anchors (a heading turned by pi only where the CPU's dir
+    logits tie). Returns (result, positions of the common anchors on the
+    card, on the CPU, problems)."""
+    bad = []
+    sg, sc = cand_g["scores"][0].cpu(), cand_c["scores"][0]
+    ig, ic = cand_g["anchor"][0].cpu(), cand_c["anchor"][0]
+    r = dict(score_max_abs_err=float((sg - sc).abs().max()),
+             candidates_reordered=int((ig != ic).sum()))
+    if r["score_max_abs_err"] > PP_TIE:
+        bad.append("candidate scores")
+    one_side = sorted(set(ig.tolist()) ^ set(ic.tolist()))
+    r["candidates_on_one_side"] = len(one_side)
+    kth = float(sc[-1])
+    if any(abs(float(top_c[a]) - kth) > PP_TIE for a in one_side):
+        bad.append("a candidate on one side only that is no boundary tie")
+    pos_g = {a: p for p, a in enumerate(ig.tolist())}
+    pc = [p for p, a in enumerate(ic.tolist()) if a in pos_g]
+    pg = [pos_g[int(ic[p])] for p in pc]
+    bg = cand_g["boxes"][0].cpu()[pg]
+    bc = cand_c["boxes"][0][pc]
+    dyaw = torch.remainder(bg[:, 6] - bc[:, 6] + math.pi, 2 * math.pi) \
+        - math.pi
+    turned = dyaw.abs() > math.pi / 2
+    gap = (dir_c[ic[pc], 0] - dir_c[ic[pc], 1]).abs()
+    r["headings_turned"] = int(turned.sum())
+    if bool((turned & (gap > PP_DIR_TIE)).any()):
+        bad.append("a heading turned by pi where the dir logits do not tie")
+    atol, rtol = PP_BOX_TOL
+    err = (bg[:, :6] - bc[:, :6]).abs()
+    yaw_err = torch.where(turned, torch.zeros_like(dyaw), dyaw.abs())
+    r["box_max_abs_err"] = float(torch.cat([err.flatten(), yaw_err]).max())
+    if not (bool((err <= atol + rtol * bc[:, :6].abs()).all())
+            and bool((yaw_err <= atol).all())):
+        bad.append("decoded boxes")
+    return r, pg, pc, bad
+
+
+def check_pointpillars_f32(dev):
+    """Phase 4b: f32 PointPillars predict at batch 1 on the card against
+    the same model on the CPU (TF32 off): the heads, the anchor mask, the
+    top-900 candidates and their boxes, the IoU matrix (K4 on the CPU's
+    candidates, and the card's own), and the kept lists where no candidate
+    pair's IoU lies within PP_NEAR of the threshold or no pair's IoUs lie
+    on two sides of it."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (CLOUD_POINTS, build_pointpillars,
+                                         synthetic_clouds)
+    from minddet_tpu_torch.ops import rotated_iou as ri
+    from minddet_tpu_torch.ops.nms import rotated_nms
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = build_pointpillars("cpu")
+    pts, mask = synthetic_clouds(1, cpu.pc_range, CLOUD_POINTS, seed=1)
+    points, pmask = torch.from_numpy(pts), torch.from_numpy(mask)
+    calibrate_heads(cpu, points, pmask)
+    gpu = build_pointpillars(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    kernels.reset_launches()
+    with torch.inference_mode():
+        preds_g, amask_g = gpu(points.to(dev), pmask.to(dev))
+        det_g = gpu.predict_from_preds(preds_g, amask_g)
+        cand_g = gpu.decode_candidates(preds_g, amask_g)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if launches != {k.name: int(k is kernels.ROTATED_IOU)
+                    for k in kernels.KERNELS}:
+        raise AssertionError(f"f32 PointPillars predict launched {launches}"
+                             " (want one rotated_iou_intersect)")
+    with torch.inference_mode():
+        preds_c, amask_c = cpu(points, pmask)
+        det_c = cpu.predict_from_preds(preds_c, amask_c)
+        cand_c = cpu.decode_candidates(preds_c, amask_c)
+
+    result, bad = {}, []
+    atol, rtol = PP_HEAD_TOL
+    for name, ref in preds_c.items():
+        got = preds_g[name].cpu()
+        result[f"{name}_max_abs_err"] = float((got - ref).abs().max())
+        result[f"{name}_std"] = float(ref.std())
+        if not torch.allclose(got, ref, rtol=rtol, atol=atol):
+            bad.append(f"head {name}")
+    result["anchor_mask_share"] = float(amask_c.float().mean())
+    if not torch.equal(amask_g.cpu(), amask_c):
+        bad.append("anchor mask")
+    top_c = torch.where(amask_c, torch.sigmoid(preds_c["cls_preds"]).max(
+        -1).values, torch.zeros(()))[0]
+    r, pg, pc, problems = _candidate_checks(cand_g, cand_c, top_c,
+                                            preds_c["dir_preds"][0])
+    result.update(r)
+    bad += problems
+
+    sc = cand_c["scores"][0]
+    bev_c = cand_c["boxes"][0][:, [0, 1, 3, 4, 6]].contiguous()
+    bev_g = cand_g["boxes"][0][:, [0, 1, 3, 4, 6]].contiguous()
+    iou_c = ri.rotated_iou_bev(bev_c, bev_c)
+    iou_k = ri.rotated_iou_bev(bev_c.to(dev), bev_c.to(dev)).cpu()
+    iou_g = ri.rotated_iou_bev(bev_g, bev_g).cpu()
+    result["iou_kernel_max_abs_err"] = float((iou_k - iou_c).abs().max())
+    result["iou_e2e_max_abs_err"] = float(
+        (iou_g[pg][:, pg] - iou_c[pc][:, pc]).abs().max())
+    if result["iou_kernel_max_abs_err"] > PP_IOU_TOL:
+        bad.append("IoU matrix of K4 on the CPU's candidates")
+    if result["iou_e2e_max_abs_err"] > PP_IOU_E2E_TOL:
+        bad.append("IoU matrix of the card's candidates")
+    valid = sc > 0.09
+    pair = torch.triu(valid[:, None] & valid[None, :], 1)
+    near = int((pair & ((iou_c - 0.1).abs() < PP_NEAR)).sum())
+    result.update(near_threshold_pairs=near, valid_candidates=int(
+        valid.sum()), overlapping_pairs=int((pair & (iou_c > 0.1)).sum()),
+        kept_cpu=int((det_c["labels"] >= 0).sum()),
+        nms_passes_card=det_g["nms_passes"],
+        nms_passes_cpu=det_c["nms_passes"])
+    # The kept lists are compared where no pair's IoU is near the
+    # threshold, and also wherever the two IoU matrices put every pair on
+    # the same side of it (then the NMS decides the same by construction).
+    # First the card's NMS on the CPU's candidates (only K4's rounding
+    # differs), then the card's own predict.
+    def same_side(a, b):
+        return bool((((a > 0.1) == (b > 0.1)) | ~pair).all())
+
+    idx_k, _, _ = rotated_nms(bev_c.to(dev)[None], sc.to(dev)[None], 0.1,
+                              0.09, 300)
+    idx_c, _, _ = rotated_nms(bev_c[None], sc[None], 0.1, 0.09, 300)
+    compared = near == 0 or same_side(iou_k, iou_c)
+    result["kept_same_inputs_compared"] = compared
+    if compared and not torch.equal(idx_k.cpu(), idx_c):
+        bad.append("kept lists of the card's NMS on the CPU's candidates")
+    same = not (result["candidates_reordered"]
+                or result["candidates_on_one_side"]
+                or result["headings_turned"]) and (
+        near == 0 or same_side(iou_g, iou_c))
+    result["kept_end_to_end_compared"] = same
+    if same and not (
+            torch.equal(det_g["labels"].cpu(), det_c["labels"])
+            and torch.allclose(det_g["scores"].cpu(), det_c["scores"],
+                               rtol=0, atol=PP_TIE)
+            and torch.allclose(det_g["boxes"].cpu(), det_c["boxes"],
+                               rtol=PP_BOX_TOL[1], atol=PP_BOX_TOL[0])):
+        bad.append("kept lists end to end")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    print("  f32 PointPillars card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 PointPillars predict, card vs CPU: {bad}:"
+                             f" {result}")
+    return result
+
+
 # f32 train step, card vs CPU. Both sides run the same arithmetic up to the
 # order of f32 sums (cuDNN and cuBLAS against oneDNN, atomics in the
 # sampler's backward). The backward also passes some 10**7 ReLU inputs and
@@ -396,6 +725,15 @@ def check_end_to_end_f32(dev, gen):
 TRAIN_TOL = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3, grad_rel_l2=5e-2,
                  stat_atol=1e-4, stat_rtol=1e-4, param_atol=2 * 5e-4 * 1.01,
                  param_moved_share=1e-2, param_moved_atol=1e-6)
+
+
+def _sampler_launches(n: int):
+    """Launch counts of a CenterNet path: n of each sampler kernel, no
+    other kernel."""
+    from minddet_tpu_torch import kernels
+
+    return {k.name: n if k.name.startswith("hat_sample") else 0
+            for k in kernels.KERNELS}
 
 
 def _train_snapshot(state, metrics):
@@ -462,7 +800,7 @@ def check_train_step_f32(dev, gen):
               f"loss {snaps[name]['metrics']['loss']:.6f}", flush=True)
         if name != "cpu":
             launches = {k.name: k.launches for k in kernels.KERNELS}
-            if set(launches.values()) != {DCN_LAYERS}:
+            if launches != _sampler_launches(DCN_LAYERS):
                 raise AssertionError(f"f32 train step launched {launches} "
                                      "(want 9 of each sampler kernel)")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
@@ -556,10 +894,9 @@ def train_main_path(dev):
     print("  losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train loss not finite and falling: {losses}")
-    for name, n in launches.items():
-        if n != DCN_LAYERS * steps:
-            raise AssertionError(f"{name} launched {n} times in {steps} "
-                                 f"train steps (want 9 per step)")
+    if launches != _sampler_launches(DCN_LAYERS * steps):
+        raise AssertionError(f"{launches} in {steps} train steps (want 9 "
+                             f"of each sampler kernel per step)")
     print(f"  kernels: {launches} for {steps} steps == 9 x steps: True",
           flush=True)
     return out, (step_fn, state, batch)
@@ -594,6 +931,48 @@ def serve(programs):
               f"{b / mean_s:8.1f} img/s, out {tuple(det.shape)} finite",
               flush=True)
     return out, forwards
+
+
+def serve_pointpillars(programs, dev):
+    """Phase 6c, the PointPillars serving main path: f32 requests from raw
+    points at each batch size, with the peak memory and the NMS's passes
+    per request."""
+    out = {}
+    predicts = 0
+    for b, (predict, (points, mask)) in programs.items():
+        times, passes = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(SERVE_WARMUP + SERVE_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det = predict(points, mask)
+            torch.cuda.synchronize()
+            if i >= SERVE_WARMUP:
+                times.append(time.perf_counter() - t0)
+                passes.append(det["nms_passes"])
+            predicts += 1
+        boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
+        kept = (labels >= 0).sum(1)
+        ok = (boxes.shape == (b, 300, 7) and bool(torch.isfinite(boxes).all())
+              and bool((kept > 0).all())
+              and bool(((scores > 0.09) == (labels >= 0)).all())
+              and bool((boxes[..., 3:6] >= 0).all()))
+        if not ok:
+            raise AssertionError(f"PointPillars predict at batch {b}: boxes "
+                                 f"{tuple(boxes.shape)}, kept {kept.tolist()}"
+                                 f", finite {bool(torch.isfinite(boxes).all())}")
+        mean_s = statistics.mean(times)
+        out[f"b{b}"] = r = dict(
+            batch=b, requests=len(times), ms_mean=mean_s * 1e3,
+            ms_p50=statistics.median(times) * 1e3, clouds_per_s=b / mean_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            nms_passes=passes, kept=kept.tolist())
+        print(f"  PointPillars f32 batch {b}: {mean_s * 1e3:8.3f} ms/request"
+              f" (p50 {r['ms_p50']:.3f}), {r['clouds_per_s']:7.1f} clouds/s,"
+              f" peak {r['max_memory_allocated'] / 2 ** 30:.2f} GiB, NMS "
+              f"passes {passes}, kept {r['kept']}", flush=True)
+    return out, predicts
 
 
 def _profile(fn, calls: int):
@@ -656,6 +1035,15 @@ def profile_serving(programs, requests: int = 3):
     return result
 
 
+def profile_pointpillars(programs, requests: int = 3):
+    """Where a PointPillars request's time goes, per batch size."""
+    result = {}
+    for b, (predict, args) in programs.items():
+        result[f"b{b}"] = r = _profile(lambda: predict(*args), requests)
+        _print_profile(f"PointPillars batch {b}", r)
+    return result
+
+
 def profile_train(step_fn, state, batch, steps: int = 3):
     """Where a train step's time goes."""
     r = _profile(lambda: step_fn(state, batch), steps)
@@ -665,7 +1053,7 @@ def profile_train(step_fn, state, batch, steps: int = 3):
 
 def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases):
     """One kernel's entry of the ``{"kernels": [...]}`` line: times and
-    bounds summed over the calls of one main-path pass at the DCN shapes."""
+    bounds summed over the calls of one main-path pass at its shapes."""
     from minddet_tpu_torch import kernels
 
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
@@ -684,8 +1072,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the serving requests and 3 train "
-                         "steps (torch.profiler)")
+                    help="also profile the serving requests of both "
+                         "models and 3 train steps (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -718,9 +1106,13 @@ def main(argv=None) -> int:
     print("phase 3: kernels vs plain versions", flush=True)
     cases = check_taps_kernel(dev, gen)
     bwd_cases = check_taps_bwd_kernel(dev, gen)
+    iou_cases = check_rotated_iou_kernel(dev, gen)
 
     print("phase 4: end to end, f32 predict, card vs CPU", flush=True)
     e2e = check_end_to_end_f32(dev, gen)
+    print("phase 4b: end to end, f32 PointPillars predict, card vs CPU",
+          flush=True)
+    pp_f32 = check_pointpillars_f32(dev)
 
     print("phase 5: end to end, f32 train step, card vs CPU", flush=True)
     train_f32 = check_train_step_f32(dev, gen)
@@ -735,7 +1127,8 @@ def main(argv=None) -> int:
     serving, forwards = serve(programs)
     serve_launches = {k.name: k.launches for k in kernels.KERNELS}
     taps = serve_launches["hat_sample_taps_fwd"]
-    if taps != DCN_LAYERS * forwards or serve_launches["hat_sample_taps_bwd"]:
+    if serve_launches != {**_sampler_launches(0),
+                          "hat_sample_taps_fwd": DCN_LAYERS * forwards}:
         raise AssertionError(f"serving launched {serve_launches} for "
                              f"{forwards} forwards (want 9 forward kernels "
                              f"each and no backward)")
@@ -755,6 +1148,28 @@ def main(argv=None) -> int:
         print("profile: bf16 train step", flush=True)
         profiled["train"] = profile_train(*train_program)
     del train_program
+    torch.cuda.empty_cache()
+
+    print("phase 6c: main path, PointPillars f32 serving", flush=True)
+    from minddet_tpu_torch.entry import pointpillars_entry
+
+    pp_programs = {b: pointpillars_entry(device=dev, batch=b)
+                   for b in PP_BATCHES}
+    kernels.reset_launches()
+    pp_serving, predicts = serve_pointpillars(pp_programs, dev)
+    pp_launches = {k.name: k.launches for k in kernels.KERNELS}
+    if pp_launches != {k.name: predicts * int(k is kernels.ROTATED_IOU)
+                       for k in kernels.KERNELS}:
+        raise AssertionError(f"PointPillars serving launched {pp_launches} "
+                             f"for {predicts} requests (want one "
+                             f"rotated_iou_intersect each, nothing else)")
+    print(f"  kernels: rotated_iou_intersect launches="
+          f"{pp_launches['rotated_iou_intersect']} requests={predicts} "
+          f"launches == requests: True", flush=True)
+    if args.profile:
+        print("profile: PointPillars serving", flush=True)
+        profiled["pointpillars"] = profile_pointpillars(pp_programs)
+    del pp_programs
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases); K1b one bf16 train step's nine
@@ -771,6 +1186,11 @@ def main(argv=None) -> int:
         _kernel_row(kernels.HAT_SAMPLE_TAPS_BWD,
                     train_launches["hat_sample_taps_bwd"], bwd_main,
                     DCN_CALLS_PER_SHAPE, bwd_cases),
+        # K4: one batch-8 request's call
+        _kernel_row(kernels.ROTATED_IOU,
+                    pp_launches["rotated_iou_intersect"],
+                    [c for c in iou_cases if c["shape"][0] == 8], 1,
+                    iou_cases),
     ]
     wall_s = time.perf_counter() - t_start
     print(f"  chip_smoke wall time {wall_s:.1f} s", flush=True)
@@ -779,10 +1199,14 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            wall_s=wall_s, taps_cases=cases,
-                           taps_bwd_cases=bwd_cases, end_to_end_f32=e2e,
+                           taps_bwd_cases=bwd_cases,
+                           rotated_iou_cases=iou_cases, end_to_end_f32=e2e,
+                           pointpillars_f32=pp_f32,
                            train_step_f32=train_f32, serving=serving,
                            serving_launches=serve_launches,
                            forwards=forwards, training=training,
+                           pointpillars_serving=pp_serving,
+                           pointpillars_launches=pp_launches,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

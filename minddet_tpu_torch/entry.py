@@ -6,7 +6,9 @@ bf16, top-100 decode. ``train_entry()`` is the train step that
 ``__graft_entry__.entry()`` and ``bench.py:headline_setup`` build: the same
 model with f32 parameters and bf16 compute, targets made on the device from
 synthetic boxes, focal + gathered-L1 loss, AdamW(5e-4) with clip-by-global-
-norm 35 and the BN running-stat update.
+norm 35 and the BN running-stat update. ``pointpillars_entry()`` is the
+PointPillars serving program (``PointPillars.predict_from_points``): the
+KITTI car model from raw points to (B, 300) rotated boxes, f32.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from minddet_tpu_torch.core.optim import adamw
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
+from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
 
@@ -26,6 +29,7 @@ NUM_CLASSES = 80
 SEED = 0
 OBJECTS = 128         # box slots per image (bench.py: o = 128)
 VALID_OBJECTS = 8     # valid boxes per image (bench.py: n = 8)
+CLOUD_POINTS = 18000  # points per cloud (bench.py: num_points=18000)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,3 +119,42 @@ def train_entry(device=None, batch: int = 128
     image = torch.randn(batch, RES, RES, 3, generator=gen, device=dev)
     return make_train_step(centernet_loss), (
         state, {"image": image, "targets": targets})
+
+
+def synthetic_clouds(batch: int, pc_range, num_points: int = CLOUD_POINTS,
+                     seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Point clouds as ``bench.py``'s PointPillars setup draws them
+    (``train/train.py:synthetic_points_batches``): numpy ``RandomState``,
+    x, y, z uniform over ``pc_range``, reflectance in [0, 1), all valid.
+    Returns points (batch, num_points, 4) f32 and the mask (all True)."""
+    rs = np.random.RandomState(seed)
+    x0, y0, z0, x1, y1, z1 = pc_range
+    size = (batch, num_points)
+    pts = np.stack([rs.uniform(x0, x1, size), rs.uniform(y0, y1, size),
+                    rs.uniform(z0, z1, size), rs.uniform(0, 1, size)],
+                   -1).astype(np.float32)
+    return pts, np.ones(size, bool)
+
+
+def build_pointpillars(device=None) -> PointPillars:
+    """The KITTI car PointPillars of ``configs/pointpillars_car_kitti.yaml``
+    (grid 496x432, PFN (64,), RPN (3, 5, 5), 107,136 anchors, max_voxels
+    16000, 32 points per pillar, sorted drop order) in eval mode, f32,
+    with flax's default initialisers drawn from ``SEED``."""
+    dev = resolve_device(device)
+    model = PointPillars().init_weights(torch.Generator().manual_seed(SEED))
+    return model.eval().to(device=dev, memory_format=torch.channels_last)
+
+
+def pointpillars_entry(device=None, batch: int = 1
+                       ) -> Tuple[Callable[..., Dict],
+                                  Tuple[torch.Tensor, torch.Tensor]]:
+    """(predict_fn, (points, points_mask)): ``predict_fn(points,
+    points_mask)`` is ``PointPillars.predict_from_points`` (score threshold
+    0.09, top 900, NMS IoU 0.1, 300 kept): boxes (batch, 300, 7), scores,
+    labels. The clouds are ``synthetic_clouds(batch)``."""
+    model = build_pointpillars(device)
+    dev = model.anchors.device
+    points, mask = synthetic_clouds(batch, model.pc_range)
+    return model.predict_from_points, (torch.from_numpy(points).to(dev),
+                                       torch.from_numpy(mask).to(dev))

@@ -148,4 +148,12 @@ HAT_SAMPLE_TAPS_BWD = CudaKernel(
     replaces="minddet_tpu/ops/hat_sample.py:363 _bwd_taps_kernel",
 )
 
-KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD]
+ROTATED_IOU = CudaKernel(
+    "rotated_iou_intersect", "rotated_iou.cu",
+    # boxes1, boxes2, out, B, N, M, stream
+    [_P, _P, _P, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/rotated_iou_pallas.py:55 _intersect_kernel",
+)
+
+KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD,
+                             ROTATED_IOU]

@@ -14,7 +14,6 @@ the path keeps it.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Tuple
 
 import torch
@@ -23,7 +22,8 @@ from torch import nn
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.heads.centernet_head import (CenterNetHead,
                                                            _Branch)
-from minddet_tpu_torch.models.layers import ModulatedDeformConv
+from minddet_tpu_torch.models.layers import (ModulatedDeformConv,
+                                             variance_scaling_)
 from minddet_tpu_torch.models.losses import (centernet_focal_loss,
                                              gather_reg_loss)
 from minddet_tpu_torch.models.necks.ct_deconv import (NUM_FILTERS,
@@ -109,7 +109,7 @@ class CenterNet(nn.Module):
         for m in self.modules():
             if isinstance(m, ModulatedDeformConv):
                 kh, kw, cin, _ = m.kernel.shape
-                _truncated_normal(m.kernel, 2.0, kh * kw * cin, generator)
+                variance_scaling_(m.kernel, 2.0, kh * kw * cin, generator)
             elif id(m) in offset:
                 nn.init.zeros_(m.weight)
                 nn.init.zeros_(m.bias)
@@ -119,7 +119,7 @@ class CenterNet(nn.Module):
                 i = m.weight.shape[0 if isinstance(m, nn.ConvTranspose2d)
                                    else 1]
                 fan_in = i * m.weight.shape[2] * m.weight.shape[3]
-                _truncated_normal(m.weight, 2.0 if id(m) in he else 1.0,
+                variance_scaling_(m.weight, 2.0 if id(m) in he else 1.0,
                                   fan_in, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
@@ -131,10 +131,3 @@ class CenterNet(nn.Module):
             if isinstance(m, _Branch):
                 nn.init.constant_(m.out.bias, m.final_bias)
         return self
-
-
-def _truncated_normal(t: torch.Tensor, scale: float, fan_in: int,
-                      generator: torch.Generator) -> None:
-    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")``."""
-    std = math.sqrt(scale / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)

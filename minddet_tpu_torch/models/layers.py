@@ -13,6 +13,8 @@ casts the image to its ``dtype`` once; everything downstream follows.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,6 +22,14 @@ from torch import nn
 from minddet_tpu_torch.ops.dcn import deform_conv2d
 
 BN_EPS = 1e-5
+
+
+def variance_scaling_(t: torch.Tensor, scale: float, fan_in: int,
+                      generator: torch.Generator) -> None:
+    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")``, in
+    place: scale 1 is flax's default ``lecun_normal``, 2 ``he_normal``."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 def _cast(t, dtype):

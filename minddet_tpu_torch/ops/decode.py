@@ -15,8 +15,11 @@ import torch
 import torch.nn.functional as F
 
 
-def _topk_lowest_index_first(v: torch.Tensor, k: int
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def topk_lowest_index_first(v: torch.Tensor, k: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: among equal values the lower index
+    comes first (a stable descending sort; ``torch.topk`` promises no order
+    among ties)."""
     vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 
@@ -38,11 +41,11 @@ def topk_heatmap(heat: torch.Tensor, k: int = 100):
     """
     b, h, w, c = heat.shape
     per_class = heat.permute(0, 3, 1, 2).reshape(b, c, h * w)
-    scores1, inds1 = _topk_lowest_index_first(per_class, k)  # (B, C, K)
+    scores1, inds1 = topk_lowest_index_first(per_class, k)  # (B, C, K)
     ys1 = torch.div(inds1, w, rounding_mode="floor").float()
     xs1 = (inds1 % w).float()
 
-    scores2, inds2 = _topk_lowest_index_first(scores1.reshape(b, c * k), k)
+    scores2, inds2 = topk_lowest_index_first(scores1.reshape(b, c * k), k)
     classes = torch.div(inds2, k, rounding_mode="floor").to(torch.int32)
     inds = torch.gather(inds1.reshape(b, c * k), 1, inds2)
     ys = torch.gather(ys1.reshape(b, c * k), 1, inds2)

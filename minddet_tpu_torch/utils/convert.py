@@ -11,13 +11,23 @@ raises.
 Layouts:
 
 - ``nn.Conv2d`` weight (O, I, kh, kw) <- flax ``kernel`` (kh, kw, I, O);
+- ``nn.Linear`` weight (O, I) <- the flax ``Dense`` kernel (I, O);
 - ``nn.ConvTranspose2d`` weight (I, O, kh, kw) <- the flax ``ConvTranspose``
   kernel (kh, kw, I, O) flipped in space: flax does not flip the kernel and
   pads SAME k4/s2 by (2, 2), which is torch's ``padding=1`` with the flip
   (the inverse of ``minddet_tpu/utils/convert.py``'s torch->flax rule);
+  at kernel = stride (the SECOND RPN's ups) SAME pads by (s-1, s-1), which
+  is torch's ``padding=0`` with the same flip;
 - ``ModulatedDeformConv.kernel`` keeps the flax (kh, kw, Cin, Cout) layout;
-- BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-  ``running_mean``/``running_var``.
+- BN (and the PFN's ``MaskedBatchNorm``) ``scale``/``bias``/``mean``/
+  ``var`` -> ``weight``/``bias``/``running_mean``/``running_var``.
+
+``pointpillars_from_flax`` does the same for the JAX ``PointPillars``
+(``reader/pfn0/{linear,norm}``, ``rpn/block{i}_*``, ``rpn/up{i}_*``,
+``conv_{cls,box,dir}``). Its tree has one layout whether the reference ran
+with ``rpn_space_to_depth`` or ``rpn_scan_inner`` or not; the pre-stacked
+``rpn_stacked_params`` layout is not taken. Buffers that are not part of the
+state dict (the anchors) are no weights and are left alone.
 
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
@@ -34,6 +44,7 @@ import torch
 from torch import nn
 
 from minddet_tpu_torch.models.layers import DeconvBlock, ModulatedDeformConv
+from minddet_tpu_torch.models.readers.pillar_encoder import MaskedBatchNorm
 
 # children whose flax scope has flax's automatic name
 _RENAMES = {DeconvBlock: {"bn1": "BatchNorm_0", "bn2": "BatchNorm_1"}}
@@ -63,7 +74,7 @@ def _flax_scope(model: nn.Module, module_path: str) -> Tuple[str, ...]:
 
 def _source(module: nn.Module, leaf: str):
     """(collection, flax leaf, transform) for one port tensor."""
-    if isinstance(module, nn.BatchNorm2d):
+    if isinstance(module, (nn.BatchNorm2d, MaskedBatchNorm)):
         col, name = _BN_LEAVES[leaf]
         return col, name, lambda a: a
     if isinstance(module, ModulatedDeformConv):
@@ -71,6 +82,8 @@ def _source(module: nn.Module, leaf: str):
     if isinstance(module, nn.ConvTranspose2d) and leaf == "weight":
         return "params", "kernel", \
             lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if isinstance(module, nn.Linear) and leaf == "weight":
+        return "params", "kernel", lambda a: a.T
     if isinstance(module, nn.Conv2d) and leaf == "weight":
         return "params", "kernel", lambda a: a.transpose(3, 2, 0, 1)
     if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)) and leaf == "bias":
@@ -115,9 +128,10 @@ def load_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     extra_cols = set(variables) - {"params", "batch_stats"}
     if extra_cols:
         raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
+    state = model.state_dict()
     tensors = list(model.named_parameters()) + [
         (n, b) for n, b in model.named_buffers()
-        if not n.endswith("num_batches_tracked")]
+        if n in state and not n.endswith("num_batches_tracked")]
     for _, tensor, value in _matched(model, tensors, leaves):
         tensor.copy_(torch.from_numpy(value).to(tensor.dtype))
     return model
@@ -125,6 +139,12 @@ def load_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
 
 def centernet_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     """Load the JAX ``CenterNet`` variables into the port's ``CenterNet``."""
+    return load_from_flax(model, variables)
+
+
+def pointpillars_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``PointPillars`` variables (per-layer RPN layout) into
+    the port's ``PointPillars``."""
     return load_from_flax(model, variables)
 
 

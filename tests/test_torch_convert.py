@@ -112,3 +112,98 @@ def test_entry_on_cpu_when_asked():
     assert model.num_classes == 80
     out = predict(image)
     assert out.shape == (1, 100, 6) and torch.isfinite(out).all()
+
+
+# --- PointPillars -------------------------------------------------------
+
+from minddet_tpu.models.detectors.pointpillars import (  # noqa: E402
+    PointPillars as JaxPointPillars)
+from minddet_tpu.models.necks.second_rpn import (  # noqa: E402
+    SECONDRPN as JaxSECONDRPN)
+from minddet_tpu_torch.models.detectors.pointpillars import (  # noqa: E402
+    PointPillars)
+from minddet_tpu_torch.models.necks.second_rpn import SECONDRPN  # noqa: E402
+from minddet_tpu_torch.utils.convert import (  # noqa: E402
+    pointpillars_from_flax)
+
+_PP_TINY = dict(num_classes=1, grid_ny=32, grid_nx=32,
+                voxel_size=(0.2, 0.2, 4.0),
+                pc_range=(0.0, -3.2, -3.0, 6.4, 3.2, 1.0),
+                rpn_layer_nums=(2, 1, 1), rpn_filters=(16, 32, 64),
+                rpn_up_filters=(16, 16, 16), max_voxels=256,
+                max_points_per_voxel=8, anchor_strides=((0.4, 0.4, 0.0),),
+                anchor_offsets=((0.2, -3.0, -1.78),))
+
+
+def _random_like(shapes, seed):
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map(
+        lambda s: rs.randn(*s.shape).astype(np.float32), shapes)
+
+
+@pytest.mark.parametrize("s2d,scan", [(True, True), (False, False)])
+def test_pointpillars_carrier_is_a_bijection(s2d, scan):
+    """The flax tree (one layout with or without space-to-depth and the
+    scanned inner layers) loads leaf for leaf; the Dense kernel is
+    transposed; the anchors buffer is no weight."""
+    jm = JaxPointPillars(**_PP_TINY, rpn_space_to_depth=s2d,
+                         rpn_scan_inner=scan, rpn_scan_min_layers=2)
+    pts = jnp.zeros((1, 64, 4))
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), pts, jnp.ones((1, 64), bool),
+        method=jm.predict_from_points))
+    variables = _random_like({"params": dict(shapes["params"]),
+                              "batch_stats": dict(shapes["batch_stats"])}, 5)
+    port = pointpillars_from_flax(PointPillars(**_PP_TINY), variables)
+    n_flax = sum(1 for col in variables.values() for _ in _leaves(col))
+    state = port.state_dict()
+    tensors = {n: t for n, t in state.items()
+               if not n.endswith("num_batches_tracked")}
+    assert len(tensors) == n_flax and "anchors" not in state
+    port_sums = sorted(float(t.double().sum()) for t in tensors.values())
+    flax_sums = sorted(float(np.sum(a, dtype=np.float64))
+                       for col in variables.values() for _, a in _leaves(col))
+    np.testing.assert_allclose(port_sums, flax_sums, rtol=1e-6, atol=1e-6)
+    dense = variables["params"]["reader"]["pfn0"]["linear"]["kernel"]
+    np.testing.assert_array_equal(
+        port.reader.pfn0.linear.weight.detach().numpy(), dense.T)
+    np.testing.assert_array_equal(
+        port.reader.pfn0.norm.running_var.numpy(),
+        variables["batch_stats"]["reader"]["pfn0"]["norm"]["var"])
+    stacked = JaxPointPillars(**_PP_TINY, rpn_stacked_params=True,
+                              rpn_scan_min_layers=2)
+    shapes = jax.eval_shape(lambda: stacked.init(
+        jax.random.PRNGKey(0), pts, jnp.ones((1, 64), bool),
+        method=stacked.predict_from_points))
+    with pytest.raises(KeyError, match="block0_0_conv"):
+        pointpillars_from_flax(PointPillars(**_PP_TINY), _random_like(
+            {"params": dict(shapes["params"]),
+             "batch_stats": dict(shapes["batch_stats"])}, 5))
+
+
+@pytest.mark.parametrize("layer_nums", [(1, 2, 1), (2, 0, 1)])
+def test_second_rpn_matches_jax(layer_nums):
+    """The RPN alone, f32: its three up blocks are flax ConvTransposes at
+    kernel = stride 1, 2 and 4 (the flip rule, padding 0), with random BN
+    statistics; atol 1e-4 / rtol 1e-4."""
+    kw = dict(layer_nums=layer_nums, layer_strides=(2, 2, 2),
+              num_filters=(8, 16, 16), upsample_strides=(1, 2, 4),
+              num_upsample_filters=(8, 8, 8))
+    jrpn = JaxSECONDRPN(**kw)
+    rs = np.random.RandomState(sum(layer_nums))
+    x = rs.randn(2, 16, 24, 6).astype(np.float32)
+    shapes = jax.eval_shape(lambda: jrpn.init(jax.random.PRNGKey(0),
+                                              jnp.asarray(x)))
+    variables = _random_like({"params": dict(shapes["params"]),
+                              "batch_stats": dict(shapes["batch_stats"])},
+                             sum(layer_nums))
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, a: np.abs(a) + 0.5 if getattr(p[-1], "key", "") == "var"
+        else a * 0.3, variables)
+    ref = np.asarray(jrpn.apply(variables, jnp.asarray(x)))
+    port = load_from_flax(SECONDRPN(6, **kw).eval(), variables)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
+    got = got.permute(0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape == (2, 8, 12, 24)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

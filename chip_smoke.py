@@ -14,11 +14,20 @@ Phases (any failure raises and exits non-zero):
    and its backward (K1b) in f32 and bf16, the latter also at integer
    coordinates (spread 0, a DCN layer with zero offsets); the rotated-box
    intersection (K4) in f32 at the rotated NMS's (B, 900, 5)^2, B = 1 and
-   8, on boxes drawn like decoded candidates, and on exact cases;
+   8 (PointPillars), and (6 B, 1000, 5)^2, B = 1 and 4 (CenterPoint's six
+   tasks stacked), on boxes drawn like decoded candidates, and on exact
+   cases; the bounded segment max (K5f) at (B, 120000, 32), B = 1 and 4 in
+   f32 and B = 1 in bf16, on streams from the port's voxelizer, exactly;
+   the bilinear row gather (K3f) at (B, 16384, 384) x 2490 sample points,
+   B = 1 and 4, f32 and bf16, points off the map included, with
+   ``F.grid_sample`` timed beside it;
 4. end to end in f32 (TF32 off): ``CenterNet`` predict on the card against
    the same model on the CPU (the plain path);
    b. the same for PointPillars predict from raw points at batch 1: heads,
       anchor mask, top-900 candidates, IoU matrix, kept lists;
+   c. the same for two-stage CenterPoint ``predict_refined`` at batch 1:
+      PFN rows, BEV map, every task's maps, top-1000 candidates per task,
+      IoU matrix, kept lists, refined boxes and scores;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics;
@@ -31,13 +40,18 @@ Phases (any failure raises and exits non-zero):
       batch; the loss must stay finite and fall;
    c. PointPillars serving (``pointpillars_entry``: KITTI car, f32, 18,000
       points per cloud) answers 2 warm-up and 10 timed requests at batch 1
-      and 8; K4 launches once per request and no other kernel launches.
+      and 8; K4 launches once per request and no other kernel launches;
+   d. two-stage CenterPoint serving (``centerpoint_entry``: nuScenes
+      pillars, f32, 120,000 points per cloud, heads calibrated so that the
+      NMS has 1000 valid candidates per task) answers 2 warm-up and 10
+      timed requests at batch 1 and 4; K5f, K4 and K3f launch once per
+      request each, the sampler kernels never.
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
-``--profile`` also breaks the serving requests (both models) and 3 train
-steps down with ``torch.profiler``.
+``--profile`` also breaks the serving requests (all three models) and 3
+train steps down with ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -311,6 +325,14 @@ SEP_OPS_PER_PAIR = 7
 SEP_OPS_PER_BOX = 4
 PP_CANDIDATES = 900  # nms_pre of the PointPillars predict
 PP_BATCHES = (1, 8)
+CP_CANDIDATES = 1000  # nms_pre of the CenterPoint predict, per task
+CP_TASKS = 6
+CP_NMS_POST = 83  # detections kept per task
+CP_BATCHES = (1, 4)
+# (samples, boxes) of K4's calls: one per PointPillars request, and one per
+# CenterPoint request over its tasks stacked on the sample axis
+IOU_SHAPES = tuple((b, PP_CANDIDATES) for b in PP_BATCHES) + tuple(
+    (CP_TASKS * b, CP_CANDIDATES) for b in CP_BATCHES)
 # the exact cases of tests/test_rotated_iou.py:203-219
 IOU_EXACT_BOXES = ((0.0, 0.0, 2.0, 4.0, 0.0),
                    (0.0, 0.0, 2.0, 4.0, math.pi / 2),
@@ -385,8 +407,8 @@ def _rotated_iou_bound(boxes: torch.Tensor):
 
 def check_rotated_iou_kernel(dev, gen):
     """Phase 3: rotated_iou_intersect (K4) against its plain version at the
-    rotated NMS's shape (B, 900, 5) x (B, 900, 5), B = 1 and 8, and on the
-    exact cases."""
+    rotated NMS's shapes (``IOU_SHAPES``: (B, 900, 5)^2 for PointPillars,
+    (6 B, 1000, 5)^2 for CenterPoint) and on the exact cases."""
     from minddet_tpu_torch.ops import rotated_iou as ri
 
     exact = torch.tensor(IOU_EXACT_BOXES, device=dev)
@@ -400,8 +422,8 @@ def check_rotated_iou_kernel(dev, gen):
           f"1e-4", flush=True)
     atol, rtol = IOU_TOL
     cases = []
-    for b in PP_BATCHES:
-        boxes = candidate_boxes(b, PP_CANDIDATES, gen).to(dev)
+    for b, n in IOU_SHAPES:
+        boxes = candidate_boxes(b, n, gen).to(dev)
         got = ri.rotated_intersection_bev(boxes, boxes)
         torch.cuda.synchronize()
         ref = ri.rotated_intersection_bev_plain(boxes, boxes)
@@ -416,13 +438,13 @@ def check_rotated_iou_kernel(dev, gen):
             lambda: ri.rotated_intersection_bev_plain(boxes, boxes),
             iters=2, warmup=1)
         bound_ms, bound_by, clipped = _rotated_iou_bound(boxes)
-        case = dict(shape=[b, PP_CANDIDATES, 5], max_abs_err=max_abs,
+        case = dict(shape=[b, n, 5], max_abs_err=max_abs,
                     tolerance=f"abs <= {atol} + {rtol} * |plain|",
                     overlapping_share=overlapping, clipped_share=clipped,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by)
         cases.append(case)
-        print(f"  rotated_iou ({b}, {PP_CANDIDATES}, 5)^2 max_abs="
+        print(f"  rotated_iou ({b}, {n}, 5)^2 max_abs="
               f"{max_abs:.3e} overlapping={overlapping:.4f} "
               f"clipped={clipped:.4f} kernel={ms * 1e3:8.1f}us "
               f"plain={plain_ms * 1e3:9.1f}us "
@@ -430,6 +452,192 @@ def check_rotated_iou_kernel(dev, gen):
         if not ok:
             raise AssertionError(f"rotated_iou_intersect disagrees with its "
                                  f"plain version: {case}")
+    return cases
+
+
+PFN_HALF_WIDTH = 32  # the non-last PFN layer's units: K5f's channels
+
+
+def _nusc_clouds(model, batch: int, seed: int, dev):
+    """``batch`` synthetic nuScenes-sized clouds for ``model``, on ``dev``."""
+    from minddet_tpu_torch.entry import (NUSC_CLOUD_POINTS,
+                                         NUSC_POINT_FEATURES,
+                                         synthetic_clouds)
+
+    pts, mask = synthetic_clouds(batch, model.pc_range, NUSC_CLOUD_POINTS,
+                                 seed=seed, num_features=NUSC_POINT_FEATURES)
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def check_seg_max_kernel(dev, model):
+    """Phase 3: seg_full_max (K5f) against its plain version, exactly, on
+    the streams the port's voxelizer makes of ``model``'s 120,000-point
+    clouds (pillars over the point cap, more pillars than ``max_voxels``);
+    x is N(0, 1), so the kernel's zeros outside the kept rows show."""
+    from minddet_tpu_torch.ops import seg_max as sm
+    from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
+
+    bound = model.max_points_per_voxel
+    dgen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for b, dtype in ((1, torch.float32), (CP_BATCHES[-1], torch.float32),
+                     (1, torch.bfloat16)):
+        points, mask = _nusc_clouds(model, b, 2, dev)
+        sv = voxelize_stream_batch(points, mask, model.voxel_size,
+                                   model.pc_range, model.max_voxels, bound,
+                                   model.voxel_drop_order)
+        first, last = sv.first, sv.last
+        n = first.shape[1]
+        if not torch.equal(sm.seg_covered(first, last, bound), sv.keep):
+            raise AssertionError("seg_covered is not the stream's keep mask")
+        x = torch.randn(b, n, PFN_HALF_WIDTH, generator=dgen,
+                        device=dev).to(dtype)
+        got = sm.seg_full_max_bounded(first, last, x, bound)
+        torch.cuda.synchronize()
+        ref = sm.seg_full_max_bounded_plain(first, last, x, bound)
+        max_abs = float((got.float() - ref.float()).abs().max())
+        ok = torch.equal(got, ref)
+        kept = float(sv.keep.float().mean())
+        del got, ref
+        ms = _cuda_ms(lambda: sm.seg_full_max_bounded(first, last, x, bound),
+                      iters=20)
+        plain_ms = _cuda_ms(
+            lambda: sm.seg_full_max_bounded_plain(first, last, x, bound),
+            iters=3, warmup=1)
+        # x read once, out written once, the two flag planes read once; one
+        # max per value
+        bound_ms, bound_by = _bound(2 * x.numel() * x.element_size()
+                                    + 2 * b * n, x.numel())
+        case = dict(shape=[b, n, PFN_HALF_WIDTH], bound=bound,
+                    dtype=str(dtype).replace("torch.", ""),
+                    max_abs_err=max_abs, tolerance="exact", kept_share=kept,
+                    pillars=sv.num_voxels.tolist(), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+        cases.append(case)
+        print(f"  seg_full_max x{case['shape']} {case['dtype']:8s} max_abs="
+              f"{max_abs:.3e} kept rows {kept:.3f} kernel={ms * 1e3:8.1f}us "
+              f"plain={plain_ms * 1e3:9.1f}us bound={bound_ms * 1e3:6.1f}us "
+              f"({bound_by})", flush=True)
+        if not ok:
+            raise AssertionError(f"seg_full_max disagrees with its plain "
+                                 f"version: {case}")
+    return cases
+
+
+def proposal_boxes(b: int, n: int, pc_range, gen) -> torch.Tensor:
+    """(b, n, 9) boxes [x, y, z, w, l, h, vx, vy, yaw] like a request's
+    stage-1 detections: centres uniform over the range widened by 5 m (so
+    some sample points fall off the map), vehicle sizes, any yaw, and every
+    tenth box all zeros (a dropped slot, which is sampled all the same)."""
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen)
+
+    boxes = torch.zeros(b, n, 9)
+    boxes[..., 0] = u(pc_range[0] - 5.0, pc_range[3] + 5.0, b, n)
+    boxes[..., 1] = u(pc_range[1] - 5.0, pc_range[4] + 5.0, b, n)
+    boxes[..., 3] = 1.9 * torch.exp(0.2 * torch.randn(b, n, generator=gen))
+    boxes[..., 4] = 4.5 * torch.exp(0.2 * torch.randn(b, n, generator=gen))
+    boxes[..., 5] = 1.7
+    boxes[..., 8] = u(-math.pi, math.pi, b, n)
+    boxes[:, ::10] = 0.0
+    return boxes
+
+
+# K3f vs plain: f32 sums of four products, in another order (FMAs in the
+# kernel); bf16 is that f32 sum rounded once (half an ulp, 2**-9 relative),
+# with room for the order flipping a rounding
+GATHER_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-5, 2 ** -8)}
+
+
+def check_bilinear_kernel(dev, gen, model):
+    """Phase 3: bilinear_gather_fwd (K3f) against its plain version at the
+    second stage's shapes: ``model``'s BEV map (B, 128 * 128, 384) and 5
+    sample points for each of its 6 * 83 detection slots (2490 points);
+    with the time of ``F.grid_sample`` (bilinear, zero padding,
+    align_corners) on the same map and points."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.models.heads.second_stage import bev_sample_points
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    h = model.grid_ny // model.out_size_factor
+    w = model.grid_nx // model.out_size_factor
+    c = model.rpn.out_channels
+    slots = len(model.task_num_classes) * CP_NMS_POST
+    cell_x = model.voxel_size[0] * model.out_size_factor
+    cell_y = model.voxel_size[1] * model.out_size_factor
+    cases = []
+    for b in CP_BATCHES:
+        bev32 = torch.randn(b, c, h, w, generator=gen).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        boxes = proposal_boxes(b, slots, model.pc_range, gen).to(dev)
+        pts = bev_sample_points(boxes).reshape(b, slots * 5, 2)
+        fx = (pts[..., 0] - model.pc_range[0]) / cell_x
+        fy = (pts[..., 1] - model.pc_range[1]) / cell_y
+        ci, cw = bl.bilinear_corners(fy, fx, h, w)
+        p = ci.shape[1]
+        off_map = float((ci < 0).float().mean())
+        touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
+                      for i in range(b))
+        grid = torch.stack([2 * fx / (w - 1) - 1, 2 * fy / (h - 1) - 1],
+                           -1)[:, None]
+        for dtype in (torch.float32, torch.bfloat16):
+            bev = bev32.to(dtype)
+            x = bev.permute(0, 2, 3, 1).view(b, h * w, c)
+            got = bl.bilinear_gather(x, ci, cw)
+            torch.cuda.synchronize()
+            ref = bl.bilinear_gather_plain(x.float(), ci, cw)
+            err = (got.float() - ref).abs()
+            max_abs = float(err.max())
+            name = str(dtype).replace("torch.", "")
+            atol, rtol = GATHER_TOL[name]
+            ok = bool((err <= atol + rtol * ref.abs()).all())
+            # the second stage's own call gives the same rows
+            via_model = model.extractor(bev, boxes).reshape(b, p, c)
+            ok_model = torch.equal(via_model, got)
+            # grid_sample takes the grid in the map's type, so in bf16 it
+            # samples at rounded coordinates: timed, not compared
+            lib_err = None
+            if dtype == torch.float32:
+                lib = F.grid_sample(bev, grid, mode="bilinear",
+                                    padding_mode="zeros", align_corners=True)
+                lib_err = float((lib[:, :, 0].permute(0, 2, 1) - ref).abs()
+                                .max())
+                del lib
+            del got, ref, err, via_model
+            ms = _cuda_ms(lambda: bl.bilinear_gather(x, ci, cw), iters=50)
+            plain_ms = _cuda_ms(lambda: bl.bilinear_gather_plain(x, ci, cw),
+                                iters=5, warmup=1)
+            g = grid.to(dtype)
+            library_ms = _cuda_ms(
+                lambda: F.grid_sample(bev, g, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True), iters=20)
+            # out written once, the rows the corners touch read once, ci
+            # and cw read once; 4 FMAs per output value
+            elt = x.element_size()
+            bound_ms, bound_by = _bound(
+                b * p * c * elt + touched * c * elt + 2 * b * p * 4 * 4,
+                8 * b * p * c)
+            case = dict(shape=[b, h * w, c], points=p, dtype=name,
+                        max_abs_err=max_abs,
+                        tolerance=f"abs <= {atol} + {rtol} * |plain f32|",
+                        off_map_corner_share=off_map, touched_rows=touched,
+                        library_max_abs_err=lib_err, ms=ms,
+                        plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+            cases.append(case)
+            print(f"  bilinear_gather x{case['shape']} P={p} {name:8s} "
+                  f"max_abs={max_abs:.3e} off-map corners {off_map:.3f} "
+                  f"kernel={ms * 1e3:7.1f}us plain={plain_ms * 1e3:8.1f}us "
+                  f"grid_sample={library_ms * 1e3:7.1f}us (differs by "
+                  f"{lib_err}) bound={bound_ms * 1e3:5.1f}us ({bound_by})",
+                  flush=True)
+            if not (ok and ok_model):
+                raise AssertionError(
+                    f"bilinear_gather_fwd disagrees with its plain version "
+                    f"(kernel {ok}, through the extractor {ok_model}): "
+                    f"{case}")
     return cases
 
 
@@ -712,6 +920,322 @@ def check_pointpillars_f32(dev):
     return result
 
 
+# f32 two-stage CenterPoint predict, card vs CPU (phase 4c). The tolerances
+# are phase 4b's; the PFN rows are two f32 matmuls and max/select
+CP_PFN_TOL = (1e-5, 1e-5)
+CP_SCORE_TOL = 2.5e-5  # sigmoid's slope (<= 1/4) times the heads' atol
+CP_MATCHED_SHARE = 0.95  # of the CPU's detections found on the card
+CP_REFINED_TOL = (2e-3, 1e-5)  # the refined box is exp(delta) x the size
+CP_NMS_IOU = 0.2
+CP_SCORE_THRESHOLD = 0.1
+# std of each task's final maps after calibrate_centerpoint, per channel,
+# and where their means go
+CP_MAP_STD = {"hm": 2.0, "reg": 0.3, "height": 0.3, "dim": 0.15, "rot": 1.0,
+              "vel": 0.5}
+CP_DIM_MEAN = (math.log(1.9), math.log(4.5), math.log(1.7))  # a car, w l h
+CP_REFINE_STD = {"score": 1.0, "box": 0.05}
+
+
+@torch.no_grad()
+def calibrate_centerpoint(model, points, mask):
+    """Give the seeded two-stage CenterPoint heads that make a request do
+    real work, on this cloud. With flax's default initialisers and identity
+    BN every heatmap logit sits at the bias, -2.19: every score ~0.10, on
+    the 0.1 threshold, where rounding would decide which candidates are
+    valid. Each task's final convs are scaled and shifted per channel so
+    that the heatmap logits have std 2 around -2.19 (the top 1000 peaks of
+    each task all pass the threshold and the NMS has 1000 boxes to sort
+    out), the sizes are a car's (exp(dim), std 0.15 in the log), and the
+    other maps have the stds of ``CP_MAP_STD`` around 0; then the refine
+    head's two outputs are scaled to ``CP_REFINE_STD`` over the kept
+    detections, so that the second stage moves scores and boxes."""
+    bev = model.bev_from_points_stream(points, mask)
+    for t, pred in enumerate(model.head(bev)):
+        task = getattr(model.head, f"task{t}")
+        for name, std in CP_MAP_STD.items():
+            out = getattr(task, f"{name}_out")
+            v = pred[name].float()
+            gain = std / v.std(dim=(0, 1, 2))
+            centre = {"hm": task.init_bias,
+                      "dim": torch.tensor(CP_DIM_MEAN, device=v.device)
+                      }.get(name, 0.0)
+            out.bias.copy_((out.bias - v.mean(dim=(0, 1, 2))) * gain + centre)
+            out.weight.mul_(gain[:, None, None, None])
+    det = model.head.predict(model.head(bev), model.pc_range,
+                             model.voxel_size, model.out_size_factor)
+    kept = det["labels"] >= 0
+    slog, deltas = model.refine(model.extractor(bev, det["boxes"]))
+    model.refine.score.weight.mul_(CP_REFINE_STD["score"] / slog[kept].std())
+    model.refine.box.weight.mul_(CP_REFINE_STD["box"] / deltas[kept].std())
+    return model
+
+
+def _centerpoint_stages(model, points, mask):
+    """``predict_refined`` stage by stage, through the model's own methods:
+    the stream and the PFN's rows, the BEV map, the heads, per task the
+    NMS's candidates and the flat (class-major) heatmap cells they came
+    from, the stage-1 detections and the refined ones."""
+    from minddet_tpu_torch.ops.decode import simple_topk
+    from minddet_tpu_torch.ops.voxelize import scatter_stream_canvas
+
+    sv, h = model.pillars_from_points(points, mask)
+    canvas, _ = scatter_stream_canvas(h, sv, model.grid_ny, model.grid_nx)
+    bev = model.rpn(canvas).contiguous(memory_format=torch.channels_last)
+    preds = model.head(bev)
+    geometry = (model.pc_range, model.voxel_size, model.out_size_factor)
+    cands = model.head.candidates(preds, *geometry)
+    cells = []
+    for pred in preds:
+        hm = torch.sigmoid(pred["hm"].float())
+        _, pos, cls, _, _ = simple_topk(hm, CP_CANDIDATES)
+        cells.append(cls.long() * (hm.shape[1] * hm.shape[2]) + pos)
+    det = model.head.predict(preds, *geometry)
+    return dict(sv=sv, h=h, bev=bev, preds=preds, cands=cands, cells=cells,
+                det=det, refined=model.refine_detections(bev, det))
+
+
+def _wrap(angle):
+    return torch.remainder(angle + math.pi, 2 * math.pi) - math.pi
+
+
+def _cp_candidate_checks(task, cand_g, cand_c, cells_g, cells_c, hm_c):
+    """One task's candidates (sample 0) of the card vs the CPU: sorted
+    scores; cells on one side only must tie with the CPU's last score;
+    boxes of the common cells. Returns (result, problems)."""
+    bad = []
+    sg, sc = cand_g["scores"][0].cpu(), cand_c["scores"][0]
+    ig, ic = cells_g[0].cpu(), cells_c[0]
+    r = dict(score_err=float((sg - sc).abs().max()),
+             reordered=int((ig != ic).sum()))
+    if r["score_err"] > CP_SCORE_TOL:
+        bad.append(f"task {task}: candidate scores")
+    one_side = sorted(set(ig.tolist()) ^ set(ic.tolist()))
+    r["on_one_side"] = len(one_side)
+    flat = torch.sigmoid(hm_c[0].float()).permute(2, 0, 1).reshape(-1)
+    if any(abs(float(flat[a]) - float(sc[-1])) > CP_SCORE_TOL
+           for a in one_side):
+        bad.append(f"task {task}: a candidate on one side only that is no "
+                   "boundary tie")
+    pos_g = {a: p for p, a in enumerate(ig.tolist())}
+    pc = [p for p, a in enumerate(ic.tolist()) if a in pos_g]
+    pg = [pos_g[int(ic[p])] for p in pc]
+    bg, bc = cand_g["boxes"][0].cpu()[pg], cand_c["boxes"][0][pc]
+    atol, rtol = PP_BOX_TOL
+    err = (bg[:, :8] - bc[:, :8]).abs()
+    yaw_err = _wrap(bg[:, 8] - bc[:, 8]).abs()
+    r["box_err"] = float(torch.cat([err.flatten(), yaw_err]).max())
+    if not (bool((err <= atol + rtol * bc[:, :8].abs()).all())
+            and bool((yaw_err <= atol).all())):
+        bad.append(f"task {task}: decoded boxes")
+    return r, bad
+
+
+def _detections_agree(got, ref, box_tol, score_atol) -> bool:
+    """Detections slot by slot: labels equal, scores and boxes (yaw modulo a
+    turn) within tolerance."""
+    bg, bc = got["boxes"].cpu(), ref["boxes"]
+    atol, rtol = box_tol
+    err = (bg[..., :8] - bc[..., :8]).abs()
+    return (torch.equal(got["labels"].cpu(), ref["labels"])
+            and torch.allclose(got["scores"].cpu(), ref["scores"], rtol=0,
+                               atol=score_atol)
+            and bool((err <= atol + rtol * bc[..., :8].abs()).all())
+            and bool((_wrap(bg[..., 8] - bc[..., 8]).abs() <= atol).all()))
+
+
+def _matched_share(got, ref, box_tol, score_atol) -> float:
+    """The share of ``ref``'s kept detections that ``got`` holds too, in
+    whatever slot of the same task: same label, centre, size and velocity
+    within ``box_tol``, score within ``score_atol``."""
+    atol, rtol = box_tol
+    matched = total = 0
+    for i in range(ref["labels"].shape[0]):
+        for t in range(CP_TASKS):
+            sl = slice(t * CP_NMS_POST, (t + 1) * CP_NMS_POST)
+            lc, lg = ref["labels"][i, sl], got["labels"][i, sl].cpu()
+            bc, bg = ref["boxes"][i, sl], got["boxes"][i, sl].cpu()
+            sc, sg = ref["scores"][i, sl], got["scores"][i, sl].cpu()
+            err = (bg[None, :, :8] - bc[:, None, :8]).abs()
+            same = ((err <= atol + rtol * bc[:, None, :8].abs()).all(-1)
+                    & (lg[None] == lc[:, None])
+                    & ((sg[None] - sc[:, None]).abs() <= score_atol))
+            matched += int((same.any(1) & (lc >= 0)).sum())
+            total += int((lc >= 0).sum())
+    return matched / max(total, 1)
+
+
+def check_centerpoint_f32(dev, gpu):
+    """Phase 4c: f32 two-stage CenterPoint ``predict_refined`` at batch 1 on
+    the card against the same model on the CPU (TF32 off), stage by stage:
+    the stream's flags and the PFN's rows at each pillar's last kept row
+    (K5f on the card), the BEV map, every task's maps, per task the top-1000
+    candidates and their boxes, the IoU matrix of the stacked tasks (K4 on
+    the CPU's candidates, and the card's own), the kept lists of the card's
+    NMS on the CPU's candidates, the card's second stage (K3f) on the CPU's
+    detections, and the card's own kept lists and refined detections, slot
+    by slot where its candidates came out in the CPU's order and always as
+    sets (``CP_MATCHED_SHARE``); kept lists are compared where no pair's IoU
+    lies within PP_NEAR of the threshold or no pair's IoUs lie on two sides
+    of it. ``gpu`` is the model on the card; it is
+    calibrated here."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import build_centerpoint
+    from minddet_tpu_torch.ops import rotated_iou as ri
+    from minddet_tpu_torch.ops.nms import rotated_nms
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    points, pmask = _nusc_clouds(gpu, 1, 1, "cpu")
+    calibrate_centerpoint(gpu, points.to(dev), pmask.to(dev))
+    cpu = build_centerpoint("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    kernels.reset_launches()
+    with torch.inference_mode():
+        g = _centerpoint_stages(gpu, points.to(dev), pmask.to(dev))
+        served = gpu.predict_refined(points.to(dev), pmask.to(dev))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if launches != _centerpoint_launches(2):
+        raise AssertionError(f"two f32 CenterPoint predicts launched "
+                             f"{launches} (want two each of seg_full_max, "
+                             f"rotated_iou_intersect, bilinear_gather_fwd)")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c = _centerpoint_stages(cpu, points, pmask)
+    cpu_s = time.perf_counter() - t0
+
+    result, bad = dict(cpu_predict_s=cpu_s), []
+    if not _detections_agree(served, {k: v.cpu() if torch.is_tensor(v) else v
+                                      for k, v in g["refined"].items()},
+                             (1e-5, 0.0), 1e-6):
+        bad.append("predict_refined against its own stages on the card")
+    last = c["sv"].last
+    result["pillars"] = int(last.sum())
+    result["kept_point_share"] = float(c["sv"].keep.float().mean())
+    if not (torch.equal(g["sv"].last.cpu(), last)
+            and torch.equal(g["sv"].keep.cpu(), c["sv"].keep)
+            and torch.equal(g["sv"].first.cpu(), c["sv"].first)):
+        bad.append("stream flags")
+    rows_g, rows_c = g["h"].cpu()[last], c["h"][last]
+    result["pfn_max_abs_err"] = float((rows_g - rows_c).abs().max())
+    result["pfn_max_abs"] = float(rows_c.abs().max())
+    if not torch.allclose(rows_g, rows_c, atol=CP_PFN_TOL[0],
+                          rtol=CP_PFN_TOL[1]):
+        bad.append("PFN rows at the last kept rows")
+    atol, rtol = PP_HEAD_TOL
+    bev_g = g["bev"].cpu()
+    result["bev_max_abs_err"] = float((bev_g - c["bev"]).abs().max())
+    result["bev_std"] = float(c["bev"].std())
+    if not torch.allclose(bev_g, c["bev"], rtol=rtol, atol=atol):
+        bad.append("BEV map")
+    for name in CP_MAP_STD:
+        errs = []
+        for t, ref in enumerate(c["preds"]):
+            got = g["preds"][t][name].cpu()
+            errs.append(float((got - ref[name]).abs().max()))
+            if not torch.allclose(got, ref[name], rtol=rtol, atol=atol):
+                bad.append(f"task {t} map {name}")
+        result[f"{name}_max_abs_err"] = max(errs)
+    result["hm_std"] = float(c["preds"][0]["hm"].std())
+
+    cand = dict(score_err=0.0, reordered=0, on_one_side=0, box_err=0.0)
+    for t in range(len(c["cands"])):
+        r, problems = _cp_candidate_checks(
+            t, g["cands"][t], c["cands"][t], g["cells"][t], c["cells"][t],
+            c["preds"][t]["hm"])
+        bad += problems
+        cand = {k: (max if isinstance(v, float) else sum)((v, r[k]))
+                for k, v in cand.items()}
+    result.update({f"candidates_{k}": v for k, v in cand.items()})
+
+    def stacked(cands):
+        return (torch.cat([x["boxes"][..., [0, 1, 3, 4, 8]] for x in cands])
+                .contiguous(), torch.cat([x["scores"] for x in cands]))
+
+    bev5_c, sc = stacked(c["cands"])
+    bev5_g, _ = stacked(g["cands"])
+    iou_c = ri.rotated_iou_bev(bev5_c, bev5_c)
+    iou_k = ri.rotated_iou_bev(bev5_c.to(dev), bev5_c.to(dev)).cpu()
+    iou_g = ri.rotated_iou_bev(bev5_g, bev5_g).cpu()
+    result["iou_kernel_max_abs_err"] = float((iou_k - iou_c).abs().max())
+    if result["iou_kernel_max_abs_err"] > PP_IOU_TOL:
+        bad.append("IoU matrix of K4 on the CPU's candidates")
+    valid = sc > CP_SCORE_THRESHOLD
+    pair = torch.triu(valid[:, :, None] & valid[:, None, :], 1)
+    near = int((pair & ((iou_c - CP_NMS_IOU).abs() < PP_NEAR)).sum())
+
+    def same_side(a, b):
+        return bool((((a > CP_NMS_IOU) == (b > CP_NMS_IOU)) | ~pair).all())
+
+    kept_c = c["det"]["labels"] >= 0
+    result.update(
+        near_threshold_pairs=near, valid_candidates=int(valid.sum()),
+        overlapping_pairs=int((pair & (iou_c > CP_NMS_IOU)).sum()),
+        kept_cpu=int(kept_c.sum()), nms_passes_card=g["det"]["nms_passes"],
+        nms_passes_cpu=c["det"]["nms_passes"])
+    # Same inputs first, whatever order the card's own candidates took: the
+    # card's NMS on the CPU's candidates (only K4's rounding differs), and
+    # the card's second stage on its own BEV map at the CPU's detections
+    # (K3f and the MLP).
+    idx_k, _, _ = rotated_nms(bev5_c.to(dev), sc.to(dev), CP_NMS_IOU,
+                              CP_SCORE_THRESHOLD, CP_NMS_POST)
+    idx_c, _, _ = rotated_nms(bev5_c, sc, CP_NMS_IOU, CP_SCORE_THRESHOLD,
+                              CP_NMS_POST)
+    compared = near == 0 or same_side(iou_k, iou_c)
+    result["kept_same_inputs_compared"] = compared
+    if compared and not torch.equal(idx_k.cpu(), idx_c):
+        bad.append("kept lists of the card's NMS on the CPU's candidates")
+    ref = c["refined"]
+    with torch.inference_mode():
+        det_on_card = {k: v.to(dev) if torch.is_tensor(v) else v
+                       for k, v in c["det"].items()}
+        got = gpu.refine_detections(g["bev"], det_on_card)
+    result["refined_score_max_abs_err"] = float(
+        (got["scores"].cpu() - ref["scores"]).abs().max())
+    result["refined_box_max_abs_err"] = float(
+        (got["boxes"].cpu()[..., :8] - ref["boxes"][..., :8]).abs().max())
+    result["rescored_by"] = float(
+        (ref["scores"] - c["det"]["scores"]).abs()[kept_c].max())
+    result["refined_by_m"] = float(
+        (ref["boxes"] - c["det"]["boxes"]).abs()[kept_c].max())
+    if not _detections_agree(got, ref, CP_REFINED_TOL, 1e-4):
+        bad.append("the card's second stage on the CPU's detections")
+    # then the card's own request, where its candidates came out in the
+    # CPU's order and every IoU on the CPU's side of the threshold
+    same = not (cand["reordered"] or cand["on_one_side"])
+    if same:
+        result["iou_e2e_max_abs_err"] = float((iou_g - iou_c).abs().max())
+        if result["iou_e2e_max_abs_err"] > PP_IOU_E2E_TOL:
+            bad.append("IoU matrix of the card's candidates")
+    same = same and (near == 0 or same_side(iou_g, iou_c))
+    result["kept_end_to_end_compared"] = same
+    if same and not (
+            _detections_agree(g["det"], c["det"], PP_BOX_TOL, CP_SCORE_TOL)
+            and _detections_agree(g["refined"], ref, CP_REFINED_TOL, 1e-4)):
+        bad.append("kept lists and refined detections end to end")
+    # and in any case as sets: candidates that traded places move a kept
+    # detection to a neighbouring slot, and change the kept set only where
+    # the two overlap or straddle the 83rd place
+    result["stage1_matched_share"] = _matched_share(
+        g["det"], c["det"], PP_BOX_TOL, CP_SCORE_TOL)
+    result["refined_matched_share"] = _matched_share(
+        g["refined"], ref, CP_REFINED_TOL, 1e-4)
+    if min(result["stage1_matched_share"],
+           result["refined_matched_share"]) < CP_MATCHED_SHARE:
+        bad.append("the card's own detections against the CPU's, as sets")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    print("  f32 CenterPoint card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 CenterPoint predict, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
 # f32 train step, card vs CPU. Both sides run the same arithmetic up to the
 # order of f32 sums (cuDNN and cuBLAS against oneDNN, atomics in the
 # sampler's backward). The backward also passes some 10**7 ReLU inputs and
@@ -725,6 +1249,16 @@ def check_pointpillars_f32(dev):
 TRAIN_TOL = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3, grad_rel_l2=5e-2,
                  stat_atol=1e-4, stat_rtol=1e-4, param_atol=2 * 5e-4 * 1.01,
                  param_moved_share=1e-2, param_moved_atol=1e-6)
+
+
+def _centerpoint_launches(n: int):
+    """Launch counts of n two-stage CenterPoint requests: n each of the
+    segment max, the rotated-box intersection and the row gather, no
+    sampler kernel."""
+    from minddet_tpu_torch import kernels
+
+    return {k.name: 0 if k.name.startswith("hat_sample") else n
+            for k in kernels.KERNELS}
 
 
 def _sampler_launches(n: int):
@@ -933,10 +1467,47 @@ def serve(programs):
     return out, forwards
 
 
-def serve_pointpillars(programs, dev):
-    """Phase 6c, the PointPillars serving main path: f32 requests from raw
-    points at each batch size, with the peak memory and the NMS's passes
-    per request."""
+def _check_pointpillars_detections(det, b):
+    boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
+    kept = (labels >= 0).sum(1)
+    ok = (boxes.shape == (b, 300, 7) and bool(torch.isfinite(boxes).all())
+          and bool((kept > 0).all())
+          and bool(((scores > 0.09) == (labels >= 0)).all())
+          and bool((boxes[..., 3:6] >= 0).all()))
+    if not ok:
+        raise AssertionError(f"PointPillars predict at batch {b}: boxes "
+                             f"{tuple(boxes.shape)}, kept {kept.tolist()}"
+                             f", finite {bool(torch.isfinite(boxes).all())}")
+
+
+def _check_centerpoint_detections(det, b):
+    """Refined detections of the calibrated nuScenes model: (b, 6 * 83)
+    slots, every task's 83 filled (1000 valid candidates each), labels of
+    the ten classes, scores sqrt(stage 1 x quality) in (0, 1], positive
+    sizes; dropped slots would be label -1 with zero score and box."""
+    boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
+    slots = CP_TASKS * CP_NMS_POST
+    kept = labels >= 0
+    ok = (boxes.shape == (b, slots, 9) and scores.shape == (b, slots)
+          and bool(torch.isfinite(boxes).all())
+          and bool(torch.isfinite(scores).all())
+          and bool((kept.sum(1) > CP_NMS_POST).all())
+          and bool((labels <= 9).all())
+          and bool(((scores > 0) == kept).all()) and bool((scores <= 1).all())
+          and bool((boxes[..., 3:6][kept] > 0).all())
+          and bool((boxes[~kept] == 0).all()))
+    if not ok:
+        raise AssertionError(f"CenterPoint predict_refined at batch {b}: "
+                             f"boxes {tuple(boxes.shape)}, kept "
+                             f"{kept.sum(1).tolist()}, finite "
+                             f"{bool(torch.isfinite(boxes).all())}")
+
+
+def serve_clouds(label, programs, dev, check):
+    """Phases 6c and 6d, a lidar model's serving main path: f32 requests
+    from raw points at each batch size, with the peak memory, the NMS's
+    passes per request and the detections kept per cloud; ``check(det,
+    batch)`` raises on a malformed answer."""
     out = {}
     predicts = 0
     for b, (predict, (points, mask)) in programs.items():
@@ -952,23 +1523,14 @@ def serve_pointpillars(programs, dev):
                 times.append(time.perf_counter() - t0)
                 passes.append(det["nms_passes"])
             predicts += 1
-        boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
-        kept = (labels >= 0).sum(1)
-        ok = (boxes.shape == (b, 300, 7) and bool(torch.isfinite(boxes).all())
-              and bool((kept > 0).all())
-              and bool(((scores > 0.09) == (labels >= 0)).all())
-              and bool((boxes[..., 3:6] >= 0).all()))
-        if not ok:
-            raise AssertionError(f"PointPillars predict at batch {b}: boxes "
-                                 f"{tuple(boxes.shape)}, kept {kept.tolist()}"
-                                 f", finite {bool(torch.isfinite(boxes).all())}")
+        check(det, b)
         mean_s = statistics.mean(times)
         out[f"b{b}"] = r = dict(
             batch=b, requests=len(times), ms_mean=mean_s * 1e3,
             ms_p50=statistics.median(times) * 1e3, clouds_per_s=b / mean_s,
             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-            nms_passes=passes, kept=kept.tolist())
-        print(f"  PointPillars f32 batch {b}: {mean_s * 1e3:8.3f} ms/request"
+            nms_passes=passes, kept=(det["labels"] >= 0).sum(1).tolist())
+        print(f"  {label} f32 batch {b}: {mean_s * 1e3:8.3f} ms/request"
               f" (p50 {r['ms_p50']:.3f}), {r['clouds_per_s']:7.1f} clouds/s,"
               f" peak {r['max_memory_allocated'] / 2 ** 30:.2f} GiB, NMS "
               f"passes {passes}, kept {r['kept']}", flush=True)
@@ -1035,12 +1597,12 @@ def profile_serving(programs, requests: int = 3):
     return result
 
 
-def profile_pointpillars(programs, requests: int = 3):
-    """Where a PointPillars request's time goes, per batch size."""
+def profile_clouds(label, programs, requests: int = 3):
+    """Where a lidar model's request's time goes, per batch size."""
     result = {}
     for b, (predict, args) in programs.items():
         result[f"b{b}"] = r = _profile(lambda: predict(*args), requests)
-        _print_profile(f"PointPillars batch {b}", r)
+        _print_profile(f"{label} batch {b}", r)
     return result
 
 
@@ -1051,9 +1613,11 @@ def profile_train(step_fn, state, batch, steps: int = 3):
     return r
 
 
-def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases):
+def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
+                library: bool = False):
     """One kernel's entry of the ``{"kernels": [...]}`` line: times and
-    bounds summed over the calls of one main-path pass at its shapes."""
+    bounds summed over the calls of one main-path pass at its shapes;
+    ``library`` where the cases timed one PyTorch call beside the kernel."""
     from minddet_tpu_torch import kernels
 
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
@@ -1065,14 +1629,14 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases):
         ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
         bound_by="bytes" if all(c["bound_by"] == "bytes"
                                 for c in main_cases) else "operations",
-        library_ms=None)
+        library_ms=tot("library_ms") if library else None)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the serving requests of both "
+                    help="also profile the serving requests of the three "
                          "models and 3 train steps (torch.profiler)")
     args = ap.parse_args(argv)
 
@@ -1107,12 +1671,22 @@ def main(argv=None) -> int:
     cases = check_taps_kernel(dev, gen)
     bwd_cases = check_taps_bwd_kernel(dev, gen)
     iou_cases = check_rotated_iou_kernel(dev, gen)
+    from minddet_tpu_torch.entry import build_centerpoint
+
+    centerpoint = build_centerpoint(dev)
+    seg_cases = check_seg_max_kernel(dev, centerpoint)
+    gather_cases = check_bilinear_kernel(dev, gen, centerpoint)
 
     print("phase 4: end to end, f32 predict, card vs CPU", flush=True)
     e2e = check_end_to_end_f32(dev, gen)
     print("phase 4b: end to end, f32 PointPillars predict, card vs CPU",
           flush=True)
     pp_f32 = check_pointpillars_f32(dev)
+    print("phase 4c: end to end, f32 two-stage CenterPoint predict, card vs "
+          "CPU", flush=True)
+    cp_f32 = check_centerpoint_f32(dev, centerpoint)
+    del centerpoint
+    torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU", flush=True)
     train_f32 = check_train_step_f32(dev, gen)
@@ -1156,7 +1730,8 @@ def main(argv=None) -> int:
     pp_programs = {b: pointpillars_entry(device=dev, batch=b)
                    for b in PP_BATCHES}
     kernels.reset_launches()
-    pp_serving, predicts = serve_pointpillars(pp_programs, dev)
+    pp_serving, predicts = serve_clouds("PointPillars", pp_programs, dev,
+                                        _check_pointpillars_detections)
     pp_launches = {k.name: k.launches for k in kernels.KERNELS}
     if pp_launches != {k.name: predicts * int(k is kernels.ROTATED_IOU)
                        for k in kernels.KERNELS}:
@@ -1168,8 +1743,35 @@ def main(argv=None) -> int:
           f"launches == requests: True", flush=True)
     if args.profile:
         print("profile: PointPillars serving", flush=True)
-        profiled["pointpillars"] = profile_pointpillars(pp_programs)
+        profiled["pointpillars"] = profile_clouds("PointPillars",
+                                                  pp_programs)
     del pp_programs
+    torch.cuda.empty_cache()
+
+    print("phase 6d: main path, two-stage CenterPoint f32 serving",
+          flush=True)
+    from minddet_tpu_torch.entry import centerpoint_entry
+
+    cp_programs = {b: centerpoint_entry(device=dev, batch=b)
+                   for b in CP_BATCHES}
+    for predict, clouds in cp_programs.values():
+        calibrate_centerpoint(predict.__self__, *clouds)
+    kernels.reset_launches()
+    cp_serving, cp_predicts = serve_clouds("CenterPoint", cp_programs, dev,
+                                           _check_centerpoint_detections)
+    cp_launches = {k.name: k.launches for k in kernels.KERNELS}
+    if cp_launches != _centerpoint_launches(cp_predicts):
+        raise AssertionError(f"CenterPoint serving launched {cp_launches} "
+                             f"for {cp_predicts} requests (want one each of "
+                             f"seg_full_max, rotated_iou_intersect and "
+                             f"bilinear_gather_fwd per request, no sampler)")
+    print(f"  kernels: {cp_launches} requests={cp_predicts} seg_full_max == "
+          f"rotated_iou_intersect == bilinear_gather_fwd == requests: True",
+          flush=True)
+    if args.profile:
+        print("profile: CenterPoint serving", flush=True)
+        profiled["centerpoint"] = profile_clouds("CenterPoint", cp_programs)
+    del cp_programs
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases); K1b one bf16 train step's nine
@@ -1186,11 +1788,22 @@ def main(argv=None) -> int:
         _kernel_row(kernels.HAT_SAMPLE_TAPS_BWD,
                     train_launches["hat_sample_taps_bwd"], bwd_main,
                     DCN_CALLS_PER_SHAPE, bwd_cases),
-        # K4: one batch-8 request's call
+        # K4: one batch-8 PointPillars request's call; launched by both
+        # lidar models' requests
         _kernel_row(kernels.ROTATED_IOU,
-                    pp_launches["rotated_iou_intersect"],
+                    pp_launches["rotated_iou_intersect"]
+                    + cp_launches["rotated_iou_intersect"],
                     [c for c in iou_cases if c["shape"][0] == 8], 1,
                     iou_cases),
+        # K5f and K3f: one f32 batch-4 CenterPoint request's call
+        _kernel_row(kernels.SEG_FULL_MAX, cp_launches["seg_full_max"],
+                    [c for c in seg_cases if c["dtype"] == "float32"
+                     and c["shape"][0] == CP_BATCHES[-1]], 1, seg_cases),
+        _kernel_row(kernels.BILINEAR_GATHER_FWD,
+                    cp_launches["bilinear_gather_fwd"],
+                    [c for c in gather_cases if c["dtype"] == "float32"
+                     and c["shape"][0] == CP_BATCHES[-1]], 1, gather_cases,
+                    library=True),
     ]
     wall_s = time.perf_counter() - t_start
     print(f"  chip_smoke wall time {wall_s:.1f} s", flush=True)
@@ -1200,13 +1813,18 @@ def main(argv=None) -> int:
                            cuda=torch.version.cuda, build_s=build_s,
                            wall_s=wall_s, taps_cases=cases,
                            taps_bwd_cases=bwd_cases,
-                           rotated_iou_cases=iou_cases, end_to_end_f32=e2e,
-                           pointpillars_f32=pp_f32,
+                           rotated_iou_cases=iou_cases,
+                           seg_full_max_cases=seg_cases,
+                           bilinear_gather_cases=gather_cases,
+                           end_to_end_f32=e2e, pointpillars_f32=pp_f32,
+                           centerpoint_f32=cp_f32,
                            train_step_f32=train_f32, serving=serving,
                            serving_launches=serve_launches,
                            forwards=forwards, training=training,
                            pointpillars_serving=pp_serving,
                            pointpillars_launches=pp_launches,
+                           centerpoint_serving=cp_serving,
+                           centerpoint_launches=cp_launches,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -9,6 +9,9 @@ synthetic boxes, focal + gathered-L1 loss, AdamW(5e-4) with clip-by-global-
 norm 35 and the BN running-stat update. ``pointpillars_entry()`` is the
 PointPillars serving program (``PointPillars.predict_from_points``): the
 KITTI car model from raw points to (B, 300) rotated boxes, f32.
+``centerpoint_entry()`` is the two-stage CenterPoint serving program
+(``CenterPointTwoStage.predict_refined``): the nuScenes pillar model from
+120,000 raw points to (B, 6 * 83) rescored and refined boxes, f32.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from minddet_tpu_torch.core.optim import adamw
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
+from minddet_tpu_torch.models.detectors.centerpoint import CenterPointTwoStage
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
@@ -30,6 +34,8 @@ SEED = 0
 OBJECTS = 128         # box slots per image (bench.py: o = 128)
 VALID_OBJECTS = 8     # valid boxes per image (bench.py: n = 8)
 CLOUD_POINTS = 18000  # points per cloud (bench.py: num_points=18000)
+NUSC_CLOUD_POINTS = 120000  # configs/centerpoint_pp_nusc.yaml: num_points
+NUSC_POINT_FEATURES = 5     # x, y, z, reflectance, sweep time
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,18 +128,22 @@ def train_entry(device=None, batch: int = 128
 
 
 def synthetic_clouds(batch: int, pc_range, num_points: int = CLOUD_POINTS,
-                     seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-    """Point clouds as ``bench.py``'s PointPillars setup draws them
-    (``train/train.py:synthetic_points_batches``): numpy ``RandomState``,
-    x, y, z uniform over ``pc_range``, reflectance in [0, 1), all valid.
-    Returns points (batch, num_points, 4) f32 and the mask (all True)."""
+                     seed: int = 0, num_features: int = 4
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Point clouds as ``bench.py``'s PointPillars and CenterPoint setups
+    draw them (``train/train.py:synthetic_points_batches``): numpy
+    ``RandomState``, x, y, z uniform over ``pc_range``, reflectance in
+    [0, 1), any further feature (the sweep time) in [0, 0.45), all valid.
+    Returns points (batch, num_points, num_features) f32 and the mask (all
+    True)."""
     rs = np.random.RandomState(seed)
     x0, y0, z0, x1, y1, z1 = pc_range
     size = (batch, num_points)
-    pts = np.stack([rs.uniform(x0, x1, size), rs.uniform(y0, y1, size),
-                    rs.uniform(z0, z1, size), rs.uniform(0, 1, size)],
-                   -1).astype(np.float32)
-    return pts, np.ones(size, bool)
+    feats = [rs.uniform(x0, x1, size), rs.uniform(y0, y1, size),
+             rs.uniform(z0, z1, size), rs.uniform(0, 1, size)]
+    while len(feats) < num_features:
+        feats.append(rs.uniform(0, 0.45, size))
+    return np.stack(feats, -1).astype(np.float32), np.ones(size, bool)
 
 
 def build_pointpillars(device=None) -> PointPillars:
@@ -158,3 +168,32 @@ def pointpillars_entry(device=None, batch: int = 1
     points, mask = synthetic_clouds(batch, model.pc_range)
     return model.predict_from_points, (torch.from_numpy(points).to(dev),
                                        torch.from_numpy(mask).to(dev))
+
+
+def build_centerpoint(device=None) -> CenterPointTwoStage:
+    """The two-stage nuScenes CenterPoint of
+    ``configs/centerpoint_pp_nusc_two_stage.yaml`` (grid 512x512, voxels
+    0.2 x 0.2 x 8 m, PFN (64, 64), RPN (3, 5, 5) with up strides (0.5, 1,
+    2), six tasks, max_voxels 30000, 20 points per pillar, sorted drop
+    order, refine width 128) in eval mode, f32, with flax's default
+    initialisers drawn from ``SEED`` and the heatmap biases at -2.19."""
+    dev = resolve_device(device)
+    model = CenterPointTwoStage().init_weights(
+        torch.Generator().manual_seed(SEED))
+    return model.eval().to(device=dev, memory_format=torch.channels_last)
+
+
+def centerpoint_entry(device=None, batch: int = 1
+                      ) -> Tuple[Callable[..., Dict],
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+    """(predict_fn, (points, points_mask)): ``predict_fn(points,
+    points_mask)`` is ``CenterPointTwoStage.predict_refined`` (score
+    threshold 0.1, top 1000 per task, NMS IoU 0.2, 83 kept per task): boxes
+    (batch, 498, 9), scores, labels. The clouds are 120,000 points of 5
+    features from ``synthetic_clouds``."""
+    model = build_centerpoint(device)
+    dev = next(model.parameters()).device
+    points, mask = synthetic_clouds(batch, model.pc_range, NUSC_CLOUD_POINTS,
+                                    num_features=NUSC_POINT_FEATURES)
+    return model.predict_refined, (torch.from_numpy(points).to(dev),
+                                   torch.from_numpy(mask).to(dev))

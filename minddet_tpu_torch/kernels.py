@@ -155,5 +155,19 @@ ROTATED_IOU = CudaKernel(
     replaces="minddet_tpu/ops/rotated_iou_pallas.py:55 _intersect_kernel",
 )
 
+SEG_FULL_MAX = CudaKernel(
+    "seg_full_max", "seg_full_max.cu",
+    # x, first, last, out, B, N, C, bound, dtype, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/seg_pallas.py:108 _fwd_kernel",
+)
+
+BILINEAR_GATHER_FWD = CudaKernel(
+    "bilinear_gather_fwd", "bilinear_gather.cu",
+    # x, ci, cw, out, B, HW, C, P, dtype, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/bilinear.py:49 _fwd_kernel",
+)
+
 KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD,
-                             ROTATED_IOU]
+                             ROTATED_IOU, SEG_FULL_MAX, BILINEAR_GATHER_FWD]

@@ -10,10 +10,10 @@ with the stream voxelizer, ``_canvas_from_points``, the heads of
 
 The canvas is one (B, 64, ny, nx) map in ``channels_last`` memory, built by
 one ``index_copy_`` of each pillar's last kept stream row (where the
-running max holds the whole pillar's max) into B * ny * nx + 1 rows, the
-last row taking the dropped ones; the occupancy map comes from the same
-indices. The reference's TPU layouts (space-to-depth scatter, the 65th
-occupancy channel, the compact scatter) compute the same canvas.
+running max holds the whole pillar's max); the occupancy map comes from the
+same indices (``ops/voxelize.py:scatter_stream_canvas``). The reference's
+TPU layouts (space-to-depth scatter, the 65th occupancy channel, the compact
+scatter) compute the same canvas.
 
 Eval only; the configuration's fields are the reference's, with its
 defaults (the KITTI car model of ``configs/pointpillars_car_kitti.yaml``).
@@ -28,17 +28,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from minddet_tpu_torch.models.layers import Conv2d, variance_scaling_
+from minddet_tpu_torch.models.layers import Conv2d, init_flax_defaults_
 from minddet_tpu_torch.models.necks.second_rpn import SECONDRPN
-from minddet_tpu_torch.models.readers.pillar_encoder import (
-    MaskedBatchNorm, PillarFeatureNet)
+from minddet_tpu_torch.models.readers.pillar_encoder import PillarFeatureNet
 from minddet_tpu_torch.ops.anchors import (ClassAnchorConfig,
                                            generate_anchors,
                                            make_grid_area_mask)
 from minddet_tpu_torch.ops.box import limit_period, second_box_decode
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
-from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
+from minddet_tpu_torch.ops.voxelize import (scatter_stream_canvas,
+                                            voxelize_stream_batch)
 
 Preds = Dict[str, torch.Tensor]
 
@@ -121,22 +121,10 @@ class PointPillars(nn.Module):
             points, points_mask, self.voxel_size, self.pc_range,
             self.max_voxels, self.max_points_per_voxel,
             self.voxel_drop_order)
-        h = self.reader.stream(sv.feats, sv.keep, sv.first,
+        h = self.reader.stream(sv.feats, sv.keep, sv.first, sv.last,
                                bound=self.max_points_per_voxel)
-        b, n, c = h.shape
-        cells = self.grid_ny * self.grid_nx
-        base = torch.arange(b, device=h.device)[:, None] * cells
-        rows = torch.where(sv.last, sv.canvas_idx + base,
-                           torch.full_like(sv.canvas_idx, b * cells))
-        rows = rows.reshape(-1)
-        flat = torch.zeros(b * cells + 1, c, dtype=h.dtype, device=h.device)
-        flat.index_copy_(0, rows, h.reshape(b * n, c))
-        occ = torch.zeros(b * cells + 1, dtype=torch.float32,
-                          device=h.device)
-        occ.index_fill_(0, rows, 1.0)
-        canvas = flat[:b * cells].view(b, self.grid_ny, self.grid_nx, c)
-        occ = occ[:b * cells].view(b, self.grid_ny, self.grid_nx)
-        return canvas.permute(0, 3, 1, 2), occ
+        return scatter_stream_canvas(h, sv, self.grid_ny, self.grid_nx,
+                                     occupancy=True)
 
     def preds_from_canvas(self, canvas: torch.Tensor) -> Preds:
         """Canvas (B, C, ny, nx) -> flat per-anchor f32 predictions:
@@ -236,23 +224,7 @@ class PointPillars(nn.Module):
         """flax's default initialisers, drawn from ``generator``:
         LeCun-normal kernels (the Dense, the convs, the transposed convs),
         zero biases, identity BN (scale 1, bias 0, mean 0, var 1)."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                variance_scaling_(m.weight, 1.0, m.in_features, generator)
-            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                # Conv2d weight (O, I, kh, kw), ConvTranspose2d (I, O, kh,
-                # kw): fan_in = I*kh*kw either way
-                i = m.weight.shape[0 if isinstance(m, nn.ConvTranspose2d)
-                                   else 1]
-                variance_scaling_(m.weight, 1.0, i * m.weight[0, 0].numel(),
-                                  generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, (nn.BatchNorm2d, MaskedBatchNorm)):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
+        init_flax_defaults_(self, generator)
         return self
 
 

@@ -32,6 +32,31 @@ def variance_scaling_(t: torch.Tensor, scale: float, fan_in: int,
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+@torch.no_grad()
+def init_flax_defaults_(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialisers over every submodule, in place, drawn
+    from ``generator``: LeCun-normal kernels (Linear, Conv2d,
+    ConvTranspose2d), zero biases, identity BN (scale 1, bias 0, mean 0,
+    var 1) for every module with running statistics."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            variance_scaling_(m.weight, 1.0, m.in_features, generator)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            # Conv2d weight (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw):
+            # fan_in = I*kh*kw either way
+            i = m.weight.shape[0 if isinstance(m, nn.ConvTranspose2d) else 1]
+            variance_scaling_(m.weight, 1.0, i * m.weight[0, 0].numel(),
+                              generator)
+        elif hasattr(m, "running_var"):
+            nn.init.ones_(m.weight)
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        else:
+            continue
+        if getattr(m, "bias", None) is not None:
+            nn.init.zeros_(m.bias)
+
+
 def _cast(t, dtype):
     return None if t is None else t.to(dtype)
 

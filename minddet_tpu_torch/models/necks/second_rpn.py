@@ -1,12 +1,14 @@
 """SECOND-style RPN (counterpart of
 ``minddet_tpu/models/necks/second_rpn.py``): per block a strided 3x3 down
 conv + BN + ReLU, ``layer_nums[i]`` 3x3 conv + BN + ReLU layers, and an
-upsampling ``ConvTranspose`` (kernel = stride) + BN + ReLU; the upsampled
-maps are concatenated on channels.
+upsampling ``ConvTranspose`` (kernel = stride) + BN + ReLU, or for a
+fractional upsample stride (CenterPoint's 0.5) a strided conv of kernel =
+stride = 1 / us; the resampled maps are concatenated on channels.
 
 NCHW in ``channels_last`` memory. BN has SECOND's eps 1e-3 and flax
 momentum 0.99 (torch momentum 0.01). Module names are the flax scopes
-(``block{i}_down_conv``, ``block{i}_{j}_conv``, ``up{i}_deconv``, ...), so
+(``block{i}_down_conv``, ``block{i}_{j}_conv``, ``up{i}_deconv`` or
+``up{i}_downconv``, ...), so
 ``utils/convert.py`` carries the JAX model's variables over.
 
 The reference's TPU layout variants are not switches here: the
@@ -39,19 +41,15 @@ class SECONDRPN(nn.Module):
                  layer_nums: Sequence[int] = (3, 5, 5),
                  layer_strides: Sequence[int] = (2, 2, 2),
                  num_filters: Sequence[int] = (64, 128, 256),
-                 upsample_strides: Sequence[int] = (1, 2, 4),
+                 upsample_strides: Sequence[float] = (1, 2, 4),
                  num_upsample_filters: Sequence[int] = (128, 128, 128)):
         super().__init__()
         self.layer_nums = tuple(layer_nums)
+        self.up_names = []
         cin = in_channels
         for bi, (n, s, f, us, uf) in enumerate(zip(
                 layer_nums, layer_strides, num_filters, upsample_strides,
                 num_upsample_filters)):
-            if us < 1 or us != int(us):
-                raise NotImplementedError(
-                    f"upsample stride {us}: only whole strides (transposed "
-                    "convs) are ported")
-            us = int(us)
             self.add_module(f"block{bi}_down_conv",
                             Conv2d(cin, f, 3, stride=s, padding=1,
                                    bias=False))
@@ -60,9 +58,17 @@ class SECONDRPN(nn.Module):
                 self.add_module(f"block{bi}_{li}_conv",
                                 Conv2d(f, f, 3, padding=1, bias=False))
                 self.add_module(f"block{bi}_{li}_bn", _bn(f))
-            self.add_module(f"up{bi}_deconv",
-                            ConvTranspose2d(f, uf, us, stride=us,
-                                            bias=False))
+            if us >= 1:
+                us = int(us)
+                self.up_names.append(f"up{bi}_deconv")
+                up = ConvTranspose2d(f, uf, us, stride=us, bias=False)
+            else:
+                # the reference's flax Conv pads SAME, which is no padding
+                # where the stride divides the map (forward checks it)
+                ds = int(round(1.0 / us))
+                self.up_names.append(f"up{bi}_downconv")
+                up = Conv2d(f, uf, ds, stride=ds, bias=False)
+            self.add_module(self.up_names[-1], up)
             self.add_module(f"up{bi}_bn", _bn(uf))
             cin = f
         self.out_channels = sum(num_upsample_filters)
@@ -76,6 +82,11 @@ class SECONDRPN(nn.Module):
             for li in range(n):
                 x = torch.relu(getattr(self, f"block{bi}_{li}_bn")(
                     getattr(self, f"block{bi}_{li}_conv")(x)))
-            ups.append(torch.relu(getattr(self, f"up{bi}_bn")(
-                getattr(self, f"up{bi}_deconv")(x))))
+            up = getattr(self, self.up_names[bi])
+            if isinstance(up, Conv2d) and (x.shape[-2] % up.stride[0]
+                                           or x.shape[-1] % up.stride[1]):
+                raise ValueError(
+                    f"{self.up_names[bi]}: stride {up.stride} does not "
+                    f"divide the {tuple(x.shape[-2:])} map")
+            ups.append(torch.relu(getattr(self, f"up{bi}_bn")(up(x))))
         return torch.cat(ups, dim=1)

@@ -3,10 +3,10 @@ path of ``minddet_tpu/models/readers/pillar_encoder.py``): the decorated
 point stream (B, N, Cin) -> Linear -> masked BN -> ReLU -> the pillar's
 running max, so that each pillar's last kept row holds its feature.
 
-Only the last-layer case is ported (the default ``pfn_filters=(64,)``):
-non-last layers concatenate the pillar max back onto every point through
-``seg_pallas.seg_full_max_bounded``, which is not ported, so they raise.
-Training (masked BN batch statistics) is not ported either.
+A non-last layer (CenterPoint's ``pfn_filters=(64, 64)`` has one) emits
+half its width and concatenates each pillar's max back onto every kept
+point of the pillar, through ``ops/seg_max.py:seg_full_max_bounded``.
+Training (masked BN batch statistics) is not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from minddet_tpu_torch.ops.seg_max import seg_full_max_bounded
 from minddet_tpu_torch.ops.voxelize import seg_running_max
 
 
@@ -46,7 +47,9 @@ class MaskedBatchNorm(nn.Module):
 
 
 class PFNLayer(nn.Module):
-    """Linear (no bias) -> masked BN -> ReLU -> running pillar max."""
+    """Linear (no bias) -> masked BN -> ReLU -> pillar max: the running max
+    in the last layer; in a non-last layer (half width) the full max,
+    concatenated onto each point's own features."""
 
     def __init__(self, in_features: int, out_features: int,
                  last_layer: bool = True):
@@ -57,18 +60,21 @@ class PFNLayer(nn.Module):
         self.norm = MaskedBatchNorm(units)
 
     def stream(self, x: torch.Tensor, keep: torch.Tensor,
-               first: torch.Tensor, bound: int) -> torch.Tensor:
-        """Sorted stream (B, N, Cin) and its keep / segment-head flags ->
-        (B, N, units): at each segment's last kept row the full pillar max
-        over the kept points, exact because no kept row lies more than
-        ``bound`` (the per-pillar point cap) rows past its head."""
-        if not self.last_layer:
-            raise NotImplementedError(
-                "non-last PFN layers need the segment max broadcast back "
-                "(minddet_tpu/ops/seg_pallas.py), which is not ported")
+               first: torch.Tensor, last: torch.Tensor,
+               bound: int) -> torch.Tensor:
+        """Sorted stream (B, N, Cin) and its keep / segment-head / last-kept
+        flags. Last layer -> (B, N, units): at each segment's last kept row
+        the full pillar max over the kept points, exact because no kept row
+        lies more than ``bound`` (the per-pillar point cap) rows past its
+        head. Non-last layer -> (B, N, 2 * units): each point's features,
+        then its pillar's max (at kept rows; other rows hold zeros there,
+        and the next layer masks them)."""
         x = torch.relu(self.norm(self.linear(x)))
         x = x * keep[..., None].to(x.dtype)
-        return seg_running_max(first, x, bound)
+        if self.last_layer:
+            return seg_running_max(first, x, bound)
+        return torch.cat([x, seg_full_max_bounded(first, last, x, bound)],
+                         dim=-1)
 
 
 class PillarFeatureNet(nn.Module):
@@ -86,10 +92,11 @@ class PillarFeatureNet(nn.Module):
         self.out_channels = num_filters[-1]
 
     def stream(self, feats: torch.Tensor, keep: torch.Tensor,
-               first: torch.Tensor, bound: int) -> torch.Tensor:
+               first: torch.Tensor, last: torch.Tensor,
+               bound: int) -> torch.Tensor:
         """Decorated stream (B, N, Cin) -> running pillar features (B, N,
         C), computed in the layers' parameter dtype."""
         x = feats.to(self.pfn0.linear.weight.dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"pfn{i}").stream(x, keep, first, bound)
+            x = getattr(self, f"pfn{i}").stream(x, keep, first, last, bound)
         return x

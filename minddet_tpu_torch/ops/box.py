@@ -1,6 +1,7 @@
-"""Box helpers of the PointPillars predict path (counterpart of the parts of
-``minddet_tpu/ops/box.py`` it uses, plus the rotated-rectangle corners of
-``minddet_tpu/ops/rotated_iou_pallas.py:_corners``).
+"""Box helpers of the PointPillars and CenterPoint predict paths (counterpart
+of the parts of ``minddet_tpu/ops/box.py`` they use, plus the
+rotated-rectangle corners of ``minddet_tpu/ops/rotated_iou_pallas.py:
+_corners``).
 
 Boxes are [x, y, z, w, l, h, yaw] in 3D and [x, y, w, l, yaw] in BEV; w runs
 along the box's own x axis and l along its y axis, yaw counter-clockwise.
@@ -18,6 +19,30 @@ def limit_period(val: torch.Tensor, offset: float = 0.5,
                  period: float = math.pi) -> torch.Tensor:
     """Wrap angles into [-offset*period, (1-offset)*period)."""
     return val - torch.floor(val / period + offset) * period
+
+
+def rotation_2d(points: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., N, 2) point sets counter-clockwise; ``angles`` must
+    broadcast against ``points[..., 0]``."""
+    c = torch.cos(angles)
+    s = torch.sin(angles)
+    x, y = points[..., 0], points[..., 1]
+    return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+
+# corner k of ``center_to_corner_box2d``, in units of (w, l): counter-
+# clockwise from (-w/2, -l/2) in the box's own frame
+_CORNER_SIGNS_2D = ((-0.5, -0.5), (-0.5, 0.5), (0.5, 0.5), (0.5, -0.5))
+
+
+def center_to_corner_box2d(centers: torch.Tensor, dims: torch.Tensor,
+                           angles: torch.Tensor) -> torch.Tensor:
+    """(..., 2) centres, (..., 2) dims, (...,) yaw -> (..., 4, 2) corners,
+    in the reference's corner order."""
+    signs = torch.tensor(_CORNER_SIGNS_2D, dtype=dims.dtype,
+                         device=dims.device)
+    corners = rotation_2d(dims[..., None, :] * signs, angles[..., None])
+    return corners + centers[..., None, :]
 
 
 def second_box_decode(encodings: torch.Tensor, anchors: torch.Tensor

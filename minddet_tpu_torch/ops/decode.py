@@ -1,4 +1,5 @@
-"""CenterNet heatmap decode, NHWC, on the device; counterpart of
+"""Heatmap decodes, NHWC, on the device (CenterNet's two-stage top-k and
+CenterPoint's single global top-k); counterpart of
 ``minddet_tpu/ops/decode.py``.
 
 Top-k keeps JAX's tie order (``jax.lax.top_k`` puts the lower index first
@@ -51,6 +52,24 @@ def topk_heatmap(heat: torch.Tensor, k: int = 100):
     ys = torch.gather(ys1.reshape(b, c * k), 1, inds2)
     xs = torch.gather(xs1.reshape(b, c * k), 1, inds2)
     return scores2, inds, classes, ys, xs
+
+
+def simple_topk(heat: torch.Tensor, k: int = 100):
+    """One global top-k over all classes and positions of (B, H, W, C), in
+    class-major (c, h, w) flat order, the lower flat index first among equal
+    scores; k is cut to C*H*W on a tiny grid.
+
+    Returns (scores, pos, classes, ys, xs), each (B, K); ``pos`` indexes
+    the flattened H*W plane.
+    """
+    b, h, w, c = heat.shape
+    flat = heat.permute(0, 3, 1, 2).reshape(b, c * h * w)
+    scores, inds = topk_lowest_index_first(flat, min(k, c * h * w))
+    classes = torch.div(inds, h * w, rounding_mode="floor").to(torch.int32)
+    pos = inds % (h * w)
+    ys = torch.div(pos, w, rounding_mode="floor").float()
+    xs = (pos % w).float()
+    return scores, pos, classes, ys, xs
 
 
 def gather_feature(feat: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:

@@ -211,3 +211,24 @@ def voxelize_stream_batch(points: torch.Tensor, points_mask: torch.Tensor,
                              max=max_voxels).to(torch.int32)
     return StreamVoxels(feats, keep, first, last, canvas_idx, num_voxels)
 
+
+def scatter_stream_canvas(h: torch.Tensor, sv: StreamVoxels, ny: int, nx: int,
+                          occupancy: bool = False):
+    """The stream PFN's output ``h`` (B, N, C) -> the BEV canvas (B, C, ny,
+    nx) in ``channels_last`` memory: one ``index_copy_`` of each pillar's
+    last kept row into B * ny * nx + 1 rows, the last row taking every
+    other one. With ``occupancy`` also the (B, ny, nx) f32 0/1 map of the
+    cells that hold a pillar, from the same indices; else None."""
+    b, n, c = h.shape
+    cells = ny * nx
+    base = torch.arange(b, device=h.device)[:, None] * cells
+    rows = torch.where(sv.last, sv.canvas_idx + base,
+                       torch.full_like(sv.canvas_idx, b * cells)).reshape(-1)
+    flat = torch.zeros(b * cells + 1, c, dtype=h.dtype, device=h.device)
+    flat.index_copy_(0, rows, h.reshape(b * n, c))
+    canvas = flat[:b * cells].view(b, ny, nx, c).permute(0, 3, 1, 2)
+    if not occupancy:
+        return canvas, None
+    occ = torch.zeros(b * cells + 1, dtype=torch.float32, device=h.device)
+    occ.index_fill_(0, rows, 1.0)
+    return canvas, occ[:b * cells].view(b, ny, nx)

@@ -29,6 +29,13 @@ with ``rpn_space_to_depth`` or ``rpn_scan_inner`` or not; the pre-stacked
 ``rpn_stacked_params`` layout is not taken. Buffers that are not part of the
 state dict (the anchors) are no weights and are left alone.
 
+``centerpoint_from_flax`` does it for the JAX ``CenterPoint`` and
+``CenterPointTwoStage`` (``reader/pfn{i}``, ``rpn/...`` with the strided
+``up0_downconv``, ``head/shared_conv``, ``head/shared_bn``,
+``head/task{t}/{name}_conv0|_bn0|_out``, and for the two-stage model
+``refine/fc{i}|bn{i}|score|box``; ``extractor`` has no parameters), again
+from the per-layer RPN tree only.
+
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
 ``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and
@@ -86,7 +93,8 @@ def _source(module: nn.Module, leaf: str):
         return "params", "kernel", lambda a: a.T
     if isinstance(module, nn.Conv2d) and leaf == "weight":
         return "params", "kernel", lambda a: a.transpose(3, 2, 0, 1)
-    if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)) and leaf == "bias":
+    if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d,
+                           nn.Linear)) and leaf == "bias":
         return "params", "bias", lambda a: a
     raise KeyError(f"no flax counterpart for {type(module).__name__}.{leaf}")
 
@@ -145,6 +153,12 @@ def centernet_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
 def pointpillars_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     """Load the JAX ``PointPillars`` variables (per-layer RPN layout) into
     the port's ``PointPillars``."""
+    return load_from_flax(model, variables)
+
+
+def centerpoint_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``CenterPoint`` or ``CenterPointTwoStage`` variables
+    (per-layer RPN layout) into the port's class of the same name."""
     return load_from_flax(model, variables)
 
 

@@ -207,3 +207,96 @@ def test_second_rpn_matches_jax(layer_nums):
     got = got.permute(0, 2, 3, 1).numpy()
     assert got.shape == ref.shape == (2, 8, 12, 24)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# --- CenterPoint ---------------------------------------------------------
+
+from minddet_tpu.models.detectors.centerpoint import (  # noqa: E402
+    CenterPoint as JaxCenterPoint)
+from minddet_tpu.models.detectors.centerpoint import (  # noqa: E402
+    CenterPointTwoStage as JaxCenterPointTwoStage)
+from minddet_tpu_torch.models.detectors.centerpoint import (  # noqa: E402
+    CenterPoint, CenterPointTwoStage)
+from minddet_tpu_torch.utils.convert import (  # noqa: E402
+    centerpoint_from_flax)
+
+_CP_TINY = dict(task_num_classes=(1, 2), grid_ny=32, grid_nx=32,
+                voxel_size=(0.2, 0.2, 8.0),
+                pc_range=(-3.2, -3.2, -5.0, 3.2, 3.2, 3.0),
+                pfn_filters=(16, 16), rpn_layer_nums=(1, 1, 1),
+                rpn_filters=(16, 32, 64), rpn_up_filters=(16, 16, 16),
+                max_voxels=64, max_points_per_voxel=4)
+
+
+def _centerpoint_variables(two_stage, seed, **jax_kw):
+    if two_stage:
+        jm = JaxCenterPointTwoStage(**_CP_TINY, refine_hidden=32, **jax_kw)
+        method = jm.predict_refined
+    else:
+        jm = JaxCenterPoint(**_CP_TINY, **jax_kw)
+        method = jm.predict_from_points
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 5)), jnp.ones((1, 64), bool),
+        method=method))
+    return _random_like({"params": dict(shapes["params"]),
+                         "batch_stats": dict(shapes["batch_stats"])}, seed)
+
+
+@pytest.mark.parametrize("two_stage", [False, True],
+                         ids=["one_stage", "two_stage"])
+def test_centerpoint_carrier_is_a_bijection(two_stage):
+    """Every flax leaf of the (two-stage) CenterPoint lands in exactly one
+    tensor of the port and none is left over: the two PFN layers, the RPN
+    with its strided ``up0_downconv``, the shared conv, every task's
+    branches and, for the two-stage model, the refine MLP (the extractor
+    has no parameters)."""
+    variables = _centerpoint_variables(two_stage, 9)
+    port = (CenterPointTwoStage(**_CP_TINY, refine_hidden=32) if two_stage
+            else CenterPoint(**_CP_TINY))
+    port = centerpoint_from_flax(port, variables)
+    n_flax = sum(1 for col in variables.values() for _ in _leaves(col))
+    tensors = {n: t for n, t in port.state_dict().items()
+               if not n.endswith("num_batches_tracked")}
+    assert len(tensors) == n_flax
+    port_sums = sorted(float(t.double().sum()) for t in tensors.values())
+    flax_sums = sorted(float(np.sum(a, dtype=np.float64))
+                       for col in variables.values() for _, a in _leaves(col))
+    np.testing.assert_allclose(port_sums, flax_sums, rtol=1e-6, atol=1e-6)
+    params, stats = variables["params"], variables["batch_stats"]
+    assert "refine" in params if two_stage else "refine" not in params
+    assert "extractor" not in params
+    np.testing.assert_array_equal(  # Dense kernels transpose
+        port.reader.pfn1.linear.weight.detach().numpy(),
+        params["reader"]["pfn1"]["linear"]["kernel"].T)
+    np.testing.assert_array_equal(  # conv kernels HWIO -> OIHW
+        port.rpn.up0_downconv.weight.detach().numpy(),
+        params["rpn"]["up0_downconv"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        port.head.task1.hm_out.bias.detach().numpy(),
+        params["head"]["task1"]["hm_out"]["bias"])
+    np.testing.assert_array_equal(
+        port.head.task0.rot_bn0.running_var.numpy(),
+        stats["head"]["task0"]["rot_bn0"]["var"])
+    if two_stage:
+        np.testing.assert_array_equal(
+            port.refine.box.weight.detach().numpy(),
+            params["refine"]["box"]["kernel"].T)
+        np.testing.assert_array_equal(
+            port.refine.bn1.running_mean.numpy(),
+            stats["refine"]["bn1"]["mean"])
+
+
+def test_centerpoint_carrier_rejects_what_does_not_fit():
+    """A one-stage tree does not fill the two-stage model, a two-stage tree
+    has leaves the one-stage model cannot take, and a refine MLP of another
+    width does not fit."""
+    one = _centerpoint_variables(False, 10)
+    two = _centerpoint_variables(True, 10)
+    with pytest.raises(KeyError, match="refine"):
+        centerpoint_from_flax(CenterPointTwoStage(**_CP_TINY,
+                                                  refine_hidden=32), one)
+    with pytest.raises(ValueError, match="no port tensor"):
+        centerpoint_from_flax(CenterPoint(**_CP_TINY), two)
+    with pytest.raises(ValueError, match="shape"):
+        centerpoint_from_flax(CenterPointTwoStage(**_CP_TINY,
+                                                  refine_hidden=16), two)

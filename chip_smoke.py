@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--profile]
+    python3 chip_smoke.py [--json PATH] [--profile] [--probe]
 
 Phases (any failure raises and exits non-zero):
 
@@ -15,12 +15,19 @@ Phases (any failure raises and exits non-zero):
    coordinates (spread 0, a DCN layer with zero offsets); the rotated-box
    intersection (K4) in f32 at the rotated NMS's (B, 900, 5)^2, B = 1 and
    8 (PointPillars), and (6 B, 1000, 5)^2, B = 1 and 4 (CenterPoint's six
-   tasks stacked), on boxes drawn like decoded candidates, and on exact
-   cases; the bounded segment max (K5f) at (B, 120000, 32), B = 1 and 4 in
-   f32 and B = 1 in bf16, on streams from the port's voxelizer, exactly;
-   the bilinear row gather (K3f) at (B, 16384, 384) x 2490 sample points,
-   B = 1 and 4, f32 and bf16, points off the map included, with
-   ``F.grid_sample`` timed beside it;
+   tasks stacked), on boxes drawn like decoded candidates, at the train
+   step's (8, 128, 5) proposals x (8, 64, 5) ground-truth slots, and on
+   exact cases; the bounded segment max (K5f) at (B, 120000, 32), B = 1 and
+   4 in f32 and B = 1 and 8 (the train step's) in bf16, on streams from the
+   port's voxelizer, exactly; the bilinear row gather (K3f) at (B, 16384,
+   384) x 2490 sample points, B = 1 and 4, and x 640 points at B = 8 (the
+   train step's), f32 and bf16, points off the map included, with
+   ``F.grid_sample`` timed beside it; the segment max's backward (K5b) at
+   (B, 120000, 32), B = 1 and 8 in bf16 and B = 1 in f32, on uniform
+   streams and on clustered ones (pillars filled to the cap of 20) with
+   forced ties, exactly on segments of at most two rows; the row gather's
+   backwards (K3dx with ``index_add_`` timed beside it, K3dcw) at
+   (B, 16384, 384) x 640 sample points, B = 1 and 8, f32 and bf16;
 4. end to end in f32 (TF32 off): ``CenterNet`` predict on the card against
    the same model on the CPU (the plain path);
    b. the same for PointPillars predict from raw points at batch 1: heads,
@@ -31,6 +38,13 @@ Phases (any failure raises and exits non-zero):
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics;
+   b. ``bilinear_sample_2d`` differentiated with respect to the map and
+      the coordinates at the second stage's shape, card against CPU (K3f,
+      K3dx and K3dcw launch once each);
+   c. one f32 two-stage CenterPoint train step at batch 1, card against
+      CPU, with the same step in f64 compute on the CPU as referee: the
+      second stage on the same proposals, then the whole step's loss,
+      parts, grad_norm, gradients and BN statistics;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -45,13 +59,22 @@ Phases (any failure raises and exits non-zero):
       pillars, f32, 120,000 points per cloud, heads calibrated so that the
       NMS has 1000 valid candidates per task) answers 2 warm-up and 10
       timed requests at batch 1 and 4; K5f, K4 and K3f launch once per
-      request each, the sampler kernels never.
+      request each, the sampler kernels never;
+   e. two-stage CenterPoint training (``centerpoint_train_entry``: f32
+      params, bf16 compute, batch 8, 120,000 points and up to 63 boxes per
+      cloud) takes 2 warm-up and 10 timed steps on one batch; the loss must
+      stay finite and fall; K5f, K5b, K3f, K3dx and K4 launch once per step
+      each, K3dcw and the sampler kernels never.
 
-The line before the last is the ``{"kernels": [...]}`` summary; the last is
+The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
+``launches`` are those of the main paths only; K3dcw, which no entry point
+reaches yet, has 0 there and phase 5b's count under its own key); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
 ``--profile`` also breaks the serving requests (all three models) and 3
-train steps down with ``torch.profiler``.
+train steps of each trained model down with ``torch.profiler``; ``--probe``
+also compares the f32 CenterPoint train-mode forward layer by layer, on the
+card and on the CPU, with the CPU's in f64.
 """
 
 from __future__ import annotations
@@ -329,6 +352,8 @@ CP_CANDIDATES = 1000  # nms_pre of the CenterPoint predict, per task
 CP_TASKS = 6
 CP_NMS_POST = 83  # detections kept per task
 CP_BATCHES = (1, 4)
+TRAIN_CP_BATCH = 8  # the two-stage train step's (bench.py:bench_two_stage)
+CP_PROPOSALS = 128  # num_proposals of the two-stage train step
 # (samples, boxes) of K4's calls: one per PointPillars request, and one per
 # CenterPoint request over its tasks stacked on the sample axis
 IOU_SHAPES = tuple((b, PP_CANDIDATES) for b in PP_BATCHES) + tuple(
@@ -387,28 +412,55 @@ def candidate_boxes(b: int, n: int, gen) -> torch.Tensor:
     return boxes.contiguous()
 
 
-def _rotated_iou_bound(boxes: torch.Tensor):
-    """K4's bound on these (B, N, 5) boxes against themselves: the larger of
-    the bytes (boxes read twice, the f32 areas written) and the operations
-    of a separation test on every pair plus the clip on the pairs it does
-    not reject. Returns (bound_ms, bound_by, share of pairs clipped)."""
+def _rotated_iou_bound(boxes: torch.Tensor, others: torch.Tensor = None):
+    """K4's bound on (B, N, 5) boxes against ``others`` (B, M, 5; themselves
+    when not given): the larger of the bytes (both box sets read, the f32
+    areas written) and the operations of a separation test on every pair
+    plus the clip on the pairs it does not reject. Returns (bound_ms,
+    bound_by, share of pairs clipped)."""
+    others = boxes if others is None else others
     b, n, _ = boxes.shape
-    r = 0.5 * torch.hypot(boxes[..., 2], boxes[..., 3])
-    d2 = torch.cdist(boxes[..., :2].double(), boxes[..., :2].double()) ** 2
-    near = int((d2 <= (r[..., :, None] + r[..., None, :]).double() ** 2)
+    m = others.shape[1]
+    r1 = 0.5 * torch.hypot(boxes[..., 2], boxes[..., 3])
+    r2 = 0.5 * torch.hypot(others[..., 2], others[..., 3])
+    d2 = torch.cdist(boxes[..., :2].double(), others[..., :2].double()) ** 2
+    near = int((d2 <= (r1[..., :, None] + r2[..., None, :]).double() ** 2)
                .sum())
-    pairs = b * n * n
-    bound_ms, bound_by = _bound(4 * pairs + 2 * 4 * 5 * b * n,
+    pairs = b * n * m
+    bound_ms, bound_by = _bound(4 * pairs + 4 * 5 * b * (n + m),
                                 SEP_OPS_PER_PAIR * pairs
-                                + SEP_OPS_PER_BOX * 2 * b * n
+                                + SEP_OPS_PER_BOX * b * (n + m)
                                 + OPS_PER_PAIR * near)
     return bound_ms, bound_by, near / pairs
 
 
-def check_rotated_iou_kernel(dev, gen):
+BEV5 = (0, 1, 3, 4, 8)  # x, y, w, l, yaw of a 9-number box
+TRAIN_CP_GT = 64  # ground-truth slots per cloud of the train step
+
+
+def train_step_box_pairs(b: int, pc_range, gen):
+    """The K4 call of one two-stage train step: (b, 128, 5) proposals against
+    (b, 64, 5) ground-truth slots. Half the slots are proposals moved by
+    0.1 m (foreground) or 1 m and a little in size and yaw, a quarter are
+    other boxes, and the rest are empty slots (all zeros), as a padded
+    ground-truth array has them."""
+    props = proposal_boxes(b, CP_PROPOSALS, pc_range, gen)
+    gt = torch.zeros(b, TRAIN_CP_GT, 9)
+    k = TRAIN_CP_GT // 2
+    gt[:, :k] = props[:, 1:2 * k:2]  # odd slots: none of the zeroed tenths
+    gt[:, 0:k:2, 0] += 0.1
+    gt[:, 1:k:2, 0] += 1.0
+    gt[:, :k, 3:5] *= 1.05
+    gt[:, :k, 8] += 0.02
+    gt[:, k:k + k // 2] = proposal_boxes(b, k // 2, pc_range, gen)
+    return (props[..., BEV5].contiguous(), gt[..., BEV5].contiguous())
+
+
+def check_rotated_iou_kernel(dev, gen, pc_range):
     """Phase 3: rotated_iou_intersect (K4) against its plain version at the
     rotated NMS's shapes (``IOU_SHAPES``: (B, 900, 5)^2 for PointPillars,
-    (6 B, 1000, 5)^2 for CenterPoint) and on the exact cases."""
+    (6 B, 1000, 5)^2 for CenterPoint), at the two-stage train step's
+    (8, 128, 5) x (8, 64, 5) over ``pc_range`` and on the exact cases."""
     from minddet_tpu_torch.ops import rotated_iou as ri
 
     exact = torch.tensor(IOU_EXACT_BOXES, device=dev)
@@ -422,30 +474,36 @@ def check_rotated_iou_kernel(dev, gen):
           f"1e-4", flush=True)
     atol, rtol = IOU_TOL
     cases = []
-    for b, n in IOU_SHAPES:
-        boxes = candidate_boxes(b, n, gen).to(dev)
-        got = ri.rotated_intersection_bev(boxes, boxes)
+    train_pair = train_step_box_pairs(TRAIN_CP_BATCH, pc_range,
+                                      torch.Generator().manual_seed(5))
+    for b, n in IOU_SHAPES + ((TRAIN_CP_BATCH, CP_PROPOSALS),):
+        if n == CP_PROPOSALS:
+            boxes, others = (t.to(dev) for t in train_pair)
+        else:
+            boxes = others = candidate_boxes(b, n, gen).to(dev)
+        got = ri.rotated_intersection_bev(boxes, others)
         torch.cuda.synchronize()
-        ref = ri.rotated_intersection_bev_plain(boxes, boxes)
+        ref = ri.rotated_intersection_bev_plain(boxes, others)
         err = (got - ref).abs()
         max_abs = float(err.max())
         ok = bool((err <= atol + rtol * ref.abs()).all())
         overlapping = float((ref > 0).float().mean())
         del got, ref, err
-        ms = _cuda_ms(lambda: ri.rotated_intersection_bev(boxes, boxes),
+        ms = _cuda_ms(lambda: ri.rotated_intersection_bev(boxes, others),
                       iters=20)
         plain_ms = _cuda_ms(
-            lambda: ri.rotated_intersection_bev_plain(boxes, boxes),
+            lambda: ri.rotated_intersection_bev_plain(boxes, others),
             iters=2, warmup=1)
-        bound_ms, bound_by, clipped = _rotated_iou_bound(boxes)
-        case = dict(shape=[b, n, 5], max_abs_err=max_abs,
+        bound_ms, bound_by, clipped = _rotated_iou_bound(boxes, others)
+        case = dict(shape=[b, n, 5], against=[b, others.shape[1], 5],
+                    dtype="float32", max_abs_err=max_abs,
                     tolerance=f"abs <= {atol} + {rtol} * |plain|",
                     overlapping_share=overlapping, clipped_share=clipped,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by)
         cases.append(case)
-        print(f"  rotated_iou ({b}, {n}, 5)^2 max_abs="
-              f"{max_abs:.3e} overlapping={overlapping:.4f} "
+        print(f"  rotated_iou ({b}, {n}, 5) x ({b}, {others.shape[1]}, 5) "
+              f"max_abs={max_abs:.3e} overlapping={overlapping:.4f} "
               f"clipped={clipped:.4f} kernel={ms * 1e3:8.1f}us "
               f"plain={plain_ms * 1e3:9.1f}us "
               f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
@@ -472,7 +530,8 @@ def _nusc_clouds(model, batch: int, seed: int, dev):
 def check_seg_max_kernel(dev, model):
     """Phase 3: seg_full_max (K5f) against its plain version, exactly, on
     the streams the port's voxelizer makes of ``model``'s 120,000-point
-    clouds (pillars over the point cap, more pillars than ``max_voxels``);
+    clouds (pillars over the point cap, more pillars than ``max_voxels``),
+    at the serving batches in f32 and at the train step's batch 8 in bf16;
     x is N(0, 1), so the kernel's zeros outside the kept rows show."""
     from minddet_tpu_torch.ops import seg_max as sm
     from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
@@ -481,7 +540,7 @@ def check_seg_max_kernel(dev, model):
     dgen = torch.Generator(device=dev).manual_seed(2)
     cases = []
     for b, dtype in ((1, torch.float32), (CP_BATCHES[-1], torch.float32),
-                     (1, torch.bfloat16)):
+                     (1, torch.bfloat16), (TRAIN_CP_BATCH, torch.bfloat16)):
         points, mask = _nusc_clouds(model, b, 2, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
@@ -552,8 +611,9 @@ GATHER_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-5, 2 ** -8)}
 def check_bilinear_kernel(dev, gen, model):
     """Phase 3: bilinear_gather_fwd (K3f) against its plain version at the
     second stage's shapes: ``model``'s BEV map (B, 128 * 128, 384) and 5
-    sample points for each of its 6 * 83 detection slots (2490 points);
-    with the time of ``F.grid_sample`` (bilinear, zero padding,
+    sample points for each of its 6 * 83 detection slots (2490 points) at
+    the serving batches, and for each of the train step's 128 proposals
+    (640 points) at its batch 8; with the time of ``F.grid_sample`` (bilinear, zero padding,
     align_corners) on the same map and points."""
     import torch.nn.functional as F
 
@@ -563,14 +623,16 @@ def check_bilinear_kernel(dev, gen, model):
     h = model.grid_ny // model.out_size_factor
     w = model.grid_nx // model.out_size_factor
     c = model.rpn.out_channels
-    slots = len(model.task_num_classes) * CP_NMS_POST
+    serve_slots = len(model.task_num_classes) * CP_NMS_POST
     cell_x = model.voxel_size[0] * model.out_size_factor
     cell_y = model.voxel_size[1] * model.out_size_factor
     cases = []
-    for b in CP_BATCHES:
-        bev32 = torch.randn(b, c, h, w, generator=gen).to(dev).contiguous(
+    train_gen = torch.Generator().manual_seed(6)
+    for b, slots, rng in tuple((b, serve_slots, gen) for b in CP_BATCHES) + (
+            (TRAIN_CP_BATCH, CP_PROPOSALS, train_gen),):
+        bev32 = torch.randn(b, c, h, w, generator=rng).to(dev).contiguous(
             memory_format=torch.channels_last)
-        boxes = proposal_boxes(b, slots, model.pc_range, gen).to(dev)
+        boxes = proposal_boxes(b, slots, model.pc_range, rng).to(dev)
         pts = bev_sample_points(boxes).reshape(b, slots * 5, 2)
         fx = (pts[..., 0] - model.pc_range[0]) / cell_x
         fy = (pts[..., 1] - model.pc_range[1]) / cell_y
@@ -639,6 +701,257 @@ def check_bilinear_kernel(dev, gen, model):
                     f"(kernel {ok}, through the extractor {ok_model}): "
                     f"{case}")
     return cases
+
+
+def _clustered_clouds(model, batch: int, seed: int, dev):
+    """``batch`` clouds of 120,000 points drawn around 4,000 pillar centres
+    each (30 points per pillar on average, so most pillars pass the cap of
+    20 points and have rows past their last kept row)."""
+    import numpy as np
+
+    from minddet_tpu_torch.entry import (NUSC_CLOUD_POINTS,
+                                         NUSC_POINT_FEATURES)
+
+    rs = np.random.RandomState(seed)
+    x0, y0, z0, x1, y1, z1 = model.pc_range
+    cells = rs.randint(0, model.grid_nx * model.grid_ny, (batch, 4000))
+    pick = rs.randint(0, 4000, (batch, NUSC_CLOUD_POINTS))
+    cell = np.take_along_axis(cells, pick, 1)
+    inside = rs.uniform(0.05, 0.95, (batch, NUSC_CLOUD_POINTS, 2))
+    pts = np.zeros((batch, NUSC_CLOUD_POINTS, NUSC_POINT_FEATURES), np.float32)
+    pts[..., 0] = x0 + (cell % model.grid_nx + inside[..., 0]) \
+        * model.voxel_size[0]
+    pts[..., 1] = y0 + (cell // model.grid_nx + inside[..., 1]) \
+        * model.voxel_size[1]
+    pts[..., 2] = rs.uniform(z0, z1, (batch, NUSC_CLOUD_POINTS))
+    pts[..., 3:] = rs.uniform(0, 0.45, (batch, NUSC_CLOUD_POINTS,
+                                        NUSC_POINT_FEATURES - 3))
+    return (torch.from_numpy(pts).to(dev),
+            torch.ones(batch, NUSC_CLOUD_POINTS, dtype=torch.bool,
+                       device=dev))
+
+
+# K5b vs plain, err <= atol + rtol * |plain|. Both sum g in f32, the kernel
+# row by row from the last kept row back, the plain version by shift levels:
+# segments of one or two rows give the same bits; longer ones differ by f32
+# rounding, and in bf16 that may flip the one rounding of the result
+SEG_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
+
+
+def check_seg_max_bwd_kernel(dev, model):
+    """Phase 3: seg_full_max_bwd (K5b) against its plain version on streams
+    of the port's voxelizer: uniform clouds (the main path's; ~1.25 kept
+    points per pillar, x ~ N(0, 1), no ties) and clustered clouds with x in
+    {0, 1, 2} (pillars at the cap of 20 rows, ties in every segment). Rows
+    of segments with at most two kept rows, and rows that are not kept,
+    must agree exactly; the others within ``SEG_BWD_TOL``."""
+    from minddet_tpu_torch.ops import seg_max as sm
+    from minddet_tpu_torch.ops.voxelize import (_seg_bcast_bounded,
+                                                _seg_sum_bounded,
+                                                voxelize_stream_batch)
+
+    bound = model.max_points_per_voxel
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for b, dtype, kind in ((1, torch.float32, "uniform"),
+                           (1, torch.bfloat16, "uniform"),
+                           (TRAIN_CP_BATCH, torch.bfloat16, "uniform"),
+                           (1, torch.float32, "clustered, ties"),
+                           (1, torch.bfloat16, "clustered, ties")):
+        clouds = _nusc_clouds if kind == "uniform" else _clustered_clouds
+        points, mask = clouds(model, b, 3, dev)
+        sv = voxelize_stream_batch(points, mask, model.voxel_size,
+                                   model.pc_range, model.max_voxels, bound,
+                                   model.voxel_drop_order)
+        first, last = sv.first, sv.last
+        n = first.shape[1]
+        shape = (b, n, PFN_HALF_WIDTH)
+        if kind == "uniform":
+            x = torch.randn(shape, generator=dgen, device=dev).to(dtype)
+        else:
+            x = torch.randint(0, 3, shape, generator=dgen,
+                              device=dev).to(dtype)
+        g = torch.randn(shape, generator=dgen, device=dev).to(dtype)
+        m = sm.seg_full_max_bounded(first, last, x, bound)
+        got = sm.seg_full_max_bounded_bwd(first, last, x, m, g, bound)
+        torch.cuda.synchronize()
+        ref = sm.seg_full_max_bounded_bwd_plain(first, last, x, m, g, bound)
+        rows = _seg_bcast_bounded(last, _seg_sum_bounded(
+            first, sv.keep.float(), bound), bound)  # kept rows per segment
+        short = ~sv.keep | (rows <= 2)
+        err = (got.float() - ref.float()).abs()
+        name = str(dtype).replace("torch.", "")
+        atol, rtol = SEG_BWD_TOL[name]
+        ok = (torch.equal(got[short], ref[short])
+              and bool((err <= atol + rtol * ref.float().abs()).all()))
+        tie = (x == m) & sv.keep[..., None]
+        tied = tie & (_seg_bcast_bounded(last, _seg_sum_bounded(
+            first, tie.float(), bound), bound) > 1)
+        case = dict(shape=list(shape), bound=bound, dtype=name, stream=kind,
+                    max_abs_err=float(err.max()),
+                    tolerance=f"exact on segments of <= 2 rows, else abs <= "
+                              f"{atol} + {rtol} * |plain|",
+                    kept_share=float(sv.keep.float().mean()),
+                    long_segment_row_share=float((~short).float().mean()),
+                    tied_value_share=float(tied.float().mean()))
+        del got, ref, err, rows, short, tie, tied
+        case["ms"] = _cuda_ms(lambda: sm.seg_full_max_bounded_bwd(
+            first, last, x, m, g, bound), iters=20)
+        case["plain_ms"] = _cuda_ms(
+            lambda: sm.seg_full_max_bounded_bwd_plain(first, last, x, m, g,
+                                                      bound),
+            iters=3, warmup=1)
+        # x, m and g read once, dx written once, the two flag planes read
+        # once; an add and a compare per value
+        case["bound_ms"], case["bound_by"] = _bound(
+            4 * x.numel() * x.element_size() + 2 * b * n, 2 * x.numel())
+        cases.append(case)
+        print(f"  seg_full_max_bwd x{case['shape']} {name:8s} {kind:15s} "
+              f"max_abs={case['max_abs_err']:.3e} rows in segments > 2: "
+              f"{case['long_segment_row_share']:.3f} tied values: "
+              f"{case['tied_value_share']:.3f} kernel="
+              f"{case['ms'] * 1e3:8.1f}us plain={case['plain_ms'] * 1e3:9.1f}"
+              f"us bound={case['bound_ms'] * 1e3:6.1f}us "
+              f"({case['bound_by']})", flush=True)
+        if not ok:
+            raise AssertionError(f"seg_full_max_bwd disagrees with its plain "
+                                 f"version: {case}")
+    return cases
+
+
+# K3dx and K3dcw vs plain: err <= atol + rtol * (the same sum over absolute
+# values). dx sums up to ~25 weighted g rows per map row with f32 atomics,
+# in an order that changes from run to run; in bf16 the f32 sum is rounded
+# once (2**-9 relative), with room for the order flipping that rounding.
+# dcw sums 384 f32 products per corner in another order than the plain
+# version's.
+GATHER_BWD_TOL = {"dx_float32": (1e-6, 1e-5), "dx_bfloat16": (1e-6, 2 ** -8),
+                  "dcw": (1e-6, 1e-5)}
+
+
+def _second_stage_inputs(model, b, gen, dev, slots=CP_PROPOSALS):
+    """A random BEV map (B, C, H, W) of ``model`` in channels_last memory
+    and the map coordinates (fy, fx) (B, 5 * slots) of ``proposal_boxes``'
+    sample points."""
+    from minddet_tpu_torch.models.heads.second_stage import bev_sample_points
+
+    h = model.grid_ny // model.out_size_factor
+    w = model.grid_nx // model.out_size_factor
+    c = model.rpn.out_channels
+    bev = torch.randn(b, c, h, w, generator=gen).to(dev).contiguous(
+        memory_format=torch.channels_last)
+    boxes = proposal_boxes(b, slots, model.pc_range, gen).to(dev)
+    pts = bev_sample_points(boxes).reshape(b, slots * 5, 2)
+    fx = (pts[..., 0] - model.pc_range[0]) / (
+        model.voxel_size[0] * model.out_size_factor)
+    fy = (pts[..., 1] - model.pc_range[1]) / (
+        model.voxel_size[1] * model.out_size_factor)
+    return bev, fy, fx
+
+
+def check_bilinear_bwd_kernels(dev, gen, model):
+    """Phase 3: bilinear_gather_bwd_dx (K3dx) and bilinear_gather_bwd_dcw
+    (K3dcw) against their plain versions at the train step's shapes:
+    ``model``'s BEV map (B, 128 * 128, 384) and 5 sample points for each of
+    its 128 proposals (640 points, some off the map); with the time of
+    ``index_add_`` into a zeroed f32 map beside K3dx."""
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    dx_cases, dcw_cases = [], []
+    for b in (1, TRAIN_CP_BATCH):
+        bev32, fy, fx = _second_stage_inputs(model, b, gen, dev)
+        _, c, h, w = bev32.shape
+        hw = h * w
+        ci, cw = bl.bilinear_corners(fy, fx, h, w)
+        p = ci.shape[1]
+        g32 = torch.randn(b, p, c, generator=gen).to(dev)
+        touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
+                      for i in range(b))
+        rows = (bl._clipped_rows(ci, hw) + torch.arange(
+            b, device=dev)[:, None] * hw).reshape(-1)
+        common = dict(shape=[b, hw, c], points=p, touched_rows=touched,
+                      off_map_corner_share=float((ci < 0).float().mean()))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            x = bev32.to(dtype).permute(0, 2, 3, 1).view(b, hw, c)
+            g = g32.to(dtype)
+            elt = x.element_size()
+
+            got = bl.bilinear_gather_bwd_dx(g, x, ci, cw)
+            torch.cuda.synchronize()
+            ref = bl.bilinear_gather_bwd_dx_plain(g.float(), ci, cw, hw)
+            size = bl.bilinear_gather_bwd_dx_plain(g.float().abs(), ci,
+                                                   cw.abs(), hw)
+            err = (got.float() - ref).abs()
+            atol, rtol = GATHER_BWD_TOL[f"dx_{name}"]
+            ok = got.dtype == dtype and bool((err <= atol + rtol * size)
+                                             .all())
+            case = dict(common, dtype=name, max_abs_err=float(err.max()),
+                        max_abs=float(ref.abs().max()),
+                        tolerance=f"abs <= {atol} + {rtol} * sum |cw g|")
+            del got, ref, size, err
+            case["ms"] = _cuda_ms(
+                lambda: bl.bilinear_gather_bwd_dx(g, x, ci, cw), iters=20)
+            case["plain_ms"] = _cuda_ms(
+                lambda: bl.bilinear_gather_bwd_dx_plain(g, ci, cw, hw),
+                iters=5, warmup=1)
+            contrib = ((cw * (ci >= 0))[..., None]
+                       * g.float()[:, :, None, :]).reshape(-1, c)
+            case["library_ms"] = _cuda_ms(
+                lambda: torch.zeros(b * hw, c, device=dev).index_add_(
+                    0, rows, contrib), iters=20)
+            del contrib
+            # dx (the whole map, in x's type) written once, g read once, ci
+            # and cw read once; 4 multiply-adds per g value
+            case["bound_ms"], case["bound_by"] = _bound(
+                b * hw * c * elt + b * p * c * elt + 2 * b * p * 4 * 4,
+                8 * b * p * c)
+            dx_cases.append(case)
+            print(f"  bilinear_gather_bwd_dx x{case['shape']} P={p} {name:8s}"
+                  f" max_abs={case['max_abs_err']:.3e} (|dx| max "
+                  f"{case['max_abs']:.1f}) kernel={case['ms'] * 1e3:7.1f}us "
+                  f"plain={case['plain_ms'] * 1e3:8.1f}us index_add_="
+                  f"{case['library_ms'] * 1e3:7.1f}us bound="
+                  f"{case['bound_ms'] * 1e3:5.1f}us ({case['bound_by']})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"bilinear_gather_bwd_dx disagrees with "
+                                     f"its plain version: {case}")
+
+            got = bl.bilinear_gather_bwd_dcw(g, x, ci, cw)
+            torch.cuda.synchronize()
+            ref = bl.bilinear_gather_bwd_dcw_plain(g.float(), x.float(), ci)
+            size = bl.bilinear_gather_bwd_dcw_plain(g.float().abs(),
+                                                    x.float().abs(), ci)
+            err = (got - ref).abs()
+            atol, rtol = GATHER_BWD_TOL["dcw"]
+            ok = (bool((err <= atol + rtol * size).all())
+                  and bool((got[ci < 0] == 0).all()))
+            case = dict(common, dtype=name, max_abs_err=float(err.max()),
+                        max_abs=float(ref.abs().max()),
+                        tolerance=f"abs <= {atol} + {rtol} * sum |g x|")
+            del got, ref, size, err
+            case["ms"] = _cuda_ms(
+                lambda: bl.bilinear_gather_bwd_dcw(g, x, ci, cw), iters=50)
+            case["plain_ms"] = _cuda_ms(
+                lambda: bl.bilinear_gather_bwd_dcw_plain(g, x, ci), iters=5,
+                warmup=1)
+            # g read once, the rows of x the corners touch read once, ci
+            # read and dcw written once; 4 multiply-adds per g value
+            case["bound_ms"], case["bound_by"] = _bound(
+                b * p * c * elt + touched * c * elt + 2 * b * p * 4 * 4,
+                8 * b * p * c)
+            dcw_cases.append(case)
+            print(f"  bilinear_gather_bwd_dcw x{case['shape']} P={p} "
+                  f"{name:8s} max_abs={case['max_abs_err']:.3e} (|dcw| max "
+                  f"{case['max_abs']:.1f}) kernel={case['ms'] * 1e3:7.1f}us "
+                  f"plain={case['plain_ms'] * 1e3:8.1f}us bound="
+                  f"{case['bound_ms'] * 1e3:5.1f}us ({case['bound_by']})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"bilinear_gather_bwd_dcw disagrees "
+                                     f"with its plain version: {case}")
+    return dx_cases, dcw_cases
 
 
 @torch.no_grad()
@@ -1251,14 +1564,20 @@ TRAIN_TOL = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3, grad_rel_l2=5e-2,
                  param_moved_share=1e-2, param_moved_atol=1e-6)
 
 
-def _centerpoint_launches(n: int):
-    """Launch counts of n two-stage CenterPoint requests: n each of the
-    segment max, the rotated-box intersection and the row gather, no
-    sampler kernel."""
+CP_SERVE_KERNELS = ("seg_full_max", "rotated_iou_intersect",
+                    "bilinear_gather_fwd")
+CP_TRAIN_KERNELS = CP_SERVE_KERNELS + ("seg_full_max_bwd",
+                                       "bilinear_gather_bwd_dx")
+
+
+def _centerpoint_launches(n: int, launched=CP_SERVE_KERNELS):
+    """Launch counts of n two-stage CenterPoint requests (n each of the
+    segment max, the rotated-box intersection and the row gather) or, with
+    ``CP_TRAIN_KERNELS``, train steps (also n of the segment max's backward
+    and of the row gather's backward to the map); no other kernel."""
     from minddet_tpu_torch import kernels
 
-    return {k.name: 0 if k.name.startswith("hat_sample") else n
-            for k in kernels.KERNELS}
+    return {k.name: n if k.name in launched else 0 for k in kernels.KERNELS}
 
 
 def _sampler_launches(n: int):
@@ -1393,6 +1712,443 @@ def check_train_step_f32(dev, gen):
     return result
 
 
+# bilinear_sample_2d's gradients, card vs CPU (phase 5b): out and dx as in
+# phase 3; dys and dxs are sums of four dcw (each a 384-term f32 dot product
+# of values ~N(0, 1), summed in another order) times weight derivatives <= 1
+SAMPLE_GRAD_TOL = dict(out=(1e-5, 1e-5), dx=(1e-5, 1e-5), dys=(1e-3, 1e-4),
+                       dxs=(1e-3, 1e-4))
+
+
+def check_sample_grads_f32(dev, gen, model):
+    """Phase 5b: ``bilinear_sample_2d`` differentiated with respect to the
+    map, ``ys`` and ``xs`` on the card (K3f forward, K3dx and K3dcw backward,
+    one launch each, counted from 0) against the CPU (the plain versions),
+    f32, at the second stage's shape: ``model``'s BEV map at batch 2 and 640
+    sample points per map, some off it."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.ops.bilinear import bilinear_sample_2d
+
+    bev, fy, fx = _second_stage_inputs(model, 2, gen, "cpu")
+    g = torch.randn(2, fy.shape[1], bev.shape[1], generator=gen)
+    out = {}
+    kernels.reset_launches()
+    for name, d in (("gpu", dev), ("cpu", "cpu")):
+        x = bev.to(d).permute(0, 2, 3, 1).requires_grad_()
+        ys, xs = fy.to(d).requires_grad_(), fx.to(d).requires_grad_()
+        y = bilinear_sample_2d(x, ys, xs)
+        y.backward(g.to(d))
+        out[name] = dict(out=y.detach().cpu(), dx=x.grad.cpu(),
+                         dys=ys.grad.cpu(), dxs=xs.grad.cpu())
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = {k.name: int(k.name.startswith("bilinear_gather"))
+            for k in kernels.KERNELS}
+    result = dict(shape=list(bev.shape), points=fy.shape[1],
+                  launches=launches, tolerance=SAMPLE_GRAD_TOL)
+    bad = [] if launches == want else [f"launches {launches}"]
+    for key, (atol, rtol) in SAMPLE_GRAD_TOL.items():
+        a, r = out["gpu"][key], out["cpu"][key]
+        result[f"{key}_max_abs_err"] = float((a - r).abs().max())
+        result[f"{key}_max_abs"] = float(r.abs().max())
+        if not torch.allclose(a, r, rtol=rtol, atol=atol):
+            bad.append(key)
+    if min(result["dys_max_abs"], result["dxs_max_abs"]) == 0.0:
+        bad.append("the coordinates get no gradient")
+    print("  bilinear_sample_2d gradients card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items() if k != "tolerance"), flush=True)
+    if bad:
+        raise AssertionError(f"bilinear_sample_2d gradients, card vs CPU: "
+                             f"{bad}: {result}")
+    return result
+
+
+# f32 two-stage CenterPoint train step, card vs CPU (phase 5c); the
+# reasons for the tolerances are TRAIN_TOL's. The second stage is first
+# compared on the same proposals: two right f32 forwards may rank two of
+# the 6 x 128 candidates the other way round, and then the sets of 128
+# proposals, and everything computed from them, differ.
+# The refine head sees 128 rows, 16 or so of them foreground, which carry
+# the box loss: one of its 2 x 128 x 128 ReLU inputs within rounding of
+# zero moves a foreground row's gradient, and through the row the BEV map's
+# and the parameters', by a few percent. So on the same proposals the
+# features' gradient is compared row by row (a share of the rows must agree
+# to ``row_rel_l2``), and the summed gradients only to a kink-sized bound.
+# The whole step's gradients differ more between card and CPU than
+# CenterNet's (TRAIN_TOL), and not because both f32 runs are equally noisy:
+# the same step runs once more on the CPU with f64 compute over the same f32
+# parameters, on the card's proposals (the referee), and the card lies 4 to
+# 4000 times closer to it than the f32 CPU does (measured on an H100 host:
+# the CPU's train-mode BEV map is 1.6e-4 from the referee's, the card's
+# 6e-6; on one BEV map both second stages agree with the referee to 6e-6;
+# ``--probe`` shows the distance open at the RPN's first train-mode BN on
+# the CPU, more with fewer threads, and grow through the 17 that follow).
+# So the card is held to the referee (the ``referee_*`` bounds, kink-sized:
+# one ReLU input within rounding of zero moves a part's gradient by up to a
+# percent; a part's gradient is compared over its parameters together), and
+# to the f32 CPU by the wider bounds that run's own distance from the
+# referee asks for.
+CP_TRAIN_TOL = dict(loss_rtol=1e-4, stage2_loss_rtol=5e-3,
+                    grad_norm_rtol=2e-3, grad_rel_l2=0.15, stat_atol=1e-4,
+                    stat_rtol=1e-4, row_rel_l2=5e-2, row_share=0.9,
+                    stage2_grad_rel_l2=0.25, same_box_m=1e-2,
+                    referee_loss_rtol=1e-4, referee_grad_norm_rtol=1e-3,
+                    referee_row_rel_l2=1e-3, referee_grad_rel_l2=3e-2)
+CP_CHECK_BATCH = 1
+CP_CHECK_GT = 32
+CP_PARTS = ("reader", "rpn", "head", "refine")
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _cancelled_bias(name: str) -> bool:
+    """A conv bias that a train-mode BN cancels: its gradient is rounding
+    noise around 0 (the head's shared conv and each branch's first conv)."""
+    return name.endswith("_conv0.bias") or name.endswith("shared_conv.bias")
+
+
+def _part_rel_l2(grads, ref, part: str) -> float:
+    """Relative L2 distance of ``grads`` from ``ref`` over all parameters
+    whose name starts with ``part`` taken as one vector (cancelled biases
+    left out)."""
+    names = [n for n in ref if n.startswith(part) and not _cancelled_bias(n)]
+    return _rel_l2(torch.cat([grads[n].double().reshape(-1) for n in names]),
+                   torch.cat([ref[n].double().reshape(-1) for n in names]))
+
+
+def _stage2_on(model, boxes, batch):
+    """The second stage's losses of ``model`` (train mode) on the proposals
+    ``boxes``, with their gradients with respect to the sampled features
+    (B, K, 5 C), the BEV map and the refine head's parameters, and the
+    train-mode BEV map itself (f64, on the CPU)."""
+    d = next(model.parameters()).device
+    batch = {k: v.to(d) for k, v in batch.items()}
+    with torch.no_grad():
+        bev = model.bev_from_points_stream(batch["points"],
+                                           batch["points_mask"])
+    bev.requires_grad_()
+    sampled = []
+
+    def keep(module, args, out):
+        out.retain_grad()
+        sampled.append(out)
+
+    hook = model.extractor.register_forward_hook(keep)
+    model.zero_grad(set_to_none=True)
+    parts = model.stage2_loss(bev, boxes.to(d), batch)
+    hook.remove()
+    (parts["stage2_score"] + parts["stage2_box"]).backward()
+    grads = {"feats": sampled[0].grad.float().cpu(),
+             "bev": bev.grad.float().cpu()}
+    grads.update({f"refine.{n}": p.grad.float().cpu()
+                  for n, p in model.refine.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    return ({k: float(v.detach()) for k, v in parts.items()}, grads,
+            bev.detach().double().cpu())
+
+
+def _one_centerpoint_step(model, batch, forced=None):
+    """One train step of ``model`` (AdamW 1e-3, clip 35) from its present
+    weights; with ``forced`` the second stage is given those proposals
+    instead of the ones the model decodes. Returns the step's snapshot, the
+    proposals used (on the CPU), the kernels' launch counts and the
+    seconds."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.optim import adamw
+    from minddet_tpu_torch.entry import centerpoint_loss
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    d = next(model.parameters()).device
+    decode, used = model.proposals, []
+
+    def proposals(preds):
+        used.append(decode(preds) if forced is None else forced.to(d))
+        return used[-1]
+
+    model.proposals = proposals
+    state = TrainState.create(model, adamw(1e-3, clip_global_norm=35.0))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(centerpoint_loss)(
+        state, {k: v.to(d) for k, v in batch.items()})
+    snap = _train_snapshot(state, metrics)
+    del model.proposals
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    return snap, used[0].cpu(), launches, time.perf_counter() - t0
+
+
+def check_centerpoint_train_f32(dev, gpu):
+    """Phase 5c: one f32 two-stage CenterPoint train step at batch
+    CP_CHECK_BATCH on the card against the same step on the CPU (TF32 off),
+    with the step in f64 compute on the CPU as referee.
+    ``gpu`` is the serving model on the card; its heads are calibrated here
+    in train mode (batch statistics), so that the proposals' scores spread.
+    First the second stage alone on the same proposals (K3f, K4 and K3dx on
+    the card): both losses, the BEV map's gradient and the refine head's;
+    some ground-truth boxes are moved onto proposals so that there is
+    foreground.
+    Then the whole step from the same weights: the loss and every part,
+    grad_norm, every parameter's gradient by relative L2 and the BN
+    statistics after the step. The referee takes the card's proposals, and
+    the card is held to it by the ``referee_*`` bounds; where the CPU's
+    proposals are not the card's, the f32 CPU's step runs again on the
+    card's and that run is compared. The card's and the f32 CPU's distances
+    from the referee are reported part by part."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (build_centerpoint,
+                                         synthetic_lidar_batch)
+    from minddet_tpu_torch.models.detectors.centerpoint import (
+        CenterPointTwoStage)
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_lidar_batch(
+        CP_CHECK_BATCH, gpu.pc_range, seed=4).items()}
+    gpu.train()
+    calibrate_centerpoint(gpu, batch["points"].to(dev),
+                          batch["points_mask"].to(dev))
+    # the proposals both second stages are given: the card's, from a forward
+    # made before the weights and statistics are copied
+    with torch.no_grad():
+        boxes = gpu.proposals(gpu.head(gpu.bev_from_points_stream(
+            batch["points"].to(dev), batch["points_mask"].to(dev)))).cpu()
+    # random boxes overlap no proposal: the first CP_CHECK_GT ground-truth
+    # boxes become copies of proposals, every other one 0.1 m off
+    # (foreground) and the rest 1 m off (IoU 0.3 to 0.65, by the yaw), and
+    # every coordinate a little off, because the L1 box loss has its kink
+    # where a target equals the prediction it was decoded from
+    k = CP_CHECK_GT
+    gt = boxes[:, :k].clone()
+    gt[:, ::2, 0] += 0.1
+    gt[:, 1::2, 0] += 1.0
+    gt[..., 1] += 0.07
+    gt[..., 2] += 0.1
+    gt[..., 3:6] *= 1.05
+    gt[..., 6:8] += 0.1
+    gt[..., 8] += 0.02
+    batch["gt_boxes"][:, :k] = gt
+    batch["gt_mask"][:, :k] = True
+    cpu = build_centerpoint("cpu").train()
+    cpu.load_state_dict(gpu.state_dict())
+    referee = CenterPointTwoStage(dtype=torch.float64).to(
+        memory_format=torch.channels_last).train()
+    referee.load_state_dict(cpu.state_dict())
+
+    t = CP_TRAIN_TOL
+    result, bad = {"tolerance": t}, []
+
+    def hold_to_referee(key, card, host, ref, part):
+        """Report both f32 runs' distances from the referee over ``part``'s
+        gradients and hold the card's to ``referee_grad_rel_l2``."""
+        result[f"{key}_card_vs_referee"] = _part_rel_l2(card, ref, part)
+        result[f"{key}_cpu_vs_referee"] = _part_rel_l2(host, ref, part)
+        if result[f"{key}_card_vs_referee"] > t["referee_grad_rel_l2"]:
+            bad.append(f"{key} against the referee")
+
+    kernels.reset_launches()
+    parts_g, grads_g, bev_g = _stage2_on(gpu, boxes, batch)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if launches != _centerpoint_launches(
+            1, CP_SERVE_KERNELS + ("bilinear_gather_bwd_dx",)):
+        bad.append(f"the second stage launched {launches}")
+    parts_c, grads_c, bev_c = _stage2_on(cpu, boxes, batch)
+    parts_r, grads_r, bev_r = _stage2_on(referee, boxes, batch)
+    # how far each f32 forward (train-mode BN) is from the f64 one
+    result["bev_card_vs_referee"] = _rel_l2(bev_g, bev_r)
+    result["bev_cpu_vs_referee"] = _rel_l2(bev_c, bev_r)
+    del bev_g, bev_c, bev_r
+    for k, v in parts_c.items():
+        result[f"same_proposals_{k}"] = v
+        result[f"same_proposals_{k}_rel_err"] = abs(parts_g[k] - v) / max(
+            abs(v), 1e-30)
+        result[f"same_proposals_{k}_cpu_vs_referee"] = abs(
+            parts_r[k] - v) / max(abs(parts_r[k]), 1e-30)
+        if result[f"same_proposals_{k}_rel_err"] > t["stage2_loss_rtol"]:
+            bad.append(f"{k} on the same proposals")
+    rows_g, rows_c = grads_g.pop("feats")[0], grads_c.pop("feats")[0]
+    rows_r = grads_r.pop("feats")[0]
+    row_err = (rows_g - rows_c).norm(dim=-1) / rows_c.norm(
+        dim=-1).clamp_min(1e-30)
+    result["same_proposals_rows_agreeing"] = float(
+        (row_err <= t["row_rel_l2"]).float().mean())
+    result["same_proposals_row_rel_l2_median"] = float(row_err.median())
+    for name, rows in (("card", rows_g), ("cpu", rows_c)):
+        err = (rows - rows_r).norm(dim=-1) / rows_r.norm(dim=-1).clamp_min(
+            1e-30)
+        result[f"same_proposals_row_rel_l2_median_{name}_vs_referee"] = float(
+            err.median())
+        result[f"same_proposals_rows_agreeing_{name}_vs_referee"] = float(
+            (err <= t["referee_row_rel_l2"]).float().mean())
+    if min(result["same_proposals_rows_agreeing"],
+           result["same_proposals_rows_agreeing_card_vs_referee"]) < t[
+               "row_share"]:
+        bad.append("the features' gradient on the same proposals")
+    rel = {n: _rel_l2(grads_g[n], v) for n, v in grads_c.items()}
+    result["same_proposals_bev_grad_rel_l2"] = rel["bev"]
+    worst = max(rel, key=rel.get)
+    result["same_proposals_grad_rel_l2_max"] = rel[worst]
+    result["same_proposals_grad_rel_l2_worst"] = worst
+    if rel[worst] > t["stage2_grad_rel_l2"]:
+        bad.append(f"gradient of {worst} on the same proposals")
+    for part in ("bev", "refine"):
+        hold_to_referee(f"same_proposals_{part}_grad", grads_g, grads_c,
+                        grads_r, part)
+
+    # the whole step, all three from the same weights and statistics (the
+    # second stage's forwards above moved the running statistics)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu.load_state_dict(start)
+    referee.load_state_dict(start)
+    g, pg, launches, seconds = _one_centerpoint_step(gpu, batch)
+    print(f"  card step {seconds:.1f} s, loss {g['metrics']['loss']:.6f}",
+          flush=True)
+    if launches != _centerpoint_launches(1, CP_TRAIN_KERNELS):
+        bad.append(f"the train step launched {launches}")
+    c, pc, _, seconds = _one_centerpoint_step(cpu, batch)
+    print(f"  CPU step {seconds:.1f} s, loss {c['metrics']['loss']:.6f}",
+          flush=True)
+    r, _, _, seconds = _one_centerpoint_step(referee, batch, forced=pg)
+    print(f"  CPU f64 step on the card's proposals {seconds:.1f} s, loss "
+          f"{r['metrics']['loss']:.6f}", flush=True)
+    # the same proposals, in whatever order: every CPU box has a card box
+    # within ``same_box_m`` of it
+    dist = (pg[:, :, None, :8] - pc[:, None, :, :8]).abs().amax(-1)
+    same = bool((dist.amin(1) < t["same_box_m"]).all())
+    result["proposals_same_set"] = same
+    result["proposals_unmatched"] = int(
+        (dist.amin(1) >= t["same_box_m"]).sum())
+    result["proposals_worst_match"] = float(dist.amin(1).max())
+    result["proposals_same_order"] = bool(
+        ((pg - pc)[..., :8].abs() < t["same_box_m"]).all())
+    if not same:
+        cpu.load_state_dict(start)
+        c, _, _, seconds = _one_centerpoint_step(cpu, batch, forced=pg)
+        print(f"  CPU step on the card's proposals {seconds:.1f} s, loss "
+              f"{c['metrics']['loss']:.6f}", flush=True)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+
+    for k, v in c["metrics"].items():
+        if k == "grad_norm":
+            continue
+        err = abs(g["metrics"][k] - v) / max(abs(v), 1e-30)
+        result[f"{k}_rel_err"] = err
+        stage2 = k.startswith("stage2") or k == "loss"
+        if err > (t["stage2_loss_rtol"] if stage2 else t["loss_rtol"]):
+            bad.append(k)
+        for name, snap in (("card", g), ("cpu", c)):
+            result[f"{k}_{name}_vs_referee"] = abs(
+                snap["metrics"][k] - r["metrics"][k]) / max(
+                    abs(r["metrics"][k]), 1e-30)
+        if result[f"{k}_card_vs_referee"] > t["referee_loss_rtol"]:
+            bad.append(f"{k} against the referee")
+    result["loss"] = c["metrics"]["loss"]
+    result["stage2_box"] = c["metrics"]["stage2_box"]
+    result["grad_norm"] = c["metrics"]["grad_norm"]
+    err = abs(g["metrics"]["grad_norm"] - result["grad_norm"]) / \
+        result["grad_norm"]
+    result["grad_norm_rel_err"] = err
+    for name, snap in (("card", g), ("cpu", c)):
+        result[f"grad_norm_{name}_vs_referee"] = abs(
+            snap["metrics"]["grad_norm"] - r["metrics"]["grad_norm"]) / \
+            r["metrics"]["grad_norm"]
+    if err > t["grad_norm_rtol"]:
+        bad.append("grad_norm")
+    if result["grad_norm_card_vs_referee"] > t["referee_grad_norm_rtol"]:
+        bad.append("grad_norm against the referee")
+    rel = {n: _rel_l2(g["grads"][n], v) for n, v in c["grads"].items()
+           if not _cancelled_bias(n)}
+    for part in CP_PARTS:
+        result[f"grad_rel_l2_{part}_max"] = max(
+            v for n, v in rel.items() if n.startswith(part + "."))
+        hold_to_referee(f"grad_{part}", g["grads"], c["grads"], r["grads"],
+                        part + ".")
+    worst = max(rel, key=rel.get)
+    result["grad_rel_l2_worst"] = [
+        f"{n} {v:.2e}" for n, v in sorted(rel.items(),
+                                          key=lambda kv: -kv[1])[:6]]
+    if rel[worst] > t["grad_rel_l2"]:
+        bad.append(f"gradient of {worst}")
+    stat_err = 0.0
+    for n, v in c["stats"].items():
+        e = (g["stats"][n] - v).abs()
+        stat_err = max(stat_err, float(e.max()))
+        if not bool((e <= t["stat_atol"] + t["stat_rtol"] * v.abs()).all()):
+            bad.append(f"BN statistic {n}")
+        e = (g["stats"][n] - r["stats"][n]).abs()
+        if not bool((e <= t["stat_atol"] + t["stat_rtol"] * v.abs()).all()):
+            bad.append(f"BN statistic {n} against the referee")
+    result["stat_max_abs_err"] = stat_err
+    print("  f32 CenterPoint train step card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items() if k != "tolerance"), flush=True)
+    if bad:
+        raise AssertionError(f"f32 CenterPoint train step, card vs CPU: "
+                             f"{bad} outside {t}: {result}")
+    return result
+
+
+def probe_train_forward(dev):
+    """``--probe``: the train-mode forward of the two-stage CenterPoint
+    (reader and RPN, batch 1, seeded weights, TF32 off) layer by layer on
+    the card, on the CPU in f32 with all threads and with one, each against
+    the CPU in f64 compute (relative L2 of every leaf module's output, then
+    of the BEV map). Shows where an f32 run leaves the f64 one."""
+    from minddet_tpu_torch.entry import (build_centerpoint,
+                                         synthetic_lidar_batch)
+    from minddet_tpu_torch.models.detectors.centerpoint import (
+        CenterPointTwoStage)
+
+    def trace(model):
+        d = next(model.parameters()).device
+        outs, hooks = [], []
+        for name, m in model.named_modules():
+            if name.startswith(("reader", "rpn")) and not list(m.children()):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, args, out, name=name: outs.append(
+                        (name, out.detach().double().cpu()))))
+        with torch.no_grad():
+            bev = model.bev_from_points_stream(batch["points"].to(d),
+                                               batch["points_mask"].to(d))
+        for h in hooks:
+            h.remove()
+        return outs + [("bev", bev.double().cpu())]
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = build_centerpoint(dev).train()
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_lidar_batch(
+        CP_CHECK_BATCH, gpu.pc_range, seed=4).items()}
+    cpu = build_centerpoint("cpu").train()
+    cpu.load_state_dict(gpu.state_dict())
+    referee = CenterPointTwoStage(dtype=torch.float64).to(
+        memory_format=torch.channels_last).train()
+    referee.load_state_dict(gpu.state_dict())
+    ref, card, host = trace(referee), trace(gpu), trace(cpu)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    host1 = trace(cpu)
+    torch.set_num_threads(threads)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    rows = []
+    for (name, r), (_, g), (_, c), (_, c1) in zip(ref, card, host, host1):
+        rows.append(dict(layer=name, shape=list(r.shape),
+                         card=_rel_l2(g, r), cpu=_rel_l2(c, r),
+                         cpu_one_thread=_rel_l2(c1, r)))
+        print(f"  {name:24s} card {rows[-1]['card']:.2e}  CPU ({threads} "
+              f"threads) {rows[-1]['cpu']:.2e}  CPU (1 thread) "
+              f"{rows[-1]['cpu_one_thread']:.2e}", flush=True)
+    return dict(threads=threads, layers=rows)
+
+
 def train_main_path(dev):
     """Phase 6b, the training main path: ``train_entry`` at TRAIN_BATCH,
     TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch counts from 0."""
@@ -1433,6 +2189,61 @@ def train_main_path(dev):
                              f"of each sampler kernel per step)")
     print(f"  kernels: {launches} for {steps} steps == 9 x steps: True",
           flush=True)
+    return out, (step_fn, state, batch)
+
+
+def centerpoint_train_main_path(dev):
+    """Phase 6e, the CenterPoint training main path:
+    ``centerpoint_train_entry`` at TRAIN_CP_BATCH, TRAIN_WARMUP +
+    TRAIN_STEPS steps on one batch, launch counts from 0."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import centerpoint_train_entry
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn, (state, batch) = centerpoint_train_entry(device=dev,
+                                                      batch=TRAIN_CP_BATCH)
+    kernels.reset_launches()
+    history, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean_s = statistics.mean(times)
+    losses = [m["loss"] for m in history]
+    out = dict(batch=TRAIN_CP_BATCH, steps=steps, timed_steps=len(times),
+               ms_per_step=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3,
+               clouds_per_s=TRAIN_CP_BATCH / mean_s,
+               max_memory_allocated=peak, losses=losses,
+               first_step=history[0], last_step=history[-1],
+               launches=launches)
+    print(f"  CenterPoint train bf16 batch {TRAIN_CP_BATCH}: "
+          f"{mean_s * 1e3:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
+          f"{out['clouds_per_s']:.1f} clouds/s, peak {peak / 2 ** 30:.2f} "
+          f"GiB allocated", flush=True)
+    print("  losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    print("  last step: " + " ".join(f"{k}={v:.4f}"
+                                     for k, v in history[-1].items()),
+          flush=True)
+    finite = all(math.isfinite(v) for m in history for v in m.values())
+    if not finite or not losses[-1] < losses[0]:
+        raise AssertionError(f"CenterPoint train loss not finite and "
+                             f"falling: {history}")
+    if launches != _centerpoint_launches(steps, CP_TRAIN_KERNELS):
+        raise AssertionError(
+            f"{launches} in {steps} CenterPoint train steps (want one each "
+            f"of {CP_TRAIN_KERNELS} per step, no bilinear_gather_bwd_dcw, "
+            f"no sampler)")
+    print(f"  kernels: {launches} for {steps} steps: one each of "
+          f"{len(CP_TRAIN_KERNELS)} kernels per step: True", flush=True)
     return out, (step_fn, state, batch)
 
 
@@ -1553,7 +2364,10 @@ def _profile(fn, calls: int):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kevents = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels and copies, not the ranges that mark a host-side region on the
+    # device's timeline (the optimizer's step)
+    kevents = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     if not kevents:
         raise RuntimeError("the profiler recorded no device time")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kevents)
@@ -1606,22 +2420,30 @@ def profile_clouds(label, programs, requests: int = 3):
     return result
 
 
-def profile_train(step_fn, state, batch, steps: int = 3):
+def profile_train(label, step_fn, state, batch, steps: int = 3):
     """Where a train step's time goes."""
     r = _profile(lambda: step_fn(state, batch), steps)
-    _print_profile(f"train batch {TRAIN_BATCH}", r)
+    _print_profile(label, r)
     return r
 
 
 def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
                 library: bool = False):
     """One kernel's entry of the ``{"kernels": [...]}`` line: times and
-    bounds summed over the calls of one main-path pass at its shapes;
+    bounds summed over ``main_cases``, the kernel's calls in one pass of
+    each main path that launches it (one request at the largest batch, one
+    train step), and ``main_shapes`` with the same numbers case by case;
     ``library`` where the cases timed one PyTorch call beside the kernel."""
     from minddet_tpu_torch import kernels
 
+    if not main_cases:
+        raise AssertionError(f"{kernel.name}: no phase 3 case at a main "
+                             f"path's shape")
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
+    keys = ("shape", "against", "points", "dtype", "spread", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict(
+        main_shapes=[{k: c[k] for k in keys if k in c} for c in main_cases],
         name=kernel.name, route="cuda",
         source=str(kernel.source.relative_to(kernels.CSRC.parent.parent)),
         replaces=kernel.replaces.split()[0], launches=launches,
@@ -1635,9 +2457,14 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
+    ap.add_argument("--probe", action="store_true",
+                    help="also compare the f32 CenterPoint train-mode "
+                         "forward layer by layer, card and CPU, with the "
+                         "CPU's in f64")
     ap.add_argument("--profile", action="store_true",
                     help="also profile the serving requests of the three "
-                         "models and 3 train steps (torch.profiler)")
+                         "models and 3 train steps of each trained model "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1670,12 +2497,15 @@ def main(argv=None) -> int:
     print("phase 3: kernels vs plain versions", flush=True)
     cases = check_taps_kernel(dev, gen)
     bwd_cases = check_taps_bwd_kernel(dev, gen)
-    iou_cases = check_rotated_iou_kernel(dev, gen)
     from minddet_tpu_torch.entry import build_centerpoint
 
     centerpoint = build_centerpoint(dev)
+    iou_cases = check_rotated_iou_kernel(dev, gen, centerpoint.pc_range)
     seg_cases = check_seg_max_kernel(dev, centerpoint)
     gather_cases = check_bilinear_kernel(dev, gen, centerpoint)
+    seg_bwd_cases = check_seg_max_bwd_kernel(dev, centerpoint)
+    gather_dx_cases, gather_dcw_cases = check_bilinear_bwd_kernels(
+        dev, gen, centerpoint)
 
     print("phase 4: end to end, f32 predict, card vs CPU", flush=True)
     e2e = check_end_to_end_f32(dev, gen)
@@ -1685,11 +2515,21 @@ def main(argv=None) -> int:
     print("phase 4c: end to end, f32 two-stage CenterPoint predict, card vs "
           "CPU", flush=True)
     cp_f32 = check_centerpoint_f32(dev, centerpoint)
-    del centerpoint
-    torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU", flush=True)
     train_f32 = check_train_step_f32(dev, gen)
+    print("phase 5b: bilinear_sample_2d gradients, card vs CPU", flush=True)
+    sample_grads = check_sample_grads_f32(dev, gen, centerpoint)
+    print("phase 5c: end to end, f32 two-stage CenterPoint train step, card "
+          "vs CPU", flush=True)
+    cp_train_f32 = check_centerpoint_train_f32(dev, centerpoint)
+    del centerpoint
+    forward_probe = None
+    if args.probe:
+        print("probe: f32 CenterPoint train-mode forward against f64, layer "
+              "by layer", flush=True)
+        forward_probe = probe_train_forward(dev)
+    torch.cuda.empty_cache()
 
     print("phase 6a: main path, bf16 serving", flush=True)
     from minddet_tpu_torch.entry import entry
@@ -1720,7 +2560,8 @@ def main(argv=None) -> int:
     training, train_program = train_main_path(dev)
     if args.profile:
         print("profile: bf16 train step", flush=True)
-        profiled["train"] = profile_train(*train_program)
+        profiled["train"] = profile_train(f"train batch {TRAIN_BATCH}",
+                                          *train_program)
     del train_program
     torch.cuda.empty_cache()
 
@@ -1772,6 +2613,17 @@ def main(argv=None) -> int:
         print("profile: CenterPoint serving", flush=True)
         profiled["centerpoint"] = profile_clouds("CenterPoint", cp_programs)
     del cp_programs
+    torch.cuda.empty_cache()
+
+    print(f"phase 6e: main path, two-stage CenterPoint bf16 train step at "
+          f"batch {TRAIN_CP_BATCH}", flush=True)
+    cp_training, cp_train_program = centerpoint_train_main_path(dev)
+    if args.profile:
+        print("profile: CenterPoint bf16 train step", flush=True)
+        profiled["centerpoint_train"] = profile_train(
+            f"CenterPoint train batch {TRAIN_CP_BATCH}", *cp_train_program)
+    del cp_train_program
+    torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases); K1b one bf16 train step's nine
@@ -1781,6 +2633,12 @@ def main(argv=None) -> int:
     bwd_main = [c for c in bwd_cases
                 if c["shape"][0] == TRAIN_BATCH and c["spread"] == 1.5]
     train_launches = training["launches"]
+    cp_train_launches = cp_training["launches"]
+    # K5b, K3dx and K3dcw: one bf16 batch-8 CenterPoint train step's call
+    train_case = lambda cs: [
+        c for c in cs if c["dtype"] == "bfloat16"
+        and c["shape"][0] == TRAIN_CP_BATCH and c.get("stream", "uniform")
+        == "uniform"]
     rows = [
         _kernel_row(kernels.HAT_SAMPLE_TAPS_FWD,
                     taps + train_launches["hat_sample_taps_fwd"], fwd_main,
@@ -1788,22 +2646,46 @@ def main(argv=None) -> int:
         _kernel_row(kernels.HAT_SAMPLE_TAPS_BWD,
                     train_launches["hat_sample_taps_bwd"], bwd_main,
                     DCN_CALLS_PER_SHAPE, bwd_cases),
-        # K4: one batch-8 PointPillars request's call; launched by both
-        # lidar models' requests
+        # K4: one batch-8 PointPillars request's call, one batch-4
+        # CenterPoint request's and one CenterPoint train step's
         _kernel_row(kernels.ROTATED_IOU,
                     pp_launches["rotated_iou_intersect"]
-                    + cp_launches["rotated_iou_intersect"],
-                    [c for c in iou_cases if c["shape"][0] == 8], 1,
-                    iou_cases),
-        # K5f and K3f: one f32 batch-4 CenterPoint request's call
-        _kernel_row(kernels.SEG_FULL_MAX, cp_launches["seg_full_max"],
+                    + cp_launches["rotated_iou_intersect"]
+                    + cp_train_launches["rotated_iou_intersect"],
+                    [c for c in iou_cases if c["shape"][:2] in (
+                        [PP_BATCHES[-1], PP_CANDIDATES],
+                        [CP_TASKS * CP_BATCHES[-1], CP_CANDIDATES],
+                        [TRAIN_CP_BATCH, CP_PROPOSALS])], 1, iou_cases),
+        # K5f and K3f: one f32 batch-4 CenterPoint request's call and one
+        # bf16 batch-8 train step's
+        _kernel_row(kernels.SEG_FULL_MAX, cp_launches["seg_full_max"]
+                    + cp_train_launches["seg_full_max"],
                     [c for c in seg_cases if c["dtype"] == "float32"
-                     and c["shape"][0] == CP_BATCHES[-1]], 1, seg_cases),
+                     and c["shape"][0] == CP_BATCHES[-1]]
+                    + train_case(seg_cases), 1, seg_cases),
+        _kernel_row(kernels.SEG_FULL_MAX_BWD,
+                    cp_train_launches["seg_full_max_bwd"],
+                    train_case(seg_bwd_cases), 1, seg_bwd_cases),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
-                    cp_launches["bilinear_gather_fwd"],
+                    cp_launches["bilinear_gather_fwd"]
+                    + cp_train_launches["bilinear_gather_fwd"],
                     [c for c in gather_cases if c["dtype"] == "float32"
-                     and c["shape"][0] == CP_BATCHES[-1]], 1, gather_cases,
+                     and c["shape"][0] == CP_BATCHES[-1]]
+                    + train_case(gather_cases), 1, gather_cases,
                     library=True),
+        _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
+                    cp_train_launches["bilinear_gather_bwd_dx"],
+                    train_case(gather_dx_cases), 1, gather_dx_cases,
+                    library=True),
+        # K3dcw: no entry point reaches it yet (the train step's proposals
+        # are detached), so its count on the main paths is 0; phase 5b's
+        # launch, through bilinear_sample_2d's gradient to the coordinates,
+        # stands beside it under its own key
+        dict(_kernel_row(kernels.BILINEAR_GATHER_BWD_DCW,
+                         cp_train_launches["bilinear_gather_bwd_dcw"],
+                         train_case(gather_dcw_cases), 1, gather_dcw_cases),
+             launches_in_phase_5b=sample_grads["launches"][
+                 "bilinear_gather_bwd_dcw"]),
     ]
     wall_s = time.perf_counter() - t_start
     print(f"  chip_smoke wall time {wall_s:.1f} s", flush=True)
@@ -1816,6 +2698,13 @@ def main(argv=None) -> int:
                            rotated_iou_cases=iou_cases,
                            seg_full_max_cases=seg_cases,
                            bilinear_gather_cases=gather_cases,
+                           seg_full_max_bwd_cases=seg_bwd_cases,
+                           bilinear_gather_bwd_dx_cases=gather_dx_cases,
+                           bilinear_gather_bwd_dcw_cases=gather_dcw_cases,
+                           sample_grads_f32=sample_grads,
+                           centerpoint_train_f32=cp_train_f32,
+                           centerpoint_forward_probe=forward_probe,
+                           centerpoint_training=cp_training,
                            end_to_end_f32=e2e, pointpillars_f32=pp_f32,
                            centerpoint_f32=cp_f32,
                            train_step_f32=train_f32, serving=serving,

@@ -12,6 +12,10 @@ KITTI car model from raw points to (B, 300) rotated boxes, f32.
 ``centerpoint_entry()`` is the two-stage CenterPoint serving program
 (``CenterPointTwoStage.predict_refined``): the nuScenes pillar model from
 120,000 raw points to (B, 6 * 83) rescored and refined boxes, f32.
+``centerpoint_train_entry()`` is the train step of that model as
+``bench.py:bench_two_stage`` builds it (``CenterPointTwoStage.loss_from_gt``
+under ``make_train_step``): f32 parameters, bf16 compute, batch 8, targets
+and voxelization on the device, AdamW(1e-3) with clip-by-global-norm 35.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ VALID_OBJECTS = 8     # valid boxes per image (bench.py: n = 8)
 CLOUD_POINTS = 18000  # points per cloud (bench.py: num_points=18000)
 NUSC_CLOUD_POINTS = 120000  # configs/centerpoint_pp_nusc.yaml: num_points
 NUSC_POINT_FEATURES = 5     # x, y, z, reflectance, sweep time
+NUSC_MAX_GT = 64            # box slots per cloud (bench.py: max_gt=64)
+NUSC_CLASSES = 10           # over the six tasks' (1, 2, 2, 1, 2, 2)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -136,7 +142,13 @@ def synthetic_clouds(batch: int, pc_range, num_points: int = CLOUD_POINTS,
     [0, 1), any further feature (the sweep time) in [0, 0.45), all valid.
     Returns points (batch, num_points, num_features) f32 and the mask (all
     True)."""
-    rs = np.random.RandomState(seed)
+    return _draw_clouds(np.random.RandomState(seed), batch, pc_range,
+                        num_points, num_features)
+
+
+def _draw_clouds(rs: np.random.RandomState, batch: int, pc_range,
+                 num_points: int, num_features: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
     x0, y0, z0, x1, y1, z1 = pc_range
     size = (batch, num_points)
     feats = [rs.uniform(x0, x1, size), rs.uniform(y0, y1, size),
@@ -197,3 +209,64 @@ def centerpoint_entry(device=None, batch: int = 1
                                     num_features=NUSC_POINT_FEATURES)
     return model.predict_refined, (torch.from_numpy(points).to(dev),
                                    torch.from_numpy(mask).to(dev))
+
+
+def synthetic_lidar_batch(batch: int, pc_range,
+                          num_points: int = NUSC_CLOUD_POINTS,
+                          max_gt: int = NUSC_MAX_GT,
+                          num_classes: int = NUSC_CLASSES, seed: int = 0,
+                          num_features: int = NUSC_POINT_FEATURES
+                          ) -> Dict[str, np.ndarray]:
+    """The first batch of the reference's
+    ``train/train.py:synthetic_points_batches(box_dim=9)``, draw for draw
+    from numpy ``RandomState(seed)``: the clouds of ``synthetic_clouds``,
+    then per cloud 1 to ``max_gt`` - 1 car-sized boxes [x, y, z, w, l, h,
+    vx, vy, yaw] (centres at least 5 m inside the range, velocities in
+    [-2, 2), any yaw) in ``max_gt`` slots, then 1-based classes for every
+    slot. Returns points, points_mask, gt_boxes, gt_classes, gt_mask."""
+    rs = np.random.RandomState(seed)
+    points, points_mask = _draw_clouds(rs, batch, pc_range, num_points,
+                                       num_features)
+    x0, y0, z0, x1, y1, _ = pc_range
+    n = rs.randint(1, max_gt, batch)
+    boxes = np.zeros((batch, max_gt, 9), np.float32)
+    mask = np.zeros((batch, max_gt), bool)
+    for i in range(batch):
+        centres = rs.uniform([x0 + 5, y0 + 5], [x1 - 5, y1 - 5], (n[i], 2))
+        velocity = rs.uniform(-2, 2, (n[i], 2))
+        yaw = rs.uniform(-np.pi, np.pi, (n[i], 1))
+        boxes[i, :n[i]] = np.concatenate(
+            [centres, np.full((n[i], 1), z0 + 1.2),
+             np.tile([1.6, 3.9, 1.56], (n[i], 1)), velocity, yaw], -1)
+        mask[i, :n[i]] = True
+    classes = rs.randint(1, num_classes + 1, (batch, max_gt))
+    return {"points": points, "points_mask": points_mask, "gt_boxes": boxes,
+            "gt_classes": classes.astype(np.int32), "gt_mask": mask}
+
+
+def centerpoint_loss(model: CenterPointTwoStage, batch: Dict):
+    """The CenterPoint train step's loss function:
+    ``CenterPointTwoStage.loss_from_gt`` on a lidar batch."""
+    return model.loss_from_gt(batch)
+
+
+def centerpoint_train_entry(device=None, batch: int = 8
+                            ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one
+    two-stage CenterPoint train step in place and returns ``(state,
+    metrics)`` (loss, task{t}_hm, task{t}_loc, stage2_score, stage2_box,
+    grad_norm, on the device).
+
+    The model is ``build_centerpoint``'s configuration seeded with
+    ``SEED``: f32 parameters, bf16 compute, channels_last, train mode, 128
+    proposals, foreground IoU 0.55. The batch is
+    ``synthetic_lidar_batch(batch)``: 120,000 points of 5 features and up
+    to 63 boxes per cloud; voxelization and targets run inside the step."""
+    dev = resolve_device(device)
+    model = CenterPointTwoStage(dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(SEED))
+    model = model.to(device=dev, memory_format=torch.channels_last).train()
+    state = TrainState.create(model, adamw(1e-3, clip_global_norm=35.0))
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in synthetic_lidar_batch(batch, model.pc_range).items()}
+    return make_train_step(centerpoint_loss), (state, data)

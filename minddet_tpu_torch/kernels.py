@@ -126,6 +126,14 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+def device_kind(x: torch.Tensor) -> str:
+    """"cuda" or "cpu": where a wrapper launches its kernel and where it
+    runs the plain version. Any other device raises."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
 def cuda_stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -169,5 +177,28 @@ BILINEAR_GATHER_FWD = CudaKernel(
     replaces="minddet_tpu/ops/bilinear.py:49 _fwd_kernel",
 )
 
+SEG_FULL_MAX_BWD = CudaKernel(
+    "seg_full_max_bwd", "seg_full_max_bwd.cu",
+    # x, m, g, first, last, dx, B, N, C, bound, dtype, stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/seg_pallas.py:129 _bwd_kernel",
+)
+
+BILINEAR_GATHER_BWD_DX = CudaKernel(
+    "bilinear_gather_bwd_dx", "bilinear_gather_bwd_dx.cu",
+    # g, ci, cw, acc, B, HW, C, P, dtype, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/bilinear.py:83 _bwd_dx_kernel",
+)
+
+BILINEAR_GATHER_BWD_DCW = CudaKernel(
+    "bilinear_gather_bwd_dcw", "bilinear_gather_bwd_dcw.cu",
+    # g, x, ci, dcw, B, HW, C, P, dtype, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/bilinear.py:115 _bwd_dcw_kernel",
+)
+
 KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD,
-                             ROTATED_IOU, SEG_FULL_MAX, BILINEAR_GATHER_FWD]
+                             ROTATED_IOU, SEG_FULL_MAX, SEG_FULL_MAX_BWD,
+                             BILINEAR_GATHER_FWD, BILINEAR_GATHER_BWD_DX,
+                             BILINEAR_GATHER_BWD_DCW]

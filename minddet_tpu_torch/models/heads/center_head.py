@@ -1,30 +1,32 @@
-"""CenterPoint's multi-task CenterHead, in eval (counterpart of
+"""CenterPoint's multi-task CenterHead (counterpart of
 ``minddet_tpu/models/heads/center_head.py``): a shared 3x3 conv + BN + ReLU,
 then per task a ``SepHead`` with one branch per map (reg, height, dim, rot,
 vel, hm), each (num_conv - 1) x (3x3 conv + BN + ReLU) and a final 3x3
-conv; ``predict`` decodes every task's top ``nms_pre`` peaks to world boxes
-and runs the rotated NMS.
+conv; ``loss`` is the training objective (the gather-based focal loss on
+each task's heatmap and the per-channel weighted L1 on its boxes);
+``predict`` decodes every task's top ``nms_pre`` peaks to world boxes and
+runs the rotated NMS.
 
 Modules take an NCHW map in ``channels_last`` memory and return each
 prediction map as its (B, H, W, C) view, the reference's layout. Module
 names are the flax scopes (``shared_conv``, ``shared_bn``,
 ``task{t}.{name}_conv{i}`` / ``_bn{i}`` / ``_out``), so ``utils/convert.py``
 carries the JAX model's variables over. BN has flax's defaults (eps 1e-5,
-momentum 0.9).
+momentum 0.9) and follows the module's mode; the convs compute in their
+input's dtype.
 
 The reference's trace-time fusions (``fuse_branches``: one conv over the
 branches' concatenated kernels, one fused BN, a block-diagonal out conv;
 ``_fused_tasks``: the same across tasks) are layouts for the TPU that
 compute the same function from the same parameters (its tests pin them
-equal); the port runs the per-branch form.
+equal; in train mode the fused BN takes each channel's batch statistics,
+which are each branch's own); the port runs the per-branch form.
 
 The rotated NMS runs once over all tasks: their candidates are stacked to
 (T * B, nms_pre, 5), so a request costs one launch of the intersection
 kernel and one fixed-point loop, whose passes are those of the slowest
 (task, sample). Each (task, sample) converges to its own greedy NMS, so the
 result is the reference's per-task NMS.
-
-The loss is not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ import torch
 from torch import nn
 
 from minddet_tpu_torch.models.layers import BatchNorm, Conv2d
+from minddet_tpu_torch.models.losses import (fast_focal_loss,
+                                             gather_reg_loss_per_channel,
+                                             sigmoid_clip)
 from minddet_tpu_torch.ops.decode import (gather_feature, simple_topk,
                                           topk_lowest_index_first)
 from minddet_tpu_torch.ops.nms import rotated_nms
@@ -44,6 +49,8 @@ BN_MOMENTUM = 0.1  # flax momentum 0.9
 
 Preds = List[Dict[str, torch.Tensor]]
 
+# per channel of [reg (2), height, dim (3), vel (2), rot (2)]
+CODE_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.2, 0.2, 1.0, 1.0)
 COMMON_HEADS = (("reg", (2, 2)), ("height", (1, 2)), ("dim", (3, 2)),
                 ("rot", (2, 2)), ("vel", (2, 2)))
 
@@ -114,9 +121,13 @@ class CenterHead(nn.Module):
                  task_num_classes: Sequence[int] = (1, 2, 2, 1, 2, 2),
                  common_heads: Sequence[Tuple[str, Tuple[int, int]]] =
                  COMMON_HEADS,
-                 share_conv_channel: int = 64, num_hm_conv: int = 2):
+                 share_conv_channel: int = 64, num_hm_conv: int = 2,
+                 weight: float = 0.25,
+                 code_weights: Sequence[float] = CODE_WEIGHTS):
         super().__init__()
         self.task_num_classes = tuple(task_num_classes)
+        self.weight = weight  # of the box loss
+        self.code_weights = tuple(code_weights)
         self.shared_conv = Conv2d(in_channels, share_conv_channel, 3,
                                   padding=1)
         self.shared_bn = BatchNorm(share_conv_channel, eps=BN_EPS,
@@ -128,13 +139,36 @@ class CenterHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Preds:
         """BEV map (B, C, H, W) -> per task {name: (B, H, W, channels)}."""
-        if self.training:
-            raise NotImplementedError(
-                "CenterHead: only eval is ported (the CenterPoint train "
-                "step is a later slice)")
         x = torch.relu(self.shared_bn(self.shared_conv(x)))
         return [getattr(self, f"task{t}")(x)
                 for t in range(len(self.task_num_classes))]
+
+    def loss(self, preds: Preds, example: Dict[str, List[torch.Tensor]]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``example`` holds per task t the columns of
+        ``ops.targets.centerpoint_targets_batch``: hm[t] (B, H, W, Ct),
+        anno_box[t] (B, O, 10), ind[t], mask[t], cat[t] (B, O). Per task the
+        focal loss on the clipped sigmoid of ``hm`` plus ``weight`` times the
+        ``code_weights``-weighted per-channel L1 of [reg, height, dim, vel,
+        rot] at the object centres. Returns (total, {task{t}_hm,
+        task{t}_loc})."""
+        total = 0.0
+        parts = {}
+        cw = torch.tensor(self.code_weights, dtype=torch.float32,
+                          device=preds[0]["hm"].device)
+        for t, pred in enumerate(preds):
+            hm_loss = fast_focal_loss(
+                sigmoid_clip(pred["hm"].float()), example["hm"][t],
+                example["ind"][t], example["mask"][t], example["cat"][t])
+            anno_pred = torch.cat([pred[n] for n in ("reg", "height", "dim",
+                                                     "vel", "rot")], dim=-1)
+            loc_loss = (gather_reg_loss_per_channel(
+                anno_pred, example["mask"][t], example["ind"][t],
+                example["anno_box"][t]) * cw).sum()
+            total = total + hm_loss + self.weight * loc_loss
+            parts[f"task{t}_hm"] = hm_loss
+            parts[f"task{t}_loc"] = loc_loss
+        return total, parts
 
     def decode_boxes(self, preds: Preds, pc_range: Sequence[float],
                      voxel_size: Sequence[float], out_size_factor: int = 4,

@@ -1,4 +1,4 @@
-"""CenterPoint's second stage, in eval (counterpart of
+"""CenterPoint's second stage (counterpart of
 ``minddet_tpu/models/heads/second_stage.py``): each box samples the BEV
 feature map bilinearly at 5 points (its centre and the midpoints of its four
 BEV sides), through ``ops/bilinear.py:bilinear_sample_2d``; an MLP over the
@@ -13,11 +13,13 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from minddet_tpu_torch.models.layers import Linear
 from minddet_tpu_torch.models.readers.pillar_encoder import MaskedBatchNorm
 from minddet_tpu_torch.ops.bilinear import bilinear_sample_2d
 from minddet_tpu_torch.ops.box import center_to_corner_box2d
 
-BN_EPS = 1e-3  # with flax momentum 0.99, which eval never reads
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.01  # flax momentum 0.99
 
 
 def bev_sample_points(boxes: torch.Tensor) -> torch.Tensor:
@@ -61,24 +63,27 @@ class BEVFeatureExtractor(nn.Module):
 class BEVRefineHead(nn.Module):
     """Two Linear (no bias) + BN + ReLU blocks named ``fc{i}`` / ``bn{i}``,
     then the ``score`` (1) and ``box`` (``code_size``) Linear heads:
-    (B, N, F) -> (score logits (B, N), box deltas (B, N, code_size)), f32.
-    In eval BN over the feature axis is the folded affine that
-    ``MaskedBatchNorm`` computes."""
+    (B, N, F) -> (score logits (B, N), box deltas (B, N, code_size)), f32,
+    computed in ``dtype``. BN over the feature axis is ``MaskedBatchNorm``
+    with no mask: the folded affine of the running statistics in eval, of
+    the statistics over all B * N rows in train mode."""
 
     def __init__(self, in_features: int, hidden: int = 128,
-                 code_size: int = 7):
+                 code_size: int = 7, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         cin = in_features
         for i in range(2):
-            self.add_module(f"fc{i}", nn.Linear(cin, hidden, bias=False))
-            self.add_module(f"bn{i}", MaskedBatchNorm(hidden, eps=BN_EPS))
+            self.add_module(f"fc{i}", Linear(cin, hidden, bias=False))
+            self.add_module(f"bn{i}", MaskedBatchNorm(hidden, eps=BN_EPS,
+                                                      momentum=BN_MOMENTUM))
             cin = hidden
-        self.score = nn.Linear(hidden, 1)
-        self.box = nn.Linear(hidden, code_size)
+        self.score = Linear(hidden, 1)
+        self.box = Linear(hidden, code_size)
 
     def forward(self, feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = feats.to(self.fc0.weight.dtype)
+        x = feats.to(self.dtype)
         for i in range(2):
             x = torch.relu(getattr(self, f"bn{i}")(
                 getattr(self, f"fc{i}")(x)))

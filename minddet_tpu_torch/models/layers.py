@@ -70,6 +70,14 @@ class Conv2d(nn.Conv2d):
                                   _cast(self.bias, x.dtype))
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (flax's
+    ``Dense(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` computing in its input's dtype."""
 

@@ -1,5 +1,5 @@
-"""Box helpers of the PointPillars and CenterPoint predict paths (counterpart
-of the parts of ``minddet_tpu/ops/box.py`` they use, plus the
+"""Box helpers of the PointPillars and CenterPoint paths (counterpart of the
+parts of ``minddet_tpu/ops/box.py`` they use, plus the
 rotated-rectangle corners of ``minddet_tpu/ops/rotated_iou_pallas.py:
 _corners``).
 
@@ -62,6 +62,23 @@ def second_box_decode(encodings: torch.Tensor, anchors: torch.Tensor
     rg = rt + ra
     zg = zg - hg / 2
     return torch.stack([xg, yg, zg, wg, lg, hg, rg], dim=-1)
+
+
+def second_box_encode(boxes: torch.Tensor, anchors: torch.Tensor,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """Boxes (..., 7) against anchors (..., 7) -> SECOND residuals (..., 7),
+    the inverse of ``second_box_decode`` (log sizes; every divisor and log
+    argument kept above ``eps``)."""
+    xa, ya, za, wa, la, ha, ra = anchors.unbind(-1)
+    xg, yg, zg, wg, lg, hg, rg = boxes.unbind(-1)
+    diag = torch.sqrt(wa * wa + la * la).clamp(min=eps)
+    zg = zg + hg / 2
+    za = za + ha / 2
+    return torch.stack(
+        [(xg - xa) / diag, (yg - ya) / diag, (zg - za) / ha.clamp(min=eps),
+         torch.log(wg.clamp(min=eps) / wa.clamp(min=eps)),
+         torch.log(lg.clamp(min=eps) / la.clamp(min=eps)),
+         torch.log(hg.clamp(min=eps) / ha.clamp(min=eps)), rg - ra], dim=-1)
 
 
 def rbbox_to_near_bbox(rboxes: torch.Tensor) -> torch.Tensor:

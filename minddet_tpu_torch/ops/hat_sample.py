@@ -35,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 
 from minddet_tpu_torch.kernels import (HAT_SAMPLE_TAPS_BWD,
-                                       HAT_SAMPLE_TAPS_FWD, cuda_stream)
+                                       HAT_SAMPLE_TAPS_FWD, cuda_stream,
+                                       device_kind)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
@@ -226,12 +227,6 @@ def _taps_bwd_cuda(g, x, ys, xs, scale):
     return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
 
 
-def _device_of(x: torch.Tensor) -> str:
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type
-
-
 def hat_sample_2d_taps_bwd(
         g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         scale: Optional[torch.Tensor] = None
@@ -241,7 +236,7 @@ def hat_sample_2d_taps_bwd(
     x's dtype; C/VEC a power of two or a multiple of 32, VEC = 4 f32 or 8
     bf16 values) and raises on anything it does not take; a CPU ``x`` runs
     the plain version."""
-    if _device_of(x) == "cuda":
+    if device_kind(x) == "cuda":
         return _taps_bwd_cuda(g, x, ys, xs, scale)
     return hat_sample_2d_taps_bwd_plain(g, x, ys, xs, scale)
 
@@ -253,7 +248,7 @@ class _TapsSample(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ys, xs, scale):
         ctx.save_for_backward(x, ys, xs, scale)
-        if _device_of(x) == "cuda":
+        if device_kind(x) == "cuda":
             return _taps_cuda(x, ys, xs, scale)
         return hat_sample_2d_taps_plain(x, ys, xs, scale)
 
@@ -277,7 +272,7 @@ def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, ys, xs, scale)):
         return _TapsSample.apply(x, ys, xs, scale)
-    if _device_of(x) == "cuda":
+    if device_kind(x) == "cuda":
         return _taps_cuda(x, ys, xs, scale)
     return hat_sample_2d_taps_plain(x, ys, xs, scale)
 

@@ -1,5 +1,6 @@
-"""CenterNet training targets on the device: Gaussian heatmaps, regression
-targets and gather indices (counterpart of ``minddet_tpu/ops/targets.py``).
+"""CenterNet and CenterPoint training targets on the device: Gaussian
+heatmaps, regression targets and gather indices (counterpart of
+``minddet_tpu/ops/targets.py``).
 
 Each object renders a full-plane truncated Gaussian and a scatter-max folds
 the objects into their class planes, for a whole batch at once; the
@@ -8,7 +9,7 @@ reference's per-image ``jax.vmap`` is a batch dimension written out here.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -120,4 +121,71 @@ def centernet_targets(boxes: torch.Tensor, classes: torch.Tensor,
     mask (O,); hm (H, W, C) and the (O, ...) columns."""
     out = centernet_targets_batch(boxes[None], classes[None], mask[None],
                                   height, width, num_classes, min_overlap)
+    return {k: v[0] for k, v in out.items()}
+
+
+def centerpoint_targets_batch(gt_boxes: torch.Tensor,
+                              gt_classes: torch.Tensor,
+                              gt_mask: torch.Tensor,
+                              feature_size: Tuple[int, int],
+                              num_classes: int,
+                              pc_range: Sequence[float],
+                              voxel_size: Sequence[float],
+                              out_size_factor: int = 4,
+                              gaussian_overlap: float = 0.1,
+                              min_radius: float = 2.0
+                              ) -> Dict[str, torch.Tensor]:
+    """Targets of one CenterHead task group for a batch, on the device.
+
+    gt_boxes (B, O, 9) [x, y, z, w, l, h, vx, vy, yaw] in the world, padded;
+    gt_classes (B, O) int class within the task (0-based); gt_mask (B, O)
+    validity. Returns hm (B, H, W, C) f32, anno_box (B, O, 10) [dx, dy, z,
+    log w, log l, log h, vx, vy, sin yaw, cos yaw], ind (B, O) int64, mask
+    (B, O) f32 and cat (B, O) int64; a box is valid when its footprint is
+    positive and its centre lies on the map. (The reference's ``max_objs``
+    argument is read by nothing there: the O slots are kept as they are.)"""
+    h, w = feature_size
+    vx_sz = voxel_size[0] * out_size_factor
+    vy_sz = voxel_size[1] * out_size_factor
+    gt_boxes = gt_boxes.float()
+    x, y, z, dx, dy, dz, vel_x, vel_y, rot = gt_boxes.unbind(-1)
+
+    gw = dx / vx_sz  # footprint in feature-map cells
+    gl = dy / vy_sz
+    radius = torch.clamp(
+        torch.floor(gaussian_radius((gl, gw), gaussian_overlap)),
+        min=min_radius)
+    cx = (x - pc_range[0]) / vx_sz
+    cy = (y - pc_range[1]) / vy_sz
+    valid = (gt_mask.bool() & (gw > 0) & (gl > 0)
+             & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h))
+    cx = torch.clamp(cx, 0.0, w - 1e-3)
+    cy = torch.clamp(cy, 0.0, h - 1e-3)
+    hm = draw_gaussians(torch.stack([cx, cy], dim=-1), radius, gt_classes,
+                        valid, h, w, num_classes)
+
+    cxi = torch.floor(cx)
+    cyi = torch.floor(cy)
+    zero = torch.zeros((), dtype=torch.long, device=gt_boxes.device)
+    anno_box = torch.stack(
+        [cx - cxi, cy - cyi, z, torch.log(torch.clamp(dx, min=1e-6)),
+         torch.log(torch.clamp(dy, min=1e-6)),
+         torch.log(torch.clamp(dz, min=1e-6)), vel_x, vel_y, torch.sin(rot),
+         torch.cos(rot)], dim=-1) * valid[..., None]
+    return {
+        "hm": hm,
+        "anno_box": anno_box,
+        "ind": torch.where(valid, (cyi * w + cxi).long(), zero),
+        "mask": valid.float(),
+        "cat": torch.where(valid, gt_classes.long(), zero),
+    }
+
+
+def centerpoint_targets(gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
+                        gt_mask: torch.Tensor, *args, **kwargs
+                        ) -> Dict[str, torch.Tensor]:
+    """``centerpoint_targets_batch`` for one sample: gt_boxes (O, 9),
+    gt_classes and gt_mask (O,); hm (H, W, C) and the (O, ...) columns."""
+    out = centerpoint_targets_batch(gt_boxes[None], gt_classes[None],
+                                    gt_mask[None], *args, **kwargs)
     return {k: v[0] for k, v in out.items()}

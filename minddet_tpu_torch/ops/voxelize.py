@@ -93,7 +93,9 @@ def seg_running_max(first: torch.Tensor, x: torch.Tensor, bound: int,
                     dim: int = 1) -> torch.Tensor:
     """Segmented running max, reset where ``first``, exact for rows within
     ``bound`` of their segment head: at each segment's last kept row it is
-    the whole segment's maximum."""
+    the whole segment's maximum. Autograd differentiates the shift levels:
+    a tie shares the gradient half and half at each ``maximum``, as the
+    reference's ``jnp.maximum`` levels do."""
     neg = (torch.finfo(x.dtype).min if x.is_floating_point()
            else torch.iinfo(x.dtype).min)
     return _seg_scan_bounded(torch.maximum, neg, first, x, bound, dim)
@@ -218,7 +220,12 @@ def scatter_stream_canvas(h: torch.Tensor, sv: StreamVoxels, ny: int, nx: int,
     nx) in ``channels_last`` memory: one ``index_copy_`` of each pillar's
     last kept row into B * ny * nx + 1 rows, the last row taking every
     other one. With ``occupancy`` also the (B, ny, nx) f32 0/1 map of the
-    cells that hold a pillar, from the same indices; else None."""
+    cells that hold a pillar, from the same indices; else None.
+
+    Differentiable with respect to ``h``: the backward of ``index_copy_``
+    is a gather, so each pillar's last kept row receives its cell's
+    gradient and every other row (they all went to the last row, which is
+    sliced off) none."""
     b, n, c = h.shape
     cells = ny * nx
     base = torch.arange(b, device=h.device)[:, None] * cells

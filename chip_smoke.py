@@ -27,17 +27,27 @@ Phases (any failure raises and exits non-zero):
    streams and on clustered ones (pillars filled to the cap of 20) with
    forced ties, exactly on segments of at most two rows; the row gather's
    backwards (K3dx with ``index_add_`` timed beside it, K3dcw) at
-   (B, 16384, 384) x 640 sample points, B = 1 and 8, f32 and bf16;
+   (B, 16384, 384) x 640 sample points, B = 1 and 8, f32 and bf16; K1b
+   also at bf16 C = 384 (any width, coordinate gradients repeating bit for
+   bit); the flat sampler (K2f) at stage 1's (B, 128, 128, 64) with
+   147,456 position-major samples per image, B = 1 and 16 in f32 and bf16
+   at spread 0 and 1.5 and B = 128 in bf16, with ``F.grid_sample`` timed
+   beside it, and its backward (K2b) at B = 128 in bf16 and B = 2 in f32,
+   spread 0 and 1.5, both also at C = 3, 12, 20 and at coordinates of
+   +-1e6 and +-3e9; and a bf16 DCN layer with a bias, rounded once;
 4. end to end in f32 (TF32 off): ``CenterNet`` predict on the card against
-   the same model on the CPU (the plain path);
+   the same model on the CPU (the plain path), stage by stage;
    b. the same for PointPillars predict from raw points at batch 1: heads,
       anchor mask, top-900 candidates, IoU matrix, kept lists;
    c. the same for two-stage CenterPoint ``predict_refined`` at batch 1:
       PFN rows, BEV map, every task's maps, top-1000 candidates per task,
       IoU matrix, kept lists, refined boxes and scores;
+   d. the same as 4 for CenterNet with DCN in all four backbone stages;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
-   parameter's gradient, the post-step parameters and BN statistics;
+   parameter's gradient, the post-step parameters and BN statistics; and
+   against the same step in f64 compute on the CPU (the referee), part by
+   part;
    b. ``bilinear_sample_2d`` differentiated with respect to the map and
       the coordinates at the second stage's shape, card against CPU (K3f,
       K3dx and K3dcw launch once each);
@@ -45,6 +55,8 @@ Phases (any failure raises and exits non-zero):
       CPU, with the same step in f64 compute on the CPU as referee: the
       second stage on the same proposals, then the whole step's loss,
       parts, grad_norm, gradients and BN statistics;
+   d. one f32 train step of CenterNet with DCN in all four backbone stages
+      (batch 2), the card held to the f64 referee, the f32 CPU reported;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -64,14 +76,19 @@ Phases (any failure raises and exits non-zero):
       params, bf16 compute, batch 8, 120,000 points and up to 63 boxes per
       cloud) takes 2 warm-up and 10 timed steps on one batch; the loss must
       stay finite and fall; K5f, K5b, K3f, K3dx and K4 launch once per step
-      each, K3dcw and the sampler kernels never.
+      each, K3dcw and the sampler kernels never;
+   f. serving CenterNet with DCN in all four backbone stages
+      (``centernet_dcn4_entry``) as in a: K2f launches twice and K1f nine
+      times per forward;
+   g. training it (``centernet_dcn4_train_entry``) as in b: K2f and K2b
+      launch twice, K1f and K1b nine times per step.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
 reaches yet, has 0 there and phase 5b's count under its own key); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
-``--profile`` also breaks the serving requests (all three models) and 3
+``--profile`` also breaks the serving requests (every served model) and 3
 train steps of each trained model down with ``torch.profiler``; ``--probe``
 also compares the f32 CenterPoint train-mode forward layer by layer, on the
 card and on the CPU, with the CPU's in f64.
@@ -262,6 +279,7 @@ def check_taps_kernel(dev, gen):
 BWD_TOL = {"dys": (1e-4, 1e-5), "dxs": (1e-4, 1e-5), "dscale": (1e-4, 1e-5),
            "dx_float32": (1e-5, 1e-5), "dx_bfloat16": (1e-5, 2 ** -8)}
 BWD_SPREADS = (0.0, 1.5, 80.0)
+ODD_TAPS_SHAPE = (32, 384)  # (H = W, C) of K1b's any-width case
 
 
 def check_taps_bwd_kernel(dev, gen):
@@ -277,8 +295,13 @@ def check_taps_bwd_kernel(dev, gen):
     grid = [(BATCH, spread, dtype) for spread in BWD_SPREADS
             for dtype in (torch.float32, torch.bfloat16)]
     grid += [(TRAIN_BATCH, spread, torch.bfloat16) for spread in (0.0, 1.5)]
+    # and a width no shipped model has but the reference's taps path trains
+    # (C % 128 == 0): 48 bf16 vectors per sample, not a power of two
+    shapes = [(h, c, grid) for h, c in DCN_SHAPES] + [
+        (ODD_TAPS_SHAPE[0], ODD_TAPS_SHAPE[1],
+         [(BATCH, 1.5, torch.bfloat16)])]
     cases = []
-    for h, c in DCN_SHAPES:
+    for h, c, grid in shapes:
         for b, spread, dtype in grid:
             x = torch.randn(b, h, h, c, generator=dgen, device=dev).to(dtype)
             g = torch.randn(b, h * h, TAPS * c, generator=dgen,
@@ -286,11 +309,15 @@ def check_taps_bwd_kernel(dev, gen):
             ys, xs, sc = (t.to(dev) for t in
                           _dcn_coords(b, h, h, TAPS, spread, gen))
             got = hs.hat_sample_2d_taps_bwd(g, x, ys, xs, sc)
+            again = hs.hat_sample_2d_taps_bwd(g, x, ys, xs, sc)
             torch.cuda.synchronize()
+            repeat = all(torch.equal(a, a2)
+                         for a, a2 in zip(got[1:], again[1:]))
+            del again
             ref = hs.hat_sample_2d_taps_bwd_plain(g.float(), x.float(),
                                                   ys, xs, sc)
             errs = {}
-            bad = []
+            bad = [] if repeat else ["dys/dxs/dscale differ between runs"]
             for name, a, r in zip(("dx", "dys", "dxs", "dscale"), got,
                                   ref):
                 key = f"dx_{str(dtype)[6:]}" if name == "dx" else name
@@ -315,8 +342,8 @@ def check_taps_bwd_kernel(dev, gen):
                         dtype=str(dtype).replace("torch.", ""),
                         max_abs_err=max(errs[n] for n in
                                         ("dx", "dys", "dxs", "dscale")),
-                        errors=errs, tolerance=BWD_TOL, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        errors=errs, tolerance=BWD_TOL, repeat=repeat,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by)
             cases.append(case)
             print(f"  taps bwd x{case['shape']} spread={spread:4.1f} "
@@ -332,6 +359,239 @@ def check_taps_bwd_kernel(dev, gen):
                     f"hat_sample_taps_bwd disagrees with its plain "
                     f"version: {', '.join(bad)}: {case}")
     return cases
+
+
+# The flat sampler's path: stage 1 of ResNet-18 with DCN in all four stages
+# at 512x512, a stride-1 3x3 DCN over the (B, 128, 128, 64) map, two layers
+# per forward; its samples are position-major, (B, 128 * 128 * 9).
+FLAT_SHAPE = (128, 64)  # (H = W, C)
+FLAT_LAYERS = 2
+FLAT_ODD = (32, (3, 12, 20))  # (H = W, widths) of the any-width cases
+FAR = (1e6, -1e6, 3e9, -3e9)  # the reference pads with -1e6
+
+
+def _flat_coords(b, h, w, spread, gen):
+    """Position-major (B, P*K) coordinates and mask of a stride-1 3x3 DCN
+    at (h, w), as ``ops/dcn.py``'s flat branch lays them out."""
+    flat = lambda t: t.transpose(1, 2).reshape(b, -1).contiguous()
+    return tuple(flat(t) for t in _dcn_coords(b, h, w, TAPS, spread, gen))
+
+
+def _put_far(ys, xs):
+    """The first len(FAR) samples of every image moved to FAR: in y for
+    image 0, in x for the others. Returns the index of the moved ones."""
+    far = torch.tensor(FAR, device=ys.device)
+    ys[0, :len(FAR)] = far
+    xs[1:, :len(FAR)] = far
+    return slice(0, len(FAR))
+
+
+def _flat_grid(main):
+    """(B, H, C, spread, dtype, far) of the phase 3 cases: ``main`` at
+    stage 1's shape, then the odd widths and far-away coordinates."""
+    h, widths = FLAT_ODD
+    odd = [(2, h, c, 1.5, dtype, False) for c in widths
+           for dtype in (torch.float32, torch.bfloat16)]
+    far = [(2, h, FLAT_SHAPE[1], 1.5, dtype, True)
+           for dtype in (torch.float32, torch.bfloat16)]
+    return main + odd + far
+
+
+def check_flat_kernel(dev, gen):
+    """Phase 3: hat_sample_flat_fwd (K2f) against its plain version: at
+    stage 1's (B, 128, 128, 64) with 147,456 samples per image, B = 1 and
+    16 (serving) in f32 and bf16 at spread 0 and 1.5, and B = 128 (the
+    train step's forward) in bf16 at spread 1.5; C = 3, 12 and 20 on a
+    32x32 map; samples at +-1e6 and +-3e9, which must give exactly 0.
+    ``F.grid_sample`` (zero padding, ``align_corners=True``) on the same
+    points without the scale is timed beside the stage-1 cases, for
+    information: the modulation would be a second call."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.ops import hat_sample as hs
+
+    dgen = torch.Generator(device=dev).manual_seed(2)
+    h0, c0 = FLAT_SHAPE
+    main = [(b, h0, c0, spread, dtype, False) for b in (1, BATCH)
+            for spread in (0.0, 1.5)
+            for dtype in (torch.float32, torch.bfloat16)]
+    main += [(TRAIN_BATCH, h0, c0, 1.5, torch.bfloat16, False)]
+    cases = []
+    for b, h, c, spread, dtype, far in _flat_grid(main):
+        x = torch.randn(b, h, h, c, generator=dgen, device=dev).to(dtype)
+        ys, xs, sc = (t.to(dev) for t in _flat_coords(b, h, h, spread, gen))
+        moved = _put_far(ys, xs) if far else None
+        got = hs.hat_sample_2d(x, ys, xs, sc)
+        torch.cuda.synchronize()
+        ref = hs.hat_sample_2d_plain(x.float(), ys, xs, sc)
+        err = (got.float() - ref).abs()
+        max_abs = float(err.max())
+        max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
+        if dtype == torch.float32:
+            tol = "f32: abs <= 1e-5"
+            ok = max_abs <= 1e-5
+        else:  # within one bf16 ulp of the plain f32 result
+            tol = "bf16: abs <= 1e-2 + 2**-7 * |plain f32|"
+            ok = bool((err <= 1e-2 + 2 ** -7 * ref.abs()).all())
+        if far:
+            ok = ok and bool((got[:, moved] == 0).all())
+        del got, ref, err
+        name = str(dtype).replace("torch.", "")
+        case = dict(shape=[b, h, h, c], samples=ys.shape[1], spread=spread,
+                    dtype=name, far=far, max_abs_err=max_abs,
+                    max_rel_err=max_rel, tolerance=tol)
+        case["ms"] = _cuda_ms(lambda: hs.hat_sample_2d(x, ys, xs, sc),
+                              iters=5 if b == TRAIN_BATCH else 20)
+        case["plain_ms"] = _cuda_ms(
+            lambda: hs.hat_sample_2d_plain(x, ys, xs, sc), iters=3,
+            warmup=1)
+        case["bound_ms"], case["bound_by"] = _taps_bound(
+            x, ys[:, None], xs[:, None])
+        if h == h0 and not far:
+            grid = torch.stack([xs / (h - 1) * 2 - 1, ys / (h - 1) * 2 - 1],
+                               -1)[:, None].to(dtype)
+            xn = x.permute(0, 3, 1, 2)
+            case["grid_sample_ms"] = _cuda_ms(
+                lambda: F.grid_sample(xn, grid, padding_mode="zeros",
+                                      align_corners=True),
+                iters=5 if b == TRAIN_BATCH else 20)
+            del grid
+        cases.append(case)
+        print(f"  flat x{case['shape']} N={case['samples']} spread="
+              f"{spread:3.1f} {name:8s}{' far' if far else ''} "
+              f"max_abs={max_abs:.3e} kernel={case['ms'] * 1e3:8.1f}us "
+              f"plain={case['plain_ms'] * 1e3:9.1f}us "
+              f"bound={case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']})"
+              + (f" grid_sample={case['grid_sample_ms'] * 1e3:.1f}us"
+                 if "grid_sample_ms" in case else ""), flush=True)
+        if not ok:
+            raise AssertionError(f"hat_sample_flat_fwd disagrees with its "
+                                 f"plain version ({tol}): {case}")
+        del x, ys, xs, sc
+    return cases
+
+
+# K2b vs plain: dys, dxs, dscale as K1b's (BWD_TOL, against |plain|); dx as
+# K3dx's, against the same sum over absolute values, sum |scale w g|: the
+# f32 atomics add up to ~36 samples' terms per texel in any order, and in
+# bf16 that sum is rounded once
+FLAT_BWD_TOL = {"dys": BWD_TOL["dys"], "dxs": BWD_TOL["dxs"],
+                "dscale": BWD_TOL["dscale"], "dx_float32": (1e-6, 1e-5),
+                "dx_bfloat16": (1e-6, 2 ** -8)}
+
+
+def check_flat_bwd_kernel(dev, gen):
+    """Phase 3: hat_sample_flat_bwd (K2b) against its plain version: at
+    stage 1's (B, 128, 128, 64), B = 128 in bf16 (the train step's) and B =
+    2 in f32, at spread 0 (zero offsets: dys and dxs are forward
+    differences and must not vanish) and 1.5; C = 3, 12 and 20 on a 32x32
+    map; samples at +-1e6 and +-3e9 (no gradient). dys, dxs and dscale
+    must repeat bit for bit from one call to the next."""
+    from minddet_tpu_torch.ops import hat_sample as hs
+
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    h0, c0 = FLAT_SHAPE
+    main = [(TRAIN_BATCH, h0, c0, spread, torch.bfloat16, False)
+            for spread in (0.0, 1.5)]
+    main += [(CHECK_BATCH, h0, c0, spread, torch.float32, False)
+             for spread in (0.0, 1.5)]
+    cases = []
+    for b, h, c, spread, dtype, far in _flat_grid(main):
+        name = str(dtype).replace("torch.", "")
+        x = torch.randn(b, h, h, c, generator=dgen, device=dev).to(dtype)
+        ys, xs, sc = (t.to(dev) for t in _flat_coords(b, h, h, spread, gen))
+        moved = _put_far(ys, xs) if far else None
+        g = torch.randn(b, ys.shape[1], c, generator=dgen,
+                        device=dev).to(dtype)
+        got = hs.hat_sample_2d_bwd(g, x, ys, xs, sc)
+        again = hs.hat_sample_2d_bwd(g, x, ys, xs, sc)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, a2) for a, a2 in zip(got[1:], again[1:]))
+        del again
+        bad = [] if repeat else ["dys/dxs/dscale differ between runs"]
+        ref = hs.hat_sample_2d_bwd_plain(g.float(), x.float(), ys, xs, sc)
+        errs = {}
+        for key, a, r in zip(("dx", "dys", "dxs", "dscale"), got, ref):
+            err = (a.float() - r).abs()
+            errs[key] = float(err.max())
+            errs[f"{key}_max_abs"] = float(r.abs().max())
+            if key == "dx":
+                atol, rtol = FLAT_BWD_TOL[f"dx_{name}"]
+                size = hs.hat_sample_2d_bwd_plain(g.float().abs(), x.float(),
+                                                  ys, xs, sc.abs())[0]
+                ok = a.dtype == dtype and bool(
+                    (err <= atol + rtol * size).all())
+                del size
+            else:
+                atol, rtol = FLAT_BWD_TOL[key]
+                ok = bool((err <= atol + rtol * r.abs()).all())
+                if far:
+                    ok = ok and bool((a[:, moved] == 0).all())
+            if not ok:
+                bad.append(f"{key} (atol {atol}, rtol {rtol})")
+            del err
+        if spread == 0.0 and min(errs["dys_max_abs"],
+                                 errs["dxs_max_abs"]) == 0.0:
+            bad.append("dys/dxs vanish at integer coordinates")
+        del got, ref
+        case = dict(shape=[b, h, h, c], samples=ys.shape[1], spread=spread,
+                    dtype=name, far=far,
+                    max_abs_err=max(errs[k] for k in
+                                    ("dx", "dys", "dxs", "dscale")),
+                    errors=errs, tolerance=FLAT_BWD_TOL, repeat=repeat)
+        case["ms"] = _cuda_ms(lambda: hs.hat_sample_2d_bwd(g, x, ys, xs, sc),
+                              iters=5 if b == TRAIN_BATCH else 20)
+        case["plain_ms"] = _cuda_ms(
+            lambda: hs.hat_sample_2d_bwd_plain(g, x, ys, xs, sc), iters=3,
+            warmup=1)
+        case["bound_ms"], case["bound_by"] = _taps_bwd_bound(
+            x, ys[:, None], xs[:, None])
+        cases.append(case)
+        print(f"  flat bwd x{case['shape']} spread={spread:3.1f} {name:8s}"
+              f"{' far' if far else ''} err dx={errs['dx']:.2e} "
+              f"dys={errs['dys']:.2e} dxs={errs['dxs']:.2e} "
+              f"dsc={errs['dscale']:.2e} (|dys|max {errs['dys_max_abs']:.1f})"
+              f" repeat={repeat} kernel={case['ms'] * 1e3:8.1f}us "
+              f"plain={case['plain_ms'] * 1e3:9.1f}us "
+              f"bound={case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']})",
+              flush=True)
+        if bad:
+            raise AssertionError(f"hat_sample_flat_bwd disagrees with its "
+                                 f"plain version: {', '.join(bad)}: {case}")
+        del x, ys, xs, sc, g
+    return cases
+
+
+def check_dcn_bias_rounding(dev):
+    """Phase 3: a bf16 DCN layer with a bias on the card (stage 1's shape,
+    zero offsets, no mask: K2f, then the contraction) against the same
+    layer as an f64 conv plus bias rounded once to bf16. The bias is added
+    to the f32 accumulator and the sum rounded once, so outputs one rounding
+    apart are as rare as f32 summation order makes them (< 2e-3); adding it
+    after the bf16 matmul (two roundings) puts ~1 in 5 off."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.ops.dcn import deform_conv2d
+
+    g = torch.Generator().manual_seed(7)
+    h, c = FLAT_SHAPE
+    x = torch.randn(1, h, h, c, generator=g).bfloat16()
+    w = (torch.randn(3, 3, c, c, generator=g) / 24).bfloat16()
+    bias = (3 * torch.randn(c, generator=g)).bfloat16()
+    offs = torch.zeros(1, h, h, 9, 2)
+    got = deform_conv2d(x.to(dev), offs.to(dev), None, w.to(dev),
+                        bias.to(dev)).cpu()
+    ref = (F.conv2d(x.double().permute(0, 3, 1, 2),
+                    w.double().permute(3, 2, 0, 1), bias.double(), padding=1)
+           .permute(0, 2, 3, 1).bfloat16())
+    off = float((got != ref).float().mean())
+    worst = float((got.double() - ref.double()).abs().max())
+    print(f"  DCN bf16 with bias vs f64 rounded once: {off:.2e} of the "
+          f"outputs one rounding off (max {worst:.3e})", flush=True)
+    if off >= 2e-3:
+        raise AssertionError(f"DCN bias rounding: {off} of the outputs "
+                             f"differ from the f64 sum rounded once")
+    return dict(share_off=off, max_abs_err=worst)
 
 
 # K4: f32 arithmetic and compare operations per pair, counted from
@@ -994,8 +1254,29 @@ def randomize_for_check(model, gen):
     return model
 
 
-def check_end_to_end_f32(dev, gen):
-    """Phase 4: f32 predict on the card vs the same model on the CPU."""
+def _stage_outputs(model):
+    """Forward hooks keeping the backbone's four outputs and the neck's in
+    ``model.kept`` (a dict); returns the handles."""
+    model.kept = {}
+
+    def keep_backbone(module, args, out):
+        for i, o in enumerate(out):
+            model.kept[f"C{i + 2}"] = o.detach().float().cpu()
+
+    def keep_neck(module, args, out):
+        model.kept["neck"] = out.detach().float().cpu()
+
+    return [model.backbone.register_forward_hook(keep_backbone),
+            model.neck.register_forward_hook(keep_neck)]
+
+
+STAGE_RTOL = 1e-3  # phase 4's intermediate outputs, see check_end_to_end_f32
+
+
+def check_end_to_end_f32(dev, gen, dcn4: bool = False):
+    """Phase 4 (4d with ``dcn4``: DCN in all four backbone stages): f32
+    predict on the card vs the same model on the CPU, stage by stage (the
+    backbone's four outputs, the neck's, the heads) and the detections."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.entry import RES, build_model
 
@@ -1003,33 +1284,48 @@ def check_end_to_end_f32(dev, gen):
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cpu = randomize_for_check(build_model("cpu", dtype=torch.float32), gen)
-    gpu = build_model(dev, dtype=torch.float32)
+    cpu = randomize_for_check(
+        build_model("cpu", dtype=torch.float32, dcn4=dcn4), gen)
+    gpu = build_model(dev, dtype=torch.float32, dcn4=dcn4)
     gpu.load_state_dict(cpu.state_dict())
     image = torch.randn(1, RES, RES, 3, generator=gen)
 
+    hooks = _stage_outputs(gpu) + _stage_outputs(cpu)
     kernels.reset_launches()
     with torch.inference_mode():
         heads_gpu = gpu(image.to(dev))
+        stages_gpu = dict(gpu.kept)
         det_gpu = gpu.predict(image.to(dev))
     torch.cuda.synchronize()
-    launches = kernels.HAT_SAMPLE_TAPS_FWD.launches
-    if launches != 2 * DCN_LAYERS:
-        raise AssertionError(f"f32 forward launched the taps kernel "
-                             f"{launches} times for 2 forwards")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = _sampler_launches(2, dcn4, train=False)
+    if launches != want:
+        raise AssertionError(f"f32 forward launched {launches} for 2 "
+                             f"forwards (want {want})")
     with torch.inference_mode():
         heads_cpu = cpu(image)
+        stages_cpu = dict(cpu.kept)
         det_cpu = cpu.predict(image)
+    for hook in hooks:
+        hook.remove()
 
     result = {}
-    for name, ref in heads_cpu.items():
-        got = heads_gpu[name].cpu()
+    # the backbone's and the neck's outputs (BN and ReLU over O(1) values
+    # up to ~10) within STAGE_RTOL of each tensor's largest value; the heads
+    # element by element
+    for name, ref in list(stages_cpu.items()) + list(heads_cpu.items()):
+        stage = name in stages_gpu
+        got = stages_gpu[name] if stage else heads_gpu[name].cpu()
         err = float((got - ref).abs().max())
         result[f"{name}_max_abs_err"] = err
         result[f"{name}_max_abs"] = float(ref.abs().max())
-        if not torch.allclose(got, ref, rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"f32 head {name}: card vs CPU max abs "
-                                 f"err {err} (atol 1e-4, rtol 1e-3)")
+        if stage and err > STAGE_RTOL * result[f"{name}_max_abs"]:
+            raise AssertionError(f"f32 {name}: card vs CPU max abs err "
+                                 f"{err}, over {STAGE_RTOL} of the largest "
+                                 f"value {result[f'{name}_max_abs']}")
+        if not stage and not torch.allclose(got, ref, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"f32 {name}: card vs CPU max abs err "
+                                 f"{err} (atol 1e-4, rtol 1e-3)")
     s_gpu = det_gpu[..., 4].cpu()
     s_cpu = det_cpu[..., 4]
     score_err = float((s_gpu - s_cpu).abs().max())
@@ -1040,8 +1336,10 @@ def check_end_to_end_f32(dev, gen):
                              f"{tuple(det_gpu.shape)}")
     result["class_agreement"] = float(
         (det_gpu[..., 5].cpu() == det_cpu[..., 5]).float().mean())
+    result["launches"] = launches
     print("  f32 card vs CPU: " + " ".join(
-        f"{k}={v:.3e}" for k, v in result.items()), flush=True)
+        f"{k}={v:.3e}" for k, v in result.items() if isinstance(v, float)),
+        flush=True)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
         tf32
     return result
@@ -1580,13 +1878,19 @@ def _centerpoint_launches(n: int, launched=CP_SERVE_KERNELS):
     return {k.name: n if k.name in launched else 0 for k in kernels.KERNELS}
 
 
-def _sampler_launches(n: int):
-    """Launch counts of a CenterNet path: n of each sampler kernel, no
-    other kernel."""
+def _sampler_launches(n: int, dcn4: bool = False, train: bool = True):
+    """Launch counts of n forwards (with ``train``, n train steps) of a
+    CenterNet path: 9 of the taps sampler's kernels each and, with
+    ``dcn4`` (DCN in all four backbone stages), 2 of the flat sampler's;
+    no other kernel."""
     from minddet_tpu_torch import kernels
 
-    return {k.name: n if k.name.startswith("hat_sample") else 0
-            for k in kernels.KERNELS}
+    per = {"hat_sample_taps_fwd": DCN_LAYERS, "hat_sample_taps_bwd":
+           DCN_LAYERS * train}
+    if dcn4:
+        per.update(hat_sample_flat_fwd=FLAT_LAYERS,
+                   hat_sample_flat_bwd=FLAT_LAYERS * train)
+    return {k.name: n * per.get(k.name, 0) for k in kernels.KERNELS}
 
 
 def _train_snapshot(state, metrics):
@@ -1610,13 +1914,65 @@ def _grad_rel_l2(a, b):
             if not (n.startswith("neck.") and n.endswith("up.bias"))}
 
 
-def check_train_step_f32(dev, gen):
-    """Phase 5: one f32 train step on the card against the same step on
-    the CPU (the plain path), 512x512 at batch CHECK_BATCH, from the same
-    weights (``randomize_for_check``) and batch."""
+# The same steps held to a referee, as phase 5c does for CenterPoint: the
+# step once more on the CPU in f64 compute (f64 parameters, the f32 values
+# widened), from the same weights and batch. Parts are compared as one
+# vector each (the neck's transposed-conv biases left out); the bounds are
+# kink-sized, as CP_TRAIN_TOL's referee_* ones.
+REFEREE_TOL = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3, grad_rel_l2=3e-2,
+                   stat_atol=1e-4, stat_rtol=1e-4,
+                   param_atol=2 * 5e-4 * 1.01, param_moved_share=1e-2,
+                   param_moved_atol=1e-6)
+CENTERNET_PARTS = {
+    "stage1": ("backbone.conv1.", "backbone.bn1.", "backbone.layer1_"),
+    "stages2_4": ("backbone.layer2_", "backbone.layer3_", "backbone.layer4_"),
+    "neck": ("neck.",), "head": ("head.",)}
+CHECK_RES_DCN4 = 512  # phase 5d's image side
+
+
+def _centernet_part_rel_l2(grads, ref, prefixes) -> float:
+    names = [n for n in ref if n.startswith(prefixes)
+             and not (n.startswith("neck.") and n.endswith("up.bias"))]
+    return _rel_l2(torch.cat([grads[n].double().reshape(-1) for n in names]),
+                   torch.cat([ref[n].double().reshape(-1) for n in names]))
+
+
+def _state_checks(g, r, t, label, bad, result):
+    """Post-step parameters and BN statistics of snapshot ``g`` against
+    ``r``: at most ``param_moved_share`` of the elements more than
+    ``param_moved_atol`` apart and none more than ``param_atol``; every
+    statistic within ``stat_atol + stat_rtol * |r|``."""
+    diffs = {n: (g["params"][n] - v).abs() for n, v in r["params"].items()}
+    result[f"{label}param_max_abs_err"] = max(
+        float(d.max()) for d in diffs.values())
+    moved = sum(int((d > t["param_moved_atol"]).sum())
+                for d in diffs.values())
+    total = sum(d.numel() for d in diffs.values())
+    result[f"{label}param_moved_share"] = moved / total
+    if (result[f"{label}param_max_abs_err"] > t["param_atol"]
+            or moved / total > t["param_moved_share"]):
+        bad.append(f"{label}post-step params")
+    stat_err = 0.0
+    for n, v in r["stats"].items():
+        e = (g["stats"][n] - v).abs()
+        stat_err = max(stat_err, float(e.max()))
+        if not bool((e <= t["stat_atol"] + t["stat_rtol"] * v.abs()).all()):
+            bad.append(f"{label}BN statistic {n}")
+    result[f"{label}stat_max_abs_err"] = stat_err
+
+
+def check_train_step_f32(dev, gen, dcn4: bool = False, res: int = 512):
+    """Phase 5 (5d with ``dcn4``: DCN in all four backbone stages): one f32
+    train step on the card against the same step on the CPU (the plain
+    path), at res x res and batch CHECK_BATCH, from the same weights
+    (``randomize_for_check``) and batch, with the same step in f64 compute
+    on the CPU as referee. Phase 5 holds the card to the f32 CPU
+    (TRAIN_TOL) and to the referee (REFEREE_TOL); 5d to the referee, and
+    reports the f32 CPU. Both report each f32 run's distance from the
+    referee part by part (stem and stage 1, stages 2-4, neck, head)."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.core.optim import adamw
-    from minddet_tpu_torch.entry import (NUM_CLASSES, RES, centernet_loss,
+    from minddet_tpu_torch.entry import (NUM_CLASSES, centernet_loss,
                                          build_model, synthetic_boxes)
     from minddet_tpu_torch.ops.targets import centernet_targets_batch
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
@@ -1625,23 +1981,27 @@ def check_train_step_f32(dev, gen):
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cpu = randomize_for_check(build_model("cpu", dtype=torch.float32), gen)
-    gpu = build_model(dev, dtype=torch.float32)
-    gpu.load_state_dict(cpu.state_dict())
-    probe = build_model(dev, dtype=torch.float32)
-    probe.load_state_dict(cpu.state_dict())
-    boxes = synthetic_boxes(CHECK_BATCH)
-    image = torch.randn(CHECK_BATCH, RES, RES, 3, generator=gen)
+    cpu = randomize_for_check(
+        build_model("cpu", dtype=torch.float32, dcn4=dcn4), gen)
+    models = {"gpu": build_model(dev, dtype=torch.float32, dcn4=dcn4),
+              "cpu": cpu,
+              "referee": build_model("cpu", dtype=torch.float64, dcn4=dcn4),
+              "probe": build_model(dev, dtype=torch.float32, dcn4=dcn4)}
+    for name in ("gpu", "referee", "probe"):
+        models[name].load_state_dict(cpu.state_dict())
+    boxes = synthetic_boxes(CHECK_BATCH, res=res)
+    image = torch.randn(CHECK_BATCH, res, res, 3, generator=gen)
     step = make_train_step(centernet_loss)
-    snaps = {}
+    snaps, seconds = {}, {}
     # "probe" is the card's step on the image scaled by 1 + 1e-6: how far
     # f32 rounding-sized changes of the input move the gradients here
-    for name, model, img in (("gpu", gpu, image), ("cpu", cpu, image),
-                             ("probe", probe, image * (1 + 1e-6))):
+    for name in ("gpu", "cpu", "referee", "probe"):
+        model = models[name]
+        img = image * (1 + 1e-6) if name == "probe" else image
         d = next(model.parameters()).device
         b = {k: torch.from_numpy(v).to(d) for k, v in boxes.items()}
         targets = centernet_targets_batch(b["boxes"], b["classes"],
-                                          b["mask"], RES // 4, RES // 4,
+                                          b["mask"], res // 4, res // 4,
                                           NUM_CLASSES, 0.7)
         state = TrainState.create(model, adamw(5e-4, clip_global_norm=35.0))
         kernels.reset_launches()
@@ -1649,30 +2009,55 @@ def check_train_step_f32(dev, gen):
         state, metrics = step(state, {"image": img.to(d),
                                       "targets": targets})
         snaps[name] = _train_snapshot(state, metrics)
-        print(f"  {name} step {time.perf_counter() - t0:.1f} s, "
-              f"loss {snaps[name]['metrics']['loss']:.6f}", flush=True)
-        if name != "cpu":
+        seconds[name] = time.perf_counter() - t0
+        print(f"  {name} step {seconds[name]:.1f} s, loss "
+              f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
+        if d.type == "cuda":
             launches = {k.name: k.launches for k in kernels.KERNELS}
-            if launches != _sampler_launches(DCN_LAYERS):
+            if launches != _sampler_launches(1, dcn4):
                 raise AssertionError(f"f32 train step launched {launches} "
-                                     "(want 9 of each sampler kernel)")
+                                     f"(want {_sampler_launches(1, dcn4)})")
+        del state
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
         tf32
 
-    g, c = snaps["gpu"], snaps["cpu"]
-    t = TRAIN_TOL
-    result = {"tolerance": t}
+    g, c, r = snaps["gpu"], snaps["cpu"], snaps["referee"]
+    result = {"res": res, "seconds": seconds, "tolerance": TRAIN_TOL,
+              "referee_tolerance": REFEREE_TOL}
     bad = []
+    rt = REFEREE_TOL
+    for k in ("loss", "hm_loss", "wh_loss", "off_loss"):
+        for name, snap in (("card", g), ("cpu", c)):
+            result[f"{k}_{name}_vs_referee"] = abs(
+                snap["metrics"][k] - r["metrics"][k]) / abs(r["metrics"][k])
+        if result[f"{k}_card_vs_referee"] > rt["loss_rtol"]:
+            bad.append(f"{k} against the referee")
+    for name, snap in (("card", g), ("cpu", c)):
+        result[f"grad_norm_{name}_vs_referee"] = abs(
+            snap["metrics"]["grad_norm"] - r["metrics"]["grad_norm"]) / \
+            r["metrics"]["grad_norm"]
+    if result["grad_norm_card_vs_referee"] > rt["grad_norm_rtol"]:
+        bad.append("grad_norm against the referee")
+    for part, prefixes in CENTERNET_PARTS.items():
+        for name, snap in (("card", g), ("cpu", c), ("probe",
+                                                     snaps["probe"])):
+            result[f"grad_{part}_{name}_vs_referee"] = \
+                _centernet_part_rel_l2(snap["grads"], r["grads"], prefixes)
+        if result[f"grad_{part}_card_vs_referee"] > rt["grad_rel_l2"]:
+            bad.append(f"gradient of {part} against the referee")
+    _state_checks(g, r, rt, "referee_", bad, result)
+
+    t = TRAIN_TOL
     for k in ("loss", "hm_loss", "wh_loss", "off_loss"):
         err = abs(g["metrics"][k] - c["metrics"][k]) / abs(c["metrics"][k])
         result[f"{k}_rel_err"] = err
-        if err > t["loss_rtol"]:
+        if err > t["loss_rtol"] and not dcn4:
             bad.append(k)
     err = abs(g["metrics"]["grad_norm"] - c["metrics"]["grad_norm"]) / \
         c["metrics"]["grad_norm"]
     result["grad_norm"] = c["metrics"]["grad_norm"]
     result["grad_norm_rel_err"] = err
-    if err > t["grad_norm_rtol"]:
+    if err > t["grad_norm_rtol"] and not dcn4:
         bad.append("grad_norm")
     rel = _grad_rel_l2(g, c)
     worst = max(rel, key=rel.get)
@@ -1686,29 +2071,15 @@ def check_train_step_f32(dev, gen):
         result[f"probe_grad_rel_l2_{part}_median"] = statistics.median(
             v for n, v in probe_rel.items() if n.startswith(part + "."))
     result["probe_grad_rel_l2_max"] = max(probe_rel.values())
-    if rel[worst] > t["grad_rel_l2"]:
+    if rel[worst] > t["grad_rel_l2"] and not dcn4:
         bad.append(f"gradient of {worst}")
-    diffs = {n: (g["params"][n] - v).abs() for n, v in c["params"].items()}
-    result["param_max_abs_err"] = max(float(d.max()) for d in diffs.values())
-    moved = sum(int((d > t["param_moved_atol"]).sum()) for d in diffs.values())
-    total = sum(d.numel() for d in diffs.values())
-    result["param_moved_share"] = moved / total
-    if (result["param_max_abs_err"] > t["param_atol"]
-            or moved / total > t["param_moved_share"]):
-        bad.append("post-step params")
-    stat_err = 0.0
-    for n, v in c["stats"].items():
-        e = (g["stats"][n] - v).abs()
-        stat_err = max(stat_err, float(e.max()))
-        if not bool((e <= t["stat_atol"] + t["stat_rtol"] * v.abs()).all()):
-            bad.append(f"BN statistic {n}")
-    result["stat_max_abs_err"] = stat_err
-    print("  f32 train step card vs CPU: " + " ".join(
+    _state_checks(g, c, t, "", bad if not dcn4 else [], result)
+    print("  f32 train step card vs CPU and vs the f64 referee: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in result.items() if k != "tolerance"), flush=True)
+        for k, v in result.items() if "tolerance" not in k), flush=True)
     if bad:
-        raise AssertionError(f"f32 train step, card vs CPU: {bad} outside "
-                             f"{t}: {result}")
+        raise AssertionError(f"f32 train step: {bad} outside {t} / {rt}: "
+                             f"{result}")
     return result
 
 
@@ -2149,15 +2520,17 @@ def probe_train_forward(dev):
     return dict(threads=threads, layers=rows)
 
 
-def train_main_path(dev):
-    """Phase 6b, the training main path: ``train_entry`` at TRAIN_BATCH,
+def train_main_path(dev, dcn4: bool = False):
+    """Phase 6b (6g with ``dcn4``), a CenterNet training main path:
+    ``train_entry`` (``centernet_dcn4_train_entry``) at TRAIN_BATCH,
     TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch counts from 0."""
     from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import train_entry
+    from minddet_tpu_torch.entry import centernet_dcn4_train_entry, train_entry
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    step_fn, (state, batch) = train_entry(device=dev, batch=TRAIN_BATCH)
+    make = centernet_dcn4_train_entry if dcn4 else train_entry
+    step_fn, (state, batch) = make(device=dev, batch=TRAIN_BATCH)
     kernels.reset_launches()
     losses, times = [], []
     for i in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -2184,11 +2557,12 @@ def train_main_path(dev):
     print("  losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train loss not finite and falling: {losses}")
-    if launches != _sampler_launches(DCN_LAYERS * steps):
-        raise AssertionError(f"{launches} in {steps} train steps (want 9 "
-                             f"of each sampler kernel per step)")
-    print(f"  kernels: {launches} for {steps} steps == 9 x steps: True",
-          flush=True)
+    want = _sampler_launches(steps, dcn4)
+    if launches != want:
+        raise AssertionError(f"{launches} in {steps} train steps (want "
+                             f"{want})")
+    print(f"  kernels: {launches} for {steps} steps == "
+          f"{_sampler_launches(1, dcn4)} x steps: True", flush=True)
     return out, (step_fn, state, batch)
 
 
@@ -2248,8 +2622,8 @@ def centerpoint_train_main_path(dev):
 
 
 def serve(programs):
-    """Phase 6a, the serving main path: bf16 predict requests at batch 1
-    and 16."""
+    """Phases 6a and 6f, a CenterNet serving main path: bf16 predict
+    requests at batch 1 and 16."""
     out = {}
     forwards = 0
     for b, (predict, (image,)) in programs.items():
@@ -2440,8 +2814,9 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
         raise AssertionError(f"{kernel.name}: no phase 3 case at a main "
                              f"path's shape")
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
-    keys = ("shape", "against", "points", "dtype", "spread", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("shape", "against", "points", "samples", "dtype", "spread",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "grid_sample_ms")
     return dict(
         main_shapes=[{k: c[k] for k in keys if k in c} for c in main_cases],
         name=kernel.name, route="cuda",
@@ -2497,6 +2872,10 @@ def main(argv=None) -> int:
     print("phase 3: kernels vs plain versions", flush=True)
     cases = check_taps_kernel(dev, gen)
     bwd_cases = check_taps_bwd_kernel(dev, gen)
+    flat_cases = check_flat_kernel(dev, gen)
+    flat_bwd_cases = check_flat_bwd_kernel(dev, gen)
+    bias_rounding = check_dcn_bias_rounding(dev)
+    torch.cuda.empty_cache()
     from minddet_tpu_torch.entry import build_centerpoint
 
     centerpoint = build_centerpoint(dev)
@@ -2515,8 +2894,12 @@ def main(argv=None) -> int:
     print("phase 4c: end to end, f32 two-stage CenterPoint predict, card vs "
           "CPU", flush=True)
     cp_f32 = check_centerpoint_f32(dev, centerpoint)
+    print("phase 4d: end to end, f32 predict with DCN in all four backbone "
+          "stages, card vs CPU", flush=True)
+    e2e_dcn4 = check_end_to_end_f32(dev, gen, dcn4=True)
 
-    print("phase 5: end to end, f32 train step, card vs CPU", flush=True)
+    print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
+          "referee", flush=True)
     train_f32 = check_train_step_f32(dev, gen)
     print("phase 5b: bilinear_sample_2d gradients, card vs CPU", flush=True)
     sample_grads = check_sample_grads_f32(dev, gen, centerpoint)
@@ -2524,6 +2907,11 @@ def main(argv=None) -> int:
           "vs CPU", flush=True)
     cp_train_f32 = check_centerpoint_train_f32(dev, centerpoint)
     del centerpoint
+    print(f"phase 5d: end to end, f32 train step with DCN in all four "
+          f"backbone stages at {CHECK_RES_DCN4}x{CHECK_RES_DCN4}, card vs the "
+          f"f64 referee", flush=True)
+    train_f32_dcn4 = check_train_step_f32(dev, gen, dcn4=True,
+                                          res=CHECK_RES_DCN4)
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -2541,8 +2929,7 @@ def main(argv=None) -> int:
     serving, forwards = serve(programs)
     serve_launches = {k.name: k.launches for k in kernels.KERNELS}
     taps = serve_launches["hat_sample_taps_fwd"]
-    if serve_launches != {**_sampler_launches(0),
-                          "hat_sample_taps_fwd": DCN_LAYERS * forwards}:
+    if serve_launches != _sampler_launches(forwards, train=False):
         raise AssertionError(f"serving launched {serve_launches} for "
                              f"{forwards} forwards (want 9 forward kernels "
                              f"each and no backward)")
@@ -2562,6 +2949,41 @@ def main(argv=None) -> int:
         print("profile: bf16 train step", flush=True)
         profiled["train"] = profile_train(f"train batch {TRAIN_BATCH}",
                                           *train_program)
+    del train_program
+    torch.cuda.empty_cache()
+
+    print("phase 6f: main path, bf16 serving with DCN in all four backbone "
+          "stages", flush=True)
+    from minddet_tpu_torch.entry import centernet_dcn4_entry
+
+    programs = {b: centernet_dcn4_entry(device=dev, batch=b)
+                for b in SERVE_BATCHES}
+    for predict, _ in programs.values():
+        randomize_for_check(predict.__self__, gen)
+    kernels.reset_launches()
+    serving_dcn4, forwards_dcn4 = serve(programs)
+    serve_dcn4_launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = _sampler_launches(forwards_dcn4, dcn4=True, train=False)
+    if serve_dcn4_launches != want:
+        raise AssertionError(f"serving with DCN in four stages launched "
+                             f"{serve_dcn4_launches} for {forwards_dcn4} "
+                             f"forwards (want {want})")
+    print(f"  kernels: {serve_dcn4_launches} forwards={forwards_dcn4}: "
+          f"hat_sample_flat_fwd == 2 x forwards, hat_sample_taps_fwd == 9 x "
+          f"forwards: True", flush=True)
+    if args.profile:
+        print("profile: bf16 serving with DCN in four stages", flush=True)
+        profiled["serving_dcn4"] = profile_serving(programs)
+    del programs
+    torch.cuda.empty_cache()
+
+    print(f"phase 6g: main path, bf16 train step with DCN in all four "
+          f"backbone stages at batch {TRAIN_BATCH}", flush=True)
+    training_dcn4, train_program = train_main_path(dev, dcn4=True)
+    if args.profile:
+        print("profile: bf16 train step with DCN in four stages", flush=True)
+        profiled["train_dcn4"] = profile_train(
+            f"train (DCN in four stages) batch {TRAIN_BATCH}", *train_program)
     del train_program
     torch.cuda.empty_cache()
 
@@ -2639,12 +3061,25 @@ def main(argv=None) -> int:
         c for c in cs if c["dtype"] == "bfloat16"
         and c["shape"][0] == TRAIN_CP_BATCH and c.get("stream", "uniform")
         == "uniform"]
+    train_dcn4_launches = training_dcn4["launches"]
+    # K2f: one bf16 batch-16 forward's two calls and one train step's two
+    # at batch 128 (spread 1.5); K2b: one train step's two at batch 128
+    flat_fwd_main = [c for c in flat_cases
+                     if c["dtype"] == "bfloat16" and c["spread"] == 1.5
+                     and c["shape"][0] in (BATCH, TRAIN_BATCH)
+                     and c["shape"][1:] == [FLAT_SHAPE[0]] * 2
+                     + [FLAT_SHAPE[1]]]
+    flat_bwd_main = [c for c in flat_bwd_cases
+                     if c["shape"][0] == TRAIN_BATCH and c["spread"] == 1.5]
     rows = [
         _kernel_row(kernels.HAT_SAMPLE_TAPS_FWD,
-                    taps + train_launches["hat_sample_taps_fwd"], fwd_main,
+                    taps + train_launches["hat_sample_taps_fwd"]
+                    + serve_dcn4_launches["hat_sample_taps_fwd"]
+                    + train_dcn4_launches["hat_sample_taps_fwd"], fwd_main,
                     DCN_CALLS_PER_SHAPE, cases),
         _kernel_row(kernels.HAT_SAMPLE_TAPS_BWD,
-                    train_launches["hat_sample_taps_bwd"], bwd_main,
+                    train_launches["hat_sample_taps_bwd"]
+                    + train_dcn4_launches["hat_sample_taps_bwd"], bwd_main,
                     DCN_CALLS_PER_SHAPE, bwd_cases),
         # K4: one batch-8 PointPillars request's call, one batch-4
         # CenterPoint request's and one CenterPoint train step's
@@ -2686,6 +3121,13 @@ def main(argv=None) -> int:
                          train_case(gather_dcw_cases), 1, gather_dcw_cases),
              launches_in_phase_5b=sample_grads["launches"][
                  "bilinear_gather_bwd_dcw"]),
+        _kernel_row(kernels.HAT_SAMPLE_FLAT_FWD,
+                    serve_dcn4_launches["hat_sample_flat_fwd"]
+                    + train_dcn4_launches["hat_sample_flat_fwd"],
+                    flat_fwd_main, FLAT_LAYERS, flat_cases),
+        _kernel_row(kernels.HAT_SAMPLE_FLAT_BWD,
+                    train_dcn4_launches["hat_sample_flat_bwd"],
+                    flat_bwd_main, FLAT_LAYERS, flat_bwd_cases),
     ]
     wall_s = time.perf_counter() - t_start
     print(f"  chip_smoke wall time {wall_s:.1f} s", flush=True)
@@ -2694,7 +3136,15 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            wall_s=wall_s, taps_cases=cases,
-                           taps_bwd_cases=bwd_cases,
+                           taps_bwd_cases=bwd_cases, flat_cases=flat_cases,
+                           flat_bwd_cases=flat_bwd_cases,
+                           dcn_bias_rounding=bias_rounding,
+                           end_to_end_f32_dcn4=e2e_dcn4,
+                           train_step_f32_dcn4=train_f32_dcn4,
+                           serving_dcn4=serving_dcn4,
+                           serving_dcn4_launches=serve_dcn4_launches,
+                           forwards_dcn4=forwards_dcn4,
+                           training_dcn4=training_dcn4,
                            rotated_iou_cases=iou_cases,
                            seg_full_max_cases=seg_cases,
                            bilinear_gather_cases=gather_cases,

@@ -27,19 +27,22 @@
 // then, for a bf16 x, one pass that flushes it to bf16 (for an f32 x the
 // scratch is dx). About 16 flops per g value, far below the memory rate.
 //
-// Design: one thread per 16-byte vector of g (8 bf16 or 4 f32 channels),
-// the forward's mapping: thread t owns vector v = t % (C/VEC) of sample
-// s = t / (C/VEC), s = (b*P + p)*K + k, so g is read as one contiguous
-// stream and each corner row is a coalesced C-wide read. Each thread
-//  - dots its g vector with the four corner vectors, in f32;
+// Design: a group of G lanes of one warp per sample s = (b*P + p)*K + k, G
+// the power of two >= C/VEC capped at 32 (C = 128 in bf16: 16 vectors,
+// G = 16, two samples per warp; C = 384: 48 vectors, G = 32, lanes 0-15
+// take two). Lane j of the group takes the sample's vectors j, j+G, ...
+// (16 bytes each, 8 bf16 or 4 f32 channels), so g is read as one contiguous
+// stream and each corner row is a coalesced C-wide read. Each lane
+//  - dots its g vectors with the four corner vectors, in f32;
 //  - adds scale*w_ij*g into the scratch with float4 atomicAdd (a vector
 //    atomic in global memory, sm_90), skipping zero weights (three of the
 //    four corners at an integer coordinate);
-//  - forms its partial dscale, dys, dxs. The sample's C/VEC threads (16 to
-//    128 on the CenterNet path) sum them with warp shuffles, and one lane
-//    per warp adds the sums into the zeroed outputs with an f32 atomicAdd.
-// The atomics make the f32 summation order vary from run to run: dx and the
-// coordinate gradients are not bitwise reproducible.
+// then the group sums its four dots with xor shuffles and its first lane
+// forms and writes dys, dxs and dscale. This takes any C % 8 == 0 (the
+// earlier one-thread-per-vector form needed C/VEC to be a power of two or
+// a multiple of 32). Every lane adds its own vectors in one order and the
+// shuffle tree is fixed, so the three coordinate gradients repeat bit for
+// bit from run to run; dx does not (its atomics land in any order).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,16 +92,18 @@ hat_sample_taps_bwd_kernel(const typename V::T* __restrict__ g,
                            const float* __restrict__ scale,
                            float* __restrict__ acc, float* __restrict__ dys,
                            float* __restrict__ dxs, float* __restrict__ dsc,
-                           int H, int W, int C, int K, int P, uint32_t total,
-                           int seg) {
+                           int H, int W, int C, int K, int P,
+                           uint32_t samples, int log2g) {
   constexpr int kVec = V::kVec;
-  const uint32_t nv = static_cast<uint32_t>(C / kVec);
+  const int nv = C / kVec;
+  const int group = 1 << log2g;
   const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
-  float p_ys = 0.f, p_xs = 0.f, p_sc = 0.f;
+  const uint32_t s = t >> log2g;          // (b*P + p)*K + k
+  const int lane = static_cast<int>(t & (group - 1));
+  float dot[4] = {0.f, 0.f, 0.f, 0.f};
+  float sc = 0.f, fy = 0.f, fx = 0.f;
   size_t ci = 0;
-  if (t < total) {
-    const uint32_t s = t / nv;            // (b*P + p)*K + k
-    const uint32_t v = t - s * nv;        // vector within the C-wide row
+  if (s < samples) {
     const uint32_t k = s % K;
     const uint32_t bp = s / K;
     const uint32_t p = bp % P;
@@ -106,59 +111,63 @@ hat_sample_taps_bwd_kernel(const typename V::T* __restrict__ g,
     ci = (static_cast<size_t>(b) * K + k) * P + p;
     const float y = ys[ci];
     const float xx = xs[ci];
-    const float sc = scale[ci];
+    sc = scale[ci];
 
     const float y0 = floorf(y);
     const float x0 = floorf(xx);
-    const float fy = y - y0;
-    const float fx = xx - x0;
+    fy = y - y0;
+    fx = xx - x0;
     const float cy[4] = {y0, y0, y0 + 1.f, y0 + 1.f};
     const float cx[4] = {x0, x0 + 1.f, x0, x0 + 1.f};
     const float cw[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
                          fy * (1.f - fx), fy * fx};
-
-    float gv[kVec];
-    V::load(g + static_cast<size_t>(s) * C + v * kVec, gv);
-    const size_t image = static_cast<size_t>(b) * H * W * C + v * kVec;
-    float dot[4];
+    // bounds are tested in float so far-out coordinates never reach an
+    // int conversion
+    bool inb[4];
+    size_t off[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      dot[c] = 0.f;
-      // bounds are tested in float so far-out coordinates never reach an
-      // int conversion
-      if (cy[c] >= 0.f && cy[c] < H && cx[c] >= 0.f && cx[c] < W) {
-        const size_t off = image + (static_cast<size_t>(cy[c]) * W +
-                                    static_cast<size_t>(cx[c])) * C;
+      inb[c] = cy[c] >= 0.f && cy[c] < H && cx[c] >= 0.f && cx[c] < W;
+      off[c] = inb[c] ? (static_cast<size_t>(b) * H * W +
+                         static_cast<size_t>(cy[c]) * W +
+                         static_cast<size_t>(cx[c])) * C
+                      : 0;
+    }
+    const typename V::T* gs = g + static_cast<size_t>(s) * C;
+    for (int v = lane; v < nv; v += group) {
+      float gv[kVec];
+      V::load(gs + v * kVec, gv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (!inb[c]) continue;
         float row[kVec];
-        V::load(x + off, row);
+        V::load(x + off[c] + v * kVec, row);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) dot[c] = fmaf(gv[i], row[i], dot[c]);
         const float a = sc * cw[c];
         if (a != 0.f) {
 #pragma unroll
           for (int i = 0; i < kVec; i += 4) {
-            atomicAdd(reinterpret_cast<float4*>(acc + off + i),
+            atomicAdd(reinterpret_cast<float4*>(acc + off[c] + v * kVec + i),
                       make_float4(a * gv[i], a * gv[i + 1], a * gv[i + 2],
                                   a * gv[i + 3]));
           }
         }
       }
     }
-    p_sc = cw[0] * dot[0] + cw[1] * dot[1] + cw[2] * dot[2] + cw[3] * dot[3];
-    p_ys = sc * ((1.f - fx) * (dot[2] - dot[0]) + fx * (dot[3] - dot[1]));
-    p_xs = sc * ((1.f - fy) * (dot[1] - dot[0]) + fy * (dot[3] - dot[2]));
   }
-  // seg lanes (a power of two <= 32, aligned) hold one sample's partials;
-  // every lane of the warp takes part in the shuffles
-  for (int o = seg >> 1; o > 0; o >>= 1) {
-    p_ys += __shfl_xor_sync(0xffffffffu, p_ys, o);
-    p_xs += __shfl_xor_sync(0xffffffffu, p_xs, o);
-    p_sc += __shfl_xor_sync(0xffffffffu, p_sc, o);
+  // the group's lanes are aligned in the warp; every lane of the warp takes
+  // part in each shuffle
+  for (int o = group >> 1; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dot[c] += __shfl_xor_sync(0xffffffffu, dot[c], o);
   }
-  if (t < total && (threadIdx.x & (seg - 1)) == 0) {
-    atomicAdd(dys + ci, p_ys);
-    atomicAdd(dxs + ci, p_xs);
-    atomicAdd(dsc + ci, p_sc);
+  if (s < samples && lane == 0) {
+    const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
+    const float w10 = fy * (1.f - fx), w11 = fy * fx;
+    dsc[ci] = w00 * dot[0] + w01 * dot[1] + w10 * dot[2] + w11 * dot[3];
+    dys[ci] = sc * ((1.f - fx) * (dot[2] - dot[0]) + fx * (dot[3] - dot[1]));
+    dxs[ci] = sc * ((1.f - fy) * (dot[1] - dot[0]) + fy * (dot[3] - dot[2]));
   }
 }
 
@@ -180,27 +189,29 @@ void launch(const void* g, const void* x, const float* ys, const float* xs,
             const float* scale, float* acc, float* dys, float* dxs,
             float* dsc, int B, int H, int W, int C, int K, int P,
             cudaStream_t stream) {
-  const uint32_t nv = static_cast<uint32_t>(C / V::kVec);
-  const uint32_t total = static_cast<uint32_t>(B) * P * K * nv;
-  if (total == 0) return;
-  const int seg = nv < 32 ? static_cast<int>(nv) : 32;
-  const uint32_t blocks = (total + kThreads - 1) / kThreads;
-  hat_sample_taps_bwd_kernel<V><<<blocks, kThreads, 0, stream>>>(
+  const int nv = C / V::kVec;
+  const uint32_t samples = static_cast<uint32_t>(B) * P * K;
+  if (samples == 0 || nv == 0) return;
+  int log2g = 0;
+  while ((1 << log2g) < nv && log2g < 5) ++log2g;
+  const uint64_t total = static_cast<uint64_t>(samples) << log2g;
+  const uint64_t blocks = (total + kThreads - 1) / kThreads;
+  hat_sample_taps_bwd_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                  stream>>>(
       static_cast<const typename V::T*>(g),
       static_cast<const typename V::T*>(x), ys, xs, scale, acc, dys, dxs,
-      dsc, H, W, C, K, P, total, seg);
+      dsc, H, W, C, K, P, samples, log2g);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. g (B, P, K*C) and x (B, H, W, C) in
-// that type; ys, xs, scale (B, K, P) f32; acc (B, H, W, C) f32 and dys,
-// dxs, dsc (B, K, P) f32, all zeroed by the caller. For float32, dx must be
-// acc (the scratch is the result); for bfloat16 dx (B, H, W, C) receives
-// acc rounded. The caller guarantees contiguous tensors, 16-byte aligned
-// rows, C % 8 == 0, C/VEC a power of two or a multiple of 32, and fewer
-// than 2**31 values in g and in x. Returns cudaGetLastError() after the
-// launches.
+// that type; ys, xs, scale (B, K, P) f32; acc (B, H, W, C) f32, zeroed by
+// the caller; dys, dxs, dsc (B, K, P) f32, written whole. For float32, dx
+// must be acc (the scratch is the result); for bfloat16 dx (B, H, W, C)
+// receives acc rounded. The caller guarantees contiguous tensors, 16-byte
+// aligned rows, C % 8 == 0 and fewer than 2**31 values in g and in x.
+// Returns cudaGetLastError() after the launches.
 extern "C" int hat_sample_taps_bwd(const void* g, const void* x,
                                    const float* ys, const float* xs,
                                    const float* scale, float* acc, void* dx,

@@ -16,6 +16,15 @@ KITTI car model from raw points to (B, 300) rotated boxes, f32.
 ``bench.py:bench_two_stage`` builds it (``CenterPointTwoStage.loss_from_gt``
 under ``make_train_step``): f32 parameters, bf16 compute, batch 8, targets
 and voxelization on the device, AdamW(1e-3) with clip-by-global-norm 35.
+
+``centernet_dcn4_entry()`` and ``centernet_dcn4_train_entry()`` serve and
+train CenterNet-R18 with DCN in all four backbone stages: the registered
+``ResNet(depth=18, dcn_stages=(True,) * 4)`` of the JAX package in the place
+of CenterNet's backbone, everything else as in ``entry()`` and
+``train_entry()`` (80 classes, 512x512, bf16 compute). Stage 1's two
+64-channel DCN layers, on the 128x128 map, take the flat sampler
+(``hat_sample_2d``: 147,456 samples per image and layer); stages 2-4 and the
+neck take the tap-grouped one, nine layers, as on the flagship path.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from minddet_tpu_torch.core.optim import adamw
+from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
 from minddet_tpu_torch.models.detectors.centerpoint import CenterPointTwoStage
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
@@ -55,30 +65,45 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _seeded_model(dtype: torch.dtype) -> CenterNet:
+def _seeded_model(dtype: torch.dtype, dcn4: bool = False) -> CenterNet:
     model = CenterNet(num_classes=NUM_CLASSES, depth=18, dcn=True,
                       dtype=dtype)
+    if dcn4:
+        model.backbone = ResNet(depth=18, dcn_stages=(True,) * 4)
     return model.init_weights(torch.Generator().manual_seed(SEED))
 
 
-def build_model(device=None, dtype: torch.dtype = torch.bfloat16
-                ) -> CenterNet:
-    """The flagship CenterNet for serving: eval mode, weights from
-    ``SEED`` stored in ``dtype``, which is also the compute dtype."""
+def build_model(device=None, dtype: torch.dtype = torch.bfloat16,
+                dcn4: bool = False) -> CenterNet:
+    """The flagship CenterNet for serving (with ``dcn4``, the one with DCN
+    in all four backbone stages): eval mode, weights from ``SEED`` stored in
+    ``dtype``, which is also the compute dtype."""
     dev = resolve_device(device)
-    return _seeded_model(dtype).eval().to(device=dev, dtype=dtype,
-                                          memory_format=torch.channels_last)
+    return _seeded_model(dtype, dcn4).eval().to(
+        device=dev, dtype=dtype, memory_format=torch.channels_last)
+
+
+def _serving(model: CenterNet, batch: int):
+    dev = next(model.parameters()).device
+    gen = torch.Generator().manual_seed(SEED + 1)
+    image = torch.randn(batch, RES, RES, 3, generator=gen).to(dev)
+    return model.predict, (image,)
 
 
 def entry(device=None, batch: int = 1
           ) -> Tuple[Callable[..., torch.Tensor], Tuple[torch.Tensor]]:
     """(predict_fn, args): ``predict_fn(*args)`` is (batch, 100, 6)
     [x1, y1, x2, y2, score, class] at output stride 4, in bf16."""
-    model = build_model(device)
-    dev = next(model.parameters()).device
-    gen = torch.Generator().manual_seed(SEED + 1)
-    image = torch.randn(batch, RES, RES, 3, generator=gen).to(dev)
-    return model.predict, (image,)
+    return _serving(build_model(device), batch)
+
+
+def centernet_dcn4_entry(device=None, batch: int = 1
+                         ) -> Tuple[Callable[..., torch.Tensor],
+                                    Tuple[torch.Tensor]]:
+    """``entry()`` for CenterNet-R18 with DCN in all four backbone stages:
+    (predict_fn, (image,)), ``predict_fn(image)`` (batch, 100, 6) in
+    bf16."""
+    return _serving(build_model(device, dcn4=True), batch)
 
 
 def synthetic_boxes(batch: int, res: int = RES,
@@ -106,19 +131,10 @@ def centernet_loss(model: CenterNet, batch: Dict):
     return model.loss(batch["image"], batch["targets"])
 
 
-def train_entry(device=None, batch: int = 128
-                ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
-    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one train
-    step in place and returns ``(state, metrics)`` (loss, hm_loss, wh_loss,
-    off_loss, grad_norm, on the device).
-
-    The model is seeded with ``SEED``: f32 parameters, bf16 compute,
-    channels_last, train mode. The targets are built on the device by
-    ``centernet_targets_batch`` from ``synthetic_boxes``; the image is
-    N(0, 1) drawn on the device from ``SEED``.
-    """
+def _train_program(device, batch: int, dcn4: bool
+                   ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
     dev = resolve_device(device)
-    model = _seeded_model(torch.bfloat16).to(
+    model = _seeded_model(torch.bfloat16, dcn4).to(
         device=dev, memory_format=torch.channels_last).train()
     state = TrainState.create(model, adamw(5e-4, clip_global_norm=35.0))
     boxes = {k: torch.from_numpy(v).to(dev)
@@ -131,6 +147,28 @@ def train_entry(device=None, batch: int = 128
     image = torch.randn(batch, RES, RES, 3, generator=gen, device=dev)
     return make_train_step(centernet_loss), (
         state, {"image": image, "targets": targets})
+
+
+def train_entry(device=None, batch: int = 128
+                ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one train
+    step in place and returns ``(state, metrics)`` (loss, hm_loss, wh_loss,
+    off_loss, grad_norm, on the device).
+
+    The model is seeded with ``SEED``: f32 parameters, bf16 compute,
+    channels_last, train mode. The targets are built on the device by
+    ``centernet_targets_batch`` from ``synthetic_boxes``; the image is
+    N(0, 1) drawn on the device from ``SEED``.
+    """
+    return _train_program(device, batch, dcn4=False)
+
+
+def centernet_dcn4_train_entry(device=None, batch: int = 128
+                               ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """``train_entry()`` for CenterNet-R18 with DCN in all four backbone
+    stages: the same optimizer (AdamW 5e-4, clip-by-global-norm 35), f32
+    parameters, bf16 compute, targets and image as there."""
+    return _train_program(device, batch, dcn4=True)
 
 
 def synthetic_clouds(batch: int, pc_range, num_points: int = CLOUD_POINTS,

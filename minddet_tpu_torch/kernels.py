@@ -198,7 +198,23 @@ BILINEAR_GATHER_BWD_DCW = CudaKernel(
     replaces="minddet_tpu/ops/bilinear.py:115 _bwd_dcw_kernel",
 )
 
+HAT_SAMPLE_FLAT_FWD = CudaKernel(
+    "hat_sample_flat_fwd", "hat_sample_flat.cu",
+    # x, ys, xs, scale, out, B, H, W, C, N, dtype, vec, stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/hat_sample.py:171 _fwd_kernel",
+)
+
+HAT_SAMPLE_FLAT_BWD = CudaKernel(
+    "hat_sample_flat_bwd", "hat_sample_flat_bwd.cu",
+    # g, x, ys, xs, scale, acc, dx, dys, dxs, dscale, B, H, W, C, N, dtype,
+    # vec, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    replaces="minddet_tpu/ops/hat_sample.py:207 _bwd_kernel",
+)
+
 KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD,
                              ROTATED_IOU, SEG_FULL_MAX, SEG_FULL_MAX_BWD,
                              BILINEAR_GATHER_FWD, BILINEAR_GATHER_BWD_DX,
-                             BILINEAR_GATHER_BWD_DCW]
+                             BILINEAR_GATHER_BWD_DCW, HAT_SAMPLE_FLAT_FWD,
+                             HAT_SAMPLE_FLAT_BWD]

@@ -51,7 +51,11 @@ WIDTHS = (64, 128, 256, 512)
 
 class ResNet(nn.Module):
     """Multi-scale ResNet; returns (C2, C3, C4, C5). ``dcn_stages`` marks the
-    stages whose blocks' ``conv2`` is a DCNv2 layer."""
+    stages whose blocks' ``conv2`` is a DCNv2 layer (``ModulatedDeformConv``,
+    3x3, stride 1, width to width). CenterNet's are stages 2-4, whose 128,
+    256 and 512 channels take the tap-grouped sampler; with
+    ``dcn_stages[0]`` on, stage 1's ``layer1_*.conv2`` are 64 -> 64 DCN
+    layers, and 64 channels take the flat sampler (``ops/dcn.py``)."""
 
     def __init__(self, depth: int = 18,
                  dcn_stages: Sequence[bool] = (False, False, False, False)):

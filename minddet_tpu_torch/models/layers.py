@@ -120,26 +120,41 @@ class BatchNorm(nn.BatchNorm2d):
 class ModulatedDeformConv(nn.Module):
     """DCNv2 layer: offset/mask conv + deformable sampling conv.
 
-    ``conv_offset`` emits 3K channels: [0, 2K) reshape to (K, 2) as (dy, dx),
-    [2K, 3K) are the mask logits (the reference's layout, not mmcv's).
-    ``kernel`` keeps the reference's (kh, kw, Cin, Cout) layout, which the
-    contraction reshapes to (K*Cin, Cout). 3x3, stride 1, padding 1, no
-    bias: the only form the CenterNet path uses.
+    ``conv_offset`` emits 3K channels (K = kernel_size**2) with the layer's
+    kernel size, stride and padding, zero-initialised as in the reference,
+    so a new layer is a plain conv with 0.5 modulation: [0, 2K) reshape to
+    (K, 2) as (dy, dx), [2K, 3K) are the mask logits (the reference's
+    layout, not mmcv's). ``kernel`` keeps the reference's (kh, kw, Cin,
+    Cout) layout, which the contraction reshapes to (K*Cin, Cout); ``bias``
+    (Cout,) exists with ``use_bias``, zero at first. The defaults (3x3,
+    stride 1, padding 1, no bias) are the CenterNet path's.
     """
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 use_bias: bool = False):
         super().__init__()
-        self.conv_offset = Conv2d(in_channels, 3 * 9, 3, padding=1)
-        self.kernel = nn.Parameter(torch.empty(3, 3, in_channels, features))
+        k = kernel_size * kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.conv_offset = Conv2d(in_channels, 3 * k, kernel_size,
+                                  stride=stride, padding=padding)
+        nn.init.zeros_(self.conv_offset.weight)
+        nn.init.zeros_(self.conv_offset.bias)
+        self.kernel = nn.Parameter(torch.empty(kernel_size, kernel_size,
+                                               in_channels, features))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = 9
+        k = self.kernel.shape[0] * self.kernel.shape[1]
         off_mask = self.conv_offset(x).permute(0, 2, 3, 1)  # (B, Ho, Wo, 3K)
         b, ho, wo, _ = off_mask.shape
         offsets = off_mask[..., :2 * k].reshape(b, ho, wo, k, 2)
         mask = torch.sigmoid(off_mask[..., 2 * k:])
         y = deform_conv2d(x.permute(0, 2, 3, 1), offsets, mask,
-                          self.kernel.to(x.dtype))
+                          self.kernel.to(x.dtype), _cast(self.bias, x.dtype),
+                          stride=self.stride, padding=self.padding)
         return y.permute(0, 3, 1, 2)
 
 

@@ -3,9 +3,13 @@
 
 1. Sampling: all K taps' bilinear samples times the modulation mask in one
    call of the tap-grouped sampler (``ops/hat_sample.py``, a CUDA kernel on
-   the GPU) when Cin % 128 == 0, else the flat sampler (CPU only for now).
+   the GPU) when Cin % 128 == 0, else the flat sampler over position-major
+   samples (B, P*K), a CUDA kernel too, whose (B, P*K, Cin) output is the
+   (B, P, K*Cin) layout the contraction takes.
 2. Contraction: samples (B, P, K*Cin) x weights (K*Cin, Cout) as one
-   ``torch.matmul``, as the reference leaves it to XLA.
+   matmul, as the reference leaves it to XLA; with a bias, one
+   ``torch.addmm`` that adds it to the f32 accumulator and rounds once, as
+   the reference's f32 ``jnp.dot`` + bias does.
 
 Gradients flow to x, offsets, mask, weights and bias: through the
 sampler's autograd Function (its backward a CUDA kernel on the GPU) and
@@ -20,7 +24,7 @@ kw, Cin, Cout).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -68,12 +72,28 @@ def deform_conv2d(
             mask.reshape(b, p, k).float().transpose(1, 2).contiguous()
         samp = hat_sample_2d_taps(x, ys, xs, scale)
     else:
-        ys = (base_y + offs[..., 0]).reshape(b, p * k)
-        xs = (base_x + offs[..., 1]).reshape(b, p * k)
-        scale = None if mask is None else mask.reshape(b, p * k)
+        # flat sampler: position-major coords (B, P*K), samples (B, P*K,
+        # Cin), which is (B, P, K*Cin) as it lies
+        ys = (base_y + offs[..., 0]).reshape(b, p * k).contiguous()
+        xs = (base_x + offs[..., 1]).reshape(b, p * k).contiguous()
+        scale = None if mask is None else \
+            mask.reshape(b, p * k).float().contiguous()
         samp = hat_sample_2d(x, ys, xs, scale).reshape(b, p, k * cin)
 
-    out = torch.matmul(samp.to(weights.dtype), wmat)
-    if bias is not None:
-        out = out + bias
+    samp = samp.to(weights.dtype)
+    if bias is None:
+        out = torch.matmul(samp, wmat)
+    else:
+        out = torch.addmm(bias.to(weights.dtype), samp.reshape(b * p, k * cin),
+                          wmat)
     return out.reshape(b, ho, wo, cout).to(x.dtype)
+
+
+def dcn_sampling_grid_shapes(h: int, w: int, kernel: int = 3,
+                             stride: int = 1, padding: int = 1
+                             ) -> Tuple[int, int, int]:
+    """(Ho, Wo, K) of a square DCN kernel over an (h, w) map: the offset and
+    mask head's output size and its tap count."""
+    ho = (h + 2 * padding - kernel) // stride + 1
+    wo = (w + 2 * padding - kernel) // stride + 1
+    return ho, wo, kernel * kernel

@@ -23,9 +23,13 @@ function's subgradient on the open support instead and returns zero there,
 which leaves zero-initialised offset convs at zero for good; the port does
 not copy that.
 
-``hat_sample_2d`` (flat (B, P) coordinates) has only its plain version,
-differentiable by autograd on the CPU: its kernels (``_fwd_kernel``,
-``_bwd_kernel``) are not ported, so on a CUDA tensor it raises.
+``hat_sample_2d`` is the flat form, the sampler of DCN layers whose Cin is
+not a multiple of 128: x (B, H, W, C) sampled at (B, N) coordinates into
+(B, N, C), any C >= 1. It has the same gradient and the same dispatch: a
+CUDA tensor launches ``csrc/hat_sample_flat.cu`` and, in the backward,
+``csrc/hat_sample_flat_bwd.cu``; a CPU tensor runs ``hat_sample_2d_plain``
+and ``hat_sample_2d_bwd_plain``. Neither form falls back: on a CUDA tensor
+a wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,13 +38,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from minddet_tpu_torch.kernels import (HAT_SAMPLE_TAPS_BWD,
+from minddet_tpu_torch.kernels import (HAT_SAMPLE_FLAT_BWD,
+                                       HAT_SAMPLE_FLAT_FWD,
+                                       HAT_SAMPLE_TAPS_BWD,
                                        HAT_SAMPLE_TAPS_FWD, cuda_stream,
                                        device_kind)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
 _INT32_MAX = 2 ** 31 - 1
+_THREADS = 256  # per block, as the kernels launch them
 
 
 def _corners(ys: torch.Tensor, xs: torch.Tensor):
@@ -64,9 +71,10 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _sample_plain(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
-                  scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, H, W, C) at coordinates (B, N) -> (B, N, C) in x.dtype.
+def hat_sample_2d_plain(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the flat sampler, on any device: (B, H, W,
+    C) at coordinates (B, N) -> (B, N, C) in x.dtype.
 
     Four corners from ``floor``; each in-bounds corner is kept on its own;
     weights in f32 and the sum in f32 (f64 for an f64 x), the scale applied
@@ -93,7 +101,8 @@ def hat_sample_2d_taps_plain(x: torch.Tensor, ys: torch.Tensor,
     b, k, p = ys.shape
     c = x.shape[-1]
     tap_major = lambda a: None if a is None else a.reshape(b, k * p)
-    out = _sample_plain(x, tap_major(ys), tap_major(xs), tap_major(scale))
+    out = hat_sample_2d_plain(x, tap_major(ys), tap_major(xs),
+                              tap_major(scale))
     return out.reshape(b, k, p, c).transpose(1, 2).reshape(b, p, k * c)
 
 
@@ -135,8 +144,9 @@ def hat_sample_2d_taps_bwd_plain(
         rows = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
         dots.append((rows * gf).sum(-1) * inb)
         weights.append(wgt)
+        coef = sc.to(acc) * wgt.to(acc) * inb
         dx.index_add_(0, (idx + image0).reshape(-1),
-                      (gf * (sc * wgt * inb)[..., None]).reshape(-1, c))
+                      (gf * coef[..., None]).reshape(-1, c))
     d00, d01, d10, d11 = dots
     fy = ysf - torch.floor(ysf)
     fx = xsf - torch.floor(xsf)
@@ -149,17 +159,33 @@ def hat_sample_2d_taps_bwd_plain(
             None if scale is None else dsc.float().reshape(shape))
 
 
-def _check_taps(x, ys, xs, scale) -> None:
-    if x.dim() != 4 or ys.dim() != 3:
-        raise ValueError(f"expected x (B,H,W,C) and ys (B,K,P); got "
+def hat_sample_2d_bwd_plain(
+        g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+        scale: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the flat sampler's backward, on any device:
+    g (B, N, C) -> (dx (B, H, W, C) in x.dtype, dys, dxs, dscale, each
+    (B, N) f32; dscale None when scale is None). It is
+    ``hat_sample_2d_taps_bwd_plain`` with one tap, and equals autograd of
+    ``hat_sample_2d_plain``."""
+    one_tap = lambda a: None if a is None else a[:, None]
+    dx, dys, dxs, dsc = hat_sample_2d_taps_bwd_plain(
+        g, x, one_tap(ys), one_tap(xs), one_tap(scale))
+    return dx, dys[:, 0], dxs[:, 0], None if dsc is None else dsc[:, 0]
+
+
+def _check(x, ys, xs, scale, coord_dims: int) -> None:
+    """What both samplers' kernels take: x (B, H, W, C) contiguous f32 or
+    bf16; ys, xs, scale contiguous f32 of one shape, ``coord_dims``
+    dimensions, batch first, on x's device."""
+    if x.dim() != 4 or ys.dim() != coord_dims:
+        raise ValueError(f"expected x (B,H,W,C) and {coord_dims}-d ys; got "
                          f"{tuple(x.shape)} and {tuple(ys.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    b, h, w, c = x.shape
-    if c % 8:
-        raise ValueError(f"C={c} must be a multiple of 8 (16-byte rows)")
-    if ys.shape[0] != b:
-        raise ValueError(f"batch mismatch: x {b}, coordinates {ys.shape[0]}")
+    if ys.shape[0] != x.shape[0]:
+        raise ValueError(f"batch mismatch: x {x.shape[0]}, coordinates "
+                         f"{ys.shape[0]}")
     for name, t in (("ys", ys), ("xs", xs), ("scale", scale)):
         if t.shape != ys.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != ys shape "
@@ -173,6 +199,13 @@ def _check_taps(x, ys, xs, scale) -> None:
     if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor (the NHWC view "
                          "of a channels_last NCHW activation is)")
+
+
+def _check_taps(x, ys, xs, scale) -> None:
+    _check(x, ys, xs, scale, 3)
+    b, h, w, c = x.shape
+    if c % 8:
+        raise ValueError(f"C={c} must be a multiple of 8 (16-byte rows)")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     if b * max(ys.shape[1] * ys.shape[2], h * w) * c > _INT32_MAX:
@@ -205,13 +238,7 @@ def _taps_bwd_cuda(g, x, ys, xs, scale):
         raise ValueError(f"g must be a contiguous {x.dtype} (B, P, K*C) = "
                          f"{(b, p, k * c)} tensor on {x.device}; got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
-    # each sample's C/VEC threads sum their partial coordinate gradients
-    # with warp shuffles: a power of two up to 32, or whole warps
-    lanes = c // _VEC[x.dtype]
-    if lanes % 32 and lanes & (lanes - 1):
-        raise ValueError(f"C={c}: C/{_VEC[x.dtype]} must be a power of two "
-                         "or a multiple of 32 for the backward kernel")
-    dcoords = torch.zeros(3, b, k, p, dtype=torch.float32, device=x.device)
+    dcoords = torch.empty(3, b, k, p, dtype=torch.float32, device=x.device)
     # the f32 scatter-add image; for an f32 x it is dx itself
     acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
     dx = acc if x.dtype == torch.float32 else torch.empty(
@@ -233,9 +260,8 @@ def hat_sample_2d_taps_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The sampler's backward (see ``hat_sample_2d_taps_bwd_plain``): a
     CUDA ``x`` launches the ``hat_sample_taps_bwd`` kernel (g contiguous in
-    x's dtype; C/VEC a power of two or a multiple of 32, VEC = 4 f32 or 8
-    bf16 values) and raises on anything it does not take; a CPU ``x`` runs
-    the plain version."""
+    x's dtype, the forward's inputs as it takes them) and raises on anything
+    it does not take; a CPU ``x`` runs the plain version."""
     if device_kind(x) == "cuda":
         return _taps_bwd_cuda(g, x, ys, xs, scale)
     return hat_sample_2d_taps_bwd_plain(g, x, ys, xs, scale)
@@ -277,18 +303,111 @@ def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return hat_sample_2d_taps_plain(x, ys, xs, scale)
 
 
+def _check_flat(x, ys, xs, scale) -> None:
+    _check(x, ys, xs, scale, 2)
+    # the backward's lane groups take up to 2 C threads per sample, 256 a
+    # block, fewer than 2**31 blocks; offsets are 64-bit
+    if 2 * ys.numel() * x.shape[3] > _INT32_MAX * _THREADS:
+        raise ValueError("too many samples for one launch of the kernels")
+
+
+def _vec(c: int, *tensors) -> int:
+    """1 where the kernels may move 16-byte vectors: C a whole number of
+    them and every row pointer 16-byte aligned."""
+    dtype = tensors[0].dtype
+    return int(c % _VEC[dtype] == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _flat_cuda(x, ys, xs, scale) -> torch.Tensor:
+    if scale is None:
+        scale = torch.ones_like(ys)
+    _check_flat(x, ys, xs, scale)
+    b, h, w, c = x.shape
+    n = ys.shape[1]
+    out = torch.empty(b, n, c, dtype=x.dtype, device=x.device)
+    fn = HAT_SAMPLE_FLAT_FWD.fn()
+    HAT_SAMPLE_FLAT_FWD.launches += 1
+    err = fn(x.data_ptr(), ys.data_ptr(), xs.data_ptr(), scale.data_ptr(),
+             out.data_ptr(), b, h, w, c, n, _DTYPE_CODE[x.dtype],
+             _vec(c, x, out), cuda_stream(x.device))
+    HAT_SAMPLE_FLAT_FWD.check(err)
+    return out
+
+
+def _flat_bwd_cuda(g, x, ys, xs, scale):
+    sc = torch.ones_like(ys) if scale is None else scale
+    _check_flat(x, ys, xs, sc)
+    b, h, w, c = x.shape
+    n = ys.shape[1]
+    if (g.shape != (b, n, c) or g.dtype != x.dtype
+            or g.device != x.device or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous {x.dtype} (B, N, C) = "
+                         f"{(b, n, c)} tensor on {x.device}; got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    dcoords = torch.empty(3, b, n, dtype=torch.float32, device=x.device)
+    # the f32 scatter-add image; for an f32 x it is dx itself
+    acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
+    dx = acc if x.dtype == torch.float32 else torch.empty(
+        b, h, w, c, dtype=x.dtype, device=x.device)
+    fn = HAT_SAMPLE_FLAT_BWD.fn()
+    HAT_SAMPLE_FLAT_BWD.launches += 1
+    err = fn(g.data_ptr(), x.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+             sc.data_ptr(), acc.data_ptr(), dx.data_ptr(),
+             dcoords[0].data_ptr(), dcoords[1].data_ptr(),
+             dcoords[2].data_ptr(), b, h, w, c, n, _DTYPE_CODE[x.dtype],
+             _vec(c, g, x), cuda_stream(x.device))
+    HAT_SAMPLE_FLAT_BWD.check(err)
+    return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
+
+
+def hat_sample_2d_bwd(
+        g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+        scale: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The flat sampler's backward (see ``hat_sample_2d_bwd_plain``): a CUDA
+    ``x`` launches the ``hat_sample_flat_bwd`` kernel (g contiguous in x's
+    dtype, the forward's inputs as it takes them) and raises on anything it
+    does not take; a CPU ``x`` runs the plain version."""
+    if device_kind(x) == "cuda":
+        return _flat_bwd_cuda(g, x, ys, xs, scale)
+    return hat_sample_2d_bwd_plain(g, x, ys, xs, scale)
+
+
+class _FlatSample(torch.autograd.Function):
+    """``hat_sample_2d`` with its backward; saves (x, ys, xs, scale) as the
+    reference's ``_hat_fwd`` does. One kernel pass gives all four
+    gradients; those autograd does not ask for are dropped."""
+
+    @staticmethod
+    def forward(ctx, x, ys, xs, scale):
+        ctx.save_for_backward(x, ys, xs, scale)
+        if device_kind(x) == "cuda":
+            return _flat_cuda(x, ys, xs, scale)
+        return hat_sample_2d_plain(x, ys, xs, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ys, xs, scale = ctx.saved_tensors
+        grads = hat_sample_2d_bwd(g.contiguous(), x, ys, xs, scale)
+        return tuple(d if need else None
+                     for d, need in zip(grads, ctx.needs_input_grad))
+
+
 def hat_sample_2d(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Flat modulated sampling: (B, H, W, C) at (B, P) coords -> (B, P, C).
+    """Flat modulated sampling: (B, H, W, C) at (B, N) coords -> (B, N, C)
+    in x.dtype, any C >= 1.
 
-    Plain version only, differentiable by autograd: on a CUDA tensor it
-    raises, because the flat kernels (``minddet_tpu/ops/hat_sample.py:
-    _fwd_kernel`` and ``_bwd_kernel``) are not ported yet.
+    Differentiable wrt x, ys, xs and scale (``scale=None`` is ones, with no
+    gradient). A CUDA ``x`` launches the ``hat_sample_flat_fwd`` kernel, and
+    ``hat_sample_flat_bwd`` in the backward (ys, xs, scale contiguous f32
+    on the same device; bf16 or f32 x, contiguous) and raises on anything
+    they do not take; a CPU ``x`` runs the plain versions.
     """
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "hat_sample_2d on the GPU needs the flat sampler kernel "
-            "(minddet_tpu/ops/hat_sample.py:_fwd_kernel), which is not "
-            "ported yet; only C % 128 == 0 layers (hat_sample_2d_taps) run "
-            "on the GPU")
-    return _sample_plain(x, ys, xs, scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, ys, xs, scale)):
+        return _FlatSample.apply(x, ys, xs, scale)
+    if device_kind(x) == "cuda":
+        return _flat_cuda(x, ys, xs, scale)
+    return hat_sample_2d_plain(x, ys, xs, scale)

@@ -204,6 +204,36 @@ def test_reference_pallas_taps_zero_coord_grad_at_integer_coords():
     np.testing.assert_allclose(p_dsc, x_dsc, rtol=2e-2, atol=5e-1)
 
 
+def test_reference_pallas_flat_zero_coord_grad_at_integer_coords():
+    """The same fault in the reference's flat kernel (``_bwd_kernel``,
+    through ``_factors(grad=True)``), which the port's flat sampler and K2b
+    do not copy: at integer coordinates (a 64-channel DCN with zero offsets,
+    position-major samples) the Pallas backward returns dys = dxs = 0
+    exactly, where the XLA path and the port return forward differences.
+    x 1x8x8x64 f32, 576 samples, interpret mode."""
+    x, ys, xs, sc = _integer_taps(1, 8, 8, 64, seed=6)
+    # position-major (B, P*K), as ops/dcn.py's flat branch lays them out
+    flat = lambda a: np.ascontiguousarray(a.transpose(0, 2, 1)).reshape(1, -1)
+    ys, xs, sc = flat(ys), flat(xs), flat(sc)
+    g = np.random.RandomState(7).randn(1, ys.shape[1], 64).astype(np.float32)
+    grads = {}
+    for impl, kw in (("pallas", dict(interpret=True)), ("xla", {})):
+        fn = lambda *a: jhs.hat_sample_2d(*a, implementation=impl, **kw)
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, (x, ys, xs, sc)))
+        grads[impl] = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    p_dx, p_dys, p_dxs, p_dsc = grads["pallas"]
+    x_dx, x_dys, x_dxs, x_dsc = grads["xla"]
+    assert np.abs(p_dys).max() == 0.0 and np.abs(p_dxs).max() == 0.0
+    assert np.abs(x_dys).max() > 5.0 and np.abs(x_dxs).max() > 5.0
+    args = [t.requires_grad_() for t in _port(x, ys, xs, sc)]
+    port = torch.autograd.grad(ths.hat_sample_2d(*args), args,
+                               torch.from_numpy(g))
+    np.testing.assert_allclose(port[1].numpy(), x_dys, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(port[2].numpy(), x_dxs, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(p_dx, x_dx, rtol=2e-2, atol=5e-2)
+    np.testing.assert_allclose(p_dsc, x_dsc, rtol=2e-2, atol=5e-1)
+
+
 def test_flat_grads_match_jax_xla():
     """The flat sampler's plain version under autograd equals ``jax.vjp``
     of the reference's XLA path (f32, atol 1e-4)."""
@@ -248,14 +278,6 @@ def test_taps_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_flat_sampler_raises_on_cuda(cuda):
-    x = torch.zeros(1, 8, 8, 64, device=cuda)
-    ys = torch.zeros(1, 10, device=cuda)
-    with pytest.raises(NotImplementedError, match="_fwd_kernel"):
-        ths.hat_sample_2d(x, ys, ys)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("spread", [0.0, 1.5])
 def test_taps_bwd_kernel_matches_plain(cuda, dtype, spread):
@@ -281,3 +303,23 @@ def test_taps_bwd_kernel_matches_plain(cuda, dtype, spread):
     for a, r in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-4)
     assert got[1].abs().max() > 0 and got[2].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_taps_bwd_kernel_takes_any_width(cuda):
+    """K1b at bf16 C = 384 (48 vectors per sample, no power of two), which
+    the reference's taps path trains: against the plain version as above,
+    and its coordinate gradients bit for bit from run to run."""
+    x, ys, xs, sc = _taps_case(2, 16, 16, 384, 256, 9, 1.5)
+    g = np.random.RandomState(4).randn(2, 256, 9 * 384).astype(np.float32)
+    x, ys, xs, sc, g = (t.to(cuda) for t in _port(x, ys, xs, sc, g))
+    x, g = x.bfloat16(), g.bfloat16()
+    got = ths.hat_sample_2d_taps_bwd(g, x, ys, xs, sc)
+    again = ths.hat_sample_2d_taps_bwd(g, x, ys, xs, sc)
+    torch.cuda.synchronize()
+    ref = ths.hat_sample_2d_taps_bwd_plain(g.float(), x.float(), ys, xs, sc)
+    torch.testing.assert_close(got[0].float(), ref[0], rtol=2 ** -8,
+                               atol=1e-5)
+    for a, a2, r in zip(got[1:], again[1:], ref[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-4)
+        assert torch.equal(a, a2)

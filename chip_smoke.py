@@ -27,9 +27,12 @@ Phases (any failure raises and exits non-zero):
    streams and on clustered ones (pillars filled to the cap of 20) with
    forced ties, exactly on segments of at most two rows; the row gather's
    backwards (K3dx with ``index_add_`` timed beside it, K3dcw) at
-   (B, 16384, 384) x 640 sample points, B = 1 and 8, f32 and bf16; K1b
-   also at bf16 C = 384 (any width, coordinate gradients repeating bit for
-   bit); the flat sampler (K2f) at stage 1's (B, 128, 128, 64) with
+   (B, 16384, 384) x 640 sample points, B = 1 and 8, f32 and bf16, and at
+   B = 8 on a heavy-duplicate stream (every point on one of four spots of
+   one map row), K3dx's dx bit-equal between two calls; K1b with the share
+   of its corners that took the global fallback and its shared memory per
+   block, and also at bf16 C = 384 (any width, coordinate gradients
+   repeating bit for bit); the flat sampler (K2f) at stage 1's (B, 128, 128, 64) with
    147,456 position-major samples per image, B = 1 and 16 in f32 and bf16
    at spread 0 and 1.5 and B = 128 in bf16, with ``F.grid_sample`` timed
    beside it, and its backward (K2b) at B = 128 in bf16 and B = 2 in f32,
@@ -85,7 +88,8 @@ Phases (any failure raises and exits non-zero):
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
-reaches yet, has 0 there and phase 5b's count under its own key); the last is
+reaches yet, has 0 there and phase 5b's count under its own key; every
+number in it but ``bound_ms`` is measured in the run); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
 ``--profile`` also breaks the serving requests (every served model) and 3
@@ -314,6 +318,11 @@ def check_taps_bwd_kernel(dev, gen):
             repeat = all(torch.equal(a, a2)
                          for a, a2 in zip(got[1:], again[1:]))
             del again
+            # the corners added outside their block's dx window
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            hs._taps_bwd_cuda(g, x, ys, xs, sc, stats=stats)
+            fallback, added = (int(v) for v in stats.tolist())
+            plan = hs.taps_bwd_plan(b, h, h, c, TAPS, h * h)
             ref = hs.hat_sample_2d_taps_bwd_plain(g.float(), x.float(),
                                                   ys, xs, sc)
             errs = {}
@@ -344,10 +353,12 @@ def check_taps_bwd_kernel(dev, gen):
                                         ("dx", "dys", "dxs", "dscale")),
                         errors=errs, tolerance=BWD_TOL, repeat=repeat,
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+                        bound_by=bound_by, plan=plan,
+                        fallback_share=fallback / max(added, 1))
             cases.append(case)
             print(f"  taps bwd x{case['shape']} spread={spread:4.1f} "
-                  f"{case['dtype']:8s} err dx={errs['dx']:.2e} "
+                  f"{case['dtype']:8s} fallback={case['fallback_share']:.4f}"
+                  f" smem={plan['smem_bytes']} err dx={errs['dx']:.2e} "
                   f"dys={errs['dys']:.2e} dxs={errs['dxs']:.2e} "
                   f"dsc={errs['dscale']:.2e} (|dys|max "
                   f"{errs['dys_max_abs']:.1f}) kernel={ms * 1e3:8.1f}us "
@@ -1109,6 +1120,19 @@ def _second_stage_inputs(model, b, gen, dev, slots=CP_PROPOSALS):
     return bev, fy, fx
 
 
+DUPLICATE_SPOTS = 4  # map positions of the heavy-duplicate stream
+
+
+def _duplicate_points(fy, fx):
+    """Every sample point on one of DUPLICATE_SPOTS positions two cells
+    apart along one map row, off-grid: all 4 * P corners of an image land
+    in two map rows, 2 * P of them in one bucket of K3dx's row tiles."""
+    spot = torch.arange(fy.shape[1], device=fy.device) % DUPLICATE_SPOTS
+    ys = torch.full_like(fy, 40.37)
+    xs = 70.61 + 2.0 * spot.to(fx.dtype).expand_as(fx)
+    return ys, xs.contiguous()
+
+
 def check_bilinear_bwd_kernels(dev, gen, model):
     """Phase 3: bilinear_gather_bwd_dx (K3dx) and bilinear_gather_bwd_dcw
     (K3dcw) against their plain versions at the train step's shapes:
@@ -1118,10 +1142,13 @@ def check_bilinear_bwd_kernels(dev, gen, model):
     from minddet_tpu_torch.ops import bilinear as bl
 
     dx_cases, dcw_cases = [], []
-    for b in (1, TRAIN_CP_BATCH):
+    for b, stream in ((1, "uniform"), (TRAIN_CP_BATCH, "uniform"),
+                      (TRAIN_CP_BATCH, "duplicate")):
         bev32, fy, fx = _second_stage_inputs(model, b, gen, dev)
         _, c, h, w = bev32.shape
         hw = h * w
+        if stream == "duplicate":
+            fy, fx = _duplicate_points(fy, fx)
         ci, cw = bl.bilinear_corners(fy, fx, h, w)
         p = ci.shape[1]
         g32 = torch.randn(b, p, c, generator=gen).to(dev)
@@ -1129,8 +1156,14 @@ def check_bilinear_bwd_kernels(dev, gen, model):
                       for i in range(b))
         rows = (bl._clipped_rows(ci, hw) + torch.arange(
             b, device=dev)[:, None] * hw).reshape(-1)
-        common = dict(shape=[b, hw, c], points=p, touched_rows=touched,
+        plan = bl.gather_bwd_dx_plan(b, hw, c, p)
+        # hw is a whole number of row tiles here
+        tile_of = rows[(ci >= 0).reshape(-1)] // plan["tile_rows"]
+        common = dict(shape=[b, hw, c], points=p, stream=stream,
+                      touched_rows=touched,
                       off_map_corner_share=float((ci < 0).float().mean()))
+        dx_plan = dict(largest_bucket=int(torch.bincount(tile_of).max()),
+                       sort_cap=plan["cap"], smem_bytes=plan["smem_bytes"])
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             x = bev32.to(dtype).permute(0, 2, 3, 1).view(b, hw, c)
@@ -1138,17 +1171,22 @@ def check_bilinear_bwd_kernels(dev, gen, model):
             elt = x.element_size()
 
             got = bl.bilinear_gather_bwd_dx(g, x, ci, cw)
+            again = bl.bilinear_gather_bwd_dx(g, x, ci, cw)
             torch.cuda.synchronize()
+            repeat = torch.equal(got, again)
+            del again
             ref = bl.bilinear_gather_bwd_dx_plain(g.float(), ci, cw, hw)
             size = bl.bilinear_gather_bwd_dx_plain(g.float().abs(), ci,
                                                    cw.abs(), hw)
             err = (got.float() - ref).abs()
             atol, rtol = GATHER_BWD_TOL[f"dx_{name}"]
-            ok = got.dtype == dtype and bool((err <= atol + rtol * size)
-                                             .all())
-            case = dict(common, dtype=name, max_abs_err=float(err.max()),
-                        max_abs=float(ref.abs().max()),
-                        tolerance=f"abs <= {atol} + {rtol} * sum |cw g|")
+            ok = got.dtype == dtype and repeat and bool(
+                (err <= atol + rtol * size).all())
+            case = dict(common, **dx_plan, dtype=name,
+                        max_abs_err=float(err.max()),
+                        max_abs=float(ref.abs().max()), repeat=repeat,
+                        tolerance=f"abs <= {atol} + {rtol} * sum |cw g|; "
+                                  f"bit-equal between two calls")
             del got, ref, size, err
             case["ms"] = _cuda_ms(
                 lambda: bl.bilinear_gather_bwd_dx(g, x, ci, cw), iters=20)
@@ -1167,8 +1205,9 @@ def check_bilinear_bwd_kernels(dev, gen, model):
                 b * hw * c * elt + b * p * c * elt + 2 * b * p * 4 * 4,
                 8 * b * p * c)
             dx_cases.append(case)
-            print(f"  bilinear_gather_bwd_dx x{case['shape']} P={p} {name:8s}"
-                  f" max_abs={case['max_abs_err']:.3e} (|dx| max "
+            print(f"  bilinear_gather_bwd_dx x{case['shape']} P={p} {stream}"
+                  f" {name:8s} max_abs={case['max_abs_err']:.3e} repeat="
+                  f"{repeat} bucket<={case['largest_bucket']} (|dx| max "
                   f"{case['max_abs']:.1f}) kernel={case['ms'] * 1e3:7.1f}us "
                   f"plain={case['plain_ms'] * 1e3:8.1f}us index_add_="
                   f"{case['library_ms'] * 1e3:7.1f}us bound="
@@ -1203,7 +1242,7 @@ def check_bilinear_bwd_kernels(dev, gen, model):
                 8 * b * p * c)
             dcw_cases.append(case)
             print(f"  bilinear_gather_bwd_dcw x{case['shape']} P={p} "
-                  f"{name:8s} max_abs={case['max_abs_err']:.3e} (|dcw| max "
+                  f"{stream} {name:8s} max_abs={case['max_abs_err']:.3e} (|dcw| max "
                   f"{case['max_abs']:.1f}) kernel={case['ms'] * 1e3:7.1f}us "
                   f"plain={case['plain_ms'] * 1e3:8.1f}us bound="
                   f"{case['bound_ms'] * 1e3:5.1f}us ({case['bound_by']})",
@@ -2816,7 +2855,7 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
     keys = ("shape", "against", "points", "samples", "dtype", "spread",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "grid_sample_ms")
+            "library_ms", "grid_sample_ms", "fallback_share", "repeat")
     return dict(
         main_shapes=[{k: c[k] for k in keys if k in c} for c in main_cases],
         name=kernel.name, route="cuda",

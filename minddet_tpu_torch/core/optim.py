@@ -68,7 +68,16 @@ class AdamW:
     def update(self, optimizer: torch.optim.Optimizer,
                params: Iterable[torch.Tensor]) -> torch.Tensor:
         """Clip the ``.grad`` of ``params`` and step ``optimizer``. Returns
-        the global norm of the gradients before the clip."""
+        the global norm of the gradients before the clip.
+
+        A parameter of ``optimizer``'s groups that has no ``.grad`` (the
+        loss never reached it) gets a zero gradient first, as optax gives
+        it: its moments, its step count and its weight decay advance with
+        the others'. ``torch.optim.AdamW`` would skip it."""
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params if p.grad is not None]
         norm = global_norm(grads)
         if self.clip_global_norm:

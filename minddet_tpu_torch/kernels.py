@@ -150,9 +150,9 @@ HAT_SAMPLE_TAPS_FWD = CudaKernel(
 
 HAT_SAMPLE_TAPS_BWD = CudaKernel(
     "hat_sample_taps_bwd", "hat_sample_taps_bwd.cu",
-    # g, x, ys, xs, scale, acc, dx, dys, dxs, dscale, B, H, W, C, K, P,
-    # dtype, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, x, ys, xs, scale, acc, dx, dys, dxs, dscale, stats, B, H, W, C, K,
+    # P, tile, rows, smem, dtype, stream
+    [_P] * 11 + [_I] * 10 + [_P],
     replaces="minddet_tpu/ops/hat_sample.py:363 _bwd_taps_kernel",
 )
 
@@ -186,8 +186,9 @@ SEG_FULL_MAX_BWD = CudaKernel(
 
 BILINEAR_GATHER_BWD_DX = CudaKernel(
     "bilinear_gather_bwd_dx", "bilinear_gather_bwd_dx.cu",
-    # g, ci, cw, acc, B, HW, C, P, dtype, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, ci, cw, scratch, dx, B, HW, C, P, tile_rows, cap, smem, dtype,
+    # stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     replaces="minddet_tpu/ops/bilinear.py:83 _bwd_dx_kernel",
 )
 

@@ -115,12 +115,17 @@ def _check(x, ci, cw) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_int32(x, ci) -> None:
+    """K3f and K3dcw index x and their (B, P, C) side with 32-bit values."""
     if max(x.numel(), ci.shape[0] * ci.shape[1] * x.shape[2]) > _INT32_MAX:
         raise ValueError("tensors too large for the kernel's 32-bit indices")
 
 
 def _bilinear_gather_cuda(x, ci, cw) -> torch.Tensor:
     _check(x, ci, cw)
+    _check_int32(x, ci)
     b, hw, ch = x.shape
     p = ci.shape[1]
     out = torch.empty(b, p, ch, dtype=x.dtype, device=x.device)
@@ -143,25 +148,59 @@ def _check_g(g, x, ci) -> None:
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
 
 
+# K3dx's launch plan: the f32 row tile in shared memory takes at most this
+# many bytes; the sort of one window of a bucket holds SORT_CAP 8-byte keys
+DX_TILE_BYTES = 32 * 1024
+DX_MAX_TILE_ROWS = 64
+DX_SORT_CAP = 1024
+DX_HIST_BINS = 256
+SMEM_PER_BLOCK = 232_448  # an H100 block's most dynamic shared memory
+
+
+def gather_bwd_dx_plan(b: int, hw: int, c: int, p: int) -> dict:
+    """K3dx's launch plan for dx (b, hw, c) from p points per image:
+    ``tile_rows`` (TQ, a power of two: the most rows, up to 64, whose f32
+    sums fit in ``DX_TILE_BYTES``, or one), ``tiles`` (b * ceil(hw / TQ),
+    one block each), ``cap`` (keys sorted at once), ``smem_bytes`` per
+    block and ``scratch_ints`` (the corners' bucket ids, the tiles' counts
+    and starts). Raises where the kernel cannot take the shape."""
+    if b < 1 or hw < 1 or c < 1:
+        raise ValueError(f"empty map ({b}, {hw}, {c})")
+    if 4 * b * p > _INT32_MAX:
+        raise ValueError(f"4 * B * P = {4 * b * p} corner ids pass 2**31")
+    tq = DX_MAX_TILE_ROWS
+    while tq > 1 and tq * c * 4 > DX_TILE_BYTES:
+        tq //= 2
+    tiles = b * -(-hw // tq)
+    smem = tq * c * 4 + DX_SORT_CAP * 8 + (tq + 1 + DX_HIST_BINS) * 4
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"C={c}: one row's f32 sums do not fit in shared "
+                         f"memory ({smem} > {SMEM_PER_BLOCK} bytes)")
+    return dict(tile_rows=tq, tiles=tiles, cap=DX_SORT_CAP, smem_bytes=smem,
+                scratch_ints=4 * b * p + 2 * tiles + 1)
+
+
 def _bwd_dx_cuda(g, x, ci, cw) -> torch.Tensor:
     _check(x, ci, cw)
     _check_g(g, x, ci)
     b, hw, ch = x.shape
-    # the f32 scatter-add image; for an f32 map it is dx itself, for a bf16
-    # map it is rounded once below, after all the sums
-    acc = torch.zeros(b, hw, ch, dtype=torch.float32, device=x.device)
-    if g.numel():
-        fn = BILINEAR_GATHER_BWD_DX.fn()
-        BILINEAR_GATHER_BWD_DX.launches += 1
-        err = fn(g.data_ptr(), ci.data_ptr(), cw.data_ptr(), acc.data_ptr(),
-                 b, hw, ch, ci.shape[1], _DTYPE_CODE[x.dtype],
-                 cuda_stream(x.device))
-        BILINEAR_GATHER_BWD_DX.check(err)
-    return acc if x.dtype == torch.float32 else acc.to(x.dtype)
+    p = ci.shape[1]
+    plan = gather_bwd_dx_plan(b, hw, ch, p)
+    dx = torch.empty(b, hw, ch, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32,
+                          device=x.device)
+    fn = BILINEAR_GATHER_BWD_DX.fn()
+    BILINEAR_GATHER_BWD_DX.launches += 1
+    err = fn(g.data_ptr(), ci.data_ptr(), cw.data_ptr(), scratch.data_ptr(),
+             dx.data_ptr(), b, hw, ch, p, plan["tile_rows"], plan["cap"],
+             plan["smem_bytes"], _DTYPE_CODE[x.dtype], cuda_stream(x.device))
+    BILINEAR_GATHER_BWD_DX.check(err)
+    return dx
 
 
 def _bwd_dcw_cuda(g, x, ci, cw) -> torch.Tensor:
     _check(x, ci, cw)
+    _check_int32(x, ci)
     _check_g(g, x, ci)
     b, hw, ch = x.shape
     p = ci.shape[1]

@@ -228,7 +228,46 @@ def _taps_cuda(x, ys, xs, scale) -> torch.Tensor:
     return out
 
 
-def _taps_bwd_cuda(g, x, ys, xs, scale):
+# K1b's launch plan (see taps_bwd_plan): a block's shared memory, at most
+# this many bytes, so that two 512-thread blocks fit on an SM (227 KB, less
+# 1 KB reserved per block)
+TAPS_BWD_SMEM_BYTES = 110 * 1024
+TAPS_BWD_WINDOW_SHARE = 3  # the window takes at most 1/3 of it
+TAPS_BWD_MAX_TILE = 2048  # positions per block
+TAPS_BWD_SLOT_BYTES = 12  # per corner: bucket id, scale * weight, dot
+
+
+def taps_bwd_plan(b: int, h: int, w: int, c: int, k: int, p: int) -> dict:
+    """K1b's launch plan for x (b, h, w, c) and (b, k, p) coordinates, C %
+    8 == 0 (a block takes all C channels): ``rows`` R of the dx window
+    (whole map rows, as many as fit in 1 / ``TAPS_BWD_WINDOW_SHARE`` of
+    ``TAPS_BWD_SMEM_BYTES`` at two int32 per texel, at most ``h``; 0 where
+    not one row fits, and then every corner takes the global fallback);
+    ``tile`` positions per block, as many as the rest holds at
+    ``TAPS_BWD_SLOT_BYTES`` per corner (4 corners per sample, ``k``
+    samples per position), evened out over the image's tiles; ``tiles``;
+    and ``smem_bytes`` = (2 * R * w + 1) * 4 + tile * k * 48. Raises where
+    not one position's corners fit (K > ~2300)."""
+    if c % 8 or c < 8:
+        raise ValueError(f"C={c} must be a positive multiple of 8")
+    rows = min(h, (TAPS_BWD_SMEM_BYTES // TAPS_BWD_WINDOW_SHARE - 4)
+               // (8 * w))
+    window = (2 * rows * w + 1) * 4
+    per_position = 4 * k * TAPS_BWD_SLOT_BYTES
+    fit = (TAPS_BWD_SMEM_BYTES - window) // per_position
+    if fit < 1:
+        raise ValueError(f"K={k}: one position's corners do not fit in "
+                         f"{TAPS_BWD_SMEM_BYTES} bytes of shared memory")
+    tile = min(max(p, 1), TAPS_BWD_MAX_TILE, fit)
+    tile = -(-p // -(-p // tile)) if p else 1  # tiles of (nearly) equal size
+    return dict(rows=rows, tile=tile, tiles=b * -(-p // tile),
+                smem_bytes=window + tile * per_position)
+
+
+def _taps_bwd_cuda(g, x, ys, xs, scale, stats=None):
+    """``stats``, where given, is a zeroed (2,) int64 CUDA tensor that
+    receives the corners added through the global fallback (outside the
+    block's window) and all corners added."""
     sc = torch.ones_like(ys) if scale is None else scale
     _check_taps(x, ys, xs, sc)
     b, h, w, c = x.shape
@@ -238,6 +277,7 @@ def _taps_bwd_cuda(g, x, ys, xs, scale):
         raise ValueError(f"g must be a contiguous {x.dtype} (B, P, K*C) = "
                          f"{(b, p, k * c)} tensor on {x.device}; got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    plan = taps_bwd_plan(b, h, w, c, k, p)
     dcoords = torch.empty(3, b, k, p, dtype=torch.float32, device=x.device)
     # the f32 scatter-add image; for an f32 x it is dx itself
     acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
@@ -248,8 +288,9 @@ def _taps_bwd_cuda(g, x, ys, xs, scale):
     err = fn(g.data_ptr(), x.data_ptr(), ys.data_ptr(), xs.data_ptr(),
              sc.data_ptr(), acc.data_ptr(), dx.data_ptr(),
              dcoords[0].data_ptr(), dcoords[1].data_ptr(),
-             dcoords[2].data_ptr(), b, h, w, c, k, p, _DTYPE_CODE[x.dtype],
-             cuda_stream(x.device))
+             dcoords[2].data_ptr(), 0 if stats is None else stats.data_ptr(),
+             b, h, w, c, k, p, plan["tile"], plan["rows"],
+             plan["smem_bytes"], _DTYPE_CODE[x.dtype], cuda_stream(x.device))
     HAT_SAMPLE_TAPS_BWD.check(err)
     return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
 

@@ -281,3 +281,48 @@ def test_backward_kernels_match_plain(cuda, dtype, tol):
     torch.testing.assert_close(
         dcw, bilinear_gather_bwd_dcw_plain(g.float(), xt.float(), cit),
         rtol=1e-4, atol=1e-3)
+
+
+# K3dx's plan at the two-stage CenterPoint train step's shape (bf16 BEV map
+# (8, 128 * 128, 384), 640 points) and at one image: 16-row tiles (16 *
+# 384 f32 sums = 24 KB), 1024 tiles per image, 20,480 corner ids; None where
+# only the properties below are checked
+_DX_PLANS = {(8, 16384, 384, 640): dict(tile_rows=16, tiles=8192, cap=1024,
+                                        smem_bytes=33_860,
+                                        scratch_ints=36_865),
+             (1, 16384, 384, 640): dict(tile_rows=16, tiles=1024, cap=1024,
+                                        smem_bytes=33_860,
+                                        scratch_ints=4609),
+             (2, 40000, 256, 10 ** 5): None, (2, 40000, 256, 10 ** 6): None,
+             (4, 7, 4, 1): None, (1, 1, 8192, 3): None}
+
+
+@pytest.mark.parametrize("b,hw,c,p", list(_DX_PLANS))
+def test_gather_bwd_dx_plan_sizes(b, hw, c, p):
+    """K3dx's launch plan: the expected plan at the main path's shapes;
+    everywhere row tiles of a power of two rows whose f32 sums fit the tile
+    budget (or one row) and that cover each image's rows once, the bucket
+    scratch linear in P (at most 4 ints per corner and 2 per tile, plus
+    one), and the sums plus the sort's keys within a block's 227 KB."""
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    plan = bl.gather_bwd_dx_plan(b, hw, c, p)
+    if _DX_PLANS[(b, hw, c, p)] is not None:
+        assert plan == _DX_PLANS[(b, hw, c, p)]
+    tq = plan["tile_rows"]
+    assert tq & (tq - 1) == 0 and tq <= bl.DX_MAX_TILE_ROWS
+    assert tq == 1 or tq * c * 4 <= bl.DX_TILE_BYTES
+    per_image, rest = divmod(plan["tiles"], b)
+    assert rest == 0 and (per_image - 1) * tq < hw <= per_image * tq
+    assert plan["scratch_ints"] <= 4 * b * p + 2 * plan["tiles"] + 1
+    assert plan["cap"] >= 512 and plan["cap"] & (plan["cap"] - 1) == 0
+    assert tq * c * 4 + plan["cap"] * 8 < plan["smem_bytes"] <= 232_448
+
+
+def test_gather_bwd_dx_plan_refuses_what_it_cannot_take():
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    with pytest.raises(ValueError):
+        bl.gather_bwd_dx_plan(4, 100, 8, 2 ** 29)  # corner ids pass 2**31
+    with pytest.raises(ValueError):
+        bl.gather_bwd_dx_plan(1, 10, 2 ** 16, 5)  # one f32 row too wide

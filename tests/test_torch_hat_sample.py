@@ -323,3 +323,65 @@ def test_taps_bwd_kernel_takes_any_width(cuda):
     for a, a2, r in zip(got[1:], again[1:], ref[1:]):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-4)
         assert torch.equal(a, a2)
+
+
+# K1b's launch plan at every main-path shape (H = W, C; the bf16 batch-128
+# train step's three DCN inputs, the any-width case), at widths from 8 to
+# 2048 and on a map too wide for any window
+_PLAN_SHAPES = ([(128, 64, 64, 128), (128, 32, 32, 256), (128, 16, 16, 512),
+                 (16, 32, 32, 384)]
+                + [(2, 16, 16, c) for c in (8, 16, 24, 40, 64, 136, 1024,
+                                            2048)]
+                + [(1, 2, 8000, 8), (2, 16, 1024, 8)])
+
+
+# the expected plan (rows, tile, tiles, smem_bytes) at the train step's
+# three shapes, at a map whose window holds 4 of its 16 rows and at one too
+# wide for any window
+_PLANS = {(128, 64, 64, 128): (64, 179, 2944, 110_100),
+          (128, 32, 32, 256): (32, 205, 640, 96_756),
+          (128, 16, 16, 512): (16, 128, 256, 57_348),
+          (2, 16, 1024, 8): (4, 183, 180, 111_828),
+          (1, 2, 8000, 8): (0, 259, 62, 111_892)}
+
+
+@pytest.mark.parametrize("b,h,w,c", _PLAN_SHAPES)
+def test_taps_bwd_plan_fits_and_covers(b, h, w, c):
+    """The expected plan at the main-path shapes; everywhere shared memory
+    that holds the window (two int32 per texel) and four corner slots of 12
+    bytes per sample of the tile, and fits two blocks, each with its 1 KB
+    reserve, in 227 KB; window rows within the
+    map; tiles that cover every position once. A block takes all C
+    channels, so the plan does not depend on C."""
+    k, p = 9, h * w
+    plan = ths.taps_bwd_plan(b, h, w, c, k, p)
+    rows, tile = plan["rows"], plan["tile"]
+    if (b, h, w, c) in _PLANS:
+        assert (rows, tile, plan["tiles"], plan["smem_bytes"]) == \
+            _PLANS[(b, h, w, c)]
+    assert plan == ths.taps_bwd_plan(b, h, w, 8, k, p)
+    assert plan["smem_bytes"] >= 8 * rows * w + 4 * k * 12 * tile
+    assert 2 * (plan["smem_bytes"] + 1024) <= 232_448
+    assert 0 <= rows <= h
+    per_image = -(-p // tile)
+    assert plan["tiles"] == b * per_image
+    assert (per_image - 1) * tile < p <= per_image * tile
+    if w == 8000:
+        assert rows == 0  # not one row fits: every corner is a fallback
+    else:
+        assert rows >= 1
+    if h * w <= 1024:
+        assert rows == h  # a small map: the window is the map
+
+
+def test_taps_bwd_plan_takes_no_positions():
+    """P = 0 (an empty batch of positions) plans one empty tile."""
+    plan = ths.taps_bwd_plan(2, 8, 8, 16, 9, 0)
+    assert plan["tile"] == 1 and plan["tiles"] == 0
+
+
+def test_taps_bwd_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError):
+        ths.taps_bwd_plan(1, 8, 8, 12, 9, 64)  # C % 8 != 0
+    with pytest.raises(ValueError):
+        ths.taps_bwd_plan(1, 8, 8, 8, 4000, 64)  # one position's corners

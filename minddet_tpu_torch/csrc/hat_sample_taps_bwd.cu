@@ -1,8 +1,16 @@
-// Tap-grouped modulated bilinear sampling, backward: the gradient of the
-// DCNv2 sampler in csrc/hat_sample_taps.cu.
+// Modulated bilinear sampling, backward: the gradient of the DCNv2
+// samplers in csrc/hat_sample_taps.cu (tap-grouped) and
+// csrc/hat_sample_flat.cu (flat). One kernel serves both.
 //
-// Replaces minddet_tpu/ops/hat_sample.py:_bwd_taps_kernel (reached through
-// _bwd_taps_pallas <- the custom_vjp of hat_sample_2d_taps <- ops/dcn.py).
+// Replaces minddet_tpu/ops/hat_sample.py:_bwd_taps_kernel (K1b, reached
+// through _bwd_taps_pallas <- the custom_vjp of hat_sample_2d_taps <-
+// ops/dcn.py) through hat_sample_taps_bwd, and hat_sample.py:_bwd_kernel
+// (K2b, reached through _bwd_pallas <- the custom_vjp of hat_sample_2d <-
+// ops/dcn.py's flat branch, DCN layers whose Cin is not a multiple of 128)
+// through hat_sample_flat_bwd. The flat samples (B, N) are position-major
+// (n = p * K + k) and the flat g (B, N, C) has the memory of a tap-grouped
+// g (B, P, K*C): the flat backward is the tap-grouped one with one tap,
+// K = 1 and P = N.
 //
 // For each sample s = (b, p, k), with corner rows v_ij = x[b, y0+i, x0+j, :]
 // (zero out of bounds), bilinear weights w_ij, fy = ys - y0, fx = xs - x0,
@@ -15,7 +23,7 @@
 //
 // This is the gradient of the corner gather with floor held fixed, as the
 // reference's XLA path differentiates it: at an integer coordinate dys and
-// dxs are forward differences. The TPU kernel's hat subgradient is zero
+// dxs are forward differences. The TPU kernels' hat subgradient is zero
 // there; that is not carried over. Corners are tested against the map in
 // float, so +-1e6, +-3e9 and NaN contribute nothing.
 //
@@ -24,7 +32,8 @@
 // and writes dx and the three (B,K,P) f32 outputs. About 16 flops per g
 // value, far below the memory rate. What it must avoid is an f32 atomic in
 // global memory for every corner's scale*w*g: 604 M float4 reductions per
-// call at (B,H,W,C) = (128,64,64,128), all through L2.
+// call at (B,H,W,C) = (128,64,64,128), 75 M corners of 16 float4 each in
+// the flat case at (128,128,128,64), all through L2.
 //
 // Design: one kernel, taps_bwd_kernel, sums dx per tile in shared memory
 // before it goes out, as the TPU kernel sums a tile's union window of map
@@ -42,14 +51,14 @@
 //   buckets with (corner slot e, scale * w). A corner on the map but
 //   outside the window (the fallback; spread-80 coordinates send many
 //   there) is done at once by its sample's thread: its dot from x in
-//   global memory, its scale * w * g by float4 atomicAdd into the scratch.
+//   global memory, its scale * w * g by atomicAdd into the scratch.
 // - Pass 3: a group of G lanes per window texel (G the power of two >=
-//   C/VEC, at most 32), lane j on the texel's 16-byte vectors j, j+G, ...,
+//   C/VEC, at most 32), lane j on the texel's vectors j, j+G, ...,
 //   walks the texel's bucket: it adds scale * w * g into registers and dots
 //   g with the texel's row of x, read once; the group sums each dot with an
 //   xor tree, and its first lane adds it into the corner's slot. Then the
 //   texel's sums go into the f32 scratch with one float4 atomicAdd per
-//   vector (red.global.add.v4.f32). A touched texel takes one reduction
+//   4 channels (red.global.add.v4.f32). A touched texel takes one reduction
 //   per tile instead of one per corner (36 corners per texel at spread
 //   1.5); no f32 atomic touches shared memory (on sm_90 those compile to
 //   compare-and-swap loops, ATOMS.CAST.SPIN). g is read once per corner,
@@ -59,15 +68,17 @@
 //   sum and one fixed xor tree, or one thread's sum over the channels, so
 //   the three outputs repeat bit for bit.
 // TP and R come from the wrapper's plan (ops/hat_sample.py:
-// taps_bwd_plan), which keeps a block within ~110 KB so that two 512-thread
-// blocks fit on an SM; where not one window row fits it gives R = 0 and
-// every corner takes the fallback. dx is summed in f32 in no fixed order.
+// taps_bwd_plan, flat_bwd_plan), which keeps a block within ~110 KB so
+// that two 512-thread blocks fit on an SM; where not one window row fits
+// it gives R = 0 and every corner takes the fallback. dx is summed in f32 in no fixed order.
 // For a bf16 x, flush_bf16_kernel then rounds the scratch to dx once; for
 // an f32 x the scratch is dx.
 //
-// The window scheme is written for K2b (csrc/hat_sample_flat_bwd.cu) too:
-// its samples are position-major with one tap, a tile of TP*K consecutive
-// samples there.
+// Widths: a lane moves 16-byte vectors (8 bf16 or 4 f32 channels) where C
+// is a whole number of them and the rows are 16-byte aligned; otherwise one
+// channel (F32x1, Bf16x1: scalar loads, scalar atomics into the scratch),
+// so the flat entry takes any C >= 1. Offsets into g, x, the coordinates
+// and the scratch are 64-bit: a launch may hold more than 2**31 values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,14 +124,48 @@ struct Bf16x8 {
   static __device__ __forceinline__ void load(const T* p, float* v) {
     unpack(raw(p), v);
   }
-  static __device__ __forceinline__ void store(T* p, const float* v) {
-    uint4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = q;
+};
+
+// one channel per lane step: any C, any alignment
+struct F32x1 {
+  using T = float;
+  using Raw = float;
+  static constexpr int kVec = 1;
+  static __device__ __forceinline__ Raw raw(const T* p) { return __ldg(p); }
+  static __device__ __forceinline__ void unpack(const Raw& q, float* v) { v[0] = q; }
+  static __device__ __forceinline__ void load(const T* p, float* v) { v[0] = __ldg(p); }
+};
+
+struct Bf16x1 {
+  using T = __nv_bfloat16;
+  using Raw = unsigned short;
+  static constexpr int kVec = 1;
+  static __device__ __forceinline__ Raw raw(const T* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  static __device__ __forceinline__ void unpack(const Raw& q, float* v) {
+    v[0] = __bfloat162float(__ushort_as_bfloat16(q));
+  }
+  static __device__ __forceinline__ void load(const T* p, float* v) {
+    unpack(raw(p), v);
   }
 };
+
+// dst[0, n) += v[0, n) with reductions in global memory: float4 ones where
+// n % 4 == 0 (dst 16-byte aligned), else one per value
+template <int n>
+__device__ __forceinline__ void red_add(float* dst, const float* v) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < n; q += 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst + q),
+                make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < n; ++q) atomicAdd(dst + q, v[q]);
+  }
+}
 
 // The four corners of (y, xx): rows, columns, bilinear weights and whether
 // each lies on the (H, W) map; bounds are tested in float so far-out
@@ -374,13 +419,10 @@ taps_bwd_kernel(const typename V::T* __restrict__ g,
           for (int q = 0; q < kVec; ++q) d[c] = fmaf(gv[q], xv[q], d[c]);
           const float a = sc * cr.w[c];
           if (a == 0.f) continue;
-          float* dst = acc + static_cast<size_t>(b) * H * W * C + off;
+          float ag[kVec];
 #pragma unroll
-          for (int q = 0; q < kVec; q += 4) {
-            atomicAdd(reinterpret_cast<float4*>(dst + q),
-                      make_float4(a * gv[q], a * gv[q + 1], a * gv[q + 2],
-                                  a * gv[q + 3]));
-          }
+          for (int q = 0; q < kVec; ++q) ag[q] = a * gv[q];
+          red_add<kVec>(acc + static_cast<size_t>(b) * H * W * C + off, ag);
         }
       }
 #pragma unroll
@@ -486,14 +528,16 @@ taps_bwd_kernel(const typename V::T* __restrict__ g,
           if (lane == 0) dot[e] += part;
         }
         if (on) {
+          // one reduction per 4 values (per value for a scalar lane),
+          // skipped where they are all zero
+          constexpr int kRed = kVec < 4 ? kVec : 4;
           float* dst = acc + static_cast<size_t>(b) * H * W * C + toff + v * kVec;
 #pragma unroll
-          for (int q = 0; q < kVec; q += 4) {
-            if (sum[q] != 0.f || sum[q + 1] != 0.f || sum[q + 2] != 0.f ||
-                sum[q + 3] != 0.f) {
-              atomicAdd(reinterpret_cast<float4*>(dst + q),
-                        make_float4(sum[q], sum[q + 1], sum[q + 2], sum[q + 3]));
-            }
+          for (int q = 0; q < kVec; q += kRed) {
+            bool nonzero = false;
+#pragma unroll
+            for (int i = 0; i < kRed; ++i) nonzero |= sum[q + i] != 0.f;
+            if (nonzero) red_add<kRed>(dst + q, sum + q);
           }
         }
       }
@@ -520,16 +564,26 @@ taps_bwd_kernel(const typename V::T* __restrict__ g,
   }
 }
 
-// dx = bf16(acc), 8 values per thread, rounded once
+// dx = bf16(acc) over n values, rounded once: 8 per thread where they are
+// whole vectors, one per thread for the tail
 __global__ void __launch_bounds__(kThreads)
 flush_bf16_kernel(const float* __restrict__ acc,
-                  __nv_bfloat16* __restrict__ dx, size_t n8) {
+                  __nv_bfloat16* __restrict__ dx, size_t n) {
   const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t n8 = n / 8;
   if (t < n8) {
     const float4 lo = reinterpret_cast<const float4*>(acc)[2 * t];
     const float4 hi = reinterpret_cast<const float4*>(acc)[2 * t + 1];
-    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    Bf16x8::store(dx + 8 * t, v);
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+    h[0] = __floats2bfloat162_rn(lo.x, lo.y);
+    h[1] = __floats2bfloat162_rn(lo.z, lo.w);
+    h[2] = __floats2bfloat162_rn(hi.x, hi.y);
+    h[3] = __floats2bfloat162_rn(hi.z, hi.w);
+    reinterpret_cast<uint4*>(dx)[t] = q;
+  } else if (t < n8 + n % 8) {
+    const size_t i = 8 * n8 + (t - n8);
+    dx[i] = __float2bfloat16_rn(acc[i]);
   }
 }
 
@@ -554,18 +608,53 @@ int launch(const void* g, const void* x, const float* ys, const float* xs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launches of either entry; vec selects the lane type of dtype (0 =
+// float32, 1 = bfloat16) that moves 16-byte vectors, else the scalar one.
+int backward(const void* g, const void* x, const float* ys, const float* xs,
+             const float* scale, float* acc, void* dx, float* dys, float* dxs,
+             float* dsc, void* stats, int B, int H, int W, int C, int K,
+             int P, int tile, int rows, int smem, int dtype, int vec,
+             cudaStream_t st) {
+  unsigned long long* counters = static_cast<unsigned long long*>(stats);
+  if (tile <= 0 || rows < 0 || rows > H) return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (dtype == 0) {
+    if (dx != static_cast<void*>(acc)) return static_cast<int>(cudaErrorInvalidValue);
+    err = vec ? launch<F32x4>(g, x, ys, xs, scale, acc, dys, dxs, dsc, counters,
+                              B, H, W, C, K, P, tile, rows, smem, st)
+              : launch<F32x1>(g, x, ys, xs, scale, acc, dys, dxs, dsc, counters,
+                              B, H, W, C, K, P, tile, rows, smem, st);
+  } else if (dtype == 1) {
+    err = vec ? launch<Bf16x8>(g, x, ys, xs, scale, acc, dys, dxs, dsc, counters,
+                               B, H, W, C, K, P, tile, rows, smem, st)
+              : launch<Bf16x1>(g, x, ys, xs, scale, acc, dys, dxs, dsc, counters,
+                               B, H, W, C, K, P, tile, rows, smem, st);
+    const size_t n = static_cast<size_t>(B) * H * W * C;
+    if (err == 0 && n > 0) {
+      const size_t threads = n / 8 + n % 8;
+      flush_bf16_kernel<<<static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+                          kThreads, 0, st>>>(
+          acc, static_cast<__nv_bfloat16*>(dx), n);
+      err = static_cast<int>(cudaGetLastError());
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return err;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. g (B, P, K*C) and x (B, H, W, C) in
-// that type; ys, xs, scale (B, K, P) f32; acc (B, H, W, C) f32, zeroed by
-// the caller; dys, dxs, dsc (B, K, P) f32, written whole. For float32, dx
-// must be acc (the scratch is the result); for bfloat16 dx (B, H, W, C)
+// K1b. dtype: 0 = float32, 1 = bfloat16. g (B, P, K*C) and x (B, H, W, C)
+// in that type; ys, xs, scale (B, K, P) f32; acc (B, H, W, C) f32, zeroed
+// by the caller; dys, dxs, dsc (B, K, P) f32, written whole. For float32,
+// dx must be acc (the scratch is the result); for bfloat16 dx (B, H, W, C)
 // receives acc rounded. stats, where not null, are 2 zeroed counters: the
 // corners added by the global fallback, and all corners added. tile (TP),
 // rows (R) and smem ((2 * R * W + 1) * 4 + TP * K * 48 bytes) are the
 // plan's. The caller guarantees contiguous tensors, 16-byte aligned rows,
-// C % 8 == 0 and fewer than 2**31 values in g and in x. Returns the first
-// CUDA error of the launches.
+// C % 8 == 0 and fewer than 2**31 blocks (B * ceil(P / TP)). Returns the
+// first CUDA error of the launches.
 extern "C" int hat_sample_taps_bwd(const void* g, const void* x,
                                    const float* ys, const float* xs,
                                    const float* scale, float* acc, void* dx,
@@ -573,26 +662,24 @@ extern "C" int hat_sample_taps_bwd(const void* g, const void* x,
                                    void* stats, int B, int H, int W, int C,
                                    int K, int P, int tile, int rows, int smem,
                                    int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned long long* counters = static_cast<unsigned long long*>(stats);
-  if (tile <= 0 || rows < 0 || rows > H) return static_cast<int>(cudaErrorInvalidValue);
-  int err;
-  if (dtype == 0) {
-    if (dx != static_cast<void*>(acc)) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch<F32x4>(g, x, ys, xs, scale, acc, dys, dxs, dsc, counters, B,
-                        H, W, C, K, P, tile, rows, smem, st);
-  } else if (dtype == 1) {
-    err = launch<Bf16x8>(g, x, ys, xs, scale, acc, dys, dxs, dsc, counters,
-                         B, H, W, C, K, P, tile, rows, smem, st);
-    const size_t n8 = static_cast<size_t>(B) * H * W * (C / 8);
-    if (err == 0 && n8 > 0) {
-      flush_bf16_kernel<<<static_cast<unsigned>((n8 + kThreads - 1) / kThreads),
-                          kThreads, 0, st>>>(
-          acc, static_cast<__nv_bfloat16*>(dx), n8);
-      err = static_cast<int>(cudaGetLastError());
-    }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return err;
+  return backward(g, x, ys, xs, scale, acc, dx, dys, dxs, dsc, stats, B, H, W,
+                  C, K, P, tile, rows, smem, dtype, 1,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// K2b: the same with one tap: g (B, N, C); ys, xs, scale, dys, dxs, dsc
+// (B, N); any C >= 1; the plan's (ops/hat_sample.py:flat_bwd_plan) tile
+// of samples, rows and smem. vec: 1 when C is a multiple of 4 (f32) or 8
+// (bf16) and g and x are 16-byte aligned, else 0 (one channel per lane
+// step).
+extern "C" int hat_sample_flat_bwd(const void* g, const void* x,
+                                   const float* ys, const float* xs,
+                                   const float* scale, float* acc, void* dx,
+                                   float* dys, float* dxs, float* dsc,
+                                   void* stats, int B, int H, int W, int C,
+                                   int N, int tile, int rows, int smem,
+                                   int dtype, int vec, void* stream) {
+  return backward(g, x, ys, xs, scale, acc, dx, dys, dxs, dsc, stats, B, H, W,
+                  C, 1, N, tile, rows, smem, dtype, vec,
+                  static_cast<cudaStream_t>(stream));
 }

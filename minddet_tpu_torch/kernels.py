@@ -91,33 +91,42 @@ class CudaKernel:
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     """Build (one ``nvcc`` per source, all started together) and bind every
-    kernel not built yet. Returns each built kernel's compiler log."""
+    kernel not built yet; kernels that share a source share its library.
+    Returns each built kernel's compiler log."""
     BUILD.mkdir(parents=True, exist_ok=True)
     todo = [k for k in kernels if k._fn is None]
-    procs = []
+    builds = {}  # library path -> (tmp, nvcc process), None where built
     for k in todo:
         path = k.library_path()
+        if path in builds:
+            continue
         if path.exists():
-            procs.append((k, path, None, None))
+            builds[path] = None
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
-        p = subprocess.Popen(k._compile_cmd(tmp), stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        procs.append((k, path, tmp, p))
-    logs = {}
+        builds[path] = (tmp, subprocess.Popen(
+            k._compile_cmd(tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    built_logs = {}
     failed = []
-    for k, path, tmp, p in procs:
-        if p is not None:
-            log, _ = p.communicate()
-            k.build_log = log
-            if p.returncode != 0:
-                failed.append(f"{k.source.name} (exit {p.returncode}):\n{log}")
-                continue
-            os.replace(tmp, path)
-        logs[k.name] = k.build_log
-        k._bind(path)
+    for path, build in builds.items():
+        if build is None:
+            continue
+        tmp, p = build
+        log, _ = p.communicate()
+        built_logs[path] = log
+        if p.returncode != 0:
+            failed.append(f"{path.name} (exit {p.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    logs = {}
+    for k in todo:
+        path = k.library_path()
+        k.build_log = built_logs.get(path, k.build_log)
+        logs[k.name] = k.build_log
+        k._bind(path)
     return logs
 
 
@@ -158,8 +167,8 @@ HAT_SAMPLE_TAPS_BWD = CudaKernel(
 
 ROTATED_IOU = CudaKernel(
     "rotated_iou_intersect", "rotated_iou.cu",
-    # boxes1, boxes2, out, B, N, M, stream
-    [_P, _P, _P, _I, _I, _I, _P],
+    # boxes1, boxes2, out, B, N, M, tile_rows, stream
+    [_P, _P, _P, _I, _I, _I, _I, _P],
     replaces="minddet_tpu/ops/rotated_iou_pallas.py:55 _intersect_kernel",
 )
 
@@ -206,11 +215,12 @@ HAT_SAMPLE_FLAT_FWD = CudaKernel(
     replaces="minddet_tpu/ops/hat_sample.py:171 _fwd_kernel",
 )
 
+# K2b is K1b's kernel with one tap: a second entry of the same source
 HAT_SAMPLE_FLAT_BWD = CudaKernel(
-    "hat_sample_flat_bwd", "hat_sample_flat_bwd.cu",
-    # g, x, ys, xs, scale, acc, dx, dys, dxs, dscale, B, H, W, C, N, dtype,
-    # vec, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hat_sample_flat_bwd", "hat_sample_taps_bwd.cu",
+    # g, x, ys, xs, scale, acc, dx, dys, dxs, dscale, stats, B, H, W, C, N,
+    # tile, rows, smem, dtype, vec, stream
+    [_P] * 11 + [_I] * 10 + [_P],
     replaces="minddet_tpu/ops/hat_sample.py:207 _bwd_kernel",
 )
 

@@ -25,7 +25,12 @@ the port of the TPU kernel ``bilinear.py:_fwd_kernel``, and in the backward
 a gradient and ``csrc/bilinear_gather_bwd_dcw.cu`` (``_bwd_dcw_kernel``) for
 weights that do; on a CPU tensor it runs the plain versions
 ``bilinear_gather_plain``, ``bilinear_gather_bwd_dx_plain`` and
-``bilinear_gather_bwd_dcw_plain``, the reference's XLA forms.
+``bilinear_gather_bwd_dcw_plain``, the reference's XLA forms. The kernels
+move 16-byte vectors (4 f32 or 8 bf16 channels); for any other C the
+wrappers zero-pad the channel axis to a whole number of vectors
+(``pad_channels``) before the launch and slice the padding off the
+result. Zero channels add nothing to a row, a dot or a gradient, so the
+result is the unpadded one.
 """
 
 from __future__ import annotations
@@ -92,7 +97,29 @@ def bilinear_gather_bwd_dcw_plain(g: torch.Tensor, x: torch.Tensor,
     return (dots * (ci >= 0)).float()
 
 
-def _check(x, ci, cw) -> None:
+def pad_channels(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., C) f32 or bf16, zero-padded along its last axis to a
+    whole number of 16-byte vectors (a multiple of 4 in f32, 8 in bf16):
+    a new contiguous tensor, or ``t`` itself where C already is one (or
+    the type is not one the kernels take, for ``_check`` to refuse)."""
+    c = t.shape[-1]
+    vec = _VEC.get(t.dtype, 1)
+    if c % vec == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, -c % vec))
+
+
+def _unpad(t: torch.Tensor, c: int) -> torch.Tensor:
+    """The first ``c`` channels of a padded result, contiguous."""
+    return t if t.shape[-1] == c else t[..., :c].contiguous()
+
+
+def _check(x, ci, cw, g=None, width=None) -> None:
+    """What the kernels take, checked on the padded tensors: x (B, HW, C),
+    C (or ``width``, the padded channels of g where the kernel reads no x)
+    a whole number of 16-byte vectors, ci (B, P, 4) int32, cw (B, P, 4)
+    f32, and g where given, all contiguous, 16-byte aligned, on x's
+    device."""
     if x.dim() != 3 or ci.dim() != 3 or ci.shape[2] != 4 \
             or cw.shape != ci.shape or ci.shape[0] != x.shape[0]:
         raise ValueError(f"expected x (B, HW, C) and ci, cw (B, P, 4); got "
@@ -103,12 +130,15 @@ def _check(x, ci, cw) -> None:
     if ci.dtype != torch.int32 or cw.dtype != torch.float32:
         raise TypeError(f"ci must be int32 and cw float32, got {ci.dtype} "
                         f"and {cw.dtype}")
-    if x.shape[2] % _VEC[x.dtype]:
-        raise ValueError(f"C={x.shape[2]} must be a multiple of "
+    width = x.shape[2] if width is None else width
+    if width % _VEC[x.dtype]:
+        raise ValueError(f"C={width} is not padded to a multiple of "
                          f"{_VEC[x.dtype]} for {x.dtype} (16-byte vectors)")
     if x.shape[1] < 1:
         raise ValueError("x has no rows to gather")
-    for name, t in (("x", x), ("ci", ci), ("cw", cw)):
+    named = (("x", x), ("ci", ci), ("cw", cw)) + (
+        () if g is None else (("g", g),))
+    for name, t in named:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -124,28 +154,31 @@ def _check_int32(x, ci) -> None:
 
 
 def _bilinear_gather_cuda(x, ci, cw) -> torch.Tensor:
+    c = x.shape[-1]
+    x = pad_channels(x)
     _check(x, ci, cw)
     _check_int32(x, ci)
     b, hw, ch = x.shape
     p = ci.shape[1]
     out = torch.empty(b, p, ch, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return _unpad(out, c)
     fn = BILINEAR_GATHER_FWD.fn()
     BILINEAR_GATHER_FWD.launches += 1
     err = fn(x.data_ptr(), ci.data_ptr(), cw.data_ptr(), out.data_ptr(), b,
              hw, ch, p, _DTYPE_CODE[x.dtype], cuda_stream(x.device))
     BILINEAR_GATHER_FWD.check(err)
-    return out
+    return _unpad(out, c)
 
 
 def _check_g(g, x, ci) -> None:
+    """g against the unpadded x: (B, P, C) in x's type, on x's device."""
     want = (ci.shape[0], ci.shape[1], x.shape[2])
     if (g.shape != want or g.dtype != x.dtype or g.device != x.device
-            or not g.is_contiguous() or g.data_ptr() % 16):
-        raise ValueError(f"g must be a contiguous, 16-byte aligned {x.dtype} "
-                         f"(B, P, C) = {want} tensor on {x.device}; got "
-                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+            or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous {x.dtype} (B, P, C) = "
+                         f"{want} tensor on {x.device}; got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
 
 
 # K3dx's launch plan: the f32 row tile in shared memory takes at most this
@@ -181,9 +214,12 @@ def gather_bwd_dx_plan(b: int, hw: int, c: int, p: int) -> dict:
 
 
 def _bwd_dx_cuda(g, x, ci, cw) -> torch.Tensor:
-    _check(x, ci, cw)
     _check_g(g, x, ci)
-    b, hw, ch = x.shape
+    c = x.shape[-1]
+    g = pad_channels(g)
+    _check(x, ci, cw, g, width=g.shape[-1])  # the kernel reads no x
+    b, hw = x.shape[:2]
+    ch = g.shape[-1]
     p = ci.shape[1]
     plan = gather_bwd_dx_plan(b, hw, ch, p)
     dx = torch.empty(b, hw, ch, dtype=x.dtype, device=x.device)
@@ -195,13 +231,14 @@ def _bwd_dx_cuda(g, x, ci, cw) -> torch.Tensor:
              dx.data_ptr(), b, hw, ch, p, plan["tile_rows"], plan["cap"],
              plan["smem_bytes"], _DTYPE_CODE[x.dtype], cuda_stream(x.device))
     BILINEAR_GATHER_BWD_DX.check(err)
-    return dx
+    return _unpad(dx, c)
 
 
 def _bwd_dcw_cuda(g, x, ci, cw) -> torch.Tensor:
-    _check(x, ci, cw)
-    _check_int32(x, ci)
     _check_g(g, x, ci)
+    g, x = pad_channels(g), pad_channels(x)
+    _check(x, ci, cw, g)
+    _check_int32(x, ci)
     b, hw, ch = x.shape
     p = ci.shape[1]
     if b * p * 4 > _INT32_MAX:
@@ -229,8 +266,10 @@ def bilinear_gather_bwd_dx(g: torch.Tensor, x: torch.Tensor,
     """The gradient of ``bilinear_gather`` with respect to ``x`` (only its
     shape, type and device are read), from the output's gradient ``g`` (B,
     P, C): a CUDA ``x`` launches the ``bilinear_gather_bwd_dx`` kernel (g
-    contiguous, in x's type) and raises on what it does not take; a CPU
-    ``x`` runs the plain version."""
+    contiguous, in x's type; a C that is not a whole number of 16-byte
+    vectors is zero-padded to one for the launch and dx sliced back to C)
+    and raises on what it does not take; a CPU ``x`` runs the plain
+    version."""
     if device_kind(x) == "cuda":
         return _bwd_dx_cuda(g, x, ci, cw)
     return bilinear_gather_bwd_dx_plain(g, ci, cw, x.shape[1])
@@ -241,8 +280,9 @@ def bilinear_gather_bwd_dcw(g: torch.Tensor, x: torch.Tensor,
                             ) -> torch.Tensor:
     """The gradient of ``bilinear_gather`` with respect to ``cw`` (B, P, 4)
     f32 (only its shape and type are read): a CUDA ``x`` launches the
-    ``bilinear_gather_bwd_dcw`` kernel and raises on what it does not take;
-    a CPU ``x`` runs the plain version."""
+    ``bilinear_gather_bwd_dcw`` kernel (g and x padded with zero channels as
+    for the forward, which leaves every dot as it is) and raises on what it
+    does not take; a CPU ``x`` runs the plain version."""
     if device_kind(x) == "cuda":
         return _bwd_dcw_cuda(g, x, ci, cw)
     return bilinear_gather_bwd_dcw_plain(g, x, ci)
@@ -278,8 +318,10 @@ def bilinear_gather(x: torch.Tensor, ci: torch.Tensor,
 
     A CUDA ``x`` launches the ``bilinear_gather_fwd`` kernel, and in the
     backward ``bilinear_gather_bwd_dx`` and / or ``bilinear_gather_bwd_dcw``
-    (f32 or bf16, contiguous, C a multiple of 4 or 8), and raises on what
-    they do not take; a CPU ``x`` runs the plain versions."""
+    (f32 or bf16, contiguous, any C >= 1: a C that is not a multiple of 4 in
+    f32 or 8 in bf16 is zero-padded to one for the launch and the result
+    sliced back to C), and raises on what they do not take; a CPU ``x``
+    runs the plain versions."""
     if torch.is_grad_enabled() and (x.requires_grad or cw.requires_grad):
         return _BilinearGather.apply(x, ci, cw)
     return _forward(x, ci, cw)

@@ -26,8 +26,10 @@ not copy that.
 ``hat_sample_2d`` is the flat form, the sampler of DCN layers whose Cin is
 not a multiple of 128: x (B, H, W, C) sampled at (B, N) coordinates into
 (B, N, C), any C >= 1. It has the same gradient and the same dispatch: a
-CUDA tensor launches ``csrc/hat_sample_flat.cu`` and, in the backward,
-``csrc/hat_sample_flat_bwd.cu``; a CPU tensor runs ``hat_sample_2d_plain``
+CUDA tensor launches ``csrc/hat_sample_flat.cu`` and, in the backward, the
+``hat_sample_flat_bwd`` entry of ``csrc/hat_sample_taps_bwd.cu`` (the
+tap-grouped backward's kernel with one tap: position-major flat samples
+are tap-grouped ones with K = 1); a CPU tensor runs ``hat_sample_2d_plain``
 and ``hat_sample_2d_bwd_plain``. Neither form falls back: on a CUDA tensor
 a wrapper launches its kernel or raises.
 """
@@ -47,7 +49,7 @@ from minddet_tpu_torch.kernels import (HAT_SAMPLE_FLAT_BWD,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
 _INT32_MAX = 2 ** 31 - 1
-_THREADS = 256  # per block, as the kernels launch them
+_THREADS = 256  # per block, as the flat forward launches them
 
 
 def _corners(ys: torch.Tensor, xs: torch.Tensor):
@@ -239,7 +241,8 @@ TAPS_BWD_SLOT_BYTES = 12  # per corner: bucket id, scale * weight, dot
 
 def taps_bwd_plan(b: int, h: int, w: int, c: int, k: int, p: int) -> dict:
     """K1b's launch plan for x (b, h, w, c) and (b, k, p) coordinates, C %
-    8 == 0 (a block takes all C channels): ``rows`` R of the dx window
+    8 == 0 (a block takes all C channels, so the plan does not depend on
+    C): ``rows`` R of the dx window
     (whole map rows, as many as fit in 1 / ``TAPS_BWD_WINDOW_SHARE`` of
     ``TAPS_BWD_SMEM_BYTES`` at two int32 per texel, at most ``h``; 0 where
     not one row fits, and then every corner takes the global fallback);
@@ -250,6 +253,11 @@ def taps_bwd_plan(b: int, h: int, w: int, c: int, k: int, p: int) -> dict:
     not one position's corners fit (K > ~2300)."""
     if c % 8 or c < 8:
         raise ValueError(f"C={c} must be a positive multiple of 8")
+    return _window_plan(b, h, w, k, p)
+
+
+def _window_plan(b: int, h: int, w: int, k: int, p: int) -> dict:
+    """The plan of ``taps_bwd_plan``, for any C."""
     rows = min(h, (TAPS_BWD_SMEM_BYTES // TAPS_BWD_WINDOW_SHARE - 4)
                // (8 * w))
     window = (2 * rows * w + 1) * 4
@@ -346,10 +354,10 @@ def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 
 def _check_flat(x, ys, xs, scale) -> None:
     _check(x, ys, xs, scale, 2)
-    # the backward's lane groups take up to 2 C threads per sample, 256 a
-    # block, fewer than 2**31 blocks; offsets are 64-bit
-    if 2 * ys.numel() * x.shape[3] > _INT32_MAX * _THREADS:
-        raise ValueError("too many samples for one launch of the kernels")
+    # the forward takes up to C threads per sample, 256 a block, fewer than
+    # 2**31 blocks; offsets are 64-bit
+    if ys.numel() * x.shape[3] > _INT32_MAX * _THREADS:
+        raise ValueError("too many samples for one launch of the kernel")
 
 
 def _vec(c: int, *tensors) -> int:
@@ -376,9 +384,33 @@ def _flat_cuda(x, ys, xs, scale) -> torch.Tensor:
     return out
 
 
-def _flat_bwd_cuda(g, x, ys, xs, scale):
+def flat_bwd_plan(b: int, h: int, w: int, c: int, n: int) -> dict:
+    """K2b's launch plan for x (b, h, w, c) and (b, n) position-major
+    coordinates, any C >= 1: K1b's (``taps_bwd_plan``) with one tap, P = n,
+    ``tile`` counting samples. At stage 1 of the four-stage-DCN ResNet,
+    (128, 128, 128, 64) x 147,456, the window holds 36 map rows (36,868
+    bytes) and a tile 1,569 samples (174 positions, 1.4 map rows): the
+    tile's corners lie within ~2 + 2 x 4.5 sigma rows of its own at a
+    spread of 1.5 px. The samples are read in g's order as K1b's are, so
+    the kernel, its 512 threads and its lane groups (8 lanes per texel at
+    bf16 C = 64) are K1b's. Offsets are 64-bit; raises where P or the grid
+    pass 2**31."""
+    if c < 1:
+        raise ValueError(f"C={c} must be at least 1")
+    if n > _INT32_MAX:
+        raise ValueError(f"N={n} samples pass 2**31")
+    plan = _window_plan(b, h, w, 1, n)
+    if plan["tiles"] > _INT32_MAX:
+        raise ValueError(f"{plan['tiles']} blocks pass the grid's 2**31")
+    return plan
+
+
+def _flat_bwd_cuda(g, x, ys, xs, scale, stats=None):
+    """``stats``, where given, is a zeroed (2,) int64 CUDA tensor that
+    receives the corners added through the global fallback (outside the
+    block's window) and all corners added."""
     sc = torch.ones_like(ys) if scale is None else scale
-    _check_flat(x, ys, xs, sc)
+    _check(x, ys, xs, sc, 2)
     b, h, w, c = x.shape
     n = ys.shape[1]
     if (g.shape != (b, n, c) or g.dtype != x.dtype
@@ -386,6 +418,7 @@ def _flat_bwd_cuda(g, x, ys, xs, scale):
         raise ValueError(f"g must be a contiguous {x.dtype} (B, N, C) = "
                          f"{(b, n, c)} tensor on {x.device}; got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    plan = flat_bwd_plan(b, h, w, c, n)
     dcoords = torch.empty(3, b, n, dtype=torch.float32, device=x.device)
     # the f32 scatter-add image; for an f32 x it is dx itself
     acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
@@ -396,8 +429,9 @@ def _flat_bwd_cuda(g, x, ys, xs, scale):
     err = fn(g.data_ptr(), x.data_ptr(), ys.data_ptr(), xs.data_ptr(),
              sc.data_ptr(), acc.data_ptr(), dx.data_ptr(),
              dcoords[0].data_ptr(), dcoords[1].data_ptr(),
-             dcoords[2].data_ptr(), b, h, w, c, n, _DTYPE_CODE[x.dtype],
-             _vec(c, g, x), cuda_stream(x.device))
+             dcoords[2].data_ptr(), 0 if stats is None else stats.data_ptr(),
+             b, h, w, c, n, plan["tile"], plan["rows"], plan["smem_bytes"],
+             _DTYPE_CODE[x.dtype], _vec(c, g, x), cuda_stream(x.device))
     HAT_SAMPLE_FLAT_BWD.check(err)
     return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
 
@@ -408,8 +442,10 @@ def hat_sample_2d_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The flat sampler's backward (see ``hat_sample_2d_bwd_plain``): a CUDA
     ``x`` launches the ``hat_sample_flat_bwd`` kernel (g contiguous in x's
-    dtype, the forward's inputs as it takes them) and raises on anything it
-    does not take; a CPU ``x`` runs the plain version."""
+    dtype, the forward's inputs as it takes them; 16-byte vectors where C
+    allows and the rows are aligned, one channel per lane step otherwise)
+    and raises on anything it does not take; a CPU ``x`` runs the plain
+    version."""
     if device_kind(x) == "cuda":
         return _flat_bwd_cuda(g, x, ys, xs, scale)
     return hat_sample_2d_bwd_plain(g, x, ys, xs, scale)

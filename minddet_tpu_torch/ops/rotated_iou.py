@@ -5,8 +5,10 @@
 Boxes are [x, y, w, l, yaw]. ``rotated_intersection_bev`` maps (N, 5) x
 (M, 5), or a batch (B, N, 5) x (B, M, 5), to the f32 intersection areas
 (N, M) or (B, N, M). On a CUDA tensor it launches ``csrc/rotated_iou.cu``,
-the port of the TPU kernel ``rotated_iou_pallas.py:_intersect_kernel``; on
-a CPU tensor it runs the plain version ``rotated_intersection_bev_plain``.
+the port of the TPU kernel ``rotated_iou_pallas.py:_intersect_kernel``,
+which settles the pairs that ``separated`` finds at 0 and clips the rest;
+on a CPU tensor it runs the plain version
+``rotated_intersection_bev_plain``.
 
 The plain version is the kernel's own algorithm, vectorised over the pair
 axes: Sutherland-Hodgman clips quad A against the four half-planes of quad
@@ -33,6 +35,7 @@ from minddet_tpu_torch.ops.box import rect_corner_offsets
 EPS = 1e-8          # |den| guard of the clip-line intersection, IoU floor
 INSIDE_EPS = 1e-6   # a vertex with side >= -INSIDE_EPS is inside an edge
 MAX_VERTICES = 8    # rect ∩ rect has at most 8 vertices
+SEP_REL = 1e-5      # relative margin of the separation test (f32 rounding)
 
 
 def _clip_area(ax, ay, bx, by):
@@ -110,6 +113,34 @@ def rotated_intersection_bev_plain(boxes1: torch.Tensor,
                       for i in range(0, n, row_chunk)], dim=-2)
 
 
+def separated(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """The pairs that the K4 kernel settles at 0 without clipping: (..., N,
+    5) x (..., M, 5) -> (..., N, M) bool, the kernel's rule in f32.
+
+    A pair is separated where its centres lie farther apart than
+
+        (r_a + r_b + 2 * INSIDE_EPS / min(|w_b|, |l_b|)) * (1 + SEP_REL)
+
+    with r = hypot(w, l) / 2 the circumscribed radius. The clip keeps a
+    vertex up to INSIDE_EPS / |edge| outside each edge of B, so it computes
+    A ∩ B grown by at most the middle term; SEP_REL covers the f32 rounding
+    of the corners, the sides and this test. Such a pair's clipped polygon
+    is empty and its area 0. A B with a zero edge is never separated: its
+    edges clip nothing, and the clip returns A's area. Non-finite distances
+    and sizes are never separated either (the comparisons are false or
+    excluded), so they take the clip as before."""
+    a = boxes1.float()[..., :, None, :]
+    b = boxes2.float()[..., None, :, :]
+    dx = b[..., 0] - a[..., 0]
+    dy = b[..., 1] - a[..., 1]
+    d2 = dx * dx + dy * dy
+    r_a = 0.5 * torch.hypot(a[..., 2], a[..., 3])
+    r_b = 0.5 * torch.hypot(b[..., 2], b[..., 3]) + 2 * INSIDE_EPS / \
+        torch.minimum(b[..., 2].abs(), b[..., 3].abs())
+    reach = (r_a + r_b) * (1 + SEP_REL)
+    return (d2 > reach * reach) & (d2 < float("inf"))
+
+
 def _check(b1: torch.Tensor, b2: torch.Tensor) -> None:
     if b1.dim() != 3 or b2.dim() != 3 or b1.shape[-1] != 5 \
             or b2.shape[-1] != 5 or b1.shape[0] != b2.shape[0]:
@@ -128,16 +159,35 @@ def _check(b1: torch.Tensor, b2: torch.Tensor) -> None:
                          "kernel's grid and 32-bit offsets")
 
 
+TILE_COLS = 64  # j extent of K4's block tile, and its largest i extent
+TILE_ROWS = (64, 32, 16, 8)  # the i extents it may take, largest first
+
+
+def tile_rows(b: int, n: int, m: int, sms: int) -> int:
+    """K4's tile height for (b, n, 5) x (b, m, 5) on a card of ``sms``
+    SMs: the largest of ``TILE_ROWS`` whose grid, b * ceil(n / rows) *
+    ceil(m / 64) blocks, gives every SM a block; the smallest where none
+    does. Large calls keep the 64 x 64 tile (fewer boxes staged per pair);
+    a small one spreads its clips over more SMs (the train step's (8, 128)
+    x (8, 64) pairs: 10.7 µs with 8-row tiles, 41.4 µs with 64-row ones on
+    an H100, ``chip_smoke.py`` phase 3)."""
+    for rows in TILE_ROWS:
+        if b * -(-n // rows) * -(-m // TILE_COLS) >= sms:
+            return rows
+    return TILE_ROWS[-1]
+
+
 def _intersection_cuda(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     _check(b1, b2)
     b, n, m = b1.shape[0], b1.shape[1], b2.shape[1]
     out = torch.empty(b, n, m, dtype=torch.float32, device=b1.device)
     if out.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(b1.device).multi_processor_count
     fn = ROTATED_IOU.fn()
     ROTATED_IOU.launches += 1
     err = fn(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), b, n, m,
-             cuda_stream(b1.device))
+             tile_rows(b, n, m, sms), cuda_stream(b1.device))
     ROTATED_IOU.check(err)
     return out
 

@@ -326,3 +326,31 @@ def test_gather_bwd_dx_plan_refuses_what_it_cannot_take():
         bl.gather_bwd_dx_plan(4, 100, 8, 2 ** 29)  # corner ids pass 2**31
     with pytest.raises(ValueError):
         bl.gather_bwd_dx_plan(1, 10, 2 ** 16, 5)  # one f32 row too wide
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 5])
+def test_pad_channels_keeps_the_plain_results(dtype, c):
+    """The kernels' wrappers pad C to 4 (f32) or 8 (bf16) with zeros and
+    slice the result back: the plain versions on padded inputs give the
+    unpadded results (forward and dx exactly, channel by channel; dcw to
+    f32 rounding, its channel sums taking more zero terms)."""
+    from minddet_tpu_torch.ops.bilinear import pad_channels
+
+    x, ci, cw = _gather_case(7, c=c, p=96)
+    g = np.random.RandomState(8).randn(2, 96, c).astype(np.float32)
+    xt, gt = (torch.from_numpy(a).to(dtype) for a in (x, g))
+    cit, cwt = torch.from_numpy(ci), torch.from_numpy(cw)
+    xp, gp = pad_channels(xt), pad_channels(gt)
+    vec = 4 if dtype == torch.float32 else 8
+    assert xp.shape[-1] == -(-c // vec) * vec and xp.is_contiguous()
+    assert bool((xp[..., c:] == 0).all()) and torch.equal(xp[..., :c], xt)
+    assert pad_channels(xp) is xp
+    assert torch.equal(bilinear_gather_plain(xp, cit, cwt)[..., :c],
+                       bilinear_gather_plain(xt, cit, cwt))
+    assert torch.equal(
+        bilinear_gather_bwd_dx_plain(gp, cit, cwt, 256)[..., :c],
+        bilinear_gather_bwd_dx_plain(gt, cit, cwt, 256))
+    torch.testing.assert_close(bilinear_gather_bwd_dcw_plain(gp, xp, cit),
+                               bilinear_gather_bwd_dcw_plain(gt, xt, cit),
+                               rtol=1e-6, atol=1e-6)

@@ -251,3 +251,49 @@ def test_flat_bwd_kernel_matches_plain(cuda, dtype, spread, c):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-4)
         assert torch.equal(a, a2)
     assert got[1].abs().max() > 0 and got[2].abs().max() > 0
+
+
+# K2b's launch plan at stage 1 of the four-stage-DCN ResNet (a 128 x 128 x
+# 64 map, 147,456 position-major samples per image): 36 window rows, tiles
+# of 1,569 samples (94 per image)
+STAGE1 = (128, 128, 64, 128 * 128 * 9)  # H, W, C, N
+
+
+@pytest.mark.parametrize("b", [1, 16, 128, 256])
+def test_flat_bwd_plan_at_stage_one(b):
+    """The plan's window, tile and shared memory at the train and serve
+    batches: two blocks of at most 110 KB (each with its 1 KB reserve)
+    fit in an SM's 227 KB; the tiles cover all N samples of each image;
+    the grid stays below 2**31 blocks; C does not enter the plan."""
+    h, w, c, n = STAGE1
+    plan = ths.flat_bwd_plan(b, h, w, c, n)
+    assert (plan["rows"], plan["tile"]) == (36, 1569)
+    assert plan["smem_bytes"] == (2 * 36 * 128 + 1) * 4 + 1569 * 48 == 112_180
+    assert plan["smem_bytes"] <= 110 * 1024
+    assert 2 * (plan["smem_bytes"] + 1024) <= 232_448
+    per_image = -(-n // plan["tile"])
+    assert per_image == 94 and plan["tiles"] == b * per_image
+    assert (per_image - 1) * plan["tile"] < n <= per_image * plan["tile"]
+    assert plan["tiles"] < 2 ** 31
+    assert plan == ths.flat_bwd_plan(b, h, w, 3, n)
+
+
+def test_flat_bwd_checks_take_g_past_2_31_values():
+    """At batch 256 stage 1's g holds 2.4e9 values, past 2**31: the kernel
+    takes 64-bit offsets, so the wrapper's checks and the plan take it in
+    one launch (meta tensors: nothing is allocated)."""
+    h, w, c, n = STAGE1
+    b = 256
+    assert b * n * c > 2 ** 31
+    x = torch.empty(b, h, w, c, dtype=torch.bfloat16, device="meta")
+    ys, xs, sc = (torch.empty(b, n, device="meta") for _ in range(3))
+    ths._check(x, ys, xs, sc, 2)
+    ths._check_flat(x, ys, xs, sc)
+    assert ths.flat_bwd_plan(b, h, w, c, n)["tiles"] == b * 94
+
+
+def test_flat_bwd_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError):
+        ths.flat_bwd_plan(1, 8, 8, 0, 64)  # no channels
+    with pytest.raises(ValueError):
+        ths.flat_bwd_plan(1, 8, 8, 3, 2 ** 31)  # N past the kernel's int

@@ -385,3 +385,14 @@ def test_taps_bwd_plan_refuses_what_it_cannot_take():
         ths.taps_bwd_plan(1, 8, 8, 12, 9, 64)  # C % 8 != 0
     with pytest.raises(ValueError):
         ths.taps_bwd_plan(1, 8, 8, 8, 4000, 64)  # one position's corners
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [(128, 128, 128, 64, 147_456),
+                                       (2, 16, 1024, 8, 147_456),
+                                       (2, 32, 32, 16, 9216),
+                                       (1, 2, 8000, 8, 144_000)])
+def test_flat_bwd_plan_is_the_taps_plan_with_one_tap(b, h, w, c, n):
+    """K2b runs K1b's kernel with K = 1 and P = N: its plan is K1b's for
+    one tap wherever K1b takes the width."""
+    assert ths.flat_bwd_plan(b, h, w, c, n) == ths.taps_bwd_plan(
+        b, h, w, c, 1, n)

@@ -202,3 +202,118 @@ def test_kernel_matches_plain(cuda, b):
     torch.cuda.synchronize()
     ref = ri.rotated_intersection_bev_plain(t, t)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def _candidates(rs, n, clusters=60):
+    """(n, 5) boxes drawn as ``chip_smoke.py:candidate_boxes`` draws a
+    detector's candidates: car-sized boxes around ``clusters`` centres
+    (N(c, 1.5 m)) over the KITTI range, the last third near-duplicates."""
+    centres = np.stack([rs.uniform(0, 69.12, clusters),
+                        rs.uniform(-39.68, 39.68, clusters)], -1)
+    a = _kitti(rs, n)
+    a[:, :2] = centres[rs.randint(0, clusters, n)] + 1.5 * rs.randn(n, 2)
+    m = n // 3
+    a[n - m:] = _boxes(rs, m, 0, a[:n - m])
+    a[:, 2:4] = np.abs(a[:, 2:4])
+    return a.astype(np.float32)
+
+
+def _near_touching(rs, q):
+    """4q pairs (a[i], b[i]) ~70 m out: circles 0 to 1e-3 m apart with
+    corners pointing at each other, edge to edge with gaps of +-1e-3 m,
+    identical, contained."""
+    n = 4 * q
+    w, l = 1.6 * np.exp(0.1 * rs.randn(n)), 3.9 * np.exp(0.1 * rs.randn(n))
+    a = np.stack([rs.uniform(60, 70, n), rs.uniform(-10, 10, n), w, l,
+                  rs.uniform(-np.pi, np.pi, n)], -1)
+    b = a.copy()
+    phi = rs.uniform(-np.pi, np.pi, q)
+    reach = np.hypot(w[:q], l[:q]) + np.concatenate(
+        [[0.0], 10 ** rs.uniform(-7, -3, q - 1)])  # b[:q] is a's size
+    a[:q, 4] = phi - np.arctan2(l[:q], w[:q])
+    b[:q] = np.stack([a[:q, 0] + reach * np.cos(phi),
+                      a[:q, 1] + reach * np.sin(phi), w[:q], l[:q],
+                      phi + np.pi - np.arctan2(l[:q], w[:q])], -1)
+    e = slice(q, 2 * q)
+    step = w[e] + rs.uniform(-1e-3, 1e-3, q)
+    b[e, :2] += step[:, None] * np.stack([np.cos(a[e, 4]),
+                                          np.sin(a[e, 4])], -1)
+    b[3 * q:, 2:4] *= 0.5
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def _separation_case(name):
+    rs = np.random.RandomState(["clusters", "near_touching",
+                                "zero_size"].index(name) + 20)
+    if name == "clusters":
+        a = _candidates(rs, 300)
+        return a, a
+    if name == "near_touching":
+        return _near_touching(rs, 50)
+    a = _candidates(rs, 120)
+    b = a[:80].copy()
+    b[40:] = 0.0  # padded ground-truth slots
+    return np.concatenate([a, b[40:]]), b
+
+
+@pytest.mark.parametrize("name", ["clusters", "near_touching", "zero_size"])
+def test_separated_pairs_have_zero_area(name):
+    """Every pair the separation test settles at 0 has plain area 0 within
+    1e-6, and no pair against a zero-size box2 is settled (the clip gives
+    box1's whole area there)."""
+    b1, b2 = (torch.from_numpy(t) for t in _separation_case(name))
+    sep = ri.separated(b1, b2)
+    area = ri.rotated_intersection_bev_plain(b1, b2)
+    assert bool(sep.any()) and bool((~sep).any())
+    assert float(area[sep].abs().max()) <= 1e-6
+    empty = (b2[:, 2] * b2[:, 3]) == 0
+    assert not bool(sep[:, empty].any())
+    if name == "zero_size":
+        torch.testing.assert_close(
+            area[:, empty], (b1[:, 2] * b1[:, 3])[:, None].expand(
+                -1, int(empty.sum())), rtol=1e-5, atol=1e-5)
+        assert bool((area[b1[:, 2] * b1[:, 3] == 0] == 0).all())
+    if name == "near_touching":  # some corner-to-corner pairs are settled
+        assert bool(torch.diagonal(sep)[:50].any())
+
+
+def test_separated_pairs_have_zero_area_in_the_reference():
+    """The same on the JAX XLA form's areas for the clustered draw."""
+    b1, _ = _separation_case("clusters")
+    b1 = b1[:120]
+    sep = ri.separated(torch.from_numpy(b1), torch.from_numpy(b1)).numpy()
+    ref = np.asarray(j_inter(jnp.asarray(b1), jnp.asarray(b1)))
+    assert sep.any() and float(np.abs(ref[sep]).max()) <= 1e-6
+
+
+def test_separation_settles_most_candidate_pairs():
+    """On 900 candidates drawn around 60 clusters (the rotated NMS's
+    (B, 900, 5) input) the test settles at least 90 % of the pairs."""
+    a = torch.from_numpy(_candidates(np.random.RandomState(23), 900))
+    assert float(ri.separated(a, a).float().mean()) >= 0.9
+
+
+def test_separation_leaves_non_finite_pairs_to_the_clip():
+    """NaN or infinite centres and sizes are never settled by the test."""
+    a = torch.tensor([[0.0, 0.0, 2.0, 4.0, 0.0],
+                      [float("nan"), 0.0, 2.0, 4.0, 0.0],
+                      [float("inf"), 0.0, 2.0, 4.0, 0.0],
+                      [50.0, 0.0, float("inf"), 4.0, 0.0]])
+    sep = ri.separated(a, a)
+    assert not bool(sep[1:].any()) and not bool(sep[:, 1:].any())
+
+
+@pytest.mark.parametrize("b,n,m,rows", [(8, 900, 900, 64), (1, 900, 900, 64),
+                                        (24, 1000, 1000, 64),
+                                        (6, 1000, 1000, 64), (8, 128, 64, 8),
+                                        (2, 300, 300, 16), (1, 1, 1, 8)])
+def test_tile_rows_gives_every_sm_a_block(b, n, m, rows):
+    """K4's tile height on a 132-SM card at the main paths' shapes (the
+    rotated NMS's (B, 900) and (6 B, 1000) candidates, the train step's
+    proposals against ground-truth slots) and two small calls: the largest
+    height whose grid covers the SMs, else the smallest."""
+    got = ri.tile_rows(b, n, m, 132)
+    assert got == rows and got in ri.TILE_ROWS
+    blocks = lambda r: b * -(-n // r) * -(-m // ri.TILE_COLS)
+    assert blocks(got) >= 132 or got == ri.TILE_ROWS[-1]
+    assert all(blocks(r) < 132 for r in ri.TILE_ROWS if r > got)

@@ -10,12 +10,16 @@ Phases (any failure raises and exits non-zero):
    ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with its time (CUDA events, warm L2), the plain
-   version's time and the memory/compute bound: the sampler forward (K1f)
-   and its backward (K1b) in f32 and bf16, the latter also at integer
-   coordinates (spread 0, a DCN layer with zero offsets); the rotated-box
-   intersection (K4) in f32 at the rotated NMS's (B, 900, 5)^2, B = 1 and
-   8 (PointPillars), and (6 B, 1000, 5)^2, B = 1 and 4 (CenterPoint's six
-   tasks stacked), on boxes drawn like decoded candidates, at the train
+   version's time and the memory/compute bound (at the train batch the
+   median of 5 windows of 10 calls): the sampler forward (K1f) at batch 16
+   in f32 and bf16 and at batch 1 and the train batch 128 in bf16, with the
+   share of its corners that took the global fallback and its shared
+   memory per block, and its backward (K1b) in f32 and bf16, also at
+   integer coordinates (spread 0, a DCN layer with zero offsets); the
+   rotated-box intersection (K4) in f32 at the rotated NMS's (B, 900,
+   5)^2, B = 1 and 8 (PointPillars), and (6 B, 1000, 5)^2, B = 1 and 4
+   (CenterPoint's six tasks stacked), on boxes drawn like decoded
+   candidates, at the train
    step's (8, 128, 5) proposals x (8, 64, 5) ground-truth slots (a quarter
    of them empty, zero-size), on pairs ~70 m out that nearly touch, on one
    sample of 900 candidates from 5 tight clusters, and on exact cases,
@@ -38,10 +42,11 @@ Phases (any failure raises and exits non-zero):
    one map row), K3dx's dx bit-equal between two calls; K1b with the share
    of its corners that took the global fallback and its shared memory per
    block, and also at bf16 C = 384 (any width, coordinate gradients
-   repeating bit for bit); the flat sampler (K2f) at stage 1's (B, 128, 128, 64) with
-   147,456 position-major samples per image, B = 1 and 16 in f32 and bf16
-   at spread 0 and 1.5 and B = 128 in bf16, with ``F.grid_sample`` timed
-   beside it, and its backward (K2b, K1b's kernel with one tap) at B = 128
+   repeating bit for bit); the flat sampler (K2f, K1f's kernel with one
+   tap) at stage 1's (B, 128, 128, 64) with 147,456 position-major samples
+   per image, B = 1 and 16 in f32 and bf16 at spread 0 and 1.5 and B = 128
+   in bf16, with its fallback share and ``F.grid_sample`` timed beside it,
+   and its backward (K2b, K1b's kernel with one tap) at B = 128
    in bf16 and B = 2 in f32, spread 0 and 1.5, with its fallback share and
    shared memory per block, both also at C = 3, 12, 20 and at coordinates
    of +-1e6 and +-3e9; and a bf16 DCN layer with a bias, rounded once;
@@ -148,23 +153,33 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def _cuda_ms(fn, iters: int, warmup: int = 2, windows: int = 1) -> float:
     """Device ms per call of ``fn``, its launches back to back: a busy wait
     on the stream lets the host queue every launch before the first start
     event, so a call shorter than its host-side cost (a ~30 us kernel) is
-    not timed at the host's pace."""
+    not timed at the host's pace. With ``windows`` > 1, the median of that
+    many windows of ``iters`` calls: one slow stretch of the card's clock
+    then moves no reading."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOST_AHEAD_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+# how phase 3 times a kernel at the train batch (~0.2-6 ms a call): the
+# median of 5 windows of 10 calls
+TRAIN_TIMING = dict(iters=10, windows=5)
 
 
 def _dcn_coords(b, h, w, k, spread, gen):
@@ -232,52 +247,80 @@ def _taps_bwd_bound(x, ys, xs):
 
 
 def check_taps_kernel(dev, gen):
-    """Phase 3: hat_sample_taps_fwd against its plain version, per case."""
+    """Phase 3: hat_sample_taps_fwd against its plain version, per case: at
+    the three DCN shapes, B = 16 (serving) in f32 and bf16 at spread 1.5
+    and 80, B = 1 (serving one image: a call too small for a window) and
+    B = 128 (the train step's forward) in bf16 at spread 1.5.
+    Each case reports the share of its corners on the map that took the
+    kernel's global fallback (outside their tile's window) and the plan's
+    shared memory per block."""
     from minddet_tpu_torch.ops import hat_sample as hs
 
+    # B = 16 draws from the shared generator as before; batches 1 and 128
+    # from generators of their own, so that the cases after them keep theirs
+    tgen = torch.Generator().manual_seed(4)
+    sgen = torch.Generator().manual_seed(5)
+
+    def inputs():
+        for h, c in DCN_SHAPES:
+            x32 = torch.randn(BATCH, h, h, c, generator=gen).to(dev)
+            for spread in (1.5, 80.0):
+                coords = [t.to(dev) for t in
+                          _dcn_coords(BATCH, h, h, TAPS, spread, gen)]
+                for dtype in (torch.float32, torch.bfloat16):
+                    yield (h, c, spread, x32.to(dtype), *coords)
+            del x32
+            for b, bgen in ((1, sgen), (TRAIN_BATCH, tgen)):
+                x = torch.randn(b, h, h, c, generator=bgen).to(
+                    dev, torch.bfloat16)
+                yield (h, c, 1.5, x, *(t.to(dev) for t in _dcn_coords(
+                    b, h, h, TAPS, 1.5, bgen)))
+
     cases = []
-    for h, c in DCN_SHAPES:
-        x32 = torch.randn(BATCH, h, h, c, generator=gen).to(dev)
-        for spread in (1.5, 80.0):
-            ys, xs, sc = (t.to(dev) for t in
-                          _dcn_coords(BATCH, h, h, TAPS, spread, gen))
-            for dtype in (torch.float32, torch.bfloat16):
-                x = x32.to(dtype)
-                got = hs.hat_sample_2d_taps(x, ys, xs, sc)
-                torch.cuda.synchronize()
-                ref = hs.hat_sample_2d_taps_plain(x.float(), ys, xs, sc)
-                err = (got.float() - ref).abs()
-                max_abs = float(err.max())
-                max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
-                if dtype == torch.float32:
-                    tol = "f32: abs <= 1e-5"
-                    ok = max_abs <= 1e-5
-                else:  # within one bf16 ulp of the plain f32 result
-                    tol = "bf16: abs <= 1e-2 + 2**-7 * |plain f32|"
-                    ok = bool((err <= 1e-2 + 2 ** -7 * ref.abs()).all())
-                del got, ref, err
-                ms = _cuda_ms(lambda: hs.hat_sample_2d_taps(x, ys, xs, sc),
-                              iters=20)
-                plain_ms = _cuda_ms(
-                    lambda: hs.hat_sample_2d_taps_plain(x, ys, xs, sc),
-                    iters=3, warmup=1)
-                bound_ms, bound_by = _taps_bound(x, ys, xs)
-                case = dict(shape=[BATCH, h, h, c], taps=TAPS, spread=spread,
-                            dtype=str(dtype).replace("torch.", ""),
-                            max_abs_err=max_abs, max_rel_err=max_rel,
-                            tolerance=tol, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
-                cases.append(case)
-                print(f"  taps x{case['shape']} K={TAPS} spread={spread:4.1f}"
-                      f" {case['dtype']:8s} max_abs={max_abs:.3e} "
-                      f"max_rel={max_rel:.3e} kernel={ms * 1e3:8.1f}us "
-                      f"plain={plain_ms * 1e3:9.1f}us "
-                      f"bound={bound_ms * 1e3:6.1f}us ({bound_by})",
-                      flush=True)
-                if not ok:
-                    raise AssertionError(
-                        f"hat_sample_taps_fwd disagrees with its plain "
-                        f"version ({tol}): {case}")
+    for h, c, spread, x, ys, xs, sc in inputs():
+        b, dtype = x.shape[0], x.dtype
+        got = hs.hat_sample_2d_taps(x, ys, xs, sc)
+        torch.cuda.synchronize()
+        ref = hs.hat_sample_2d_taps_plain(x.float(), ys, xs, sc)
+        err = (got.float() - ref).abs()
+        max_abs = float(err.max())
+        max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
+        if dtype == torch.float32:
+            tol = "f32: abs <= 1e-5"
+            ok = max_abs <= 1e-5
+        else:  # within one bf16 ulp of the plain f32 result
+            tol = "bf16: abs <= 1e-2 + 2**-7 * |plain f32|"
+            ok = bool((err <= 1e-2 + 2 ** -7 * ref.abs()).all())
+        del got, ref, err
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        hs._taps_cuda(x, ys, xs, sc, stats=stats)
+        fallback, onmap = (int(v) for v in stats.tolist())
+        plan = hs.taps_fwd_plan(b, h, h, c, TAPS, h * h, x.element_size(),
+                                hs._sms(dev))
+        ms = _cuda_ms(lambda: hs.hat_sample_2d_taps(x, ys, xs, sc),
+                      **(TRAIN_TIMING if b == TRAIN_BATCH else dict(iters=20)))
+        plain_ms = _cuda_ms(
+            lambda: hs.hat_sample_2d_taps_plain(x, ys, xs, sc),
+            iters=3, warmup=1)
+        bound_ms, bound_by = _taps_bound(x, ys, xs)
+        case = dict(shape=[b, h, h, c], taps=TAPS, spread=spread,
+                    dtype=str(dtype).replace("torch.", ""),
+                    max_abs_err=max_abs, max_rel_err=max_rel,
+                    tolerance=tol, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, plan=plan,
+                    fallback_share=fallback / max(onmap, 1))
+        cases.append(case)
+        print(f"  taps x{case['shape']} K={TAPS} spread={spread:4.1f}"
+              f" {case['dtype']:8s} fallback="
+              f"{case['fallback_share']:.4f} smem={plan['smem_bytes']} "
+              f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+              f"kernel={ms * 1e3:8.1f}us plain={plain_ms * 1e3:9.1f}us "
+              f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
+        if not ok:
+            raise AssertionError(
+                f"hat_sample_taps_fwd disagrees with its plain "
+                f"version ({tol}): {case}")
+        del x, ys, xs, sc
     return cases
 
 
@@ -350,7 +393,7 @@ def check_taps_bwd_kernel(dev, gen):
             del got, ref
             ms = _cuda_ms(lambda: hs.hat_sample_2d_taps_bwd(g, x, ys, xs,
                                                             sc),
-                          iters=20 if b == BATCH else 5)
+                          **(dict(iters=20) if b == BATCH else TRAIN_TIMING))
             plain_ms = _cuda_ms(
                 lambda: hs.hat_sample_2d_taps_bwd_plain(g, x, ys, xs, sc),
                 iters=3, warmup=1)
@@ -422,6 +465,8 @@ def check_flat_kernel(dev, gen):
     16 (serving) in f32 and bf16 at spread 0 and 1.5, and B = 128 (the
     train step's forward) in bf16 at spread 1.5; C = 3, 12 and 20 on a
     32x32 map; samples at +-1e6 and +-3e9, which must give exactly 0.
+    Each case reports the share of its corners on the map that took the
+    kernel's global fallback and the plan's shared memory per block.
     ``F.grid_sample`` (zero padding, ``align_corners=True``) on the same
     points without the scale is timed beside the stage-1 cases, for
     information: the modulation would be a second call."""
@@ -455,12 +500,19 @@ def check_flat_kernel(dev, gen):
         if far:
             ok = ok and bool((got[:, moved] == 0).all())
         del got, ref, err
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        hs._flat_cuda(x, ys, xs, sc, stats=stats)
+        fallback, onmap = (int(v) for v in stats.tolist())
         name = str(dtype).replace("torch.", "")
         case = dict(shape=[b, h, h, c], samples=ys.shape[1], spread=spread,
                     dtype=name, far=far, max_abs_err=max_abs,
-                    max_rel_err=max_rel, tolerance=tol)
+                    max_rel_err=max_rel, tolerance=tol,
+                    plan=hs.flat_fwd_plan(b, h, h, c, ys.shape[1],
+                                          x.element_size(), hs._sms(dev)),
+                    fallback_share=fallback / max(onmap, 1))
         case["ms"] = _cuda_ms(lambda: hs.hat_sample_2d(x, ys, xs, sc),
-                              iters=5 if b == TRAIN_BATCH else 20)
+                              **(TRAIN_TIMING if b == TRAIN_BATCH
+                                 else dict(iters=20)))
         case["plain_ms"] = _cuda_ms(
             lambda: hs.hat_sample_2d_plain(x, ys, xs, sc), iters=3,
             warmup=1)
@@ -477,7 +529,9 @@ def check_flat_kernel(dev, gen):
             del grid
         cases.append(case)
         print(f"  flat x{case['shape']} N={case['samples']} spread="
-              f"{spread:3.1f} {name:8s}{' far' if far else ''} "
+              f"{spread:3.1f} {name:8s}{' far' if far else ''} fallback="
+              f"{case['fallback_share']:.4f} smem="
+              f"{case['plan']['smem_bytes']} "
               f"max_abs={max_abs:.3e} kernel={case['ms'] * 1e3:8.1f}us "
               f"plain={case['plain_ms'] * 1e3:9.1f}us "
               f"bound={case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']})"
@@ -567,7 +621,8 @@ def check_flat_bwd_kernel(dev, gen):
                     errors=errs, tolerance=FLAT_BWD_TOL, repeat=repeat,
                     plan=plan, fallback_share=fallback / max(added, 1))
         case["ms"] = _cuda_ms(lambda: hs.hat_sample_2d_bwd(g, x, ys, xs, sc),
-                              iters=5 if b == TRAIN_BATCH else 20)
+                              **(TRAIN_TIMING if b == TRAIN_BATCH
+                                 else dict(iters=20)))
         case["plain_ms"] = _cuda_ms(
             lambda: hs.hat_sample_2d_bwd_plain(g, x, ys, xs, sc), iters=3,
             warmup=1)
@@ -3395,10 +3450,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
-    # each DCN shape, the spread-1.5 cases); K1b one bf16 train step's nine
-    # calls at the train batch (spread 1.5: offsets that moved)
+    # each DCN shape, the spread-1.5 cases) and one train step's nine at the
+    # train batch; K1b one bf16 train step's nine calls at the train batch
+    # (spread 1.5: offsets that moved)
     fwd_main = [c for c in cases
-                if c["dtype"] == "bfloat16" and c["spread"] == 1.5]
+                if c["dtype"] == "bfloat16" and c["spread"] == 1.5
+                and c["shape"][0] in (BATCH, TRAIN_BATCH)]
     bwd_main = [c for c in bwd_cases
                 if c["shape"][0] == TRAIN_BATCH and c["spread"] == 1.5]
     train_launches = training["launches"]

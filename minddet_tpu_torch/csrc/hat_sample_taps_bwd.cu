@@ -1,6 +1,6 @@
 // Modulated bilinear sampling, backward: the gradient of the DCNv2
-// samplers in csrc/hat_sample_taps.cu (tap-grouped) and
-// csrc/hat_sample_flat.cu (flat). One kernel serves both.
+// samplers in csrc/hat_sample_taps.cu (tap-grouped and flat). One kernel
+// serves both.
 //
 // Replaces minddet_tpu/ops/hat_sample.py:_bwd_taps_kernel (K1b, reached
 // through _bwd_taps_pallas <- the custom_vjp of hat_sample_2d_taps <-

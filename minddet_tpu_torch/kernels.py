@@ -152,8 +152,9 @@ _I = ctypes.c_int
 
 HAT_SAMPLE_TAPS_FWD = CudaKernel(
     "hat_sample_taps_fwd", "hat_sample_taps.cu",
-    # x, ys, xs, scale, out, B, H, W, C, K, P, dtype, stream
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, ys, xs, scale, out, stats, B, H, W, C, K, P, tile, rows, blocks,
+    # dtype, stream
+    [_P] * 6 + [_I] * 10 + [_P],
     replaces="minddet_tpu/ops/hat_sample.py:312 _fwd_taps_kernel",
 )
 
@@ -208,10 +209,12 @@ BILINEAR_GATHER_BWD_DCW = CudaKernel(
     replaces="minddet_tpu/ops/bilinear.py:115 _bwd_dcw_kernel",
 )
 
+# K2f is K1f's kernel with one tap: a second entry of the same source
 HAT_SAMPLE_FLAT_FWD = CudaKernel(
-    "hat_sample_flat_fwd", "hat_sample_flat.cu",
-    # x, ys, xs, scale, out, B, H, W, C, N, dtype, vec, stream
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hat_sample_flat_fwd", "hat_sample_taps.cu",
+    # x, ys, xs, scale, out, stats, B, H, W, C, N, tile, rows, blocks,
+    # dtype, vec, stream
+    [_P] * 6 + [_I] * 10 + [_P],
     replaces="minddet_tpu/ops/hat_sample.py:171 _fwd_kernel",
 )
 

@@ -26,12 +26,13 @@ not copy that.
 ``hat_sample_2d`` is the flat form, the sampler of DCN layers whose Cin is
 not a multiple of 128: x (B, H, W, C) sampled at (B, N) coordinates into
 (B, N, C), any C >= 1. It has the same gradient and the same dispatch: a
-CUDA tensor launches ``csrc/hat_sample_flat.cu`` and, in the backward, the
-``hat_sample_flat_bwd`` entry of ``csrc/hat_sample_taps_bwd.cu`` (the
-tap-grouped backward's kernel with one tap: position-major flat samples
-are tap-grouped ones with K = 1); a CPU tensor runs ``hat_sample_2d_plain``
-and ``hat_sample_2d_bwd_plain``. Neither form falls back: on a CUDA tensor
-a wrapper launches its kernel or raises.
+CUDA tensor launches the ``hat_sample_flat_fwd`` entry of
+``csrc/hat_sample_taps.cu`` and, in the backward, the ``hat_sample_flat_bwd``
+entry of ``csrc/hat_sample_taps_bwd.cu``: the tap-grouped kernels with one
+tap, since position-major flat samples are tap-grouped ones with K = 1 and
+P = N. A CPU tensor runs ``hat_sample_2d_plain`` and
+``hat_sample_2d_bwd_plain``. Neither form falls back: on a CUDA tensor a
+wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ from minddet_tpu_torch.kernels import (HAT_SAMPLE_FLAT_BWD,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
 _INT32_MAX = 2 ** 31 - 1
-_THREADS = 256  # per block, as the flat forward launches them
 
 
 def _corners(ys: torch.Tensor, xs: torch.Tensor):
@@ -205,36 +205,133 @@ def _check(x, ys, xs, scale, coord_dims: int) -> None:
 
 def _check_taps(x, ys, xs, scale) -> None:
     _check(x, ys, xs, scale, 3)
-    b, h, w, c = x.shape
+    c = x.shape[3]
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8 (16-byte rows)")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    if b * max(ys.shape[1] * ys.shape[2], h * w) * c > _INT32_MAX:
-        raise ValueError("tensors too large for the kernels' 32-bit indices")
 
 
-def _taps_cuda(x, ys, xs, scale) -> torch.Tensor:
+# The samplers' kernels keep a window of map rows and per-sample slots in a
+# block's shared memory, at most this many bytes, so that two blocks fit on
+# an SM (227 KB, less 1 KB reserved per block)
+SMEM_BYTES = 110 * 1024
+
+# K1f's and K2f's launch plan (see taps_fwd_plan)
+TAPS_FWD_WINDOW_SHARE = 7 / 8  # of SMEM_BYTES, at most, for the window
+TAPS_FWD_MAX_TILE = 2048  # positions per block
+TAPS_FWD_SLOT_BYTES = 36  # per sample: four weights, four offsets, scale
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def taps_fwd_plan(b: int, h: int, w: int, c: int, k: int, p: int,
+                  elt: int, sms: int) -> dict:
+    """K1f's launch plan for x (b, h, w, c) of ``elt``-byte values and (b,
+    k, p) coordinates, two persistent blocks an SM on ``sms`` SMs:
+
+    - ``rows`` R of the window, whole map rows of w * c * elt bytes: as many
+      as fit in ``TAPS_FWD_WINDOW_SHARE`` of ``SMEM_BYTES``, at most ``h``,
+      and fewer while the rest (beside the window's zeroed texel, at
+      ``TAPS_FWD_SLOT_BYTES`` a sample) holds a tile writing fewer bytes
+      than the window holds: a tile's fixed steps (its coordinates, the
+      window's first row, the offsets, three barriers) then weigh more than
+      the fallbacks a taller window saves (measured on the H100: the flat
+      stage-1 shape is faster at 5 rows and 848 samples than at 6 and
+      394). 0 where not one row fits, and for a small call, one whose tiles
+      would give fewer than two a block: its window would be loaded for
+      about one tile; then every corner on the map takes the global
+      fallback.
+    - ``tile`` positions a block takes at a time, as many as the slots hold,
+      at most ``TAPS_FWD_MAX_TILE``; then as many tiles an image as give
+      every block the same number of tiles, give or take one (a small call:
+      one tile a block), and the tile evened out over them.
+    - ``tiles`` (b times the tiles of an image), ``blocks`` (at most 2 *
+      sms) and ``smem_bytes`` = align16((R * w + 1) * c * elt) + tile * k *
+      36.
+
+    On an H100 (132 SMs), at the bf16 CenterNet shapes a map row is 16 KB
+    (64 x 128, 32 x 256, 16 x 512): R = 6 beside tiles of 32 to 43
+    positions at batch 128 (12-24 % faster there than R = 0); at batch
+    1, and at batch 16 for the two smaller maps, a small call without a
+    window. The four-stage-DCN ResNet's stage 1 (128 x 64, k = 1) gets R =
+    5 beside ~840 samples (a small call at batch 1). Raises where not one
+    position's slots fit, or where texel indices (h + 1) * w or a tile's
+    values pass 2**31."""
+    if c < 1 or k < 1 or elt not in (2, 4):
+        raise ValueError(f"C={c}, K={k}, elt={elt}: want C, K >= 1 and 2- or "
+                         f"4-byte values")
+    if (h + 1) * w > _INT32_MAX:
+        raise ValueError(f"a {h} x {w} map's texel indices pass 2**31")
+    per_tile = k * TAPS_FWD_SLOT_BYTES
+    blocks = 2 * sms
+
+    def fit(rows: int) -> int:
+        window = _align16((rows * w + 1) * c * elt)
+        return min((SMEM_BYTES - window) // per_tile, _INT32_MAX // (k * c))
+
+    row = w * c * elt
+    rows = min(h, int(SMEM_BYTES * TAPS_FWD_WINDOW_SHARE) // row)
+    while rows > 0 and fit(rows) * k * c * elt < rows * row:
+        rows -= 1
+    if fit(rows) < 1:
+        raise ValueError(f"K={k}, C={c}: one position's slots do not fit in "
+                         f"{SMEM_BYTES} bytes of shared memory")
+    per_image = -(-p // min(max(p, 1), TAPS_FWD_MAX_TILE, fit(rows)))
+    if rows and b * per_image < 2 * blocks:  # a small call
+        rows = 0
+        per_image = max(1, blocks // max(b, 1))
+    else:  # whole rounds of the blocks
+        rounds = -(-b * per_image // blocks)
+        per_image = max(per_image, rounds * blocks // b)
+    tile = -(-p // per_image) if p else 1
+    tiles = b * -(-p // tile)
+    return dict(rows=rows, tile=tile, tiles=tiles,
+                blocks=max(1, min(tiles, blocks)),
+                smem_bytes=_align16((rows * w + 1) * c * elt)
+                + tile * per_tile)
+
+
+def flat_fwd_plan(b: int, h: int, w: int, c: int, n: int, elt: int,
+                  sms: int) -> dict:
+    """K2f's launch plan for x (b, h, w, c) and (b, n) position-major
+    coordinates, any C >= 1: K1f's (``taps_fwd_plan``) with one tap, P = n,
+    ``tile`` counting samples; the kernel is K1f's too. Raises where N
+    passes 2**31."""
+    if n > _INT32_MAX:
+        raise ValueError(f"N={n} samples pass 2**31")
+    return taps_fwd_plan(b, h, w, c, 1, n, elt, sms)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _taps_cuda(x, ys, xs, scale, stats=None) -> torch.Tensor:
+    """``stats``, where given, is a zeroed (2,) int64 CUDA tensor that
+    receives the corners on the map read from global memory (outside their
+    tile's window) and all corners on the map."""
     if scale is None:
         scale = torch.ones_like(ys)
     _check_taps(x, ys, xs, scale)
     b, h, w, c = x.shape
     k, p = ys.shape[1], ys.shape[2]
+    plan = taps_fwd_plan(b, h, w, c, k, p, x.element_size(), _sms(x.device))
     out = torch.empty(b, p, k * c, dtype=x.dtype, device=x.device)
     fn = HAT_SAMPLE_TAPS_FWD.fn()
     HAT_SAMPLE_TAPS_FWD.launches += 1
     err = fn(x.data_ptr(), ys.data_ptr(), xs.data_ptr(), scale.data_ptr(),
-             out.data_ptr(), b, h, w, c, k, p, _DTYPE_CODE[x.dtype],
-             cuda_stream(x.device))
+             out.data_ptr(), 0 if stats is None else stats.data_ptr(), b, h,
+             w, c, k, p, plan["tile"], plan["rows"], plan["blocks"],
+             _DTYPE_CODE[x.dtype], cuda_stream(x.device))
     HAT_SAMPLE_TAPS_FWD.check(err)
     return out
 
 
-# K1b's launch plan (see taps_bwd_plan): a block's shared memory, at most
-# this many bytes, so that two 512-thread blocks fit on an SM (227 KB, less
-# 1 KB reserved per block)
-TAPS_BWD_SMEM_BYTES = 110 * 1024
-TAPS_BWD_WINDOW_SHARE = 3  # the window takes at most 1/3 of it
+# K1b's launch plan (see taps_bwd_plan)
+TAPS_BWD_WINDOW_SHARE = 3  # the window takes at most 1/3 of SMEM_BYTES
 TAPS_BWD_MAX_TILE = 2048  # positions per block
 TAPS_BWD_SLOT_BYTES = 12  # per corner: bucket id, scale * weight, dot
 
@@ -244,7 +341,7 @@ def taps_bwd_plan(b: int, h: int, w: int, c: int, k: int, p: int) -> dict:
     8 == 0 (a block takes all C channels, so the plan does not depend on
     C): ``rows`` R of the dx window
     (whole map rows, as many as fit in 1 / ``TAPS_BWD_WINDOW_SHARE`` of
-    ``TAPS_BWD_SMEM_BYTES`` at two int32 per texel, at most ``h``; 0 where
+    ``SMEM_BYTES`` at two int32 per texel, at most ``h``; 0 where
     not one row fits, and then every corner takes the global fallback);
     ``tile`` positions per block, as many as the rest holds at
     ``TAPS_BWD_SLOT_BYTES`` per corner (4 corners per sample, ``k``
@@ -258,14 +355,14 @@ def taps_bwd_plan(b: int, h: int, w: int, c: int, k: int, p: int) -> dict:
 
 def _window_plan(b: int, h: int, w: int, k: int, p: int) -> dict:
     """The plan of ``taps_bwd_plan``, for any C."""
-    rows = min(h, (TAPS_BWD_SMEM_BYTES // TAPS_BWD_WINDOW_SHARE - 4)
+    rows = min(h, (SMEM_BYTES // TAPS_BWD_WINDOW_SHARE - 4)
                // (8 * w))
     window = (2 * rows * w + 1) * 4
     per_position = 4 * k * TAPS_BWD_SLOT_BYTES
-    fit = (TAPS_BWD_SMEM_BYTES - window) // per_position
+    fit = (SMEM_BYTES - window) // per_position
     if fit < 1:
         raise ValueError(f"K={k}: one position's corners do not fit in "
-                         f"{TAPS_BWD_SMEM_BYTES} bytes of shared memory")
+                         f"{SMEM_BYTES} bytes of shared memory")
     tile = min(max(p, 1), TAPS_BWD_MAX_TILE, fit)
     tile = -(-p // -(-p // tile)) if p else 1  # tiles of (nearly) equal size
     return dict(rows=rows, tile=tile, tiles=b * -(-p // tile),
@@ -352,14 +449,6 @@ def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return hat_sample_2d_taps_plain(x, ys, xs, scale)
 
 
-def _check_flat(x, ys, xs, scale) -> None:
-    _check(x, ys, xs, scale, 2)
-    # the forward takes up to C threads per sample, 256 a block, fewer than
-    # 2**31 blocks; offsets are 64-bit
-    if ys.numel() * x.shape[3] > _INT32_MAX * _THREADS:
-        raise ValueError("too many samples for one launch of the kernel")
-
-
 def _vec(c: int, *tensors) -> int:
     """1 where the kernels may move 16-byte vectors: C a whole number of
     them and every row pointer 16-byte aligned."""
@@ -368,18 +457,21 @@ def _vec(c: int, *tensors) -> int:
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _flat_cuda(x, ys, xs, scale) -> torch.Tensor:
+def _flat_cuda(x, ys, xs, scale, stats=None) -> torch.Tensor:
+    """``stats`` as ``_taps_cuda``'s."""
     if scale is None:
         scale = torch.ones_like(ys)
-    _check_flat(x, ys, xs, scale)
+    _check(x, ys, xs, scale, 2)
     b, h, w, c = x.shape
     n = ys.shape[1]
+    plan = flat_fwd_plan(b, h, w, c, n, x.element_size(), _sms(x.device))
     out = torch.empty(b, n, c, dtype=x.dtype, device=x.device)
     fn = HAT_SAMPLE_FLAT_FWD.fn()
     HAT_SAMPLE_FLAT_FWD.launches += 1
     err = fn(x.data_ptr(), ys.data_ptr(), xs.data_ptr(), scale.data_ptr(),
-             out.data_ptr(), b, h, w, c, n, _DTYPE_CODE[x.dtype],
-             _vec(c, x, out), cuda_stream(x.device))
+             out.data_ptr(), 0 if stats is None else stats.data_ptr(), b, h,
+             w, c, n, plan["tile"], plan["rows"], plan["blocks"],
+             _DTYPE_CODE[x.dtype], _vec(c, x, out), cuda_stream(x.device))
     HAT_SAMPLE_FLAT_FWD.check(err)
     return out
 

@@ -288,8 +288,9 @@ def test_flat_bwd_checks_take_g_past_2_31_values():
     x = torch.empty(b, h, w, c, dtype=torch.bfloat16, device="meta")
     ys, xs, sc = (torch.empty(b, n, device="meta") for _ in range(3))
     ths._check(x, ys, xs, sc, 2)
-    ths._check_flat(x, ys, xs, sc)
     assert ths.flat_bwd_plan(b, h, w, c, n)["tiles"] == b * 94
+    # the forward's plan too: its tiles are counted in 64 bits
+    assert ths.flat_fwd_plan(b, h, w, c, n, 2, H100_SMS)["blocks"] == 264
 
 
 def test_flat_bwd_plan_refuses_what_it_cannot_take():
@@ -297,3 +298,43 @@ def test_flat_bwd_plan_refuses_what_it_cannot_take():
         ths.flat_bwd_plan(1, 8, 8, 0, 64)  # no channels
     with pytest.raises(ValueError):
         ths.flat_bwd_plan(1, 8, 8, 3, 2 ** 31)  # N past the kernel's int
+
+
+H100_SMS = 132  # SMs of an H100 SXM, the card the plans below are for
+
+# K2f's launch plan at stage 1: (rows, tile, tiles, blocks, smem_bytes), bf16,
+# on the H100's 132 SMs. A 128 x 64 bf16 map row is 16 KB: 5 rows, beside
+# which a tile of 848 samples writes 106 KB (6 rows would leave 394, 50 KB,
+# less than the window); at batch 1 a small call, with no window
+_FLAT_FWD_PLANS = {1: (0, 559, 264, 264, 20_252),
+                   16: (5, 815, 2896, 264, 111_388),
+                   128: (5, 843, 22_400, 264, 112_396),
+                   256: (5, 848, 44_544, 264, 112_576)}
+
+
+@pytest.mark.parametrize("b", [1, 16, 128, 256])
+def test_flat_fwd_plan_at_stage_one(b):
+    """The plan's window, tile, blocks and shared memory at the serve and
+    train batches; the tiles cover all N samples of each image in whole
+    rounds of the 264 persistent blocks (a small call: one a block)."""
+    h, w, c, n = STAGE1
+    plan = ths.flat_fwd_plan(b, h, w, c, n, 2, H100_SMS)
+    assert (plan["rows"], plan["tile"], plan["tiles"], plan["blocks"],
+            plan["smem_bytes"]) == _FLAT_FWD_PLANS[b]
+    assert 2 * (plan["smem_bytes"] + 1024) <= 232_448
+    per_image = -(-n // plan["tile"])
+    assert plan["tiles"] == b * per_image
+    assert (per_image - 1) * plan["tile"] < n <= per_image * plan["tile"]
+    if plan["rows"]:  # evening out the tiles adds no round of the blocks
+        window = -(-(plan["rows"] * w + 1) * c * 2 // 16) * 16
+        fit = min(2048, (ths.SMEM_BYTES - window) // 36)
+        assert -(-plan["tiles"] // 264) == -(-b * -(-n // fit) // 264)
+    else:
+        assert plan["tiles"] == 264
+
+
+def test_flat_fwd_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError):
+        ths.flat_fwd_plan(1, 8, 8, 0, 64, 2, H100_SMS)  # no channels
+    with pytest.raises(ValueError):
+        ths.flat_fwd_plan(1, 8, 8, 3, 2 ** 31, 2, H100_SMS)  # N past the kernel's int

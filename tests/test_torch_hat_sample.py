@@ -396,3 +396,131 @@ def test_flat_bwd_plan_is_the_taps_plan_with_one_tap(b, h, w, c, n):
     one tap wherever K1b takes the width."""
     assert ths.flat_bwd_plan(b, h, w, c, n) == ths.taps_bwd_plan(
         b, h, w, c, 1, n)
+
+
+# K1f's launch plan at every main-path shape of the CenterNet forward (bf16
+# serving at batch 1 and 16, the train step's forward at 128; f32 for the
+# card-vs-CPU checks), on one map whose window holds some of its rows, on
+# small maps and on a map too wide for any window
+_FWD_SHAPES = ([(b, h, h, c) for b in (1, 16, 128)
+                for h, c in ((64, 128), (32, 256), (16, 512))]
+               + [(4, 12, 12, 8), (4, 8, 8, 384), (2, 16, 1024, 8),
+                  (1, 2, 8000, 8)])
+
+H100_SMS = 132  # SMs of an H100 SXM, the card the plans below are for
+
+# (rows, tile, tiles, blocks, smem_bytes) on the H100's 132 SMs, bf16
+_FWD_PLANS = {(16, 64, 64, 128): (6, 42, 1568, 264, 112_168),
+              (128, 64, 64, 128): (6, 43, 12_288, 264, 112_492),
+              (16, 32, 32, 256): (0, 64, 256, 256, 21_248),
+              (128, 32, 32, 256): (6, 40, 3328, 264, 111_776),
+              (16, 16, 16, 512): (0, 16, 256, 256, 6208),
+              (128, 16, 16, 512): (6, 32, 1024, 264, 109_696),
+              (1, 64, 64, 128): (0, 16, 256, 256, 5440)}
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("b,h,w,c", _FWD_SHAPES)
+def test_taps_fwd_plan_fits_and_covers(b, h, w, c, elt):
+    """The expected plan at the main-path shapes in bf16; everywhere shared
+    memory that holds the window (R map rows and a zeroed texel) and 36
+    bytes a sample of the tile, within the 110 KB that let two blocks (each
+    with its 1 KB reserve) share an SM's 227 KB; a window within the map
+    and within 7/8 of the budget, no larger than the bytes a tile writes;
+    tiles that cover every position once, in whole rounds of the 264
+    persistent blocks, or one a block for a small call, which gets no
+    window."""
+    k, p = 9, h * w
+    plan = ths.taps_fwd_plan(b, h, w, c, k, p, elt, H100_SMS)
+    rows, tile, tiles = plan["rows"], plan["tile"], plan["tiles"]
+    if elt == 2 and (b, h, w, c) in _FWD_PLANS:
+        assert (rows, tile, tiles, plan["blocks"], plan["smem_bytes"]) == \
+            _FWD_PLANS[(b, h, w, c)]
+    assert plan["smem_bytes"] == _align16((rows * w + 1) * c * elt) \
+        + tile * k * 36
+    assert plan["smem_bytes"] <= ths.SMEM_BYTES
+    assert 2 * (plan["smem_bytes"] + 1024) <= 232_448
+    assert 0 <= rows <= h and rows * w * c * elt <= 7 / 8 * ths.SMEM_BYTES
+    per_image = -(-p // tile)
+    assert tiles == b * per_image
+    assert (per_image - 1) * tile < p <= per_image * tile
+    assert plan["blocks"] == min(tiles, 264)
+    if rows:
+        # the largest tile beside the window writes at least its bytes
+        fit = (ths.SMEM_BYTES - _align16((rows * w + 1) * c * elt)) // (k * 36)
+        assert rows * w * c * elt <= fit * k * c * elt
+        assert tiles >= 2 * 264  # not a small call
+        # whole rounds: evening out the tiles adds no round of the blocks
+        assert -(-tiles // 264) == -(-b * -(-p // min(p, 2048, fit)) // 264)
+    else:
+        assert tiles <= 264 or w * c * elt > 7 / 8 * ths.SMEM_BYTES
+    if w == 8000:
+        assert rows == 0  # not one row fits: every corner is a fallback
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 1024, 8), (4, 12, 12, 8),
+                                     (4, 8, 8, 384), (4, 9, 9, 40)])
+def test_taps_fwd_plan_for_one_sm_keeps_a_window(b, h, w, c):
+    """Planned for a card of one SM (two blocks), calls this small get a
+    window: 2 of 16 rows on the wide map (the window's edges and the
+    ring), the whole map on the small ones."""
+    plan = ths.taps_fwd_plan(b, h, w, c, 9, h * w, 2, 1)
+    assert plan["blocks"] == 2 and plan["tiles"] >= 4
+    assert plan["rows"] == (2 if w == 1024 else h)
+
+
+@pytest.mark.parametrize("b,p", [(2, 0), (0, 64)])
+def test_taps_fwd_plan_takes_no_positions(b, p):
+    """P = 0 (no positions) or B = 0 (an empty batch) plans no tile."""
+    plan = ths.taps_fwd_plan(b, 8, 8, 16, 9, p, 2, H100_SMS)
+    assert plan["tiles"] == 0 and plan["blocks"] == 1
+
+
+def test_taps_fwd_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError):
+        ths.taps_fwd_plan(1, 8, 8, 0, 9, 64, 2, H100_SMS)  # no channels
+    with pytest.raises(ValueError):
+        ths.taps_fwd_plan(1, 8, 8, 8, 9, 64, 3, H100_SMS)  # 3-byte values
+    with pytest.raises(ValueError):
+        ths.taps_fwd_plan(1, 8, 8, 8, 4000, 64, 2, H100_SMS)  # one position's slots
+    with pytest.raises(ValueError):
+        ths.taps_fwd_plan(1, 2 ** 16, 2 ** 15, 8, 9, 64, 2, H100_SMS)  # texel indices
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [(128, 128, 128, 64, 147_456),
+                                       (16, 128, 128, 64, 147_456),
+                                       (1, 128, 128, 64, 147_456),
+                                       (2, 32, 32, 3, 9216),
+                                       (1, 2, 8000, 8, 144_000)])
+@pytest.mark.parametrize("elt", [2, 4])
+def test_flat_fwd_plan_is_the_taps_plan_with_one_tap(b, h, w, c, n, elt):
+    """K2f runs K1f's kernel with K = 1 and P = N: its plan is K1f's for
+    one tap, at any width."""
+    for sms in (H100_SMS, 1):
+        assert ths.flat_fwd_plan(b, h, w, c, n, elt, sms) == \
+            ths.taps_fwd_plan(b, h, w, c, 1, n, elt, sms)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_taps_checks_take_past_2_31_values(bwd):
+    """CenterNet at 1024 x 1024 and batch 128: stage 2's DCN (a 128 x 128 x
+    128 bf16 map, nine taps) samples 2.4e9 values, past 2**31. Both kernels
+    take 64-bit offsets, so the wrapper's checks and both plans take the
+    call in one launch (meta tensors: nothing is allocated)."""
+    b, h, w, c, k = 128, 128, 128, 128, 9
+    p = h * w
+    assert b * p * k * c > 2 ** 31
+    x = torch.empty(b, h, w, c, dtype=torch.bfloat16, device="meta")
+    ys, xs, sc = (torch.empty(b, k, p, device="meta") for _ in range(3))
+    ths._check_taps(x, ys, xs, sc)
+    if bwd:
+        plan = ths.taps_bwd_plan(b, h, w, c, k, p)
+        assert plan["tiles"] == b * -(-p // plan["tile"]) < 2 ** 31
+    else:
+        plan = ths.taps_fwd_plan(b, h, w, c, k, p, 2, H100_SMS)
+        assert plan["rows"] == 3 and plan["blocks"] == 264  # 32 KB rows
+        assert plan["tiles"] == b * -(-p // plan["tile"])

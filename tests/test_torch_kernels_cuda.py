@@ -1,8 +1,9 @@
 """The hand-written kernels redesigned for Hopper against their plain
 versions on the card, at small shapes: the row gather's map backward
-(K3dx), the DCN samplers' backward (K1b, and K2b, its flat entry), the
-rotated-box intersection (K4), and the row gather's three kernels at
-widths that are not a whole number of 16-byte vectors.
+(K3dx), the DCN samplers' backward (K1b, and K2b, its flat entry) and
+forward (K1f, and K2f, its flat entry), the rotated-box intersection (K4),
+and the row gather's three kernels at widths that are not a whole number of
+16-byte vectors.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a GPU host without JAX:
@@ -23,18 +24,23 @@ plain version's sum of absolute terms (dx of K3dx) or the plain value:
 - K4: ``IOU_TOL`` of ``chip_smoke.py`` (atol 1e-4, rtol 1e-5: sincosf
   against the CPU's sin and cos, FMA contraction);
 - K3f, K3dx, K3dcw at C = 3 and 5: the widths as the plain versions take
-  them, at the tolerances of the C % 8 == 0 cases.
+  them, at the tolerances of the C % 8 == 0 cases;
+- K1f and K2f: f32 within 1e-5 of the plain version (the same products,
+  fused or not), bf16 within one bf16 ulp of the plain f32 result (atol
+  1e-2 + rtol 2**-7); bit for bit between two calls.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from minddet_tpu_torch import kernels
 from minddet_tpu_torch.ops import bilinear as bl
 from minddet_tpu_torch.ops import hat_sample as hs
 from minddet_tpu_torch.ops import rotated_iou as ri
 
 DX_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 2 ** -8)}
+FWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 TAPS_TOL = {"dys": (1e-4, 1e-5), "dxs": (1e-4, 1e-5), "dscale": (1e-4, 1e-5),
             torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -8)}
 
@@ -323,6 +329,241 @@ def test_flat_bwd_past_2_31_values(cuda):
         err = (d[:, -tail:].cpu() - r).abs()
         assert bool((err <= atol + rtol * r.abs()).all()), key
     assert dys[:, -tail:].abs().max() > 0
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN included."""
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+def _check_fwd(x, ys, xs, sc, fwd=hs.hat_sample_2d_taps,
+               plain=hs.hat_sample_2d_taps_plain):
+    got = fwd(x, ys, xs, sc)
+    again = fwd(x, ys, xs, sc)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and _same_bits(got, again)
+    ref = plain(x.cpu().float(), ys.cpu(), xs.cpu(), sc.cpu())
+    atol, rtol = FWD_TOL[x.dtype]
+    err = (got.cpu().float() - ref).abs()
+    assert bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
+    return got
+
+
+def _fwd_stats(fn, *args, **kw):
+    """(corners on the map read from global memory, all corners on the
+    map) of one launch."""
+    stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    fn(*args, stats=stats, **kw)
+    return stats.tolist()
+
+
+def _one_sm(x, ys, xs, sc, stats=None):
+    """The forward (tap-grouped for 3-d coordinates, flat for 2-d) launched
+    with the plan for a card of one SM, which keeps a window for calls as
+    small as these (on the H100 a call of fewer than two tiles a block gets
+    none)."""
+    b, h, w, c = x.shape
+    elt, code = x.element_size(), 0 if x.dtype == torch.float32 else 1
+    stats_ptr = 0 if stats is None else stats.data_ptr()
+    stream = kernels.cuda_stream(x.device)
+    args = (x.data_ptr(), ys.data_ptr(), xs.data_ptr(), sc.data_ptr())
+    if ys.dim() == 3:
+        k, p = ys.shape[1:]
+        plan = hs.taps_fwd_plan(b, h, w, c, k, p, elt, 1)
+        out = torch.empty(b, p, k * c, dtype=x.dtype, device=x.device)
+        err = kernels.HAT_SAMPLE_TAPS_FWD.fn()(
+            *args, out.data_ptr(), stats_ptr, b, h, w, c, k, p, plan["tile"],
+            plan["rows"], plan["blocks"], code, stream)
+    else:
+        n = ys.shape[1]
+        plan = hs.flat_fwd_plan(b, h, w, c, n, elt, 1)
+        out = torch.empty(b, n, c, dtype=x.dtype, device=x.device)
+        err = kernels.HAT_SAMPLE_FLAT_FWD.fn()(
+            *args, out.data_ptr(), stats_ptr, b, h, w, c, n, plan["tile"],
+            plan["rows"], plan["blocks"], code, hs._vec(c, x, out), stream)
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spread", [0.0, 1.5, 80.0])
+def test_taps_fwd_window_edges(cuda, dtype, spread):
+    """K1f on a map so wide that the window holds 2 (bf16) or 1 (f32) of
+    16 rows: tiles on the map's first and last rows, whose windows are
+    clamped at its edges, a ring that keeps rows from tile to tile,
+    corners beyond the window (the global fallback), at integer
+    coordinates, at spread 1.5 and at spread 80 (most off the map)."""
+    b, h, w, c = 2, 16, 1024, 8
+    _, x, ys, xs, sc = _taps_inputs(14, b, h, w, c, 9, spread, cuda, dtype)
+    plan = hs.taps_fwd_plan(b, h, w, c, 9, h * w, x.element_size(), 1)
+    assert 0 < plan["rows"] < h
+    _check_fwd(x, ys, xs, sc, fwd=_one_sm)
+    fallback, onmap = _fwd_stats(_one_sm, x, ys, xs, sc)
+    assert 0 < fallback <= onmap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", [(12, 8), (8, 384), (9, 40)])
+def test_taps_fwd_whole_map_window(cuda, h, c):
+    """Maps whose window holds every row, widths of one, 48 and five
+    16-byte vectors: no corner takes the fallback."""
+    _, x, ys, xs, sc = _taps_inputs(15, 4, h, h, c, 9, 1.5, cuda,
+                                    torch.bfloat16)
+    assert hs.taps_fwd_plan(4, h, h, c, 9, h * h, 2, 1)["rows"] == h
+    _check_fwd(x, ys, xs, sc, fwd=_one_sm)
+    fallback, onmap = _fwd_stats(_one_sm, x, ys, xs, sc)
+    assert onmap > 0 and fallback == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_taps_fwd_no_window(cuda, dtype):
+    """A map too wide for one window row, and the same call on the card as
+    it is (a small call): every corner on the map takes the global
+    fallback."""
+    b, h, w, c = 1, 2, 8000, 8
+    _, x, ys, xs, sc = _taps_inputs(16, b, h, w, c, 9, 1.5, cuda, dtype)
+    assert hs.taps_fwd_plan(b, h, w, c, 9, h * w, x.element_size(),
+                            1)["rows"] == 0
+    for fwd in (_one_sm, hs._taps_cuda):
+        _check_fwd(x, ys, xs, sc, fwd=fwd)
+        fallback, onmap = _fwd_stats(fwd, x, ys, xs, sc)
+        assert onmap > 0 and fallback == onmap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c", [(16, 64), (16, 128), (8, 512)])
+def test_taps_fwd_small_call_widths(cuda, dtype, h, c):
+    """Batch-1 calls on the card as it is (no window): samples of 8 to 128
+    16-byte vectors, on both sides of the 16 at which the sweep without a
+    window takes four vectors a unit instead of two units of two."""
+    _, x, ys, xs, sc = _taps_inputs(21, 1, h, h, c, 9, 1.5, cuda, dtype)
+    plan = hs.taps_fwd_plan(1, h, h, c, 9, h * h, x.element_size(),
+                            hs._sms(x.device))
+    assert plan["rows"] == 0
+    _check_fwd(x, ys, xs, sc)
+    fallback, onmap = _fwd_stats(hs._taps_cuda, x, ys, xs, sc)
+    assert onmap > 0 and fallback == onmap
+
+
+def _check_flat_fwd(x, ys, xs, sc, one_sm=False):
+    return _check_fwd(x, ys, xs, sc, fwd=_one_sm if one_sm else
+                      hs.hat_sample_2d, plain=hs.hat_sample_2d_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 5, 12, 20, 24, 64])
+@pytest.mark.parametrize("one_sm", [False, True])
+def test_flat_fwd_widths(cuda, dtype, c, one_sm):
+    """K2f at widths 3 to 64: one channel per lane step where C is not a
+    whole number of 16-byte vectors (3, 5, 20 in both types, 12 in bf16),
+    vectors otherwise; on a 40 x 40 map, planned for the card as it is
+    (no window: a small call) and for one SM (a window of some or all of
+    its rows)."""
+    _, x, ys, xs, sc = _flat_inputs(17, 2, 40, 40, c, 1.5, cuda, dtype)
+    if one_sm:
+        assert hs.flat_fwd_plan(2, 40, 40, c, 40 * 40 * 9, x.element_size(),
+                                1)["rows"] > 0
+    _check_flat_fwd(x, ys, xs, sc, one_sm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_fwd_unaligned_rows(cuda, dtype):
+    """x that starts 2 bytes past a 16-byte boundary (a view into a larger
+    buffer): one channel per lane step at C = 64, the window copied by the
+    threads instead of the bulk copy (planned for one SM, so that there is
+    a window)."""
+    _, x, ys, xs, sc = _flat_inputs(18, 4, 12, 12, 64, 1.5, cuda, dtype)
+    assert hs.flat_fwd_plan(4, 12, 12, 64, 12 * 12 * 9, x.element_size(),
+                            1)["rows"] == 12
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    _check_flat_fwd(shifted, ys, xs, sc, one_sm=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_sm", [False, True])
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_far_coordinates(cuda, flat, dtype, one_sm):
+    """Samples at +-1e6, +-3e9, +-inf and NaN give exactly 0; the rest
+    match the plain version (which gives NaN for a non-finite coordinate:
+    it is held to the same samples moved to 1e6). Planned for the card as
+    it is (no window) and for one SM (the whole map in the window)."""
+    if flat:
+        _, x, ys, xs, sc = _flat_inputs(19, 4, 16, 16, 16, 1.5, cuda, dtype)
+    else:
+        _, x, ys, xs, sc = _taps_inputs(19, 4, 16, 16, 16, 9, 1.5, cuda,
+                                        dtype)
+    far = torch.tensor([1e6, -1e6, 3e9, -3e9, float("inf"), -float("inf"),
+                        float("nan")], device=cuda)
+    m = len(far)
+    if flat:
+        ys[0, :m] = far
+        xs[1, :m] = far
+        fwd, plain = hs._flat_cuda, hs.hat_sample_2d_plain
+    else:
+        ys[0, 0, :m] = far
+        xs[1, 4, :m] = far
+        fwd, plain = hs._taps_cuda, hs.hat_sample_2d_taps_plain
+    if one_sm:
+        fwd = _one_sm
+    got = fwd(x, ys, xs, sc)
+    again = fwd(x, ys, xs, sc)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    c = x.shape[3]
+    if flat:
+        assert bool((got[:2, :m] == 0).all())
+    else:
+        assert bool((got[0, :m, :c] == 0).all())
+        assert bool((got[1, :m, 4 * c:5 * c] == 0).all())
+    fix = lambda t: torch.where(t.isfinite(), t, torch.full_like(t, 1e6))
+    ref = plain(x.cpu().float(), fix(ys).cpu(), fix(xs).cpu(), sc.cpu())
+    atol, rtol = FWD_TOL[dtype]
+    assert bool(((got.cpu().float() - ref).abs()
+                 <= atol + rtol * ref.abs()).all())
+
+
+@pytest.mark.cuda
+def test_taps_fwd_past_2_31_values(cuda):
+    """K1f writing more than 2**31 values in one launch (bf16, C = 8, nine
+    taps, one image): only the last 512 positions are on the map, and their
+    output lies past 2**31 values, so a 32-bit offset would write it
+    elsewhere. Those positions match the plain version; every other output
+    value is exactly 0."""
+    c, k, tail = 8, 9, 512
+    p = -(-2 ** 31 // (k * c)) + tail
+    free, _ = torch.cuda.mem_get_info()
+    if free < 12 * 2 ** 30:
+        pytest.skip("needs ~12 GB of free device memory")
+    _, x, ys_t, xs_t, sc_t = _taps_inputs(20, 1, 16, 32, c, k, 1.5, cuda,
+                                          torch.bfloat16)
+    ys_t, xs_t, sc_t = (t[:, :, :tail] for t in (ys_t, xs_t, sc_t))
+    ys = torch.full((1, k, p), 1e6, device=cuda)
+    ys[:, :, -tail:] = ys_t
+    xs = torch.zeros(1, k, p, device=cuda)
+    xs[:, :, -tail:] = xs_t
+    sc = torch.ones(1, k, p, device=cuda)
+    sc[:, :, -tail:] = sc_t
+    assert (p - tail) * k * c > 2 ** 31 - 1  # the tail's output past int32
+    out = hs.hat_sample_2d_taps(x, ys, xs, sc)
+    torch.cuda.synchronize()
+    del ys, xs, sc
+    assert not bool(out[:, :-tail].any())
+    ref = hs.hat_sample_2d_taps_plain(x.cpu().float(), ys_t.cpu(),
+                                      xs_t.cpu(), sc_t.cpu())
+    atol, rtol = FWD_TOL[torch.bfloat16]
+    got = out[:, -tail:].cpu().float()
+    assert bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+    assert ref.abs().max() > 0
 
 
 IOU_TOL = dict(atol=1e-4, rtol=1e-5)

@@ -49,7 +49,12 @@ Phases (any failure raises and exits non-zero):
    and its backward (K2b, K1b's kernel with one tap) at B = 128
    in bf16 and B = 2 in f32, spread 0 and 1.5, with its fallback share and
    shared memory per block, both also at C = 3, 12, 20 and at coordinates
-   of +-1e6 and +-3e9; and a bf16 DCN layer with a bias, rounded once;
+   of +-1e6 and +-3e9; a bf16 DCN layer with a bias, rounded once; and
+   the row gather (K3f) at the R-CNN's ROIAlign shapes, batch 1 and 8, f32
+   and bf16: each FPN level's (B, 128^2 / 64^2 / 32^2 / 16^2, 256) map
+   at the box head's 512 rois x 196 points and the mask head's 100 x 784,
+   rois drawn like proposals (zero-area and zero-padded ones included),
+   with ``F.grid_sample`` timed beside it;
 4. end to end in f32 (TF32 off): ``CenterNet`` predict on the card against
    the same model on the CPU (the plain path), stage by stage, with both
    sides' distances to the model in f64 on the CPU reported;
@@ -59,6 +64,12 @@ Phases (any failure raises and exits non-zero):
       PFN rows, BEV map, every task's maps, top-1000 candidates per task,
       IoU matrix, kept lists, refined boxes and scores;
    d. the same as 4 for CenterNet with DCN in all four backbone stages;
+   e. the same for Faster R-CNN ``predict`` (ResNet-50-FPN, 512x512) at
+      batch 1, against the f32 CPU and an f64 CPU referee: C2-C5, P2-P6,
+      the RPN's outputs, the proposals, the ROI features, the box head's
+      outputs and the detections, each discrete choice (per-level top-k,
+      RPN NMS, final top-k, final NMS) also on the CPU's own inputs;
+   f. the same for Mask R-CNN, with the mask logits;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
@@ -97,7 +108,14 @@ Phases (any failure raises and exits non-zero):
       (``centernet_dcn4_entry``) as in a: K2f launches twice and K1f nine
       times per forward;
    g. training it (``centernet_dcn4_train_entry``) as in b: K2f and K2b
-      launch twice, K1f and K1b nine times per step.
+      launch twice, K1f and K1b nine times per step;
+   h. Faster R-CNN serving (``faster_rcnn_entry``: ResNet-50-FPN, 80
+      classes, 512x512, bf16, heads calibrated so that every request keeps
+      detections) answers 2 warm-up and 10 timed requests at batch 1 and
+      8; K3f launches 4 times per request (one ROIAlign per pyramid
+      level), no other kernel;
+   i. Mask R-CNN serving (``mask_rcnn_entry``) as in h: K3f launches 8
+      times per request (the box and the mask ROIAligns).
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -1525,6 +1543,111 @@ def check_bilinear_narrow(dev):
     return fwd, dxs, dcws
 
 
+# the R-CNN's ROIAlign (phases 3, 4e, 4f, 6h, 6i): a 512 x 512 request's
+# FPN levels P2-P5, C = 256; the box head's 512 proposals x 7 x 7 bins and
+# the mask head's 100 detections x 14 x 14, 2 x 2 samples a bin
+RCNN_STRIDES = (4, 8, 16, 32)
+RCNN_C = 256
+RCNN_ROI_SETS = (("box", 512, (7, 7)), ("mask", 100, (14, 14)))
+RCNN_BATCHES = (1, 8)
+
+
+def rcnn_rois(b: int, r: int, gen, res: int = 512) -> torch.Tensor:
+    """(b, r, 4) rois drawn like a 512 x 512 request's proposals: sizes
+    log-uniform over 4-512 px, centres uniform, clipped to the image;
+    every tenth roi a zero-padded slot and every tenth but one zero-area."""
+    wh = torch.exp(math.log(4) + math.log(res / 4) * torch.rand(
+        b, r, 2, generator=gen))
+    xy = res * torch.rand(b, r, 2, generator=gen) - wh / 2
+    rois = torch.cat([xy, xy + wh], -1).clamp(0, res)
+    rois[:, ::10] = 0.0
+    rois[:, 1::10, 2:] = rois[:, 1::10, :2]
+    return rois
+
+
+def check_rcnn_gather(dev):
+    """Phase 3: bilinear_gather_fwd (K3f) at the R-CNN's ROIAlign shapes,
+    batch 1 and 8, f32 and bf16: each FPN level's map (B, 128^2 / 64^2 /
+    32^2 / 16^2, 256) sampled at the box head's 512 x 196 points per image
+    and the mask head's 100 x 784, rois drawn like proposals
+    (``rcnn_rois``), against the plain version (``GATHER_TOL``), with
+    ``F.grid_sample`` (bilinear, zero padding, align_corners) timed beside
+    it on the same map and points, and the byte bound from the rows the
+    corners touch."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.ops import bilinear as bl
+    from minddet_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator().manual_seed(11)
+    cases = []
+    for b in RCNN_BATCHES:
+        for kind, r, size in RCNN_ROI_SETS:
+            boxes = rcnn_rois(b, r, gen).to(dev)
+            for stride in RCNN_STRIDES:
+                side = 512 // stride
+                ys, xs = ra.roi_sample_points(boxes / stride, size)
+                ci, cw = bl.bilinear_corners(ys, xs, side, side)
+                p = ci.shape[1]
+                touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
+                              for i in range(b))
+                grid = torch.stack([2 * xs / (side - 1) - 1,
+                                    2 * ys / (side - 1) - 1], -1)[:, None]
+                fmap32 = torch.randn(b, RCNN_C, side, side,
+                                     generator=gen).to(dev).contiguous(
+                                         memory_format=torch.channels_last)
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype).replace("torch.", "")
+                    fmap = fmap32.to(dtype)
+                    x = fmap.permute(0, 2, 3, 1).view(b, side * side, RCNN_C)
+                    got = bl.bilinear_gather(x, ci, cw)
+                    torch.cuda.synchronize()
+                    ref = bl.bilinear_gather_plain(x.float(), ci, cw)
+                    err = (got.float() - ref).abs()
+                    atol, rtol = GATHER_TOL[name]
+                    ok = bool((err <= atol + rtol * ref.abs()).all())
+                    case = dict(shape=[b, side * side, RCNN_C], points=p,
+                                dtype=name, stream=f"rcnn_{kind}",
+                                stride=stride, max_abs_err=float(err.max()),
+                                tolerance=f"abs <= {atol} + {rtol} * "
+                                          f"|plain f32|",
+                                off_map_corner_share=float(
+                                    (ci < 0).float().mean()),
+                                touched_rows=touched)
+                    del got, ref, err
+                    case["ms"] = _cuda_ms(
+                        lambda: bl.bilinear_gather(x, ci, cw), iters=20)
+                    case["plain_ms"] = _cuda_ms(
+                        lambda: bl.bilinear_gather_plain(x, ci, cw), iters=3,
+                        warmup=1)
+                    g = grid.to(dtype)
+                    case["library_ms"] = _cuda_ms(
+                        lambda: F.grid_sample(fmap, g, mode="bilinear",
+                                              padding_mode="zeros",
+                                              align_corners=True), iters=20)
+                    elt = x.element_size()
+                    # out written once, the touched rows, ci and cw read
+                    # once; 4 FMAs per output value
+                    case["bound_ms"], case["bound_by"] = _bound(
+                        b * p * RCNN_C * elt + touched * RCNN_C * elt
+                        + 2 * b * p * 4 * 4, 8 * b * p * RCNN_C)
+                    cases.append(case)
+                    print(f"  bilinear_gather R-CNN {kind} P{int(math.log2(stride))}"
+                          f" x{case['shape']} P={p} {name:8s} max_abs="
+                          f"{case['max_abs_err']:.3e} kernel="
+                          f"{case['ms'] * 1e3:7.1f}us plain="
+                          f"{case['plain_ms'] * 1e3:8.1f}us grid_sample="
+                          f"{case['library_ms'] * 1e3:7.1f}us bound="
+                          f"{case['bound_ms'] * 1e3:5.1f}us "
+                          f"({case['bound_by']})", flush=True)
+                    if not ok:
+                        raise AssertionError(
+                            f"bilinear_gather_fwd at an R-CNN shape disagrees "
+                            f"with its plain version: {case}")
+                del fmap32, fmap, x, grid
+    return cases
+
+
 @torch.no_grad()
 def randomize_for_check(model, gen):
     """Random offset/mask convs and BN affines, then BN statistics from one
@@ -1591,8 +1714,8 @@ HEAD_REFEREE_K = 2.0
 HEAD_REFEREE_FLOOR = 1e-6
 # each end-to-end phase draws its model and inputs from a generator of its
 # own, so that what it checks does not depend on the phases before it
-PHASE_SEEDS = {"4": 40, "4d": 41, "5": 50, "5b": 51, "5d": 52, "6a": 60,
-               "6f": 61}
+PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "5": 50, "5b": 51,
+               "5d": 52, "6a": 60, "6f": 61}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -2231,6 +2354,353 @@ def check_centerpoint_f32(dev, gpu):
         for k, v in result.items()), flush=True)
     if bad:
         raise AssertionError(f"f32 CenterPoint predict, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+# f32 Faster R-CNN / Mask R-CNN predict, card vs CPU and the f64 referee
+# (phases 4e and 4f)
+RCNN_RPN_NMS_IOU = 0.7
+RCNN_BOX_NMS_IOU = 0.5
+RCNN_SCORE_THRESHOLD = 0.05
+RCNN_TIE = 1e-5      # candidate scores this close may trade places
+RCNN_BOX_TOL = (1e-3, 1e-5)  # boxes in px: atol, rtol (decode's exp)
+RCNN_SCORE_TOL = 1e-5  # softmax scores from the same logits
+RCNN_MATCHED_SHARE = 0.95  # of the CPU's detections found on the card
+# a detection of the card's own request matches one of the CPU's where the
+# label is the same, the boxes overlap by this IoU and the scores lie this
+# close: end to end the proposals differ by up to ~1e-3 px and the box
+# head's deltas, x 0.1 / 0.2 of rois up to 512 px, move the boxes by ~1e-2
+# px, so the same-input tolerances do not apply
+RCNN_E2E_IOU = 0.99
+RCNN_E2E_SCORE_TOL = 1e-3
+
+
+@torch.no_grad()
+def randomize_rcnn_bn(model, image, gen):
+    """Random BN affines, then BN statistics from one pass over ``image``
+    (momentum 1), as ``randomize_for_check`` does for CenterNet: with
+    identity BN the seeded ResNet-50's activations grow block by block, and
+    f32 rounding with them."""
+    from torch import nn
+
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    for m in bns:
+        m.weight.copy_(0.8 + 0.4 * torch.rand(m.num_features, generator=gen))
+        m.bias.copy_(0.1 * torch.randn(m.num_features, generator=gen))
+        m.momentum = 1.0
+    model.train()
+    model(image)
+    model.eval()
+    for m in bns:
+        m.momentum = 0.1
+    return model
+
+
+def _rcnn_stages(model, image, masks: bool = True):
+    """``predict`` stage by stage through the model's own methods: C2-C5,
+    P2-P6, the RPN's outputs, the NMS's candidates and the proposals, the
+    box ROI features, the box head's outputs, the final NMS's candidates
+    and the detections, and with the mask branch the mask logits at the
+    detections."""
+    from minddet_tpu_torch.models.detectors.faster_rcnn import BOX_ROI
+    from minddet_tpu_torch.models.heads.roi_head import (box_candidates,
+                                                         box_head_predict)
+    from minddet_tpu_torch.models.heads.rpn_head import proposal_candidates
+
+    x = image.to(model.dtype).permute(0, 3, 1, 2)
+    feats = model.backbone(x)
+    pyr = model.fpn(feats)
+    logits, deltas = model.rpn(pyr)
+    cand = proposal_candidates(logits, deltas, model.anchors,
+                               model.level_sizes, model.image_hw,
+                               model.rpn_pre_nms)
+    props, _, rpn_passes = model.proposals(logits, deltas)
+    roi = model.roi_features(pyr, props, BOX_ROI)
+    cls, reg = model.box_head(roi.to(model.dtype))
+    det = box_head_predict(cls, reg, props, model.image_hw)
+    out = dict(pyramids=pyr, logits=logits, deltas=deltas, cand=cand,
+               proposals=props, roi=roi, cls=cls, reg=reg,
+               final_cand=box_candidates(cls, reg, props, model.image_hw,
+                                         400),
+               det=det, rpn_passes=rpn_passes)
+    out.update({f"C{i + 2}": f for i, f in enumerate(feats)})
+    out.update({f"P{i + 2}": p for i, p in enumerate(pyr)})
+    if model.with_mask and masks:
+        out["mask_logits"] = model.mask_logits(pyr, det["boxes"],
+                                               det["labels"])
+    return out
+
+
+def _nhwc_cpu(t):
+    return (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).double().cpu()
+
+
+def _near_iou_pairs(boxes, scores, threshold, classes=None):
+    """Pairs of valid candidates (sample 0) whose IoU lies within PP_NEAR
+    of ``threshold`` (of one class, where classes are given): where the
+    card's rounding may flip a suppression."""
+    from minddet_tpu_torch.ops.box import pairwise_iou
+
+    b, s = boxes[0].double().cpu(), scores[0].cpu()
+    iou = pairwise_iou(b, b)
+    ok = torch.isfinite(s) & (s > (RCNN_SCORE_THRESHOLD if classes is not
+                                   None else float("-inf")))
+    pair = torch.triu(ok[:, None] & ok[None, :], 1)
+    if classes is not None:
+        c = classes[0].cpu()
+        pair &= c[:, None] == c[None, :]
+    return int((pair & ((iou - threshold).abs() < PP_NEAR)).sum())
+
+
+def _rcnn_matched_share(got, ref, end_to_end: bool = False) -> float:
+    """The share of ``ref``'s kept detections (sample 0) that ``got`` holds
+    too, in any slot: same label, box within RCNN_BOX_TOL and score within
+    RCNN_SCORE_TOL; with ``end_to_end``, boxes overlapping by RCNN_E2E_IOU
+    and scores within RCNN_E2E_SCORE_TOL."""
+    from minddet_tpu_torch.ops.box import pairwise_iou
+
+    atol, rtol = RCNN_BOX_TOL
+    lc, lg = ref["labels"][0].cpu(), got["labels"][0].cpu()
+    bc, bg = ref["boxes"][0].cpu().double(), got["boxes"][0].cpu().double()
+    sc = ref["scores"][0].cpu().double()
+    sg = got["scores"][0].cpu().double()
+    if end_to_end:
+        close = pairwise_iou(bc, bg) >= RCNN_E2E_IOU
+        score_tol = RCNN_E2E_SCORE_TOL
+    else:
+        err = (bg[None] - bc[:, None]).abs()
+        close = (err <= atol + rtol * bc[:, None].abs()).all(-1)
+        score_tol = RCNN_SCORE_TOL
+    same = (close & (lg[None] == lc[:, None])
+            & ((sg[None] - sc[:, None]).abs() <= score_tol))
+    kept = lc >= 0
+    return int((same.any(1) & kept).sum()) / max(int(kept.sum()), 1)
+
+
+def _same_detections(got, ref) -> bool:
+    atol, rtol = RCNN_BOX_TOL
+    bg, bc = got["boxes"].cpu().double(), ref["boxes"].cpu().double()
+    return (torch.equal(got["labels"].cpu(), ref["labels"].cpu())
+            and bool(((bg - bc).abs() <= atol + rtol * bc.abs()).all())
+            and bool(((got["scores"].cpu() - ref["scores"].cpu()).abs()
+                      <= RCNN_SCORE_TOL).all()))
+
+
+def check_rcnn_f32(dev, with_mask: bool, gen):
+    """Phases 4e (Faster R-CNN) and 4f (Mask R-CNN): f32 ``predict`` at
+    batch 1 on the card against the same model on the CPU (TF32 off) and
+    an f64 CPU referee, stage by stage. The seeded ResNet-50-FPN gets
+    random BN (``randomize_rcnn_bn``) and calibrated heads
+    (``calibrate_rcnn``) on the CPU; the card and the referee load its
+    state.
+
+    - C2-C5 and P2-P6 card vs CPU within STAGE_RTOL of each one's largest
+      value; the RPN's logits and deltas, and the box head's logits and
+      deltas on the CPU's ROI features, held to the referee as phase 4
+      holds its heads (the card at most HEAD_REFEREE_K times as far from
+      it as the f32 CPU), and so are the mask logits at the CPU's
+      detections;
+    - where a discrete choice can flip (the per-level top-k, the RPN NMS,
+      the final top-k, the final NMS), the card's stage on the CPU's own
+      inputs: the proposals from the CPU's RPN outputs, the ROI features
+      at the CPU's proposals (STAGE_RTOL), the detections from the CPU's
+      head outputs and proposals, slot by slot where no candidate pair's
+      IoU lies within PP_NEAR of its threshold, and no score ties the
+      top-400's cut within RCNN_TIE; as sets otherwise (at least
+      ``RCNN_MATCHED_SHARE`` of the CPU's found on the card within
+      ``RCNN_BOX_TOL``);
+    - the card's own proposals and detections against the CPU's as sets
+      (``RCNN_MATCHED_SHARE`` at ``RCNN_E2E_IOU`` and
+      ``RCNN_E2E_SCORE_TOL``; the f64 referee's detections read the same
+      way beside them, ungated), and ``predict`` against its own stages.
+
+    K3f launches four times per box ROIAlign and four per mask ROIAlign on
+    the card, nothing else."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_rcnn_f32(dev, with_mask, gen)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_rcnn_f32(dev, with_mask, gen):
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import RES, build_faster_rcnn, calibrate_rcnn
+    from minddet_tpu_torch.models.detectors.faster_rcnn import BOX_ROI
+    from minddet_tpu_torch.models.heads.roi_head import box_head_predict
+
+    image = torch.randn(1, RES, RES, 3, generator=gen)
+    cpu = build_faster_rcnn("cpu", with_mask, dtype=torch.float32)
+    randomize_rcnn_bn(cpu, torch.randn(1, RES, RES, 3, generator=gen), gen)
+    calibrate_rcnn(cpu, image)
+    gpu = build_faster_rcnn(dev, with_mask, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    referee = build_faster_rcnn("cpu", with_mask, dtype=torch.float64)
+    referee.load_state_dict(cpu.state_dict())
+    rois_per_request = 2 if with_mask else 1
+
+    kernels.reset_launches()
+    with torch.inference_mode():
+        g = _rcnn_stages(gpu, image.to(dev))
+        served = gpu.predict(image.to(dev))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = {k.name: 2 * 4 * rois_per_request * int(
+        k is kernels.BILINEAR_GATHER_FWD) for k in kernels.KERNELS}
+    if launches != want:
+        raise AssertionError(f"two f32 R-CNN predicts launched {launches} "
+                             f"(want {want})")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c = _rcnn_stages(cpu, image)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        # the referee's stages after the RPN run on the CPU's inputs, so
+        # that its discrete choices are the CPU's
+        r = _rcnn_stages(referee, image, masks=False)
+        r_cls, r_reg = referee.box_head(c["roi"].double())
+        r_mask = (referee.mask_logits(r["pyramids"], c["det"]["boxes"],
+                                      c["det"]["labels"])
+                  if with_mask else None)
+    ref_s = time.perf_counter() - t0
+
+    result, bad = dict(cpu_predict_s=cpu_s, referee_s=ref_s), []
+    if not (_same_detections(served, g["det"])
+            and (not with_mask
+                 or torch.equal(served["masks"],
+                                torch.sigmoid(g["mask_logits"])))):
+        bad.append("predict against its own stages on the card")
+    for name in [f"C{i}" for i in range(2, 6)] + [f"P{i}" for i in
+                                                     range(2, 7)]:
+        got, host, ref = (_nhwc_cpu(g[name]), _nhwc_cpu(c[name]),
+                          _nhwc_cpu(r[name]))
+        err, top = float((got - host).abs().max()), float(host.abs().max())
+        result[f"{name}_max_abs_err"] = err
+        result[f"{name}_max_abs"] = top
+        result[f"{name}_card_vs_f64"] = float((got - ref).abs().max())
+        result[f"{name}_cpu_vs_f64"] = float((host - ref).abs().max())
+        if err > STAGE_RTOL * top:
+            bad.append(f"{name}: card vs CPU {err} over {STAGE_RTOL} of "
+                       f"{top}")
+
+    def refereed(name, got, host, ref):
+        got, host, ref = got.double().cpu(), host.double().cpu(), ref.cpu()
+        card = result[f"{name}_card_vs_f64"] = float((got - ref).abs().max())
+        cpu_d = result[f"{name}_cpu_vs_f64"] = float((host - ref).abs().max())
+        result[f"{name}_max_abs_err"] = float((got - host).abs().max())
+        result[f"{name}_ratio"] = card / cpu_d if cpu_d else math.inf
+        limit = (HEAD_REFEREE_K * cpu_d
+                 + HEAD_REFEREE_FLOOR * float(ref.abs().max()))
+        if card > limit:
+            bad.append(f"{name}: the card lies {card} from the f64 referee, "
+                       f"over {HEAD_REFEREE_K} x the f32 CPU's {cpu_d}")
+
+    refereed("rpn_logits", g["logits"], c["logits"], r["logits"])
+    refereed("rpn_deltas", g["deltas"], c["deltas"], r["deltas"])
+
+    def as_detections(props):
+        real = props.abs().sum(-1) > 0
+        return dict(labels=real.long() - (~real).long(), boxes=props,
+                    scores=torch.zeros_like(props[..., 0]))
+
+    # the proposals from the CPU's RPN outputs
+    cand_boxes, cand_scores = c["cand"]
+    near = result["rpn_near_threshold_pairs"] = _near_iou_pairs(
+        cand_boxes, cand_scores, RCNN_RPN_NMS_IOU)
+    result["rpn_valid_candidates"] = int(torch.isfinite(cand_scores).sum())
+    result["rpn_nms_passes_card"] = g["rpn_passes"]
+    result["rpn_nms_passes_cpu"] = c["rpn_passes"]
+    with torch.inference_mode():
+        props_k, _, _ = gpu.proposals(c["logits"].to(dev),
+                                      c["deltas"].to(dev))
+    atol, rtol = RCNN_BOX_TOL
+    pk, pc = props_k.cpu().double(), c["proposals"].double()
+    same = bool(((pk - pc).abs() <= atol + rtol * pc.abs()).all())
+    result["proposals_same_inputs_slot_by_slot"] = same
+    result["proposals_same_inputs_max_abs_err"] = float((pk - pc).abs().max())
+    result["proposals_same_inputs_matched_share"] = _rcnn_matched_share(
+        as_detections(props_k), as_detections(c["proposals"]))
+    if not same and (near == 0 or result[
+            "proposals_same_inputs_matched_share"] < RCNN_MATCHED_SHARE):
+        bad.append("proposals of the card on the CPU's RPN outputs")
+    real = (c["proposals"].abs().sum(-1) > 0)
+    result["proposals_real"] = int(real.sum())
+
+    # the ROI features at the CPU's proposals, the box head on the CPU's
+    with torch.inference_mode():
+        roi_k = gpu.roi_features(g["pyramids"], c["proposals"].to(dev),
+                                 BOX_ROI)
+        cls_k, reg_k = gpu.box_head(c["roi"].to(dev))
+    err = float((roi_k.cpu() - c["roi"]).abs().max())
+    top = float(c["roi"].abs().max())
+    result["roi_max_abs_err"], result["roi_max_abs"] = err, top
+    if err > STAGE_RTOL * top:
+        bad.append(f"ROI features at the CPU's proposals: {err} over "
+                   f"{STAGE_RTOL} of {top}")
+    refereed("cls_logits", cls_k, c["cls"], r_cls)
+    refereed("box_deltas", reg_k, c["reg"], r_reg)
+
+    # the detections from the CPU's head outputs and proposals
+    fb, fs, fc = c["final_cand"]
+    near_f = result["final_near_threshold_pairs"] = _near_iou_pairs(
+        fb, fs, RCNN_BOX_NMS_IOU, fc)
+    cls_all = torch.softmax(c["cls"], -1)[..., 1:].reshape(1, -1)
+    cut = float(fs[0, -1])
+    # scores that may trade places with the 400th, or cross the threshold
+    result["final_cut_ties"] = (
+        int(((cls_all - cut).abs() < RCNN_TIE).sum()) - 1
+        + int(((fs - RCNN_SCORE_THRESHOLD).abs() < RCNN_TIE).sum()))
+    with torch.inference_mode():
+        det_k = box_head_predict(c["cls"].to(dev), c["reg"].to(dev),
+                                 c["proposals"].to(dev), gpu.image_hw)
+    same = _same_detections(det_k, c["det"])
+    result["detections_same_inputs_slot_by_slot"] = same
+    result["detections_same_inputs_matched_share"] = _rcnn_matched_share(
+        det_k, c["det"])
+    if not same and (near_f == 0 and result["final_cut_ties"] == 0
+                     or result["detections_same_inputs_matched_share"]
+                     < RCNN_MATCHED_SHARE):
+        bad.append("detections of the card on the CPU's head outputs")
+    kept = c["det"]["labels"] >= 0
+    result["kept_cpu"] = int(kept.sum())
+    result["final_nms_passes_cpu"] = c["det"]["nms_passes"]
+    if not bool(kept.any()):
+        bad.append("the CPU's request kept no detection")
+
+    if with_mask:
+        with torch.inference_mode():
+            mask_k = gpu.mask_logits(
+                g["pyramids"], c["det"]["boxes"].to(dev),
+                c["det"]["labels"].to(dev))
+            mask_c = cpu.mask_logits(c["pyramids"], c["det"]["boxes"],
+                                     c["det"]["labels"])
+        refereed("mask_logits", mask_k, mask_c, r_mask)
+
+    # the card's own request, as sets
+    result["proposals_matched_share"] = _rcnn_matched_share(
+        as_detections(g["proposals"]), as_detections(c["proposals"]), True)
+    result["detections_matched_share"] = _rcnn_matched_share(
+        g["det"], c["det"], True)
+    # the f64 referee's own request against the f32 CPU's, the same way
+    result["referee_detections_matched_share"] = _rcnn_matched_share(
+        r["det"], c["det"], True)
+    result["kept_card"] = int((g["det"]["labels"] >= 0).sum())
+    if result["proposals_matched_share"] < RCNN_MATCHED_SHARE:
+        bad.append("the card's own proposals against the CPU's, as sets")
+    if result["detections_matched_share"] < RCNN_MATCHED_SHARE:
+        bad.append("the card's own detections against the CPU's, as sets")
+    result["launches"] = launches
+    print(f"  f32 {'Mask' if with_mask else 'Faster'} R-CNN card vs CPU: "
+          + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 R-CNN predict, card vs CPU: {bad}: "
                              f"{result}")
     return result
 
@@ -3110,6 +3580,91 @@ def serve_clouds(label, programs, dev, check):
     return out, predicts
 
 
+def _check_rcnn_detections(det, b, with_mask):
+    """An R-CNN request's answer: (b, 100) slots, every image keeps at
+    least one detection, labels of the 80 classes where kept and -1 with a
+    zero box and score elsewhere, scores above the 0.05 threshold, boxes
+    finite inside the 512 x 512 image, masks (b, 100, 28, 28) in [0, 1]."""
+    boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
+    kept = labels >= 0
+    ok = (boxes.shape == (b, 100, 4) and scores.shape == (b, 100)
+          and bool(torch.isfinite(boxes).all())
+          and bool((kept.sum(1) > 0).all()) and bool((labels < 80).all())
+          and bool(((scores > RCNN_SCORE_THRESHOLD) == kept).all())
+          and bool((boxes >= 0).all()) and bool((boxes <= 512).all())
+          and bool((boxes[~kept] == 0).all()))
+    if with_mask:
+        m = det["masks"]
+        ok = ok and (m.shape == (b, 100, 28, 28)
+                     and bool(((m >= 0) & (m <= 1)).all()))
+    if not ok:
+        raise AssertionError(f"R-CNN predict at batch {b}: boxes "
+                             f"{tuple(boxes.shape)}, kept "
+                             f"{kept.sum(1).tolist()}, finite "
+                             f"{bool(torch.isfinite(boxes).all())}")
+
+
+def serve_rcnn(label, programs, dev, with_mask):
+    """Phases 6h and 6i, an R-CNN serving main path: bf16 requests at each
+    batch size, with the peak memory, the NMS's passes per request (the
+    RPN's, the box head's) and the detections kept per image."""
+    out = {}
+    predicts = 0
+    for b, (predict, (image,)) in programs.items():
+        times, passes = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(SERVE_WARMUP + SERVE_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det = predict(image)
+            torch.cuda.synchronize()
+            if i >= SERVE_WARMUP:
+                times.append(time.perf_counter() - t0)
+                passes.append(list(det["nms_passes"]))
+            predicts += 1
+        _check_rcnn_detections(det, b, with_mask)
+        mean_s = statistics.mean(times)
+        out[f"b{b}"] = r = dict(
+            batch=b, requests=len(times), ms_mean=mean_s * 1e3,
+            ms_p50=statistics.median(times) * 1e3, img_per_s=b / mean_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            nms_passes=passes, kept=(det["labels"] >= 0).sum(1).tolist())
+        print(f"  {label} bf16 batch {b}: {mean_s * 1e3:8.3f} ms/request"
+              f" (p50 {r['ms_p50']:.3f}), {r['img_per_s']:7.1f} img/s, peak"
+              f" {r['max_memory_allocated'] / 2 ** 30:.2f} GiB, NMS passes"
+              f" (RPN, box) {passes[-1]}, kept {r['kept']}", flush=True)
+    return out, predicts
+
+
+def rcnn_main_path(label, entry_fn, dev, with_mask, profile):
+    """Phase 6h (Faster R-CNN) or 6i (Mask R-CNN): serving at batch 1 and
+    8 with every kernel's count set to 0 just before: K3f launches exactly
+    4 times per request (8 with the masks), no other kernel launches."""
+    from minddet_tpu_torch import kernels
+
+    programs = {b: entry_fn(device=dev, batch=b) for b in RCNN_BATCHES}
+    kernels.reset_launches()
+    serving, predicts = serve_rcnn(label, programs, dev, with_mask)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    per_request = 8 if with_mask else 4
+    want = {k.name: per_request * predicts * int(
+        k is kernels.BILINEAR_GATHER_FWD) for k in kernels.KERNELS}
+    if launches != want:
+        raise AssertionError(f"{label} serving launched {launches} for "
+                             f"{predicts} requests (want {per_request} "
+                             f"bilinear_gather_fwd each, nothing else)")
+    print(f"  kernels: bilinear_gather_fwd launches="
+          f"{launches['bilinear_gather_fwd']} requests={predicts} launches "
+          f"== {per_request} x requests: True", flush=True)
+    profiled = None
+    if profile:
+        print(f"profile: {label} serving", flush=True)
+        profiled = profile_clouds(label, programs)
+    return dict(serving=serving, launches=launches, requests=predicts,
+                profile=profiled)
+
+
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
@@ -3203,7 +3758,7 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
                              f"path's shape")
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
     keys = ("kind", "shape", "against", "points", "samples", "dtype",
-            "spread", "tile_rows",
+            "spread", "tile_rows", "stream", "stride",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "grid_sample_ms", "fallback_share", "repeat")
     return dict(
@@ -3226,9 +3781,9 @@ def main(argv=None) -> int:
                          "forward layer by layer, card and CPU, with the "
                          "CPU's in f64")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the serving requests of the three "
-                         "models and 3 train steps of each trained model "
-                         "(torch.profiler)")
+                    help="also profile the serving requests of every "
+                         "served model and 3 train steps of each trained "
+                         "model (torch.profiler)")
     ap.add_argument("--seeds", type=int, default=0, metavar="N",
                     help="also read phases 4 and 4d on N random models "
                          "each, ungated: the card's and the f32 CPU's "
@@ -3281,6 +3836,8 @@ def main(argv=None) -> int:
     for got, more in zip((gather_cases, gather_dx_cases, gather_dcw_cases),
                          check_bilinear_narrow(dev)):
         got.extend(more)
+    gather_cases.extend(check_rcnn_gather(dev))
+    torch.cuda.empty_cache()
 
     referee_ratios = None
     if args.seeds:
@@ -3299,6 +3856,13 @@ def main(argv=None) -> int:
     print("phase 4d: end to end, f32 predict with DCN in all four backbone "
           "stages, card vs CPU and the f64 referee", flush=True)
     e2e_dcn4 = check_end_to_end_f32(dev, _seeded("4d"), dcn4=True)
+    print("phase 4e: end to end, f32 Faster R-CNN predict, card vs CPU and "
+          "the f64 referee", flush=True)
+    rcnn_f32 = check_rcnn_f32(dev, False, _seeded("4e"))
+    print("phase 4f: end to end, f32 Mask R-CNN predict, card vs CPU and "
+          "the f64 referee", flush=True)
+    mask_rcnn_f32 = check_rcnn_f32(dev, True, _seeded("4f"))
+    torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
           "referee", flush=True)
@@ -3449,6 +4013,20 @@ def main(argv=None) -> int:
     del cp_train_program
     torch.cuda.empty_cache()
 
+    from minddet_tpu_torch.entry import faster_rcnn_entry, mask_rcnn_entry
+
+    print("phase 6h: main path, Faster R-CNN bf16 serving", flush=True)
+    rcnn = rcnn_main_path("Faster R-CNN", faster_rcnn_entry, dev, False,
+                          args.profile)
+    torch.cuda.empty_cache()
+    print("phase 6i: main path, Mask R-CNN bf16 serving", flush=True)
+    mask_rcnn = rcnn_main_path("Mask R-CNN", mask_rcnn_entry, dev, True,
+                               args.profile)
+    for key, r in (("faster_rcnn", rcnn), ("mask_rcnn", mask_rcnn)):
+        if r["profile"] is not None:
+            profiled[key] = r["profile"]
+    torch.cuda.empty_cache()
+
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
     # train batch; K1b one bf16 train step's nine calls at the train batch
@@ -3460,6 +4038,11 @@ def main(argv=None) -> int:
                 if c["shape"][0] == TRAIN_BATCH and c["spread"] == 1.5]
     train_launches = training["launches"]
     cp_train_launches = cp_training["launches"]
+    # K3f's R-CNN calls: one bf16 batch-8 request of each model, four box
+    # levels (Faster R-CNN), four box and four mask levels (Mask R-CNN)
+    rcnn_case = lambda kind: [
+        c for c in gather_cases if c.get("stream") == f"rcnn_{kind}"
+        and c["dtype"] == "bfloat16" and c["shape"][0] == RCNN_BATCHES[-1]]
     # K5b, K3dx and K3dcw: one bf16 batch-8 CenterPoint train step's call
     train_case = lambda cs: [
         c for c in cs if c["dtype"] == "bfloat16"
@@ -3507,10 +4090,14 @@ def main(argv=None) -> int:
                     train_case(seg_bwd_cases), 1, seg_bwd_cases),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
-                    + cp_train_launches["bilinear_gather_fwd"],
+                    + cp_train_launches["bilinear_gather_fwd"]
+                    + rcnn["launches"]["bilinear_gather_fwd"]
+                    + mask_rcnn["launches"]["bilinear_gather_fwd"],
                     [c for c in gather_cases if c["dtype"] == "float32"
-                     and c["shape"][0] == CP_BATCHES[-1]]
-                    + train_case(gather_cases), 1, gather_cases,
+                     and c["shape"][0] == CP_BATCHES[-1]
+                     and "stream" not in c]
+                    + train_case(gather_cases) + rcnn_case("box")
+                    + rcnn_case("box") + rcnn_case("mask"), 1, gather_cases,
                     library=True),
         _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
                     cp_train_launches["bilinear_gather_bwd_dx"],
@@ -3569,6 +4156,9 @@ def main(argv=None) -> int:
                            pointpillars_launches=pp_launches,
                            centerpoint_serving=cp_serving,
                            centerpoint_launches=cp_launches,
+                           faster_rcnn_f32=rcnn_f32,
+                           mask_rcnn_f32=mask_rcnn_f32,
+                           faster_rcnn=rcnn, mask_rcnn=mask_rcnn,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

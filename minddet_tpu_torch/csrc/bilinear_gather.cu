@@ -2,7 +2,7 @@
 //
 // Replaces minddet_tpu/ops/bilinear.py:49 _fwd_kernel (reached through
 // _fwd_pallas <- bilinear_gather <- bilinear_sample_2d <-
-// heads/second_stage.py:BEVFeatureExtractor).
+// heads/second_stage.py:BEVFeatureExtractor and ops/roi_align.py:roi_align).
 //
 //   out[b, p, :] = sum over the 4 corners c of cw[b, p, c] * x[b, ci[b, p, c], :]
 //
@@ -24,7 +24,12 @@
 // is a coalesced C-wide row and the output is one contiguous stream. Each
 // thread loads its row's four indices and weights as two 16-byte vectors
 // (broadcasts within the row's threads), accumulates the corners in order in
-// f32 and rounds once to x's type.
+// f32 and rounds once to x's type. Thread indices are 32-bit where the
+// output has fewer than 2**31 vectors and 64-bit past that; every offset
+// into x and out is 64-bit. The 32-bit divisions by the row width and by P
+// are cheaper: 64-bit indices throughout took 8-11 % longer at the R-CNN
+// ROIAlign shapes and 1-7 % at CenterPoint's on an H100
+// (scripts/time_gather.py --wide, against the 32-bit kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,21 +73,21 @@ struct Bf16x8 {
   }
 };
 
-template <typename V>
+template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
 bilinear_gather_fwd_kernel(const typename V::T* __restrict__ x,
                            const int4* __restrict__ ci,
                            const float4* __restrict__ cw,
                            typename V::T* __restrict__ out, int HW, int C,
-                           int P, uint32_t total) {
+                           int P, I total) {
   using T = typename V::T;
   constexpr int kVec = V::kVec;
-  const uint32_t nv = static_cast<uint32_t>(C / kVec);
-  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  const I nv = static_cast<I>(C / kVec);
+  const I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const uint32_t s = t / nv;        // b * P + p
-  const uint32_t v = t - s * nv;    // vector within the C-wide row
-  const uint32_t b = s / P;
+  const I s = t / nv;        // b * P + p
+  const I v = t - s * nv;    // vector within the C-wide row
+  const I b = s / static_cast<I>(P);
   const int4 i4 = __ldg(ci + s);
   const float4 w4 = __ldg(cw + s);
   const int idx[4] = {i4.x, i4.y, i4.z, i4.w};
@@ -105,35 +110,52 @@ bilinear_gather_fwd_kernel(const typename V::T* __restrict__ x,
 }
 
 template <typename V>
-void launch(const void* x, const void* ci, const void* cw, void* out, int B,
-            int HW, int C, int P, cudaStream_t stream) {
-  const uint32_t total =
-      static_cast<uint32_t>(B) * P * static_cast<uint32_t>(C / V::kVec);
-  if (total == 0) return;
-  const uint32_t blocks = (total + kThreads - 1) / kThreads;
-  bilinear_gather_fwd_kernel<V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const typename V::T*>(x), static_cast<const int4*>(ci),
-      static_cast<const float4*>(cw), static_cast<typename V::T*>(out), HW, C,
-      P, total);
+int launch(const void* x, const void* ci, const void* cw, void* out, int B,
+           int HW, int C, int P, int wide, cudaStream_t stream) {
+  const uint64_t total = static_cast<uint64_t>(B) * static_cast<uint64_t>(P) *
+                         static_cast<uint64_t>(C / V::kVec);
+  if (total == 0) return 0;
+  const uint64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu || (!wide && total >= (1ull << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using T = typename V::T;
+  if (wide) {
+    bilinear_gather_fwd_kernel<V, uint64_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const int4*>(ci),
+            static_cast<const float4*>(cw), static_cast<T*>(out), HW, C, P,
+            total);
+  } else {
+    bilinear_gather_fwd_kernel<V, uint32_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const int4*>(ci),
+            static_cast<const float4*>(cw), static_cast<T*>(out), HW, C, P,
+            static_cast<uint32_t>(total));
+  }
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The caller guarantees contiguous
-// tensors, 16-byte aligned x, ci, cw and out, C a multiple of 4 (f32) or 8
-// (bf16), HW >= 1 and fewer than 2**31 values in x and in out (so every
-// index fits 32 bits and one thread per output vector fits the grid).
-// Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. wide: 1 indexes the threads with 64
+// bits, 0 with 32 bits, which is faster and refused from 2**31 output
+// vectors on. The caller guarantees contiguous tensors, 16-byte
+// aligned x, ci, cw and out, C a multiple of 4 (f32) or 8 (bf16) and
+// HW >= 1; offsets into x and out are 64-bit. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int bilinear_gather_fwd(const void* x, const void* ci,
                                    const void* cw, void* out, int B, int HW,
-                                   int C, int P, int dtype, void* stream) {
+                                   int C, int P, int dtype, int wide,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (dtype == 0) {
-    launch<F32x4>(x, ci, cw, out, B, HW, C, P, st);
+    err = launch<F32x4>(x, ci, cw, out, B, HW, C, P, wide, st);
   } else if (dtype == 1) {
-    launch<Bf16x8>(x, ci, cw, out, B, HW, C, P, st);
+    err = launch<Bf16x8>(x, ci, cw, out, B, HW, C, P, wide, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

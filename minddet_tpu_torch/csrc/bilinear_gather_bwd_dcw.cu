@@ -26,7 +26,10 @@
 // partial each, and a shuffle tree sums the 32 partials; lane 0 writes. The
 // four warps of a point read the same g row (L1 hits). No atomics: the
 // result is the same from run to run, and equal to a sequential f32 sum up
-// to the order of the additions.
+// to the order of the additions. Warp indices are 32-bit below 2**31
+// corners and 64-bit from there (64-bit ones throughout took 6 % longer in
+// bf16 at CenterPoint's train shape on an H100, scripts/time_gather.py
+// --wide); offsets into g and x are 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,19 +64,20 @@ struct Bf16x8 {
   }
 };
 
-template <typename V>
+template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
 bilinear_gather_bwd_dcw_kernel(const typename V::T* __restrict__ g,
                                const typename V::T* __restrict__ x,
                                const int* __restrict__ ci,
                                float* __restrict__ dcw, int HW, int C, int P,
-                               uint32_t total) {
+                               I total) {
   constexpr int kVec = V::kVec;
-  const uint32_t w = blockIdx.x * kWarps + (threadIdx.x >> 5);  // (b*P+p)*4+c
+  // (b * P + p) * 4 + c
+  const I w = static_cast<I>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (w >= total) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
-  const uint32_t s = w >> 2;  // b * P + p
-  const uint32_t b = s / P;
+  const I s = w >> 2;  // b * P + p
+  const I b = s / static_cast<I>(P);
   const int idx = __ldg(ci + w);
   float dot = 0.f;
   if (idx >= 0) {  // uniform over the warp
@@ -95,34 +99,52 @@ bilinear_gather_bwd_dcw_kernel(const typename V::T* __restrict__ g,
 }
 
 template <typename V>
-void launch(const void* g, const void* x, const void* ci, void* dcw, int B,
-            int HW, int C, int P, cudaStream_t stream) {
-  const uint32_t total = static_cast<uint32_t>(B) * P * 4u;
-  if (total == 0) return;
-  const uint32_t blocks = (total + kWarps - 1) / kWarps;
-  bilinear_gather_bwd_dcw_kernel<V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const typename V::T*>(g),
-      static_cast<const typename V::T*>(x), static_cast<const int*>(ci),
-      static_cast<float*>(dcw), HW, C, P, total);
+int launch(const void* g, const void* x, const void* ci, void* dcw, int B,
+           int HW, int C, int P, int wide, cudaStream_t stream) {
+  const uint64_t total =
+      static_cast<uint64_t>(B) * static_cast<uint64_t>(P) * 4u;
+  if (total == 0) return 0;
+  const uint64_t blocks = (total + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffu || (!wide && total >= (1ull << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using T = typename V::T;
+  if (wide) {
+    bilinear_gather_bwd_dcw_kernel<V, uint64_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(g), static_cast<const T*>(x),
+            static_cast<const int*>(ci), static_cast<float*>(dcw), HW, C, P,
+            total);
+  } else {
+    bilinear_gather_bwd_dcw_kernel<V, uint32_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(g), static_cast<const T*>(x),
+            static_cast<const int*>(ci), static_cast<float*>(dcw), HW, C, P,
+            static_cast<uint32_t>(total));
+  }
+  return 0;
 }
 
 }  // namespace
 
-// dtype (of g and x): 0 = float32, 1 = bfloat16. The caller guarantees
-// contiguous tensors, 16-byte aligned g and x, C a multiple of 4 (f32) or 8
-// (bf16), HW >= 1, fewer than 2**31 values in g and in x and B*P*4 below
-// 2**32. Returns cudaGetLastError() after the launch.
+// dtype (of g and x): 0 = float32, 1 = bfloat16. wide: 1 indexes the warps
+// with 64 bits, 0 with 32 bits, refused from 2**31 corners (B*P*4) on. The
+// caller guarantees contiguous tensors, 16-byte aligned g and x, C a
+// multiple of 4 (f32) or 8 (bf16) and HW >= 1; offsets into g and x are
+// 64-bit. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for what it does not take.
 extern "C" int bilinear_gather_bwd_dcw(const void* g, const void* x,
                                        const void* ci, void* dcw, int B,
                                        int HW, int C, int P, int dtype,
-                                       void* stream) {
+                                       int wide, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (dtype == 0) {
-    launch<F32x4>(g, x, ci, dcw, B, HW, C, P, st);
+    err = launch<F32x4>(g, x, ci, dcw, B, HW, C, P, wide, st);
   } else if (dtype == 1) {
-    launch<Bf16x8>(g, x, ci, dcw, B, HW, C, P, st);
+    err = launch<Bf16x8>(g, x, ci, dcw, B, HW, C, P, wide, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,15 @@ of CenterNet's backbone, everything else as in ``entry()`` and
 64-channel DCN layers, on the 128x128 map, take the flat sampler
 (``hat_sample_2d``: 147,456 samples per image and layer); stages 2-4 and the
 neck take the tap-grouped one, nine layers, as on the flagship path.
+
+``faster_rcnn_entry()`` and ``mask_rcnn_entry()`` serve Faster R-CNN and
+Mask R-CNN (``FasterRCNN.predict``) as ``bench.py:bench_faster_rcnn_infer``
+and ``configs/faster_rcnn_r50_coco.yaml`` configure them: ResNet-50, FPN of
+256 channels with one extra level, 80 classes, 512x512, bf16 compute; RPN
+top 1000 per level before its NMS (IoU 0.7), 512 after; box head score
+threshold 0.05, NMS 0.5, 100 detections; Mask R-CNN adds 28x28 masks. Their
+ROIAlign is one row-gather kernel launch per pyramid level: four per
+request, eight with the masks.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from minddet_tpu_torch.core.optim import adamw
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
 from minddet_tpu_torch.models.detectors.centerpoint import CenterPointTwoStage
+from minddet_tpu_torch.models.detectors.faster_rcnn import (BOX_ROI,
+                                                             FasterRCNN)
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
@@ -308,3 +319,84 @@ def centerpoint_train_entry(device=None, batch: int = 8
     data = {k: torch.from_numpy(v).to(dev)
             for k, v in synthetic_lidar_batch(batch, model.pc_range).items()}
     return make_train_step(centerpoint_loss), (state, data)
+
+
+# the R-CNN's seeded heads, scaled on the request they serve (see
+# calibrate_rcnn): RPN deltas, box-head class logits and box deltas, std
+RPN_DELTA_STD = 0.2
+CLS_LOGIT_STD = 2.0
+BOX_DELTA_STD = 1.0
+
+
+@torch.no_grad()
+def calibrate_rcnn(model: FasterRCNN, image: torch.Tensor) -> FasterRCNN:
+    """Give the seeded heads outputs that make a request do real work, on
+    this image. Seeded weights over identity BN leave the head outputs at
+    whatever scale the backbone's activations reach: RPN deltas that throw
+    the proposals off the image, and class logits that the softmax turns
+    into ~1/81 each, under the 0.05 threshold, so that ``predict`` keeps
+    nothing. So the RPN's ``reg`` conv is scaled to deltas of std
+    ``RPN_DELTA_STD``, then, on the proposals that follows, the box head's
+    ``cls`` layer to logits of std ``CLS_LOGIT_STD`` and its ``reg`` to
+    deltas of std ``BOX_DELTA_STD`` (over the proposals that are not
+    padding). Returns ``model``, changed in place."""
+    with torch.inference_mode():
+        _, _, deltas = model(image)
+        gain = RPN_DELTA_STD / float(deltas.std())
+    model.rpn.reg.weight.mul_(gain)
+    model.rpn.reg.bias.mul_(gain)
+    with torch.inference_mode():
+        pyramids, logits, deltas = model(image)
+        proposals, _, _ = model.proposals(logits, deltas)
+        feats = model.roi_features(pyramids, proposals, BOX_ROI)
+        cls, reg = model.box_head(feats.to(model.dtype))
+        real = proposals.abs().sum(-1) > 0
+        gains = (CLS_LOGIT_STD / float(cls[real].std()),
+                 BOX_DELTA_STD / float(reg[real].std()))
+    for layer, g in zip((model.box_head.cls, model.box_head.reg), gains):
+        layer.weight.mul_(g)
+        layer.bias.mul_(g)
+    return model
+
+
+def build_faster_rcnn(device=None, with_mask: bool = False,
+                      dtype: torch.dtype = torch.bfloat16) -> FasterRCNN:
+    """Faster R-CNN (with ``with_mask``, Mask R-CNN) ResNet-50-FPN, 80
+    classes, 512x512, RPN top 1000 per level and 512 after its NMS, in eval
+    mode: weights from ``SEED`` stored in ``dtype``, which is also the
+    compute dtype; not calibrated (``calibrate_rcnn``)."""
+    dev = resolve_device(device)
+    model = FasterRCNN(num_classes=NUM_CLASSES, depth=50,
+                       image_hw=(RES, RES), rpn_pre_nms=1000,
+                       rpn_post_nms=512, with_mask=with_mask, dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.eval().to(device=dev, dtype=dtype,
+                           memory_format=torch.channels_last)
+
+
+def _rcnn_serving(with_mask: bool, device, batch: int):
+    model = build_faster_rcnn(device, with_mask)
+    dev = next(model.parameters()).device
+    gen = torch.Generator().manual_seed(SEED + 1)
+    image = torch.randn(batch, RES, RES, 3, generator=gen).to(dev)
+    return calibrate_rcnn(model, image).predict, (image,)
+
+
+def faster_rcnn_entry(device=None, batch: int = 1
+                      ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is
+    ``FasterRCNN.predict`` (score threshold 0.05, NMS 0.5, 100 detections):
+    boxes (batch, 100, 4) in input pixels, scores, labels (-1 in empty
+    slots), ``nms_passes`` (the RPN's NMS, the box head's). The image is
+    N(0, 1) from ``SEED + 1``, (batch, 512, 512, 3); the model is
+    ``build_faster_rcnn``'s in bf16, calibrated on that image
+    (``calibrate_rcnn``) so that every request keeps detections."""
+    return _rcnn_serving(False, device, batch)
+
+
+def mask_rcnn_entry(device=None, batch: int = 1
+                    ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """``faster_rcnn_entry()`` for Mask R-CNN: the result also has masks
+    (batch, 100, 28, 28), each the sigmoid of its label's mask logits in
+    its box's coordinates."""
+    return _rcnn_serving(True, device, batch)

@@ -182,8 +182,8 @@ SEG_FULL_MAX = CudaKernel(
 
 BILINEAR_GATHER_FWD = CudaKernel(
     "bilinear_gather_fwd", "bilinear_gather.cu",
-    # x, ci, cw, out, B, HW, C, P, dtype, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, ci, cw, out, B, HW, C, P, dtype, wide, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     replaces="minddet_tpu/ops/bilinear.py:49 _fwd_kernel",
 )
 
@@ -204,8 +204,8 @@ BILINEAR_GATHER_BWD_DX = CudaKernel(
 
 BILINEAR_GATHER_BWD_DCW = CudaKernel(
     "bilinear_gather_bwd_dcw", "bilinear_gather_bwd_dcw.cu",
-    # g, x, ci, dcw, B, HW, C, P, dtype, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, x, ci, dcw, B, HW, C, P, dtype, wide, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     replaces="minddet_tpu/ops/bilinear.py:115 _bwd_dcw_kernel",
 )
 

@@ -1,10 +1,14 @@
 """ResNet backbone with optional DCNv2 stages (counterpart of
 ``minddet_tpu/models/backbones/resnet.py``).
 
-Depth 18 (``BasicBlock``) only for now; ``Bottleneck`` and the scan path
-come later. NCHW in ``channels_last`` memory; BN uses the batch's
-statistics in train mode and the running ones in eval mode; convs compute
-in their input's dtype (``models/layers.py``).
+Depths 18 and 34 (``BasicBlock``) and 50, 101 and 152 (``Bottleneck``).
+In eval mode the reference runs each stage's inner Bottlenecks as one
+``lax.scan`` over their stacked variables (``_scan_bottlenecks``), which
+computes the same function; here they run one after another under their
+per-block names ``layer{s}_{i}``. NCHW in ``channels_last`` memory; BN uses
+the batch's statistics in train mode and the running ones in eval mode;
+convs compute in their input's dtype (``models/layers.py``). The
+reference's ``output_stride`` dilation and DCN Bottlenecks are not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from minddet_tpu_torch.models.layers import (BN_EPS, BatchNorm, Conv2d,
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, in_channels: int, features: int, strides: int = 1,
                  dcn: bool = False):
         super().__init__()
@@ -45,7 +51,48 @@ class BasicBlock(nn.Module):
         return torch.relu(y + residual)
 
 
-_ARCH = {18: (BasicBlock, (2, 2, 2, 2))}
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (the stride, ResNet v1.5) -> 1x1 to ``4 * features``, BN
+    after each, ReLU after the first two and after the residual add; the
+    downsample branch (1x1 with the stride, BN) wherever the output's shape
+    differs from the input's, ``layer1_0`` (64 -> 256 at stride 1)
+    included."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, features: int, strides: int = 1,
+                 dcn: bool = False):
+        super().__init__()
+        if dcn:
+            raise NotImplementedError("DCN Bottlenecks are not ported")
+        out = features * self.expansion
+        self.conv1 = Conv2d(in_channels, features, 1, bias=False)
+        self.bn1 = BatchNorm(features, eps=BN_EPS)
+        self.conv2 = Conv2d(features, features, 3, stride=strides, padding=1,
+                            bias=False)
+        self.bn2 = BatchNorm(features, eps=BN_EPS)
+        self.conv3 = Conv2d(features, out, 1, bias=False)
+        self.bn3 = BatchNorm(out, eps=BN_EPS)
+        if strides != 1 or in_channels != out:
+            self.downsample_conv = Conv2d(in_channels, out, 1,
+                                          stride=strides, bias=False)
+            self.downsample_bn = BatchNorm(out, eps=BN_EPS)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(y + residual)
+
+
+_ARCH = {18: (BasicBlock, (2, 2, 2, 2)), 34: (BasicBlock, (3, 4, 6, 3)),
+         50: (Bottleneck, (3, 4, 6, 3)), 101: (Bottleneck, (3, 4, 23, 3)),
+         152: (Bottleneck, (3, 8, 36, 3))}
 WIDTHS = (64, 128, 256, 512)
 
 
@@ -61,9 +108,9 @@ class ResNet(nn.Module):
                  dcn_stages: Sequence[bool] = (False, False, False, False)):
         super().__init__()
         if depth not in _ARCH:
-            raise NotImplementedError(
-                f"depth {depth}: only {sorted(_ARCH)} is ported so far")
+            raise ValueError(f"depth {depth}: one of {sorted(_ARCH)}")
         block_cls, layers = _ARCH[depth]
+        self.expansion = block_cls.expansion
         self.conv1 = Conv2d(3, WIDTHS[0], 7, stride=2, padding=3,
                                bias=False)
         self.bn1 = BatchNorm(WIDTHS[0], eps=BN_EPS)
@@ -77,7 +124,7 @@ class ResNet(nn.Module):
                 strides = 2 if (stage > 0 and i == 0) else 1
                 self.add_module(name, block_cls(
                     cin, width, strides=strides, dcn=dcn_stages[stage]))
-                cin = width
+                cin = width * self.expansion
                 names.append(name)
             self.stage_names.append(tuple(names))
 
@@ -92,4 +139,4 @@ class ResNet(nn.Module):
 
     @property
     def out_channels(self) -> Tuple[int, ...]:
-        return WIDTHS
+        return tuple(w * self.expansion for w in WIDTHS)

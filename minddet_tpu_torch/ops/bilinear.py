@@ -147,26 +147,59 @@ def _check(x, ci, cw, g=None, width=None) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_int32(x, ci) -> None:
-    """K3f and K3dcw index x and their (B, P, C) side with 32-bit values."""
-    if max(x.numel(), ci.shape[0] * ci.shape[1] * x.shape[2]) > _INT32_MAX:
-        raise ValueError("tensors too large for the kernel's 32-bit indices")
+GATHER_THREADS = 256  # threads a block of K3f and K3dcw
+GRID_BLOCKS = 2 ** 31 - 1  # the most blocks of a one-dimensional grid
+
+
+def _int_args(**sizes) -> None:
+    """The sizes passed to a kernel as C ints must fit 32 bits."""
+    for name, v in sizes.items():
+        if v > _INT32_MAX:
+            raise ValueError(f"{name} = {v} does not fit the kernel's 32-bit "
+                             f"size arguments")
+
+
+def gather_fwd_plan(b: int, hw: int, c: int, p: int, dtype) -> dict:
+    """K3f's launch for (b, hw, c) maps (c padded to 16-byte vectors) and p
+    points per image: one thread per output vector, ``blocks`` of
+    ``GATHER_THREADS``, ``wide`` (64-bit thread indices) from 2**31
+    vectors on; every offset into x and out is 64-bit, so any B * P * C
+    the grid holds is one launch. Raises where it does not."""
+    _int_args(B=b, HW=hw, C=c, P=p)
+    vectors = b * p * (c // _VEC[dtype])
+    blocks = -(-vectors // GATHER_THREADS)
+    if blocks > GRID_BLOCKS:
+        raise ValueError(f"{vectors} output vectors pass the grid")
+    return dict(wide=vectors >= 2 ** 31, blocks=blocks)
+
+
+def gather_dcw_plan(b: int, hw: int, c: int, p: int) -> dict:
+    """K3dcw's launch: one warp per corner (B * P * 4 of them), 8 a block,
+    ``wide`` (64-bit warp indices) from 2**31 corners on; offsets into g and
+    x are 64-bit. Raises where the grid does not hold it."""
+    _int_args(B=b, HW=hw, C=c, P=p)
+    corners = 4 * b * p
+    blocks = -(-corners // (GATHER_THREADS // 32))
+    if blocks > GRID_BLOCKS:
+        raise ValueError(f"{corners} corners pass the grid")
+    return dict(wide=corners >= 2 ** 31, blocks=blocks)
 
 
 def _bilinear_gather_cuda(x, ci, cw) -> torch.Tensor:
     c = x.shape[-1]
     x = pad_channels(x)
     _check(x, ci, cw)
-    _check_int32(x, ci)
     b, hw, ch = x.shape
     p = ci.shape[1]
+    plan = gather_fwd_plan(b, hw, ch, p, x.dtype)
     out = torch.empty(b, p, ch, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return _unpad(out, c)
     fn = BILINEAR_GATHER_FWD.fn()
     BILINEAR_GATHER_FWD.launches += 1
     err = fn(x.data_ptr(), ci.data_ptr(), cw.data_ptr(), out.data_ptr(), b,
-             hw, ch, p, _DTYPE_CODE[x.dtype], cuda_stream(x.device))
+             hw, ch, p, _DTYPE_CODE[x.dtype], int(plan["wide"]),
+             cuda_stream(x.device))
     BILINEAR_GATHER_FWD.check(err)
     return _unpad(out, c)
 
@@ -238,18 +271,17 @@ def _bwd_dcw_cuda(g, x, ci, cw) -> torch.Tensor:
     _check_g(g, x, ci)
     g, x = pad_channels(g), pad_channels(x)
     _check(x, ci, cw, g)
-    _check_int32(x, ci)
     b, hw, ch = x.shape
     p = ci.shape[1]
-    if b * p * 4 > _INT32_MAX:
-        raise ValueError("too many corners for the kernel's grid")
+    plan = gather_dcw_plan(b, hw, ch, p)
     dcw = torch.empty(b, p, 4, dtype=torch.float32, device=x.device)
     if dcw.numel() == 0:
         return dcw
     fn = BILINEAR_GATHER_BWD_DCW.fn()
     BILINEAR_GATHER_BWD_DCW.launches += 1
     err = fn(g.data_ptr(), x.data_ptr(), ci.data_ptr(), dcw.data_ptr(), b,
-             hw, ch, p, _DTYPE_CODE[x.dtype], cuda_stream(x.device))
+             hw, ch, p, _DTYPE_CODE[x.dtype], int(plan["wide"]),
+             cuda_stream(x.device))
     BILINEAR_GATHER_BWD_DCW.check(err)
     return dcw
 

@@ -1,10 +1,11 @@
-"""Box helpers of the PointPillars and CenterPoint paths (counterpart of the
-parts of ``minddet_tpu/ops/box.py`` they use, plus the
+"""Box helpers of the PointPillars, CenterPoint and R-CNN paths
+(counterpart of the parts of ``minddet_tpu/ops/box.py`` they use, plus the
 rotated-rectangle corners of ``minddet_tpu/ops/rotated_iou_pallas.py:
 _corners``).
 
-Boxes are [x, y, z, w, l, h, yaw] in 3D and [x, y, w, l, yaw] in BEV; w runs
-along the box's own x axis and l along its y axis, yaw counter-clockwise.
+Axis-aligned 2D boxes are [x1, y1, x2, y2]. Boxes are [x, y, z, w, l, h,
+yaw] in 3D and [x, y, w, l, yaw] in BEV; w runs along the box's own x axis
+and l along its y axis, yaw counter-clockwise.
 """
 
 from __future__ import annotations
@@ -13,6 +14,56 @@ import math
 from typing import List, Tuple
 
 import torch
+
+
+def area(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of [..., 4] corner boxes (0 for a box with x2 < x1 or y2 <
+    y1)."""
+    return ((boxes[..., 2] - boxes[..., 0]).clamp(min=0)
+            * (boxes[..., 3] - boxes[..., 1]).clamp(min=0))
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                 eps: float = 1e-8) -> torch.Tensor:
+    """IoU of (..., N, 4) and (..., M, 4) corner boxes -> (..., N, M); the
+    union is kept above ``eps``."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:4], boxes2[..., None, :, 2:4])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(boxes1)[..., :, None] + area(boxes2)[..., None, :] - inter
+    return inter / union.clamp(min=eps)
+
+
+def clip_boxes(boxes: torch.Tensor, height: float, width: float
+               ) -> torch.Tensor:
+    """Clip [..., 4] corner boxes into [0, width] x [0, height]."""
+    return torch.stack([boxes[..., 0].clamp(0, width),
+                        boxes[..., 1].clamp(0, height),
+                        boxes[..., 2].clamp(0, width),
+                        boxes[..., 3].clamp(0, height)], dim=-1)
+
+
+def decode_deltas(deltas: torch.Tensor, anchors: torch.Tensor,
+                  means=(0.0, 0.0, 0.0, 0.0), stds=(1.0, 1.0, 1.0, 1.0),
+                  max_wh_ratio: float = 16.0) -> torch.Tensor:
+    """R-CNN deltas [dx, dy, dw, dh] (..., 4) against corner anchors (...,
+    4) -> corner boxes: ``d = deltas * stds + means``, centres moved by
+    (dx, dy) anchor sizes, sizes scaled by exp of dw and dh clamped to
+    +-log(``max_wh_ratio``)."""
+    d = (deltas * torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+         + torch.tensor(means, dtype=deltas.dtype, device=deltas.device))
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = (anchors[..., 0] + anchors[..., 2]) / 2
+    ay = (anchors[..., 1] + anchors[..., 3]) / 2
+    limit = math.log(max_wh_ratio)
+    gx = ax + d[..., 0] * aw
+    gy = ay + d[..., 1] * ah
+    gw = aw * torch.exp(d[..., 2].clamp(-limit, limit))
+    gh = ah * torch.exp(d[..., 3].clamp(-limit, limit))
+    return torch.stack([gx - gw / 2, gy - gh / 2, gx + gw / 2, gy + gh / 2],
+                       dim=-1)
 
 
 def limit_period(val: torch.Tensor, offset: float = 0.5,

@@ -1,7 +1,8 @@
-"""Greedy rotated NMS on the device (counterpart of the parts of
-``minddet_tpu/ops/nms.py`` the PointPillars predict path uses:
-``_greedy_keep_from_iou`` and ``rotated_nms``), batched over a leading
-sample axis where the reference vmaps one sample at a time.
+"""Greedy NMS on the device (counterpart of the parts of
+``minddet_tpu/ops/nms.py`` the ported predict paths use:
+``_greedy_keep_from_iou``, ``nms``, ``batched_nms`` and ``rotated_nms``),
+batched over a leading sample axis where the reference vmaps one sample at
+a time.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from minddet_tpu_torch.ops.box import pairwise_iou
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.rotated_iou import rotated_iou_bev
 
@@ -46,6 +48,50 @@ def greedy_keep_from_iou(iou: torch.Tensor, scores: torch.Tensor,
     return keep, passes
 
 
+def _kept_indices(keep: torch.Tensor, scores: torch.Tensor, k: int
+                  ) -> torch.Tensor:
+    """The kept boxes' indices by descending score (the lower index first
+    among equal scores), -1 past the last kept one: (B, k)."""
+    sel = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+    top, idx = topk_lowest_index_first(sel, k)
+    return torch.where(torch.isfinite(top), idx, torch.full_like(idx, -1))
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor,
+        iou_threshold: float = 0.5, score_threshold: float = float("-inf"),
+        max_outputs: int | None = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Greedy hard NMS over corner boxes (B, N, 4) with scores (B, N); a
+    box is a candidate where its score is above ``score_threshold``.
+
+    Returns (indices (B, K) of the kept boxes by descending score, -1
+    padded, K = min(max_outputs, N); kept count (B,); the fixed point's
+    passes)."""
+    n = boxes.shape[-2]
+    k = n if max_outputs is None else min(max_outputs, n)
+    valid = scores > score_threshold
+    keep, passes = greedy_keep_from_iou(pairwise_iou(boxes, boxes), scores,
+                                        valid, iou_threshold)
+    return (_kept_indices(keep, scores, k),
+            keep.sum(dim=-1, dtype=torch.int32), passes)
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                classes: torch.Tensor, iou_threshold: float = 0.5,
+                score_threshold: float = float("-inf"),
+                max_outputs: int | None = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Class-aware ``nms``: boxes (B, N, 4) of different ``classes`` (B, N)
+    never suppress each other. Each sample's boxes are shifted by class
+    times that sample's own span (max - min coordinate + 1), as the
+    reference does inside its per-sample ``vmap``."""
+    flat = boxes.reshape(boxes.shape[0], -1)
+    span = flat.amax(dim=1) - flat.amin(dim=1) + 1.0
+    offsets = classes.to(boxes.dtype) * span[:, None]
+    return nms(boxes + offsets[..., None], scores, iou_threshold,
+               score_threshold, max_outputs)
+
+
 def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 iou_threshold: float = 0.1,
                 score_threshold: float = float("-inf"),
@@ -63,7 +109,5 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
     valid = scores > score_threshold
     iou = rotated_iou_bev(boxes, boxes)
     keep, passes = greedy_keep_from_iou(iou, scores, valid, iou_threshold)
-    sel = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
-    top, idx = topk_lowest_index_first(sel, k)
-    idx = torch.where(torch.isfinite(top), idx, torch.full_like(idx, -1))
-    return idx, keep.sum(dim=-1, dtype=torch.int32), passes
+    return (_kept_indices(keep, scores, k),
+            keep.sum(dim=-1, dtype=torch.int32), passes)

@@ -36,6 +36,13 @@ state dict (the anchors) are no weights and are left alone.
 ``refine/fc{i}|bn{i}|score|box``; ``extractor`` has no parameters), again
 from the per-layer RPN tree only.
 
+``faster_rcnn_from_flax`` and ``mask_rcnn_from_flax`` do it for the JAX
+``FasterRCNN`` and ``MaskRCNN`` (``backbone/conv1``, ``backbone/bn1``,
+``backbone/layer{s}_{i}/...`` with the Bottleneck's ``conv3``/``bn3``,
+``fpn/lateral{i}|smooth{i}``, ``rpn/conv|cls|reg``, ``box_head/fc1|fc2|cls|
+reg``, ``mask_head/conv{i}|up|out``; the mask head's 2x2 stride-2
+``ConvTranspose`` is flipped like every other). The anchors are no weights.
+
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
 ``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and
@@ -159,6 +166,17 @@ def pointpillars_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
 def centerpoint_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     """Load the JAX ``CenterPoint`` or ``CenterPointTwoStage`` variables
     (per-layer RPN layout) into the port's class of the same name."""
+    return load_from_flax(model, variables)
+
+
+def faster_rcnn_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``FasterRCNN`` variables into the port's
+    ``FasterRCNN``."""
+    return load_from_flax(model, variables)
+
+
+def mask_rcnn_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``MaskRCNN`` variables into the port's ``MaskRCNN``."""
     return load_from_flax(model, variables)
 
 

@@ -354,3 +354,47 @@ def test_pad_channels_keeps_the_plain_results(dtype, c):
     torch.testing.assert_close(bilinear_gather_bwd_dcw_plain(gp, xp, cit),
                                bilinear_gather_bwd_dcw_plain(gt, xt, cit),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b, p, c, dtype, fwd_wide, dcw_wide", [
+    # Faster R-CNN's box ROIAlign at batch 84: 2.16e9 bf16 output values,
+    # past 2**31 (the old refusal) but 2.7e8 vectors, 32-bit threads
+    (84, 100_352, 256, torch.bfloat16, False, False),
+    # 2**34 output values: 2**31 bf16 vectors, 64-bit threads
+    (2048, 8192, 1024, torch.bfloat16, True, False),
+    # 2**31 corners of K3dcw: 64-bit warps
+    (5350, 100_352, 256, torch.float32, True, True),
+])
+def test_gather_checks_take_past_2_31_values(b, p, c, dtype, fwd_wide,
+                                             dcw_wide):
+    """K3f and K3dcw take any B * P * C the reference takes (meta tensors:
+    nothing is allocated): the wrappers' checks and launch plans take the
+    call as one launch, with 64-bit thread indices from 2**31 vectors (K3f)
+    or corners (K3dcw) on; every offset is 64-bit in both kernels."""
+    import minddet_tpu_torch.ops.bilinear as tbl
+
+    hw = 128 * 128
+    assert b * p * c > 2 ** 31
+    x = torch.empty(b, hw, c, dtype=dtype, device="meta")
+    ci = torch.empty(b, p, 4, dtype=torch.int32, device="meta")
+    cw = torch.empty(b, p, 4, device="meta")
+    g = torch.empty(b, p, c, dtype=dtype, device="meta")
+    tbl._check(x, ci, cw)
+    tbl._check(x, ci, cw, g)
+    fwd = tbl.gather_fwd_plan(b, hw, c, p, dtype)
+    dcw = tbl.gather_dcw_plan(b, hw, c, p)
+    assert fwd["wide"] == fwd_wide and dcw["wide"] == dcw_wide
+    assert fwd["blocks"] * tbl.GATHER_THREADS * (
+        16 // x.element_size()) >= b * p * c
+    assert max(fwd["blocks"], dcw["blocks"]) <= tbl.GRID_BLOCKS
+
+
+def test_gather_plans_refuse_what_the_grid_cannot_hold():
+    import minddet_tpu_torch.ops.bilinear as tbl
+
+    with pytest.raises(ValueError):  # C past the kernel's int argument
+        tbl.gather_fwd_plan(1, 16, 2 ** 31, 4, torch.float32)
+    with pytest.raises(ValueError):  # more blocks than a grid holds
+        tbl.gather_fwd_plan(2 ** 20, 16, 2 ** 12, 2 ** 20, torch.float32)
+    with pytest.raises(ValueError):
+        tbl.gather_dcw_plan(2 ** 20, 16, 8, 2 ** 20)

@@ -2,8 +2,9 @@
 versions on the card, at small shapes: the row gather's map backward
 (K3dx), the DCN samplers' backward (K1b, and K2b, its flat entry) and
 forward (K1f, and K2f, its flat entry), the rotated-box intersection (K4),
-and the row gather's three kernels at widths that are not a whole number of
-16-byte vectors.
+the row gather's three kernels at widths that are not a whole number of
+16-byte vectors, the row gather (K3f) at the R-CNN's ROIAlign shapes, and
+K3f and K3dcw past 2**31 values.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a GPU host without JAX:
@@ -27,7 +28,10 @@ plain version's sum of absolute terms (dx of K3dx) or the plain value:
   them, at the tolerances of the C % 8 == 0 cases;
 - K1f and K2f: f32 within 1e-5 of the plain version (the same products,
   fused or not), bf16 within one bf16 ulp of the plain f32 result (atol
-  1e-2 + rtol 2**-7); bit for bit between two calls.
+  1e-2 + rtol 2**-7); bit for bit between two calls;
+- K3f at the R-CNN shapes: ``GATHER_TOL`` of ``chip_smoke.py`` (f32 atol
+  1e-5, rtol 1e-6: four products summed with FMAs; bf16 rtol 2**-8, that
+  f32 sum rounded once).
 """
 
 import numpy as np
@@ -38,6 +42,7 @@ from minddet_tpu_torch import kernels
 from minddet_tpu_torch.ops import bilinear as bl
 from minddet_tpu_torch.ops import hat_sample as hs
 from minddet_tpu_torch.ops import rotated_iou as ri
+from minddet_tpu_torch.ops import roi_align as ra
 
 DX_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 2 ** -8)}
 FWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
@@ -680,3 +685,144 @@ def test_gather_kernels_take_any_width(cuda, dtype, c):
         rtol=1e-5, atol=1e-4)
     got, _ = _check_dx(g, ci, cw, 300)
     assert got.shape == (2, 300, c)
+
+
+def _report(kernel, size, got, ref):
+    """Print the tail's largest absolute and relative error (run with
+    ``-s`` to read them)."""
+    err = (got.float() - ref).abs()
+    rel = (err / ref.abs())[ref != 0]
+    print(f"\n{kernel} at {size} values: max_abs_err={float(err.max()):.3e}"
+          f" max_rel_err={float(rel.max()):.3e}")
+
+
+def _gather_tail_case(dev, b, p, c, dtype, tail, seed):
+    """(x, ci, cw, tail points): a (b, 64, c) map; every point skips all
+    four corners (ci = -1) but the last ``tail`` of the last image, which
+    sample the map at random."""
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(b, 64, c).astype(np.float32)).to(dev, dtype)
+    ci = torch.full((b, p, 4), -1, dtype=torch.int32, device=dev)
+    cw = torch.ones(b, p, 4, device=dev)
+    ci_t = torch.from_numpy(rs.randint(0, 64, (tail, 4)).astype(np.int32))
+    cw_t = torch.from_numpy(rs.rand(tail, 4).astype(np.float32))
+    ci[-1, -tail:] = ci_t.to(dev)
+    cw[-1, -tail:] = cw_t.to(dev)
+    return x, ci, cw, ci_t, cw_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, p, c, wide", [
+    # 2**31 + 2**20 bf16 output values, 32-bit thread indices (the old
+    # wrapper refused this: the box ROIAlign past batch 83)
+    (2, 2 ** 22 + 2 ** 11, 256, False),
+    # 2**31 + 2**20 bf16 output vectors (2**34 + 2**23 values, 34 GB):
+    # 64-bit thread indices, the tail's past 2**31
+    (1, 2 ** 21 + 2 ** 10, 8192, True),
+])
+def test_gather_fwd_past_2_31_values(cuda, b, p, c, wide):
+    """K3f writing more than 2**31 values in one launch: only the last 512
+    points of the last image are on the map, and their rows lie past 2**31
+    values (and, in the second case, past 2**31 threads), so a 32-bit
+    offset would write them elsewhere. They match the plain version; every
+    other output value is exactly 0."""
+    tail = 512
+    need = b * p * c * 2 + b * p * 32
+    torch.cuda.empty_cache()  # what earlier tests left in the allocator
+    free, _ = torch.cuda.mem_get_info()
+    if free < need + 2 * 2 ** 30:
+        pytest.skip(f"needs ~{need / 2 ** 30:.0f} GB of free device memory")
+    assert (b * p - tail) * c > 2 ** 31 - 1
+    assert bl.gather_fwd_plan(b, 64, c, p, torch.bfloat16)["wide"] == wide
+    x, ci, cw, ci_t, cw_t = _gather_tail_case(cuda, b, p, c, torch.bfloat16,
+                                              tail, 21)
+    out = bl.bilinear_gather(x, ci, cw)
+    torch.cuda.synchronize()
+    del ci, cw
+    got = out[-1, -tail:].cpu().float()
+    out[-1, -tail:] = 0
+    assert not bool(out.any())
+    ref = bl.bilinear_gather_plain(x[-1:].cpu().float(), ci_t[None],
+                                   cw_t[None])[0]
+    _report("K3f", b * p * c, got, ref)
+    assert bool(((got - ref).abs() <= 1e-5 + 2 ** -8 * ref.abs()).all())
+    assert ref.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_gather_bwd_dcw_past_2_31_corners(cuda):
+    """K3dcw over 2**31 + 2**11 corners (64-bit warp indices; g holds 2**33
+    bf16 values): the last 512 points' dots match the plain version, every
+    skipped corner's is exactly 0."""
+    b, p, c, tail = 1, 2 ** 29 + 2 ** 9, 8, 512
+    torch.cuda.empty_cache()  # what earlier tests left in the allocator
+    free, _ = torch.cuda.mem_get_info()
+    if free < 40 * 2 ** 30:
+        pytest.skip("needs ~34 GB of free device memory")
+    assert bl.gather_dcw_plan(b, 64, c, p)["wide"]
+    x, ci, cw, ci_t, _ = _gather_tail_case(cuda, b, p, c, torch.bfloat16,
+                                           tail, 22)
+    g = torch.zeros(b, p, c, dtype=torch.bfloat16, device=cuda)
+    g_t = torch.from_numpy(np.random.RandomState(23).randn(tail, c).astype(
+        np.float32))
+    g[0, -tail:] = g_t.to(cuda, torch.bfloat16)
+    dcw = bl.bilinear_gather_bwd_dcw(g, x, ci, cw)
+    torch.cuda.synchronize()
+    del g, ci, cw
+    got = dcw[0, -tail:].cpu()
+    dcw[0, -tail:] = 0
+    assert not bool(dcw.any())
+    ref = bl.bilinear_gather_bwd_dcw_plain(
+        g_t.to(torch.bfloat16).float()[None], x.cpu().float(), ci_t[None])[0]
+    _report("K3dcw", b * p * 4, got, ref)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    assert ref.abs().max() > 0
+
+
+GATHER_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-5, 2 ** -8)}
+
+
+def rcnn_rois(rs, b, r, res=512):
+    """(b, r, 4) rois drawn like a 512 x 512 request's proposals: sizes
+    log-uniform over 4-512 px, clipped to the image; every tenth roi a
+    zero-padded slot, every tenth but one zero-area."""
+    wh = np.exp(rs.uniform(np.log(4), np.log(res), (b, r, 2)))
+    xy = rs.uniform(0, res, (b, r, 2)) - wh / 2
+    rois = np.clip(np.concatenate([xy, xy + wh], -1), 0, res)
+    rois[:, ::10] = 0.0
+    rois[:, 1::10, 2:] = rois[:, 1::10, :2]
+    return torch.from_numpy(rois.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rois, size", [(512, (7, 7)), (100, (14, 14))])
+def test_gather_fwd_rcnn_shapes(cuda, dtype, rois, size):
+    """K3f at each FPN level of a 512 x 512 request (C = 256; 128^2, 64^2,
+    32^2 and 16^2 maps), batch 2, for the box head's 512 rois x 196
+    samples and the mask head's 100 x 784, against the plain version on
+    the same corners; and ``roi_align`` through it equals the gather of
+    those corners."""
+    rs = np.random.RandomState(24)
+    boxes = rcnn_rois(rs, 2, rois).to(cuda)
+    for stride in (4, 8, 16, 32):
+        side = 512 // stride
+        fmap = torch.from_numpy(rs.randn(2, side, side, 256).astype(
+            np.float32)).to(cuda, dtype)
+        got = ra.roi_align(fmap, boxes / stride, size)
+        b, r = boxes.shape[:2]
+        assert got.shape == (b, r) + size + (256,)
+        # the same points through the gather alone, against the plain one
+        ys, xs = ra.roi_sample_points(boxes / stride, size)
+        ci, cw = bl.bilinear_corners(ys, xs, side, side)
+        x = fmap.view(b, side * side, 256)
+        out = bl.bilinear_gather(x, ci, cw)
+        torch.cuda.synchronize()
+        ref = bl.bilinear_gather_plain(x.cpu().float(), ci.cpu(), cw.cpu())
+        atol, rtol = GATHER_TOL[dtype]
+        err = (out.cpu().float() - ref).abs()
+        assert bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
+        s = 2
+        mean = out.view(b, r, size[0], s, size[1], s, 256).mean(dim=(3, 5))
+        assert torch.equal(got, mean)
+

@@ -54,7 +54,13 @@ Phases (any failure raises and exits non-zero):
    and bf16: each FPN level's (B, 128^2 / 64^2 / 32^2 / 16^2, 256) map
    at the box head's 512 rois x 196 points and the mask head's 100 x 784,
    rois drawn like proposals (zero-area and zero-padded ones included),
-   with ``F.grid_sample`` timed beside it;
+   with ``F.grid_sample`` timed beside it; K3f and its map gradient K3dx
+   at the R-CNN train steps' shapes (256 rois x 196 and x 784 points per
+   image, a fifth of them zero boxes at the origin, g only on each roi's
+   own level), bf16, batch 1 and 8, with ``index_add_`` beside K3dx (dx
+   bit-equal between calls); K3f at Mask R-CNN's GT-bitmap crop (B,
+   128^2, 64) f32 x 256 x 3136 points, batch 1 and 8; K5f and K5b at a
+   bf16 width of 18 (padded to 24) on the train batch's streams;
 4. end to end in f32 (TF32 off): ``CenterNet`` predict on the card against
    the same model on the CPU (the plain path), stage by stage, with both
    sides' distances to the model in f64 on the CPU reported;
@@ -69,7 +75,9 @@ Phases (any failure raises and exits non-zero):
       the RPN's outputs, the proposals, the ROI features, the box head's
       outputs and the detections, each discrete choice (per-level top-k,
       RPN NMS, final top-k, final NMS) also on the CPU's own inputs;
-   f. the same for Mask R-CNN, with the mask logits;
+   f. the same for Mask R-CNN, with the mask logits; both also read,
+      ungated, the card's box head with its layers in f64
+      (``box_head_f64_readings``);
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
@@ -84,6 +92,14 @@ Phases (any failure raises and exits non-zero):
       parts, grad_norm, gradients and BN statistics;
    d. one f32 train step of CenterNet with DCN in all four backbone stages
       (batch 2), the card held to the f64 referee, the f32 CPU reported;
+   e. one f32 Faster R-CNN train step (ResNet-50-FPN at 256 x 256, batch
+      2, 64 ROI samples, SGD) on the card against the f32 CPU and an f64
+      CPU referee, both on the card's proposals and all three on the same
+      draws: each discrete stage on the CPU's inputs (proposals, RPN
+      targets, the ROI sample), the losses, every parameter's gradient, the
+      BN statistics; from seeded weights with random BN, and again from
+      the train entries' own (``seed_rcnn_for_training``);
+   f. the same for Mask R-CNN, with its mask targets;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -115,7 +131,18 @@ Phases (any failure raises and exits non-zero):
       8; K3f launches 4 times per request (one ROIAlign per pyramid
       level), no other kernel;
    i. Mask R-CNN serving (``mask_rcnn_entry``) as in h: K3f launches 8
-      times per request (the box and the mask ROIAligns).
+      times per request (the box and the mask ROIAligns);
+   j. Faster R-CNN training (``faster_rcnn_train_entry``: ResNet-50-FPN, 80
+      classes, 512x512, f32 params, bf16 compute, batch 8, 256 ROI
+      samples, SGD 0.01) takes 2 warm-up and 10 timed steps on one batch
+      (new sampling draws each step); every loss part stays finite; K3f
+      and K3dx launch 4 times per step, nothing else; then one more step
+      keeps K3dx's inputs (the sampled rois' corners and the real g on
+      each level), and each of those calls is held against the plain
+      version and timed beside ``index_add_`` (these are the K3dx row's
+      R-CNN cases in the summary);
+   k. Mask R-CNN training (``mask_rcnn_train_entry``) as in j: K3f
+      launches 9 times per step (the GT crop too) and K3dx 8 times.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -983,6 +1010,9 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
 
 
 PFN_HALF_WIDTH = 32  # the non-last PFN layer's units: K5f's channels
+# a width the kernels' 16-byte vectors do not divide in bf16: the non-last
+# layer of a 36-filter PFN; the wrappers pad it with zero channels to 24
+ODD_PFN_WIDTH = 18
 
 
 def _nusc_clouds(model, batch: int, seed: int, dev):
@@ -1008,8 +1038,11 @@ def check_seg_max_kernel(dev, model):
     bound = model.max_points_per_voxel
     dgen = torch.Generator(device=dev).manual_seed(2)
     cases = []
-    for b, dtype in ((1, torch.float32), (CP_BATCHES[-1], torch.float32),
-                     (1, torch.bfloat16), (TRAIN_CP_BATCH, torch.bfloat16)):
+    for b, dtype, c in ((1, torch.float32, PFN_HALF_WIDTH),
+                        (CP_BATCHES[-1], torch.float32, PFN_HALF_WIDTH),
+                        (1, torch.bfloat16, PFN_HALF_WIDTH),
+                        (TRAIN_CP_BATCH, torch.bfloat16, PFN_HALF_WIDTH),
+                        (TRAIN_CP_BATCH, torch.bfloat16, ODD_PFN_WIDTH)):
         points, mask = _nusc_clouds(model, b, 2, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
@@ -1018,8 +1051,7 @@ def check_seg_max_kernel(dev, model):
         n = first.shape[1]
         if not torch.equal(sm.seg_covered(first, last, bound), sv.keep):
             raise AssertionError("seg_covered is not the stream's keep mask")
-        x = torch.randn(b, n, PFN_HALF_WIDTH, generator=dgen,
-                        device=dev).to(dtype)
+        x = torch.randn(b, n, c, generator=dgen, device=dev).to(dtype)
         got = sm.seg_full_max_bounded(first, last, x, bound)
         torch.cuda.synchronize()
         ref = sm.seg_full_max_bounded_plain(first, last, x, bound)
@@ -1036,11 +1068,14 @@ def check_seg_max_kernel(dev, model):
         # max per value
         bound_ms, bound_by = _bound(2 * x.numel() * x.element_size()
                                     + 2 * b * n, x.numel())
-        case = dict(shape=[b, n, PFN_HALF_WIDTH], bound=bound,
+        case = dict(shape=[b, n, c], bound=bound,
                     dtype=str(dtype).replace("torch.", ""),
                     max_abs_err=max_abs, tolerance="exact", kept_share=kept,
                     pillars=sv.num_voxels.tolist(), ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
+        if c != PFN_HALF_WIDTH:
+            padded = sm.pad_channels(x[:, :1]).shape[-1]
+            case["stream"] = f"C={c}, padded to {padded}"
         cases.append(case)
         print(f"  seg_full_max x{case['shape']} {case['dtype']:8s} max_abs="
               f"{max_abs:.3e} kept rows {kept:.3f} kernel={ms * 1e3:8.1f}us "
@@ -1222,20 +1257,24 @@ def check_seg_max_bwd_kernel(dev, model):
     bound = model.max_points_per_voxel
     dgen = torch.Generator(device=dev).manual_seed(3)
     cases = []
-    for b, dtype, kind in ((1, torch.float32, "uniform"),
-                           (1, torch.bfloat16, "uniform"),
-                           (TRAIN_CP_BATCH, torch.bfloat16, "uniform"),
-                           (1, torch.float32, "clustered, ties"),
-                           (1, torch.bfloat16, "clustered, ties")):
-        clouds = _nusc_clouds if kind == "uniform" else _clustered_clouds
+    for b, dtype, kind, c in (
+            (1, torch.float32, "uniform", PFN_HALF_WIDTH),
+            (1, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
+            (TRAIN_CP_BATCH, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
+            (1, torch.float32, "clustered, ties", PFN_HALF_WIDTH),
+            (1, torch.bfloat16, "clustered, ties", PFN_HALF_WIDTH),
+            (TRAIN_CP_BATCH, torch.bfloat16, f"uniform, C={ODD_PFN_WIDTH}",
+             ODD_PFN_WIDTH)):
+        clouds = (_clustered_clouds if kind.startswith("clustered")
+                  else _nusc_clouds)
         points, mask = clouds(model, b, 3, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
                                    model.voxel_drop_order)
         first, last = sv.first, sv.last
         n = first.shape[1]
-        shape = (b, n, PFN_HALF_WIDTH)
-        if kind == "uniform":
+        shape = (b, n, c)
+        if not kind.startswith("clustered"):
             x = torch.randn(shape, generator=dgen, device=dev).to(dtype)
         else:
             x = torch.randint(0, 3, shape, generator=dgen,
@@ -1648,6 +1687,248 @@ def check_rcnn_gather(dev):
     return cases
 
 
+# the R-CNN train steps (phases 3, 5e, 5f, 6j, 6k): 256 sampled rois per
+# image, a fifth of them zero boxes at the origin (the padded GT slots that
+# the sampler appends to the proposals and takes as negatives); each roi's
+# gradient reaches only its own level's gather (the one-hot select)
+RCNN_TRAIN_BATCHES = (1, 8)
+RCNN_TRAIN_ROIS = 256
+RCNN_TRAIN_ROI_SETS = (("box", (7, 7)), ("mask", (14, 14)))
+RCNN_MASK_SIZE = 28  # the mask targets' crop of the GT bitmaps
+RCNN_BITMAP = (128, 64)  # (side, channels): image / 4, Mask R-CNN's G
+
+
+def rcnn_train_rois(b: int, gen) -> torch.Tensor:
+    """(b, 256, 4) rois like the ROI sampler's: ``rcnn_rois``, every fifth
+    a zero box at the origin."""
+    rois = rcnn_rois(b, RCNN_TRAIN_ROIS, gen)
+    rois[:, 4::5] = 0.0
+    return rois
+
+
+def _k3dx_case(g, x, ci, cw, common):
+    """K3dx on (g, x, ci, cw) against its plain version (``GATHER_BWD_TOL``,
+    and dx bit-equal between two calls), timed beside ``index_add_`` into a
+    zeroed f32 map, with its largest row tile's bucket (the corners that
+    one block sorts and sums) and the byte bound. Returns (case, ok)."""
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    b, hw, c = x.shape
+    p = ci.shape[1]
+    dev, dtype = x.device, x.dtype
+    name = str(dtype).replace("torch.", "")
+    elt = x.element_size()
+    rows = (bl._clipped_rows(ci, hw) + torch.arange(
+        b, device=dev)[:, None] * hw).reshape(-1)
+    plan = bl.gather_bwd_dx_plan(b, hw, c, p)
+    tile_of = rows[(ci >= 0).reshape(-1)] // plan["tile_rows"]
+    got = bl.bilinear_gather_bwd_dx(g, x, ci, cw)
+    again = bl.bilinear_gather_bwd_dx(g, x, ci, cw)
+    torch.cuda.synchronize()
+    repeat = torch.equal(got, again)
+    del again
+    ref = bl.bilinear_gather_bwd_dx_plain(g.float(), ci, cw, hw)
+    terms = bl.bilinear_gather_bwd_dx_plain(g.float().abs(), ci, cw.abs(),
+                                            hw)
+    err = (got.float() - ref).abs()
+    atol, rtol = GATHER_BWD_TOL[f"dx_{name}"]
+    ok = got.dtype == dtype and repeat and bool(
+        (err <= atol + rtol * terms).all())
+    case = dict(common, dtype=name, max_abs_err=float(err.max()),
+                max_abs=float(ref.abs().max()), repeat=repeat,
+                largest_bucket=int(torch.bincount(tile_of).max()),
+                sort_cap=plan["cap"], smem_bytes=plan["smem_bytes"],
+                tolerance=f"abs <= {atol} + {rtol} * sum |cw g|; "
+                          f"bit-equal between two calls")
+    del got, ref, terms, err, tile_of
+    case["ms"] = _cuda_ms(lambda: bl.bilinear_gather_bwd_dx(g, x, ci, cw),
+                          iters=20)
+    case["plain_ms"] = _cuda_ms(
+        lambda: bl.bilinear_gather_bwd_dx_plain(g, ci, cw, hw), iters=5,
+        warmup=1)
+    contrib = ((cw * (ci >= 0))[..., None]
+               * g.float()[:, :, None, :]).reshape(-1, c)
+    case["library_ms"] = _cuda_ms(
+        lambda: torch.zeros(b * hw, c, device=dev).index_add_(0, rows,
+                                                              contrib),
+        iters=20)
+    del contrib, rows
+    # dx (the whole map, in x's type) written once, g read once, ci and cw
+    # read once; 4 multiply-adds per g value
+    case["bound_ms"], case["bound_by"] = _bound(
+        b * hw * c * elt + b * p * c * elt + 2 * b * p * 4 * 4, 8 * b * p * c)
+    return case, ok
+
+
+def check_rcnn_train_gather(dev):
+    """Phase 3: K3f and K3dx at the R-CNN train steps' ROIAlign shapes,
+    bf16, batch 1 and 8: each FPN level's map (B, 128^2 / 64^2 / 32^2 /
+    16^2, 256) at 256 rois x 196 (box) and x 784 (mask) points per image
+    (``rcnn_train_rois``), g random where the roi's level (``roi_levels``)
+    is this one and 0 elsewhere, as the one-hot select's backward gives it.
+    K3f against its plain version (``GATHER_TOL``), K3dx too
+    (``GATHER_BWD_TOL``, and dx bit-equal between two calls), with
+    ``index_add_`` into a zeroed f32 map timed beside K3dx, its largest row
+    tile's bucket and the byte bounds, and ``F.grid_sample`` beside K3f.
+    Returns (K3f cases, K3dx cases)."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.ops import bilinear as bl
+    from minddet_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator().manual_seed(12)
+    dtype, name = torch.bfloat16, "bfloat16"
+    fwd_cases, dx_cases = [], []
+    for b in RCNN_TRAIN_BATCHES:
+        boxes = rcnn_train_rois(b, gen).to(dev)
+        level = ra.roi_levels(boxes, len(RCNN_STRIDES))
+        for kind, size in RCNN_TRAIN_ROI_SETS:
+            for li, stride in enumerate(RCNN_STRIDES):
+                side = 512 // stride
+                hw = side * side
+                ys, xs = ra.roi_sample_points(boxes / stride, size)
+                ci, cw = bl.bilinear_corners(ys, xs, side, side)
+                p = ci.shape[1]
+                x = torch.randn(b, hw, RCNN_C, generator=gen).to(dev, dtype)
+                on = (level == li).to(torch.float32)[:, :, None, None]
+                g = (torch.randn(b, RCNN_TRAIN_ROIS, p // RCNN_TRAIN_ROIS,
+                                 RCNN_C, generator=gen).to(dev) * on).reshape(
+                                     b, p, RCNN_C).to(dtype)
+                touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
+                              for i in range(b))
+                common = dict(shape=[b, hw, RCNN_C], points=p, dtype=name,
+                              stream=f"rcnn_train_{kind}", stride=stride,
+                              touched_rows=touched,
+                              rois_on_level=int((level == li).sum()),
+                              off_map_corner_share=float(
+                                  (ci < 0).float().mean()))
+                elt = x.element_size()
+
+                got = bl.bilinear_gather(x, ci, cw)
+                torch.cuda.synchronize()
+                ref = bl.bilinear_gather_plain(x.float(), ci, cw)
+                err = (got.float() - ref).abs()
+                atol, rtol = GATHER_TOL[name]
+                ok = bool((err <= atol + rtol * ref.abs()).all())
+                case = dict(common, max_abs_err=float(err.max()),
+                            tolerance=f"abs <= {atol} + {rtol} * |plain f32|")
+                del got, ref, err
+                case["ms"] = _cuda_ms(lambda: bl.bilinear_gather(x, ci, cw),
+                                      iters=20)
+                case["plain_ms"] = _cuda_ms(
+                    lambda: bl.bilinear_gather_plain(x, ci, cw), iters=3,
+                    warmup=1)
+                fmap = x.view(b, side, side, RCNN_C).permute(0, 3, 1, 2)
+                grid = torch.stack([2 * xs / (side - 1) - 1,
+                                    2 * ys / (side - 1) - 1], -1)[:, None]
+                grid = grid.to(dtype)
+                case["library_ms"] = _cuda_ms(
+                    lambda: F.grid_sample(fmap, grid, mode="bilinear",
+                                          padding_mode="zeros",
+                                          align_corners=True), iters=20)
+                del fmap, grid
+                # out written once, the touched rows, ci and cw read once;
+                # 4 FMAs per output value
+                case["bound_ms"], case["bound_by"] = _bound(
+                    b * p * RCNN_C * elt + touched * RCNN_C * elt
+                    + 2 * b * p * 4 * 4, 8 * b * p * RCNN_C)
+                fwd_cases.append(case)
+                if not ok:
+                    raise AssertionError(
+                        f"bilinear_gather_fwd at an R-CNN train shape "
+                        f"disagrees with its plain version: {case}")
+
+                case, ok = _k3dx_case(g, x, ci, cw, common)
+                dx_cases.append(case)
+                f = fwd_cases[-1]
+                print(f"  R-CNN train {kind} P{int(math.log2(stride))} "
+                      f"x{case['shape']} P={p} rois here "
+                      f"{case['rois_on_level']}: K3f {f['ms'] * 1e3:7.1f}us "
+                      f"(bound {f['bound_ms'] * 1e3:6.1f}); K3dx max_abs="
+                      f"{case['max_abs_err']:.3e} repeat={case['repeat']} "
+                      f"bucket<={case['largest_bucket']} kernel="
+                      f"{case['ms'] * 1e3:8.1f}us plain="
+                      f"{case['plain_ms'] * 1e3:8.1f}us index_add_="
+                      f"{case['library_ms'] * 1e3:8.1f}us bound="
+                      f"{case['bound_ms'] * 1e3:6.1f}us", flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"bilinear_gather_bwd_dx at an R-CNN train shape "
+                        f"disagrees with its plain version: {case}")
+                del x, g, ci, cw
+    return fwd_cases, dx_cases
+
+
+def check_rcnn_mask_crop(dev):
+    """Phase 3: K3f at Mask R-CNN's mask-target crop, f32: the GT bitmaps
+    (B, 128^2, 64) of ``synthetic_rcnn_batch`` (ellipses, 0 / 1) sampled at
+    256 rois x 56 x 56 points per image (28 x 28 bins, 2 x 2 samples) on
+    the rois over the bitmaps' stride 4, batch 1 and 8, against the plain
+    version (``GATHER_TOL``), with ``F.grid_sample`` timed beside it on the
+    same map and points and the byte bound."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.entry import synthetic_rcnn_batch
+    from minddet_tpu_torch.ops import bilinear as bl
+    from minddet_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator().manual_seed(13)
+    side, c = RCNN_BITMAP
+    stride = 512 // side
+    cases = []
+    for b in RCNN_TRAIN_BATCHES:
+        bitmaps = torch.from_numpy(
+            synthetic_rcnn_batch(b, True)["gt_bitmaps"]).to(dev)
+        boxes = rcnn_train_rois(b, gen).to(dev)
+        ys, xs = ra.roi_sample_points(boxes / stride,
+                                      (RCNN_MASK_SIZE, RCNN_MASK_SIZE))
+        ci, cw = bl.bilinear_corners(ys, xs, side, side)
+        p = ci.shape[1]
+        x = bitmaps.view(b, side * side, c)
+        touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
+                      for i in range(b))
+        got = bl.bilinear_gather(x, ci, cw)
+        torch.cuda.synchronize()
+        ref = bl.bilinear_gather_plain(x, ci, cw)
+        err = (got - ref).abs()
+        atol, rtol = GATHER_TOL["float32"]
+        ok = bool((err <= atol + rtol * ref.abs()).all())
+        case = dict(shape=[b, side * side, c], points=p, dtype="float32",
+                    stream="rcnn_gt_crop", stride=stride,
+                    max_abs_err=float(err.max()),
+                    tolerance=f"abs <= {atol} + {rtol} * |plain|",
+                    output_bytes=got.numel() * 4, touched_rows=touched)
+        del got, ref, err
+        case["ms"] = _cuda_ms(lambda: bl.bilinear_gather(x, ci, cw), iters=10)
+        case["plain_ms"] = _cuda_ms(lambda: bl.bilinear_gather_plain(
+            x, ci, cw), iters=3, warmup=1)
+        fmap = bitmaps.permute(0, 3, 1, 2)
+        grid = torch.stack([2 * xs / (side - 1) - 1,
+                            2 * ys / (side - 1) - 1], -1)[:, None]
+        case["library_ms"] = _cuda_ms(
+            lambda: F.grid_sample(fmap, grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True),
+            iters=10)
+        # out written once, the touched rows, ci and cw read once; 4 FMAs
+        # per output value
+        case["bound_ms"], case["bound_by"] = _bound(
+            b * p * c * 4 + touched * c * 4 + 2 * b * p * 4 * 4,
+            8 * b * p * c)
+        cases.append(case)
+        print(f"  bilinear_gather R-CNN GT crop x{case['shape']} P={p} "
+              f"float32 max_abs={case['max_abs_err']:.3e} output "
+              f"{case['output_bytes'] / 1e9:.2f} GB kernel="
+              f"{case['ms'] * 1e3:8.1f}us plain={case['plain_ms'] * 1e3:9.1f}"
+              f"us grid_sample={case['library_ms'] * 1e3:8.1f}us bound="
+              f"{case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']})",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"bilinear_gather_fwd at the GT crop "
+                                 f"disagrees with its plain version: {case}")
+        del bitmaps, x, ci, cw, fmap, grid
+    return cases
+
+
 @torch.no_grad()
 def randomize_for_check(model, gen):
     """Random offset/mask convs and BN affines, then BN statistics from one
@@ -1715,7 +1996,7 @@ HEAD_REFEREE_FLOOR = 1e-6
 # each end-to-end phase draws its model and inputs from a generator of its
 # own, so that what it checks does not depend on the phases before it
 PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "5": 50, "5b": 51,
-               "5d": 52, "6a": 60, "6f": 61}
+               "5d": 52, "5e": 53, "5f": 54, "6a": 60, "6f": 61}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -2487,6 +2768,44 @@ def _same_detections(got, ref) -> bool:
                       <= RCNN_SCORE_TOL).all()))
 
 
+# the box head's layers computed in f64 on the card, the rest in f32: an
+# ungated reading of where the card's f32 box head leaves the f64 referee
+BOX_HEAD_F64 = (("fc1_f64", ("fc1",)), ("fc1_fc2_f64", ("fc1", "fc2")),
+                ("all_f64", ("fc1", "fc2", "cls", "reg")))
+
+
+@torch.no_grad()
+def box_head_f64_readings(head, feats, ref_cls, ref_reg, prefix=""):
+    """``head`` (the card's f32 ``BoxHead``) on the ROI features ``feats``
+    (B, R, 7, 7, C) with the layers of each ``BOX_HEAD_F64`` entry in f64
+    and the others in f32 (TF32 off): each variant's largest distance from
+    the f64 referee's class logits ``ref_cls`` and box deltas ``ref_reg``
+    (on the CPU). Where the card's f32 head lies farther from the referee
+    than the f32 CPU's, the variant whose distance falls to the CPU's names
+    the layer whose sum makes the gap."""
+    import torch.nn.functional as F
+
+    dev = next(head.parameters()).device
+    b, r = feats.shape[:2]
+    out = {}
+    for label, wide in BOX_HEAD_F64:
+        def layer(name, h):
+            lin = getattr(head, name)
+            t = torch.float64 if name in wide else torch.float32
+            return F.linear(h.to(t), lin.weight.to(t), lin.bias.to(t))
+
+        h = feats.to(dev).reshape(b, r, -1)
+        h = torch.relu(layer("fc1", h))
+        h = torch.relu(layer("fc2", h))
+        cls = layer("cls", h).double().cpu()
+        reg = layer("reg", h).double().cpu().reshape(ref_reg.shape)
+        out[f"{prefix}box_{label}_cls_card_vs_f64"] = float(
+            (cls - ref_cls.double()).abs().max())
+        out[f"{prefix}box_{label}_reg_card_vs_f64"] = float(
+            (reg - ref_reg.double()).abs().max())
+    return out
+
+
 def check_rcnn_f32(dev, with_mask: bool, gen):
     """Phases 4e (Faster R-CNN) and 4f (Mask R-CNN): f32 ``predict`` at
     batch 1 on the card against the same model on the CPU (TF32 off) and
@@ -2645,6 +2964,7 @@ def _check_rcnn_f32(dev, with_mask, gen):
                    f"{STAGE_RTOL} of {top}")
     refereed("cls_logits", cls_k, c["cls"], r_cls)
     refereed("box_deltas", reg_k, c["reg"], r_reg)
+    result.update(box_head_f64_readings(gpu.box_head, c["roi"], r_cls, r_reg))
 
     # the detections from the CPU's head outputs and proposals
     fb, fs, fc = c["final_cand"]
@@ -3322,6 +3642,361 @@ def check_centerpoint_train_f32(dev, gpu):
     return result
 
 
+# f32 R-CNN train step, card vs CPU vs an f64 CPU referee (phases 5e, 5f):
+# ResNet-50-FPN, 80 classes, cut to 256 x 256, batch 2 and 64 ROI samples
+# per image, so that the CPU's f32 and f64 steps take seconds. The RPN
+# targets depend on the anchors, the GT and the draws only; the CPU and the
+# referee take the card's proposals, so all three sample the same rois and
+# every discrete choice of the loss is the same: what differs is f32
+# rounding through the train-mode network and its kinks (ReLU, smooth L1).
+# The losses and BN statistics take TRAIN_TOL's bounds. The f32 CPU itself
+# lies 2.4-3.0e-2 (relative L2) from the referee on the backbone's gradient
+# and up to 3.7e-2 on single parameters' (measured beside an H100 80GB HBM3
+# at 700 W): the gradient passes 53 train-mode BN layers. So, as phases 4, 4d, 4e hold
+# the heads, the card's gradients and grad_norm are held to the referee at
+# most ``referee_k`` times as far from it as the f32 CPU, plus a floor.
+RCNN_CHECK = dict(res=256, batch=2, roi_samples=64)
+RCNN_TRAIN_TOL = dict(loss_rtol=1e-4, referee_loss_rtol=1e-4,
+                      grad_norm_rtol=1e-3, referee_k=HEAD_REFEREE_K,
+                      referee_grad_norm_floor=1e-4,
+                      referee_grad_floor=1e-3, stat_atol=1e-4,
+                      stat_rtol=1e-4)
+RCNN_PARTS = ("backbone.", "fpn.", "rpn.", "box_head.", "mask_head.")
+RCNN_CROP_TIE = 1e-5  # crops this close to 0.5 may take either side
+
+
+def _rcnn_check_model(with_mask, dtype, dev=None):
+    from minddet_tpu_torch.entry import MASK_STRIDE, NUM_CLASSES
+    from minddet_tpu_torch.models.detectors.faster_rcnn import FasterRCNN
+
+    res = RCNN_CHECK["res"]
+    model = FasterRCNN(num_classes=NUM_CLASSES, depth=50,
+                       image_hw=(res, res), rpn_pre_nms=1000,
+                       rpn_post_nms=512,
+                       roi_samples=RCNN_CHECK["roi_samples"],
+                       with_mask=with_mask, mask_stride=MASK_STRIDE,
+                       dtype=dtype)
+    return model.to(device=dev, memory_format=torch.channels_last)
+
+
+def _one_rcnn_step(model, batch, draws, forced=None):
+    """One SGD train step of ``model`` (the R-CNN config's lr, momentum and
+    weight decay) on ``batch`` and ``draws``; with ``forced`` the loss takes
+    those proposals instead of its own. Returns the snapshot, the
+    proposals used (on the CPU), the box head's input (on the CPU), the
+    launch counts and the seconds."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.optim import sgd
+    from minddet_tpu_torch.entry import (RCNN_LR, RCNN_MOMENTUM,
+                                         RCNN_WEIGHT_DECAY, rcnn_loss)
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    d = next(model.parameters()).device
+    make, used, feats = model.proposals, [], []
+
+    def proposals(logits, deltas):
+        out = make(logits, deltas) if forced is None else (forced.to(d),
+                                                           None, 0)
+        used.append(out[0])
+        return out
+
+    model.proposals = proposals
+    hook = model.box_head.register_forward_pre_hook(
+        lambda m, args: feats.append(args[0].detach().cpu()))
+    state = TrainState.create(model, sgd(RCNN_LR, momentum=RCNN_MOMENTUM,
+                                         weight_decay=RCNN_WEIGHT_DECAY))
+    data = {k: v.to(d) for k, v in batch.items()}
+    data["draws"] = {k: v.to(d) for k, v in draws.items()}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(rcnn_loss)(state, data)
+    snap = _train_snapshot(state, metrics)
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    hook.remove()
+    del model.proposals
+    return snap, used[0].cpu(), feats[0], launches, seconds
+
+
+def rcnn_train_launches(with_mask: bool, steps: int = 1):
+    """Launch counts of ``steps`` R-CNN train steps: the row gather 4 times
+    per step (the box ROIAlign's levels), 9 with the masks (the mask
+    ROIAlign's levels and the GT bitmaps' crop); its map gradient 4, or 8
+    with the masks; nothing else (the rois are detached: no K3dcw)."""
+    from minddet_tpu_torch import kernels
+
+    per = {"bilinear_gather_fwd": 9 if with_mask else 4,
+           "bilinear_gather_bwd_dx": 8 if with_mask else 4}
+    return {k.name: steps * per.get(k.name, 0) for k in kernels.KERNELS}
+
+
+def check_rcnn_train_f32(dev, with_mask: bool, gen):
+    """Phases 5e (Faster R-CNN) and 5f (Mask R-CNN): one f32 train step
+    (``RCNN_CHECK``: ResNet-50-FPN at 256 x 256, batch 2, 64 ROI samples,
+    SGD) on the card against the same step on the CPU (TF32 off) and in
+    f64 compute on the CPU (the referee), from the same weights (seeded,
+    BN randomized by ``randomize_rcnn_bn``), batch (``synthetic_rcnn_batch``
+    at 256 x 256) and draws; the CPU and the referee take the card's
+    proposals. The step is held once more from the train entries' own
+    starting weights (``init_weights``, then ``seed_rcnn_for_training``,
+    from the entries' seeds), its readings under ``entry_start_...``.
+
+    - every discrete stage on the CPU's inputs (from the randomized BN):
+      the card's proposals from the CPU's RPN outputs (slot by slot, or as
+      sets where a candidate pair's IoU lies within PP_NEAR of 0.7), its
+      RPN targets and ROI sample on the same inputs exactly (deltas within
+      RCNN_BOX_TOL), with the masks its mask targets too (but where a crop
+      lies within RCNN_CROP_TIE of 0.5);
+    - the step: the loss and every part against the referee and the f32
+      CPU; grad_norm, every parameter's gradient (relative L2) and each
+      part's (backbone, FPN, RPN, box head, mask head) against the referee,
+      at most ``referee_k`` times as far from it as the f32 CPU's (plus a
+      floor), and grad_norm against the f32 CPU; the BN statistics after
+      the step against both (``RCNN_TRAIN_TOL``);
+    - ungated: the box head on the CPU's ROI features with its layers in
+      f64 on the card (``box_head_f64_readings``).
+
+    The card's step launches K3f 4 (9 with the masks) and K3dx 4 (8)
+    times, nothing else."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_rcnn_train_f32(dev, with_mask, gen)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _hold_rcnn_train_step(gpu, cpu, referee, batch, draws, with_mask,
+                          prefix, result, bad):
+    """One SGD step of phase 5e / 5f: the card on its own proposals, the
+    CPU and the referee on the card's, all three from the weights they
+    hold; the readings go into ``result`` under ``prefix``, the checks
+    that fail into ``bad`` (``RCNN_TRAIN_TOL``). Returns the box head's
+    input on the CPU."""
+    t = RCNN_TRAIN_TOL
+    g, pg, _, launches, seconds = _one_rcnn_step(gpu, batch, draws)
+    print(f"  card step {seconds:.1f} s, loss {g['metrics']['loss']:.6f}",
+          flush=True)
+    if launches != rcnn_train_launches(with_mask):
+        bad.append(f"{prefix}the train step launched {launches}")
+    result[f"{prefix}launches"] = launches
+    c, _, feats, _, seconds = _one_rcnn_step(cpu, batch, draws, forced=pg)
+    print(f"  CPU step on the card's proposals {seconds:.1f} s, loss "
+          f"{c['metrics']['loss']:.6f}", flush=True)
+    r, _, _, _, seconds = _one_rcnn_step(referee, batch, draws, forced=pg)
+    print(f"  CPU f64 step on the card's proposals {seconds:.1f} s, loss "
+          f"{r['metrics']['loss']:.6f}", flush=True)
+
+    def beyond(card, host, floor):
+        """The card farther from the referee than the f32 CPU allows."""
+        return card > t["referee_k"] * host + floor
+
+    for k, v in r["metrics"].items():
+        scale = max(abs(v), 1e-30)
+        card = result[f"{prefix}{k}_card_vs_referee"] = abs(
+            g["metrics"][k] - v) / scale
+        cpu_d = result[f"{prefix}{k}_cpu_vs_referee"] = abs(
+            c["metrics"][k] - v) / scale
+        host = abs(g["metrics"][k] - c["metrics"][k]) / max(
+            abs(c["metrics"][k]), 1e-30)
+        result[f"{prefix}{k}_rel_err"] = host
+        if k == "grad_norm":
+            if beyond(card, cpu_d, t["referee_grad_norm_floor"]):
+                bad.append(f"{prefix}grad_norm against the referee")
+            if host > t["grad_norm_rtol"]:
+                bad.append(prefix + k)
+            continue
+        if card > t["referee_loss_rtol"]:
+            bad.append(f"{prefix}{k} against the referee")
+        if host > t["loss_rtol"]:
+            bad.append(prefix + k)
+    for part in RCNN_PARTS:
+        if not any(n.startswith(part) for n in r["grads"]):
+            continue
+        key = prefix + "grad_" + part.rstrip(".")
+        card = result[f"{key}_card_vs_referee"] = _part_rel_l2(
+            g["grads"], r["grads"], part)
+        cpu_d = result[f"{key}_cpu_vs_referee"] = _part_rel_l2(
+            c["grads"], r["grads"], part)
+        if beyond(card, cpu_d, t["referee_grad_floor"]):
+            bad.append(f"{key} against the referee")
+    rel = {n: _rel_l2(g["grads"][n].double(), v.double())
+           for n, v in r["grads"].items()}
+    rel_cpu = {n: _rel_l2(c["grads"][n].double(), v.double())
+               for n, v in r["grads"].items()}
+    result[f"{prefix}grad_rel_l2_worst_card_vs_referee"] = [
+        f"{n} {v:.2e} (CPU {rel_cpu[n]:.2e})"
+        for n, v in sorted(rel.items(), key=lambda kv: -kv[1])[:6]]
+    far = [n for n in rel
+           if beyond(rel[n], rel_cpu[n], t["referee_grad_floor"])]
+    result[f"{prefix}params_beyond_the_referee_bound"] = len(far)
+    if far:
+        bad.append(f"{prefix}gradients of {far[:6]} against the referee")
+    stat_err = 0.0
+    for n, v in r["stats"].items():
+        for label, snap in (("", c), (" against the referee", r)):
+            e = (g["stats"][n] - snap["stats"][n]).abs()
+            stat_err = max(stat_err, float(e.max()))
+            if not bool((e <= t["stat_atol"] + t["stat_rtol"]
+                         * snap["stats"][n].abs()).all()):
+                bad.append(f"{prefix}BN statistic {n}{label}")
+    result[f"{prefix}stat_max_abs_err"] = stat_err
+    result[f"{prefix}param_max_abs_err_card_vs_referee"] = max(
+        float((g["params"][n] - v).abs().max())
+        for n, v in r["params"].items())
+    return feats
+
+
+def _check_rcnn_train_f32(dev, with_mask, gen):
+    import copy
+
+    from minddet_tpu_torch.entry import (SEED, seed_rcnn_for_training,
+                                         synthetic_rcnn_batch)
+    from minddet_tpu_torch.models.heads.roi_head import (mask_targets,
+                                                         sample_proposals)
+    from minddet_tpu_torch.models.heads.rpn_head import proposal_candidates
+    from minddet_tpu_torch.ops.anchors2d import rpn_targets
+    from minddet_tpu_torch.ops.roi_align import roi_align
+
+    res, b = RCNN_CHECK["res"], RCNN_CHECK["batch"]
+    t = RCNN_TRAIN_TOL
+    cpu = _rcnn_check_model(with_mask, torch.float32)
+    cpu.init_weights(torch.Generator().manual_seed(SEED))
+    randomize_rcnn_bn(cpu, torch.rand(b, res, res, 3, generator=gen), gen)
+    gpu = _rcnn_check_model(with_mask, torch.float32, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    referee = _rcnn_check_model(with_mask, torch.float64)
+    referee.load_state_dict(cpu.state_dict())
+    heads = {k: copy.deepcopy(m.box_head)
+             for k, m in (("card", gpu), ("cpu", cpu), ("ref", referee))}
+    # the weights and statistics every step starts from (the train-mode
+    # forward below moves the CPU's statistics)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_rcnn_batch(b, with_mask, res).items()}
+    draws = cpu.sampling_draws(b, batch["gt_boxes"].shape[1], gen)
+    result, bad = {"tolerance": t}, []
+
+    # every discrete stage on the CPU's inputs
+    cpu.train()
+    gpu.train()
+    with torch.no_grad():
+        _, c_logits, c_deltas = cpu(batch["image"])
+    c_props, _, _ = cpu.proposals(c_logits, c_deltas)
+    with torch.inference_mode():
+        g_props, _, _ = gpu.proposals(c_logits.to(dev), c_deltas.to(dev))
+    cand_boxes, cand_scores = proposal_candidates(
+        c_logits, c_deltas, cpu.anchors, cpu.level_sizes, cpu.image_hw,
+        cpu.rpn_pre_nms)
+    near = result["rpn_near_threshold_pairs"] = sum(
+        _near_iou_pairs(cand_boxes[i:i + 1], cand_scores[i:i + 1],
+                        RCNN_RPN_NMS_IOU) for i in range(b))
+    atol, rtol = RCNN_BOX_TOL
+    pk, pc = g_props.cpu().double(), c_props.double()
+    same = bool(((pk - pc).abs() <= atol + rtol * pc.abs()).all())
+    result["proposals_same_inputs_slot_by_slot"] = same
+
+    def as_detections(props):
+        real = props.abs().sum(-1) > 0
+        return dict(labels=real.long() - (~real).long(), boxes=props,
+                    scores=torch.zeros_like(props[..., 0]))
+
+    result["proposals_same_inputs_matched_share"] = min(
+        _rcnn_matched_share(as_detections(g_props[i:i + 1]),
+                            as_detections(c_props[i:i + 1]))
+        for i in range(b))
+    if not same and (near == 0 or result[
+            "proposals_same_inputs_matched_share"] < RCNN_MATCHED_SHARE):
+        bad.append("proposals of the card on the CPU's RPN outputs")
+
+    gt = {k: batch[k] for k in ("gt_boxes", "gt_classes", "gt_mask")}
+    tc = rpn_targets(draws["rpn"][:, 0], draws["rpn"][:, 1], cpu.anchors,
+                     gt["gt_boxes"], gt["gt_mask"])
+    tg = rpn_targets(draws["rpn"][:, 0].to(dev), draws["rpn"][:, 1].to(dev),
+                     gpu.anchors, gt["gt_boxes"].to(dev),
+                     gt["gt_mask"].to(dev))
+    for k in ("labels", "cls_weights", "reg_weights"):
+        if not torch.equal(tg[k].cpu(), tc[k]):
+            bad.append(f"RPN targets' {k} on the same inputs")
+    result["rpn_positives"] = int(tc["reg_weights"].sum())
+    result["rpn_sampled"] = int(tc["cls_weights"].sum())
+    err = (tg["deltas"].cpu() - tc["deltas"]).abs()
+    if not bool((err <= atol + rtol * tc["deltas"].abs()).all()):
+        bad.append("RPN target deltas on the same inputs")
+    roi = draws["roi"]
+    sc = sample_proposals(roi[:, 0], roi[:, 1], roi[:, 2], c_props,
+                          gt["gt_boxes"], gt["gt_classes"], gt["gt_mask"],
+                          RCNN_CHECK["roi_samples"])
+    roi_d = roi.to(dev)
+    sg = sample_proposals(roi_d[:, 0], roi_d[:, 1], roi_d[:, 2],
+                          c_props.to(dev), gt["gt_boxes"].to(dev),
+                          gt["gt_classes"].to(dev), gt["gt_mask"].to(dev),
+                          RCNN_CHECK["roi_samples"])
+    for k in ("rois", "cls_target", "pos_mask", "valid_mask", "matched_gt"):
+        if not torch.equal(sg[k].cpu(), sc[k]):
+            bad.append(f"ROI sample's {k} on the same inputs")
+    err = (sg["delta_target"].cpu() - sc["delta_target"]).abs()
+    if not bool((err <= atol + rtol * sc["delta_target"].abs()).all()):
+        bad.append("ROI sample's delta targets on the same inputs")
+    result["roi_positives"] = int(sc["pos_mask"].sum())
+    result["roi_zero_area"] = int(((sc["rois"][..., 2:] - sc["rois"][..., :2])
+                                   .prod(-1) <= 0).sum())
+    if with_mask:
+        mc = mask_targets(batch["gt_bitmaps"], sc, stride=cpu.mask_stride)
+        mg = mask_targets(batch["gt_bitmaps"].to(dev),
+                          {k: v.to(dev) for k, v in sc.items()},
+                          stride=cpu.mask_stride).cpu()
+        crops = roi_align(batch["gt_bitmaps"], sc["rois"] / cpu.mask_stride,
+                          (RCNN_MASK_SIZE, RCNN_MASK_SIZE), 2)
+        crops = torch.gather(crops, -1, sc["matched_gt"][
+            :, :, None, None, None].expand(*crops.shape[:-1], 1))[..., 0]
+        tie = (crops - 0.5).abs() < RCNN_CROP_TIE
+        result["mask_target_pixels"] = int(mc.sum())
+        result["mask_target_flips"] = int((mg != mc).sum())
+        result["mask_target_near_half"] = int(tie.sum())
+        if bool(((mg != mc) & ~tie).any()):
+            bad.append("mask targets on the same inputs")
+
+    # the step from these weights, then from the train entries' own
+    # starting weights (whose zero-scale residual BN gives the residual
+    # branches no gradient at their first step, so it does not replace the
+    # step above)
+    entry = _rcnn_check_model(with_mask, torch.float32)
+    entry.init_weights(torch.Generator().manual_seed(SEED))
+    seed_rcnn_for_training(entry, torch.Generator().manual_seed(SEED + 2))
+    box_inputs = {}
+    for prefix, weights in (("", start), ("entry_start_", entry.state_dict())):
+        for m in (gpu, cpu, referee):
+            m.load_state_dict(weights)
+        box_inputs[prefix] = _hold_rcnn_train_step(
+            gpu, cpu, referee, batch, draws, with_mask, prefix, result, bad)
+    feats = box_inputs[""]
+
+    with torch.no_grad():
+        r_cls, r_reg = heads["ref"](feats.double())
+        c_cls, c_reg = heads["cpu"](feats)
+        g_cls, g_reg = heads["card"](feats.to(dev))
+    for name, got, host, ref in (("cls_logits", g_cls, c_cls, r_cls),
+                                 ("box_deltas", g_reg, c_reg, r_reg)):
+        card = float((got.double().cpu() - ref).abs().max())
+        host_d = float((host.double() - ref).abs().max())
+        result[f"{name}_card_vs_f64"], result[f"{name}_cpu_vs_f64"] = (
+            card, host_d)
+        result[f"{name}_ratio"] = card / host_d if host_d else math.inf
+    result.update(box_head_f64_readings(heads["card"], feats, r_cls, r_reg))
+    label = "Mask" if with_mask else "Faster"
+    print(f"  f32 {label} R-CNN train step card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items() if k != "tolerance"), flush=True)
+    if bad:
+        raise AssertionError(f"f32 {label} R-CNN train step, card vs CPU: "
+                             f"{bad} outside {t}: {result}")
+    return result
+
+
 def probe_train_forward(dev):
     """``--probe``: the train-mode forward of the two-stage CenterPoint
     (reader and RPN, batch 1, seeded weights, TF32 off) layer by layer on
@@ -3665,6 +4340,116 @@ def rcnn_main_path(label, entry_fn, dev, with_mask, profile):
                 profile=profiled)
 
 
+def main_path_k3dx(step_fn, state, batch):
+    """K3dx on the main path's own inputs: one more train step with
+    ``bilinear_gather_bwd_dx`` wrapped to keep each call's (g, x, ci, cw),
+    that is the ROI sampler's rois on each FPN level and the real per-level
+    g, then each call held against its plain version and timed beside
+    ``index_add_`` (``_k3dx_case``). Returns the cases in call order, each
+    with its roi set (box or mask), stride and the rois whose g is not
+    0 on that level."""
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    calls, launch = [], bl.bilinear_gather_bwd_dx
+
+    def keep(g, x, ci, cw):
+        calls.append((g, x, ci, cw))
+        return launch(g, x, ci, cw)
+
+    bl.bilinear_gather_bwd_dx = keep
+    try:
+        step_fn(state, batch)
+    finally:
+        bl.bilinear_gather_bwd_dx = launch
+    cases = []
+    for g, x, ci, cw in calls:
+        b, hw, c = x.shape
+        p = ci.shape[1]
+        per_roi = p // RCNN_TRAIN_ROIS
+        kind = {size[0] * size[1] * 4: k
+                for k, size in RCNN_TRAIN_ROI_SETS}[per_roi]
+        stride = 512 // math.isqrt(hw)
+        common = dict(shape=[b, hw, c], points=p,
+                      stream=f"rcnn_train_{kind}_main_path", stride=stride,
+                      rois_on_level=int((g.view(b, RCNN_TRAIN_ROIS, per_roi,
+                                                c) != 0).flatten(2).any(-1)
+                                        .sum()),
+                      off_map_corner_share=float((ci < 0).float().mean()))
+        case, ok = _k3dx_case(g, x, ci, cw, common)
+        cases.append(case)
+        print(f"  main path K3dx {kind} P{int(math.log2(stride))} "
+              f"x{case['shape']} rois here {case['rois_on_level']}: "
+              f"max_abs={case['max_abs_err']:.3e} repeat={case['repeat']} "
+              f"bucket<={case['largest_bucket']} kernel="
+              f"{case['ms'] * 1e3:8.1f}us plain={case['plain_ms'] * 1e3:8.1f}"
+              f"us index_add_={case['library_ms'] * 1e3:8.1f}us bound="
+              f"{case['bound_ms'] * 1e3:6.1f}us", flush=True)
+        if not ok:
+            raise AssertionError(f"bilinear_gather_bwd_dx on the main "
+                                 f"path's inputs disagrees with its plain "
+                                 f"version: {case}")
+    del calls
+    return cases
+
+
+def rcnn_train_main_path(label, entry_fn, dev, with_mask, profile):
+    """Phase 6j (Faster R-CNN) or 6k (Mask R-CNN), an R-CNN training main
+    path: the entry at its batch (8), TRAIN_WARMUP + TRAIN_STEPS steps on
+    one batch (new sampling draws each step), launch counts from 0: K3f 4
+    (9 with the masks) and K3dx 4 (8) per step, nothing else; every loss
+    part finite. Reports ms per step, img/s, the peak memory and whether
+    the loss fell."""
+    from minddet_tpu_torch import kernels
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn, (state, batch) = entry_fn(device=dev)
+    b = batch["image"].shape[0]
+    kernels.reset_launches()
+    history, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean_s = statistics.mean(times)
+    losses = [m["loss"] for m in history]
+    out = dict(batch=b, steps=steps, timed_steps=len(times),
+               ms_per_step=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3, img_per_s=b / mean_s,
+               max_memory_allocated=peak, losses=losses,
+               loss_fell=losses[-1] < losses[0], first_step=history[0],
+               last_step=history[-1], launches=launches)
+    print(f"  {label} train bf16 batch {b}: {mean_s * 1e3:.3f} ms/step (p50 "
+          f"{out['ms_p50']:.3f}), {out['img_per_s']:.1f} img/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB allocated", flush=True)
+    print("  losses: " + " ".join(f"{v:.4f}" for v in losses)
+          + f" (fell: {out['loss_fell']})", flush=True)
+    print("  last step: " + " ".join(f"{k}={v:.4f}"
+                                     for k, v in history[-1].items()),
+          flush=True)
+    if not all(math.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"{label} train loss not finite: {history}")
+    want = rcnn_train_launches(with_mask, steps)
+    if launches != want:
+        raise AssertionError(f"{launches} in {steps} {label} train steps "
+                             f"(want {want})")
+    print(f"  kernels: {launches} for {steps} steps == "
+          f"{rcnn_train_launches(with_mask)} x steps: True", flush=True)
+    out["k3dx_cases"] = main_path_k3dx(step_fn, state, batch)
+    if profile:
+        print(f"profile: {label} bf16 train step", flush=True)
+        out["profile"] = profile_train(f"{label} train batch {b}", step_fn,
+                                       state, batch)
+    return out
+
+
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
@@ -3838,6 +4623,11 @@ def main(argv=None) -> int:
         got.extend(more)
     gather_cases.extend(check_rcnn_gather(dev))
     torch.cuda.empty_cache()
+    rcnn_train_fwd, rcnn_train_dx = check_rcnn_train_gather(dev)
+    gather_cases.extend(rcnn_train_fwd)
+    gather_dx_cases.extend(rcnn_train_dx)
+    gather_cases.extend(check_rcnn_mask_crop(dev))
+    torch.cuda.empty_cache()
 
     referee_ratios = None
     if args.seeds:
@@ -3878,6 +4668,13 @@ def main(argv=None) -> int:
           f"f64 referee", flush=True)
     train_f32_dcn4 = check_train_step_f32(dev, _seeded("5d"), dcn4=True,
                                           res=CHECK_RES_DCN4)
+    torch.cuda.empty_cache()
+    print("phase 5e: end to end, f32 Faster R-CNN train step, card vs CPU "
+          "and the f64 referee", flush=True)
+    rcnn_train_f32 = check_rcnn_train_f32(dev, False, _seeded("5e"))
+    print("phase 5f: end to end, f32 Mask R-CNN train step, card vs CPU and "
+          "the f64 referee", flush=True)
+    mask_rcnn_train_f32 = check_rcnn_train_f32(dev, True, _seeded("5f"))
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -4027,6 +4824,22 @@ def main(argv=None) -> int:
             profiled[key] = r["profile"]
     torch.cuda.empty_cache()
 
+    from minddet_tpu_torch.entry import (faster_rcnn_train_entry,
+                                         mask_rcnn_train_entry)
+
+    print("phase 6j: main path, Faster R-CNN bf16 train step", flush=True)
+    rcnn_training = rcnn_train_main_path(
+        "Faster R-CNN", faster_rcnn_train_entry, dev, False, args.profile)
+    torch.cuda.empty_cache()
+    print("phase 6k: main path, Mask R-CNN bf16 train step", flush=True)
+    mask_rcnn_training = rcnn_train_main_path(
+        "Mask R-CNN", mask_rcnn_train_entry, dev, True, args.profile)
+    for key, r in (("faster_rcnn_train", rcnn_training),
+                   ("mask_rcnn_train", mask_rcnn_training)):
+        if "profile" in r:
+            profiled[key] = r["profile"]
+    torch.cuda.empty_cache()
+
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
     # train batch; K1b one bf16 train step's nine calls at the train batch
@@ -4043,6 +4856,13 @@ def main(argv=None) -> int:
     rcnn_case = lambda kind: [
         c for c in gather_cases if c.get("stream") == f"rcnn_{kind}"
         and c["dtype"] == "bfloat16" and c["shape"][0] == RCNN_BATCHES[-1]]
+    # K3f's R-CNN train calls: one batch-8 step of each model, four box
+    # levels (Faster R-CNN), four box and four mask levels and the f32 GT
+    # crop (Mask R-CNN); K3dx's are the main paths' own calls, kept from one
+    # step of each (main_path_k3dx)
+    rcnn_train_case = lambda cs, kind: [
+        c for c in cs if c.get("stream") == f"rcnn_{kind}"
+        and c["shape"][0] == RCNN_TRAIN_BATCHES[-1]]
     # K5b, K3dx and K3dcw: one bf16 batch-8 CenterPoint train step's call
     train_case = lambda cs: [
         c for c in cs if c["dtype"] == "bfloat16"
@@ -4092,17 +4912,29 @@ def main(argv=None) -> int:
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
                     + rcnn["launches"]["bilinear_gather_fwd"]
-                    + mask_rcnn["launches"]["bilinear_gather_fwd"],
+                    + mask_rcnn["launches"]["bilinear_gather_fwd"]
+                    + rcnn_training["launches"]["bilinear_gather_fwd"]
+                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"],
                     [c for c in gather_cases if c["dtype"] == "float32"
                      and c["shape"][0] == CP_BATCHES[-1]
                      and "stream" not in c]
                     + train_case(gather_cases) + rcnn_case("box")
-                    + rcnn_case("box") + rcnn_case("mask"), 1, gather_cases,
-                    library=True),
+                    + rcnn_case("box") + rcnn_case("mask")
+                    + rcnn_train_case(gather_cases, "train_box")
+                    + rcnn_train_case(gather_cases, "train_box")
+                    + rcnn_train_case(gather_cases, "train_mask")
+                    + rcnn_train_case(gather_cases, "gt_crop"), 1,
+                    gather_cases, library=True),
         _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
-                    cp_train_launches["bilinear_gather_bwd_dx"],
-                    train_case(gather_dx_cases), 1, gather_dx_cases,
-                    library=True),
+                    cp_train_launches["bilinear_gather_bwd_dx"]
+                    + rcnn_training["launches"]["bilinear_gather_bwd_dx"]
+                    + mask_rcnn_training["launches"][
+                        "bilinear_gather_bwd_dx"],
+                    train_case(gather_dx_cases)
+                    + rcnn_training["k3dx_cases"]
+                    + mask_rcnn_training["k3dx_cases"], 1,
+                    gather_dx_cases + rcnn_training["k3dx_cases"]
+                    + mask_rcnn_training["k3dx_cases"], library=True),
         # K3dcw: no entry point reaches it yet (the train step's proposals
         # are detached), so its count on the main paths is 0; phase 5b's
         # launch, through bilinear_sample_2d's gradient to the coordinates,
@@ -4159,6 +4991,10 @@ def main(argv=None) -> int:
                            faster_rcnn_f32=rcnn_f32,
                            mask_rcnn_f32=mask_rcnn_f32,
                            faster_rcnn=rcnn, mask_rcnn=mask_rcnn,
+                           faster_rcnn_train_f32=rcnn_train_f32,
+                           mask_rcnn_train_f32=mask_rcnn_train_f32,
+                           faster_rcnn_training=rcnn_training,
+                           mask_rcnn_training=mask_rcnn_training,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

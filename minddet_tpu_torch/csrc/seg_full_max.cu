@@ -33,7 +33,14 @@
 // the max of up to `bound` rows of x. A row of x is read by the threads of
 // up to `bound` neighbouring rows, which sit in the same or the next blocks,
 // so all but the first read of a line are L1 or L2 hits. A tile of rows
-// with a `bound`-row halo staged in shared memory is later work.
+// with a `bound`-row halo staged in shared memory is later work. Thread
+// indices are 32-bit below 2**31 output vectors and 64-bit from there on
+// (the `wide` argument, as the row gather's), so that the divisions by the
+// row width and by N stay 32-bit where they can; every offset is 64-bit.
+// 64-bit thread indices everywhere cost this kernel 2.3-2.6 % on an H100
+// 80GB HBM3 at 700 W (serve f32 (4, 120000, 32) 38.51 against 37.52 us,
+// train bf16 (8, 120000, 32) 40.02 against 39.11 us;
+// scripts/seg_max_index_width.py, the two widths in turns).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,21 +77,20 @@ struct Bf16x8 {
   }
 };
 
-template <typename V>
+template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
 seg_full_max_kernel(const typename V::Vec* __restrict__ x,
                     const uint8_t* __restrict__ first,
                     const uint8_t* __restrict__ last,
                     typename V::Vec* __restrict__ out, int N, int nv,
-                    int bound, long long total) {
+                    int bound, I total) {
   using Vec = typename V::Vec;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const long long row = t / nv;              // b * N + r
-  const int v = static_cast<int>(t - row * nv);
-  const int r = static_cast<int>(row % N);
-  const long long base = row - r;            // b * N
+  const I row = t / static_cast<I>(nv);      // b * N + r
+  const int v = static_cast<int>(t - row * static_cast<I>(nv));
+  const int r = static_cast<int>(row % static_cast<I>(N));
+  const size_t base = static_cast<size_t>(row - r);  // b * N
   const uint8_t* f = first + base;
   const uint8_t* l = last + base;
 
@@ -102,44 +108,62 @@ seg_full_max_kernel(const typename V::Vec* __restrict__ x,
   Vec m = V::zero();
   if (lrow >= 0) {
     const Vec* xb = x + base * nv + v;
-    m = __ldg(xb + static_cast<long long>(lrow) * nv);
+    m = __ldg(xb + static_cast<size_t>(lrow) * nv);
     const int lo = max(lrow - bound + 1, 0);
     for (int j = lrow; j > lo && !f[j]; --j)
-      m = V::vmax(m, __ldg(xb + static_cast<long long>(j - 1) * nv));
+      m = V::vmax(m, __ldg(xb + static_cast<size_t>(j - 1) * nv));
   }
   out[t] = m;
 }
 
 template <typename V>
-void launch(const void* x, const uint8_t* first, const uint8_t* last,
-            void* out, int B, int N, int nv, int bound, cudaStream_t stream) {
-  const long long total = static_cast<long long>(B) * N * nv;
-  if (total == 0) return;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  seg_full_max_kernel<V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const typename V::Vec*>(x), first, last,
-      static_cast<typename V::Vec*>(out), N, nv, bound, total);
+int launch(const void* x, const uint8_t* first, const uint8_t* last,
+           void* out, int B, int N, int nv, int bound, int wide,
+           cudaStream_t stream) {
+  const uint64_t total = static_cast<uint64_t>(B) * static_cast<uint64_t>(N) *
+                         static_cast<uint64_t>(nv);
+  if (total == 0) return 0;
+  const uint64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu || (!wide && total >= (1ull << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Vec = typename V::Vec;
+  if (wide) {
+    seg_full_max_kernel<V, uint64_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const Vec*>(x), first, last, static_cast<Vec*>(out),
+            N, nv, bound, total);
+  } else {
+    seg_full_max_kernel<V, uint32_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const Vec*>(x), first, last, static_cast<Vec*>(out),
+            N, nv, bound, static_cast<uint32_t>(total));
+  }
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x and out (B, N, C) contiguous and
-// 16-byte aligned, C a multiple of 4 (f32) or 8 (bf16); first and last
-// (B, N) contiguous bytes; bound >= 1; B*N*C/VEC below 2**31 * 256. Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. wide: 1 indexes the threads with 64
+// bits, 0 with 32 bits, refused from 2**31 output vectors on. x and out
+// (B, N, C) contiguous and 16-byte aligned, C a multiple of 4 (f32) or 8
+// (bf16) (the wrapper pads the channels with zeros to one); first and last
+// (B, N) contiguous bytes; bound >= 1; offsets into x, out and the flags
+// are 64-bit. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for what it does not take.
 extern "C" int seg_full_max(const void* x, const void* first,
                             const void* last, void* out, int B, int N, int C,
-                            int bound, int dtype, void* stream) {
+                            int bound, int dtype, int wide, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* f = static_cast<const uint8_t*>(first);
   const uint8_t* l = static_cast<const uint8_t*>(last);
+  int err;
   if (dtype == 0) {
-    launch<F32x4>(x, f, l, out, B, N, C / 4, bound, st);
+    err = launch<F32x4>(x, f, l, out, B, N, C / 4, bound, wide, st);
   } else if (dtype == 1) {
-    launch<Bf16x8>(x, f, l, out, B, N, C / 8, bound, st);
+    err = launch<Bf16x8>(x, f, l, out, B, N, C / 8, bound, wide, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,12 @@
 // x and g is read by the threads of up to `bound` neighbouring rows, so all
 // but the first read of a line are L1 or L2 hits. m is taken from the
 // forward (the autograd function saves its output) and not recomputed: that
-// costs one more stream of reads and saves a second walk over x.
+// costs one more stream of reads and saves a second walk over x. Thread
+// indices are 32-bit below 2**31 dx vectors and 64-bit from there on (the
+// `wide` argument, as in the forward); every offset is 64-bit. 64-bit
+// thread indices everywhere cost this kernel 5.6-7.5 % on an H100 80GB
+// HBM3 at 700 W (train bf16 (8, 120000, 32) 84.67 against 79.05 us;
+// scripts/seg_max_index_width.py, the two widths in turns).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +85,7 @@ struct Bf16x8 {
   }
 };
 
-template <typename V>
+template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
 seg_full_max_bwd_kernel(const typename V::T* __restrict__ x,
                         const typename V::T* __restrict__ m,
@@ -88,18 +93,18 @@ seg_full_max_bwd_kernel(const typename V::T* __restrict__ x,
                         const uint8_t* __restrict__ first,
                         const uint8_t* __restrict__ last,
                         typename V::T* __restrict__ dx, int N, int nv,
-                        int bound, long long total) {
+                        int bound, I total) {
   constexpr int kVec = V::kVec;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const long long row = t / nv;              // b * N + r
-  const int v = static_cast<int>(t - row * nv);
-  const int r = static_cast<int>(row % N);
-  const long long base = row - r;            // b * N
+  const I row = t / static_cast<I>(nv);      // b * N + r
+  const int v = static_cast<int>(t - row * static_cast<I>(nv));
+  const int r = static_cast<int>(row % static_cast<I>(N));
+  const size_t base = static_cast<size_t>(row - r);  // b * N
   const uint8_t* f = first + base;
   const uint8_t* l = last + base;
-  const long long C = static_cast<long long>(nv) * kVec;
+  const size_t C = static_cast<size_t>(nv) * kVec;
+  const size_t col = static_cast<size_t>(v) * kVec;
 
   // the segment's last kept row, found as the forward finds it
   const int hi = min(r + bound, N);
@@ -115,18 +120,17 @@ seg_full_max_bwd_kernel(const typename V::T* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < kVec; ++i) out[i] = 0.f;
   if (lrow >= 0) {
-    const long long col = static_cast<long long>(v) * kVec;
     const typename V::T* xb = x + base * C + col;
     const typename V::T* gb = g + base * C + col;
     float mv[kVec], gsum[kVec], cnt[kVec];
-    V::load(m + row * C + col, mv);
+    V::load(m + static_cast<size_t>(row) * C + col, mv);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) gsum[i] = cnt[i] = 0.f;
     const int lo = max(lrow - bound + 1, 0);
     for (int j = lrow;; --j) {
       float xv[kVec], gv[kVec];
-      V::load(xb + j * C, xv);
-      V::load(gb + j * C, gv);
+      V::load(xb + static_cast<size_t>(j) * C, xv);
+      V::load(gb + static_cast<size_t>(j) * C, gv);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         gsum[i] += gv[i];
@@ -135,48 +139,65 @@ seg_full_max_bwd_kernel(const typename V::T* __restrict__ x,
       if (j <= lo || f[j]) break;
     }
     float xr[kVec];
-    V::load(xb + r * C, xr);
+    V::load(xb + static_cast<size_t>(r) * C, xr);
 #pragma unroll
     for (int i = 0; i < kVec; ++i)
       out[i] = (xr[i] == mv[i]) ? gsum[i] / fmaxf(cnt[i], 1.f) : 0.f;
   }
-  V::store(dx + row * C + static_cast<long long>(v) * kVec, out);
+  V::store(dx + static_cast<size_t>(row) * C + col, out);
 }
 
 template <typename V>
-void launch(const void* x, const void* m, const void* g, const uint8_t* first,
-            const uint8_t* last, void* dx, int B, int N, int nv, int bound,
-            cudaStream_t stream) {
+int launch(const void* x, const void* m, const void* g, const uint8_t* first,
+           const uint8_t* last, void* dx, int B, int N, int nv, int bound,
+           int wide, cudaStream_t stream) {
   using T = typename V::T;
-  const long long total = static_cast<long long>(B) * N * nv;
-  if (total == 0) return;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  seg_full_max_bwd_kernel<V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(m),
-      static_cast<const T*>(g), first, last, static_cast<T*>(dx), N, nv,
-      bound, total);
+  const uint64_t total = static_cast<uint64_t>(B) * static_cast<uint64_t>(N) *
+                         static_cast<uint64_t>(nv);
+  if (total == 0) return 0;
+  const uint64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu || (!wide && total >= (1ull << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wide) {
+    seg_full_max_bwd_kernel<V, uint64_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(m),
+            static_cast<const T*>(g), first, last, static_cast<T*>(dx), N,
+            nv, bound, total);
+  } else {
+    seg_full_max_bwd_kernel<V, uint32_t>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(m),
+            static_cast<const T*>(g), first, last, static_cast<T*>(dx), N,
+            nv, bound, static_cast<uint32_t>(total));
+  }
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x, m, g and dx (B, N, C) contiguous and
-// 16-byte aligned, C a multiple of 4 (f32) or 8 (bf16); first and last
-// (B, N) contiguous bytes; bound >= 1; B*N*C/VEC below 2**31 * 256. Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. wide: 1 indexes the threads with 64
+// bits, 0 with 32 bits, refused from 2**31 dx vectors on. x, m, g and dx
+// (B, N, C) contiguous and 16-byte aligned, C a multiple of 4 (f32) or 8
+// (bf16) (the wrapper pads the channels with zeros to one); first and last
+// (B, N) contiguous bytes; bound >= 1; offsets are 64-bit. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for what it
+// does not take.
 extern "C" int seg_full_max_bwd(const void* x, const void* m, const void* g,
                                 const void* first, const void* last, void* dx,
                                 int B, int N, int C, int bound, int dtype,
-                                void* stream) {
+                                int wide, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* f = static_cast<const uint8_t*>(first);
   const uint8_t* l = static_cast<const uint8_t*>(last);
+  int err;
   if (dtype == 0) {
-    launch<F32x4>(x, m, g, f, l, dx, B, N, C / 4, bound, st);
+    err = launch<F32x4>(x, m, g, f, l, dx, B, N, C / 4, bound, wide, st);
   } else if (dtype == 1) {
-    launch<Bf16x8>(x, m, g, f, l, dx, B, N, C / 8, bound, st);
+    err = launch<Bf16x8>(x, m, g, f, l, dx, B, N, C / 8, bound, wide, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

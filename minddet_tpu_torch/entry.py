@@ -34,6 +34,17 @@ top 1000 per level before its NMS (IoU 0.7), 512 after; box head score
 threshold 0.05, NMS 0.5, 100 detections; Mask R-CNN adds 28x28 masks. Their
 ROIAlign is one row-gather kernel launch per pyramid level: four per
 request, eight with the masks.
+
+``faster_rcnn_train_entry()`` and ``mask_rcnn_train_entry()`` are their
+train steps (``FasterRCNN.loss`` under ``make_train_step``) as
+``configs/faster_rcnn_r50_coco.yaml``'s train section sets them, nothing
+cut: the same model with f32 parameters and bf16 compute, batch 8, 256 ROI
+samples per image, SGD with lr 0.01 (the schedule's value for its first 8
+epochs), momentum 0.9 and weight decay 1e-4, no clip; the synthetic batch
+of ``train/train.py`` (2 to 15 boxes per image in 128 slots, 64 with the
+masks, and Mask R-CNN's GT bitmaps at a quarter of the image). Each step
+launches the row-gather kernel once per pyramid level and roi set, its map
+gradient as often, and Mask R-CNN's GT-bitmap crop once more.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from minddet_tpu_torch.core.optim import adamw
+from minddet_tpu_torch.core.optim import adamw, sgd
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
 from minddet_tpu_torch.models.detectors.centerpoint import CenterPointTwoStage
@@ -52,6 +63,7 @@ from minddet_tpu_torch.models.detectors.faster_rcnn import (BOX_ROI,
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
+from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
 
 RES = 512
 NUM_CLASSES = 80
@@ -63,6 +75,14 @@ NUSC_CLOUD_POINTS = 120000  # configs/centerpoint_pp_nusc.yaml: num_points
 NUSC_POINT_FEATURES = 5     # x, y, z, reflectance, sweep time
 NUSC_MAX_GT = 64            # box slots per cloud (bench.py: max_gt=64)
 NUSC_CLASSES = 10           # over the six tasks' (1, 2, 2, 1, 2, 2)
+# the R-CNN train steps (configs/faster_rcnn_r50_coco.yaml, train section)
+RCNN_TRAIN_BATCH = 8
+RCNN_GT_SLOTS = 128      # the COCO loader's max_objs default (data/coco.py)
+MASK_RCNN_GT_SLOTS = 64  # configs/mask_rcnn_r50_coco.yaml: max_objs
+RCNN_LR = 0.01           # multi_epochs_decay's value before epoch 8
+RCNN_MOMENTUM = 0.9
+RCNN_WEIGHT_DECAY = 1e-4
+MASK_STRIDE = 4          # configs/mask_rcnn_r50_coco.yaml: mask_stride
 
 
 def resolve_device(device=None) -> torch.device:
@@ -400,3 +420,103 @@ def mask_rcnn_entry(device=None, batch: int = 1
     (batch, 100, 28, 28), each the sigmoid of its label's mask logits in
     its box's coordinates."""
     return _rcnn_serving(True, device, batch)
+
+
+def rcnn_loss(model: FasterRCNN, batch: Dict):
+    """The R-CNN train steps' loss function: ``FasterRCNN.loss`` on a batch
+    {"image", "gt_boxes", "gt_classes", "gt_mask"[, "gt_bitmaps"]} with
+    its uniform draws from ``batch["draws"]`` where given, else drawn anew
+    from ``batch["generator"]`` (``FasterRCNN.sampling_draws``), as the
+    reference folds the step into its sampling key."""
+    draws = batch.get("draws")
+    if draws is None:
+        draws = model.sampling_draws(batch["image"].shape[0],
+                                     batch["gt_boxes"].shape[1],
+                                     batch["generator"])
+    return model.loss(batch, draws)
+
+
+def synthetic_rcnn_batch(batch: int, with_mask: bool,
+                         res: int = RES) -> Dict[str, np.ndarray]:
+    """The R-CNN train steps' batch: ``synthetic_detection_batch`` from
+    ``SEED`` at res x res, 80 classes, ``RCNN_GT_SLOTS`` slots
+    (``MASK_RCNN_GT_SLOTS`` and the GT bitmaps at ``MASK_STRIDE`` with the
+    masks)."""
+    return synthetic_detection_batch(
+        batch, (res, res), NUM_CLASSES, seed=SEED, with_masks=with_mask,
+        mask_stride=MASK_STRIDE,
+        slots=MASK_RCNN_GT_SLOTS if with_mask else RCNN_GT_SLOTS)
+
+
+# the train entries' heads: N(0, std) kernels, zero biases, as detectron
+# initialises the RPN and the box predictor
+HEAD_INIT_STD = 0.01
+BOX_DELTA_INIT_STD = 0.001
+
+
+@torch.no_grad()
+def seed_rcnn_for_training(model: FasterRCNN, generator: torch.Generator
+                           ) -> FasterRCNN:
+    """The starting weights of the R-CNN train entries, drawn from
+    ``generator`` after ``init_weights``: every Bottleneck's last BN scale
+    at 0, so that each residual block starts as the identity (Goyal et al.,
+    2017; torchvision's ``zero_init_residual``), and the RPN's and the box
+    head's layers at N(0, ``HEAD_INIT_STD``), the box deltas' at N(0,
+    ``BOX_DELTA_INIT_STD``), biases 0 (detectron's R-CNN heads). From
+    flax's defaults alone, which the reference's ``init`` draws, SGD at the
+    config's lr 0.01 diverges within a few steps, in the reference as in
+    the port: the heads' outputs start at the scale of the FPN's features
+    and the backbone's gradient norm near 2,000. The mask head keeps
+    flax's defaults. Returns ``model``, changed in place."""
+    for name, m in model.backbone.named_modules():
+        if name.endswith(".bn3"):
+            m.weight.zero_()
+    layers = [model.rpn.conv, model.rpn.cls, model.rpn.reg,
+              model.box_head.fc1, model.box_head.fc2, model.box_head.cls]
+    for layer in layers + [model.box_head.reg]:
+        std = BOX_DELTA_INIT_STD if layer is model.box_head.reg \
+            else HEAD_INIT_STD
+        layer.weight.normal_(0.0, std, generator=generator)
+        layer.bias.zero_()
+    return model
+
+
+def _rcnn_train_program(with_mask: bool, device, batch: int
+                        ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    dev = resolve_device(device)
+    model = FasterRCNN(num_classes=NUM_CLASSES, depth=50,
+                       image_hw=(RES, RES), rpn_pre_nms=1000,
+                       rpn_post_nms=512, roi_samples=256, with_mask=with_mask,
+                       mask_stride=MASK_STRIDE, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    seed_rcnn_for_training(model, torch.Generator().manual_seed(SEED + 2))
+    model = model.to(device=dev, memory_format=torch.channels_last).train()
+    state = TrainState.create(model, sgd(
+        RCNN_LR, momentum=RCNN_MOMENTUM, weight_decay=RCNN_WEIGHT_DECAY))
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in synthetic_rcnn_batch(batch, with_mask).items()}
+    data["generator"] = torch.Generator(device=dev).manual_seed(SEED)
+    return make_train_step(rcnn_loss), (state, data)
+
+
+def faster_rcnn_train_entry(device=None, batch: int = RCNN_TRAIN_BATCH
+                            ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one Faster
+    R-CNN train step in place and returns ``(state, metrics)`` (loss,
+    rpn_cls, rpn_reg, roi_cls, roi_reg, grad_norm, on the device).
+
+    ResNet-50-FPN, 80 classes, 512 x 512, RPN top 1000 per level and 512
+    after its NMS, 256 ROI samples per image, seeded with ``SEED``
+    (``seed_rcnn_for_training``): f32 parameters, bf16 compute,
+    channels_last, train mode; SGD lr 0.01,
+    momentum 0.9, weight decay 1e-4 on ndim > 1 parameters, no clip. The
+    batch is ``synthetic_rcnn_batch(batch, False)`` and a generator on the
+    device from ``SEED``, which gives each step its sampling draws."""
+    return _rcnn_train_program(False, device, batch)
+
+
+def mask_rcnn_train_entry(device=None, batch: int = RCNN_TRAIN_BATCH
+                          ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """``faster_rcnn_train_entry()`` for Mask R-CNN: 64 GT slots and the GT
+    bitmaps (batch, 128, 128, 64) f32; the metrics add the mask loss."""
+    return _rcnn_train_program(True, device, batch)

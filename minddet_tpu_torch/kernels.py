@@ -175,8 +175,8 @@ ROTATED_IOU = CudaKernel(
 
 SEG_FULL_MAX = CudaKernel(
     "seg_full_max", "seg_full_max.cu",
-    # x, first, last, out, B, N, C, bound, dtype, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, first, last, out, B, N, C, bound, dtype, wide, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     replaces="minddet_tpu/ops/seg_pallas.py:108 _fwd_kernel",
 )
 
@@ -189,8 +189,8 @@ BILINEAR_GATHER_FWD = CudaKernel(
 
 SEG_FULL_MAX_BWD = CudaKernel(
     "seg_full_max_bwd", "seg_full_max_bwd.cu",
-    # x, m, g, first, last, dx, B, N, C, bound, dtype, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, m, g, first, last, dx, B, N, C, bound, dtype, wide, stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     replaces="minddet_tpu/ops/seg_pallas.py:129 _bwd_kernel",
 )
 

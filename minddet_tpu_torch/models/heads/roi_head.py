@@ -1,7 +1,8 @@
-"""R-CNN ROI heads for inference (counterpart of ``BoxHead``, ``MaskHead``
-and ``box_head_predict`` in ``minddet_tpu/models/heads/roi_head.py``); the
-training parts (``sample_proposals``, ``box_head_loss``,
-``mask_head_loss``) are not ported yet.
+"""R-CNN ROI heads (counterpart of ``minddet_tpu/models/heads/
+roi_head.py``): ``BoxHead``, ``MaskHead`` and ``box_head_predict`` for
+inference; ``sample_proposals``, ``box_head_loss`` and ``mask_head_loss``
+for training, batched over images where the reference vmaps one image at a
+time, with the sampler's uniform draws passed in as tensors.
 """
 
 from __future__ import annotations
@@ -12,9 +13,11 @@ import torch
 from torch import nn
 
 from minddet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
-from minddet_tpu_torch.ops.box import clip_boxes, decode_deltas
+from minddet_tpu_torch.ops.anchors2d import match_anchors, sample_balanced
+from minddet_tpu_torch.ops.box import clip_boxes, decode_deltas, encode_deltas
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import batched_nms
+from minddet_tpu_torch.ops.roi_align import roi_align
 
 BBOX_REG_STDS = (0.1, 0.1, 0.2, 0.2)
 
@@ -122,3 +125,105 @@ def box_head_predict(cls_logits: torch.Tensor, deltas: torch.Tensor,
                               torch.full_like(sel, -1)),
         "nms_passes": passes,
     }
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t (B, N, ...) at indices (B, K) along axis 1 -> (B, K, ...)."""
+    shape = idx.shape + t.shape[2:]
+    return torch.gather(t, 1, idx.reshape(idx.shape + (1,) * (t.dim() - 2))
+                        .expand(shape))
+
+
+def sample_proposals(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor,
+                     proposals: torch.Tensor, gt_boxes: torch.Tensor,
+                     gt_classes: torch.Tensor, gt_mask: torch.Tensor,
+                     num_samples: int = 256, pos_fraction: float = 0.25,
+                     pos_iou: float = 0.5) -> Dict[str, torch.Tensor]:
+    """The ROI heads' training set of a batch: proposals (B, K, 4), padded
+    GT boxes (B, G, 4), 0-based classes and mask (B, G) -> ``num_samples``
+    rois per image and their targets.
+
+    The G GT boxes are appended to the proposals (padded slots too, so
+    zero-area candidates take part, as negatives), the N = K + G candidates
+    are matched at ``pos_iou`` (no forced matches) and sampled by
+    ``sample_balanced`` on the draws ``u1``, ``u2`` (B, N); the chosen ones
+    (weight 1) plus ``u3`` (B, N) / 2 rank the candidates, and the top
+    ``num_samples`` (the lower index first among equal keys) are the rois.
+    Returns rois (B, R, 4), cls_target (B, R) int64 (class + 1, 0 for
+    background), delta_target (B, R, 4) (``encode_deltas`` with
+    ``BBOX_REG_STDS``), pos_mask and valid_mask (B, R) f32 and matched_gt
+    (B, R)."""
+    cand = torch.cat([proposals, gt_boxes.to(proposals.dtype)], dim=1)
+    labels, match = match_anchors(cand, gt_boxes, gt_mask, pos_iou, pos_iou,
+                                  force_match=False)
+    weights = sample_balanced(u1, u2, labels, num_samples, pos_fraction)
+    _, sel = topk_lowest_index_first(weights + u3 * 0.5, num_samples)
+    rois = _take(cand, sel)
+    sel_match = torch.gather(match, 1, sel)
+    pos = torch.gather(labels, 1, sel) == 1
+    cls_target = torch.where(
+        pos, torch.gather(gt_classes.long(), 1, sel_match) + 1,
+        torch.zeros_like(sel_match))
+    delta_target = encode_deltas(_take(gt_boxes, sel_match), rois,
+                                 stds=BBOX_REG_STDS)
+    valid = torch.gather(weights, 1, sel) > 0
+    return {"rois": rois, "cls_target": cls_target,
+            "delta_target": delta_target,
+            "pos_mask": (pos & valid).to(torch.float32),
+            "valid_mask": valid.to(torch.float32), "matched_gt": sel_match}
+
+
+def box_head_loss(cls_logits: torch.Tensor, deltas: torch.Tensor,
+                  targets: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy of the (B, R, C + 1) logits over the valid rois, and
+    smooth L1 (beta 1) of the (B, R, C, 4) deltas of each positive roi's
+    own class against its target, each over the count of its rois (at
+    least 1) -> (cls_loss, reg_loss)."""
+    ct, vm, pm = (targets["cls_target"], targets["valid_mask"],
+                  targets["pos_mask"])
+    logp = torch.log_softmax(cls_logits, dim=-1)
+    cls_loss = -torch.gather(logp, -1, ct[..., None])[..., 0]
+    cls_loss = (cls_loss * vm).sum() / vm.sum().clamp(min=1.0)
+    cls_idx = (ct - 1).clamp(min=0)
+    pd = torch.gather(deltas, 2, cls_idx[..., None, None].expand(
+        -1, -1, 1, 4))[:, :, 0]
+    diff = (pd - targets["delta_target"]).abs()
+    sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
+    reg_loss = (sl1.sum(-1) * pm).sum() / pm.sum().clamp(min=1.0)
+    return cls_loss, reg_loss
+
+
+def mask_targets(gt_bitmaps: torch.Tensor, targets: Dict[str, torch.Tensor],
+                 mask_size: int = 28, stride: int = 1) -> torch.Tensor:
+    """Each roi's mask target (B, R, m, m) f32 in {0, 1}: the (B, H / s, W
+    / s, G) GT bitmaps cropped with ``roi_align`` (m x m, sampling 2) on
+    the rois over ``stride``, every GT channel, then the roi's matched
+    channel, above 0.5. On the GPU the crop is one launch of the row-gather
+    kernel at C = G in f32."""
+    b, r = targets["matched_gt"].shape
+    crops = roi_align(gt_bitmaps.to(torch.float32).contiguous(),
+                      targets["rois"] / float(stride), (mask_size, mask_size),
+                      2)
+    idx = targets["matched_gt"][:, :, None, None, None].expand(
+        b, r, mask_size, mask_size, 1)
+    crops = torch.gather(crops, -1, idx)[..., 0]
+    return (crops > 0.5).to(torch.float32)
+
+
+def mask_head_loss(mask_logits: torch.Tensor, gt_bitmaps: torch.Tensor,
+                   targets: Dict[str, torch.Tensor], mask_size: int = 28,
+                   stride: int = 1) -> torch.Tensor:
+    """Binary cross-entropy of each positive roi's (m, m) mask logits of its
+    own class (from (B, R, m, m, C)) against ``mask_targets``, over the
+    positive rois' pixels (at least 1)."""
+    gt = mask_targets(gt_bitmaps, targets, mask_size, stride)
+    cls_idx = (targets["cls_target"] - 1).clamp(min=0)
+    b, r = cls_idx.shape
+    logits = torch.gather(mask_logits, -1, cls_idx[:, :, None, None, None]
+                          .expand(b, r, mask_size, mask_size, 1))[..., 0]
+    bce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * gt
+           + torch.log1p(torch.exp(-logits.abs())))
+    pm = targets["pos_mask"][:, :, None, None]
+    return (bce * pm).sum() / (pm.sum() * mask_size * mask_size).clamp(
+        min=1.0)

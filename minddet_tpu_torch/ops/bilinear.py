@@ -109,7 +109,7 @@ def pad_channels(t: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, -c % vec))
 
 
-def _unpad(t: torch.Tensor, c: int) -> torch.Tensor:
+def unpad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
     """The first ``c`` channels of a padded result, contiguous."""
     return t if t.shape[-1] == c else t[..., :c].contiguous()
 
@@ -194,14 +194,14 @@ def _bilinear_gather_cuda(x, ci, cw) -> torch.Tensor:
     plan = gather_fwd_plan(b, hw, ch, p, x.dtype)
     out = torch.empty(b, p, ch, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return _unpad(out, c)
+        return unpad_channels(out, c)
     fn = BILINEAR_GATHER_FWD.fn()
     BILINEAR_GATHER_FWD.launches += 1
     err = fn(x.data_ptr(), ci.data_ptr(), cw.data_ptr(), out.data_ptr(), b,
              hw, ch, p, _DTYPE_CODE[x.dtype], int(plan["wide"]),
              cuda_stream(x.device))
     BILINEAR_GATHER_FWD.check(err)
-    return _unpad(out, c)
+    return unpad_channels(out, c)
 
 
 def _check_g(g, x, ci) -> None:
@@ -264,7 +264,7 @@ def _bwd_dx_cuda(g, x, ci, cw) -> torch.Tensor:
              dx.data_ptr(), b, hw, ch, p, plan["tile_rows"], plan["cap"],
              plan["smem_bytes"], _DTYPE_CODE[x.dtype], cuda_stream(x.device))
     BILINEAR_GATHER_BWD_DX.check(err)
-    return _unpad(dx, c)
+    return unpad_channels(dx, c)
 
 
 def _bwd_dcw_cuda(g, x, ci, cw) -> torch.Tensor:

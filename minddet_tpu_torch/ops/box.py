@@ -66,6 +66,28 @@ def decode_deltas(deltas: torch.Tensor, anchors: torch.Tensor,
                        dim=-1)
 
 
+def encode_deltas(boxes: torch.Tensor, anchors: torch.Tensor,
+                  means=(0.0, 0.0, 0.0, 0.0), stds=(1.0, 1.0, 1.0, 1.0),
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Corner boxes (..., 4) against corner anchors (..., 4) -> R-CNN deltas
+    [dx, dy, dw, dh] (..., 4), ``(d - means) / stds``: the centre offset in
+    anchor sizes and the log size ratios, every width and height kept at
+    ``eps`` or above, so that a zero-area box or anchor gives large but
+    finite deltas. The inverse of ``decode_deltas``."""
+    aw = (anchors[..., 2] - anchors[..., 0]).clamp(min=eps)
+    ah = (anchors[..., 3] - anchors[..., 1]).clamp(min=eps)
+    ax = (anchors[..., 0] + anchors[..., 2]) / 2
+    ay = (anchors[..., 1] + anchors[..., 3]) / 2
+    gw = (boxes[..., 2] - boxes[..., 0]).clamp(min=eps)
+    gh = (boxes[..., 3] - boxes[..., 1]).clamp(min=eps)
+    gx = (boxes[..., 0] + boxes[..., 2]) / 2
+    gy = (boxes[..., 1] + boxes[..., 3]) / 2
+    d = torch.stack([(gx - ax) / aw, (gy - ay) / ah, torch.log(gw / aw),
+                     torch.log(gh / ah)], dim=-1)
+    return ((d - torch.tensor(means, dtype=d.dtype, device=d.device))
+            / torch.tensor(stds, dtype=d.dtype, device=d.device))
+
+
 def limit_period(val: torch.Tensor, offset: float = 0.5,
                  period: float = math.pi) -> torch.Tensor:
     """Wrap angles into [-offset*period, (1-offset)*period)."""

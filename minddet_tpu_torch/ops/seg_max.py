@@ -17,7 +17,13 @@ the port of the TPU kernel ``seg_pallas.py:_fwd_kernel``, and in the
 backward ``csrc/seg_full_max_bwd.cu``, the port of ``_bwd_kernel``; on a CPU
 tensor it runs the plain versions ``seg_full_max_bounded_plain`` (the
 reference's shift-level form: ``seg_running_max``, then the last row's
-value broadcast back) and ``seg_full_max_bounded_bwd_plain``.
+value broadcast back) and ``seg_full_max_bounded_bwd_plain``. The kernels
+move 16-byte vectors (4 f32 or 8 bf16 channels); for any other C the
+wrappers zero-pad the channel axis to a whole number of vectors
+(``bilinear.pad_channels``) and slice the result back to C. A zero channel
+has a max of 0, and in the backward its x equals its m and its g is 0, so
+its dx is 0: the result is the unpadded one. Any size the grid holds is
+one launch (``seg_max_plan``).
 
 The gradient follows the reference's Pallas backward, the reduce-max
 convention: within a segment the summed gradient of the covered rows goes to
@@ -34,6 +40,8 @@ import torch
 
 from minddet_tpu_torch.kernels import (SEG_FULL_MAX, SEG_FULL_MAX_BWD,
                                        cuda_stream, device_kind)
+from minddet_tpu_torch.ops.bilinear import (GRID_BLOCKS, pad_channels,
+                                            unpad_channels)
 from minddet_tpu_torch.ops.voxelize import (_seg_bcast_bounded,
                                             _seg_sum_bounded,
                                             seg_running_max)
@@ -102,6 +110,9 @@ def seg_full_max_bounded_bwd_plain(first: torch.Tensor, last: torch.Tensor,
 
 
 def _check(first, last, x, bound) -> None:
+    """What the kernels take, checked on the padded x: (B, N, C) f32 or
+    bf16 with C a whole number of 16-byte vectors, first and last (B, N)
+    bool, all contiguous and on x's device, x 16-byte aligned."""
     if x.dim() != 3 or first.shape != x.shape[:2] or last.shape != first.shape:
         raise ValueError(f"expected x (B, N, C) and first, last (B, N); got "
                          f"{tuple(x.shape)}, {tuple(first.shape)}, "
@@ -109,7 +120,7 @@ def _check(first, last, x, bound) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.shape[2] % _VEC[x.dtype]:
-        raise ValueError(f"C={x.shape[2]} must be a multiple of "
+        raise ValueError(f"C={x.shape[2]} is not padded to a multiple of "
                          f"{_VEC[x.dtype]} for {x.dtype} (16-byte vectors)")
     if bound < 1:
         raise ValueError(f"bound must be >= 1, got {bound}")
@@ -123,44 +134,74 @@ def _check(first, last, x, bound) -> None:
             raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    if x.numel() > _INT32_MAX:
-        raise ValueError("x is too large for the kernel's grid")
+
+
+SEG_THREADS = 256  # threads a block of K5f and K5b
+
+
+def seg_max_plan(b: int, n: int, c: int, dtype) -> dict:
+    """K5f's and K5b's launch for (b, n, c) streams (c padded to 16-byte
+    vectors): one thread per output vector, ``blocks`` of
+    ``SEG_THREADS``, ``wide`` (64-bit thread indices) from 2**31 vectors
+    on and 32-bit below, as the row gather's plans choose (64-bit ones
+    cost K5f 2.3-2.6 % and K5b 5.6-7.5 % at the CenterPoint shapes on an
+    H100: ``scripts/seg_max_index_width.py``); every offset is 64-bit.
+    Raises where a size does not fit the kernels' 32-bit int arguments or
+    the grid does not hold the launch."""
+    for name, v in (("B", b), ("N", n), ("C", c)):
+        if v > _INT32_MAX:
+            raise ValueError(f"{name} = {v} does not fit the kernel's 32-bit "
+                             f"size arguments")
+    vectors = b * n * (c // _VEC[dtype])
+    blocks = -(-vectors // SEG_THREADS)
+    if blocks > GRID_BLOCKS:
+        raise ValueError(f"{vectors} output vectors pass the grid")
+    return dict(wide=vectors >= 2 ** 31, blocks=blocks)
 
 
 def _seg_full_max_cuda(first, last, x, bound) -> torch.Tensor:
+    c = x.shape[-1]
+    x = pad_channels(x)
     _check(first, last, x, bound)
     out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
-    b, n, c = x.shape
+        return unpad_channels(out, c)
+    b, n, ch = x.shape
+    plan = seg_max_plan(b, n, ch, x.dtype)
     fn = SEG_FULL_MAX.fn()
     SEG_FULL_MAX.launches += 1
     err = fn(x.data_ptr(), first.data_ptr(), last.data_ptr(), out.data_ptr(),
-             b, n, c, bound, _DTYPE_CODE[x.dtype], cuda_stream(x.device))
+             b, n, ch, bound, _DTYPE_CODE[x.dtype], int(plan["wide"]),
+             cuda_stream(x.device))
     SEG_FULL_MAX.check(err)
-    return out
+    return unpad_channels(out, c)
 
 
 def _seg_full_max_bwd_cuda(first, last, x, m, g, bound) -> torch.Tensor:
-    _check(first, last, x, bound)
     for name, t in (("m", m), ("g", g)):
         if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"{x.dtype} {tuple(x.shape)} tensor on "
-                             f"{x.device}; got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {x.dtype} "
+                             f"{tuple(x.shape)} tensor on {x.device}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    c = x.shape[-1]
+    x, m, g = pad_channels(x), pad_channels(m), pad_channels(g)
+    _check(first, last, x, bound)
+    for name, t in (("m", m), ("g", g)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     dx = torch.empty_like(x)
     if x.numel() == 0:
-        return dx
-    b, n, c = x.shape
+        return unpad_channels(dx, c)
+    b, n, ch = x.shape
+    plan = seg_max_plan(b, n, ch, x.dtype)
     fn = SEG_FULL_MAX_BWD.fn()
     SEG_FULL_MAX_BWD.launches += 1
     err = fn(x.data_ptr(), m.data_ptr(), g.data_ptr(), first.data_ptr(),
-             last.data_ptr(), dx.data_ptr(), b, n, c, bound,
-             _DTYPE_CODE[x.dtype], cuda_stream(x.device))
+             last.data_ptr(), dx.data_ptr(), b, n, ch, bound,
+             _DTYPE_CODE[x.dtype], int(plan["wide"]), cuda_stream(x.device))
     SEG_FULL_MAX_BWD.check(err)
-    return dx
+    return unpad_channels(dx, c)
 
 
 def _forward(first, last, x, bound) -> torch.Tensor:
@@ -175,8 +216,9 @@ def seg_full_max_bounded_bwd(first: torch.Tensor, last: torch.Tensor,
     """The gradient of ``seg_full_max_bounded`` with respect to ``x``, from
     the forward's output ``m`` and its gradient ``g`` (see
     ``seg_full_max_bounded_bwd_plain``): a CUDA ``x`` launches the
-    ``seg_full_max_bwd`` kernel (m and g contiguous, in x's type) and raises
-    on what it does not take; a CPU ``x`` runs the plain version."""
+    ``seg_full_max_bwd`` kernel (m and g contiguous, in x's type; any C,
+    zero-padded to a whole number of 16-byte vectors for the launch) and
+    raises on what it does not take; a CPU ``x`` runs the plain version."""
     if device_kind(x) == "cuda":
         return _seg_full_max_bwd_cuda(first, last, x, m, g, bound)
     return seg_full_max_bounded_bwd_plain(first, last, x, m, g, bound)
@@ -210,9 +252,10 @@ def seg_full_max_bounded(first: torch.Tensor, last: torch.Tensor,
 
     Differentiable with respect to ``x`` (ties share the gradient evenly).
     A CUDA ``x`` launches the ``seg_full_max`` kernel, and
-    ``seg_full_max_bwd`` in the backward (f32 or bf16, contiguous, C a
-    multiple of 4 or 8), and raises on what they do not take; a CPU ``x``
-    runs the plain versions."""
+    ``seg_full_max_bwd`` in the backward (f32 or bf16, contiguous, any C:
+    one that is not a multiple of 4 in f32 or 8 in bf16 is zero-padded to
+    one for the launch and the result sliced back to C), and raises on what
+    they do not take; a CPU ``x`` runs the plain versions."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _SegFullMax.apply(first, last, x, bound)
     return _forward(first, last, x, bound)

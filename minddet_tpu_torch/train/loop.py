@@ -3,9 +3,10 @@
 
 The reference's step is a pure jitted function from one state to the next.
 Here the step updates the state in place: the model's parameters and BN
-running statistics, the optimizer's moments and the step count. One step
-runs the loss, the backward, the clip and AdamW (``core/optim.py``); BN
-statistics are updated by the train-mode forward itself.
+running statistics, the optimizer's state and the step count. One step
+runs the loss, the backward, the clip and the optimizer (``core/optim.py``:
+AdamW or SGD); BN statistics are updated by the train-mode forward
+itself.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
-from minddet_tpu_torch.core.optim import AdamW
+from minddet_tpu_torch.core.optim import Recipe
 
 Metrics = Dict[str, torch.Tensor]
 LossFn = Callable[[nn.Module, Dict], Tuple[torch.Tensor, Metrics]]
@@ -29,11 +30,11 @@ class TrainState:
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    tx: AdamW
+    tx: Recipe
     step: int = 0
 
     @classmethod
-    def create(cls, model: nn.Module, tx: AdamW) -> "TrainState":
+    def create(cls, model: nn.Module, tx: Recipe) -> "TrainState":
         return cls(model=model, optimizer=tx.init(model), tx=tx)
 
 

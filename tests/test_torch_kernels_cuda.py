@@ -3,8 +3,10 @@ versions on the card, at small shapes: the row gather's map backward
 (K3dx), the DCN samplers' backward (K1b, and K2b, its flat entry) and
 forward (K1f, and K2f, its flat entry), the rotated-box intersection (K4),
 the row gather's three kernels at widths that are not a whole number of
-16-byte vectors, the row gather (K3f) at the R-CNN's ROIAlign shapes, and
-K3f and K3dcw past 2**31 values.
+16-byte vectors, the row gather (K3f) at the R-CNN's ROIAlign shapes,
+K3f and K3dcw past 2**31 values, and the segment max (K5f) and its
+backward (K5b) at widths that are not a whole number of 16-byte vectors and
+past 2**31 values.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a GPU host without JAX:
@@ -31,7 +33,10 @@ plain version's sum of absolute terms (dx of K3dx) or the plain value:
   1e-2 + rtol 2**-7); bit for bit between two calls;
 - K3f at the R-CNN shapes: ``GATHER_TOL`` of ``chip_smoke.py`` (f32 atol
   1e-5, rtol 1e-6: four products summed with FMAs; bf16 rtol 2**-8, that
-  f32 sum rounded once).
+  f32 sum rounded once);
+- K5f: exact (max and select only); K5b: ``SEG_BWD_TOL`` of
+  ``chip_smoke.py`` (f32 atol and rtol 1e-5, bf16 rtol 2**-7: the kernel
+  sums a segment's g row by row, the plain version by shift levels).
 """
 
 import numpy as np
@@ -43,6 +48,7 @@ from minddet_tpu_torch.ops import bilinear as bl
 from minddet_tpu_torch.ops import hat_sample as hs
 from minddet_tpu_torch.ops import rotated_iou as ri
 from minddet_tpu_torch.ops import roi_align as ra
+from minddet_tpu_torch.ops import seg_max as sm
 
 DX_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 2 ** -8)}
 FWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
@@ -826,3 +832,138 @@ def test_gather_fwd_rcnn_shapes(cuda, dtype, rois, size):
         mean = out.view(b, r, size[0], s, size[1], s, 256).mean(dim=(3, 5))
         assert torch.equal(got, mean)
 
+
+
+SEG_BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+
+
+def _seg_stream(rs, b, n, bound, c):
+    """A sorted stream: segments of 1 to ``bound`` rows, every seventh
+    without a last kept row; x N(0, 1) with a third of it 0 (ties)."""
+    first = np.zeros((b, n), bool)
+    last = np.zeros((b, n), bool)
+    for bi in range(b):
+        i, k = 0, 0
+        while i < n:
+            ln = min(int(rs.randint(1, bound + 1)), n - i)
+            first[bi, i] = True
+            last[bi, i + ln - 1] = k % 7 != 6
+            i, k = i + ln, k + 1
+    x = rs.randn(b, n, c).astype(np.float32)
+    x[rs.rand(b, n, c) < 0.3] = 0.0
+    return torch.from_numpy(first), torch.from_numpy(last), torch.from_numpy(x)
+
+
+def _check_seg(first, last, x, g, bound):
+    """K5f exactly and K5b within SEG_BWD_TOL of their plain versions (on
+    the CPU, in f32 for bf16 inputs, rounded once to x's type)."""
+    m = sm.seg_full_max_bounded(first, last, x, bound)
+    dx = sm.seg_full_max_bounded_bwd(first, last, x, m, g, bound)
+    torch.cuda.synchronize()
+    fc, lc, xc = first.cpu(), last.cpu(), x.cpu()
+    ref_m = sm.seg_full_max_bounded_plain(fc, lc, xc, bound)
+    assert torch.equal(m.cpu(), ref_m)
+    ref = sm.seg_full_max_bounded_bwd_plain(fc, lc, xc, ref_m, g.cpu(),
+                                            bound)
+    atol, rtol = SEG_BWD_TOL[x.dtype]
+    err = (dx.cpu().float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), float(
+        err.max())
+    return m, dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 18, 20, 33])
+def test_seg_max_kernels_take_any_width(cuda, dtype, c):
+    """K5f and K5b at widths the kernels' 16-byte vectors do not divide:
+    the wrappers pad x (and m and g) with zero channels and slice the
+    result back to C, which leaves every channel's max and gradient as
+    they are."""
+    rs = np.random.RandomState(30 + c)
+    first, last, x = _seg_stream(rs, 2, 1001, 20, c)
+    g = torch.from_numpy(rs.randn(2, 1001, c).astype(np.float32))
+    m, dx = _check_seg(first.to(cuda), last.to(cuda), x.to(cuda, dtype),
+                       g.to(cuda, dtype), 20)
+    assert m.shape == dx.shape == (2, 1001, c)
+    assert m.is_contiguous() and dx.is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_wide_entries_match_the_narrow_ones(cuda, dtype):
+    """The 64-bit thread indices (``wide`` = 1, which the wrappers take from
+    2**31 vectors on) give the 32-bit ones' bits on a small stream: both
+    C entries called directly."""
+    rs = np.random.RandomState(40)
+    first, last, x = _seg_stream(rs, 3, 777, 20, 16)
+    f, l = first.to(cuda), last.to(cuda)
+    xt = x.to(cuda, dtype)
+    g = torch.from_numpy(rs.randn(3, 777, 16).astype(np.float32)).to(
+        cuda, dtype)
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    stream = kernels.cuda_stream(cuda)
+    outs = []
+    for wide in (0, 1):
+        m = torch.empty_like(xt)
+        dx = torch.empty_like(xt)
+        kernels.SEG_FULL_MAX.check(kernels.SEG_FULL_MAX.fn()(
+            xt.data_ptr(), f.data_ptr(), l.data_ptr(), m.data_ptr(), 3, 777,
+            16, 20, code, wide, stream))
+        kernels.SEG_FULL_MAX_BWD.check(kernels.SEG_FULL_MAX_BWD.fn()(
+            xt.data_ptr(), m.data_ptr(), g.data_ptr(), f.data_ptr(),
+            l.data_ptr(), dx.data_ptr(), 3, 777, 16, 20, code, wide, stream))
+        outs.append((m, dx))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    _check_seg(f, l, xt, g, 20)
+
+
+@pytest.mark.cuda
+def test_seg_max_past_2_31_values(cuda):
+    """K5f and K5b on a bf16 stream of more than 2**31 values (C = 8, one
+    16-byte vector a row, one cloud): only the last 4,096 rows hold kept
+    segments, and their rows lie past 2**31 values, so a 32-bit offset
+    would read and write elsewhere. They match the plain versions on those
+    rows; every other row is exactly 0. (Past 2**31 vectors the wrappers
+    take the 64-bit thread indices, which
+    ``test_seg_max_wide_entries_match_the_narrow_ones`` holds to the 32-bit
+    ones.)"""
+    c, tail, bound = 8, 4096, 20
+    n = 2 ** 31 // c + tail
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    if free < 24 * 2 ** 30:
+        pytest.skip("needs ~24 GB of free device memory")
+    rs = np.random.RandomState(41)
+    ft, lt, xt = _seg_stream(rs, 1, tail, bound, c)
+    gt = torch.from_numpy(rs.randn(1, tail, c).astype(np.float32))
+    first = torch.zeros(1, n, dtype=torch.bool, device=cuda)
+    last = torch.zeros(1, n, dtype=torch.bool, device=cuda)
+    first[:, -tail:], last[:, -tail:] = ft.to(cuda), lt.to(cuda)
+    first[:, 0] = True  # the rows before the tail: one segment, not kept
+    x = torch.zeros(1, n, c, dtype=torch.bfloat16, device=cuda)
+    x[:, -tail:] = xt.to(cuda, torch.bfloat16)
+    g = torch.ones(1, n, c, dtype=torch.bfloat16, device=cuda)
+    g[:, -tail:] = gt.to(cuda, torch.bfloat16)
+    assert (n - tail) * c > 2 ** 31 - 1  # the tail lies past int32
+    assert not sm.seg_max_plan(1, n, c, torch.bfloat16)["wide"]
+    m = sm.seg_full_max_bounded(first, last, x, bound)
+    dx = sm.seg_full_max_bounded_bwd(first, last, x, m, g, bound)
+    torch.cuda.synchronize()
+    del g
+    head_m, head_dx = bool(m[:, :-tail].any()), bool(dx[:, :-tail].any())
+    got_m, got_dx = m[:, -tail:].cpu(), dx[:, -tail:].cpu()
+    del m, dx, x
+    assert not head_m and not head_dx
+    xb, gb = xt.to(torch.bfloat16), gt.to(torch.bfloat16)
+    ref_m = sm.seg_full_max_bounded_plain(ft, lt, xb, bound)
+    assert torch.equal(got_m, ref_m)
+    ref = sm.seg_full_max_bounded_bwd_plain(ft, lt, xb, ref_m, gb, bound)
+    atol, rtol = SEG_BWD_TOL[torch.bfloat16]
+    err = (got_dx.float() - ref.float()).abs()
+    print(f"\n  K5f / K5b past 2**31 values ({n * c} values): K5f exact, "
+          f"K5b max abs error on the tail {float(err.max()):.3e}")
+    assert bool((err <= atol + rtol * ref.float().abs()).all())
+    assert ref.float().abs().max() > 0

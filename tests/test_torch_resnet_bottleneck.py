@@ -7,7 +7,11 @@ carried over by ``load_from_flax``; inputs are numpy-random too. The JAX
 modules run in eval mode, so ResNet-50 goes through the reference's
 ``lax.scan`` over each stage's inner Bottlenecks, against the port's
 block-by-block path. Tolerance atol = rtol = 1e-4 (f32 convs summed in
-another order).
+another order). In train mode (the R-CNN train step's backbone) the
+reference runs its blocks one by one (``backbones/resnet.py:235-245``) and
+BN takes the batch's statistics: outputs and the input's gradient within
+1e-4, the BN running statistics after the step (flax momentum 0.9) within
+atol 1e-5.
 """
 
 import jax
@@ -110,3 +114,65 @@ def test_resnet_refuses_unknown_depth_and_dcn_bottlenecks():
         ResNet(depth=42)
     with pytest.raises(NotImplementedError):
         ResNet(depth=50, dcn_stages=(False, True, True, True))
+
+
+def _train_apply(jm, variables, x, g):
+    """The reference in train mode: outputs, the mutated BN statistics and
+    the gradient of sum(outputs * g) with respect to the input."""
+    def f(a):
+        out, mutated = jm.apply(variables, a, train=True,
+                                mutable=["batch_stats"])
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        dot = sum(jnp.sum(o * gi) for o, gi in zip(outs, g))
+        return dot, (outs, mutated["batch_stats"])
+
+    (_, (outs, stats)), dx = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        jnp.asarray(x))
+    return outs, stats, dx
+
+
+@pytest.mark.parametrize("which", ["bottleneck", "resnet50"])
+def test_train_mode_matches_jax_with_bn_statistics(which):
+    """A downsampling Bottleneck (256 -> 512 at stride 2, f32) and
+    ResNet-50 at 64 x 64 (f64 compute over f32 parameters on both sides:
+    in f32 the batch statistics of 16 chained train-mode blocks over 2 x 8
+    x 8 positions move C3 by ~3e-4 between the two), batch 2, in train
+    mode: every output, the input's gradient and every BN running
+    statistic after the forward."""
+    rs = np.random.RandomState(4)
+    wide = which == "resnet50"
+    if which == "bottleneck":
+        x = rs.randn(2, 8, 8, 256).astype(np.float32)
+        jm, port = JaxBottleneck(128, strides=2), Bottleneck(256, 128, 2)
+    else:
+        x = rs.randn(2, 64, 64, 3).astype(np.float32)
+        jm, port = JaxResNet(depth=50, dtype=jnp.float64), ResNet(depth=50)
+    with jax.enable_x64(wide):
+        variables = flax_variables(jm, x, seed=5)
+        port = load_from_flax(port, variables).train()
+        xt = _nchw(x).to(torch.float64 if wide else torch.float32)
+        xt.requires_grad_()
+        outs = port(xt)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = [rs.randn(*_nhwc(o.detach()).shape).astype(np.float32)
+             for o in outs]
+        sum((o * _nchw(gi)).sum() for o, gi in zip(outs, g)).backward()
+        ref_outs, ref_stats, ref_dx = _train_apply(
+            jm, variables, x.astype(np.float64) if wide else x, g)
+    for i, (o, r) in enumerate(zip(outs, ref_outs)):
+        np.testing.assert_allclose(_nhwc(o.detach()), np.asarray(r), **TOL,
+                                   err_msg=f"output {i}")
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(ref_dx), **TOL)
+    fresh = ResNet(depth=50) if wide else Bottleneck(256, 128, 2)
+    ref = load_from_flax(fresh, {"params": variables["params"],
+                                 "batch_stats": ref_stats})
+    got = dict(port.named_buffers())
+    moved = 0
+    for n, r in ref.named_buffers():
+        if n.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_allclose(got[n].numpy(), r.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=n)
+        moved += 1
+    assert moved == 2 * sum(isinstance(m, torch.nn.BatchNorm2d)
+                            for m in port.modules())

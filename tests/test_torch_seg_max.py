@@ -296,3 +296,48 @@ def test_backward_kernel_matches_plain(cuda, dtype, tol):
     torch.cuda.synchronize()
     ref = seg_full_max_bounded_bwd_plain(f, l, xt, m, g, 20)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype, c, padded", [
+    (torch.float32, 1, 4), (torch.float32, 18, 20), (torch.float32, 32, 32),
+    (torch.bfloat16, 3, 8), (torch.bfloat16, 18, 24),
+    (torch.bfloat16, 33, 40)])
+def test_seg_max_wrappers_pad_any_width(dtype, c, padded):
+    """The kernels take whole 16-byte vectors: a stream of any C is padded
+    with zero channels to the next multiple of 4 (f32) or 8 (bf16), which
+    the launch checks accept, and the plan covers one thread per padded
+    vector (meta tensors: nothing is allocated or launched)."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    x = torch.empty(8, 120000, c, dtype=dtype, device="meta")
+    flags = torch.empty(8, 120000, dtype=torch.bool, device="meta")
+    xp = sm.pad_channels(x)
+    assert xp.shape == (8, 120000, padded)
+    sm._check(flags, flags, xp, 20)
+    vec = 4 if dtype == torch.float32 else 8
+    plan = sm.seg_max_plan(8, 120000, padded, dtype)
+    assert plan == dict(wide=False, blocks=-(-8 * 120000 * padded // vec
+                                            // sm.SEG_THREADS))
+    if c % vec:
+        with pytest.raises(ValueError, match="not padded"):
+            sm._check(flags, flags, x, 20)
+
+
+def test_seg_max_plans_take_past_2_31_values_and_refuse_the_grid():
+    """Past 2**31 values the plan keeps 32-bit thread indices (offsets are
+    64-bit), past 2**31 vectors it takes 64-bit ones; it refuses a size
+    past the kernels' int arguments and a launch past the grid's blocks."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    n = 2 ** 28 + 4096  # 8 bf16 channels: past 2**31 values
+    x = torch.empty(1, n, 8, dtype=torch.bfloat16, device="meta")
+    flags = torch.empty(1, n, dtype=torch.bool, device="meta")
+    sm._check(flags, flags, x, 20)
+    assert not sm.seg_max_plan(1, n, 8, torch.bfloat16)["wide"]
+    assert sm.seg_max_plan(9, n, 8, torch.bfloat16)["wide"]
+    assert sm.seg_max_plan(8, 2 ** 28, 8, torch.bfloat16)["wide"]
+    assert not sm.seg_max_plan(8, 2 ** 28 - 1, 8, torch.bfloat16)["wide"]
+    with pytest.raises(ValueError, match="32-bit"):
+        sm.seg_max_plan(1, 2 ** 31, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="grid"):
+        sm.seg_max_plan(2 ** 20, 2 ** 20, 2 ** 10, torch.float32)

@@ -21,7 +21,8 @@ Phases (any failure raises and exits non-zero):
    (CenterPoint's six tasks stacked), on boxes drawn like decoded
    candidates, at the train
    step's (8, 128, 5) proposals x (8, 64, 5) ground-truth slots (a quarter
-   of them empty, zero-size), on pairs ~70 m out that nearly touch, on one
+   of them empty, zero-size), at the decode program's (1, 1000, 5)^2 on
+   its own first candidates, on pairs ~70 m out that nearly touch, on one
    sample of 900 candidates from 5 tight clusters, and on exact cases,
    each with the share of pairs its separation test leaves to the clip, in
    all and per 64 x 64 block, and its time at every tile height; the
@@ -89,7 +90,9 @@ Phases (any failure raises and exits non-zero):
    c. one f32 two-stage CenterPoint train step at batch 1, card against
       CPU, with the same step in f64 compute on the CPU as referee: the
       second stage on the same proposals, then the whole step's loss,
-      parts, grad_norm, gradients and BN statistics;
+      parts, grad_norm, gradients and BN statistics; then one step of the
+      single-stage model from the same weights (K5f and K5b once each),
+      held to the referee the same way;
    d. one f32 train step of CenterNet with DCN in all four backbone stages
       (batch 2), the card held to the f64 referee, the f32 CPU reported;
    e. one f32 Faster R-CNN train step (ResNet-50-FPN at 256 x 256, batch
@@ -100,6 +103,12 @@ Phases (any failure raises and exits non-zero):
       BN statistics; from seeded weights with random BN, and again from
       the train entries' own (``seed_rcnn_for_training``);
    f. the same for Mask R-CNN, with its mask targets;
+   g. one f32 PointPillars train step (KITTI car at full width, batch 2,
+      AdamW 2e-4) on the card against the f32 CPU and an f64 CPU referee:
+      the anchor mask, the targets on the CPU's inputs (labels equal but
+      within 1e-6 of a threshold), the loss parts, grad_norm, every
+      gradient (at most 2x the f32 CPU's distance from the referee plus
+      1e-3) and the BN statistics; no kernel launches;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -142,7 +151,18 @@ Phases (any failure raises and exits non-zero):
       version and timed beside ``index_add_`` (these are the K3dx row's
       R-CNN cases in the summary);
    k. Mask R-CNN training (``mask_rcnn_train_entry``) as in j: K3f
-      launches 9 times per step (the GT crop too) and K3dx 8 times.
+      launches 9 times per step (the GT crop too) and K3dx 8 times;
+   l. PointPillars training (``pointpillars_train_entry``: KITTI car, f32
+      params, bf16 compute, batch 32, 18,000 points and up to 23 cars per
+      cloud, AdamW 2e-4) takes 2 warm-up and 10 timed steps on one batch;
+      the loss must stay finite and fall; no kernel launches;
+   m. single-stage CenterPoint training (``centerpoint_single_train_entry``,
+      batch 8) as in e: K5f and K5b once per step, nothing else;
+   n. the decode + rotated-NMS program (``decode_nms_entry``: one task
+      head's 128 x 128 maps, top 1000, NMS 0.2, 83 kept, 20 chained
+      iterations): one warm-up and 3 timed calls, K4 once per iteration and
+      nothing else, the host clock and the NMS passes per iteration, and
+      one profiled call for the device's busy time per iteration.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -151,7 +171,8 @@ number in it but ``bound_ms`` is measured in the run); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
 ``--profile`` also breaks the serving requests (every served model) and 3
-train steps of each trained model down with ``torch.profiler``; ``--probe``
+train steps of each trained model (6l and 6m included) down with
+``torch.profiler``; ``--probe``
 also compares the f32 CenterPoint train-mode forward layer by layer, on the
 card and on the CPU, with the CPU's in f64.
 """
@@ -755,6 +776,7 @@ IOU_EXACT_BOXES = ((0.0, 0.0, 2.0, 4.0, 0.0),
 IOU_EXACT_AREAS = {(0, 0): 8.0, (1, 1): 8.0, (2, 2): 4.0, (3, 3): 1.0,
                    (0, 1): 4.0, (0, 2): 0.0, (0, 3): 1.0}
 IOU_TOL = (1e-4, 1e-5)  # K4 vs plain: atol, rtol (sincos, FMA contraction)
+DECODE_CANDIDATES = 1000  # the decode program's top-k (bench.py: NMS_PRE)
 
 
 def candidate_boxes(b: int, n: int, gen) -> torch.Tensor:
@@ -927,12 +949,25 @@ def train_step_box_pairs(b: int, pc_range, gen):
     return (props[..., BEV5].contiguous(), gt[..., BEV5].contiguous())
 
 
+def decode_program_boxes() -> torch.Tensor:
+    """The (1, 1000, 5) candidates of the decode program's first iteration
+    (``entry.py:decode_candidates_bev`` on ``decode_nms_maps()``), on the
+    CPU."""
+    from minddet_tpu_torch.entry import (decode_candidates_bev,
+                                         decode_nms_maps)
+
+    maps = (torch.from_numpy(m) for m in decode_nms_maps())
+    return decode_candidates_bev(*maps, DECODE_CANDIDATES)[1][None]
+
+
 def check_rotated_iou_kernel(dev, gen, pc_range):
     """Phase 3: rotated_iou_intersect (K4) against its plain version at the
     rotated NMS's shapes (``IOU_SHAPES``: (B, 900, 5)^2 for PointPillars,
     (6 B, 1000, 5)^2 for CenterPoint), at the two-stage train step's
     (8, 128, 5) x (8, 64, 5) over ``pc_range`` (a quarter of the
-    ground-truth slots empty: zero-size boxes), on pairs that nearly touch
+    ground-truth slots empty: zero-size boxes), at the decode program's
+    (1, 1000, 5)^2 on its own candidates (``decode_program_boxes``), on
+    pairs that nearly touch
     (``near_touching_boxes``), on one sample of candidates from a few tight
     clusters (``clustered_candidates``) and on the exact cases. Each case
     reports the share of pairs the separation test leaves to the clip, in
@@ -957,11 +992,14 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
                                       torch.Generator().manual_seed(5))
     shapes = [("candidates", b, n) for b, n in IOU_SHAPES]
     shapes += [("train", TRAIN_CP_BATCH, CP_PROPOSALS),
+               ("decode_nms", 1, DECODE_CANDIDATES),
                ("near_touching", 1, NEAR_PAIRS),
                ("dense_clusters", 1, DENSE_BOXES)]
     for kind, b, n in shapes:
         if kind == "train":
             boxes, others = (t.to(dev) for t in train_pair)
+        elif kind == "decode_nms":
+            boxes = others = decode_program_boxes().to(dev)
         elif kind == "near_touching":
             boxes, others = (t.to(dev) for t in near_touching_boxes(
                 n, torch.Generator().manual_seed(8)))
@@ -1996,7 +2034,7 @@ HEAD_REFEREE_FLOOR = 1e-6
 # each end-to-end phase draws its model and inputs from a generator of its
 # own, so that what it checks does not depend on the phases before it
 PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "5": 50, "5b": 51,
-               "5d": 52, "5e": 53, "5f": 54, "6a": 60, "6f": 61}
+               "5d": 52, "5e": 53, "5f": 54, "5g": 55, "6a": 60, "6f": 61}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -3633,11 +3671,254 @@ def check_centerpoint_train_f32(dev, gpu):
         if not bool((e <= t["stat_atol"] + t["stat_rtol"] * v.abs()).all()):
             bad.append(f"BN statistic {n} against the referee")
     result["stat_max_abs_err"] = stat_err
+    _hold_single_stage_step(dev, start, batch, result, bad)
     print("  f32 CenterPoint train step card vs CPU: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items() if k != "tolerance"), flush=True)
     if bad:
         raise AssertionError(f"f32 CenterPoint train step, card vs CPU: "
+                             f"{bad} outside {t}: {result}")
+    return result
+
+
+def _hold_single_stage_step(dev, start, batch, result, bad):
+    """Phase 5c's single-stage step: ``CenterPoint.loss_from_gt`` under the
+    train step (AdamW 1e-3, clip 35) from the two-stage weights ``start``
+    without the refine head, on the card, the f32 CPU and the f64 referee
+    (TF32 off), on ``batch``. The card launches K5f and K5b once each and
+    nothing else; its loss, parts and grad_norm, the reader's, the RPN's
+    and the head's gradients and the BN statistics are held to the referee
+    by ``CP_TRAIN_TOL``'s ``referee_*`` bounds (the statistics also to the
+    f32 CPU); the CPU's distances are reported. Readings go into
+    ``result`` under ``single_stage_``."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.optim import adamw
+    from minddet_tpu_torch.entry import centerpoint_loss
+    from minddet_tpu_torch.models.detectors.centerpoint import CenterPoint
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    t = CP_TRAIN_TOL
+    weights = {k: v for k, v in start.items() if not k.startswith("refine.")}
+    snaps = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, d, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("referee", "cpu", torch.float64)):
+            model = CenterPoint(dtype=dtype).to(
+                device=d, memory_format=torch.channels_last)
+            model.load_state_dict(weights)
+            state = TrainState.create(model,
+                                      adamw(1e-3, clip_global_norm=35.0))
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, metrics = make_train_step(centerpoint_loss)(
+                state, {k: v.to(d) for k, v in batch.items()})
+            snaps[name] = _train_snapshot(state, metrics)
+            launches = {k.name: k.launches for k in kernels.KERNELS}
+            print(f"  single-stage {name} step "
+                  f"{time.perf_counter() - t0:.1f} s, loss "
+                  f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
+            if name == "card" and launches != _centerpoint_launches(
+                    1, ("seg_full_max", "seg_full_max_bwd")):
+                bad.append(f"the single-stage train step launched "
+                           f"{launches}")
+            del state, model
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    g, c, r = snaps["card"], snaps["cpu"], snaps["referee"]
+    pre = "single_stage_"
+    for k, v in r["metrics"].items():
+        for name, snap in (("card", g), ("cpu", c)):
+            result[f"{pre}{k}_{name}_vs_referee"] = abs(
+                snap["metrics"][k] - v) / max(abs(v), 1e-30)
+        bound = t["referee_grad_norm_rtol" if k == "grad_norm"
+                  else "referee_loss_rtol"]
+        if result[f"{pre}{k}_card_vs_referee"] > bound:
+            bad.append(f"{pre}{k} against the referee")
+    for part in CP_PARTS[:3]:
+        for name, snap in (("card", g), ("cpu", c)):
+            result[f"{pre}grad_{part}_{name}_vs_referee"] = _part_rel_l2(
+                snap["grads"], r["grads"], part + ".")
+        if result[f"{pre}grad_{part}_card_vs_referee"] > t[
+                "referee_grad_rel_l2"]:
+            bad.append(f"{pre}gradient of {part} against the referee")
+    stat_err = 0.0
+    for n, v in r["stats"].items():
+        for label, snap in (("", c), (" against the referee", r)):
+            e = (g["stats"][n] - snap["stats"][n]).abs()
+            stat_err = max(stat_err, float(e.max()))
+            if not bool((e <= t["stat_atol"] + t["stat_rtol"]
+                         * snap["stats"][n].abs()).all()):
+                bad.append(f"{pre}BN statistic {n}{label}")
+    result[f"{pre}stat_max_abs_err"] = stat_err
+
+
+# f32 PointPillars train step, card vs CPU vs an f64 CPU referee (phase 5g):
+# the KITTI car model at full width (496 x 432 grid, 107,136 anchors) at
+# batch PP_CHECK_BATCH, seeded weights with BN off identity. The targets are
+# first made on the card from the CPU's inputs (anchor mask, boxes): the
+# labels may differ only for an anchor whose IoU (in f64) lies within
+# ``near_threshold`` of 0.6, 0.45 or a box's best (the card's kernels
+# contract multiply-adds into FMAs), the box targets of anchors both sides
+# put in the foreground within ``target_atol``. The step's kinks (ReLU,
+# smooth L1 at 1/9, the focal modulator) and its 20 train-mode BN layers
+# (the PFN's over the pillars, the RPN's 19 on 248 x 216, 124 x 108 and
+# 62 x 54 maps) make the f32 CPU itself a noisy judge (``CP_TRAIN_TOL``'s comment), so,
+# as 5e / 5f, the card's gradients are held to the referee at most
+# ``referee_k`` times as far from it as the f32 CPU's, plus a floor.
+PP_CHECK_BATCH = 2
+PP_TRAIN_TOL = dict(loss_rtol=1e-4, referee_loss_rtol=1e-4,
+                    grad_norm_rtol=1e-3, referee_k=HEAD_REFEREE_K,
+                    referee_grad_norm_floor=1e-4, referee_grad_floor=1e-3,
+                    stat_atol=1e-4, stat_rtol=1e-4, target_atol=1e-5,
+                    near_threshold=1e-6)
+PP_PARTS = ("reader.", "rpn.", "conv_")
+
+
+def _pp_check_model(dtype, dev=None):
+    from minddet_tpu_torch.entry import SEED
+    from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
+
+    model = PointPillars(dtype=dtype).init_weights(
+        torch.Generator().manual_seed(SEED))
+    return model.to(device=dev, memory_format=torch.channels_last)
+
+
+@torch.no_grad()
+def _pp_anchor_mask(model, batch):
+    """The anchor mask of ``batch`` from an eval-mode forward (which moves
+    no BN statistic)."""
+    training = model.training
+    _, occ = model.eval().canvas_from_points(batch["points"],
+                                             batch["points_mask"])
+    model.train(training)
+    return model.area_mask(occ)
+
+
+def _near_threshold_anchors(anchors, gt, gt_mask, eps):
+    """(B, A) anchors whose nearest-BEV IoU (f64) with a real box lies
+    within ``eps`` of 0.6, 0.45 or that box's best."""
+    from minddet_tpu_torch.ops.box import pairwise_iou, rbbox_to_near_bbox
+
+    bev = [0, 1, 3, 4, 6]
+    iou = pairwise_iou(rbbox_to_near_bbox(anchors[:, bev].double()),
+                       rbbox_to_near_bbox(gt[..., bev].double()))
+    iou = torch.where(gt_mask[:, None], iou, -1.0)
+    best = iou.amax(1, keepdim=True)
+    near = (((iou - 0.6).abs() < eps) | ((iou - 0.45).abs() < eps)
+            | (((iou - best).abs() < eps) & (iou > 0)))
+    return near.any(-1)
+
+
+def check_pointpillars_train_f32(dev):
+    """Phase 5g: one f32 PointPillars train step (``PointPillars.
+    loss_from_gt``, AdamW 2e-4) at full width, batch PP_CHECK_BATCH, on the
+    card against the same step on the CPU (TF32 off) and in f64 compute on
+    the CPU (the referee), from the same weights and batch
+    (``synthetic_lidar_batch(box_dim=7)``, seed 5): the anchor mask card vs
+    CPU exactly; the targets on the CPU's inputs (``PP_TRAIN_TOL``); the
+    loss, its parts and grad_norm against both; every parameter's gradient
+    and each part's (reader, RPN, heads) against the referee, at most
+    ``referee_k`` times the f32 CPU's distance plus a floor; the BN
+    statistics after the step against both. The card launches no
+    hand-written kernel."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_pointpillars_train_f32(dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_pointpillars_train_f32(dev):
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.optim import adamw
+    from minddet_tpu_torch.entry import (CLOUD_POINTS, PP_TRAIN_LR,
+                                         PP_TRAIN_MAX_GT, pointpillars_loss,
+                                         synthetic_lidar_batch)
+    from minddet_tpu_torch.ops.anchors import assign_targets_batch
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    t = PP_TRAIN_TOL
+    gen = _seeded("5g")
+    cpu = _pp_check_model(torch.float32)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "running_var"):
+                m.weight.uniform_(0.6, 1.4, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.6, 1.4, generator=gen)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu = _pp_check_model(torch.float32, dev)
+    referee = _pp_check_model(torch.float64)
+    for m in (gpu, referee):
+        m.load_state_dict(start)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_lidar_batch(
+        PP_CHECK_BATCH, cpu.pc_range, CLOUD_POINTS, PP_TRAIN_MAX_GT,
+        num_classes=1, seed=5, num_features=4, box_dim=7).items()}
+    result, bad = {"tolerance": t}, []
+
+    # the targets on the CPU's inputs
+    amask = _pp_anchor_mask(cpu, batch)
+    if not torch.equal(
+            _pp_anchor_mask(gpu, {k: v.to(dev) for k, v in batch.items()})
+            .cpu(), amask):
+        bad.append("anchor mask")
+    args = (cpu.anchors, batch["gt_boxes"], batch["gt_classes"],
+            batch["gt_mask"], cpu.matched_threshold,
+            cpu.unmatched_threshold, amask)
+    tc = assign_targets_batch(*args)
+    tg = {k: v.cpu() for k, v in assign_targets_batch(
+        *(a.to(dev) for a in args)).items()}
+    near = _near_threshold_anchors(cpu.anchors, batch["gt_boxes"],
+                                   batch["gt_mask"], t["near_threshold"])
+    differ = tg["labels"] != tc["labels"]
+    result.update(anchor_mask_share=float(amask.float().mean()),
+                  positives=int((tc["labels"] > 0).sum()),
+                  ignored=int((tc["labels"] == -1).sum()),
+                  labels_differ=int(differ.sum()),
+                  anchors_near_threshold=int(near.sum()))
+    if bool((differ & ~near).any()):
+        bad.append("target labels on the same inputs")
+    fg = (tg["labels"] > 0) & (tc["labels"] > 0)
+    result["target_max_abs_err"] = float(
+        (tg["bbox_targets"] - tc["bbox_targets"])[fg].abs().max())
+    if result["target_max_abs_err"] > t["target_atol"]:
+        bad.append("box targets on the same inputs")
+    if not bool((tc["labels"] > 0).sum(1).min() > 0):
+        bad.append("a cloud without positives")
+
+    snaps = {}
+    for name, model in (("card", gpu), ("cpu", cpu), ("referee", referee)):
+        d = next(model.parameters()).device
+        state = TrainState.create(model, adamw(PP_TRAIN_LR))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(pointpillars_loss)(
+            state, {k: v.to(d) for k, v in batch.items()})
+        snaps[name] = _train_snapshot(state, metrics)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        print(f"  {name} step {time.perf_counter() - t0:.1f} s, loss "
+              f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
+        if name == "card" and any(launches.values()):
+            bad.append(f"the train step launched {launches}")
+        del state
+    _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"], t,
+                    PP_PARTS, "", result, bad)
+    print("  f32 PointPillars train step card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items() if k != "tolerance"), flush=True)
+    if bad:
+        raise AssertionError(f"f32 PointPillars train step, card vs CPU: "
                              f"{bad} outside {t}: {result}")
     return result
 
@@ -3769,26 +4050,17 @@ def check_rcnn_train_f32(dev, with_mask: bool, gen):
          torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
-def _hold_rcnn_train_step(gpu, cpu, referee, batch, draws, with_mask,
-                          prefix, result, bad):
-    """One SGD step of phase 5e / 5f: the card on its own proposals, the
-    CPU and the referee on the card's, all three from the weights they
-    hold; the readings go into ``result`` under ``prefix``, the checks
-    that fail into ``bad`` (``RCNN_TRAIN_TOL``). Returns the box head's
-    input on the CPU."""
-    t = RCNN_TRAIN_TOL
-    g, pg, _, launches, seconds = _one_rcnn_step(gpu, batch, draws)
-    print(f"  card step {seconds:.1f} s, loss {g['metrics']['loss']:.6f}",
-          flush=True)
-    if launches != rcnn_train_launches(with_mask):
-        bad.append(f"{prefix}the train step launched {launches}")
-    result[f"{prefix}launches"] = launches
-    c, _, feats, _, seconds = _one_rcnn_step(cpu, batch, draws, forced=pg)
-    print(f"  CPU step on the card's proposals {seconds:.1f} s, loss "
-          f"{c['metrics']['loss']:.6f}", flush=True)
-    r, _, _, _, seconds = _one_rcnn_step(referee, batch, draws, forced=pg)
-    print(f"  CPU f64 step on the card's proposals {seconds:.1f} s, loss "
-          f"{r['metrics']['loss']:.6f}", flush=True)
+def _referee_checks(g, c, r, t, parts, prefix, result, bad):
+    """Hold one f32 train step's snapshot ``g`` (the card) to the f64
+    referee's ``r``, with the f32 CPU's ``c`` as the measure of f32
+    rounding (phases 5e, 5f, 5g; bounds ``t``): the loss and each part
+    within ``referee_loss_rtol`` of the referee and ``loss_rtol`` of the
+    CPU; grad_norm within ``grad_norm_rtol`` of the CPU; grad_norm, each
+    part's gradient (the parameters named with a prefix in ``parts``, taken
+    as one vector) and every parameter's at most ``referee_k`` times as far
+    from the referee as the CPU's, plus a floor; the BN statistics within
+    ``stat_atol + stat_rtol * |x|`` of both. Readings go into ``result``
+    under ``prefix``, failed checks into ``bad``."""
 
     def beyond(card, host, floor):
         """The card farther from the referee than the f32 CPU allows."""
@@ -3813,10 +4085,10 @@ def _hold_rcnn_train_step(gpu, cpu, referee, batch, draws, with_mask,
             bad.append(f"{prefix}{k} against the referee")
         if host > t["loss_rtol"]:
             bad.append(prefix + k)
-    for part in RCNN_PARTS:
+    for part in parts:
         if not any(n.startswith(part) for n in r["grads"]):
             continue
-        key = prefix + "grad_" + part.rstrip(".")
+        key = prefix + "grad_" + part.rstrip("._")
         card = result[f"{key}_card_vs_referee"] = _part_rel_l2(
             g["grads"], r["grads"], part)
         cpu_d = result[f"{key}_cpu_vs_referee"] = _part_rel_l2(
@@ -3847,6 +4119,29 @@ def _hold_rcnn_train_step(gpu, cpu, referee, batch, draws, with_mask,
     result[f"{prefix}param_max_abs_err_card_vs_referee"] = max(
         float((g["params"][n] - v).abs().max())
         for n, v in r["params"].items())
+
+
+def _hold_rcnn_train_step(gpu, cpu, referee, batch, draws, with_mask,
+                          prefix, result, bad):
+    """One SGD step of phase 5e / 5f: the card on its own proposals, the
+    CPU and the referee on the card's, all three from the weights they
+    hold; the readings go into ``result`` under ``prefix``, the checks
+    that fail into ``bad`` (``RCNN_TRAIN_TOL``). Returns the box head's
+    input on the CPU."""
+    t = RCNN_TRAIN_TOL
+    g, pg, _, launches, seconds = _one_rcnn_step(gpu, batch, draws)
+    print(f"  card step {seconds:.1f} s, loss {g['metrics']['loss']:.6f}",
+          flush=True)
+    if launches != rcnn_train_launches(with_mask):
+        bad.append(f"{prefix}the train step launched {launches}")
+    result[f"{prefix}launches"] = launches
+    c, _, feats, _, seconds = _one_rcnn_step(cpu, batch, draws, forced=pg)
+    print(f"  CPU step on the card's proposals {seconds:.1f} s, loss "
+          f"{c['metrics']['loss']:.6f}", flush=True)
+    r, _, _, _, seconds = _one_rcnn_step(referee, batch, draws, forced=pg)
+    print(f"  CPU f64 step on the card's proposals {seconds:.1f} s, loss "
+          f"{r['metrics']['loss']:.6f}", flush=True)
+    _referee_checks(g, c, r, t, RCNN_PARTS, prefix, result, bad)
     return feats
 
 
@@ -4099,23 +4394,23 @@ def train_main_path(dev, dcn4: bool = False):
     return out, (step_fn, state, batch)
 
 
-def centerpoint_train_main_path(dev):
-    """Phase 6e, the CenterPoint training main path:
-    ``centerpoint_train_entry`` at TRAIN_CP_BATCH, TRAIN_WARMUP +
-    TRAIN_STEPS steps on one batch, launch counts from 0."""
+def lidar_train_main_path(dev, label, entry_fn, batch, launched):
+    """A lidar model's training main path (6e, 6l, 6m): ``entry_fn`` at
+    ``batch``, TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch counts
+    from 0: each kernel named in ``launched`` once per step, no other. The
+    loss must stay finite and fall. Reports ms per step (host clock around
+    a synced step), clouds/s and the peak memory."""
     from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import centerpoint_train_entry
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    step_fn, (state, batch) = centerpoint_train_entry(device=dev,
-                                                      batch=TRAIN_CP_BATCH)
+    step_fn, (state, data) = entry_fn(device=dev, batch=batch)
     kernels.reset_launches()
     history, times = [], []
     for i in range(TRAIN_WARMUP + TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, data)
         history.append({k: float(v) for k, v in metrics.items()})
         torch.cuda.synchronize()
         if i >= TRAIN_WARMUP:
@@ -4125,33 +4420,128 @@ def centerpoint_train_main_path(dev):
     peak = torch.cuda.max_memory_allocated(dev)
     mean_s = statistics.mean(times)
     losses = [m["loss"] for m in history]
-    out = dict(batch=TRAIN_CP_BATCH, steps=steps, timed_steps=len(times),
+    out = dict(batch=batch, steps=steps, timed_steps=len(times),
                ms_per_step=mean_s * 1e3,
                ms_p50=statistics.median(times) * 1e3,
-               clouds_per_s=TRAIN_CP_BATCH / mean_s,
-               max_memory_allocated=peak, losses=losses,
-               first_step=history[0], last_step=history[-1],
+               clouds_per_s=batch / mean_s, max_memory_allocated=peak,
+               losses=losses, first_step=history[0], last_step=history[-1],
                launches=launches)
-    print(f"  CenterPoint train bf16 batch {TRAIN_CP_BATCH}: "
-          f"{mean_s * 1e3:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
-          f"{out['clouds_per_s']:.1f} clouds/s, peak {peak / 2 ** 30:.2f} "
-          f"GiB allocated", flush=True)
+    print(f"  {label} train bf16 batch {batch}: {mean_s * 1e3:.3f} ms/step "
+          f"(p50 {out['ms_p50']:.3f}), {out['clouds_per_s']:.1f} clouds/s, "
+          f"peak {peak / 2 ** 30:.2f} GiB allocated", flush=True)
     print("  losses: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
     print("  last step: " + " ".join(f"{k}={v:.4f}"
                                      for k, v in history[-1].items()),
           flush=True)
     finite = all(math.isfinite(v) for m in history for v in m.values())
     if not finite or not losses[-1] < losses[0]:
-        raise AssertionError(f"CenterPoint train loss not finite and "
-                             f"falling: {history}")
-    if launches != _centerpoint_launches(steps, CP_TRAIN_KERNELS):
+        raise AssertionError(f"{label} train loss not finite and falling: "
+                             f"{history}")
+    if launches != _centerpoint_launches(steps, launched):
         raise AssertionError(
-            f"{launches} in {steps} CenterPoint train steps (want one each "
-            f"of {CP_TRAIN_KERNELS} per step, no bilinear_gather_bwd_dcw, "
-            f"no sampler)")
+            f"{launches} in {steps} {label} train steps (want one each of "
+            f"{launched} per step and nothing else)")
     print(f"  kernels: {launches} for {steps} steps: one each of "
-          f"{len(CP_TRAIN_KERNELS)} kernels per step: True", flush=True)
-    return out, (step_fn, state, batch)
+          f"{len(launched)} kernels per step: True", flush=True)
+    return out, (step_fn, state, data)
+
+
+def centerpoint_train_main_path(dev):
+    """Phase 6e, the two-stage CenterPoint training main path:
+    ``centerpoint_train_entry`` at TRAIN_CP_BATCH: K5f, K5b, K3f, K3dx and
+    K4 once per step."""
+    from minddet_tpu_torch.entry import centerpoint_train_entry
+
+    return lidar_train_main_path(dev, "CenterPoint", centerpoint_train_entry,
+                                 TRAIN_CP_BATCH, CP_TRAIN_KERNELS)
+
+
+TRAIN_PP_BATCH = 32  # bench.py:bench_pointpillars_train: PP_BS default
+
+
+def pointpillars_train_main_path(dev):
+    """Phase 6l, the PointPillars training main path:
+    ``pointpillars_train_entry`` at TRAIN_PP_BATCH; no hand-written kernel
+    launches (a one-layer PFN, axis-aligned IoUs in the assignment)."""
+    from minddet_tpu_torch.entry import pointpillars_train_entry
+
+    return lidar_train_main_path(dev, "PointPillars",
+                                 pointpillars_train_entry, TRAIN_PP_BATCH, ())
+
+
+def centerpoint_single_train_main_path(dev):
+    """Phase 6m, the single-stage CenterPoint training main path:
+    ``centerpoint_single_train_entry`` at TRAIN_CP_BATCH: K5f and K5b once
+    per step, nothing else."""
+    from minddet_tpu_torch.entry import centerpoint_single_train_entry
+
+    return lidar_train_main_path(dev, "single-stage CenterPoint",
+                                 centerpoint_single_train_entry,
+                                 TRAIN_CP_BATCH,
+                                 ("seg_full_max", "seg_full_max_bwd"))
+
+
+DECODE_CALLS = 3  # timed calls of the 20-iteration decode program
+
+
+def decode_main_path(dev):
+    """Phase 6n, the decode + rotated-NMS program (``decode_nms_entry``:
+    ``bench.py:bench_decode_nms_p50``'s 128 x 128 maps, top 1000, 83 kept,
+    20 chained iterations): one warm-up and DECODE_CALLS timed calls with
+    launch counts from 0 (K4 once per iteration, nothing else), the host
+    clock per iteration and the NMS's passes of every iteration; then one
+    call under ``torch.profiler`` for the device's busy time per iteration.
+    The NMS syncs the host once per pass, so the host clock is the
+    program's latency and the busy time what the card spends."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import DECODE_ITERATIONS, decode_nms_entry
+
+    program, maps = decode_nms_entry(device=dev)
+    kernels.reset_launches()
+    times, passes, sums = [], [], []
+    for i in range(1 + DECODE_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, p = program(*maps)
+        sums.append(float(acc))
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        passes.append(p)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    calls = 1 + DECODE_CALLS
+    want = {k.name: calls * DECODE_ITERATIONS * int(k is kernels.ROTATED_IOU)
+            for k in kernels.KERNELS}
+    if launches != want:
+        raise AssertionError(f"the decode program launched {launches} in "
+                             f"{calls} calls of {DECODE_ITERATIONS} "
+                             f"iterations (want one rotated_iou_intersect "
+                             f"per iteration, nothing else)")
+    if not (all(math.isfinite(v) for v in sums) and len(set(sums)) == 1
+            and sums[0] > 0):
+        raise AssertionError(f"the decode program's summed scores: {sums}")
+    profiled = _profile(lambda: program(*maps), 1)
+    per_iter = statistics.mean(times) * 1e3 / DECODE_ITERATIONS
+    out = dict(iterations=DECODE_ITERATIONS, calls=calls,
+               host_ms_per_iteration=per_iter,
+               host_ms_per_iteration_calls=[
+                   x * 1e3 / DECODE_ITERATIONS for x in times],
+               device_busy_ms_per_iteration=profiled[
+                   "device_busy_ms_per_call"] / DECODE_ITERATIONS,
+               idle_share=profiled["idle_share"],
+               kernel_launches_per_iteration=profiled[
+                   "kernel_launches_per_call"] / DECODE_ITERATIONS,
+               nms_passes=passes[-1], summed_score=sums[0],
+               launches=launches, profile=profiled)
+    print(f"  decode + rotated NMS: {per_iter:.3f} ms per iteration on the "
+          f"host clock, device busy {out['device_busy_ms_per_iteration']:.3f}"
+          f" ms per iteration (idle {out['idle_share']:.3f}, "
+          f"{out['kernel_launches_per_iteration']:.0f} kernels), NMS passes "
+          f"{passes[-1]}, summed score {sums[0]:.4f}", flush=True)
+    print(f"  kernels: rotated_iou_intersect launches="
+          f"{launches['rotated_iou_intersect']} iterations="
+          f"{calls * DECODE_ITERATIONS}: True", flush=True)
+    return out
 
 
 def serve(programs):
@@ -4675,6 +5065,10 @@ def main(argv=None) -> int:
     print("phase 5f: end to end, f32 Mask R-CNN train step, card vs CPU and "
           "the f64 referee", flush=True)
     mask_rcnn_train_f32 = check_rcnn_train_f32(dev, True, _seeded("5f"))
+    torch.cuda.empty_cache()
+    print("phase 5g: end to end, f32 PointPillars train step, card vs CPU "
+          "and the f64 referee", flush=True)
+    pp_train_f32 = check_pointpillars_train_f32(dev)
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -4840,6 +5234,30 @@ def main(argv=None) -> int:
             profiled[key] = r["profile"]
     torch.cuda.empty_cache()
 
+    print(f"phase 6l: main path, PointPillars bf16 train step at batch "
+          f"{TRAIN_PP_BATCH}", flush=True)
+    pp_training, program = pointpillars_train_main_path(dev)
+    if args.profile:
+        print("profile: PointPillars bf16 train step", flush=True)
+        profiled["pointpillars_train"] = profile_train(
+            f"PointPillars train batch {TRAIN_PP_BATCH}", *program)
+    del program
+    torch.cuda.empty_cache()
+    print(f"phase 6m: main path, single-stage CenterPoint bf16 train step at "
+          f"batch {TRAIN_CP_BATCH}", flush=True)
+    cp1_training, program = centerpoint_single_train_main_path(dev)
+    if args.profile:
+        print("profile: single-stage CenterPoint bf16 train step", flush=True)
+        profiled["centerpoint_single_train"] = profile_train(
+            f"single-stage CenterPoint train batch {TRAIN_CP_BATCH}",
+            *program)
+    del program
+    torch.cuda.empty_cache()
+    print("phase 6n: main path, decode + rotated NMS, 20 chained iterations",
+          flush=True)
+    decode = decode_main_path(dev)
+    torch.cuda.empty_cache()
+
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
     # train batch; K1b one bf16 train step's nine calls at the train batch
@@ -4889,25 +5307,31 @@ def main(argv=None) -> int:
                     + train_dcn4_launches["hat_sample_taps_bwd"], bwd_main,
                     DCN_CALLS_PER_SHAPE, bwd_cases),
         # K4: one batch-8 PointPillars request's call, one batch-4
-        # CenterPoint request's and one CenterPoint train step's
+        # CenterPoint request's, one CenterPoint train step's and one
+        # iteration of the decode program's
         _kernel_row(kernels.ROTATED_IOU,
                     pp_launches["rotated_iou_intersect"]
                     + cp_launches["rotated_iou_intersect"]
-                    + cp_train_launches["rotated_iou_intersect"],
+                    + cp_train_launches["rotated_iou_intersect"]
+                    + decode["launches"]["rotated_iou_intersect"],
                     [c for c in iou_cases if c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
                         [CP_TASKS * CP_BATCHES[-1], CP_CANDIDATES],
-                        [TRAIN_CP_BATCH, CP_PROPOSALS])], 1, iou_cases),
-        # K5f and K3f: one f32 batch-4 CenterPoint request's call and one
-        # bf16 batch-8 train step's
+                        [TRAIN_CP_BATCH, CP_PROPOSALS])
+                     or c["kind"] == "decode_nms"], 1, iou_cases),
+        # K5f: one f32 batch-4 CenterPoint request's call and one bf16
+        # batch-8 step's of each CenterPoint train path (two- and
+        # single-stage); K5b those two steps' calls
         _kernel_row(kernels.SEG_FULL_MAX, cp_launches["seg_full_max"]
-                    + cp_train_launches["seg_full_max"],
+                    + cp_train_launches["seg_full_max"]
+                    + cp1_training["launches"]["seg_full_max"],
                     [c for c in seg_cases if c["dtype"] == "float32"
                      and c["shape"][0] == CP_BATCHES[-1]]
-                    + train_case(seg_cases), 1, seg_cases),
+                    + 2 * train_case(seg_cases), 1, seg_cases),
         _kernel_row(kernels.SEG_FULL_MAX_BWD,
-                    cp_train_launches["seg_full_max_bwd"],
-                    train_case(seg_bwd_cases), 1, seg_bwd_cases),
+                    cp_train_launches["seg_full_max_bwd"]
+                    + cp1_training["launches"]["seg_full_max_bwd"],
+                    2 * train_case(seg_bwd_cases), 1, seg_bwd_cases),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
@@ -4995,6 +5419,10 @@ def main(argv=None) -> int:
                            mask_rcnn_train_f32=mask_rcnn_train_f32,
                            faster_rcnn_training=rcnn_training,
                            mask_rcnn_training=mask_rcnn_training,
+                           pointpillars_train_f32=pp_train_f32,
+                           pointpillars_training=pp_training,
+                           centerpoint_single_training=cp1_training,
+                           decode_nms=decode,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -15,7 +15,15 @@ KITTI car model from raw points to (B, 300) rotated boxes, f32.
 ``centerpoint_train_entry()`` is the train step of that model as
 ``bench.py:bench_two_stage`` builds it (``CenterPointTwoStage.loss_from_gt``
 under ``make_train_step``): f32 parameters, bf16 compute, batch 8, targets
-and voxelization on the device, AdamW(1e-3) with clip-by-global-norm 35.
+and voxelization on the device, AdamW(1e-3) with clip-by-global-norm 35;
+``centerpoint_single_train_entry()`` the same step of the single-stage model
+(``bench.py:bench_centerpoint_train``). ``pointpillars_train_entry()`` is the
+PointPillars train step of ``bench.py:bench_pointpillars_train``
+(``PointPillars.loss_from_gt``): the KITTI car model, f32 parameters, bf16
+compute, batch 32, voxelization, anchor mask and target assignment on the
+device, AdamW(2e-4). ``decode_nms_entry()`` is ``bench.py:
+bench_decode_nms_p50``'s program: one task head's 128x128 maps decoded to
+the top 1000 boxes and rotated NMS to 83, 20 times on perturbed heatmaps.
 
 ``centernet_dcn4_entry()`` and ``centernet_dcn4_train_entry()`` serve and
 train CenterNet-R18 with DCN in all four backbone stages: the registered
@@ -49,7 +57,7 @@ gradient as often, and Mask R-CNN's GT-bitmap crop once more.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -57,10 +65,13 @@ import torch
 from minddet_tpu_torch.core.optim import adamw, sgd
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
-from minddet_tpu_torch.models.detectors.centerpoint import CenterPointTwoStage
+from minddet_tpu_torch.models.detectors.centerpoint import (
+    CenterPoint, CenterPointTwoStage)
 from minddet_tpu_torch.models.detectors.faster_rcnn import (BOX_ROI,
                                                              FasterRCNN)
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
+from minddet_tpu_torch.ops.decode import topk_lowest_index_first
+from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
 from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
@@ -284,39 +295,56 @@ def synthetic_lidar_batch(batch: int, pc_range,
                           num_points: int = NUSC_CLOUD_POINTS,
                           max_gt: int = NUSC_MAX_GT,
                           num_classes: int = NUSC_CLASSES, seed: int = 0,
-                          num_features: int = NUSC_POINT_FEATURES
-                          ) -> Dict[str, np.ndarray]:
+                          num_features: int = NUSC_POINT_FEATURES,
+                          box_dim: int = 9) -> Dict[str, np.ndarray]:
     """The first batch of the reference's
-    ``train/train.py:synthetic_points_batches(box_dim=9)``, draw for draw
-    from numpy ``RandomState(seed)``: the clouds of ``synthetic_clouds``,
-    then per cloud 1 to ``max_gt`` - 1 car-sized boxes [x, y, z, w, l, h,
-    vx, vy, yaw] (centres at least 5 m inside the range, velocities in
-    [-2, 2), any yaw) in ``max_gt`` slots, then 1-based classes for every
-    slot. Returns points, points_mask, gt_boxes, gt_classes, gt_mask."""
+    ``train/train.py:synthetic_points_batches``, draw for draw from numpy
+    ``RandomState(seed)``: the clouds of ``synthetic_clouds``, then per
+    cloud 1 to ``max_gt`` - 1 car-sized boxes in ``max_gt`` slots (centres
+    at least 5 m inside the range, any yaw), [x, y, z, w, l, h, yaw] for
+    ``box_dim=7`` and [x, y, z, w, l, h, vx, vy, yaw] for 9 (velocities in
+    [-2, 2), drawn between the centres and the yaw), then 1-based classes
+    for every slot. Returns points, points_mask, gt_boxes, gt_classes,
+    gt_mask."""
+    if box_dim not in (7, 9):
+        raise ValueError(f"box_dim must be 7 or 9, got {box_dim}")
     rs = np.random.RandomState(seed)
     points, points_mask = _draw_clouds(rs, batch, pc_range, num_points,
                                        num_features)
     x0, y0, z0, x1, y1, _ = pc_range
     n = rs.randint(1, max_gt, batch)
-    boxes = np.zeros((batch, max_gt, 9), np.float32)
+    boxes = np.zeros((batch, max_gt, box_dim), np.float32)
     mask = np.zeros((batch, max_gt), bool)
     for i in range(batch):
-        centres = rs.uniform([x0 + 5, y0 + 5], [x1 - 5, y1 - 5], (n[i], 2))
-        velocity = rs.uniform(-2, 2, (n[i], 2))
-        yaw = rs.uniform(-np.pi, np.pi, (n[i], 1))
-        boxes[i, :n[i]] = np.concatenate(
-            [centres, np.full((n[i], 1), z0 + 1.2),
-             np.tile([1.6, 3.9, 1.56], (n[i], 1)), velocity, yaw], -1)
+        cols = [rs.uniform([x0 + 5, y0 + 5], [x1 - 5, y1 - 5], (n[i], 2)),
+                np.full((n[i], 1), z0 + 1.2),
+                np.tile([1.6, 3.9, 1.56], (n[i], 1))]
+        if box_dim == 9:
+            cols.append(rs.uniform(-2, 2, (n[i], 2)))
+        cols.append(rs.uniform(-np.pi, np.pi, (n[i], 1)))
+        boxes[i, :n[i]] = np.concatenate(cols, -1)
         mask[i, :n[i]] = True
     classes = rs.randint(1, num_classes + 1, (batch, max_gt))
     return {"points": points, "points_mask": points_mask, "gt_boxes": boxes,
             "gt_classes": classes.astype(np.int32), "gt_mask": mask}
 
 
-def centerpoint_loss(model: CenterPointTwoStage, batch: Dict):
-    """The CenterPoint train step's loss function:
-    ``CenterPointTwoStage.loss_from_gt`` on a lidar batch."""
+def centerpoint_loss(model: CenterPoint, batch: Dict):
+    """The CenterPoint train steps' loss function: ``loss_from_gt`` of the
+    one- or the two-stage model on a lidar batch."""
     return model.loss_from_gt(batch)
+
+
+def _centerpoint_train_program(cls, device, batch: int
+                               ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    dev = resolve_device(device)
+    model = cls(dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(SEED))
+    model = model.to(device=dev, memory_format=torch.channels_last).train()
+    state = TrainState.create(model, adamw(1e-3, clip_global_norm=35.0))
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in synthetic_lidar_batch(batch, model.pc_range).items()}
+    return make_train_step(centerpoint_loss), (state, data)
 
 
 def centerpoint_train_entry(device=None, batch: int = 8
@@ -331,14 +359,156 @@ def centerpoint_train_entry(device=None, batch: int = 8
     proposals, foreground IoU 0.55. The batch is
     ``synthetic_lidar_batch(batch)``: 120,000 points of 5 features and up
     to 63 boxes per cloud; voxelization and targets run inside the step."""
+    return _centerpoint_train_program(CenterPointTwoStage, device, batch)
+
+
+def centerpoint_single_train_entry(device=None, batch: int = 8
+                                   ) -> Tuple[Callable,
+                                              Tuple[TrainState, Dict]]:
+    """``centerpoint_train_entry()`` for the single-stage model of
+    ``configs/centerpoint_pp_nusc.yaml`` (``bench.py:
+    bench_centerpoint_train``): ``CenterPoint.loss_from_gt`` under the same
+    optimizer (AdamW 1e-3, clip-by-global-norm 35), f32 parameters, bf16
+    compute, the same batch; metrics loss, task{t}_hm, task{t}_loc,
+    grad_norm. Per step its two-layer PFN launches the segment max and its
+    backward once each, and nothing else."""
+    return _centerpoint_train_program(CenterPoint, device, batch)
+
+
+PP_TRAIN_LR = 2e-4    # bench.py:bench_pointpillars_train: adamw(2e-4)
+PP_TRAIN_MAX_GT = 24  # box slots per cloud (bench.py: max_gt=24)
+
+
+def pointpillars_loss(model: PointPillars, batch: Dict):
+    """The PointPillars train step's loss function:
+    ``PointPillars.loss_from_gt`` on a lidar batch."""
+    return model.loss_from_gt(batch)
+
+
+def pointpillars_train_entry(device=None, batch: int = 32
+                             ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one
+    PointPillars train step in place and returns ``(state, metrics)``
+    (loss, loc_loss, cls_loss, dir_loss, grad_norm, on the device).
+
+    The program of ``bench.py:bench_pointpillars_train``: the KITTI car
+    model of ``build_pointpillars`` seeded with ``SEED``, f32 parameters,
+    bf16 compute, channels_last, train mode; AdamW(2e-4) with the
+    reference's weight decay 0.01 and no clip. The batch is
+    ``synthetic_lidar_batch(batch, box_dim=7)``: 18,000 points of 4
+    features and 1 to 23 cars per cloud in 24 slots, one class.
+    Voxelization, the anchor mask and the assignment over the 107,136
+    anchors run inside the step; it launches no hand-written kernel (a
+    one-layer PFN takes the running max, the assignment axis-aligned
+    IoUs)."""
     dev = resolve_device(device)
-    model = CenterPointTwoStage(dtype=torch.bfloat16).init_weights(
+    model = PointPillars(dtype=torch.bfloat16).init_weights(
         torch.Generator().manual_seed(SEED))
     model = model.to(device=dev, memory_format=torch.channels_last).train()
-    state = TrainState.create(model, adamw(1e-3, clip_global_norm=35.0))
-    data = {k: torch.from_numpy(v).to(dev)
-            for k, v in synthetic_lidar_batch(batch, model.pc_range).items()}
-    return make_train_step(centerpoint_loss), (state, data)
+    state = TrainState.create(model, adamw(PP_TRAIN_LR))
+    data = synthetic_lidar_batch(batch, model.pc_range, CLOUD_POINTS,
+                                 PP_TRAIN_MAX_GT, num_classes=1,
+                                 num_features=4, box_dim=7)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    return make_train_step(pointpillars_loss), (state, data)
+
+
+# bench.py:bench_decode_nms_p50: one CenterPoint task head's decode and
+# rotated NMS on a 128 x 128 map, chained over 20 perturbed heatmaps
+DECODE_HW = 128
+DECODE_NMS_PRE = 1000
+DECODE_NMS_POST = 83
+DECODE_ITERATIONS = 20
+DECODE_NMS_IOU = 0.2
+DECODE_SCORE_THRESHOLD = 0.1
+DECODE_VOXEL = 0.8     # metres per map cell (and the size scale)
+DECODE_ORIGIN = -51.2  # the range's lower corner
+
+
+def decode_candidates_bev(hm: torch.Tensor, reg: torch.Tensor,
+                          dim: torch.Tensor, rot: torch.Tensor,
+                          nms_pre: int = DECODE_NMS_PRE
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One task head's maps hm (H, W), reg (H, W, 2), dim (H, W, 3), rot
+    (H, W, 2) -> the top ``nms_pre`` sigmoid scores (the lower cell first
+    among equal ones) and their BEV boxes [x, y, w, l, yaw] (nms_pre, 5):
+    centre (cell + reg) * 0.8 - 51.2, sizes exp(dim) * 0.8, yaw
+    atan2(rot)."""
+    w = hm.shape[1]
+    scores, idx = topk_lowest_index_first(torch.sigmoid(hm).reshape(-1),
+                                          nms_pre)
+    ys = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
+    xs = (idx % w).to(torch.float32)
+    r2 = reg.reshape(-1, 2)[idx]
+    d2 = torch.exp(dim.reshape(-1, 3)[idx]) * DECODE_VOXEL
+    rr = rot.reshape(-1, 2)[idx]
+    yaw = torch.atan2(rr[:, 0], rr[:, 1])
+    cx = (xs + r2[:, 0]) * DECODE_VOXEL + DECODE_ORIGIN
+    cy = (ys + r2[:, 1]) * DECODE_VOXEL + DECODE_ORIGIN
+    return scores, torch.stack([cx, cy, d2[:, 0], d2[:, 1], yaw], -1)
+
+
+def decode_nms(hm: torch.Tensor, reg: torch.Tensor, dim: torch.Tensor,
+               rot: torch.Tensor, nms_pre: int = DECODE_NMS_PRE,
+               nms_post: int = DECODE_NMS_POST
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``decode_candidates_bev``, then rotated NMS (IoU 0.2, score 0.1,
+    ``nms_post`` kept: one K4 launch on the GPU). Returns (the scores at
+    the kept indices clipped into [0, nms_pre), -1 padding taking index 0,
+    summed as the reference sums them; the kept indices (nms_post,); the
+    NMS's passes)."""
+    scores, bev = decode_candidates_bev(hm, reg, dim, rot, nms_pre)
+    keep, _, passes = rotated_nms(bev[None], scores[None], DECODE_NMS_IOU,
+                                  DECODE_SCORE_THRESHOLD, nms_post)
+    keep = keep[0]
+    return scores[keep.clamp(0, nms_pre - 1)].sum(), keep, passes
+
+
+def chained_decode_nms(hm: torch.Tensor, reg: torch.Tensor,
+                       dim: torch.Tensor, rot: torch.Tensor,
+                       iterations: int = DECODE_ITERATIONS,
+                       nms_pre: int = DECODE_NMS_PRE,
+                       nms_post: int = DECODE_NMS_POST
+                       ) -> Tuple[torch.Tensor, List[int]]:
+    """``bench.py:bench_decode_nms_p50``'s program: ``decode_nms`` on hm +
+    0.01 i for i in range(iterations) (0.01 * i in f32, as the reference's
+    loop computes it), the summed scores accumulated. Returns (the sum, a
+    0-d f32 tensor on the maps' device; the NMS passes of each
+    iteration)."""
+    acc = torch.zeros((), dtype=torch.float32, device=hm.device)
+    step = torch.tensor(0.01, dtype=torch.float32, device=hm.device)
+    passes = []
+    for i in range(iterations):
+        total, _, p = decode_nms(hm + step * i, reg, dim, rot, nms_pre,
+                                 nms_post)
+        acc = acc + total
+        passes.append(p)
+    return acc, passes
+
+
+def decode_nms_maps(hw: int = DECODE_HW, seed: int = 0
+                    ) -> Tuple[np.ndarray, ...]:
+    """The decode program's maps, in ``bench.py``'s draw order from numpy
+    ``RandomState(seed)``: hm (hw, hw) N(0, 1), reg (hw, hw, 2) U[0, 1),
+    dim (hw, hw, 3) U[0, 1), rot (hw, hw, 2) N(0, 1), all f32."""
+    rs = np.random.RandomState(seed)
+    hm = rs.randn(hw, hw).astype(np.float32)
+    reg = rs.rand(hw, hw, 2).astype(np.float32)
+    dim = rs.rand(hw, hw, 3).astype(np.float32)
+    rot = rs.randn(hw, hw, 2).astype(np.float32)
+    return hm, reg, dim, rot
+
+
+def decode_nms_entry(device=None
+                     ) -> Tuple[Callable[..., Tuple[torch.Tensor, List[int]]],
+                                Tuple[torch.Tensor, ...]]:
+    """(program, (hm, reg, dim, rot)): ``program(*maps)`` is
+    ``chained_decode_nms`` (20 iterations, top 1000, 83 kept) on the
+    maps of ``decode_nms_maps()`` on the device; per iteration K4 launches
+    once at (1, 1000, 5)^2, and the NMS syncs the host once per pass."""
+    dev = resolve_device(device)
+    maps = tuple(torch.from_numpy(m).to(dev) for m in decode_nms_maps())
+    return chained_decode_nms, maps
 
 
 # the R-CNN's seeded heads, scaled on the request they serve (see

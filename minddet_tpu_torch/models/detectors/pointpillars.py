@@ -1,12 +1,19 @@
-"""PointPillars serving from raw points (counterpart of the predict path of
+"""PointPillars from raw points, serving and training (counterpart of
 ``minddet_tpu/models/detectors/pointpillars.py``: ``predict_from_points``
-with the stream voxelizer, ``_canvas_from_points``, the heads of
-``_preds_from_canvas`` and ``_predict_from_preds``).
+with the stream voxelizer, ``_canvas_from_points``, ``_preds_from_canvas``,
+``_predict_from_preds``, and the stream branch of ``loss_from_gt`` with
+``_loss_from_preds`` and its helpers).
 
     points (B, N, 4) + mask -> stream voxelize -> stream PFN -> one canvas
     scatter (+ occupancy) -> SECOND RPN -> 1x1 cls/box/dir heads -> sigmoid,
     anchor-area mask, top-``nms_pre`` -> SECOND decode + direction flip ->
     rotated NMS (one K4 launch for the batch) -> (B, nms_post) boxes
+
+    training (``loss_from_gt``): the same network on the batch's points,
+    the anchor-area mask from the occupancy, the anchor assignment of the
+    ground truth (nearest-BEV IoU, ``ops/anchors.py:assign_targets_batch``)
+    -> sigmoid focal loss + sin-difference smooth L1 + the direction
+    classifier's softmax cross entropy
 
 The canvas is one (B, 64, ny, nx) map in ``channels_last`` memory, built by
 one ``index_copy_`` of each pillar's last kept stream row (where the
@@ -15,23 +22,33 @@ same indices (``ops/voxelize.py:scatter_stream_canvas``). The reference's
 TPU layouts (space-to-depth scatter, the 65th occupancy channel, the compact
 scatter) compute the same canvas.
 
-Eval only; the configuration's fields are the reference's, with its
+BN follows the module's mode (``train()`` / ``eval()``), where flax takes
+``train=``. ``dtype`` is the reference's compute dtype over f32 parameters:
+the decorated stream is cast to it and every layer computes in it; the
+voxelizer, the anchor mask and the assignment carry no gradient, and the
+losses are f32. The configuration's fields are the reference's, with its
 defaults (the KITTI car model of ``configs/pointpillars_car_kitti.yaml``).
+Not ported: the padded-voxel ``__call__`` / ``predict`` / ``loss`` and the
+dense branch of ``loss_from_gt`` (irregular anchor layouts).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from minddet_tpu_torch.models.layers import Conv2d, init_flax_defaults_
+from minddet_tpu_torch.models.losses import (sigmoid_focal_loss,
+                                             weighted_smooth_l1,
+                                             weighted_softmax_ce)
 from minddet_tpu_torch.models.necks.second_rpn import SECONDRPN
 from minddet_tpu_torch.models.readers.pillar_encoder import PillarFeatureNet
 from minddet_tpu_torch.ops.anchors import (ClassAnchorConfig,
+                                           assign_targets_batch,
                                            generate_anchors,
                                            make_grid_area_mask)
 from minddet_tpu_torch.ops.box import limit_period, second_box_decode
@@ -41,6 +58,41 @@ from minddet_tpu_torch.ops.voxelize import (scatter_stream_canvas,
                                             voxelize_stream_batch)
 
 Preds = Dict[str, torch.Tensor]
+Loss = Tuple[torch.Tensor, Dict[str, torch.Tensor]]
+ANCHOR_KEYS = ("anchors", "matched_threshold", "unmatched_threshold")
+
+
+def add_sin_difference(preds: torch.Tensor, targets: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SECOND's sin(a - b) on the yaw code: the last channel of ``preds``
+    becomes sin(p) cos(t) and that of ``targets`` cos(p) sin(t), so that
+    their difference is sin(p - t)."""
+    rad_p = torch.sin(preds[..., -1:]) * torch.cos(targets[..., -1:])
+    rad_t = torch.cos(preds[..., -1:]) * torch.sin(targets[..., -1:])
+    return (torch.cat([preds[..., :-1], rad_p], dim=-1),
+            torch.cat([targets[..., :-1], rad_t], dim=-1))
+
+
+def get_direction_target(anchors: torch.Tensor, reg_targets: torch.Tensor
+                         ) -> torch.Tensor:
+    """One-hot (..., 2) f32 direction bins: bin 1 where the matched box's
+    yaw (the residual plus the anchor's) is above 0."""
+    rot_gt = reg_targets[..., -1] + anchors[..., -1]
+    up = (rot_gt > 0).to(torch.float32)
+    return torch.stack([1.0 - up, up], dim=-1)
+
+
+def prepare_loss_weights(labels: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Labels (B, A) -> (cls weights, reg weights, cared): negatives and
+    positives weigh 1 for the class loss, positives for the box loss, both
+    over the sample's positive count (at least 1); cared is labels >= 0."""
+    cared = labels >= 0
+    positives = (labels > 0).to(torch.float32)
+    negatives = (labels == 0).to(torch.float32)
+    cls_weights = negatives + positives
+    pos_norm = positives.sum(dim=1, keepdim=True).clamp(min=1.0)
+    return cls_weights / pos_norm, positives / pos_norm, cared
 
 
 class PointPillars(nn.Module):
@@ -70,8 +122,20 @@ class PointPillars(nn.Module):
         max_points_per_voxel: int = 32,
         anchor_area_threshold: float = 1.0,
         voxel_drop_order: str = "sorted",
+        cls_weight: float = 1.0,
+        loc_weight: float = 2.0,
+        dir_weight: float = 0.2,
+        focal_gamma: float = 2.0,
+        focal_alpha: float = 0.25,
+        smooth_l1_sigma: float = 3.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
+        self.cls_weight, self.loc_weight = cls_weight, loc_weight
+        self.dir_weight = dir_weight
+        self.focal_gamma, self.focal_alpha = focal_gamma, focal_alpha
+        self.smooth_l1_sigma = smooth_l1_sigma
         self.num_classes = num_classes
         self.grid_ny, self.grid_nx = grid_ny, grid_nx
         self.voxel_size = tuple(voxel_size)
@@ -82,7 +146,7 @@ class PointPillars(nn.Module):
         self.max_points_per_voxel = max_points_per_voxel
         self.voxel_drop_order = voxel_drop_order
 
-        self.reader = PillarFeatureNet(9, pfn_filters)
+        self.reader = PillarFeatureNet(9, pfn_filters, dtype=dtype)
         self.rpn = SECONDRPN(pfn_filters[-1], rpn_layer_nums, rpn_strides,
                              rpn_filters, rpn_up_strides, rpn_up_filters)
         a = num_anchor_per_loc
@@ -94,16 +158,16 @@ class PointPillars(nn.Module):
 
         # anchors at the RPN's output stride, static for the configuration
         factor = rpn_strides[0] // rpn_up_strides[0]
-        feature_size = (grid_ny // factor, grid_nx // factor)
-        configs = [ClassAnchorConfig(str(i), tuple(s), tuple(st),
-                                     tuple(off), matched_threshold=mt,
-                                     unmatched_threshold=ut)
-                   for i, (s, st, off, mt, ut) in enumerate(zip(
-                       anchor_sizes, anchor_strides, anchor_offsets,
-                       matched_thresholds, unmatched_thresholds))]
-        anchors = generate_anchors(feature_size, configs)["anchors"]
-        self.register_buffer("anchors", torch.from_numpy(anchors),
-                             persistent=False)
+        self.feature_size = (grid_ny // factor, grid_nx // factor)
+        self.anchor_configs = [
+            ClassAnchorConfig(str(i), tuple(s), tuple(st), tuple(off),
+                              matched_threshold=mt, unmatched_threshold=ut)
+            for i, (s, st, off, mt, ut) in enumerate(zip(
+                anchor_sizes, anchor_strides, anchor_offsets,
+                matched_thresholds, unmatched_thresholds))]
+        feature_size, configs = self.anchor_layout()
+        for k, v in generate_anchors(feature_size, configs).items():
+            self.register_buffer(k, torch.from_numpy(v), persistent=False)
         self.area_mask = make_grid_area_mask(
             (grid_ny, grid_nx), voxel_size, pc_range, feature_size, configs,
             anchor_area_threshold)
@@ -116,19 +180,34 @@ class PointPillars(nn.Module):
                            points_mask: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Points (B, N, 4) + mask (B, N) -> (canvas (B, C, ny, nx) in
-        channels_last memory, occupancy (B, ny, nx) f32 0/1)."""
-        sv = voxelize_stream_batch(
-            points, points_mask, self.voxel_size, self.pc_range,
-            self.max_voxels, self.max_points_per_voxel,
-            self.voxel_drop_order)
+        channels_last memory and ``dtype``, occupancy (B, ny, nx) f32 0/1).
+        The voxelizer and the occupancy carry no gradient."""
+        with torch.no_grad():
+            sv = voxelize_stream_batch(
+                points, points_mask, self.voxel_size, self.pc_range,
+                self.max_voxels, self.max_points_per_voxel,
+                self.voxel_drop_order)
         h = self.reader.stream(sv.feats, sv.keep, sv.first, sv.last,
                                bound=self.max_points_per_voxel)
         return scatter_stream_canvas(h, sv, self.grid_ny, self.grid_nx,
                                      occupancy=True)
 
-    def preds_from_canvas(self, canvas: torch.Tensor) -> Preds:
-        """Canvas (B, C, ny, nx) -> flat per-anchor f32 predictions:
-        cls_preds (B, A, classes), box_preds (B, A, 7), dir_preds (B, A, 2).
+    def anchor_layout(self) -> Tuple[Tuple[int, int],
+                                     List[ClassAnchorConfig]]:
+        """(feature size, per-class anchor configs) at the RPN's output
+        stride (``layer_strides[0] // upsample_strides[0]``)."""
+        return self.feature_size, self.anchor_configs
+
+    def anchor_set(self) -> Dict[str, torch.Tensor]:
+        """The static anchor grid (A, 7) and its per-anchor matched and
+        unmatched thresholds (A,), on the model's device."""
+        return {k: getattr(self, k) for k in ANCHOR_KEYS}
+
+    def preds_from_canvas(self, canvas: torch.Tensor,
+                          cast_f32: bool = True) -> Preds:
+        """Canvas (B, C, ny, nx) -> flat per-anchor predictions: cls_preds
+        (B, A, classes), box_preds (B, A, 7), dir_preds (B, A, 2), in f32,
+        or with ``cast_f32=False`` (the train path) in the compute dtype.
         The three 1x1 heads run as one conv over their concatenated
         kernels."""
         x = self.rpn(canvas)
@@ -139,7 +218,9 @@ class PointPillars(nn.Module):
             widths.append(2)
         w = torch.cat([h.weight for h in heads]).to(x.dtype)
         bias = torch.cat([h.bias for h in heads]).to(x.dtype)
-        y = F.conv2d(x, w, bias).permute(0, 2, 3, 1).float()
+        y = F.conv2d(x, w, bias).permute(0, 2, 3, 1)
+        if cast_f32:
+            y = y.float()
         b = y.shape[0]
         names = ("cls_preds", "box_preds", "dir_preds")
         out = {}
@@ -155,6 +236,62 @@ class PointPillars(nn.Module):
         """Points -> (predictions, anchor mask (B, A) bool)."""
         canvas, occ = self.canvas_from_points(points, points_mask)
         return self.preds_from_canvas(canvas), self.area_mask(occ)
+
+    def loss_from_gt(self, batch: Dict[str, torch.Tensor]) -> Loss:
+        """The training objective from raw points and boxes: batch {points
+        (B, N, 4) padded, points_mask (B, N), gt_boxes (B, G, 7), gt_classes
+        (B, G) 1-based, gt_mask (B, G)}, optionally with ``anchor_set()``'s
+        keys (else the model's own) -> (total, {loc_loss, cls_loss,
+        dir_loss}). BN as the module's mode says (train for the reference's
+        ``train=True``)."""
+        gen = ({k: batch[k] for k in ANCHOR_KEYS} if "anchors" in batch
+               else self.anchor_set())
+        canvas, occ = self.canvas_from_points(batch["points"],
+                                              batch["points_mask"])
+        preds = self.preds_from_canvas(canvas, cast_f32=False)
+        t = assign_targets_batch(
+            gen["anchors"], batch["gt_boxes"], batch["gt_classes"],
+            batch["gt_mask"], gen["matched_threshold"],
+            gen["unmatched_threshold"], self.area_mask(occ))
+        return self.loss_from_preds(preds, gen["anchors"], t["labels"],
+                                    t["bbox_targets"])
+
+    def loss_from_preds(self, preds: Preds, anchors: torch.Tensor,
+                        labels: torch.Tensor, reg_targets: torch.Tensor
+                        ) -> Loss:
+        """Predictions (in any dtype), anchors (A, 7), labels (B, A) and
+        box targets (B, A, 7) -> (total, parts): each part summed over the
+        batch, divided by the batch size and weighted (cls 1.0, loc 2.0,
+        dir 0.2 by default); the class and box weights are normalised by
+        each sample's positive count (``prepare_loss_weights``)."""
+        b = labels.shape[0]
+        cls_weights, reg_weights, cared = prepare_loss_weights(labels)
+        cls_targets = torch.where(cared, labels, 0)
+        classes = torch.arange(1, self.num_classes + 1,
+                               device=labels.device)
+        one_hot = (cls_targets[..., None] == classes).to(torch.float32)
+
+        box_preds, reg_t = add_sin_difference(preds["box_preds"].float(),
+                                              reg_targets)
+        loc_loss = weighted_smooth_l1(box_preds, reg_t, weights=reg_weights,
+                                      sigma=self.smooth_l1_sigma)
+        loc = loc_loss.sum() / b * self.loc_weight
+        cls_loss = sigmoid_focal_loss(preds["cls_preds"].float(), one_hot,
+                                      weights=cls_weights,
+                                      gamma=self.focal_gamma,
+                                      alpha=self.focal_alpha)
+        cls = cls_loss.sum() / b * self.cls_weight
+        parts = {"loc_loss": loc, "cls_loss": cls}
+        total = loc + cls
+        if self.use_direction_classifier:
+            dir_targets = get_direction_target(anchors, reg_targets)
+            w = (labels > 0).to(torch.float32)
+            w = w / w.sum(dim=-1, keepdim=True).clamp(min=1.0)
+            dir_loss = weighted_softmax_ce(preds["dir_preds"], dir_targets,
+                                           weights=w)
+            parts["dir_loss"] = dir_loss.sum() / b * self.dir_weight
+            total = total + parts["dir_loss"]
+        return total, parts
 
     def decode_candidates(self, preds: Preds, anchors_mask: torch.Tensor,
                           nms_pre: int = 900) -> Preds:

@@ -2,11 +2,15 @@
 
 The CenterNet objective: ``sigmoid_clip`` for the heatmap head, the
 penalty-reduced focal loss and the gathered regression loss; CenterPoint's:
-the gather-based ``fast_focal_loss`` and the per-channel gathered L1. All in
-f32, with explicit masks.
+the gather-based ``fast_focal_loss`` and the per-channel gathered L1;
+PointPillars': the sigmoid focal loss, SECOND's smooth L1 and the weighted
+softmax cross entropy of the direction classifier. All with explicit masks;
+the last three return per-element losses for the caller to reduce.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -91,3 +95,62 @@ def gather_reg_loss_per_channel(output: torch.Tensor, mask: torch.Tensor,
     m = mask.float()[..., None]
     return (torch.abs(pred - target.float()) * m).sum(dim=(0, 1)) / (
         m.sum() + 1e-4)
+
+
+def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+    """Numerically stable sigmoid cross entropy, written as optax's
+    ``sigmoid_binary_cross_entropy``: relu(x) - x * z + log1p(exp(-|x|))."""
+    zeros = torch.zeros_like(logits)
+    cond = logits >= zeros
+    relu_logits = torch.where(cond, logits, zeros)
+    neg_abs = torch.where(cond, -logits, logits)
+    return relu_logits - logits * labels + torch.log1p(torch.exp(neg_abs))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       gamma: float = 2.0, alpha: float = 0.25
+                       ) -> torch.Tensor:
+    """Per-entry sigmoid focal loss (RetinaNet form) against one-hot
+    ``targets`` (..., C): (1 - p_t)^gamma times the alpha weight times the
+    sigmoid cross entropy; ``weights`` multiply per anchor (one dim fewer
+    than the loss) or per entry."""
+    per_entry = optax_sigmoid_ce(logits, targets)
+    prob = torch.sigmoid(logits)
+    p_t = targets * prob + (1 - targets) * (1 - prob)
+    modulator = torch.pow(1.0 - p_t, gamma)
+    alpha_w = targets * alpha + (1 - targets) * (1 - alpha)
+    loss = modulator * alpha_w * per_entry
+    if weights is not None:
+        loss = loss * (weights[..., None] if weights.dim() == loss.dim() - 1
+                       else weights)
+    return loss
+
+
+def weighted_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       sigma: float = 3.0) -> torch.Tensor:
+    """SECOND's smooth L1 per code (..., C), in f32: 0.5 sigma^2 d^2 below
+    |d| = 1 / sigma^2, |d| - 0.5 / sigma^2 above; ``weights`` (...,) scale
+    each anchor's row."""
+    diff = pred.float() - target.float()
+    abs_diff = diff.abs()
+    s2 = sigma * sigma
+    loss = torch.where(abs_diff < 1.0 / s2, 0.5 * s2 * diff * diff,
+                       abs_diff - 0.5 / s2)
+    if weights is not None:
+        loss = loss * weights[..., None]
+    return loss
+
+
+def weighted_softmax_ce(logits: torch.Tensor, targets: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Softmax cross entropy against one-hot ``targets`` (..., C), the
+    logits in f32, times per-anchor ``weights`` (...,): (...,)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -(targets * logp).sum(-1)
+    if weights is not None:
+        loss = loss * weights
+    return loss

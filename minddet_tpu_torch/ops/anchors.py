@@ -1,10 +1,13 @@
-"""3D anchor grids and the BEV-occupancy anchor mask (counterpart of the
-parts of ``minddet_tpu/ops/anchors.py`` the PointPillars predict path uses:
-``create_anchors_3d_stride``, ``ClassAnchorConfig``, ``generate_anchors``
-and ``make_grid_area_mask``).
+"""3D anchor grids, the BEV-occupancy anchor mask and the anchor
+assignment (counterpart of the parts of ``minddet_tpu/ops/anchors.py`` the
+PointPillars paths use: ``create_anchors_3d_stride``, ``ClassAnchorConfig``,
+``generate_anchors``, ``make_grid_area_mask``, ``distance_similarity`` and
+``assign_targets_batch``).
 
 The anchor grids are numpy, computed once per configuration, as in the
-reference. The mask is computed on the device from the occupancy map.
+reference. The mask and the assignment are computed on the device, the
+assignment for the whole batch at once where the reference vmaps one
+sample at a time.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from minddet_tpu_torch.ops.box import (pairwise_iou, rbbox_to_near_bbox,
+                                       second_box_encode)
 
 
 def create_anchors_3d_stride(
@@ -141,3 +147,66 @@ def make_grid_area_mask(
         return torch.stack(masks, dim=-1).flatten(-3)
 
     return from_occ
+
+
+def distance_similarity(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                        distance_norm: float = 2.0) -> torch.Tensor:
+    """Centre-distance similarity of (..., N, 5) and (..., M, 5) BEV boxes
+    [x, y, w, l, yaw] -> (..., N, M): ``1 - ||c1 - c2|| / distance_norm``,
+    so that a matched threshold keeps its >= meaning."""
+    d = boxes1[..., :, None, :2] - boxes2[..., None, :, :2]
+    return 1.0 - torch.sqrt((d * d).sum(-1)) / distance_norm
+
+
+@torch.no_grad()
+def assign_targets_batch(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                         gt_classes: torch.Tensor, gt_mask: torch.Tensor,
+                         matched_threshold: torch.Tensor,
+                         unmatched_threshold: torch.Tensor,
+                         anchors_mask: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """SECOND's anchor assignment for a batch in one pass over (B, A, G).
+
+    anchors (A, 7); gt_boxes (B, G, 7) padded; gt_classes (B, G) 1-based;
+    gt_mask (B, G); thresholds (A,); anchors_mask (B, A) or None. Returns
+    labels (B, A) int32 (-1 ignored, 0 background, else the class),
+    bbox_targets (B, A, 7) (the SECOND residual of the matched box, 0 off
+    the foreground) and reg_weights (B, A).
+
+    The similarity is the nearest axis-aligned BEV IoU, -1 at padded
+    ground truth and masked anchors.
+    An anchor is positive at or above its matched threshold and negative
+    below its unmatched one; every anchor that reaches a ground-truth box's
+    best non-zero similarity is positive too, ties included. Each anchor
+    takes the class and box of its first most similar ground truth."""
+    near_anchors = rbbox_to_near_bbox(anchors[:, [0, 1, 3, 4, 6]])
+    near_gt = rbbox_to_near_bbox(gt_boxes[..., [0, 1, 3, 4, 6]])
+    iou = pairwise_iou(near_anchors, near_gt)  # (B, A, G)
+    gt_mask = gt_mask.bool()
+    iou = torch.where(gt_mask[:, None, :], iou, -1.0)
+    if anchors_mask is not None:
+        iou = torch.where(anchors_mask[:, :, None], iou, -1.0)
+
+    # torch.max over a dim returns the first index of the maximum, as
+    # jnp.argmax does
+    anchor_to_gt_max, anchor_to_gt = iou.max(dim=-1)
+    gt_best = iou.amax(dim=1)  # (B, G)
+    gt_best = torch.where(gt_best <= 0, -1.0, gt_best)
+    force = ((iou == gt_best[:, None, :]) & gt_mask[:, None, :]
+             & (iou > 0)).any(dim=-1)
+    pos = anchor_to_gt_max >= matched_threshold
+    neg = anchor_to_gt_max < unmatched_threshold
+
+    labels = torch.where(neg, 0, -1).to(torch.int32)
+    assigned = torch.gather(gt_classes.to(torch.int32), 1, anchor_to_gt)
+    labels = torch.where(pos | force, assigned, labels)
+    if anchors_mask is not None:
+        labels = torch.where(anchors_mask, labels, -1)
+    matched = torch.gather(
+        gt_boxes, 1, anchor_to_gt[..., None].expand(-1, -1,
+                                                    gt_boxes.shape[-1]))
+    fg = labels > 0
+    targets = torch.where(fg[..., None], second_box_encode(matched, anchors),
+                          0.0)
+    return {"labels": labels, "bbox_targets": targets,
+            "reg_weights": fg.to(torch.float32)}

@@ -11,7 +11,9 @@
 - One whole train step (AdamW 1e-3, clip 35) of the two-stage model with
   f64 compute over f32 parameters: loss parts, grad_norm, the parameters'
   updates, the Adam moments (the clipped gradients) and the BN running
-  statistics.
+  statistics; and one of the single-stage model, whose state after the
+  step is held to 1e-6.
+- The two train entries on the CPU and without a GPU.
 
 The ground-truth boxes are jittered copies of the model's own training
 proposals, so that the second stage has foreground proposals (IoU >= 0.55)
@@ -21,6 +23,7 @@ numpy seeds; the flax variables go to the port through
 train step takes ~10 s, running it op by op a minute).
 """
 
+import contextlib
 import copy
 
 import jax
@@ -44,6 +47,7 @@ from minddet_tpu.train.loop import TrainState as JaxTrainState
 from minddet_tpu.train.loop import make_train_step as jax_make_train_step
 from minddet_tpu_torch.core.optim import adamw
 from minddet_tpu_torch.entry import (NUSC_CLOUD_POINTS, centerpoint_loss,
+                                     centerpoint_single_train_entry,
                                      centerpoint_train_entry)
 from minddet_tpu_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointTwoStage)
@@ -256,7 +260,7 @@ def _setup(compute):
     state, metrics = make_train_step(centerpoint_loss)(state, tbatch)
     return dict(new_jstate=new_jstate, jmetrics=jmetrics, state=state,
                 metrics=metrics, old=old, single=single, tbatch=tbatch,
-                miou=miou)
+                miou=miou, variables=variables, batch=batch)
 
 
 @pytest.fixture(scope="module")
@@ -447,3 +451,124 @@ def test_train_entry_builds_the_two_stage_step_on_cpu_when_asked():
         (1, 128, 128, n) for n in (1, 2, 2, 1, 2, 2)]
     assert sum(float(m.sum()) for m in example["mask"]) == float(
         batch["gt_mask"].sum())
+
+
+SINGLE = {k: v for k, v in TINY.items() if k != "refine_hidden"}
+
+
+@contextlib.contextmanager
+def _one_torch_thread():
+    """One intra-op thread: faster for the tiny model's tensors than many,
+    and it leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def single_f64(f64):
+    """One train step of the single-stage tiny model, f64 compute over f32
+    parameters, on both sides (the JAX one jitted), from the two-stage
+    setup's weights without the refine head and on its batch."""
+    variables = {k: {n: v for n, v in f64["variables"][k].items()
+                     if n != "refine"} for k in ("params", "batch_stats")}
+    batch = f64["batch"]
+    j1 = JCenterPoint(**SINGLE, dtype=jnp.float64)
+
+    def loss_apply(v, b, train=True):
+        return j1.apply(v, b, train=train, method=j1.loss_from_gt,
+                        mutable=["batch_stats"])
+
+    with _one_torch_thread(), jax.enable_x64(True):
+        jstate = JaxTrainState.create(variables["params"],
+                                      variables["batch_stats"],
+                                      jax_adamw(LR, clip_global_norm=CLIP))
+        new_jstate, jmetrics = jax.device_get(jax_make_train_step(
+            loss_apply, donate=False)(jstate, {k: jnp.asarray(v)
+                                               for k, v in batch.items()}))
+    model = centerpoint_from_flax(CenterPoint(**SINGLE, dtype=torch.float64),
+                                  variables)
+    model = model.to(memory_format=torch.channels_last)
+    state = TrainState.create(model, adamw(LR, clip_global_norm=CLIP))
+    with _one_torch_thread():
+        state, metrics = make_train_step(centerpoint_loss)(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return dict(new_jstate=new_jstate, jmetrics=jmetrics, state=state,
+                metrics=metrics)
+
+
+def test_single_stage_train_step_matches_jax_f64_compute(single_f64):
+    """``CenterPoint.loss_from_gt`` under the train step, f64 compute: the
+    loss and its parts rtol 1e-6 (f32 losses on both sides), grad_norm
+    rtol 1e-6 (the clip fires), each Adam moment (the clipped gradient)
+    within 1e-5 of its largest element, the parameters after the step
+    within 1e-6 where that moment resolves the element (above 1e-5 of the
+    largest and 100 times Adam's eps; a conv bias that a train-mode BN
+    cancels has only rounding noise for a gradient, ``_noise_only``) and
+    every BN running statistic within 1e-6."""
+    s = single_f64
+    metrics, jmetrics = s["metrics"], s["jmetrics"]
+    assert set(metrics) == set(jmetrics) == {"loss", "grad_norm",
+                                             *PARTS[:4]}
+    for name in jmetrics:
+        np.testing.assert_allclose(float(metrics[name]),
+                                   float(jmetrics[name]), rtol=1e-6,
+                                   err_msg=name)
+    assert float(jmetrics["grad_norm"]) > CLIP
+    new = s["new_jstate"]
+    ref = centerpoint_from_flax(CenterPoint(**SINGLE),
+                                {"params": new.params,
+                                 "batch_stats": new.batch_stats})
+    ref_opt = adamw(LR, clip_global_norm=CLIP).init(ref)
+    adamw_state_from_optax(ref, ref_opt, new.opt_state)
+    model = s["state"].model
+    got = dict(model.named_parameters())
+    unresolved = 0
+    for name, r in ref.named_parameters():
+        if _noise_only(name):
+            continue
+        m_ref = ref_opt.state[r]["exp_avg"]
+        m_got = s["state"].optimizer.state[got[name]]["exp_avg"]
+        scale = float(m_ref.abs().max())
+        assert float((m_got - m_ref).abs().max()) <= 1e-5 * scale, name
+        # and 100 x Adam's eps: near eps the step is steep in g
+        clear = (m_ref.abs() > 1e-5 * scale) & (m_ref.abs() > 0.1 * 1e-6)
+        unresolved += int((~clear).sum())
+        np.testing.assert_allclose(got[name].detach()[clear].numpy(),
+                                   r.detach()[clear].numpy(), rtol=0,
+                                   atol=1e-6, err_msg=name)
+    assert unresolved < 2e-2 * sum(p.numel() for p in got.values())
+    bufs = dict(model.named_buffers())
+    for name, r in ref.named_buffers():
+        if "running" in name:
+            np.testing.assert_allclose(bufs[name].numpy(), r.numpy(), rtol=0,
+                                       atol=1e-6, err_msg=name)
+
+
+def test_single_stage_train_entry_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        centerpoint_single_train_entry()
+
+
+def test_single_stage_train_entry_builds_on_cpu_when_asked():
+    """``centerpoint_single_train_entry`` builds (no step): the single-stage
+    nuScenes model, f32 parameters, bf16 compute, train mode, AdamW 1e-3
+    with clip 35, the two-stage entry's batch."""
+    with _one_torch_thread():
+        step_fn, (state, batch) = centerpoint_single_train_entry(
+            device="cpu", batch=1)
+    model = state.model
+    assert callable(step_fn) and model.training
+    assert type(model) is CenterPoint
+    assert model.dtype == model.reader.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert (model.grid_ny, model.max_voxels, model.max_points_per_voxel,
+            model.task_num_classes) == (512, 30000, 20, (1, 2, 2, 1, 2, 2))
+    assert batch["points"].shape == (1, NUSC_CLOUD_POINTS, 5)
+    assert batch["gt_boxes"].shape == (1, 64, 9)
+    assert state.tx.clip_global_norm == CLIP and state.tx.learning_rate == LR

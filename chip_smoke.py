@@ -79,6 +79,11 @@ Phases (any failure raises and exits non-zero):
    f. the same for Mask R-CNN, with the mask logits; both also read,
       ungated, the card's box head with its layers in f64
       (``box_head_f64_readings``);
+   g. the same for YOLOv8-s ``predict`` (full width, 640x640, 80 classes)
+      at batch 2, BN randomized: C3-C5, N3-N5, the DFL and class logits
+      held to the f64 referee, the decode, top-1000 and class-aware NMS on
+      the CPU's inputs, the card's own detections against the CPU's as
+      sets; no kernel launches;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
@@ -109,6 +114,10 @@ Phases (any failure raises and exits non-zero):
       within 1e-6 of a threshold), the loss parts, grad_norm, every
       gradient (at most 2x the f32 CPU's distance from the referee plus
       1e-3) and the BN statistics; no kernel launches;
+   h. one f32 YOLOv8-s train step (full width at 320x320, batch 2, the
+      config's Nesterov SGD at lr 0.01 inside the NaN guard) held the same
+      way, with the task-aligned assignment on the CPU's inputs; no kernel
+      launches;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -162,7 +171,14 @@ Phases (any failure raises and exits non-zero):
       head's 128 x 128 maps, top 1000, NMS 0.2, 83 kept, 20 chained
       iterations): one warm-up and 3 timed calls, K4 once per iteration and
       nothing else, the host clock and the NMS passes per iteration, and
-      one profiled call for the device's busy time per iteration.
+      one profiled call for the device's busy time per iteration;
+   o. YOLOv8-s serving (``yolov8_entry``: bf16, 640x640, top 1000, NMS
+      0.7, 100 detections) answers 2 warm-up and 10 timed requests at
+      batch 1 and 16; no kernel launches;
+   p. YOLOv8-s training (``yolov8_train_entry``: f32 params, bf16 compute,
+      batch 16, the config's SGD under its warm-up and the NaN guard) takes
+      2 warm-up and 10 timed steps on one batch; every loss part finite and
+      every step applied; no kernel launches.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -171,7 +187,7 @@ number in it but ``bound_ms`` is measured in the run); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
 ``--profile`` also breaks the serving requests (every served model) and 3
-train steps of each trained model (6l and 6m included) down with
+train steps of each trained model (6l, 6m and 6p included) down with
 ``torch.profiler``; ``--probe``
 also compares the f32 CenterPoint train-mode forward layer by layer, on the
 card and on the CPU, with the CPU's in f64.
@@ -2033,8 +2049,9 @@ HEAD_REFEREE_K = 2.0
 HEAD_REFEREE_FLOOR = 1e-6
 # each end-to-end phase draws its model and inputs from a generator of its
 # own, so that what it checks does not depend on the phases before it
-PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "5": 50, "5b": 51,
-               "5d": 52, "5e": 53, "5f": 54, "5g": 55, "6a": 60, "6f": 61}
+PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "5": 50,
+               "5b": 51, "5d": 52, "5e": 53, "5f": 54, "5g": 55, "5h": 56,
+               "6a": 60, "6f": 61}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -2696,14 +2713,15 @@ RCNN_E2E_SCORE_TOL = 1e-3
 
 
 @torch.no_grad()
-def randomize_rcnn_bn(model, image, gen):
+def randomize_bn(model, image, gen):
     """Random BN affines, then BN statistics from one pass over ``image``
     (momentum 1), as ``randomize_for_check`` does for CenterNet: with
     identity BN the seeded ResNet-50's activations grow block by block, and
-    f32 rounding with them."""
+    f32 rounding with them. Leaves ``model`` in eval mode."""
     from torch import nn
 
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
     for m in bns:
         m.weight.copy_(0.8 + 0.4 * torch.rand(m.num_features, generator=gen))
         m.bias.copy_(0.1 * torch.randn(m.num_features, generator=gen))
@@ -2711,8 +2729,8 @@ def randomize_rcnn_bn(model, image, gen):
     model.train()
     model(image)
     model.eval()
-    for m in bns:
-        m.momentum = 0.1
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
     return model
 
 
@@ -2755,15 +2773,17 @@ def _nhwc_cpu(t):
     return (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).double().cpu()
 
 
-def _near_iou_pairs(boxes, scores, threshold, classes=None):
+def _near_iou_pairs(boxes, scores, threshold, classes=None,
+                    min_score=RCNN_SCORE_THRESHOLD):
     """Pairs of valid candidates (sample 0) whose IoU lies within PP_NEAR
-    of ``threshold`` (of one class, where classes are given): where the
-    card's rounding may flip a suppression."""
+    of ``threshold`` (of one class and scored above ``min_score``, where
+    classes are given): where the card's rounding may flip a
+    suppression."""
     from minddet_tpu_torch.ops.box import pairwise_iou
 
     b, s = boxes[0].double().cpu(), scores[0].cpu()
     iou = pairwise_iou(b, b)
-    ok = torch.isfinite(s) & (s > (RCNN_SCORE_THRESHOLD if classes is not
+    ok = torch.isfinite(s) & (s > (min_score if classes is not
                                    None else float("-inf")))
     pair = torch.triu(ok[:, None] & ok[None, :], 1)
     if classes is not None:
@@ -2848,7 +2868,7 @@ def check_rcnn_f32(dev, with_mask: bool, gen):
     """Phases 4e (Faster R-CNN) and 4f (Mask R-CNN): f32 ``predict`` at
     batch 1 on the card against the same model on the CPU (TF32 off) and
     an f64 CPU referee, stage by stage. The seeded ResNet-50-FPN gets
-    random BN (``randomize_rcnn_bn``) and calibrated heads
+    random BN (``randomize_bn``) and calibrated heads
     (``calibrate_rcnn``) on the CPU; the card and the referee load its
     state.
 
@@ -2893,7 +2913,7 @@ def _check_rcnn_f32(dev, with_mask, gen):
 
     image = torch.randn(1, RES, RES, 3, generator=gen)
     cpu = build_faster_rcnn("cpu", with_mask, dtype=torch.float32)
-    randomize_rcnn_bn(cpu, torch.randn(1, RES, RES, 3, generator=gen), gen)
+    randomize_bn(cpu, torch.randn(1, RES, RES, 3, generator=gen), gen)
     calibrate_rcnn(cpu, image)
     gpu = build_faster_rcnn(dev, with_mask, dtype=torch.float32)
     gpu.load_state_dict(cpu.state_dict())
@@ -4016,7 +4036,7 @@ def check_rcnn_train_f32(dev, with_mask: bool, gen):
     (``RCNN_CHECK``: ResNet-50-FPN at 256 x 256, batch 2, 64 ROI samples,
     SGD) on the card against the same step on the CPU (TF32 off) and in
     f64 compute on the CPU (the referee), from the same weights (seeded,
-    BN randomized by ``randomize_rcnn_bn``), batch (``synthetic_rcnn_batch``
+    BN randomized by ``randomize_bn``), batch (``synthetic_rcnn_batch``
     at 256 x 256) and draws; the CPU and the referee take the card's
     proposals. The step is held once more from the train entries' own
     starting weights (``init_weights``, then ``seed_rcnn_for_training``,
@@ -4160,7 +4180,7 @@ def _check_rcnn_train_f32(dev, with_mask, gen):
     t = RCNN_TRAIN_TOL
     cpu = _rcnn_check_model(with_mask, torch.float32)
     cpu.init_weights(torch.Generator().manual_seed(SEED))
-    randomize_rcnn_bn(cpu, torch.rand(b, res, res, 3, generator=gen), gen)
+    randomize_bn(cpu, torch.rand(b, res, res, 3, generator=gen), gen)
     gpu = _rcnn_check_model(with_mask, torch.float32, dev)
     gpu.load_state_dict(cpu.state_dict())
     referee = _rcnn_check_model(with_mask, torch.float64)
@@ -4289,6 +4309,346 @@ def _check_rcnn_train_f32(dev, with_mask, gen):
     if bad:
         raise AssertionError(f"f32 {label} R-CNN train step, card vs CPU: "
                              f"{bad} outside {t}: {result}")
+    return result
+
+
+# f32 YOLOv8-s predict, card vs CPU vs an f64 CPU referee (phase 4g), at
+# full width and 640 x 640, batch YOLO_CHECK_BATCH, BN randomized. Every
+# score of the seeded model sits near sigmoid(-4.59) = 0.0101, just above
+# the 0.01 threshold, and the top-1000 cut and the NMS's order fall between
+# scores ~1e-5 apart: f32 rounding of the card's own logits may move a box
+# across either. So each discrete stage (the top-k, the threshold, the NMS
+# keep, the padding) is held on the CPU's inputs, and the card's own
+# request against the CPU's as sets, as phases 4e / 4f do.
+YOLO_CHECK_BATCH = 2
+YOLO_SCORE_THRESHOLD = 0.01
+YOLO_NMS_IOU = 0.7
+YOLO_TIE = 1e-6  # sorted candidate scores this close may trade places
+YOLO_MATCHED_SHARE = 0.9  # of the CPU's detections found on the card
+
+
+def _yolo_stages(model, image):
+    """``predict`` stage by stage through the model's own methods: C3-C5,
+    N3-N5, the DFL and class logits, the top-k candidates and the
+    detections."""
+    (c3, c4, c5), (n3, n4, n5) = model.features(image)
+    dfl, cls = model.head((n3, n4, n5))
+    cand = model.candidates(dfl, cls)
+    return dict(C3=c3, C4=c4, C5=c5, N3=n3, N4=n4, N5=n5, dfl=dfl, cls=cls,
+                cand=cand, det=model.detections(cand))
+
+
+def _sample(det, i):
+    """Sample ``i`` of a batch of detections, as a batch of one."""
+    return {k: v[i:i + 1] for k, v in det.items() if torch.is_tensor(v)}
+
+
+def check_yolov8_f32(dev, gen):
+    """Phase 4g: f32 YOLOv8-s ``predict`` at full width, 640 x 640, batch
+    YOLO_CHECK_BATCH, on the card against the same model on the CPU (TF32
+    off) and an f64 CPU referee, stage by stage; BN randomized
+    (``randomize_bn``) on the CPU, the card and the referee load its state.
+
+    - C3-C5, N3-N5 and the DFL and class logits held to the referee as
+      phase 4 holds its heads (the card at most HEAD_REFEREE_K times as far
+      from it as the f32 CPU, plus HEAD_REFEREE_FLOOR of the largest
+      value), with the card-vs-CPU distances beside them;
+    - the decode and the top-1000 on the CPU's logits: scores within
+      RCNN_SCORE_TOL, the same anchors unless two sorted scores lie within
+      YOLO_TIE, then boxes within RCNN_BOX_TOL and the same labels; the
+      NMS and the padding on the CPU's candidates slot by slot unless a
+      candidate pair's IoU lies within PP_NEAR of the NMS threshold or a
+      score within YOLO_TIE of the score threshold, as sets otherwise (at
+      least YOLO_MATCHED_SHARE of each image's CPU detections found on the
+      card);
+    - the card's own detections against the CPU's as sets (same label, IoU
+      RCNN_E2E_IOU, score within RCNN_E2E_SCORE_TOL; YOLO_MATCHED_SHARE),
+      the referee's read beside them, ungated; ``predict`` against its own
+      stages.
+
+    No hand-written kernel launches."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_yolov8_f32(dev, gen)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_yolov8_f32(dev, gen):
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import YOLO_RES, build_yolov8
+
+    shape = (YOLO_CHECK_BATCH, YOLO_RES, YOLO_RES, 3)
+    image = torch.rand(*shape, generator=gen)
+    cpu = build_yolov8("cpu", dtype=torch.float32)
+    randomize_bn(cpu, torch.rand(*shape, generator=gen), gen)
+    gpu = build_yolov8(dev, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    referee = build_yolov8("cpu", dtype=torch.float64)
+    referee.load_state_dict(cpu.state_dict())
+
+    kernels.reset_launches()
+    with torch.inference_mode():
+        g = _yolo_stages(gpu, image.to(dev))
+        served = gpu.predict(image.to(dev))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"f32 YOLOv8 predict launched {launches}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c = _yolo_stages(cpu, image)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        r = _yolo_stages(referee, image)
+    result, bad = dict(cpu_predict_s=cpu_s,
+                       referee_s=time.perf_counter() - t0), []
+    if not _same_detections(served, g["det"]):
+        bad.append("predict against its own stages on the card")
+
+    for name in ("C3", "C4", "C5", "N3", "N4", "N5", "dfl", "cls"):
+        got, host, ref = (_nhwc_cpu(g[name]), _nhwc_cpu(c[name]),
+                          _nhwc_cpu(r[name]))
+        card = result[f"{name}_card_vs_f64"] = float((got - ref).abs().max())
+        cpu_d = result[f"{name}_cpu_vs_f64"] = float((host - ref).abs().max())
+        result[f"{name}_max_abs_err"] = float((got - host).abs().max())
+        result[f"{name}_ratio"] = card / cpu_d if cpu_d else math.inf
+        limit = (HEAD_REFEREE_K * cpu_d
+                 + HEAD_REFEREE_FLOOR * float(ref.abs().max()))
+        if card > limit:
+            bad.append(f"{name}: the card lies {card} from the f64 referee, "
+                       f"over {HEAD_REFEREE_K} x the f32 CPU's {cpu_d}")
+
+    # the decode and the top-k on the CPU's logits
+    cc = c["cand"]
+    with torch.inference_mode():
+        ck = {k: v.cpu() for k, v in gpu.candidates(
+            c["dfl"].to(dev), c["cls"].to(dev)).items()}
+    gaps = cc["scores"][:, :-1] - cc["scores"][:, 1:]
+    ties = result["topk_score_ties"] = int(((gaps > 0)
+                                            & (gaps < YOLO_TIE)).sum())
+    same_idx = result["topk_same_anchors"] = torch.equal(ck["index"],
+                                                         cc["index"])
+    result["topk_score_max_abs_err"] = float(
+        (ck["scores"] - cc["scores"]).abs().max())
+    if result["topk_score_max_abs_err"] > RCNN_SCORE_TOL:
+        bad.append("top-k scores on the CPU's logits")
+    if same_idx:
+        atol, rtol = RCNN_BOX_TOL
+        err = (ck["boxes"] - cc["boxes"]).abs()
+        result["topk_box_max_abs_err"] = float(err.max())
+        if not bool((err <= atol + rtol * cc["boxes"].abs()).all()):
+            bad.append("decoded boxes on the CPU's logits")
+        if not torch.equal(ck["labels"], cc["labels"]):
+            bad.append("top-k labels on the CPU's logits")
+    elif ties == 0:
+        bad.append("top-k anchors on the CPU's logits (no score ties)")
+
+    # the NMS and the padding on the CPU's candidates
+    near = result["nms_near_threshold_pairs"] = sum(
+        _near_iou_pairs(cc["boxes"][i:i + 1], cc["scores"][i:i + 1],
+                        YOLO_NMS_IOU, cc["labels"][i:i + 1],
+                        YOLO_SCORE_THRESHOLD)
+        for i in range(YOLO_CHECK_BATCH))
+    cut = result["score_threshold_ties"] = int(
+        ((cc["scores"] - YOLO_SCORE_THRESHOLD).abs() < YOLO_TIE).sum())
+    with torch.inference_mode():
+        det_k = gpu.detections({k: v.to(dev) for k, v in cc.items()})
+    same = _same_detections(det_k, c["det"])
+    result["detections_same_inputs_slot_by_slot"] = same
+    result["detections_same_inputs_matched_share"] = min(
+        _rcnn_matched_share(_sample(det_k, i), _sample(c["det"], i))
+        for i in range(YOLO_CHECK_BATCH))
+    if not same and (near == 0 and cut == 0
+                     or result["detections_same_inputs_matched_share"]
+                     < YOLO_MATCHED_SHARE):
+        bad.append("detections of the card on the CPU's candidates")
+    kept = c["det"]["labels"] >= 0
+    result["kept_cpu"] = kept.sum(1).tolist()
+    result["nms_passes_cpu"] = c["det"]["nms_passes"]
+    result["nms_passes_card"] = g["det"]["nms_passes"]
+    if not bool(kept.any(1).all()):
+        bad.append("an image of the CPU's request kept no detection")
+
+    # the card's own request, and the referee's, against the CPU's as sets
+    for who, det in (("card", g["det"]), ("referee", r["det"])):
+        result[f"{who}_detections_matched_share"] = min(
+            _rcnn_matched_share(_sample(det, i), _sample(c["det"], i), True)
+            for i in range(YOLO_CHECK_BATCH))
+    result["kept_card"] = (g["det"]["labels"] >= 0).sum(1).tolist()
+    if result["card_detections_matched_share"] < YOLO_MATCHED_SHARE:
+        bad.append("the card's own detections against the CPU's, as sets")
+    result["launches"] = launches
+    print("  f32 YOLOv8-s card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 YOLOv8 predict, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+# f32 YOLOv8-s train step, card vs CPU vs an f64 CPU referee (phase 5h): the
+# full-width model at 320 x 320, batch 2 (the CPU's f32 step takes seconds),
+# BN randomized, on ``synthetic_detection_batch`` (seed 5); SGD as the
+# config's (momentum 0.937, Nesterov, decay 5e-4, the NaN guard) at a
+# constant lr 0.01, since the warm-up's first step has lr 0. The network is
+# smooth (SiLU) but for the SPPF's max pools; the assignment's discrete
+# choices (a GT's top 10 anchors, each anchor's GT) are held on the CPU's
+# inputs, where only an anchor with a metric within YOLO_TAL_NEAR
+# (relative) of its GT's 10th, or of another GT's metric at the anchor, may
+# be assigned otherwise. The losses, gradients and BN statistics take
+# PP_TRAIN_TOL's bounds (the gradients at most referee_k times as far from
+# the referee as the f32 CPU's, plus a floor).
+YOLO_TRAIN_CHECK = dict(res=320, batch=2)
+YOLO_TRAIN_TOL = dict(PP_TRAIN_TOL, soft_target_atol=1e-5)
+YOLO_TAL_NEAR = 1e-5
+YOLO_PARTS = ("backbone.", "neck.", "head.")
+YOLO_CHECK_LR = 0.01
+
+
+def _yolo_check_model(dtype, dev=None):
+    from minddet_tpu_torch.entry import NUM_CLASSES, SEED
+    from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
+
+    res = YOLO_TRAIN_CHECK["res"]
+    model = YOLOv8(num_classes=NUM_CLASSES, image_hw=(res, res), dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.to(device=dev, memory_format=torch.channels_last)
+
+
+def _tal_near(metric, topk: int = 10):
+    """(B, A) anchors where a GT's metric (B, G, A) lies within
+    YOLO_TAL_NEAR (relative) of that GT's ``topk``-th largest, or of
+    another GT's metric at the same anchor: where rounding may decide the
+    assignment."""
+    kth = metric.topk(topk, dim=2).values[..., -1:]
+    near_k = ((metric - kth).abs() <= YOLO_TAL_NEAR * kth) & (metric > 0)
+    m = metric.transpose(1, 2)  # (B, A, G)
+    close = ((m[..., :, None] - m[..., None, :]).abs()
+             <= YOLO_TAL_NEAR * m[..., :, None]) & (m[..., :, None] > 0)
+    close &= ~torch.eye(m.shape[-1], dtype=torch.bool)
+    return near_k.any(1) | close.flatten(2).any(-1)
+
+
+def check_yolov8_train_f32(dev):
+    """Phase 5h: one f32 YOLOv8-s train step (``YOLOv8.loss``, the config's
+    SGD at YOLO_CHECK_LR) at full width, YOLO_TRAIN_CHECK's size, on the
+    card against the same step on the CPU (TF32 off) and in f64 compute on
+    the CPU (the referee), from the same weights and batch: ``tal_assign``
+    on the CPU's boxes and logits, card vs CPU (fg and matched GT equal but
+    where ``_tal_near``; soft targets within ``soft_target_atol``); the
+    loss, its parts and grad_norm against both; every parameter's gradient
+    and each part's (backbone, neck, head) against the referee, at most
+    ``referee_k`` times the f32 CPU's distance plus a floor; the BN
+    statistics after the step against both. No hand-written kernel
+    launches, and the NaN guard lets every step through."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_yolov8_train_f32(dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_yolov8_train_f32(dev):
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.optim import sgd, skip_nonfinite_updates
+    from minddet_tpu_torch.entry import (NUM_CLASSES, YOLO_MOMENTUM,
+                                         YOLO_WEIGHT_DECAY, yolov8_loss)
+    from minddet_tpu_torch.models.detectors.yolov8 import (align_metric,
+                                                           dfl_decode,
+                                                           tal_assign)
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+    from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
+
+    t = YOLO_TRAIN_TOL
+    res, b = YOLO_TRAIN_CHECK["res"], YOLO_TRAIN_CHECK["batch"]
+    gen = _seeded("5h")
+    cpu = _yolo_check_model(torch.float32)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "running_var"):
+                m.weight.uniform_(0.6, 1.4, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.6, 1.4, generator=gen)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu = _yolo_check_model(torch.float32, dev)
+    referee = _yolo_check_model(torch.float64)
+    for m in (gpu, referee):
+        m.load_state_dict(start)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_detection_batch(
+        b, (res, res), NUM_CLASSES, seed=5).items()}
+    result, bad = {"tolerance": t}, []
+
+    # the assignment on the CPU's inputs (an eval-mode forward moves no BN
+    # statistic)
+    with torch.no_grad():
+        dfl, cls = cpu.eval()(batch["image"])
+        points, strides = cpu.grid("cpu")
+        boxes = dfl_decode(dfl, points[None], strides[None])
+        args = (boxes, cls, points, batch["gt_boxes"], batch["gt_classes"],
+                batch["gt_mask"])
+        tc = tal_assign(*args)
+        tg = {k: v.cpu() for k, v in tal_assign(
+            *(a.to(dev) for a in args)).items()}
+        metric, _ = align_metric(*(a.double() if a.is_floating_point()
+                                   else a for a in args))
+    cpu.train()
+    differ = (tg["fg"] != tc["fg"]) | (tc["fg"] & (tg["matched_gt"]
+                                                   != tc["matched_gt"]))
+    near = _tal_near(metric)
+    result.update(foreground=int(tc["fg"].sum()),
+                  assignment_differs=int(differ.sum()),
+                  anchors_near_a_tie=int(near.sum()))
+    if bool((differ & ~near).any()):
+        bad.append("the assignment on the same inputs")
+    both = tc["fg"] & ~differ
+    result["soft_target_max_abs_err"] = float(
+        (tg["soft_target"] - tc["soft_target"])[both].abs().max())
+    if result["soft_target_max_abs_err"] > t["soft_target_atol"]:
+        bad.append("soft targets on the same inputs")
+    if not bool(tc["fg"].any(1).all()):
+        bad.append("an image without foreground")
+
+    snaps = {}
+    tx = skip_nonfinite_updates(sgd(YOLO_CHECK_LR, momentum=YOLO_MOMENTUM,
+                                    nesterov=True,
+                                    weight_decay=YOLO_WEIGHT_DECAY))
+    for name, model in (("card", gpu), ("cpu", cpu), ("referee", referee)):
+        d = next(model.parameters()).device
+        state = TrainState.create(model, tx)
+        before = next(model.parameters()).detach().clone()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(yolov8_loss)(
+            state, {k: v.to(d) for k, v in batch.items()})
+        snaps[name] = _train_snapshot(state, metrics)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        print(f"  {name} step {time.perf_counter() - t0:.1f} s, loss "
+              f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
+        if name == "card" and any(launches.values()):
+            bad.append(f"the train step launched {launches}")
+        if torch.equal(next(model.parameters()).detach(), before):
+            bad.append(f"{name}: the NaN guard held a finite step back")
+        del state
+    _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"], t,
+                    YOLO_PARTS, "", result, bad)
+    print("  f32 YOLOv8-s train step card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items() if k != "tolerance"), flush=True)
+    if bad:
+        raise AssertionError(f"f32 YOLOv8 train step, card vs CPU: {bad} "
+                             f"outside {t}: {result}")
     return result
 
 
@@ -4840,6 +5200,145 @@ def rcnn_train_main_path(label, entry_fn, dev, with_mask, profile):
     return out
 
 
+YOLO_SERVE_BATCHES = (1, 16)  # bench.py's batch 1; a throughput batch
+YOLO_TRAIN_BATCH = 16  # configs/yolov8_s_coco.yaml: batch_size
+
+
+def _check_yolov8_detections(det, b):
+    """A YOLOv8 request's answer: (b, 100) slots, every image keeps at
+    least one detection, labels of the 80 classes where kept and -1 with a
+    zero box and score elsewhere, kept scores above the 0.01 threshold,
+    boxes finite."""
+    boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
+    kept = labels >= 0
+    ok = (boxes.shape == (b, 100, 4) and scores.shape == (b, 100)
+          and bool(torch.isfinite(boxes).all())
+          and bool((kept.sum(1) > 0).all()) and bool((labels < 80).all())
+          and bool(((scores > YOLO_SCORE_THRESHOLD) == kept).all())
+          and bool((boxes[~kept] == 0).all()))
+    if not ok:
+        raise AssertionError(f"YOLOv8 predict at batch {b}: boxes "
+                             f"{tuple(boxes.shape)}, kept "
+                             f"{kept.sum(1).tolist()}, finite "
+                             f"{bool(torch.isfinite(boxes).all())}")
+
+
+def yolov8_main_path(dev, profile):
+    """Phase 6o, YOLOv8-s serving (``yolov8_entry``: bf16, 640 x 640, 80
+    classes) at each of YOLO_SERVE_BATCHES, SERVE_WARMUP + SERVE_REQUESTS
+    requests each, with every kernel's count set to 0 just before: no
+    hand-written kernel launches. Reports ms per request (host clock around
+    a synced ``predict``), img/s, the peak memory, the NMS's passes and the
+    detections kept; with ``profile`` the device's busy time, idle share
+    and launches per request."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import yolov8_entry
+
+    programs = {b: yolov8_entry(device=dev, batch=b)
+                for b in YOLO_SERVE_BATCHES}
+    kernels.reset_launches()
+    out, predicts = {}, 0
+    for b, (predict, (image,)) in programs.items():
+        times, passes = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(SERVE_WARMUP + SERVE_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det = predict(image)
+            torch.cuda.synchronize()
+            if i >= SERVE_WARMUP:
+                times.append(time.perf_counter() - t0)
+                passes.append(det["nms_passes"])
+            predicts += 1
+        _check_yolov8_detections(det, b)
+        mean_s = statistics.mean(times)
+        out[f"b{b}"] = r = dict(
+            batch=b, requests=len(times), ms_mean=mean_s * 1e3,
+            ms_p50=statistics.median(times) * 1e3, img_per_s=b / mean_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            nms_passes=passes, kept=(det["labels"] >= 0).sum(1).tolist())
+        print(f"  YOLOv8-s bf16 batch {b}: {mean_s * 1e3:8.3f} ms/request "
+              f"(p50 {r['ms_p50']:.3f}), {r['img_per_s']:7.1f} img/s, peak "
+              f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB, NMS passes "
+              f"{passes[-1]}, kept {r['kept'][:4]}", flush=True)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"YOLOv8 serving launched {launches} for "
+                             f"{predicts} requests (want none)")
+    print(f"  kernels: none launched in {predicts} requests: True",
+          flush=True)
+    profiled = None
+    if profile:
+        print("profile: YOLOv8-s serving", flush=True)
+        profiled = profile_clouds("YOLOv8-s", programs)
+    return dict(serving=out, launches=launches, requests=predicts,
+                profile=profiled)
+
+
+def yolov8_train_main_path(dev, profile):
+    """Phase 6p, YOLOv8-s training (``yolov8_train_entry``: f32 params,
+    bf16 compute, batch YOLO_TRAIN_BATCH, 640 x 640, the config's SGD under
+    its warm-up and the NaN guard), TRAIN_WARMUP + TRAIN_STEPS steps on one
+    batch, launch counts from 0: no hand-written kernel launches; every
+    loss part finite at every step and every step applied (the schedule's
+    count advances by one each). The warm-up keeps the lr below 6e-6 over
+    these steps, so the loss is not expected to fall. Reports ms per step,
+    img/s and the peak memory."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import yolov8_train_entry
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn, (state, batch) = yolov8_train_entry(device=dev,
+                                                 batch=YOLO_TRAIN_BATCH)
+    kernels.reset_launches()
+    history, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean_s = statistics.mean(times)
+    group = state.optimizer.param_groups[0]
+    out = dict(batch=YOLO_TRAIN_BATCH, steps=steps, timed_steps=len(times),
+               ms_per_step=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3,
+               img_per_s=YOLO_TRAIN_BATCH / mean_s, max_memory_allocated=peak,
+               losses=[m["loss"] for m in history], first_step=history[0],
+               last_step=history[-1], schedule_count=int(group["count"]),
+               lr_next=float(group["lr"]), launches=launches)
+    print(f"  YOLOv8-s train bf16 batch {YOLO_TRAIN_BATCH}: "
+          f"{mean_s * 1e3:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
+          f"{out['img_per_s']:.1f} img/s, peak {peak / 2 ** 30:.2f} GiB "
+          f"allocated", flush=True)
+    print("  losses: " + " ".join(f"{v:.4f}" for v in out["losses"]),
+          flush=True)
+    print("  last step: " + " ".join(f"{k}={v:.4f}"
+                                     for k, v in history[-1].items())
+          + f", schedule count {out['schedule_count']}", flush=True)
+    if not all(math.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"YOLOv8 train loss not finite: {history}")
+    if out["schedule_count"] != steps:
+        raise AssertionError(f"{steps} YOLOv8 steps applied "
+                             f"{out['schedule_count']} updates")
+    if any(launches.values()):
+        raise AssertionError(f"{launches} in {steps} YOLOv8 train steps "
+                             f"(want none)")
+    print(f"  kernels: none launched in {steps} steps: True", flush=True)
+    if profile:
+        print("profile: YOLOv8-s bf16 train step", flush=True)
+        out["profile"] = profile_train(
+            f"YOLOv8-s train batch {YOLO_TRAIN_BATCH}", step_fn, state, batch)
+    return out
+
+
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
@@ -5043,6 +5542,10 @@ def main(argv=None) -> int:
           "the f64 referee", flush=True)
     mask_rcnn_f32 = check_rcnn_f32(dev, True, _seeded("4f"))
     torch.cuda.empty_cache()
+    print("phase 4g: end to end, f32 YOLOv8-s predict, card vs CPU and the "
+          "f64 referee", flush=True)
+    yolo_f32 = check_yolov8_f32(dev, _seeded("4g"))
+    torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
           "referee", flush=True)
@@ -5069,6 +5572,9 @@ def main(argv=None) -> int:
     print("phase 5g: end to end, f32 PointPillars train step, card vs CPU "
           "and the f64 referee", flush=True)
     pp_train_f32 = check_pointpillars_train_f32(dev)
+    print("phase 5h: end to end, f32 YOLOv8-s train step, card vs CPU and "
+          "the f64 referee", flush=True)
+    yolo_train_f32 = check_yolov8_train_f32(dev)
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -5257,6 +5763,17 @@ def main(argv=None) -> int:
           flush=True)
     decode = decode_main_path(dev)
     torch.cuda.empty_cache()
+    print("phase 6o: main path, YOLOv8-s bf16 serving", flush=True)
+    yolo = yolov8_main_path(dev, args.profile)
+    if yolo["profile"] is not None:
+        profiled["yolov8"] = yolo["profile"]
+    torch.cuda.empty_cache()
+    print(f"phase 6p: main path, YOLOv8-s bf16 train step at batch "
+          f"{YOLO_TRAIN_BATCH}", flush=True)
+    yolo_training = yolov8_train_main_path(dev, args.profile)
+    if "profile" in yolo_training:
+        profiled["yolov8_train"] = yolo_training["profile"]
+    torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -5423,6 +5940,9 @@ def main(argv=None) -> int:
                            pointpillars_training=pp_training,
                            centerpoint_single_training=cp1_training,
                            decode_nms=decode,
+                           yolov8_f32=yolo_f32,
+                           yolov8_train_f32=yolo_train_f32,
+                           yolov8=yolo, yolov8_training=yolo_training,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -1,5 +1,6 @@
 """AdamW and SGD with clip-by-global-norm, as the reference's optax chains
-(counterpart of ``minddet_tpu/core/optim.py``: ``adamw`` and ``sgd``).
+(counterpart of ``minddet_tpu/core/optim.py``: ``adamw``, ``sgd`` and
+``skip_nonfinite_updates``).
 
 ``adamw(...)`` and ``sgd(...)`` return a recipe, as the optax
 transformation is one; ``recipe.init(model)`` makes the torch optimizer that
@@ -16,19 +17,35 @@ the gradients in ``.grad``. AdamW (``torch.optim.AdamW``; ``exp_avg``,
    ``add_decayed_weights``; torch's AdamW does that in two parameter
    groups.
 
-SGD (``torch.optim.SGD``; ``momentum_buffer`` = optax's ``trace``): the same
-clip, then ``add_decayed_weights`` on parameters with ndim > 1 (g + wd * p,
-again two groups), then optax's momentum trace (t = g + momentum * t, its
-first value g itself, as torch's buffer starts) and -lr * t.
+SGD (``torch.optim.SGD``, fused; ``momentum_buffer`` = optax's ``trace``,
+zero at first as optax's is): the same clip, then ``add_decayed_weights`` on
+parameters with ndim > 1 (g + wd * p, again two groups), then optax's
+momentum trace (t = g + momentum * t) and -lr * t, or with ``nesterov``
+-lr * (g + momentum * t). Its learning rate is a number or a schedule of
+the step count (``core/lr_schedules.py``), evaluated on the device: the
+groups share one lr tensor and one count (``count`` in each group).
+
+``skip_nonfinite_updates(tx)`` is optax's ``apply_if_finite`` (the
+reference's NaN guard, on by default in ``build_optimizer``) for SGD: where
+any gradient is not finite the step leaves the parameters, the trace and
+the schedule's count as they were. The test stays on the device: the
+fused step reads it as ``found_inf``, so no step syncs the host.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Iterable, List, Optional, Union
 
 import torch
 from torch import nn
+
+from minddet_tpu_torch.core.lr_schedules import Schedule
+
+
+def _global_norm64(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -36,8 +53,7 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     ``global_norm``), summed in f64 and returned in f32: torch's f32 norm
     on the CPU sums a tensor of 12.8M values (the R-CNN box head's ``fc1``)
     5e-4 away from the exact value."""
-    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    return _global_norm64(tensors).float()
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
@@ -64,23 +80,39 @@ def _decay_groups(model: nn.Module, weight_decay: float) -> List[dict]:
 
 def _clip_and_step(optimizer: torch.optim.Optimizer,
                    params: Iterable[torch.Tensor],
-                   clip_global_norm: Optional[float]) -> torch.Tensor:
+                   clip_global_norm: Optional[float],
+                   schedule: Optional[Schedule] = None,
+                   nan_guard: bool = False) -> torch.Tensor:
     """Clip the ``.grad`` of ``params`` and step ``optimizer``. Returns the
     global norm of the gradients before the clip.
 
     A parameter of ``optimizer``'s groups that has no ``.grad`` (the loss
     never reached it) gets a zero gradient first, as optax gives it: its
     moments or trace, its step count and its weight decay advance with the
-    others'. A torch optimizer would skip it."""
+    others'. A torch optimizer would skip it. With a ``schedule`` the
+    groups' lr tensor takes its value at the groups' count first, and the
+    count advances after the step. With ``nan_guard`` (a fused optimizer)
+    a step whose gradients are not all finite changes nothing; the test is
+    that their f64 norm is finite (f32 and bf16 values cannot overflow
+    it)."""
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params if p.grad is not None]
-    norm = global_norm(grads)
+    norm64 = _global_norm64(grads)
+    norm = norm64.float()
     if clip_global_norm:
         clip_by_global_norm_(grads, clip_global_norm, norm)
+    if nan_guard:
+        finite = torch.isfinite(norm64)
+        optimizer.found_inf = (~finite).float()  # read by the fused step
+    if schedule is not None:
+        group = optimizer.param_groups[0]
+        group["lr"].copy_(schedule(group["count"]))
     optimizer.step()
+    if schedule is not None:
+        group["count"].add_(finite if nan_guard else 1)
     return norm
 
 
@@ -107,23 +139,48 @@ class AdamW:
 
 @dataclass(frozen=True)
 class SGD:
-    learning_rate: float
+    learning_rate: Union[float, Schedule]
     momentum: float = 0.9
+    nesterov: bool = False
     weight_decay: float = 0.0
     clip_global_norm: Optional[float] = None
+    nan_guard: bool = False  # set by skip_nonfinite_updates
 
     def init(self, model: nn.Module) -> torch.optim.SGD:
-        return torch.optim.SGD(_decay_groups(model, self.weight_decay),
-                               lr=self.learning_rate, momentum=self.momentum)
+        groups = _decay_groups(model, self.weight_decay)
+        lr = self.learning_rate
+        if callable(lr):
+            dev = next(model.parameters()).device
+            lr = torch.zeros((), device=dev)
+            count = torch.zeros((), dtype=torch.int64, device=dev)
+            for group in groups:
+                group.update(lr=lr, count=count)
+        opt = torch.optim.SGD(groups, lr=lr, momentum=self.momentum,
+                              nesterov=self.nesterov, fused=True)
+        for group in opt.param_groups:
+            for p in group["params"]:
+                opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
+        return opt
 
     def update(self, optimizer: torch.optim.Optimizer,
                params: Iterable[torch.Tensor]) -> torch.Tensor:
         """Clip the ``.grad`` of ``params`` and step ``optimizer``; returns
         the global norm before the clip (``_clip_and_step``)."""
-        return _clip_and_step(optimizer, params, self.clip_global_norm)
+        schedule = self.learning_rate if callable(self.learning_rate) \
+            else None
+        return _clip_and_step(optimizer, params, self.clip_global_norm,
+                              schedule, self.nan_guard)
 
 
 Recipe = Union[AdamW, SGD]
+
+
+def skip_nonfinite_updates(tx: SGD) -> SGD:
+    """``tx`` with optax's ``apply_if_finite`` around it (the reference's
+    ``skip_nonfinite_updates``): a step whose gradients are not all finite
+    leaves the parameters, the momentum trace and the schedule's count
+    unchanged, decided on the device."""
+    return replace(tx, nan_guard=True)
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -132,7 +189,8 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return AdamW(learning_rate, b1, b2, eps, weight_decay, clip_global_norm)
 
 
-def sgd(learning_rate: float, momentum: float = 0.9,
-        weight_decay: float = 0.0,
+def sgd(learning_rate: Union[float, Schedule], momentum: float = 0.9,
+        nesterov: bool = False, weight_decay: float = 0.0,
         clip_global_norm: Optional[float] = None) -> SGD:
-    return SGD(learning_rate, momentum, weight_decay, clip_global_norm)
+    return SGD(learning_rate, momentum, nesterov, weight_decay,
+               clip_global_norm)

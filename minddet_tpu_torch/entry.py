@@ -53,6 +53,16 @@ of ``train/train.py`` (2 to 15 boxes per image in 128 slots, 64 with the
 masks, and Mask R-CNN's GT bitmaps at a quarter of the image). Each step
 launches the row-gather kernel once per pyramid level and roi set, its map
 gradient as often, and Mask R-CNN's GT-bitmap crop once more.
+
+``yolov8_entry()`` is ``bench.py:bench_yolov8s_infer``'s program:
+YOLOv8-s (``YOLOv8(num_classes=80, image_hw=(640, 640))``, depth 0.33,
+width 0.5) in bf16, ``YOLOv8.predict`` (top 1000 anchors, class-aware NMS
+0.7 over score 0.01, 100 detections). ``yolov8_train_entry()`` is the train
+step of ``configs/yolov8_s_coco.yaml`` as ``train/train.py --synthetic``
+runs it, nothing cut: 640x640, 80 classes, batch 16, f32 parameters and
+bf16 compute, SGD 0.937 with Nesterov momentum and weight decay 5e-4 under
+the config's linear warm-up from step 0, inside the NaN guard. Neither
+launches a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -62,7 +72,8 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from minddet_tpu_torch.core.optim import adamw, sgd
+from minddet_tpu_torch.core.lr_schedules import linear_warmup
+from minddet_tpu_torch.core.optim import adamw, sgd, skip_nonfinite_updates
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
 from minddet_tpu_torch.models.detectors.centerpoint import (
@@ -70,6 +81,7 @@ from minddet_tpu_torch.models.detectors.centerpoint import (
 from minddet_tpu_torch.models.detectors.faster_rcnn import (BOX_ROI,
                                                              FasterRCNN)
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
+from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
@@ -690,3 +702,76 @@ def mask_rcnn_train_entry(device=None, batch: int = RCNN_TRAIN_BATCH
     """``faster_rcnn_train_entry()`` for Mask R-CNN: 64 GT slots and the GT
     bitmaps (batch, 128, 128, 64) f32; the metrics add the mask loss."""
     return _rcnn_train_program(True, device, batch)
+
+
+# YOLOv8-s: bench.py:bench_yolov8s_infer and configs/yolov8_s_coco.yaml
+YOLO_RES = 640
+YOLO_TRAIN_BATCH = 16
+YOLO_LR = 0.01          # lr_schedule: linear_warmup(0.01, 22000, 3.6e6,
+YOLO_WARMUP = 22000     # end_factor 0.01), counted from step 0 as
+YOLO_TOTAL_STEPS = 3_600_000  # train/train.py runs it
+YOLO_END_FACTOR = 0.01
+YOLO_MOMENTUM = 0.937
+YOLO_WEIGHT_DECAY = 5e-4
+
+
+def _seeded_yolov8(dtype: torch.dtype) -> YOLOv8:
+    model = YOLOv8(num_classes=NUM_CLASSES, image_hw=(YOLO_RES, YOLO_RES),
+                   dtype=dtype)
+    return model.init_weights(torch.Generator().manual_seed(SEED))
+
+
+def build_yolov8(device=None, dtype: torch.dtype = torch.bfloat16) -> YOLOv8:
+    """YOLOv8-s, 80 classes, 640x640, in eval mode: weights from ``SEED``
+    (flax's default initialisers, the class biases at -4.59) stored in
+    ``dtype``, which is also the compute dtype."""
+    dev = resolve_device(device)
+    return _seeded_yolov8(dtype).eval().to(device=dev, dtype=dtype,
+                                           memory_format=torch.channels_last)
+
+
+def yolov8_entry(device=None, batch: int = 1
+                 ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``YOLOv8.predict``
+    (top 1000, NMS 0.7, score threshold 0.01, 100 detections): boxes
+    (batch, 100, 4) in input pixels, scores, labels (-1 in empty slots),
+    ``nms_passes``. The model is ``build_yolov8``'s in bf16; the image is
+    ``bench.py``'s, uniform [0, 1) from numpy ``RandomState(0)``, (batch,
+    640, 640, 3) f32."""
+    model = build_yolov8(device)
+    dev = next(model.parameters()).device
+    image = np.random.RandomState(0).rand(batch, YOLO_RES, YOLO_RES, 3)
+    return model.predict, (torch.from_numpy(image.astype(np.float32)).to(dev),)
+
+
+def yolov8_loss(model: YOLOv8, batch: Dict):
+    """The YOLOv8 train step's loss function: ``YOLOv8.loss``."""
+    return model.loss(batch)
+
+
+def yolov8_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
+                       ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one YOLOv8-s
+    train step in place and returns ``(state, metrics)`` (loss, iou_loss,
+    cls_loss, dfl_loss, grad_norm, on the device).
+
+    ``configs/yolov8_s_coco.yaml``'s train section: the model seeded with
+    ``SEED``, f32 parameters, bf16 compute, channels_last, train mode; SGD
+    momentum 0.937, Nesterov, weight decay 5e-4 on ndim > 1 parameters, no
+    clip, the lr ``linear_warmup(0.01, 22000, 3.6e6, 0.01)`` of the applied
+    steps' count (0 at the first step), inside ``skip_nonfinite_updates``.
+    The batch is ``synthetic_detection_batch(batch, (640, 640), 80)``: 2 to
+    15 boxes per image in 16 slots."""
+    dev = resolve_device(device)
+    model = _seeded_yolov8(torch.bfloat16).to(
+        device=dev, memory_format=torch.channels_last).train()
+    schedule = linear_warmup(YOLO_LR, YOLO_WARMUP, YOLO_TOTAL_STEPS,
+                             YOLO_END_FACTOR)
+    tx = skip_nonfinite_updates(sgd(
+        schedule, momentum=YOLO_MOMENTUM, nesterov=True,
+        weight_decay=YOLO_WEIGHT_DECAY))
+    state = TrainState.create(model, tx)
+    data = synthetic_detection_batch(batch, (YOLO_RES, YOLO_RES), NUM_CLASSES,
+                                     seed=SEED)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    return make_train_step(yolov8_loss), (state, data)

@@ -34,6 +34,7 @@ from minddet_tpu_torch.models.heads.rpn_head import (RPNHead,
                                                      generate_proposals)
 from minddet_tpu_torch.models.layers import (init_flax_defaults_,
                                              variance_scaling_)
+from minddet_tpu_torch.models.losses import bce_with_logits
 from minddet_tpu_torch.models.necks.fpn import FPN
 from minddet_tpu_torch.ops.anchors2d import (level_shape, multilevel_anchors,
                                              rpn_targets)
@@ -149,8 +150,7 @@ class FasterRCNN(nn.Module):
         t = rpn_targets(draws["rpn"][:, 0], draws["rpn"][:, 1], self.anchors,
                         gt_boxes, gt_mask)
         lbl = (t["labels"] == 1).to(logits.dtype)
-        bce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * lbl
-               + torch.log1p(torch.exp(-logits.abs())))
+        bce = bce_with_logits(logits, lbl)
         w = t["cls_weights"]
         rpn_cls = (bce * w).sum() / w.sum().clamp(min=1.0)
         diff = (deltas - t["deltas"]).abs()

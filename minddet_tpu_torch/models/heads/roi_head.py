@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from minddet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
+from minddet_tpu_torch.models.losses import bce_with_logits
 from minddet_tpu_torch.ops.anchors2d import match_anchors, sample_balanced
 from minddet_tpu_torch.ops.box import clip_boxes, decode_deltas, encode_deltas
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
@@ -222,8 +223,7 @@ def mask_head_loss(mask_logits: torch.Tensor, gt_bitmaps: torch.Tensor,
     b, r = cls_idx.shape
     logits = torch.gather(mask_logits, -1, cls_idx[:, :, None, None, None]
                           .expand(b, r, mask_size, mask_size, 1))[..., 0]
-    bce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * gt
-           + torch.log1p(torch.exp(-logits.abs())))
+    bce = bce_with_logits(logits, gt)
     pm = targets["pos_mask"][:, :, None, None]
     return (bce * pm).sum() / (pm.sum() * mask_size * mask_size).clamp(
         min=1.0)

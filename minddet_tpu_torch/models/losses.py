@@ -97,6 +97,18 @@ def gather_reg_loss_per_channel(output: torch.Tensor, mask: torch.Tensor,
         m.sum() + 1e-4)
 
 
+def bce_with_logits(logits: torch.Tensor, target: torch.Tensor
+                    ) -> torch.Tensor:
+    """Elementwise ``max(x, 0) - x t + log1p(exp(-|x|))`` as the reference
+    writes it by hand (``yolox.py:_bce``, the R-CNN's RPN and mask losses),
+    with JAX's gradients at x = 0: ``maximum`` passes half of it, and
+    ``|x|`` has slope 1 there (torch's ``abs`` has 0), so the gradient at 0
+    is -t, as in the reference."""
+    neg_abs = torch.where(logits >= 0, -logits, logits)
+    return (torch.maximum(logits, torch.zeros_like(logits)) - logits * target
+            + torch.log1p(torch.exp(neg_abs)))
+
+
 def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor
                      ) -> torch.Tensor:
     """Numerically stable sigmoid cross entropy, written as optax's

@@ -35,6 +35,18 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     return inter / union.clamp(min=eps)
 
 
+def elementwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                    eps: float = 1e-8) -> torch.Tensor:
+    """IoU of corner boxes of the same leading shape (..., 4) -> (...); the
+    union is kept above ``eps``."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:4], boxes2[..., 2:4])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(boxes1) + area(boxes2) - inter
+    return inter / union.clamp(min=eps)
+
+
 def clip_boxes(boxes: torch.Tensor, height: float, width: float
                ) -> torch.Tensor:
     """Clip [..., 4] corner boxes into [0, width] x [0, height]."""

@@ -43,10 +43,18 @@ from the per-layer RPN tree only.
 reg``, ``mask_head/conv{i}|up|out``; the mask head's 2x2 stride-2
 ``ConvTranspose`` is flipped like every other). The anchors are no weights.
 
+``yolov8_from_flax`` does it for the JAX ``YOLOv8`` (``backbone/stem``,
+``backbone/stage{i}/in|b{j}/c1|c2|out``, ``backbone/sppf/in|out``,
+``neck/td4|td3|down3|bu4|down4|bu5``, ``head/reg{i}_0|reg{i}_1|reg_out{i}|
+cls{i}_0|cls{i}_1|cls_out{i}``, each ConvBlock's ``conv`` and ``bn``).
+
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
 ``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and
-the same bijection checks, so a JAX training run resumes in the port.
+the same bijection checks, so a JAX training run resumes in the port;
+``sgd_state_from_optax`` does it for the SGD chain's momentum ``trace``
+(-> ``momentum_buffer``), also inside the NaN guard's ``apply_if_finite``
+state.
 """
 
 from __future__ import annotations
@@ -180,15 +188,21 @@ def mask_rcnn_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     return load_from_flax(model, variables)
 
 
-def _adam_states(state) -> List:
-    """Every node of an optax state tree with ``mu``, ``nu`` and ``count``
-    (``ScaleByAdamState``), found by its fields: the port imports no optax."""
-    if all(hasattr(state, f) for f in ("mu", "nu", "count")):
+def yolov8_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``YOLOv8`` variables into the port's ``YOLOv8``."""
+    return load_from_flax(model, variables)
+
+
+def _states_with(state, fields: Tuple[str, ...]) -> List:
+    """Every node of an optax state tree (named tuples) that has
+    ``fields``, found by its fields: the port imports no optax."""
+    if set(fields) <= set(getattr(state, "_fields", ())):
         return [state]
     if isinstance(state, (tuple, list)):
-        return [s for sub in state for s in _adam_states(sub)]
+        return [s for sub in state for s in _states_with(sub, fields)]
     inner = getattr(state, "inner_state", None)
-    return [] if inner is None else _adam_states(inner)
+    return [] if inner is None else _states_with(inner, fields)
+
 
 
 @torch.no_grad()
@@ -201,7 +215,7 @@ def adamw_state_from_optax(model: nn.Module,
     the reference's ``adamw`` chain (clip, then masked AdamW), leaves as
     numpy or JAX arrays; it must hold exactly one Adam state. Returns
     ``optimizer``."""
-    found = _adam_states(opt_state)
+    found = _states_with(opt_state, ("mu", "nu", "count"))
     if len(found) != 1:
         raise ValueError(f"expected one Adam state (mu, nu, count) in "
                          f"opt_state, found {len(found)}")
@@ -227,4 +241,32 @@ def adamw_state_from_optax(model: nn.Module,
             state["step"] = torch.tensor(
                 count, dtype=torch.float32,
                 device=p.device if on_device else "cpu")
+    return optimizer
+
+
+@torch.no_grad()
+def sgd_state_from_optax(model: nn.Module, optimizer: torch.optim.Optimizer,
+                         opt_state) -> torch.optim.Optimizer:
+    """Load the reference's ``sgd`` chain state into the port's SGD
+    ``optimizer``: the one ``TraceState`` (``trace``, a param-shaped tree)
+    into every parameter's ``momentum_buffer``. A schedule's count is not
+    carried: an optimizer that runs a schedule raises. Returns
+    ``optimizer``."""
+    if "count" in optimizer.param_groups[0]:
+        raise ValueError("the optimizer runs a schedule, whose count this "
+                         "converter does not carry")
+    traces = _states_with(opt_state, ("trace",))
+    if len(traces) != 1:
+        raise ValueError(f"expected one trace in opt_state, found "
+                         f"{len(traces)}")
+    params = list(model.named_parameters())
+    leaves = {("params",) + path: arr
+              for path, arr in _flax_leaves(traces[0].trace)}
+    buffers = {name: value for name, _, value in _matched(model, params,
+                                                          leaves)}
+    names = {id(p): n for n, p in params}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            optimizer.state[p]["momentum_buffer"] = torch.from_numpy(
+                buffers[names[id(p)]]).to(p.device, p.dtype)
     return optimizer

@@ -84,6 +84,11 @@ Phases (any failure raises and exits non-zero):
       held to the f64 referee, the decode, top-1000 and class-aware NMS on
       the CPU's inputs, the card's own detections against the CPU's as
       sets; no kernel launches;
+   h. the same for YOLOX-s ``predict`` (its score biases calibrated, as
+      ``yolox_entry`` serves it): the offsets, objectness and class
+      logits; no kernel launches;
+   i. the same for YOLOv5-s ``predict``: each level's (B, H, W, 3, 85)
+      head output; no kernel launches;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
@@ -118,6 +123,11 @@ Phases (any failure raises and exits non-zero):
       config's Nesterov SGD at lr 0.01 inside the NaN guard) held the same
       way, with the task-aligned assignment on the CPU's inputs; no kernel
       launches;
+   i. the same for YOLOX-s (momentum 0.9), with SimOTA's assignment on the
+      CPU's inputs; no kernel launches;
+   j. the same for YOLOv5-s, with its target maps on the CPU's inputs
+      exactly, also with a GT copied into a later slot (the last writer
+      wins every slot both claim); no kernel launches;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -178,7 +188,15 @@ Phases (any failure raises and exits non-zero):
    p. YOLOv8-s training (``yolov8_train_entry``: f32 params, bf16 compute,
       batch 16, the config's SGD under its warm-up and the NaN guard) takes
       2 warm-up and 10 timed steps on one batch; every loss part finite and
-      every step applied; no kernel launches.
+      every step applied; no kernel launches;
+   q. YOLOX-s serving (``yolox_entry``: bf16, 640x640, score biases
+      calibrated, top 1000, NMS 0.65, 100 detections) as in o;
+   r. YOLOX-s training (``yolox_train_entry``: its config's Nesterov SGD
+      0.9 under the warm-up cosine) as in p;
+   s. YOLOv5-s serving (``yolov5_entry``: bf16, 640x640, top 1000, NMS
+      0.45 over score 0.05) as in o;
+   t. YOLOv5-s training (``yolov5_train_entry``: SGD 0.937 under the
+      warm-up cosine) as in p.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -187,8 +205,8 @@ number in it but ``bound_ms`` is measured in the run); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. ``--json PATH`` also writes every measurement there;
 ``--profile`` also breaks the serving requests (every served model) and 3
-train steps of each trained model (6l, 6m and 6p included) down with
-``torch.profiler``; ``--probe``
+train steps of each trained model (6l, 6m, 6p, 6r and 6t included) down
+with ``torch.profiler`` (device kernels and host operators); ``--probe``
 also compares the f32 CenterPoint train-mode forward layer by layer, on the
 card and on the CPU, with the CPU's in f64.
 """
@@ -2049,9 +2067,9 @@ HEAD_REFEREE_K = 2.0
 HEAD_REFEREE_FLOOR = 1e-6
 # each end-to-end phase draws its model and inputs from a generator of its
 # own, so that what it checks does not depend on the phases before it
-PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "5": 50,
-               "5b": 51, "5d": 52, "5e": 53, "5f": 54, "5g": 55, "5h": 56,
-               "6a": 60, "6f": 61}
+PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
+               "4i": 46, "5": 50, "5b": 51, "5d": 52, "5e": 53, "5f": 54,
+               "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -4312,30 +4330,59 @@ def _check_rcnn_train_f32(dev, with_mask, gen):
     return result
 
 
-# f32 YOLOv8-s predict, card vs CPU vs an f64 CPU referee (phase 4g), at
-# full width and 640 x 640, batch YOLO_CHECK_BATCH, BN randomized. Every
-# score of the seeded model sits near sigmoid(-4.59) = 0.0101, just above
-# the 0.01 threshold, and the top-1000 cut and the NMS's order fall between
-# scores ~1e-5 apart: f32 rounding of the card's own logits may move a box
-# across either. So each discrete stage (the top-k, the threshold, the NMS
-# keep, the padding) is held on the CPU's inputs, and the card's own
-# request against the CPU's as sets, as phases 4e / 4f do.
+# f32 YOLO predict, card vs CPU vs an f64 CPU referee (phases 4g, 4h, 4i:
+# YOLOv8-s, YOLOX-s, YOLOv5-s), at full width and 640 x 640, batch
+# YOLO_CHECK_BATCH, BN randomized (YOLOX's score biases calibrated, as its
+# entry serves it). Every score of the seeded YOLOv8 sits near
+# sigmoid(-4.59) = 0.0101, just above the 0.01 threshold, and the seeded
+# YOLOv5's and calibrated YOLOX's near 0.25, so the top-1000 cut and the
+# NMS's order fall between scores ~1e-5 apart: f32 rounding of the card's
+# own logits may move a box across either. So each discrete stage (the
+# top-k, the threshold, the NMS keep, the padding) is held on the CPU's
+# inputs, and the card's own request against the CPU's as sets, as phases
+# 4e / 4f do.
 YOLO_CHECK_BATCH = 2
-YOLO_SCORE_THRESHOLD = 0.01
-YOLO_NMS_IOU = 0.7
 YOLO_TIE = 1e-6  # sorted candidate scores this close may trade places
 YOLO_MATCHED_SHARE = 0.9  # of the CPU's detections found on the card
+# per model: its label, its head outputs' names, the ``entry.build_*`` of
+# its served model (device, dtype), its serving and train entries, the name
+# of its config's SGD momentum in ``entry`` and predict's score threshold
+# and NMS IoU
+YOLO_MODELS = {
+    "yolov8": dict(label="YOLOv8-s", heads=("dfl", "cls"), build="yolov8",
+                   serve="yolov8_entry", train="yolov8_train_entry",
+                   momentum="YOLO_MOMENTUM", score=0.01, nms=0.7),
+    "yolox": dict(label="YOLOX-s", heads=("reg", "obj", "cls"),
+                  build="yolox", serve="yolox_entry",
+                  train="yolox_train_entry", momentum="YOLOX_MOMENTUM",
+                  score=0.01, nms=0.65),
+    "yolov5": dict(label="YOLOv5-s", heads=("P3_out", "P4_out", "P5_out"),
+                   build="yolov5", serve="yolov5_entry",
+                   train="yolov5_train_entry", momentum="YOLOV5_MOMENTUM",
+                   score=0.05, nms=0.45),
+}
+
+
+def build_yolo(kind: str, dev, dtype):
+    """The served YOLO model of ``kind`` in ``dtype`` on ``dev``, as its
+    entry builds it (YOLOX calibrated)."""
+    from minddet_tpu_torch import entry
+
+    model = getattr(entry, f"build_{YOLO_MODELS[kind]['build']}")(dev, dtype)
+    return entry.calibrate_yolox(model) if kind == "yolox" else model
 
 
 def _yolo_stages(model, image):
     """``predict`` stage by stage through the model's own methods: C3-C5,
-    N3-N5, the DFL and class logits, the top-k candidates and the
-    detections."""
-    (c3, c4, c5), (n3, n4, n5) = model.features(image)
-    dfl, cls = model.head((n3, n4, n5))
-    cand = model.candidates(dfl, cls)
-    return dict(C3=c3, C4=c4, C5=c5, N3=n3, N4=n4, N5=n5, dfl=dfl, cls=cls,
-                cand=cand, det=model.detections(cand))
+    N3-N5, the head's outputs (YOLOv8's DFL and class logits, YOLOX's
+    offsets, objectness and class logits, each level's map of an anchor
+    YOLO) under ``head``, the top-k candidates and the detections."""
+    (c3, c4, c5), neck = model.features(image)
+    outs = tuple(model.heads(neck)) if hasattr(model, "heads") \
+        else model.head(neck)  # the anchor YOLOs' levels, or one head's
+    cand = model.candidates(*outs)
+    return dict(C3=c3, C4=c4, C5=c5, N3=neck[0], N4=neck[1], N5=neck[2],
+                head=outs, cand=cand, det=model.detections(cand))
 
 
 def _sample(det, i):
@@ -4343,17 +4390,19 @@ def _sample(det, i):
     return {k: v[i:i + 1] for k, v in det.items() if torch.is_tensor(v)}
 
 
-def check_yolov8_f32(dev, gen):
-    """Phase 4g: f32 YOLOv8-s ``predict`` at full width, 640 x 640, batch
-    YOLO_CHECK_BATCH, on the card against the same model on the CPU (TF32
-    off) and an f64 CPU referee, stage by stage; BN randomized
-    (``randomize_bn``) on the CPU, the card and the referee load its state.
+def check_yolo_f32(dev, gen, kind: str = "yolov8"):
+    """Phases 4g, 4h and 4i: f32 ``predict`` of the YOLO model of ``kind``
+    (YOLO_MODELS: YOLOv8-s, YOLOX-s, YOLOv5-s) at full width, 640 x 640,
+    batch YOLO_CHECK_BATCH, on the card against the same model on the CPU
+    (TF32 off) and an f64 CPU referee, stage by stage; BN randomized
+    (``randomize_bn``, YOLOX's and YOLOv5's statistics from the request's
+    image) on the CPU, the card and the referee load its state.
 
-    - C3-C5, N3-N5 and the DFL and class logits held to the referee as
-      phase 4 holds its heads (the card at most HEAD_REFEREE_K times as far
-      from it as the f32 CPU, plus HEAD_REFEREE_FLOOR of the largest
-      value), with the card-vs-CPU distances beside them;
-    - the decode and the top-1000 on the CPU's logits: scores within
+    - C3-C5, N3-N5 and the head's outputs held to the referee as phase 4
+      holds its heads (the card at most HEAD_REFEREE_K times as far from it
+      as the f32 CPU, plus HEAD_REFEREE_FLOOR of the largest value), with
+      the card-vs-CPU distances beside them;
+    - the decode and the top-1000 on the CPU's head outputs: scores within
       RCNN_SCORE_TOL, the same anchors unless two sorted scores lie within
       YOLO_TIE, then boxes within RCNN_BOX_TOL and the same labels; the
       NMS and the padding on the CPU's candidates slot by slot unless a
@@ -4372,23 +4421,29 @@ def check_yolov8_f32(dev, gen):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _check_yolov8_f32(dev, gen)
+        return _check_yolo_f32(dev, gen, kind)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
-def _check_yolov8_f32(dev, gen):
+def _check_yolo_f32(dev, gen, kind):
     from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import YOLO_RES, build_yolov8
+    from minddet_tpu_torch.entry import YOLO_RES
 
+    spec = YOLO_MODELS[kind]
+    score_threshold, nms_iou = spec["score"], spec["nms"]
     shape = (YOLO_CHECK_BATCH, YOLO_RES, YOLO_RES, 3)
     image = torch.rand(*shape, generator=gen)
-    cpu = build_yolov8("cpu", dtype=torch.float32)
-    randomize_bn(cpu, torch.rand(*shape, generator=gen), gen)
-    gpu = build_yolov8(dev, dtype=torch.float32)
+    cpu = build_yolo(kind, "cpu", torch.float32)
+    # YOLOX's and YOLOv5's BN statistics come from the request's own image:
+    # from another uniform image the deep maps' tiny spread leaves their
+    # logits at tens, the scores at 1 and the anchor boxes degenerate
+    randomize_bn(cpu, image if kind != "yolov8"
+                 else torch.rand(*shape, generator=gen), gen)
+    gpu = build_yolo(kind, dev, torch.float32)
     gpu.load_state_dict(cpu.state_dict())
-    referee = build_yolov8("cpu", dtype=torch.float64)
+    referee = build_yolo(kind, "cpu", torch.float64)
     referee.load_state_dict(cpu.state_dict())
 
     kernels.reset_launches()
@@ -4398,7 +4453,8 @@ def _check_yolov8_f32(dev, gen):
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     if any(launches.values()):
-        raise AssertionError(f"f32 YOLOv8 predict launched {launches}")
+        raise AssertionError(f"f32 {spec['label']} predict launched "
+                             f"{launches}")
     t0 = time.perf_counter()
     with torch.inference_mode():
         c = _yolo_stages(cpu, image)
@@ -4411,7 +4467,9 @@ def _check_yolov8_f32(dev, gen):
     if not _same_detections(served, g["det"]):
         bad.append("predict against its own stages on the card")
 
-    for name in ("C3", "C4", "C5", "N3", "N4", "N5", "dfl", "cls"):
+    for d in (g, c, r):
+        d.update(zip(spec["heads"], d["head"]))
+    for name in ("C3", "C4", "C5", "N3", "N4", "N5") + spec["heads"]:
         got, host, ref = (_nhwc_cpu(g[name]), _nhwc_cpu(c[name]),
                           _nhwc_cpu(r[name]))
         card = result[f"{name}_card_vs_f64"] = float((got - ref).abs().max())
@@ -4424,11 +4482,11 @@ def _check_yolov8_f32(dev, gen):
             bad.append(f"{name}: the card lies {card} from the f64 referee, "
                        f"over {HEAD_REFEREE_K} x the f32 CPU's {cpu_d}")
 
-    # the decode and the top-k on the CPU's logits
+    # the decode and the top-k on the CPU's head outputs
     cc = c["cand"]
     with torch.inference_mode():
         ck = {k: v.cpu() for k, v in gpu.candidates(
-            c["dfl"].to(dev), c["cls"].to(dev)).items()}
+            *(o.to(dev) for o in c["head"])).items()}
     gaps = cc["scores"][:, :-1] - cc["scores"][:, 1:]
     ties = result["topk_score_ties"] = int(((gaps > 0)
                                             & (gaps < YOLO_TIE)).sum())
@@ -4452,13 +4510,13 @@ def _check_yolov8_f32(dev, gen):
     # the NMS and the padding on the CPU's candidates
     near = result["nms_near_threshold_pairs"] = sum(
         _near_iou_pairs(cc["boxes"][i:i + 1], cc["scores"][i:i + 1],
-                        YOLO_NMS_IOU, cc["labels"][i:i + 1],
-                        YOLO_SCORE_THRESHOLD)
+                        nms_iou, cc["labels"][i:i + 1], score_threshold)
         for i in range(YOLO_CHECK_BATCH))
     cut = result["score_threshold_ties"] = int(
-        ((cc["scores"] - YOLO_SCORE_THRESHOLD).abs() < YOLO_TIE).sum())
+        ((cc["scores"] - score_threshold).abs() < YOLO_TIE).sum())
     with torch.inference_mode():
-        det_k = gpu.detections({k: v.to(dev) for k, v in cc.items()})
+        det_k = gpu.detections({k: v.to(dev) for k, v in cc.items()},
+                               score_threshold, nms_iou)
     same = _same_detections(det_k, c["det"])
     result["detections_same_inputs_slot_by_slot"] = same
     result["detections_same_inputs_matched_share"] = min(
@@ -4484,40 +4542,61 @@ def _check_yolov8_f32(dev, gen):
     if result["card_detections_matched_share"] < YOLO_MATCHED_SHARE:
         bad.append("the card's own detections against the CPU's, as sets")
     result["launches"] = launches
-    print("  f32 YOLOv8-s card vs CPU: " + " ".join(
+    print(f"  f32 {spec['label']} card vs CPU: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items()), flush=True)
     if bad:
-        raise AssertionError(f"f32 YOLOv8 predict, card vs CPU: {bad}: "
-                             f"{result}")
+        raise AssertionError(f"f32 {spec['label']} predict, card vs CPU: "
+                             f"{bad}: {result}")
     return result
 
 
-# f32 YOLOv8-s train step, card vs CPU vs an f64 CPU referee (phase 5h): the
-# full-width model at 320 x 320, batch 2 (the CPU's f32 step takes seconds),
-# BN randomized, on ``synthetic_detection_batch`` (seed 5); SGD as the
-# config's (momentum 0.937, Nesterov, decay 5e-4, the NaN guard) at a
-# constant lr 0.01, since the warm-up's first step has lr 0. The network is
-# smooth (SiLU) but for the SPPF's max pools; the assignment's discrete
-# choices (a GT's top 10 anchors, each anchor's GT) are held on the CPU's
-# inputs, where only an anchor with a metric within YOLO_TAL_NEAR
-# (relative) of its GT's 10th, or of another GT's metric at the anchor, may
-# be assigned otherwise. The losses, gradients and BN statistics take
-# PP_TRAIN_TOL's bounds (the gradients at most referee_k times as far from
-# the referee as the f32 CPU's, plus a floor).
+# f32 YOLO train steps, card vs CPU vs an f64 CPU referee (phases 5h, 5i,
+# 5j: YOLOv8-s, YOLOX-s, YOLOv5-s): the full-width model at 320 x 320,
+# batch 2 (the CPU's f32 step takes seconds), the reference's initialisers
+# with BN randomized, on ``synthetic_detection_batch`` (seed 5); SGD as the
+# config's (Nesterov, decay 5e-4, the NaN guard; momentum 0.937, YOLOX's
+# 0.9) at a constant lr 0.01, since the warm-up's first step has lr 0. The
+# network is smooth (SiLU) but for the SPPF's max pools; the assignment's
+# discrete choices are held on the CPU's inputs, on a batch of their own
+# (YOLO_ASSIGN_CHECK: more images and GTs, so more foreground): TAL's (a
+# GT's top 10 anchors, each anchor's GT), where only an anchor with a
+# metric within YOLO_TAL_NEAR (relative) of its GT's 10th, or of another
+# GT's metric at the anchor, may be assigned otherwise; SimOTA's, where
+# only an anchor whose cost lies within SIMOTA_NEAR of a GT's cut where
+# the cut's two sides lie that close, or of another GT's cost at the
+# anchor, or a candidate of a GT whose top-10 IoU sum lies within
+# YOLO_TAL_NEAR of an integer that moves its k, may (``_simota_near``);
+# and for both at most YOLO_MAX_DIFFER of the foreground (at least one
+# anchor) may differ at all; YOLOv5's target maps exactly, also on the
+# batch with GT 0 copied into a padded slot (a later writer on every slot
+# GT 0 claims). The losses, gradients
+# and BN statistics take PP_TRAIN_TOL's bounds (the gradients at most
+# referee_k times as far from the referee as the f32 CPU's, plus a floor).
 YOLO_TRAIN_CHECK = dict(res=320, batch=2)
+YOLO_ASSIGN_CHECK = dict(batch=8, max_objs=48)
+YOLO_MAX_DIFFER = 0.05
 YOLO_TRAIN_TOL = dict(PP_TRAIN_TOL, soft_target_atol=1e-5)
 YOLO_TAL_NEAR = 1e-5
-YOLO_PARTS = ("backbone.", "neck.", "head.")
+# two SimOTA costs within SIMOTA_NEAR of the larger's size, plus
+# SIMOTA_NEAR_ABS, may trade places: 4 f32 spacings at the cost's size (a
+# non-strong candidate's 1e4 offset rounds to ~1e-3), plus ~20 at a strong
+# candidate's cost of ~10 for the terms' own rounding
+SIMOTA_NEAR = 2.0 ** -21
+SIMOTA_NEAR_ABS = 2e-5
+YOLO_PARTS = ("backbone.", "neck.", "head")
 YOLO_CHECK_LR = 0.01
 
 
-def _yolo_check_model(dtype, dev=None):
+def _yolo_check_model(kind, dtype, dev=None):
     from minddet_tpu_torch.entry import NUM_CLASSES, SEED
+    from minddet_tpu_torch.models.detectors.yolov5 import YOLOv5
     from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
+    from minddet_tpu_torch.models.detectors.yolox import YOLOX
 
     res = YOLO_TRAIN_CHECK["res"]
-    model = YOLOv8(num_classes=NUM_CLASSES, image_hw=(res, res), dtype=dtype)
+    cls = {"yolov8": YOLOv8, "yolox": YOLOX, "yolov5": YOLOv5}[kind]
+    model = cls(num_classes=NUM_CLASSES, image_hw=(res, res), dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(SEED))
     return model.to(device=dev, memory_format=torch.channels_last)
 
@@ -4536,44 +4615,166 @@ def _tal_near(metric, topk: int = 10):
     return near_k.any(1) | close.flatten(2).any(-1)
 
 
-def check_yolov8_train_f32(dev):
-    """Phase 5h: one f32 YOLOv8-s train step (``YOLOv8.loss``, the config's
-    SGD at YOLO_CHECK_LR) at full width, YOLO_TRAIN_CHECK's size, on the
-    card against the same step on the CPU (TF32 off) and in f64 compute on
-    the CPU (the referee), from the same weights and batch: ``tal_assign``
-    on the CPU's boxes and logits, card vs CPU (fg and matched GT equal but
-    where ``_tal_near``; soft targets within ``soft_target_atol``); the
-    loss, its parts and grad_norm against both; every parameter's gradient
-    and each part's (backbone, neck, head) against the referee, at most
-    ``referee_k`` times the f32 CPU's distance plus a floor; the BN
-    statistics after the step against both. No hand-written kernel
-    launches, and the NaN guard lets every step through."""
+def _simota_near(args, topk: int = 10):
+    """(B, A) anchors where rounding may decide SimOTA's assignment on
+    ``args`` (``simota_assign``'s), its terms taken in f64, "close" meaning
+    within SIMOTA_NEAR_ABS + SIMOTA_NEAR x the cost: where a GT's k-th and
+    (k + 1)-th cheapest costs lie close (k the truncated sum of its top-10
+    candidate IoUs, clipped into [1, 10]), its candidates close to either;
+    every candidate of a GT whose sum lies within YOLO_TAL_NEAR of an
+    integer from 2 to 10 (where the truncation may give another k); an
+    anchor that two GTs may take at close costs."""
+    from minddet_tpu_torch.models.detectors.yolox import simota_cost
+
+    def tol(c):
+        return SIMOTA_NEAR_ABS + SIMOTA_NEAR * c.abs()
+
+    cost, cand, iou = simota_cost(*(a.double() if a.is_floating_point()
+                                    else a for a in args))
+    cand &= args[-1][..., None]
+    k_sum = torch.where(cand, iou, torch.zeros_like(iou)).topk(
+        topk, dim=2).values.sum(2)
+    dyn_k = k_sum.long().clamp(1, topk)
+    ranked = cost.sort(dim=2).values
+    kth = ranked.gather(2, (dyn_k - 1)[..., None])
+    next_ = ranked.gather(2, dyn_k[..., None])
+    fragile = (next_ - kth) <= tol(next_)
+    near = fragile & (((cost - kth).abs() <= tol(kth))
+                      | ((cost - next_).abs() <= tol(next_)))
+    n = k_sum.round()
+    near |= (((k_sum - n).abs() <= YOLO_TAL_NEAR) & (n >= 2)
+             & (n <= topk))[..., None]
+    near &= cand
+    taken = (cost <= kth + tol(kth)) & cand
+    c = torch.where(taken, cost, torch.full_like(cost, math.inf))
+    two = c.topk(2, dim=1, largest=False).values  # (B, 2, A)
+    close = (two[:, 1] - two[:, 0]) <= tol(two[:, 0])
+    return near.any(1) | close
+
+
+def _hold_yolo_assignment(kind, cpu, batch, dev, result, bad):
+    """The model's assignment on the CPU's inputs (an eval-mode forward
+    moves no BN statistic), card vs CPU, into ``result`` / ``bad``."""
+    if kind == "yolov5":
+        return _hold_yolov5_targets(cpu, batch, dev, result, bad)
+    from minddet_tpu_torch.models.detectors.yolov8 import (align_metric,
+                                                           dfl_decode,
+                                                           tal_assign)
+    from minddet_tpu_torch.models.detectors.yolox import (decode_yolox,
+                                                          simota_assign)
+
+    t = YOLO_TRAIN_TOL
+    gt = (batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"])
+    with torch.no_grad():
+        outs = cpu.eval()(batch["image"])
+        points, strides = cpu.grid("cpu")
+        if kind == "yolov8":
+            dfl, cls = outs
+            args = (dfl_decode(dfl, points[None], strides[None]), cls,
+                    points) + gt
+            assign, soft = tal_assign, "soft_target"
+            near = _tal_near(align_metric(*(
+                a.double() if a.is_floating_point() else a for a in args))[0])
+        else:
+            reg, obj, cls = outs
+            args = (decode_yolox(reg, points[None], strides[None]), obj, cls,
+                    points, strides) + gt
+            assign, soft = simota_assign, "matched_iou"
+            near = _simota_near(args)
+        tc = assign(*args)
+        tg = {k: v.cpu() for k, v in assign(*(a.to(dev) for a in args))
+              .items()}
+    cpu.train()
+    differ = (tg["fg"] != tc["fg"]) | (tc["fg"] & (tg["matched_gt"]
+                                                   != tc["matched_gt"]))
+    fg = int(tc["fg"].sum())
+    result.update(foreground=fg, assignment_differs=int(differ.sum()),
+                  anchors_near_a_tie=int(near.sum()),
+                  foreground_near_a_tie=int((near & tc["fg"]).sum()))
+    if bool((differ & ~near).any()) or \
+            int(differ.sum()) > max(1, int(YOLO_MAX_DIFFER * fg)):
+        bad.append("the assignment on the same inputs")
+    both = tc["fg"] & ~differ
+    result[f"{soft}_max_abs_err"] = float(
+        (tg[soft] - tc[soft])[both].abs().max())
+    if result[f"{soft}_max_abs_err"] > t["soft_target_atol"]:
+        bad.append(f"{soft} on the same inputs")
+    if not bool(tc["fg"].any(1).all()):
+        bad.append("an image without foreground")
+
+
+def _hold_yolov5_targets(cpu, batch, dev, result, bad):
+    """``yolov5_assign`` at each level, card vs CPU, exactly: on the batch
+    and on the batch with GT 0 of each image copied into its first padded
+    slot under another class (every slot GT 0 claims is claimed again,
+    later)."""
+    from minddet_tpu_torch.models.detectors.yolov5 import yolov5_assign
+
+    dup = {k: v.clone() for k, v in batch.items()}
+    for b in range(dup["gt_mask"].shape[0]):
+        free = int((~dup["gt_mask"][b]).nonzero()[0, 0])
+        dup["gt_boxes"][b, free] = dup["gt_boxes"][b, 0]
+        dup["gt_classes"][b, free] = (dup["gt_classes"][b, 0] + 1) % 80
+        dup["gt_mask"][b, free] = True
+    res = YOLO_TRAIN_CHECK["res"]
+    positives, overwritten = 0, 0
+    for label, data in (("batch", batch), ("duplicate_slot_batch", dup)):
+        gt = (data["gt_boxes"], data["gt_classes"], data["gt_mask"])
+        for li, stride in enumerate(cpu.STRIDES):
+            hw = (res // stride, res // stride)
+            (wh,) = cpu.anchor_wh[li]("cpu")
+            want = yolov5_assign(*gt, wh, stride, hw)
+            got = yolov5_assign(*(a.to(dev) for a in gt), wh.to(dev), stride,
+                                hw)
+            for name, g, w in zip(("pos", "tbox", "tcls"), got, want):
+                if not torch.equal(g.cpu(), w):
+                    bad.append(f"{label} level {li} {name} on the same "
+                               f"inputs")
+            if label == "batch":
+                positives += int(want[0].sum())
+            else:
+                copy = (data["gt_classes"][:, 0] + 1) % 80
+                overwritten += int(((want[2] == copy[:, None].to(torch.int32))
+                                    & (want[0] > 0)).sum())
+    result.update(positives=positives, slots_of_the_later_copy=overwritten)
+    if positives == 0 or overwritten == 0:
+        bad.append("no positives, or no slot that the copy overwrote")
+
+
+def check_yolo_train_f32(dev, kind: str = "yolov8"):
+    """Phases 5h, 5i and 5j: one f32 train step of the YOLO model of
+    ``kind`` (its ``loss``, the config's SGD at YOLO_CHECK_LR) at full
+    width, YOLO_TRAIN_CHECK's size, on the card against the same step on
+    the CPU (TF32 off) and in f64 compute on the CPU (the referee), from the
+    same weights and batch: the assignment on the CPU's inputs, card vs CPU
+    (``_hold_yolo_assignment``); the loss, its parts and grad_norm against
+    both; every parameter's gradient and each part's (backbone, neck, head)
+    against the referee, at most ``referee_k`` times the f32 CPU's distance
+    plus a floor; the BN statistics after the step against both. No
+    hand-written kernel launches, and the NaN guard lets every step
+    through."""
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _check_yolov8_train_f32(dev)
+        return _check_yolo_train_f32(dev, kind)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
-def _check_yolov8_train_f32(dev):
-    from minddet_tpu_torch import kernels
+def _check_yolo_train_f32(dev, kind):
+    from minddet_tpu_torch import entry, kernels
     from minddet_tpu_torch.core.optim import sgd, skip_nonfinite_updates
-    from minddet_tpu_torch.entry import (NUM_CLASSES, YOLO_MOMENTUM,
-                                         YOLO_WEIGHT_DECAY, yolov8_loss)
-    from minddet_tpu_torch.models.detectors.yolov8 import (align_metric,
-                                                           dfl_decode,
-                                                           tal_assign)
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
     from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
 
     t = YOLO_TRAIN_TOL
+    label = YOLO_MODELS[kind]["label"]
     res, b = YOLO_TRAIN_CHECK["res"], YOLO_TRAIN_CHECK["batch"]
-    gen = _seeded("5h")
-    cpu = _yolo_check_model(torch.float32)
+    gen = _seeded({"yolov8": "5h", "yolox": "5i", "yolov5": "5j"}[kind])
+    cpu = _yolo_check_model(kind, torch.float32)
     with torch.no_grad():
         for m in cpu.modules():
             if hasattr(m, "running_var"):
@@ -4582,55 +4783,31 @@ def _check_yolov8_train_f32(dev):
                 m.running_mean.normal_(0.0, 0.1, generator=gen)
                 m.running_var.uniform_(0.6, 1.4, generator=gen)
     start = {k: v.clone() for k, v in cpu.state_dict().items()}
-    gpu = _yolo_check_model(torch.float32, dev)
-    referee = _yolo_check_model(torch.float64)
+    gpu = _yolo_check_model(kind, torch.float32, dev)
+    referee = _yolo_check_model(kind, torch.float64)
     for m in (gpu, referee):
         m.load_state_dict(start)
     batch = {k: torch.from_numpy(v) for k, v in synthetic_detection_batch(
-        b, (res, res), NUM_CLASSES, seed=5).items()}
+        b, (res, res), entry.NUM_CLASSES, seed=5).items()}
     result, bad = {"tolerance": t}, []
-
-    # the assignment on the CPU's inputs (an eval-mode forward moves no BN
-    # statistic)
-    with torch.no_grad():
-        dfl, cls = cpu.eval()(batch["image"])
-        points, strides = cpu.grid("cpu")
-        boxes = dfl_decode(dfl, points[None], strides[None])
-        args = (boxes, cls, points, batch["gt_boxes"], batch["gt_classes"],
-                batch["gt_mask"])
-        tc = tal_assign(*args)
-        tg = {k: v.cpu() for k, v in tal_assign(
-            *(a.to(dev) for a in args)).items()}
-        metric, _ = align_metric(*(a.double() if a.is_floating_point()
-                                   else a for a in args))
-    cpu.train()
-    differ = (tg["fg"] != tc["fg"]) | (tc["fg"] & (tg["matched_gt"]
-                                                   != tc["matched_gt"]))
-    near = _tal_near(metric)
-    result.update(foreground=int(tc["fg"].sum()),
-                  assignment_differs=int(differ.sum()),
-                  anchors_near_a_tie=int(near.sum()))
-    if bool((differ & ~near).any()):
-        bad.append("the assignment on the same inputs")
-    both = tc["fg"] & ~differ
-    result["soft_target_max_abs_err"] = float(
-        (tg["soft_target"] - tc["soft_target"])[both].abs().max())
-    if result["soft_target_max_abs_err"] > t["soft_target_atol"]:
-        bad.append("soft targets on the same inputs")
-    if not bool(tc["fg"].any(1).all()):
-        bad.append("an image without foreground")
+    assign_batch = {k: torch.from_numpy(v) for k, v in
+                    synthetic_detection_batch(
+                        YOLO_ASSIGN_CHECK["batch"], (res, res),
+                        entry.NUM_CLASSES, YOLO_ASSIGN_CHECK["max_objs"],
+                        seed=5).items()}
+    _hold_yolo_assignment(kind, cpu, assign_batch, dev, result, bad)
 
     snaps = {}
-    tx = skip_nonfinite_updates(sgd(YOLO_CHECK_LR, momentum=YOLO_MOMENTUM,
-                                    nesterov=True,
-                                    weight_decay=YOLO_WEIGHT_DECAY))
+    tx = skip_nonfinite_updates(sgd(
+        YOLO_CHECK_LR, momentum=getattr(entry, YOLO_MODELS[kind]["momentum"]),
+        nesterov=True, weight_decay=entry.YOLO_WEIGHT_DECAY))
     for name, model in (("card", gpu), ("cpu", cpu), ("referee", referee)):
         d = next(model.parameters()).device
         state = TrainState.create(model, tx)
         before = next(model.parameters()).detach().clone()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        state, metrics = make_train_step(yolov8_loss)(
+        state, metrics = make_train_step(entry.yolo_loss)(
             state, {k: v.to(d) for k, v in batch.items()})
         snaps[name] = _train_snapshot(state, metrics)
         launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -4643,11 +4820,11 @@ def _check_yolov8_train_f32(dev):
         del state
     _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"], t,
                     YOLO_PARTS, "", result, bad)
-    print("  f32 YOLOv8-s train step card vs CPU: " + " ".join(
+    print(f"  f32 {label} train step card vs CPU: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items() if k != "tolerance"), flush=True)
     if bad:
-        raise AssertionError(f"f32 YOLOv8 train step, card vs CPU: {bad} "
+        raise AssertionError(f"f32 {label} train step, card vs CPU: {bad} "
                              f"outside {t}: {result}")
     return result
 
@@ -5204,37 +5381,39 @@ YOLO_SERVE_BATCHES = (1, 16)  # bench.py's batch 1; a throughput batch
 YOLO_TRAIN_BATCH = 16  # configs/yolov8_s_coco.yaml: batch_size
 
 
-def _check_yolov8_detections(det, b):
-    """A YOLOv8 request's answer: (b, 100) slots, every image keeps at
-    least one detection, labels of the 80 classes where kept and -1 with a
-    zero box and score elsewhere, kept scores above the 0.01 threshold,
-    boxes finite."""
+def _check_yolo_detections(det, b, label, score_threshold):
+    """A YOLO request's answer: (b, 100) slots, every image keeps at least
+    one detection, labels of the 80 classes where kept and -1 with a zero
+    box and score elsewhere, kept scores above ``score_threshold``, boxes
+    finite."""
     boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
     kept = labels >= 0
     ok = (boxes.shape == (b, 100, 4) and scores.shape == (b, 100)
           and bool(torch.isfinite(boxes).all())
           and bool((kept.sum(1) > 0).all()) and bool((labels < 80).all())
-          and bool(((scores > YOLO_SCORE_THRESHOLD) == kept).all())
+          and bool(((scores > score_threshold) == kept).all())
           and bool((boxes[~kept] == 0).all()))
     if not ok:
-        raise AssertionError(f"YOLOv8 predict at batch {b}: boxes "
+        raise AssertionError(f"{label} predict at batch {b}: boxes "
                              f"{tuple(boxes.shape)}, kept "
                              f"{kept.sum(1).tolist()}, finite "
                              f"{bool(torch.isfinite(boxes).all())}")
 
 
-def yolov8_main_path(dev, profile):
-    """Phase 6o, YOLOv8-s serving (``yolov8_entry``: bf16, 640 x 640, 80
-    classes) at each of YOLO_SERVE_BATCHES, SERVE_WARMUP + SERVE_REQUESTS
-    requests each, with every kernel's count set to 0 just before: no
-    hand-written kernel launches. Reports ms per request (host clock around
-    a synced ``predict``), img/s, the peak memory, the NMS's passes and the
+def yolo_main_path(dev, profile, kind: str = "yolov8"):
+    """Phases 6o, 6q and 6s, YOLO serving (``yolov8_entry``,
+    ``yolox_entry``, ``yolov5_entry``: bf16, 640 x 640, 80 classes) at each
+    of YOLO_SERVE_BATCHES, SERVE_WARMUP + SERVE_REQUESTS requests each,
+    with every kernel's count set to 0 just before: no hand-written kernel
+    launches. Reports ms per request (host clock around a synced
+    ``predict``), img/s, the peak memory, the NMS's passes and the
     detections kept; with ``profile`` the device's busy time, idle share
     and launches per request."""
-    from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import yolov8_entry
+    from minddet_tpu_torch import entry, kernels
 
-    programs = {b: yolov8_entry(device=dev, batch=b)
+    spec = YOLO_MODELS[kind]
+    label = spec["label"]
+    programs = {b: getattr(entry, spec["serve"])(device=dev, batch=b)
                 for b in YOLO_SERVE_BATCHES}
     kernels.reset_launches()
     out, predicts = {}, 0
@@ -5251,47 +5430,48 @@ def yolov8_main_path(dev, profile):
                 times.append(time.perf_counter() - t0)
                 passes.append(det["nms_passes"])
             predicts += 1
-        _check_yolov8_detections(det, b)
+        _check_yolo_detections(det, b, label, spec["score"])
         mean_s = statistics.mean(times)
         out[f"b{b}"] = r = dict(
             batch=b, requests=len(times), ms_mean=mean_s * 1e3,
             ms_p50=statistics.median(times) * 1e3, img_per_s=b / mean_s,
             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
             nms_passes=passes, kept=(det["labels"] >= 0).sum(1).tolist())
-        print(f"  YOLOv8-s bf16 batch {b}: {mean_s * 1e3:8.3f} ms/request "
+        print(f"  {label} bf16 batch {b}: {mean_s * 1e3:8.3f} ms/request "
               f"(p50 {r['ms_p50']:.3f}), {r['img_per_s']:7.1f} img/s, peak "
               f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB, NMS passes "
               f"{passes[-1]}, kept {r['kept'][:4]}", flush=True)
     launches = {k.name: k.launches for k in kernels.KERNELS}
     if any(launches.values()):
-        raise AssertionError(f"YOLOv8 serving launched {launches} for "
+        raise AssertionError(f"{label} serving launched {launches} for "
                              f"{predicts} requests (want none)")
     print(f"  kernels: none launched in {predicts} requests: True",
           flush=True)
     profiled = None
     if profile:
-        print("profile: YOLOv8-s serving", flush=True)
-        profiled = profile_clouds("YOLOv8-s", programs)
+        print(f"profile: {label} serving", flush=True)
+        profiled = profile_clouds(label, programs)
     return dict(serving=out, launches=launches, requests=predicts,
                 profile=profiled)
 
 
-def yolov8_train_main_path(dev, profile):
-    """Phase 6p, YOLOv8-s training (``yolov8_train_entry``: f32 params,
-    bf16 compute, batch YOLO_TRAIN_BATCH, 640 x 640, the config's SGD under
-    its warm-up and the NaN guard), TRAIN_WARMUP + TRAIN_STEPS steps on one
+def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
+    """Phases 6p, 6r and 6t, YOLO training (``yolov8_train_entry``,
+    ``yolox_train_entry``, ``yolov5_train_entry``: f32 params, bf16
+    compute, batch YOLO_TRAIN_BATCH, 640 x 640, the config's SGD under its
+    warm-up and the NaN guard), TRAIN_WARMUP + TRAIN_STEPS steps on one
     batch, launch counts from 0: no hand-written kernel launches; every
     loss part finite at every step and every step applied (the schedule's
     count advances by one each). The warm-up keeps the lr below 6e-6 over
     these steps, so the loss is not expected to fall. Reports ms per step,
     img/s and the peak memory."""
-    from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import yolov8_train_entry
+    from minddet_tpu_torch import entry, kernels
 
+    label = YOLO_MODELS[kind]["label"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    step_fn, (state, batch) = yolov8_train_entry(device=dev,
-                                                 batch=YOLO_TRAIN_BATCH)
+    step_fn, (state, batch) = getattr(entry, YOLO_MODELS[kind]["train"])(
+        device=dev, batch=YOLO_TRAIN_BATCH)
     kernels.reset_launches()
     history, times = [], []
     for i in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -5314,7 +5494,7 @@ def yolov8_train_main_path(dev, profile):
                losses=[m["loss"] for m in history], first_step=history[0],
                last_step=history[-1], schedule_count=int(group["count"]),
                lr_next=float(group["lr"]), launches=launches)
-    print(f"  YOLOv8-s train bf16 batch {YOLO_TRAIN_BATCH}: "
+    print(f"  {label} train bf16 batch {YOLO_TRAIN_BATCH}: "
           f"{mean_s * 1e3:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
           f"{out['img_per_s']:.1f} img/s, peak {peak / 2 ** 30:.2f} GiB "
           f"allocated", flush=True)
@@ -5324,25 +5504,26 @@ def yolov8_train_main_path(dev, profile):
                                      for k, v in history[-1].items())
           + f", schedule count {out['schedule_count']}", flush=True)
     if not all(math.isfinite(v) for m in history for v in m.values()):
-        raise AssertionError(f"YOLOv8 train loss not finite: {history}")
+        raise AssertionError(f"{label} train loss not finite: {history}")
     if out["schedule_count"] != steps:
-        raise AssertionError(f"{steps} YOLOv8 steps applied "
+        raise AssertionError(f"{steps} {label} steps applied "
                              f"{out['schedule_count']} updates")
     if any(launches.values()):
-        raise AssertionError(f"{launches} in {steps} YOLOv8 train steps "
+        raise AssertionError(f"{launches} in {steps} {label} train steps "
                              f"(want none)")
     print(f"  kernels: none launched in {steps} steps: True", flush=True)
     if profile:
-        print("profile: YOLOv8-s bf16 train step", flush=True)
+        print(f"profile: {label} bf16 train step", flush=True)
         out["profile"] = profile_train(
-            f"YOLOv8-s train batch {YOLO_TRAIN_BATCH}", step_fn, state, batch)
+            f"{label} train batch {YOLO_TRAIN_BATCH}", step_fn, state, batch)
     return out
 
 
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
-    window, and the kernels with the most device time, per call."""
+    window, the kernels with the most device time and the host's operators
+    with the most self time, per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5375,12 +5556,17 @@ def _profile(fn, calls: int):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:10]
     return dict(calls=calls, wall_ms_per_call=wall_us / 1e3 / calls,
                 device_busy_ms_per_call=busy / 1e3 / calls,
                 idle_share=1 - busy / wall_us,
                 kernel_launches_per_call=len(kevents) / calls,
                 top_kernels=[dict(name=n, ms_per_call=t / 1e3 / calls,
-                                  share_of_busy=t / busy) for n, t in top])
+                                  share_of_busy=t / busy) for n, t in top],
+                top_host_ops=[dict(name=n, self_ms_per_call=t / 1e3 / calls,
+                                   calls_per_call=c / calls)
+                              for n, t, c in host])
 
 
 def _print_profile(label: str, r) -> None:
@@ -5391,6 +5577,10 @@ def _print_profile(label: str, r) -> None:
     for k in r["top_kernels"]:
         print(f"    {k['ms_per_call']:8.3f} ms {k['share_of_busy']:6.1%}"
               f"  {k['name'][:100]}")
+    print("  host, self time per call:")
+    for k in r["top_host_ops"]:
+        print(f"    {k['self_ms_per_call']:8.3f} ms "
+              f"{k['calls_per_call']:6.0f}x  {k['name'][:100]}")
 
 
 def profile_serving(programs, requests: int = 3):
@@ -5542,10 +5732,12 @@ def main(argv=None) -> int:
           "the f64 referee", flush=True)
     mask_rcnn_f32 = check_rcnn_f32(dev, True, _seeded("4f"))
     torch.cuda.empty_cache()
-    print("phase 4g: end to end, f32 YOLOv8-s predict, card vs CPU and the "
-          "f64 referee", flush=True)
-    yolo_f32 = check_yolov8_f32(dev, _seeded("4g"))
-    torch.cuda.empty_cache()
+    yolo_f32 = {}
+    for phase, kind in (("4g", "yolov8"), ("4h", "yolox"), ("4i", "yolov5")):
+        print(f"phase {phase}: end to end, f32 {YOLO_MODELS[kind]['label']} "
+              f"predict, card vs CPU and the f64 referee", flush=True)
+        yolo_f32[kind] = check_yolo_f32(dev, _seeded(phase), kind)
+        torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
           "referee", flush=True)
@@ -5572,9 +5764,11 @@ def main(argv=None) -> int:
     print("phase 5g: end to end, f32 PointPillars train step, card vs CPU "
           "and the f64 referee", flush=True)
     pp_train_f32 = check_pointpillars_train_f32(dev)
-    print("phase 5h: end to end, f32 YOLOv8-s train step, card vs CPU and "
-          "the f64 referee", flush=True)
-    yolo_train_f32 = check_yolov8_train_f32(dev)
+    yolo_train_f32 = {}
+    for phase, kind in (("5h", "yolov8"), ("5i", "yolox"), ("5j", "yolov5")):
+        print(f"phase {phase}: end to end, f32 {YOLO_MODELS[kind]['label']} "
+              f"train step, card vs CPU and the f64 referee", flush=True)
+        yolo_train_f32[kind] = check_yolo_train_f32(dev, kind)
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -5763,17 +5957,23 @@ def main(argv=None) -> int:
           flush=True)
     decode = decode_main_path(dev)
     torch.cuda.empty_cache()
-    print("phase 6o: main path, YOLOv8-s bf16 serving", flush=True)
-    yolo = yolov8_main_path(dev, args.profile)
-    if yolo["profile"] is not None:
-        profiled["yolov8"] = yolo["profile"]
-    torch.cuda.empty_cache()
-    print(f"phase 6p: main path, YOLOv8-s bf16 train step at batch "
-          f"{YOLO_TRAIN_BATCH}", flush=True)
-    yolo_training = yolov8_train_main_path(dev, args.profile)
-    if "profile" in yolo_training:
-        profiled["yolov8_train"] = yolo_training["profile"]
-    torch.cuda.empty_cache()
+    yolo, yolo_training = {}, {}
+    for serve_phase, train_phase, kind in (("6o", "6p", "yolov8"),
+                                           ("6q", "6r", "yolox"),
+                                           ("6s", "6t", "yolov5")):
+        label = YOLO_MODELS[kind]["label"]
+        print(f"phase {serve_phase}: main path, {label} bf16 serving",
+              flush=True)
+        yolo[kind] = yolo_main_path(dev, args.profile, kind)
+        if yolo[kind]["profile"] is not None:
+            profiled[kind] = yolo[kind]["profile"]
+        torch.cuda.empty_cache()
+        print(f"phase {train_phase}: main path, {label} bf16 train step at "
+              f"batch {YOLO_TRAIN_BATCH}", flush=True)
+        yolo_training[kind] = yolo_train_main_path(dev, args.profile, kind)
+        if "profile" in yolo_training[kind]:
+            profiled[f"{kind}_train"] = yolo_training[kind]["profile"]
+        torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -5940,9 +6140,8 @@ def main(argv=None) -> int:
                            pointpillars_training=pp_training,
                            centerpoint_single_training=cp1_training,
                            decode_nms=decode,
-                           yolov8_f32=yolo_f32,
-                           yolov8_train_f32=yolo_train_f32,
-                           yolov8=yolo, yolov8_training=yolo_training,
+                           yolo_f32=yolo_f32, yolo_train_f32=yolo_train_f32,
+                           yolo=yolo, yolo_training=yolo_training,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

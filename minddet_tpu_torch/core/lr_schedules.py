@@ -1,6 +1,7 @@
 """Learning-rate schedules as functions of the step count (counterpart of
-``minddet_tpu/core/lr_schedules.py:linear_warmup``, built as the reference
-builds it from optax's ``linear_schedule`` and ``join_schedules``).
+``minddet_tpu/core/lr_schedules.py:linear_warmup`` and ``warmup_cosine``,
+built as the reference builds them from optax's ``linear_schedule``,
+``cosine_decay_schedule`` and ``join_schedules``).
 
 A schedule takes the count as a tensor (a 0-d tensor on the device in the
 train step, so no step syncs the host; any integer tensor or number in a
@@ -10,6 +11,7 @@ device, computed in f32 as optax computes it.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence
 
 import torch
@@ -26,6 +28,21 @@ def linear_schedule(init_value: float, end_value: float,
         c = torch.as_tensor(count).clamp(0, transition_steps).float()
         frac = 1 - c / transition_steps
         return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
+    """optax's ``cosine_decay_schedule`` (exponent 1, alpha 0):
+    ``init_value`` times (1 + cos(pi c / decay_steps)) / 2, the count c held
+    at ``decay_steps`` from there on."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+
+    def schedule(count) -> torch.Tensor:
+        c = torch.as_tensor(count).clamp(max=decay_steps).float()
+        decay = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
+        return init_value * decay
 
     return schedule
 
@@ -54,4 +71,16 @@ def linear_warmup(learning_rate: float, warmup_steps: int, total_steps: int,
     warm = linear_schedule(0.0, learning_rate, max(warmup_steps, 1))
     decay = linear_schedule(learning_rate, learning_rate * end_factor,
                             max(total_steps - warmup_steps, 1))
+    return join_schedules([warm, decay], [warmup_steps])
+
+
+def warmup_cosine(learning_rate: float, total_steps: int,
+                  warmup_steps: int = 0) -> Schedule:
+    """Linear warm-up from 0 to ``learning_rate`` over ``warmup_steps`` (at
+    least 1), then cosine decay to 0 at ``total_steps`` (the reference's
+    ``warmup_cosine`` at its default ``end_factor`` 0: optax's
+    ``warmup_cosine_decay_schedule``)."""
+    warmup_steps = max(warmup_steps, 1)
+    warm = linear_schedule(0.0, learning_rate, warmup_steps)
+    decay = cosine_decay_schedule(learning_rate, total_steps - warmup_steps)
     return join_schedules([warm, decay], [warmup_steps])

@@ -63,6 +63,18 @@ runs it, nothing cut: 640x640, 80 classes, batch 16, f32 parameters and
 bf16 compute, SGD 0.937 with Nesterov momentum and weight decay 5e-4 under
 the config's linear warm-up from step 0, inside the NaN guard. Neither
 launches a hand-written kernel.
+
+``yolox_entry()`` and ``yolov5_entry()`` serve YOLOX-s and YOLOv5-s
+(``configs/yolox_s_coco.yaml``, ``configs/yolov5_s_coco.yaml``: depth 0.33,
+width 0.5, 80 classes, 640x640) in bf16 on ``yolov8_entry``'s image:
+YOLOX's ``predict`` (top 1000, class-aware NMS 0.65 over score 0.01, 100
+detections) with its score biases calibrated (``calibrate_yolox``), and
+YOLOv5's (top 1000, NMS 0.45 over 0.05, 100 detections) as seeded.
+``yolox_train_entry()`` and ``yolov5_train_entry()`` are their configs' train
+sections as ``train/train.py --synthetic`` runs them, nothing cut: batch 16,
+f32 parameters and bf16 compute, Nesterov SGD (momentum 0.9 and 0.937) with
+weight decay 5e-4 under the configs' warm-up cosine from step 0, inside the
+NaN guard. None of the four launches a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -72,7 +84,8 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from minddet_tpu_torch.core.lr_schedules import linear_warmup
+from minddet_tpu_torch.core.lr_schedules import (Schedule, linear_warmup,
+                                                  warmup_cosine)
 from minddet_tpu_torch.core.optim import adamw, sgd, skip_nonfinite_updates
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
@@ -81,7 +94,9 @@ from minddet_tpu_torch.models.detectors.centerpoint import (
 from minddet_tpu_torch.models.detectors.faster_rcnn import (BOX_ROI,
                                                              FasterRCNN)
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
+from minddet_tpu_torch.models.detectors.yolov5 import YOLOv5
 from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
+from minddet_tpu_torch.models.detectors.yolox import YOLOX
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
@@ -715,9 +730,9 @@ YOLO_MOMENTUM = 0.937
 YOLO_WEIGHT_DECAY = 5e-4
 
 
-def _seeded_yolov8(dtype: torch.dtype) -> YOLOv8:
-    model = YOLOv8(num_classes=NUM_CLASSES, image_hw=(YOLO_RES, YOLO_RES),
-                   dtype=dtype)
+def _seeded_yolo(cls, dtype: torch.dtype):
+    model = cls(num_classes=NUM_CLASSES, image_hw=(YOLO_RES, YOLO_RES),
+                dtype=dtype)
     return model.init_weights(torch.Generator().manual_seed(SEED))
 
 
@@ -726,7 +741,7 @@ def build_yolov8(device=None, dtype: torch.dtype = torch.bfloat16) -> YOLOv8:
     (flax's default initialisers, the class biases at -4.59) stored in
     ``dtype``, which is also the compute dtype."""
     dev = resolve_device(device)
-    return _seeded_yolov8(dtype).eval().to(device=dev, dtype=dtype,
+    return _seeded_yolo(YOLOv8, dtype).eval().to(device=dev, dtype=dtype,
                                            memory_format=torch.channels_last)
 
 
@@ -738,14 +753,18 @@ def yolov8_entry(device=None, batch: int = 1
     ``nms_passes``. The model is ``build_yolov8``'s in bf16; the image is
     ``bench.py``'s, uniform [0, 1) from numpy ``RandomState(0)``, (batch,
     640, 640, 3) f32."""
-    model = build_yolov8(device)
+    return _yolo_serving(build_yolov8(device), batch)
+
+
+def _yolo_serving(model, batch: int):
     dev = next(model.parameters()).device
     image = np.random.RandomState(0).rand(batch, YOLO_RES, YOLO_RES, 3)
     return model.predict, (torch.from_numpy(image.astype(np.float32)).to(dev),)
 
 
-def yolov8_loss(model: YOLOv8, batch: Dict):
-    """The YOLOv8 train step's loss function: ``YOLOv8.loss``."""
+def yolo_loss(model, batch: Dict):
+    """The YOLO train steps' loss function: the model's ``loss`` (YOLOv8,
+    YOLOX, YOLOv5)."""
     return model.loss(batch)
 
 
@@ -763,15 +782,128 @@ def yolov8_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
     The batch is ``synthetic_detection_batch(batch, (640, 640), 80)``: 2 to
     15 boxes per image in 16 slots."""
     dev = resolve_device(device)
-    model = _seeded_yolov8(torch.bfloat16).to(
-        device=dev, memory_format=torch.channels_last).train()
-    schedule = linear_warmup(YOLO_LR, YOLO_WARMUP, YOLO_TOTAL_STEPS,
-                             YOLO_END_FACTOR)
+    return _yolo_train_program(
+        _seeded_yolo(YOLOv8, torch.bfloat16), dev, batch,
+        linear_warmup(YOLO_LR, YOLO_WARMUP, YOLO_TOTAL_STEPS,
+                      YOLO_END_FACTOR), YOLO_MOMENTUM)
+
+
+def _yolo_train_program(model, dev: torch.device, batch: int,
+                        schedule: Schedule, momentum: float
+                        ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    model = model.to(device=dev, memory_format=torch.channels_last).train()
     tx = skip_nonfinite_updates(sgd(
-        schedule, momentum=YOLO_MOMENTUM, nesterov=True,
+        schedule, momentum=momentum, nesterov=True,
         weight_decay=YOLO_WEIGHT_DECAY))
     state = TrainState.create(model, tx)
     data = synthetic_detection_batch(batch, (YOLO_RES, YOLO_RES), NUM_CLASSES,
                                      seed=SEED)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    return make_train_step(yolov8_loss), (state, data)
+    return make_train_step(yolo_loss), (state, data)
+
+
+# YOLOX-s and YOLOv5-s: configs/yolox_s_coco.yaml, configs/yolov5_s_coco.yaml
+# (train: batch 16, Nesterov SGD, decay 5e-4, warmup_cosine(0.01, 2.2e6,
+# warm-up) counted from step 0)
+YOLO_COSINE_TOTAL_STEPS = 2_200_000
+YOLOX_WARMUP = 36700
+YOLOX_MOMENTUM = 0.9
+YOLOV5_WARMUP = 22000
+YOLOV5_MOMENTUM = 0.937
+# the bias that calibrate_yolox gives YOLOX's class and objectness convs
+YOLOX_SERVE_BIAS = 0.0
+
+
+def build_yolox(device=None, dtype: torch.dtype = torch.bfloat16) -> YOLOX:
+    """YOLOX-s, 80 classes, 640x640, in eval mode: weights from ``SEED``
+    (flax's default initialisers, the class and objectness biases at -4.59)
+    stored in ``dtype``, which is also the compute dtype; not calibrated
+    (``calibrate_yolox``)."""
+    dev = resolve_device(device)
+    return _seeded_yolo(YOLOX, dtype).eval().to(device=dev, dtype=dtype,
+                                            memory_format=torch.channels_last)
+
+
+@torch.no_grad()
+def calibrate_yolox(model: YOLOX) -> YOLOX:
+    """Give the seeded YOLOX's requests candidates to keep. Its class and
+    objectness convs start at the reference's bias -4.59, so every score
+    sigmoid(cls) x sigmoid(obj) is ~1.0e-4, 100 times under ``predict``'s
+    0.01 threshold, and a request keeps nothing: its NMS would run on no
+    valid box. So the six ``cls_out{i}`` / ``obj_out{i}`` biases are set to
+    ``YOLOX_SERVE_BIAS`` (0: both sigmoids near 1/2 before the features
+    move them, every score near 0.25), as YOLOv5's seeded head has them:
+    the top 1000 candidates all pass the threshold. Returns ``model``,
+    changed in place."""
+    for i in range(model.head.levels):
+        for name in (f"cls_out{i}", f"obj_out{i}"):
+            getattr(model.head, name).bias.fill_(YOLOX_SERVE_BIAS)
+    return model
+
+
+def yolox_entry(device=None, batch: int = 1
+                ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``YOLOX.predict``
+    (top 1000, NMS 0.65, score threshold 0.01, 100 detections): boxes
+    (batch, 100, 4) in input pixels, scores, labels (-1 in empty slots),
+    ``nms_passes``. The model is ``build_yolox``'s in bf16, calibrated
+    (``calibrate_yolox``: the seeded model keeps nothing); the image is
+    ``yolov8_entry``'s."""
+    return _yolo_serving(calibrate_yolox(build_yolox(device)), batch)
+
+
+def yolox_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
+                      ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one YOLOX-s
+    train step in place and returns ``(state, metrics)`` (loss, iou_loss,
+    obj_loss, cls_loss, grad_norm, on the device).
+
+    ``configs/yolox_s_coco.yaml``'s train section: the model seeded with
+    ``SEED`` (the reference's initialisers, uncalibrated), f32 parameters,
+    bf16 compute, channels_last, train mode; SGD momentum 0.9, Nesterov,
+    weight decay 5e-4 on ndim > 1 parameters, no clip, the lr
+    ``warmup_cosine(0.01, 2.2e6, 36700)`` of the applied steps' count (0 at
+    the first step), inside ``skip_nonfinite_updates``. The batch is
+    ``synthetic_detection_batch(batch, (640, 640), 80)``."""
+    dev = resolve_device(device)
+    return _yolo_train_program(
+        _seeded_yolo(YOLOX, torch.bfloat16), dev, batch,
+        warmup_cosine(YOLO_LR, YOLO_COSINE_TOTAL_STEPS, YOLOX_WARMUP),
+        YOLOX_MOMENTUM)
+
+
+def build_yolov5(device=None, dtype: torch.dtype = torch.bfloat16
+                 ) -> YOLOv5:
+    """YOLOv5-s, 80 classes, 640x640, in eval mode: weights from ``SEED``
+    (flax's default initialisers: the head's biases at 0) stored in
+    ``dtype``, which is also the compute dtype."""
+    dev = resolve_device(device)
+    return _seeded_yolo(YOLOv5, dtype).eval().to(
+        device=dev, dtype=dtype, memory_format=torch.channels_last)
+
+
+def yolov5_entry(device=None, batch: int = 1
+                 ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``YOLOv5.predict``
+    (top 1000, NMS 0.45, score threshold 0.05, 100 detections): boxes
+    (batch, 100, 4) in input pixels, scores, labels (-1 in empty slots),
+    ``nms_passes``. The model is ``build_yolov5``'s in bf16, not
+    calibrated (its seeded scores all lie near 0.25); the image is
+    ``yolov8_entry``'s."""
+    return _yolo_serving(build_yolov5(device), batch)
+
+
+def yolov5_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
+                       ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one YOLOv5-s
+    train step in place and returns ``(state, metrics)`` (loss, box_loss,
+    obj_loss, cls_loss, grad_norm, on the device).
+
+    ``configs/yolov5_s_coco.yaml``'s train section: as
+    ``yolox_train_entry``, with SGD momentum 0.937 and the lr
+    ``warmup_cosine(0.01, 2.2e6, 22000)``."""
+    dev = resolve_device(device)
+    return _yolo_train_program(
+        _seeded_yolo(YOLOv5, torch.bfloat16), dev, batch,
+        warmup_cosine(YOLO_LR, YOLO_COSINE_TOTAL_STEPS, YOLOV5_WARMUP),
+        YOLOV5_MOMENTUM)

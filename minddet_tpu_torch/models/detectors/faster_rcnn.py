@@ -32,7 +32,8 @@ from minddet_tpu_torch.models.heads.roi_head import (BoxHead, MaskHead,
                                                      sample_proposals)
 from minddet_tpu_torch.models.heads.rpn_head import (RPNHead,
                                                      generate_proposals)
-from minddet_tpu_torch.models.layers import (init_flax_defaults_,
+from minddet_tpu_torch.models.layers import (DeviceArrays,
+                                             init_flax_defaults_,
                                              variance_scaling_)
 from minddet_tpu_torch.models.losses import bce_with_logits
 from minddet_tpu_torch.models.necks.fpn import FPN
@@ -77,9 +78,14 @@ class FasterRCNN(nn.Module):
         self.level_sizes = [
             level_shape(self.image_hw, s)[0] * level_shape(
                 self.image_hw, s)[1] * na for s in self.strides]
-        self.register_buffer("anchors", torch.from_numpy(multilevel_anchors(
-            self.image_hw, self.strides, anchor_scales, anchor_ratios)),
-            persistent=False)
+        self._anchors = DeviceArrays(multilevel_anchors(
+            self.image_hw, self.strides, anchor_scales, anchor_ratios))
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        """Every level's anchors (A, 4), f32 under any compute dtype (as the
+        reference keeps them), on the parameters' device."""
+        return self._anchors(next(self.parameters()).device)[0]
 
     def forward(self, image: torch.Tensor
                 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:

@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from minddet_tpu_torch.models.layers import Conv2d, init_flax_defaults_
+from minddet_tpu_torch.models.layers import (Conv2d, init_flax_defaults_,
+                                             take_rows)
 from minddet_tpu_torch.models.losses import (sigmoid_focal_loss,
                                              weighted_smooth_l1,
                                              weighted_softmax_ce)
@@ -306,10 +307,10 @@ class PointPillars(nn.Module):
                                  torch.zeros_like(top_scores))
         k_scores, k_idx = topk_lowest_index_first(
             top_scores, min(nms_pre, scores_all.shape[1]))
-        boxes = second_box_decode(_take(preds["box_preds"], k_idx),
+        boxes = second_box_decode(take_rows(preds["box_preds"], k_idx),
                                   self.anchors[k_idx])
         if self.use_direction_classifier:
-            dir_lab = _take(preds["dir_preds"], k_idx).argmax(dim=-1)
+            dir_lab = take_rows(preds["dir_preds"], k_idx).argmax(dim=-1)
             rot = boxes[..., 6]
             flip = (rot > 0) != (dir_lab == 1)
             rot = limit_period(torch.where(flip, rot + math.pi, rot), 0.5,
@@ -336,8 +337,8 @@ class PointPillars(nn.Module):
         valid = keep_idx >= 0
         labels = torch.gather(cand["labels"], 1, sel).to(torch.int32)
         return {
-            "boxes": torch.where(valid[..., None], _take(cand["boxes"], sel),
-                                 0.0),
+            "boxes": torch.where(valid[..., None],
+                                 take_rows(cand["boxes"], sel), 0.0),
             "scores": torch.where(valid, torch.gather(cand["scores"], 1, sel),
                                   0.0),
             "labels": torch.where(valid, labels, -1),
@@ -363,8 +364,3 @@ class PointPillars(nn.Module):
         zero biases, identity BN (scale 1, bias 0, mean 0, var 1)."""
         init_flax_defaults_(self, generator)
         return self
-
-
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (B, K) of ``t`` (B, A, C) -> (B, K, C)."""
-    return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))

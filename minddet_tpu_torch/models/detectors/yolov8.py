@@ -22,16 +22,15 @@ from torch import nn
 
 from minddet_tpu_torch.models.backbones.csp_darknet import (ConvBlock,
                                                              CSPDarknet)
-from minddet_tpu_torch.models.detectors.yolox import yolo_grid
-from minddet_tpu_torch.models.layers import Conv2d, init_flax_defaults_
+from minddet_tpu_torch.models.detectors.yolox import (
+    CLS_BIAS, best_class_candidates, class_aware_detections, yolo_grid)
+from minddet_tpu_torch.models.layers import (Conv2d, DeviceArrays, clip,
+                                             init_flax_defaults_, take_rows)
 from minddet_tpu_torch.models.losses import bce_with_logits
 from minddet_tpu_torch.models.necks.pan import C2fPAN
 from minddet_tpu_torch.ops.box import elementwise_iou, pairwise_iou
-from minddet_tpu_torch.ops.decode import topk_lowest_index_first
-from minddet_tpu_torch.ops.nms import batched_nms
 
 REG_MAX = 16  # DFL bins per side
-CLS_BIAS = -4.59  # the class convs' initial bias: sigmoid ~0.01
 # the loss weights of the reference: box IoU, class BCE, DFL
 IOU_WEIGHT, CLS_WEIGHT, DFL_WEIGHT = 7.5, 0.5, 1.5
 
@@ -90,14 +89,6 @@ def dfl_decode(dfl_logits: torch.Tensor, points: torch.Tensor,
                        -1)
 
 
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """``jnp.clip``: a value on a bound passes half its gradient, as JAX's
-    ``maximum`` / ``minimum`` split a tie (``torch.clamp`` passes it
-    whole)."""
-    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
-                         torch.full_like(x, hi))
-
-
 def align_metric(boxes: torch.Tensor, cls_logits: torch.Tensor,
                  points: torch.Tensor, gt_boxes: torch.Tensor,
                  gt_classes: torch.Tensor, gt_mask: torch.Tensor,
@@ -119,8 +110,8 @@ def align_metric(boxes: torch.Tensor, cls_logits: torch.Tensor,
     cls_idx = torch.where(gt_mask, gt_classes, torch.zeros_like(gt_classes))
     gt_p = torch.gather(cls_p, 2, cls_idx[:, None, :].expand(
         -1, a, -1).long()).transpose(1, 2)
-    metric = (torch.pow(_clip(gt_p, 1e-8, 1.0), alpha)
-              * torch.pow(_clip(iou, 1e-8, 1.0), beta))
+    metric = (torch.pow(clip(gt_p, 1e-8, 1.0), alpha)
+              * torch.pow(clip(iou, 1e-8, 1.0), beta))
     return torch.where(in_box, metric, torch.zeros_like(metric)), iou
 
 
@@ -157,11 +148,6 @@ def tal_assign(boxes: torch.Tensor, cls_logits: torch.Tensor,
             "soft_target": torch.gather(norm, 1, best_gt[:, None])[:, 0]}
 
 
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (B, K) of ``t`` (B, N, C) -> (B, K, C)."""
-    return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
-
-
 class YOLOv8(nn.Module):
     """YOLOv8-s by default: ``CSPDarknet(use_c2f=True)``, ``C2fPAN`` at
     (w, 2 w, 4 w) with w = 256 scaled by ``width_mult`` and depth 3 scaled
@@ -182,19 +168,8 @@ class YOLOv8(nn.Module):
         self.neck = C2fPAN(self.backbone.out_channels, (w, 2 * w, 4 * w),
                            max(1, round(3 * depth_mult)))
         self.head = YOLOv8Head((w, 2 * w, 4 * w), num_classes, width=w)
-        # the anchor points stay f32 on whatever device and dtype the model
-        # is moved to (a buffer would follow a cast of the model to bf16)
-        self._grid_np = yolo_grid(self.image_hw, self.strides)
-        self._grids: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
-
-    def grid(self, device: torch.device
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Anchor points (A, 2) and strides (A,), f32, on ``device``."""
-        device = torch.device(device)
-        if device not in self._grids:
-            self._grids[device] = tuple(torch.from_numpy(g).to(device)
-                                        for g in self._grid_np)
-        return self._grids[device]
+        # grid(device): the anchor points (A, 2) and strides (A,), f32
+        self.grid = DeviceArrays(*yolo_grid(self.image_hw, self.strides))
 
     def features(self, image: torch.Tensor):
         """image (B, H, W, 3) -> ((C3, C4, C5), (N3, N4, N5)), NCHW maps in
@@ -232,7 +207,7 @@ class YOLOv8(nn.Module):
                             self.num_classes).to(cls.dtype) * w[..., None]
         cls_loss = bce_with_logits(cls, tgt_cls).sum() / num_fg
 
-        gt_pa = _take(gt_boxes, mg)
+        gt_pa = take_rows(gt_boxes, mg)
         iou_loss = ((1.0 - elementwise_iou(boxes, gt_pa)) * w).sum() / num_fg
 
         px, py = points[None, :, 0], points[None, :, 1]
@@ -255,37 +230,18 @@ class YOLOv8(nn.Module):
 
     def candidates(self, dfl: torch.Tensor, cls: torch.Tensor,
                    pre_nms: int = 1000) -> Dict[str, torch.Tensor]:
-        """The decoded boxes of the ``pre_nms`` best-scoring anchors of each
-        image (the sigmoid of its best class; the lower anchor first among
-        equal scores): scores (B, K), boxes (B, K, 4), labels (B, K) (the
-        first best class), anchor index (B, K); K = min(pre_nms, A)."""
+        """``best_class_candidates`` of the decoded boxes, each class scored
+        by the sigmoid of its logit."""
         points, strides = self.grid(dfl.device)
         boxes = dfl_decode(dfl, points[None], strides[None])
-        scores, labels = torch.sigmoid(cls).max(dim=-1)
-        top_s, top_i = topk_lowest_index_first(
-            scores, min(pre_nms, scores.shape[1]))
-        return {"scores": top_s, "boxes": _take(boxes, top_i),
-                "labels": torch.gather(labels, 1, top_i), "index": top_i}
+        return best_class_candidates(boxes, torch.sigmoid(cls), pre_nms)
 
     def detections(self, cand: Dict[str, torch.Tensor],
                    score_threshold: float = 0.01, nms_threshold: float = 0.7,
                    max_detections: int = 100) -> Dict:
-        """Class-aware NMS of ``candidates`` over ``score_threshold``:
-        boxes (B, D, 4), scores (B, D), labels (B, D) int32 (0, 0 and -1 in
-        empty slots), ``nms_passes``; D = min(max_detections, K)."""
-        k = cand["scores"].shape[1]
-        keep, _, passes = batched_nms(cand["boxes"], cand["scores"],
-                                      cand["labels"], nms_threshold,
-                                      score_threshold, max_detections)
-        sel = keep.clamp(0, k - 1)
-        ok = keep >= 0
-        labels = torch.gather(cand["labels"], 1, sel).to(torch.int32)
-        return {"boxes": torch.where(ok[..., None], _take(cand["boxes"], sel),
-                                     0.0),
-                "scores": torch.where(ok, torch.gather(cand["scores"], 1,
-                                                       sel), 0.0),
-                "labels": torch.where(ok, labels, -1),
-                "nms_passes": passes}
+        """``class_aware_detections`` at YOLOv8's thresholds."""
+        return class_aware_detections(cand, score_threshold, nms_threshold,
+                                      max_detections)
 
     @torch.inference_mode()
     def predict(self, image: torch.Tensor, score_threshold: float = 0.01,

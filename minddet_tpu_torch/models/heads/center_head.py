@@ -36,7 +36,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from minddet_tpu_torch.models.layers import BatchNorm, Conv2d
+from minddet_tpu_torch.models.layers import BatchNorm, Conv2d, take_rows
 from minddet_tpu_torch.models.losses import (fast_focal_loss,
                                              gather_reg_loss_per_channel,
                                              sigmoid_clip)
@@ -107,11 +107,6 @@ def decode_task(pred: Dict[str, torch.Tensor], pc_range: Sequence[float],
     boxes = torch.cat([cx[..., None], cy[..., None], height, torch.exp(dim),
                        vel, yaw[..., None]], dim=-1)
     return boxes, scores, cls
-
-
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (B, K) of ``t`` (B, N, C) -> (B, K, C)."""
-    return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
 
 
 class CenterHead(nn.Module):
@@ -190,7 +185,7 @@ class CenterHead(nn.Module):
         scores = torch.cat(scores_all, dim=1)
         labels = torch.cat(labels_all, dim=1)
         top, order = topk_lowest_index_first(scores, k)
-        return _take(boxes, order), top, torch.gather(labels, 1, order)
+        return take_rows(boxes, order), top, torch.gather(labels, 1, order)
 
     def candidates(self, preds: Preds, pc_range: Sequence[float],
                    voxel_size: Sequence[float], out_size_factor: int = 4,
@@ -256,7 +251,7 @@ class CenterHead(nn.Module):
             sel = keep.clamp(0, n - 1)
             ok = keep >= 0
             out["boxes"].append(torch.where(ok[..., None],
-                                            _take(c["boxes"], sel), 0.0))
+                                            take_rows(c["boxes"], sel), 0.0))
             out["scores"].append(torch.where(
                 ok, torch.gather(c["scores"], 1, sel), 0.0))
             out["labels"].append(torch.where(

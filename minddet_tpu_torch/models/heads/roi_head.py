@@ -12,7 +12,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from minddet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
+from minddet_tpu_torch.models.layers import (Conv2d, ConvTranspose2d, Linear,
+                                             take_rows)
 from minddet_tpu_torch.models.losses import bce_with_logits
 from minddet_tpu_torch.ops.anchors2d import match_anchors, sample_balanced
 from minddet_tpu_torch.ops.box import clip_boxes, decode_deltas, encode_deltas
@@ -128,13 +129,6 @@ def box_head_predict(cls_logits: torch.Tensor, deltas: torch.Tensor,
     }
 
 
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """t (B, N, ...) at indices (B, K) along axis 1 -> (B, K, ...)."""
-    shape = idx.shape + t.shape[2:]
-    return torch.gather(t, 1, idx.reshape(idx.shape + (1,) * (t.dim() - 2))
-                        .expand(shape))
-
-
 def sample_proposals(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor,
                      proposals: torch.Tensor, gt_boxes: torch.Tensor,
                      gt_classes: torch.Tensor, gt_mask: torch.Tensor,
@@ -159,13 +153,13 @@ def sample_proposals(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor,
                                   force_match=False)
     weights = sample_balanced(u1, u2, labels, num_samples, pos_fraction)
     _, sel = topk_lowest_index_first(weights + u3 * 0.5, num_samples)
-    rois = _take(cand, sel)
+    rois = take_rows(cand, sel)
     sel_match = torch.gather(match, 1, sel)
     pos = torch.gather(labels, 1, sel) == 1
     cls_target = torch.where(
         pos, torch.gather(gt_classes.long(), 1, sel_match) + 1,
         torch.zeros_like(sel_match))
-    delta_target = encode_deltas(_take(gt_boxes, sel_match), rois,
+    delta_target = encode_deltas(take_rows(gt_boxes, sel_match), rois,
                                  stds=BBOX_REG_STDS)
     valid = torch.gather(weights, 1, sel) > 0
     return {"rois": rois, "cls_target": cls_target,

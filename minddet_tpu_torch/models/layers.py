@@ -14,7 +14,9 @@ casts the image to its ``dtype`` once; everything downstream follows.
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -55,6 +57,38 @@ def init_flax_defaults_(model: nn.Module, generator: torch.Generator) -> None:
             continue
         if getattr(m, "bias", None) is not None:
             nn.init.zeros_(m.bias)
+
+
+class DeviceArrays:
+    """numpy arrays handed out as tensors of their own dtype on the device
+    asked for, each device's copy made once. A module keeps its static
+    grids so, outside its buffers: a buffer would follow a cast of the
+    model to bf16, where the reference keeps them f32."""
+
+    def __init__(self, *arrays: np.ndarray):
+        self._arrays = arrays
+        self._on: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    def __call__(self, device) -> Tuple[torch.Tensor, ...]:
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = tuple(torch.from_numpy(a).to(device)
+                                     for a in self._arrays)
+        return self._on[device]
+
+
+def take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (B, K) of ``t`` (B, N, ...) -> (B, K, ...)."""
+    return torch.gather(t, 1, idx.reshape(idx.shape + (1,) * (t.dim() - 2))
+                        .expand(idx.shape + t.shape[2:]))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: a value on a bound passes half its gradient, as JAX's
+    ``maximum`` / ``minimum`` split a tie (``torch.clamp`` passes it
+    whole)."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
 
 
 def _cast(t, dtype):

@@ -3,8 +3,9 @@ of ``minddet_tpu/ops/anchors2d.py``: ``grid_anchors``, ``multilevel_anchors``,
 ``match_anchors``, ``sample_balanced`` and ``rpn_targets``).
 
 Anchors are static: numpy grids computed once when a model is built, which
-the model keeps as a device buffer. Boxes are [x1, y1, x2, y2] in input
-pixels.
+the model keeps f32 on its device outside its buffers (a cast of the model
+to bf16 leaves them f32, as the reference keeps them). Boxes are [x1, y1,
+x2, y2] in input pixels.
 
 The targets are batched over images where the reference vmaps one image at
 a time, and take their uniform draws as tensors where the reference takes a

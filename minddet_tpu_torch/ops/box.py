@@ -1,4 +1,4 @@
-"""Box helpers of the PointPillars, CenterPoint and R-CNN paths
+"""Box helpers of the PointPillars, CenterPoint, R-CNN and YOLO paths
 (counterpart of the parts of ``minddet_tpu/ops/box.py`` they use, plus the
 rotated-rectangle corners of ``minddet_tpu/ops/rotated_iou_pallas.py:
 _corners``).
@@ -45,6 +45,34 @@ def elementwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     inter = wh[..., 0] * wh[..., 1]
     union = area(boxes1) + area(boxes2) - inter
     return inter / union.clamp(min=eps)
+
+
+def elementwise_ciou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Complete IoU of corner boxes of the same leading shape (..., 4) ->
+    (...): IoU - (centre distance)² / (enclosing box's diagonal)² - alpha v,
+    v = 4 / pi² (atan(w2 / h2) - atan(w1 / h1))² (Zheng et al., 2020),
+    widths, heights and the diagonal kept at ``eps`` or above (JAX's
+    ``maximum``: a tie passes half the gradient); alpha = v / (1 - IoU + v)
+    is detached, as the reference stops its gradient."""
+    def at_least(x):
+        return torch.maximum(x, torch.full_like(x, eps))
+
+    iou = elementwise_iou(boxes1, boxes2, eps)
+    c1 = (boxes1[..., :2] + boxes1[..., 2:4]) * 0.5
+    c2 = (boxes2[..., :2] + boxes2[..., 2:4]) * 0.5
+    rho2 = ((c1 - c2) ** 2).sum(-1)
+    enc_lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    enc_rb = torch.maximum(boxes1[..., 2:4], boxes2[..., 2:4])
+    diag2 = ((enc_rb - enc_lt) ** 2).sum(-1)
+    w1 = at_least(boxes1[..., 2] - boxes1[..., 0])
+    h1 = at_least(boxes1[..., 3] - boxes1[..., 1])
+    w2 = at_least(boxes2[..., 2] - boxes2[..., 0])
+    h2 = at_least(boxes2[..., 3] - boxes2[..., 1])
+    v = (4.0 / math.pi ** 2) * (torch.atan(w2 / h2)
+                                 - torch.atan(w1 / h1)) ** 2
+    alpha = (v / at_least(1.0 - iou + v)).detach()
+    return iou - rho2 / at_least(diag2) - alpha * v
 
 
 def clip_boxes(boxes: torch.Tensor, height: float, width: float

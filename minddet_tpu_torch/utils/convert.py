@@ -48,6 +48,12 @@ reg``, ``mask_head/conv{i}|up|out``; the mask head's 2x2 stride-2
 ``neck/td4|td3|down3|bu4|down4|bu5``, ``head/reg{i}_0|reg{i}_1|reg_out{i}|
 cls{i}_0|cls{i}_1|cls_out{i}``, each ConvBlock's ``conv`` and ``bn``).
 
+``yolox_from_flax`` does it for the JAX ``YOLOX`` (the same ``backbone``,
+``neck/reduce5|td4|reduce4|td3|down3|bu4|down4|bu5``, ``head/stem{i}|
+cls{i}_{j}|reg{i}_{j}|cls_out{i}|reg_out{i}|obj_out{i}``) and
+``yolov5_from_flax`` for the JAX ``YOLOv5`` (``backbone``, the same
+``neck``, the 1x1 ``head{i}`` convs).
+
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
 ``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and
@@ -190,6 +196,16 @@ def mask_rcnn_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
 
 def yolov8_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     """Load the JAX ``YOLOv8`` variables into the port's ``YOLOv8``."""
+    return load_from_flax(model, variables)
+
+
+def yolox_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``YOLOX`` variables into the port's ``YOLOX``."""
+    return load_from_flax(model, variables)
+
+
+def yolov5_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``YOLOv5`` variables into the port's ``YOLOv5``."""
     return load_from_flax(model, variables)
 
 

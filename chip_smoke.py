@@ -89,6 +89,14 @@ Phases (any failure raises and exits non-zero):
       logits; no kernel launches;
    i. the same for YOLOv5-s ``predict``: each level's (B, H, W, 3, 85)
       head output; no kernel launches;
+   j. the same for YOLOv3 ``predict`` (Darknet-53, 416x416), BN statistics
+      from the request's image: C3-C5 and each level's head output
+      (strides 32, 16, 8); no kernel launches;
+   k. the same for YOLOv4 (CSPDarknet53 at width 1.0, 512x512);
+   l. the same for YOLOv7 (E-ELAN at width 0.5, 640x640);
+   m. the same for SSD-300-MobileNetV2 (its class convs calibrated on the
+      request, as ``ssd_entry`` serves it): the six maps, the class logits
+      and box deltas, top-400, NMS;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
@@ -128,6 +136,15 @@ Phases (any failure raises and exits non-zero):
    j. the same for YOLOv5-s, with its target maps on the CPU's inputs
       exactly, also with a GT copied into a later slot (the last writer
       wins every slot both claim); no kernel launches;
+   k. the same for YOLOv3 (its config's SGD: momentum 0.9, no Nesterov),
+      with each GT's best anchor, the target maps and the ignore masks on
+      the CPU's inputs exactly, also with a GT copied into a later slot;
+   l. the same for YOLOv4 (width 1.0, SGD 0.949 without Nesterov) and
+   m. YOLOv7 (width 0.5, Nesterov SGD 0.937), with YOLOv5's target maps;
+   n. the same for SSD at 300x300 (SGD 0.9, decay 4e-5; a large GT added
+      on each of maps 2-5, so every map has positives), with the labels,
+      the matches and the mined negatives on the CPU's inputs exactly (the
+      negatives also on cross entropies rounded to ties);
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -196,7 +213,17 @@ Phases (any failure raises and exits non-zero):
    s. YOLOv5-s serving (``yolov5_entry``: bf16, 640x640, top 1000, NMS
       0.45 over score 0.05) as in o;
    t. YOLOv5-s training (``yolov5_train_entry``: SGD 0.937 under the
-      warm-up cosine) as in p.
+      warm-up cosine) as in p;
+   u. YOLOv3 serving (``yolov3_entry``: bf16, 416x416, top 1000, NMS 0.45
+      over 0.05) as in o, and v. its training (``yolov3_train_entry``:
+      batch 16, SGD 0.9 under ``multi_epochs_decay``) as in p;
+   w. / x. the same for YOLOv4 (512x512; SGD 0.949 under the warm-up
+      cosine);
+   y. / z. the same for YOLOv7 (640x640; Nesterov SGD 0.937);
+   aa. / ab. the same for SSD-300-MobileNetV2 (``ssd_entry``: calibrated
+      on its image, top 400; ``ssd_train_entry``: batch 32, SGD 0.9, decay
+      4e-5); 6u-6ab are always profiled (the device's busy time and idle
+      share per request and per step) and print their seconds.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -2069,7 +2096,9 @@ HEAD_REFEREE_FLOOR = 1e-6
 # own, so that what it checks does not depend on the phases before it
 PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "4i": 46, "5": 50, "5b": 51, "5d": 52, "5e": 53, "5f": 54,
-               "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61}
+               "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61,
+               "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
+               "5m": 76, "5n": 77}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -3147,15 +3176,15 @@ def _sampler_launches(n: int, dcn4: bool = False, train: bool = True):
     return {k.name: n * per.get(k.name, 0) for k in kernels.KERNELS}
 
 
-def _train_snapshot(state, metrics):
+def _train_snapshot(state, metrics, dtype=torch.float32):
     model = state.model
     return dict(
         metrics={k: float(v) for k, v in metrics.items()},
-        grads={n: p.grad.detach().float().cpu()
+        grads={n: p.grad.detach().to(dtype).cpu()
                for n, p in model.named_parameters()},
-        params={n: p.detach().float().cpu()
+        params={n: p.detach().to(dtype).cpu()
                 for n, p in model.named_parameters()},
-        stats={n: b.detach().float().cpu()
+        stats={n: b.detach().to(dtype).cpu()
                for n, b in model.named_buffers() if "running" in n})
 
 
@@ -4098,11 +4127,45 @@ def _referee_checks(g, c, r, t, parts, prefix, result, bad):
     as one vector) and every parameter's at most ``referee_k`` times as far
     from the referee as the CPU's, plus a floor; the BN statistics within
     ``stat_atol + stat_rtol * |x|`` of both. Readings go into ``result``
-    under ``prefix``, failed checks into ``bad``."""
+    under ``prefix``, failed checks into ``bad``. Where ``grad_norm_rtol``
+    is None grad_norm is held to the referee only. The floor of a part or
+    parameter is ``referee_grad_floor``, or where ``t`` has
+    ``part_floors`` the floor given for the first prefix of its name there.
+    A parameter whose referee gradient is exactly 0 gets none on any side:
+    it is counted apart and held to 0 on the card, and a part whose
+    parameters all get none fails (its gradient is held by nothing). Where
+    ``t`` has ``cancelled``, a parameter whose referee gradient lies under
+    ``cancelled`` times the largest of all (but not at 0) is one whose
+    gradient cancels (a BN bias seen only through a linear layer and a
+    train-mode BN): its gradient is rounding noise on every side, so it is
+    held under CANCELLED_NOISE times the largest gradient instead of to
+    the referee."""
 
     def beyond(card, host, floor):
         """The card farther from the referee than the f32 CPU allows."""
         return card > t["referee_k"] * host + floor
+
+    def floor_of(name):
+        return next((f for p, f in t.get("part_floors", {}).items()
+                     if name.startswith(p)), t["referee_grad_floor"])
+
+    largest = max(float(v.abs().max()) for v in r["grads"].values())
+    zero = {n for n, v in r["grads"].items() if not bool(v.any())}
+    result[f"{prefix}zero_grads"] = len(zero)
+    if zero:
+        result[f"{prefix}zero_grad_names"] = sorted(zero)[:6]
+        if any(bool(g["grads"][n].any()) for n in zero):
+            bad.append(f"{prefix}gradients on the card where the referee's "
+                       f"are 0")
+    noise = set() if t.get("cancelled") is None else {
+        n for n, v in r["grads"].items()
+        if float(v.abs().max()) < t["cancelled"] * largest} - zero
+    if noise:
+        card_noise = max(float(g["grads"][n].abs().max()) for n in noise)
+        result[f"{prefix}cancelled_grads"] = len(noise)
+        result[f"{prefix}cancelled_grad_max_card"] = card_noise / largest
+        if card_noise > CANCELLED_NOISE * largest:
+            bad.append(f"{prefix}cancelled gradients on the card")
 
     for k, v in r["metrics"].items():
         scale = max(abs(v), 1e-30)
@@ -4116,7 +4179,7 @@ def _referee_checks(g, c, r, t, parts, prefix, result, bad):
         if k == "grad_norm":
             if beyond(card, cpu_d, t["referee_grad_norm_floor"]):
                 bad.append(f"{prefix}grad_norm against the referee")
-            if host > t["grad_norm_rtol"]:
+            if t["grad_norm_rtol"] is not None and host > t["grad_norm_rtol"]:
                 bad.append(prefix + k)
             continue
         if card > t["referee_loss_rtol"]:
@@ -4124,24 +4187,27 @@ def _referee_checks(g, c, r, t, parts, prefix, result, bad):
         if host > t["loss_rtol"]:
             bad.append(prefix + k)
     for part in parts:
-        if not any(n.startswith(part) for n in r["grads"]):
+        names = [n for n in r["grads"] if n.startswith(part)]
+        if not names:
             continue
         key = prefix + "grad_" + part.rstrip("._")
+        if all(n in zero for n in names):
+            bad.append(f"{key}: the referee's gradient is 0 throughout")
+            continue
         card = result[f"{key}_card_vs_referee"] = _part_rel_l2(
             g["grads"], r["grads"], part)
         cpu_d = result[f"{key}_cpu_vs_referee"] = _part_rel_l2(
             c["grads"], r["grads"], part)
-        if beyond(card, cpu_d, t["referee_grad_floor"]):
+        if beyond(card, cpu_d, floor_of(part)):
             bad.append(f"{key} against the referee")
     rel = {n: _rel_l2(g["grads"][n].double(), v.double())
-           for n, v in r["grads"].items()}
+           for n, v in r["grads"].items() if n not in noise | zero}
     rel_cpu = {n: _rel_l2(c["grads"][n].double(), v.double())
-               for n, v in r["grads"].items()}
+               for n, v in r["grads"].items() if n not in noise | zero}
     result[f"{prefix}grad_rel_l2_worst_card_vs_referee"] = [
         f"{n} {v:.2e} (CPU {rel_cpu[n]:.2e})"
         for n, v in sorted(rel.items(), key=lambda kv: -kv[1])[:6]]
-    far = [n for n in rel
-           if beyond(rel[n], rel_cpu[n], t["referee_grad_floor"])]
+    far = [n for n in rel if beyond(rel[n], rel_cpu[n], floor_of(n))]
     result[f"{prefix}params_beyond_the_referee_bound"] = len(far)
     if far:
         bad.append(f"{prefix}gradients of {far[:6]} against the referee")
@@ -4344,23 +4410,92 @@ def _check_rcnn_train_f32(dev, with_mask, gen):
 YOLO_CHECK_BATCH = 2
 YOLO_TIE = 1e-6  # sorted candidate scores this close may trade places
 YOLO_MATCHED_SHARE = 0.9  # of the CPU's detections found on the card
-# per model: its label, its head outputs' names, the ``entry.build_*`` of
-# its served model (device, dtype), its serving and train entries, the name
-# of its config's SGD momentum in ``entry`` and predict's score threshold
-# and NMS IoU
-YOLO_MODELS = {
-    "yolov8": dict(label="YOLOv8-s", heads=("dfl", "cls"), build="yolov8",
-                   serve="yolov8_entry", train="yolov8_train_entry",
-                   momentum="YOLO_MOMENTUM", score=0.01, nms=0.7),
-    "yolox": dict(label="YOLOX-s", heads=("reg", "obj", "cls"),
-                  build="yolox", serve="yolox_entry",
-                  train="yolox_train_entry", momentum="YOLOX_MOMENTUM",
-                  score=0.01, nms=0.65),
-    "yolov5": dict(label="YOLOv5-s", heads=("P3_out", "P4_out", "P5_out"),
-                   build="yolov5", serve="yolov5_entry",
-                   train="yolov5_train_entry", momentum="YOLOV5_MOMENTUM",
-                   score=0.05, nms=0.45),
-}
+YOLO_MAPS = ("C3", "C4", "C5", "N3", "N4", "N5")
+
+
+def yolo_models() -> dict:
+    """The 2D detectors of phases 4g-4m, 5h-5n and 6o-6ab in their phases'
+    order, each as a dict: its ``label``, its model class ``cls``, the
+    ``build`` of its served model (device, dtype), its ``serve`` and
+    ``train`` entries, the names of its head outputs (``heads``),
+    predict's ``score`` threshold and ``nms`` IoU, the config's resolution
+    (``res``), the feature ``maps`` held to the referee, the config's SGD
+    (``momentum``, ``nesterov``, weight ``decay``) and ``train_batch``,
+    the parameter groups (``parts``) and the side (``train_res``) of its
+    phase-5 step, the serving model's ``width`` (None: the class's), the
+    bounds of that step (``tol``), its ``phases`` (4, 5, 6 serving, 6
+    train), whether phase 6 ``profile``s it whatever ``--profile`` says,
+    and whether phase 5 also runs its step in f64 on the card
+    (``f64_step``)."""
+    from minddet_tpu_torch import entry
+    from minddet_tpu_torch.models.detectors.ssd import SSD
+    from minddet_tpu_torch.models.detectors.yolov3 import YOLOv3
+    from minddet_tpu_torch.models.detectors.yolov4 import YOLOv4
+    from minddet_tpu_torch.models.detectors.yolov5 import YOLOv5
+    from minddet_tpu_torch.models.detectors.yolov7 import YOLOv7
+    from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
+    from minddet_tpu_torch.models.detectors.yolox import YOLOX
+
+    common = dict(res=entry.YOLO_RES, maps=YOLO_MAPS, nesterov=True,
+                  decay=entry.YOLO_WEIGHT_DECAY,
+                  train_batch=entry.YOLO_TRAIN_BATCH, parts=YOLO_PARTS,
+                  train_res=YOLO_TRAIN_CHECK["res"], width=None,
+                  tol=YOLO_TRAIN_TOL, profile=False, f64_step=False)
+    # the rest of the 2D detector zoo: always profiled, the step also in
+    # f64 on the card
+    zoo = dict(common, tol=ZOO_TRAIN_TOL, profile=True, f64_step=True)
+    anchor_heads = ("P3_out", "P4_out", "P5_out")
+    return {
+        "yolov8": dict(
+            common, label="YOLOv8-s", cls=YOLOv8, heads=("dfl", "cls"),
+            build=entry.build_yolov8, serve=entry.yolov8_entry,
+            train=entry.yolov8_train_entry, momentum=entry.YOLO_MOMENTUM,
+            score=0.01, nms=0.7, phases=("4g", "5h", "6o", "6p")),
+        "yolox": dict(
+            common, label="YOLOX-s", cls=YOLOX, heads=("reg", "obj", "cls"),
+            build=entry.build_yolox, serve=entry.yolox_entry,
+            train=entry.yolox_train_entry, momentum=entry.YOLOX_MOMENTUM,
+            score=0.01, nms=0.65, phases=("4h", "5i", "6q", "6r")),
+        "yolov5": dict(
+            common, label="YOLOv5-s", cls=YOLOv5, heads=anchor_heads,
+            build=entry.build_yolov5, serve=entry.yolov5_entry,
+            train=entry.yolov5_train_entry, momentum=entry.YOLOV5_MOMENTUM,
+            score=0.05, nms=0.45, phases=("4i", "5j", "6s", "6t")),
+        "yolov3": dict(
+            zoo, label="YOLOv3", cls=YOLOv3,
+            heads=("P5_out", "P4_out", "P3_out"), build=entry.build_yolov3,
+            serve=entry.yolov3_entry, train=entry.yolov3_train_entry,
+            momentum=entry.YOLOV3_MOMENTUM, score=0.05, nms=0.45,
+            res=entry.YOLOV3_RES, maps=("C3", "C4", "C5"), nesterov=False,
+            parts=("backbone.", "h", "route"),
+            phases=("4j", "5k", "6u", "6v")),
+        "yolov4": dict(
+            zoo, label="YOLOv4", cls=YOLOv4, heads=anchor_heads,
+            build=entry.build_yolov4, serve=entry.yolov4_entry,
+            train=entry.yolov4_train_entry, momentum=entry.YOLOV4_MOMENTUM,
+            score=0.05, nms=0.45, res=entry.YOLOV4_RES, nesterov=False,
+            width=entry.YOLOV4_WIDTH, phases=("4k", "5l", "6w", "6x")),
+        "yolov7": dict(
+            zoo, label="YOLOv7", cls=YOLOv7, heads=anchor_heads,
+            build=entry.build_yolov7, serve=entry.yolov7_entry,
+            train=entry.yolov7_train_entry, momentum=entry.YOLOV7_MOMENTUM,
+            score=0.05, nms=0.45, width=entry.YOLOV7_WIDTH,
+            phases=("4l", "5m", "6y", "6z")),
+        "ssd": dict(
+            zoo, label="SSD-300-MobileNetV2", cls=SSD, heads=("cls", "reg"),
+            build=entry.build_ssd, serve=entry.ssd_entry,
+            train=entry.ssd_train_entry, momentum=entry.SSD_MOMENTUM,
+            score=0.05, nms=0.45, res=entry.SSD_RES,
+            maps=("C4", "C5", "E0", "E1", "E2", "E3"), nesterov=False,
+            decay=entry.SSD_WEIGHT_DECAY, train_batch=entry.SSD_TRAIN_BATCH,
+            parts=("backbone.", "extra", "multibox"),
+            train_res=entry.SSD_RES, tol=SSD_TRAIN_TOL,
+            phases=("4m", "5n", "6aa", "6ab")),
+    }
+
+
+def _yolo_spec(kind: str) -> dict:
+    return yolo_models()[kind]
 
 
 def build_yolo(kind: str, dev, dtype):
@@ -4368,21 +4503,26 @@ def build_yolo(kind: str, dev, dtype):
     entry builds it (YOLOX calibrated)."""
     from minddet_tpu_torch import entry
 
-    model = getattr(entry, f"build_{YOLO_MODELS[kind]['build']}")(dev, dtype)
+    model = _yolo_spec(kind)["build"](dev, dtype)
     return entry.calibrate_yolox(model) if kind == "yolox" else model
 
 
-def _yolo_stages(model, image):
-    """``predict`` stage by stage through the model's own methods: C3-C5,
-    N3-N5, the head's outputs (YOLOv8's DFL and class logits, YOLOX's
-    offsets, objectness and class logits, each level's map of an anchor
-    YOLO) under ``head``, the top-k candidates and the detections."""
-    (c3, c4, c5), neck = model.features(image)
-    outs = tuple(model.heads(neck)) if hasattr(model, "heads") \
-        else model.head(neck)  # the anchor YOLOs' levels, or one head's
+def _yolo_stages(model, image, maps=("C3", "C4", "C5", "N3", "N4", "N5")):
+    """``predict`` stage by stage through the model's own methods: the
+    feature maps under ``maps`` (C3-C5 and N3-N5 where the model has a
+    neck, YOLOv3's C3-C5, SSD's six), the head's outputs (YOLOv8's DFL and
+    class logits, YOLOX's offsets, objectness and class logits, each
+    level's map of an anchor YOLO, SSD's class logits and deltas) under
+    ``head``, the top-k candidates and the detections."""
+    feats = model.features(image)
+    nested = isinstance(feats[0], (tuple, list))  # (backbone, neck)
+    head_in = feats[1] if nested else feats
+    outs = tuple(model.heads(head_in)) if hasattr(model, "heads") \
+        else model.head(head_in)  # the levels or maps, or one head's
     cand = model.candidates(*outs)
-    return dict(C3=c3, C4=c4, C5=c5, N3=neck[0], N4=neck[1], N5=neck[2],
-                head=outs, cand=cand, det=model.detections(cand))
+    flat = [m for part in feats for m in part] if nested else list(feats)
+    return dict(zip(maps, flat), head=outs, cand=cand,
+                det=model.detections(cand))
 
 
 def _sample(det, i):
@@ -4391,14 +4531,16 @@ def _sample(det, i):
 
 
 def check_yolo_f32(dev, gen, kind: str = "yolov8"):
-    """Phases 4g, 4h and 4i: f32 ``predict`` of the YOLO model of ``kind``
-    (YOLO_MODELS: YOLOv8-s, YOLOX-s, YOLOv5-s) at full width, 640 x 640,
-    batch YOLO_CHECK_BATCH, on the card against the same model on the CPU
-    (TF32 off) and an f64 CPU referee, stage by stage; BN randomized
-    (``randomize_bn``, YOLOX's and YOLOv5's statistics from the request's
-    image) on the CPU, the card and the referee load its state.
+    """Phases 4g-4m: f32 ``predict`` of the 2D detector of ``kind``
+    (``yolo_models``: YOLOv8-s, YOLOX-s, YOLOv5-s, YOLOv3, YOLOv4, YOLOv7,
+    SSD-300) at full width and its config's resolution, batch
+    YOLO_CHECK_BATCH, on the card against the same model on the CPU (TF32
+    off) and an f64 CPU referee, stage by stage; BN randomized
+    (``randomize_bn``, the statistics from the request's image but for
+    YOLOv8's) on the CPU (SSD's class convs then calibrated on the image,
+    ``calibrate_ssd``), the card and the referee load its state.
 
-    - C3-C5, N3-N5 and the head's outputs held to the referee as phase 4
+    - the feature maps and the head's outputs held to the referee as phase 4
       holds its heads (the card at most HEAD_REFEREE_K times as far from it
       as the f32 CPU, plus HEAD_REFEREE_FLOOR of the largest value), with
       the card-vs-CPU distances beside them;
@@ -4428,19 +4570,20 @@ def check_yolo_f32(dev, gen, kind: str = "yolov8"):
 
 
 def _check_yolo_f32(dev, gen, kind):
-    from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import YOLO_RES
+    from minddet_tpu_torch import entry, kernels
 
-    spec = YOLO_MODELS[kind]
+    spec = _yolo_spec(kind)
     score_threshold, nms_iou = spec["score"], spec["nms"]
-    shape = (YOLO_CHECK_BATCH, YOLO_RES, YOLO_RES, 3)
+    shape = (YOLO_CHECK_BATCH, spec["res"], spec["res"], 3)
     image = torch.rand(*shape, generator=gen)
     cpu = build_yolo(kind, "cpu", torch.float32)
-    # YOLOX's and YOLOv5's BN statistics come from the request's own image:
+    # the BN statistics come from the request's own image (but YOLOv8's):
     # from another uniform image the deep maps' tiny spread leaves their
     # logits at tens, the scores at 1 and the anchor boxes degenerate
     randomize_bn(cpu, image if kind != "yolov8"
                  else torch.rand(*shape, generator=gen), gen)
+    if kind == "ssd":
+        entry.calibrate_ssd(cpu, image)
     gpu = build_yolo(kind, dev, torch.float32)
     gpu.load_state_dict(cpu.state_dict())
     referee = build_yolo(kind, "cpu", torch.float64)
@@ -4448,7 +4591,7 @@ def _check_yolo_f32(dev, gen, kind):
 
     kernels.reset_launches()
     with torch.inference_mode():
-        g = _yolo_stages(gpu, image.to(dev))
+        g = _yolo_stages(gpu, image.to(dev), spec["maps"])
         served = gpu.predict(image.to(dev))
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -4457,11 +4600,11 @@ def _check_yolo_f32(dev, gen, kind):
                              f"{launches}")
     t0 = time.perf_counter()
     with torch.inference_mode():
-        c = _yolo_stages(cpu, image)
+        c = _yolo_stages(cpu, image, spec["maps"])
     cpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with torch.inference_mode():
-        r = _yolo_stages(referee, image)
+        r = _yolo_stages(referee, image, spec["maps"])
     result, bad = dict(cpu_predict_s=cpu_s,
                        referee_s=time.perf_counter() - t0), []
     if not _same_detections(served, g["det"]):
@@ -4469,7 +4612,7 @@ def _check_yolo_f32(dev, gen, kind):
 
     for d in (g, c, r):
         d.update(zip(spec["heads"], d["head"]))
-    for name in ("C3", "C4", "C5", "N3", "N4", "N5") + spec["heads"]:
+    for name in spec["maps"] + spec["heads"]:
         got, host, ref = (_nhwc_cpu(g[name]), _nhwc_cpu(c[name]),
                           _nhwc_cpu(r[name]))
         card = result[f"{name}_card_vs_f64"] = float((got - ref).abs().max())
@@ -4586,18 +4729,54 @@ SIMOTA_NEAR = 2.0 ** -21
 SIMOTA_NEAR_ABS = 2e-5
 YOLO_PARTS = ("backbone.", "neck.", "head")
 YOLO_CHECK_LR = 0.01
-
-
+# 5k-5n: grad_norm held to the referee only (as 5d): the f32 CPU's
+# grad_norm can lie farther from the referee than the card's (YOLOv3: 2.7e-3
+# against 1.6e-4 on an H100, PERF.md section 6); the gradients that cancel
+# left out of the ratios (SSD's projection BN biases feed a 1x1 conv and a
+# train-mode BN); 5n's batch has GTs on every one of SSD's maps
+# (``ssd_large_gts``), so every part gets a gradient
+ZOO_TRAIN_TOL = dict(YOLO_TRAIN_TOL, grad_norm_rtol=None, cancelled=1e-9)
+# SSD's ReLU6 network: units near a kink take the other branch on either
+# side, and either f32 step's backbone gradient lies ~1e-2 from the
+# referee, which one farther flipping with the draw (card 1.1e-2 / CPU
+# 3.3e-3 on 5n's first batch, 5.6e-3 / 1.1e-2 with the class convs
+# calibrated, on an H100, PERF.md section 6). The extra blocks are ReLU6
+# too (card 2.5e-2 / CPU 6.2e-3 once 5n's batch reaches them), and they
+# carry the largest gradients, so grad_norm moves with them (card 9.2e-3 /
+# CPU 2.3e-3). So the backbone's and the extras' parameters take the
+# kink-sized floor phase 5 holds the ReLU CenterNet's to (REFEREE_TOL's
+# 3e-2), and so does grad_norm, whose distance the whole gradient's bounds
+# (|a| - |b| <= |a - b|); the multibox heads (card 1.5e-5 from the referee)
+# keep YOLO_TRAIN_TOL's floor of 1e-3. The same step in f64 on the card is
+# held to the referee tightly (ZOO_F64_TOL)
+SSD_TRAIN_TOL = dict(ZOO_TRAIN_TOL,
+                     part_floors={"backbone.": REFEREE_TOL["grad_rel_l2"],
+                                  "extra": REFEREE_TOL["grad_rel_l2"]},
+                     referee_grad_norm_floor=REFEREE_TOL["grad_rel_l2"])
+CANCELLED_NOISE = 1e-4  # a cancelled gradient's bound, x the largest
+# the step in f64 on the card against the f64 referee (5k-5n): the loss,
+# its parts and grad_norm (relative), every gradient but the cancelled ones
+# (relative L2), the parameters and BN statistics after the step. The
+# heads' outputs are cast to f32 on both sides, as the reference casts
+# them, so the decode and the loss run in f32 and the step agrees to f32
+# rounding from there on (1.2e-7 in the loss, 8.5e-8 in a gradient on an
+# H100, PERF.md section 6), the BN statistics (before the heads) to f64's
+ZOO_F64_TOL = dict(loss_rtol=1e-6, grad_rel_l2=1e-5, param_atol=1e-5,
+                   stat_atol=1e-12, stat_rtol=1e-10)
 def _yolo_check_model(kind, dtype, dev=None):
-    from minddet_tpu_torch.entry import NUM_CLASSES, SEED
-    from minddet_tpu_torch.models.detectors.yolov5 import YOLOv5
-    from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
-    from minddet_tpu_torch.models.detectors.yolox import YOLOX
+    from minddet_tpu_torch import entry
 
-    res = YOLO_TRAIN_CHECK["res"]
-    cls = {"yolov8": YOLOv8, "yolox": YOLOX, "yolov5": YOLOv5}[kind]
-    model = cls(num_classes=NUM_CLASSES, image_hw=(res, res), dtype=dtype)
-    model.init_weights(torch.Generator().manual_seed(SEED))
+    spec = _yolo_spec(kind)
+    res = spec["train_res"]
+    if kind == "ssd":
+        model = spec["cls"](num_classes=entry.NUM_CLASSES, image_size=res,
+                            dtype=dtype)
+    else:
+        width = {} if spec["width"] is None else dict(
+            width_mult=spec["width"])
+        model = spec["cls"](num_classes=entry.NUM_CLASSES,
+                            image_hw=(res, res), dtype=dtype, **width)
+    model.init_weights(torch.Generator().manual_seed(entry.SEED))
     return model.to(device=dev, memory_format=torch.channels_last)
 
 
@@ -4655,8 +4834,12 @@ def _simota_near(args, topk: int = 10):
 def _hold_yolo_assignment(kind, cpu, batch, dev, result, bad):
     """The model's assignment on the CPU's inputs (an eval-mode forward
     moves no BN statistic), card vs CPU, into ``result`` / ``bad``."""
-    if kind == "yolov5":
+    if kind in ("yolov5", "yolov4", "yolov7"):
         return _hold_yolov5_targets(cpu, batch, dev, result, bad)
+    if kind == "yolov3":
+        return _hold_yolov3_targets(cpu, batch, dev, result, bad)
+    if kind == "ssd":
+        return _hold_ssd_targets(cpu, batch, dev, result, bad)
     from minddet_tpu_torch.models.detectors.yolov8 import (align_metric,
                                                            dfl_decode,
                                                            tal_assign)
@@ -4703,19 +4886,25 @@ def _hold_yolo_assignment(kind, cpu, batch, dev, result, bad):
         bad.append("an image without foreground")
 
 
-def _hold_yolov5_targets(cpu, batch, dev, result, bad):
-    """``yolov5_assign`` at each level, card vs CPU, exactly: on the batch
-    and on the batch with GT 0 of each image copied into its first padded
-    slot under another class (every slot GT 0 claims is claimed again,
+def _gt0_copied(batch):
+    """The batch with GT 0 of each image copied into its first padded slot
+    under another class (every slot GT 0 claims is claimed again,
     later)."""
-    from minddet_tpu_torch.models.detectors.yolov5 import yolov5_assign
-
     dup = {k: v.clone() for k, v in batch.items()}
     for b in range(dup["gt_mask"].shape[0]):
         free = int((~dup["gt_mask"][b]).nonzero()[0, 0])
         dup["gt_boxes"][b, free] = dup["gt_boxes"][b, 0]
         dup["gt_classes"][b, free] = (dup["gt_classes"][b, 0] + 1) % 80
         dup["gt_mask"][b, free] = True
+    return dup
+
+
+def _hold_yolov5_targets(cpu, batch, dev, result, bad):
+    """``yolov5_assign`` at each level (YOLOv5's, YOLOv4's and YOLOv7's),
+    card vs CPU, exactly: on the batch and on ``_gt0_copied``'s."""
+    from minddet_tpu_torch.models.detectors.yolov5 import yolov5_assign
+
+    dup = _gt0_copied(batch)
     res = YOLO_TRAIN_CHECK["res"]
     positives, overwritten = 0, 0
     for label, data in (("batch", batch), ("duplicate_slot_batch", dup)):
@@ -4741,10 +4930,203 @@ def _hold_yolov5_targets(cpu, batch, dev, result, bad):
         bad.append("no positives, or no slot that the copy overwrote")
 
 
+def _hold_yolov3_targets(cpu, batch, dev, result, bad):
+    """YOLOv3's best anchor of each GT, its target maps and its ignore
+    masks at each level, card vs CPU, exactly, the masks on the CPU's
+    decoded boxes (an eval-mode forward moves no BN statistic): on the
+    batch and on ``_gt0_copied``'s."""
+    from minddet_tpu_torch.models.detectors.yolov3 import (IGNORE_IOU,
+                                                           STRIDES,
+                                                           best_anchor,
+                                                           ignore_mask,
+                                                           yolov3_targets)
+
+    with torch.no_grad():
+        outs = cpu.eval()(batch["image"])
+        boxes = [cpu.decode_level(o, li)[0] for li, o in enumerate(outs)]
+    cpu.train()
+    (wh,) = cpu.all_anchor_wh("cpu")
+    counts = dict(positives=0, ignored=0, slots_of_the_later_copy=0)
+    for label, data in (("batch", batch),
+                        ("duplicate_slot_batch", _gt0_copied(batch))):
+        gt = (data["gt_boxes"], data["gt_classes"], data["gt_mask"])
+        gt_d = tuple(a.to(dev) for a in gt)
+        best = best_anchor(gt[0], wh)
+        if not torch.equal(best_anchor(gt_d[0], wh.to(dev)).cpu(), best):
+            bad.append(f"{label} best anchors on the same inputs")
+        for li, out in enumerate(outs):
+            _, h, w, na, _ = out.shape
+            want = yolov3_targets(*gt, best, li, STRIDES[li], (h, w), na)
+            got = yolov3_targets(*gt_d, best.to(dev), li, STRIDES[li],
+                                 (h, w), na)
+            for name, g, v in zip(("pos", "tbox", "tcls"), got, want):
+                if not torch.equal(g.cpu(), v):
+                    bad.append(f"{label} level {li} {name} on the same "
+                               f"inputs")
+            ign = ignore_mask(boxes[li], gt[0], gt[2], IGNORE_IOU)
+            if not torch.equal(ignore_mask(boxes[li].to(dev), gt_d[0],
+                                           gt_d[2], IGNORE_IOU).cpu(),
+                               ign):
+                bad.append(f"{label} level {li} ignore mask on the same "
+                           f"inputs")
+            if label == "batch":
+                counts["positives"] += int(want[0].sum())
+                counts["ignored"] += int(ign.sum())
+            else:
+                copy = (data["gt_classes"][:, 0] + 1) % 80
+                counts["slots_of_the_later_copy"] += int(
+                    ((want[2] == copy[:, None].to(torch.int32))
+                     & (want[0] > 0)).sum())
+    result.update(counts)
+    if not all(counts.values()):
+        bad.append("no positives, no ignored prediction, or no slot that "
+                   "the copy overwrote")
+
+
+SSD_CE_TIE_GRID = 64  # 5n also mines on cross entropies rounded to 1/64
+SSD_LARGE_GT_MAPS = (2, 3, 4, 5)  # 5n adds a GT on each of these maps
+
+
+def ssd_large_gts(data, feature_sizes, res, seed):
+    """A ``synthetic_detection_batch`` ``data`` with one GT more per image
+    for each of SSD's maps in SSD_LARGE_GT_MAPS: the map's square anchor
+    at its scale (``ssd.py:MIN_SCALE`` to ``MAX_SCALE``), on a cell drawn
+    from ``seed``, clipped to the image, with a drawn class. The synthetic
+    GTs (5-30 % of the image) match on the first two maps only, so without
+    these the extra blocks and the later multibox heads get no gradient."""
+    import numpy as np
+
+    from minddet_tpu_torch.models.detectors.ssd import MAX_SCALE, MIN_SCALE
+
+    rng = np.random.RandomState(seed)
+    b, m = data["gt_boxes"].shape[0], len(SSD_LARGE_GT_MAPS)
+    boxes = np.zeros((b, m, 4), np.float32)
+    for i in range(b):
+        for j, k in enumerate(SSD_LARGE_GT_MAPS):
+            f = feature_sizes[k]
+            side = (MIN_SCALE + (MAX_SCALE - MIN_SCALE) * k
+                    / (len(feature_sizes) - 1)) * res
+            c = (rng.randint(0, f, 2) + 0.5) * res / f
+            boxes[i, j] = np.clip(np.concatenate([c - side / 2,
+                                                  c + side / 2]), 0, res)
+    classes = rng.randint(0, 80, (b, m)).astype(data["gt_classes"].dtype)
+    return dict(data,
+                gt_boxes=np.concatenate([data["gt_boxes"], boxes], 1),
+                gt_classes=np.concatenate([data["gt_classes"], classes], 1),
+                gt_mask=np.concatenate([data["gt_mask"],
+                                        np.ones((b, m), bool)], 1))
+
+
+def _hold_ssd_targets(cpu, batch, dev, result, bad):
+    """SSD's labels, matches, class targets and box targets (1e-6
+    relative: a log on either side), card vs CPU, on the same inputs, and
+    the mined negatives on the CPU's cross entropies exactly, also with
+    those rounded down to 1 / SSD_CE_TIE_GRID (runs of ties across the cut:
+    the lower anchor first on both sides)."""
+    from minddet_tpu_torch.models.detectors.ssd import (MATCH_IOU,
+                                                        hard_negatives,
+                                                        ssd_targets)
+    from minddet_tpu_torch.ops.anchors2d import match_anchors
+
+    with torch.no_grad():
+        cls, _ = cpu.eval()(batch["image"])
+    cpu.train()
+    (anchors,) = cpu.anchor_boxes("cpu")
+    gt = (batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"])
+    gt_d = tuple(a.to(dev) for a in gt)
+    want = ssd_targets(anchors, *gt)
+    got = [t.cpu() for t in ssd_targets(anchors.to(dev), *gt_d)]
+    for name, g, w in zip(("labels", "class targets"), got, want):
+        if not torch.equal(g, w):
+            bad.append(f"{name} on the same inputs")
+    match = match_anchors(anchors, gt[0], gt[2], MATCH_IOU, MATCH_IOU)[1]
+    match_g = match_anchors(anchors.to(dev), gt_d[0], gt_d[2], MATCH_IOU,
+                            MATCH_IOU)[1]
+    if not torch.equal(match_g.cpu(), match):
+        bad.append("matches on the same inputs")
+    err = (got[2] - want[2]).abs()
+    result["box_target_max_abs_err"] = float(err.max())
+    if not bool((err <= 1e-6 * want[2].abs() + 1e-6).all()):
+        bad.append("box targets on the same inputs")
+    labels = want[0]
+    edges = [0]
+    for count in cpu.anchors()[1]:
+        edges.append(edges[-1] + count)
+    result["positives_per_map"] = [
+        int((labels[:, lo:hi] == 1).sum())
+        for lo, hi in zip(edges[:-1], edges[1:])]
+    if not all(result["positives_per_map"]):
+        bad.append("a map with no positive anchor")
+    n_pos = (labels == 1).float().sum(1, keepdim=True)
+    ce = -torch.log_softmax(cls, -1).gather(-1, want[1][..., None])[..., 0]
+    kept = {}
+    for name, c in (("", ce), ("tied_", (ce * SSD_CE_TIE_GRID).floor()
+                                / SSD_CE_TIE_GRID)):
+        keep = hard_negatives(c, labels, n_pos)
+        keep_g = hard_negatives(c.to(dev), labels.to(dev), n_pos.to(dev))
+        if not torch.equal(keep_g.cpu(), keep):
+            bad.append(f"{name}mined negatives on the same inputs")
+        kept[name] = int(keep.sum())
+    cut = (3 * n_pos).long().clamp(min=1)[:, 0]
+    tied = (ce * SSD_CE_TIE_GRID).floor() / SSD_CE_TIE_GRID
+    neg = torch.where(labels == 0, tied, torch.full_like(tied, -math.inf))
+    ranked = neg.sort(dim=1, descending=True).values
+    at_cut = ranked.gather(1, (cut - 1)[:, None])
+    ties_at_cut = int(((neg == at_cut) & (labels == 0)).sum(1).max())
+    result.update(positives=int(n_pos.sum()), mined_negatives=kept[""],
+                  ties_at_the_cut_rounded=ties_at_cut)
+    if int(n_pos.sum()) == 0 or ties_at_cut < 2:
+        bad.append("no positives, or no tie across the mining's cut")
+
+
+def _hold_f64_card_step(kind, start, batch, tx, r, t, dev, result, bad):
+    """The same step in f64 on the card (5k-5n), from the same weights,
+    against the f64 referee's snapshot ``r``: far from every kink and tie
+    that f32 rounding may move, the card's own math (convs, BN, the loss,
+    its targets and mining, the SGD) must give the referee's numbers, to
+    ZOO_F64_TOL; the cancelled gradients (``t["cancelled"]``) left out."""
+    from minddet_tpu_torch import entry
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    f = ZOO_F64_TOL
+    model = _yolo_check_model(kind, torch.float64, dev)
+    model.load_state_dict(start)
+    state = TrainState.create(model, tx)
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(entry.yolo_loss)(
+        state, {k: v.to(dev) for k, v in batch.items()})
+    g = _train_snapshot(state, metrics, torch.float64)
+    result["f64_card_step_s"] = time.perf_counter() - t0
+    del state, model
+    worst = max(abs(g["metrics"][k] - v) / max(abs(v), 1e-300)
+                for k, v in r["metrics"].items())
+    result["f64_card_metrics_max_rel_err"] = worst
+    if worst > f["loss_rtol"]:
+        bad.append("f64 card step: loss, parts or grad_norm")
+    largest = max(float(v.abs().max()) for v in r["grads"].values())
+    rel = {n: _rel_l2(g["grads"][n], v) for n, v in r["grads"].items()
+           if float(v.abs().max()) >= t["cancelled"] * largest}
+    result["f64_card_grad_rel_l2_max"] = max(rel.values())
+    far = [n for n, v in rel.items() if v > f["grad_rel_l2"]]
+    if far:
+        bad.append(f"f64 card step: gradients of {far[:6]}")
+    param_err = max(float((g["params"][n] - v).abs().max())
+                    for n, v in r["params"].items())
+    result["f64_card_param_max_abs_err"] = param_err
+    if param_err > f["param_atol"]:
+        bad.append("f64 card step: parameters after the step")
+    for n, v in r["stats"].items():
+        if not bool(((g["stats"][n] - v).abs()
+                     <= f["stat_atol"] + f["stat_rtol"] * v.abs()).all()):
+            bad.append(f"f64 card step: BN statistic {n}")
+            break
+
+
 def check_yolo_train_f32(dev, kind: str = "yolov8"):
-    """Phases 5h, 5i and 5j: one f32 train step of the YOLO model of
-    ``kind`` (its ``loss``, the config's SGD at YOLO_CHECK_LR) at full
-    width, YOLO_TRAIN_CHECK's size, on the card against the same step on
+    """Phases 5h-5n: one f32 train step of the 2D detector of ``kind``
+    (its ``loss``, the config's SGD at YOLO_CHECK_LR) at full width, at
+    YOLO_TRAIN_CHECK's size (SSD at its 300), on the card against the same
+    step on
     the CPU (TF32 off) and in f64 compute on the CPU (the referee), from the
     same weights and batch: the assignment on the CPU's inputs, card vs CPU
     (``_hold_yolo_assignment``); the loss, its parts and grad_norm against
@@ -4770,10 +5152,10 @@ def _check_yolo_train_f32(dev, kind):
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
     from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
 
-    t = YOLO_TRAIN_TOL
-    label = YOLO_MODELS[kind]["label"]
-    res, b = YOLO_TRAIN_CHECK["res"], YOLO_TRAIN_CHECK["batch"]
-    gen = _seeded({"yolov8": "5h", "yolox": "5i", "yolov5": "5j"}[kind])
+    spec = _yolo_spec(kind)
+    t, label = spec["tol"], spec["label"]
+    res, b = spec["train_res"], YOLO_TRAIN_CHECK["batch"]
+    gen = _seeded(spec["phases"][1])
     cpu = _yolo_check_model(kind, torch.float32)
     with torch.no_grad():
         for m in cpu.modules():
@@ -4787,20 +5169,24 @@ def _check_yolo_train_f32(dev, kind):
     referee = _yolo_check_model(kind, torch.float64)
     for m in (gpu, referee):
         m.load_state_dict(start)
-    batch = {k: torch.from_numpy(v) for k, v in synthetic_detection_batch(
-        b, (res, res), entry.NUM_CLASSES, seed=5).items()}
+
+    def draw(n, max_objs=16):
+        data = synthetic_detection_batch(n, (res, res), entry.NUM_CLASSES,
+                                         max_objs, seed=5)
+        if kind == "ssd":
+            data = ssd_large_gts(data, cpu.feature_sizes(), res, seed=5)
+        return {k: torch.from_numpy(v) for k, v in data.items()}
+
+    batch = draw(b)
     result, bad = {"tolerance": t}, []
-    assign_batch = {k: torch.from_numpy(v) for k, v in
-                    synthetic_detection_batch(
-                        YOLO_ASSIGN_CHECK["batch"], (res, res),
-                        entry.NUM_CLASSES, YOLO_ASSIGN_CHECK["max_objs"],
-                        seed=5).items()}
+    assign_batch = draw(YOLO_ASSIGN_CHECK["batch"],
+                        YOLO_ASSIGN_CHECK["max_objs"])
     _hold_yolo_assignment(kind, cpu, assign_batch, dev, result, bad)
 
     snaps = {}
     tx = skip_nonfinite_updates(sgd(
-        YOLO_CHECK_LR, momentum=getattr(entry, YOLO_MODELS[kind]["momentum"]),
-        nesterov=True, weight_decay=entry.YOLO_WEIGHT_DECAY))
+        YOLO_CHECK_LR, momentum=spec["momentum"], nesterov=spec["nesterov"],
+        weight_decay=spec["decay"]))
     for name, model in (("card", gpu), ("cpu", cpu), ("referee", referee)):
         d = next(model.parameters()).device
         state = TrainState.create(model, tx)
@@ -4809,7 +5195,8 @@ def _check_yolo_train_f32(dev, kind):
         t0 = time.perf_counter()
         state, metrics = make_train_step(entry.yolo_loss)(
             state, {k: v.to(d) for k, v in batch.items()})
-        snaps[name] = _train_snapshot(state, metrics)
+        snaps[name] = _train_snapshot(state, metrics, next(
+            model.parameters()).dtype)
         launches = {k.name: k.launches for k in kernels.KERNELS}
         print(f"  {name} step {time.perf_counter() - t0:.1f} s, loss "
               f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
@@ -4819,7 +5206,10 @@ def _check_yolo_train_f32(dev, kind):
             bad.append(f"{name}: the NaN guard held a finite step back")
         del state
     _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"], t,
-                    YOLO_PARTS, "", result, bad)
+                    spec["parts"], "", result, bad)
+    if spec["f64_step"]:
+        _hold_f64_card_step(kind, start, batch, tx, snaps["referee"], t,
+                            dev, result, bad)
     print(f"  f32 {label} train step card vs CPU: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items() if k != "tolerance"), flush=True)
@@ -5378,7 +5768,6 @@ def rcnn_train_main_path(label, entry_fn, dev, with_mask, profile):
 
 
 YOLO_SERVE_BATCHES = (1, 16)  # bench.py's batch 1; a throughput batch
-YOLO_TRAIN_BATCH = 16  # configs/yolov8_s_coco.yaml: batch_size
 
 
 def _check_yolo_detections(det, b, label, score_threshold):
@@ -5401,9 +5790,11 @@ def _check_yolo_detections(det, b, label, score_threshold):
 
 
 def yolo_main_path(dev, profile, kind: str = "yolov8"):
-    """Phases 6o, 6q and 6s, YOLO serving (``yolov8_entry``,
-    ``yolox_entry``, ``yolov5_entry``: bf16, 640 x 640, 80 classes) at each
-    of YOLO_SERVE_BATCHES, SERVE_WARMUP + SERVE_REQUESTS requests each,
+    """Phases 6o, 6q, 6s, 6u, 6w, 6y and 6aa, 2D detector serving
+    (``yolov8_entry``, ``yolox_entry``, ``yolov5_entry``, ``yolov3_entry``,
+    ``yolov4_entry``, ``yolov7_entry``, ``ssd_entry``: bf16, the config's
+    resolution, 80 classes) at each of YOLO_SERVE_BATCHES, SERVE_WARMUP +
+    SERVE_REQUESTS requests each,
     with every kernel's count set to 0 just before: no hand-written kernel
     launches. Reports ms per request (host clock around a synced
     ``predict``), img/s, the peak memory, the NMS's passes and the
@@ -5411,9 +5802,9 @@ def yolo_main_path(dev, profile, kind: str = "yolov8"):
     and launches per request."""
     from minddet_tpu_torch import entry, kernels
 
-    spec = YOLO_MODELS[kind]
+    spec = _yolo_spec(kind)
     label = spec["label"]
-    programs = {b: getattr(entry, spec["serve"])(device=dev, batch=b)
+    programs = {b: spec["serve"](device=dev, batch=b)
                 for b in YOLO_SERVE_BATCHES}
     kernels.reset_launches()
     out, predicts = {}, 0
@@ -5456,22 +5847,24 @@ def yolo_main_path(dev, profile, kind: str = "yolov8"):
 
 
 def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
-    """Phases 6p, 6r and 6t, YOLO training (``yolov8_train_entry``,
-    ``yolox_train_entry``, ``yolov5_train_entry``: f32 params, bf16
-    compute, batch YOLO_TRAIN_BATCH, 640 x 640, the config's SGD under its
-    warm-up and the NaN guard), TRAIN_WARMUP + TRAIN_STEPS steps on one
-    batch, launch counts from 0: no hand-written kernel launches; every
-    loss part finite at every step and every step applied (the schedule's
-    count advances by one each). The warm-up keeps the lr below 6e-6 over
-    these steps, so the loss is not expected to fall. Reports ms per step,
-    img/s and the peak memory."""
+    """Phases 6p, 6r, 6t, 6v, 6x, 6z and 6ab, 2D detector training
+    (``yolov8_train_entry``, ``yolox_train_entry``, ``yolov5_train_entry``,
+    ``yolov3_train_entry``, ``yolov4_train_entry``, ``yolov7_train_entry``,
+    ``ssd_train_entry``: f32 params, bf16 compute, the config's batch (16,
+    SSD's 32) and resolution, the config's SGD under its schedule and the
+    NaN guard), TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch
+    counts from 0: no hand-written kernel launches; every loss part finite
+    at every step and every step applied (the schedule's count advances by
+    one each). The warm-ups keep the lr small over these steps (YOLOv3's
+    schedule has none: 1e-3 from the first step), so the loss is not
+    expected to fall. Reports ms per step, img/s and the peak memory."""
     from minddet_tpu_torch import entry, kernels
 
-    label = YOLO_MODELS[kind]["label"]
+    spec = _yolo_spec(kind)
+    label, train_batch = spec["label"], spec["train_batch"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    step_fn, (state, batch) = getattr(entry, YOLO_MODELS[kind]["train"])(
-        device=dev, batch=YOLO_TRAIN_BATCH)
+    step_fn, (state, batch) = spec["train"](device=dev, batch=train_batch)
     kernels.reset_launches()
     history, times = [], []
     for i in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -5487,14 +5880,14 @@ def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
     peak = torch.cuda.max_memory_allocated(dev)
     mean_s = statistics.mean(times)
     group = state.optimizer.param_groups[0]
-    out = dict(batch=YOLO_TRAIN_BATCH, steps=steps, timed_steps=len(times),
+    out = dict(batch=train_batch, steps=steps, timed_steps=len(times),
                ms_per_step=mean_s * 1e3,
                ms_p50=statistics.median(times) * 1e3,
-               img_per_s=YOLO_TRAIN_BATCH / mean_s, max_memory_allocated=peak,
+               img_per_s=train_batch / mean_s, max_memory_allocated=peak,
                losses=[m["loss"] for m in history], first_step=history[0],
                last_step=history[-1], schedule_count=int(group["count"]),
                lr_next=float(group["lr"]), launches=launches)
-    print(f"  {label} train bf16 batch {YOLO_TRAIN_BATCH}: "
+    print(f"  {label} train bf16 batch {train_batch}: "
           f"{mean_s * 1e3:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
           f"{out['img_per_s']:.1f} img/s, peak {peak / 2 ** 30:.2f} GiB "
           f"allocated", flush=True)
@@ -5515,7 +5908,7 @@ def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
     if profile:
         print(f"profile: {label} bf16 train step", flush=True)
         out["profile"] = profile_train(
-            f"{label} train batch {YOLO_TRAIN_BATCH}", step_fn, state, batch)
+            f"{label} train batch {train_batch}", step_fn, state, batch)
     return out
 
 
@@ -5606,6 +5999,16 @@ def profile_train(label, step_fn, state, batch, steps: int = 3):
     r = _profile(lambda: step_fn(state, batch), steps)
     _print_profile(label, r)
     return r
+
+
+def timed_phase(phase: str, card: str, fn, *args):
+    """``fn(*args)``, a dict, with its seconds under ``phase_s``, printed
+    beside the card."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase {phase}: {out['phase_s']:.1f} s on {card}", flush=True)
+    return out
 
 
 def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
@@ -5733,10 +6136,12 @@ def main(argv=None) -> int:
     mask_rcnn_f32 = check_rcnn_f32(dev, True, _seeded("4f"))
     torch.cuda.empty_cache()
     yolo_f32 = {}
-    for phase, kind in (("4g", "yolov8"), ("4h", "yolox"), ("4i", "yolov5")):
-        print(f"phase {phase}: end to end, f32 {YOLO_MODELS[kind]['label']} "
-              f"predict, card vs CPU and the f64 referee", flush=True)
-        yolo_f32[kind] = check_yolo_f32(dev, _seeded(phase), kind)
+    for kind, spec in yolo_models().items():
+        phase = spec["phases"][0]
+        print(f"phase {phase}: end to end, f32 {spec['label']} predict, card "
+              f"vs CPU and the f64 referee", flush=True)
+        yolo_f32[kind] = timed_phase(phase, card, check_yolo_f32, dev,
+                                     _seeded(phase), kind)
         torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
@@ -5765,10 +6170,13 @@ def main(argv=None) -> int:
           "and the f64 referee", flush=True)
     pp_train_f32 = check_pointpillars_train_f32(dev)
     yolo_train_f32 = {}
-    for phase, kind in (("5h", "yolov8"), ("5i", "yolox"), ("5j", "yolov5")):
-        print(f"phase {phase}: end to end, f32 {YOLO_MODELS[kind]['label']} "
-              f"train step, card vs CPU and the f64 referee", flush=True)
-        yolo_train_f32[kind] = check_yolo_train_f32(dev, kind)
+    for kind, spec in yolo_models().items():
+        phase = spec["phases"][1]
+        print(f"phase {phase}: end to end, f32 {spec['label']} train step, "
+              f"card vs CPU and the f64 referee", flush=True)
+        yolo_train_f32[kind] = timed_phase(phase, card, check_yolo_train_f32,
+                                           dev, kind)
+        torch.cuda.empty_cache()
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -5958,19 +6366,21 @@ def main(argv=None) -> int:
     decode = decode_main_path(dev)
     torch.cuda.empty_cache()
     yolo, yolo_training = {}, {}
-    for serve_phase, train_phase, kind in (("6o", "6p", "yolov8"),
-                                           ("6q", "6r", "yolox"),
-                                           ("6s", "6t", "yolov5")):
-        label = YOLO_MODELS[kind]["label"]
-        print(f"phase {serve_phase}: main path, {label} bf16 serving",
+    for kind, spec in yolo_models().items():
+        _, _, serve_phase, train_phase = spec["phases"]
+        profile = args.profile or spec["profile"]
+        print(f"phase {serve_phase}: main path, {spec['label']} bf16 serving",
               flush=True)
-        yolo[kind] = yolo_main_path(dev, args.profile, kind)
+        yolo[kind] = timed_phase(serve_phase, card, yolo_main_path, dev,
+                                 profile, kind)
         if yolo[kind]["profile"] is not None:
             profiled[kind] = yolo[kind]["profile"]
         torch.cuda.empty_cache()
-        print(f"phase {train_phase}: main path, {label} bf16 train step at "
-              f"batch {YOLO_TRAIN_BATCH}", flush=True)
-        yolo_training[kind] = yolo_train_main_path(dev, args.profile, kind)
+        print(f"phase {train_phase}: main path, {spec['label']} bf16 train "
+              f"step at batch {spec['train_batch']}", flush=True)
+        yolo_training[kind] = timed_phase(train_phase, card,
+                                          yolo_train_main_path, dev, profile,
+                                          kind)
         if "profile" in yolo_training[kind]:
             profiled[f"{kind}_train"] = yolo_training[kind]["profile"]
         torch.cuda.empty_cache()

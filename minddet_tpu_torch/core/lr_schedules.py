@@ -1,7 +1,8 @@
 """Learning-rate schedules as functions of the step count (counterpart of
-``minddet_tpu/core/lr_schedules.py:linear_warmup`` and ``warmup_cosine``,
-built as the reference builds them from optax's ``linear_schedule``,
-``cosine_decay_schedule`` and ``join_schedules``).
+``minddet_tpu/core/lr_schedules.py:linear_warmup``, ``warmup_cosine`` and
+``multi_epochs_decay``, built as the reference builds them from optax's
+``linear_schedule``, ``cosine_decay_schedule``,
+``piecewise_constant_schedule`` and ``join_schedules``).
 
 A schedule takes the count as a tensor (a 0-d tensor on the device in the
 train step, so no step syncs the host; any integer tensor or number in a
@@ -12,11 +13,12 @@ device, computed in f32 as optax computes it.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
+DECAY_FACTOR = 10.0  # multi_epochs_decay's divisor at each milestone
 
 
 def linear_schedule(init_value: float, end_value: float,
@@ -43,6 +45,27 @@ def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
         c = torch.as_tensor(count).clamp(max=decay_steps).float()
         decay = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
         return init_value * decay
+
+    return schedule
+
+
+def piecewise_constant_schedule(init_value: float,
+                                boundaries_and_scales: Dict[int, float]
+                                ) -> Schedule:
+    """optax's ``piecewise_constant_schedule``: ``init_value`` times every
+    scale whose boundary the count has reached, applied boundary by
+    boundary in their order with optax's own f32 arithmetic (v <- v ind +
+    (1 - ind) scale v, ind 1 before the boundary and 0 from it on)."""
+    steps = sorted(boundaries_and_scales.items())
+
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        v = torch.full((), init_value, dtype=torch.float32,
+                       device=count.device)
+        for boundary, scale in steps:
+            ind = (boundary - count).sign().clamp(min=0).float()
+            v = v * ind + (1 - ind) * scale * v
+        return v
 
     return schedule
 
@@ -84,3 +107,20 @@ def warmup_cosine(learning_rate: float, total_steps: int,
     warm = linear_schedule(0.0, learning_rate, warmup_steps)
     decay = cosine_decay_schedule(learning_rate, total_steps - warmup_steps)
     return join_schedules([warm, decay], [warmup_steps])
+
+
+def multi_epochs_decay(learning_rate: float, milestones: Sequence[int],
+                       steps_per_epoch: int, warmup_steps: int = 0
+                       ) -> Schedule:
+    """``learning_rate`` divided by ``DECAY_FACTOR`` at each milestone
+    epoch (its count: milestone x ``steps_per_epoch``), after a linear
+    warm-up from 0 over ``warmup_steps`` where that is positive, the
+    milestones then counted from the warm-up's end (the reference's
+    ``multi_epochs_decay``, its ``MultiEpochsDecayLR``)."""
+    sched = piecewise_constant_schedule(
+        learning_rate, {int(m) * steps_per_epoch: 1.0 / DECAY_FACTOR
+                        for m in milestones})
+    if warmup_steps > 0:
+        warm = linear_schedule(0.0, learning_rate, warmup_steps)
+        return join_schedules([warm, sched], [warmup_steps])
+    return sched

@@ -75,6 +75,22 @@ sections as ``train/train.py --synthetic`` runs them, nothing cut: batch 16,
 f32 parameters and bf16 compute, Nesterov SGD (momentum 0.9 and 0.937) with
 weight decay 5e-4 under the configs' warm-up cosine from step 0, inside the
 NaN guard. None of the four launches a hand-written kernel.
+
+``yolov3_entry()``, ``yolov4_entry()``, ``yolov7_entry()`` and
+``ssd_entry()`` serve the configs ``yolov3_coco.yaml`` (Darknet-53, 416x416),
+``yolov4_coco.yaml`` (CSPDarknet53 at width 1.0, 512x512),
+``yolov7_coco.yaml`` (E-ELAN at width 0.5, 640x640) and
+``ssd_mbv2_coco.yaml`` (MobileNetV2, 300x300), 80 classes, in bf16 on an
+image of the config's size drawn as ``yolov8_entry``'s: the YOLOs' top
+1000 and SSD's top 400 candidates, class-aware NMS 0.45 over score 0.05,
+100 detections. ``yolov3_train_entry()``, ``yolov4_train_entry()``,
+``yolov7_train_entry()`` and ``ssd_train_entry()`` are those configs' train
+sections as ``train/train.py --synthetic`` runs them, nothing cut: f32
+parameters and bf16 compute, batch 16 (SSD 32), SGD with the config's
+momentum, Nesterov (YOLOv7 only), weight decay (5e-4, SSD's 4e-5) and
+schedule counted from step 0 (YOLOv3's ``multi_epochs_decay``, the others'
+``warmup_cosine``), inside the NaN guard. None of the eight launches a
+hand-written kernel.
 """
 
 from __future__ import annotations
@@ -85,6 +101,7 @@ import numpy as np
 import torch
 
 from minddet_tpu_torch.core.lr_schedules import (Schedule, linear_warmup,
+                                                  multi_epochs_decay,
                                                   warmup_cosine)
 from minddet_tpu_torch.core.optim import adamw, sgd, skip_nonfinite_updates
 from minddet_tpu_torch.models.backbones.resnet import ResNet
@@ -94,7 +111,11 @@ from minddet_tpu_torch.models.detectors.centerpoint import (
 from minddet_tpu_torch.models.detectors.faster_rcnn import (BOX_ROI,
                                                              FasterRCNN)
 from minddet_tpu_torch.models.detectors.pointpillars import PointPillars
+from minddet_tpu_torch.models.detectors.ssd import SSD
+from minddet_tpu_torch.models.detectors.yolov3 import YOLOv3
+from minddet_tpu_torch.models.detectors.yolov4 import YOLOv4
 from minddet_tpu_torch.models.detectors.yolov5 import YOLOv5
+from minddet_tpu_torch.models.detectors.yolov7 import YOLOv7
 from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
 from minddet_tpu_torch.models.detectors.yolox import YOLOX
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
@@ -730,9 +751,9 @@ YOLO_MOMENTUM = 0.937
 YOLO_WEIGHT_DECAY = 5e-4
 
 
-def _seeded_yolo(cls, dtype: torch.dtype):
-    model = cls(num_classes=NUM_CLASSES, image_hw=(YOLO_RES, YOLO_RES),
-                dtype=dtype)
+def _seeded_yolo(cls, dtype: torch.dtype, res: int = YOLO_RES, **kwargs):
+    model = cls(num_classes=NUM_CLASSES, image_hw=(res, res), dtype=dtype,
+                **kwargs)
     return model.init_weights(torch.Generator().manual_seed(SEED))
 
 
@@ -756,15 +777,15 @@ def yolov8_entry(device=None, batch: int = 1
     return _yolo_serving(build_yolov8(device), batch)
 
 
-def _yolo_serving(model, batch: int):
+def _yolo_serving(model, batch: int, res: int = YOLO_RES):
     dev = next(model.parameters()).device
-    image = np.random.RandomState(0).rand(batch, YOLO_RES, YOLO_RES, 3)
+    image = np.random.RandomState(0).rand(batch, res, res, 3)
     return model.predict, (torch.from_numpy(image.astype(np.float32)).to(dev),)
 
 
 def yolo_loss(model, batch: Dict):
-    """The YOLO train steps' loss function: the model's ``loss`` (YOLOv8,
-    YOLOX, YOLOv5)."""
+    """The 2D detectors' train steps' loss function: the model's ``loss``
+    (YOLOv8, YOLOX, YOLOv3, v4, v5, v7, SSD)."""
     return model.loss(batch)
 
 
@@ -789,14 +810,20 @@ def yolov8_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
 
 
 def _yolo_train_program(model, dev: torch.device, batch: int,
-                        schedule: Schedule, momentum: float
+                        schedule: Schedule, momentum: float,
+                        nesterov: bool = True, res: int = YOLO_RES,
+                        weight_decay: float = YOLO_WEIGHT_DECAY
                         ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """A 2D detector's train step as ``train/train.py --synthetic`` builds
+    it: ``model`` on ``dev`` in channels_last and train mode, guarded SGD
+    (``momentum``, ``nesterov``, ``weight_decay`` on ndim > 1) under
+    ``schedule``, ``synthetic_detection_batch(batch, (res, res), 80)``."""
     model = model.to(device=dev, memory_format=torch.channels_last).train()
     tx = skip_nonfinite_updates(sgd(
-        schedule, momentum=momentum, nesterov=True,
-        weight_decay=YOLO_WEIGHT_DECAY))
+        schedule, momentum=momentum, nesterov=nesterov,
+        weight_decay=weight_decay))
     state = TrainState.create(model, tx)
-    data = synthetic_detection_batch(batch, (YOLO_RES, YOLO_RES), NUM_CLASSES,
+    data = synthetic_detection_batch(batch, (res, res), NUM_CLASSES,
                                      seed=SEED)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     return make_train_step(yolo_loss), (state, data)
@@ -907,3 +934,205 @@ def yolov5_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
         _seeded_yolo(YOLOv5, torch.bfloat16), dev, batch,
         warmup_cosine(YOLO_LR, YOLO_COSINE_TOTAL_STEPS, YOLOV5_WARMUP),
         YOLOV5_MOMENTUM)
+
+
+# YOLOv3, YOLOv4, YOLOv7 and SSD-300-MobileNetV2: configs/yolov3_coco.yaml,
+# yolov4_coco.yaml, yolov7_coco.yaml and ssd_mbv2_coco.yaml (train: SGD, the
+# schedule counted from step 0)
+YOLOV3_RES = 416
+YOLOV3_LR = 1e-3               # multi_epochs_decay(1e-3, [218, 246], 1833)
+YOLOV3_MILESTONES = (218, 246)
+YOLOV3_STEPS_PER_EPOCH = 1833
+YOLOV3_MOMENTUM = 0.9
+YOLOV4_RES = 512
+YOLOV4_WIDTH = 1.0
+YOLOV4_LR = 1.3e-3             # warmup_cosine(1.3e-3, 2.2e6, 8000)
+YOLOV4_WARMUP = 8000
+YOLOV4_MOMENTUM = 0.949
+YOLOV7_WIDTH = 0.5
+YOLOV7_WARMUP = 22000          # warmup_cosine(0.01, 2.2e6, 22000)
+YOLOV7_MOMENTUM = 0.937
+SSD_RES = 300
+SSD_TRAIN_BATCH = 32
+SSD_LR = 0.05                  # warmup_cosine(0.05, 400000, 4000)
+SSD_TOTAL_STEPS = 400_000
+SSD_WARMUP = 4000
+SSD_MOMENTUM = 0.9
+SSD_WEIGHT_DECAY = 4e-5
+
+
+def _served(model, dev: torch.device, dtype: torch.dtype):
+    return model.eval().to(device=dev, dtype=dtype,
+                           memory_format=torch.channels_last)
+
+
+def build_yolov3(device=None, dtype: torch.dtype = torch.bfloat16
+                 ) -> YOLOv3:
+    """YOLOv3 (Darknet-53), 80 classes, 416x416, in eval mode: weights from
+    ``SEED`` (flax's default initialisers: the heads' biases at 0) stored
+    in ``dtype``, which is also the compute dtype."""
+    dev = resolve_device(device)
+    return _served(_seeded_yolo(YOLOv3, dtype, YOLOV3_RES), dev, dtype)
+
+
+def yolov3_entry(device=None, batch: int = 1
+                 ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``YOLOv3.predict``
+    (top 1000, NMS 0.45, score threshold 0.05, 100 detections): boxes
+    (batch, 100, 4) in input pixels, scores, labels (-1 in empty slots),
+    ``nms_passes``. The model is ``build_yolov3``'s in bf16, not calibrated
+    (its seeded scores lie near 0.25); the image uniform [0, 1) from numpy
+    ``RandomState(0)``, (batch, 416, 416, 3) f32."""
+    return _yolo_serving(build_yolov3(device), batch, YOLOV3_RES)
+
+
+def yolov3_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
+                       ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one YOLOv3
+    train step in place and returns ``(state, metrics)`` (loss, l{i}_obj,
+    l{i}_box, grad_norm, on the device).
+
+    ``configs/yolov3_coco.yaml``'s train section: the model seeded with
+    ``SEED``, f32 parameters, bf16 compute, channels_last, train mode; SGD
+    momentum 0.9 without Nesterov, weight decay 5e-4 on ndim > 1
+    parameters, no clip, the lr ``multi_epochs_decay(1e-3, (218, 246),
+    1833)`` of the applied steps' count, inside ``skip_nonfinite_updates``.
+    The batch is ``synthetic_detection_batch(batch, (416, 416), 80)``."""
+    dev = resolve_device(device)
+    return _yolo_train_program(
+        _seeded_yolo(YOLOv3, torch.bfloat16, YOLOV3_RES), dev, batch,
+        multi_epochs_decay(YOLOV3_LR, YOLOV3_MILESTONES,
+                           YOLOV3_STEPS_PER_EPOCH),
+        YOLOV3_MOMENTUM, nesterov=False, res=YOLOV3_RES)
+
+
+def build_yolov4(device=None, dtype: torch.dtype = torch.bfloat16
+                 ) -> YOLOv4:
+    """YOLOv4 (CSPDarknet53, width 1.0), 80 classes, 512x512, in eval mode:
+    weights from ``SEED`` (flax's defaults: the heads' biases at 0) stored
+    in ``dtype``, which is also the compute dtype."""
+    dev = resolve_device(device)
+    return _served(_seeded_yolo(YOLOv4, dtype, YOLOV4_RES,
+                                width_mult=YOLOV4_WIDTH), dev, dtype)
+
+
+def yolov4_entry(device=None, batch: int = 1
+                 ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``YOLOv4.predict``
+    (``AnchorYOLO``'s: top 1000, NMS 0.45, score threshold 0.05, 100
+    detections) of ``build_yolov4``'s bf16 model, not calibrated; the image
+    as ``yolov3_entry``'s at (batch, 512, 512, 3)."""
+    return _yolo_serving(build_yolov4(device), batch, YOLOV4_RES)
+
+
+def yolov4_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
+                       ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): one YOLOv4 train step in place, ``(state,
+    metrics)`` (loss, box_loss, obj_loss, cls_loss, grad_norm).
+
+    ``configs/yolov4_coco.yaml``'s train section: as ``yolov3_train_entry``
+    at 512x512 and width 1.0, SGD momentum 0.949 without Nesterov, weight
+    decay 5e-4, the lr ``warmup_cosine(1.3e-3, 2.2e6, 8000)`` (0 at the
+    first step)."""
+    dev = resolve_device(device)
+    return _yolo_train_program(
+        _seeded_yolo(YOLOv4, torch.bfloat16, YOLOV4_RES,
+                     width_mult=YOLOV4_WIDTH), dev, batch,
+        warmup_cosine(YOLOV4_LR, YOLO_COSINE_TOTAL_STEPS, YOLOV4_WARMUP),
+        YOLOV4_MOMENTUM, nesterov=False, res=YOLOV4_RES)
+
+
+def build_yolov7(device=None, dtype: torch.dtype = torch.bfloat16
+                 ) -> YOLOv7:
+    """YOLOv7 (E-ELAN, width 0.5), 80 classes, 640x640, in eval mode:
+    weights from ``SEED`` (flax's defaults: the heads' biases at 0) stored
+    in ``dtype``, which is also the compute dtype."""
+    dev = resolve_device(device)
+    return _served(_seeded_yolo(YOLOv7, dtype, width_mult=YOLOV7_WIDTH),
+                   dev, dtype)
+
+
+def yolov7_entry(device=None, batch: int = 1
+                 ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``YOLOv7.predict``
+    (as ``yolov4_entry``'s) of ``build_yolov7``'s bf16 model, not
+    calibrated; the image is ``yolov8_entry``'s."""
+    return _yolo_serving(build_yolov7(device), batch)
+
+
+def yolov7_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH
+                       ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): one YOLOv7 train step in place, ``(state,
+    metrics)`` (loss, box_loss, obj_loss, cls_loss, grad_norm).
+
+    ``configs/yolov7_coco.yaml``'s train section: as ``yolov5_train_entry``
+    (640x640, Nesterov SGD 0.937, weight decay 5e-4, the lr
+    ``warmup_cosine(0.01, 2.2e6, 22000)``) with the E-ELAN model at width
+    0.5."""
+    dev = resolve_device(device)
+    return _yolo_train_program(
+        _seeded_yolo(YOLOv7, torch.bfloat16, width_mult=YOLOV7_WIDTH), dev,
+        batch, warmup_cosine(YOLO_LR, YOLO_COSINE_TOTAL_STEPS, YOLOV7_WARMUP),
+        YOLOV7_MOMENTUM)
+
+
+def _seeded_ssd(dtype: torch.dtype) -> SSD:
+    model = SSD(num_classes=NUM_CLASSES, image_size=SSD_RES, dtype=dtype)
+    return model.init_weights(torch.Generator().manual_seed(SEED))
+
+
+def build_ssd(device=None, dtype: torch.dtype = torch.bfloat16) -> SSD:
+    """SSD-300-MobileNetV2, 80 classes, in eval mode: weights from ``SEED``
+    (flax's defaults: every bias at 0) stored in ``dtype``, which is also
+    the compute dtype; the anchors stay f32."""
+    dev = resolve_device(device)
+    return _served(_seeded_ssd(dtype), dev, dtype)
+
+
+@torch.no_grad()
+def calibrate_ssd(model: SSD, image: torch.Tensor) -> SSD:
+    """Give the seeded SSD's requests candidates to keep, on this image.
+    Its zero-bias class convs over identity BN leave the 81 logits of an
+    anchor within a few hundredths of each other, so every class scores
+    ~1/81 = 0.012, under ``predict``'s 0.05 threshold, and a request keeps
+    nothing. So each map's ``multibox{i}.cls`` conv is scaled to logits of
+    std ``CLS_LOGIT_STD`` on ``image`` (its bias stays 0). Returns
+    ``model``, changed in place."""
+    with torch.inference_mode():
+        feats = model.features(image)
+        gains = [CLS_LOGIT_STD / float(
+            getattr(model, f"multibox{i}")(f)[0].std())
+            for i, f in enumerate(feats)]
+    for i, g in enumerate(gains):
+        getattr(model, f"multibox{i}").cls.weight.mul_(g)
+    return model
+
+
+def ssd_entry(device=None, batch: int = 1
+              ) -> Tuple[Callable[..., Dict], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is ``SSD.predict``
+    (softmax without the background, top 400, NMS 0.45, score threshold
+    0.05, 100 detections) of ``build_ssd``'s bf16 model, calibrated on the
+    image (``calibrate_ssd``: the seeded model keeps nothing); the image as
+    ``yolov3_entry``'s at (batch, 300, 300, 3)."""
+    predict, (image,) = _yolo_serving(build_ssd(device), batch, SSD_RES)
+    calibrate_ssd(predict.__self__, image)
+    return predict, (image,)
+
+
+def ssd_train_entry(device=None, batch: int = SSD_TRAIN_BATCH
+                    ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): one SSD train step in place, ``(state,
+    metrics)`` (loss, cls_loss, reg_loss, grad_norm).
+
+    ``configs/ssd_mbv2_coco.yaml``'s train section: the model seeded with
+    ``SEED``, f32 parameters, bf16 compute, channels_last, train mode; SGD
+    momentum 0.9 without Nesterov, weight decay 4e-5 on ndim > 1
+    parameters, no clip, the lr ``warmup_cosine(0.05, 400000, 4000)`` (0 at
+    the first step), inside ``skip_nonfinite_updates``; the batch
+    ``synthetic_detection_batch(batch, (300, 300), 80)``."""
+    dev = resolve_device(device)
+    return _yolo_train_program(
+        _seeded_ssd(torch.bfloat16), dev, batch,
+        warmup_cosine(SSD_LR, SSD_TOTAL_STEPS, SSD_WARMUP), SSD_MOMENTUM,
+        nesterov=False, res=SSD_RES, weight_decay=SSD_WEIGHT_DECAY)

@@ -1,10 +1,12 @@
-"""CSPDarknet backbone, YOLOv5/YOLOX style and the C2f variant of YOLOv8
-(counterpart of ``minddet_tpu/models/backbones/csp_darknet.py``: the
-SiLU family, not YOLOv4's Mish ``CSPDarknet53``).
+"""CSPDarknet backbone, YOLOv5/YOLOX style and the C2f variant of YOLOv8,
+and YOLOv4's Mish ``CSPDarknet53`` (counterpart of
+``minddet_tpu/models/backbones/csp_darknet.py``; its ``_CSP53Stage`` is
+``CSP53Stage`` here).
 
 NCHW in ``channels_last`` memory; convs compute in their input's dtype
 (``models/layers.py``). Every BN is flax's ``BatchNorm(momentum=0.97,
-epsilon=1e-3)``: torch momentum 0.03, eps 1e-3. Module names mirror the flax
+epsilon=1e-3)``: torch momentum 0.03, eps 1e-3, in the SiLU blocks and
+in the Mish ones alike. Module names mirror the flax
 scopes (``stem/conv``, ``stage1/in``, ``b0/c1``, ``sppf/out``), so
 ``utils/convert.py:load_from_flax`` carries the weights across. Returns
 (C3, C4, C5) at strides 8, 16 and 32.
@@ -162,3 +164,84 @@ class CSPDarknet(nn.Module):
         c4 = self.stage3(self.down3(c3))
         c5 = self.sppf(self.stage4(self.down4(c4)))
         return c3, c4, c5
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x tanh(softplus(x)) (flax's ``softplus`` is ``logaddexp(x, 0)``;
+    torch's takes x itself past 20, which moves neither the value nor the
+    gradient beyond f64 rounding there)."""
+    return F.mish(x)
+
+
+class MishConv(nn.Module):
+    """conv (no bias, padding kernel // 2) -> BN -> Mish: YOLOv4's block."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 strides: int = 1):
+        super().__init__()
+        self.conv = Conv2d(in_channels, features, kernel, stride=strides,
+                           padding=kernel // 2, bias=False)
+        self.bn = BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mish(self.bn(self.conv(x)))
+
+
+class CSP53Stage(nn.Module):
+    """One CSPDarknet53 stage: ``main`` and ``skip`` 1x1 to h (half the
+    width where ``n`` > 1, the whole width for the single-block stage),
+    ``n`` residual (1x1 to h / 2 (h where ``n`` is 1), 3x3 to h)
+    bottlenecks ``b{i}_c1`` / ``b{i}_c2`` on ``main``, then ``post``, the
+    concatenation with ``skip`` and the 1x1 ``out``; Mish throughout."""
+
+    def __init__(self, in_channels: int, features: int, n: int):
+        super().__init__()
+        h = features // 2 if n > 1 else features
+        inner = h // 2 if n > 1 else h
+        self.n = n
+        self.main = MishConv(in_channels, h, 1)
+        self.skip = MishConv(in_channels, h, 1)
+        for i in range(n):
+            self.add_module(f"b{i}_c1", MishConv(h, inner, 1))
+            self.add_module(f"b{i}_c2", MishConv(inner, h, 3))
+        self.post = MishConv(h, h, 1)
+        self.out = MishConv(2 * h, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.main(x)
+        for i in range(self.n):
+            a = a + getattr(self, f"b{i}_c2")(getattr(self, f"b{i}_c1")(a))
+        return self.out(torch.cat([self.post(a), self.skip(x)], dim=1))
+
+
+class CSPDarknet53(nn.Module):
+    """YOLOv4's backbone: a 3x3 ``stem``, then five stages, each a 3x3
+    stride-2 ``down{s}`` and a ``CSP53Stage`` ``stage{s}`` of Darknet-53's
+    residual counts (1, 2, 8, 8, 4) at (64, 128, 256, 512, 1024) scaled by
+    ``width_mult``. Returns the last three stages' maps (C3, C4, C5) at
+    strides 8, 16 and 32."""
+
+    STAGES = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
+
+    def __init__(self, width_mult: float = 1.0):
+        super().__init__()
+
+        def w(c):
+            return max(16, int(c * width_mult // 8 * 8))
+
+        self.stem = MishConv(3, w(32), 3)
+        cin = w(32)
+        for si, (c, n) in enumerate(self.STAGES):
+            self.add_module(f"down{si}", MishConv(cin, w(c), 3, 2))
+            self.add_module(f"stage{si}", CSP53Stage(w(c), w(c), n))
+            cin = w(c)
+        self.out_channels = (w(256), w(512), w(1024))
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        x = self.stem(x)
+        outs = []
+        for si in range(len(self.STAGES)):
+            x = getattr(self, f"stage{si}")(getattr(self, f"down{si}")(x))
+            outs.append(x)
+        return outs[2], outs[3], outs[4]

@@ -1,8 +1,9 @@
 """YOLOv5 and the anchor-based YOLO core it shares with YOLOv4 and YOLOv7
 (counterpart of ``minddet_tpu/models/detectors/yolov5.py``:
 ``YOLOV5_ANCHORS``, ``yolov5_assign``, ``_AnchorYOLO`` as ``AnchorYOLO``
-with ``__call__`` as ``forward``, ``_decode_level``, ``loss`` and
-``predict``, and ``YOLOv5``).
+with ``__call__`` as ``forward``, ``_decode_level`` (its body
+``decode_anchor_level``, which YOLOv3 shares), ``loss`` and ``predict``,
+and ``YOLOv5``).
 
 The image is NHWC (B, H, W, 3) as in the reference and is cast to
 ``dtype``, the compute dtype, once; inside, activations are NCHW in
@@ -108,6 +109,38 @@ def yolov5_assign(gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
     return pos.to(gt_boxes.dtype), tbox, tcls.to(torch.int32)
 
 
+def decode_anchor_level(out: torch.Tensor, anchors_wh: torch.Tensor,
+                        stride: int, flavor: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One level's head output (B, H, W, na, 5 + C) with its anchor shapes
+    (na, 2) in pixels -> corner boxes (B, H W na, 4) in input pixels,
+    objectness logits (B, H W na), class logits (B, H W na, C), flattened
+    over (H, W, na). ``flavor`` "sigmoid2": centre (2 s - 0.5 + cell)
+    stride, size (2 s)² anchor; "exp" (YOLOv3's and v4's): centre (s +
+    cell) stride, size exp(t clipped into [-8, 8]) anchor."""
+    b, h, w, na, _ = out.shape
+    gy = torch.arange(h, dtype=torch.float32,
+                      device=out.device)[None, :, None, None]
+    gx = torch.arange(w, dtype=torch.float32,
+                      device=out.device)[None, None, :, None]
+    aw, ah = anchors_wh[:, 0], anchors_wh[:, 1]
+    if flavor == "sigmoid2":
+        s = torch.sigmoid(out[..., :4])
+        cx = (2.0 * s[..., 0] - 0.5 + gx) * stride
+        cy = (2.0 * s[..., 1] - 0.5 + gy) * stride
+        bw = (2.0 * s[..., 2]) ** 2 * aw
+        bh = (2.0 * s[..., 3]) ** 2 * ah
+    else:
+        cx = (torch.sigmoid(out[..., 0]) + gx) * stride
+        cy = (torch.sigmoid(out[..., 1]) + gy) * stride
+        bw = torch.exp(clip(out[..., 2], -8.0, 8.0)) * aw
+        bh = torch.exp(clip(out[..., 3], -8.0, 8.0)) * ah
+    boxes = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
+                        -1)
+    return (boxes.reshape(b, -1, 4), out[..., 4].reshape(b, -1),
+            out[..., 5:].reshape(b, -1, out.shape[-1] - 5))
+
+
 class AnchorYOLO(nn.Module):
     """The anchor-based YOLO core (v4, v5, v7): ``backbone``, ``PAN`` at
     (256, 512, 1024) scaled by ``width_mult`` (depth 1), a 1x1 ``head{i}``
@@ -186,29 +219,9 @@ class AnchorYOLO(nn.Module):
         """One level's head output (B, H, W, na, 5 + C) -> corner boxes (B,
         H W na, 4) in input pixels, objectness logits (B, H W na), class
         logits (B, H W na, C), flattened over (H, W, na)."""
-        b, h, w, na, _ = out.shape
-        stride = self.STRIDES[level]
-        gy = torch.arange(h, dtype=torch.float32,
-                          device=out.device)[None, :, None, None]
-        gx = torch.arange(w, dtype=torch.float32,
-                          device=out.device)[None, None, :, None]
         (wh,) = self.anchor_wh[level](out.device)
-        aw, ah = wh[:, 0], wh[:, 1]
-        if self.decode_flavor == "sigmoid2":
-            s = torch.sigmoid(out[..., :4])
-            cx = (2.0 * s[..., 0] - 0.5 + gx) * stride
-            cy = (2.0 * s[..., 1] - 0.5 + gy) * stride
-            bw = (2.0 * s[..., 2]) ** 2 * aw
-            bh = (2.0 * s[..., 3]) ** 2 * ah
-        else:
-            cx = (torch.sigmoid(out[..., 0]) + gx) * stride
-            cy = (torch.sigmoid(out[..., 1]) + gy) * stride
-            bw = torch.exp(clip(out[..., 2], -8.0, 8.0)) * aw
-            bh = torch.exp(clip(out[..., 3], -8.0, 8.0)) * ah
-        boxes = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
-                             cy + bh / 2], -1)
-        return (boxes.reshape(b, -1, 4), out[..., 4].reshape(b, -1),
-                out[..., 5:].reshape(b, -1, self.num_classes))
+        return decode_anchor_level(out, wh, self.STRIDES[level],
+                                   self.decode_flavor)
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -54,6 +54,18 @@ cls{i}_{j}|reg{i}_{j}|cls_out{i}|reg_out{i}|obj_out{i}``) and
 ``yolov5_from_flax`` for the JAX ``YOLOv5`` (``backbone``, the same
 ``neck``, the 1x1 ``head{i}`` convs).
 
+``yolov4_from_flax`` and ``yolov7_from_flax`` do it for the JAX ``YOLOv4``
+(``backbone/stem|down{s}|stage{s}/main|skip|b{i}_c1|b{i}_c2|post|out``, each
+``MishConv``'s ``conv`` and ``bn``) and ``YOLOv7`` (``backbone/stem{i}|
+down1|stage{s}/in_a|in_b|t{t}_{j}|out|mp{s}/pool_proj|pre|down``), the same
+``neck`` and ``head{i}`` as YOLOv5's; ``yolov3_from_flax`` for the JAX
+``YOLOv3`` (``backbone/stem|down{s}|res{s}_{i}/c1|c2``, ``h{5,4,3}_a{i}|
+b{i}|mid|pre``, ``route5|route4``, each ``_DarkConv``'s ``conv`` and ``bn``,
+the biased 1x1 ``h{5,4,3}_out``); ``ssd_from_flax`` for the JAX ``SSD``
+(``backbone/stem|stem_bn|block{i}/expand|expand_bn|dw|dw_bn|project|
+project_bn|head|head_bn``, the depthwise ``dw`` kernels (3, 3, 1, C) as
+(C, 1, 3, 3), ``extra{i}/c1|bn1|c2|bn2``, ``multibox{i}/cls|reg``).
+
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
 ``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and
@@ -206,6 +218,26 @@ def yolox_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
 
 def yolov5_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
     """Load the JAX ``YOLOv5`` variables into the port's ``YOLOv5``."""
+    return load_from_flax(model, variables)
+
+
+def yolov3_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``YOLOv3`` variables into the port's ``YOLOv3``."""
+    return load_from_flax(model, variables)
+
+
+def yolov4_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``YOLOv4`` variables into the port's ``YOLOv4``."""
+    return load_from_flax(model, variables)
+
+
+def yolov7_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``YOLOv7`` variables into the port's ``YOLOv7``."""
+    return load_from_flax(model, variables)
+
+
+def ssd_from_flax(model: nn.Module, variables: Dict) -> nn.Module:
+    """Load the JAX ``SSD`` variables into the port's ``SSD``."""
     return load_from_flax(model, variables)
 
 

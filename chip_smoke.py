@@ -97,6 +97,13 @@ Phases (any failure raises and exits non-zero):
    m. the same for SSD-300-MobileNetV2 (its class convs calibrated on the
       request, as ``ssd_entry`` serves it): the six maps, the class logits
       and box deltas, top-400, NMS;
+   n. f32 DeepLabV3+ ``predict`` (ResNet-101 at output stride 16, batch 2
+      at 513x513, so the ASPP's rate-18 taps reach real pixels), BN
+      statistics from the request's image: C2, C5, the ASPP and decoder
+      outputs, the out conv and the logits held to the f64 referee, the
+      argmax equal to the referee's wherever its top-two margin clears the
+      card's error; o. the same for DeepLabV3; p. for UNet (full width at
+      512x512); no kernel launches;
 5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
@@ -145,6 +152,11 @@ Phases (any failure raises and exits non-zero):
       on each of maps 2-5, so every map has positives), with the labels,
       the matches and the mined negatives on the CPU's inputs exactly (the
       negatives also on cross entropies rounded to ties);
+   o. one f32 DeepLabV3+ train step (ResNet-101 at 321x321, batch 2, SGD
+      at 0.007) held to the f64 referee as 5k-5n hold theirs, by part
+      (backbone, ASPP, the decoder's low_ and dec, out), then again in f64
+      on the card; p. the same for DeepLabV3; q. for UNet (full width at
+      256x256, Adam at 3e-4); no kernel launches;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -224,6 +236,17 @@ Phases (any failure raises and exits non-zero):
       on its image, top 400; ``ssd_train_entry``: batch 32, SGD 0.9, decay
       4e-5); 6u-6ab are always profiled (the device's busy time and idle
       share per request and per step) and print their seconds.
+   ac. DeepLabV3+ serving (``deeplabv3plus_entry``: ResNet-101 at output
+      stride 16, 21 classes, 513x513, bf16, the per-pixel argmax) at batch
+      1 and 16, and ad. its training (``deeplabv3plus_train_entry``: batch
+      16, f32 params, bf16 compute, SGD 0.9 with decay 4e-5 under the
+      polynomial decay from 0.007, the NaN guard): the loss must fall over
+      the 12 steps;
+   ae. / af. the same for DeepLabV3 (no decoder);
+   ag. / ah. the same for UNet (``unet_entry``: widths 64-1024, 2 classes,
+      512x512, batch 1 and 8; ``unet_train_entry``: batch 8, Adam under the
+      warm-up cosine from 0); 6ac-6ah launch no hand-written kernel, are
+      always profiled and print their seconds.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -2098,7 +2121,8 @@ PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "4i": 46, "5": 50, "5b": 51, "5d": 52, "5e": 53, "5f": 54,
                "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61,
                "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
-               "5m": 76, "5n": 77}
+               "5m": 76, "5n": 77, "4n": 80, "4o": 81, "4p": 82, "5o": 83,
+               "5p": 84, "5q": 85}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -5079,21 +5103,29 @@ def _hold_ssd_targets(cpu, batch, dev, result, bad):
         bad.append("no positives, or no tie across the mining's cut")
 
 
-def _hold_f64_card_step(kind, start, batch, tx, r, t, dev, result, bad):
-    """The same step in f64 on the card (5k-5n), from the same weights,
-    against the f64 referee's snapshot ``r``: far from every kink and tie
-    that f32 rounding may move, the card's own math (convs, BN, the loss,
-    its targets and mining, the SGD) must give the referee's numbers, to
-    ZOO_F64_TOL; the cancelled gradients (``t["cancelled"]``) left out."""
+def _hold_f64_card_step(make_model, start, batch, tx, r, t, dev, result,
+                        bad):
+    """The same step in f64 on the card (5k-5n, 5o-5q), ``make_model()``'s
+    f64 model on the card from the same weights, against the f64 referee's
+    snapshot ``r``: far from every kink and tie that f32 rounding may move,
+    the card's own math (convs, BN, the loss, its targets and mining, the
+    optimizer) must give the referee's numbers, to ZOO_F64_TOL; the
+    cancelled gradients (``t["cancelled"]``) left out. Where ``t`` has
+    ``adam_resolved`` (an Adam step, ~lr sign(g) per element) the
+    parameters are compared only where the referee's gradient exceeds that
+    share of its tensor's largest: elsewhere the card's gradient error may
+    turn the sign. The share of elements left out, the elements that moved
+    farther than ``param_atol`` anywhere and the largest gradient ratio
+    among them are reported."""
     from minddet_tpu_torch import entry
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
 
     f = ZOO_F64_TOL
-    model = _yolo_check_model(kind, torch.float64, dev)
+    model = make_model()
     model.load_state_dict(start)
     state = TrainState.create(model, tx)
     t0 = time.perf_counter()
-    state, metrics = make_train_step(entry.yolo_loss)(
+    state, metrics = make_train_step(entry.model_loss)(
         state, {k: v.to(dev) for k, v in batch.items()})
     g = _train_snapshot(state, metrics, torch.float64)
     result["f64_card_step_s"] = time.perf_counter() - t0
@@ -5110,9 +5142,32 @@ def _hold_f64_card_step(kind, start, batch, tx, r, t, dev, result, bad):
     far = [n for n, v in rel.items() if v > f["grad_rel_l2"]]
     if far:
         bad.append(f"f64 card step: gradients of {far[:6]}")
-    param_err = max(float((g["params"][n] - v).abs().max())
-                    for n, v in r["params"].items())
+    resolved = t.get("adam_resolved")
+    left_out, flips, flip_ratio, count = 0, 0, 0.0, 0
+
+    def moved(n, v):
+        nonlocal left_out, flips, flip_ratio, count
+        d = (g["params"][n] - v).abs()
+        if resolved:
+            grad = r["grads"][n].abs()
+            ratio = grad / grad.max()
+            far = d > f["param_atol"]
+            count += d.numel()
+            left_out += int((ratio <= resolved).sum())
+            flips += int(far.sum())
+            if far.any():
+                flip_ratio = max(flip_ratio, float(ratio[far].max()))
+            d = d[ratio > resolved]
+        return float(d.max()) if d.numel() else 0.0
+
+    param_err = max(moved(n, v) for n, v in r["params"].items())
     result["f64_card_param_max_abs_err"] = param_err
+    if resolved:
+        # the elements the cut leaves out, and the largest gradient ratio
+        # of an element that moved farther than param_atol (a sign flip)
+        result.update(f64_card_adam_left_out=left_out / count,
+                      f64_card_adam_flips=flips,
+                      f64_card_adam_flip_max_ratio=flip_ratio)
     if param_err > f["param_atol"]:
         bad.append("f64 card step: parameters after the step")
     for n, v in r["stats"].items():
@@ -5120,6 +5175,59 @@ def _hold_f64_card_step(kind, start, batch, tx, r, t, dev, result, bad):
                      <= f["stat_atol"] + f["stat_rtol"] * v.abs()).all()):
             bad.append(f"f64 card step: BN statistic {n}")
             break
+
+
+def _check_trio(make, dev, gen):
+    """The three models of a train check: ``make(torch.float32)`` on the
+    CPU with BN affines and statistics drawn from ``gen``, the card's f32
+    copy ``make(torch.float32, dev)`` and the f64 referee
+    ``make(torch.float64)`` loaded with its state; returns (card, CPU,
+    referee, that state)."""
+    cpu = make(torch.float32)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "running_var"):
+                m.weight.uniform_(0.6, 1.4, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.6, 1.4, generator=gen)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu, referee = make(torch.float32, dev), make(torch.float64)
+    for m in (gpu, referee):
+        m.load_state_dict(start)
+    return gpu, cpu, referee, start
+
+
+def _three_steps(gpu, cpu, referee, tx, batch, result, bad):
+    """One step of ``tx`` on ``batch`` (the model's ``loss``) for the card's
+    model, the CPU's and the f64 referee, each from the weights it holds;
+    returns their snapshots (``_train_snapshot``) by side. The seconds go
+    into ``result``; a hand-written kernel launched on the card or a step
+    the NaN guard held back goes into ``bad``."""
+    from minddet_tpu_torch import entry, kernels
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    snaps = {}
+    for name, model in (("card", gpu), ("cpu", cpu), ("referee", referee)):
+        d = next(model.parameters()).device
+        state = TrainState.create(model, tx)
+        before = next(model.parameters()).detach().clone()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(entry.model_loss)(
+            state, {k: v.to(d) for k, v in batch.items()})
+        snaps[name] = _train_snapshot(state, metrics, next(
+            model.parameters()).dtype)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        seconds = result[f"{name}_step_s"] = time.perf_counter() - t0
+        print(f"  {name} step {seconds:.1f} s, loss "
+              f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
+        if name == "card" and any(launches.values()):
+            bad.append(f"the train step launched {launches}")
+        if torch.equal(next(model.parameters()).detach(), before):
+            bad.append(f"{name}: the NaN guard held a finite step back")
+        del state
+    return snaps
 
 
 def check_yolo_train_f32(dev, kind: str = "yolov8"):
@@ -5147,28 +5255,16 @@ def check_yolo_train_f32(dev, kind: str = "yolov8"):
 
 
 def _check_yolo_train_f32(dev, kind):
-    from minddet_tpu_torch import entry, kernels
+    from minddet_tpu_torch import entry
     from minddet_tpu_torch.core.optim import sgd, skip_nonfinite_updates
-    from minddet_tpu_torch.train.loop import TrainState, make_train_step
     from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
 
     spec = _yolo_spec(kind)
     t, label = spec["tol"], spec["label"]
     res, b = spec["train_res"], YOLO_TRAIN_CHECK["batch"]
-    gen = _seeded(spec["phases"][1])
-    cpu = _yolo_check_model(kind, torch.float32)
-    with torch.no_grad():
-        for m in cpu.modules():
-            if hasattr(m, "running_var"):
-                m.weight.uniform_(0.6, 1.4, generator=gen)
-                m.bias.normal_(0.0, 0.1, generator=gen)
-                m.running_mean.normal_(0.0, 0.1, generator=gen)
-                m.running_var.uniform_(0.6, 1.4, generator=gen)
-    start = {k: v.clone() for k, v in cpu.state_dict().items()}
-    gpu = _yolo_check_model(kind, torch.float32, dev)
-    referee = _yolo_check_model(kind, torch.float64)
-    for m in (gpu, referee):
-        m.load_state_dict(start)
+    gpu, cpu, referee, start = _check_trio(
+        lambda dtype, d=None: _yolo_check_model(kind, dtype, d), dev,
+        _seeded(spec["phases"][1]))
 
     def draw(n, max_objs=16):
         data = synthetic_detection_batch(n, (res, res), entry.NUM_CLASSES,
@@ -5183,33 +5279,280 @@ def _check_yolo_train_f32(dev, kind):
                         YOLO_ASSIGN_CHECK["max_objs"])
     _hold_yolo_assignment(kind, cpu, assign_batch, dev, result, bad)
 
-    snaps = {}
     tx = skip_nonfinite_updates(sgd(
         YOLO_CHECK_LR, momentum=spec["momentum"], nesterov=spec["nesterov"],
         weight_decay=spec["decay"]))
-    for name, model in (("card", gpu), ("cpu", cpu), ("referee", referee)):
-        d = next(model.parameters()).device
-        state = TrainState.create(model, tx)
-        before = next(model.parameters()).detach().clone()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        state, metrics = make_train_step(entry.yolo_loss)(
-            state, {k: v.to(d) for k, v in batch.items()})
-        snaps[name] = _train_snapshot(state, metrics, next(
-            model.parameters()).dtype)
-        launches = {k.name: k.launches for k in kernels.KERNELS}
-        print(f"  {name} step {time.perf_counter() - t0:.1f} s, loss "
-              f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
-        if name == "card" and any(launches.values()):
-            bad.append(f"the train step launched {launches}")
-        if torch.equal(next(model.parameters()).detach(), before):
-            bad.append(f"{name}: the NaN guard held a finite step back")
-        del state
+    snaps = _three_steps(gpu, cpu, referee, tx, batch, result, bad)
     _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"], t,
                     spec["parts"], "", result, bad)
     if spec["f64_step"]:
-        _hold_f64_card_step(kind, start, batch, tx, snaps["referee"], t,
-                            dev, result, bad)
+        _hold_f64_card_step(
+            lambda: _yolo_check_model(kind, torch.float64, dev), start,
+            batch, tx, snaps["referee"], t, dev, result, bad)
+    print(f"  f32 {label} train step card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items() if k != "tolerance"), flush=True)
+    if bad:
+        raise AssertionError(f"f32 {label} train step, card vs CPU: {bad} "
+                             f"outside {t}: {result}")
+    return result
+
+
+# The segmentors (phases 4n-4p, 5o-5q, 6ac-6ah): DeepLabV3+, DeepLabV3
+# (ResNet-101 dilated to output stride 16, 21 classes, 513 x 513) and UNet
+# (widths 64-1024, 2 classes, 512 x 512). Their f32 predict checks take
+# batch SEG_CHECK_BATCH at the configs' sides (``check_res``; DeepLab's C5
+# is 33 wide, so the ASPP's rate-18 taps reach real pixels). The train
+# checks cut the side (``train_res``): DeepLab to 321 x 321 (C5 21 wide),
+# UNet to 256 x 256, where the f64 CPU step takes seconds. BN statistics
+# come from the request's own image (``randomize_bn``).
+SEG_CHECK_BATCH = 2
+SEG_CHECK_UNET_LR = 3e-4  # the check's Adam lr (the warm-up's first is 0)
+# the train checks' bounds are ZOO_TRAIN_TOL's (grad_norm to the referee
+# only, the step again in f64 on the card). Adam's first step moves a
+# parameter by ~lr sign(g), so an element whose referee gradient is
+# smaller than the card's error of it may move the other way: UNet's f64
+# card step holds the parameters where the referee's gradient is above
+# 1e-6 of its tensor's largest. The card's f64 gradients lie ~6e-8 (rel.
+# L2) from the referee's, so a flip needs a ratio below ~1e-7; at a cut of
+# 1e-4, 0.095 % of UNet's elements were left out and none of all of them
+# flipped (H100, PERF.md section 6)
+SEG_ADAM_TRAIN_TOL = dict(ZOO_TRAIN_TOL, adam_resolved=1e-6)
+
+
+def seg_models() -> dict:
+    """The segmentors of phases 4n-4p, 5o-5q and 6ac-6ah in their phases'
+    order, each a dict: ``label``, the model class ``cls`` and its
+    ``kwargs`` at the config's settings, the ``serve`` and ``train``
+    entries, ``classes``, the config's ``res``, ``serve_batches`` and
+    ``train_batch``, the sides of the f32 predict check (``check_res``)
+    and train check (``train_res``), the maps held to the referee
+    (``maps``: name -> (module, index into its output or None)), the
+    parameter groups (``parts``), the check's optimizer (``tx``) and
+    bounds (``tol``) and the ``phases``."""
+    from minddet_tpu_torch import entry
+    from minddet_tpu_torch.core.optim import adam, sgd
+    from minddet_tpu_torch.models.segmentors import (DeepLabV3, DeepLabV3Plus,
+                                                     UNet)
+
+    deeplab = dict(
+        kwargs=dict(num_classes=entry.DEEPLAB_CLASSES,
+                    depth=entry.DEEPLAB_DEPTH),
+        classes=entry.DEEPLAB_CLASSES, res=entry.DEEPLAB_RES,
+        serve_batches=(1, 16), train_batch=entry.DEEPLAB_TRAIN_BATCH,
+        check_res=entry.DEEPLAB_RES, train_res=321,
+        maps={"C2": ("backbone", 0), "C5": ("backbone", 3),
+              "aspp": ("aspp", None), "out": ("out", None)},
+        parts=("backbone.", "aspp.", "low_", "dec", "out."),
+        tol=ZOO_TRAIN_TOL,
+        tx=lambda: sgd(entry.DEEPLAB_LR, momentum=entry.DEEPLAB_MOMENTUM,
+                       weight_decay=entry.DEEPLAB_WEIGHT_DECAY))
+    return {
+        "deeplabv3plus": dict(
+            deeplab, label="DeepLabV3+", cls=DeepLabV3Plus,
+            serve=entry.deeplabv3plus_entry,
+            train=entry.deeplabv3plus_train_entry,
+            maps=dict(deeplab["maps"], dec1=("dec1_bn", None)),
+            phases=("4n", "5o", "6ac", "6ad")),
+        "deeplabv3": dict(
+            deeplab, label="DeepLabV3", cls=DeepLabV3,
+            serve=entry.deeplabv3_entry,
+            train=entry.deeplabv3_train_entry,
+            phases=("4o", "5p", "6ae", "6af")),
+        "unet": dict(
+            label="UNet", cls=UNet,
+            kwargs=dict(num_classes=entry.UNET_CLASSES),
+            serve=entry.unet_entry, train=entry.unet_train_entry,
+            classes=entry.UNET_CLASSES, res=entry.UNET_RES,
+            serve_batches=(1, 8), train_batch=entry.UNET_TRAIN_BATCH,
+            check_res=entry.UNET_RES, train_res=256,
+            maps={"down0": ("down0_bn1", None),
+                  "bottom": ("bottom_bn1", None),
+                  "dec3": ("dec3_bn1", None), "out": ("out", None)},
+            parts=("down", "bottom", "up", "dec", "out."),
+            tol=SEG_ADAM_TRAIN_TOL,
+            tx=lambda: adam(SEG_CHECK_UNET_LR),
+            phases=("4p", "5q", "6ag", "6ah")),
+    }
+
+
+def _seg_model(spec, dtype, dev=None):
+    """The segmentor of ``spec`` seeded as its entries seed it, f32
+    parameters unless ``dtype`` is f64, compute in ``dtype``, channels_last
+    on ``dev``."""
+    from minddet_tpu_torch import entry
+
+    model = spec["cls"](dtype=dtype, **spec["kwargs"])
+    model.init_weights(torch.Generator().manual_seed(entry.SEED))
+    if dtype == torch.float64:
+        model = model.double()
+    return model.to(device=dev, memory_format=torch.channels_last)
+
+
+def _seg_request(gen, batch: int, res: int) -> torch.Tensor:
+    """A uint8 image drawn from ``gen``, normalized as the train path
+    normalizes its records: (batch, res, res, 3) f32."""
+    from minddet_tpu_torch.data.seg import seg_normalize
+
+    raw = torch.randint(0, 256, (batch, res, res, 3), generator=gen)
+    return torch.from_numpy(seg_normalize(raw.numpy()))
+
+
+def _seg_stages(model, image, maps):
+    """The forward's maps under ``maps`` (captured by forward hooks) and
+    its logits."""
+    out, hooks = {}, []
+    for name, (path, index) in maps.items():
+        def keep(m, a, o, name=name, index=index):
+            out[name] = o if index is None else o[index]
+        hooks.append(model.get_submodule(path).register_forward_hook(keep))
+    try:
+        out["logits"] = model(image)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def check_seg_f32(dev, gen, kind: str):
+    """Phases 4n-4p: f32 ``predict`` of the segmentor of ``kind``
+    (``seg_models``) at batch SEG_CHECK_BATCH and its ``check_res``, on the
+    card against the same model on the CPU (TF32 off) and an f64 CPU
+    referee: the maps and the logits held to the referee as phase 4 holds
+    its heads (the card at most HEAD_REFEREE_K times as far from it as the
+    f32 CPU, plus HEAD_REFEREE_FLOOR of the largest value); of the pixels
+    whose referee top-two margin exceeds twice the card's largest logit
+    error, the share whose argmax (and whose ``predict``) on the card is
+    the referee's must be 1; the share of all pixels where card and CPU
+    agree is reported. BN randomized with statistics from the request's
+    image. No hand-written kernel launches."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_seg_f32(dev, gen, kind)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_seg_f32(dev, gen, kind):
+    from minddet_tpu_torch import kernels
+
+    spec = seg_models()[kind]
+    label = spec["label"]
+    image = _seg_request(gen, SEG_CHECK_BATCH, spec["check_res"])
+    cpu = randomize_bn(_seg_model(spec, torch.float32), image, gen)
+    gpu = _seg_model(spec, torch.float32, dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    referee = _seg_model(spec, torch.float64).eval()
+    referee.load_state_dict(cpu.state_dict())
+
+    kernels.reset_launches()
+    with torch.inference_mode():
+        g = _seg_stages(gpu, image.to(dev), spec["maps"])
+        served = gpu.predict(image.to(dev))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    result, bad = dict(launches=launches), []
+    if any(launches.values()):
+        bad.append(f"f32 {label} predict launched {launches}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c = _seg_stages(cpu, image, spec["maps"])
+    result["cpu_predict_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        r = _seg_stages(referee, image, spec["maps"])
+    result["referee_s"] = time.perf_counter() - t0
+    for name in list(spec["maps"]) + ["logits"]:
+        got, host, ref = (_nhwc_cpu(d[name]) if name != "logits"
+                          else d[name].double().cpu() for d in (g, c, r))
+        card = result[f"{name}_card_vs_f64"] = float((got - ref).abs().max())
+        cpu_d = result[f"{name}_cpu_vs_f64"] = float((host - ref).abs().max())
+        result[f"{name}_max_abs_err"] = float((got - host).abs().max())
+        result[f"{name}_ratio"] = card / cpu_d if cpu_d else math.inf
+        limit = (HEAD_REFEREE_K * cpu_d
+                 + HEAD_REFEREE_FLOOR * float(ref.abs().max()))
+        if card > limit:
+            bad.append(f"{name}: the card lies {card} from the f64 referee, "
+                       f"over {HEAD_REFEREE_K} x the f32 CPU's {cpu_d}")
+    logits = r["logits"].double().cpu()
+    top2 = logits.topk(2, -1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * result["logits_card_vs_f64"]
+    want = logits.argmax(-1)
+    card_pred = g["logits"].argmax(-1).cpu()
+    result["clear_pixel_share"] = float(clear.double().mean())
+    result["argmax_agrees_share_clear"] = float(
+        (card_pred == want)[clear].double().mean())
+    result["predict_agrees_share_clear"] = float(
+        (served.cpu() == want)[clear].double().mean())
+    result["argmax_card_vs_cpu_share"] = float(
+        (card_pred == c["logits"].argmax(-1)).double().mean())
+    result["classes_predicted"] = int(want.unique().numel())
+    if result["clear_pixel_share"] < 0.9:
+        bad.append("fewer than 90 % of the pixels clear of a near tie")
+    for key in ("argmax_agrees_share_clear", "predict_agrees_share_clear"):
+        if result[key] != 1.0:
+            bad.append(f"{key} {result[key]}")
+    if served.shape != want.shape:
+        bad.append(f"predict's shape {tuple(served.shape)}")
+    print(f"  f32 {label} card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 {label} predict, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+def check_seg_train_f32(dev, kind: str):
+    """Phases 5o-5q: one f32 train step of the segmentor of ``kind``
+    (``seg_models``: at full depth and width, at its ``train_res``, batch
+    SEG_CHECK_BATCH; ``loss`` on the first
+    ``synthetic_seg_batches`` batch; the config's optimizer inside the NaN
+    guard: DeepLab's SGD at its first lr, UNet's Adam at
+    SEG_CHECK_UNET_LR), BN randomized, on the card against the same step
+    on the CPU (TF32 off) and in f64 compute on the CPU (the referee): the
+    loss, ce and grad_norm (to the referee only), each part's gradient
+    (DeepLab: backbone, ASPP, the decoder's ``low_`` and ``dec``, ``out``;
+    UNet: down, bottom, up, dec, out) and every parameter's, the BN
+    statistics, as ``_referee_checks`` holds them (a part whose referee
+    gradient is 0 throughout fails); then the step in f64 on the card
+    against the referee (``_hold_f64_card_step``). No hand-written kernel
+    launches; the NaN guard lets every step through."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_seg_train_f32(dev, kind)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_seg_train_f32(dev, kind):
+    from minddet_tpu_torch.core.optim import skip_nonfinite_updates
+    from minddet_tpu_torch.train.synthetic import synthetic_seg_batches
+
+    spec = seg_models()[kind]
+    t, label, res = spec["tol"], spec["label"], spec["train_res"]
+    gpu, cpu, referee, start = _check_trio(
+        lambda dtype, d=None: _seg_model(spec, dtype, d), dev,
+        _seeded(spec["phases"][1]))
+    data = next(synthetic_seg_batches(SEG_CHECK_BATCH, (res, res),
+                                      spec["classes"], seed=5))
+    batch = {k: torch.from_numpy(v) for k, v in data.items()}
+    tx = skip_nonfinite_updates(spec["tx"]())
+    result, bad = {"tolerance": t}, []
+    snaps = _three_steps(gpu, cpu, referee, tx, batch, result, bad)
+    _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"], t,
+                    spec["parts"], "", result, bad)
+    _hold_f64_card_step(
+        lambda: _seg_model(spec, torch.float64, dev), start,
+        batch, tx, snaps["referee"], t, dev, result, bad)
     print(f"  f32 {label} train step card vs CPU: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items() if k != "tolerance"), flush=True)
@@ -5846,21 +6189,22 @@ def yolo_main_path(dev, profile, kind: str = "yolov8"):
                 profile=profiled)
 
 
-def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
-    """Phases 6p, 6r, 6t, 6v, 6x, 6z and 6ab, 2D detector training
-    (``yolov8_train_entry``, ``yolox_train_entry``, ``yolov5_train_entry``,
-    ``yolov3_train_entry``, ``yolov4_train_entry``, ``yolov7_train_entry``,
-    ``ssd_train_entry``: f32 params, bf16 compute, the config's batch (16,
-    SSD's 32) and resolution, the config's SGD under its schedule and the
-    NaN guard), TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch
-    counts from 0: no hand-written kernel launches; every loss part finite
-    at every step and every step applied (the schedule's count advances by
-    one each). The warm-ups keep the lr small over these steps (YOLOv3's
-    schedule has none: 1e-3 from the first step), so the loss is not
-    expected to fall. Reports ms per step, img/s and the peak memory."""
-    from minddet_tpu_torch import entry, kernels
+def train_main_path_of(dev, profile, spec, falling: bool = False):
+    """The train main path of a model's ``spec`` (its ``label``, ``train``
+    entry and ``train_batch``): phases 6p, 6r, 6t, 6v, 6x, 6z and 6ab
+    (``yolo_models``: f32 params, bf16 compute, the config's batch, 16 or
+    SSD's 32, and resolution, the config's SGD under its schedule and the
+    NaN guard) and 6ad, 6af and 6ah (``seg_models``, with ``falling``),
+    TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch counts from 0: no
+    hand-written kernel launches; every loss part finite at every step and
+    every step applied (the schedule's count advances by one each); with
+    ``falling`` the last step's loss must lie under the first's (the YOLO
+    warm-ups keep the lr small over these steps, so theirs is not expected
+    to fall). Reports ms per step, img/s and the peak memory; with
+    ``profile`` the device's busy time, idle share and launches per step.
+    """
+    from minddet_tpu_torch import kernels
 
-    spec = _yolo_spec(kind)
     label, train_batch = spec["label"], spec["train_batch"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5901,6 +6245,9 @@ def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
     if out["schedule_count"] != steps:
         raise AssertionError(f"{steps} {label} steps applied "
                              f"{out['schedule_count']} updates")
+    if falling and not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"{label} train loss did not fall: "
+                             f"{out['losses']}")
     if any(launches.values()):
         raise AssertionError(f"{launches} in {steps} {label} train steps "
                              f"(want none)")
@@ -5910,6 +6257,62 @@ def yolo_train_main_path(dev, profile, kind: str = "yolov8"):
         out["profile"] = profile_train(
             f"{label} train batch {train_batch}", step_fn, state, batch)
     return out
+
+
+def seg_main_path(dev, kind: str):
+    """Phases 6ac, 6ae and 6ag, segmentor serving (``deeplabv3plus_entry``,
+    ``deeplabv3_entry``, ``unet_entry``: bf16, the config's resolution) at
+    each of the spec's ``serve_batches``, SERVE_WARMUP + SERVE_REQUESTS
+    requests each, with every kernel's count set to 0 just before: no
+    hand-written kernel launches; each answer (batch, res, res) class ids
+    in [0, classes). Reports ms per request (host clock around a synced
+    ``predict``), img/s, the peak memory and the classes predicted, then
+    the device's busy time, idle share and launches per request
+    (``torch.profiler``)."""
+    from minddet_tpu_torch import kernels
+
+    spec = seg_models()[kind]
+    label, res = spec["label"], spec["res"]
+    programs = {b: spec["serve"](device=dev, batch=b)
+                for b in spec["serve_batches"]}
+    kernels.reset_launches()
+    out, predicts = {}, 0
+    for b, (predict, (image,)) in programs.items():
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(SERVE_WARMUP + SERVE_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred = predict(image)
+            torch.cuda.synchronize()
+            if i >= SERVE_WARMUP:
+                times.append(time.perf_counter() - t0)
+            predicts += 1
+        if (pred.shape != (b, res, res) or int(pred.min()) < 0
+                or int(pred.max()) >= spec["classes"]):
+            raise AssertionError(f"{label} predict at batch {b}: "
+                                 f"{tuple(pred.shape)}, classes "
+                                 f"{pred.unique().tolist()}")
+        mean_s = statistics.mean(times)
+        out[f"b{b}"] = r = dict(
+            batch=b, requests=len(times), ms_mean=mean_s * 1e3,
+            ms_p50=statistics.median(times) * 1e3, img_per_s=b / mean_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            classes_predicted=int(pred.unique().numel()))
+        print(f"  {label} bf16 batch {b}: {mean_s * 1e3:8.3f} ms/request "
+              f"(p50 {r['ms_p50']:.3f}), {r['img_per_s']:7.1f} img/s, peak "
+              f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB, classes "
+              f"predicted {r['classes_predicted']}", flush=True)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"{label} serving launched {launches} for "
+                             f"{predicts} requests (want none)")
+    print(f"  kernels: none launched in {predicts} requests: True",
+          flush=True)
+    print(f"profile: {label} serving", flush=True)
+    return dict(serving=out, launches=launches, requests=predicts,
+                profile=profile_clouds(label, programs))
 
 
 def _profile(fn, calls: int):
@@ -6143,6 +6546,14 @@ def main(argv=None) -> int:
         yolo_f32[kind] = timed_phase(phase, card, check_yolo_f32, dev,
                                      _seeded(phase), kind)
         torch.cuda.empty_cache()
+    seg_f32 = {}
+    for kind, spec in seg_models().items():
+        phase = spec["phases"][0]
+        print(f"phase {phase}: end to end, f32 {spec['label']} predict, card "
+              f"vs CPU and the f64 referee", flush=True)
+        seg_f32[kind] = timed_phase(phase, card, check_seg_f32, dev,
+                                    _seeded(phase), kind)
+        torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
           "referee", flush=True)
@@ -6176,6 +6587,14 @@ def main(argv=None) -> int:
               f"card vs CPU and the f64 referee", flush=True)
         yolo_train_f32[kind] = timed_phase(phase, card, check_yolo_train_f32,
                                            dev, kind)
+        torch.cuda.empty_cache()
+    seg_train_f32 = {}
+    for kind, spec in seg_models().items():
+        phase = spec["phases"][1]
+        print(f"phase {phase}: end to end, f32 {spec['label']} train step, "
+              f"card vs CPU and the f64 referee", flush=True)
+        seg_train_f32[kind] = timed_phase(phase, card, check_seg_train_f32,
+                                          dev, kind)
         torch.cuda.empty_cache()
     forward_probe = None
     if args.probe:
@@ -6379,10 +6798,25 @@ def main(argv=None) -> int:
         print(f"phase {train_phase}: main path, {spec['label']} bf16 train "
               f"step at batch {spec['train_batch']}", flush=True)
         yolo_training[kind] = timed_phase(train_phase, card,
-                                          yolo_train_main_path, dev, profile,
-                                          kind)
+                                          train_main_path_of, dev, profile,
+                                          spec)
         if "profile" in yolo_training[kind]:
             profiled[f"{kind}_train"] = yolo_training[kind]["profile"]
+        torch.cuda.empty_cache()
+    seg, seg_training = {}, {}
+    for kind, spec in seg_models().items():
+        _, _, serve_phase, train_phase = spec["phases"]
+        print(f"phase {serve_phase}: main path, {spec['label']} bf16 serving",
+              flush=True)
+        seg[kind] = timed_phase(serve_phase, card, seg_main_path, dev, kind)
+        profiled[kind] = seg[kind]["profile"]
+        torch.cuda.empty_cache()
+        print(f"phase {train_phase}: main path, {spec['label']} bf16 train "
+              f"step at batch {spec['train_batch']}", flush=True)
+        seg_training[kind] = timed_phase(train_phase, card,
+                                         train_main_path_of, dev, True, spec,
+                                         True)
+        profiled[f"{kind}_train"] = seg_training[kind]["profile"]
         torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
@@ -6552,6 +6986,8 @@ def main(argv=None) -> int:
                            decode_nms=decode,
                            yolo_f32=yolo_f32, yolo_train_f32=yolo_train_f32,
                            yolo=yolo, yolo_training=yolo_training,
+                           seg_f32=seg_f32, seg_train_f32=seg_train_f32,
+                           seg=seg, seg_training=seg_training,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

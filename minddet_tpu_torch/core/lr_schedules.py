@@ -1,8 +1,9 @@
 """Learning-rate schedules as functions of the step count (counterpart of
-``minddet_tpu/core/lr_schedules.py:linear_warmup``, ``warmup_cosine`` and
-``multi_epochs_decay``, built as the reference builds them from optax's
-``linear_schedule``, ``cosine_decay_schedule``,
-``piecewise_constant_schedule`` and ``join_schedules``).
+``minddet_tpu/core/lr_schedules.py:polynomial_decay``, ``linear_warmup``,
+``warmup_cosine`` and ``multi_epochs_decay``, built as the reference builds
+them from optax's ``polynomial_schedule``, ``linear_schedule``,
+``cosine_decay_schedule``, ``piecewise_constant_schedule`` and
+``join_schedules``).
 
 A schedule takes the count as a tensor (a 0-d tensor on the device in the
 train step, so no step syncs the host; any integer tensor or number in a
@@ -30,6 +31,19 @@ def linear_schedule(init_value: float, end_value: float,
         c = torch.as_tensor(count).clamp(0, transition_steps).float()
         frac = 1 - c / transition_steps
         return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def polynomial_schedule(init_value: float, end_value: float, power: float,
+                        transition_steps: int) -> Schedule:
+    """optax's ``polynomial_schedule``: (init - end) (1 - c / T) ** power +
+    end, the count c held in [0, ``transition_steps``]."""
+
+    def schedule(count) -> torch.Tensor:
+        c = torch.as_tensor(count).clamp(0, transition_steps).float()
+        frac = 1 - c / transition_steps
+        return (init_value - end_value) * frac.pow(power) + end_value
 
     return schedule
 
@@ -83,6 +97,22 @@ def join_schedules(schedules: Sequence[Schedule],
         return out
 
     return schedule
+
+
+def polynomial_decay(learning_rate: float, end_learning_rate: float,
+                     decay_steps: int, power: float = 1.0,
+                     warmup_steps: int = 0) -> Schedule:
+    """``learning_rate`` decayed to ``end_learning_rate`` as (1 - c /
+    (``decay_steps`` - ``warmup_steps``)) ** ``power``, after a linear
+    warm-up from 0 over ``warmup_steps`` where that is positive (the
+    reference's ``polynomial_decay``, its ``CenterNetPolynomialDecayLR``;
+    DeepLab's schedule)."""
+    poly = polynomial_schedule(learning_rate, end_learning_rate, power,
+                               max(decay_steps - warmup_steps, 1))
+    if warmup_steps > 0:
+        warm = linear_schedule(0.0, learning_rate, warmup_steps)
+        return join_schedules([warm, poly], [warmup_steps])
+    return poly
 
 
 def linear_warmup(learning_rate: float, warmup_steps: int, total_steps: int,

@@ -1,12 +1,13 @@
-"""AdamW and SGD with clip-by-global-norm, as the reference's optax chains
-(counterpart of ``minddet_tpu/core/optim.py``: ``adamw``, ``sgd`` and
-``skip_nonfinite_updates``).
+"""Adam, AdamW and SGD with clip-by-global-norm, as the reference's optax
+chains (counterpart of ``minddet_tpu/core/optim.py``: ``adam``, ``adamw``,
+``sgd`` and ``skip_nonfinite_updates``).
 
-``adamw(...)`` and ``sgd(...)`` return a recipe, as the optax
-transformation is one; ``recipe.init(model)`` makes the torch optimizer that
-holds the state and ``recipe.update(optimizer, params)`` applies one step to
-the gradients in ``.grad``. AdamW (``torch.optim.AdamW``; ``exp_avg``,
-``exp_avg_sq``, ``step`` = optax's ``mu``, ``nu``, ``count``):
+``adam(...)``, ``adamw(...)`` and ``sgd(...)`` return a recipe, as the
+optax transformation is one; ``recipe.init(model)`` makes the torch
+optimizer that holds the state and ``recipe.update(optimizer, params)``
+applies one step to the gradients in ``.grad``. AdamW
+(``torch.optim.AdamW``; ``exp_avg``, ``exp_avg_sq``, ``step`` = optax's
+``mu``, ``nu``, ``count``):
 
 1. ``clip_by_global_norm``: when the global norm of the gradients is at
    least ``clip_global_norm``, each gradient becomes (g / norm) * max, as
@@ -17,19 +18,28 @@ the gradients in ``.grad``. AdamW (``torch.optim.AdamW``; ``exp_avg``,
    ``add_decayed_weights``; torch's AdamW does that in two parameter
    groups.
 
+``adam(...)`` is the reference's ``adam`` without decay, optax's ``adam``:
+the same AdamW at weight decay 0.
+
 SGD (``torch.optim.SGD``, fused; ``momentum_buffer`` = optax's ``trace``,
 zero at first as optax's is): the same clip, then ``add_decayed_weights`` on
 parameters with ndim > 1 (g + wd * p, again two groups), then optax's
 momentum trace (t = g + momentum * t) and -lr * t, or with ``nesterov``
--lr * (g + momentum * t). Its learning rate is a number or a schedule of
-the step count (``core/lr_schedules.py``), evaluated on the device: the
-groups share one lr tensor and one count (``count`` in each group).
+-lr * (g + momentum * t).
+
+A learning rate is a number or a schedule of the step count
+(``core/lr_schedules.py``), evaluated on the device: the groups share one
+lr tensor and one count (``count`` in each group), and the optimizer is
+torch's fused one, which reads the lr tensor on the device.
 
 ``skip_nonfinite_updates(tx)`` is optax's ``apply_if_finite`` (the
-reference's NaN guard, on by default in ``build_optimizer``) for SGD: where
-any gradient is not finite the step leaves the parameters, the trace and
-the schedule's count as they were. The test stays on the device: the
-fused step reads it as ``found_inf``, so no step syncs the host.
+reference's NaN guard, on by default in ``build_optimizer``): where any
+gradient is not finite the step leaves the parameters, the momentum trace
+or both Adam moments and Adam's count, and the schedule's count as they
+were. The test stays on the device: the fused step reads it as
+``found_inf`` (and takes back its count's increment), so no step syncs the
+host. An AdamW with a constant lr and no guard (the CenterNet, CenterPoint
+and PointPillars train entries) stays torch's default implementation.
 """
 
 from __future__ import annotations
@@ -78,6 +88,19 @@ def _decay_groups(model: nn.Module, weight_decay: float) -> List[dict]:
              "weight_decay": 0.0}]
 
 
+def _schedule_groups(groups: List[dict], lr, dev) -> Union[float,
+                                                            torch.Tensor]:
+    """With a schedule ``lr``, give every group one shared 0-d lr tensor
+    and count on ``dev`` and return the lr tensor; else return ``lr``."""
+    if not callable(lr):
+        return lr
+    lr = torch.zeros((), device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    for group in groups:
+        group.update(lr=lr, count=count)
+    return lr
+
+
 def _clip_and_step(optimizer: torch.optim.Optimizer,
                    params: Iterable[torch.Tensor],
                    clip_global_norm: Optional[float],
@@ -118,23 +141,30 @@ def _clip_and_step(optimizer: torch.optim.Optimizer,
 
 @dataclass(frozen=True)
 class AdamW:
-    learning_rate: float
+    learning_rate: Union[float, Schedule]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.01
     clip_global_norm: Optional[float] = None
+    nan_guard: bool = False  # set by skip_nonfinite_updates
 
     def init(self, model: nn.Module) -> torch.optim.AdamW:
-        return torch.optim.AdamW(_decay_groups(model, self.weight_decay),
-                                 lr=self.learning_rate,
-                                 betas=(self.b1, self.b2), eps=self.eps)
+        groups = _decay_groups(model, self.weight_decay)
+        fused = callable(self.learning_rate) or self.nan_guard
+        lr = _schedule_groups(groups, self.learning_rate,
+                              next(model.parameters()).device)
+        return torch.optim.AdamW(groups, lr=lr, betas=(self.b1, self.b2),
+                                 eps=self.eps, fused=fused or None)
 
     def update(self, optimizer: torch.optim.Optimizer,
                params: Iterable[torch.Tensor]) -> torch.Tensor:
         """Clip the ``.grad`` of ``params`` and step ``optimizer``; returns
         the global norm before the clip (``_clip_and_step``)."""
-        return _clip_and_step(optimizer, params, self.clip_global_norm)
+        schedule = self.learning_rate if callable(self.learning_rate) \
+            else None
+        return _clip_and_step(optimizer, params, self.clip_global_norm,
+                              schedule, self.nan_guard)
 
 
 @dataclass(frozen=True)
@@ -148,13 +178,8 @@ class SGD:
 
     def init(self, model: nn.Module) -> torch.optim.SGD:
         groups = _decay_groups(model, self.weight_decay)
-        lr = self.learning_rate
-        if callable(lr):
-            dev = next(model.parameters()).device
-            lr = torch.zeros((), device=dev)
-            count = torch.zeros((), dtype=torch.int64, device=dev)
-            for group in groups:
-                group.update(lr=lr, count=count)
+        lr = _schedule_groups(groups, self.learning_rate,
+                              next(model.parameters()).device)
         opt = torch.optim.SGD(groups, lr=lr, momentum=self.momentum,
                               nesterov=self.nesterov, fused=True)
         for group in opt.param_groups:
@@ -175,16 +200,25 @@ class SGD:
 Recipe = Union[AdamW, SGD]
 
 
-def skip_nonfinite_updates(tx: SGD) -> SGD:
+def skip_nonfinite_updates(tx: Recipe) -> Recipe:
     """``tx`` with optax's ``apply_if_finite`` around it (the reference's
     ``skip_nonfinite_updates``): a step whose gradients are not all finite
-    leaves the parameters, the momentum trace and the schedule's count
-    unchanged, decided on the device."""
+    leaves the parameters, the optimizer's state (SGD's momentum trace,
+    Adam's moments and count) and the schedule's count unchanged, decided
+    on the device."""
     return replace(tx, nan_guard=True)
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-          eps: float = 1e-8, weight_decay: float = 0.01,
+def adam(learning_rate: Union[float, Schedule], b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8,
+         clip_global_norm: Optional[float] = None) -> AdamW:
+    """The reference's ``adam`` without weight decay (optax's ``adam``;
+    UNet's optimizer)."""
+    return AdamW(learning_rate, b1, b2, eps, 0.0, clip_global_norm)
+
+
+def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
+          b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01,
           clip_global_norm: Optional[float] = None) -> AdamW:
     return AdamW(learning_rate, b1, b2, eps, weight_decay, clip_global_norm)
 

@@ -91,6 +91,21 @@ momentum, Nesterov (YOLOv7 only), weight decay (5e-4, SSD's 4e-5) and
 schedule counted from step 0 (YOLOv3's ``multi_epochs_decay``, the others'
 ``warmup_cosine``), inside the NaN guard. None of the eight launches a
 hand-written kernel.
+
+``deeplabv3plus_entry()``, ``deeplabv3_entry()`` and ``unet_entry()`` serve
+the segmentors of ``configs/deeplabv3plus_r101.yaml``,
+``deeplabv3_r101.yaml`` (ResNet-101 dilated to output stride 16, 21
+classes, 513x513) and ``unet.yaml`` (widths 64-1024, 2 classes, 512x512):
+``predict``, the per-pixel argmax, in bf16 on a ``RandomState(0)`` uint8
+image normalized as the train path normalizes its records
+(``data/seg.py:seg_normalize``). ``deeplabv3plus_train_entry()``,
+``deeplabv3_train_entry()`` and ``unet_train_entry()`` are those configs'
+train sections as ``train/train.py --synthetic`` runs them, nothing cut:
+f32 parameters, bf16 compute, train-mode BN, one ``synthetic_seg_batches``
+batch; DeepLab at batch 16 with SGD 0.9, weight decay 4e-5 and
+``polynomial_decay(0.007, 0, 30000, 0.9)``, UNet at batch 8 with Adam under
+``warmup_cosine(3e-4, 40000, 1000)``, inside the NaN guard. None of the six
+launches a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -102,8 +117,11 @@ import torch
 
 from minddet_tpu_torch.core.lr_schedules import (Schedule, linear_warmup,
                                                   multi_epochs_decay,
+                                                  polynomial_decay,
                                                   warmup_cosine)
-from minddet_tpu_torch.core.optim import adamw, sgd, skip_nonfinite_updates
+from minddet_tpu_torch.core.optim import (Recipe, adam, adamw, sgd,
+                                          skip_nonfinite_updates)
+from minddet_tpu_torch.data.seg import seg_normalize
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
 from minddet_tpu_torch.models.detectors.centerpoint import (
@@ -118,11 +136,14 @@ from minddet_tpu_torch.models.detectors.yolov5 import YOLOv5
 from minddet_tpu_torch.models.detectors.yolov7 import YOLOv7
 from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
 from minddet_tpu_torch.models.detectors.yolox import YOLOX
+from minddet_tpu_torch.models.segmentors import (DeepLabV3, DeepLabV3Plus,
+                                                 UNet)
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
-from minddet_tpu_torch.train.synthetic import synthetic_detection_batch
+from minddet_tpu_torch.train.synthetic import (synthetic_detection_batch,
+                                               synthetic_seg_batches)
 
 RES = 512
 NUM_CLASSES = 80
@@ -783,9 +804,10 @@ def _yolo_serving(model, batch: int, res: int = YOLO_RES):
     return model.predict, (torch.from_numpy(image.astype(np.float32)).to(dev),)
 
 
-def yolo_loss(model, batch: Dict):
-    """The 2D detectors' train steps' loss function: the model's ``loss``
-    (YOLOv8, YOLOX, YOLOv3, v4, v5, v7, SSD)."""
+def model_loss(model, batch: Dict):
+    """``model.loss(batch)``: the loss function of the train steps whose
+    model's ``loss`` is the whole loss (the 2D detectors' and the
+    segmentors')."""
     return model.loss(batch)
 
 
@@ -826,7 +848,7 @@ def _yolo_train_program(model, dev: torch.device, batch: int,
     data = synthetic_detection_batch(batch, (res, res), NUM_CLASSES,
                                      seed=SEED)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    return make_train_step(yolo_loss), (state, data)
+    return make_train_step(model_loss), (state, data)
 
 
 # YOLOX-s and YOLOv5-s: configs/yolox_s_coco.yaml, configs/yolov5_s_coco.yaml
@@ -1136,3 +1158,160 @@ def ssd_train_entry(device=None, batch: int = SSD_TRAIN_BATCH
         _seeded_ssd(torch.bfloat16), dev, batch,
         warmup_cosine(SSD_LR, SSD_TOTAL_STEPS, SSD_WARMUP), SSD_MOMENTUM,
         nesterov=False, res=SSD_RES, weight_decay=SSD_WEIGHT_DECAY)
+
+
+# The segmentors: configs/deeplabv3_r101.yaml, deeplabv3plus_r101.yaml and
+# unet.yaml (train: the schedule counted from step 0)
+DEEPLAB_CLASSES = 21
+DEEPLAB_DEPTH = 101
+DEEPLAB_RES = 513
+DEEPLAB_TRAIN_BATCH = 16
+DEEPLAB_LR = 0.007             # polynomial_decay(0.007, 0, 30000, 0.9)
+DEEPLAB_END_LR = 0.0
+DEEPLAB_DECAY_STEPS = 30_000
+DEEPLAB_POWER = 0.9
+DEEPLAB_MOMENTUM = 0.9
+DEEPLAB_WEIGHT_DECAY = 4e-5
+UNET_CLASSES = 2
+UNET_RES = 512
+UNET_TRAIN_BATCH = 8
+UNET_LR = 3e-4                 # warmup_cosine(3e-4, 40000, 1000)
+UNET_TOTAL_STEPS = 40_000
+UNET_WARMUP = 1000
+
+
+def _seeded_seg(cls, dtype: torch.dtype):
+    """``cls`` at its config's settings in compute ``dtype``, weights from
+    ``SEED`` (flax's default initialisers; He-normal for the ResNet's stem
+    and ``BasicBlock`` convs, as the reference's)."""
+    if cls is UNet:
+        model = UNet(num_classes=UNET_CLASSES, dtype=dtype)
+    else:
+        model = cls(num_classes=DEEPLAB_CLASSES, depth=DEEPLAB_DEPTH,
+                    dtype=dtype)
+    return model.init_weights(torch.Generator().manual_seed(SEED))
+
+
+def build_deeplabv3plus(device=None, dtype: torch.dtype = torch.bfloat16
+                        ) -> DeepLabV3Plus:
+    """DeepLabV3+ (ResNet-101 at output stride 16, 21 classes) in eval mode:
+    weights from ``SEED`` stored in ``dtype``, which is also the compute
+    dtype."""
+    return _served(_seeded_seg(DeepLabV3Plus, dtype), resolve_device(device),
+                   dtype)
+
+
+def build_deeplabv3(device=None, dtype: torch.dtype = torch.bfloat16
+                    ) -> DeepLabV3:
+    """DeepLabV3 (``build_deeplabv3plus``'s model without the decoder)."""
+    return _served(_seeded_seg(DeepLabV3, dtype), resolve_device(device),
+                   dtype)
+
+
+def build_unet(device=None, dtype: torch.dtype = torch.bfloat16) -> UNet:
+    """UNet (widths 64-1024, 2 classes) in eval mode: weights from ``SEED``
+    stored in ``dtype``, which is also the compute dtype."""
+    return _served(_seeded_seg(UNet, dtype), resolve_device(device), dtype)
+
+
+def seg_image(batch: int, res: int) -> np.ndarray:
+    """The segmentors' request: a ``RandomState(0)`` uniform uint8 image
+    (batch, res, res, 3), normalized as ``SegDataset`` normalizes its
+    records, f32."""
+    rs = np.random.RandomState(0)
+    return seg_normalize((rs.rand(batch, res, res, 3) * 255).astype(np.uint8))
+
+
+def _seg_serving(model, batch: int, res: int):
+    dev = next(model.parameters()).device
+    return model.predict, (torch.from_numpy(seg_image(batch, res)).to(dev),)
+
+
+def deeplabv3plus_entry(device=None, batch: int = 1
+                        ) -> Tuple[Callable[..., torch.Tensor],
+                                   Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``predict_fn(image)`` is
+    ``DeepLabV3Plus.predict`` of ``build_deeplabv3plus``'s bf16 model, the
+    (batch, 513, 513) class ids; the image is ``seg_image(batch, 513)``."""
+    return _seg_serving(build_deeplabv3plus(device), batch, DEEPLAB_RES)
+
+
+def deeplabv3_entry(device=None, batch: int = 1
+                    ) -> Tuple[Callable[..., torch.Tensor],
+                               Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``DeepLabV3.predict`` of
+    ``build_deeplabv3``'s bf16 model on ``seg_image(batch, 513)``."""
+    return _seg_serving(build_deeplabv3(device), batch, DEEPLAB_RES)
+
+
+def unet_entry(device=None, batch: int = 1
+               ) -> Tuple[Callable[..., torch.Tensor], Tuple[torch.Tensor]]:
+    """(predict_fn, (image,)): ``UNet.predict`` of ``build_unet``'s bf16
+    model, the (batch, 512, 512) class ids, on ``seg_image(batch, 512)``."""
+    return _seg_serving(build_unet(device), batch, UNET_RES)
+
+
+def _seg_train_program(model, dev: torch.device, batch: int, res: int,
+                       num_classes: int, tx: Recipe
+                       ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """A segmentor's train step as ``train/train.py --synthetic`` builds it:
+    ``model`` (f32 parameters) on ``dev`` in channels_last and train mode,
+    ``tx`` inside the NaN guard, the first batch of
+    ``synthetic_seg_batches(batch, (res, res), num_classes)``."""
+    model = model.to(device=dev, memory_format=torch.channels_last).train()
+    state = TrainState.create(model, skip_nonfinite_updates(tx))
+    data = next(synthetic_seg_batches(batch, (res, res), num_classes,
+                                      seed=SEED))
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    return make_train_step(model_loss), (state, data)
+
+
+def _deeplab_train_program(cls, device, batch: int):
+    return _seg_train_program(
+        _seeded_seg(cls, torch.bfloat16), resolve_device(device), batch,
+        DEEPLAB_RES, DEEPLAB_CLASSES,
+        sgd(polynomial_decay(DEEPLAB_LR, DEEPLAB_END_LR, DEEPLAB_DECAY_STEPS,
+                             DEEPLAB_POWER),
+            momentum=DEEPLAB_MOMENTUM, weight_decay=DEEPLAB_WEIGHT_DECAY))
+
+
+def deeplabv3plus_train_entry(device=None, batch: int = DEEPLAB_TRAIN_BATCH
+                              ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one
+    DeepLabV3+ train step in place and returns ``(state, metrics)`` (loss,
+    ce, grad_norm, on the device).
+
+    ``configs/deeplabv3plus_r101.yaml``'s train section: the model seeded
+    with ``SEED`` (ResNet-101, output stride 16, 21 classes), f32
+    parameters, bf16 compute, channels_last, train mode; SGD momentum 0.9
+    without Nesterov, weight decay 4e-5 on ndim > 1 parameters, no clip,
+    the lr ``polynomial_decay(0.007, 0, 30000, 0.9)`` of the applied steps'
+    count (0.007 at the first step), inside ``skip_nonfinite_updates``. The
+    batch is ``synthetic_seg_batches(batch, (513, 513), 21)``'s first."""
+    return _deeplab_train_program(DeepLabV3Plus, device, batch)
+
+
+def deeplabv3_train_entry(device=None, batch: int = DEEPLAB_TRAIN_BATCH
+                          ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): one DeepLabV3 train step in place,
+    ``(state, metrics)`` (loss, ce, grad_norm); ``configs/
+    deeplabv3_r101.yaml``'s train section, as
+    ``deeplabv3plus_train_entry``'s."""
+    return _deeplab_train_program(DeepLabV3, device, batch)
+
+
+def unet_train_entry(device=None, batch: int = UNET_TRAIN_BATCH
+                     ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
+    """(step_fn, (state, batch)): one UNet train step in place, ``(state,
+    metrics)`` (loss, ce, grad_norm).
+
+    ``configs/unet.yaml``'s train section: the model seeded with ``SEED``
+    (widths 64-1024, 2 classes), f32 parameters, bf16 compute,
+    channels_last, train mode; Adam without decay, no clip, the lr
+    ``warmup_cosine(3e-4, 40000, 1000)`` of the applied steps' count (0 at
+    the first step), inside ``skip_nonfinite_updates``; the batch
+    ``synthetic_seg_batches(batch, (512, 512), 2)``'s first."""
+    return _seg_train_program(
+        _seeded_seg(UNet, torch.bfloat16), resolve_device(device), batch,
+        UNET_RES, UNET_CLASSES,
+        adam(warmup_cosine(UNET_LR, UNET_TOTAL_STEPS, UNET_WARMUP)))

@@ -224,11 +224,7 @@ class FasterRCNN(nn.Module):
         reference's ResNet sets them (its ``Bottleneck`` convs keep flax's
         default)."""
         init_flax_defaults_(self, generator)
-        he = [self.backbone.conv1] + [
-            m for blk in self.backbone.modules()
-            if type(blk).__name__ == "BasicBlock"
-            for m in blk.modules() if isinstance(m, nn.Conv2d)]
-        for m in he:
+        for m in self.backbone.he_convs():
             variance_scaling_(m.weight, 2.0, m.weight[0].numel(), generator)
         return self
 

@@ -1,17 +1,24 @@
-"""Synthetic 2D detection batches (counterpart of
-``minddet_tpu/train/train.py:synthetic_detection_batches``).
+"""Synthetic 2D detection and segmentation batches, and segmentation
+batches from records (counterpart of ``minddet_tpu/train/train.py:
+synthetic_detection_batches``, ``synthetic_seg_batches`` and
+``seg_batches``).
 
 ``synthetic_detection_batch`` is the reference generator's first batch,
 draw for draw from numpy ``RandomState(seed)``, with the boxes' slots (and
 the bitmaps' channels) padded with empty ones to ``slots``, the padded
 width the data pipeline gives a model (the COCO loader's ``max_objs``).
+``synthetic_seg_batches`` is the reference's generator, draw for draw.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
+
+from minddet_tpu_torch.data.loader import (DataLoader, DistributedSampler,
+                                           process_shard)
+from minddet_tpu_torch.data.seg import SegDataset
 
 
 def synthetic_detection_batch(batch_size: int, image_hw: Tuple[int, int],
@@ -60,3 +67,49 @@ def synthetic_detection_batch(batch_size: int, image_hw: Tuple[int, int],
                                   + ((yy - cy) / ry) ** 2 <= 1.0)
         out["gt_bitmaps"] = bm
     return out
+
+
+def synthetic_seg_batches(batch_size: int, image_hw: Tuple[int, int],
+                          num_classes: int, seed: int = 0
+                          ) -> Iterator[Dict[str, np.ndarray]]:
+    """Random images with blocky class masks, batch after batch from one
+    ``RandomState(seed)``: a coarse 8 x 8 grid of classes upsampled to the
+    image (contiguous regions), the image uniform [0, 1) plus a
+    class-dependent hue (so the mask can be read from the pixels), valid
+    everywhere, ``step`` counting from 1. Not normalized: the reference's
+    synthetic runs feed it as it is."""
+    rng = np.random.RandomState(seed)
+    h, w = image_hw
+    step = 0
+    while True:
+        step += 1
+        coarse = rng.randint(0, num_classes, (batch_size, 8, 8))
+        mask = np.repeat(np.repeat(coarse, -(-h // 8), 1), -(-w // 8), 2)
+        mask = mask[:, :h, :w].astype(np.int32)
+        image = rng.rand(batch_size, h, w, 3).astype(np.float32)
+        image += 0.5 * np.stack(
+            [np.cos(mask * 2.1), np.sin(mask * 1.3), np.cos(mask * 0.7)], -1)
+        yield {"image": image.astype(np.float32), "mask": mask,
+               "valid": np.ones((batch_size, h, w), bool),
+               "step": np.asarray(step, np.int32)}
+
+
+def seg_batches(cfg: Mapping, batch_size: int, seed: int = 0
+                ) -> Iterator[Dict[str, np.ndarray]]:
+    """Segmentation records -> normalized image, mask and valid batches
+    (``data/seg.py:SegDataset``, flipped where ``cfg["data"]["augment"]``,
+    default on), this process's shard (``data/loader.py:process_shard``),
+    ``cfg["data"]["workers"]`` threads (default 4), ``step`` counting from
+    0. ``cfg`` is a config mapping as its YAML file loads, with
+    ``data.records`` the shards' pattern."""
+    dcfg = cfg["data"]
+    ds = SegDataset(dcfg["records"], augment=bool(dcfg.get("augment", True)),
+                    seed=seed)
+    shard_id, num_shards = process_shard()
+    sampler = DistributedSampler(len(ds), num_shards=num_shards,
+                                 shard_id=shard_id, seed=seed)
+    loader = DataLoader(ds, batch_size, sampler=sampler,
+                        num_workers=dcfg.get("workers", 4))
+    for step, raw in enumerate(loader):
+        raw["step"] = np.asarray(step, np.int32)
+        yield raw

@@ -66,6 +66,14 @@ the biased 1x1 ``h{5,4,3}_out``); ``ssd_from_flax`` for the JAX ``SSD``
 project_bn|head|head_bn``, the depthwise ``dw`` kernels (3, 3, 1, C) as
 (C, 1, 3, 3), ``extra{i}/c1|bn1|c2|bn2``, ``multibox{i}/cls|reg``).
 
+``load_from_flax`` alone loads the segmentors: the JAX ``DeepLabV3Plus``
+and ``DeepLabV3`` (``backbone/...`` as above, dilated or not,
+``aspp/b0|b1|b2|b3|pool|proj|proj_bn``, ``low_proj``, ``low_bn``,
+``dec{i}``, ``dec{i}_bn``, the biased 1x1 ``out``) and ``UNet``
+(``down{i}_c{j}|_bn{j}``, ``bottom_c{j}|_bn{j}``, ``dec{i}_c{j}|_bn{j}``,
+``out``, and the 2x2 stride-2 ``ConvTranspose`` ``up{i}``, flipped as
+every other: SAME at kernel = stride is torch's ``padding=0``).
+
 ``adamw_state_from_optax(model, optimizer, opt_state)`` carries the optax
 AdamW state of a JAX train state over as well (``mu``, ``nu``, ``count`` ->
 ``exp_avg``, ``exp_avg_sq``, ``step``), through the same leaf mapping and

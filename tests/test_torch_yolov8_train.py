@@ -48,7 +48,7 @@ from minddet_tpu_torch.core.lr_schedules import linear_warmup
 from minddet_tpu_torch.core.optim import sgd, skip_nonfinite_updates
 from minddet_tpu_torch.entry import (YOLO_END_FACTOR, YOLO_LR, YOLO_MOMENTUM,
                                      YOLO_TOTAL_STEPS, YOLO_WARMUP,
-                                     YOLO_WEIGHT_DECAY, yolo_loss,
+                                     YOLO_WEIGHT_DECAY, model_loss,
                                      yolov8_train_entry)
 from minddet_tpu_torch.models.detectors import yolov8 as tyolo
 from minddet_tpu_torch.ops.box import elementwise_iou
@@ -250,7 +250,7 @@ def _setup(compute):
                                     weight_decay=YOLO_WEIGHT_DECAY))
     state = TrainState.create(model, tx)
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state, metrics = make_train_step(yolo_loss)(
+    state, metrics = make_train_step(model_loss)(
         state, {k: _t(v) for k, v in batch.items()})
     return dict(new_jstate=new_jstate, jmetrics=jmetrics, state=state,
                 metrics=metrics, old=old)

@@ -50,7 +50,7 @@ from minddet_tpu_torch.core.optim import sgd, skip_nonfinite_updates
 from minddet_tpu_torch.entry import (YOLO_COSINE_TOTAL_STEPS, YOLO_LR,
                                      YOLO_WEIGHT_DECAY, YOLOV5_MOMENTUM,
                                      YOLOV5_WARMUP, YOLOX_MOMENTUM,
-                                     YOLOX_WARMUP, yolo_loss,
+                                     YOLOX_WARMUP, model_loss,
                                      yolox_train_entry)
 from minddet_tpu_torch.models.detectors import yolox as tyolox
 from minddet_tpu_torch.ops.box import pairwise_iou
@@ -208,7 +208,7 @@ def step_both(jmodel, tmodel, from_flax, variables, batch, momentum,
                                     weight_decay=weight_decay))
     state = TrainState.create(model, tx)
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state, metrics = make_train_step(yolo_loss)(
+    state, metrics = make_train_step(model_loss)(
         state, {k: _t(v) for k, v in batch.items()})
     return dict(new_jstate=new_jstate, jmetrics=jmetrics, state=state,
                 metrics=metrics, old=old, momentum=momentum,

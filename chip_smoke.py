@@ -247,6 +247,33 @@ Phases (any failure raises and exits non-zero):
       512x512, batch 1 and 8; ``unet_train_entry``: batch 8, Adam under the
       warm-up cosine from 0); 6ac-6ah launch no hand-written kernel, are
       always profiled and print their seconds.
+   ai. the config's CenterNet train step fed by the COCO data path
+      (``centernet_coco_train_entry``: batch 16, Adam under
+      ``multi_epochs_decay``, clip 35, the NaN guard; the affine route of
+      ``coco_batches`` over 64 in-memory COCO-like images, four loader
+      threads): 12 steps, each on the next batch, K3f once and K1f and K1b
+      nine times a step, losses finite; then the same step on one fixed
+      batch, the copy of a raw batch to the card, the transform's device
+      time and the wait for the next batch, apart;
+   aj. ``centernet_eval_entry``: ``centernet_evaluate`` on the 64 images
+      (bf16 flagship, keep-res buckets of 128 on the 1024 canvas, batch 4,
+      per-class soft-NMS on the card, the top-100 merge): K3f once and K1f
+      nine times per predict batch; ms per image split into load, copy,
+      warp, predict, soft-NMS and the host's evaluator; the 12 numbers;
+   ak. the mosaic + mixup route of ``coco_batches`` at 640x640, batch 16
+      (no model): K3f four times a batch; ms per batch. 6ai-6ak print their
+      seconds beside the card.
+
+Phase 3 also holds K3f at the COCO path's warps (``check_coco_warp``): the
+train warp (16, 640^2, 3) to 512^2, the eval warp (4, 1024^2, 3) to the
+(512, 768) and (768, 768) buckets, one of the mosaic's four warps (16,
+640^2, 3) to 640^2, and Mask R-CNN's GT bitmaps (8, 160^2, 128) to 128^2,
+each with the pad, launch and slice timed apart and ``F.grid_sample``
+beside it. Phase 4q is the f32 COCO path card against CPU
+(``check_coco_f32``): ``centernet_evaluate`` on 8 in-memory images in two
+buckets, the warped inputs, the raw top-100 scores, soft-NMS on the CPU's
+inputs, the card's AP@[.5:.95] against the CPU's final detections as GT
+(at least ``COCO_AP_FLOOR``), and the train transform on one raw batch.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -2122,7 +2149,7 @@ PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61,
                "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
                "5m": 76, "5n": 77, "4n": 80, "4o": 81, "4p": 82, "5o": 83,
-               "5p": 84, "5q": 85}
+               "5p": 84, "5q": 85, "4q": 86}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -3535,7 +3562,7 @@ def _one_centerpoint_step(model, batch, forced=None):
     seconds."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.core.optim import adamw
-    from minddet_tpu_torch.entry import centerpoint_loss
+    from minddet_tpu_torch.entry import model_gt_loss
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
 
     d = next(model.parameters()).device
@@ -3549,7 +3576,7 @@ def _one_centerpoint_step(model, batch, forced=None):
     state = TrainState.create(model, adamw(1e-3, clip_global_norm=35.0))
     kernels.reset_launches()
     t0 = time.perf_counter()
-    state, metrics = make_train_step(centerpoint_loss)(
+    state, metrics = make_train_step(model_gt_loss)(
         state, {k: v.to(d) for k, v in batch.items()})
     snap = _train_snapshot(state, metrics)
     del model.proposals
@@ -3784,7 +3811,7 @@ def _hold_single_stage_step(dev, start, batch, result, bad):
     ``result`` under ``single_stage_``."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.core.optim import adamw
-    from minddet_tpu_torch.entry import centerpoint_loss
+    from minddet_tpu_torch.entry import model_gt_loss
     from minddet_tpu_torch.models.detectors.centerpoint import CenterPoint
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
 
@@ -3806,7 +3833,7 @@ def _hold_single_stage_step(dev, start, batch, result, bad):
                                       adamw(1e-3, clip_global_norm=35.0))
             kernels.reset_launches()
             t0 = time.perf_counter()
-            state, metrics = make_train_step(centerpoint_loss)(
+            state, metrics = make_train_step(model_gt_loss)(
                 state, {k: v.to(d) for k, v in batch.items()})
             snaps[name] = _train_snapshot(state, metrics)
             launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -3933,7 +3960,7 @@ def _check_pointpillars_train_f32(dev):
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.core.optim import adamw
     from minddet_tpu_torch.entry import (CLOUD_POINTS, PP_TRAIN_LR,
-                                         PP_TRAIN_MAX_GT, pointpillars_loss,
+                                         PP_TRAIN_MAX_GT, model_gt_loss,
                                          synthetic_lidar_batch)
     from minddet_tpu_torch.ops.anchors import assign_targets_batch
     from minddet_tpu_torch.train.loop import TrainState, make_train_step
@@ -3994,7 +4021,7 @@ def _check_pointpillars_train_f32(dev):
         state = TrainState.create(model, adamw(PP_TRAIN_LR))
         kernels.reset_launches()
         t0 = time.perf_counter()
-        state, metrics = make_train_step(pointpillars_loss)(
+        state, metrics = make_train_step(model_gt_loss)(
             state, {k: v.to(d) for k, v in batch.items()})
         snaps[name] = _train_snapshot(state, metrics)
         launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -6315,6 +6342,614 @@ def seg_main_path(dev, kind: str):
                 profile=profile_clouds(label, programs))
 
 
+# The COCO data and eval path: phase 3's warp cases, 4q, 6ai-6ak. The
+# train warp maps a 640 x 640 canvas (CocoDetection's max_hw) to 512 x 512
+# at batch 16; the eval warp a 1024 x 1024 canvas (centernet_evaluate's)
+# to a keep-res bucket at batch 4: (512, 768) for a 480 x 640 image, and
+# (768, 768) for a 640 x 640 one; the mosaic warps a 640 canvas to 640 x
+# 640, four times a batch; Mask R-CNN's GT bitmaps (the canvas / 4, its
+# 128 slots) go to 128 x 128 at its train batch 8
+COCO_CANVAS = 640
+COCO_EVAL_CANVAS = 1024
+COCO_TRAIN_OUT = 512
+COCO_TRAIN_BATCH = 16
+COCO_EVAL_BATCH = 4
+COCO_EVAL_BUCKETS = (((512, 768), (480, 640)), ((768, 768), (640, 640)))
+MOSAIC_OUT = 640
+BITMAP_STRIDE = 4
+BITMAP_SLOTS = 128
+MASK_TRAIN_BATCH = 8
+# 4q: 8 in-memory images in two keep-res buckets, (512, 384) and (384,
+# 512); the card's AP@[.5:.95] against the CPU's final detections as GT
+COCO_CHECK_IMAGES = 8
+COCO_CHECK_SIZES = ((500, 375), (375, 500))
+COCO_AP_FLOOR = 0.98
+COCO_SCORE_TOL = 1e-4  # raw top-100 scores, as phase 4
+COCO_SOFT_NMS_TOL = 1e-5  # rescored scores: exp and products in f32
+COCO_IMAGE_TOL = 1e-4  # the normalized train image: warp, colour, normalize
+COCO_BOX_TOL = 1e-3  # train boxes (px)
+COCO_WH_BIAS = 6.0  # 4q's wh head: boxes ~24 px, so GT boxes have an area
+COCO_WH_GAIN = 0.1
+COCO_TRAIN_STEPS = 12  # 6ai: TRAIN_WARMUP + TRAIN_STEPS steps of the data
+MOSAIC_BATCHES = 12  # 6ak: 2 warm-up and 10 timed batches
+
+
+def _warp_case(stream, x, ys, xs, card, note=""):
+    """One phase 3 case of K3f on an input warp: the canvases x (B, H, W,
+    C) f32 sampled at (ys, xs) (B, P). Held to the plain version within
+    ``GATHER_TOL`` (f32); timed with a warm L2: the wrapper's call, and
+    apart the zero pad of C to 4 (``pad_channels``), the launch alone on
+    the padded map, the slice back (``unpad_channels``), the corners
+    (``bilinear_corners``), the plain version and ``F.grid_sample`` on the
+    NCHW view (bilinear, zero padding, align_corners; its coordinates
+    normalized outside the timing). The byte bound: the output written,
+    the rows the corners touch read and ci, cw read once each."""
+    import torch.nn.functional as F
+
+    from minddet_tpu_torch.ops import bilinear as bl
+
+    b, h, w, c = x.shape
+    flat = x.view(b, h * w, c)
+    ci, cw = bl.bilinear_corners(ys, xs, h, w)
+    p = ci.shape[1]
+    got = bl.bilinear_gather(flat, ci, cw)
+    torch.cuda.synchronize()
+    ref = bl.bilinear_gather_plain(flat, ci, cw)
+    terms = bl.bilinear_gather_plain(flat.abs(), ci, cw.abs())
+    err = (got - ref).abs()
+    atol, rtol = GATHER_TOL["float32"]
+    ok = got.shape == ref.shape and bool((err <= atol + rtol * terms).all())
+    max_abs = float(err.max())
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
+                       -1)[:, None]
+    nchw = x.permute(0, 3, 1, 2)
+
+    def library():
+        return F.grid_sample(nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib_err = float((library()[:, :, 0].permute(0, 2, 1) - ref).abs().max())
+    touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
+                  for i in range(b))
+    off_map = float((ci < 0).float().mean())
+    del got, ref, terms, err
+    padded = bl.pad_channels(flat)
+    out_padded = bl.bilinear_gather(padded, ci, cw)
+    case = dict(
+        shape=[b, h * w, c], points=p, dtype="float32", stream=stream,
+        max_abs_err=max_abs, tolerance=f"abs <= {atol} + {rtol} * |terms|",
+        off_map_corner_share=off_map, touched_rows=touched,
+        padded_to=padded.shape[-1], library_max_abs_err=lib_err,
+        ms=_cuda_ms(lambda: bl.bilinear_gather(flat, ci, cw), iters=10),
+        pad_ms=_cuda_ms(lambda: bl.pad_channels(flat), iters=10),
+        kernel_ms=_cuda_ms(lambda: bl.bilinear_gather(padded, ci, cw),
+                           iters=10),
+        slice_ms=_cuda_ms(lambda: bl.unpad_channels(out_padded, c),
+                          iters=10),
+        corners_ms=_cuda_ms(lambda: bl.bilinear_corners(ys, xs, h, w),
+                            iters=10),
+        plain_ms=_cuda_ms(lambda: bl.bilinear_gather_plain(flat, ci, cw),
+                          iters=3, warmup=1),
+        library_ms=_cuda_ms(library, iters=10))
+    case["grid_sample_ms"] = case["library_ms"]
+    case["bound_ms"], case["bound_by"] = _bound(
+        b * p * c * 4 + touched * c * 4 + 2 * b * p * 4 * 4, 8 * b * p * c)
+    del padded, out_padded, ci, cw
+    print(f"  bilinear_gather {stream} x{case['shape']} P={p}{note} "
+          f"max_abs={max_abs:.3e} off-map corners {off_map:.3f}: wrapper="
+          f"{case['ms'] * 1e3:7.1f}us = pad {case['pad_ms'] * 1e3:6.1f} + "
+          f"kernel {case['kernel_ms'] * 1e3:7.1f} + slice "
+          f"{case['slice_ms'] * 1e3:6.1f}us; corners "
+          f"{case['corners_ms'] * 1e3:7.1f}us plain="
+          f"{case['plain_ms'] * 1e3:8.1f}us grid_sample="
+          f"{case['library_ms'] * 1e3:7.1f}us (differs by {lib_err:.2e}) "
+          f"bound={case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']}); "
+          f"{card}", flush=True)
+    if not ok:
+        raise AssertionError(f"bilinear_gather_fwd disagrees with its plain "
+                             f"version on the {stream} warp: {case}")
+    return case
+
+
+def _canvases(dev, hws, side, channels, gen):
+    """(B, side, side, channels) f32 on ``dev``: uniform [0, 255) inside
+    each image's (h, w), zero beyond it, as ``CocoDetection`` pads."""
+    x = torch.zeros(len(hws), side, side, channels, device=dev)
+    for i, (h, w) in enumerate(hws):
+        x[i, :h, :w] = 255 * torch.rand(h, w, channels, generator=gen).to(dev)
+    return x
+
+
+def check_coco_warp(dev, card):
+    """Phase 3: K3f at the COCO path's warps (``data/transforms.py:
+    warp_images``): the train warp (16, 640^2, 3) to 512^2 under the train
+    transform's random affines, on the in-memory set's image sizes; the
+    eval warp (4, 1024^2, 3) to the (512, 768) and (768, 768) keep-res
+    buckets (centred, never resized); one of the mosaic's four warps (16,
+    640^2, 3) to 640^2; and Mask R-CNN's GT bitmaps (8, 160^2, 128) to
+    128^2 under the image's affine with its translation / 4."""
+    from minddet_tpu_torch.data.transforms import (affine_points,
+                                                   draw_mosaic,
+                                                   draw_train_affine,
+                                                   train_affine_from_draws)
+    from minddet_tpu_torch.train.synthetic import synthetic_coco_records
+
+    gen = torch.Generator().manual_seed(12)
+    cases = []
+    hw = torch.stack([torch.from_numpy(r["hw"]) for r in
+                      synthetic_coco_records(COCO_TRAIN_BATCH, seed=0)])
+    aff, _ = train_affine_from_draws(
+        hw.to(dev), (COCO_TRAIN_OUT,) * 2,
+        draw_train_affine(gen, COCO_TRAIN_BATCH))
+    x = _canvases(dev, hw.tolist(), COCO_CANVAS, 3, gen)
+    cases.append(_warp_case("coco_train", x, *affine_points(
+        aff, (COCO_TRAIN_OUT,) * 2), card))
+    # one mosaic quadrant's warp: the top left one, the whole source image
+    # fit into [0, cx) x [0, cy)
+    m = draw_mosaic(gen, COCO_TRAIN_BATCH)
+    qw, qh = m["cx"] * MOSAIC_OUT, m["cy"] * MOSAIC_OUT
+    maff = torch.zeros(COCO_TRAIN_BATCH, 2, 3)
+    maff[:, 0, 0] = hw[:, 1].float() / qw
+    maff[:, 1, 1] = hw[:, 0].float() / qh
+    cases.append(_warp_case("coco_mosaic", x, *affine_points(
+        maff.to(dev), (MOSAIC_OUT,) * 2), card, " (one of four a batch)"))
+    del x
+    for bucket, (h, w) in COCO_EVAL_BUCKETS:
+        ih, iw = bucket
+        eaff = torch.tensor([[1.0, 0.0, -(iw - w) / 2.0],
+                             [0.0, 1.0, -(ih - h) / 2.0]]).expand(
+            COCO_EVAL_BATCH, 2, 3).contiguous()
+        x = _canvases(dev, [(h, w)] * COCO_EVAL_BATCH, COCO_EVAL_CANVAS, 3,
+                      gen)
+        cases.append(_warp_case(f"coco_eval_{ih}x{iw}", x,
+                                *affine_points(eaff.to(dev), bucket), card,
+                                f" ({h} x {w} images)"))
+        del x
+    side = COCO_CANVAS // BITMAP_STRIDE
+    bits = (torch.rand(MASK_TRAIN_BATCH, side, side, BITMAP_SLOTS,
+                       generator=gen) < 0.05).float().to(dev)
+    baff = aff[:MASK_TRAIN_BATCH].clone()
+    baff[:, :, 2] /= BITMAP_STRIDE
+    cases.append(_warp_case("gt_bitmaps", bits, *affine_points(
+        baff, (COCO_TRAIN_OUT // BITMAP_STRIDE,) * 2), card))
+    del bits
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _coco_eval_capture(model, module):
+    """Wrap ``model.predict`` and ``module``'s ``_soft_nms_per_class`` and
+    ``evaluate_coco_detections`` to keep what they see: the warped inputs
+    and raw detections per predict batch, each image's soft-NMS inputs and
+    outputs, the scored predictions. Returns (kept, undo)."""
+    kept = dict(warped=[], dets=[], nms=[], predictions=None)
+    predict, nms, score = (model.predict, module._soft_nms_per_class,
+                           module.evaluate_coco_detections)
+
+    def keep_predict(image, *a, **k):
+        out = predict(image, *a, **k)
+        kept["warped"].append(image.detach().float().cpu())
+        kept["dets"].append(out.detach().float().cpu())
+        return out
+
+    def keep_nms(*args, **kwargs):
+        out = nms(*args, **kwargs)
+        kept["nms"].append((args[:3], out))
+        return out
+
+    def keep_score(ds, predictions, *a, **k):
+        kept["predictions"] = predictions
+        return score(ds, predictions, *a, **k)
+
+    model.predict = keep_predict
+    module._soft_nms_per_class = keep_nms
+    module.evaluate_coco_detections = keep_score
+
+    def undo():
+        del model.predict
+        module._soft_nms_per_class = nms
+        module.evaluate_coco_detections = score
+
+    return kept, undo
+
+
+def check_coco_f32(dev, gen):
+    """Phase 4q, with TF32 off: see ``_check_coco_f32``."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_coco_f32(dev, gen)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _check_coco_f32(dev, gen):
+    """Phase 4q: the f32 COCO path, card against CPU.
+
+    ``centernet_evaluate`` on COCO_CHECK_IMAGES in-memory images (two
+    keep-res buckets) runs on both sides with the same f32 flagship
+    (``randomize_for_check``, then BN statistics from the first bucket's
+    warped batch, which the evaluation feeds unnormalized, in [0, 255], as
+    the reference does; the wh head set so every box has an area): the
+    warped inputs within ``GATHER_TOL``; the raw top-100 scores within
+    COCO_SCORE_TOL position by position, as phase 4 holds them, the class
+    agreement reported; each image's per-class soft-NMS run on the card on
+    the CPU's inputs, the same boxes and labels kept and the rescored
+    scores within COCO_SOFT_NMS_TOL. Then the evaluator: with the CPU's
+    final detections as each image's GT, the CPU's AP@[.5:.95] is 1 (by
+    construction) and the card's must reach COCO_AP_FLOOR. Last, the train
+    transform on one raw batch of 4 (640 canvas, the same draws): the
+    image (warp, colour, normalize) within COCO_IMAGE_TOL and the boxes
+    within COCO_BOX_TOL px."""
+    import types
+
+    import numpy as np
+
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.coco import (CocoDetection,
+                                             evaluate_coco_detections)
+    from minddet_tpu_torch.data.loader import stack_collate
+    from minddet_tpu_torch.data.transforms import warp_images
+    from minddet_tpu_torch.entry import build_model
+    from minddet_tpu_torch.train import evaluate as ev
+    from minddet_tpu_torch.train.synthetic import (coco_device_batch,
+                                                   draw_coco_batch,
+                                                   synthetic_coco_records)
+
+    records = synthetic_coco_records(COCO_CHECK_IMAGES, seed=4,
+                                     sizes=COCO_CHECK_SIZES)
+    ds = CocoDetection(records, max_hw=(COCO_EVAL_CANVAS,) * 2,
+                       keep_raw=True)
+    cpu = randomize_for_check(build_model("cpu", dtype=torch.float32), gen)
+    h, w = records[0]["hw"]
+    ih, iw = ev._keep_res_hw(int(h), int(w))
+    first = [i for i in range(len(ds)) if tuple(records[i]["hw"]) == (h, w)]
+    canvas = torch.from_numpy(np.stack([ds[i]["image"] for i in first]))
+    aff = torch.tensor([[1.0, 0.0, -(iw - w) / 2.0],
+                        [0.0, 1.0, -(ih - h) / 2.0]]).expand(len(first), 2, 3)
+    with torch.no_grad():
+        randomize_bn(cpu, warp_images(canvas, aff, (ih, iw)), gen)
+        cpu.head.wh.out.weight.mul_(COCO_WH_GAIN)
+        cpu.head.wh.out.bias.fill_(COCO_WH_BIAS)
+    gpu = build_model(dev, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+
+    sides = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        kept, undo = _coco_eval_capture(model, ev)
+        try:
+            kept["stats"] = ev.centernet_evaluate(model, ds)
+        finally:
+            undo()
+        sides[name] = kept
+    card, host = sides["card"], sides["cpu"]
+    result = dict(images=len(ds), batches=len(host["warped"]),
+                  buckets=sorted({tuple(t.shape[1:3]) for t in host["warped"]}))
+    atol, rtol = GATHER_TOL["float32"]
+    warp_err = max(float((g - c).abs().max())
+                   for g, c in zip(card["warped"], host["warped"]))
+    warp_ok = all(bool(((g - c).abs() <= atol + rtol * c.abs()).all())
+                  for g, c in zip(card["warped"], host["warped"]))
+    result["warp_max_abs_err"] = warp_err
+    score_err, agree = 0.0, []
+    for g, c in zip(card["dets"], host["dets"]):
+        score_err = max(score_err, float((g[..., 4] - c[..., 4]).abs().max()))
+        agree.append(float((g[..., 5] == c[..., 5]).float().mean()))
+    result["score_max_abs_err"] = score_err
+    result["class_agreement"] = min(agree)
+    # soft-NMS on the card, on the CPU's own inputs
+    nms_err, nms_same = 0.0, True
+    for (boxes, scores, labels), want in host["nms"]:
+        got = ev._soft_nms_per_class(boxes, scores, labels, 80, device=dev)
+        same = (len(got[1]) == len(want[1])
+                and np.array_equal(got[0], want[0])
+                and np.array_equal(got[2], want[2]))
+        nms_same &= same
+        if same and len(want[1]):
+            nms_err = max(nms_err, float(np.abs(got[1] - want[1]).max()))
+    result.update(soft_nms_max_abs_err=nms_err, soft_nms_same_kept=nms_same,
+                  soft_nms_images=len(host["nms"]))
+    # the evaluator: the CPU's final detections as the GT
+    gt = []
+    for r in records:
+        p = host["predictions"][int(r["image_id"])]
+        gt.append({"image_id": r["image_id"], "hw": r["hw"],
+                   "boxes": p["boxes"].astype(np.float32),
+                   "labels": p["labels"].astype(np.int32),
+                   "iscrowd": np.zeros(len(p["labels"]), np.int32)})
+    gt_ds = types.SimpleNamespace(records=gt)
+    result["gt_boxes"] = sum(len(r["boxes"]) for r in gt)
+    result["cpu_stats_on_its_own"] = evaluate_coco_detections(
+        gt_ds, host["predictions"], 80)
+    result["card_stats"] = evaluate_coco_detections(
+        gt_ds, card["predictions"], 80)
+    cpu_ap = result["cpu_stats_on_its_own"]["AP"]
+    card_ap = result["card_stats"]["AP"]
+    # the train transform: one raw batch, the same draws
+    train_ds = CocoDetection(records[:4])
+    raw = stack_collate([train_ds[i] for i in range(4)])
+    draws = draw_coco_batch(torch.Generator().manual_seed(5), 4)
+    kernels.reset_launches()
+    got = coco_device_batch(raw, draws, (COCO_TRAIN_OUT,) * 2, device=dev)
+    torch.cuda.synchronize()
+    transform_launches = kernels.BILINEAR_GATHER_FWD.launches
+    want = coco_device_batch(raw, draws, (COCO_TRAIN_OUT,) * 2,
+                             device="cpu")
+    result["train_image_max_abs_err"] = float(
+        (got["image"].cpu() - want["image"]).abs().max())
+    result["train_boxes_max_abs_err"] = float(
+        (got["gt_boxes"].cpu() - want["gt_boxes"]).abs().max())
+    result["train_transform_k3f_launches"] = transform_launches
+    print(f"  {result['images']} images in buckets {result['buckets']}: warp "
+          f"max abs {warp_err:.3e}; raw top-100 scores max abs "
+          f"{score_err:.3e}, classes agree {result['class_agreement']:.3f}; "
+          f"soft-NMS on the CPU's inputs: same kept {nms_same}, scores max "
+          f"abs {nms_err:.3e}; AP@[.5:.95] against the CPU's {result['gt_boxes']} "
+          f"final detections as GT: CPU {cpu_ap:.6f}, card {card_ap:.6f} "
+          f"(AP50 {result['card_stats']['AP50']:.6f}); train transform "
+          f"image max abs {result['train_image_max_abs_err']:.3e}, boxes "
+          f"{result['train_boxes_max_abs_err']:.3e} px, K3f launches "
+          f"{transform_launches}", flush=True)
+    bad = []
+    if not warp_ok:
+        bad.append(f"warped inputs over GATHER_TOL (max abs {warp_err})")
+    if score_err > COCO_SCORE_TOL:
+        bad.append(f"raw scores {score_err} > {COCO_SCORE_TOL}")
+    if not nms_same or nms_err > COCO_SOFT_NMS_TOL:
+        bad.append(f"soft-NMS: same kept {nms_same}, scores {nms_err} > "
+                   f"{COCO_SOFT_NMS_TOL}")
+    if abs(cpu_ap - 1.0) > 1e-12:
+        bad.append(f"the CPU's AP on its own detections is {cpu_ap}, not 1")
+    if card_ap < COCO_AP_FLOOR:
+        bad.append(f"the card's AP {card_ap} < {COCO_AP_FLOOR}")
+    if result["train_image_max_abs_err"] > COCO_IMAGE_TOL:
+        bad.append(f"train image {result['train_image_max_abs_err']}")
+    if result["train_boxes_max_abs_err"] > COCO_BOX_TOL:
+        bad.append(f"train boxes {result['train_boxes_max_abs_err']}")
+    if transform_launches != 1:
+        bad.append(f"the train transform launched K3f {transform_launches} "
+                   f"times (want 1)")
+    if bad:
+        raise AssertionError("phase 4q: " + "; ".join(bad))
+    return result
+
+
+def coco_train_main_path(dev, card):
+    """Phase 6ai: the config's train step fed by ``coco_batches``
+    (``centernet_coco_train_entry``: batch 16, Adam under
+    ``multi_epochs_decay``, clip 35, the NaN guard), COCO_TRAIN_STEPS
+    steps, each on the next batch of the affine route, launch counts from
+    0: K3f once, K1f and K1b nine times a step, nothing else; every loss
+    finite. Then apart: the same step on one fixed batch (what the data
+    path adds), the host-to-device copy of a raw batch (its f32 canvas
+    78.6 MB), the transform's device time, and the host's wait for the
+    loader's next raw batch. ms on the host clock around synced work."""
+    import numpy as np
+
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.coco import CocoDetection
+    from minddet_tpu_torch.data.loader import stack_collate
+    from minddet_tpu_torch.data.transforms import \
+        centernet_train_transform_from_draws
+    from minddet_tpu_torch.entry import centernet_coco_train_entry
+    from minddet_tpu_torch.train.synthetic import (draw_coco_batch,
+                                                   synthetic_coco_records)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn, (state, batches) = centernet_coco_train_entry(
+        device=dev, batch=COCO_TRAIN_BATCH)
+    kernels.reset_launches()
+    history, times = [], []
+    for i in range(COCO_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        state, metrics = step_fn(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = _sampler_launches(COCO_TRAIN_STEPS)
+    want["bilinear_gather_fwd"] = COCO_TRAIN_STEPS
+    fixed = []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            fixed.append(time.perf_counter() - t0)
+    # the data path's parts, on one raw batch of the same set
+    ds = CocoDetection(synthetic_coco_records(COCO_TRAIN_BATCH, seed=0))
+    t0 = time.perf_counter()
+    raw = stack_collate([ds[i] for i in range(COCO_TRAIN_BATCH)])
+    host_s = time.perf_counter() - t0
+    copies = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_raw = {k: torch.from_numpy(np.asarray(raw[k])).to(dev)
+                   for k in ("image", "hw", "boxes", "labels", "mask")}
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    draws = draw_coco_batch(torch.Generator().manual_seed(1),
+                            COCO_TRAIN_BATCH)
+    transform_ms = _cuda_ms(lambda: centernet_train_transform_from_draws(
+        dev_raw["image"], dev_raw["hw"], dev_raw["boxes"], draws,
+        (COCO_TRAIN_OUT,) * 2), iters=5)
+    waits = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        next(batches)
+        torch.cuda.synchronize()
+        waits.append(time.perf_counter() - t0)
+    mean_s, fixed_s = statistics.mean(times), statistics.mean(fixed)
+    out = dict(batch=COCO_TRAIN_BATCH, steps=COCO_TRAIN_STEPS,
+               timed_steps=len(times), ms_per_step=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3,
+               img_per_s=COCO_TRAIN_BATCH / mean_s,
+               fixed_batch_ms_per_step=fixed_s * 1e3,
+               data_path_ms_per_step=(mean_s - fixed_s) * 1e3,
+               h2d_copy_ms=statistics.median(copies) * 1e3,
+               h2d_bytes=int(sum(np.asarray(raw[k]).nbytes for k in
+                                 ("image", "hw", "boxes", "labels", "mask"))),
+               transform_device_ms=transform_ms,
+               host_batch_ms_one_thread=host_s * 1e3,
+               next_batch_ms=statistics.median(waits) * 1e3,
+               max_memory_allocated=peak,
+               losses=[m["loss"] for m in history], last_step=history[-1],
+               launches=launches, card=card)
+    print(f"  config step fed by coco_batches, batch {COCO_TRAIN_BATCH}: "
+          f"{out['ms_per_step']:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
+          f"{out['img_per_s']:.1f} img/s; on one fixed batch "
+          f"{out['fixed_batch_ms_per_step']:.3f} ms/step, so the data path "
+          f"adds {out['data_path_ms_per_step']:.3f} ms; copy of a raw batch "
+          f"({out['h2d_bytes'] / 1e6:.1f} MB) {out['h2d_copy_ms']:.3f} ms, "
+          f"transform on the device {transform_ms:.3f} ms, a raw batch on "
+          f"one host thread {out['host_batch_ms_one_thread']:.1f} ms, the "
+          f"next batch {out['next_batch_ms']:.3f} ms; peak "
+          f"{peak / 2 ** 30:.2f} GiB allocated; {card}", flush=True)
+    print("  losses: " + " ".join(f"{v:.4f}" for v in out["losses"]),
+          flush=True)
+    if not all(math.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"the COCO-fed train step is not finite: "
+                             f"{history}")
+    if launches != want:
+        raise AssertionError(f"{launches} in {COCO_TRAIN_STEPS} COCO-fed "
+                             f"steps (want {want})")
+    print(f"  kernels: {launches} for {COCO_TRAIN_STEPS} steps: one K3f "
+          f"and nine each of K1f and K1b a step: True", flush=True)
+    return out
+
+
+def coco_eval_main_path(dev, card):
+    """Phase 6aj: ``centernet_eval_entry`` (the bf16 flagship, 64
+    in-memory images, keep-res buckets of 128 on the 1024 canvas, batch 4,
+    soft-NMS, the top-100 merge), after one warm-up predict and warp at
+    each bucket's shape, launch counts from 0: K3f once and K1f nine times
+    per predict batch, nothing else. Reports ms per image split into its
+    parts (``centernet_evaluate``'s ``timings``) and the 12 numbers."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.transforms import warp_images
+    from minddet_tpu_torch.entry import COCO_IMAGES, centernet_eval_entry
+    from minddet_tpu_torch.train.evaluate import _keep_res_hw
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    evaluate_fn, (model, ds) = centernet_eval_entry(device=dev)
+    groups = {}
+    for i in range(len(ds)):
+        h, w = ds.records[i]["hw"]
+        key = _keep_res_hw(int(h), int(w))
+        groups[key] = groups.get(key, 0) + 1
+    batches = sum(-(-n // COCO_EVAL_BATCH) for n in groups.values())
+    canvas = torch.zeros(COCO_EVAL_BATCH, COCO_EVAL_CANVAS, COCO_EVAL_CANVAS,
+                         3, device=dev)
+    eye = torch.eye(2, 3, device=dev).expand(COCO_EVAL_BATCH, 2, 3)
+    for bucket in groups:
+        model.predict(warp_images(canvas, eye, bucket))
+    del canvas
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    stats = evaluate_fn(model, ds, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = _sampler_launches(batches, train=False)
+    want["bilinear_gather_fwd"] = batches
+    n = len(ds)
+    out = dict(images=n, buckets={f"{h}x{w}": c for (h, w), c in
+                                  sorted(groups.items())},
+               predict_batches=batches, ms_per_image=wall / n * 1e3,
+               part_ms_per_image={k: v / n * 1e3 for k, v in timings.items()},
+               launches=launches, launches_per_image={
+                   k: v / n for k, v in launches.items() if v},
+               stats=stats,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               card=card)
+    print(f"  centernet_evaluate, {n} images, buckets {out['buckets']}, "
+          f"{batches} predict batches: {out['ms_per_image']:.3f} ms per "
+          f"image = " + " + ".join(f"{k} {v:.3f}" for k, v in
+                                   out["part_ms_per_image"].items())
+          + "; launches per image " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["launches_per_image"].items())
+          + f"; {card}", flush=True)
+    print("  stats: " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()),
+          flush=True)
+    if len(stats) != 12 or not all(math.isfinite(v) and -1 <= v <= 1
+                                   for v in stats.values()):
+        raise AssertionError(f"the COCO stats are not 12 numbers in [-1, 1]:"
+                             f" {stats}")
+    if COCO_IMAGES != n or launches != want:
+        raise AssertionError(f"{launches} for {batches} predict batches of "
+                             f"{n} images (want {want})")
+    print(f"  kernels: {launches} per {batches} batches: one K3f and nine "
+          f"K1f a batch: True", flush=True)
+    return out
+
+
+def coco_mosaic_main_path(dev, card):
+    """Phase 6ak: the mosaic route of ``coco_batches`` (no model) at 640 x
+    640, batch 16, over the in-memory set through four loader threads:
+    MOSAIC_BATCHES batches, launch counts from 0: K3f four times a batch,
+    nothing else; every image finite, boxes and masks 8 x 128 slots. ms
+    per batch on the host clock (the last 10, synced)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import COCO_IMAGES, COCO_MAX_OBJS
+    from minddet_tpu_torch.train.synthetic import (coco_batches,
+                                                   synthetic_coco_records)
+
+    torch.cuda.empty_cache()
+    cfg = {"data": {"records": synthetic_coco_records(COCO_IMAGES, seed=0),
+                    "max_objs": COCO_MAX_OBJS, "workers": 4}}
+    batches = coco_batches(cfg, COCO_TRAIN_BATCH, (MOSAIC_OUT,) * 2,
+                           aug="mosaic", device=dev)
+    kernels.reset_launches()
+    times, finite = [], True
+    for i in range(MOSAIC_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        finite &= bool(torch.isfinite(batch["image"]).all())
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = {k.name: 4 * MOSAIC_BATCHES * (k is kernels.BILINEAR_GATHER_FWD)
+            for k in kernels.KERNELS}
+    slots = 8 * COCO_MAX_OBJS
+    shapes = (tuple(batch["image"].shape), tuple(batch["gt_boxes"].shape))
+    mean_s = statistics.mean(times)
+    out = dict(batch=COCO_TRAIN_BATCH, batches=MOSAIC_BATCHES,
+               ms_per_batch=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3,
+               img_per_s=COCO_TRAIN_BATCH / mean_s, launches=launches,
+               valid_boxes=int(batch["gt_mask"].sum()), card=card)
+    print(f"  mosaic + mixup route, batch {COCO_TRAIN_BATCH} at "
+          f"{MOSAIC_OUT}^2: {out['ms_per_batch']:.3f} ms/batch (p50 "
+          f"{out['ms_p50']:.3f}), {out['img_per_s']:.1f} img/s, "
+          f"{out['valid_boxes']} valid boxes in the last batch; {card}",
+          flush=True)
+    if not finite or shapes != ((COCO_TRAIN_BATCH, MOSAIC_OUT, MOSAIC_OUT,
+                                 3), (COCO_TRAIN_BATCH, slots, 4)):
+        raise AssertionError(f"mosaic batches: finite {finite}, shapes "
+                             f"{shapes}")
+    if launches != want:
+        raise AssertionError(f"{launches} in {MOSAIC_BATCHES} mosaic batches "
+                             f"(want four K3f a batch, nothing else)")
+    print(f"  kernels: {launches} for {MOSAIC_BATCHES} batches: four K3f a "
+          f"batch: True", flush=True)
+    return out
+
+
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
@@ -6420,16 +7055,24 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
     bounds summed over ``main_cases``, the kernel's calls in one pass of
     each main path that launches it (one request at the largest batch, one
     train step), and ``main_shapes`` with the same numbers case by case;
-    ``library`` where the cases timed one PyTorch call beside the kernel."""
+    ``library`` where the cases timed one PyTorch call beside the kernel.
+    ``ms`` is the launch's time: where a case timed its wrapper's pad and
+    slice apart (the input warps), its ``kernel_ms``, and the row's
+    ``wrapper_ms`` sums the wrapper's whole calls, those copies
+    included."""
     from minddet_tpu_torch import kernels
 
     if not main_cases:
         raise AssertionError(f"{kernel.name}: no phase 3 case at a main "
                              f"path's shape")
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
+    launch_ms = calls_per_shape * sum(c.get("kernel_ms", c["ms"])
+                                      for c in main_cases)
+    wrapped = any("kernel_ms" in c for c in main_cases)
     keys = ("kind", "shape", "against", "points", "samples", "dtype",
             "spread", "tile_rows", "stream", "stride",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "ms", "pad_ms", "kernel_ms", "slice_ms",
+            "plain_ms", "bound_ms", "bound_by",
             "library_ms", "grid_sample_ms", "fallback_share", "repeat")
     return dict(
         main_shapes=[{k: c[k] for k in keys if k in c} for c in main_cases],
@@ -6437,10 +7080,11 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
         source=str(kernel.source.relative_to(kernels.CSRC.parent.parent)),
         replaces=kernel.replaces.split()[0], launches=launches,
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
+        ms=launch_ms, plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
         bound_by="bytes" if all(c["bound_by"] == "bytes"
                                 for c in main_cases) else "operations",
-        library_ms=tot("library_ms") if library else None)
+        library_ms=tot("library_ms") if library else None,
+        **({"wrapper_ms": tot("ms")} if wrapped else {}))
 
 
 def main(argv=None) -> int:
@@ -6513,6 +7157,8 @@ def main(argv=None) -> int:
     gather_dx_cases.extend(rcnn_train_dx)
     gather_cases.extend(check_rcnn_mask_crop(dev))
     torch.cuda.empty_cache()
+    warp_cases = check_coco_warp(dev, card)
+    gather_cases.extend(warp_cases)
 
     referee_ratios = None
     if args.seeds:
@@ -6554,6 +7200,10 @@ def main(argv=None) -> int:
         seg_f32[kind] = timed_phase(phase, card, check_seg_f32, dev,
                                     _seeded(phase), kind)
         torch.cuda.empty_cache()
+    print("phase 4q: the f32 COCO eval and train data path, card vs CPU",
+          flush=True)
+    coco_f32 = timed_phase("4q", card, check_coco_f32, dev, _seeded("4q"))
+    torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
           "referee", flush=True)
@@ -6818,6 +7468,18 @@ def main(argv=None) -> int:
                                          True)
         profiled[f"{kind}_train"] = seg_training[kind]["profile"]
         torch.cuda.empty_cache()
+    print(f"phase 6ai: main path, the config's bf16 train step fed by "
+          f"coco_batches at batch {COCO_TRAIN_BATCH}", flush=True)
+    coco_training = timed_phase("6ai", card, coco_train_main_path, dev, card)
+    torch.cuda.empty_cache()
+    print("phase 6aj: main path, centernet_evaluate on 64 images (bf16)",
+          flush=True)
+    coco_eval = timed_phase("6aj", card, coco_eval_main_path, dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase 6ak: main path, the mosaic route of coco_batches at batch "
+          f"{COCO_TRAIN_BATCH}", flush=True)
+    coco_mosaic = timed_phase("6ak", card, coco_mosaic_main_path, dev, card)
+    torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -6893,13 +7555,18 @@ def main(argv=None) -> int:
                     cp_train_launches["seg_full_max_bwd"]
                     + cp1_training["launches"]["seg_full_max_bwd"],
                     2 * train_case(seg_bwd_cases), 1, seg_bwd_cases),
+        # K3f's COCO calls: one COCO-fed train step's warp, one eval
+        # batch's at the (512, 768) bucket, one mosaic batch's four warps
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
                     + rcnn["launches"]["bilinear_gather_fwd"]
                     + mask_rcnn["launches"]["bilinear_gather_fwd"]
                     + rcnn_training["launches"]["bilinear_gather_fwd"]
-                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"],
+                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"]
+                    + coco_training["launches"]["bilinear_gather_fwd"]
+                    + coco_eval["launches"]["bilinear_gather_fwd"]
+                    + coco_mosaic["launches"]["bilinear_gather_fwd"],
                     [c for c in gather_cases if c["dtype"] == "float32"
                      and c["shape"][0] == CP_BATCHES[-1]
                      and "stream" not in c]
@@ -6908,7 +7575,11 @@ def main(argv=None) -> int:
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_mask")
-                    + rcnn_train_case(gather_cases, "gt_crop"), 1,
+                    + rcnn_train_case(gather_cases, "gt_crop")
+                    + [c for c in warp_cases if c["stream"] in (
+                        "coco_train", "coco_eval_512x768")]
+                    + 4 * [c for c in warp_cases
+                           if c["stream"] == "coco_mosaic"], 1,
                     gather_cases, library=True),
         _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
                     cp_train_launches["bilinear_gather_bwd_dx"]
@@ -6988,6 +7659,9 @@ def main(argv=None) -> int:
                            yolo=yolo, yolo_training=yolo_training,
                            seg_f32=seg_f32, seg_train_f32=seg_train_f32,
                            seg=seg, seg_training=seg_training,
+                           coco_warp_cases=warp_cases, coco_f32=coco_f32,
+                           coco_training=coco_training, coco_eval=coco_eval,
+                           coco_mosaic=coco_mosaic,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

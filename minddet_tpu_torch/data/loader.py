@@ -1,9 +1,10 @@
 """Host data loader: sharded, shuffled batches of same-shaped arrays
 (counterpart of ``minddet_tpu/data/loader.py``: ``DistributedSampler``,
-``stack_collate`` and ``DataLoader``).
+``GroupSampler``, ``aspect_flags``, ``stack_collate`` and ``DataLoader``).
 
-The loader is the reference's threaded pipeline as the segmentation path
-uses it: deterministic per-epoch shuffling, host sharding, stack-collate
+The loader is the reference's threaded pipeline as the segmentation and
+COCO paths use it: deterministic per-epoch shuffling (or batches drawn
+from one aspect group at a time), host sharding, stack-collate
 to static shapes, whole batches only, and worker threads that fill
 batches ahead of the consumer, handed out in order. The shard of this
 process is ``torch.distributed``'s rank among its world size where a
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +52,50 @@ class DistributedSampler:
         return idx[self.shard_id::self.num_shards]
 
 
+class GroupSampler:
+    """Group-pure batches with host sharding (the reference's aspect-ratio
+    ``GroupSampler``): ``flags`` holds one int per example; each group is
+    shuffled, padded to a multiple of ``batch_size`` by repeating its head
+    and cut into batches, the batches are permuted, and the shards take
+    whole batches round-robin (the list of batches padded by repeating its
+    head to a multiple of the shards). One ``RandomState(seed + epoch)``
+    draws it all, group by group in flag order."""
+
+    def __init__(self, flags: Sequence[int], batch_size: int,
+                 num_shards: int = 1, shard_id: int = 0, seed: int = 0):
+        self.flags = np.asarray(flags, np.int64)
+        self.batch_size = batch_size
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.seed = seed
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        rng = np.random.RandomState(self.seed + epoch)
+        batches = []
+        for flag in np.unique(self.flags):
+            idx = np.nonzero(self.flags == flag)[0]
+            rng.shuffle(idx)
+            pad = (-len(idx)) % self.batch_size
+            if pad:
+                idx = np.concatenate([idx, idx[:pad]])
+            batches.extend(idx.reshape(-1, self.batch_size))
+        order = rng.permutation(len(batches))
+        pad_b = (-len(batches)) % self.num_shards
+        if pad_b:
+            order = np.concatenate([order, order[:pad_b]])
+        mine = order[self.shard_id::self.num_shards]
+        if not len(mine):
+            return np.zeros(0, np.int64)
+        return np.concatenate([batches[i] for i in mine])
+
+
+def aspect_flags(hws: Sequence[Sequence[int]]) -> np.ndarray:
+    """Image sizes (h, w) -> ``GroupSampler`` flags: 1 where the image is
+    taller than wide, else 0."""
+    hw = np.asarray(hws)
+    return (hw[:, 0] > hw[:, 1]).astype(np.int64)
+
+
 def stack_collate(examples: Sequence[Dict[str, np.ndarray]]
                   ) -> Dict[str, np.ndarray]:
     """Stack same-shaped example dicts into batch arrays."""
@@ -60,10 +105,12 @@ def stack_collate(examples: Sequence[Dict[str, np.ndarray]]
 class DataLoader:
     """dataset[int] -> ``stack_collate``, by ``num_workers`` threads; the
     whole batches come out in the sampler's order (the last partial one
-    dropped), epoch after epoch when iterated."""
+    dropped), epoch after epoch when iterated. ``dataset`` is anything with
+    ``__len__`` and ``__getitem__``; ``sampler`` anything with
+    ``epoch_indices(epoch)`` (``DistributedSampler`` where not given,
+    ``GroupSampler``)."""
 
-    def __init__(self, dataset, batch_size: int,
-                 sampler: Optional[DistributedSampler] = None,
+    def __init__(self, dataset, batch_size: int, sampler=None,
                  num_workers: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size

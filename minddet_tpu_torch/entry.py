@@ -106,11 +106,26 @@ batch; DeepLab at batch 16 with SGD 0.9, weight decay 4e-5 and
 ``polynomial_decay(0.007, 0, 30000, 0.9)``, UNet at batch 8 with Adam under
 ``warmup_cosine(3e-4, 40000, 1000)``, inside the NaN guard. None of the six
 launches a hand-written kernel.
+
+``centernet_coco_train_entry()`` is the train step of
+``configs/centernet_r18_coco.yaml`` fed by the COCO data path: the flagship
+with f32 parameters and bf16 compute, batch 16, Adam 5e-4 without decay
+under ``multi_epochs_decay(5e-4, [90, 120], 7400)`` from count 0, clip-by-
+global-norm 35, inside the NaN guard; its batches come from the affine
+route of ``train/synthetic.py:coco_batches`` over an in-memory set of
+decoded COCO-like images (``synthetic_coco_records``: 640 x 640 canvas, 128
+box slots, four loader threads). Each step launches the row-gather kernel
+(K3f) once for the warp, and the sampler kernels as ``train_entry``.
+``centernet_eval_entry()`` is ``train/evaluate.py:centernet_evaluate`` at
+the reference's protocol (scale 1, keep-res buckets of 128 on a 1024 x 1024
+canvas, batch 4, per-class Gaussian soft-NMS, the top-100 merge) for the
+bf16 flagship on the same in-memory set: one K3f launch per batch for the
+warp.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +136,7 @@ from minddet_tpu_torch.core.lr_schedules import (Schedule, linear_warmup,
                                                   warmup_cosine)
 from minddet_tpu_torch.core.optim import (Recipe, adam, adamw, sgd,
                                           skip_nonfinite_updates)
+from minddet_tpu_torch.data.coco import CocoDetection
 from minddet_tpu_torch.data.seg import seg_normalize
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
@@ -141,8 +157,11 @@ from minddet_tpu_torch.models.segmentors import (DeepLabV3, DeepLabV3Plus,
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
+from minddet_tpu_torch.train.evaluate import centernet_evaluate
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
-from minddet_tpu_torch.train.synthetic import (synthetic_detection_batch,
+from minddet_tpu_torch.train.synthetic import (COCO_SIZES, coco_batches,
+                                               synthetic_coco_records,
+                                               synthetic_detection_batch,
                                                synthetic_seg_batches)
 
 RES = 512
@@ -282,6 +301,67 @@ def centernet_dcn4_train_entry(device=None, batch: int = 128
     return _train_program(device, batch, dcn4=True)
 
 
+# CenterNet's own train step and eval protocol (configs/centernet_r18_coco.yaml
+# and train/evaluate.py:centernet_evaluate), fed from records in memory
+COCO_TRAIN_BATCH = 16
+COCO_LR = 5e-4                # multi_epochs_decay(5e-4, [90, 120], 7400)
+COCO_MILESTONES = (90, 120)
+COCO_STEPS_PER_EPOCH = 7400
+COCO_CLIP = 35.0
+COCO_MAX_OBJS = 128           # data.max_objs
+COCO_WORKERS = 4              # the loader's default threads
+COCO_IMAGES = 64              # images of the in-memory set
+COCO_EVAL_CANVAS = (1024, 1024)  # centernet_evaluate's CocoDetection
+
+
+def centernet_coco_train_entry(device=None, batch: int = COCO_TRAIN_BATCH,
+                               images: int = COCO_IMAGES, res: int = RES
+                               ) -> Tuple[Callable, Tuple[TrainState,
+                                                          Iterator]]:
+    """(step_fn, (state, batches)): ``step_fn(state, next(batches))`` runs
+    one train step in place and returns ``(state, metrics)`` (loss,
+    hm_loss, wh_loss, off_loss, grad_norm, on the device).
+
+    ``configs/centernet_r18_coco.yaml``'s train section: the model seeded
+    with ``SEED``, f32 parameters, bf16 compute, channels_last, train
+    mode; Adam without decay, clip-by-global-norm 35, the lr
+    ``multi_epochs_decay(5e-4, [90, 120], 7400)`` of the applied steps'
+    count, inside ``skip_nonfinite_updates``; ``loss_from_gt``.
+    ``batches`` is the affine route of ``coco_batches`` (``res`` x
+    ``res``, seed ``SEED``, on the device) over
+    ``synthetic_coco_records(images)`` read by ``COCO_WORKERS`` threads onto
+    a 640 x 640 canvas with ``COCO_MAX_OBJS`` slots, epoch after epoch."""
+    dev = resolve_device(device)
+    model = _seeded_model(torch.bfloat16).to(
+        device=dev, memory_format=torch.channels_last).train()
+    tx = skip_nonfinite_updates(adam(
+        multi_epochs_decay(COCO_LR, COCO_MILESTONES, COCO_STEPS_PER_EPOCH),
+        clip_global_norm=COCO_CLIP))
+    cfg = {"data": {"records": synthetic_coco_records(images, seed=SEED),
+                    "max_objs": COCO_MAX_OBJS, "workers": COCO_WORKERS}}
+    batches = coco_batches(cfg, batch, (res, res), seed=SEED, aug="affine",
+                           device=dev)
+    return make_train_step(model_gt_loss), (
+        TrainState.create(model, tx), batches)
+
+
+def centernet_eval_entry(device=None, images: int = COCO_IMAGES,
+                         sizes: Sequence[Tuple[int, int]] = COCO_SIZES
+                         ) -> Tuple[Callable[..., Dict[str, float]],
+                                    Tuple[CenterNet, CocoDetection]]:
+    """(evaluate_fn, (model, dataset)): ``evaluate_fn(model, dataset)`` is
+    ``centernet_evaluate`` at its defaults, the reference's protocol, and
+    returns the 12 COCO numbers. The model is ``build_model``'s bf16
+    flagship; the dataset ``synthetic_coco_records(images, sizes=sizes)``
+    (at the default sizes the train entry's images) on the (1024, 1024)
+    canvas with ``COCO_MAX_OBJS`` slots, raw records kept."""
+    model = build_model(device)
+    ds = CocoDetection(synthetic_coco_records(images, seed=SEED, sizes=sizes),
+                       max_hw=COCO_EVAL_CANVAS, max_objs=COCO_MAX_OBJS,
+                       keep_raw=True)
+    return centernet_evaluate, (model, ds)
+
+
 def synthetic_clouds(batch: int, pc_range, num_points: int = CLOUD_POINTS,
                      seed: int = 0, num_features: int = 4
                      ) -> Tuple[np.ndarray, np.ndarray]:
@@ -398,12 +478,6 @@ def synthetic_lidar_batch(batch: int, pc_range,
             "gt_classes": classes.astype(np.int32), "gt_mask": mask}
 
 
-def centerpoint_loss(model: CenterPoint, batch: Dict):
-    """The CenterPoint train steps' loss function: ``loss_from_gt`` of the
-    one- or the two-stage model on a lidar batch."""
-    return model.loss_from_gt(batch)
-
-
 def _centerpoint_train_program(cls, device, batch: int
                                ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
     dev = resolve_device(device)
@@ -413,7 +487,7 @@ def _centerpoint_train_program(cls, device, batch: int
     state = TrainState.create(model, adamw(1e-3, clip_global_norm=35.0))
     data = {k: torch.from_numpy(v).to(dev)
             for k, v in synthetic_lidar_batch(batch, model.pc_range).items()}
-    return make_train_step(centerpoint_loss), (state, data)
+    return make_train_step(model_gt_loss), (state, data)
 
 
 def centerpoint_train_entry(device=None, batch: int = 8
@@ -448,12 +522,6 @@ PP_TRAIN_LR = 2e-4    # bench.py:bench_pointpillars_train: adamw(2e-4)
 PP_TRAIN_MAX_GT = 24  # box slots per cloud (bench.py: max_gt=24)
 
 
-def pointpillars_loss(model: PointPillars, batch: Dict):
-    """The PointPillars train step's loss function:
-    ``PointPillars.loss_from_gt`` on a lidar batch."""
-    return model.loss_from_gt(batch)
-
-
 def pointpillars_train_entry(device=None, batch: int = 32
                              ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
     """(step_fn, (state, batch)): ``step_fn(state, batch)`` runs one
@@ -479,7 +547,7 @@ def pointpillars_train_entry(device=None, batch: int = 32
                                  PP_TRAIN_MAX_GT, num_classes=1,
                                  num_features=4, box_dim=7)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    return make_train_step(pointpillars_loss), (state, data)
+    return make_train_step(model_gt_loss), (state, data)
 
 
 # bench.py:bench_decode_nms_p50: one CenterPoint task head's decode and
@@ -809,6 +877,13 @@ def model_loss(model, batch: Dict):
     model's ``loss`` is the whole loss (the 2D detectors' and the
     segmentors')."""
     return model.loss(batch)
+
+
+def model_gt_loss(model, batch: Dict):
+    """``model.loss_from_gt(batch)``: the loss function of the train steps
+    whose model builds its targets on the device from the batch's boxes
+    (CenterNet fed by ``coco_batches``, CenterPoint, PointPillars)."""
+    return model.loss_from_gt(batch)
 
 
 def yolov8_train_entry(device=None, batch: int = YOLO_TRAIN_BATCH

@@ -1,8 +1,7 @@
-"""Greedy NMS on the device (counterpart of the parts of
-``minddet_tpu/ops/nms.py`` the ported predict paths use:
-``_greedy_keep_from_iou``, ``nms``, ``batched_nms`` and ``rotated_nms``),
-batched over a leading sample axis where the reference vmaps one sample at
-a time.
+"""Greedy NMS and soft-NMS on the device (counterpart of the parts of
+``minddet_tpu/ops/nms.py`` the ported paths use: ``_greedy_keep_from_iou``,
+``nms``, ``batched_nms``, ``rotated_nms`` and ``soft_nms``), batched over a
+leading sample axis where the reference vmaps one sample at a time.
 """
 
 from __future__ import annotations
@@ -111,3 +110,52 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
     keep, passes = greedy_keep_from_iou(iou, scores, valid, iou_threshold)
     return (_kept_indices(keep, scores, k),
             keep.sum(dim=-1, dtype=torch.int32), passes)
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, sigma: float = 0.5,
+             iou_threshold: float = 0.3, score_threshold: float = 0.001,
+             method: str = "gaussian", top_k: int | None = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft-NMS (Bodla et al.): decay instead of suppress, over corner
+    boxes (..., N, 4) with scores (..., N), every leading index its own set
+    (the reference vmaps one set at a time).
+
+    ``top_k`` (N where not given, at most N) passes, a fixed loop on the
+    device with no host sync: each pass selects the highest current score
+    (the lowest index among equal ones, as ``jnp.argmax``), writes it to
+    ``new_scores`` if it is above ``score_threshold`` (else 0) and its index
+    to ``order`` (else -1), decays every current score by the IoU with it
+    (``method`` "gaussian": exp(-iou^2 / sigma); "linear": 1 - iou where iou
+    is above ``iou_threshold``) and sets its own to -inf. Boxes never
+    selected keep score 0. Returns ``(new_scores (..., N), order (...,
+    k) int32)``."""
+    if method not in ("gaussian", "linear"):
+        raise ValueError(f"method must be 'gaussian' or 'linear', got "
+                         f"{method!r}")
+    n = boxes.shape[-2]
+    k = n if top_k is None else min(top_k, n)
+    iou = pairwise_iou(boxes, boxes)
+    cur = scores.clone()
+    out = torch.zeros_like(scores)
+    order = torch.full(scores.shape[:-1] + (k,), -1, dtype=torch.int32,
+                       device=scores.device)
+    minus_inf = torch.full(scores.shape[:-1] + (1,), float("-inf"),
+                           dtype=scores.dtype, device=scores.device)
+    for i in range(k):
+        best = torch.argmax(cur, dim=-1, keepdim=True)
+        best_score = cur.gather(-1, best)
+        alive = best_score > score_threshold
+        out.scatter_(-1, best, torch.where(alive, best_score,
+                                           torch.zeros_like(best_score)))
+        order[..., i:i + 1] = torch.where(alive, best,
+                                          torch.full_like(best, -1))
+        ov = iou.gather(-2, best[..., None].expand(
+            best.shape[:-1] + (1, n))).squeeze(-2)
+        if method == "gaussian":
+            decay = torch.exp(-(ov * ov) / sigma)
+        else:
+            decay = torch.where(ov > iou_threshold, 1.0 - ov,
+                                torch.ones_like(ov))
+        cur = cur * decay
+        cur.scatter_(-1, best, minus_inf)
+    return out, order

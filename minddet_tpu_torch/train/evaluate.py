@@ -1,16 +1,32 @@
-"""Evaluation (counterpart of ``minddet_tpu/train/evaluate.py``: so far
-``_pad_batch`` and the segmentation mIoU, ``segmentation_evaluate``).
+"""Evaluation (counterpart of ``minddet_tpu/train/evaluate.py``:
+``_pad_batch``, the COCO paths ``coco_evaluate`` and ``centernet_evaluate``
+with ``_keep_res_hw`` and ``_soft_nms_per_class``, and the segmentation
+mIoU, ``segmentation_evaluate``).
+
+The device runs the warp (the row-gather kernel K3f on the card), the
+model's ``predict`` and the soft-NMS; the host accumulates the protocol's
+metrics (``data/coco_eval.py``). A COCO evaluation takes a record pattern,
+as the reference's does, or records in memory, or a dataset with
+``CocoDetection``'s interface (``records[i]["hw"]``, ``__getitem__``,
+``__len__``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from collections import defaultdict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from minddet_tpu_torch.data.coco import (CocoDetection,
+                                         evaluate_coco_detections,
+                                         paste_masks_to_image)
 from minddet_tpu_torch.data.seg import SegDataset
+from minddet_tpu_torch.data.transforms import eval_affine, warp_images
+from minddet_tpu_torch.ops.nms import soft_nms
 
 
 def _pad_batch(arrays: np.ndarray, batch_size: int) -> np.ndarray:
@@ -53,3 +69,214 @@ def segmentation_evaluate(model: nn.Module, records: str, num_classes: int,
     present = union > 0
     return {"miou": float(per_class[present].mean()) if present.any()
             else 0.0}
+
+
+def coco_dataset(records, **kwargs) -> CocoDetection:
+    """``records`` itself where it is a dataset, else ``CocoDetection`` of
+    it (a shard pattern, a list of shard paths or records in memory) with
+    ``kwargs``."""
+    if isinstance(records, (str, list, tuple)):
+        return CocoDetection(records, **kwargs)
+    return records
+
+
+class _Laps:
+    """Seconds by part into ``timings`` (None: nothing is timed, nothing
+    synchronised): ``lap(name)`` waits for ``dev`` and adds the time since
+    the last lap under ``name``."""
+
+    def __init__(self, timings: Optional[Dict[str, float]], dev):
+        self.timings, self.dev = timings, dev
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.timings is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.timings[name] = self.timings.get(name, 0.0) + now - self.t
+        self.t = now
+
+
+@torch.no_grad()
+def coco_evaluate(model: nn.Module, records, image_hw: Tuple[int, int],
+                  num_classes: int, batch_size: int = 8, segm: bool = False
+                  ) -> Dict[str, float]:
+    """The fixed-resolution COCO path (the 2D zoo): each image warped to
+    ``image_hw`` (``eval_affine``: the longer side fit, centred), the
+    model's ``predict`` on its device (the tail batch padded,
+    ``_pad_batch``), the boxes mapped back to the image's pixels, the 12
+    COCO numbers over ``records`` (``coco_dataset``, 128 slots). ``predict`` returns a dict
+    (boxes, scores, labels in input pixels, and masks) or CenterNet's (B,
+    K, 6) at output stride 4. With ``segm`` (Mask R-CNN) the roi masks are
+    pasted at the image's resolution (``paste_masks_to_image``) and scored
+    by mask IoU too, under ``segm_`` names."""
+    ds = coco_dataset(records, max_objs=128, keep_raw=True)
+    n = len(ds)
+    dev = next(model.parameters()).device
+    predictions = {}
+    for start in range(0, n, batch_size):
+        exs = [ds[i] for i in range(start, min(start + batch_size, n))]
+        images = torch.from_numpy(_pad_batch(
+            np.stack([e["image"] for e in exs]), batch_size)).to(dev)
+        hw = torch.from_numpy(_pad_batch(
+            np.stack([e["hw"] for e in exs]), batch_size)).to(dev)
+        aff = eval_affine(hw, image_hw)
+        out = model.predict(warp_images(images, aff, tuple(image_hw)))
+        roi_masks = None
+        if isinstance(out, dict):
+            boxes = out["boxes"].double().cpu().numpy()
+            scores = out["scores"].double().cpu().numpy()
+            labels = out["labels"].long().cpu().numpy()
+            if segm:
+                roi_masks = out["masks"].float().cpu().numpy()
+        else:  # CenterNet: (B, K, 6) at output stride 4
+            det = out.double().cpu().numpy()
+            boxes = det[..., :4] * 4.0
+            scores = det[..., 4]
+            labels = det[..., 5].astype(np.int64)
+        fwd = aff.cpu().numpy()  # output -> input: back to the image
+        for bi, ex in enumerate(exs):
+            m, b = fwd[bi], boxes[bi]
+            pred = {"boxes": np.stack([m[0, 0] * b[:, 0] + m[0, 2],
+                                       m[1, 1] * b[:, 1] + m[1, 2],
+                                       m[0, 0] * b[:, 2] + m[0, 2],
+                                       m[1, 1] * b[:, 3] + m[1, 2]], -1),
+                    "scores": scores[bi], "labels": labels[bi]}
+            if roi_masks is not None:
+                pred["masks"] = paste_masks_to_image(
+                    roi_masks[bi], pred["boxes"], int(ex["hw"][0]),
+                    int(ex["hw"][1]))
+            predictions[int(ex["image_id"])] = pred
+    stats = evaluate_coco_detections(ds, predictions, num_classes)
+    if segm:
+        mask_stats = evaluate_coco_detections(ds, predictions, num_classes,
+                                              segm=True)
+        stats.update({f"segm_{k}": v for k, v in mask_stats.items()})
+    return stats
+
+
+# CenterNet's own protocol: keep-res padding at scale 1, per-class soft-NMS,
+# the top-100 cross-class merge
+MAX_PER_IMAGE = 100  # detections kept by the merge (ties may keep more)
+DOWN_RATIO = 4       # the heads' output stride
+SOFT_NMS_CAP = 128   # slots per class
+KEEP_RES_BUCKET = 128  # canvas sides rounded up to a multiple of this
+EVAL_BATCH = 4       # images per predict call
+
+
+def _keep_res_hw(h: int, w: int) -> Tuple[int, int]:
+    """The reference's keep-res padding ``(dim | 31) + 1`` of the image,
+    rounded up to a multiple of ``KEEP_RES_BUCKET`` so one program serves
+    a bucket (the centred placement pads, never resizes)."""
+    b = KEEP_RES_BUCKET
+    ih, iw = (h | 31) + 1, (w | 31) + 1
+    return -(-ih // b) * b, -(-iw // b) * b
+
+
+def _soft_nms_per_class(boxes: np.ndarray, scores: np.ndarray,
+                        labels: np.ndarray, num_classes: int,
+                        cap: int = SOFT_NMS_CAP, device="cpu"
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-class Gaussian soft-NMS (sigma 0.5, score threshold 1e-3) of one
+    image's detections, every class in one ``soft_nms`` call on ``device``
+    over (num_classes, cap) slots: each class's detections (its ``cap``
+    best where it has more) in its row, empty slots score 0. Returns the
+    boxes, rescored scores and labels that stay above 0, class by
+    class."""
+    cls_boxes = np.zeros((num_classes, cap, 4), np.float32)
+    cls_scores = np.zeros((num_classes, cap), np.float32)
+    for j in range(num_classes):
+        sel = np.nonzero(labels == j)[0]
+        if len(sel) > cap:
+            sel = sel[np.argsort(-scores[sel])[:cap]]
+        cls_boxes[j, :len(sel)] = boxes[sel]
+        cls_scores[j, :len(sel)] = scores[sel]
+    new_scores = soft_nms(torch.from_numpy(cls_boxes).to(device),
+                          torch.from_numpy(cls_scores).to(device),
+                          sigma=0.5, score_threshold=1e-3)[0].cpu().numpy()
+    out_b, out_s, out_l = [], [], []
+    for j in range(num_classes):
+        keep = new_scores[j] > 0
+        out_b.append(cls_boxes[j][keep])
+        out_s.append(new_scores[j][keep])
+        out_l.append(np.full(int(keep.sum()), j, np.int64))
+    return np.concatenate(out_b), np.concatenate(out_s), np.concatenate(out_l)
+
+
+@torch.no_grad()
+def centernet_evaluate(model: nn.Module, records, num_classes: int = 80,
+                       timings: Optional[Dict[str, float]] = None
+                       ) -> Dict[str, float]:
+    """The reference's CenterNet protocol at scale 1: each image placed
+    centred (never resized) on its keep-res canvas (``_keep_res_hw``),
+    images grouped by canvas and predicted ``EVAL_BATCH`` at a time (a
+    bucket's tail padded with zero images), the boxes (at ``DOWN_RATIO``)
+    mapped back; per image, per-class soft-NMS on the model's device
+    (``_soft_nms_per_class``), then the cross-class merge keeping every
+    score at or above the ``MAX_PER_IMAGE``-th (ties may keep more); the 12
+    COCO numbers over ``records`` (``coco_dataset`` on a (1024, 1024)
+    canvas, 128 slots). With ``timings`` the device is waited for between
+    parts, and their seconds are added there: load (host examples), copy
+    (to the device), warp, predict (with the detections back to the host),
+    soft_nms, evaluate (the host's protocol)."""
+    ds = coco_dataset(records, max_hw=(1024, 1024), max_objs=128,
+                      keep_raw=True)
+    dev = next(model.parameters()).device
+    laps = _Laps(timings, dev)
+    raw = defaultdict(lambda: ([], [], []))
+    groups = defaultdict(list)
+    for i in range(len(ds)):  # the stored sizes: no image decoded yet
+        h, w = ds.records[i]["hw"]
+        groups[_keep_res_hw(int(h), int(w))].append(i)
+    for (ih, iw), items in groups.items():
+        for start in range(0, len(items), EVAL_BATCH):
+            exs = [ds[i] for i in items[start:start + EVAL_BATCH]]
+            images = np.stack([e["image"] for e in exs])
+            affs = np.zeros((len(exs), 2, 3), np.float32)
+            offsets = []
+            for bi, e in enumerate(exs):
+                h, w = e["hw"]
+                ox, oy = (iw - w) / 2.0, (ih - h) / 2.0
+                affs[bi] = [[1, 0, -ox], [0, 1, -oy]]
+                offsets.append((ox, oy))
+            laps.lap("load")
+            pad = EVAL_BATCH - len(exs)
+            images = torch.from_numpy(images).to(dev)
+            if pad:  # one shape per bucket
+                images = torch.cat([images, images.new_zeros(
+                    (pad,) + images.shape[1:])])
+                affs = np.concatenate([affs, np.tile(affs[-1:], (pad, 1, 1))])
+            affs = torch.from_numpy(affs).to(dev)
+            laps.lap("copy")
+            warped = warp_images(images, affs, (ih, iw))
+            laps.lap("warp")
+            det = model.predict(warped).double().cpu().numpy()[:len(exs)]
+            laps.lap("predict")
+            for bi, e in enumerate(exs):
+                ox, oy = offsets[bi]
+                b = det[bi, :, :4] * DOWN_RATIO
+                bb, ss, ll = raw[int(e["image_id"])]
+                bb.append(np.stack([b[:, 0] - ox, b[:, 1] - oy,
+                                    b[:, 2] - ox, b[:, 3] - oy], -1))
+                ss.append(det[bi, :, 4])
+                ll.append(det[bi, :, 5].astype(np.int64))
+            laps.lap("load")
+
+    predictions = {}
+    for img_id, (bb, ss, ll) in raw.items():
+        boxes, scores, labels = _soft_nms_per_class(
+            np.concatenate(bb).astype(np.float32),
+            np.concatenate(ss).astype(np.float32), np.concatenate(ll),
+            num_classes, device=dev)
+        if len(scores) > MAX_PER_IMAGE:  # the top-100 merge
+            kth = len(scores) - MAX_PER_IMAGE
+            keep = scores >= np.partition(scores, kth)[kth]
+            boxes, scores, labels = boxes[keep], scores[keep], labels[keep]
+        predictions[img_id] = {"boxes": boxes, "scores": scores,
+                               "labels": labels}
+    laps.lap("soft_nms")
+    stats = evaluate_coco_detections(ds, predictions, num_classes)
+    laps.lap("evaluate")
+    return stats

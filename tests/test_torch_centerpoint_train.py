@@ -46,9 +46,9 @@ from minddet_tpu.models.readers.pillar_encoder import (
 from minddet_tpu.train.loop import TrainState as JaxTrainState
 from minddet_tpu.train.loop import make_train_step as jax_make_train_step
 from minddet_tpu_torch.core.optim import adamw
-from minddet_tpu_torch.entry import (NUSC_CLOUD_POINTS, centerpoint_loss,
+from minddet_tpu_torch.entry import (NUSC_CLOUD_POINTS,
                                      centerpoint_single_train_entry,
-                                     centerpoint_train_entry)
+                                     centerpoint_train_entry, model_gt_loss)
 from minddet_tpu_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointTwoStage)
 from minddet_tpu_torch.models.heads.second_stage import BEVRefineHead
@@ -257,7 +257,7 @@ def _setup(compute):
     state = TrainState.create(model, adamw(LR, clip_global_norm=CLIP))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state, metrics = make_train_step(centerpoint_loss)(state, tbatch)
+    state, metrics = make_train_step(model_gt_loss)(state, tbatch)
     return dict(new_jstate=new_jstate, jmetrics=jmetrics, state=state,
                 metrics=metrics, old=old, single=single, tbatch=tbatch,
                 miou=miou, variables=variables, batch=batch)
@@ -494,7 +494,7 @@ def single_f64(f64):
     model = model.to(memory_format=torch.channels_last)
     state = TrainState.create(model, adamw(LR, clip_global_norm=CLIP))
     with _one_torch_thread():
-        state, metrics = make_train_step(centerpoint_loss)(
+        state, metrics = make_train_step(model_gt_loss)(
             state, {k: torch.from_numpy(v) for k, v in batch.items()})
     return dict(new_jstate=new_jstate, jmetrics=jmetrics, state=state,
                 metrics=metrics)

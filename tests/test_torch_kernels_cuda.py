@@ -967,3 +967,52 @@ def test_seg_max_past_2_31_values(cuda):
           f"K5b max abs error on the tail {float(err.max()):.3e}")
     assert bool((err <= atol + rtol * ref.float().abs()).all())
     assert ref.float().abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 6])
+def test_warp_images_launches_the_row_gather(cuda, c):
+    """``data/transforms.py:warp_images`` on a CUDA tensor: one K3f launch
+    per warp (the channels padded to the vector width and sliced back),
+    the result within ``GATHER_TOL`` of the same warp on the CPU (the
+    plain gather), points off the image included."""
+    from minddet_tpu_torch.data.transforms import warp_images
+
+    rs = np.random.RandomState(c)
+    images = torch.from_numpy(rs.rand(2, 37, 45, c).astype(np.float32))
+    aff = torch.tensor([[[1.3, 0.2, -4.0], [-0.1, 1.1, 3.5]],
+                        [[-0.8, 0.0, 40.0], [0.0, 0.9, -2.0]]])
+    want = warp_images(images, aff, (29, 33))
+    before = kernels.BILINEAR_GATHER_FWD.launches
+    got = warp_images(images.to(cuda), aff.to(cuda), (29, 33))
+    torch.cuda.synchronize()
+    assert kernels.BILINEAR_GATHER_FWD.launches == before + 1
+    assert got.shape == want.shape and got.is_cuda
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 + 1e-6
+    assert (want == 0).any() and (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_soft_nms_on_the_card_matches_the_cpu(cuda):
+    """``ops/nms.py:soft_nms`` over (80, 128) sets on the card: the same
+    order as on the CPU and the rescored scores within 1e-6 (the decays'
+    exp and products in f32); no kernel of the port launches."""
+    from minddet_tpu_torch.ops.nms import soft_nms
+
+    rs = np.random.RandomState(0)
+    xy = rs.uniform(0, 200, (80, 128, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rs.uniform(5, 60, (80, 128, 2))], -1).astype(np.float32))
+    scores = torch.from_numpy(np.stack([  # apart by 8e-3 at the start
+        rs.permutation(np.linspace(1e-3, 1, 128)) for _ in range(80)]
+    ).astype(np.float32))
+    scores[:, 100:] = 0.0
+    want, want_order = soft_nms(boxes, scores, sigma=0.5,
+                                score_threshold=1e-3)
+    kernels.reset_launches()
+    got, order = soft_nms(boxes.to(cuda), scores.to(cuda), sigma=0.5,
+                          score_threshold=1e-3)
+    torch.cuda.synchronize()
+    assert all(k.launches == 0 for k in kernels.KERNELS)
+    assert torch.equal(order.cpu(), want_order)
+    assert float((got.cpu() - want).abs().max()) <= 1e-6

@@ -39,8 +39,7 @@ from minddet_tpu.train.loop import make_train_step as jax_make_train_step
 from minddet_tpu.train.train import synthetic_points_batches
 from minddet_tpu_torch.core.optim import adamw
 from minddet_tpu_torch.entry import (CLOUD_POINTS, PP_TRAIN_LR,
-                                     pointpillars_loss,
-                                     pointpillars_train_entry,
+                                     model_gt_loss, pointpillars_train_entry,
                                      synthetic_clouds, synthetic_lidar_batch)
 from minddet_tpu_torch.models import losses as tlosses
 from minddet_tpu_torch.models.detectors import pointpillars as tpp
@@ -325,7 +324,7 @@ def _setup(compute):
         amask = model.area_mask(occ)
     state = TrainState.create(model, adamw(PP_TRAIN_LR))
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state, metrics = make_train_step(pointpillars_loss)(state, tbatch)
+    state, metrics = make_train_step(model_gt_loss)(state, tbatch)
     args = (batch["anchors"], batch["gt_boxes"], batch["gt_classes"],
             batch["gt_mask"], batch["matched_threshold"],
             batch["unmatched_threshold"], amask.numpy())

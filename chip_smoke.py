@@ -251,25 +251,33 @@ Phases (any failure raises and exits non-zero):
       (``centernet_coco_train_entry``: batch 16, Adam under
       ``multi_epochs_decay``, clip 35, the NaN guard; the affine route of
       ``coco_batches`` over 64 in-memory COCO-like images, four loader
-      threads): 12 steps, each on the next batch, K3f once and K1f and K1b
-      nine times a step, losses finite; then the same step on one fixed
-      batch, the copy of a raw batch to the card, the transform's device
-      time and the wait for the next batch, apart;
+      threads): 12 steps, each on the next batch, the warp kernel once and
+      K1f and K1b nine times a step, losses finite; then the same step on
+      one fixed batch, the copy of a raw batch to the card, the transform's
+      device time (the warp apart, and beside it the same transform on the
+      replaced K3f route) and the wait for the next batch, apart;
    aj. ``centernet_eval_entry``: ``centernet_evaluate`` on the 64 images
       (bf16 flagship, keep-res buckets of 128 on the 1024 canvas, batch 4,
-      per-class soft-NMS on the card, the top-100 merge): K3f once and K1f
-      nine times per predict batch; ms per image split into load, copy,
-      warp, predict, soft-NMS and the host's evaluator; the 12 numbers;
+      per-class soft-NMS on the card, the top-100 merge): the warp kernel
+      once and K1f nine times per predict batch; ms per image split into
+      load, copy, warp, predict, soft-NMS and the host's evaluator; the 12
+      numbers;
    ak. the mosaic + mixup route of ``coco_batches`` at 640x640, batch 16
-      (no model): K3f four times a batch; ms per batch. 6ai-6ak print their
-      seconds beside the card.
+      (no model): the warp kernel four times a batch; ms per batch; the
+      device half of one batch on the device (the mosaic apart, and beside
+      it the replaced K3f route). 6ai-6ak print their seconds beside the
+      card.
 
-Phase 3 also holds K3f at the COCO path's warps (``check_coco_warp``): the
-train warp (16, 640^2, 3) to 512^2, the eval warp (4, 1024^2, 3) to the
-(512, 768) and (768, 768) buckets, one of the mosaic's four warps (16,
-640^2, 3) to 640^2, and Mask R-CNN's GT bitmaps (8, 160^2, 128) to 128^2,
-each with the pad, launch and slice timed apart and ``F.grid_sample``
-beside it. Phase 4q is the f32 COCO path card against CPU
+Phase 3 also holds the affine warp kernel (``bilinear_warp_affine_fwd``,
+``csrc/bilinear_warp.cu``) at the COCO path's warps (``check_coco_warp``):
+the train warp (16, 640^2, 3) to 512^2, the eval warp (4, 1024^2, 3) to
+the (512, 768) and (768, 768) buckets, one of the mosaic's four warps (16,
+640^2, 3) to 640^2, and Mask R-CNN's GT bitmaps (8, 160^2, 128) to 128^2:
+against its plain version (``GATHER_TOL``), its difference from the route
+it replaced (the corners, the pad, K3f, the slice) printed, expected 0;
+the launch (and, apart, asked to stage its source windows), the whole
+``warp_images`` call and ``F.grid_sample`` timed beside the replaced
+route's parts. Phase 4q is the f32 COCO path card against CPU
 (``check_coco_f32``): ``centernet_evaluate`` on 8 in-memory images in two
 buckets, the warped inputs, the raw top-100 scores, soft-NMS on the CPU's
 inputs, the card's AP@[.5:.95] against the CPU's final detections as GT
@@ -6374,32 +6382,45 @@ COCO_TRAIN_STEPS = 12  # 6ai: TRAIN_WARMUP + TRAIN_STEPS steps of the data
 MOSAIC_BATCHES = 12  # 6ak: 2 warm-up and 10 timed batches
 
 
-def _warp_case(stream, x, ys, xs, card, note=""):
-    """One phase 3 case of K3f on an input warp: the canvases x (B, H, W,
-    C) f32 sampled at (ys, xs) (B, P). Held to the plain version within
-    ``GATHER_TOL`` (f32); timed with a warm L2: the wrapper's call, and
-    apart the zero pad of C to 4 (``pad_channels``), the launch alone on
-    the padded map, the slice back (``unpad_channels``), the corners
-    (``bilinear_corners``), the plain version and ``F.grid_sample`` on the
-    NCHW view (bilinear, zero padding, align_corners; its coordinates
-    normalized outside the timing). The byte bound: the output written,
-    the rows the corners touch read and ci, cw read once each."""
+def _warp_case(stream, x, aff, out_hw, card, note=""):
+    """One phase 3 case of the warp kernel on an input warp: the canvases x
+    (B, H, W, C) f32 under the affines ``aff`` (B, 2, 3) to ``out_hw``.
+    Held to its plain version within ``GATHER_TOL`` (f32); its difference
+    from the route it replaced (``affine_points``, ``bilinear_corners``,
+    K3f) reported, expected 0. Timed with a warm L2: the launch (``ms``),
+    the launch asked to stage the blocks' source windows in shared memory
+    (``staged_ms``), the whole ``warp_images`` call, the plain version and
+    ``F.grid_sample`` on the NCHW view (bilinear, zero padding,
+    align_corners; its grid made outside the timing); and the replaced
+    route's parts: ``bilinear_corners``, the zero pad of C to 4
+    (``pad_channels``), the K3f launch on the padded map, the slice back
+    (``unpad_channels``), and that route's whole call. The byte bound: the
+    output written, the rows the corners touch read and 24 bytes of affine
+    per image; the replaced route's also reads ci and cw (32 bytes a
+    point)."""
     import torch.nn.functional as F
 
+    from minddet_tpu_torch.data.transforms import warp_images
     from minddet_tpu_torch.ops import bilinear as bl
 
     b, h, w, c = x.shape
     flat = x.view(b, h * w, c)
+    ys, xs = bl.affine_points(aff, out_hw)
     ci, cw = bl.bilinear_corners(ys, xs, h, w)
     p = ci.shape[1]
-    got = bl.bilinear_gather(flat, ci, cw)
+    got = bl.bilinear_warp_affine(x, aff, out_hw)
+    old = bl.bilinear_gather(flat, ci, cw).view_as(got)
     torch.cuda.synchronize()
-    ref = bl.bilinear_gather_plain(flat, ci, cw)
-    terms = bl.bilinear_gather_plain(flat.abs(), ci, cw.abs())
+    ref = bl.bilinear_warp_affine_plain(x, aff, out_hw)
+    terms = bl.bilinear_gather_plain(flat.abs(), ci, cw.abs()).view_as(ref)
     err = (got - ref).abs()
     atol, rtol = GATHER_TOL["float32"]
     ok = got.shape == ref.shape and bool((err <= atol + rtol * terms).all())
     max_abs = float(err.max())
+    route_diff = float((got - old).abs().max())
+    route_bits = torch.equal(got.view(torch.int32), old.view(torch.int32))
+    staged = bl._warp_affine_cuda(x, aff, out_hw, stage=True)
+    staged_bits = torch.equal(staged.view(torch.int32), got.view(torch.int32))
     grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
                        -1)[:, None]
     nchw = x.permute(0, 3, 1, 2)
@@ -6408,46 +6429,65 @@ def _warp_case(stream, x, ys, xs, card, note=""):
         return F.grid_sample(nchw, grid, mode="bilinear",
                              padding_mode="zeros", align_corners=True)
 
-    lib_err = float((library()[:, :, 0].permute(0, 2, 1) - ref).abs().max())
+    lib_err = float((library()[:, :, 0].permute(0, 2, 1)
+                     - ref.view(b, p, c)).abs().max())
     touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
                   for i in range(b))
     off_map = float((ci < 0).float().mean())
-    del got, ref, terms, err
+    del got, old, ref, terms, err, staged
     padded = bl.pad_channels(flat)
     out_padded = bl.bilinear_gather(padded, ci, cw)
+    plan = bl.warp_affine_plan(b, h, w, c, *out_hw, x.dtype)
     case = dict(
-        shape=[b, h * w, c], points=p, dtype="float32", stream=stream,
-        max_abs_err=max_abs, tolerance=f"abs <= {atol} + {rtol} * |terms|",
-        off_map_corner_share=off_map, touched_rows=touched,
-        padded_to=padded.shape[-1], library_max_abs_err=lib_err,
-        ms=_cuda_ms(lambda: bl.bilinear_gather(flat, ci, cw), iters=10),
-        pad_ms=_cuda_ms(lambda: bl.pad_channels(flat), iters=10),
-        kernel_ms=_cuda_ms(lambda: bl.bilinear_gather(padded, ci, cw),
-                           iters=10),
-        slice_ms=_cuda_ms(lambda: bl.unpad_channels(out_padded, c),
-                          iters=10),
-        corners_ms=_cuda_ms(lambda: bl.bilinear_corners(ys, xs, h, w),
-                            iters=10),
-        plain_ms=_cuda_ms(lambda: bl.bilinear_gather_plain(flat, ci, cw),
-                          iters=3, warmup=1),
-        library_ms=_cuda_ms(library, iters=10))
+        shape=[b, h, w, c], out_hw=list(out_hw), points=p, dtype="float32",
+        stream=stream, max_abs_err=max_abs,
+        tolerance=f"abs <= {atol} + {rtol} * |terms|",
+        route_max_abs_diff=route_diff, route_same_bits=route_bits,
+        staged_same_bits=staged_bits, off_map_corner_share=off_map,
+        touched_rows=touched, library_max_abs_err=lib_err,
+        plan={k: v for k, v in plan.items() if k != "tile"},
+        ms=_cuda_ms(lambda: bl.bilinear_warp_affine(x, aff, out_hw),
+                    iters=10),
+        staged_ms=_cuda_ms(lambda: bl._warp_affine_cuda(
+            x, aff, out_hw, stage=True), iters=10),
+        warp_ms=_cuda_ms(lambda: warp_images(x, aff, out_hw), iters=10),
+        plain_ms=_cuda_ms(lambda: bl.bilinear_warp_affine_plain(
+            x, aff, out_hw), iters=3, warmup=1),
+        library_ms=_cuda_ms(library, iters=10),
+        k3f_corners_ms=_cuda_ms(lambda: bl.bilinear_corners(ys, xs, h, w),
+                                iters=10),
+        k3f_pad_ms=_cuda_ms(lambda: bl.pad_channels(flat), iters=10),
+        k3f_ms=_cuda_ms(lambda: bl.bilinear_gather(padded, ci, cw),
+                        iters=10),
+        k3f_slice_ms=_cuda_ms(lambda: bl.unpad_channels(out_padded, c),
+                              iters=10),
+        k3f_route_ms=_cuda_ms(lambda: bl.bilinear_sample_2d(
+            x, *bl.affine_points(aff, out_hw)), iters=10))
     case["grid_sample_ms"] = case["library_ms"]
     case["bound_ms"], case["bound_by"] = _bound(
+        b * p * c * 4 + touched * c * 4 + 24 * b, b * p * (28 + 8 * c))
+    case["k3f_bound_ms"], _ = _bound(
         b * p * c * 4 + touched * c * 4 + 2 * b * p * 4 * 4, 8 * b * p * c)
-    del padded, out_padded, ci, cw
-    print(f"  bilinear_gather {stream} x{case['shape']} P={p}{note} "
-          f"max_abs={max_abs:.3e} off-map corners {off_map:.3f}: wrapper="
-          f"{case['ms'] * 1e3:7.1f}us = pad {case['pad_ms'] * 1e3:6.1f} + "
-          f"kernel {case['kernel_ms'] * 1e3:7.1f} + slice "
-          f"{case['slice_ms'] * 1e3:6.1f}us; corners "
-          f"{case['corners_ms'] * 1e3:7.1f}us plain="
-          f"{case['plain_ms'] * 1e3:8.1f}us grid_sample="
-          f"{case['library_ms'] * 1e3:7.1f}us (differs by {lib_err:.2e}) "
-          f"bound={case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']}); "
-          f"{card}", flush=True)
+    del padded, out_padded, ci, cw, ys, xs, grid
+    print(f"  bilinear_warp_affine {stream} x{case['shape']} -> "
+          f"{tuple(out_hw)}{note} max_abs={max_abs:.3e} off-map corners "
+          f"{off_map:.3f}, {plan['route']} route: launch "
+          f"{case['ms'] * 1e3:7.1f}us (staged "
+          f"{case['staged_ms'] * 1e3:7.1f}us, same bits {staged_bits}), "
+          f"warp_images {case['warp_ms'] * 1e3:7.1f}us, bound "
+          f"{case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']}), "
+          f"grid_sample {case['library_ms'] * 1e3:7.1f}us (differs by "
+          f"{lib_err:.2e}), plain {case['plain_ms'] * 1e3:8.1f}us; the K3f "
+          f"route {case['k3f_route_ms'] * 1e3:8.1f}us = corners "
+          f"{case['k3f_corners_ms'] * 1e3:7.1f} + pad "
+          f"{case['k3f_pad_ms'] * 1e3:6.1f} + K3f {case['k3f_ms'] * 1e3:6.1f}"
+          f" + slice {case['k3f_slice_ms'] * 1e3:6.1f}us (bound "
+          f"{case['k3f_bound_ms'] * 1e3:6.1f}us), differs from the kernel "
+          f"by {route_diff:.2e} (same bits {route_bits}); {card}",
+          flush=True)
     if not ok:
-        raise AssertionError(f"bilinear_gather_fwd disagrees with its plain "
-                             f"version on the {stream} warp: {case}")
+        raise AssertionError(f"bilinear_warp_affine_fwd disagrees with its "
+                             f"plain version on the {stream} warp: {case}")
     return case
 
 
@@ -6461,15 +6501,15 @@ def _canvases(dev, hws, side, channels, gen):
 
 
 def check_coco_warp(dev, card):
-    """Phase 3: K3f at the COCO path's warps (``data/transforms.py:
-    warp_images``): the train warp (16, 640^2, 3) to 512^2 under the train
-    transform's random affines, on the in-memory set's image sizes; the
-    eval warp (4, 1024^2, 3) to the (512, 768) and (768, 768) keep-res
-    buckets (centred, never resized); one of the mosaic's four warps (16,
-    640^2, 3) to 640^2; and Mask R-CNN's GT bitmaps (8, 160^2, 128) to
-    128^2 under the image's affine with its translation / 4."""
-    from minddet_tpu_torch.data.transforms import (affine_points,
-                                                   draw_mosaic,
+    """Phase 3: the warp kernel at the COCO path's warps
+    (``data/transforms.py:warp_images``): the train warp (16, 640^2, 3) to
+    512^2 under the train transform's random affines, on the in-memory
+    set's image sizes; the eval warp (4, 1024^2, 3) to the (512, 768) and
+    (768, 768) keep-res buckets (centred, never resized); one of the
+    mosaic's four warps (16, 640^2, 3) to 640^2; and Mask R-CNN's GT
+    bitmaps (8, 160^2, 128) to 128^2 under the image's affine with its
+    translation / 4."""
+    from minddet_tpu_torch.data.transforms import (draw_mosaic,
                                                    draw_train_affine,
                                                    train_affine_from_draws)
     from minddet_tpu_torch.train.synthetic import synthetic_coco_records
@@ -6482,8 +6522,8 @@ def check_coco_warp(dev, card):
         hw.to(dev), (COCO_TRAIN_OUT,) * 2,
         draw_train_affine(gen, COCO_TRAIN_BATCH))
     x = _canvases(dev, hw.tolist(), COCO_CANVAS, 3, gen)
-    cases.append(_warp_case("coco_train", x, *affine_points(
-        aff, (COCO_TRAIN_OUT,) * 2), card))
+    cases.append(_warp_case("coco_train", x, aff, (COCO_TRAIN_OUT,) * 2,
+                            card))
     # one mosaic quadrant's warp: the top left one, the whole source image
     # fit into [0, cx) x [0, cy)
     m = draw_mosaic(gen, COCO_TRAIN_BATCH)
@@ -6491,8 +6531,9 @@ def check_coco_warp(dev, card):
     maff = torch.zeros(COCO_TRAIN_BATCH, 2, 3)
     maff[:, 0, 0] = hw[:, 1].float() / qw
     maff[:, 1, 1] = hw[:, 0].float() / qh
-    cases.append(_warp_case("coco_mosaic", x, *affine_points(
-        maff.to(dev), (MOSAIC_OUT,) * 2), card, " (one of four a batch)"))
+    cases.append(_warp_case("coco_mosaic", x, maff.to(dev),
+                            (MOSAIC_OUT,) * 2, card,
+                            " (one of four a batch)"))
     del x
     for bucket, (h, w) in COCO_EVAL_BUCKETS:
         ih, iw = bucket
@@ -6501,17 +6542,16 @@ def check_coco_warp(dev, card):
             COCO_EVAL_BATCH, 2, 3).contiguous()
         x = _canvases(dev, [(h, w)] * COCO_EVAL_BATCH, COCO_EVAL_CANVAS, 3,
                       gen)
-        cases.append(_warp_case(f"coco_eval_{ih}x{iw}", x,
-                                *affine_points(eaff.to(dev), bucket), card,
-                                f" ({h} x {w} images)"))
+        cases.append(_warp_case(f"coco_eval_{ih}x{iw}", x, eaff.to(dev),
+                                bucket, card, f" ({h} x {w} images)"))
         del x
     side = COCO_CANVAS // BITMAP_STRIDE
     bits = (torch.rand(MASK_TRAIN_BATCH, side, side, BITMAP_SLOTS,
                        generator=gen) < 0.05).float().to(dev)
     baff = aff[:MASK_TRAIN_BATCH].clone()
     baff[:, :, 2] /= BITMAP_STRIDE
-    cases.append(_warp_case("gt_bitmaps", bits, *affine_points(
-        baff, (COCO_TRAIN_OUT // BITMAP_STRIDE,) * 2), card))
+    cases.append(_warp_case("gt_bitmaps", bits, baff,
+                            (COCO_TRAIN_OUT // BITMAP_STRIDE,) * 2, card))
     del bits
     torch.cuda.empty_cache()
     return cases
@@ -6675,14 +6715,14 @@ def _check_coco_f32(dev, gen):
     kernels.reset_launches()
     got = coco_device_batch(raw, draws, (COCO_TRAIN_OUT,) * 2, device=dev)
     torch.cuda.synchronize()
-    transform_launches = kernels.BILINEAR_GATHER_FWD.launches
+    transform_launches = kernels.BILINEAR_WARP_AFFINE_FWD.launches
     want = coco_device_batch(raw, draws, (COCO_TRAIN_OUT,) * 2,
                              device="cpu")
     result["train_image_max_abs_err"] = float(
         (got["image"].cpu() - want["image"]).abs().max())
     result["train_boxes_max_abs_err"] = float(
         (got["gt_boxes"].cpu() - want["gt_boxes"]).abs().max())
-    result["train_transform_k3f_launches"] = transform_launches
+    result["train_transform_warp_launches"] = transform_launches
     print(f"  {result['images']} images in buckets {result['buckets']}: warp "
           f"max abs {warp_err:.3e}; raw top-100 scores max abs "
           f"{score_err:.3e}, classes agree {result['class_agreement']:.3f}; "
@@ -6691,8 +6731,8 @@ def _check_coco_f32(dev, gen):
           f"final detections as GT: CPU {cpu_ap:.6f}, card {card_ap:.6f} "
           f"(AP50 {result['card_stats']['AP50']:.6f}); train transform "
           f"image max abs {result['train_image_max_abs_err']:.3e}, boxes "
-          f"{result['train_boxes_max_abs_err']:.3e} px, K3f launches "
-          f"{transform_launches}", flush=True)
+          f"{result['train_boxes_max_abs_err']:.3e} px, warp kernel "
+          f"launches {transform_launches}", flush=True)
     bad = []
     if not warp_ok:
         bad.append(f"warped inputs over GATHER_TOL (max abs {warp_err})")
@@ -6710,8 +6750,8 @@ def _check_coco_f32(dev, gen):
     if result["train_boxes_max_abs_err"] > COCO_BOX_TOL:
         bad.append(f"train boxes {result['train_boxes_max_abs_err']}")
     if transform_launches != 1:
-        bad.append(f"the train transform launched K3f {transform_launches} "
-                   f"times (want 1)")
+        bad.append(f"the train transform launched the warp kernel "
+                   f"{transform_launches} times (want 1)")
     if bad:
         raise AssertionError("phase 4q: " + "; ".join(bad))
     return result
@@ -6722,18 +6762,22 @@ def coco_train_main_path(dev, card):
     (``centernet_coco_train_entry``: batch 16, Adam under
     ``multi_epochs_decay``, clip 35, the NaN guard), COCO_TRAIN_STEPS
     steps, each on the next batch of the affine route, launch counts from
-    0: K3f once, K1f and K1b nine times a step, nothing else; every loss
-    finite. Then apart: the same step on one fixed batch (what the data
-    path adds), the host-to-device copy of a raw batch (its f32 canvas
-    78.6 MB), the transform's device time, and the host's wait for the
+    0: the warp kernel once, K1f and K1b nine times a step, nothing else;
+    every loss finite. Then apart: the same step on one fixed batch (what
+    the data path adds), the host-to-device copy of a raw batch (its f32
+    canvas 78.6 MB), the transform's device time split into the warp
+    (``warp_images``) and the rest, beside the same transform with a
+    gradient asked of the images (which takes the replaced route: the
+    corners, the pad, K3f and the slice), and the host's wait for the
     loader's next raw batch. ms on the host clock around synced work."""
     import numpy as np
 
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.data.coco import CocoDetection
     from minddet_tpu_torch.data.loader import stack_collate
-    from minddet_tpu_torch.data.transforms import \
-        centernet_train_transform_from_draws
+    from minddet_tpu_torch.data.transforms import (
+        centernet_train_transform_from_draws, train_affine_from_draws,
+        warp_images)
     from minddet_tpu_torch.entry import centernet_coco_train_entry
     from minddet_tpu_torch.train.synthetic import (draw_coco_batch,
                                                    synthetic_coco_records)
@@ -6756,7 +6800,7 @@ def coco_train_main_path(dev, card):
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated(dev)
     want = _sampler_launches(COCO_TRAIN_STEPS)
-    want["bilinear_gather_fwd"] = COCO_TRAIN_STEPS
+    want["bilinear_warp_affine_fwd"] = COCO_TRAIN_STEPS
     fixed = []
     for i in range(TRAIN_WARMUP + TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -6781,9 +6825,20 @@ def coco_train_main_path(dev, card):
         copies.append(time.perf_counter() - t0)
     draws = draw_coco_batch(torch.Generator().manual_seed(1),
                             COCO_TRAIN_BATCH)
+    out_hw = (COCO_TRAIN_OUT,) * 2
     transform_ms = _cuda_ms(lambda: centernet_train_transform_from_draws(
-        dev_raw["image"], dev_raw["hw"], dev_raw["boxes"], draws,
-        (COCO_TRAIN_OUT,) * 2), iters=5)
+        dev_raw["image"], dev_raw["hw"], dev_raw["boxes"], draws, out_hw),
+        iters=5)
+    images = dev_raw["image"].float() / 255.0
+    affines, _ = train_affine_from_draws(dev_raw["hw"], out_hw,
+                                         draws["affine"])
+    warp_ms = _cuda_ms(lambda: warp_images(images, affines, out_hw),
+                       iters=5)
+    graded = dev_raw["image"].clone().requires_grad_()
+    k3f_transform_ms = _cuda_ms(
+        lambda: centernet_train_transform_from_draws(
+            graded, dev_raw["hw"], dev_raw["boxes"], draws, out_hw), iters=5)
+    del images, graded
     waits = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -6801,6 +6856,8 @@ def coco_train_main_path(dev, card):
                h2d_bytes=int(sum(np.asarray(raw[k]).nbytes for k in
                                  ("image", "hw", "boxes", "labels", "mask"))),
                transform_device_ms=transform_ms,
+               transform_warp_ms=warp_ms,
+               transform_k3f_route_ms=k3f_transform_ms,
                host_batch_ms_one_thread=host_s * 1e3,
                next_batch_ms=statistics.median(waits) * 1e3,
                max_memory_allocated=peak,
@@ -6812,7 +6869,9 @@ def coco_train_main_path(dev, card):
           f"{out['fixed_batch_ms_per_step']:.3f} ms/step, so the data path "
           f"adds {out['data_path_ms_per_step']:.3f} ms; copy of a raw batch "
           f"({out['h2d_bytes'] / 1e6:.1f} MB) {out['h2d_copy_ms']:.3f} ms, "
-          f"transform on the device {transform_ms:.3f} ms, a raw batch on "
+          f"transform on the device {transform_ms:.3f} ms (the warp "
+          f"{warp_ms:.3f}, the rest {transform_ms - warp_ms:.3f}; with the "
+          f"replaced K3f route {k3f_transform_ms:.3f} ms), a raw batch on "
           f"one host thread {out['host_batch_ms_one_thread']:.1f} ms, the "
           f"next batch {out['next_batch_ms']:.3f} ms; peak "
           f"{peak / 2 ** 30:.2f} GiB allocated; {card}", flush=True)
@@ -6824,8 +6883,8 @@ def coco_train_main_path(dev, card):
     if launches != want:
         raise AssertionError(f"{launches} in {COCO_TRAIN_STEPS} COCO-fed "
                              f"steps (want {want})")
-    print(f"  kernels: {launches} for {COCO_TRAIN_STEPS} steps: one K3f "
-          f"and nine each of K1f and K1b a step: True", flush=True)
+    print(f"  kernels: {launches} for {COCO_TRAIN_STEPS} steps: one warp "
+          f"kernel and nine each of K1f and K1b a step: True", flush=True)
     return out
 
 
@@ -6833,8 +6892,8 @@ def coco_eval_main_path(dev, card):
     """Phase 6aj: ``centernet_eval_entry`` (the bf16 flagship, 64
     in-memory images, keep-res buckets of 128 on the 1024 canvas, batch 4,
     soft-NMS, the top-100 merge), after one warm-up predict and warp at
-    each bucket's shape, launch counts from 0: K3f once and K1f nine times
-    per predict batch, nothing else. Reports ms per image split into its
+    each bucket's shape, launch counts from 0: the warp kernel once and K1f
+    nine times per predict batch, nothing else. Reports ms per image split into its
     parts (``centernet_evaluate``'s ``timings``) and the 12 numbers."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.data.transforms import warp_images
@@ -6864,7 +6923,7 @@ def coco_eval_main_path(dev, card):
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     want = _sampler_launches(batches, train=False)
-    want["bilinear_gather_fwd"] = batches
+    want["bilinear_warp_affine_fwd"] = batches
     n = len(ds)
     out = dict(images=n, buckets={f"{h}x{w}": c for (h, w), c in
                                   sorted(groups.items())},
@@ -6891,20 +6950,32 @@ def coco_eval_main_path(dev, card):
     if COCO_IMAGES != n or launches != want:
         raise AssertionError(f"{launches} for {batches} predict batches of "
                              f"{n} images (want {want})")
-    print(f"  kernels: {launches} per {batches} batches: one K3f and nine "
-          f"K1f a batch: True", flush=True)
+    print(f"  kernels: {launches} per {batches} batches: one warp kernel "
+          f"and nine K1f a batch: True", flush=True)
     return out
 
 
 def coco_mosaic_main_path(dev, card):
     """Phase 6ak: the mosaic route of ``coco_batches`` (no model) at 640 x
     640, batch 16, over the in-memory set through four loader threads:
-    MOSAIC_BATCHES batches, launch counts from 0: K3f four times a batch,
-    nothing else; every image finite, boxes and masks 8 x 128 slots. ms
-    per batch on the host clock (the last 10, synced)."""
+    MOSAIC_BATCHES batches, launch counts from 0: the warp kernel four
+    times a batch, nothing else; every image finite, boxes and masks 8 x
+    128 slots. ms per batch on the host clock (the last 10, synced). Then
+    the device half of one batch (mosaic, mixup, normalize on a raw batch
+    already on the card) timed on the device, the mosaic apart, beside the
+    same with a gradient asked of the images (the replaced route: four
+    sets of corners, pads, K3f launches and slices)."""
+    import numpy as np
+
     from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.coco import CocoDetection
+    from minddet_tpu_torch.data.loader import stack_collate
+    from minddet_tpu_torch.data.transforms import (mixup_from_draws,
+                                                   mosaic_from_draws,
+                                                   normalize)
     from minddet_tpu_torch.entry import COCO_IMAGES, COCO_MAX_OBJS
     from minddet_tpu_torch.train.synthetic import (coco_batches,
+                                                   draw_coco_batch,
                                                    synthetic_coco_records)
 
     torch.cuda.empty_cache()
@@ -6923,20 +6994,49 @@ def coco_mosaic_main_path(dev, card):
         if i >= TRAIN_WARMUP:
             times.append(time.perf_counter() - t0)
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    want = {k.name: 4 * MOSAIC_BATCHES * (k is kernels.BILINEAR_GATHER_FWD)
+    want = {k.name: 4 * MOSAIC_BATCHES
+            * (k is kernels.BILINEAR_WARP_AFFINE_FWD)
             for k in kernels.KERNELS}
     slots = 8 * COCO_MAX_OBJS
     shapes = (tuple(batch["image"].shape), tuple(batch["gt_boxes"].shape))
+    # the device half of one batch, on a raw batch already on the card
+    ds = CocoDetection(cfg["data"]["records"][:COCO_TRAIN_BATCH])
+    raw = stack_collate([ds[i] for i in range(COCO_TRAIN_BATCH)])
+    raw = {k: torch.from_numpy(np.asarray(raw[k])).to(dev)
+           for k in ("image", "hw", "boxes", "mask")}
+    draws = draw_coco_batch(torch.Generator().manual_seed(1),
+                            COCO_TRAIN_BATCH, "mosaic")
+    out_hw = (MOSAIC_OUT,) * 2
+
+    def mosaic(images):
+        return mosaic_from_draws(images / 255.0, raw["hw"], raw["boxes"],
+                                 raw["mask"], draws["mosaic"], out_hw)
+
+    def device_half(images):
+        m = mosaic(images)
+        mx = mixup_from_draws(m["image"], m["boxes"], m["mask"],
+                              draws["mixup"])
+        return normalize(mx["image"])
+
+    graded = raw["image"].clone().requires_grad_()
+    device_ms = _cuda_ms(lambda: device_half(raw["image"]), iters=5)
+    mosaic_ms = _cuda_ms(lambda: mosaic(raw["image"]), iters=5)
+    k3f_device_ms = _cuda_ms(lambda: device_half(graded), iters=5)
+    del raw, graded
     mean_s = statistics.mean(times)
     out = dict(batch=COCO_TRAIN_BATCH, batches=MOSAIC_BATCHES,
                ms_per_batch=mean_s * 1e3,
                ms_p50=statistics.median(times) * 1e3,
                img_per_s=COCO_TRAIN_BATCH / mean_s, launches=launches,
+               device_ms_per_batch=device_ms, mosaic_device_ms=mosaic_ms,
+               k3f_route_device_ms_per_batch=k3f_device_ms,
                valid_boxes=int(batch["gt_mask"].sum()), card=card)
     print(f"  mosaic + mixup route, batch {COCO_TRAIN_BATCH} at "
           f"{MOSAIC_OUT}^2: {out['ms_per_batch']:.3f} ms/batch (p50 "
           f"{out['ms_p50']:.3f}), {out['img_per_s']:.1f} img/s, "
-          f"{out['valid_boxes']} valid boxes in the last batch; {card}",
+          f"{out['valid_boxes']} valid boxes in the last batch; its device "
+          f"half {device_ms:.3f} ms (the mosaic {mosaic_ms:.3f}; with the "
+          f"replaced K3f route {k3f_device_ms:.3f} ms); {card}",
           flush=True)
     if not finite or shapes != ((COCO_TRAIN_BATCH, MOSAIC_OUT, MOSAIC_OUT,
                                  3), (COCO_TRAIN_BATCH, slots, 4)):
@@ -6944,9 +7044,10 @@ def coco_mosaic_main_path(dev, card):
                              f"{shapes}")
     if launches != want:
         raise AssertionError(f"{launches} in {MOSAIC_BATCHES} mosaic batches "
-                             f"(want four K3f a batch, nothing else)")
-    print(f"  kernels: {launches} for {MOSAIC_BATCHES} batches: four K3f a "
-          f"batch: True", flush=True)
+                             f"(want four warp kernels a batch, nothing "
+                             f"else)")
+    print(f"  kernels: {launches} for {MOSAIC_BATCHES} batches: four warp "
+          f"kernels a batch: True", flush=True)
     return out
 
 
@@ -7055,36 +7156,29 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
     bounds summed over ``main_cases``, the kernel's calls in one pass of
     each main path that launches it (one request at the largest batch, one
     train step), and ``main_shapes`` with the same numbers case by case;
-    ``library`` where the cases timed one PyTorch call beside the kernel.
-    ``ms`` is the launch's time: where a case timed its wrapper's pad and
-    slice apart (the input warps), its ``kernel_ms``, and the row's
-    ``wrapper_ms`` sums the wrapper's whole calls, those copies
-    included."""
+    ``library`` where the cases timed one PyTorch call beside the kernel."""
     from minddet_tpu_torch import kernels
 
     if not main_cases:
         raise AssertionError(f"{kernel.name}: no phase 3 case at a main "
                              f"path's shape")
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
-    launch_ms = calls_per_shape * sum(c.get("kernel_ms", c["ms"])
-                                      for c in main_cases)
-    wrapped = any("kernel_ms" in c for c in main_cases)
-    keys = ("kind", "shape", "against", "points", "samples", "dtype",
-            "spread", "tile_rows", "stream", "stride",
-            "max_abs_err", "ms", "pad_ms", "kernel_ms", "slice_ms",
-            "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "grid_sample_ms", "fallback_share", "repeat")
+    keys = ("kind", "shape", "out_hw", "against", "points", "samples",
+            "dtype", "spread", "tile_rows", "stream", "stride",
+            "max_abs_err", "ms", "staged_ms", "warp_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "grid_sample_ms",
+            "k3f_route_ms", "route_max_abs_diff", "fallback_share",
+            "repeat")
     return dict(
         main_shapes=[{k: c[k] for k in keys if k in c} for c in main_cases],
         name=kernel.name, route="cuda",
         source=str(kernel.source.relative_to(kernels.CSRC.parent.parent)),
         replaces=kernel.replaces.split()[0], launches=launches,
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=launch_ms, plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
+        ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
         bound_by="bytes" if all(c["bound_by"] == "bytes"
                                 for c in main_cases) else "operations",
-        library_ms=tot("library_ms") if library else None,
-        **({"wrapper_ms": tot("ms")} if wrapped else {}))
+        library_ms=tot("library_ms") if library else None)
 
 
 def main(argv=None) -> int:
@@ -7158,7 +7252,6 @@ def main(argv=None) -> int:
     gather_cases.extend(check_rcnn_mask_crop(dev))
     torch.cuda.empty_cache()
     warp_cases = check_coco_warp(dev, card)
-    gather_cases.extend(warp_cases)
 
     referee_ratios = None
     if args.seeds:
@@ -7555,18 +7648,13 @@ def main(argv=None) -> int:
                     cp_train_launches["seg_full_max_bwd"]
                     + cp1_training["launches"]["seg_full_max_bwd"],
                     2 * train_case(seg_bwd_cases), 1, seg_bwd_cases),
-        # K3f's COCO calls: one COCO-fed train step's warp, one eval
-        # batch's at the (512, 768) bucket, one mosaic batch's four warps
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
                     + rcnn["launches"]["bilinear_gather_fwd"]
                     + mask_rcnn["launches"]["bilinear_gather_fwd"]
                     + rcnn_training["launches"]["bilinear_gather_fwd"]
-                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"]
-                    + coco_training["launches"]["bilinear_gather_fwd"]
-                    + coco_eval["launches"]["bilinear_gather_fwd"]
-                    + coco_mosaic["launches"]["bilinear_gather_fwd"],
+                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"],
                     [c for c in gather_cases if c["dtype"] == "float32"
                      and c["shape"][0] == CP_BATCHES[-1]
                      and "stream" not in c]
@@ -7575,11 +7663,7 @@ def main(argv=None) -> int:
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_mask")
-                    + rcnn_train_case(gather_cases, "gt_crop")
-                    + [c for c in warp_cases if c["stream"] in (
-                        "coco_train", "coco_eval_512x768")]
-                    + 4 * [c for c in warp_cases
-                           if c["stream"] == "coco_mosaic"], 1,
+                    + rcnn_train_case(gather_cases, "gt_crop"), 1,
                     gather_cases, library=True),
         _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
                     cp_train_launches["bilinear_gather_bwd_dx"]
@@ -7607,6 +7691,17 @@ def main(argv=None) -> int:
         _kernel_row(kernels.HAT_SAMPLE_FLAT_BWD,
                     train_dcn4_launches["hat_sample_flat_bwd"],
                     flat_bwd_main, FLAT_LAYERS, flat_bwd_cases),
+        # the warp kernel's COCO calls: one COCO-fed train step's warp, one
+        # eval batch's at the (512, 768) bucket, one mosaic batch's four
+        _kernel_row(kernels.BILINEAR_WARP_AFFINE_FWD,
+                    coco_training["launches"]["bilinear_warp_affine_fwd"]
+                    + coco_eval["launches"]["bilinear_warp_affine_fwd"]
+                    + coco_mosaic["launches"]["bilinear_warp_affine_fwd"],
+                    [c for c in warp_cases if c["stream"] in (
+                        "coco_train", "coco_eval_512x768")]
+                    + 4 * [c for c in warp_cases
+                           if c["stream"] == "coco_mosaic"], 1,
+                    warp_cases, library=True),
     ]
     wall_s = time.perf_counter() - t_start
     print(f"  chip_smoke wall time {wall_s:.1f} s", flush=True)

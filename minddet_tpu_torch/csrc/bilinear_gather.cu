@@ -2,7 +2,9 @@
 //
 // Replaces minddet_tpu/ops/bilinear.py:49 _fwd_kernel (reached through
 // _fwd_pallas <- bilinear_gather <- bilinear_sample_2d <-
-// heads/second_stage.py:BEVFeatureExtractor and ops/roi_align.py:roi_align).
+// heads/second_stage.py:BEVFeatureExtractor, ops/roi_align.py:roi_align and
+// data/transforms.py:warp_images where a gradient is asked of the warp; the
+// input warps, which ask none, take csrc/bilinear_warp.cu).
 //
 //   out[b, p, :] = sum over the 4 corners c of cw[b, p, c] * x[b, ci[b, p, c], :]
 //

@@ -5,9 +5,10 @@
 ``centernet_train_transform``, ``mosaic`` and ``mixup``).
 
 The host only decodes; every geometric and photometric transform runs on
-the images' device, a batch at a time. The affine warp samples through
-``ops/bilinear.py:bilinear_sample_2d``, so on a CUDA tensor it launches the
-row-gather kernel (K3f) once per warp, with the 3 channels padded to 4.
+the images' device, a batch at a time. The affine warp is
+``ops/bilinear.py:bilinear_warp_affine``, so on a CUDA tensor it launches
+the warp kernel once per warp, which maps the pixels and reads the 3
+channels as they are.
 
 Each random transform comes in two parts: ``draw_*`` draws everything it
 needs from an explicit ``torch.Generator`` on the CPU (a few values per
@@ -30,7 +31,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from minddet_tpu_torch.ops.bilinear import bilinear_sample_2d
+# affine_points lives beside the warp kernel's plain version and is
+# re-exported here, where the reference has it
+from minddet_tpu_torch.ops.bilinear import (affine_points,  # noqa: F401
+                                            bilinear_sample_2d,
+                                            bilinear_warp_affine)
 
 Draws = Dict[str, torch.Tensor]
 
@@ -133,33 +138,29 @@ def eval_affine(img_hw: torch.Tensor, out_hw: Tuple[int, int]
 # Warping and boxes
 # ---------------------------------------------------------------------------
 
-def affine_points(affines: torch.Tensor, out_hw: Tuple[int, int]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every output pixel (x, y) of an (oh, ow) grid, row by row, mapped
-    through each (B, 2, 3) affine: the input coordinates (ys, xs), (B, oh *
-    ow) f32 each, on the affines' device."""
-    oh, ow = out_hw
-    gy, gx = torch.meshgrid(
-        torch.arange(oh, dtype=torch.float32, device=affines.device),
-        torch.arange(ow, dtype=torch.float32, device=affines.device),
-        indexing="ij")
-    gx, gy = gx.reshape(1, -1), gy.reshape(1, -1)  # the (P, 2) grid
-    a = affines.float()
-    xs = a[:, 0, 0, None] * gx + a[:, 0, 1, None] * gy + a[:, 0, 2, None]
-    ys = a[:, 1, 0, None] * gx + a[:, 1, 1, None] * gy + a[:, 1, 2, None]
-    return ys, xs
-
-
 def warp_images(images: torch.Tensor, affines: torch.Tensor,
                 out_hw: Tuple[int, int]) -> torch.Tensor:
     """Inverse-affine bilinear warp of (B, H, W, C) float images ->
     (B, oh, ow, C): every output pixel's (x, y) mapped through its image's
-    affine (``affine_points``) and sampled with ``bilinear_sample_2d``
-    (corners off the image add zero). On a CUDA tensor that is one launch
-    of the row-gather kernel (K3f)."""
-    ys, xs = affine_points(affines.to(images.device), out_hw)
-    out = bilinear_sample_2d(images.contiguous(), ys, xs)
-    return out.reshape(images.shape[0], *out_hw, images.shape[-1])
+    affine (``affine_points``) and sampled bilinearly (corners off the
+    image add zero).
+
+    The route is chosen by what is asked, never by a failure: with no
+    gradient asked of the images or the affines (every caller of the
+    package) it is ``bilinear_warp_affine``, on a CUDA tensor one launch of
+    the warp kernel; where one is asked, ``bilinear_sample_2d`` at
+    ``affine_points``, which carries the reference's gradient to the
+    images and, through the weights, to the affines (on a CUDA tensor the
+    row gather K3f, and K3dx / K3dcw in the backward). On the CPU both
+    routes run the same plain gather."""
+    images = images.contiguous()
+    affines = affines.to(images.device, torch.float32).contiguous()
+    if torch.is_grad_enabled() and (images.requires_grad
+                                    or affines.requires_grad):
+        ys, xs = affine_points(affines, out_hw)
+        out = bilinear_sample_2d(images, ys, xs)
+        return out.reshape(images.shape[0], *out_hw, images.shape[-1])
+    return bilinear_warp_affine(images, affines, out_hw)
 
 
 def transform_boxes(boxes: torch.Tensor, affines: torch.Tensor,
@@ -282,9 +283,9 @@ def mosaic_from_draws(images: torch.Tensor, img_hw: torch.Tensor,
                       ) -> Dict[str, torch.Tensor]:
     """4-image mosaic: sample i is images i, i+1, i+2, i+3 (mod B) in the
     four quadrants around the drawn centre, each whole image fit into its
-    quadrant by one warp (four launches of K3f on the card); boxes (B, O,
-    4) follow, clipped, and those under 2 px a side are masked out: boxes
-    and mask (B, 4 O)."""
+    quadrant by one warp (four launches of the warp kernel on the card);
+    boxes (B, O, 4) follow, clipped, and those under 2 px a side are
+    masked out: boxes and mask (B, 4 O)."""
     oh, ow = out_hw
     cx = _like(draws["cx"], images) * ow
     cy = _like(draws["cy"], images) * oh

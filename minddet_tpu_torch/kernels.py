@@ -187,6 +187,14 @@ BILINEAR_GATHER_FWD = CudaKernel(
     replaces="minddet_tpu/ops/bilinear.py:49 _fwd_kernel",
 )
 
+BILINEAR_WARP_AFFINE_FWD = CudaKernel(
+    "bilinear_warp_affine_fwd", "bilinear_warp.cu",
+    # x, affines, out, B, H, W, C, OH, OW, window_bytes, dtype, stream
+    [_P, _P, _P] + [_I] * 8 + [_P],
+    replaces="minddet_tpu/ops/bilinear.py:49 _fwd_kernel (through "
+             "minddet_tpu/data/transforms.py:130 warp_images)",
+)
+
 SEG_FULL_MAX_BWD = CudaKernel(
     "seg_full_max_bwd", "seg_full_max_bwd.cu",
     # x, m, g, first, last, dx, B, N, C, bound, dtype, wide, stream
@@ -231,4 +239,4 @@ KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD,
                              ROTATED_IOU, SEG_FULL_MAX, SEG_FULL_MAX_BWD,
                              BILINEAR_GATHER_FWD, BILINEAR_GATHER_BWD_DX,
                              BILINEAR_GATHER_BWD_DCW, HAT_SAMPLE_FLAT_FWD,
-                             HAT_SAMPLE_FLAT_BWD]
+                             HAT_SAMPLE_FLAT_BWD, BILINEAR_WARP_AFFINE_FWD]

@@ -31,15 +31,27 @@ wrappers zero-pad the channel axis to a whole number of vectors
 (``pad_channels``) before the launch and slice the padding off the
 result. Zero channels add nothing to a row, a dot or a gradient, so the
 result is the unpadded one.
+
+``bilinear_warp_affine`` is the inverse-affine warp of a (B, H, W, C) map
+to (B, OH, OW, C), every output pixel (x, y) sampled at A_b (x, y, 1):
+``bilinear_sample_2d`` at ``affine_points``, with no gradient. On a CUDA
+tensor it launches ``csrc/bilinear_warp.cu``, which maps each pixel and
+finds its corners in registers and reads the unpadded channels (no corners
+tensor, no pad, no slice); on a CPU tensor it runs
+``bilinear_warp_affine_plain``, the route through the corners and the
+plain gather.
 """
 
 from __future__ import annotations
 
 import torch
 
+from typing import Tuple
+
 from minddet_tpu_torch.kernels import (BILINEAR_GATHER_BWD_DCW,
                                        BILINEAR_GATHER_BWD_DX,
-                                       BILINEAR_GATHER_FWD, cuda_stream,
+                                       BILINEAR_GATHER_FWD,
+                                       BILINEAR_WARP_AFFINE_FWD, cuda_stream,
                                        device_kind)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -397,3 +409,143 @@ def bilinear_sample_2d(x: torch.Tensor, ys: torch.Tensor,
                          "of a channels_last NCHW map is)")
     ci, cw = bilinear_corners(ys, xs, h, w)
     return bilinear_gather(x.view(b, h * w, ch), ci, cw)
+
+
+def affine_points(affines: torch.Tensor, out_hw: Tuple[int, int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every output pixel (x, y) of an (oh, ow) grid, row by row, mapped
+    through each (B, 2, 3) affine: the input coordinates (ys, xs), (B, oh *
+    ow) f32 each, on the affines' device."""
+    oh, ow = out_hw
+    gy, gx = torch.meshgrid(
+        torch.arange(oh, dtype=torch.float32, device=affines.device),
+        torch.arange(ow, dtype=torch.float32, device=affines.device),
+        indexing="ij")
+    gx, gy = gx.reshape(1, -1), gy.reshape(1, -1)  # the (P, 2) grid
+    a = affines.float()
+    xs = a[:, 0, 0, None] * gx + a[:, 0, 1, None] * gy + a[:, 0, 2, None]
+    ys = a[:, 1, 0, None] * gx + a[:, 1, 1, None] * gy + a[:, 1, 2, None]
+    return ys, xs
+
+
+def bilinear_warp_affine_plain(x: torch.Tensor, affines: torch.Tensor,
+                               out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain PyTorch version of the warp kernel, on any device: x (B, H, W,
+    C) sampled at ``affine_points`` through ``bilinear_corners`` and
+    ``bilinear_gather_plain`` -> (B, oh, ow, C) in x's type."""
+    b, h, w, c = x.shape
+    ys, xs = affine_points(affines, out_hw)
+    ci, cw = bilinear_corners(ys, xs, h, w)
+    out = bilinear_gather_plain(x.reshape(b, h * w, c), ci, cw)
+    return out.reshape(b, *out_hw, c)
+
+
+# The warp kernel's launch: the pixel route's block owns a WARP_TILE (rows,
+# columns) tile of one image's output, one pixel a thread; asked to stage,
+# a block copies its source window into up to WARP_WINDOW_BYTES of shared
+# memory where it fits (eight blocks fit an SM's 228 KB), which measured
+# slower than reading through L1 on an H100, so the wrapper does not ask
+WARP_TILE = (8, 32)
+WARP_THREADS = 256
+WARP_WINDOW_BYTES = 24 * 1024
+GRID_YZ = 65535  # the most blocks along a grid's y or z
+COORD_MAX = 2 ** 24  # float coordinates are exact integers below this
+
+
+def warp_affine_plan(b: int, h: int, w: int, c: int, oh: int, ow: int,
+                     dtype, stage: bool = False) -> dict:
+    """The warp kernel's launch for (b, h, w, c) maps warped to (oh, ow):
+
+    - ``route`` "pixel" for C <= 4 (f32) or 8 (bf16): ``grid`` (ow / 32,
+      oh / 8, b) blocks of ``threads``, each owning a ``tile`` of (8, 32)
+      output pixels; with ``stage`` (asked for, and a map row a whole
+      number of 16-byte chunks) a block may copy its source window into
+      ``window_bytes`` of shared memory (it does where the window fits,
+      and reads from global memory where it does not); ``smem_bytes`` per
+      block;
+    - ``route`` "vector" for wider C: one thread a 16-byte vector of a
+      pixel (``vectors`` a pixel, ``aligned`` where C is a whole number of
+      them), ``grid`` (oh * ow * vectors / 256, b, 1); never staged.
+
+    Raises on what the kernel does not take: another type, an empty map or
+    output, a side of 2**24 or more, more than 65535 images or tile rows,
+    an image of 2**31 vectors."""
+    if dtype not in _VEC:
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    if min(b, h, w, c, oh, ow) < 1:
+        raise ValueError(f"empty warp: ({b}, {h}, {w}, {c}) -> ({oh}, {ow})")
+    if max(h, w, oh, ow) >= COORD_MAX:
+        raise ValueError(f"a side of ({h}, {w}) -> ({oh}, {ow}) reaches "
+                         f"2**24, past exact float coordinates")
+    if b > GRID_YZ:
+        raise ValueError(f"B = {b} images pass the grid's {GRID_YZ}")
+    elt = torch.empty((), dtype=dtype).element_size()
+    _int_args(row_bytes=w * c * elt)
+    vec = _VEC[dtype]
+    if c <= vec:
+        th, tw = WARP_TILE
+        grid = (-(-ow // tw), -(-oh // th), b)
+        if grid[1] > GRID_YZ:
+            raise ValueError(f"OH = {oh}: {grid[1]} tile rows pass the grid")
+        window = WARP_WINDOW_BYTES if stage and (w * c * elt) % 16 == 0 else 0
+        return dict(route="pixel", tile=WARP_TILE, threads=WARP_THREADS,
+                    grid=grid, stage=window > 0, window_bytes=window,
+                    smem_bytes=window)
+    nv = -(-c // vec)
+    total = oh * ow * nv
+    if total > _INT32_MAX:
+        raise ValueError(f"{total} vectors an image pass 2**31")
+    return dict(route="vector", vectors=nv, aligned=c % vec == 0,
+                threads=WARP_THREADS,
+                grid=(-(-total // WARP_THREADS), b, 1), stage=False,
+                window_bytes=0, smem_bytes=0)
+
+
+def _check_warp(x, affines) -> None:
+    """What the warp kernel takes: x (B, H, W, C) f32 or bf16, contiguous,
+    16-byte aligned; affines (B, 2, 3) f32 contiguous on x's device."""
+    if x.dim() != 4 or affines.shape != (x.shape[0], 2, 3):
+        raise ValueError(f"expected x (B, H, W, C) and affines (B, 2, 3); "
+                         f"got {tuple(x.shape)}, {tuple(affines.shape)}")
+    if x.dtype not in _DTYPE_CODE or affines.dtype != torch.float32:
+        raise TypeError(f"x must be float32 or bfloat16 and affines "
+                        f"float32, got {x.dtype} and {affines.dtype}")
+    for name, t in (("x", x), ("affines", affines)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+
+
+def _warp_affine_cuda(x, affines, out_hw, stage: bool = False
+                      ) -> torch.Tensor:
+    _check_warp(x, affines)
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    plan = warp_affine_plan(b, h, w, c, oh, ow, x.dtype, stage)
+    out = torch.empty(b, oh, ow, c, dtype=x.dtype, device=x.device)
+    fn = BILINEAR_WARP_AFFINE_FWD.fn()
+    BILINEAR_WARP_AFFINE_FWD.launches += 1
+    err = fn(x.data_ptr(), affines.data_ptr(), out.data_ptr(), b, h, w, c,
+             oh, ow, plan["window_bytes"], _DTYPE_CODE[x.dtype],
+             cuda_stream(x.device))
+    BILINEAR_WARP_AFFINE_FWD.check(err)
+    return out
+
+
+def bilinear_warp_affine(x: torch.Tensor, affines: torch.Tensor,
+                         out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Inverse-affine bilinear warp: x (B, H, W, C) sampled at every output
+    pixel (x, y) of ``out_hw`` mapped through its image's (B, 2, 3) affine
+    -> (B, oh, ow, C) in x's type; corners off the map add zero. No
+    gradient.
+
+    A CUDA ``x`` launches the ``bilinear_warp_affine_fwd`` kernel (f32 or
+    bf16, contiguous, any C >= 1 unpadded, affines f32 contiguous on x's
+    device; ``warp_affine_plan``) and raises on what it does not take or a
+    failed build or launch; a CPU ``x`` runs the plain version."""
+    if device_kind(x) == "cuda":
+        return _warp_affine_cuda(x, affines, out_hw)
+    return bilinear_warp_affine_plain(x, affines, out_hw)

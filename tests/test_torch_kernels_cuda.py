@@ -34,6 +34,11 @@ plain version's sum of absolute terms (dx of K3dx) or the plain value:
 - K3f at the R-CNN shapes: ``GATHER_TOL`` of ``chip_smoke.py`` (f32 atol
   1e-5, rtol 1e-6: four products summed with FMAs; bf16 rtol 2**-8, that
   f32 sum rounded once);
+- the affine warp kernel: ``GATHER_TOL`` against its plain version, and
+  bit for bit against the route it replaced (``affine_points``,
+  ``bilinear_corners``, K3f): widths 1, 3, 4, 5, 128 in f32 and bf16,
+  staged and not, windows past the staging budget, every point off the
+  map, a 1 x 1 map, a NaN through a corner of weight 0;
 - K5f: exact (max and select only); K5b: ``SEG_BWD_TOL`` of
   ``chip_smoke.py`` (f32 atol and rtol 1e-5, bf16 rtol 2**-7: the kernel
   sums a segment's g row by row, the plain version by shift levels).
@@ -972,10 +977,12 @@ def test_seg_max_past_2_31_values(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [3, 6])
 def test_warp_images_launches_the_row_gather(cuda, c):
-    """``data/transforms.py:warp_images`` on a CUDA tensor: one K3f launch
-    per warp (the channels padded to the vector width and sliced back),
-    the result within ``GATHER_TOL`` of the same warp on the CPU (the
-    plain gather), points off the image included."""
+    """``data/transforms.py:warp_images`` on a CUDA tensor: with no
+    gradient asked, one launch of the warp kernel per warp and none of the
+    row gather (K3f); the result within ``GATHER_TOL`` of the same warp on
+    the CPU (the plain gather), points off the image included. With a
+    gradient asked of the images, one K3f launch and none of the warp
+    kernel, and the backward runs."""
     from minddet_tpu_torch.data.transforms import warp_images
 
     rs = np.random.RandomState(c)
@@ -983,13 +990,176 @@ def test_warp_images_launches_the_row_gather(cuda, c):
     aff = torch.tensor([[[1.3, 0.2, -4.0], [-0.1, 1.1, 3.5]],
                         [[-0.8, 0.0, 40.0], [0.0, 0.9, -2.0]]])
     want = warp_images(images, aff, (29, 33))
-    before = kernels.BILINEAR_GATHER_FWD.launches
+    kernels.reset_launches()
     got = warp_images(images.to(cuda), aff.to(cuda), (29, 33))
     torch.cuda.synchronize()
-    assert kernels.BILINEAR_GATHER_FWD.launches == before + 1
+    assert kernels.BILINEAR_WARP_AFFINE_FWD.launches == 1
+    assert kernels.BILINEAR_GATHER_FWD.launches == 0
     assert got.shape == want.shape and got.is_cuda
     assert float((got.cpu() - want).abs().max()) <= 1e-5 + 1e-6
     assert (want == 0).any() and (want > 0).any()
+    graded = images.to(cuda).requires_grad_()
+    again = warp_images(graded, aff.to(cuda), (29, 33))
+    again.sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.BILINEAR_WARP_AFFINE_FWD.launches == 1
+    assert kernels.BILINEAR_GATHER_FWD.launches == 1
+    assert kernels.BILINEAR_GATHER_BWD_DX.launches == 1
+    assert _same_bits(again.detach(), got)
+    assert graded.grad.shape == graded.shape
+
+
+def _k3f_warp(x, aff, out_hw):
+    """The warp by the route it replaced: ``affine_points`` ->
+    ``bilinear_corners`` -> the row gather (K3f)."""
+    b, h, w, c = x.shape
+    ys, xs = bl.affine_points(aff, out_hw)
+    ci, cw = bl.bilinear_corners(ys, xs, h, w)
+    return bl.bilinear_gather(x.view(b, h * w, c), ci, cw).view(
+        b, *out_hw, c)
+
+
+def _check_warp(x, aff, out_hw, stage=False, plain=True):
+    """The warp kernel (asked to ``stage`` or not) against the K3f route
+    bit for bit and (``plain``)
+    against its plain version in f32 on the same values (``GATHER_TOL``:
+    bf16 is that f32 sum rounded once; NaN where it is NaN); one launch.
+    Returns the kernel's result."""
+    before = kernels.BILINEAR_WARP_AFFINE_FWD.launches
+    got = bl._warp_affine_cuda(x, aff, out_hw, stage)
+    route = _k3f_warp(x, aff, out_hw)
+    torch.cuda.synchronize()
+    assert kernels.BILINEAR_WARP_AFFINE_FWD.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == route.shape
+    assert _same_bits(got, route)
+    if not plain:
+        return got
+    ref = bl.bilinear_warp_affine_plain(x.float(), aff, out_hw)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got.float()), nan)
+    atol, rtol = GATHER_TOL[x.dtype]
+    err = (got.float() - ref).abs()[~nan]
+    assert bool((err <= atol + rtol * ref.abs()[~nan]).all()), float(
+        err.max())
+    return got
+
+
+# the warp cases' affines: a scale with a shift, a horizontal flip, a
+# rotation
+WARP_AFFINES = [[[1.3, 0.0, -4.0], [0.0, 1.3, 3.5]],
+                [[-0.8, 0.0, 40.0], [0.0, 0.8, -2.0]],
+                [[1.1, 0.25, -6.0], [-0.2, 0.95, 5.0]]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
+@pytest.mark.parametrize("w", [48, 45])
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_affine_widths(cuda, dtype, c, w, stage):
+    """Every width of both routes (the pixel route up to one 16-byte vector
+    a pixel, the vector route past it, aligned or not), on map rows that
+    are whole 16-byte chunks (W = 48: the pixel route stages) and rows that
+    may not be (W = 45), under a scale, a flip and a rotation, to an output
+    of partial tiles."""
+    rs = np.random.RandomState(c + w)
+    x = torch.from_numpy(rs.rand(3, 37, w, c).astype(np.float32)).to(
+        cuda, dtype)
+    aff = torch.tensor(WARP_AFFINES, device=cuda)
+    got = _check_warp(x, aff, (29, 70), stage)
+    assert (got == 0).any() and (got > 0).any()
+
+
+def _window_bytes(aff, tile, h, w, c, elt):
+    """The source window of output tile (row, column) under one affine, as
+    the kernel sizes it (its tile corners mapped, floored, grown by one,
+    clipped; whole 16-byte chunks of each row)."""
+    th, tw = bl.WARP_TILE
+    ys, xs = [], []
+    for gy in (tile[0] * th, tile[0] * th + th - 1):
+        for gx in (tile[1] * tw, tile[1] * tw + tw - 1):
+            xs.append(aff[0][0] * gx + aff[0][1] * gy + aff[0][2])
+            ys.append(aff[1][0] * gx + aff[1][1] * gy + aff[1][2])
+    x0, x1 = max(np.floor(min(xs)), 0), min(np.floor(max(xs)) + 1, w - 1)
+    y0, y1 = max(np.floor(min(ys)), 0), min(np.floor(max(ys)) + 1, h - 1)
+    lo, hi = int(x0) * c * elt // 16, -(-(int(x1) + 1) * c * elt // 16)
+    return (int(y1) - int(y0) + 1) * (hi - lo) * 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_affine_windows_past_the_budget(cuda, dtype):
+    """Asked to stage: under a strong downscale with a rotation the blocks'
+    windows do not fit the budget, so they read from global memory, while
+    the second image's mild scale stages in the same launch."""
+    h, w, c = 300, 400, 3
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.rand(2, h, w, c).astype(np.float32)).to(
+        cuda, dtype)
+    ang, s = 0.5, 6.0
+    aff = [[[s * np.cos(ang), -s * np.sin(ang), 150.0],
+            [s * np.sin(ang), s * np.cos(ang), 0.0]],
+           [[1.2, 0.0, 3.0], [0.0, 1.2, 1.0]]]
+    elt = x.element_size()
+    assert _window_bytes(aff[0], (0, 0), h, w, c, elt) \
+        > bl.WARP_WINDOW_BYTES
+    assert _window_bytes(aff[1], (0, 0), h, w, c, elt) \
+        <= bl.WARP_WINDOW_BYTES
+    assert bl.warp_affine_plan(2, h, w, c, 40, 64, dtype, True)["stage"]
+    got = _check_warp(x, torch.tensor(aff, device=cuda, dtype=torch.float32),
+                      (40, 64), stage=True)
+    assert (got[0] > 0).any() and (got[1] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
+@pytest.mark.parametrize("c", [3, 4, 128])
+def test_warp_affine_every_point_off_the_map(cuda, c, stage):
+    """Far translations, a NaN affine and an infinite one: every corner off
+    the map (NaN coordinates fail the in-map tests), so exact zeros, as
+    K3f gives them (it skips an off-map corner whatever its weight). The
+    plain version is held on the finite ones only: it multiplies an
+    off-map corner's weight by 0, which leaves a NaN weight NaN, as the
+    reference's XLA gather does."""
+    rs = np.random.RandomState(c)
+    x = torch.from_numpy(rs.rand(2, 16, 32, c).astype(np.float32)).to(cuda)
+    far = torch.tensor([[[1.0, 0.0, 1e4], [0.0, 1.0, 0.0]],
+                        [[1.0, 0.0, 0.0], [0.0, 1.0, -1e30]]], device=cuda)
+    odd = torch.tensor([[[float("nan"), 0.0, 0.0], [0.0, 1.0, 0.0]],
+                        [[1.0, 0.0, 0.0], [0.0, float("inf"), 0.0]]],
+                       device=cuda)
+    assert not _check_warp(x, far, (20, 40), stage).any()
+    assert not _check_warp(x, odd, (20, 40), stage, plain=False).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
+@pytest.mark.parametrize("c", [3, 4])
+def test_warp_affine_one_pixel_map(cuda, c, stage):
+    """A 1 x 1 map: only the corners at (0, 0) read; past x = 11 none."""
+    x = torch.tensor([[[[0.5, 0.25, 2.0, -1.0][:c]]]], device=cuda)
+    aff = torch.tensor([[[0.1, 0.0, -0.2], [0.0, 0.1, -0.35]]], device=cuda)
+    got = _check_warp(x, aff, (9, 30), stage)
+    assert (got == 0).any() and (got != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_affine_nan_through_a_zero_weight_corner(cuda, dtype, stage):
+    """A whole-pixel translation gives the three corners past the first a
+    weight of 0; a NaN pixel still reaches the outputs that read it as such
+    a corner, as in K3f."""
+    x = torch.from_numpy(np.random.RandomState(3).rand(1, 20, 32, 3).astype(
+        np.float32)).to(cuda, dtype)
+    x[0, 5, 10, 1] = float("nan")
+    aff = torch.tensor([[[1.0, 0.0, 2.0], [0.0, 1.0, 1.0]]], device=cuda)
+    got = _check_warp(x, aff, (16, 24), stage)
+    nan = torch.isnan(got[0, :, :, 1])
+    # outputs (y, x) read pixels (y + 1 .. y + 2, x + 2 .. x + 3)
+    assert sorted(map(tuple, nan.nonzero().tolist())) == [
+        (3, 7), (3, 8), (4, 7), (4, 8)]
+    assert not torch.isnan(got[..., 0]).any()
 
 
 @pytest.mark.cuda

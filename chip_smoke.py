@@ -275,9 +275,8 @@ the (512, 768) and (768, 768) buckets, one of the mosaic's four warps (16,
 640^2, 3) to 640^2, and Mask R-CNN's GT bitmaps (8, 160^2, 128) to 128^2:
 against its plain version (``GATHER_TOL``), its difference from the route
 it replaced (the corners, the pad, K3f, the slice) printed, expected 0;
-the launch (and, apart, asked to stage its source windows), the whole
-``warp_images`` call and ``F.grid_sample`` timed beside the replaced
-route's parts. Phase 4q is the f32 COCO path card against CPU
+the launch, the whole ``warp_images`` call and ``F.grid_sample`` timed
+beside the replaced route's parts. Phase 4q is the f32 COCO path card against CPU
 (``check_coco_f32``): ``centernet_evaluate`` on 8 in-memory images in two
 buckets, the warped inputs, the raw top-100 scores, soft-NMS on the CPU's
 inputs, the card's AP@[.5:.95] against the CPU's final detections as GT
@@ -6388,8 +6387,7 @@ def _warp_case(stream, x, aff, out_hw, card, note=""):
     Held to its plain version within ``GATHER_TOL`` (f32); its difference
     from the route it replaced (``affine_points``, ``bilinear_corners``,
     K3f) reported, expected 0. Timed with a warm L2: the launch (``ms``),
-    the launch asked to stage the blocks' source windows in shared memory
-    (``staged_ms``), the whole ``warp_images`` call, the plain version and
+    the whole ``warp_images`` call, the plain version and
     ``F.grid_sample`` on the NCHW view (bilinear, zero padding,
     align_corners; its grid made outside the timing); and the replaced
     route's parts: ``bilinear_corners``, the zero pad of C to 4
@@ -6419,8 +6417,6 @@ def _warp_case(stream, x, aff, out_hw, card, note=""):
     max_abs = float(err.max())
     route_diff = float((got - old).abs().max())
     route_bits = torch.equal(got.view(torch.int32), old.view(torch.int32))
-    staged = bl._warp_affine_cuda(x, aff, out_hw, stage=True)
-    staged_bits = torch.equal(staged.view(torch.int32), got.view(torch.int32))
     grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
                        -1)[:, None]
     nchw = x.permute(0, 3, 1, 2)
@@ -6434,7 +6430,7 @@ def _warp_case(stream, x, aff, out_hw, card, note=""):
     touched = sum(int(torch.unique(ci[i][ci[i] >= 0]).numel())
                   for i in range(b))
     off_map = float((ci < 0).float().mean())
-    del got, old, ref, terms, err, staged
+    del got, old, ref, terms, err
     padded = bl.pad_channels(flat)
     out_padded = bl.bilinear_gather(padded, ci, cw)
     plan = bl.warp_affine_plan(b, h, w, c, *out_hw, x.dtype)
@@ -6443,13 +6439,11 @@ def _warp_case(stream, x, aff, out_hw, card, note=""):
         stream=stream, max_abs_err=max_abs,
         tolerance=f"abs <= {atol} + {rtol} * |terms|",
         route_max_abs_diff=route_diff, route_same_bits=route_bits,
-        staged_same_bits=staged_bits, off_map_corner_share=off_map,
+        off_map_corner_share=off_map,
         touched_rows=touched, library_max_abs_err=lib_err,
         plan={k: v for k, v in plan.items() if k != "tile"},
         ms=_cuda_ms(lambda: bl.bilinear_warp_affine(x, aff, out_hw),
                     iters=10),
-        staged_ms=_cuda_ms(lambda: bl._warp_affine_cuda(
-            x, aff, out_hw, stage=True), iters=10),
         warp_ms=_cuda_ms(lambda: warp_images(x, aff, out_hw), iters=10),
         plain_ms=_cuda_ms(lambda: bl.bilinear_warp_affine_plain(
             x, aff, out_hw), iters=3, warmup=1),
@@ -6472,8 +6466,7 @@ def _warp_case(stream, x, aff, out_hw, card, note=""):
     print(f"  bilinear_warp_affine {stream} x{case['shape']} -> "
           f"{tuple(out_hw)}{note} max_abs={max_abs:.3e} off-map corners "
           f"{off_map:.3f}, {plan['route']} route: launch "
-          f"{case['ms'] * 1e3:7.1f}us (staged "
-          f"{case['staged_ms'] * 1e3:7.1f}us, same bits {staged_bits}), "
+          f"{case['ms'] * 1e3:7.1f}us, "
           f"warp_images {case['warp_ms'] * 1e3:7.1f}us, bound "
           f"{case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']}), "
           f"grid_sample {case['library_ms'] * 1e3:7.1f}us (differs by "
@@ -7165,7 +7158,7 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
     tot = lambda key: calls_per_shape * sum(c[key] for c in main_cases)
     keys = ("kind", "shape", "out_hw", "against", "points", "samples",
             "dtype", "spread", "tile_rows", "stream", "stride",
-            "max_abs_err", "ms", "staged_ms", "warp_ms", "plain_ms",
+            "max_abs_err", "ms", "warp_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "grid_sample_ms",
             "k3f_route_ms", "route_max_abs_diff", "fallback_share",
             "repeat")

@@ -42,17 +42,12 @@
 //   corner on the map reads nothing (most of a mosaic quadrant's warp);
 //   else it issues all its corners' loads at once, an off-map corner's at
 //   a clamped place, and adds those on the map. Each thread stores its
-//   pixel's C values.
-//   Asked for (window_bytes > 0), a block stages instead: it maps the
-//   tile's four corner pixels (the rounded coordinates are monotone in x
-//   and in y, so their bounding box, floored and grown by one pixel,
-//   holds every corner of the tile), copies that window, clipped to the
-//   map, into shared memory with 16-byte cp.async copies where it fits,
-//   and samples from there. On an H100 that was slower than reading
-//   through L1 at every COCO warp (the block waits for its whole window
-//   before it computes; PERF.md, PR 18), so the wrapper does not ask.
-//   An output tile staged in shared memory for 16-byte stores gained
-//   nothing there either, and was dropped.
+//   pixel's C values. Staging each tile's source window in shared memory
+//   with cp.async (the rounded coordinates stay monotone, so the tile
+//   corners' bounding box grown by one pixel holds it) was slower on an
+//   H100 at every COCO warp, as was staging the output tile for 16-byte
+//   stores (PERF.md, PR 18): a block waits for its whole window before it
+//   computes.
 // - The vector route, wider C (the GT bitmaps' 128 slots): one thread a
 //   16-byte vector of a pixel (4 f32 or 8 bf16 channels), the vectors of a
 //   pixel on neighbouring threads, as in the row gather; each thread maps
@@ -163,118 +158,29 @@ __device__ __forceinline__ void accumulate(const Corners& cr,
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
 // The pixel route: one thread a pixel of a kTileW x kTileH output tile.
-// With window_bytes > 0 a block whose source window fits copies it into
-// that much dynamic shared memory and samples from there.
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 warp_pixel_kernel(const T* __restrict__ x, const float* __restrict__ aff,
-                  T* __restrict__ out, int H, int W, int OH, int OW,
-                  int window_bytes) {
-  extern __shared__ __align__(16) unsigned char win[];
-  constexpr int kE = sizeof(T);
+                  T* __restrict__ out, int H, int W, int OH, int OW) {
   const int b = blockIdx.z;
-  const int tx0 = blockIdx.x * kTileW, ty0 = blockIdx.y * kTileH;
-  const int gx = tx0 + threadIdx.x % kTileW, gy = ty0 + threadIdx.x / kTileW;
-  const Affine a = load_affine(aff, b);
-  const size_t image = static_cast<size_t>(b) * H * W;  // pixels before b
-
-  // the window: the tile's corner pixels mapped, floored, grown by one
-  bool staged = false;
-  // the window's first row, rows, first 16-byte chunk and chunks a row
-  int wy0 = 0, wrows = 0, wlo = 0, wnc = 0;
-  if (window_bytes > 0) {
-    const int pitch = W * C * kE;  // bytes of a map row
-    const float fx[2] = {static_cast<float>(tx0),
-                         static_cast<float>(min(tx0 + kTileW, OW) - 1)};
-    const float fy[2] = {static_cast<float>(ty0),
-                         static_cast<float>(min(ty0 + kTileH, OH) - 1)};
-    float xmin = 0.f, xmax = 0.f, ymin = 0.f, ymax = 0.f;
-    bool finite = true;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float xs, ys;
-      map_point(a, fx[k & 1], fy[k >> 1], xs, ys);
-      finite = finite && isfinite(xs) && isfinite(ys);
-      xmin = k ? fminf(xmin, xs) : xs;
-      xmax = k ? fmaxf(xmax, xs) : xs;
-      ymin = k ? fminf(ymin, ys) : ys;
-      ymax = k ? fmaxf(ymax, ys) : ys;
-    }
-    if (finite) {
-      const int wx0 = static_cast<int>(
-          fminf(fmaxf(floorf(xmin), 0.f), static_cast<float>(W)));
-      const int wx1 = static_cast<int>(fmaxf(
-          fminf(__fadd_rn(floorf(xmax), 1.f), static_cast<float>(W - 1)),
-          -1.f));
-      wy0 = static_cast<int>(
-          fminf(fmaxf(floorf(ymin), 0.f), static_cast<float>(H)));
-      const int wy1 = static_cast<int>(fmaxf(
-          fminf(__fadd_rn(floorf(ymax), 1.f), static_cast<float>(H - 1)),
-          -1.f));
-      wrows = max(wy1 - wy0 + 1, 0);
-      if (wx0 <= wx1 && wrows > 0) {
-        wlo = wx0 * C * kE / 16;
-        wnc = ((wx1 + 1) * C * kE + 15) / 16 - wlo;
-        staged = static_cast<long long>(wrows) * wnc * 16 <= window_bytes;
-      } else {
-        staged = true;  // an empty window: every corner is off the map
-        wrows = wnc = 0;
-      }
-      if (staged) {
-        const unsigned char* src =
-            reinterpret_cast<const unsigned char*>(x + image * C) +
-            static_cast<size_t>(wy0) * pitch + static_cast<size_t>(wlo) * 16;
-        const int n = wrows * wnc;
-        for (int k = threadIdx.x; k < n; k += kThreads) {
-          const int r = k / wnc, j = k - r * wnc;
-          cp_async16(smem_addr(win + 16 * k),
-                     src + static_cast<size_t>(r) * pitch + 16 * j);
-        }
-        cp_async_wait_all();
-      }
-    }
-    __syncthreads();
-  }
+  const int gx = blockIdx.x * kTileW + threadIdx.x % kTileW;
+  const int gy = blockIdx.y * kTileH + threadIdx.x / kTileW;
   if (gx >= OW || gy >= OH) return;
-
+  const Affine a = load_affine(aff, b);
   float xs, ys;
   map_point(a, static_cast<float>(gx), static_cast<float>(gy), xs, ys);
   const Corners cr = corners(xs, ys, H, W);
+  const size_t image = static_cast<size_t>(b) * H * W;  // pixels before b
   float acc[C] = {};
   if (any_on(cr)) {
     float v[4][C];
-    if (staged) {
-      const int last = wrows * wnc * 16 - C * kE;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int off = (cr.iy[c] - wy0) * wnc * 16 + cr.ix[c] * C * kE -
-                        wlo * 16;
-        const T* p = reinterpret_cast<const T*>(win + min(max(off, 0), last));
+    for (int c = 0; c < 4; ++c) {
+      const T* p =
+          x + (image + static_cast<size_t>(cr.iy[c]) * W + cr.ix[c]) * C;
 #pragma unroll
-        for (int i = 0; i < C; ++i) v[c][i] = to_f32(p[i]);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const T* p =
-            x + (image + static_cast<size_t>(cr.iy[c]) * W + cr.ix[c]) * C;
-#pragma unroll
-        for (int i = 0; i < C; ++i) v[c][i] = ldg_f32(p + i);
-      }
+      for (int i = 0; i < C; ++i) v[c][i] = ldg_f32(p + i);
     }
     accumulate(cr, v, acc);
   }
@@ -342,18 +248,11 @@ warp_vector_kernel(const T* __restrict__ x, const float* __restrict__ aff,
 
 template <typename T, int C>
 int launch_pixel(const void* x, const void* aff, void* out, int B, int H,
-                 int W, int OH, int OW, int window_bytes,
-                 cudaStream_t stream) {
-  auto kernel = warp_pixel_kernel<T, C>;
-  if (window_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, window_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+                 int W, int OH, int OW, cudaStream_t stream) {
   const dim3 grid((OW + kTileW - 1) / kTileW, (OH + kTileH - 1) / kTileH, B);
-  kernel<<<grid, kThreads, window_bytes, stream>>>(
+  warp_pixel_kernel<T, C><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(aff),
-      static_cast<T*>(out), H, W, OH, OW, window_bytes);
+      static_cast<T*>(out), H, W, OH, OW);
   return 0;
 }
 
@@ -379,25 +278,22 @@ int launch_vector(const void* x, const void* aff, void* out, int B, int H,
 
 template <typename T>
 int launch(const void* x, const void* aff, void* out, int B, int H, int W,
-           int C, int OH, int OW, int window_bytes, cudaStream_t stream) {
+           int C, int OH, int OW, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   if (C > kVec)
     return launch_vector<T>(x, aff, out, B, H, W, C, OH, OW, stream);
-  // the pixel route stages whole 16-byte chunks of map rows
-  if (window_bytes < 0 || (window_bytes > 0 && (W * C * sizeof(T)) % 16))
-    return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
-    case 1: return launch_pixel<T, 1>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
-    case 2: return launch_pixel<T, 2>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
-    case 3: return launch_pixel<T, 3>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
-    case 4: return launch_pixel<T, 4>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
+    case 1: return launch_pixel<T, 1>(x, aff, out, B, H, W, OH, OW, stream);
+    case 2: return launch_pixel<T, 2>(x, aff, out, B, H, W, OH, OW, stream);
+    case 3: return launch_pixel<T, 3>(x, aff, out, B, H, W, OH, OW, stream);
+    case 4: return launch_pixel<T, 4>(x, aff, out, B, H, W, OH, OW, stream);
   }
   if constexpr (kVec == 8) {
     switch (C) {
-      case 5: return launch_pixel<T, 5>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
-      case 6: return launch_pixel<T, 6>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
-      case 7: return launch_pixel<T, 7>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
-      case 8: return launch_pixel<T, 8>(x, aff, out, B, H, W, OH, OW, window_bytes, stream);
+      case 5: return launch_pixel<T, 5>(x, aff, out, B, H, W, OH, OW, stream);
+      case 6: return launch_pixel<T, 6>(x, aff, out, B, H, W, OH, OW, stream);
+      case 7: return launch_pixel<T, 7>(x, aff, out, B, H, W, OH, OW, stream);
+      case 8: return launch_pixel<T, 8>(x, aff, out, B, H, W, OH, OW, stream);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -405,27 +301,22 @@ int launch(const void* x, const void* aff, void* out, int B, int H, int W,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window_bytes: the most shared memory
-// a block of the pixel route may stage its source window in (0: read every
-// corner from global memory); it needs a map row of a whole number of
-// 16-byte chunks. The caller guarantees contiguous tensors, x and out
-// 16-byte aligned, 1 <= H, W < 2**24, B <= 65535, and the grid's limits
-// (warp_affine_plan). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for what it does not take.
+// dtype: 0 = float32, 1 = bfloat16. The caller guarantees contiguous
+// tensors, x and out 16-byte aligned, 1 <= H, W < 2**24, B <= 65535, and
+// the grid's limits (warp_affine_plan). Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int bilinear_warp_affine_fwd(const void* x, const void* affines,
                                         void* out, int B, int H, int W,
-                                        int C, int OH, int OW,
-                                        int window_bytes, int dtype,
+                                        int C, int OH, int OW, int dtype,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || W < 1 || C < 1 || OH < 1 || OW < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int err;
   if (dtype == 0) {
-    err = launch<float>(x, affines, out, B, H, W, C, OH, OW, window_bytes, st);
+    err = launch<float>(x, affines, out, B, H, W, C, OH, OW, st);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(x, affines, out, B, H, W, C, OH, OW,
-                                window_bytes, st);
+    err = launch<__nv_bfloat16>(x, affines, out, B, H, W, C, OH, OW, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -189,8 +189,8 @@ BILINEAR_GATHER_FWD = CudaKernel(
 
 BILINEAR_WARP_AFFINE_FWD = CudaKernel(
     "bilinear_warp_affine_fwd", "bilinear_warp.cu",
-    # x, affines, out, B, H, W, C, OH, OW, window_bytes, dtype, stream
-    [_P, _P, _P] + [_I] * 8 + [_P],
+    # x, affines, out, B, H, W, C, OH, OW, dtype, stream
+    [_P, _P, _P] + [_I] * 7 + [_P],
     replaces="minddet_tpu/ops/bilinear.py:49 _fwd_kernel (through "
              "minddet_tpu/data/transforms.py:130 warp_images)",
 )

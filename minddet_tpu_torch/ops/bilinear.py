@@ -441,31 +441,21 @@ def bilinear_warp_affine_plain(x: torch.Tensor, affines: torch.Tensor,
 
 
 # The warp kernel's launch: the pixel route's block owns a WARP_TILE (rows,
-# columns) tile of one image's output, one pixel a thread; asked to stage,
-# a block copies its source window into up to WARP_WINDOW_BYTES of shared
-# memory where it fits (eight blocks fit an SM's 228 KB), which measured
-# slower than reading through L1 on an H100, so the wrapper does not ask
+# columns) tile of one image's output, one pixel a thread
 WARP_TILE = (8, 32)
 WARP_THREADS = 256
-WARP_WINDOW_BYTES = 24 * 1024
 GRID_YZ = 65535  # the most blocks along a grid's y or z
 COORD_MAX = 2 ** 24  # float coordinates are exact integers below this
 
 
 def warp_affine_plan(b: int, h: int, w: int, c: int, oh: int, ow: int,
-                     dtype, stage: bool = False) -> dict:
+                     dtype) -> dict:
     """The warp kernel's launch for (b, h, w, c) maps warped to (oh, ow):
-
-    - ``route`` "pixel" for C <= 4 (f32) or 8 (bf16): ``grid`` (ow / 32,
-      oh / 8, b) blocks of ``threads``, each owning a ``tile`` of (8, 32)
-      output pixels; with ``stage`` (asked for, and a map row a whole
-      number of 16-byte chunks) a block may copy its source window into
-      ``window_bytes`` of shared memory (it does where the window fits,
-      and reads from global memory where it does not); ``smem_bytes`` per
-      block;
-    - ``route`` "vector" for wider C: one thread a 16-byte vector of a
-      pixel (``vectors`` a pixel, ``aligned`` where C is a whole number of
-      them), ``grid`` (oh * ow * vectors / 256, b, 1); never staged.
+    ``route`` "pixel" for C <= 4 (f32) or 8 (bf16), ``grid`` (ow / 32, oh
+    / 8, b) blocks of ``threads``, each owning a ``tile`` of (8, 32)
+    output pixels; ``route`` "vector" for wider C, one thread a 16-byte
+    vector of a pixel (``vectors`` a pixel, ``aligned`` where C is a whole
+    number of them), ``grid`` (oh * ow * vectors / 256, b, 1).
 
     Raises on what the kernel does not take: another type, an empty map or
     output, a side of 2**24 or more, more than 65535 images or tile rows,
@@ -487,18 +477,14 @@ def warp_affine_plan(b: int, h: int, w: int, c: int, oh: int, ow: int,
         grid = (-(-ow // tw), -(-oh // th), b)
         if grid[1] > GRID_YZ:
             raise ValueError(f"OH = {oh}: {grid[1]} tile rows pass the grid")
-        window = WARP_WINDOW_BYTES if stage and (w * c * elt) % 16 == 0 else 0
         return dict(route="pixel", tile=WARP_TILE, threads=WARP_THREADS,
-                    grid=grid, stage=window > 0, window_bytes=window,
-                    smem_bytes=window)
+                    grid=grid)
     nv = -(-c // vec)
     total = oh * ow * nv
     if total > _INT32_MAX:
         raise ValueError(f"{total} vectors an image pass 2**31")
     return dict(route="vector", vectors=nv, aligned=c % vec == 0,
-                threads=WARP_THREADS,
-                grid=(-(-total // WARP_THREADS), b, 1), stage=False,
-                window_bytes=0, smem_bytes=0)
+                threads=WARP_THREADS, grid=(-(-total // WARP_THREADS), b, 1))
 
 
 def _check_warp(x, affines) -> None:
@@ -519,18 +505,16 @@ def _check_warp(x, affines) -> None:
         raise ValueError("x must be 16-byte aligned")
 
 
-def _warp_affine_cuda(x, affines, out_hw, stage: bool = False
-                      ) -> torch.Tensor:
+def _warp_affine_cuda(x, affines, out_hw) -> torch.Tensor:
     _check_warp(x, affines)
     b, h, w, c = x.shape
     oh, ow = out_hw
-    plan = warp_affine_plan(b, h, w, c, oh, ow, x.dtype, stage)
+    warp_affine_plan(b, h, w, c, oh, ow, x.dtype)
     out = torch.empty(b, oh, ow, c, dtype=x.dtype, device=x.device)
     fn = BILINEAR_WARP_AFFINE_FWD.fn()
     BILINEAR_WARP_AFFINE_FWD.launches += 1
     err = fn(x.data_ptr(), affines.data_ptr(), out.data_ptr(), b, h, w, c,
-             oh, ow, plan["window_bytes"], _DTYPE_CODE[x.dtype],
-             cuda_stream(x.device))
+             oh, ow, _DTYPE_CODE[x.dtype], cuda_stream(x.device))
     BILINEAR_WARP_AFFINE_FWD.check(err)
     return out
 

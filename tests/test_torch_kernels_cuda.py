@@ -36,9 +36,9 @@ plain version's sum of absolute terms (dx of K3dx) or the plain value:
   f32 sum rounded once);
 - the affine warp kernel: ``GATHER_TOL`` against its plain version, and
   bit for bit against the route it replaced (``affine_points``,
-  ``bilinear_corners``, K3f): widths 1, 3, 4, 5, 128 in f32 and bf16,
-  staged and not, windows past the staging budget, every point off the
-  map, a 1 x 1 map, a NaN through a corner of weight 0;
+  ``bilinear_corners``, K3f): widths 1, 3, 4, 5, 128 in f32 and bf16, a
+  strong downscale with a rotation, every point off the map, a 1 x 1 map,
+  a NaN through a corner of weight 0;
 - K5f: exact (max and select only); K5b: ``SEG_BWD_TOL`` of
   ``chip_smoke.py`` (f32 atol and rtol 1e-5, bf16 rtol 2**-7: the kernel
   sums a segment's g row by row, the plain version by shift levels).
@@ -1019,14 +1019,13 @@ def _k3f_warp(x, aff, out_hw):
         b, *out_hw, c)
 
 
-def _check_warp(x, aff, out_hw, stage=False, plain=True):
-    """The warp kernel (asked to ``stage`` or not) against the K3f route
-    bit for bit and (``plain``)
+def _check_warp(x, aff, out_hw, plain=True):
+    """The warp kernel against the K3f route bit for bit and (``plain``)
     against its plain version in f32 on the same values (``GATHER_TOL``:
     bf16 is that f32 sum rounded once; NaN where it is NaN); one launch.
     Returns the kernel's result."""
     before = kernels.BILINEAR_WARP_AFFINE_FWD.launches
-    got = bl._warp_affine_cuda(x, aff, out_hw, stage)
+    got = bl.bilinear_warp_affine(x, aff, out_hw)
     route = _k3f_warp(x, aff, out_hw)
     torch.cuda.synchronize()
     assert kernels.BILINEAR_WARP_AFFINE_FWD.launches == before + 1
@@ -1052,46 +1051,27 @@ WARP_AFFINES = [[[1.3, 0.0, -4.0], [0.0, 1.3, 3.5]],
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
 @pytest.mark.parametrize("w", [48, 45])
 @pytest.mark.parametrize("c", [1, 3, 4, 5, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_affine_widths(cuda, dtype, c, w, stage):
+def test_warp_affine_widths(cuda, dtype, c, w):
     """Every width of both routes (the pixel route up to one 16-byte vector
     a pixel, the vector route past it, aligned or not), on map rows that
-    are whole 16-byte chunks (W = 48: the pixel route stages) and rows that
-    may not be (W = 45), under a scale, a flip and a rotation, to an output
-    of partial tiles."""
+    are whole 16-byte chunks (W = 48) and rows that may not be (W = 45),
+    under a scale, a flip and a rotation, to an output of partial tiles."""
     rs = np.random.RandomState(c + w)
     x = torch.from_numpy(rs.rand(3, 37, w, c).astype(np.float32)).to(
         cuda, dtype)
     aff = torch.tensor(WARP_AFFINES, device=cuda)
-    got = _check_warp(x, aff, (29, 70), stage)
+    got = _check_warp(x, aff, (29, 70))
     assert (got == 0).any() and (got > 0).any()
-
-
-def _window_bytes(aff, tile, h, w, c, elt):
-    """The source window of output tile (row, column) under one affine, as
-    the kernel sizes it (its tile corners mapped, floored, grown by one,
-    clipped; whole 16-byte chunks of each row)."""
-    th, tw = bl.WARP_TILE
-    ys, xs = [], []
-    for gy in (tile[0] * th, tile[0] * th + th - 1):
-        for gx in (tile[1] * tw, tile[1] * tw + tw - 1):
-            xs.append(aff[0][0] * gx + aff[0][1] * gy + aff[0][2])
-            ys.append(aff[1][0] * gx + aff[1][1] * gy + aff[1][2])
-    x0, x1 = max(np.floor(min(xs)), 0), min(np.floor(max(xs)) + 1, w - 1)
-    y0, y1 = max(np.floor(min(ys)), 0), min(np.floor(max(ys)) + 1, h - 1)
-    lo, hi = int(x0) * c * elt // 16, -(-(int(x1) + 1) * c * elt // 16)
-    return (int(y1) - int(y0) + 1) * (hi - lo) * 16
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_affine_windows_past_the_budget(cuda, dtype):
-    """Asked to stage: under a strong downscale with a rotation the blocks'
-    windows do not fit the budget, so they read from global memory, while
-    the second image's mild scale stages in the same launch."""
+def test_warp_affine_strong_downscale_with_rotation(cuda, dtype):
+    """A 6x downscale with a rotation (each warp's loads spread over many
+    map rows) beside a mild scale in the same launch."""
     h, w, c = 300, 400, 3
     rs = np.random.RandomState(5)
     x = torch.from_numpy(rs.rand(2, h, w, c).astype(np.float32)).to(
@@ -1100,21 +1080,15 @@ def test_warp_affine_windows_past_the_budget(cuda, dtype):
     aff = [[[s * np.cos(ang), -s * np.sin(ang), 150.0],
             [s * np.sin(ang), s * np.cos(ang), 0.0]],
            [[1.2, 0.0, 3.0], [0.0, 1.2, 1.0]]]
-    elt = x.element_size()
-    assert _window_bytes(aff[0], (0, 0), h, w, c, elt) \
-        > bl.WARP_WINDOW_BYTES
-    assert _window_bytes(aff[1], (0, 0), h, w, c, elt) \
-        <= bl.WARP_WINDOW_BYTES
-    assert bl.warp_affine_plan(2, h, w, c, 40, 64, dtype, True)["stage"]
     got = _check_warp(x, torch.tensor(aff, device=cuda, dtype=torch.float32),
-                      (40, 64), stage=True)
-    assert (got[0] > 0).any() and (got[1] > 0).all()
+                      (40, 64))
+    assert (got[0] > 0).any() and (got[0] == 0).any()
+    assert (got[1] > 0).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
 @pytest.mark.parametrize("c", [3, 4, 128])
-def test_warp_affine_every_point_off_the_map(cuda, c, stage):
+def test_warp_affine_every_point_off_the_map(cuda, c):
     """Far translations, a NaN affine and an infinite one: every corner off
     the map (NaN coordinates fail the in-map tests), so exact zeros, as
     K3f gives them (it skips an off-map corner whatever its weight). The
@@ -1128,25 +1102,23 @@ def test_warp_affine_every_point_off_the_map(cuda, c, stage):
     odd = torch.tensor([[[float("nan"), 0.0, 0.0], [0.0, 1.0, 0.0]],
                         [[1.0, 0.0, 0.0], [0.0, float("inf"), 0.0]]],
                        device=cuda)
-    assert not _check_warp(x, far, (20, 40), stage).any()
-    assert not _check_warp(x, odd, (20, 40), stage, plain=False).any()
+    assert not _check_warp(x, far, (20, 40)).any()
+    assert not _check_warp(x, odd, (20, 40), plain=False).any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
 @pytest.mark.parametrize("c", [3, 4])
-def test_warp_affine_one_pixel_map(cuda, c, stage):
+def test_warp_affine_one_pixel_map(cuda, c):
     """A 1 x 1 map: only the corners at (0, 0) read; past x = 11 none."""
     x = torch.tensor([[[[0.5, 0.25, 2.0, -1.0][:c]]]], device=cuda)
     aff = torch.tensor([[[0.1, 0.0, -0.2], [0.0, 0.1, -0.35]]], device=cuda)
-    got = _check_warp(x, aff, (9, 30), stage)
+    got = _check_warp(x, aff, (9, 30))
     assert (got == 0).any() and (got != 0).any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_affine_nan_through_a_zero_weight_corner(cuda, dtype, stage):
+def test_warp_affine_nan_through_a_zero_weight_corner(cuda, dtype):
     """A whole-pixel translation gives the three corners past the first a
     weight of 0; a NaN pixel still reaches the outputs that read it as such
     a corner, as in K3f."""
@@ -1154,7 +1126,7 @@ def test_warp_affine_nan_through_a_zero_weight_corner(cuda, dtype, stage):
         np.float32)).to(cuda, dtype)
     x[0, 5, 10, 1] = float("nan")
     aff = torch.tensor([[[1.0, 0.0, 2.0], [0.0, 1.0, 1.0]]], device=cuda)
-    got = _check_warp(x, aff, (16, 24), stage)
+    got = _check_warp(x, aff, (16, 24))
     nan = torch.isnan(got[0, :, :, 1])
     # outputs (y, x) read pixels (y + 1 .. y + 2, x + 2 .. x + 3)
     assert sorted(map(tuple, nan.nonzero().tolist())) == [

@@ -14,7 +14,7 @@ for the affines, whose gradient sums every output pixel's, 1e-4 relative
 plus 1e-3.
 
 Also the kernel's launch plan (``warp_affine_plan``) at the COCO path's
-five warp shapes, asked to stage and not, and its refusals.
+five warp shapes, by width, and its refusals.
 """
 
 import jax
@@ -194,27 +194,18 @@ COCO_WARPS = {"train": ((16, 640, 640, 3), (512, 512)),
               "bitmaps": ((8, 160, 160, 128), (128, 128))}
 
 
-@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
 @pytest.mark.parametrize("name", sorted(COCO_WARPS))
-def test_plan_at_the_coco_warps(name, stage):
+def test_plan_at_the_coco_warps(name):
     (b, h, w, c), (oh, ow) = COCO_WARPS[name]
-    plan = bl.warp_affine_plan(b, h, w, c, oh, ow, torch.float32, stage)
-    if c == 128:  # the bitmaps: one thread a 16-byte vector, never staged
+    plan = bl.warp_affine_plan(b, h, w, c, oh, ow, torch.float32)
+    if c == 128:  # the bitmaps: one thread a 16-byte vector
         assert plan["route"] == "vector" and plan["aligned"]
-        assert plan["vectors"] == 32 and not plan["stage"]
+        assert plan["vectors"] == 32
         assert plan["grid"] == (oh * ow * 32 // 256, b, 1)
-        assert plan["smem_bytes"] == 0
-        return
-    assert plan["route"] == "pixel" and plan["tile"] == (8, 32)
-    assert plan["grid"] == (ow // 32, oh // 8, b)
-    assert plan["stage"] is stage
-    assert plan["smem_bytes"] == plan["window_bytes"] == (
-        bl.WARP_WINDOW_BYTES if stage else 0)
-    # eight staging blocks of 256 threads fit an H100 SM's 228 KB
-    assert 8 * (plan["smem_bytes"] + 1024) <= 228 * 1024
-    # the wrapper's launch reads through L1
-    assert not bl.warp_affine_plan(b, h, w, c, oh, ow,
-                                   torch.float32)["stage"]
+    else:
+        assert plan["route"] == "pixel" and plan["tile"] == (8, 32)
+        assert plan["grid"] == (ow // 32, oh // 8, b)
+    assert plan["threads"] == 256
 
 
 @pytest.mark.parametrize("dtype, c, route", [
@@ -223,22 +214,12 @@ def test_plan_at_the_coco_warps(name, stage):
 def test_plan_route_by_width(dtype, c, route):
     """One 16-byte vector a pixel at most takes the pixel route; wider C
     the vector route, aligned where C is a whole number of vectors."""
-    plan = bl.warp_affine_plan(2, 48, 48, c, 20, 40, dtype, stage=True)
+    plan = bl.warp_affine_plan(2, 37, 45, c, 20, 40, dtype)
     assert plan["route"] == route
     if route == "vector":
         assert plan["vectors"] == 2 and not plan["aligned"]
-        assert not plan["stage"]
     else:
-        assert plan["stage"]
-
-
-def test_plan_stages_only_whole_chunk_rows():
-    """A map row that is not a whole number of 16-byte chunks is never
-    staged: the window is copied 16 bytes at a time."""
-    plan = lambda w, c: bl.warp_affine_plan(2, 37, w, c, 29, 33,
-                                            torch.float32, stage=True)
-    assert not plan(45, 3)["stage"]
-    assert plan(45, 4)["stage"] and plan(48, 3)["stage"]
+        assert plan["grid"] == (2, 3, 2)
 
 
 @pytest.mark.parametrize("args, err", [

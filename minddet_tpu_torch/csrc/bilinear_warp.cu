@@ -46,8 +46,8 @@
 //   with cp.async (the rounded coordinates stay monotone, so the tile
 //   corners' bounding box grown by one pixel holds it) was slower on an
 //   H100 at every COCO warp, as was staging the output tile for 16-byte
-//   stores (PERF.md, PR 18): a block waits for its whole window before it
-//   computes.
+//   stores (PERF.md, section 6): a block waits for its whole window before
+//   it computes.
 // - The vector route, wider C (the GT bitmaps' 128 slots): one thread a
 //   16-byte vector of a pixel (4 f32 or 8 bf16 channels), the vectors of a
 //   pixel on neighbouring threads, as in the row gather; each thread maps

@@ -267,6 +267,25 @@ Phases (any failure raises and exits non-zero):
       device half of one batch on the device (the mosaic apart, and beside
       it the replaced K3f route). 6ai-6ak print their seconds beside the
       card.
+   al. the car config's own train step fed by the KITTI data path
+      (``pointpillars_kitti_train_entry``: f32, batch 4, AdamW with decay
+      1e-4 under ``exponential_decay``, the NaN guard; ``kitti_batches``
+      over 64 in-memory frames: the GT database built from them, the
+      sampler, the per-object noise, the global augmentation, four loader
+      threads): 12 steps, each on the next batch, no kernel launch, losses
+      finite, every step applied; then the same step on one fixed batch,
+      the copy of a raw batch to the card and the wait for the loader's
+      next one, apart;
+   am. the same for the ped_cycle config (Cyclist, Pedestrian);
+   an. ``kitti_evaluate`` (``pointpillars_kitti_eval_entry``: the car
+      config's seeded f32 model over 256 in-memory frames, batch 4, score
+      threshold 0.3, bbox / bev / 3d and AOS): K4 once per predict batch
+      and once each for the bev and 3d overlaps; ms per frame split into
+      load, copy, predict, annos, overlaps and the host's evaluator; the
+      12 table numbers;
+   ao. ped_cycle serving (``pointpillars_ped_cycle_entry``: 2 classes,
+      grid 248 x 296, 293,632 anchors, f32) at batch 1 and 4 as 6c: K4 once
+      per request.
 
 Phase 3 also holds the affine warp kernel (``bilinear_warp_affine_fwd``,
 ``csrc/bilinear_warp.cu``) at the COCO path's warps (``check_coco_warp``):
@@ -276,7 +295,16 @@ the (512, 768) and (768, 768) buckets, one of the mosaic's four warps (16,
 against its plain version (``GATHER_TOL``), its difference from the route
 it replaced (the corners, the pad, K3f, the slice) printed, expected 0;
 the launch, the whole ``warp_images`` call and ``F.grid_sample`` timed
-beside the replaced route's parts. Phase 4q is the f32 COCO path card against CPU
+beside the replaced route's parts. Phase 3's K4 cases also take the
+KITTI evaluator's overlap chunk, (256, 24, 5) x (256, 100, 5) camera-frame
+BEV boxes (the bev and the 3d overlaps give K4 the same input) with
+DontCare rows (location -1000, dimensions -1) and zero-padded rows
+(``kitti_eval_chunk``), and the KITTI
+evaluation's predict batch (4, 900, 5)^2. Phase 4r is the car config's f32
+KITTI eval path card against CPU (``check_kitti_f32``): detections of 8
+in-memory frames matched one to one by box, every metric's overlaps
+within ``IOU_TOL`` and every AP / AOS entry within 1e-6 on the same annos.
+Phase 4q is the f32 COCO path card against CPU
 (``check_coco_f32``): ``centernet_evaluate`` on 8 in-memory images in two
 buckets, the warped inputs, the raw top-100 scores, soft-NMS on the CPU's
 inputs, the card's AP@[.5:.95] against the CPU's final detections as GT
@@ -305,6 +333,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the f32
@@ -886,6 +915,7 @@ CP_PROPOSALS = 128  # num_proposals of the two-stage train step
 # CenterPoint request over its tasks stacked on the sample axis
 IOU_SHAPES = tuple((b, PP_CANDIDATES) for b in PP_BATCHES) + tuple(
     (CP_TASKS * b, CP_CANDIDATES) for b in CP_BATCHES)
+KITTI_EVAL_BATCH = 4  # kitti_evaluate's predict batch (ped_cycle serves 4)
 # the exact cases of tests/test_rotated_iou.py:203-219
 IOU_EXACT_BOXES = ((0.0, 0.0, 2.0, 4.0, 0.0),
                    (0.0, 0.0, 2.0, 4.0, math.pi / 2),
@@ -1078,14 +1108,66 @@ def decode_program_boxes() -> torch.Tensor:
     return decode_candidates_bev(*maps, DECODE_CANDIDATES)[1][None]
 
 
+KITTI_EVAL_CHUNK = (256, 24, 100)  # (frames, GT slots, detection slots)
+KITTI_CHUNK_CLASSES = ("Car", "Pedestrian", "Cyclist")
+
+
+def kitti_eval_chunk(seed: int = 13):
+    """One chunk of the KITTI evaluator's overlap calls (``data/
+    kitti_eval.py:calculate_overlaps``) as it pads it: the camera-frame
+    labels of ``synthetic_kitti_records(256)`` (DontCare rows at location
+    -1000 with dimensions -1 included) in 24 slots, and per frame 1 to 100
+    detections in 100 slots (half jittered labels, heading within 0.2 rad,
+    half anywhere 2-60 m ahead), zero-padded; the boxes [x, z, l, w, -ry],
+    which is both the bev metric's layout and the BEV slice that
+    ``rotated_iou_3d`` gives K4 for the 3d one. Returns ((256, 24, 5),
+    (256, 100, 5)) on the CPU."""
+    from minddet_tpu_torch.data.kitti_eval import _metric_boxes
+    from minddet_tpu_torch.train.synthetic import synthetic_kitti_records
+
+    frames, slots_g, slots_d = KITTI_EVAL_CHUNK
+    rs = np.random.RandomState(seed)
+    recs = synthetic_kitti_records(frames, seed=seed,
+                                   classes=KITTI_CHUNK_CLASSES)
+    gt = [{k[5:]: v for k, v in r.items() if k.startswith("anno_")}
+          for r in recs]
+    dt = []
+    for g in gt:
+        n = rs.randint(1, slots_d + 1)
+        real = np.nonzero(g["name"] != "DontCare")[0]
+        src = real[rs.randint(0, len(real), n)]
+        loc = g["location"][src] + rs.uniform(-0.5, 0.5, (n, 3))
+        far = rs.rand(n) < 0.5
+        loc[far] = np.stack([rs.uniform(-30, 30, far.sum()),
+                             np.full(far.sum(), 1.7),
+                             rs.uniform(2, 60, far.sum())], -1)
+        dt.append({"location": loc.astype(np.float32),
+                   "dimensions": (g["dimensions"][src] * rs.uniform(
+                       0.8, 1.2, (n, 3))).astype(np.float32),
+                   "rotation_y": (g["rotation_y"][src] + rs.uniform(
+                       -0.2, 0.2, n)).astype(np.float32)})
+    out = []
+    for annos, slots in ((gt, slots_g), (dt, slots_d)):
+        pad = np.zeros((frames, slots, 5), np.float32)
+        for i, a in enumerate(annos):
+            b = _metric_boxes(a, "bev")
+            pad[i, :len(b)] = b
+        out.append(torch.from_numpy(pad))
+    return tuple(out)
+
+
 def check_rotated_iou_kernel(dev, gen, pc_range):
     """Phase 3: rotated_iou_intersect (K4) against its plain version at the
     rotated NMS's shapes (``IOU_SHAPES``: (B, 900, 5)^2 for PointPillars,
     (6 B, 1000, 5)^2 for CenterPoint), at the two-stage train step's
     (8, 128, 5) x (8, 64, 5) over ``pc_range`` (a quarter of the
-    ground-truth slots empty: zero-size boxes), at the decode program's
-    (1, 1000, 5)^2 on its own candidates (``decode_program_boxes``), on
-    pairs that nearly touch
+    ground-truth slots empty: zero-size boxes), at the KITTI evaluation's
+    predict batch (4, 900, 5)^2, at the KITTI evaluator's overlap chunk
+    (256, 24, 5) x (256, 100, 5) of camera-frame BEV boxes, the bev and
+    the 3d overlaps' one K4 input (``kitti_eval_chunk``: DontCare rows and
+    zero-padded rows), at the
+    decode program's (1, 1000, 5)^2 on its own candidates
+    (``decode_program_boxes``), on pairs that nearly touch
     (``near_touching_boxes``), on one sample of candidates from a few tight
     clusters (``clustered_candidates``) and on the exact cases. Each case
     reports the share of pairs the separation test leaves to the clip, in
@@ -1110,12 +1192,19 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
                                       torch.Generator().manual_seed(5))
     shapes = [("candidates", b, n) for b, n in IOU_SHAPES]
     shapes += [("train", TRAIN_CP_BATCH, CP_PROPOSALS),
+               ("eval_candidates", KITTI_EVAL_BATCH, PP_CANDIDATES),
+               ("kitti_eval", KITTI_EVAL_CHUNK[0], KITTI_EVAL_CHUNK[1]),
                ("decode_nms", 1, DECODE_CANDIDATES),
                ("near_touching", 1, NEAR_PAIRS),
                ("dense_clusters", 1, DENSE_BOXES)]
     for kind, b, n in shapes:
         if kind == "train":
             boxes, others = (t.to(dev) for t in train_pair)
+        elif kind == "eval_candidates":  # a generator of its own
+            boxes = others = candidate_boxes(
+                b, n, torch.Generator().manual_seed(14)).to(dev)
+        elif kind == "kitti_eval":
+            boxes, others = (t.to(dev) for t in kitti_eval_chunk())
         elif kind == "decode_nms":
             boxes = others = decode_program_boxes().to(dev)
         elif kind == "near_touching":
@@ -2156,7 +2245,7 @@ PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61,
                "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
                "5m": 76, "5n": 77, "4n": 80, "4o": 81, "4p": 82, "5o": 83,
-               "5p": 84, "5q": 85, "4q": 86}
+               "5p": 84, "5q": 85, "4q": 86, "4r": 87}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -7044,6 +7133,380 @@ def coco_mosaic_main_path(dev, card):
     return out
 
 
+# the KITTI data, train and eval paths (the car and ped_cycle configs)
+KITTI_CHECK_FRAMES = 8  # 4r: frames predicted on the card and the CPU
+KITTI_SCORE_THRESHOLD = 0.3  # kitti_evaluate's detections
+KITTI_MATCH_TOL = (1e-3, 1e-4)  # 4r: box (m, rad) and score of a match
+KITTI_MATCHED_SHARE = 0.95  # of the CPU's detections found on the card
+KITTI_AP_TOL = 1e-6  # 4r: every table entry, card overlaps vs the CPU's
+KITTI_TRAIN_STEPS = 12  # 6al / 6am: TRAIN_WARMUP + TRAIN_STEPS fed steps
+KITTI_LOADER_BATCHES = 8  # 6al / 6am: the one-thread loader's batches
+KITTI_SERVE_BATCHES = (1, 4)  # 6ao
+
+
+def _kitti_gt_annos(exs):
+    return [{"name": np.asarray(e["anno_name"]), "bbox": e["anno_bbox"],
+             "alpha": e["anno_alpha"], "occluded": e["anno_occluded"],
+             "truncated": e["anno_truncated"],
+             "location": e["anno_location"],
+             "dimensions": e["anno_dimensions"],
+             "rotation_y": e["anno_rotation_y"]} for e in exs]
+
+
+def _kitti_jittered(gt, rs):
+    """Detections made from the labels (DontCare left out): location
+    +-0.3 m, sizes +-10 %, heading +-0.1 rad, image box +-4 px, alpha
+    +-0.2, scores uniform in (0.3, 1): a table with entries above 0."""
+    real = np.nonzero(gt["name"] != "DontCare")[0]
+    n = len(real)
+    return {"name": gt["name"][real].astype("U16"),
+            "bbox": (gt["bbox"][real] + rs.uniform(-4, 4, (n, 4))).astype(
+                np.float32),
+            "location": (gt["location"][real] + rs.uniform(
+                -0.3, 0.3, (n, 3))).astype(np.float32),
+            "dimensions": (gt["dimensions"][real] * rs.uniform(
+                0.9, 1.1, (n, 3))).astype(np.float32),
+            "rotation_y": (gt["rotation_y"][real] + rs.uniform(
+                -0.1, 0.1, n)).astype(np.float32),
+            "alpha": (gt["alpha"][real] + rs.uniform(-0.2, 0.2, n)).astype(
+                np.float32),
+            "score": rs.uniform(0.3, 1.0, n).astype(np.float32),
+            "occluded": np.zeros(n, np.int64),
+            "truncated": np.zeros(n, np.float32)}
+
+
+def _kitti_matched(got, ref):
+    """Share of the CPU's detections above the threshold (boxes (n, 7),
+    scores) that a card detection matches one to one by box (x, y, z, w,
+    l, h within KITTI_MATCH_TOL[0], the heading modulo 2 pi) and score
+    (KITTI_MATCH_TOL[1])."""
+    gb, gs = got
+    rb, rsc = ref
+    used = np.zeros(len(gb), bool)
+    hits = 0
+    for b, sc in zip(rb, rsc):
+        d = np.abs(gb[:, :6] - b[:6]).max(1) if len(gb) else np.zeros(0)
+        dyaw = np.abs(np.remainder(gb[:, 6] - b[6] + np.pi, 2 * np.pi)
+                      - np.pi) if len(gb) else np.zeros(0)
+        ok = (~used & (np.maximum(d, dyaw) <= KITTI_MATCH_TOL[0])
+              & (np.abs(gs - sc) <= KITTI_MATCH_TOL[1]))
+        if ok.any():
+            used[int(np.argmax(ok))] = True
+            hits += 1
+    return hits / max(len(rb), 1)
+
+
+def check_kitti_f32(dev):
+    """Phase 4r: the car config's KITTI eval path in f32 (TF32 off), card
+    against CPU. ``predict_from_points`` on KITTI_CHECK_FRAMES frames of
+    ``synthetic_kitti_records`` (through ``KittiDetection`` with the raw
+    labels, batches of 4 as ``kitti_evaluate`` predicts them), heads
+    calibrated on the first batch (``calibrate_heads``): the CPU's
+    detections above the protocol's 0.3 matched one to one by box on the
+    card (at least KITTI_MATCHED_SHARE). Then the evaluator on the same GT
+    and detection annos (the CPU's detections and jittered copies of the
+    labels, so that the table has entries): every metric's overlaps on the
+    card (K4 for bev and 3d) within ``IOU_TOL`` of the CPU's plain ones,
+    and every AP / AOS entry of ``get_official_eval_result`` within
+    KITTI_AP_TOL. The host augmentations (``global_augment``,
+    ``noise_per_object``, the sampler) are checked on the CPU only, by the
+    CPU tests."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.kitti import (KittiDetection,
+                                              detections_to_kitti_annos)
+    from minddet_tpu_torch.data.kitti_eval import (calculate_overlaps,
+                                                   get_official_eval_result)
+    from minddet_tpu_torch.entry import build_pointpillars
+    from minddet_tpu_torch.train.synthetic import synthetic_kitti_records
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ds = KittiDetection(synthetic_kitti_records(
+            KITTI_CHECK_FRAMES, seed=PHASE_SEEDS["4r"]), keep_raw=True)
+        exs = [ds[i] for i in range(KITTI_CHECK_FRAMES)]
+        points = torch.from_numpy(np.stack([e["points"] for e in exs]))
+        pmask = torch.from_numpy(np.stack([e["points_mask"] for e in exs]))
+        cpu = build_pointpillars("cpu")
+        calibrate_heads(cpu, points[:KITTI_EVAL_BATCH],
+                        pmask[:KITTI_EVAL_BATCH])
+        gpu = build_pointpillars(dev)
+        gpu.load_state_dict(cpu.state_dict())
+        kernels.reset_launches()
+        det_g, det_c = [], []
+        for s0 in range(0, KITTI_CHECK_FRAMES, KITTI_EVAL_BATCH):
+            sl = slice(s0, s0 + KITTI_EVAL_BATCH)
+            for model, out, where in ((gpu, det_g, dev), (cpu, det_c, "cpu")):
+                d = model.predict_from_points(points[sl].to(where),
+                                              pmask[sl].to(where))
+                out += [{k: d[k][i].cpu().numpy() for k in
+                         ("boxes", "scores", "labels")}
+                        for i in range(d["boxes"].shape[0])]
+        predict_launches = kernels.ROTATED_IOU.launches
+        result, bad = {}, []
+        shares, kept = [], []
+        for g, c in zip(det_g, det_c):
+            kg, kc = g["scores"] > KITTI_SCORE_THRESHOLD, \
+                c["scores"] > KITTI_SCORE_THRESHOLD
+            kept.append(int(kc.sum()))
+            shares.append(_kitti_matched((g["boxes"][kg], g["scores"][kg]),
+                                         (c["boxes"][kc], c["scores"][kc])))
+        result.update(detections_cpu=kept, matched_share=min(shares),
+                      predict_launches=predict_launches)
+        if min(kept) == 0 or min(shares) < KITTI_MATCHED_SHARE:
+            bad.append("detections")
+        gt = _kitti_gt_annos(exs)
+        rs = np.random.RandomState(PHASE_SEEDS["4r"])
+        dt = []
+        for e, c, g in zip(exs, det_c, gt):
+            k = c["scores"] > KITTI_SCORE_THRESHOLD
+            a = detections_to_kitti_annos(
+                c["boxes"][k], c["scores"][k], c["labels"][k], ("Car",),
+                e["Trv2c_rect"], e["P2"], e["img_shape"])
+            j = _kitti_jittered(g, rs)
+            dt.append({key: np.concatenate([a[key], j[key]]) for key in a})
+        atol, rtol = IOU_TOL
+        for metric in ("bbox", "bev", "3d"):
+            kernels.reset_launches()
+            og = calculate_overlaps(gt, dt, metric, device=dev)
+            launched = kernels.ROTATED_IOU.launches
+            oc = calculate_overlaps(gt, dt, metric, device="cpu")
+            err = max(float(np.abs(a - b).max()) for a, b in zip(og, oc)
+                      if a.size)
+            near = sum(int((np.abs(b - 0.7) < atol).sum()) for b in oc)
+            result[f"{metric}_overlap_max_abs_err"] = err
+            result[f"{metric}_near_0.7"] = near
+            result[f"{metric}_k4_launches"] = launched
+            if not all(np.allclose(a, b, rtol=rtol, atol=atol)
+                       for a, b in zip(og, oc)):
+                bad.append(f"{metric} overlaps")
+            if launched != int(metric != "bbox"):
+                bad.append(f"{metric}: {launched} K4 launches (want "
+                           f"{int(metric != 'bbox')})")
+        tg = get_official_eval_result(gt, dt, compute_aos=True, device=dev)
+        tc = get_official_eval_result(gt, dt, compute_aos=True,
+                                      device="cpu")
+        diff = max(abs(a - b) for m in tc["Car"]
+                   for a, b in zip(tg["Car"][m], tc["Car"][m]))
+        result.update(table_card=tg["Car"], table_cpu=tc["Car"],
+                      table_max_abs_diff=diff)
+        if diff > KITTI_AP_TOL:
+            bad.append("AP / AOS table")
+        if max(tc["Car"]["3d"]) <= 0:
+            bad.append("a table of zeros: the check tests nothing")
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    print("  f32 KITTI eval path card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 KITTI eval path, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+def _loader_ms_per_batch(data, batch, workers, n):
+    """The loader's own rate: a fresh ``kitti_batches`` over ``data`` at
+    ``workers`` threads, its first ``n`` batches taken back to back from
+    its start, less the GT database's build (timed apart on the same
+    frames). Returns (ms per batch, ms of the database's build, the first
+    batch)."""
+    from minddet_tpu_torch.data.gt_sampler import build_gt_database
+    from minddet_tpu_torch.data.kitti import KittiDetection
+    from minddet_tpu_torch.entry import SEED
+    from minddet_tpu_torch.train.synthetic import kitti_batches
+
+    t0 = time.perf_counter()
+    build_gt_database(KittiDetection(data["records"]), data["classes"])
+    db_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it = kitti_batches({"data": dict(data, workers=workers)}, batch,
+                       seed=SEED)
+    first = next(it)
+    for _ in range(n - 1):
+        next(it)
+    total = time.perf_counter() - t0
+    it.close()
+    return (total - db_s) / n * 1e3, db_s * 1e3, first
+
+
+def kitti_train_main_path(dev, card, config, label):
+    """Phases 6al (the car config) and 6am (ped_cycle): the config's train
+    step fed by ``kitti_batches`` (``pointpillars_kitti_train_entry``: f32,
+    batch 4, AdamW with decay 1e-4 under ``exponential_decay``, the NaN
+    guard; 64 in-memory frames, the GT database built from them, four
+    loader threads), KITTI_TRAIN_STEPS steps, each on the next batch,
+    launch counts from 0: no kernel launches (a one-layer PFN, axis-aligned
+    assignment IoUs); every loss finite and every step applied; the wait
+    for each next batch (the loader, then the copy) timed apart from the
+    step. Then apart: the same step on one fixed batch (what the data path
+    adds), the copy of a raw batch to the card, and the loader's own rate
+    (``_loader_ms_per_batch``: one epoch from a fresh ``kitti_batches`` at
+    four threads, KITTI_LOADER_BATCHES batches at one).
+    ms on the host clock around synced work."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (KITTI_BATCH_KEYS,
+                                         KITTI_TRAIN_FRAMES, SEED,
+                                         pointpillars_config,
+                                         pointpillars_kitti_train_entry)
+    from minddet_tpu_torch.train.synthetic import synthetic_kitti_records
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn, (state, batches) = pointpillars_kitti_train_entry(
+        device=dev, config=config)
+    kernels.reset_launches()
+    history, times, waits = [], [], []
+    for i in range(KITTI_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        if i == 0:
+            first_ms = (t1 - t0) * 1e3
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t0)
+            waits.append(t1 - t0)
+    batches.close()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    fixed = []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            fixed.append(time.perf_counter() - t0)
+    applied = int(state.optimizer.param_groups[0]["count"])
+    cfg = pointpillars_config(config)
+    b = int(cfg["train"]["batch_size"])
+    data = dict(cfg["data"])
+    data["records"] = synthetic_kitti_records(KITTI_TRAIN_FRAMES, seed=SEED,
+                                              classes=data["classes"])
+    loader_ms, db_ms, raw = _loader_ms_per_batch(
+        data, b, int(data["workers"]), KITTI_TRAIN_FRAMES // b)
+    loader_one_thread_ms, _, _ = _loader_ms_per_batch(data, b, 1,
+                                                      KITTI_LOADER_BATCHES)
+    copies = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        {k: torch.from_numpy(raw[k]).to(dev) for k in KITTI_BATCH_KEYS}
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    mean_s, fixed_s = statistics.mean(times), statistics.mean(fixed)
+    out = dict(config=str(config), classes=list(data["classes"]), batch=b,
+               steps=KITTI_TRAIN_STEPS, timed_steps=len(times),
+               ms_per_step=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3,
+               clouds_per_s=b / mean_s, fixed_batch_ms_per_step=fixed_s * 1e3,
+               data_path_ms_per_step=(mean_s - fixed_s) * 1e3,
+               next_batch_ms=statistics.mean(waits) * 1e3,
+               next_batch_ms_max=max(waits) * 1e3,
+               first_batch_ms=first_ms,
+               h2d_copy_ms=statistics.median(copies) * 1e3,
+               h2d_bytes=int(sum(raw[k].nbytes for k in KITTI_BATCH_KEYS)),
+               gt_database_ms=db_ms, loader_ms_per_batch=loader_ms,
+               loader_ms_per_batch_one_thread=loader_one_thread_ms,
+               valid_boxes=int(batch["gt_mask"].sum()),
+               steps_applied=applied, max_memory_allocated=peak,
+               losses=[m["loss"] for m in history], last_step=history[-1],
+               launches=launches, card=card)
+    print(f"  {label} step fed by kitti_batches, batch {b}: "
+          f"{out['ms_per_step']:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
+          f"{out['clouds_per_s']:.1f} clouds/s, of it the wait for the next "
+          f"batch {out['next_batch_ms']:.3f} ms (max "
+          f"{out['next_batch_ms_max']:.3f}; the first, with the GT database, "
+          f"{first_ms:.1f} ms); on one fixed batch "
+          f"{out['fixed_batch_ms_per_step']:.3f} ms/step, so the data path "
+          f"adds {out['data_path_ms_per_step']:.3f} ms; copy of a raw batch "
+          f"({out['h2d_bytes'] / 1e6:.2f} MB) {out['h2d_copy_ms']:.3f} ms; "
+          f"the loader alone {loader_ms:.1f} ms a batch at "
+          f"{data['workers']} threads, {loader_one_thread_ms:.1f} at one "
+          f"(the GT database {db_ms:.1f} ms apart); "
+          f"{out['valid_boxes']} boxes in the last batch; peak "
+          f"{peak / 2 ** 30:.2f} GiB; {card}", flush=True)
+    print("  losses: " + " ".join(f"{v:.4f}" for v in out["losses"]),
+          flush=True)
+    if not all(math.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"{label}: the KITTI-fed step is not finite: "
+                             f"{history}")
+    if applied != KITTI_TRAIN_STEPS + TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError(f"{label}: {applied} steps applied of "
+                             f"{KITTI_TRAIN_STEPS + TRAIN_WARMUP + TRAIN_STEPS}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: {launches} in {KITTI_TRAIN_STEPS} "
+                             f"steps (want no kernel launch)")
+    print(f"  kernels: {launches}: none: True", flush=True)
+    return out
+
+
+def kitti_eval_main_path(dev, card):
+    """Phase 6an: ``pointpillars_kitti_eval_entry`` (the car config's
+    seeded f32 model, 256 in-memory frames: one whole chunk of the
+    evaluator's overlaps) after one warm-up predict, launch counts from 0:
+    K4 once per predict batch of 4 (the NMS) and once each for the bev and
+    3d overlaps, nothing else. Reports ms per frame split into load, copy,
+    predict, annos, overlaps (bbox, bev, 3d on the card) and the host's
+    evaluator, and the 12 table numbers (near 0: seeded weights)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (KITTI_EVAL_FRAMES,
+                                         pointpillars_kitti_eval_entry)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    evaluate_fn, (model, ds) = pointpillars_kitti_eval_entry(device=dev)
+    n = len(ds)
+    pts = np.zeros((KITTI_EVAL_BATCH, ds.max_points, 4), np.float32)
+    raw = ds.records[0]["points"][:ds.max_points]
+    pts[:, :len(raw)] = raw
+    model.predict_from_points(torch.from_numpy(pts).to(dev),
+                              torch.ones(pts.shape[:2], dtype=torch.bool,
+                                         device=dev))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    table = evaluate_fn(model, ds, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    batches = -(-n // KITTI_EVAL_BATCH)
+    want = {k.name: (batches + 2) * (k is kernels.ROTATED_IOU)
+            for k in kernels.KERNELS}
+    numbers = [v for m in ("bbox", "bev", "3d", "aos")
+               for v in table["Car"][m]]
+    out = dict(frames=n, predict_batches=batches, ms_per_frame=wall / n * 1e3,
+               part_ms_per_frame={k: v / n * 1e3
+                                  for k, v in timings.items()},
+               table=table, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               card=card)
+    print(f"  kitti_evaluate, {n} frames, {batches} predict batches: "
+          f"{out['ms_per_frame']:.3f} ms per frame = " + " + ".join(
+              f"{k} {v:.3f}" for k, v in out["part_ms_per_frame"].items())
+          + f"; {card}", flush=True)
+    print("  Car AP (easy, moderate, hard): " + "; ".join(
+        f"{m} " + " / ".join(f"{v:.4f}" for v in table["Car"][m])
+        for m in ("bbox", "bev", "3d", "aos")), flush=True)
+    if set(table) != {"Car"} or len(numbers) != 12 or not all(
+            math.isfinite(v) and 0 <= v <= 100 for v in numbers):
+        raise AssertionError(f"the KITTI table is not 12 numbers in [0, "
+                             f"100]: {table}")
+    if launches != want:
+        raise AssertionError(f"{launches} for {batches} predict batches of "
+                             f"{n} frames (want {want})")
+    print(f"  kernels: {launches}: one K4 a predict batch and one each for "
+          f"the bev and 3d overlaps: True", flush=True)
+    return out
+
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
@@ -7289,6 +7752,10 @@ def main(argv=None) -> int:
     print("phase 4q: the f32 COCO eval and train data path, card vs CPU",
           flush=True)
     coco_f32 = timed_phase("4q", card, check_coco_f32, dev, _seeded("4q"))
+    torch.cuda.empty_cache()
+    print("phase 4r: the f32 KITTI eval path (car config), card vs CPU",
+          flush=True)
+    kitti_f32 = timed_phase("4r", card, check_kitti_f32, dev)
     torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
@@ -7566,6 +8033,44 @@ def main(argv=None) -> int:
           f"{COCO_TRAIN_BATCH}", flush=True)
     coco_mosaic = timed_phase("6ak", card, coco_mosaic_main_path, dev, card)
     torch.cuda.empty_cache()
+    from minddet_tpu_torch.entry import (PP_CAR_CONFIG, PP_PED_CYCLE_CONFIG,
+                                         pointpillars_ped_cycle_entry)
+
+    print("phase 6al: main path, the car config's f32 train step fed by "
+          "kitti_batches at batch 4", flush=True)
+    kitti_training = timed_phase("6al", card, kitti_train_main_path, dev,
+                                 card, PP_CAR_CONFIG, "car")
+    torch.cuda.empty_cache()
+    print("phase 6am: main path, the ped_cycle config's f32 train step fed "
+          "by kitti_batches at batch 4", flush=True)
+    kitti_ped_training = timed_phase("6am", card, kitti_train_main_path, dev,
+                                     card, PP_PED_CYCLE_CONFIG, "ped_cycle")
+    torch.cuda.empty_cache()
+    print("phase 6an: main path, kitti_evaluate on 256 frames (car, f32)",
+          flush=True)
+    kitti_eval = timed_phase("6an", card, kitti_eval_main_path, dev, card)
+    torch.cuda.empty_cache()
+    print("phase 6ao: main path, PointPillars ped_cycle f32 serving",
+          flush=True)
+    t0 = time.perf_counter()
+    ped_programs = {b: pointpillars_ped_cycle_entry(device=dev, batch=b)
+                    for b in KITTI_SERVE_BATCHES}
+    kernels.reset_launches()
+    ped_serving, ped_predicts = serve_clouds(
+        "PointPillars ped_cycle", ped_programs, dev,
+        _check_pointpillars_detections)
+    ped_launches = {k.name: k.launches for k in kernels.KERNELS}
+    if ped_launches != {k.name: ped_predicts * int(k is kernels.ROTATED_IOU)
+                        for k in kernels.KERNELS}:
+        raise AssertionError(f"ped_cycle serving launched {ped_launches} "
+                             f"for {ped_predicts} requests (want one "
+                             f"rotated_iou_intersect each, nothing else)")
+    print(f"  kernels: rotated_iou_intersect launches="
+          f"{ped_launches['rotated_iou_intersect']} requests={ped_predicts} "
+          f"launches == requests: True; phase 6ao: "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    del ped_programs
+    torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -7616,18 +8121,26 @@ def main(argv=None) -> int:
                     + train_dcn4_launches["hat_sample_taps_bwd"], bwd_main,
                     DCN_CALLS_PER_SHAPE, bwd_cases),
         # K4: one batch-8 PointPillars request's call, one batch-4
-        # CenterPoint request's, one CenterPoint train step's and one
-        # iteration of the decode program's
+        # CenterPoint request's, one CenterPoint train step's, one
+        # iteration of the decode program's, one batch-4 ped_cycle
+        # request's, and of the KITTI evaluation one predict batch's and the
+        # bev and 3d overlaps' calls
         _kernel_row(kernels.ROTATED_IOU,
                     pp_launches["rotated_iou_intersect"]
                     + cp_launches["rotated_iou_intersect"]
                     + cp_train_launches["rotated_iou_intersect"]
-                    + decode["launches"]["rotated_iou_intersect"],
-                    [c for c in iou_cases if c["shape"][:2] in (
+                    + decode["launches"]["rotated_iou_intersect"]
+                    + kitti_eval["launches"]["rotated_iou_intersect"]
+                    + ped_launches["rotated_iou_intersect"],
+                    [c for c in iou_cases if c["kind"] in (
+                        "candidates", "train") and c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
                         [CP_TASKS * CP_BATCHES[-1], CP_CANDIDATES],
                         [TRAIN_CP_BATCH, CP_PROPOSALS])
-                     or c["kind"] == "decode_nms"], 1, iou_cases),
+                     or c["kind"] == "decode_nms"]
+                    + 2 * [c for c in iou_cases if c["kind"] in (
+                        "eval_candidates", "kitti_eval")], 1,
+                    iou_cases),
         # K5f: one f32 batch-4 CenterPoint request's call and one bf16
         # batch-8 step's of each CenterPoint train path (two- and
         # single-stage); K5b those two steps' calls
@@ -7750,6 +8263,11 @@ def main(argv=None) -> int:
                            coco_warp_cases=warp_cases, coco_f32=coco_f32,
                            coco_training=coco_training, coco_eval=coco_eval,
                            coco_mosaic=coco_mosaic,
+                           kitti_f32=kitti_f32, kitti_training=kitti_training,
+                           kitti_ped_cycle_training=kitti_ped_training,
+                           kitti_eval=kitti_eval,
+                           ped_cycle_serving=ped_serving,
+                           ped_cycle_launches=ped_launches,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -121,22 +121,43 @@ the reference's protocol (scale 1, keep-res buckets of 128 on a 1024 x 1024
 canvas, batch 4, per-class Gaussian soft-NMS, the top-100 merge) for the
 bf16 flagship on the same in-memory set: one K3f launch per batch for the
 warp.
+
+``build_pointpillars(config=...)`` reads a PointPillars configuration
+(``configs/pointpillars_car_kitti.yaml``, the default, or
+``pointpillars_ped_cycle_kitti.yaml``: 2 classes, grid 248x296, RPN strides
+(1, 2, 2), 4 anchors per cell, 293,632 anchors); ``rpn_space_to_depth``,
+a TPU layout of the same function, is not taken.
+``pointpillars_ped_cycle_entry()`` serves the ped_cycle model as
+``pointpillars_entry()`` serves the car one (one K4 launch per request).
+``pointpillars_kitti_train_entry()`` is a configuration's own train
+section, nothing cut: f32, batch 4, AdamW with decay 1e-4 under
+``exponential_decay(2e-4, 27840, 0.8)`` inside the NaN guard, fed by
+``kitti_batches`` over KITTI-like frames in memory (the GT database, the
+sampler, the per-object noise, the global augmentation, four loader
+threads); it launches no hand-written kernel.
+``pointpillars_kitti_eval_entry()`` is ``kitti_evaluate`` (the official
+KITTI table: bbox, BEV, 3D, AOS) over 256 in-memory frames: K4 once per
+predict batch and once each for the BEV and 3D overlaps.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Sequence, Tuple
+import functools
+from pathlib import Path
+from typing import Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from minddet_tpu_torch.core.lr_schedules import (Schedule, linear_warmup,
+from minddet_tpu_torch.core.lr_schedules import (Schedule, exponential_decay,
+                                                  linear_warmup,
                                                   multi_epochs_decay,
                                                   polynomial_decay,
                                                   warmup_cosine)
 from minddet_tpu_torch.core.optim import (Recipe, adam, adamw, sgd,
                                           skip_nonfinite_updates)
 from minddet_tpu_torch.data.coco import CocoDetection
+from minddet_tpu_torch.data.kitti import KittiDetection
 from minddet_tpu_torch.data.seg import seg_normalize
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
@@ -157,11 +178,14 @@ from minddet_tpu_torch.models.segmentors import (DeepLabV3, DeepLabV3Plus,
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
-from minddet_tpu_torch.train.evaluate import centernet_evaluate
+from minddet_tpu_torch.train.evaluate import (centernet_evaluate,
+                                              kitti_evaluate)
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
 from minddet_tpu_torch.train.synthetic import (COCO_SIZES, coco_batches,
+                                               kitti_batches,
                                                synthetic_coco_records,
                                                synthetic_detection_batch,
+                                               synthetic_kitti_records,
                                                synthetic_seg_batches)
 
 RES = 512
@@ -387,13 +411,57 @@ def _draw_clouds(rs: np.random.RandomState, batch: int, pc_range,
     return np.stack(feats, -1).astype(np.float32), np.ones(size, bool)
 
 
-def build_pointpillars(device=None) -> PointPillars:
-    """The KITTI car PointPillars of ``configs/pointpillars_car_kitti.yaml``
-    (grid 496x432, PFN (64,), RPN (3, 5, 5), 107,136 anchors, max_voxels
-    16000, 32 points per pillar, sorted drop order) in eval mode, f32,
-    with flax's default initialisers drawn from ``SEED``."""
+CONFIGS = Path(__file__).resolve().parent.parent / "configs"
+PP_CAR_CONFIG = CONFIGS / "pointpillars_car_kitti.yaml"
+PP_PED_CYCLE_CONFIG = CONFIGS / "pointpillars_ped_cycle_kitti.yaml"
+# the config's model keys that the port's PointPillars takes as they are;
+# rpn_space_to_depth is a TPU layout of the same function (the port keeps
+# its layout), and type names the class
+PP_MODEL_KEYS = ("num_classes", "grid_ny", "grid_nx", "voxel_size",
+                 "pc_range", "loc_weight", "dir_weight", "rpn_strides",
+                 "num_anchor_per_loc", "anchor_sizes", "anchor_strides",
+                 "anchor_offsets", "matched_thresholds",
+                 "unmatched_thresholds", "max_voxels", "max_points_per_voxel")
+PP_IGNORED_KEYS = ("type", "rpn_space_to_depth")
+
+
+def pointpillars_config(config=PP_CAR_CONFIG) -> Dict:
+    """A PointPillars configuration: ``config`` itself where it is a
+    mapping, else the YAML file at that path."""
+    if isinstance(config, Mapping):
+        return dict(config)
+    import yaml
+
+    with open(config) as f:
+        return yaml.safe_load(f)
+
+
+def pointpillars_kwargs(cfg: Mapping) -> Dict:
+    """The ``PointPillars`` arguments of a configuration's model section
+    (lists as tuples); a key the port does not know raises."""
+    mcfg = dict(cfg["model"])
+    unknown = set(mcfg) - set(PP_MODEL_KEYS) - set(PP_IGNORED_KEYS)
+    if unknown:
+        raise ValueError(f"PointPillars config keys not ported: {unknown}")
+
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+
+    return {k: tup(v) for k, v in mcfg.items() if k in PP_MODEL_KEYS}
+
+
+def build_pointpillars(device=None, config=PP_CAR_CONFIG) -> PointPillars:
+    """The PointPillars of ``config`` (``pointpillars_config``; the KITTI
+    car model of ``configs/pointpillars_car_kitti.yaml`` by default: grid
+    496x432, PFN (64,), RPN (3, 5, 5), 107,136 anchors, max_voxels 16000, 32
+    points per pillar, sorted drop order; ``pointpillars_ped_cycle_kitti``:
+    2 classes, grid 248x296, RPN strides (1, 2, 2), 4 anchors per cell,
+    293,632 anchors) in eval mode, f32, with flax's default initialisers
+    drawn from ``SEED``."""
     dev = resolve_device(device)
-    model = PointPillars().init_weights(torch.Generator().manual_seed(SEED))
+    model = PointPillars(**pointpillars_kwargs(
+        pointpillars_config(config))).init_weights(
+        torch.Generator().manual_seed(SEED))
     return model.eval().to(device=dev, memory_format=torch.channels_last)
 
 
@@ -405,6 +473,19 @@ def pointpillars_entry(device=None, batch: int = 1
     0.09, top 900, NMS IoU 0.1, 300 kept): boxes (batch, 300, 7), scores,
     labels. The clouds are ``synthetic_clouds(batch)``."""
     model = build_pointpillars(device)
+    dev = model.anchors.device
+    points, mask = synthetic_clouds(batch, model.pc_range)
+    return model.predict_from_points, (torch.from_numpy(points).to(dev),
+                                       torch.from_numpy(mask).to(dev))
+
+
+def pointpillars_ped_cycle_entry(device=None, batch: int = 1
+                                ) -> Tuple[Callable[..., Dict],
+                                           Tuple[torch.Tensor, torch.Tensor]]:
+    """``pointpillars_entry()`` for the pedestrian and cyclist model of
+    ``configs/pointpillars_ped_cycle_kitti.yaml``, nothing cut: the clouds
+    are ``synthetic_clouds(batch)`` over its range."""
+    model = build_pointpillars(device, PP_PED_CYCLE_CONFIG)
     dev = model.anchors.device
     points, mask = synthetic_clouds(batch, model.pc_range)
     return model.predict_from_points, (torch.from_numpy(points).to(dev),
@@ -548,6 +629,86 @@ def pointpillars_train_entry(device=None, batch: int = 32
                                  num_features=4, box_dim=7)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     return make_train_step(model_gt_loss), (state, data)
+
+
+# the KITTI configs' own train section and eval protocol, fed from frames in
+# memory (synthetic_kitti_records)
+KITTI_TRAIN_FRAMES = 64   # frames of the in-memory train set
+KITTI_EVAL_FRAMES = 256   # frames of the in-memory eval set: one chunk
+KITTI_BATCH_KEYS = ("points", "points_mask", "gt_boxes", "gt_classes",
+                    "gt_mask")
+
+
+def kitti_optimizer(cfg: Mapping) -> Recipe:
+    """The optimizer of a PointPillars configuration's train section, as
+    the reference's ``build_optimizer`` + ``build_schedule`` make it:
+    AdamW with the config's weight decay under ``exponential_decay(lr,
+    decay_steps, decay_rate)``, inside the NaN guard (its default)."""
+    tcfg = cfg["train"]
+    ocfg, scfg = dict(tcfg["optimizer"]), dict(tcfg["lr_schedule"])
+    if ocfg.pop("type") != "adamw" or scfg.pop("type") != \
+            "exponential_decay":
+        raise ValueError(f"not a PointPillars train section: {tcfg}")
+    return skip_nonfinite_updates(adamw(exponential_decay(**scfg), **ocfg))
+
+
+def kitti_device_batches(raw_batches: Iterator[Dict[str, np.ndarray]],
+                         device) -> Iterator[Dict[str, torch.Tensor]]:
+    """Each raw ``kitti_batches`` batch's arrays copied to ``device``."""
+    for raw in raw_batches:
+        yield {k: torch.from_numpy(raw[k]).to(device)
+               for k in KITTI_BATCH_KEYS}
+
+
+def pointpillars_kitti_train_entry(device=None, config=PP_CAR_CONFIG
+                                   ) -> Tuple[Callable, Tuple[TrainState,
+                                                              Iterator]]:
+    """(step_fn, (state, batches)): ``step_fn(state, next(batches))`` runs
+    one train step in place and returns ``(state, metrics)`` (loss,
+    loc_loss, cls_loss, dir_loss, grad_norm, on the device).
+
+    The configuration's train section, nothing cut (``config`` as
+    ``build_pointpillars`` takes it, the car model by default): the model
+    seeded with ``SEED``, f32 (no dtype is set), channels_last, train
+    mode; ``kitti_optimizer`` (AdamW with decay 1e-4 under
+    ``exponential_decay(2e-4, 27840, 0.8)``, the NaN guard);
+    ``loss_from_gt``. ``batches`` are ``kitti_batches`` at the config's
+    batch size (4) over ``synthetic_kitti_records(KITTI_TRAIN_FRAMES)`` of
+    its classes (the GT database built from them, the sampler, the
+    per-object noise, the global augmentation, the config's loader
+    threads), copied to the device, epoch after epoch."""
+    dev = resolve_device(device)
+    cfg = pointpillars_config(config)
+    model = PointPillars(**pointpillars_kwargs(cfg)).init_weights(
+        torch.Generator().manual_seed(SEED))
+    model = model.to(device=dev, memory_format=torch.channels_last).train()
+    data = dict(cfg["data"])
+    data["records"] = synthetic_kitti_records(KITTI_TRAIN_FRAMES, seed=SEED,
+                                              classes=data["classes"])
+    raw = kitti_batches({"data": data}, int(cfg["train"]["batch_size"]),
+                        seed=SEED)
+    return make_train_step(model_gt_loss), (
+        TrainState.create(model, kitti_optimizer(cfg)),
+        kitti_device_batches(raw, dev))
+
+
+def pointpillars_kitti_eval_entry(device=None, config=PP_CAR_CONFIG
+                                  ) -> Tuple[Callable[..., Dict],
+                                             Tuple[PointPillars,
+                                                   KittiDetection]]:
+    """(evaluate_fn, (model, dataset)): ``evaluate_fn(model, dataset)`` is
+    ``kitti_evaluate`` at the reference's protocol (batch 4, score
+    threshold 0.3, bbox / bev / 3d and AOS) for the config's classes, and
+    returns the table. The model is ``build_pointpillars(config)`` (f32,
+    seeded); the dataset ``synthetic_kitti_records(KITTI_EVAL_FRAMES)`` of
+    the config's classes with the raw labels kept."""
+    cfg = pointpillars_config(config)
+    classes = tuple(cfg["data"]["classes"])
+    model = build_pointpillars(device, cfg)
+    ds = KittiDetection(synthetic_kitti_records(KITTI_EVAL_FRAMES, seed=SEED,
+                                                classes=classes),
+                        keep_raw=True)
+    return functools.partial(kitti_evaluate, classes=classes), (model, ds)
 
 
 # bench.py:bench_decode_nms_p50: one CenterPoint task head's decode and

@@ -1,6 +1,6 @@
 """Rotated-box BEV intersection and IoU (counterpart of
 ``minddet_tpu/ops/rotated_iou.py``: ``rotated_intersection_bev``,
-``rotated_iou_bev``).
+``rotated_iou_bev``, ``rotated_iou_3d``).
 
 Boxes are [x, y, w, l, yaw]. ``rotated_intersection_bev`` maps (N, 5) x
 (M, 5), or a batch (B, N, 5) x (B, M, 5), to the f32 intersection areas
@@ -224,3 +224,25 @@ def rotated_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor,
     else:
         raise ValueError(f"criterion must be -1/0/1, got {criterion}")
     return inter / torch.clamp(denom, min=EPS)
+
+
+def rotated_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor
+                   ) -> torch.Tensor:
+    """Pairwise 3D IoU of [x, y, z, w, l, h, yaw] boxes (z the bottom, the
+    SECOND / KITTI convention), (N, 7) x (M, 7) -> (N, M) or (B, N, 7) x
+    (B, M, 7) -> (B, N, M), f32: the BEV intersection
+    (``rotated_intersection_bev``, one K4 launch on a CUDA tensor) times
+    the vertical overlap, over the union of the volumes."""
+    bev = [0, 1, 3, 4, 6]
+    inter_bev = rotated_intersection_bev(boxes1[..., bev].contiguous(),
+                                         boxes2[..., bev].contiguous())
+    zmin1 = boxes1[..., :, None, 2]
+    zmax1 = zmin1 + boxes1[..., :, None, 5]
+    zmin2 = boxes2[..., None, :, 2]
+    zmax2 = zmin2 + boxes2[..., None, :, 5]
+    zo = (torch.minimum(zmax1, zmax2) - torch.maximum(zmin1, zmin2)).clamp(
+        min=0.0)
+    inter3d = inter_bev * zo
+    vol1 = (boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5])[..., :, None]
+    vol2 = (boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5])[..., None, :]
+    return inter3d / torch.clamp(vol1 + vol2 - inter3d, min=EPS)

@@ -1,21 +1,24 @@
 """Evaluation (counterpart of ``minddet_tpu/train/evaluate.py``:
 ``_pad_batch``, the COCO paths ``coco_evaluate`` and ``centernet_evaluate``
-with ``_keep_res_hw`` and ``_soft_nms_per_class``, and the segmentation
-mIoU, ``segmentation_evaluate``).
+with ``_keep_res_hw`` and ``_soft_nms_per_class``, the KITTI path
+``kitti_evaluate``, and the segmentation mIoU, ``segmentation_evaluate``).
 
 The device runs the warp (the row-gather kernel K3f on the card), the
 model's ``predict`` and the soft-NMS; the host accumulates the protocol's
 metrics (``data/coco_eval.py``). A COCO evaluation takes a record pattern,
 as the reference's does, or records in memory, or a dataset with
 ``CocoDetection``'s interface (``records[i]["hw"]``, ``__getitem__``,
-``__len__``).
+``__len__``). The KITTI evaluation predicts on the model's device (the
+rotated NMS through K4), projects the detections to the camera and the
+image on the host, and computes the official table with
+``data/kitti_eval.py`` (its overlaps on the model's device).
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,9 @@ from torch import nn
 from minddet_tpu_torch.data.coco import (CocoDetection,
                                          evaluate_coco_detections,
                                          paste_masks_to_image)
+from minddet_tpu_torch.data.kitti import (KittiDetection,
+                                          detections_to_kitti_annos)
+from minddet_tpu_torch.data.kitti_eval import get_official_eval_result
 from minddet_tpu_torch.data.seg import SegDataset
 from minddet_tpu_torch.data.transforms import eval_affine, warp_images
 from minddet_tpu_torch.ops.nms import soft_nms
@@ -280,3 +286,75 @@ def centernet_evaluate(model: nn.Module, records, num_classes: int = 80,
     stats = evaluate_coco_detections(ds, predictions, num_classes)
     laps.lap("evaluate")
     return stats
+
+
+# KITTI: the official table, camera-frame bbox AP and AOS included
+KITTI_SCORE_THRESHOLD = 0.3  # detections kept for the protocol
+KITTI_EVAL_BATCH = 4
+
+
+def kitti_dataset(records) -> KittiDetection:
+    """``records`` itself where it is a dataset, else ``KittiDetection`` of
+    it (a shard pattern, a list of shard paths or records in memory) with
+    the raw labels kept."""
+    if isinstance(records, (str, list, tuple)):
+        return KittiDetection(records, keep_raw=True)
+    return records
+
+
+@torch.no_grad()
+def kitti_evaluate(model: nn.Module, records,
+                   classes: Sequence[str] = ("Car",),
+                   batch_size: int = KITTI_EVAL_BATCH, max_frames: int = 0,
+                   score_threshold: float = KITTI_SCORE_THRESHOLD,
+                   metrics: Sequence[str] = ("bbox", "bev", "3d"),
+                   compute_aos: bool = True,
+                   timings: Optional[Dict[str, float]] = None
+                   ) -> Dict[str, Dict]:
+    """PointPillars -> the official KITTI table over ``records``
+    (``kitti_dataset``; the first ``max_frames`` where positive):
+    ``predict_from_points`` on the model's device, ``batch_size`` frames a
+    call (the tail padded, ``_pad_batch``); the detections above
+    ``score_threshold`` projected to camera and image frames
+    (``detections_to_kitti_annos``); the GT annos from the records'
+    camera-frame labels; ``get_official_eval_result`` with its overlaps on
+    the model's device. With ``timings`` the device is waited for between
+    parts, and their seconds are added there: load (host examples), copy,
+    predict (with the detections back on the host), annos, overlaps and
+    evaluate (the host's bookkeeping)."""
+    ds = kitti_dataset(records)
+    n = min(len(ds), max_frames) if max_frames else len(ds)
+    dev = next(model.parameters()).device
+    laps = _Laps(timings, dev)
+    gt_annos, dt_annos = [], []
+    for start in range(0, n, batch_size):
+        exs = [ds[i] for i in range(start, min(start + batch_size, n))]
+        pts = _pad_batch(np.stack([e["points"] for e in exs]), batch_size)
+        msk = _pad_batch(np.stack([e["points_mask"] for e in exs]),
+                         batch_size)
+        laps.lap("load")
+        pts, msk = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+        laps.lap("copy")
+        out = model.predict_from_points(pts, msk)
+        boxes = out["boxes"].cpu().numpy()
+        scores = out["scores"].cpu().numpy()
+        labels = out["labels"].cpu().numpy()
+        laps.lap("predict")
+        for bi, ex in enumerate(exs):
+            gt_annos.append({
+                "name": np.asarray(ex["anno_name"]),
+                "bbox": ex["anno_bbox"], "alpha": ex["anno_alpha"],
+                "occluded": ex["anno_occluded"],
+                "truncated": ex["anno_truncated"],
+                "location": ex["anno_location"],
+                "dimensions": ex["anno_dimensions"],
+                "rotation_y": ex["anno_rotation_y"]})
+            keep = scores[bi] > score_threshold
+            dt_annos.append(detections_to_kitti_annos(
+                boxes[bi][keep], scores[bi][keep], labels[bi][keep], classes,
+                np.asarray(ex["Trv2c_rect"]), np.asarray(ex["P2"]),
+                np.asarray(ex["img_shape"])))
+        laps.lap("annos")
+    return get_official_eval_result(gt_annos, dt_annos, classes=classes,
+                                    metrics=metrics, compute_aos=compute_aos,
+                                    device=dev, timings=timings)

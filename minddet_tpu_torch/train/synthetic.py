@@ -13,21 +13,31 @@ through the threaded ``DataLoader``) collates raw batches, and
 ``coco_device_batch`` runs the device half of each (the affine or the
 mosaic + mixup route of ``data/transforms.py``). ``synthetic_coco_records``
 makes a COCO-like set of records in memory, images already decoded, for a
-host without ``cv2`` or ``array_record``.
+host without ``cv2`` or ``array_record``. ``kitti_batches`` is the KITTI
+pipeline's host half (the GT database, ``KittiDetection`` with the
+sampler, the per-object noise and the global augmentation, the threaded
+loader); ``synthetic_kitti_records`` makes KITTI-like frames in memory.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from minddet_tpu_torch.data.coco import CocoDetection
+from minddet_tpu_torch.data.gt_sampler import (DataBaseSampler,
+                                               build_gt_database,
+                                               load_database)
+from minddet_tpu_torch.data.kitti import (KittiDetection,
+                                          detections_to_kitti_annos)
 from minddet_tpu_torch.data.loader import (DataLoader, DistributedSampler,
                                            GroupSampler, aspect_flags,
                                            process_shard)
 from minddet_tpu_torch.data.seg import SegDataset
+from minddet_tpu_torch.ops import host_ops
 from minddet_tpu_torch.data.transforms import (
     centernet_train_transform_from_draws, draw_mixup, draw_mosaic,
     draw_train_transform, mixup_from_draws, mosaic_from_draws, normalize,
@@ -260,3 +270,179 @@ def coco_batches(cfg: Mapping, batch_size: int, image_hw: Tuple[int, int],
                                                      aug),
                                 image_hw, aug, with_masks, mask_stride, step,
                                 device)
+
+
+def kitti_batches(cfg: Mapping, batch_size: int, seed: int = 0
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """KITTI records -> raw host batches (points, points_mask, gt_boxes,
+    gt_classes, gt_mask; ``step`` counting from 0), the reference's
+    recipe: the GT database loaded from ``gt_sampler.database`` where that
+    file exists, else built from the train records; ``DataBaseSampler``
+    (``max_per_class``, default {Car: 15}), ``KittiDetection``
+    (``max_points`` 20000, ``max_gt`` 40, ``object_noise``, ``augment``
+    on, by default) seeded with ``seed``, this process's shard and
+    ``cfg["data"]["workers"]`` threads (default 4). Voxelization, the
+    anchor mask and the assignment run on the device in the train step.
+    ``cfg`` is a configuration mapping as its YAML file loads, with
+    ``data.records`` a shard pattern or records in memory."""
+    dcfg = cfg["data"]
+    classes = tuple(dcfg.get("classes", ("Car",)))
+    class_ids = {c: i + 1 for i, c in enumerate(classes)}
+    sampler_obj = None
+    scfg = dcfg.get("gt_sampler")
+    if scfg:
+        path = scfg.get("database")
+        if path and os.path.exists(path):
+            db = load_database(path)
+        else:
+            db = build_gt_database(KittiDetection(dcfg["records"]), classes)
+        sampler_obj = DataBaseSampler(
+            db, {str(k): int(v) for k, v in dict(scfg.get(
+                "max_per_class", {"Car": 15})).items()}, class_ids)
+    noise = dcfg.get("object_noise", {})
+    ds = KittiDetection(
+        dcfg["records"], max_points=int(dcfg.get("max_points", 20000)),
+        max_gt=int(dcfg.get("max_gt", 40)), gt_sampler=sampler_obj,
+        augment=bool(dcfg.get("augment", True)),
+        object_noise=dict(noise) if noise is not None else None, seed=seed)
+    shard_id, num_shards = process_shard()
+    sampler = DistributedSampler(len(ds), num_shards=num_shards,
+                                 shard_id=shard_id, seed=seed)
+    loader = DataLoader(ds, batch_size, sampler=sampler,
+                        num_workers=dcfg.get("workers", 4))
+    for step, raw in enumerate(loader):
+        raw["step"] = np.asarray(step, np.int32)
+        yield raw
+
+
+# KITTI-like frames: the camera of tests/test_3d_data.py (camera x = -y,
+# y = -z (down), z = x of the lidar; 500 px focal length) on KITTI's image
+KITTI_P2 = np.array([[500.0, 0, 600, 0], [0, 500, 180, 0], [0, 0, 1, 0]],
+                    np.float32)
+KITTI_TRV2C_RECT = np.array([[0, -1, 0, 0], [0, 0, -1, 0.08],
+                             [1, 0, 0, -0.27], [0, 0, 0, 1]], np.float32)
+KITTI_IMG_SHAPE = (375, 1242)
+# (w, l, h) of each labelled class, jittered by ~10 % per object
+KITTI_OBJECT_SIZES = {"Car": (1.6, 3.9, 1.56), "Van": (1.9, 5.0, 2.1),
+                      "Pedestrian": (0.6, 0.8, 1.73),
+                      "Cyclist": (0.6, 1.76, 1.73)}
+KITTI_POINTS = (16000, 26000)  # points per frame, drawn in this range
+KITTI_MAX_OBJECTS = 12     # labelled objects per frame: 1 to this
+KITTI_GROUND_Z = -1.73     # the lidar's height over the road
+KITTI_DONTCARE_SHARE = 0.5  # frames with one or two DontCare regions
+
+
+def _kitti_objects(rs: np.random.RandomState, n: int):
+    """Up to ``n`` non-overlapping (in BEV) objects in the camera's view:
+    names, (k, 7) lidar boxes [x, y, z_bottom, w, l, h, yaw]."""
+    names = list(KITTI_OBJECT_SIZES)
+    kinds = rs.choice(len(names), n, p=[0.5, 0.1, 0.25, 0.15])
+    chosen, boxes = [], np.zeros((0, 7), np.float32)
+    for k in kinds:
+        w, l, h = np.asarray(KITTI_OBJECT_SIZES[names[k]]) * np.exp(
+            0.1 * rs.randn(3))
+        for _ in range(20):
+            x = rs.uniform(4.0, 45.0)
+            y = rs.uniform(-1, 1) * min(0.8 * x, 18.0)
+            box = np.array([[x, y, KITTI_GROUND_Z + 0.05 * rs.randn(), w, l,
+                             h, rs.uniform(-np.pi, np.pi)]], np.float32)
+            bev = box[:, [0, 1, 3, 4, 6]]
+            if len(boxes) and host_ops.rotated_iou_matrix(
+                    bev, boxes[:, [0, 1, 3, 4, 6]]).max() > 0:
+                continue
+            chosen.append(names[k])
+            boxes = np.concatenate([boxes, box])
+            break
+    return chosen, boxes
+
+
+def synthetic_kitti_records(num_frames: int, seed: int = 0,
+                            classes: Sequence[str] = ("Car",)
+                            ) -> List[Dict[str, np.ndarray]]:
+    """KITTI-like frames in memory, from numpy ``RandomState(seed)``, in
+    the layout of ``data/kitti.py:kitti_examples``: per frame 1 to
+    ``KITTI_MAX_OBJECTS`` labelled objects (Car, Van, Pedestrian, Cyclist)
+    in the camera's view, 4-45 m ahead, apart in BEV, with 20-400 points
+    inside each (fewer the farther), and a road of points out to 80 m and
+    50 m aside with some clutter up to 2 m over it, so that some points lie
+    outside any configuration's range; ``KITTI_POINTS`` points in all
+    (some frames over the loader's 20000). The labels are camera-frame
+    annos through ``detections_to_kitti_annos`` with ``KITTI_P2`` and
+    ``KITTI_TRV2C_RECT``, occlusion 0-2 and truncation 0-0.5 drawn so that
+    all three difficulties occur, and in half the frames one or two
+    DontCare rows (location -1000, dimensions -1). ``gt_boxes`` and
+    ``gt_classes`` (1-based) hold the objects of ``classes``."""
+    rs = np.random.RandomState(seed)
+    class_ids = {c: i + 1 for i, c in enumerate(classes)}
+    names_all = tuple(KITTI_OBJECT_SIZES)
+    records = []
+    for f in range(num_frames):
+        names, boxes = _kitti_objects(rs, rs.randint(1, KITTI_MAX_OBJECTS
+                                                     + 1))
+        total = rs.randint(*KITTI_POINTS)
+        obj_pts = []
+        for b in boxes:
+            k = int(np.clip(8000 / b[0], 20, 400))
+            u = rs.uniform(-0.5, 0.5, (k, 3))
+            c, s = np.cos(b[6]), np.sin(b[6])
+            dx, dy = u[:, 0] * b[3], u[:, 1] * b[4]
+            obj_pts.append(np.stack([b[0] + c * dx - s * dy,
+                                     b[1] + s * dx + c * dy,
+                                     b[2] + (u[:, 2] + 0.5) * b[5],
+                                     rs.rand(k)], -1))
+        rest = total - sum(len(p) for p in obj_pts)
+        clutter = rest // 5
+        ground = rest - clutter
+        bg = np.stack([rs.uniform(-5, 80, rest), rs.uniform(-50, 50, rest),
+                       np.concatenate([KITTI_GROUND_Z + 0.05 * rs.randn(
+                           ground), rs.uniform(KITTI_GROUND_Z, 2.0,
+                                               clutter)]),
+                       rs.rand(rest)], -1)
+        points = np.concatenate(obj_pts + [bg]).astype(np.float32)
+        points = points[rs.permutation(len(points))]
+        labels = np.array([names_all.index(n) for n in names])
+        anno = detections_to_kitti_annos(
+            boxes, np.ones(len(boxes), np.float32), labels, names_all,
+            KITTI_TRV2C_RECT, KITTI_P2, KITTI_IMG_SHAPE)
+        if len(anno["name"]) != len(boxes):
+            raise AssertionError("an object left the camera's view")
+        n = len(boxes)
+        occluded = rs.choice(3, n, p=[0.5, 0.3, 0.2]).astype(np.int64)
+        truncated = np.where(rs.rand(n) < 0.6, 0.0, rs.uniform(0, 0.5, n)
+                             ).astype(np.float32)
+        dc = rs.randint(1, 3) if rs.rand() < KITTI_DONTCARE_SHARE else 0
+        dc_xy = rs.uniform([0, 150], [1100, 250], (dc, 2))
+        dc_bbox = np.concatenate(
+            [dc_xy, dc_xy + rs.uniform([20, 10], [120, 60], (dc, 2))], 1)
+        keep = np.array([nm in class_ids for nm in names], bool)
+        records.append({
+            "points": points,
+            "gt_boxes": boxes[keep].astype(np.float32),
+            "gt_classes": np.array([class_ids[nm] for nm in names
+                                    if nm in class_ids], np.int32),
+            "frame_id": np.frombuffer(f"{f:06d}".encode().ljust(16),
+                                      np.uint8).copy(),
+            "P2": KITTI_P2,
+            "Trv2c_rect": KITTI_TRV2C_RECT,
+            "img_shape": np.asarray(KITTI_IMG_SHAPE, np.int32),
+            "anno_name": np.array(list(anno["name"]) + ["DontCare"] * dc,
+                                  dtype="U16"),
+            "anno_bbox": np.concatenate([anno["bbox"], dc_bbox]).astype(
+                np.float32),
+            "anno_alpha": np.concatenate([anno["alpha"], np.full(dc, -10.0)]
+                                         ).astype(np.float32),
+            "anno_occluded": np.concatenate([occluded, np.full(dc, -1)]
+                                            ).astype(np.int64),
+            "anno_truncated": np.concatenate([truncated, np.full(dc, -1.0)]
+                                             ).astype(np.float32),
+            "anno_location": np.concatenate([anno["location"],
+                                             np.full((dc, 3), -1000.0)]
+                                            ).astype(np.float32),
+            "anno_dimensions": np.concatenate([anno["dimensions"],
+                                               np.full((dc, 3), -1.0)]
+                                              ).astype(np.float32),
+            "anno_rotation_y": np.concatenate([anno["rotation_y"],
+                                               np.full(dc, -10.0)]
+                                              ).astype(np.float32),
+        })
+    return records

@@ -272,10 +272,11 @@ Phases (any failure raises and exits non-zero):
       1e-4 under ``exponential_decay``, the NaN guard; ``kitti_batches``
       over 64 in-memory frames: the GT database built from them, the
       sampler, the per-object noise, the global augmentation, four loader
-      threads): 12 steps, each on the next batch, no kernel launch, losses
-      finite, every step applied; then the same step on one fixed batch,
-      the copy of a raw batch to the card and the wait for the loader's
-      next one, apart;
+      threads): three epochs of steps (48), each on the next batch, no
+      kernel launch, losses finite, every step applied; epochs 2 and 3
+      timed (the first's batches are made ahead), the wait for the
+      loader's next batch apart; then the same step on one fixed batch and
+      the copy of a raw batch to the card, apart;
    am. the same for the ped_cycle config (Cyclist, Pedestrian);
    an. ``kitti_evaluate`` (``pointpillars_kitti_eval_entry``: the car
       config's seeded f32 model over 256 in-memory frames, batch 4, score
@@ -978,17 +979,24 @@ def _rotated_iou_bound(boxes: torch.Tensor, others: torch.Tensor = None):
     """K4's bound on (B, N, 5) boxes against ``others`` (B, M, 5; themselves
     when not given): the larger of the bytes (both box sets read, the f32
     areas written) and the operations of a separation test on every pair
-    plus the clip on the pairs it does not reject
-    (``ops/rotated_iou.py:separated``, the kernel's rule). Returns
-    (bound_ms, bound_by, share of pairs clipped, (mean, max) over
-    ``IOU_TILE`` x ``IOU_TILE`` blocks of their share of pairs clipped)."""
+    plus the clip on the pairs that need one: those the test does not
+    reject (``ops/rotated_iou.py:separated``, the kernel's rule) whose boxes
+    both have two nonzero edges. A pair with a zero edge needs no clip (the
+    answer is A's area where B has one, else 0: a box's w * l, one
+    operation a box, counted where such pairs occur). Returns (bound_ms,
+    bound_by, share of pairs the kernel clips, share that need a clip,
+    (mean, max) over ``IOU_TILE`` x ``IOU_TILE`` blocks of their share of
+    pairs clipped)."""
     from minddet_tpu_torch.ops.rotated_iou import separated
 
     others = boxes if others is None else others
     b, n, _ = boxes.shape
     m = others.shape[1]
     clip = ~separated(boxes, others)
-    near = int(clip.sum())
+    edged = lambda t: (t[..., 2] != 0) & (t[..., 3] != 0)
+    need = clip & edged(boxes)[..., :, None] & edged(others)[..., None, :]
+    near = int(need.sum())
+    areas = b * (n + m) * int(bool((clip & ~need).any()))
     tn, tm = -(-n // IOU_TILE), -(-m // IOU_TILE)
     tiles = torch.zeros(b, tn * IOU_TILE, tm * IOU_TILE, device=clip.device)
     tiles[:, :n, :m] = clip.float()
@@ -1000,9 +1008,10 @@ def _rotated_iou_bound(boxes: torch.Tensor, others: torch.Tensor = None):
     pairs = b * n * m
     bound_ms, bound_by = _bound(4 * pairs + 4 * 5 * b * (n + m),
                                 SEP_OPS_PER_PAIR * pairs
-                                + SEP_OPS_PER_BOX * b * (n + m)
+                                + SEP_OPS_PER_BOX * b * (n + m) + areas
                                 + OPS_PER_PAIR * near)
-    return bound_ms, bound_by, near / pairs, per_block
+    return (bound_ms, bound_by, int(clip.sum()) / pairs, near / pairs,
+            per_block)
 
 
 NEAR_PAIRS = 1000  # pairs of the near-touching case
@@ -1112,25 +1121,28 @@ KITTI_EVAL_CHUNK = (256, 24, 100)  # (frames, GT slots, detection slots)
 KITTI_CHUNK_CLASSES = ("Car", "Pedestrian", "Cyclist")
 
 
-def kitti_eval_chunk(seed: int = 13):
+def kitti_eval_chunk(frames: int = KITTI_EVAL_CHUNK[0],
+                     slots=KITTI_EVAL_CHUNK[1:], seed: int = 13,
+                     metric: str = "bev"):
     """One chunk of the KITTI evaluator's overlap calls (``data/
     kitti_eval.py:calculate_overlaps``) as it pads it: the camera-frame
-    labels of ``synthetic_kitti_records(256)`` (DontCare rows at location
-    -1000 with dimensions -1 included) in 24 slots, and per frame 1 to 100
-    detections in 100 slots (half jittered labels, heading within 0.2 rad,
-    half anywhere 2-60 m ahead), zero-padded; the boxes [x, z, l, w, -ry],
-    which is both the bev metric's layout and the BEV slice that
-    ``rotated_iou_3d`` gives K4 for the 3d one. Returns ((256, 24, 5),
-    (256, 100, 5)) on the CPU."""
+    labels of ``synthetic_kitti_records(frames)`` (``kitti_gt_anno``:
+    DontCare rows at location -1000 with dimensions -1 included) in
+    ``slots[0]`` slots, and per frame 1 to ``slots[1]`` detections in
+    ``slots[1]`` slots (half jittered labels, heading within 0.2 rad, half
+    anywhere 2-60 m ahead), zero-padded; the boxes of ``metric``: for
+    "bev" [x, z, l, w, -ry], which is both the bev metric's layout and the
+    BEV slice that ``rotated_iou_3d`` gives K4 for the 3d one; for "3d"
+    the 7-wide camera boxes. Returns ((frames, slots[0], w), (frames,
+    slots[1], w)) on the CPU."""
+    from minddet_tpu_torch.data.kitti import kitti_gt_anno
     from minddet_tpu_torch.data.kitti_eval import _metric_boxes
     from minddet_tpu_torch.train.synthetic import synthetic_kitti_records
 
-    frames, slots_g, slots_d = KITTI_EVAL_CHUNK
+    slots_g, slots_d = slots
     rs = np.random.RandomState(seed)
-    recs = synthetic_kitti_records(frames, seed=seed,
-                                   classes=KITTI_CHUNK_CLASSES)
-    gt = [{k[5:]: v for k, v in r.items() if k.startswith("anno_")}
-          for r in recs]
+    gt = [kitti_gt_anno(r) for r in synthetic_kitti_records(
+        frames, seed=seed, classes=KITTI_CHUNK_CLASSES)]
     dt = []
     for g in gt:
         n = rs.randint(1, slots_d + 1)
@@ -1148,9 +1160,9 @@ def kitti_eval_chunk(seed: int = 13):
                        -0.2, 0.2, n)).astype(np.float32)})
     out = []
     for annos, slots in ((gt, slots_g), (dt, slots_d)):
-        pad = np.zeros((frames, slots, 5), np.float32)
-        for i, a in enumerate(annos):
-            b = _metric_boxes(a, "bev")
+        boxes = [_metric_boxes(a, metric) for a in annos]
+        pad = np.zeros((frames, slots, boxes[0].shape[1]), np.float32)
+        for i, b in enumerate(boxes):
             pad[i, :len(b)] = b
         out.append(torch.from_numpy(pad))
     return tuple(out)
@@ -1171,7 +1183,8 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
     (``near_touching_boxes``), on one sample of candidates from a few tight
     clusters (``clustered_candidates``) and on the exact cases. Each case
     reports the share of pairs the separation test leaves to the clip, in
-    all and per 64 x 64 block, and the tile height its wrapper picks
+    all and per 64 x 64 block, the share that needs a clip (both boxes with
+    two nonzero edges: the bound's), and the tile height its wrapper picks
     (``tile_rows``)."""
     from minddet_tpu_torch.ops import rotated_iou as ri
 
@@ -1228,13 +1241,14 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
         plain_ms = _cuda_ms(
             lambda: ri.rotated_intersection_bev_plain(boxes, others),
             iters=2, warmup=1)
-        bound_ms, bound_by, clipped, per_block = _rotated_iou_bound(
-            boxes, others)
+        bound_ms, bound_by, clipped, needed, per_block = \
+            _rotated_iou_bound(boxes, others)
         case = dict(kind=kind, shape=[b, n, 5],
                     against=[b, others.shape[1], 5], dtype="float32",
                     max_abs_err=max_abs,
                     tolerance=f"abs <= {atol} + {rtol} * |plain|",
                     overlapping_share=overlapping, clipped_share=clipped,
+                    clip_needed_share=needed,
                     clipped_share_per_block=dict(mean=per_block[0],
                                                  max=per_block[1]),
                     tile_rows=ri.tile_rows(b, n, others.shape[1], sms),
@@ -1244,6 +1258,7 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
         print(f"  rotated_iou {kind} ({b}, {n}, 5) x ({b}, "
               f"{others.shape[1]}, 5) max_abs={max_abs:.3e} "
               f"overlapping={overlapping:.4f} clipped={clipped:.4f} "
+              f"needed={needed:.4f} "
               f"per block mean={per_block[0]:.4f} max={per_block[1]:.4f} "
               f"kernel={ms * 1e3:8.1f}us (rows {case['tile_rows']}) "
               f"plain={plain_ms * 1e3:9.1f}us "
@@ -7139,18 +7154,11 @@ KITTI_SCORE_THRESHOLD = 0.3  # kitti_evaluate's detections
 KITTI_MATCH_TOL = (1e-3, 1e-4)  # 4r: box (m, rad) and score of a match
 KITTI_MATCHED_SHARE = 0.95  # of the CPU's detections found on the card
 KITTI_AP_TOL = 1e-6  # 4r: every table entry, card overlaps vs the CPU's
-KITTI_TRAIN_STEPS = 12  # 6al / 6am: TRAIN_WARMUP + TRAIN_STEPS fed steps
+# 6al / 6am: fed steps over this many epochs of the loader, the first one
+# untimed (its batches are made ahead while the step warms up)
+KITTI_FED_EPOCHS = 3
 KITTI_LOADER_BATCHES = 8  # 6al / 6am: the one-thread loader's batches
 KITTI_SERVE_BATCHES = (1, 4)  # 6ao
-
-
-def _kitti_gt_annos(exs):
-    return [{"name": np.asarray(e["anno_name"]), "bbox": e["anno_bbox"],
-             "alpha": e["anno_alpha"], "occluded": e["anno_occluded"],
-             "truncated": e["anno_truncated"],
-             "location": e["anno_location"],
-             "dimensions": e["anno_dimensions"],
-             "rotation_y": e["anno_rotation_y"]} for e in exs]
 
 
 def _kitti_jittered(gt, rs):
@@ -7213,7 +7221,8 @@ def check_kitti_f32(dev):
     CPU tests."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.data.kitti import (KittiDetection,
-                                              detections_to_kitti_annos)
+                                              detections_to_kitti_annos,
+                                              kitti_gt_anno)
     from minddet_tpu_torch.data.kitti_eval import (calculate_overlaps,
                                                    get_official_eval_result)
     from minddet_tpu_torch.entry import build_pointpillars
@@ -7257,7 +7266,7 @@ def check_kitti_f32(dev):
                       predict_launches=predict_launches)
         if min(kept) == 0 or min(shares) < KITTI_MATCHED_SHARE:
             bad.append("detections")
-        gt = _kitti_gt_annos(exs)
+        gt = [kitti_gt_anno(e) for e in exs]
         rs = np.random.RandomState(PHASE_SEEDS["4r"])
         dt = []
         for e, c, g in zip(exs, det_c, gt):
@@ -7338,15 +7347,18 @@ def kitti_train_main_path(dev, card, config, label):
     step fed by ``kitti_batches`` (``pointpillars_kitti_train_entry``: f32,
     batch 4, AdamW with decay 1e-4 under ``exponential_decay``, the NaN
     guard; 64 in-memory frames, the GT database built from them, four
-    loader threads), KITTI_TRAIN_STEPS steps, each on the next batch,
-    launch counts from 0: no kernel launches (a one-layer PFN, axis-aligned
-    assignment IoUs); every loss finite and every step applied; the wait
-    for each next batch (the loader, then the copy) timed apart from the
-    step. Then apart: the same step on one fixed batch (what the data path
-    adds), the copy of a raw batch to the card, and the loader's own rate
-    (``_loader_ms_per_batch``: one epoch from a fresh ``kitti_batches`` at
-    four threads, KITTI_LOADER_BATCHES batches at one).
-    ms on the host clock around synced work."""
+    loader threads), KITTI_FED_EPOCHS epochs of steps, each on the next
+    batch, launch counts from 0: no kernel launches (a one-layer PFN,
+    axis-aligned assignment IoUs); every loss finite and every step
+    applied. The steps after the first epoch are timed, with the wait for
+    each next batch (the loader, then the copy) apart: each epoch starts
+    the loader's threads anew and they make its batches as fast as they
+    can, so past the first epoch the fed rate is what a longer run sees,
+    the loader's where it waits. Then apart: the same step on one fixed
+    batch (what the data path adds), the copy of a raw batch to the card,
+    and the loader's own rate (``_loader_ms_per_batch``: one epoch from a
+    fresh ``kitti_batches`` at four threads, KITTI_LOADER_BATCHES batches
+    at one). ms on the host clock around synced work."""
     from minddet_tpu_torch import kernels
     from minddet_tpu_torch.entry import (KITTI_BATCH_KEYS,
                                          KITTI_TRAIN_FRAMES, SEED,
@@ -7354,13 +7366,17 @@ def kitti_train_main_path(dev, card, config, label):
                                          pointpillars_kitti_train_entry)
     from minddet_tpu_torch.train.synthetic import synthetic_kitti_records
 
+    cfg = pointpillars_config(config)
+    b = int(cfg["train"]["batch_size"])
+    per_epoch = KITTI_TRAIN_FRAMES // b
+    fed_steps = KITTI_FED_EPOCHS * per_epoch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     step_fn, (state, batches) = pointpillars_kitti_train_entry(
         device=dev, config=config)
     kernels.reset_launches()
-    history, times, waits = [], [], []
-    for i in range(KITTI_TRAIN_STEPS):
+    history, times, waits, first_epoch = [], [], [], []
+    for i in range(fed_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch = next(batches)
@@ -7370,9 +7386,11 @@ def kitti_train_main_path(dev, card, config, label):
         torch.cuda.synchronize()
         if i == 0:
             first_ms = (t1 - t0) * 1e3
-        if i >= TRAIN_WARMUP:
+        if i >= per_epoch:
             times.append(time.perf_counter() - t0)
             waits.append(t1 - t0)
+        else:
+            first_epoch.append(time.perf_counter() - t0)
     batches.close()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -7386,8 +7404,6 @@ def kitti_train_main_path(dev, card, config, label):
         if i >= TRAIN_WARMUP:
             fixed.append(time.perf_counter() - t0)
     applied = int(state.optimizer.param_groups[0]["count"])
-    cfg = pointpillars_config(config)
-    b = int(cfg["train"]["batch_size"])
     data = dict(cfg["data"])
     data["records"] = synthetic_kitti_records(KITTI_TRAIN_FRAMES, seed=SEED,
                                               classes=data["classes"])
@@ -7403,14 +7419,17 @@ def kitti_train_main_path(dev, card, config, label):
         torch.cuda.synchronize()
         copies.append(time.perf_counter() - t0)
     mean_s, fixed_s = statistics.mean(times), statistics.mean(fixed)
+    wait_s = statistics.mean(waits)
     out = dict(config=str(config), classes=list(data["classes"]), batch=b,
-               steps=KITTI_TRAIN_STEPS, timed_steps=len(times),
-               ms_per_step=mean_s * 1e3,
+               steps=fed_steps, epochs=KITTI_FED_EPOCHS,
+               timed_steps=len(times), ms_per_step=mean_s * 1e3,
                ms_p50=statistics.median(times) * 1e3,
                clouds_per_s=b / mean_s, fixed_batch_ms_per_step=fixed_s * 1e3,
                data_path_ms_per_step=(mean_s - fixed_s) * 1e3,
-               next_batch_ms=statistics.mean(waits) * 1e3,
+               next_batch_ms=wait_s * 1e3,
                next_batch_ms_max=max(waits) * 1e3,
+               wait_share=wait_s / mean_s,
+               first_epoch_ms_per_step=statistics.mean(first_epoch) * 1e3,
                first_batch_ms=first_ms,
                h2d_copy_ms=statistics.median(copies) * 1e3,
                h2d_bytes=int(sum(raw[k].nbytes for k in KITTI_BATCH_KEYS)),
@@ -7420,12 +7439,16 @@ def kitti_train_main_path(dev, card, config, label):
                steps_applied=applied, max_memory_allocated=peak,
                losses=[m["loss"] for m in history], last_step=history[-1],
                launches=launches, card=card)
-    print(f"  {label} step fed by kitti_batches, batch {b}: "
+    print(f"  {label} step fed by kitti_batches, batch {b}, epochs 2-"
+          f"{KITTI_FED_EPOCHS} ({len(times)} steps): "
           f"{out['ms_per_step']:.3f} ms/step (p50 {out['ms_p50']:.3f}), "
           f"{out['clouds_per_s']:.1f} clouds/s, of it the wait for the next "
           f"batch {out['next_batch_ms']:.3f} ms (max "
-          f"{out['next_batch_ms_max']:.3f}; the first, with the GT database, "
-          f"{first_ms:.1f} ms); on one fixed batch "
+          f"{out['next_batch_ms_max']:.3f}; {out['wait_share']:.0%} of the "
+          f"step), the step itself {(mean_s - wait_s) * 1e3:.3f} ms while "
+          f"the loader's threads work; the first epoch "
+          f"{out['first_epoch_ms_per_step']:.3f} ms/step (the first batch, "
+          f"with the GT database, {first_ms:.1f} ms); on one fixed batch "
           f"{out['fixed_batch_ms_per_step']:.3f} ms/step, so the data path "
           f"adds {out['data_path_ms_per_step']:.3f} ms; copy of a raw batch "
           f"({out['h2d_bytes'] / 1e6:.2f} MB) {out['h2d_copy_ms']:.3f} ms; "
@@ -7439,12 +7462,12 @@ def kitti_train_main_path(dev, card, config, label):
     if not all(math.isfinite(v) for m in history for v in m.values()):
         raise AssertionError(f"{label}: the KITTI-fed step is not finite: "
                              f"{history}")
-    if applied != KITTI_TRAIN_STEPS + TRAIN_WARMUP + TRAIN_STEPS:
+    if applied != fed_steps + TRAIN_WARMUP + TRAIN_STEPS:
         raise AssertionError(f"{label}: {applied} steps applied of "
-                             f"{KITTI_TRAIN_STEPS + TRAIN_WARMUP + TRAIN_STEPS}")
+                             f"{fed_steps + TRAIN_WARMUP + TRAIN_STEPS}")
     if any(launches.values()):
-        raise AssertionError(f"{label}: {launches} in {KITTI_TRAIN_STEPS} "
-                             f"steps (want no kernel launch)")
+        raise AssertionError(f"{label}: {launches} in {fed_steps} steps "
+                             f"(want no kernel launch)")
     print(f"  kernels: {launches}: none: True", flush=True)
     return out
 

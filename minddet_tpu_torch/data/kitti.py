@@ -318,6 +318,15 @@ def noise_per_object(rng: np.random.RandomState, boxes: np.ndarray,
 
 
 RAW_KEYS = ("P2", "Trv2c_rect", "img_shape", "frame_id")
+ANNO_KEYS = ("name", "bbox", "alpha", "occluded", "truncated", "location",
+             "dimensions", "rotation_y")
+
+
+def kitti_gt_anno(record: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The evaluator's GT anno of a record, or of an example kept raw: its
+    camera-frame labels (``anno_*``, DontCare rows included) without the
+    prefix."""
+    return {k: np.asarray(record[f"anno_{k}"]) for k in ANNO_KEYS}
 
 
 class KittiDetection:

@@ -328,17 +328,16 @@ def eval_class(gt_annos: List[Dict], dt_annos: List[Dict],
 def get_official_eval_result(gt_annos: List[Dict], dt_annos: List[Dict],
                              classes: Sequence[str] = ("Car",),
                              metrics: Sequence[str] = ("bbox", "bev", "3d"),
-                             min_overlaps: Dict = None,
                              compute_aos: bool = False, device="cpu",
                              timings: Optional[Dict[str, float]] = None
                              ) -> Dict[str, Dict[str, List[float]]]:
     """The AP table, result[class][metric] = [easy, moderate, hard] (and
-    result[class]["aos"] with ``compute_aos``). Each metric's overlaps are
-    computed once on ``device`` and shared by every class and difficulty.
-    With ``timings`` the seconds of the overlaps and of the host's
-    bookkeeping are added there under "overlaps" and "evaluate"."""
+    result[class]["aos"] with ``compute_aos``) at DEFAULT_MIN_OVERLAPS.
+    Each metric's overlaps are computed once on ``device`` and shared by
+    every class and difficulty. With ``timings`` the seconds of the
+    overlaps and of the host's bookkeeping are added there under
+    "overlaps" and "evaluate"."""
     t0 = time.perf_counter()
-    min_overlaps = min_overlaps or DEFAULT_MIN_OVERLAPS
     metric_idx = {"bbox": 0, "bev": 1, "3d": 2}
     need = list(metrics)
     if compute_aos and "bbox" not in need:
@@ -350,7 +349,7 @@ def get_official_eval_result(gt_annos: List[Dict], dt_annos: List[Dict],
     for cls in classes:
         out[cls] = {}
         for metric in metrics:
-            mo = min_overlaps[cls][metric_idx[metric]]
+            mo = DEFAULT_MIN_OVERLAPS[cls][metric_idx[metric]]
             out[cls][metric] = [
                 eval_class(gt_annos, dt_annos, cls, diff, metric, mo,
                            compute_aos=compute_aos and metric == "bbox",
@@ -359,7 +358,7 @@ def get_official_eval_result(gt_annos: List[Dict], dt_annos: List[Dict],
         if compute_aos:
             out[cls]["aos"] = [
                 eval_class(gt_annos, dt_annos, cls, d, "bbox",
-                           min_overlaps[cls][0], True,
+                           DEFAULT_MIN_OVERLAPS[cls][0], True,
                            overlaps=shared["bbox"])["aos"]
                 for d in (0, 1, 2)]
     if timings is not None:

@@ -679,9 +679,7 @@ def pointpillars_kitti_train_entry(device=None, config=PP_CAR_CONFIG
     threads), copied to the device, epoch after epoch."""
     dev = resolve_device(device)
     cfg = pointpillars_config(config)
-    model = PointPillars(**pointpillars_kwargs(cfg)).init_weights(
-        torch.Generator().manual_seed(SEED))
-    model = model.to(device=dev, memory_format=torch.channels_last).train()
+    model = build_pointpillars(dev, cfg).train()
     data = dict(cfg["data"])
     data["records"] = synthetic_kitti_records(KITTI_TRAIN_FRAMES, seed=SEED,
                                               classes=data["classes"])

@@ -28,7 +28,8 @@ from minddet_tpu_torch.data.coco import (CocoDetection,
                                          evaluate_coco_detections,
                                          paste_masks_to_image)
 from minddet_tpu_torch.data.kitti import (KittiDetection,
-                                          detections_to_kitti_annos)
+                                          detections_to_kitti_annos,
+                                          kitti_gt_anno)
 from minddet_tpu_torch.data.kitti_eval import get_official_eval_result
 from minddet_tpu_torch.data.seg import SegDataset
 from minddet_tpu_torch.data.transforms import eval_affine, warp_images
@@ -305,33 +306,30 @@ def kitti_dataset(records) -> KittiDetection:
 @torch.no_grad()
 def kitti_evaluate(model: nn.Module, records,
                    classes: Sequence[str] = ("Car",),
-                   batch_size: int = KITTI_EVAL_BATCH, max_frames: int = 0,
-                   score_threshold: float = KITTI_SCORE_THRESHOLD,
-                   metrics: Sequence[str] = ("bbox", "bev", "3d"),
-                   compute_aos: bool = True,
                    timings: Optional[Dict[str, float]] = None
                    ) -> Dict[str, Dict]:
-    """PointPillars -> the official KITTI table over ``records``
-    (``kitti_dataset``; the first ``max_frames`` where positive):
-    ``predict_from_points`` on the model's device, ``batch_size`` frames a
-    call (the tail padded, ``_pad_batch``); the detections above
-    ``score_threshold`` projected to camera and image frames
-    (``detections_to_kitti_annos``); the GT annos from the records'
-    camera-frame labels; ``get_official_eval_result`` with its overlaps on
-    the model's device. With ``timings`` the device is waited for between
-    parts, and their seconds are added there: load (host examples), copy,
-    predict (with the detections back on the host), annos, overlaps and
-    evaluate (the host's bookkeeping)."""
+    """PointPillars -> the official KITTI table (bbox, bev, 3d and AOS)
+    over ``records`` (``kitti_dataset``): ``predict_from_points`` on the
+    model's device, KITTI_EVAL_BATCH frames a call (the tail padded,
+    ``_pad_batch``); the detections above KITTI_SCORE_THRESHOLD projected
+    to camera and image frames (``detections_to_kitti_annos``); the GT
+    annos from the records' camera-frame labels (``kitti_gt_anno``);
+    ``get_official_eval_result`` with its overlaps on the model's device.
+    With ``timings`` the device is waited for between parts, and their
+    seconds are added there: load (host examples), copy, predict (with the
+    detections back on the host), annos, overlaps and evaluate (the host's
+    bookkeeping)."""
     ds = kitti_dataset(records)
-    n = min(len(ds), max_frames) if max_frames else len(ds)
+    n = len(ds)
     dev = next(model.parameters()).device
     laps = _Laps(timings, dev)
     gt_annos, dt_annos = [], []
-    for start in range(0, n, batch_size):
-        exs = [ds[i] for i in range(start, min(start + batch_size, n))]
-        pts = _pad_batch(np.stack([e["points"] for e in exs]), batch_size)
+    for start in range(0, n, KITTI_EVAL_BATCH):
+        exs = [ds[i] for i in range(start, min(start + KITTI_EVAL_BATCH, n))]
+        pts = _pad_batch(np.stack([e["points"] for e in exs]),
+                         KITTI_EVAL_BATCH)
         msk = _pad_batch(np.stack([e["points_mask"] for e in exs]),
-                         batch_size)
+                         KITTI_EVAL_BATCH)
         laps.lap("load")
         pts, msk = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
         laps.lap("copy")
@@ -341,20 +339,13 @@ def kitti_evaluate(model: nn.Module, records,
         labels = out["labels"].cpu().numpy()
         laps.lap("predict")
         for bi, ex in enumerate(exs):
-            gt_annos.append({
-                "name": np.asarray(ex["anno_name"]),
-                "bbox": ex["anno_bbox"], "alpha": ex["anno_alpha"],
-                "occluded": ex["anno_occluded"],
-                "truncated": ex["anno_truncated"],
-                "location": ex["anno_location"],
-                "dimensions": ex["anno_dimensions"],
-                "rotation_y": ex["anno_rotation_y"]})
-            keep = scores[bi] > score_threshold
+            gt_annos.append(kitti_gt_anno(ex))
+            keep = scores[bi] > KITTI_SCORE_THRESHOLD
             dt_annos.append(detections_to_kitti_annos(
                 boxes[bi][keep], scores[bi][keep], labels[bi][keep], classes,
                 np.asarray(ex["Trv2c_rect"]), np.asarray(ex["P2"]),
                 np.asarray(ex["img_shape"])))
         laps.lap("annos")
     return get_official_eval_result(gt_annos, dt_annos, classes=classes,
-                                    metrics=metrics, compute_aos=compute_aos,
-                                    device=dev, timings=timings)
+                                    compute_aos=True, device=dev,
+                                    timings=timings)

@@ -1160,51 +1160,6 @@ def test_soft_nms_on_the_card_matches_the_cpu(cuda):
     assert float((got.cpu() - want).abs().max()) <= 1e-6
 
 
-def _kitti_eval_chunk(frames, slots_g, slots_d, seed):
-    """One chunk of the KITTI evaluator's overlap call: the camera-frame
-    labels of ``synthetic_kitti_records(frames)`` (DontCare rows at
-    location -1000 with dimensions -1 included) and per frame up to
-    ``slots_d`` detections (jittered labels, heading within 0.2 rad, and
-    boxes anywhere in front of the camera), zero-padded to ``slots_g`` and
-    ``slots_d`` rows as ``calculate_overlaps`` pads them. Returns {metric:
-    (gt (frames, slots_g, w), dt (frames, slots_d, w))} for bev and 3d."""
-    from minddet_tpu_torch.data.kitti_eval import _metric_boxes
-    from minddet_tpu_torch.train.synthetic import synthetic_kitti_records
-
-    rs = np.random.RandomState(seed)
-    recs = synthetic_kitti_records(frames, seed=seed,
-                                   classes=("Car", "Pedestrian", "Cyclist"))
-    out = {}
-    dts = []
-    for r in recs:
-        n = rs.randint(1, slots_d + 1)
-        real = np.nonzero(r["anno_name"] != "DontCare")[0]
-        src = real[rs.randint(0, len(real), n)]
-        loc = r["anno_location"][src] + rs.uniform(-0.5, 0.5, (n, 3))
-        far = rs.rand(n) < 0.5  # anywhere ahead instead
-        loc[far] = np.stack([rs.uniform(-30, 30, far.sum()),
-                             np.full(far.sum(), 1.7),
-                             rs.uniform(2, 60, far.sum())], -1)
-        dims = np.abs(r["anno_dimensions"][src]) * rs.uniform(0.8, 1.2,
-                                                             (n, 3))
-        dts.append({"location": loc.astype(np.float32),
-                    "dimensions": dims.astype(np.float32),
-                    "rotation_y": (r["anno_rotation_y"][src] + rs.uniform(
-                        -0.2, 0.2, n)).astype(np.float32)})
-    for metric in ("bev", "3d"):
-        pads = []
-        for annos, slots in (([{k[5:]: v for k, v in r.items()
-                                if k.startswith("anno_")} for r in recs],
-                              slots_g), (dts, slots_d)):
-            boxes = [_metric_boxes(a, metric) for a in annos]
-            p = np.zeros((frames, slots, boxes[0].shape[1]), np.float32)
-            for i, b in enumerate(boxes):
-                p[i, :len(b)] = b
-            pads.append(p)
-        out[metric] = tuple(pads)
-    return out
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["bev", "3d"])
 def test_iou_kitti_eval_chunk(cuda, metric):
@@ -1213,7 +1168,10 @@ def test_iou_kitti_eval_chunk(cuda, metric):
     and zero-padded rows on both sides: the intersections and the IoUs
     (``rotated_iou_bev``, or ``rotated_iou_3d`` through the BEV slice)
     against the plain version at ``IOU_TOL``, one launch per call."""
-    gt, dt = _kitti_eval_chunk(64, 24, 100, seed=12)[metric]
+    from chip_smoke import kitti_eval_chunk
+
+    gt, dt = (t.numpy() for t in kitti_eval_chunk(64, (24, 100), seed=12,
+                                                  metric=metric))
     bev = [0, 1, 3, 4, 6] if metric == "3d" else slice(None)
     got, ref, sep = _check_iou(np.ascontiguousarray(gt[..., bev]),
                                np.ascontiguousarray(dt[..., bev]), cuda)

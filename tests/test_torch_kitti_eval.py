@@ -17,10 +17,12 @@ JAX package's, on the CPU.
 - One step of ``entry.kitti_optimizer`` (the ped_cycle config's AdamW with
   decay 1e-4 under ``exponential_decay``, the NaN guard) on a tiny
   ped_cycle-shaped model (2 classes, ``rpn_strides`` (1, 2, 2), 4 anchors
-  per cell) fed one ``kitti_batches`` batch, f64 compute, against the
-  reference's ``build_optimizer`` + ``build_schedule``: the loss parts and
-  grad_norm 1e-6, the parameters after the step 1e-6 where the gradient
-  resolves the element (Adam's first step is ~lr * sign(g) elsewhere).
+  per cell) fed one ``kitti_batches`` batch, f64 parameters and compute,
+  against the reference's ``build_optimizer`` + ``build_schedule``: the
+  loss parts and grad_norm 1e-6, the parameters after the step 1e-6 where
+  the gradient resolves the element (Adam's first step is ~lr * sign(g)
+  elsewhere) and 1e-10 where it is above 1e-3 of the tensor's largest,
+  which sees the decoupled decay (lr * wd * p = 2e-8 * p).
 
 The reference's CPU ``rotated_iou_bev`` is its XLA form, which the port
 does not copy: it errs on some nearly antiparallel pairs (``ROADMAP.md``
@@ -399,9 +401,10 @@ def test_kitti_optimizer_step_matches_the_reference():
             jax.random.PRNGKey(0), jnp.asarray(batch["points"]),
             jnp.asarray(batch["points_mask"]),
             method=jm.predict_from_points))
-        variables = random_variables(
+        variables = jax.tree.map(lambda a: a.astype(np.float64),
+                                 random_variables(
             {"params": dict(shapes["params"]),
-             "batch_stats": dict(shapes["batch_stats"])}, seed=3)
+             "batch_stats": dict(shapes["batch_stats"])}, seed=3))
         tx = build_optimizer(dict(tcfg["optimizer"]),
                              build_schedule(dict(tcfg["lr_schedule"])))
 
@@ -416,9 +419,8 @@ def test_kitti_optimizer_step_matches_the_reference():
                 jstate, {k: jnp.asarray(v) for k, v in batch.items()}))
     assert gen["anchors"].shape == (32 * 32 * 4, 7)
 
-    model = pointpillars_from_flax(PointPillars(**TINY_PED,
-                                                dtype=torch.float64),
-                                   variables)
+    model = pointpillars_from_flax(PointPillars(
+        **TINY_PED, dtype=torch.float64).double(), variables)
     model = model.to(memory_format=torch.channels_last)
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
     recipe = entry.kitti_optimizer(cfg)
@@ -430,12 +432,22 @@ def test_kitti_optimizer_step_matches_the_reference():
                                    float(jmetrics[name]), rtol=1e-6,
                                    err_msg=name)
     assert all(float(jmetrics[k]) > 1e-3 for k in PARTS)
-    ref = pointpillars_from_flax(PointPillars(**TINY_PED),
+    ref = pointpillars_from_flax(PointPillars(
+        **TINY_PED, dtype=torch.float64).double(),
                                  {"params": new_jstate.params,
                                   "batch_stats": new_jstate.batch_stats})
     opt = recipe.init(ref)
     adamw_state_from_optax(ref, opt, new_jstate.opt_state)
     got = dict(model.named_parameters())
+    # the decoupled decay moves a parameter by lr * wd * p (2e-8 * p): the
+    # f64 comparison at 1e-10 sees it where |p| > 5e-3, on the elements
+    # whose gradient is large enough (1e-3 of the tensor's max) that the
+    # f32 losses' rounding moves Adam's step, lr * g / (|g| + eps), by
+    # less than that
+    decay = (float(tcfg["lr_schedule"]["learning_rate"])
+             * float(tcfg["optimizer"]["weight_decay"]))
+    atol = 1e-10
+    seen = tight_total = 0
     unresolved = 0
     for name, r in ref.named_parameters():
         g_ref = opt.state[r]["exp_avg"] / (1 - 0.9)
@@ -449,5 +461,13 @@ def test_kitti_optimizer_step_matches_the_reference():
         np.testing.assert_allclose(got[name].detach()[clear].numpy(),
                                    r.detach()[clear].numpy(), rtol=0,
                                    atol=1e-6, err_msg=name)
+        tight = g_ref.abs() > 1e-3 * scale
+        np.testing.assert_allclose(got[name].detach()[tight].numpy(),
+                                   r.detach()[tight].numpy(), rtol=0,
+                                   atol=atol, err_msg=name)
+        seen += int((decay * old[name][tight].abs() > 10 * atol).sum())
+        tight_total += int(tight.sum())
     assert unresolved < 2e-2 * sum(p.numel() for p in got.values())
+    assert tight_total > 0.9 * sum(p.numel() for p in got.values())
+    assert seen > 0.2 * tight_total
     assert int(state.optimizer.param_groups[0]["count"]) == 1

@@ -287,6 +287,35 @@ Phases (any failure raises and exits non-zero):
    ao. ped_cycle serving (``pointpillars_ped_cycle_entry``: 2 classes,
       grid 248 x 296, 293,632 anchors, f32) at batch 1 and 4 as 6c: K4 once
       per request.
+   ap. PointPillars serving on padded voxels (``pointpillars_voxel_entry``:
+      the reference's dense branch, ``voxelize_batch`` at 16000 x 32, the
+      generic anchor mask, ``predict``; f32) at the car config, batch 1
+      and 8, and the ped_cycle config, batch 1 and 4; beside it the car's
+      stream entry at batch 1 and 8: K4 once per request, nothing else;
+      ms per request, peak memory, and from ``torch.profiler`` the device's
+      busy ms and idle share per request;
+   aq. the PointPillars train step on padded voxels
+      (``pointpillars_voxel_train_entry``: 6l's model, optimizer and batch
+      32, ``loss_from_gt_padded``) as 6l, then 6l's stream step beside it,
+      both profiled; no kernel launches;
+   ar. single-stage CenterPoint serving on padded voxels
+      (``centerpoint_voxel_entry``: ``configs/centerpoint_pp_nusc.yaml``,
+      30000 x 20 voxels of 120,000-point clouds, heads calibrated as 6d's)
+      at batch 1 and 4 as 6ap;
+   as. its double-flip TTA (``centerpoint_tta_entry``: 4 B clouds as one
+      voxel batch, the maps unflipped and merged) at batch 1 and 4 as 6ap.
+
+Phase 4s is the padded voxel path in f32 card against CPU
+(``check_voxel_path_f32``): ``voxelize_batch`` exactly, the padded PFN's
+canvas, the generic anchor mask (and the grid mask from the same coords),
+the heads and the detections of PointPillars' ``predict_from_points_padded``
+(car config) and of CenterPoint's ``predict`` on voxels (nuScenes config),
+the card's stream and padded canvases under the first-come drop order, and
+the double-flip TTA on a cloud cut to ``TTA_CHECK_POINTS`` points; each
+predict launches K4 once. Phase 5r (``check_voxel_train_f32``) is one f32
+step of each model's voxel ``loss`` on the card, on the CPU and in f64 on
+the CPU (the referee), held as 5g holds its step. K4's shapes on the padded
+paths are phase 3's PointPillars and CenterPoint cases.
 
 Phase 3 also holds the affine warp kernel (``bilinear_warp_affine_fwd``,
 ``csrc/bilinear_warp.cu``) at the COCO path's warps (``check_coco_warp``):
@@ -327,6 +356,7 @@ card and on the CPU, with the CPU's in f64.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -2260,7 +2290,7 @@ PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61,
                "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
                "5m": 76, "5n": 77, "4n": 80, "4o": 81, "4p": 82, "5o": 83,
-               "5p": 84, "5q": 85, "4q": 86, "4r": 87}
+               "5p": 84, "5q": 85, "4q": 86, "4r": 87, "4s": 88, "5r": 89}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -2615,7 +2645,8 @@ def calibrate_centerpoint(model, points, mask):
     out), the sizes are a car's (exp(dim), std 0.15 in the log), and the
     other maps have the stds of ``CP_MAP_STD`` around 0; then the refine
     head's two outputs are scaled to ``CP_REFINE_STD`` over the kept
-    detections, so that the second stage moves scores and boxes."""
+    detections, so that the second stage moves scores and boxes (a
+    single-stage model has none)."""
     bev = model.bev_from_points_stream(points, mask)
     for t, pred in enumerate(model.head(bev)):
         task = getattr(model.head, f"task{t}")
@@ -2628,6 +2659,8 @@ def calibrate_centerpoint(model, points, mask):
                       }.get(name, 0.0)
             out.bias.copy_((out.bias - v.mean(dim=(0, 1, 2))) * gain + centre)
             out.weight.mul_(gain[:, None, None, None])
+    if not hasattr(model, "refine"):  # the single-stage model
+        return model
     det = model.head.predict(model.head(bev), model.pc_range,
                              model.voxel_size, model.out_size_factor)
     kept = det["labels"] >= 0
@@ -5997,10 +6030,11 @@ def _check_pointpillars_detections(det, b):
 
 
 def _check_centerpoint_detections(det, b):
-    """Refined detections of the calibrated nuScenes model: (b, 6 * 83)
-    slots, every task's 83 filled (1000 valid candidates each), labels of
-    the ten classes, scores sqrt(stage 1 x quality) in (0, 1], positive
-    sizes; dropped slots would be label -1 with zero score and box."""
+    """Detections of the calibrated nuScenes model (refined, or the first
+    stage's): (b, 6 * 83) slots, every task's 83 filled (1000 valid
+    candidates each), labels of the ten classes, scores in (0, 1] (refined:
+    sqrt(stage 1 x quality)), positive sizes; dropped slots would be label
+    -1 with zero score and box."""
     boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
     slots = CP_TASKS * CP_NMS_POST
     kept = labels >= 0
@@ -7530,6 +7564,413 @@ def kitti_eval_main_path(dev, card):
           f"the bev and 3d overlaps: True", flush=True)
     return out
 
+# The padded voxel path of both lidar families (phases 4s, 5r, 6ap-6as)
+VOXEL_CANVAS_TOL = (1e-5, 1e-5)  # the padded PFN and scatter: atol, rtol
+# stream vs padded canvas on the card: the pillar means are summed in
+# another order (a bounded scan against a sum over the slots), so the
+# cluster offsets of points ~70 m out differ by an ulp of 70 m (8e-6)
+STREAM_PADDED_TOL = (1e-4, 1e-5)
+TTA_CHECK_POINTS = 30000  # 4s's TTA: clouds cut from 120,000 points
+PP_VOXEL_BATCHES = (1, 8)  # 6ap, car; ped_cycle at KITTI_SERVE_BATCHES
+VOXEL_TRAIN_CP_TOL = dict(PP_TRAIN_TOL, cancelled=1e-9)
+
+
+def _f32_checks(fn):
+    """``fn(dev)`` with TF32 off, the flags restored after."""
+    def run(dev):
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(dev)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+    run.__doc__ = fn.__doc__
+    return run
+
+
+@torch.inference_mode()
+def _padded_canvas(model, vox):
+    """Decoration, the padded PFN and the voxel scatter of ``model``."""
+    from minddet_tpu_torch.models.readers.pillar_encoder import \
+        scatter_voxel_canvas
+    from minddet_tpu_torch.ops.voxelize import decorate_pillar_features
+
+    feats = decorate_pillar_features(vox.voxels, vox.num_points, vox.coords,
+                                     model.voxel_size, model.pc_range)
+    return scatter_voxel_canvas(model.reader(feats, vox.num_points),
+                                vox.coords, model.grid_ny, model.grid_nx)
+
+
+def _same_voxels(vox_g, vox_c) -> bool:
+    return all(torch.equal(getattr(vox_g, k).cpu(), getattr(vox_c, k))
+               for k in vox_c._fields)
+
+
+def _kept(det, i):
+    """Sample ``i``'s kept detections on the CPU: (boxes, scores)."""
+    keep = det["labels"][i].cpu() >= 0
+    return (det["boxes"][i].cpu()[keep].numpy(),
+            det["scores"][i].cpu()[keep].numpy())
+
+
+def _one_k4(launches) -> bool:
+    from minddet_tpu_torch import kernels
+
+    return launches == {k.name: int(k is kernels.ROTATED_IOU)
+                        for k in kernels.KERNELS}
+
+
+@_f32_checks
+def check_voxel_path_f32(dev):
+    """Phase 4s: the padded voxel path in f32 (TF32 off), card against CPU,
+    stage by stage. PointPillars at the car config, one cloud of 18,000
+    points: ``voxelize_batch`` exactly (voxels, counts, coords), the
+    canvas of the padded PFN and the voxel scatter (``VOXEL_CANVAS_TOL``),
+    the generic anchor mask exactly (and equal to the grid mask from the
+    same coords on the card), the heads on the voxels (``PP_HEAD_TOL``),
+    and ``predict_from_points_padded`` (one K4 launch) with its detections
+    matched one to one by box (``_kitti_matched``, at least
+    ``CP_MATCHED_SHARE``); with the first-come drop order the card's
+    stream canvas equals its padded one (``STREAM_PADDED_TOL``).
+    CenterPoint at ``configs/centerpoint_pp_nusc.yaml`` (single stage,
+    calibrated), one cloud of 120,000 points: the voxels exactly, every
+    task's maps on the voxels (``PP_HEAD_TOL``), ``predict`` matched as
+    sets (``_matched_share``); then ``predict_tta_double_flip`` on a cloud
+    cut to ``TTA_CHECK_POINTS`` points (four clouds of voxels), its
+    detections matched the same way, one K4 launch."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (CLOUD_POINTS, CP_CONFIG,
+                                         NUSC_CLOUD_POINTS,
+                                         NUSC_POINT_FEATURES,
+                                         build_centerpoint,
+                                         build_pointpillars,
+                                         synthetic_clouds)
+    from minddet_tpu_torch.ops.anchors import occupancy_from_coords
+
+    result, bad = {}, []
+    cpu = build_pointpillars("cpu")
+    pts, mask = synthetic_clouds(1, cpu.pc_range, CLOUD_POINTS, seed=2)
+    points, pmask = torch.from_numpy(pts), torch.from_numpy(mask)
+    calibrate_heads(cpu, points, pmask)
+    gpu = build_pointpillars(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    pg, mg = points.to(dev), pmask.to(dev)
+    vox_c, vox_g = cpu.voxelize(points, pmask), gpu.voxelize(pg, mg)
+    result.update(pp_voxels=int(vox_c.num_voxels[0]),
+                  pp_points_kept=int(vox_c.num_points.sum()))
+    if not _same_voxels(vox_g, vox_c):
+        bad.append("PointPillars voxels")
+    vox_d = type(vox_c)(*(t.to(dev) for t in vox_c))
+    canvas_c, canvas_g = _padded_canvas(cpu, vox_c), _padded_canvas(gpu,
+                                                                     vox_d)
+    err = (canvas_g.cpu() - canvas_c).abs()
+    result["pp_canvas_max_abs_err"] = float(err.max())
+    if not bool((err <= VOXEL_CANVAS_TOL[0] + VOXEL_CANVAS_TOL[1]
+                 * canvas_c.abs()).all()):
+        bad.append("PointPillars padded canvas")
+    amask_c = cpu.anchor_mask_from_coords(vox_c.coords)
+    amask_g = gpu.anchor_mask_from_coords(vox_d.coords)
+    result["pp_anchor_mask_share"] = float(amask_c.float().mean())
+    if not torch.equal(amask_g.cpu(), amask_c):
+        bad.append("generic anchor mask")
+    if not torch.equal(gpu.area_mask.from_coords(vox_d.coords), amask_g):
+        bad.append("generic anchor mask against the grid mask")
+    atol, rtol = PP_HEAD_TOL
+    with torch.inference_mode():
+        preds_c = cpu.forward_voxels(vox_c.voxels, vox_c.num_points,
+                                     vox_c.coords)
+        preds_g = gpu.forward_voxels(vox_d.voxels, vox_d.num_points,
+                                     vox_d.coords)
+    for name, ref in preds_c.items():
+        got = preds_g[name].cpu()
+        result[f"pp_{name}_max_abs_err"] = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=rtol, atol=atol):
+            bad.append(f"PointPillars head {name}")
+    kernels.reset_launches()
+    det_g = gpu.predict_from_points_padded(pg, mg)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if not _one_k4(launches):
+        bad.append(f"PointPillars padded predict launched {launches}")
+    det_c = cpu.predict_from_points_padded(points, pmask)
+    result["pp_kept_cpu"] = int((det_c["labels"] >= 0).sum())
+    result["pp_matched_share"] = _kitti_matched(_kept(det_g, 0),
+                                                _kept(det_c, 0))
+    if result["pp_matched_share"] < CP_MATCHED_SHARE:
+        bad.append("PointPillars padded detections, as sets")
+    gpu.voxel_drop_order = "first_come"
+    with torch.inference_mode():
+        stream, occ = gpu.canvas_from_points(pg, mg)
+    err = (stream - canvas_g).abs()
+    result["stream_vs_padded_max_abs_err"] = float(err.max())
+    if not (bool((err <= STREAM_PADDED_TOL[0] + STREAM_PADDED_TOL[1]
+                  * canvas_g.abs()).all())
+            and torch.equal(occ, occupancy_from_coords(
+                vox_d.coords, gpu.grid_ny, gpu.grid_nx))):
+        bad.append("stream and padded canvases under first_come")
+    del cpu, gpu, canvas_c, canvas_g, stream
+
+    cpu = build_centerpoint("cpu", CP_CONFIG)
+    pts, mask = synthetic_clouds(1, cpu.pc_range, NUSC_CLOUD_POINTS, seed=3,
+                                 num_features=NUSC_POINT_FEATURES)
+    points, pmask = torch.from_numpy(pts), torch.from_numpy(mask)
+    calibrate_centerpoint(cpu, points, pmask)
+    gpu = build_centerpoint(dev, CP_CONFIG)
+    gpu.load_state_dict(cpu.state_dict())
+    pg, mg = points.to(dev), pmask.to(dev)
+    vox_c, vox_g = cpu.voxelize(points, pmask), gpu.voxelize(pg, mg)
+    result.update(cp_voxels=int(vox_c.num_voxels[0]),
+                  cp_points_kept=int(vox_c.num_points.sum()))
+    if not _same_voxels(vox_g, vox_c):
+        bad.append("CenterPoint voxels")
+    with torch.inference_mode():
+        maps_c = cpu.forward_voxels(vox_c.voxels, vox_c.num_points,
+                                    vox_c.coords)
+        maps_g = gpu.forward_voxels(vox_g.voxels, vox_g.num_points,
+                                    vox_g.coords)
+    worst = 0.0
+    for t, (pc, pgm) in enumerate(zip(maps_c, maps_g)):
+        for name, ref in pc.items():
+            got = pgm[name].float().cpu()
+            worst = max(worst, float((got - ref.float()).abs().max()))
+            if not torch.allclose(got, ref.float(), rtol=rtol, atol=atol):
+                bad.append(f"CenterPoint task {t} {name}")
+    result["cp_maps_max_abs_err"] = worst
+    kernels.reset_launches()
+    det_g = gpu.predict(vox_g.voxels, vox_g.num_points, vox_g.coords)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if not _one_k4(launches):
+        bad.append(f"CenterPoint voxel predict launched {launches}")
+    det_c = cpu.predict(vox_c.voxels, vox_c.num_points, vox_c.coords)
+    result["cp_kept_cpu"] = int((det_c["labels"] >= 0).sum())
+    result["cp_matched_share"] = _matched_share(det_g, det_c, PP_BOX_TOL,
+                                                CP_SCORE_TOL)
+    if result["cp_matched_share"] < CP_MATCHED_SHARE:
+        bad.append("CenterPoint voxel detections, as sets")
+    cut = slice(0, TTA_CHECK_POINTS)
+    kernels.reset_launches()
+    det_g = gpu.predict_tta_double_flip(pg[:, cut], mg[:, cut])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if not _one_k4(launches):
+        bad.append(f"the TTA launched {launches}")
+    det_c = cpu.predict_tta_double_flip(points[:, cut], pmask[:, cut])
+    result["tta_kept_cpu"] = int((det_c["labels"] >= 0).sum())
+    result["tta_matched_share"] = _matched_share(det_g, det_c, PP_BOX_TOL,
+                                                 CP_SCORE_TOL)
+    if result["tta_matched_share"] < CP_MATCHED_SHARE:
+        bad.append("TTA detections, as sets")
+    print("  f32 padded voxel path card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 padded voxel path, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+def _voxel_train_snaps(models, batch, tx, label):
+    """One train step of ``model_loss`` (the voxel ``loss``) for each of
+    ``models`` {name: model} on ``batch``; the card's must launch no
+    hand-written kernel. Returns (snapshots, problems)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import model_loss
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    snaps, bad = {}, []
+    for name, model in models.items():
+        d = next(model.parameters()).device
+        state = TrainState.create(model, tx())
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(model_loss)(state, {
+            k: [t.to(d) for t in v] if isinstance(v, list) else v.to(d)
+            for k, v in batch.items()})
+        snaps[name] = _train_snapshot(state, metrics)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        print(f"  {label} {name} step {time.perf_counter() - t0:.1f} s, loss "
+              f"{snaps[name]['metrics']['loss']:.6f}", flush=True)
+        if name == "card" and any(launches.values()):
+            bad.append(f"the {label} voxel train step launched {launches}")
+        del state
+    return snaps, bad
+
+
+@_f32_checks
+def check_voxel_train_f32(dev):
+    """Phase 5r: the voxel ``loss`` of both models, one f32 train step on
+    the card, on the CPU and in f64 compute on the CPU (the referee), from
+    the same weights on the same voxels and targets (made on the CPU:
+    ``voxelize`` and the generic anchor mask and assignment; the head's
+    Gaussian targets), held as 5g holds its step (``_referee_checks``):
+    PointPillars at the car config (``PP_TRAIN_TOL``, batch
+    PP_CHECK_BATCH, BN off identity, AdamW 2e-4) and the single-stage
+    CenterPoint of ``configs/centerpoint_pp_nusc.yaml``
+    (``VOXEL_TRAIN_CP_TOL``: the head's conv biases that a train-mode BN
+    cancels held as noise; batch CP_CHECK_BATCH, AdamW 1e-3 with clip 35).
+    No hand-written kernel launches on either."""
+    from minddet_tpu_torch.core.optim import adamw
+    from minddet_tpu_torch.entry import (CLOUD_POINTS, PP_TRAIN_LR,
+                                         PP_TRAIN_MAX_GT, SEED,
+                                         synthetic_lidar_batch)
+    from minddet_tpu_torch.models.detectors.centerpoint import CenterPoint
+    from minddet_tpu_torch.ops.anchors import assign_targets_batch
+
+    result, bad = {}, []
+    gen = _seeded("5r")
+    cpu = _pp_check_model(torch.float32)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "running_var"):
+                m.weight.uniform_(0.6, 1.4, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.6, 1.4, generator=gen)
+    start = cpu.state_dict()
+    models = {"card": _pp_check_model(torch.float32, dev), "cpu": cpu,
+              "referee": _pp_check_model(torch.float64)}
+    for m in (models["card"], models["referee"]):
+        m.load_state_dict(start)
+    raw = {k: torch.from_numpy(v) for k, v in synthetic_lidar_batch(
+        PP_CHECK_BATCH, cpu.pc_range, CLOUD_POINTS, PP_TRAIN_MAX_GT,
+        num_classes=1, seed=6, num_features=4, box_dim=7).items()}
+    vox = cpu.voxelize(raw["points"], raw["points_mask"])
+    t = assign_targets_batch(
+        cpu.anchors, raw["gt_boxes"], raw["gt_classes"], raw["gt_mask"],
+        cpu.matched_threshold, cpu.unmatched_threshold,
+        cpu.anchor_mask_from_coords(vox.coords))
+    batch = {"voxels": vox.voxels, "num_points": vox.num_points,
+             "coords": vox.coords, "anchors": cpu.anchors,
+             "labels": t["labels"], "reg_targets": t["bbox_targets"]}
+    result["pp_positives"] = int((t["labels"] > 0).sum())
+    snaps, problems = _voxel_train_snaps(
+        models, batch, lambda: adamw(PP_TRAIN_LR), "PointPillars")
+    bad += problems
+    _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"],
+                    PP_TRAIN_TOL, PP_PARTS, "pp_", result, bad)
+    del models, snaps
+
+    def cp_model(dtype, d=None):
+        model = CenterPoint(dtype=dtype).init_weights(
+            torch.Generator().manual_seed(SEED))
+        return model.to(device=d, memory_format=torch.channels_last)
+
+    cpu = cp_model(torch.float32)
+    models = {"card": cp_model(torch.float32, dev), "cpu": cpu,
+              "referee": cp_model(torch.float64)}
+    raw = {k: torch.from_numpy(v) for k, v in synthetic_lidar_batch(
+        CP_CHECK_BATCH, cpu.pc_range, seed=7).items()}
+    vox = cpu.voxelize(raw["points"], raw["points_mask"])
+    batch = {"voxels": vox.voxels, "num_points": vox.num_points,
+             "coords": vox.coords, **cpu._stage1_example(raw)}
+    snaps, problems = _voxel_train_snaps(
+        models, batch, lambda: adamw(1e-3, clip_global_norm=35.0),
+        "CenterPoint")
+    bad += problems
+    _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"],
+                    VOXEL_TRAIN_CP_TOL, ("reader.", "rpn.", "head."), "cp_",
+                    result, bad)
+    print("  f32 voxel loss steps card vs CPU and the referee: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 voxel loss steps: {bad}: {result}")
+    return result
+
+
+def voxel_serving_main_path(dev, label, programs, check, profile=True):
+    """A padded (or stream) lidar serving main path, 6ap, 6ar, 6as:
+    ``serve_clouds`` (ms per request, peak memory, NMS passes) with launch
+    counts from 0, exactly one K4 per request and nothing else, then
+    ``profile_clouds`` (device busy ms and idle share per request)."""
+    from minddet_tpu_torch import kernels
+
+    kernels.reset_launches()
+    serving, predicts = serve_clouds(label, programs, dev, check)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if launches != {k.name: predicts * int(k is kernels.ROTATED_IOU)
+                    for k in kernels.KERNELS}:
+        raise AssertionError(f"{label} launched {launches} for {predicts} "
+                             f"requests (want one rotated_iou_intersect "
+                             f"each, nothing else)")
+    print(f"  kernels: rotated_iou_intersect launches="
+          f"{launches['rotated_iou_intersect']} requests={predicts} "
+          f"launches == requests: True", flush=True)
+    return dict(serving=serving, requests=predicts, launches=launches,
+                profile=profile_clouds(label, programs) if profile else None)
+
+
+def pointpillars_voxel_main_path(dev):
+    """Phase 6ap: ``pointpillars_voxel_entry`` (the dense branch: padded
+    voxels, the generic anchor mask) at the car config, batch 1 and 8, and
+    the ped_cycle config, batch 1 and 4; beside it the car's stream entry
+    (``pointpillars_entry``) at batch 1 and 8."""
+    from minddet_tpu_torch.entry import (PP_PED_CYCLE_CONFIG,
+                                         pointpillars_entry,
+                                         pointpillars_voxel_entry)
+
+    out = {}
+    for key, label, make, batches in (
+            ("car", "PointPillars padded car", pointpillars_voxel_entry,
+             PP_VOXEL_BATCHES),
+            ("ped_cycle", "PointPillars padded ped_cycle",
+             functools.partial(pointpillars_voxel_entry,
+                               config=PP_PED_CYCLE_CONFIG),
+             KITTI_SERVE_BATCHES),
+            ("stream", "PointPillars stream car", pointpillars_entry,
+             PP_VOXEL_BATCHES)):
+        programs = {b: make(device=dev, batch=b) for b in batches}
+        out[key] = voxel_serving_main_path(dev, label, programs,
+                                           _check_pointpillars_detections)
+        del programs
+        torch.cuda.empty_cache()
+    out["launches"] = {k: out["car"]["launches"][k]
+                       + out["ped_cycle"]["launches"][k]
+                       for k in out["car"]["launches"]}
+    return out
+
+
+def pointpillars_voxel_train_main_path(dev):
+    """Phase 6aq: ``pointpillars_voxel_train_entry`` (the padded route of
+    ``pointpillars_train_entry``'s step) at TRAIN_PP_BATCH, as 6l, then 6l
+    itself beside it; both profiled (3 steps)."""
+    from minddet_tpu_torch.entry import (pointpillars_train_entry,
+                                         pointpillars_voxel_train_entry)
+
+    out = {}
+    for key, label, entry_fn in (
+            ("padded", "PointPillars padded", pointpillars_voxel_train_entry),
+            ("stream", "PointPillars stream", pointpillars_train_entry)):
+        r, program = lidar_train_main_path(dev, label, entry_fn,
+                                           TRAIN_PP_BATCH, ())
+        r["profile"] = profile_train(f"{label} train batch {TRAIN_PP_BATCH}",
+                                     *program)
+        out[key] = r
+        del program
+        torch.cuda.empty_cache()
+    return out
+
+
+def centerpoint_voxel_main_path(dev, tta: bool):
+    """Phase 6ar (``centerpoint_voxel_entry``: ``predict`` on voxels) or
+    6as (``centerpoint_tta_entry``: double-flip TTA, 4 B clouds), the
+    single-stage nuScenes model calibrated as 6d's, at batch 1 and 4."""
+    from minddet_tpu_torch.entry import (centerpoint_tta_entry,
+                                         centerpoint_voxel_entry)
+
+    make = centerpoint_tta_entry if tta else centerpoint_voxel_entry
+    programs = {b: make(device=dev, batch=b) for b in CP_BATCHES}
+    for predict, clouds in programs.values():
+        calibrate_centerpoint(predict.__self__, *clouds)
+    return voxel_serving_main_path(
+        dev, "CenterPoint TTA" if tta else "CenterPoint padded", programs,
+        _check_centerpoint_detections)
+
+
 def _profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn``: the device's
     busy time (union of kernel intervals) against the host clock of the
@@ -7780,6 +8221,10 @@ def main(argv=None) -> int:
           flush=True)
     kitti_f32 = timed_phase("4r", card, check_kitti_f32, dev)
     torch.cuda.empty_cache()
+    print("phase 4s: the f32 padded voxel path (PointPillars, CenterPoint, "
+          "the TTA), card vs CPU", flush=True)
+    voxel_f32 = timed_phase("4s", card, check_voxel_path_f32, dev)
+    torch.cuda.empty_cache()
 
     print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
           "referee", flush=True)
@@ -7822,6 +8267,10 @@ def main(argv=None) -> int:
         seg_train_f32[kind] = timed_phase(phase, card, check_seg_train_f32,
                                           dev, kind)
         torch.cuda.empty_cache()
+    print("phase 5r: end to end, f32 voxel loss steps of PointPillars and "
+          "CenterPoint, card vs CPU and the f64 referee", flush=True)
+    voxel_train_f32 = timed_phase("5r", card, check_voxel_train_f32, dev)
+    torch.cuda.empty_cache()
     forward_probe = None
     if args.probe:
         print("probe: f32 CenterPoint train-mode forward against f64, layer "
@@ -8094,6 +8543,25 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     del ped_programs
     torch.cuda.empty_cache()
+    print("phase 6ap: main path, PointPillars f32 serving on padded voxels "
+          "(car, ped_cycle), the stream entry beside it", flush=True)
+    pp_voxel = timed_phase("6ap", card, pointpillars_voxel_main_path, dev)
+    torch.cuda.empty_cache()
+    print(f"phase 6aq: main path, PointPillars bf16 train step on padded "
+          f"voxels at batch {TRAIN_PP_BATCH}, the stream step beside it",
+          flush=True)
+    pp_voxel_training = timed_phase("6aq", card,
+                                    pointpillars_voxel_train_main_path, dev)
+    torch.cuda.empty_cache()
+    print("phase 6ar: main path, CenterPoint f32 serving on padded voxels",
+          flush=True)
+    cp_voxel = timed_phase("6ar", card, centerpoint_voxel_main_path, dev,
+                           False)
+    torch.cuda.empty_cache()
+    print("phase 6as: main path, CenterPoint f32 double-flip TTA serving",
+          flush=True)
+    cp_tta = timed_phase("6as", card, centerpoint_voxel_main_path, dev, True)
+    torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -8147,14 +8615,21 @@ def main(argv=None) -> int:
         # CenterPoint request's, one CenterPoint train step's, one
         # iteration of the decode program's, one batch-4 ped_cycle
         # request's, and of the KITTI evaluation one predict batch's and the
-        # bev and 3d overlaps' calls
+        # bev and 3d overlaps' calls; the padded paths: one batch-8 car and
+        # one batch-4 ped_cycle request's, one batch-4 CenterPoint voxel
+        # request's and one batch-4 TTA request's (6ap's stream requests
+        # are 6c's path)
         _kernel_row(kernels.ROTATED_IOU,
                     pp_launches["rotated_iou_intersect"]
                     + cp_launches["rotated_iou_intersect"]
                     + cp_train_launches["rotated_iou_intersect"]
                     + decode["launches"]["rotated_iou_intersect"]
                     + kitti_eval["launches"]["rotated_iou_intersect"]
-                    + ped_launches["rotated_iou_intersect"],
+                    + ped_launches["rotated_iou_intersect"]
+                    + pp_voxel["launches"]["rotated_iou_intersect"]
+                    + pp_voxel["stream"]["launches"]["rotated_iou_intersect"]
+                    + cp_voxel["launches"]["rotated_iou_intersect"]
+                    + cp_tta["launches"]["rotated_iou_intersect"],
                     [c for c in iou_cases if c["kind"] in (
                         "candidates", "train") and c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
@@ -8162,7 +8637,14 @@ def main(argv=None) -> int:
                         [TRAIN_CP_BATCH, CP_PROPOSALS])
                      or c["kind"] == "decode_nms"]
                     + 2 * [c for c in iou_cases if c["kind"] in (
-                        "eval_candidates", "kitti_eval")], 1,
+                        "eval_candidates", "kitti_eval")]
+                    + [c for c in iou_cases if c["kind"] in (
+                        "candidates", "eval_candidates") and c["shape"][:2]
+                       in ([PP_BATCHES[-1], PP_CANDIDATES],
+                           [KITTI_EVAL_BATCH, PP_CANDIDATES])]
+                    + 2 * [c for c in iou_cases if c["kind"] == "candidates"
+                           and c["shape"][:2] == [CP_TASKS * CP_BATCHES[-1],
+                                                  CP_CANDIDATES]], 1,
                     iou_cases),
         # K5f: one f32 batch-4 CenterPoint request's call and one bf16
         # batch-8 step's of each CenterPoint train path (two- and
@@ -8291,6 +8773,11 @@ def main(argv=None) -> int:
                            kitti_eval=kitti_eval,
                            ped_cycle_serving=ped_serving,
                            ped_cycle_launches=ped_launches,
+                           voxel_f32=voxel_f32,
+                           voxel_train_f32=voxel_train_f32,
+                           pointpillars_voxel=pp_voxel,
+                           pointpillars_voxel_training=pp_voxel_training,
+                           centerpoint_voxel=cp_voxel, centerpoint_tta=cp_tta,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -138,6 +138,21 @@ threads); it launches no hand-written kernel.
 ``pointpillars_kitti_eval_entry()`` is ``kitti_evaluate`` (the official
 KITTI table: bbox, BEV, 3D, AOS) over 256 in-memory frames: K4 once per
 predict batch and once each for the BEV and 3D overlaps.
+
+The padded voxel path of both lidar families: ``pointpillars_voxel_entry()``
+serves a PointPillars configuration by the reference's dense branch
+(``voxelize_batch``, the generic ``anchors_bev_area_mask``,
+``PointPillars.predict``; f32, 18,000-point clouds; one K4 launch per
+request); ``pointpillars_voxel_train_entry()`` is
+``pointpillars_train_entry()``'s step on that route (``voxelize_batch``,
+the generic mask, the assignment, ``PointPillars.loss``) on the same
+batch; ``centerpoint_voxel_entry()`` serves the single-stage nuScenes
+model of ``configs/centerpoint_pp_nusc.yaml`` from voxels
+(``voxelize_batch``, 30000 x 20, ``CenterPoint.predict``) and
+``centerpoint_tta_entry()`` by ``predict_tta_double_flip`` (a 4B voxel
+batch of flipped clouds); both f32 on 120,000-point clouds of 5 features,
+one K4 launch per request. ``build_centerpoint(config=...)`` reads a
+CenterPoint configuration's model section (``_base_`` merged).
 """
 
 from __future__ import annotations
@@ -425,29 +440,59 @@ PP_MODEL_KEYS = ("num_classes", "grid_ny", "grid_nx", "voxel_size",
 PP_IGNORED_KEYS = ("type", "rpn_space_to_depth")
 
 
-def pointpillars_config(config=PP_CAR_CONFIG) -> Dict:
-    """A PointPillars configuration: ``config`` itself where it is a
-    mapping, else the YAML file at that path."""
+def read_config(config) -> Dict:
+    """A configuration: ``config`` itself where it is a mapping, else the
+    YAML file at that path with its ``_base_`` files (a path or a list,
+    relative to it) merged under it, mapping by mapping."""
     if isinstance(config, Mapping):
         return dict(config)
     import yaml
 
     with open(config) as f:
-        return yaml.safe_load(f)
+        cfg = yaml.safe_load(f)
+    base = cfg.pop("_base_", None)
+    if not base:
+        return cfg
+    merged: Dict = {}
+    for b in base if isinstance(base, (list, tuple)) else [base]:
+        _merge(merged, read_config(Path(config).parent / b))
+    _merge(merged, cfg)
+    return merged
+
+
+def _merge(into: Dict, cfg: Mapping) -> None:
+    for k, v in cfg.items():
+        if isinstance(v, Mapping) and isinstance(into.get(k), dict):
+            _merge(into[k], v)
+        else:
+            into[k] = dict(v) if isinstance(v, Mapping) else v
+
+
+def pointpillars_config(config=PP_CAR_CONFIG) -> Dict:
+    """A PointPillars configuration (``read_config``)."""
+    return read_config(config)
+
+
+def _config_kwargs(mcfg: Mapping, keys, ignored, fixed, name: str) -> Dict:
+    """The model arguments of a configuration's model section (lists as
+    tuples): a key the port does not know, or a ``fixed`` key set to
+    another value than the port's, raises."""
+    unknown = set(mcfg) - set(keys) - set(ignored) - set(fixed)
+    wrong = {k: mcfg[k] for k in fixed if k in mcfg and mcfg[k] != fixed[k]}
+    if unknown or wrong:
+        raise ValueError(f"{name} config keys not ported: {unknown or wrong}")
+
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+
+    return {k: tup(v) for k, v in mcfg.items() if k in keys}
 
 
 def pointpillars_kwargs(cfg: Mapping) -> Dict:
     """The ``PointPillars`` arguments of a configuration's model section
     (lists as tuples); a key the port does not know raises."""
-    mcfg = dict(cfg["model"])
-    unknown = set(mcfg) - set(PP_MODEL_KEYS) - set(PP_IGNORED_KEYS)
-    if unknown:
-        raise ValueError(f"PointPillars config keys not ported: {unknown}")
-
-    def tup(v):
-        return tuple(tup(x) for x in v) if isinstance(v, list) else v
-
-    return {k: tup(v) for k, v in mcfg.items() if k in PP_MODEL_KEYS}
+    return _config_kwargs(cfg["model"], PP_MODEL_KEYS, PP_IGNORED_KEYS, {},
+                          "PointPillars")
 
 
 def build_pointpillars(device=None, config=PP_CAR_CONFIG) -> PointPillars:
@@ -492,17 +537,91 @@ def pointpillars_ped_cycle_entry(device=None, batch: int = 1
                                        torch.from_numpy(mask).to(dev))
 
 
-def build_centerpoint(device=None) -> CenterPointTwoStage:
-    """The two-stage nuScenes CenterPoint of
-    ``configs/centerpoint_pp_nusc_two_stage.yaml`` (grid 512x512, voxels
-    0.2 x 0.2 x 8 m, PFN (64, 64), RPN (3, 5, 5) with up strides (0.5, 1,
-    2), six tasks, max_voxels 30000, 20 points per pillar, sorted drop
-    order, refine width 128) in eval mode, f32, with flax's default
-    initialisers drawn from ``SEED`` and the heatmap biases at -2.19."""
+def pointpillars_voxel_entry(device=None, batch: int = 1,
+                             config=PP_CAR_CONFIG
+                             ) -> Tuple[Callable[..., Dict],
+                                        Tuple[torch.Tensor, torch.Tensor]]:
+    """``pointpillars_entry()`` by the padded path, for any PointPillars
+    configuration (``build_pointpillars``): ``predict_fn(points,
+    points_mask)`` is ``PointPillars.predict_from_points_padded``, the
+    reference's dense branch (``voxelize_batch`` at the config's max_voxels
+    x points per pillar, ``anchors_bev_area_mask`` over the nearest
+    footprints of every anchor, ``predict``). The clouds are
+    ``synthetic_clouds(batch)`` over the config's range."""
+    model = build_pointpillars(device, config)
+    dev = model.anchors.device
+    points, mask = synthetic_clouds(batch, model.pc_range)
+    return model.predict_from_points_padded, (
+        torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev))
+
+
+CP_CONFIG = CONFIGS / "centerpoint_pp_nusc.yaml"
+CP_TWO_STAGE_CONFIG = CONFIGS / "centerpoint_pp_nusc_two_stage.yaml"
+CP_WAYMO_CONFIG = CONFIGS / "centerpoint_pp_waymo.yaml"
+# the config's model keys that the port's CenterPoint takes as they are;
+# the loss weights below are the port's constants (CenterHead's weight and
+# the second stage's unit weights), so a config may only restate them
+CP_MODEL_KEYS = ("task_num_classes", "grid_ny", "grid_nx", "voxel_size",
+                 "pc_range", "out_size_factor", "max_voxels",
+                 "max_points_per_voxel", "num_proposals", "fg_iou",
+                 "refine_hidden")
+CP_FIXED_KEYS = {"loc_weight": 0.25, "stage2_score_weight": 1.0,
+                 "stage2_box_weight": 1.0}
+CP_CLASSES = {"CenterPoint": CenterPoint,
+              "CenterPointTwoStage": CenterPointTwoStage}
+
+
+def build_centerpoint(device=None, config=None) -> CenterPoint:
+    """The CenterPoint of ``config`` (``read_config``: a path or a mapping;
+    ``configs/centerpoint_pp_nusc.yaml``, ``..._two_stage.yaml`` with its
+    ``_base_``, ``centerpoint_pp_waymo.yaml``), its ``type`` the class; by
+    default the two-stage nuScenes model of ``CP_TWO_STAGE_CONFIG`` with
+    the port's defaults (grid 512x512, voxels 0.2 x 0.2 x 8 m, PFN (64,
+    64), RPN (3, 5, 5) with up strides (0.5, 1, 2), six tasks, max_voxels
+    30000, 20 points per pillar, sorted drop order, refine width 128). In
+    eval mode, f32, with flax's default initialisers drawn from ``SEED``
+    and the heatmap biases at -2.19."""
     dev = resolve_device(device)
-    model = CenterPointTwoStage().init_weights(
-        torch.Generator().manual_seed(SEED))
+    if config is None:
+        model = CenterPointTwoStage()
+    else:
+        mcfg = read_config(config)["model"]
+        model = CP_CLASSES[mcfg["type"]](**_config_kwargs(
+            mcfg, CP_MODEL_KEYS, ("type",), CP_FIXED_KEYS, "CenterPoint"))
+    model.init_weights(torch.Generator().manual_seed(SEED))
     return model.eval().to(device=dev, memory_format=torch.channels_last)
+
+
+def _nusc_clouds(model, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    dev = next(model.parameters()).device
+    points, mask = synthetic_clouds(batch, model.pc_range, NUSC_CLOUD_POINTS,
+                                    num_features=NUSC_POINT_FEATURES)
+    return torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def centerpoint_voxel_entry(device=None, batch: int = 1
+                            ) -> Tuple[Callable[..., Dict],
+                                       Tuple[torch.Tensor, torch.Tensor]]:
+    """(predict_fn, (points, points_mask)): ``predict_fn(points,
+    points_mask)`` is ``CenterPoint.predict_from_points_padded`` of the
+    single-stage model of ``configs/centerpoint_pp_nusc.yaml``
+    (``voxelize_batch``, 30000 voxels x 20 points, then ``predict``: score
+    threshold 0.1, top 1000 per task, NMS IoU 0.2, 83 kept per task):
+    boxes (batch, 498, 9), scores, labels. The clouds are 120,000 points
+    of 5 features from ``synthetic_clouds``."""
+    model = build_centerpoint(device, CP_CONFIG)
+    return model.predict_from_points_padded, _nusc_clouds(model, batch)
+
+
+def centerpoint_tta_entry(device=None, batch: int = 1
+                          ) -> Tuple[Callable[..., Dict],
+                                     Tuple[torch.Tensor, torch.Tensor]]:
+    """``centerpoint_voxel_entry()`` by double-flip TTA: ``predict_fn`` is
+    ``CenterPoint.predict_tta_double_flip`` (4 * batch clouds voxelized
+    and predicted as one batch, the maps unflipped and merged, one
+    decode)."""
+    model = build_centerpoint(device, CP_CONFIG)
+    return model.predict_tta_double_flip, _nusc_clouds(model, batch)
 
 
 def centerpoint_entry(device=None, batch: int = 1
@@ -514,11 +633,7 @@ def centerpoint_entry(device=None, batch: int = 1
     (batch, 498, 9), scores, labels. The clouds are 120,000 points of 5
     features from ``synthetic_clouds``."""
     model = build_centerpoint(device)
-    dev = next(model.parameters()).device
-    points, mask = synthetic_clouds(batch, model.pc_range, NUSC_CLOUD_POINTS,
-                                    num_features=NUSC_POINT_FEATURES)
-    return model.predict_refined, (torch.from_numpy(points).to(dev),
-                                   torch.from_numpy(mask).to(dev))
+    return model.predict_refined, _nusc_clouds(model, batch)
 
 
 def synthetic_lidar_batch(batch: int, pc_range,
@@ -619,6 +734,29 @@ def pointpillars_train_entry(device=None, batch: int = 32
     anchors run inside the step; it launches no hand-written kernel (a
     one-layer PFN takes the running max, the assignment axis-aligned
     IoUs)."""
+    return _pointpillars_train_program(device, batch, model_gt_loss)
+
+
+def padded_gt_loss(model, batch: Dict):
+    """``model.loss_from_gt_padded(batch)``: the loss function of
+    ``pointpillars_voxel_train_entry``."""
+    return model.loss_from_gt_padded(batch)
+
+
+def pointpillars_voxel_train_entry(device=None, batch: int = 32
+                                   ) -> Tuple[Callable,
+                                              Tuple[TrainState, Dict]]:
+    """``pointpillars_train_entry()`` on the padded route, same model,
+    optimizer and batch: ``PointPillars.loss_from_gt_padded``
+    (``voxelize_batch`` at 16000 x 32, the generic ``anchors_bev_area_mask``,
+    the assignment without gradient, then ``loss`` on the voxels: the
+    padded PFN over (batch, 16000, 32, 9) decorated points). No
+    hand-written kernel launches."""
+    return _pointpillars_train_program(device, batch, padded_gt_loss)
+
+
+def _pointpillars_train_program(device, batch: int, loss_fn
+                                ) -> Tuple[Callable, Tuple[TrainState, Dict]]:
     dev = resolve_device(device)
     model = PointPillars(dtype=torch.bfloat16).init_weights(
         torch.Generator().manual_seed(SEED))
@@ -628,7 +766,7 @@ def pointpillars_train_entry(device=None, batch: int = 32
                                  PP_TRAIN_MAX_GT, num_classes=1,
                                  num_features=4, box_dim=7)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    return make_train_step(model_gt_loss), (state, data)
+    return make_train_step(loss_fn), (state, data)
 
 
 # the KITTI configs' own train section and eval protocol, fed from frames in

@@ -1,6 +1,8 @@
-"""CenterPoint from raw points, one- and two-stage, serving and training
-(counterpart of the stream paths of
-``minddet_tpu/models/detectors/centerpoint.py``: ``_bev_from_points_stream``,
+"""CenterPoint from raw points or padded voxels, one- and two-stage,
+serving and training (counterpart of
+``minddet_tpu/models/detectors/centerpoint.py``: ``__call__``
+(``forward_voxels``), ``predict``, ``loss``, ``unflip_task_map``,
+``predict_tta_double_flip``, ``_bev_from_points_stream``,
 ``predict_from_points``, ``CenterPointTwoStage.predict_refined`` and the two
 ``loss_from_gt``).
 
@@ -29,14 +31,19 @@ scatter_stream_canvas``); the reference's three canvas builders (compact,
 sorted-add, ``.set``), its 65th scatter channel and ``rpn_space_to_depth``
 are TPU layouts of the same canvas.
 
+The padded path (``forward_voxels``, ``predict``, ``loss`` and the
+double-flip TTA): padded voxels (``voxelize_batch``, first-come) ->
+``decorate_pillar_features`` -> the padded two-layer PFN (its non-last
+layer broadcasts each voxel's max back, no kernel) ->
+``scatter_voxel_canvas`` -> the same RPN and head.
+
 BN follows the module's mode (``train()`` / ``eval()``), where flax takes
 ``train=``. ``dtype`` is the reference's compute dtype over f32 parameters:
 the decorated stream is cast to it and every layer computes in it (the
 voxelizer, the targets, the decode and the losses stay f32). The
 configuration's fields are the reference's, with its defaults (the nuScenes
 model of ``configs/centerpoint_pp_nusc.yaml`` and
-``centerpoint_pp_nusc_two_stage.yaml``). Not ported: the padded-voxel
-``__call__`` / ``predict`` / ``loss`` and double-flip TTA.
+``centerpoint_pp_nusc_two_stage.yaml``).
 """
 
 from __future__ import annotations
@@ -52,18 +59,49 @@ from minddet_tpu_torch.models.heads.second_stage import (BEVFeatureExtractor,
                                                          BEVRefineHead)
 from minddet_tpu_torch.models.layers import init_flax_defaults_
 from minddet_tpu_torch.models.necks.second_rpn import SECONDRPN
-from minddet_tpu_torch.models.readers.pillar_encoder import PillarFeatureNet
+from minddet_tpu_torch.models.readers.pillar_encoder import (
+    PillarFeatureNet, scatter_voxel_canvas)
 from minddet_tpu_torch.ops.box import second_box_decode, second_box_encode
 from minddet_tpu_torch.ops.rotated_iou import rotated_iou_bev
 from minddet_tpu_torch.ops.targets import centerpoint_targets_batch
-from minddet_tpu_torch.ops.voxelize import (scatter_stream_canvas,
+from minddet_tpu_torch.ops.voxelize import (VoxelizeOutput,
+                                            decorate_pillar_features,
+                                            scatter_stream_canvas,
+                                            voxelize_batch,
                                             voxelize_stream_batch)
 
 _BOX7 = [0, 1, 2, 3, 4, 5, 8]  # [x, y, z, w, l, h, yaw] of a 9-wide box
 _BEV5 = [0, 1, 3, 4, 8]        # [x, y, w, l, yaw]
+# the double-flip TTA's variants (x flipped, y flipped), in the batch's order
+FLIPS = ((False, False), (False, True), (True, False), (True, True))
+EXAMPLE_KEYS = ("hm", "anno_box", "ind", "mask", "cat")
 
 Batch = Dict[str, torch.Tensor]
 Loss = Tuple[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def unflip_task_map(pred: Dict[str, torch.Tensor], fx: bool, fy: bool
+                    ) -> Dict[str, torch.Tensor]:
+    """One task's prediction maps (B, H, W, C), predicted on a cloud
+    flipped in x (``fx``) and / or y (``fy``), back in the original frame:
+    the axes flipped, the sub-cell offset ``reg`` of a flipped axis
+    replaced by 1 - reg (on a range symmetric about 0 the mirrored cell is
+    N - 1 - g), the yaw's sin negated by a y flip and its cos by an x
+    flip, and each flipped axis's velocity negated."""
+    dims = [d for d, f in ((1, fy), (2, fx)) if f]
+    out = {}
+    for k, m in pred.items():
+        q = torch.flip(m, dims) if dims else m
+        a, b = (q[..., 0], q[..., 1]) if k in ("reg", "rot", "vel") else \
+            (None, None)
+        if k == "reg":
+            q = torch.stack([1.0 - a if fx else a, 1.0 - b if fy else b], -1)
+        elif k == "rot":  # (sin, cos)
+            q = torch.stack([-a if fy else a, -b if fx else b], -1)
+        elif k == "vel":  # (vx, vy)
+            q = torch.stack([-a if fx else a, -b if fy else b], -1)
+        out[k] = q
+    return out
 
 
 class CenterPoint(nn.Module):
@@ -138,6 +176,101 @@ class CenterPoint(nn.Module):
                 points_mask: torch.Tensor) -> Preds:
         """Points -> per task the six prediction maps (B, H, W, C)."""
         return self.head(self.bev_from_points_stream(points, points_mask))
+
+    @torch.no_grad()
+    def voxelize(self, points: torch.Tensor,
+                 points_mask: torch.Tensor) -> VoxelizeOutput:
+        """Points (B, N, F) + mask (B, N) -> the padded voxels of the
+        model's configuration (``voxelize_batch``, first-come)."""
+        return voxelize_batch(points, points_mask, self.voxel_size,
+                              self.pc_range, self.max_voxels,
+                              self.max_points_per_voxel)
+
+    def forward_voxels(self, voxels: torch.Tensor, num_points: torch.Tensor,
+                       coords: torch.Tensor) -> Preds:
+        """Padded voxels (B, V, P, F), point counts (B, V) and coords (B,
+        V, 3) -> per task the six prediction maps (the reference's
+        ``__call__``): decoration, the padded PFN, the scatter, the RPN and
+        the head."""
+        feats = decorate_pillar_features(voxels, num_points, coords,
+                                         self.voxel_size, self.pc_range)
+        canvas = scatter_voxel_canvas(self.reader(feats, num_points), coords,
+                                      self.grid_ny, self.grid_nx)
+        return self.head(self.rpn(canvas).contiguous(
+            memory_format=torch.channels_last))
+
+    def loss(self, batch: Batch) -> Loss:
+        """The training objective from padded voxels and given targets:
+        batch {voxels, num_points, coords, and per task the head's targets
+        under hm, anno_box, ind, mask, cat (lists of length T)} -> (total,
+        parts) of ``CenterHead.loss``."""
+        preds = self.forward_voxels(batch["voxels"], batch["num_points"],
+                                    batch["coords"])
+        return self.head.loss(preds, {k: batch[k] for k in EXAMPLE_KEYS})
+
+    @torch.inference_mode()
+    def predict(self, voxels: torch.Tensor, num_points: torch.Tensor,
+                coords: torch.Tensor, score_threshold: float = 0.1,
+                nms_pre: int = 1000, nms_post: int = 83,
+                nms_iou: float = 0.2) -> Dict:
+        """Padded voxels -> detections, as ``predict_from_points``
+        returns them."""
+        return self._head_predict(
+            self.forward_voxels(voxels, num_points, coords), score_threshold,
+            nms_pre, nms_post, nms_iou)
+
+    @torch.inference_mode()
+    def predict_from_points_padded(self, points: torch.Tensor,
+                                   points_mask: torch.Tensor,
+                                   score_threshold: float = 0.1,
+                                   nms_pre: int = 1000, nms_post: int = 83,
+                                   nms_iou: float = 0.2) -> Dict:
+        """Raw points -> detections by the padded path: ``voxelize``, then
+        ``predict``."""
+        vox = self.voxelize(points, points_mask)
+        return self.predict(vox.voxels, vox.num_points, vox.coords,
+                            score_threshold, nms_pre, nms_post, nms_iou)
+
+    @torch.inference_mode()
+    def predict_tta_double_flip(self, points: torch.Tensor,
+                                points_mask: torch.Tensor,
+                                score_threshold: float = 0.1,
+                                nms_pre: int = 1000, nms_post: int = 83,
+                                nms_iou: float = 0.2) -> Dict:
+        """Double-flip test-time augmentation: the cloud as it is, flipped
+        in y, in x and in both (``FLIPS``) go through the padded path as
+        one 4B batch; each variant's maps are unflipped
+        (``unflip_task_map``) and averaged in f32, the heatmap as
+        logit(clip(mean(sigmoid), 1e-6, 1 - 1e-6)); one decode. Needs a BEV
+        range symmetric about 0 on both axes (else ValueError)."""
+        pcr = self.pc_range
+        if abs(pcr[0] + pcr[3]) > 1e-4 or abs(pcr[1] + pcr[4]) > 1e-4:
+            raise ValueError(f"double-flip TTA needs an x/y range symmetric "
+                             f"about 0, got {pcr}")
+        variants = []
+        for fx, fy in FLIPS:
+            q = points.clone()
+            if fx:
+                q[..., 0] = -q[..., 0]
+            if fy:
+                q[..., 1] = -q[..., 1]
+            variants.append(q)
+        b = points.shape[0]
+        vox = self.voxelize(torch.cat(variants), points_mask.repeat(4, 1))
+        merged = []
+        for pred in self.forward_voxels(vox.voxels, vox.num_points,
+                                        vox.coords):
+            parts = [unflip_task_map(
+                {k: m.float()[i * b:(i + 1) * b] for k, m in pred.items()},
+                fx, fy) for i, (fx, fy) in enumerate(FLIPS)]
+            out = {k: sum(p[k] for p in parts) / len(parts)
+                   for k in parts[0] if k != "hm"}
+            prob = sum(torch.sigmoid(p["hm"]) for p in parts) / len(parts)
+            prob = prob.clamp(1e-6, 1.0 - 1e-6)
+            out["hm"] = torch.log(prob) - torch.log1p(-prob)
+            merged.append(out)
+        return self._head_predict(merged, score_threshold, nms_pre, nms_post,
+                                  nms_iou)
 
     def _stage1_example(self, batch: Batch) -> Dict[str, List[torch.Tensor]]:
         """gt boxes and classes -> the head's targets, per task: the boxes

@@ -1,7 +1,8 @@
-"""PointPillars from raw points, serving and training (counterpart of
-``minddet_tpu/models/detectors/pointpillars.py``: ``predict_from_points``
-with the stream voxelizer, ``_canvas_from_points``, ``_preds_from_canvas``,
-``_predict_from_preds``, and the stream branch of ``loss_from_gt`` with
+"""PointPillars from raw points or padded voxels, serving and training
+(counterpart of ``minddet_tpu/models/detectors/pointpillars.py``:
+``__call__`` (``forward_voxels``), ``predict``, ``loss``,
+``predict_from_points`` and ``loss_from_gt`` with both their branches,
+``_canvas_from_points``, ``_preds_from_canvas``, ``_predict_from_preds``,
 ``_loss_from_preds`` and its helpers).
 
     points (B, N, 4) + mask -> stream voxelize -> stream PFN -> one canvas
@@ -22,14 +23,18 @@ same indices (``ops/voxelize.py:scatter_stream_canvas``). The reference's
 TPU layouts (space-to-depth scatter, the 65th occupancy channel, the compact
 scatter) compute the same canvas.
 
+The padded path (the reference's dense branch, taken for an anchor layout
+that is not a regular grid of whole cells, and by ``*_padded``): points ->
+``voxelize_batch`` (first-come) -> ``decorate_pillar_features`` -> the
+padded PFN -> ``scatter_voxel_canvas`` -> the same RPN and heads; the
+anchor mask is ``anchors_bev_area_mask`` over the voxels' coords.
+
 BN follows the module's mode (``train()`` / ``eval()``), where flax takes
 ``train=``. ``dtype`` is the reference's compute dtype over f32 parameters:
 the decorated stream is cast to it and every layer computes in it; the
 voxelizer, the anchor mask and the assignment carry no gradient, and the
 losses are f32. The configuration's fields are the reference's, with its
 defaults (the KITTI car model of ``configs/pointpillars_car_kitti.yaml``).
-Not ported: the padded-voxel ``__call__`` / ``predict`` / ``loss`` and the
-dense branch of ``loss_from_gt`` (irregular anchor layouts).
 """
 
 from __future__ import annotations
@@ -47,15 +52,21 @@ from minddet_tpu_torch.models.losses import (sigmoid_focal_loss,
                                              weighted_smooth_l1,
                                              weighted_softmax_ce)
 from minddet_tpu_torch.models.necks.second_rpn import SECONDRPN
-from minddet_tpu_torch.models.readers.pillar_encoder import PillarFeatureNet
+from minddet_tpu_torch.models.readers.pillar_encoder import (
+    PillarFeatureNet, scatter_voxel_canvas)
 from minddet_tpu_torch.ops.anchors import (ClassAnchorConfig,
+                                           anchors_bev_area_mask,
                                            assign_targets_batch,
                                            generate_anchors,
                                            make_grid_area_mask)
-from minddet_tpu_torch.ops.box import limit_period, second_box_decode
+from minddet_tpu_torch.ops.box import (limit_period, rbbox_to_near_bbox,
+                                       second_box_decode)
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
-from minddet_tpu_torch.ops.voxelize import (scatter_stream_canvas,
+from minddet_tpu_torch.ops.voxelize import (VoxelizeOutput,
+                                            decorate_pillar_features,
+                                            scatter_stream_canvas,
+                                            voxelize_batch,
                                             voxelize_stream_batch)
 
 Preds = Dict[str, torch.Tensor]
@@ -146,6 +157,7 @@ class PointPillars(nn.Module):
         self.max_voxels = max_voxels
         self.max_points_per_voxel = max_points_per_voxel
         self.voxel_drop_order = voxel_drop_order
+        self.anchor_area_threshold = anchor_area_threshold
 
         self.reader = PillarFeatureNet(9, pfn_filters, dtype=dtype)
         self.rpn = SECONDRPN(pfn_filters[-1], rpn_layer_nums, rpn_strides,
@@ -169,13 +181,10 @@ class PointPillars(nn.Module):
         feature_size, configs = self.anchor_layout()
         for k, v in generate_anchors(feature_size, configs).items():
             self.register_buffer(k, torch.from_numpy(v), persistent=False)
+        # None for an irregular layout: then the points take the padded path
         self.area_mask = make_grid_area_mask(
             (grid_ny, grid_nx), voxel_size, pc_range, feature_size, configs,
             anchor_area_threshold)
-        if self.area_mask is None:
-            raise NotImplementedError(
-                "irregular anchor layouts need the padded voxelize path "
-                "(anchors_bev_area_mask), which is not ported")
 
     def canvas_from_points(self, points: torch.Tensor,
                            points_mask: torch.Tensor
@@ -192,6 +201,39 @@ class PointPillars(nn.Module):
                                bound=self.max_points_per_voxel)
         return scatter_stream_canvas(h, sv, self.grid_ny, self.grid_nx,
                                      occupancy=True)
+
+    @torch.no_grad()
+    def voxelize(self, points: torch.Tensor,
+                 points_mask: torch.Tensor) -> VoxelizeOutput:
+        """Points (B, N, 4) + mask (B, N) -> the padded voxels of the
+        model's configuration (``voxelize_batch``, first-come)."""
+        return voxelize_batch(points, points_mask, self.voxel_size,
+                              self.pc_range, self.max_voxels,
+                              self.max_points_per_voxel)
+
+    def anchor_mask_from_coords(self, coords: torch.Tensor,
+                                anchors: torch.Tensor = None
+                                ) -> torch.Tensor:
+        """Voxel coords (B, V, 3) -> the (B, A) anchor-area mask of any
+        layout (``anchors_bev_area_mask`` over the nearest axis-aligned
+        footprints of ``anchors``, the model's by default)."""
+        anchors = self.anchors if anchors is None else anchors
+        return anchors_bev_area_mask(
+            coords, rbbox_to_near_bbox(anchors[:, [0, 1, 3, 4, 6]]),
+            (self.grid_ny, self.grid_nx), self.voxel_size, self.pc_range,
+            self.anchor_area_threshold)
+
+    def forward_voxels(self, voxels: torch.Tensor, num_points: torch.Tensor,
+                       coords: torch.Tensor) -> Preds:
+        """Padded voxels (B, V, P, 4), their point counts (B, V) and coords
+        (B, V, 3) -> flat per-anchor f32 predictions (the reference's
+        ``__call__``): decoration, the padded PFN, the scatter, then
+        ``preds_from_canvas``."""
+        feats = decorate_pillar_features(voxels, num_points, coords,
+                                         self.voxel_size, self.pc_range)
+        canvas = scatter_voxel_canvas(self.reader(feats, num_points), coords,
+                                      self.grid_ny, self.grid_nx)
+        return self.preds_from_canvas(canvas)
 
     def anchor_layout(self) -> Tuple[Tuple[int, int],
                                      List[ClassAnchorConfig]]:
@@ -234,7 +276,15 @@ class PointPillars(nn.Module):
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor
                 ) -> Tuple[Preds, torch.Tensor]:
-        """Points -> (predictions, anchor mask (B, A) bool)."""
+        """Points -> (predictions, anchor mask (B, A) bool): the stream
+        path and the grid mask, or for an irregular anchor layout the
+        padded path (``voxelize``, ``forward_voxels``,
+        ``anchor_mask_from_coords``), as the reference chooses."""
+        if self.area_mask is None:
+            vox = self.voxelize(points, points_mask)
+            return (self.forward_voxels(vox.voxels, vox.num_points,
+                                        vox.coords),
+                    self.anchor_mask_from_coords(vox.coords))
         canvas, occ = self.canvas_from_points(points, points_mask)
         return self.preds_from_canvas(canvas), self.area_mask(occ)
 
@@ -244,18 +294,52 @@ class PointPillars(nn.Module):
         (B, G) 1-based, gt_mask (B, G)}, optionally with ``anchor_set()``'s
         keys (else the model's own) -> (total, {loc_loss, cls_loss,
         dir_loss}). BN as the module's mode says (train for the reference's
-        ``train=True``)."""
-        gen = ({k: batch[k] for k in ANCHOR_KEYS} if "anchors" in batch
-               else self.anchor_set())
+        ``train=True``). The stream path for a regular anchor grid, else
+        ``loss_from_gt_padded``."""
+        if self.area_mask is None:
+            return self.loss_from_gt_padded(batch)
+        gen = self._batch_anchors(batch)
         canvas, occ = self.canvas_from_points(batch["points"],
                                               batch["points_mask"])
         preds = self.preds_from_canvas(canvas, cast_f32=False)
-        t = assign_targets_batch(
-            gen["anchors"], batch["gt_boxes"], batch["gt_classes"],
-            batch["gt_mask"], gen["matched_threshold"],
-            gen["unmatched_threshold"], self.area_mask(occ))
+        t = self._targets(gen, batch, self.area_mask(occ))
         return self.loss_from_preds(preds, gen["anchors"], t["labels"],
                                     t["bbox_targets"])
+
+    def loss_from_gt_padded(self, batch: Dict[str, torch.Tensor]) -> Loss:
+        """``loss_from_gt`` by the reference's dense branch: ``voxelize``,
+        ``anchor_mask_from_coords``, the assignment, then ``loss`` on the
+        voxels."""
+        gen = self._batch_anchors(batch)
+        vox = self.voxelize(batch["points"], batch["points_mask"])
+        t = self._targets(gen, batch, self.anchor_mask_from_coords(
+            vox.coords, gen["anchors"]))
+        return self.loss({"voxels": vox.voxels, "num_points": vox.num_points,
+                          "coords": vox.coords, "anchors": gen["anchors"],
+                          "labels": t["labels"],
+                          "reg_targets": t["bbox_targets"]})
+
+    def _batch_anchors(self, batch: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        return ({k: batch[k] for k in ANCHOR_KEYS} if "anchors" in batch
+                else self.anchor_set())
+
+    @staticmethod
+    def _targets(gen, batch, amask) -> Dict[str, torch.Tensor]:
+        return assign_targets_batch(
+            gen["anchors"], batch["gt_boxes"], batch["gt_classes"],
+            batch["gt_mask"], gen["matched_threshold"],
+            gen["unmatched_threshold"], amask)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> Loss:
+        """The training objective from padded voxels and given targets:
+        batch {voxels (B, V, P, 4), num_points (B, V), coords (B, V, 3),
+        anchors (A, 7), labels (B, A), reg_targets (B, A, 7)} -> (total,
+        parts), as ``loss_from_preds``."""
+        preds = self.forward_voxels(batch["voxels"], batch["num_points"],
+                                    batch["coords"])
+        return self.loss_from_preds(preds, batch["anchors"], batch["labels"],
+                                    batch["reg_targets"])
 
     def loss_from_preds(self, preds: Preds, anchors: torch.Tensor,
                         labels: torch.Tensor, reg_targets: torch.Tensor
@@ -295,20 +379,24 @@ class PointPillars(nn.Module):
         return total, parts
 
     def decode_candidates(self, preds: Preds, anchors_mask: torch.Tensor,
-                          nms_pre: int = 900) -> Preds:
+                          nms_pre: int = 900,
+                          anchors: torch.Tensor = None) -> Preds:
         """Sigmoid scores (the best class per anchor), zero where the anchor
-        mask is off, the top ``nms_pre`` (the lower anchor index first among
-        equal scores), SECOND-decoded with the direction classifier's flip.
-        Returns scores (B, K), anchor (B, K) indices, labels (B, K) and
-        boxes (B, K, 7), K = min(nms_pre, A)."""
+        mask (None: every anchor) is off, the top ``nms_pre`` (the lower
+        anchor index first among equal scores), SECOND-decoded against
+        ``anchors`` (A, 7) (the model's by default) with the direction
+        classifier's flip. Returns scores (B, K), anchor (B, K) indices,
+        labels (B, K) and boxes (B, K, 7), K = min(nms_pre, A)."""
+        anchors = self.anchors if anchors is None else anchors
         scores_all = torch.sigmoid(preds["cls_preds"])
         top_scores, top_labels = scores_all.max(dim=-1)
-        top_scores = torch.where(anchors_mask, top_scores,
-                                 torch.zeros_like(top_scores))
+        if anchors_mask is not None:
+            top_scores = torch.where(anchors_mask, top_scores,
+                                     torch.zeros_like(top_scores))
         k_scores, k_idx = topk_lowest_index_first(
             top_scores, min(nms_pre, scores_all.shape[1]))
         boxes = second_box_decode(take_rows(preds["box_preds"], k_idx),
-                                  self.anchors[k_idx])
+                                  anchors[k_idx])
         if self.use_direction_classifier:
             dir_lab = take_rows(preds["dir_preds"], k_idx).argmax(dim=-1)
             rot = boxes[..., 6]
@@ -322,12 +410,13 @@ class PointPillars(nn.Module):
     def predict_from_preds(self, preds: Preds, anchors_mask: torch.Tensor,
                            score_threshold: float = 0.09,
                            nms_pre: int = 900, nms_post: int = 300,
-                           nms_iou: float = 0.1) -> Dict:
+                           nms_iou: float = 0.1,
+                           anchors: torch.Tensor = None) -> Dict:
         """``decode_candidates``, then rotated NMS of the candidates over
         ``score_threshold``, batched. Returns boxes (B, nms_post, 7),
         scores (B, nms_post), labels (B, nms_post) int32 (padding 0, 0, -1)
         and ``nms_passes``, the fixed point's passes for the batch."""
-        cand = self.decode_candidates(preds, anchors_mask, nms_pre)
+        cand = self.decode_candidates(preds, anchors_mask, nms_pre, anchors)
         nms_pre = cand["scores"].shape[1]
         bev = cand["boxes"][..., [0, 1, 3, 4, 6]].contiguous()
         keep_idx, _, passes = rotated_nms(bev, cand["scores"], nms_iou,
@@ -352,10 +441,39 @@ class PointPillars(nn.Module):
                             nms_pre: int = 900, nms_post: int = 300,
                             nms_iou: float = 0.1) -> Dict:
         """Raw padded points (B, N, 4) + mask (B, N) -> detections: the
-        whole serving program (see ``predict_from_preds``)."""
+        whole serving program (see ``predict_from_preds``), by the route
+        ``forward`` takes."""
         preds, amask = self(points, points_mask)
         return self.predict_from_preds(preds, amask, score_threshold,
                                        nms_pre, nms_post, nms_iou)
+
+    @torch.inference_mode()
+    def predict_from_points_padded(self, points: torch.Tensor,
+                                   points_mask: torch.Tensor,
+                                   score_threshold: float = 0.09,
+                                   nms_pre: int = 900, nms_post: int = 300,
+                                   nms_iou: float = 0.1) -> Dict:
+        """``predict_from_points`` by the reference's dense branch:
+        ``voxelize``, ``anchor_mask_from_coords`` over the model's anchors,
+        then ``predict``."""
+        vox = self.voxelize(points, points_mask)
+        return self.predict(vox.voxels, vox.num_points, vox.coords,
+                            self.anchors,
+                            self.anchor_mask_from_coords(vox.coords),
+                            score_threshold, nms_pre, nms_post, nms_iou)
+
+    @torch.inference_mode()
+    def predict(self, voxels: torch.Tensor, num_points: torch.Tensor,
+                coords: torch.Tensor, anchors: torch.Tensor,
+                anchors_mask: torch.Tensor = None,
+                score_threshold: float = 0.09, nms_pre: int = 900,
+                nms_post: int = 300, nms_iou: float = 0.1) -> Dict:
+        """Padded voxels, point counts, coords, anchors (A, 7) and an
+        optional anchor mask (B, A) -> detections (``forward_voxels``, then
+        ``predict_from_preds``)."""
+        preds = self.forward_voxels(voxels, num_points, coords)
+        return self.predict_from_preds(preds, anchors_mask, score_threshold,
+                                       nms_pre, nms_post, nms_iou, anchors)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "PointPillars":

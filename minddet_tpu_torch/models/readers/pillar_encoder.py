@@ -1,11 +1,19 @@
-"""The stream Pillar Feature Network (counterpart of the stream path of
-``minddet_tpu/models/readers/pillar_encoder.py``): the decorated point
-stream (B, N, Cin) -> Linear -> masked BN -> ReLU -> the pillar's running
-max, so that each pillar's last kept row holds its feature.
+"""The Pillar Feature Network and the canvas scatter (counterpart of
+``minddet_tpu/models/readers/pillar_encoder.py``). Each layer is Linear ->
+masked BN -> ReLU -> the pillar's max, in two forms that compute the same
+pillar features from one set of parameters:
+
+- padded (``forward``): decorated voxels (B, V, P, Cin) and the point mask
+  -> the max over each voxel's P slots; ``PillarFeatureNet.forward`` gives
+  (B, V, C) and ``scatter_voxel_canvas`` puts it on the BEV canvas;
+- stream (``stream``): the decorated point stream (B, N, Cin) -> the
+  pillar's running max, so that each pillar's last kept row holds its
+  feature (``ops/voxelize.py:scatter_stream_canvas`` builds the canvas).
 
 A non-last layer (CenterPoint's ``pfn_filters=(64, 64)`` has one) emits
-half its width and concatenates each pillar's max back onto every kept
-point of the pillar, through ``ops/seg_max.py:seg_full_max_bounded``.
+half its width and concatenates each pillar's max back onto every point
+of the pillar: a broadcast in the padded form, the segment-max kernel
+(``ops/seg_max.py:seg_full_max_bounded``) in the stream form.
 
 BN follows the module's mode: in train mode the statistics are those of the
 kept points of the batch, and the gradient flows through them. ``dtype`` is
@@ -21,7 +29,7 @@ from torch import nn
 
 from minddet_tpu_torch.models.layers import Linear
 from minddet_tpu_torch.ops.seg_max import seg_full_max_bounded
-from minddet_tpu_torch.ops.voxelize import seg_running_max
+from minddet_tpu_torch.ops.voxelize import seg_running_max, voxel_cell_rows
 
 
 class MaskedBatchNorm(nn.Module):
@@ -94,6 +102,24 @@ class PFNLayer(nn.Module):
         self.linear = Linear(in_features, units, bias=False)
         self.norm = MaskedBatchNorm(units)
 
+    def _dense_bn_relu(self, x: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.norm(self.linear(x), valid))
+        return x * valid[..., None].to(x.dtype)
+
+    def forward(self, x: torch.Tensor,
+                point_mask: torch.Tensor) -> torch.Tensor:
+        """Padded points (B, V, P, Cin) and their mask (B, V, P). Last layer
+        -> (B, V, 1, units), the max over each voxel's slots (empty slots
+        are 0 and every kept value is at least 0); non-last layer -> (B, V,
+        P, 2 * units), each slot's features, then its voxel's max. A tie
+        shares the max's gradient evenly, as ``jnp.max`` does."""
+        x = self._dense_bn_relu(x, point_mask)
+        x_max = x.amax(dim=2, keepdim=True)
+        if self.last_layer:
+            return x_max
+        return torch.cat([x, x_max.expand_as(x)], dim=-1)
+
     def stream(self, x: torch.Tensor, keep: torch.Tensor,
                first: torch.Tensor, last: torch.Tensor,
                bound: int) -> torch.Tensor:
@@ -104,8 +130,7 @@ class PFNLayer(nn.Module):
         head. Non-last layer -> (B, N, 2 * units): each point's features,
         then its pillar's max (at kept rows; other rows hold zeros there,
         and the next layer masks them)."""
-        x = torch.relu(self.norm(self.linear(x), keep))
-        x = x * keep[..., None].to(x.dtype)
+        x = self._dense_bn_relu(x, keep)
         if self.last_layer:
             return seg_running_max(first, x, bound)
         return torch.cat([x, seg_full_max_bounded(first, last, x, bound)],
@@ -128,6 +153,17 @@ class PillarFeatureNet(nn.Module):
             cin = nf if last else 2 * (nf // 2)
         self.out_channels = num_filters[-1]
 
+    def forward(self, features: torch.Tensor,
+                num_points: torch.Tensor) -> torch.Tensor:
+        """Decorated voxels (B, V, P, Cin) and their point counts (B, V) ->
+        pillar features (B, V, C), computed in ``dtype``."""
+        mask = torch.arange(features.shape[2], device=features.device) \
+            < num_points[..., None]
+        x = features.to(self.dtype)
+        for i in range(self.num_layers):
+            x = getattr(self, f"pfn{i}")(x, mask)
+        return x.squeeze(2)
+
     def stream(self, feats: torch.Tensor, keep: torch.Tensor,
                first: torch.Tensor, last: torch.Tensor,
                bound: int) -> torch.Tensor:
@@ -137,3 +173,20 @@ class PillarFeatureNet(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"pfn{i}").stream(x, keep, first, last, bound)
         return x
+
+
+def scatter_voxel_canvas(pillars: torch.Tensor, coords: torch.Tensor,
+                         ny: int, nx: int) -> torch.Tensor:
+    """Pillar features (B, V, C) and their coords (B, V, 3) [gz, gy, gx]
+    -> the BEV canvas (B, C, ny, nx) in ``channels_last`` memory (the
+    reference's ``PointPillarsScatter``): one ``index_copy_`` of the
+    voxels into B * ny * nx + 1 rows (``voxel_cell_rows``), the empty
+    slots all to the last row, which is sliced off. One voxel per cell, so
+    each canvas row is written once. Differentiable with respect to
+    ``pillars``."""
+    b, v, c = pillars.shape
+    flat = torch.zeros(b * ny * nx + 1, c, dtype=pillars.dtype,
+                       device=pillars.device)
+    flat.index_copy_(0, voxel_cell_rows(coords, ny, nx).reshape(-1),
+                     pillars.reshape(b * v, c))
+    return flat[:b * ny * nx].view(b, ny, nx, c).permute(0, 3, 1, 2)

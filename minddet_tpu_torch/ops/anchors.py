@@ -1,8 +1,8 @@
 """3D anchor grids, the BEV-occupancy anchor mask and the anchor
 assignment (counterpart of the parts of ``minddet_tpu/ops/anchors.py`` the
 PointPillars paths use: ``create_anchors_3d_stride``, ``ClassAnchorConfig``,
-``generate_anchors``, ``make_grid_area_mask``, ``distance_similarity`` and
-``assign_targets_batch``).
+``generate_anchors``, ``anchors_bev_area_mask``, ``make_grid_area_mask``,
+``distance_similarity`` and ``assign_targets_batch``).
 
 The anchor grids are numpy, computed once per configuration, as in the
 reference. The mask and the assignment are computed on the device, the
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from minddet_tpu_torch.ops.box import (pairwise_iou, rbbox_to_near_bbox,
                                        second_box_encode)
+from minddet_tpu_torch.ops.voxelize import voxel_cell_rows
 
 
 def create_anchors_3d_stride(
@@ -77,6 +78,52 @@ def generate_anchors(feature_size: Tuple[int, int],
         "matched_threshold": np.concatenate(m_th, axis=2).reshape(-1),
         "unmatched_threshold": np.concatenate(u_th, axis=2).reshape(-1),
     }
+
+
+def occupancy_from_coords(coords: torch.Tensor, ny: int, nx: int
+                          ) -> torch.Tensor:
+    """Voxel coords (B, V, 3) [gz, gy, gx] (-1 = empty) -> the (B, ny, nx)
+    f32 0/1 map of the BEV cells that hold a voxel."""
+    b = coords.shape[0]
+    occ = torch.zeros(b * ny * nx + 1, dtype=torch.float32,
+                      device=coords.device)
+    occ.index_fill_(0, voxel_cell_rows(coords, ny, nx).reshape(-1), 1.0)
+    return occ[:b * ny * nx].view(b, ny, nx)
+
+
+def anchors_bev_area_mask(coords: torch.Tensor, anchors_bev: torch.Tensor,
+                          grid_shape: Tuple[int, int],
+                          voxel_size: Sequence[float],
+                          pc_range: Sequence[float],
+                          area_threshold: float = 1.0) -> torch.Tensor:
+    """The anchor-area mask of any anchor layout: an anchor is kept when
+    more than ``area_threshold`` occupied BEV cells lie under its
+    footprint. ``coords`` (B, V, 3) [gz, gy, gx] (-1 = empty);
+    ``anchors_bev`` (A, 4) axis-aligned [x1, y1, x2, y2] in metres ->
+    (B, A) bool.
+
+    Each footprint is counted on the occupancy's integral image with four
+    lookups; its cell bounds are floor((edge - origin) / size + 1e-3)
+    clipped to the grid (the nudge settles edges that lie on a cell
+    boundary, as ``make_grid_area_mask`` does, so the two agree)."""
+    ny, nx = grid_shape
+    occ = occupancy_from_coords(coords, ny, nx)
+    integral = F.pad(torch.cumsum(torch.cumsum(occ, dim=1), dim=2),
+                     (1, 0, 1, 0)).flatten(1)
+    dev = coords.device
+    vs = torch.tensor(voxel_size[:2], dtype=torch.float32, device=dev)
+    origin = torch.tensor(pc_range[:2], dtype=torch.float32, device=dev)
+    eps = 1e-3
+
+    def cell(col, axis, hi):
+        return torch.clamp(torch.floor((anchors_bev[:, col] - origin[axis])
+                                       / vs[axis] + eps), 0, hi).long()
+
+    x1, y1 = cell(0, 0, nx - 1), cell(1, 1, ny - 1)
+    x2, y2 = cell(2, 0, nx - 1), cell(3, 1, ny - 1)
+    at = lambda y, x: integral[:, y * (nx + 1) + x]
+    area = at(y2 + 1, x2 + 1) - at(y1, x2 + 1) - at(y2 + 1, x1) + at(y1, x1)
+    return area > area_threshold
 
 
 def make_grid_area_mask(
@@ -146,6 +193,8 @@ def make_grid_area_mask(
             masks.append(area > area_threshold)
         return torch.stack(masks, dim=-1).flatten(-3)
 
+    from_occ.from_coords = lambda coords: from_occ(
+        occupancy_from_coords(coords, ny, nx))
     return from_occ
 
 

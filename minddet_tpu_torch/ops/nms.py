@@ -1,7 +1,8 @@
 """Greedy NMS and soft-NMS on the device (counterpart of the parts of
 ``minddet_tpu/ops/nms.py`` the ported paths use: ``_greedy_keep_from_iou``,
-``nms``, ``batched_nms``, ``rotated_nms`` and ``soft_nms``), batched over a
-leading sample axis where the reference vmaps one sample at a time.
+``nms``, ``batched_nms``, ``rotated_nms``, ``circle_nms`` and ``soft_nms``),
+batched over a leading sample axis where the reference vmaps one sample at
+a time.
 """
 
 from __future__ import annotations
@@ -108,6 +109,26 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
     valid = scores > score_threshold
     iou = rotated_iou_bev(boxes, boxes)
     keep, passes = greedy_keep_from_iou(iou, scores, valid, iou_threshold)
+    return (_kept_indices(keep, scores, k),
+            keep.sum(dim=-1, dtype=torch.int32), passes)
+
+
+def circle_nms(centers: torch.Tensor, scores: torch.Tensor, radius: float,
+               score_threshold: float = float("-inf"),
+               max_outputs: int | None = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Centre-distance NMS (CenterPoint's ``circle_nms``) over centres (B,
+    N, 2) with scores (B, N): a candidate is suppressed where its centre
+    lies within ``radius`` (the squared distance below radius^2) of an
+    earlier kept one. ``greedy_keep_from_iou`` on -distance^2 against
+    -radius^2, as the reference does. Returns what ``rotated_nms``
+    returns."""
+    n = centers.shape[-2]
+    k = n if max_outputs is None else min(max_outputs, n)
+    valid = scores > score_threshold
+    d = centers[..., :, None, :] - centers[..., None, :, :]
+    keep, passes = greedy_keep_from_iou(-(d * d).sum(-1), scores, valid,
+                                        -(radius * radius))
     return (_kept_indices(keep, scores, k),
             keep.sum(dim=-1, dtype=torch.int32), passes)
 

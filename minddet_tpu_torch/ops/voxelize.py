@@ -1,9 +1,11 @@
-"""Stream voxelization on the device (counterpart of the stream path of
-``minddet_tpu/ops/voxelize.py``): raw padded points -> a decorated point
-stream sorted by pillar, with segment flags, for the stream PFN.
+"""Voxelization on the device (counterpart of ``minddet_tpu/ops/
+voxelize.py``): raw padded points -> either the padded voxels (B, V, P, F)
+of ``voxelize_batch`` with ``decorate_pillar_features``, or a decorated
+point stream sorted by pillar, with segment flags, for the stream PFN.
 
 Batched over a leading sample axis (the reference vmaps one sample at a
-time). The segmented operations are the reference's distance-bounded
+time). Both voxelizers share one sort of the points by voxel id. The
+segmented operations of the stream are the reference's distance-bounded
 Hillis-Steele scans: ceil(log2(bound)) shift-and-combine levels, exact for
 every row within ``bound`` rows of its segment head, which the voxelizer's
 per-pillar point cap guarantees for every kept row. They run in the same
@@ -16,6 +18,13 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+class VoxelizeOutput(NamedTuple):
+    voxels: torch.Tensor      # (B, V, P, F), zero where empty
+    num_points: torch.Tensor  # (B, V) int32
+    coords: torch.Tensor      # (B, V, 3) int32 [gz, gy, gx], -1 = empty
+    num_voxels: torch.Tensor  # (B,) int32
 
 
 class StreamVoxels(NamedTuple):
@@ -120,6 +129,119 @@ def _heads(svid: torch.Tensor, big: int) -> torch.Tensor:
         svid < big)
 
 
+def _sort_points(points: torch.Tensor, points_mask: torch.Tensor,
+                 voxel_size: Sequence[float],
+                 point_cloud_range: Sequence[float], drop_order: str):
+    """The sorted point order of both voxelizers. Returns (svid, order,
+    (sgx, sgy, sgz), big): each sorted row's voxel id (``big`` where the
+    point is masked or out of range: those rows come last), the input row
+    it holds and its grid indices.
+
+    Points are stably sorted by voxel id; with ``drop_order``
+    "first_come" the groups are then stably sorted by each group's first
+    input row (the stable sort puts it at the group head), so they come in
+    order of first appearance and each keeps its points in input order."""
+    b, n, _ = points.shape
+    dev = points.device
+    # the reference's voxelizers run compiled, and XLA turns the divide by
+    # the constant voxel size into a product with its f32 reciprocal: that
+    # decides the cell of a point on a cell boundary
+    inv = torch.from_numpy(np.float32(1) / np.asarray(voxel_size,
+                                                      np.float32)).to(dev)
+    pcr = torch.tensor(point_cloud_range, dtype=torch.float32, device=dev)
+    nx, ny, nz = grid_size(point_cloud_range, voxel_size)
+
+    g = torch.floor((points[..., :3] - pcr[:3]) * inv).to(torch.int32)
+    gx, gy, gz = g.unbind(-1)
+    in_range = ((gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny) & (gz >= 0)
+                & (gz < nz) & points_mask.bool())
+    big = nx * ny * nz + 1
+    vid = torch.where(in_range, (gz * ny + gy) * nx + gx,
+                      torch.full_like(gx, big))
+
+    svid, order = torch.sort(vid, dim=1, stable=True)
+    if drop_order == "sorted":
+        safe = torch.clamp(svid, max=big - 1)
+        sgx = safe % nx
+        sgy = torch.div(safe, nx, rounding_mode="floor") % ny
+        sgz = torch.div(safe, nx * ny, rounding_mode="floor")
+        return svid, order, (sgx, sgy, sgz), big
+    if drop_order != "first_come":
+        raise ValueError(f"drop_order must be 'first_come' or 'sorted', "
+                         f"got {drop_order!r}")
+    pos = torch.arange(n, device=dev)
+    head = torch.cummax(torch.where(_heads(svid, big), pos, -1),
+                        dim=1).values
+    firstidx = torch.gather(order, 1, head.clamp(min=0))
+    firstidx = torch.where(svid < big, firstidx,
+                           torch.full_like(firstidx, n))
+    _, order2 = torch.sort(firstidx, dim=1, stable=True)
+    order = torch.gather(order, 1, order2)
+    svid = torch.gather(svid, 1, order2)
+    return svid, order, tuple(torch.gather(c, 1, order)
+                              for c in (gx, gy, gz)), big
+
+
+def _slots(svid: torch.Tensor, big: int, max_voxels: int, max_points: int):
+    """Per sorted row: (group-head flags, voxel slot, rank inside the
+    voxel, kept). A row is kept where its point is valid, its slot is below
+    ``max_voxels`` and its rank below ``max_points``."""
+    b, n = svid.shape
+    first = _heads(svid, big)
+    slot = torch.cumsum(first.to(torch.int32), dim=1) - 1
+    pos = torch.arange(n, dtype=torch.int32, device=svid.device).expand(b, n)
+    # a row within max_points of its head sees the head's position; a row
+    # further out sees -1 (no head in its window), so its rank is too large
+    first_pos = _windowed_running_max(
+        torch.where(first, pos, torch.full_like(pos, -1)), max_points)
+    rank = pos - first_pos
+    keep = (svid < big) & (slot < max_voxels) & (rank < max_points)
+    return first, slot, rank, keep
+
+
+def voxelize_batch(points: torch.Tensor, points_mask: torch.Tensor,
+                   voxel_size: Sequence[float],
+                   point_cloud_range: Sequence[float],
+                   max_voxels: int = 16000,
+                   max_points: int = 32) -> VoxelizeOutput:
+    """Points (B, N, F) + mask (B, N) -> the padded voxels of each cloud:
+    the reference's ``voxelize`` with the batch axis written out.
+
+    Voxel slots follow first appearance in the input, each voxel keeps its
+    first ``max_points`` points in input order, and voxels past
+    ``max_voxels`` are dropped (the first-come sort of the stream
+    voxelizer). Every dropped point goes to a sentinel slot and rank (the
+    buffers have one more of each, sliced off), so each kept (slot, rank)
+    pair is written once and only the sentinel more often; ``coords`` are
+    written at the kept groups' heads only."""
+    b, n, f = points.shape
+    dev = points.device
+    svid, order, (sgx, sgy, sgz), big = _sort_points(
+        points, points_mask, voxel_size, point_cloud_range, "first_come")
+    first, slot, rank, keep = _slots(svid, big, max_voxels, max_points)
+    spoints = torch.gather(points, 1, order[..., None].expand(-1, -1, f))
+
+    v1, p1 = max_voxels + 1, max_points + 1
+    base = torch.arange(b, device=dev)[:, None] * v1
+    slot_c = torch.where(keep, slot, max_voxels).long() + base
+    rank_c = torch.where(keep, rank, max_points).long()
+    voxels = torch.zeros(b * v1 * p1, f, dtype=points.dtype, device=dev)
+    voxels.index_copy_(0, (slot_c * p1 + rank_c).reshape(-1),
+                       spoints.reshape(b * n, f))
+    counts = torch.zeros(b * v1, dtype=torch.int32, device=dev)
+    counts.index_add_(0, slot_c.reshape(-1), keep.to(torch.int32).reshape(-1))
+    heads = torch.where(first & keep, slot_c, base + max_voxels)
+    coords = torch.full((b * v1, 3), -1, dtype=torch.int32, device=dev)
+    coords.index_copy_(0, heads.reshape(-1),
+                       torch.stack([sgz, sgy, sgx], -1).reshape(b * n, 3))
+    num_voxels = torch.clamp(slot.max(dim=1).values + 1,
+                             max=max_voxels).to(torch.int32)
+    return VoxelizeOutput(
+        voxels.view(b, v1, p1, f)[:, :max_voxels, :max_points],
+        counts.view(b, v1)[:, :max_voxels],
+        coords.view(b, v1, 3)[:, :max_voxels], num_voxels)
+
+
 def voxelize_stream_batch(points: torch.Tensor, points_mask: torch.Tensor,
                           voxel_size: Sequence[float],
                           point_cloud_range: Sequence[float],
@@ -146,48 +268,12 @@ def voxelize_stream_batch(points: torch.Tensor, points_mask: torch.Tensor,
     dev = points.device
     vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
     pcr = torch.tensor(point_cloud_range, dtype=torch.float32, device=dev)
-    nx, ny, nz = grid_size(point_cloud_range, voxel_size)
+    nx, ny, _ = grid_size(point_cloud_range, voxel_size)
 
-    g = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
-    gx, gy, gz = g.unbind(-1)
-    in_range = ((gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny) & (gz >= 0)
-                & (gz < nz) & points_mask.bool())
-    big = nx * ny * nz + 1
-    vid = torch.where(in_range, (gz * ny + gy) * nx + gx,
-                      torch.full_like(gx, big))
-
-    svid, order = torch.sort(vid, dim=1, stable=True)
-    if drop_order == "sorted":
-        safe = torch.clamp(svid, max=big - 1)
-        sgx = safe % nx
-        sgy = torch.div(safe, nx, rounding_mode="floor") % ny
-    elif drop_order == "first_come":
-        # each group's first original index (the stable sort puts it at the
-        # group head), forward-filled, then a stable sort of the groups by
-        # it: first-appearance order
-        pos = torch.arange(n, device=dev)
-        head = torch.cummax(torch.where(_heads(svid, big), pos, -1),
-                            dim=1).values
-        firstidx = torch.gather(order, 1, head.clamp(min=0))
-        firstidx = torch.where(svid < big, firstidx,
-                               torch.full_like(firstidx, n))
-        _, order2 = torch.sort(firstidx, dim=1, stable=True)
-        order = torch.gather(order, 1, order2)
-        svid = torch.gather(svid, 1, order2)
-        sgx = torch.gather(gx, 1, order)
-        sgy = torch.gather(gy, 1, order)
-    else:
-        raise ValueError(f"drop_order must be 'first_come' or 'sorted', "
-                         f"got {drop_order!r}")
+    svid, order, (sgx, sgy, _), big = _sort_points(
+        points, points_mask, voxel_size, point_cloud_range, drop_order)
     spoints = torch.gather(points, 1, order[..., None].expand(-1, -1, f))
-
-    first = _heads(svid, big)
-    slot = torch.cumsum(first.to(torch.int32), dim=1) - 1
-    pos = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
-    first_pos = _windowed_running_max(
-        torch.where(first, pos, torch.full_like(pos, -1)), max_points)
-    rank = pos - first_pos
-    keep = (svid < big) & (slot < max_voxels) & (rank < max_points)
+    first, slot, rank, keep = _slots(svid, big, max_voxels, max_points)
 
     ends = torch.cat([svid[:, 1:] != svid[:, :-1],
                       torch.ones_like(first[:, :1])], dim=1)
@@ -212,6 +298,44 @@ def voxelize_stream_batch(points: torch.Tensor, points_mask: torch.Tensor,
     num_voxels = torch.clamp(slot.max(dim=1).values + 1,
                              max=max_voxels).to(torch.int32)
     return StreamVoxels(feats, keep, first, last, canvas_idx, num_voxels)
+
+
+def decorate_pillar_features(voxels: torch.Tensor, num_points: torch.Tensor,
+                             coords: torch.Tensor,
+                             voxel_size: Sequence[float],
+                             point_cloud_range: Sequence[float]
+                             ) -> torch.Tensor:
+    """Padded voxels (B, V, P, F) -> (B, V, P, F + 5): each point, its
+    offsets from the mean of its pillar's kept points (xyz) and from the
+    pillar's centre (xy only, as the reference's PFN input), zero at the
+    empty point slots. ``coords`` are (B, V, 3) [gz, gy, gx]."""
+    p = voxels.shape[2]
+    dev = voxels.device
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
+    pcr = torch.tensor(point_cloud_range, dtype=torch.float32, device=dev)
+    npts = torch.clamp(num_points, min=1).to(torch.float32)[..., None, None]
+    mean = voxels[..., :3].sum(dim=2, keepdim=True) / npts
+    cluster = voxels[..., :3] - mean
+    centers = torch.stack(
+        [coords[..., 2].to(torch.float32) * vs[0] + (vs[0] / 2 + pcr[0]),
+         coords[..., 1].to(torch.float32) * vs[1] + (vs[1] / 2 + pcr[1])],
+        dim=-1)
+    center = voxels[..., :2] - centers[:, :, None, :]
+    out = torch.cat([voxels, cluster, center], dim=-1)
+    mask = torch.arange(p, device=dev) < num_points[..., None]
+    return out * mask[..., None].to(out.dtype)
+
+
+def voxel_cell_rows(coords: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
+    """Voxel coords (B, V, 3) [gz, gy, gx] -> each voxel's row of a flat
+    (B * ny * nx + 1)-row canvas, b * ny * nx + gy * nx + gx, the empty
+    slots (coords -1) all the last row: (B, V) int64."""
+    cells = ny * nx
+    base = torch.arange(coords.shape[0], device=coords.device)[:, None] \
+        * cells
+    return torch.where(coords[..., 0] >= 0,
+                       (coords[..., 1] * nx + coords[..., 2]).long() + base,
+                       torch.full_like(base, coords.shape[0] * cells))
 
 
 def scatter_stream_canvas(h: torch.Tensor, sv: StreamVoxels, ny: int, nx: int,

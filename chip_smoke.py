@@ -71,7 +71,7 @@ Phases (any failure raises and exits non-zero):
       PFN rows, BEV map, every task's maps, top-1000 candidates per task,
       IoU matrix, kept lists, refined boxes and scores;
    d. the same as 4 for CenterNet with DCN in all four backbone stages;
-   e. the same for Faster R-CNN ``predict`` (ResNet-50-FPN, 512x512) at
+   e. the same for Faster R-CNN ``predict`` (ResNet-50-FPN, 320x320) at
       batch 1, against the f32 CPU and an f64 CPU referee: C2-C5, P2-P6,
       the RPN's outputs, the proposals, the ROI features, the box head's
       outputs and the detections, each discrete choice (per-level top-k,
@@ -80,31 +80,33 @@ Phases (any failure raises and exits non-zero):
       ungated, the card's box head with its layers in f64
       (``box_head_f64_readings``);
    g. the same for YOLOv8-s ``predict`` (full width, 640x640, 80 classes)
-      at batch 2, BN randomized: C3-C5, N3-N5, the DFL and class logits
-      held to the f64 referee, the decode, top-1000 and class-aware NMS on
-      the CPU's inputs, the card's own detections against the CPU's as
-      sets; no kernel launches;
+      at batch 2, BN randomized: C3-C5, N3-N5, the DFL and
+      class logits held to the f64 referee, the decode, top-1000 and
+      class-aware NMS on the CPU's inputs, the card's own detections
+      against the CPU's as sets; no kernel launches;
    h. the same for YOLOX-s ``predict`` (its score biases calibrated, as
       ``yolox_entry`` serves it): the offsets, objectness and class
       logits; no kernel launches;
    i. the same for YOLOv5-s ``predict``: each level's (B, H, W, 3, 85)
       head output; no kernel launches;
-   j. the same for YOLOv3 ``predict`` (Darknet-53, 416x416), BN statistics
+   j. the same for YOLOv3 ``predict`` (Darknet-53, 288x288 of its 416), BN
+      statistics
       from the request's image: C3-C5 and each level's head output
       (strides 32, 16, 8); no kernel launches;
-   k. the same for YOLOv4 (CSPDarknet53 at width 1.0, 512x512);
-   l. the same for YOLOv7 (E-ELAN at width 0.5, 640x640);
+   k. the same for YOLOv4 (CSPDarknet53 at width 1.0, 352x352 of 512);
+   l. the same for YOLOv7 (E-ELAN at width 0.5, 448x448 of 640);
    m. the same for SSD-300-MobileNetV2 (its class convs calibrated on the
       request, as ``ssd_entry`` serves it): the six maps, the class logits
       and box deltas, top-400, NMS;
    n. f32 DeepLabV3+ ``predict`` (ResNet-101 at output stride 16, batch 2
-      at 513x513, so the ASPP's rate-18 taps reach real pixels), BN
+      at 321x321, cut from 513x513; the ASPP's rate-18 taps still reach
+      real pixels), BN
       statistics from the request's image: C2, C5, the ASPP and decoder
       outputs, the out conv and the logits held to the f64 referee, the
       argmax equal to the referee's wherever its top-two margin clears the
       card's error; o. the same for DeepLabV3; p. for UNet (full width at
-      512x512); no kernel launches;
-5. end to end in f32 (TF32 off): one train step (512x512, batch 2) on the
+      256x256, cut from 512x512); no kernel launches;
+5. end to end in f32 (TF32 off): one train step (384x384, batch 2) on the
    card against the same step on the CPU: loss, grad_norm, every
    parameter's gradient, the post-step parameters and BN statistics; and
    against the same step in f64 compute on the CPU (the referee), part by
@@ -119,7 +121,8 @@ Phases (any failure raises and exits non-zero):
       single-stage model from the same weights (K5f and K5b once each),
       held to the referee the same way;
    d. one f32 train step of CenterNet with DCN in all four backbone stages
-      (batch 2), the card held to the f64 referee, the f32 CPU reported;
+      (256x256, batch 2), the card held to the f64 referee, the f32 CPU
+      reported;
    e. one f32 Faster R-CNN train step (ResNet-50-FPN at 256 x 256, batch
       2, 64 ROI samples, SGD) on the card against the f32 CPU and an f64
       CPU referee, both on the card's proposals and all three on the same
@@ -134,7 +137,7 @@ Phases (any failure raises and exits non-zero):
       within 1e-6 of a threshold), the loss parts, grad_norm, every
       gradient (at most 2x the f32 CPU's distance from the referee plus
       1e-3) and the BN statistics; no kernel launches;
-   h. one f32 YOLOv8-s train step (full width at 320x320, batch 2, the
+   h. one f32 YOLOv8-s train step (full width at 224x224, batch 2, the
       config's Nesterov SGD at lr 0.01 inside the NaN guard) held the same
       way, with the task-aligned assignment on the CPU's inputs; no kernel
       launches;
@@ -152,11 +155,11 @@ Phases (any failure raises and exits non-zero):
       on each of maps 2-5, so every map has positives), with the labels,
       the matches and the mined negatives on the CPU's inputs exactly (the
       negatives also on cross entropies rounded to ties);
-   o. one f32 DeepLabV3+ train step (ResNet-101 at 321x321, batch 2, SGD
+   o. one f32 DeepLabV3+ train step (ResNet-101 at 257x257, batch 2, SGD
       at 0.007) held to the f64 referee as 5k-5n hold theirs, by part
       (backbone, ASPP, the decoder's low_ and dec, out), then again in f64
       on the card; p. the same for DeepLabV3; q. for UNet (full width at
-      256x256, Adam at 3e-4); no kernel launches;
+      128x128, Adam at 3e-4); no kernel launches;
 6. the main paths, each with every kernel's launch count set to 0 just
    before and read just after:
    a. serving: the flagship predict (CenterNet-R18-DCNv2, 80 classes,
@@ -331,7 +334,7 @@ BEV boxes (the bev and the 3d overlaps give K4 the same input) with
 DontCare rows (location -1000, dimensions -1) and zero-padded rows
 (``kitti_eval_chunk``), and the KITTI
 evaluation's predict batch (4, 900, 5)^2. Phase 4r is the car config's f32
-KITTI eval path card against CPU (``check_kitti_f32``): detections of 8
+KITTI eval path card against CPU (``check_kitti_f32``): detections of 4
 in-memory frames matched one to one by box, every metric's overlaps
 within ``IOU_TOL`` and every AP / AOS entry within 1e-6 on the same annos.
 Phase 4q is the f32 COCO path card against CPU
@@ -339,6 +342,23 @@ Phase 4q is the f32 COCO path card against CPU
 buckets, the warped inputs, the raw top-100 scores, soft-NMS on the CPU's
 inputs, the card's AP@[.5:.95] against the CPU's final detections as GT
 (at least ``COCO_AP_FLOOR``), and the train transform on one raw batch.
+
+The nuScenes path: phase 4t (``check_nuscenes_f32``) holds
+``nuscenes_batches`` at one loader thread (the same raw batches twice),
+``nuscenes_evaluate`` by the plain, TTA and refined routes (detections
+matched by box, each side's table from its own detections with the same
+oracle detections ranked first, within 1e-6; mAP and NDS inside (0, 1))
+and the tracker and ``evaluate_tracking`` on them (the same tracks up to
+their ids, the tables within 1e-6, AMOTA inside (0, 1)), card against CPU.
+Phase 5s (``check_nuscenes_train_f32``) is the config's f32 train step on
+one fed cloud on the card, on the CPU and in f64 on the CPU, held by
+``_referee_checks`` (per part and per parameter) with the head's ReLU
+inputs read on all three (``_relu_kinks``), and the one-cycle lr against
+its formula. Phases 6at-6av time the config's step fed by
+``nuscenes_batches`` (epochs 2 and 3 of CBGS, the wait apart, the
+distribution and each epoch's mean; the same step on one fixed batch),
+``nuscenes_evaluate``'s ms per frame by route and part, and
+``nuscenes_tracking_evaluate``'s over a 40-keyframe scene.
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -359,6 +379,7 @@ import argparse
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1209,7 +1230,8 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
     the 3d overlaps' one K4 input (``kitti_eval_chunk``: DontCare rows and
     zero-padded rows), at the
     decode program's (1, 1000, 5)^2 on its own candidates
-    (``decode_program_boxes``), on pairs that nearly touch
+    (``decode_program_boxes``), at ``nuscenes_evaluate``'s batch 2 (six
+    tasks: (12, 1000, 5)^2), on pairs that nearly touch
     (``near_touching_boxes``), on one sample of candidates from a few tight
     clusters (``clustered_candidates``) and on the exact cases. Each case
     reports the share of pairs the separation test leaves to the clip, in
@@ -1239,7 +1261,8 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
                ("kitti_eval", KITTI_EVAL_CHUNK[0], KITTI_EVAL_CHUNK[1]),
                ("decode_nms", 1, DECODE_CANDIDATES),
                ("near_touching", 1, NEAR_PAIRS),
-               ("dense_clusters", 1, DENSE_BOXES)]
+               ("dense_clusters", 1, DENSE_BOXES),
+               ("nusc_eval", CP_TASKS * NUSC_EVAL_BATCH, CP_CANDIDATES)]
     for kind, b, n in shapes:
         if kind == "train":
             boxes, others = (t.to(dev) for t in train_pair)
@@ -1256,6 +1279,9 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
         elif kind == "dense_clusters":
             boxes = others = clustered_candidates(
                 n, DENSE_CLUSTERS, torch.Generator().manual_seed(9)).to(dev)
+        elif kind == "nusc_eval":  # a generator of its own
+            boxes = others = candidate_boxes(
+                b, n, torch.Generator().manual_seed(16)).to(dev)
         else:
             boxes = others = candidate_boxes(b, n, gen).to(dev)
         got = ri.rotated_intersection_bev(boxes, others)
@@ -1320,8 +1346,9 @@ def check_seg_max_kernel(dev, model):
     """Phase 3: seg_full_max (K5f) against its plain version, exactly, on
     the streams the port's voxelizer makes of ``model``'s 120,000-point
     clouds (pillars over the point cap, more pillars than ``max_voxels``),
-    at the serving batches in f32 and at the train step's batch 8 in bf16;
-    x is N(0, 1), so the kernel's zeros outside the kept rows show."""
+    at the serving batches and ``nuscenes_evaluate``'s batch 2 in f32 and
+    at the train step's batch 8 in bf16; x is N(0, 1), so the kernel's
+    zeros outside the kept rows show."""
     from minddet_tpu_torch.ops import seg_max as sm
     from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
 
@@ -1332,7 +1359,8 @@ def check_seg_max_kernel(dev, model):
                         (CP_BATCHES[-1], torch.float32, PFN_HALF_WIDTH),
                         (1, torch.bfloat16, PFN_HALF_WIDTH),
                         (TRAIN_CP_BATCH, torch.bfloat16, PFN_HALF_WIDTH),
-                        (TRAIN_CP_BATCH, torch.bfloat16, ODD_PFN_WIDTH)):
+                        (TRAIN_CP_BATCH, torch.bfloat16, ODD_PFN_WIDTH),
+                        (NUSC_EVAL_BATCH, torch.float32, PFN_HALF_WIDTH)):
         points, mask = _nusc_clouds(model, b, 2, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
@@ -1354,10 +1382,13 @@ def check_seg_max_kernel(dev, model):
         plain_ms = _cuda_ms(
             lambda: sm.seg_full_max_bounded_plain(first, last, x, bound),
             iters=3, warmup=1)
-        # x read once, out written once, the two flag planes read once; one
-        # max per value
-        bound_ms, bound_by = _bound(2 * x.numel() * x.element_size()
-                                    + 2 * b * n, x.numel())
+        # x read once where its row is kept (the other rows' out is 0 and
+        # needs no read), out written once, the two flag planes read once;
+        # one max per kept value
+        kept_values = int(sv.keep.sum()) * c
+        bound_ms, bound_by = _bound(
+            (kept_values + x.numel()) * x.element_size() + 2 * b * n,
+            kept_values)
         case = dict(shape=[b, n, c], bound=bound,
                     dtype=str(dtype).replace("torch.", ""),
                     max_abs_err=max_abs, tolerance="exact", kept_share=kept,
@@ -1406,9 +1437,10 @@ def check_bilinear_kernel(dev, gen, model):
     """Phase 3: bilinear_gather_fwd (K3f) against its plain version at the
     second stage's shapes: ``model``'s BEV map (B, 128 * 128, 384) and 5
     sample points for each of its 6 * 83 detection slots (2490 points) at
-    the serving batches, and for each of the train step's 128 proposals
-    (640 points) at its batch 8; with the time of ``F.grid_sample`` (bilinear, zero padding,
-    align_corners) on the same map and points."""
+    the serving batches and ``nuscenes_evaluate``'s batch 2, and for each
+    of the train step's 128 proposals (640 points) at its batch 8; with the
+    time of ``F.grid_sample`` (bilinear, zero padding, align_corners) on
+    the same map and points."""
     import torch.nn.functional as F
 
     from minddet_tpu_torch.models.heads.second_stage import bev_sample_points
@@ -1423,7 +1455,8 @@ def check_bilinear_kernel(dev, gen, model):
     cases = []
     train_gen = torch.Generator().manual_seed(6)
     for b, slots, rng in tuple((b, serve_slots, gen) for b in CP_BATCHES) + (
-            (TRAIN_CP_BATCH, CP_PROPOSALS, train_gen),):
+            (TRAIN_CP_BATCH, CP_PROPOSALS, train_gen),
+            (NUSC_EVAL_BATCH, serve_slots, torch.Generator().manual_seed(15))):
         bev32 = torch.randn(b, c, h, w, generator=rng).to(dev).contiguous(
             memory_format=torch.channels_last)
         boxes = proposal_boxes(b, slots, model.pc_range, rng).to(dev)
@@ -1536,7 +1569,8 @@ def check_seg_max_bwd_kernel(dev, model):
     """Phase 3: seg_full_max_bwd (K5b) against its plain version on streams
     of the port's voxelizer: uniform clouds (the main path's; ~1.25 kept
     points per pillar, x ~ N(0, 1), no ties) and clustered clouds with x in
-    {0, 1, 2} (pillars at the cap of 20 rows, ties in every segment). Rows
+    {0, 1, 2} (pillars at the cap of 20 rows, ties in every segment), at
+    batch 1, the train step's 8 and the nuScenes config's f32 batch 4. Rows
     of segments with at most two kept rows, and rows that are not kept,
     must agree exactly; the others within ``SEG_BWD_TOL``."""
     from minddet_tpu_torch.ops import seg_max as sm
@@ -1554,7 +1588,8 @@ def check_seg_max_bwd_kernel(dev, model):
             (1, torch.float32, "clustered, ties", PFN_HALF_WIDTH),
             (1, torch.bfloat16, "clustered, ties", PFN_HALF_WIDTH),
             (TRAIN_CP_BATCH, torch.bfloat16, f"uniform, C={ODD_PFN_WIDTH}",
-             ODD_PFN_WIDTH)):
+             ODD_PFN_WIDTH),
+            (NUSC_TRAIN_BATCH, torch.float32, "uniform", PFN_HALF_WIDTH)):
         clouds = (_clustered_clouds if kind.startswith("clustered")
                   else _nusc_clouds)
         points, mask = clouds(model, b, 3, dev)
@@ -1599,10 +1634,13 @@ def check_seg_max_bwd_kernel(dev, model):
             lambda: sm.seg_full_max_bounded_bwd_plain(first, last, x, m, g,
                                                       bound),
             iters=3, warmup=1)
-        # x, m and g read once, dx written once, the two flag planes read
-        # once; an add and a compare per value
+        # x, m and g read once where their row is kept (a row that is not
+        # kept has dx 0), dx written once, the two flag planes read once; an
+        # add and a compare per kept value
+        kept_values = int(sv.keep.sum()) * c
         case["bound_ms"], case["bound_by"] = _bound(
-            4 * x.numel() * x.element_size() + 2 * b * n, 2 * x.numel())
+            (3 * kept_values + x.numel()) * x.element_size() + 2 * b * n,
+            2 * kept_values)
         cases.append(case)
         print(f"  seg_full_max_bwd x{case['shape']} {name:8s} {kind:15s} "
               f"max_abs={case['max_abs_err']:.3e} rows in segments > 2: "
@@ -1982,6 +2020,9 @@ def check_rcnn_gather(dev):
 # the sampler appends to the proposals and takes as negatives); each roi's
 # gradient reaches only its own level's gather (the one-hot select)
 RCNN_TRAIN_BATCHES = (1, 8)
+# K3dx's timed calls at these shapes (up to ~0.14 s a call at the harshest
+# rois; the main path's own calls, ``main_path_k3dx``, take 20)
+RCNN_TRAIN_GATHER_ITERS = 5
 RCNN_TRAIN_ROIS = 256
 RCNN_TRAIN_ROI_SETS = (("box", (7, 7)), ("mask", (14, 14)))
 RCNN_MASK_SIZE = 28  # the mask targets' crop of the GT bitmaps
@@ -1996,11 +2037,12 @@ def rcnn_train_rois(b: int, gen) -> torch.Tensor:
     return rois
 
 
-def _k3dx_case(g, x, ci, cw, common):
+def _k3dx_case(g, x, ci, cw, common, iters: int = 20):
     """K3dx on (g, x, ci, cw) against its plain version (``GATHER_BWD_TOL``,
-    and dx bit-equal between two calls), timed beside ``index_add_`` into a
-    zeroed f32 map, with its largest row tile's bucket (the corners that
-    one block sorts and sums) and the byte bound. Returns (case, ok)."""
+    and dx bit-equal between two calls), timed (``iters`` calls) beside
+    ``index_add_`` into a zeroed f32 map, with its largest row tile's
+    bucket (the corners that one block sorts and sums) and the byte bound.
+    Returns (case, ok)."""
     from minddet_tpu_torch.ops import bilinear as bl
 
     b, hw, c = x.shape
@@ -2032,16 +2074,16 @@ def _k3dx_case(g, x, ci, cw, common):
                           f"bit-equal between two calls")
     del got, ref, terms, err, tile_of
     case["ms"] = _cuda_ms(lambda: bl.bilinear_gather_bwd_dx(g, x, ci, cw),
-                          iters=20)
+                          iters=iters)
     case["plain_ms"] = _cuda_ms(
-        lambda: bl.bilinear_gather_bwd_dx_plain(g, ci, cw, hw), iters=5,
-        warmup=1)
+        lambda: bl.bilinear_gather_bwd_dx_plain(g, ci, cw, hw),
+        iters=min(iters, 5), warmup=1)
     contrib = ((cw * (ci >= 0))[..., None]
                * g.float()[:, :, None, :]).reshape(-1, c)
     case["library_ms"] = _cuda_ms(
         lambda: torch.zeros(b * hw, c, device=dev).index_add_(0, rows,
                                                               contrib),
-        iters=20)
+        iters=iters)
     del contrib, rows
     # dx (the whole map, in x's type) written once, g read once, ci and cw
     # read once; 4 multiply-adds per g value
@@ -2128,7 +2170,8 @@ def check_rcnn_train_gather(dev):
                         f"bilinear_gather_fwd at an R-CNN train shape "
                         f"disagrees with its plain version: {case}")
 
-                case, ok = _k3dx_case(g, x, ci, cw, common)
+                case, ok = _k3dx_case(g, x, ci, cw, common,
+                                      RCNN_TRAIN_GATHER_ITERS)
                 dx_cases.append(case)
                 f = fwd_cases[-1]
                 print(f"  R-CNN train {kind} P{int(math.log2(stride))} "
@@ -2290,7 +2333,8 @@ PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "5g": 55, "5h": 56, "5i": 57, "5j": 58, "6a": 60, "6f": 61,
                "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
                "5m": 76, "5n": 77, "4n": 80, "4o": 81, "4p": 82, "5o": 83,
-               "5p": 84, "5q": 85, "4q": 86, "4r": 87, "4s": 88, "5r": 89}
+               "5p": 84, "5q": 85, "4q": 86, "4r": 87, "4s": 88, "5r": 89,
+               "4t": 90, "5s": 91}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -2950,6 +2994,7 @@ RCNN_MATCHED_SHARE = 0.95  # of the CPU's detections found on the card
 # close: end to end the proposals differ by up to ~1e-3 px and the box
 # head's deltas, x 0.1 / 0.2 of rois up to 512 px, move the boxes by ~1e-2
 # px, so the same-input tolerances do not apply
+RCNN_PREDICT_CHECK_RES = 320  # 4e / 4f: the image's side (served at 512)
 RCNN_E2E_IOU = 0.99
 RCNN_E2E_SCORE_TOL = 1e-3
 
@@ -3108,11 +3153,11 @@ def box_head_f64_readings(head, feats, ref_cls, ref_reg, prefix=""):
 
 def check_rcnn_f32(dev, with_mask: bool, gen):
     """Phases 4e (Faster R-CNN) and 4f (Mask R-CNN): f32 ``predict`` at
-    batch 1 on the card against the same model on the CPU (TF32 off) and
-    an f64 CPU referee, stage by stage. The seeded ResNet-50-FPN gets
-    random BN (``randomize_bn``) and calibrated heads
-    (``calibrate_rcnn``) on the CPU; the card and the referee load its
-    state.
+    batch 1 and RCNN_PREDICT_CHECK_RES on the card against the same model
+    on the CPU (TF32 off) and an f64 CPU referee, stage by stage. The
+    seeded ResNet-50-FPN gets random BN (``randomize_bn``) and calibrated
+    heads (``calibrate_rcnn``) on the CPU; the card and the referee load
+    its state.
 
     - C2-C5 and P2-P6 card vs CPU within STAGE_RTOL of each one's largest
       value; the RPN's logits and deltas, and the box head's logits and
@@ -3147,19 +3192,34 @@ def check_rcnn_f32(dev, with_mask: bool, gen):
          torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
+def _rcnn_predict_model(device, with_mask: bool, dtype):
+    """``entry.build_faster_rcnn``'s model at RCNN_PREDICT_CHECK_RES."""
+    from minddet_tpu_torch.entry import NUM_CLASSES, SEED
+    from minddet_tpu_torch.models.detectors.faster_rcnn import FasterRCNN
+
+    res = RCNN_PREDICT_CHECK_RES
+    model = FasterRCNN(num_classes=NUM_CLASSES, depth=50,
+                       image_hw=(res, res), rpn_pre_nms=1000,
+                       rpn_post_nms=512, with_mask=with_mask, dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.eval().to(device=device, dtype=dtype,
+                           memory_format=torch.channels_last)
+
+
 def _check_rcnn_f32(dev, with_mask, gen):
     from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import RES, build_faster_rcnn, calibrate_rcnn
+    from minddet_tpu_torch.entry import calibrate_rcnn
     from minddet_tpu_torch.models.detectors.faster_rcnn import BOX_ROI
     from minddet_tpu_torch.models.heads.roi_head import box_head_predict
 
-    image = torch.randn(1, RES, RES, 3, generator=gen)
-    cpu = build_faster_rcnn("cpu", with_mask, dtype=torch.float32)
-    randomize_bn(cpu, torch.randn(1, RES, RES, 3, generator=gen), gen)
+    res = RCNN_PREDICT_CHECK_RES
+    image = torch.randn(1, res, res, 3, generator=gen)
+    cpu = _rcnn_predict_model("cpu", with_mask, torch.float32)
+    randomize_bn(cpu, torch.randn(1, res, res, 3, generator=gen), gen)
     calibrate_rcnn(cpu, image)
-    gpu = build_faster_rcnn(dev, with_mask, dtype=torch.float32)
+    gpu = _rcnn_predict_model(dev, with_mask, torch.float32)
     gpu.load_state_dict(cpu.state_dict())
-    referee = build_faster_rcnn("cpu", with_mask, dtype=torch.float64)
+    referee = _rcnn_predict_model("cpu", with_mask, torch.float64)
     referee.load_state_dict(cpu.state_dict())
     rois_per_request = 2 if with_mask else 1
 
@@ -3405,7 +3465,8 @@ CENTERNET_PARTS = {
     "stage1": ("backbone.conv1.", "backbone.bn1.", "backbone.layer1_"),
     "stages2_4": ("backbone.layer2_", "backbone.layer3_", "backbone.layer4_"),
     "neck": ("neck.",), "head": ("head.",)}
-CHECK_RES_DCN4 = 512  # phase 5d's image side
+CHECK_RES = 384  # phase 5's image side (the train entry's 512 cut)
+CHECK_RES_DCN4 = 256  # phase 5d's image side (the served model's 512 cut)
 
 
 def _centernet_part_rel_l2(grads, ref, prefixes) -> float:
@@ -4312,7 +4373,7 @@ def check_rcnn_train_f32(dev, with_mask: bool, gen):
          torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
-def _referee_checks(g, c, r, t, parts, prefix, result, bad):
+def _referee_checks(g, c, r, t, parts, prefix, result, bad, kinked=()):
     """Hold one f32 train step's snapshot ``g`` (the card) to the f64
     referee's ``r``, with the f32 CPU's ``c`` as the measure of f32
     rounding (phases 5e, 5f, 5g; bounds ``t``): the loss and each part
@@ -4334,7 +4395,11 @@ def _referee_checks(g, c, r, t, parts, prefix, result, bad):
     gradient cancels (a BN bias seen only through a linear layer and a
     train-mode BN): its gradient is rounding noise on every side, so it is
     held under CANCELLED_NOISE times the largest gradient instead of to
-    the referee."""
+    the referee. A parameter in ``kinked`` (one the caller found upstream
+    of a ReLU that rounding flipped where the loss reaches it) that lies
+    past the per-parameter bound is reported under
+    ``params_past_the_bound_at_a_kink`` and held within
+    ``t["kink_grad_rel_l2"]`` of the referee instead."""
 
     def beyond(card, host, floor):
         """The card farther from the referee than the f32 CPU allows."""
@@ -4404,6 +4469,13 @@ def _referee_checks(g, c, r, t, parts, prefix, result, bad):
         for n, v in sorted(rel.items(), key=lambda kv: -kv[1])[:6]]
     far = [n for n in rel if beyond(rel[n], rel_cpu[n], floor_of(n))]
     result[f"{prefix}params_beyond_the_referee_bound"] = len(far)
+    at_kink = [n for n in far if n in kinked]
+    if at_kink:
+        result[f"{prefix}params_past_the_bound_at_a_kink"] = [
+            f"{n} {rel[n]:.2e} (CPU {rel_cpu[n]:.2e})" for n in at_kink]
+        bad += [f"{prefix}gradient of {n} at a kink" for n in at_kink
+                if rel[n] > t["kink_grad_rel_l2"]]
+        far = [n for n in far if n not in kinked]
     if far:
         bad.append(f"{prefix}gradients of {far[:6]} against the referee")
     stat_err = 0.0
@@ -4592,17 +4664,20 @@ def _check_rcnn_train_f32(dev, with_mask, gen):
 
 
 # f32 YOLO predict, card vs CPU vs an f64 CPU referee (phases 4g, 4h, 4i:
-# YOLOv8-s, YOLOX-s, YOLOv5-s), at full width and 640 x 640, batch
-# YOLO_CHECK_BATCH, BN randomized (YOLOX's score biases calibrated, as its
-# entry serves it). Every score of the seeded YOLOv8 sits near
-# sigmoid(-4.59) = 0.0101, just above the 0.01 threshold, and the seeded
-# YOLOv5's and calibrated YOLOX's near 0.25, so the top-1000 cut and the
-# NMS's order fall between scores ~1e-5 apart: f32 rounding of the card's
-# own logits may move a box across either. So each discrete stage (the
-# top-k, the threshold, the NMS keep, the padding) is held on the CPU's
-# inputs, and the card's own request against the CPU's as sets, as phases
+# YOLOv8-s, YOLOX-s, YOLOv5-s), at full width, batch YOLO_CHECK_BATCH at a
+# cut side (``check_res``: 448 x 448 of YOLOv5-s's and YOLOv7's 640,
+# YOLOv3's 288 of 416, YOLOv4's 352 of 512; YOLOv8-s and YOLOX-s at their
+# 640, for which they build their anchor points, SSD at its 300), BN
+# randomized (YOLOX's score
+# biases calibrated, as its entry serves it). Every score of the seeded YOLOv8
+# sits near sigmoid(-4.59) = 0.0101, just above the 0.01 threshold, and the
+# seeded YOLOv5's and calibrated YOLOX's near 0.25, so the top-1000 cut and the
+# NMS's order fall between scores ~1e-5 apart: f32 rounding of the card's own
+# logits may move a box across either. So each discrete stage (the top-k, the
+# threshold, the NMS keep, the padding) is held on the CPU's inputs, and the
+# card's own request against the CPU's as sets, as phases
 # 4e / 4f do.
-YOLO_CHECK_BATCH = 2
+YOLO_CHECK_BATCH = 2  # (the serving batches 1 and 16)
 YOLO_TIE = 1e-6  # sorted candidate scores this close may trade places
 YOLO_MATCHED_SHARE = 0.9  # of the CPU's detections found on the card
 YOLO_MAPS = ("C3", "C4", "C5", "N3", "N4", "N5")
@@ -4614,7 +4689,8 @@ def yolo_models() -> dict:
     ``build`` of its served model (device, dtype), its ``serve`` and
     ``train`` entries, the names of its head outputs (``heads``),
     predict's ``score`` threshold and ``nms`` IoU, the config's resolution
-    (``res``), the feature ``maps`` held to the referee, the config's SGD
+    (``res``) and the side of its phase-4 check (``check_res``), the
+    feature ``maps`` held to the referee, the config's SGD
     (``momentum``, ``nesterov``, weight ``decay``) and ``train_batch``,
     the parameter groups (``parts``) and the side (``train_res``) of its
     phase-5 step, the serving model's ``width`` (None: the class's), the
@@ -4631,7 +4707,8 @@ def yolo_models() -> dict:
     from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
     from minddet_tpu_torch.models.detectors.yolox import YOLOX
 
-    common = dict(res=entry.YOLO_RES, maps=YOLO_MAPS, nesterov=True,
+    common = dict(res=entry.YOLO_RES, check_res=448, maps=YOLO_MAPS,
+                  nesterov=True,
                   decay=entry.YOLO_WEIGHT_DECAY,
                   train_batch=entry.YOLO_TRAIN_BATCH, parts=YOLO_PARTS,
                   train_res=YOLO_TRAIN_CHECK["res"], width=None,
@@ -4645,12 +4722,14 @@ def yolo_models() -> dict:
             common, label="YOLOv8-s", cls=YOLOv8, heads=("dfl", "cls"),
             build=entry.build_yolov8, serve=entry.yolov8_entry,
             train=entry.yolov8_train_entry, momentum=entry.YOLO_MOMENTUM,
-            score=0.01, nms=0.7, phases=("4g", "5h", "6o", "6p")),
+            score=0.01, nms=0.7, check_res=entry.YOLO_RES,
+            phases=("4g", "5h", "6o", "6p")),
         "yolox": dict(
             common, label="YOLOX-s", cls=YOLOX, heads=("reg", "obj", "cls"),
             build=entry.build_yolox, serve=entry.yolox_entry,
             train=entry.yolox_train_entry, momentum=entry.YOLOX_MOMENTUM,
-            score=0.01, nms=0.65, phases=("4h", "5i", "6q", "6r")),
+            score=0.01, nms=0.65, check_res=entry.YOLO_RES,
+            phases=("4h", "5i", "6q", "6r")),
         "yolov5": dict(
             common, label="YOLOv5-s", cls=YOLOv5, heads=anchor_heads,
             build=entry.build_yolov5, serve=entry.yolov5_entry,
@@ -4661,14 +4740,16 @@ def yolo_models() -> dict:
             heads=("P5_out", "P4_out", "P3_out"), build=entry.build_yolov3,
             serve=entry.yolov3_entry, train=entry.yolov3_train_entry,
             momentum=entry.YOLOV3_MOMENTUM, score=0.05, nms=0.45,
-            res=entry.YOLOV3_RES, maps=("C3", "C4", "C5"), nesterov=False,
+            res=entry.YOLOV3_RES, check_res=288, maps=("C3", "C4", "C5"),
+            nesterov=False,
             parts=("backbone.", "h", "route"),
             phases=("4j", "5k", "6u", "6v")),
         "yolov4": dict(
             zoo, label="YOLOv4", cls=YOLOv4, heads=anchor_heads,
             build=entry.build_yolov4, serve=entry.yolov4_entry,
             train=entry.yolov4_train_entry, momentum=entry.YOLOV4_MOMENTUM,
-            score=0.05, nms=0.45, res=entry.YOLOV4_RES, nesterov=False,
+            score=0.05, nms=0.45, res=entry.YOLOV4_RES, check_res=352,
+            nesterov=False,
             width=entry.YOLOV4_WIDTH, phases=("4k", "5l", "6w", "6x")),
         "yolov7": dict(
             zoo, label="YOLOv7", cls=YOLOv7, heads=anchor_heads,
@@ -4680,7 +4761,7 @@ def yolo_models() -> dict:
             zoo, label="SSD-300-MobileNetV2", cls=SSD, heads=("cls", "reg"),
             build=entry.build_ssd, serve=entry.ssd_entry,
             train=entry.ssd_train_entry, momentum=entry.SSD_MOMENTUM,
-            score=0.05, nms=0.45, res=entry.SSD_RES,
+            score=0.05, nms=0.45, res=entry.SSD_RES, check_res=entry.SSD_RES,
             maps=("C4", "C5", "E0", "E1", "E2", "E3"), nesterov=False,
             decay=entry.SSD_WEIGHT_DECAY, train_batch=entry.SSD_TRAIN_BATCH,
             parts=("backbone.", "extra", "multibox"),
@@ -4728,12 +4809,13 @@ def _sample(det, i):
 def check_yolo_f32(dev, gen, kind: str = "yolov8"):
     """Phases 4g-4m: f32 ``predict`` of the 2D detector of ``kind``
     (``yolo_models``: YOLOv8-s, YOLOX-s, YOLOv5-s, YOLOv3, YOLOv4, YOLOv7,
-    SSD-300) at full width and its config's resolution, batch
-    YOLO_CHECK_BATCH, on the card against the same model on the CPU (TF32
-    off) and an f64 CPU referee, stage by stage; BN randomized
-    (``randomize_bn``, the statistics from the request's image but for
-    YOLOv8's) on the CPU (SSD's class convs then calibrated on the image,
-    ``calibrate_ssd``), the card and the referee load its state.
+    SSD-300) at full width, batch YOLO_CHECK_BATCH at its ``check_res``
+    (cut from its config's resolution but YOLOv8-s's, YOLOX-s's and
+    SSD's), on the card against the same model on the CPU (TF32 off) and
+    an f64 CPU referee, stage by stage; BN randomized (``randomize_bn``,
+    the statistics from the request's image but for YOLOv8's) on the CPU
+    (SSD's class convs then calibrated on the image, ``calibrate_ssd``),
+    the card and the referee load its state.
 
     - the feature maps and the head's outputs held to the referee as phase 4
       holds its heads (the card at most HEAD_REFEREE_K times as far from it
@@ -4769,7 +4851,7 @@ def _check_yolo_f32(dev, gen, kind):
 
     spec = _yolo_spec(kind)
     score_threshold, nms_iou = spec["score"], spec["nms"]
-    shape = (YOLO_CHECK_BATCH, spec["res"], spec["res"], 3)
+    shape = (YOLO_CHECK_BATCH, spec["check_res"], spec["check_res"], 3)
     image = torch.rand(*shape, generator=gen)
     cpu = build_yolo(kind, "cpu", torch.float32)
     # the BN statistics come from the request's own image (but YOLOv8's):
@@ -4890,7 +4972,7 @@ def _check_yolo_f32(dev, gen, kind):
 
 
 # f32 YOLO train steps, card vs CPU vs an f64 CPU referee (phases 5h, 5i,
-# 5j: YOLOv8-s, YOLOX-s, YOLOv5-s): the full-width model at 320 x 320,
+# 5j: YOLOv8-s, YOLOX-s, YOLOv5-s): the full-width model at 224 x 224,
 # batch 2 (the CPU's f32 step takes seconds), the reference's initialisers
 # with BN randomized, on ``synthetic_detection_batch`` (seed 5); SGD as the
 # config's (Nesterov, decay 5e-4, the NaN guard; momentum 0.937, YOLOX's
@@ -4911,7 +4993,7 @@ def _check_yolo_f32(dev, gen, kind):
 # GT 0 claims). The losses, gradients
 # and BN statistics take PP_TRAIN_TOL's bounds (the gradients at most
 # referee_k times as far from the referee as the f32 CPU's, plus a floor).
-YOLO_TRAIN_CHECK = dict(res=320, batch=2)
+YOLO_TRAIN_CHECK = dict(res=224, batch=2)  # (cut from the configs)
 YOLO_ASSIGN_CHECK = dict(batch=8, max_objs=48)
 YOLO_MAX_DIFFER = 0.05
 YOLO_TRAIN_TOL = dict(PP_TRAIN_TOL, soft_target_atol=1e-5)
@@ -5472,11 +5554,12 @@ def _check_yolo_train_f32(dev, kind):
 # The segmentors (phases 4n-4p, 5o-5q, 6ac-6ah): DeepLabV3+, DeepLabV3
 # (ResNet-101 dilated to output stride 16, 21 classes, 513 x 513) and UNet
 # (widths 64-1024, 2 classes, 512 x 512). Their f32 predict checks take
-# batch SEG_CHECK_BATCH at the configs' sides (``check_res``; DeepLab's C5
-# is 33 wide, so the ASPP's rate-18 taps reach real pixels). The train
-# checks cut the side (``train_res``): DeepLab to 321 x 321 (C5 21 wide),
-# UNet to 256 x 256, where the f64 CPU step takes seconds. BN statistics
-# come from the request's own image (``randomize_bn``).
+# batch SEG_CHECK_BATCH at a cut side (``check_res``): DeepLab at 321 x 321
+# (C5 21 wide, so the ASPP's rate-18 taps still reach real pixels from the
+# map's edges), UNet at 256 x 256; the train checks at a smaller one
+# (``train_res``): DeepLab 257 x 257 (C5 17 wide), UNet 128 x 128, where the
+# f64 CPU step takes seconds. The configs' sides are served (6ac-6ah). BN
+# statistics come from the request's own image (``randomize_bn``).
 SEG_CHECK_BATCH = 2
 SEG_CHECK_UNET_LR = 3e-4  # the check's Adam lr (the warm-up's first is 0)
 # the train checks' bounds are ZOO_TRAIN_TOL's (grad_norm to the referee
@@ -5511,7 +5594,7 @@ def seg_models() -> dict:
                     depth=entry.DEEPLAB_DEPTH),
         classes=entry.DEEPLAB_CLASSES, res=entry.DEEPLAB_RES,
         serve_batches=(1, 16), train_batch=entry.DEEPLAB_TRAIN_BATCH,
-        check_res=entry.DEEPLAB_RES, train_res=321,
+        check_res=321, train_res=257,
         maps={"C2": ("backbone", 0), "C5": ("backbone", 3),
               "aspp": ("aspp", None), "out": ("out", None)},
         parts=("backbone.", "aspp.", "low_", "dec", "out."),
@@ -5536,7 +5619,7 @@ def seg_models() -> dict:
             serve=entry.unet_entry, train=entry.unet_train_entry,
             classes=entry.UNET_CLASSES, res=entry.UNET_RES,
             serve_batches=(1, 8), train_batch=entry.UNET_TRAIN_BATCH,
-            check_res=entry.UNET_RES, train_res=256,
+            check_res=256, train_res=128,
             maps={"down0": ("down0_bn1", None),
                   "bottom": ("bottom_bn1", None),
                   "dec3": ("dec3_bn1", None), "out": ("out", None)},
@@ -7183,7 +7266,7 @@ def coco_mosaic_main_path(dev, card):
 
 
 # the KITTI data, train and eval paths (the car and ped_cycle configs)
-KITTI_CHECK_FRAMES = 8  # 4r: frames predicted on the card and the CPU
+KITTI_CHECK_FRAMES = 4  # 4r: frames predicted on the card and the CPU
 KITTI_SCORE_THRESHOLD = 0.3  # kitti_evaluate's detections
 KITTI_MATCH_TOL = (1e-3, 1e-4)  # 4r: box (m, rad) and score of a match
 KITTI_MATCHED_SHARE = 0.95  # of the CPU's detections found on the card
@@ -7191,7 +7274,7 @@ KITTI_AP_TOL = 1e-6  # 4r: every table entry, card overlaps vs the CPU's
 # 6al / 6am: fed steps over this many epochs of the loader, the first one
 # untimed (its batches are made ahead while the step warms up)
 KITTI_FED_EPOCHS = 3
-KITTI_LOADER_BATCHES = 8  # 6al / 6am: the one-thread loader's batches
+KITTI_LOADER_BATCHES = 4  # 6al / 6am: the one-thread loader's batches
 KITTI_SERVE_BATCHES = (1, 4)  # 6ao
 
 
@@ -8060,14 +8143,669 @@ def profile_train(label, step_fn, state, batch, steps: int = 3):
     return r
 
 
-def timed_phase(phase: str, card: str, fn, *args):
-    """``fn(*args)``, a dict, with its seconds under ``phase_s``, printed
-    beside the card."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    out["phase_s"] = time.perf_counter() - t0
-    print(f"  phase {phase}: {out['phase_s']:.1f} s on {card}", flush=True)
+# CenterPoint's nuScenes data, train, eval and tracking paths
+# (configs/centerpoint_pp_nusc.yaml and its two-stage variant)
+NUSC_EVAL_BATCH = 2      # nuscenes_evaluate's predict batch
+NUSC_TRAIN_BATCH = 4     # the config's train batch
+NUSC_CHECK_FRAMES = 2    # 4t: one evaluator batch a route, card and CPU
+NUSC_CHECK_BATCHES = 2   # 4t: loader batches compared at one thread
+NUSC_ORACLE_KEEP = 0.85  # 4t: the share of the GT the oracle detects ...
+NUSC_ORACLE_FAR = 0.2    # ... and of its detections 1.5 m off the GT
+NUSC_TABLE_TOL = 1e-6    # 4t: every entry of the two sides' tables
+NUSC_STEP_CHECK_BATCH = 1  # 5s: one fed cloud (the config's batch 4 cut)
+NUSC_STEP_CHECK_FRAMES = 4  # 5s: keyframes it is fed from
+NUSC_FED_EPOCHS = 3      # 6at: epochs of fed steps, the first untimed
+# 5s: a ReLU input whose sign the card and the referee set differently
+# where the loss reaches it (a kink) is one rounding explains when the two
+# inputs lie within KINK_BAND of the map's standard deviation of each other,
+# or within HEAD_REFEREE_K times the f32 CPU's largest distance there
+KINK_BAND = 1e-5
+# 5s: the step held as 5r holds the same model's voxel step, a parameter
+# past the per-parameter bound let through only where it lies upstream of
+# such a kink, and then within CP_TRAIN_TOL's card-vs-CPU bound of the
+# referee (``_referee_checks``' ``kinked``)
+NUSC_STEP_TOL = dict(VOXEL_TRAIN_CP_TOL,
+                     kink_grad_rel_l2=CP_TRAIN_TOL["grad_rel_l2"])
+NUSC_ROUTE_KERNELS = {
+    "plain": ("seg_full_max", "rotated_iou_intersect"),
+    "tta": ("rotated_iou_intersect",),
+    "refined": ("seg_full_max", "rotated_iou_intersect",
+                "bilinear_gather_fwd")}
+
+
+def _nusc_oracle(ex, rs):
+    """Detections made from an example's GT (the evaluators' oracle):
+    NUSC_ORACLE_KEEP of the boxes, centres +-0.3 m and NUSC_ORACLE_FAR of
+    them 1.5 m farther (matches at 2 and 4 m only), sizes +-10 %,
+    velocities +-0.3 m/s, headings +-0.1 rad, scores in [1, 2): ranked
+    above every model detection, so the model's cannot take a GT that the
+    oracle matches first."""
+    gm = ex["gt_mask"]
+    boxes = ex["gt_boxes"][gm].astype(np.float64)
+    labels = ex["gt_classes"][gm].astype(np.int32) - 1
+    keep = rs.rand(len(boxes)) < NUSC_ORACLE_KEEP
+    boxes, labels = boxes[keep], labels[keep]
+    n = len(boxes)
+    boxes[:, :2] += rs.uniform(-0.3, 0.3, (n, 2))
+    far = rs.rand(n) < NUSC_ORACLE_FAR
+    ang = rs.uniform(-np.pi, np.pi, n)
+    boxes[far, 0] += 1.5 * np.cos(ang[far])
+    boxes[far, 1] += 1.5 * np.sin(ang[far])
+    boxes[:, 3:6] *= rs.uniform(0.9, 1.1, (n, 3))
+    boxes[:, 6:8] += rs.uniform(-0.3, 0.3, (n, 2))
+    boxes[:, 8] += rs.uniform(-0.1, 0.1, n)
+    return {"boxes": boxes.astype(np.float32),
+            "scores": rs.uniform(1.0, 2.0, n).astype(np.float32),
+            "labels": labels}
+
+
+def _with_oracle(frames, oracle):
+    """``nuscenes_detections``' frames with the oracle's detections
+    appended to each."""
+    return [(ex, {k: np.concatenate([det[k], o[k]]) for k in det})
+            for (ex, det), o in zip(frames, oracle)]
+
+
+def _nusc_pairs(got, ref, box_tol, score_atol):
+    """One to one, the card detections (``got``: boxes, scores, labels of
+    a frame) that match the CPU's (``ref``): same label, the first eight
+    box numbers within ``box_tol`` (atol, rtol), score within
+    ``score_atol``. Returns (card index or -1 for each CPU detection)."""
+    atol, rtol = box_tol
+    used = np.zeros(len(got["scores"]), bool)
+    idx = np.full(len(ref["scores"]), -1)
+    for i, (b, sc, lab) in enumerate(zip(ref["boxes"], ref["scores"],
+                                         ref["labels"])):
+        ok = (~used & (got["labels"] == lab)
+              & (np.abs(got["boxes"][:, :8] - b[:8])
+                 <= atol + rtol * np.abs(b[:8])).all(-1)
+              & (np.abs(got["scores"] - sc) <= score_atol))
+        if ok.any():
+            idx[i] = int(np.argmax(ok))
+            used[idx[i]] = True
+    return idx
+
+
+def _same_tracks(got, ref) -> bool:
+    """The tracked scenes of two sides hold the same tracks: one relabelling
+    maps the card's track ids onto the CPU's in every frame (the ids are
+    numbered in each side's score order, which near-ties may swap)."""
+    fwd, back = {}, {}
+    for sg, sr in zip(got, ref, strict=True):
+        for fg, fr in zip(sg, sr, strict=True):
+            if len(fg["ids"]) != len(fr["ids"]):
+                return False
+            for a, b in zip(fg["ids"].tolist(), fr["ids"].tolist()):
+                if fwd.setdefault(a, b) != b or back.setdefault(b, a) != a:
+                    return False
+    return True
+
+
+def _table_diff(a, b) -> float:
+    if set(a) != set(b):
+        return float("inf")
+    return max(abs(a[k] - b[k]) for k in a)
+
+
+@_f32_checks
+def check_nuscenes_f32(dev):
+    """Phase 4t: CenterPoint's nuScenes path in f32 (TF32 off), card against
+    CPU, on NUSC_CHECK_FRAMES keyframes of ``synthetic_nuscenes_records``
+    (one scene, 120,000 of ~240,000 merged points each):
+
+    - ``nuscenes_batches`` of the config's data section (CBGS, the GT
+      database and sampler, the global augmentation) at one loader thread,
+      twice: the same NUSC_CHECK_BATCHES raw batches;
+    - ``nuscenes_detections`` (one evaluator batch of NUSC_EVAL_BATCH) by
+      the plain, TTA and refined routes, models calibrated on the CPU
+      (``calibrate_centerpoint``) and loaded on the card: the CPU's
+      detections above the threshold matched one to one on the card
+      (``_nusc_pairs``: at least CP_MATCHED_SHARE), the route's kernels
+      launched once each;
+    - the evaluators on each side's own matched detections with the same
+      oracle's appended (``_nusc_oracle``): ``nuscenes_metrics`` and, on
+      the plain route, ``tracking_scenes`` + ``evaluate_tracking``: every
+      table entry within NUSC_TABLE_TOL, the same tracks up to their ids
+      (``_same_tracks``), and mAP, NDS and AMOTA strictly between 0 and
+      1."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.nuscenes import DETECTION_CLASSES
+    from minddet_tpu_torch.data.nuscenes_track_eval import evaluate_tracking
+    from minddet_tpu_torch.entry import (CP_CONFIG, CP_TWO_STAGE_CONFIG,
+                                         NUSC_ROUTES, SEED, build_centerpoint,
+                                         read_config)
+    from minddet_tpu_torch.train.evaluate import (nuscenes_dataset,
+                                                  nuscenes_detections,
+                                                  nuscenes_metrics,
+                                                  tracking_scenes)
+    from minddet_tpu_torch.train.synthetic import (nuscenes_batches,
+                                                   synthetic_nuscenes_records)
+
+    result, bad = {}, []
+    records = synthetic_nuscenes_records(NUSC_CHECK_FRAMES,
+                                         seed=PHASE_SEEDS["4t"], scenes=1)
+    data = dict(read_config(CP_CONFIG)["data"], records=records, workers=1)
+    runs = []
+    for _ in range(2):
+        it = nuscenes_batches({"data": data}, NUSC_TRAIN_BATCH, seed=SEED)
+        runs.append([next(it) for _ in range(NUSC_CHECK_BATCHES)])
+        it.close()
+    same = all(set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+               for a, b in zip(*runs))
+    result.update(batches_equal=same, batch_keys=sorted(runs[0][0]),
+                  batch_boxes=int(runs[0][0]["gt_mask"].sum()))
+    if not same or "gt_attrs" in runs[0][0] or "scene" in runs[0][0]:
+        bad.append("nuscenes_batches at one thread")
+
+    # a fresh dataset for each side: every example draws its subsample
+    # from the dataset's generator, so each side sees the same points
+    ds = nuscenes_dataset(records)
+    exs = [ds[i] for i in range(len(ds))]
+    # the heads calibrated on the first cloud
+    points = torch.from_numpy(exs[0]["points"][None])
+    pmask = torch.from_numpy(exs[0]["points_mask"][None])
+    rs = np.random.RandomState(PHASE_SEEDS["4t"])
+    oracle = [_nusc_oracle(e, rs) for e in exs]
+    tol = {"plain": (PP_BOX_TOL, CP_SCORE_TOL),
+           "tta": (PP_BOX_TOL, CP_SCORE_TOL),
+           "refined": (CP_REFINED_TOL, 1e-4)}
+    models = {}
+    for route, flags in NUSC_ROUTES.items():
+        config = CP_TWO_STAGE_CONFIG if route == "refined" else CP_CONFIG
+        if config not in models:
+            cpu = build_centerpoint("cpu", config)
+            with torch.no_grad():
+                calibrate_centerpoint(cpu, points, pmask)
+            gpu = build_centerpoint(dev, config)
+            gpu.load_state_dict(cpu.state_dict())
+            models = {config: (cpu, gpu)}
+        cpu, gpu = models[config]
+        kernels.reset_launches()
+        fg = nuscenes_detections(gpu, nuscenes_dataset(records), **flags)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        t0 = time.perf_counter()
+        fc = nuscenes_detections(cpu, nuscenes_dataset(records), **flags)
+        result[f"{route}_cpu_s"] = time.perf_counter() - t0
+        if launches != _centerpoint_launches(1, NUSC_ROUTE_KERNELS[route]):
+            bad.append(f"{route}: the card launched {launches}")
+        pairs = [_nusc_pairs(g, c, *tol[route])
+                 for (_, g), (_, c) in zip(fg, fc)]
+        n_cpu = sum(len(p) for p in pairs)
+        share = sum(int((p >= 0).sum()) for p in pairs) / max(n_cpu, 1)
+        result[f"{route}_detections_cpu"] = n_cpu
+        result[f"{route}_matched_share"] = share
+        if share < CP_MATCHED_SHARE or n_cpu == 0:
+            bad.append(f"{route}: detections as sets")
+        # each side's own values of the matched detections, in the CPU's
+        # order, and the same oracle
+        own_g, own_c = [], []
+        for (ex, g), (_, c), p in zip(fg, fc, pairs):
+            m = p >= 0
+            own_g.append((ex, {k: g[k][p[m]] for k in g}))
+            own_c.append((ex, {k: c[k][m] for k in c}))
+        own_g, own_c = _with_oracle(own_g, oracle), _with_oracle(own_c,
+                                                                 oracle)
+        tg, tc = nuscenes_metrics(own_g), nuscenes_metrics(own_c)
+        result[f"{route}_table_max_abs_diff"] = _table_diff(tg, tc)
+        result[f"{route}_mAP"], result[f"{route}_NDS"] = tc["mAP"], tc["NDS"]
+        if result[f"{route}_table_max_abs_diff"] > NUSC_TABLE_TOL:
+            bad.append(f"{route}: the detection tables")
+        if not (0 < tc["mAP"] < 1 and 0 < tc["NDS"] < 1):
+            bad.append(f"{route}: mAP / NDS at a bound")
+        if route != "plain":
+            continue
+        sg, sc = tracking_scenes(own_g), tracking_scenes(own_c)
+        same_tracks = _same_tracks(sg[1], sc[1])
+        ag, ac = (evaluate_tracking(*sg, DETECTION_CLASSES),
+                  evaluate_tracking(*sc, DETECTION_CLASSES))
+        result.update(same_tracks=same_tracks,
+                      tracking_table_max_abs_diff=_table_diff(ag, ac),
+                      AMOTA=ac["AMOTA"], AMOTP=ac["AMOTP"], IDS=ac["IDS"])
+        if not same_tracks:
+            bad.append("tracks")
+        if result["tracking_table_max_abs_diff"] > NUSC_TABLE_TOL:
+            bad.append("the tracking tables")
+        if not 0 < ac["AMOTA"] < 1:
+            bad.append("AMOTA at a bound")
+    del models
+    print("  f32 nuScenes path card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 nuScenes path, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+def _hook_head_relu_inputs(model):
+    """Forward hooks on the CenterHead's BN layers whose output a ReLU
+    takes (``shared_bn`` and each branch's ``*_bn{i}``): each stores that
+    input z and, in the backward, dL/dz (0 where the ReLU is off), both
+    in f64 on the CPU, under the BN's name. Returns (store, handles)."""
+    store = {}
+
+    def hook(name):
+        def keep(_mod, _inp, out):
+            store[name] = {"z": out.detach().double().cpu()}
+            out.register_hook(lambda g: store[name].__setitem__(
+                "g", g.detach().double().cpu()))
+        return keep
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in model.head.named_modules()
+               if n == "shared_bn"
+               or re.fullmatch(r"task\d+\.\w+_bn\d+", n)]
+    return store, handles
+
+
+def _relu_kinks(relu, result, bad):
+    """The head's ReLU inputs of 5s on the card and the referee
+    (``_hook_head_relu_inputs``): an element where the loss reaches one
+    side's ReLU and not the other's (dL/dz 0 on exactly one) is a flip.
+    Rounding explains a flip when the card's z lies within the band of the
+    referee's: KINK_BAND of the map's standard deviation, or HEAD_REFEREE_K
+    times the f32 CPU's largest distance from the referee on that map (the
+    signs differ, so the referee's |z| is smaller still); any other flip
+    fails. Reports per map with flips their count, the largest |z_ref| /
+    std and |z_card - z_ref| / std among them, the band, the flipped
+    terms' share of |dL/dz| (L2, both sides') and the elements the loss
+    reaches there (dL/dz nonzero on the referee), and over all maps the
+    largest |z - z_ref| / std of the card and of the CPU and the map the
+    loss reaches at the fewest elements (a loc branch: its object centres'
+    neighbourhoods), where one flipped term weighs most. Returns
+    the parameter names upstream of a rounding flip inside its branch (the
+    branch's convs and BNs up to that ReLU; for ``shared_bn`` the shared
+    conv and BN)."""
+    kinked, worst, worst_cpu, flips, reached = set(), 0.0, 0.0, {}, {}
+    for name, ref in relu["referee"].items():
+        card = relu["card"][name]
+        reached[name] = int((ref["g"] != 0).sum())
+        std = float(ref["z"].std())
+        gap = (card["z"] - ref["z"]).abs() / std
+        cpu_gap = float((relu["cpu"][name]["z"] - ref["z"]).abs().max()) / std
+        band = max(KINK_BAND, HEAD_REFEREE_K * cpu_gap)
+        worst = max(worst, float(gap.max()))
+        worst_cpu = max(worst_cpu, cpu_gap)
+        flip = (card["g"] != 0) ^ (ref["g"] != 0)
+        if not bool(flip.any()):
+            continue
+        share = float(torch.cat([card["g"][flip], ref["g"][flip]]).norm()
+                      / ref["g"].norm().clamp_min(1e-300))
+        flips[name] = dict(n=int(flip.sum()),
+                           z_ref=float(ref["z"][flip].abs().max()) / std,
+                           gap=float(gap[flip].max()), band=band,
+                           share=share, reached=reached[name])
+        if flips[name]["gap"] > band:
+            bad.append(f"head.{name}: the ReLU flips where the card's input "
+                       f"is {flips[name]['gap']:.2e} std from the referee's")
+            continue
+        m = re.fullmatch(r"(task\d+\.\w+)_bn(\d+)", name)
+        stems = ([f"{m[1]}_{kind}{i}." for i in range(int(m[2]) + 1)
+                  for kind in ("conv", "bn")] if m
+                 else ["shared_conv.", "shared_bn."])
+        kinked |= {f"head.{stem}{leaf}" for stem in stems
+                   for leaf in ("weight", "bias")}
+    result["relu_input_gap_max_std"] = worst
+    result["relu_input_gap_max_std_cpu"] = worst_cpu
+    fewest = min(reached, key=reached.get)
+    result["relu_reached_fewest"] = f"{fewest} {reached[fewest]}"
+    result["relu_flips"] = {n: f"{v['n']} of {v['reached']} reached, at "
+                               f"|z_ref| <= {v['z_ref']:.2e} std, gap <= "
+                               f"{v['gap']:.2e} std (band {v['band']:.2e}), "
+                               f"{v['share']:.2e} of |dL/dz|"
+                            for n, v in flips.items()}
+    return kinked
+
+
+@_f32_checks
+def check_nuscenes_train_f32(dev):
+    """Phase 5s: the config's train step (``nuscenes_optimizer``: AdamW
+    with decay 0.01 and clip 35 under ``one_cycle(2e-3, 140000)``, the NaN
+    guard; ``loss_from_gt`` of the single-stage model) on one batch fed by
+    ``nuscenes_batches`` (NUSC_STEP_CHECK_BATCH cloud of the config's data
+    section at one thread), f32 on the card and the CPU and in f64 compute
+    on the CPU (the referee), from the seeded weights, held as 5r holds the
+    same model's voxel step (``_referee_checks`` at NUSC_STEP_TOL: the
+    loss, its parts, grad_norm, the reader's, the RPN's and the head's
+    gradients as parts and every parameter's gradient at most
+    ``referee_k`` times as far from the referee as the f32 CPU's plus a
+    floor, the BN statistics; a parameter past that bound passes only
+    upstream of a ReLU that ``_relu_kinks`` finds flipped by rounding, and
+    is reported; K5f and K5b once each on the card); and the schedule's lr on
+    the card at counts 0, 1, the peak's and the descent's equal to the
+    plain one-cycle formula's to f32 rounding (1e-6 relative)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (CP_CONFIG, KITTI_BATCH_KEYS, SEED,
+                                         model_gt_loss, nuscenes_optimizer,
+                                         read_config)
+    from minddet_tpu_torch.models.detectors.centerpoint import CenterPoint
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+    from minddet_tpu_torch.train.synthetic import (nuscenes_batches,
+                                                   synthetic_nuscenes_records)
+
+    result, bad = {}, []
+    cfg = read_config(CP_CONFIG)
+    data = dict(cfg["data"], workers=1, records=synthetic_nuscenes_records(
+        NUSC_STEP_CHECK_FRAMES, seed=PHASE_SEEDS["5s"], scenes=1))
+    it = nuscenes_batches({"data": data}, NUSC_STEP_CHECK_BATCH, seed=SEED)
+    raw = next(it)
+    it.close()
+    batch = {k: torch.from_numpy(raw[k]) for k in KITTI_BATCH_KEYS}
+    result["boxes"] = int(raw["gt_mask"].sum())
+    start = CenterPoint().init_weights(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    snaps, relu = {}, {}
+    for name, d, dtype in (("card", dev, torch.float32),
+                           ("cpu", "cpu", torch.float32),
+                           ("referee", "cpu", torch.float64)):
+        model = CenterPoint(dtype=dtype).to(
+            device=d, memory_format=torch.channels_last)
+        model.load_state_dict(start)
+        relu[name], hooks = _hook_head_relu_inputs(model)
+        state = TrainState.create(model, nuscenes_optimizer(cfg))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(model_gt_loss)(
+            state, {k: v.to(d) for k, v in batch.items()})
+        for h in hooks:
+            h.remove()
+        snaps[name] = _train_snapshot(state, metrics)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        print(f"  nuScenes {name} step {time.perf_counter() - t0:.1f} s, "
+              f"loss {snaps[name]['metrics']['loss']:.6f}", flush=True)
+        if name == "card" and launches != _centerpoint_launches(
+                1, ("seg_full_max", "seg_full_max_bwd")):
+            bad.append(f"the nuScenes train step launched {launches}")
+        del state, model
+    kinked = _relu_kinks(relu, result, bad)
+    del relu
+    _referee_checks(snaps["card"], snaps["cpu"], snaps["referee"],
+                    NUSC_STEP_TOL, ("reader.", "rpn.", "head."), "", result,
+                    bad, kinked=kinked)
+    sched = nuscenes_optimizer(cfg).learning_rate
+    lcfg = cfg["train"]["lr_schedule"]
+    lr_max, total = float(lcfg["lr_max"]), int(lcfg["total_steps"])
+    up = int(total * 0.4)
+    low = lr_max / 10.0
+    for count in (0, 1, up, total - up // 2):
+        got = float(sched(torch.tensor(count, device=dev)))
+        if count < up:
+            want = low + (lr_max - low) * 0.5 * (
+                1 - math.cos(math.pi * count / up))
+        else:
+            want = max(lr_max * 0.5 * (1 + math.cos(
+                math.pi * (count - up) / (total - up))), low / 1e4)
+        result[f"lr_{count}"] = got
+        if abs(got - want) > 1e-6 * want:
+            bad.append(f"one_cycle at {count}: {got} != {want}")
+    print("  f32 nuScenes train step card vs CPU and the referee: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 nuScenes train step: {bad}: {result}")
+    return result
+
+
+def nuscenes_train_main_path(dev, card):
+    """Phase 6at: the config's train step fed by ``nuscenes_batches``
+    (``centerpoint_nusc_train_entry``: f32, batch 4, AdamW with decay 0.01
+    and clip 35 under ``one_cycle``, the NaN guard; the in-memory
+    keyframes, CBGS, the GT database built from them, the sampler, the
+    augmentation, four loader threads), NUSC_FED_EPOCHS epochs of steps
+    (CBGS's epoch), each on the next batch, launch counts from 0: K5f and
+    K5b once a step, nothing else; every loss finite and every step
+    applied. The steps after the first epoch are timed with the wait for
+    each next batch apart (the loader has no back-pressure: its first
+    epoch runs ahead of the step): their mean, each timed epoch's mean,
+    and the 10th, 50th and 90th percentiles and the largest of the whole
+    step, of the wait and of the step without it; then the same step on
+    one fixed batch (what the data path adds). ms on the host clock around
+    synced work; peak memory."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.nuscenes import NuScenesDetection
+    from minddet_tpu_torch.entry import (NUSC_TRAIN_FRAMES, NUSC_TRAIN_SCENES,
+                                         SEED, centerpoint_nusc_train_entry)
+    from minddet_tpu_torch.train.synthetic import synthetic_nuscenes_records
+
+    per_epoch = len(NuScenesDetection(synthetic_nuscenes_records(
+        NUSC_TRAIN_FRAMES, seed=SEED, scenes=NUSC_TRAIN_SCENES), cbgs=True,
+        seed=SEED)) // NUSC_TRAIN_BATCH
+    fed_steps = NUSC_FED_EPOCHS * per_epoch
+    torch.zeros(1, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn, (state, batches) = centerpoint_nusc_train_entry(device=dev)
+    kernels.reset_launches()
+    history, times, waits, first_epoch = [], [], [], []
+    for i in range(fed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        if i >= per_epoch:
+            times.append(time.perf_counter() - t0)
+            waits.append(t1 - t0)
+        else:
+            first_epoch.append(time.perf_counter() - t0)
+    batches.close()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    fixed = []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            fixed.append(time.perf_counter() - t0)
+    applied = int(state.optimizer.param_groups[0]["count"])
+    mean_s, fixed_s = statistics.mean(times), statistics.mean(fixed)
+    wait_s = statistics.mean(waits)
+
+    def spread(xs):
+        """p10, p50, p90 and the largest of ``xs`` (s), in ms."""
+        q = statistics.quantiles(xs, n=10)
+        return dict(p10=q[0] * 1e3, p50=q[4] * 1e3, p90=q[8] * 1e3,
+                    max=max(xs) * 1e3)
+
+    own = [t - w for t, w in zip(times, waits)]
+    out = dict(batch=NUSC_TRAIN_BATCH, frames=NUSC_TRAIN_FRAMES,
+               steps_per_epoch=per_epoch, steps=fed_steps,
+               timed_steps=len(times), ms_per_step=mean_s * 1e3,
+               ms_p50=statistics.median(times) * 1e3,
+               epoch_ms_per_step=[
+                   statistics.mean(times[i:i + per_epoch]) * 1e3
+                   for i in range(0, len(times), per_epoch)],
+               step_ms=spread(times), wait_ms=spread(waits),
+               step_without_wait_ms=spread(own),
+               clouds_per_s=NUSC_TRAIN_BATCH / mean_s,
+               fixed_batch_ms_per_step=fixed_s * 1e3,
+               data_path_ms_per_step=(mean_s - fixed_s) * 1e3,
+               next_batch_ms=wait_s * 1e3,
+               next_batch_ms_max=max(waits) * 1e3,
+               wait_share=wait_s / mean_s,
+               first_epoch_ms_per_step=statistics.mean(first_epoch) * 1e3,
+               valid_boxes=int(batch["gt_mask"].sum()),
+               steps_applied=applied, max_memory_allocated=peak,
+               losses=[m["loss"] for m in history], launches=launches,
+               card=card)
+    dist = "; ".join(
+        f"{k} " + " / ".join(f"{v:.1f}" for v in out[k].values())
+        for k in ("step_ms", "wait_ms", "step_without_wait_ms"))
+    print(f"  the nuScenes config's step fed by nuscenes_batches, batch "
+          f"{NUSC_TRAIN_BATCH}, CBGS epochs of {per_epoch} steps, epochs 2-"
+          f"{NUSC_FED_EPOCHS} ({len(times)} steps): {out['ms_per_step']:.3f} "
+          f"ms/step (by epoch " + " / ".join(
+              f"{v:.3f}" for v in out["epoch_ms_per_step"]) + f"; p10 / p50 "
+          f"/ p90 / max: {dist}), {out['clouds_per_s']:.1f} clouds/s, of it "
+          f"the wait for the next batch {out['next_batch_ms']:.3f} ms (max "
+          f"{out['next_batch_ms_max']:.3f}; {out['wait_share']:.0%}); the "
+          f"first epoch {out['first_epoch_ms_per_step']:.3f} ms/step; on one "
+          f"fixed batch {out['fixed_batch_ms_per_step']:.3f} ms/step, so the "
+          f"data path adds {out['data_path_ms_per_step']:.3f} ms; "
+          f"{out['valid_boxes']} boxes in the last batch; peak "
+          f"{peak / 2 ** 30:.2f} GiB; {card}", flush=True)
+    if not all(math.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"the nuScenes-fed step is not finite: "
+                             f"{history}")
+    if applied != fed_steps + TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError(f"{applied} nuScenes steps applied of "
+                             f"{fed_steps + TRAIN_WARMUP + TRAIN_STEPS}")
+    want = _centerpoint_launches(fed_steps, ("seg_full_max",
+                                             "seg_full_max_bwd"))
+    if launches != want:
+        raise AssertionError(f"{launches} in {fed_steps} nuScenes steps "
+                             f"(want {want})")
+    print(f"  kernels: {launches}: seg_full_max == seg_full_max_bwd == steps: "
+          f"True", flush=True)
     return out
+
+
+def _nusc_warm(model, ds, route):
+    """Calibrate ``model`` on the dataset's first evaluator batch (as 6d's
+    served model) and run the route once on it: the timed evaluation then
+    starts warm. The batch comes from a fresh dataset of the same records
+    (an example draws its subsample from its dataset's generator)."""
+    from minddet_tpu_torch.entry import NUSC_ROUTES
+    from minddet_tpu_torch.train.evaluate import (nuscenes_dataset,
+                                                  nuscenes_route)
+
+    dev = next(model.parameters()).device
+    fresh = nuscenes_dataset(ds.records)
+    exs = [fresh[i] for i in range(NUSC_EVAL_BATCH)]
+    points = torch.from_numpy(np.stack([e["points"] for e in exs])).to(dev)
+    pmask = torch.from_numpy(np.stack([e["points_mask"]
+                                       for e in exs])).to(dev)
+    with torch.no_grad():
+        calibrate_centerpoint(model, points, pmask)
+    nuscenes_route(model, **NUSC_ROUTES[route])(points, pmask)
+    torch.cuda.synchronize()
+
+
+def _per_frame(timings, frames):
+    return {k: v / frames * 1e3 for k, v in timings.items()}
+
+
+def nuscenes_eval_main_path(dev, card):
+    """Phase 6au: ``centerpoint_nusc_eval_entry`` by each route (the plain
+    single-stage model, its double-flip TTA, the two-stage model's
+    ``predict_refined``): ``nuscenes_evaluate`` over the entry's
+    NUSC_EVAL_FRAMES keyframes at the reference's protocol, the model
+    calibrated and warmed on the first batch (``_nusc_warm``), launch
+    counts from 0: the route's kernels once per batch, nothing else; ms per
+    frame split into load, copy, predict and the host's evaluator; the
+    metrics finite."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (NUSC_ROUTES,
+                                         centerpoint_nusc_eval_entry)
+
+    out, launches = {}, None
+    for route in NUSC_ROUTES:
+        evaluate_fn, (model, ds) = centerpoint_nusc_eval_entry(dev, route)
+        _nusc_warm(model, ds, route)
+        kernels.reset_launches()
+        timings = {}
+        t0 = time.perf_counter()
+        stats = evaluate_fn(model, ds, timings=timings)
+        wall = time.perf_counter() - t0
+        got = {k.name: k.launches for k in kernels.KERNELS}
+        batches = -(-len(ds) // NUSC_EVAL_BATCH)
+        want = _centerpoint_launches(batches, NUSC_ROUTE_KERNELS[route])
+        r = dict(frames=len(ds), batches=batches,
+                 ms_per_frame=wall / len(ds) * 1e3,
+                 parts_ms_per_frame=_per_frame(timings, len(ds)),
+                 stats=stats, launches=got, card=card)
+        out[route] = r
+        print(f"  nuscenes_evaluate {route}: {r['ms_per_frame']:.3f} ms/frame"
+              f" over {len(ds)} frames (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in r["parts_ms_per_frame"].items())
+              + f"); mAP {stats['mAP']:.4f} NDS {stats['NDS']:.4f}; {card}",
+              flush=True)
+        if not all(math.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"nuscenes_evaluate {route}: {stats}")
+        if got != want:
+            raise AssertionError(f"nuscenes_evaluate {route} launched {got} "
+                                 f"for {batches} batches (want {want})")
+        launches = got if launches is None else {
+            k: launches[k] + v for k, v in got.items()}
+        del model, ds
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    print(f"  kernels: {launches}: each route's once per batch: True",
+          flush=True)
+    return out
+
+
+def nuscenes_tracking_main_path(dev, card):
+    """Phase 6av: ``centerpoint_nusc_tracking_entry``:
+    ``nuscenes_tracking_evaluate`` over one scene of NUSC_TRACK_FRAMES
+    keyframes (a 20 s nuScenes scene), the model calibrated and warmed on
+    the first batch, launch counts from 0: K5f and K4 once per batch,
+    nothing else; ms per frame split into load, copy, predict, the tracker
+    (with the moves to the global frame) and the tracking protocol; the
+    detections a frame; the metrics finite."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import centerpoint_nusc_tracking_entry
+
+    evaluate_fn, (model, ds) = centerpoint_nusc_tracking_entry(dev)
+    _nusc_warm(model, ds, "plain")
+    kernels.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    stats = evaluate_fn(model, ds, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    batches = -(-len(ds) // NUSC_EVAL_BATCH)
+    want = _centerpoint_launches(batches, NUSC_ROUTE_KERNELS["plain"])
+    out = dict(frames=len(ds), batches=batches,
+               ms_per_frame=wall / len(ds) * 1e3,
+               parts_ms_per_frame=_per_frame(timings, len(ds)),
+               stats=stats, launches=launches, card=card)
+    print(f"  nuscenes_tracking_evaluate: {out['ms_per_frame']:.3f} ms/frame "
+          f"over {len(ds)} frames of one scene (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in out["parts_ms_per_frame"].items())
+          + f"); AMOTA {stats['AMOTA']:.4f} AMOTP {stats['AMOTP']:.4f} IDS "
+          f"{stats['IDS']}; {card}", flush=True)
+    if not all(math.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"nuscenes_tracking_evaluate: {stats}")
+    if launches != want:
+        raise AssertionError(f"nuscenes_tracking_evaluate launched "
+                             f"{launches} for {batches} batches (want "
+                             f"{want})")
+    print(f"  kernels: {launches}: seg_full_max == rotated_iou_intersect == "
+          f"batches: True", flush=True)
+    return out
+
+
+class PhaseClock:
+    """Every phase's seconds on the host clock: ``start(name, text)`` ends
+    the phase before it (its seconds printed beside the card and kept in
+    ``seconds``) and prints the new phase's header with the seconds since
+    ``t_start``; ``stop()`` ends the last."""
+
+    def __init__(self, t_start: float):
+        self.t_start, self.card = t_start, ""
+        self.seconds: dict = {}
+        self.name = self.t = None
+
+    def start(self, name: str, text: str) -> None:
+        self.stop()
+        self.name, self.t = name, time.perf_counter()
+        print(f"phase {name}: {text} [at {self.t - self.t_start:.1f} s]",
+              flush=True)
+
+    def stop(self) -> None:
+        if self.name is None:
+            return
+        self.seconds[self.name] = time.perf_counter() - self.t
+        print(f"  phase {self.name}: {self.seconds[self.name]:.1f} s on "
+              f"{self.card}", flush=True)
+        self.name = None
 
 
 def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
@@ -8128,14 +8866,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
 
-    print("phase 1: card", flush=True)
+    clock = PhaseClock(t_start)
+    clock.start("1", "card")
     card = _card()
+    clock.card = card
     print(card)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}",
           flush=True)
 
-    print("phase 2: build", flush=True)
+    clock.start("2", "build")
     t0 = time.perf_counter()
     logs = kernels.build_all(kernels.KERNELS)
     build_s = time.perf_counter() - t0
@@ -8145,7 +8885,7 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}")
     print(f"  built {len(logs)} kernel(s) in {build_s:.1f} s", flush=True)
 
-    print("phase 3: kernels vs plain versions", flush=True)
+    clock.start("3", "kernels vs plain versions")
     cases = check_taps_kernel(dev, gen)
     bwd_cases = check_taps_bwd_kernel(dev, gen)
     flat_cases = check_flat_kernel(dev, gen)
@@ -8178,98 +8918,99 @@ def main(argv=None) -> int:
         print(f"seeds: phases 4 and 4d on {args.seeds} models each, "
               f"ungated", flush=True)
         referee_ratios = referee_ratio_sweep(dev, args.seeds)
-    print("phase 4: end to end, f32 predict, card vs CPU and the f64 "
-          "referee", flush=True)
+    clock.start("4", "end to end, f32 predict, card vs CPU and the f64 "
+                     "referee")
     e2e = check_end_to_end_f32(dev, _seeded("4"))
-    print("phase 4b: end to end, f32 PointPillars predict, card vs CPU",
-          flush=True)
+    clock.start("4b", "end to end, f32 PointPillars predict, card vs CPU")
     pp_f32 = check_pointpillars_f32(dev)
-    print("phase 4c: end to end, f32 two-stage CenterPoint predict, card vs "
-          "CPU", flush=True)
+    clock.start("4c", "end to end, f32 two-stage CenterPoint predict, card vs "
+                      "CPU")
     cp_f32 = check_centerpoint_f32(dev, centerpoint)
-    print("phase 4d: end to end, f32 predict with DCN in all four backbone "
-          "stages, card vs CPU and the f64 referee", flush=True)
+    clock.start("4d", "end to end, f32 predict with DCN in all four backbone "
+                      "stages, card vs CPU and the f64 referee")
     e2e_dcn4 = check_end_to_end_f32(dev, _seeded("4d"), dcn4=True)
-    print("phase 4e: end to end, f32 Faster R-CNN predict, card vs CPU and "
-          "the f64 referee", flush=True)
+    clock.start("4e", "end to end, f32 Faster R-CNN predict, card vs CPU and "
+                      "the f64 referee")
     rcnn_f32 = check_rcnn_f32(dev, False, _seeded("4e"))
-    print("phase 4f: end to end, f32 Mask R-CNN predict, card vs CPU and "
-          "the f64 referee", flush=True)
+    clock.start("4f", "end to end, f32 Mask R-CNN predict, card vs CPU and "
+                      "the f64 referee")
     mask_rcnn_f32 = check_rcnn_f32(dev, True, _seeded("4f"))
     torch.cuda.empty_cache()
     yolo_f32 = {}
     for kind, spec in yolo_models().items():
         phase = spec["phases"][0]
-        print(f"phase {phase}: end to end, f32 {spec['label']} predict, card "
-              f"vs CPU and the f64 referee", flush=True)
-        yolo_f32[kind] = timed_phase(phase, card, check_yolo_f32, dev,
-                                     _seeded(phase), kind)
+        clock.start(phase, f"end to end, f32 {spec['label']} predict, card "
+                           f"vs CPU and the f64 referee")
+        yolo_f32[kind] = check_yolo_f32(dev, _seeded(phase), kind)
         torch.cuda.empty_cache()
     seg_f32 = {}
     for kind, spec in seg_models().items():
         phase = spec["phases"][0]
-        print(f"phase {phase}: end to end, f32 {spec['label']} predict, card "
-              f"vs CPU and the f64 referee", flush=True)
-        seg_f32[kind] = timed_phase(phase, card, check_seg_f32, dev,
-                                    _seeded(phase), kind)
+        clock.start(phase, f"end to end, f32 {spec['label']} predict, card "
+                           f"vs CPU and the f64 referee")
+        seg_f32[kind] = check_seg_f32(dev, _seeded(phase), kind)
         torch.cuda.empty_cache()
-    print("phase 4q: the f32 COCO eval and train data path, card vs CPU",
-          flush=True)
-    coco_f32 = timed_phase("4q", card, check_coco_f32, dev, _seeded("4q"))
+    clock.start("4q", "the f32 COCO eval and train data path, card vs CPU")
+    coco_f32 = check_coco_f32(dev, _seeded("4q"))
     torch.cuda.empty_cache()
-    print("phase 4r: the f32 KITTI eval path (car config), card vs CPU",
-          flush=True)
-    kitti_f32 = timed_phase("4r", card, check_kitti_f32, dev)
+    clock.start("4r", "the f32 KITTI eval path (car config), card vs CPU")
+    kitti_f32 = check_kitti_f32(dev)
     torch.cuda.empty_cache()
-    print("phase 4s: the f32 padded voxel path (PointPillars, CenterPoint, "
-          "the TTA), card vs CPU", flush=True)
-    voxel_f32 = timed_phase("4s", card, check_voxel_path_f32, dev)
+    clock.start("4s", "the f32 padded voxel path (PointPillars, CenterPoint, "
+                      "the TTA), card vs CPU")
+    voxel_f32 = check_voxel_path_f32(dev)
+    torch.cuda.empty_cache()
+    clock.start("4t", "the f32 nuScenes data, eval and tracking path "
+                      "(plain, TTA, refined), card vs CPU")
+    nusc_f32 = check_nuscenes_f32(dev)
     torch.cuda.empty_cache()
 
-    print("phase 5: end to end, f32 train step, card vs CPU and the f64 "
-          "referee", flush=True)
-    train_f32 = check_train_step_f32(dev, _seeded("5"))
-    print("phase 5b: bilinear_sample_2d gradients, card vs CPU", flush=True)
+    clock.start("5", "end to end, f32 train step, card vs CPU and the f64 "
+                     "referee")
+    train_f32 = check_train_step_f32(dev, _seeded("5"), res=CHECK_RES)
+    clock.start("5b", "bilinear_sample_2d gradients, card vs CPU")
     sample_grads = check_sample_grads_f32(dev, _seeded("5b"), centerpoint)
-    print("phase 5c: end to end, f32 two-stage CenterPoint train step, card "
-          "vs CPU", flush=True)
+    clock.start("5c", "end to end, f32 two-stage CenterPoint train step, card "
+                      "vs CPU")
     cp_train_f32 = check_centerpoint_train_f32(dev, centerpoint)
     del centerpoint
-    print(f"phase 5d: end to end, f32 train step with DCN in all four "
-          f"backbone stages at {CHECK_RES_DCN4}x{CHECK_RES_DCN4}, card vs the "
-          f"f64 referee", flush=True)
+    clock.start("5d", f"end to end, f32 train step with DCN in all four "
+                      f"backbone stages at {CHECK_RES_DCN4}x{CHECK_RES_DCN4}, "
+                      f"card vs the f64 referee")
     train_f32_dcn4 = check_train_step_f32(dev, _seeded("5d"), dcn4=True,
                                           res=CHECK_RES_DCN4)
     torch.cuda.empty_cache()
-    print("phase 5e: end to end, f32 Faster R-CNN train step, card vs CPU "
-          "and the f64 referee", flush=True)
+    clock.start("5e", "end to end, f32 Faster R-CNN train step, card vs CPU "
+                      "and the f64 referee")
     rcnn_train_f32 = check_rcnn_train_f32(dev, False, _seeded("5e"))
-    print("phase 5f: end to end, f32 Mask R-CNN train step, card vs CPU and "
-          "the f64 referee", flush=True)
+    clock.start("5f", "end to end, f32 Mask R-CNN train step, card vs CPU and "
+                      "the f64 referee")
     mask_rcnn_train_f32 = check_rcnn_train_f32(dev, True, _seeded("5f"))
     torch.cuda.empty_cache()
-    print("phase 5g: end to end, f32 PointPillars train step, card vs CPU "
-          "and the f64 referee", flush=True)
+    clock.start("5g", "end to end, f32 PointPillars train step, card vs CPU "
+                      "and the f64 referee")
     pp_train_f32 = check_pointpillars_train_f32(dev)
     yolo_train_f32 = {}
     for kind, spec in yolo_models().items():
         phase = spec["phases"][1]
-        print(f"phase {phase}: end to end, f32 {spec['label']} train step, "
-              f"card vs CPU and the f64 referee", flush=True)
-        yolo_train_f32[kind] = timed_phase(phase, card, check_yolo_train_f32,
-                                           dev, kind)
+        clock.start(phase, f"end to end, f32 {spec['label']} train step, "
+                           f"card vs CPU and the f64 referee")
+        yolo_train_f32[kind] = check_yolo_train_f32(dev, kind)
         torch.cuda.empty_cache()
     seg_train_f32 = {}
     for kind, spec in seg_models().items():
         phase = spec["phases"][1]
-        print(f"phase {phase}: end to end, f32 {spec['label']} train step, "
-              f"card vs CPU and the f64 referee", flush=True)
-        seg_train_f32[kind] = timed_phase(phase, card, check_seg_train_f32,
-                                          dev, kind)
+        clock.start(phase, f"end to end, f32 {spec['label']} train step, "
+                           f"card vs CPU and the f64 referee")
+        seg_train_f32[kind] = check_seg_train_f32(dev, kind)
         torch.cuda.empty_cache()
-    print("phase 5r: end to end, f32 voxel loss steps of PointPillars and "
-          "CenterPoint, card vs CPU and the f64 referee", flush=True)
-    voxel_train_f32 = timed_phase("5r", card, check_voxel_train_f32, dev)
+    clock.start("5r", "end to end, f32 voxel loss steps of PointPillars and "
+                      "CenterPoint, card vs CPU and the f64 referee")
+    voxel_train_f32 = check_voxel_train_f32(dev)
+    torch.cuda.empty_cache()
+    clock.start("5s", "end to end, the nuScenes config's f32 train step on a "
+                      "fed batch, card vs CPU and the f64 referee")
+    nusc_train_f32 = check_nuscenes_train_f32(dev)
     torch.cuda.empty_cache()
     forward_probe = None
     if args.probe:
@@ -8278,7 +9019,7 @@ def main(argv=None) -> int:
         forward_probe = probe_train_forward(dev)
     torch.cuda.empty_cache()
 
-    print("phase 6a: main path, bf16 serving", flush=True)
+    clock.start("6a", "main path, bf16 serving")
     from minddet_tpu_torch.entry import entry
 
     programs = {b: entry(device=dev, batch=b) for b in SERVE_BATCHES}
@@ -8301,8 +9042,7 @@ def main(argv=None) -> int:
     del programs
     torch.cuda.empty_cache()
 
-    print(f"phase 6b: main path, bf16 train step at batch {TRAIN_BATCH}",
-          flush=True)
+    clock.start("6b", f"main path, bf16 train step at batch {TRAIN_BATCH}")
     training, train_program = train_main_path(dev)
     if args.profile:
         print("profile: bf16 train step", flush=True)
@@ -8311,8 +9051,8 @@ def main(argv=None) -> int:
     del train_program
     torch.cuda.empty_cache()
 
-    print("phase 6f: main path, bf16 serving with DCN in all four backbone "
-          "stages", flush=True)
+    clock.start("6f", "main path, bf16 serving with DCN in all four backbone "
+                      "stages")
     from minddet_tpu_torch.entry import centernet_dcn4_entry
 
     programs = {b: centernet_dcn4_entry(device=dev, batch=b)
@@ -8336,8 +9076,8 @@ def main(argv=None) -> int:
     del programs
     torch.cuda.empty_cache()
 
-    print(f"phase 6g: main path, bf16 train step with DCN in all four "
-          f"backbone stages at batch {TRAIN_BATCH}", flush=True)
+    clock.start("6g", f"main path, bf16 train step with DCN in all four "
+                      f"backbone stages at batch {TRAIN_BATCH}")
     training_dcn4, train_program = train_main_path(dev, dcn4=True)
     if args.profile:
         print("profile: bf16 train step with DCN in four stages", flush=True)
@@ -8346,7 +9086,7 @@ def main(argv=None) -> int:
     del train_program
     torch.cuda.empty_cache()
 
-    print("phase 6c: main path, PointPillars f32 serving", flush=True)
+    clock.start("6c", "main path, PointPillars f32 serving")
     from minddet_tpu_torch.entry import pointpillars_entry
 
     pp_programs = {b: pointpillars_entry(device=dev, batch=b)
@@ -8370,8 +9110,7 @@ def main(argv=None) -> int:
     del pp_programs
     torch.cuda.empty_cache()
 
-    print("phase 6d: main path, two-stage CenterPoint f32 serving",
-          flush=True)
+    clock.start("6d", "main path, two-stage CenterPoint f32 serving")
     from minddet_tpu_torch.entry import centerpoint_entry
 
     cp_programs = {b: centerpoint_entry(device=dev, batch=b)
@@ -8396,8 +9135,8 @@ def main(argv=None) -> int:
     del cp_programs
     torch.cuda.empty_cache()
 
-    print(f"phase 6e: main path, two-stage CenterPoint bf16 train step at "
-          f"batch {TRAIN_CP_BATCH}", flush=True)
+    clock.start("6e", f"main path, two-stage CenterPoint bf16 train step at "
+                      f"batch {TRAIN_CP_BATCH}")
     cp_training, cp_train_program = centerpoint_train_main_path(dev)
     if args.profile:
         print("profile: CenterPoint bf16 train step", flush=True)
@@ -8408,11 +9147,11 @@ def main(argv=None) -> int:
 
     from minddet_tpu_torch.entry import faster_rcnn_entry, mask_rcnn_entry
 
-    print("phase 6h: main path, Faster R-CNN bf16 serving", flush=True)
+    clock.start("6h", "main path, Faster R-CNN bf16 serving")
     rcnn = rcnn_main_path("Faster R-CNN", faster_rcnn_entry, dev, False,
                           args.profile)
     torch.cuda.empty_cache()
-    print("phase 6i: main path, Mask R-CNN bf16 serving", flush=True)
+    clock.start("6i", "main path, Mask R-CNN bf16 serving")
     mask_rcnn = rcnn_main_path("Mask R-CNN", mask_rcnn_entry, dev, True,
                                args.profile)
     for key, r in (("faster_rcnn", rcnn), ("mask_rcnn", mask_rcnn)):
@@ -8423,11 +9162,11 @@ def main(argv=None) -> int:
     from minddet_tpu_torch.entry import (faster_rcnn_train_entry,
                                          mask_rcnn_train_entry)
 
-    print("phase 6j: main path, Faster R-CNN bf16 train step", flush=True)
+    clock.start("6j", "main path, Faster R-CNN bf16 train step")
     rcnn_training = rcnn_train_main_path(
         "Faster R-CNN", faster_rcnn_train_entry, dev, False, args.profile)
     torch.cuda.empty_cache()
-    print("phase 6k: main path, Mask R-CNN bf16 train step", flush=True)
+    clock.start("6k", "main path, Mask R-CNN bf16 train step")
     mask_rcnn_training = rcnn_train_main_path(
         "Mask R-CNN", mask_rcnn_train_entry, dev, True, args.profile)
     for key, r in (("faster_rcnn_train", rcnn_training),
@@ -8436,8 +9175,8 @@ def main(argv=None) -> int:
             profiled[key] = r["profile"]
     torch.cuda.empty_cache()
 
-    print(f"phase 6l: main path, PointPillars bf16 train step at batch "
-          f"{TRAIN_PP_BATCH}", flush=True)
+    clock.start("6l", f"main path, PointPillars bf16 train step at batch "
+                      f"{TRAIN_PP_BATCH}")
     pp_training, program = pointpillars_train_main_path(dev)
     if args.profile:
         print("profile: PointPillars bf16 train step", flush=True)
@@ -8445,8 +9184,8 @@ def main(argv=None) -> int:
             f"PointPillars train batch {TRAIN_PP_BATCH}", *program)
     del program
     torch.cuda.empty_cache()
-    print(f"phase 6m: main path, single-stage CenterPoint bf16 train step at "
-          f"batch {TRAIN_CP_BATCH}", flush=True)
+    clock.start("6m", f"main path, single-stage CenterPoint bf16 train step "
+                      f"at batch {TRAIN_CP_BATCH}")
     cp1_training, program = centerpoint_single_train_main_path(dev)
     if args.profile:
         print("profile: single-stage CenterPoint bf16 train step", flush=True)
@@ -8455,76 +9194,63 @@ def main(argv=None) -> int:
             *program)
     del program
     torch.cuda.empty_cache()
-    print("phase 6n: main path, decode + rotated NMS, 20 chained iterations",
-          flush=True)
+    clock.start("6n", "main path, decode + rotated NMS, 20 chained iterations")
     decode = decode_main_path(dev)
     torch.cuda.empty_cache()
     yolo, yolo_training = {}, {}
     for kind, spec in yolo_models().items():
         _, _, serve_phase, train_phase = spec["phases"]
         profile = args.profile or spec["profile"]
-        print(f"phase {serve_phase}: main path, {spec['label']} bf16 serving",
-              flush=True)
-        yolo[kind] = timed_phase(serve_phase, card, yolo_main_path, dev,
-                                 profile, kind)
+        clock.start(serve_phase, f"main path, {spec['label']} bf16 serving")
+        yolo[kind] = yolo_main_path(dev, profile, kind)
         if yolo[kind]["profile"] is not None:
             profiled[kind] = yolo[kind]["profile"]
         torch.cuda.empty_cache()
-        print(f"phase {train_phase}: main path, {spec['label']} bf16 train "
-              f"step at batch {spec['train_batch']}", flush=True)
-        yolo_training[kind] = timed_phase(train_phase, card,
-                                          train_main_path_of, dev, profile,
-                                          spec)
+        clock.start(train_phase, f"main path, {spec['label']} bf16 train "
+                                 f"step at batch {spec['train_batch']}")
+        yolo_training[kind] = train_main_path_of(dev, profile, spec)
         if "profile" in yolo_training[kind]:
             profiled[f"{kind}_train"] = yolo_training[kind]["profile"]
         torch.cuda.empty_cache()
     seg, seg_training = {}, {}
     for kind, spec in seg_models().items():
         _, _, serve_phase, train_phase = spec["phases"]
-        print(f"phase {serve_phase}: main path, {spec['label']} bf16 serving",
-              flush=True)
-        seg[kind] = timed_phase(serve_phase, card, seg_main_path, dev, kind)
+        clock.start(serve_phase, f"main path, {spec['label']} bf16 serving")
+        seg[kind] = seg_main_path(dev, kind)
         profiled[kind] = seg[kind]["profile"]
         torch.cuda.empty_cache()
-        print(f"phase {train_phase}: main path, {spec['label']} bf16 train "
-              f"step at batch {spec['train_batch']}", flush=True)
-        seg_training[kind] = timed_phase(train_phase, card,
-                                         train_main_path_of, dev, True, spec,
-                                         True)
+        clock.start(train_phase, f"main path, {spec['label']} bf16 train "
+                                 f"step at batch {spec['train_batch']}")
+        seg_training[kind] = train_main_path_of(dev, True, spec, True)
         profiled[f"{kind}_train"] = seg_training[kind]["profile"]
         torch.cuda.empty_cache()
-    print(f"phase 6ai: main path, the config's bf16 train step fed by "
-          f"coco_batches at batch {COCO_TRAIN_BATCH}", flush=True)
-    coco_training = timed_phase("6ai", card, coco_train_main_path, dev, card)
+    clock.start("6ai", f"main path, the config's bf16 train step fed by "
+                       f"coco_batches at batch {COCO_TRAIN_BATCH}")
+    coco_training = coco_train_main_path(dev, card)
     torch.cuda.empty_cache()
-    print("phase 6aj: main path, centernet_evaluate on 64 images (bf16)",
-          flush=True)
-    coco_eval = timed_phase("6aj", card, coco_eval_main_path, dev, card)
+    clock.start("6aj", "main path, centernet_evaluate on 64 images (bf16)")
+    coco_eval = coco_eval_main_path(dev, card)
     torch.cuda.empty_cache()
-    print(f"phase 6ak: main path, the mosaic route of coco_batches at batch "
-          f"{COCO_TRAIN_BATCH}", flush=True)
-    coco_mosaic = timed_phase("6ak", card, coco_mosaic_main_path, dev, card)
+    clock.start("6ak", f"main path, the mosaic route of coco_batches at batch "
+                       f"{COCO_TRAIN_BATCH}")
+    coco_mosaic = coco_mosaic_main_path(dev, card)
     torch.cuda.empty_cache()
     from minddet_tpu_torch.entry import (PP_CAR_CONFIG, PP_PED_CYCLE_CONFIG,
                                          pointpillars_ped_cycle_entry)
 
-    print("phase 6al: main path, the car config's f32 train step fed by "
-          "kitti_batches at batch 4", flush=True)
-    kitti_training = timed_phase("6al", card, kitti_train_main_path, dev,
-                                 card, PP_CAR_CONFIG, "car")
+    clock.start("6al", "main path, the car config's f32 train step fed by "
+                       "kitti_batches at batch 4")
+    kitti_training = kitti_train_main_path(dev, card, PP_CAR_CONFIG, "car")
     torch.cuda.empty_cache()
-    print("phase 6am: main path, the ped_cycle config's f32 train step fed "
-          "by kitti_batches at batch 4", flush=True)
-    kitti_ped_training = timed_phase("6am", card, kitti_train_main_path, dev,
-                                     card, PP_PED_CYCLE_CONFIG, "ped_cycle")
+    clock.start("6am", "main path, the ped_cycle config's f32 train step fed "
+                       "by kitti_batches at batch 4")
+    kitti_ped_training = kitti_train_main_path(dev, card, PP_PED_CYCLE_CONFIG,
+                                               "ped_cycle")
     torch.cuda.empty_cache()
-    print("phase 6an: main path, kitti_evaluate on 256 frames (car, f32)",
-          flush=True)
-    kitti_eval = timed_phase("6an", card, kitti_eval_main_path, dev, card)
+    clock.start("6an", "main path, kitti_evaluate on 256 frames (car, f32)")
+    kitti_eval = kitti_eval_main_path(dev, card)
     torch.cuda.empty_cache()
-    print("phase 6ao: main path, PointPillars ped_cycle f32 serving",
-          flush=True)
-    t0 = time.perf_counter()
+    clock.start("6ao", "main path, PointPillars ped_cycle f32 serving")
     ped_programs = {b: pointpillars_ped_cycle_entry(device=dev, batch=b)
                     for b in KITTI_SERVE_BATCHES}
     kernels.reset_launches()
@@ -8539,28 +9265,35 @@ def main(argv=None) -> int:
                              f"rotated_iou_intersect each, nothing else)")
     print(f"  kernels: rotated_iou_intersect launches="
           f"{ped_launches['rotated_iou_intersect']} requests={ped_predicts} "
-          f"launches == requests: True; phase 6ao: "
-          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+          f"launches == requests: True", flush=True)
     del ped_programs
     torch.cuda.empty_cache()
-    print("phase 6ap: main path, PointPillars f32 serving on padded voxels "
-          "(car, ped_cycle), the stream entry beside it", flush=True)
-    pp_voxel = timed_phase("6ap", card, pointpillars_voxel_main_path, dev)
+    clock.start("6ap", "main path, PointPillars f32 serving on padded voxels "
+                       "(car, ped_cycle), the stream entry beside it")
+    pp_voxel = pointpillars_voxel_main_path(dev)
     torch.cuda.empty_cache()
-    print(f"phase 6aq: main path, PointPillars bf16 train step on padded "
-          f"voxels at batch {TRAIN_PP_BATCH}, the stream step beside it",
-          flush=True)
-    pp_voxel_training = timed_phase("6aq", card,
-                                    pointpillars_voxel_train_main_path, dev)
+    clock.start("6aq", f"main path, PointPillars bf16 train step on padded "
+                       f"voxels at batch {TRAIN_PP_BATCH}, the stream step "
+                       f"beside it")
+    pp_voxel_training = pointpillars_voxel_train_main_path(dev)
     torch.cuda.empty_cache()
-    print("phase 6ar: main path, CenterPoint f32 serving on padded voxels",
-          flush=True)
-    cp_voxel = timed_phase("6ar", card, centerpoint_voxel_main_path, dev,
-                           False)
+    clock.start("6ar", "main path, CenterPoint f32 serving on padded voxels")
+    cp_voxel = centerpoint_voxel_main_path(dev, False)
     torch.cuda.empty_cache()
-    print("phase 6as: main path, CenterPoint f32 double-flip TTA serving",
-          flush=True)
-    cp_tta = timed_phase("6as", card, centerpoint_voxel_main_path, dev, True)
+    clock.start("6as", "main path, CenterPoint f32 double-flip TTA serving")
+    cp_tta = centerpoint_voxel_main_path(dev, True)
+    torch.cuda.empty_cache()
+    clock.start("6at", f"main path, the nuScenes config's f32 train step fed "
+                       f"by nuscenes_batches at batch {NUSC_TRAIN_BATCH}")
+    nusc_training = nuscenes_train_main_path(dev, card)
+    torch.cuda.empty_cache()
+    clock.start("6au", "main path, nuscenes_evaluate by the plain, TTA and "
+                       "refined routes (f32)")
+    nusc_eval = nuscenes_eval_main_path(dev, card)
+    torch.cuda.empty_cache()
+    clock.start("6av", "main path, nuscenes_tracking_evaluate over one 20 s "
+                       "scene (f32)")
+    nusc_tracking = nuscenes_tracking_main_path(dev, card)
     torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
@@ -8618,7 +9351,8 @@ def main(argv=None) -> int:
         # bev and 3d overlaps' calls; the padded paths: one batch-8 car and
         # one batch-4 ped_cycle request's, one batch-4 CenterPoint voxel
         # request's and one batch-4 TTA request's (6ap's stream requests
-        # are 6c's path)
+        # are 6c's path); the nuScenes evaluations: one batch-2 predict's
+        # of each route (6au) and of the tracking evaluation (6av)
         _kernel_row(kernels.ROTATED_IOU,
                     pp_launches["rotated_iou_intersect"]
                     + cp_launches["rotated_iou_intersect"]
@@ -8629,7 +9363,9 @@ def main(argv=None) -> int:
                     + pp_voxel["launches"]["rotated_iou_intersect"]
                     + pp_voxel["stream"]["launches"]["rotated_iou_intersect"]
                     + cp_voxel["launches"]["rotated_iou_intersect"]
-                    + cp_tta["launches"]["rotated_iou_intersect"],
+                    + cp_tta["launches"]["rotated_iou_intersect"]
+                    + nusc_eval["launches"]["rotated_iou_intersect"]
+                    + nusc_tracking["launches"]["rotated_iou_intersect"],
                     [c for c in iou_cases if c["kind"] in (
                         "candidates", "train") and c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
@@ -8644,30 +9380,45 @@ def main(argv=None) -> int:
                            [KITTI_EVAL_BATCH, PP_CANDIDATES])]
                     + 2 * [c for c in iou_cases if c["kind"] == "candidates"
                            and c["shape"][:2] == [CP_TASKS * CP_BATCHES[-1],
-                                                  CP_CANDIDATES]], 1,
-                    iou_cases),
-        # K5f: one f32 batch-4 CenterPoint request's call and one bf16
+                                                  CP_CANDIDATES]]
+                    + 4 * [c for c in iou_cases if c["kind"] == "nusc_eval"],
+                    1, iou_cases),
+        # K5f: one f32 batch-4 CenterPoint request's call, one bf16
         # batch-8 step's of each CenterPoint train path (two- and
-        # single-stage); K5b those two steps' calls
+        # single-stage), one f32 batch-4 step's of the nuScenes config's
+        # (6at) and one f32 batch-2 predict's of each nuScenes evaluation
+        # that runs the stream (6au plain and refined, 6av); K5b the three
+        # train steps' calls
         _kernel_row(kernels.SEG_FULL_MAX, cp_launches["seg_full_max"]
                     + cp_train_launches["seg_full_max"]
-                    + cp1_training["launches"]["seg_full_max"],
-                    [c for c in seg_cases if c["dtype"] == "float32"
-                     and c["shape"][0] == CP_BATCHES[-1]]
-                    + 2 * train_case(seg_cases), 1, seg_cases),
+                    + cp1_training["launches"]["seg_full_max"]
+                    + nusc_training["launches"]["seg_full_max"]
+                    + nusc_eval["launches"]["seg_full_max"]
+                    + nusc_tracking["launches"]["seg_full_max"],
+                    2 * [c for c in seg_cases if c["dtype"] == "float32"
+                         and c["shape"][0] == CP_BATCHES[-1]]
+                    + 2 * train_case(seg_cases)
+                    + 3 * [c for c in seg_cases if c["dtype"] == "float32"
+                           and c["shape"][0] == NUSC_EVAL_BATCH], 1,
+                    seg_cases),
         _kernel_row(kernels.SEG_FULL_MAX_BWD,
                     cp_train_launches["seg_full_max_bwd"]
-                    + cp1_training["launches"]["seg_full_max_bwd"],
-                    2 * train_case(seg_bwd_cases), 1, seg_bwd_cases),
+                    + cp1_training["launches"]["seg_full_max_bwd"]
+                    + nusc_training["launches"]["seg_full_max_bwd"],
+                    2 * train_case(seg_bwd_cases)
+                    + [c for c in seg_bwd_cases if c["dtype"] == "float32"
+                       and c["shape"][0] == NUSC_TRAIN_BATCH], 1,
+                    seg_bwd_cases),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
                     + rcnn["launches"]["bilinear_gather_fwd"]
                     + mask_rcnn["launches"]["bilinear_gather_fwd"]
                     + rcnn_training["launches"]["bilinear_gather_fwd"]
-                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"],
+                    + mask_rcnn_training["launches"]["bilinear_gather_fwd"]
+                    + nusc_eval["launches"]["bilinear_gather_fwd"],
                     [c for c in gather_cases if c["dtype"] == "float32"
-                     and c["shape"][0] == CP_BATCHES[-1]
+                     and c["shape"][0] in (CP_BATCHES[-1], NUSC_EVAL_BATCH)
                      and "stream" not in c]
                     + train_case(gather_cases) + rcnn_case("box")
                     + rcnn_case("box") + rcnn_case("mask")
@@ -8714,13 +9465,17 @@ def main(argv=None) -> int:
                            if c["stream"] == "coco_mosaic"], 1,
                     warp_cases, library=True),
     ]
+    clock.stop()
     wall_s = time.perf_counter() - t_start
+    print("  phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in clock.seconds.items()}), flush=True)
     print(f"  chip_smoke wall time {wall_s:.1f} s", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
-                           wall_s=wall_s, taps_cases=cases,
+                           wall_s=wall_s, phase_seconds=clock.seconds,
+                           taps_cases=cases,
                            taps_bwd_cases=bwd_cases, flat_cases=flat_cases,
                            flat_bwd_cases=flat_bwd_cases,
                            dcn_bias_rounding=bias_rounding,
@@ -8778,6 +9533,11 @@ def main(argv=None) -> int:
                            pointpillars_voxel=pp_voxel,
                            pointpillars_voxel_training=pp_voxel_training,
                            centerpoint_voxel=cp_voxel, centerpoint_tta=cp_tta,
+                           nuscenes_f32=nusc_f32,
+                           nuscenes_train_f32=nusc_train_f32,
+                           nuscenes_training=nusc_training,
+                           nuscenes_eval=nusc_eval,
+                           nuscenes_tracking=nusc_tracking,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -1,7 +1,8 @@
 """Learning-rate schedules as functions of the step count (counterpart of
 ``minddet_tpu/core/lr_schedules.py:polynomial_decay``, ``linear_warmup``,
-``warmup_cosine``, ``multi_epochs_decay`` and ``exponential_decay``, built
-as the reference builds them from optax's ``polynomial_schedule``,
+``warmup_cosine``, ``multi_epochs_decay``, ``exponential_decay``,
+``one_cycle`` and ``one_cycle_momentum``, built as the reference builds
+them from optax's ``polynomial_schedule``,
 ``linear_schedule``, ``cosine_decay_schedule``,
 ``piecewise_constant_schedule``, ``join_schedules`` and
 ``exponential_decay``).
@@ -21,6 +22,10 @@ import torch
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 DECAY_FACTOR = 10.0  # multi_epochs_decay's divisor at each milestone
+# one-cycle's shape, the reference's defaults (no config sets them)
+ONE_CYCLE_DIV = 10.0  # lr_max over the starting learning rate
+ONE_CYCLE_PCT_START = 0.4  # share of the steps spent warming up
+ONE_CYCLE_MOMS = (0.95, 0.85)  # momentum at the start and at the peak
 
 
 def linear_schedule(init_value: float, end_value: float,
@@ -173,5 +178,48 @@ def exponential_decay(learning_rate: float, decay_steps: int,
             torch.full((), decay_rate, dtype=torch.float32,
                        device=count.device), p)
         return torch.where(count <= 0, lr, decayed)
+
+    return schedule
+
+
+def one_cycle(lr_max: float, total_steps: int) -> Schedule:
+    """fastai's one-cycle learning rate in f32 (the reference's
+    ``one_cycle`` at its defaults, CenterPoint's nuScenes schedule): cosine
+    from ``lr_max / ONE_CYCLE_DIV`` up to ``lr_max`` over the first
+    ``ONE_CYCLE_PCT_START`` of ``total_steps``, then cosine down to 0, held
+    at ``lr_max / ONE_CYCLE_DIV / 1e4`` at least."""
+    up_steps = int(total_steps * ONE_CYCLE_PCT_START)
+    down_steps = total_steps - up_steps
+    low = lr_max / ONE_CYCLE_DIV
+
+    def schedule(count) -> torch.Tensor:
+        step = torch.as_tensor(count).float()
+        up_frac = (step / max(up_steps, 1)).clamp(0.0, 1.0)
+        lr_up = low + (lr_max - low) * 0.5 * (1 - torch.cos(math.pi
+                                                            * up_frac))
+        down_frac = ((step - up_steps) / max(down_steps, 1)).clamp(0.0, 1.0)
+        lr_down = lr_max * 0.5 * (1 + torch.cos(math.pi * down_frac))
+        lr_down = lr_down.clamp(min=lr_max / ONE_CYCLE_DIV / 1e4)
+        return torch.where(step < up_steps, lr_up, lr_down)
+
+    return schedule
+
+
+def one_cycle_momentum(total_steps: int) -> Schedule:
+    """The momentum leg of one-cycle in f32, the mirror of the learning
+    rate: cosine from ``ONE_CYCLE_MOMS[0]`` down to ``ONE_CYCLE_MOMS[1]``
+    over the first ``ONE_CYCLE_PCT_START`` of ``total_steps``, then back up
+    (the reference's ``one_cycle_momentum`` at its defaults)."""
+    up_steps = int(total_steps * ONE_CYCLE_PCT_START)
+    down_steps = total_steps - up_steps
+    hi, lo = ONE_CYCLE_MOMS
+
+    def schedule(count) -> torch.Tensor:
+        step = torch.as_tensor(count).float()
+        up_frac = (step / max(up_steps, 1)).clamp(0.0, 1.0)
+        m_up = hi + (lo - hi) * 0.5 * (1 - torch.cos(math.pi * up_frac))
+        down_frac = ((step - up_steps) / max(down_steps, 1)).clamp(0.0, 1.0)
+        m_down = lo + (hi - lo) * 0.5 * (1 - torch.cos(math.pi * down_frac))
+        return torch.where(step < up_steps, m_up, m_down)
 
     return schedule

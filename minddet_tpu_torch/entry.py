@@ -153,6 +153,20 @@ model of ``configs/centerpoint_pp_nusc.yaml`` from voxels
 batch of flipped clouds); both f32 on 120,000-point clouds of 5 features,
 one K4 launch per request. ``build_centerpoint(config=...)`` reads a
 CenterPoint configuration's model section (``_base_`` merged).
+
+CenterPoint's nuScenes path: ``centerpoint_nusc_train_entry()`` is the
+train section of ``configs/centerpoint_pp_nusc.yaml``, nothing cut (the
+single-stage model, f32, batch 4, AdamW with decay 0.01 under
+``one_cycle(2e-3, 140000)``, clip 35, the NaN guard, ``loss_from_gt``), fed
+by ``nuscenes_batches`` (CBGS, the GT database and sampler, the global
+augmentation, four loader threads) over nuScenes-like keyframes in memory;
+each step launches K5f and K5b once. ``centerpoint_nusc_eval_entry(route)``
+is ``nuscenes_evaluate`` (mAP, NDS and the TP errors) by the plain route
+(``predict_from_points``: K5f and K4 once a batch), the double-flip TTA
+(K4) or the two-stage model of ``..._two_stage.yaml`` (``predict_refined``:
+K5f, K4 and K3f); ``centerpoint_nusc_tracking_entry()`` is
+``nuscenes_tracking_evaluate`` (the greedy tracker, AMOTA) over one 20 s
+scene of 40 keyframes.
 """
 
 from __future__ import annotations
@@ -167,12 +181,13 @@ import torch
 from minddet_tpu_torch.core.lr_schedules import (Schedule, exponential_decay,
                                                   linear_warmup,
                                                   multi_epochs_decay,
-                                                  polynomial_decay,
+                                                  one_cycle, polynomial_decay,
                                                   warmup_cosine)
 from minddet_tpu_torch.core.optim import (Recipe, adam, adamw, sgd,
                                           skip_nonfinite_updates)
 from minddet_tpu_torch.data.coco import CocoDetection
 from minddet_tpu_torch.data.kitti import KittiDetection
+from minddet_tpu_torch.data.nuscenes import NuScenesDetection
 from minddet_tpu_torch.data.seg import seg_normalize
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
@@ -194,13 +209,18 @@ from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
 from minddet_tpu_torch.train.evaluate import (centernet_evaluate,
-                                              kitti_evaluate)
+                                              kitti_evaluate,
+                                              nuscenes_dataset,
+                                              nuscenes_evaluate,
+                                              nuscenes_tracking_evaluate)
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
 from minddet_tpu_torch.train.synthetic import (COCO_SIZES, coco_batches,
                                                kitti_batches,
+                                               nuscenes_batches,
                                                synthetic_coco_records,
                                                synthetic_detection_batch,
                                                synthetic_kitti_records,
+                                               synthetic_nuscenes_records,
                                                synthetic_seg_batches)
 
 RES = 512
@@ -846,6 +866,97 @@ def pointpillars_kitti_eval_entry(device=None, config=PP_CAR_CONFIG
                         keep_raw=True)
     return functools.partial(kitti_evaluate, classes=classes), (model, ds)
 
+
+
+# the nuScenes config's own train section, eval protocols and tracking, fed
+# from keyframes in memory (synthetic_nuscenes_records)
+NUSC_TRAIN_FRAMES = 8  # keyframes of the in-memory train set (CBGS ~9x)
+NUSC_TRAIN_SCENES = 2
+NUSC_EVAL_FRAMES = 16   # keyframes of the in-memory eval set
+NUSC_EVAL_SCENES = 2
+NUSC_TRACK_FRAMES = 40  # one 20 s scene at 2 Hz
+NUSC_ROUTES = {"plain": {}, "tta": {"tta": True}, "refined": {"refined": True}}
+
+
+def nuscenes_optimizer(cfg: Mapping) -> Recipe:
+    """The optimizer of a CenterPoint nuScenes configuration's train
+    section, as the reference's ``build_optimizer`` + ``build_schedule``
+    make it: AdamW with the config's weight decay and global-norm clip
+    under ``one_cycle(lr_max, total_steps)``, inside the NaN guard (its
+    default)."""
+    tcfg = cfg["train"]
+    ocfg, scfg = dict(tcfg["optimizer"]), dict(tcfg["lr_schedule"])
+    if ocfg.pop("type") != "adamw" or scfg.pop("type") != "one_cycle":
+        raise ValueError(f"not a CenterPoint nuScenes train section: {tcfg}")
+    return skip_nonfinite_updates(adamw(one_cycle(**scfg), **ocfg))
+
+
+def centerpoint_nusc_train_entry(device=None
+                                 ) -> Tuple[Callable, Tuple[TrainState,
+                                                            Iterator]]:
+    """(step_fn, (state, batches)): ``step_fn(state, next(batches))`` runs
+    one train step in place and returns ``(state, metrics)`` (loss,
+    task{t}_hm, task{t}_loc, grad_norm, on the device).
+
+    The train section of ``configs/centerpoint_pp_nusc.yaml``, nothing cut:
+    its single-stage model seeded with ``SEED``, f32 (no dtype is set),
+    channels_last, train mode; ``nuscenes_optimizer`` (AdamW with decay
+    0.01 and clip 35 under ``one_cycle(2e-3, 140000)``, the NaN guard);
+    ``loss_from_gt``. ``batches`` are ``nuscenes_batches`` at the config's
+    batch size (4) over ``synthetic_nuscenes_records(NUSC_TRAIN_FRAMES)``
+    (CBGS, the GT database built from them with the config's
+    ``min_points``, the sampler, the global augmentation, the config's
+    loader threads), copied to the device, epoch after epoch."""
+    dev = resolve_device(device)
+    cfg = read_config(CP_CONFIG)
+    model = build_centerpoint(dev, cfg).train()
+    data = dict(cfg["data"])
+    data["records"] = synthetic_nuscenes_records(
+        NUSC_TRAIN_FRAMES, seed=SEED, scenes=NUSC_TRAIN_SCENES)
+    raw = nuscenes_batches({"data": data}, int(cfg["train"]["batch_size"]),
+                           seed=SEED)
+    return make_train_step(model_gt_loss), (
+        TrainState.create(model, nuscenes_optimizer(cfg)),
+        kitti_device_batches(raw, dev))
+
+
+def centerpoint_nusc_eval_entry(device=None, route: str = "plain"
+                                ) -> Tuple[Callable[..., Dict],
+                                           Tuple[CenterPoint,
+                                                 NuScenesDetection]]:
+    """(evaluate_fn, (model, dataset)): ``evaluate_fn(model, dataset)`` is
+    ``nuscenes_evaluate`` at the reference's protocol (batch 2, score
+    threshold 0.1) by ``route`` (NUSC_ROUTES): "plain"
+    (``predict_from_points`` of the single-stage model of
+    ``configs/centerpoint_pp_nusc.yaml``), "tta" (its double-flip TTA) or
+    "refined" (``predict_refined`` of ``..._two_stage.yaml``'s model), and
+    returns the metrics. The model is f32 and seeded; the dataset
+    ``synthetic_nuscenes_records(NUSC_EVAL_FRAMES)`` without CBGS or
+    augmentation."""
+    if route not in NUSC_ROUTES:
+        raise ValueError(f"route must be one of {sorted(NUSC_ROUTES)}, got "
+                         f"{route!r}")
+    model = build_centerpoint(device, CP_TWO_STAGE_CONFIG
+                              if route == "refined" else CP_CONFIG)
+    ds = nuscenes_dataset(synthetic_nuscenes_records(
+        NUSC_EVAL_FRAMES, seed=SEED + 1, scenes=NUSC_EVAL_SCENES))
+    return functools.partial(nuscenes_evaluate, **NUSC_ROUTES[route]), (
+        model, ds)
+
+
+def centerpoint_nusc_tracking_entry(device=None
+                                    ) -> Tuple[Callable[..., Dict],
+                                               Tuple[CenterPoint,
+                                                     NuScenesDetection]]:
+    """(evaluate_fn, (model, dataset)): ``evaluate_fn(model, dataset)`` is
+    ``nuscenes_tracking_evaluate`` (``predict_from_points``, the greedy
+    tracker, AMOTA) of the single-stage model of
+    ``configs/centerpoint_pp_nusc.yaml`` (f32, seeded) over one scene of
+    NUSC_TRACK_FRAMES keyframes from ``synthetic_nuscenes_records``."""
+    model = build_centerpoint(device, CP_CONFIG)
+    ds = nuscenes_dataset(synthetic_nuscenes_records(
+        NUSC_TRACK_FRAMES, seed=SEED + 2, scenes=1))
+    return nuscenes_tracking_evaluate, (model, ds)
 
 # bench.py:bench_decode_nms_p50: one CenterPoint task head's decode and
 # rotated NMS on a 128 x 128 map, chained over 20 perturbed heatmaps

@@ -1,7 +1,9 @@
 """Evaluation (counterpart of ``minddet_tpu/train/evaluate.py``:
 ``_pad_batch``, the COCO paths ``coco_evaluate`` and ``centernet_evaluate``
 with ``_keep_res_hw`` and ``_soft_nms_per_class``, the KITTI path
-``kitti_evaluate``, and the segmentation mIoU, ``segmentation_evaluate``).
+``kitti_evaluate``, the nuScenes paths ``nuscenes_evaluate`` and
+``nuscenes_tracking_evaluate``, and the segmentation mIoU,
+``segmentation_evaluate``).
 
 The device runs the warp (the row-gather kernel K3f on the card), the
 model's ``predict`` and the soft-NMS; the host accumulates the protocol's
@@ -11,14 +13,18 @@ as the reference's does, or records in memory, or a dataset with
 ``__len__``). The KITTI evaluation predicts on the model's device (the
 rotated NMS through K4), projects the detections to the camera and the
 image on the host, and computes the official table with
-``data/kitti_eval.py`` (its overlaps on the model's device).
+``data/kitti_eval.py`` (its overlaps on the model's device). The nuScenes
+evaluations predict on the model's device (the rotated NMS through K4) and
+run the protocol's matching, the tracker and the tracking protocol on the
+host (``data/nuscenes_eval.py``, ``track.py``,
+``data/nuscenes_track_eval.py``).
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +37,16 @@ from minddet_tpu_torch.data.kitti import (KittiDetection,
                                           detections_to_kitti_annos,
                                           kitti_gt_anno)
 from minddet_tpu_torch.data.kitti_eval import get_official_eval_result
+from minddet_tpu_torch.data.nuscenes import (DETECTION_CLASSES,
+                                             TRACKING_KEYS,
+                                             NuScenesDetection,
+                                             infer_attributes)
+from minddet_tpu_torch.data.nuscenes_eval import evaluate_nuscenes
+from minddet_tpu_torch.data.nuscenes_track_eval import evaluate_tracking
 from minddet_tpu_torch.data.seg import SegDataset
 from minddet_tpu_torch.data.transforms import eval_affine, warp_images
 from minddet_tpu_torch.ops.nms import soft_nms
+from minddet_tpu_torch.track import track_sequence
 
 
 def _pad_batch(arrays: np.ndarray, batch_size: int) -> np.ndarray:
@@ -349,3 +362,189 @@ def kitti_evaluate(model: nn.Module, records,
     return get_official_eval_result(gt_annos, dt_annos, classes=classes,
                                     compute_aos=True, device=dev,
                                     timings=timings)
+
+
+# nuScenes: mAP / NDS (the attribute term by the velocity rule) and AMOTA
+NUSC_EVAL_BATCH = 2
+NUSC_SCORE_THRESHOLD = 0.1  # detections kept for the protocols
+NUSC_FRAME_KEYS = ("gt_boxes", "gt_classes", "gt_attrs", "gt_mask") \
+    + TRACKING_KEYS
+
+
+def nuscenes_dataset(records) -> NuScenesDetection:
+    """``records`` itself where it is a dataset, else ``NuScenesDetection``
+    of it (a shard pattern, a list of shard paths or records in memory)
+    without CBGS or augmentation."""
+    if isinstance(records, (str, list, tuple)):
+        return NuScenesDetection(records, cbgs=False, augment=False)
+    return records
+
+
+def nuscenes_route(model: nn.Module, tta: bool = False,
+                   refined: bool = False):
+    """The predict method of a nuScenes evaluation: ``predict_refined``
+    with ``refined`` (a two-stage model, else ValueError),
+    ``predict_tta_double_flip`` with ``tta``, else
+    ``predict_from_points``."""
+    if refined:
+        if not hasattr(model, "predict_refined"):
+            raise ValueError("refined=True needs a two-stage model "
+                             "(CenterPointTwoStage)")
+        return model.predict_refined
+    return model.predict_tta_double_flip if tta else model.predict_from_points
+
+
+@torch.no_grad()
+def nuscenes_detections(model: nn.Module, records, tta: bool = False,
+                        refined: bool = False,
+                        timings: Optional[Dict[str, float]] = None
+                        ) -> List[Tuple[Dict[str, np.ndarray],
+                                        Dict[str, np.ndarray]]]:
+    """Per frame of ``records`` (``nuscenes_dataset``), in order: (its
+    example's GT and tracking keys, NUSC_FRAME_KEYS; its detections above
+    NUSC_SCORE_THRESHOLD: boxes (n, 9), scores, labels 0-based into
+    DETECTION_CLASSES). The route's method (``nuscenes_route``) runs on the
+    model's device, NUSC_EVAL_BATCH frames a call, the tail padded
+    (``_pad_batch``). With ``timings`` the device is waited for between
+    parts, and their seconds are added there: load (host examples), copy
+    and predict (with the detections back on the host)."""
+    ds = nuscenes_dataset(records)
+    n = len(ds)
+    if n == 0:
+        raise ValueError("need at least one frame")
+    method = nuscenes_route(model, tta, refined)
+    dev = next(model.parameters()).device
+    laps = _Laps(timings, dev)
+    frames = []
+    for start in range(0, n, NUSC_EVAL_BATCH):
+        exs = [ds[i] for i in range(start, min(start + NUSC_EVAL_BATCH, n))]
+        pts = _pad_batch(np.stack([e["points"] for e in exs]),
+                         NUSC_EVAL_BATCH)
+        msk = _pad_batch(np.stack([e["points_mask"] for e in exs]),
+                         NUSC_EVAL_BATCH)
+        laps.lap("load")
+        pts, msk = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+        laps.lap("copy")
+        out = method(pts, msk)
+        boxes = out["boxes"].cpu().numpy()
+        scores = out["scores"].cpu().numpy()
+        labels = out["labels"].cpu().numpy()
+        laps.lap("predict")
+        for bi, ex in enumerate(exs):
+            keep = scores[bi] > NUSC_SCORE_THRESHOLD
+            frames.append(({k: ex[k] for k in NUSC_FRAME_KEYS if k in ex},
+                           {"boxes": boxes[bi][keep],
+                            "scores": scores[bi][keep],
+                            "labels": labels[bi][keep]}))
+    return frames
+
+
+def nuscenes_metrics(frames) -> Dict[str, float]:
+    """``evaluate_nuscenes`` over ``nuscenes_detections``' frames, per
+    class: the GT boxes and attributes of each frame, its detections with
+    attributes by ``infer_attributes``."""
+    gt_by_class = {c: [] for c in DETECTION_CLASSES}
+    dt_by_class = {c: [] for c in DETECTION_CLASSES}
+    for ex, det in frames:
+        gm = ex["gt_mask"]
+        attrs = infer_attributes(det["boxes"], det["labels"] + 1)
+        for ci, cls in enumerate(DETECTION_CLASSES):
+            g = ex["gt_classes"][gm] == ci + 1
+            gt_by_class[cls].append({"boxes": ex["gt_boxes"][gm][g],
+                                     "attrs": ex["gt_attrs"][gm][g]})
+            d = det["labels"] == ci
+            dt_by_class[cls].append({"boxes": det["boxes"][d],
+                                     "scores": det["scores"][d],
+                                     "attrs": attrs[d]})
+    return evaluate_nuscenes(gt_by_class, dt_by_class, DETECTION_CLASSES)
+
+
+def nuscenes_evaluate(model: nn.Module, records, tta: bool = False,
+                      refined: bool = False,
+                      timings: Optional[Dict[str, float]] = None
+                      ) -> Dict[str, float]:
+    """CenterPoint -> the nuScenes detection protocol (mAP over {0.5, 1,
+    2, 4} m, mATE, mASE, mAOE, mAVE, mAAE with attributes by the velocity
+    rule, NDS, AP per class) over ``records``: ``nuscenes_detections`` on
+    the route (``predict_from_points``; ``tta``: double-flip TTA;
+    ``refined``: the two-stage ``predict_refined``), then
+    ``nuscenes_metrics`` on the host. With ``timings``, the parts of
+    ``nuscenes_detections`` and evaluate (the host's protocol)."""
+    frames = nuscenes_detections(model, records, tta, refined, timings)
+    laps = _Laps(timings, next(model.parameters()).device)
+    stats = nuscenes_metrics(frames)
+    laps.lap("evaluate")
+    return stats
+
+
+def _to_global(T: np.ndarray, xyz: np.ndarray, vel: np.ndarray):
+    """(K, 3) lidar centres and (K, 2) lidar-frame velocities -> global BEV
+    centres and velocities through ``global_from_lidar`` ``T``."""
+    c = xyz @ T[:3, :3].T + T[:3, 3]
+    return c[:, :2], vel @ T[:2, :2].T
+
+
+def tracking_scenes(frames, timings: Optional[Dict[str, float]] = None):
+    """``nuscenes_detections``' frames (records with tracking keys, else
+    ValueError) -> (GT scenes, tracked scenes) as ``evaluate_tracking``
+    takes them: frames grouped by scene in order of first appearance,
+    sorted by timestamp within it, detections and GT moved to the global
+    frame, the detections linked by ``track_sequence`` (the detector's
+    vocabulary, DETECTION_CLASSES). With ``timings`` the seconds go under
+    track."""
+    t0 = time.perf_counter()
+    if frames and "scene" not in frames[0][0]:
+        raise ValueError("records lack tracking metadata (scene / timestamp "
+                         "/ global_from_lidar / gt_track_ids)")
+    scenes: Dict[bytes, list] = {}
+    for ex, det in frames:
+        T = np.asarray(ex["global_from_lidar"], np.float64)
+        dc, dv = _to_global(T, det["boxes"][:, :3], det["boxes"][:, 6:8])
+        gm = ex["gt_mask"]
+        gb = ex["gt_boxes"][gm]
+        gc, _ = _to_global(T, gb[:, :3], gb[:, 6:8])
+        scenes.setdefault(bytes(ex["scene"]), []).append({
+            "timestamp": float(ex["timestamp"]), "ego": T[:2, 3].copy(),
+            "dt_centers": dc, "dt_vel": dv, "dt_classes": det["labels"],
+            "dt_scores": det["scores"], "gt_centers": gc,
+            "gt_classes": ex["gt_classes"][gm].astype(np.int64) - 1,
+            "gt_ids": ex["gt_track_ids"][gm].astype(np.int64)})
+    gt_scenes, dt_scenes = [], []
+    for fs in scenes.values():
+        fs.sort(key=lambda f: f["timestamp"])
+        ids_per_frame = track_sequence(
+            [{"centers": f["dt_centers"], "velocities": f["dt_vel"],
+              "classes": f["dt_classes"], "scores": f["dt_scores"],
+              "timestamp": f["timestamp"]} for f in fs],
+            class_names=DETECTION_CLASSES)
+        dt_scenes.append([
+            {"centers": f["dt_centers"], "ids": ids,
+             "classes": f["dt_classes"], "scores": f["dt_scores"],
+             "ego": f["ego"]} for f, ids in zip(fs, ids_per_frame)])
+        gt_scenes.append([
+            {"centers": f["gt_centers"], "ids": f["gt_ids"],
+             "classes": f["gt_classes"], "ego": f["ego"]} for f in fs])
+    if timings is not None:
+        timings["track"] = timings.get("track", 0.0) \
+            + time.perf_counter() - t0
+    return gt_scenes, dt_scenes
+
+
+def nuscenes_tracking_evaluate(model: nn.Module, records,
+                               timings: Optional[Dict[str, float]] = None
+                               ) -> Dict[str, float]:
+    """CenterPoint -> the greedy tracker -> the nuScenes tracking protocol
+    (AMOTA, AMOTP, MOTA, IDS, per class AMOTA and AMOTP) over ``records``
+    written with tracking metadata: ``nuscenes_detections`` on
+    ``predict_from_points``, ``tracking_scenes``, ``evaluate_tracking``
+    against ``gt_track_ids``.
+    With ``timings``, the parts of ``nuscenes_detections``, track and
+    evaluate."""
+    frames = nuscenes_detections(model, records, timings=timings)
+    gt_scenes, dt_scenes = tracking_scenes(frames, timings)
+    t0 = time.perf_counter()
+    stats = evaluate_tracking(gt_scenes, dt_scenes, DETECTION_CLASSES)
+    if timings is not None:
+        timings["evaluate"] = timings.get("evaluate", 0.0) \
+            + time.perf_counter() - t0
+    return stats

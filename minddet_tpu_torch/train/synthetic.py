@@ -17,6 +17,10 @@ host without ``cv2`` or ``array_record``. ``kitti_batches`` is the KITTI
 pipeline's host half (the GT database, ``KittiDetection`` with the
 sampler, the per-object noise and the global augmentation, the threaded
 loader); ``synthetic_kitti_records`` makes KITTI-like frames in memory.
+``nuscenes_batches`` is the nuScenes pipeline's host half (the GT database,
+``NuScenesDetection`` with CBGS, the sampler and the global augmentation,
+the threaded loader); ``synthetic_nuscenes_records`` makes nuScenes-like
+keyframes in memory, scenes of moving objects seen from a moving car.
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ from minddet_tpu_torch.data.kitti import (KittiDetection,
 from minddet_tpu_torch.data.loader import (DataLoader, DistributedSampler,
                                            GroupSampler, aspect_flags,
                                            process_shard)
+from minddet_tpu_torch.data.nuscenes import (DETECTION_CLASSES,
+                                             TRACKING_KEYS,
+                                             NuScenesDetection,
+                                             infer_attributes)
 from minddet_tpu_torch.data.seg import SegDataset
 from minddet_tpu_torch.ops import host_ops
 from minddet_tpu_torch.data.transforms import (
@@ -445,4 +453,210 @@ def synthetic_kitti_records(num_frames: int, seed: int = 0,
                                                np.full(dc, -10.0)]
                                               ).astype(np.float32),
         })
+    return records
+
+
+def nuscenes_batches(cfg: Mapping, batch_size: int, seed: int = 0
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """nuScenes records -> raw host batches (points, points_mask, gt_boxes,
+    gt_classes, gt_mask; ``step`` counting from 0), the reference's recipe:
+    the GT database loaded from ``gt_sampler.database`` where that file
+    exists, else built from the train records with the config's per-class
+    ``min_points`` (default 5); ``DataBaseSampler`` (``max_per_class``,
+    default {car: 2}); ``NuScenesDetection`` (``max_points`` 120000,
+    ``max_gt`` 500, ``cbgs`` and ``augment`` on, by default) seeded with
+    ``seed``, this process's shard and ``cfg["data"]["workers"]`` threads
+    (default 4). The attributes and the tracking keys are left out of the
+    batch (they feed the evaluations, not the loss). ``cfg`` is a
+    configuration mapping as its YAML file loads, with ``data.records`` a
+    shard pattern or records in memory."""
+    dcfg = cfg["data"]
+    sampler_obj = None
+    scfg = dcfg.get("gt_sampler")
+    if scfg:
+        path = scfg.get("database")
+        if path and os.path.exists(path):
+            db = load_database(path)
+        else:
+            db = build_gt_database(
+                NuScenesDetection(dcfg["records"]), DETECTION_CLASSES,
+                min_points=dict(scfg.get("min_points", {})) or 5)
+        sampler_obj = DataBaseSampler(
+            db, {str(k): int(v) for k, v in dict(scfg.get(
+                "max_per_class", {"car": 2})).items()},
+            {c: i + 1 for i, c in enumerate(DETECTION_CLASSES)})
+    ds = NuScenesDetection(
+        dcfg["records"], max_points=int(dcfg.get("max_points", 120000)),
+        max_gt=int(dcfg.get("max_gt", 500)),
+        cbgs=bool(dcfg.get("cbgs", True)),
+        augment=bool(dcfg.get("augment", True)), gt_sampler=sampler_obj,
+        seed=seed)
+    shard_id, num_shards = process_shard()
+    sampler = DistributedSampler(len(ds), num_shards=num_shards,
+                                 shard_id=shard_id, seed=seed)
+    loader = DataLoader(ds, batch_size, sampler=sampler,
+                        num_workers=dcfg.get("workers", 4))
+    for step, raw in enumerate(loader):
+        raw.pop("gt_attrs", None)
+        for k in TRACKING_KEYS:
+            raw.pop(k, None)
+        raw["step"] = np.asarray(step, np.int32)
+        yield raw
+
+
+# nuScenes-like keyframes: a 32-beam lidar 1.84 m over the road on a car
+# that drives through each scene, ten sweeps merged into each keyframe
+NUSC_POINTS = (200000, 280000)  # merged points per keyframe, drawn in range
+NUSC_KEYFRAME_S = 0.5    # keyframes 2 Hz
+NUSC_SWEEP_S = 0.05      # sweeps 20 Hz: ten a keyframe, time lags 0-0.45 s
+NUSC_LIDAR_Z = 1.84      # the lidar's height over the road
+NUSC_RANGE = 60.0        # annotated objects lie within this of the lidar
+NUSC_OBJECTS_IN_VIEW = 40  # objects around the car at a time, on average
+NUSC_T0 = 1.5e9          # the first scene's start, seconds
+# per class: share of the objects, mean (w, l, h) in m (jittered ~8 %),
+# top speed in m/s and share of them parked or standing
+NUSC_OBJECT_CLASSES = {
+    "car": (0.36, (1.95, 4.62, 1.73), 12.0, 0.5),
+    "truck": (0.07, (2.51, 6.93, 2.84), 10.0, 0.5),
+    "construction_vehicle": (0.03, (2.85, 6.37, 3.19), 2.0, 0.7),
+    "bus": (0.03, (2.94, 10.5, 3.47), 10.0, 0.4),
+    "trailer": (0.03, (2.90, 12.29, 3.87), 8.0, 0.6),
+    "barrier": (0.12, (2.53, 0.50, 0.98), 0.0, 1.0),
+    "motorcycle": (0.04, (0.77, 2.11, 1.47), 10.0, 0.5),
+    "bicycle": (0.04, (0.60, 1.70, 1.28), 5.0, 0.5),
+    "pedestrian": (0.20, (0.67, 0.73, 1.77), 1.5, 0.3),
+    "traffic_cone": (0.08, (0.41, 0.41, 1.07), 0.0, 1.0),
+}
+
+
+def _nusc_scene_objects(rs: np.random.RandomState, ego_xy: np.ndarray,
+                        ego_yaw: np.ndarray, first_id: int):
+    """A scene's objects in the global frame: each spawned near the car at
+    a random keyframe, apart from the others in BEV there; (n, 10) rows of
+    [x0, y0, z_ground, w, l, h, vx, vy, yaw, class id] (the position at
+    the scene's start, the velocity constant), and their track ids."""
+    names = list(NUSC_OBJECT_CLASSES)
+    share = np.array([NUSC_OBJECT_CLASSES[c][0] for c in names])
+    k = len(ego_xy)
+    n = int(NUSC_OBJECTS_IN_VIEW * (1 + 0.1 * (k - 1)))
+    rows = []
+    for _ in range(n):
+        ci = rs.choice(len(names), p=share / share.sum())
+        _, size, top, parked = NUSC_OBJECT_CLASSES[names[ci]]
+        w, l, h = np.asarray(size) * np.exp(0.08 * rs.randn(3))
+        speed = 0.0 if rs.rand() < parked else rs.uniform(0.3, 1.0) * top
+        at = rs.randint(k)
+        for _ in range(20):
+            r = NUSC_RANGE * np.sqrt(rs.uniform(0.01, 1.0))
+            a = rs.uniform(-np.pi, np.pi)
+            xy = ego_xy[at] + r * np.array([np.cos(a), np.sin(a)])
+            yaw = rs.uniform(-np.pi, np.pi)
+            v = speed * np.array([np.cos(yaw), np.sin(yaw)])
+            xy0 = xy - v * at * NUSC_KEYFRAME_S
+            clear = all(np.hypot(*(xy0 + v * at * NUSC_KEYFRAME_S
+                                   - (o[:2] + o[6:8] * at * NUSC_KEYFRAME_S)))
+                        > (l + o[4]) / 2 for o in rows)
+            if clear:
+                rows.append(np.array([xy0[0], xy0[1], 0.0, w, l, h, v[0],
+                                      v[1], yaw, ci + 1]))
+                break
+    rows = np.stack(rows) if rows else np.zeros((0, 10))
+    return rows, first_id + np.arange(len(rows), dtype=np.int32)
+
+
+def _nusc_points(rs: np.random.RandomState, boxes: np.ndarray, total: int
+                 ) -> np.ndarray:
+    """A merged cloud (total, 5) [x, y, z, intensity, time lag] around
+    lidar-frame ``boxes`` (G, 9): points inside each box, fewer the
+    farther, each at the box's place at its sweep's time (the box moved
+    back by its velocity times the lag), then road and clutter out to 70 m
+    (some outside any configuration's range)."""
+    parts = []
+    for b in boxes:
+        k = int(np.clip(6000.0 / max(np.hypot(b[0], b[1]), 1.0), 5, 600))
+        u = rs.uniform(-0.5, 0.5, (k, 3))
+        lag = NUSC_SWEEP_S * rs.randint(0, 10, k)
+        c, s = np.cos(b[8]), np.sin(b[8])
+        dx, dy = u[:, 0] * b[3], u[:, 1] * b[4]  # w along the yaw's axis
+        parts.append(np.stack([b[0] - b[6] * lag + c * dx - s * dy,
+                               b[1] - b[7] * lag + s * dx + c * dy,
+                               b[2] + u[:, 2] * b[5], rs.rand(k), lag], -1))
+    rest = total - sum(len(p) for p in parts)
+    clutter = rest // 5
+    ground = rest - clutter
+    r = 70.0 * rs.uniform(0, 1, rest) ** 1.5
+    a = rs.uniform(-np.pi, np.pi, rest)
+    z = np.concatenate([-NUSC_LIDAR_Z + 0.05 * rs.randn(ground),
+                        rs.uniform(-NUSC_LIDAR_Z, 2.0, clutter)])
+    parts.append(np.stack([r * np.cos(a), r * np.sin(a), z, rs.rand(rest),
+                           NUSC_SWEEP_S * rs.randint(0, 10, rest)], -1))
+    points = np.concatenate(parts).astype(np.float32)
+    return points[rs.permutation(len(points))]
+
+
+def synthetic_nuscenes_records(num_frames: int, seed: int = 0,
+                               scenes: int = 1
+                               ) -> List[Dict[str, np.ndarray]]:
+    """nuScenes-like keyframes in memory, from numpy ``RandomState(seed)``,
+    in the layout of ``data/nuscenes.py:nuscenes_examples``: ``num_frames``
+    keyframes split over ``scenes`` scenes in order (the first scenes take
+    the remainder), NUSC_KEYFRAME_S apart within a scene. In each scene a
+    car drives at 0-10 m/s along a gently turning path from a random place
+    and heading; objects of all ten DETECTION_CLASSES
+    (``NUSC_OBJECT_CLASSES``: shares, sizes, speeds) move at constant
+    velocity along their heading, so each keeps its track id from keyframe
+    to keyframe. Per keyframe: the objects within NUSC_RANGE of the lidar
+    as lidar-frame boxes [x, y, z_centre, w, l, h, vx, vy, yaw] (9-wide
+    f32), gt_classes (1-based), gt_attrs (``infer_attributes`` of their
+    velocity), the token, and the tracking keys (scene, timestamp in s,
+    global_from_lidar, gt_track_ids); the merged cloud of NUSC_POINTS
+    points of 5 features (``_nusc_points``)."""
+    rs = np.random.RandomState(seed)
+    sizes = [num_frames // scenes + (i < num_frames % scenes)
+             for i in range(scenes)]
+    records, next_id = [], 0
+    for si, k in enumerate(sizes):
+        if k == 0:
+            continue
+        speed, turn = rs.uniform(0, 10), rs.uniform(-0.05, 0.05)
+        yaw0 = rs.uniform(-np.pi, np.pi)
+        ego_yaw = yaw0 + turn * NUSC_KEYFRAME_S * np.arange(k)
+        step = speed * NUSC_KEYFRAME_S * np.stack([np.cos(ego_yaw),
+                                                   np.sin(ego_yaw)], -1)
+        ego_xy = rs.uniform(-1000, 1000, 2) + np.concatenate(
+            [np.zeros((1, 2)), np.cumsum(step[:-1], 0)])
+        objs, ids = _nusc_scene_objects(rs, ego_xy, ego_yaw, next_id)
+        next_id += len(objs)
+        scene = np.frombuffer(f"scene-{seed:04d}-{si:04d}".encode().ljust(
+            32)[:32], np.uint8).copy()
+        for f in range(k):
+            t = f * NUSC_KEYFRAME_S
+            c, s = np.cos(ego_yaw[f]), np.sin(ego_yaw[f])
+            rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+            T = np.eye(4)
+            T[:3, :3] = rot
+            T[:3, 3] = [ego_xy[f, 0], ego_xy[f, 1], NUSC_LIDAR_Z]
+            rel = objs[:, :2] + objs[:, 6:8] * t - ego_xy[f]
+            xy = rel @ rot[:2, :2]
+            keep = np.hypot(xy[:, 0], xy[:, 1]) < NUSC_RANGE
+            o = objs[keep]
+            boxes = np.concatenate([
+                xy[keep], (o[:, 5:6] / 2 - NUSC_LIDAR_Z), o[:, 3:6],
+                o[:, 6:8] @ rot[:2, :2],
+                (np.remainder(o[:, 8:9] - ego_yaw[f] + np.pi, 2 * np.pi)
+                 - np.pi)], 1).astype(np.float32)
+            classes = o[:, 9].astype(np.int32)
+            total = rs.randint(*NUSC_POINTS)
+            records.append({
+                "points": _nusc_points(rs, boxes, total),
+                "gt_boxes": boxes,
+                "gt_classes": classes,
+                "gt_attrs": infer_attributes(boxes, classes),
+                "token": np.frombuffer(f"{seed:04d}-{si:04d}-{f:04d}".encode(
+                ).ljust(32)[:32], np.uint8).copy(),
+                "scene": scene,
+                "timestamp": np.float64(NUSC_T0 + 1000.0 * si + t),
+                "global_from_lidar": T.astype(np.float32),
+                "gt_track_ids": ids[keep].astype(np.int32),
+            })
     return records

@@ -34,9 +34,13 @@ Phases (any failure raises and exits non-zero):
    ``F.grid_sample`` timed beside it, and K3f, K3dx and K3dcw at C = 3 (a
    480 x 640 RGB image warped to 512 x 512, channels padded to the vector
    width); the segment max's backward (K5b) at
-   (B, 120000, 32), B = 1 and 8 in bf16 and B = 1 in f32, on uniform
+   (B, 120000, 32), B = 1 and 8 in bf16 and B = 1 and 4 in f32, on uniform
    streams and on clustered ones (pillars filled to the cap of 20) with
-   forced ties, exactly on segments of at most two rows; the row gather's
+   forced ties, exactly on segments of at most two rows, and at the main
+   paths' shapes on a g that is the second half of a (B, N, 64) tensor
+   (as the PFN's cat hands it), bit-equal to the same g contiguous, with
+   the route's time and the share of tiles with no covered row; the row
+   gather's
    backwards (K3dx with ``index_add_`` timed beside it, K3dcw) at
    (B, 16384, 384) x 640 sample points, B = 1 and 8, f32 and bf16, and at
    B = 8 on a heavy-duplicate stream (every point on one of four spots of
@@ -179,7 +183,9 @@ Phases (any failure raises and exits non-zero):
       params, bf16 compute, batch 8, 120,000 points and up to 63 boxes per
       cloud) takes 2 warm-up and 10 timed steps on one batch; the loss must
       stay finite and fall; K5f, K5b, K3f, K3dx and K4 launch once per step
-      each, K3dcw and the sampler kernels never;
+      each, K3dcw and the sampler kernels never; one more step under
+      ``torch.profiler`` must copy no gradient of K5b's size in the
+      segment max's or the cat's backward (K5b reads the cat's slice);
    f. serving CenterNet with DCN in all four backbone stages
       (``centernet_dcn4_entry``) as in a: K2f launches twice and K1f nine
       times per forward;
@@ -356,7 +362,9 @@ one fed cloud on the card, on the CPU and in f64 on the CPU, held by
 inputs read on all three (``_relu_kinks``), and the one-cycle lr against
 its formula. Phases 6at-6av time the config's step fed by
 ``nuscenes_batches`` (epochs 2 and 3 of CBGS, the wait apart, the
-distribution and each epoch's mean; the same step on one fixed batch),
+distribution and each epoch's mean; the same step on one fixed batch;
+one more step under ``torch.profiler``, which must copy no gradient of
+K5b's size in the segment max's or the cat's backward),
 ``nuscenes_evaluate``'s ms per frame by route and part, and
 ``nuscenes_tracking_evaluate``'s over a 40-keyframe scene.
 
@@ -1565,22 +1573,18 @@ def _clustered_clouds(model, batch: int, seed: int, dev):
 SEG_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
 
 
-def check_seg_max_bwd_kernel(dev, model):
-    """Phase 3: seg_full_max_bwd (K5b) against its plain version on streams
-    of the port's voxelizer: uniform clouds (the main path's; ~1.25 kept
-    points per pillar, x ~ N(0, 1), no ties) and clustered clouds with x in
-    {0, 1, 2} (pillars at the cap of 20 rows, ties in every segment), at
-    batch 1, the train step's 8 and the nuScenes config's f32 batch 4. Rows
-    of segments with at most two kept rows, and rows that are not kept,
-    must agree exactly; the others within ``SEG_BWD_TOL``."""
-    from minddet_tpu_torch.ops import seg_max as sm
-    from minddet_tpu_torch.ops.voxelize import (_seg_bcast_bounded,
-                                                _seg_sum_bounded,
-                                                voxelize_stream_batch)
+def seg_bwd_streams(dev, model):
+    """K5b's phase 3 inputs, case by case: (b, dtype, kind, c, sv, x, g).
+    Uniform clouds (the main path's; ~1.25 kept points per pillar, x ~
+    N(0, 1), no ties) and clustered clouds with x in {0, 1, 2} (pillars at
+    the cap of 20 rows, ties in every segment), at batch 1, the train
+    step's 8 and the nuScenes config's f32 batch 4; at each main path's
+    shape also a g that is the second half of a (b, n, 2c) tensor, as the
+    stream PFN's cat hands it to the backward ("strided g")."""
+    from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
 
     bound = model.max_points_per_voxel
     dgen = torch.Generator(device=dev).manual_seed(3)
-    cases = []
     for b, dtype, kind, c in (
             (1, torch.float32, "uniform", PFN_HALF_WIDTH),
             (1, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
@@ -1589,69 +1593,118 @@ def check_seg_max_bwd_kernel(dev, model):
             (1, torch.bfloat16, "clustered, ties", PFN_HALF_WIDTH),
             (TRAIN_CP_BATCH, torch.bfloat16, f"uniform, C={ODD_PFN_WIDTH}",
              ODD_PFN_WIDTH),
-            (NUSC_TRAIN_BATCH, torch.float32, "uniform", PFN_HALF_WIDTH)):
+            (NUSC_TRAIN_BATCH, torch.float32, "uniform", PFN_HALF_WIDTH),
+            (TRAIN_CP_BATCH, torch.bfloat16, "uniform, strided g",
+             PFN_HALF_WIDTH),
+            (NUSC_TRAIN_BATCH, torch.float32, "uniform, strided g",
+             PFN_HALF_WIDTH)):
         clouds = (_clustered_clouds if kind.startswith("clustered")
                   else _nusc_clouds)
         points, mask = clouds(model, b, 3, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
                                    model.voxel_drop_order)
-        first, last = sv.first, sv.last
-        n = first.shape[1]
+        n = sv.first.shape[1]
         shape = (b, n, c)
         if not kind.startswith("clustered"):
             x = torch.randn(shape, generator=dgen, device=dev).to(dtype)
         else:
             x = torch.randint(0, 3, shape, generator=dgen,
                               device=dev).to(dtype)
-        g = torch.randn(shape, generator=dgen, device=dev).to(dtype)
+        if kind.endswith("strided g"):
+            g = torch.randn((b, n, 2 * c), generator=dgen,
+                            device=dev).to(dtype)[..., c:]
+        else:
+            g = torch.randn(shape, generator=dgen, device=dev).to(dtype)
+        yield b, dtype, kind, c, sv, x, g
+
+
+def check_seg_max_bwd_kernel(dev, model):
+    """Phase 3: seg_full_max_bwd (K5b) against its plain version on the
+    streams of ``seg_bwd_streams``. Rows of segments with at most two kept
+    rows, and rows that are not kept, must agree exactly; the others within
+    ``SEG_BWD_TOL``. A strided g must give the bits of the same g made
+    contiguous; its case times the kernel on the contiguous g (``ms``) and
+    the route, the wrapper on g as the cat hands it (``route_ms``). Each
+    case reports the share of the kernel's tiles with no covered row."""
+    from minddet_tpu_torch.ops import seg_max as sm
+    from minddet_tpu_torch.ops.voxelize import (_seg_bcast_bounded,
+                                                _seg_sum_bounded)
+
+    bound = model.max_points_per_voxel
+    cases = []
+    for b, dtype, kind, c, sv, x, g in seg_bwd_streams(dev, model):
+        first, last = sv.first, sv.last
+        n = first.shape[1]
+        shape = (b, n, c)
+        tile = sm.seg_max_bwd_plan(b, n, sm.pad_channels(x[:1, :1]).shape[-1],
+                                   dtype, bound)["tile_rows"]
         m = sm.seg_full_max_bounded(first, last, x, bound)
         got = sm.seg_full_max_bounded_bwd(first, last, x, m, g, bound)
         torch.cuda.synchronize()
         ref = sm.seg_full_max_bounded_bwd_plain(first, last, x, m, g, bound)
+        gc = g.contiguous()
+        same_as_contiguous = True
+        if not g.is_contiguous():
+            same_as_contiguous = torch.equal(
+                got, sm.seg_full_max_bounded_bwd(first, last, x, m, gc,
+                                                 bound))
         rows = _seg_bcast_bounded(last, _seg_sum_bounded(
             first, sv.keep.float(), bound), bound)  # kept rows per segment
         short = ~sv.keep | (rows <= 2)
         err = (got.float() - ref.float()).abs()
         name = str(dtype).replace("torch.", "")
         atol, rtol = SEG_BWD_TOL[name]
-        ok = (torch.equal(got[short], ref[short])
+        ok = (torch.equal(got[short], ref[short]) and same_as_contiguous
               and bool((err <= atol + rtol * ref.float().abs()).all()))
         tie = (x == m) & sv.keep[..., None]
         tied = tie & (_seg_bcast_bounded(last, _seg_sum_bounded(
             first, tie.float(), bound), bound) > 1)
+        covered = torch.nn.functional.pad(
+            sm.seg_covered(first, last, bound), (0, -n % tile))
         case = dict(shape=list(shape), bound=bound, dtype=name, stream=kind,
                     max_abs_err=float(err.max()),
                     tolerance=f"exact on segments of <= 2 rows, else abs <= "
                               f"{atol} + {rtol} * |plain|",
                     kept_share=float(sv.keep.float().mean()),
                     long_segment_row_share=float((~short).float().mean()),
-                    tied_value_share=float(tied.float().mean()))
-        del got, ref, err, rows, short, tie, tied
+                    tied_value_share=float(tied.float().mean()),
+                    tile_rows=tile, empty_tile_share=float(
+                        (~covered.view(b, -1, tile).any(-1)).float().mean()))
+        del got, ref, err, rows, short, tie, tied, covered
         case["ms"] = _cuda_ms(lambda: sm.seg_full_max_bounded_bwd(
-            first, last, x, m, g, bound), iters=20)
+            first, last, x, m, gc, bound), iters=20)
+        if not g.is_contiguous():
+            case["route_ms"] = _cuda_ms(lambda: sm.seg_full_max_bounded_bwd(
+                first, last, x, m, g, bound), iters=20)
         case["plain_ms"] = _cuda_ms(
-            lambda: sm.seg_full_max_bounded_bwd_plain(first, last, x, m, g,
+            lambda: sm.seg_full_max_bounded_bwd_plain(first, last, x, m, gc,
                                                       bound),
             iters=3, warmup=1)
-        # x, m and g read once where their row is kept (a row that is not
-        # kept has dx 0), dx written once, the two flag planes read once; an
-        # add and a compare per kept value
+        # x and g read once where their row is kept (a row that is not kept
+        # has dx 0; m is the max of x values read anyway), dx written once,
+        # the two flag planes read once; an add and a compare per kept value
         kept_values = int(sv.keep.sum()) * c
         case["bound_ms"], case["bound_by"] = _bound(
-            (3 * kept_values + x.numel()) * x.element_size() + 2 * b * n,
+            (2 * kept_values + x.numel()) * x.element_size() + 2 * b * n,
             2 * kept_values)
         cases.append(case)
-        print(f"  seg_full_max_bwd x{case['shape']} {name:8s} {kind:15s} "
+        route = (f" route={case['route_ms'] * 1e3:8.1f}us"
+                 if "route_ms" in case else "")
+        print(f"  seg_full_max_bwd x{case['shape']} {name:8s} {kind:18s} "
               f"max_abs={case['max_abs_err']:.3e} rows in segments > 2: "
               f"{case['long_segment_row_share']:.3f} tied values: "
-              f"{case['tied_value_share']:.3f} kernel="
-              f"{case['ms'] * 1e3:8.1f}us plain={case['plain_ms'] * 1e3:9.1f}"
-              f"us bound={case['bound_ms'] * 1e3:6.1f}us "
-              f"({case['bound_by']})", flush=True)
+              f"{case['tied_value_share']:.3f} empty tiles: "
+              f"{case['empty_tile_share']:.3f} kernel="
+              f"{case['ms'] * 1e3:8.1f}us{route} plain="
+              f"{case['plain_ms'] * 1e3:9.1f}us bound="
+              f"{case['bound_ms'] * 1e3:6.1f}us ({case['bound_by']})",
+              flush=True)
         if not ok:
             raise AssertionError(f"seg_full_max_bwd disagrees with its plain "
-                                 f"version: {case}")
+                                 f"version (or a strided g with the same g "
+                                 f"contiguous): {case}")
+        del m, gc
     return cases
 
 
@@ -5918,6 +5971,51 @@ def train_main_path(dev, dcn4: bool = False):
     return out, (step_fn, state, batch)
 
 
+def k5b_gradient_copies(step) -> dict:
+    """One train step (``step()``) under ``torch.profiler`` with shapes:
+    the copies (``aten::copy_``) of a tensor of the size of the gradient
+    that reaches the segment max's backward, made in that backward or the
+    cat's, where a route that made the cat's gradient slice contiguous
+    before K5b would make one; and K5b's kernel launches the trace shows.
+    Raises if the trace holds no segment max backward, a copy or no K5b."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    nodes = [e for e in events
+             if e.name.startswith("autograd::engine::evaluate_function:")
+             and ("SegFullMax" in e.name or "CatBackward" in e.name)]
+    g_shapes = [c.input_shapes[0] for e in nodes if "SegFullMax" in e.name
+                for c in e.cpu_children if c.name == "_SegFullMaxBackward"
+                and c.input_shapes]
+    if not g_shapes:
+        raise AssertionError("the profiled step ran no segment max backward")
+    sizes = {math.prod(shape) for shape in g_shapes}
+
+    def copies(e):
+        return sum((c.name == "aten::copy_" and bool(c.input_shapes)
+                    and math.prod(c.input_shapes[0]) in sizes) + copies(c)
+                   for c in e.cpu_children)
+
+    out = dict(g_shapes=[list(shape) for shape in g_shapes],
+               g_copies=sum(copies(e) for e in nodes),
+               k5b_kernels=sum(e.device_type == DeviceType.CUDA
+                               and "seg_full_max_bwd" in e.name
+                               for e in events))
+    print(f"  profiled step: segment max backward of g {out['g_shapes']}, "
+          f"{out['k5b_kernels']} K5b kernel(s), {out['g_copies']} copies of "
+          f"g's size in the segment max's and the cat's backward", flush=True)
+    if out["g_copies"] or out["k5b_kernels"] != len(g_shapes):
+        raise AssertionError(f"K5b's route copies the cat's gradient or does "
+                             f"not run K5b once a backward: {out}")
+    return out
+
+
 def lidar_train_main_path(dev, label, entry_fn, batch, launched):
     """A lidar model's training main path (6e, 6l, 6m): ``entry_fn`` at
     ``batch``, TRAIN_WARMUP + TRAIN_STEPS steps on one batch, launch counts
@@ -8604,6 +8702,7 @@ def nuscenes_train_main_path(dev, card):
         if i >= TRAIN_WARMUP:
             fixed.append(time.perf_counter() - t0)
     applied = int(state.optimizer.param_groups[0]["count"])
+    k5b_route = k5b_gradient_copies(lambda: step_fn(state, batch))
     mean_s, fixed_s = statistics.mean(times), statistics.mean(fixed)
     wait_s = statistics.mean(waits)
 
@@ -8633,7 +8732,7 @@ def nuscenes_train_main_path(dev, card):
                valid_boxes=int(batch["gt_mask"].sum()),
                steps_applied=applied, max_memory_allocated=peak,
                losses=[m["loss"] for m in history], launches=launches,
-               card=card)
+               k5b_route=k5b_route, card=card)
     dist = "; ".join(
         f"{k} " + " / ".join(f"{v:.1f}" for v in out[k].values())
         for k in ("step_ms", "wait_ms", "step_without_wait_ms"))
@@ -8826,7 +8925,7 @@ def _kernel_row(kernel, launches, main_cases, calls_per_shape, cases,
             "max_abs_err", "ms", "warp_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "grid_sample_ms",
             "k3f_route_ms", "route_max_abs_diff", "fallback_share",
-            "repeat")
+            "repeat", "route_ms", "empty_tile_share")
     return dict(
         main_shapes=[{k: c[k] for k in keys if k in c} for c in main_cases],
         name=kernel.name, route="cuda",
@@ -9138,6 +9237,8 @@ def main(argv=None) -> int:
     clock.start("6e", f"main path, two-stage CenterPoint bf16 train step at "
                       f"batch {TRAIN_CP_BATCH}")
     cp_training, cp_train_program = centerpoint_train_main_path(dev)
+    cp_training["k5b_route"] = k5b_gradient_copies(
+        lambda: cp_train_program[0](*cp_train_program[1:]))
     if args.profile:
         print("profile: CenterPoint bf16 train step", flush=True)
         profiled["centerpoint_train"] = profile_train(
@@ -9407,7 +9508,8 @@ def main(argv=None) -> int:
                     + nusc_training["launches"]["seg_full_max_bwd"],
                     2 * train_case(seg_bwd_cases)
                     + [c for c in seg_bwd_cases if c["dtype"] == "float32"
-                       and c["shape"][0] == NUSC_TRAIN_BATCH], 1,
+                       and c["shape"][0] == NUSC_TRAIN_BATCH
+                       and c["stream"] == "uniform"], 1,
                     seg_bwd_cases),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]

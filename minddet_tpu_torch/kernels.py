@@ -197,8 +197,9 @@ BILINEAR_WARP_AFFINE_FWD = CudaKernel(
 
 SEG_FULL_MAX_BWD = CudaKernel(
     "seg_full_max_bwd", "seg_full_max_bwd.cu",
-    # x, m, g, first, last, dx, B, N, C, bound, dtype, wide, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, first, last, dx, B, N, C, g's row stride, bound, tile, chunk,
+    # smem, dtype, wide, stream
+    [_P] * 5 + [_I] * 10 + [_P],
     replaces="minddet_tpu/ops/seg_pallas.py:129 _bwd_kernel",
 )
 

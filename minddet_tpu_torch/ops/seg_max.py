@@ -23,7 +23,19 @@ wrappers zero-pad the channel axis to a whole number of vectors
 (``bilinear.pad_channels``) and slice the result back to C. A zero channel
 has a max of 0, and in the backward its x equals its m and its g is 0, so
 its dx is 0: the result is the unpadded one. Any size the grid holds is
-one launch (``seg_max_plan``).
+one launch (``seg_max_plan`` for the forward, ``seg_max_bwd_plan`` for the
+backward).
+
+The backward kernel works on tiles of rows (``seg_max_bwd_plan``): a block
+stages the tile's flag bytes with a halo of ``bound - 1`` rows on each side
+in shared memory; a tile with no covered row writes zeros and reads no
+data; any other copies its rows of x and g into shared memory while it
+finds each row's segment once, then gives a one-row segment g and walks a
+longer one once per half vector, taking the segment's max of x itself (it
+reads no ``m``). dx is bit for bit that of the per-row kernel it replaced.
+It reads ``g`` in place with any row stride: the non-last stream PFN
+layer's ``torch.cat`` hands its backward the second half of a (B, N, 2C)
+gradient, and no copy of it is made (``_check_bwd``).
 
 The gradient follows the reference's Pallas backward, the reduce-max
 convention: within a segment the summed gradient of the covered rows goes to
@@ -136,15 +148,15 @@ def _check(first, last, x, bound) -> None:
         raise ValueError("x must be 16-byte aligned")
 
 
-SEG_THREADS = 256  # threads a block of K5f and K5b
+SEG_THREADS = 256  # threads a block of K5f
 
 
 def seg_max_plan(b: int, n: int, c: int, dtype) -> dict:
-    """K5f's and K5b's launch for (b, n, c) streams (c padded to 16-byte
+    """K5f's launch for (b, n, c) streams (c padded to 16-byte
     vectors): one thread per output vector, ``blocks`` of
     ``SEG_THREADS``, ``wide`` (64-bit thread indices) from 2**31 vectors
     on and 32-bit below, as the row gather's plans choose (64-bit ones
-    cost K5f 2.3-2.6 % and K5b 5.6-7.5 % at the CenterPoint shapes on an
+    cost K5f 2.3-2.6 % at the CenterPoint shapes on an
     H100: ``scripts/seg_max_index_width.py``); every offset is 64-bit.
     Raises where a size does not fit the kernels' 32-bit int arguments or
     the grid does not hold the launch."""
@@ -157,6 +169,100 @@ def seg_max_plan(b: int, n: int, c: int, dtype) -> dict:
     if blocks > GRID_BLOCKS:
         raise ValueError(f"{vectors} output vectors pass the grid")
     return dict(wide=vectors >= 2 ** 31, blocks=blocks)
+
+
+SEG_BWD_THREADS = 128  # threads a block of K5b
+SEG_BWD_WORK = 512    # K5b: rows times 16-byte vectors a block takes
+SEG_BWD_CHUNK = 8     # ... of which vectors of a row at most
+SEG_BWD_TILE = 256    # ... and rows at most
+SEG_BWD_SLOTS = 132 * 8  # blocks an H100 holds at once (132 SMs, 8 each)
+SHARED_MEMORY_MAX = 232448  # bytes of shared memory a block may take
+
+
+def _seg_bwd_smem(tile: int, bound: int, chunk: int) -> int:
+    """K5b's shared memory: per tile row its segment's last row, the
+    one-row segments' rows, per longer segment its first row, last row and
+    head (int32 each) and the warps' counts of both, padded to 16 bytes;
+    then at each row of the window (the tile and bound - 1 rows of halo on
+    each side) x's and g's ``chunk`` vectors and the two flag bytes."""
+    ints = -(-(20 * tile + 8 * (SEG_BWD_THREADS // 32)) // 16) * 16
+    return ints + (tile + 2 * (bound - 1)) * (2 * 16 * chunk + 2)
+
+
+def seg_max_bwd_plan(b: int, n: int, c: int, dtype, bound: int,
+                     g_stride: int | None = None) -> dict:
+    """K5b's launch for (b, n, c) streams (c padded to 16-byte vectors, g's
+    rows ``g_stride`` elements apart, c where None): blocks of
+    ``SEG_BWD_THREADS`` threads, each on a tile of ``tile_rows`` rows and
+    ``chunk`` vectors of each row, with a window of ``halo`` = bound - 1
+    rows on each side in ``smem`` bytes of shared memory; ``wide`` (64-bit
+    row offsets) from 2**31 vectors of g's rows on, 32-bit below.
+
+    The chunk is a whole row up to ``SEG_BWD_CHUNK`` vectors; the tile the
+    most rows up to ``SEG_BWD_TILE`` with tile x chunk <= ``SEG_BWD_WORK``
+    (64 at least), halved once where the grid would not fill the card's
+    ``SEG_BWD_SLOTS``: at the CenterPoint shapes bf16 (8, 120000, 32)
+    takes 128 x 4, f32 (4, 120000, 32) 64 x 8, the fastest of 64-256 rows
+    x 4-8 vectors on an H100 (``scripts/seg_max_bwd_turns.py``). The chunk
+    shrinks where a long bound's window would not fit. Raises where a size
+    does not fit the kernel's 32-bit int arguments, the window does not fit
+    a block's shared memory at one vector a row, or the grid does not hold
+    the launch."""
+    g_stride = c if g_stride is None else g_stride
+    for name, v in (("B", b), ("N", n), ("C", c), ("g's row stride",
+                                                   g_stride),
+                    ("bound", bound)):
+        if v > _INT32_MAX:
+            raise ValueError(f"{name} = {v} does not fit the kernel's 32-bit "
+                             f"size arguments")
+    if bound < 1:
+        raise ValueError(f"bound must be >= 1, got {bound}")
+    halo = bound - 1
+    vec = _VEC[dtype]
+    nv = c // vec
+    chunk = min(nv, SEG_BWD_CHUNK)
+    tile = SEG_BWD_TILE
+    while tile * chunk > SEG_BWD_WORK and tile > 64:
+        tile //= 2
+    grid = lambda: b * -(-n // tile) * -(-nv // chunk)
+    if grid() < SEG_BWD_SLOTS and tile > 64:
+        tile //= 2
+    while chunk > 1 and _seg_bwd_smem(tile, bound, chunk) > SHARED_MEMORY_MAX:
+        chunk //= 2
+    smem = _seg_bwd_smem(tile, bound, chunk)
+    if smem > SHARED_MEMORY_MAX:
+        raise ValueError(f"bound = {bound}: the window of {tile} rows and a "
+                         f"halo of {halo} on each side takes {smem} bytes at "
+                         f"one vector a row, past a block's "
+                         f"{SHARED_MEMORY_MAX} of shared memory")
+    blocks = grid()
+    if blocks > GRID_BLOCKS:
+        raise ValueError(f"{blocks} tiles of {tile} rows pass the grid")
+    return dict(tile_rows=tile, chunk=chunk, halo=halo, smem=smem,
+                blocks=blocks, wide=b * n * (g_stride // vec) >= 2 ** 31)
+
+
+def _check_bwd(x, g) -> None:
+    """What the backward kernel takes of g beside the padded x: x's shape,
+    type and device, unit channel stride, rows a whole number of 16-byte
+    vectors apart and at least C elements (the batch stride N rows), and
+    16-byte alignment. The cat's gradient slice (row stride 2C) passes."""
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be a {x.dtype} {tuple(x.shape)} tensor on "
+                         f"{x.device}; got {g.dtype} {tuple(g.shape)} on "
+                         f"{g.device}")
+    b, n, c = g.shape
+    row = g.stride(1)
+    if g.stride(2) != 1:
+        raise ValueError(f"g's channels must be unit-strided, got stride "
+                         f"{g.stride(2)}")
+    if row < c or (row * g.element_size()) % 16 or (
+            b > 1 and g.stride(0) != n * row):
+        raise ValueError(f"g's rows must lie a whole number of 16-byte "
+                         f"vectors apart, at least C = {c} elements, and its "
+                         f"samples N rows apart; got strides {g.stride()}")
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned")
 
 
 def _seg_full_max_cuda(first, last, x, bound) -> torch.Tensor:
@@ -178,28 +284,25 @@ def _seg_full_max_cuda(first, last, x, bound) -> torch.Tensor:
 
 
 def _seg_full_max_bwd_cuda(first, last, x, m, g, bound) -> torch.Tensor:
-    for name, t in (("m", m), ("g", g)):
-        if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {x.dtype} "
-                             f"{tuple(x.shape)} tensor on {x.device}; got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if m.shape != x.shape or m.dtype != x.dtype or m.device != x.device:
+        raise ValueError(f"m must be a {x.dtype} {tuple(x.shape)} tensor on "
+                         f"{x.device}; got {m.dtype} {tuple(m.shape)} on "
+                         f"{m.device}")
     c = x.shape[-1]
-    x, m, g = pad_channels(x), pad_channels(m), pad_channels(g)
+    x, g = pad_channels(x), pad_channels(g)
     _check(first, last, x, bound)
-    for name, t in (("m", m), ("g", g)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_bwd(x, g)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return unpad_channels(dx, c)
     b, n, ch = x.shape
-    plan = seg_max_plan(b, n, ch, x.dtype)
+    plan = seg_max_bwd_plan(b, n, ch, x.dtype, bound, g.stride(1))
     fn = SEG_FULL_MAX_BWD.fn()
     SEG_FULL_MAX_BWD.launches += 1
-    err = fn(x.data_ptr(), m.data_ptr(), g.data_ptr(), first.data_ptr(),
-             last.data_ptr(), dx.data_ptr(), b, n, ch, bound,
-             _DTYPE_CODE[x.dtype], int(plan["wide"]), cuda_stream(x.device))
+    err = fn(x.data_ptr(), g.data_ptr(), first.data_ptr(), last.data_ptr(),
+             dx.data_ptr(), b, n, ch, g.stride(1), bound, plan["tile_rows"],
+             plan["chunk"], plan["smem"], _DTYPE_CODE[x.dtype],
+             int(plan["wide"]), cuda_stream(x.device))
     SEG_FULL_MAX_BWD.check(err)
     return unpad_channels(dx, c)
 
@@ -216,9 +319,12 @@ def seg_full_max_bounded_bwd(first: torch.Tensor, last: torch.Tensor,
     """The gradient of ``seg_full_max_bounded`` with respect to ``x``, from
     the forward's output ``m`` and its gradient ``g`` (see
     ``seg_full_max_bounded_bwd_plain``): a CUDA ``x`` launches the
-    ``seg_full_max_bwd`` kernel (m and g contiguous, in x's type; any C,
-    zero-padded to a whole number of 16-byte vectors for the launch) and
-    raises on what it does not take; a CPU ``x`` runs the plain version."""
+    ``seg_full_max_bwd`` kernel and raises on what it does not take (x
+    contiguous; g in x's type with any row stride that ``_check_bwd``
+    takes; any C, zero-padded to a whole number of 16-byte vectors for the
+    launch, which copies g); the kernel takes each segment's max of x
+    itself, so ``m`` is only checked for its shape there; a CPU ``x`` runs
+    the plain version."""
     if device_kind(x) == "cuda":
         return _seg_full_max_bwd_cuda(first, last, x, m, g, bound)
     return seg_full_max_bounded_bwd_plain(first, last, x, m, g, bound)
@@ -226,7 +332,10 @@ def seg_full_max_bounded_bwd(first: torch.Tensor, last: torch.Tensor,
 
 class _SegFullMax(torch.autograd.Function):
     """``seg_full_max_bounded`` with its backward; saves (first, last, x,
-    out) as the reference's ``_op_fwd`` does."""
+    out) as the reference's ``_op_fwd`` does (the kernel reads no ``out``;
+    the plain version does). The gradient is passed on as it comes: the
+    stream PFN's cat hands over a strided slice, which the kernel reads in
+    place."""
 
     @staticmethod
     def forward(ctx, first, last, x, bound):
@@ -238,8 +347,7 @@ class _SegFullMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         first, last, x, out = ctx.saved_tensors
-        dx = seg_full_max_bounded_bwd(first, last, x, out, g.contiguous(),
-                                      ctx.bound)
+        dx = seg_full_max_bounded_bwd(first, last, x, out, g, ctx.bound)
         return None, None, dx, None
 
 

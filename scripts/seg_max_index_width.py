@@ -1,7 +1,7 @@
 """Time K5f and K5b (``csrc/seg_full_max.cu``, ``csrc/seg_full_max_bwd.cu``)
-with 32-bit and with 64-bit thread indices (the C entries' ``wide``
-argument) at the shapes the CenterPoint main paths give them, in turns, on
-one CUDA card:
+with 32-bit and with 64-bit indices (the C entries' ``wide`` argument: K5f's
+thread indices, K5b's row offsets) at the shapes the CenterPoint main paths
+give them, in turns, on one CUDA card:
 
     python3 scripts/seg_max_index_width.py [--json PATH]
 
@@ -68,16 +68,17 @@ def main(argv=None) -> int:
                                         device=dev).to(dtype))
         ch = x.shape[-1]
         g = torch.randn(x.shape, generator=dgen, device=dev).to(dtype)
-        m = sm.seg_full_max_bounded(first, last, x, bound)
         code = sm._DTYPE_CODE[dtype]
         out = torch.empty_like(x)
+        plan = sm.seg_max_bwd_plan(b, n, ch, dtype, bound)
         launch = {
             "K5f": lambda wide: fwd(
                 x.data_ptr(), first.data_ptr(), last.data_ptr(),
                 out.data_ptr(), b, n, ch, bound, code, wide, stream),
             "K5b": lambda wide: bwd(
-                x.data_ptr(), m.data_ptr(), g.data_ptr(), first.data_ptr(),
-                last.data_ptr(), out.data_ptr(), b, n, ch, bound, code, wide,
+                x.data_ptr(), g.data_ptr(), first.data_ptr(),
+                last.data_ptr(), out.data_ptr(), b, n, ch, ch, bound,
+                plan["tile_rows"], plan["chunk"], plan["smem"], code, wide,
                 stream)}
         for name, fn in launch.items():
             outs = []

@@ -897,9 +897,9 @@ def test_seg_max_kernels_take_any_width(cuda, dtype, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seg_max_wide_entries_match_the_narrow_ones(cuda, dtype):
-    """The 64-bit thread indices (``wide`` = 1, which the wrappers take from
-    2**31 vectors on) give the 32-bit ones' bits on a small stream: both
-    C entries called directly."""
+    """The 64-bit indices (``wide`` = 1: K5f's thread indices and K5b's row
+    offsets, which the wrappers take from 2**31 vectors on) give the 32-bit
+    ones' bits on a small stream: both C entries called directly."""
     rs = np.random.RandomState(40)
     first, last, x = _seg_stream(rs, 3, 777, 20, 16)
     f, l = first.to(cuda), last.to(cuda)
@@ -915,14 +915,168 @@ def test_seg_max_wide_entries_match_the_narrow_ones(cuda, dtype):
         kernels.SEG_FULL_MAX.check(kernels.SEG_FULL_MAX.fn()(
             xt.data_ptr(), f.data_ptr(), l.data_ptr(), m.data_ptr(), 3, 777,
             16, 20, code, wide, stream))
+        plan = sm.seg_max_bwd_plan(3, 777, 16, dtype, 20)
         kernels.SEG_FULL_MAX_BWD.check(kernels.SEG_FULL_MAX_BWD.fn()(
-            xt.data_ptr(), m.data_ptr(), g.data_ptr(), f.data_ptr(),
-            l.data_ptr(), dx.data_ptr(), 3, 777, 16, 20, code, wide, stream))
+            xt.data_ptr(), g.data_ptr(), f.data_ptr(), l.data_ptr(),
+            dx.data_ptr(), 3, 777, 16, 16, 20, plan["tile_rows"],
+            plan["chunk"], plan["smem"], code, wide, stream))
         outs.append((m, dx))
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
     _check_seg(f, l, xt, g, 20)
+
+
+def _bwd_against_plain(first, last, x, g, bound):
+    """K5b through the wrapper on the card against the plain version on
+    the CPU (``SEG_BWD_TOL``; exact where a segment has at most two rows or
+    a row is not covered); returns dx."""
+    m = sm.seg_full_max_bounded(first, last, x, bound)
+    dx = sm.seg_full_max_bounded_bwd(first, last, x, m, g, bound)
+    torch.cuda.synchronize()
+    fc, lc, xc, gc = first.cpu(), last.cpu(), x.cpu(), g.cpu()
+    ref = sm.seg_full_max_bounded_bwd_plain(fc, lc, xc, m.cpu(), gc, bound)
+    cov = sm.seg_covered(fc, lc, bound)
+    seg = sm._seg_bcast_bounded(lc, sm._seg_sum_bounded(
+        fc, cov.float(), bound), bound)  # covered rows per segment
+    short = ~cov | (seg <= 2)
+    got = dx.cpu()
+    assert torch.equal(got[short], ref[short])
+    atol, rtol = SEG_BWD_TOL[x.dtype]
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), float(
+        err.max())
+    return dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_bwd_reads_a_strided_g_in_place(cuda, dtype):
+    """g as the stream PFN's cat hands it, the second half of a (B, N, 2C)
+    gradient: the kernel reads it in place (no copy is launched: K5b once,
+    nothing else in between), and dx holds the bits of the same g made
+    contiguous, within ``SEG_BWD_TOL`` of the plain version."""
+    rs = np.random.RandomState(50)
+    first, last, x = _seg_stream(rs, 3, 1001, 20, 32)
+    full = torch.from_numpy(rs.randn(3, 1001, 64).astype(np.float32)).to(
+        cuda, dtype)
+    g = full[..., 32:]
+    assert not g.is_contiguous() and g.stride(1) == 64
+    f, l, xt = first.to(cuda), last.to(cuda), x.to(cuda, dtype)
+    dx = _bwd_against_plain(f, l, xt, g, 20)
+    m = sm.seg_full_max_bounded(f, l, xt, 20)
+    assert torch.equal(dx, sm.seg_full_max_bounded_bwd(f, l, xt, m,
+                                                       g.contiguous(), 20))
+    kernels.reset_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sm.seg_full_max_bounded_bwd(f, l, xt, m, g, 20)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels.SEG_FULL_MAX_BWD.launches == 1
+    assert len(names) == 1 and "seg_full_max_bwd" in names[0], names
+
+
+def _straddling_stream(n, tile, bound):
+    """A segment of ``bound`` rows, kept whole, from ``bound`` // 2 rows
+    before every tile edge to past it; the other rows in segments of 1 to
+    3 rows, every fifth without a last kept row."""
+    first = np.zeros((1, n), bool)
+    last = np.zeros((1, n), bool)
+    i, k = 0, 0
+    while i < n:
+        edge = (i // tile + 1) * tile
+        across = edge - bound // 2 == i
+        ln = bound if across else min(1 + k % 3, max(edge - bound // 2 - i,
+                                                     1))
+        ln = min(ln, n - i)
+        first[0, i] = True
+        last[0, i + ln - 1] = across or k % 5 != 4
+        i, k = i + ln, k + 1
+    return torch.from_numpy(first), torch.from_numpy(last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_bwd_segments_straddle_tile_edges(cuda, dtype):
+    """Segments whose head lies in one tile and whose last kept row lies in
+    the next, at every tile edge, on a stream whose N is no multiple of
+    the tile (the last tile short), with ties."""
+    bound = 20
+    tile = sm.seg_max_bwd_plan(1, 5 * 256 + 37, 16, dtype, bound)["tile_rows"]
+    n = 5 * tile + 37
+    assert sm.seg_max_bwd_plan(1, n, 16, dtype, bound)["tile_rows"] == tile
+    first, last = _straddling_stream(n, tile, bound)
+    for edge in range(tile, n - bound, tile):  # one segment across each
+        head = edge - bound // 2
+        assert first[0, head] and last[0, head + bound - 1]
+        assert not first[0, head + 1:head + bound].any()
+    rs = np.random.RandomState(51)
+    x = torch.from_numpy(rs.randint(0, 3, (1, n, 16)).astype(np.float32))
+    g = torch.from_numpy(rs.randn(1, n, 16).astype(np.float32))
+    _bwd_against_plain(first.to(cuda), last.to(cuda), x.to(cuda, dtype),
+                       g.to(cuda, dtype), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound", [1, 20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_bwd_bounds_and_clustered_ties(cuda, bound, dtype):
+    """Bounds 1 (every covered row its own segment), 20 (the voxelizer's
+    cap) and 64, on streams of segments up to the bound with x in {0, 1, 2}
+    (ties in most segments) and N no multiple of the tile."""
+    rs = np.random.RandomState(52 + bound)
+    n = 3 * 256 + 101
+    first, last, _ = _seg_stream(rs, 2, n, bound, 24)
+    x = torch.from_numpy(rs.randint(0, 3, (2, n, 24)).astype(np.float32))
+    g = torch.from_numpy(rs.randn(2, n, 24).astype(np.float32))
+    _bwd_against_plain(first.to(cuda), last.to(cuda), x.to(cuda, dtype),
+                       g.to(cuda, dtype), bound)
+
+
+@pytest.mark.cuda
+def test_seg_max_bwd_refuses_a_bound_past_the_halo_budget(cuda):
+    """A bound whose window passes a block's shared memory at one vector a
+    row is refused before anything is launched; the largest bound that
+    fits runs (one vector a row: its window is ~3300 rows)."""
+    tile = sm.seg_max_bwd_plan(1, 4096, 8, torch.bfloat16, 20)["tile_rows"]
+    window = (sm.SHARED_MEMORY_MAX - sm._seg_bwd_smem(tile, 1, 1)) // (
+        2 * 16 + 2) + tile
+    fits = (window - tile) // 2 + 1
+    assert sm._seg_bwd_smem(tile, fits, 1) <= sm.SHARED_MEMORY_MAX \
+        < sm._seg_bwd_smem(tile, fits + 1, 1)
+    plan = sm.seg_max_bwd_plan(1, 4096, 8, torch.bfloat16, fits)
+    assert plan["tile_rows"] == tile and plan["chunk"] == 1
+    first = torch.zeros(1, 4096, dtype=torch.bool, device=cuda)
+    last = torch.zeros(1, 4096, dtype=torch.bool, device=cuda)
+    first[0, 0], last[0, 4095] = True, True
+    x = torch.randn(1, 4096, 8, device=cuda).to(torch.bfloat16)
+    g = torch.randn(1, 4096, 8, device=cuda).to(torch.bfloat16)
+    m = sm.seg_full_max_bounded(first, last, x, fits)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        sm.seg_full_max_bounded_bwd(first, last, x, m, g, fits + 1)
+    assert kernels.SEG_FULL_MAX_BWD.launches == 0
+    _bwd_against_plain(first, last, x, g, fits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_bwd_stream_with_no_covered_row(cuda, dtype):
+    """Heads and no last kept row anywhere (and a second stream with no flag
+    at all): every dx is 0, whatever x and g hold."""
+    rs = np.random.RandomState(53)
+    n = 2 * 256 + 5
+    x = torch.from_numpy(rs.randn(2, n, 8).astype(np.float32)).to(cuda,
+                                                                   dtype)
+    g = torch.from_numpy(rs.randn(2, n, 8).astype(np.float32)).to(cuda,
+                                                                   dtype)
+    last = torch.zeros(2, n, dtype=torch.bool, device=cuda)
+    first = torch.zeros(2, n, dtype=torch.bool, device=cuda)
+    first[0, ::7] = True
+    dx = _bwd_against_plain(first, last, x, g, 20)
+    assert not dx.any()
 
 
 @pytest.mark.cuda

@@ -341,3 +341,136 @@ def test_seg_max_plans_take_past_2_31_values_and_refuse_the_grid():
         sm.seg_max_plan(1, 2 ** 31, 8, torch.bfloat16)
     with pytest.raises(ValueError, match="grid"):
         sm.seg_max_plan(2 ** 20, 2 ** 20, 2 ** 10, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 18, 32, 64, 384])
+def test_seg_max_bwd_plan_tiles_with_a_halo_in_shared_memory(dtype, c):
+    """K5b's plan: chunks of up to ``SEG_BWD_CHUNK`` 16-byte vectors of a
+    row, tiles of at most ``SEG_BWD_TILE`` rows and ``SEG_BWD_WORK`` rows
+    times vectors (64 rows at least), halved once where the grid would not
+    fill the card; the last tile short where N is no multiple of it; a halo
+    of bound - 1 rows on each side; its shared memory within a block's 227
+    KB at every width the wrapper pads to; 32-bit offsets at the main
+    paths' sizes."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    padded = sm.pad_channels(torch.empty(1, 1, c, dtype=dtype,
+                                         device="meta")).shape[-1]
+    nv = padded // (4 if dtype == torch.float32 else 8)
+    for b, n, bound in ((8, 120000, 20), (1, 120000, 20), (1, 1281, 1),
+                        (2, 255, 64)):
+        plan = sm.seg_max_bwd_plan(b, n, padded, dtype, bound, 2 * padded)
+        tile, chunk = plan["tile_rows"], plan["chunk"]
+        assert chunk == min(nv, sm.SEG_BWD_CHUNK) and plan["halo"] == bound - 1
+        assert 64 <= tile <= sm.SEG_BWD_TILE
+        assert tile * chunk <= sm.SEG_BWD_WORK or tile == 64
+        assert plan["blocks"] == b * -(-n // tile) * -(-nv // chunk)
+        window = tile + 2 * (bound - 1)
+        assert plan["smem"] >= 12 * tile + window * (32 * chunk + 2)
+        assert plan["smem"] <= 227 * 1024
+        assert not plan["wide"]
+    # the main paths' shapes: a whole row of C = 32 a block, 512 row
+    # vectors; the batch-1 bf16 stream in tiles of 64 rows, to fill the card
+    bf = sm.seg_max_bwd_plan(8, 120000, 32, torch.bfloat16, 20, 64)
+    f32 = sm.seg_max_bwd_plan(4, 120000, 32, torch.float32, 20, 64)
+    one = sm.seg_max_bwd_plan(1, 120000, 32, torch.bfloat16, 20)
+    assert (bf["tile_rows"], bf["chunk"], bf["blocks"]) == (128, 4, 7504)
+    assert (f32["tile_rows"], f32["chunk"], f32["blocks"]) == (64, 8, 7500)
+    assert (one["tile_rows"], one["blocks"]) == (64, 1875)
+
+
+def test_seg_max_bwd_plan_goes_wide_past_2_31_vectors_and_refuses():
+    """64-bit row offsets from 2**31 vectors of g's rows on (its row stride
+    counts: the cat's slice is 2C wide); refusals past the kernel's int
+    arguments, past a block's shared memory and past the grid."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    bf = torch.bfloat16
+    n = 2 ** 28  # 8 bf16 channels: one vector a row
+    assert not sm.seg_max_bwd_plan(1, n - 1, 8, bf, 20)["wide"]
+    assert sm.seg_max_bwd_plan(8, n, 8, bf, 20)["wide"]
+    assert not sm.seg_max_bwd_plan(4, n - 1, 8, bf, 20)["wide"]
+    assert sm.seg_max_bwd_plan(4, n, 8, bf, 20, g_stride=16)["wide"]
+    for args in ((1, 2 ** 31, 8, bf, 20), (1, 100, 2 ** 31, bf, 20),
+                 (1, 100, 8, bf, 2 ** 31), (1, 100, 8, bf, 20, 2 ** 31)):
+        with pytest.raises(ValueError, match="32-bit"):
+            sm.seg_max_bwd_plan(*args)
+    assert sm.seg_max_bwd_plan(1, 100, 32, bf, 3000)["chunk"] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        sm.seg_max_bwd_plan(1, 100, 8, bf, 4000)
+    with pytest.raises(ValueError, match="bound"):
+        sm.seg_max_bwd_plan(1, 100, 8, bf, 0)
+    with pytest.raises(ValueError, match="grid"):
+        sm.seg_max_bwd_plan(2 ** 16, 2 ** 31 - 1, 8, bf, 20)
+
+
+@pytest.mark.parametrize("case", ["cat slice", "contiguous",
+                                  "misaligned", "channel-strided",
+                                  "rows too close", "samples apart",
+                                  "type"])
+def test_backward_check_takes_the_cats_slice_and_refuses_the_rest(case):
+    """What K5b takes of g (meta tensors: nothing is allocated): the second
+    half of the PFN's (B, N, 2C) gradient and a contiguous g; not a g one
+    element off 16-byte alignment, with a channel stride, with rows closer
+    than C apart, with samples other than N rows apart, or of another
+    type."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    x = torch.empty(4, 1000, 32, dtype=torch.bfloat16, device="meta")
+    full = torch.empty(4, 1000, 64, dtype=torch.bfloat16, device="meta")
+    g = {"cat slice": full[..., 32:],
+         "contiguous": torch.empty_like(x),
+         "misaligned": torch.empty(4, 1000, 72, dtype=torch.bfloat16,
+                                   device="meta")[..., 1:33],
+         "channel-strided": full[..., ::2],
+         "rows too close": full.as_strided((4, 1000, 32),
+                                           (16000, 16, 1)),
+         "samples apart": full.view(4, 2000, 32)[:, :1000],
+         "type": torch.empty(4, 1000, 32, device="meta")}[case]
+    if case in ("cat slice", "contiguous"):
+        sm._check_bwd(x, g)
+        return
+    if case == "samples apart":  # 2000 rows apart, not N = 1000
+        assert g.stride()[1:] == (32, 1)
+    with pytest.raises(ValueError):
+        sm._check_bwd(x, g)
+
+
+def test_gradient_through_the_pfn_cat_reads_the_slice_in_place(monkeypatch):
+    """The stream PFN's non-last layer route, ``torch.cat([x, seg max])``:
+    the gradient reaches the segment max's backward as the strided second
+    half of the cat's (no copy), and x's gradient equals the one computed
+    from the same g made contiguous and the reference's VJP of the same
+    concatenation (Pallas backward in interpret mode; f32 sums in another
+    order, ties split evenly on both sides, atol 1e-5)."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    rs = np.random.RandomState(11)
+    bound, c = 6, 8
+    first, last, x = _random_stream(rs, 2, 512, bound, c=c)
+    w = rs.randn(2, 512, 2 * c).astype(np.float32)
+    seen = []
+    bwd = sm.seg_full_max_bounded_bwd
+
+    def spy(first, last, x, m, g, bound):
+        seen.append((g.is_contiguous(), g.stride()))
+        return bwd(first, last, x, m, g, bound)
+
+    monkeypatch.setattr(sm, "seg_full_max_bounded_bwd", spy)
+    f, l = torch.from_numpy(first), torch.from_numpy(last)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = torch.cat([xt, seg_full_max_bounded(f, l, xt, bound)], dim=-1)
+    (y * torch.from_numpy(w)).sum().backward()
+    assert seen == [(False, (512 * 2 * c, 2 * c, 1))]
+    m = seg_full_max_bounded_plain(f, l, xt.detach(), bound)
+    want = torch.from_numpy(w[..., :c]) + seg_full_max_bounded_bwd_plain(
+        f, l, xt.detach(), m, torch.from_numpy(w[..., c:]).contiguous(),
+        bound)
+    assert torch.equal(xt.grad, want)
+    jf, jl = jnp.asarray(first), jnp.asarray(last)
+    _, vjp = jax.vjp(lambda v: jnp.concatenate(
+        [v, j_seg_full_max(jf, jl, v, bound, block_rows=128,
+                           interpret=True)], axis=-1), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(w))[0])
+    np.testing.assert_allclose(xt.grad.numpy(), ref, rtol=1e-5, atol=1e-5)

@@ -356,7 +356,7 @@ matched by box, each side's table from its own detections with the same
 oracle detections ranked first, within 1e-6; mAP and NDS inside (0, 1))
 and the tracker and ``evaluate_tracking`` on them (the same tracks up to
 their ids, the tables within 1e-6, AMOTA inside (0, 1)), card against CPU.
-Phase 5s (``check_nuscenes_train_f32``) is the config's f32 train step on
+Phase 5s (``check_config_train_f32``) is the config's f32 train step on
 one fed cloud on the card, on the CPU and in f64 on the CPU, held by
 ``_referee_checks`` (per part and per parameter) with the head's ReLU
 inputs read on all three (``_relu_kinks``), and the one-cycle lr against
@@ -367,6 +367,26 @@ one more step under ``torch.profiler``, which must copy no gradient of
 K5b's size in the segment max's or the cat's backward),
 ``nuscenes_evaluate``'s ms per frame by route and part, and
 ``nuscenes_tracking_evaluate``'s over a 40-keyframe scene.
+
+The Waymo path, on ``configs/centerpoint_pp_waymo.yaml`` at +-76.8 m and
+480 x 480 (``entry.waymo_config``): phase 3 holds K4 at its NMS's (B, 1000,
+5)^2, B = 1, 2 and 4 (one task), and at one of ``evaluate_waymo``'s IoU
+calls, K5f at (B, 160000, 32) f32, B = 1, 2 and 4, K5b at (4, 160000, 32)
+f32 (and on the strided g) on the streams of Waymo-like frames, and K3f at
+the refined route's (2, 120^2, 384) x 415 points (``check_waymo_kernels``).
+Phase 4w (``check_waymo_f32``) holds ``waymo_batches`` at one loader thread
+(the same raw batches twice), ``waymo_annos`` by the plain and refined
+routes card against CPU (the same GT annos, detections matched by box) and
+``evaluate_waymo`` with the range breakdowns on each side's own detections
+with the same oracle detections ranked first (the tables within 1e-6, the
+card's K4 launches as ``_waymo_iou_calls`` counts them). Phase 5t
+(``check_config_train_f32`` on ``_waymo_step_inputs``) is the config's f32
+step on one fed cloud held to the f64 CPU referee as 5s. Phases 6aw-6ay
+serve the model at batch 1 and 4 (``centerpoint_waymo_entry``: K5f and K4
+once a request), time the config's step fed by ``waymo_batches`` as 6at
+(K5f and K5b once a step; a profiled step copies no gradient of K5b's
+size) and ``waymo_evaluate``'s ms per frame by route and part (K4 once per
+batch and per evaluator call).
 
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
@@ -1259,7 +1279,6 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
                                  f" != {area}")
     print(f"  rotated_iou exact cases: {len(IOU_EXACT_AREAS)} areas within "
           f"1e-4", flush=True)
-    atol, rtol = IOU_TOL
     cases = []
     train_pair = train_step_box_pairs(TRAIN_CP_BATCH, pc_range,
                                       torch.Generator().manual_seed(5))
@@ -1292,45 +1311,56 @@ def check_rotated_iou_kernel(dev, gen, pc_range):
                 b, n, torch.Generator().manual_seed(16)).to(dev)
         else:
             boxes = others = candidate_boxes(b, n, gen).to(dev)
-        got = ri.rotated_intersection_bev(boxes, others)
-        torch.cuda.synchronize()
-        ref = ri.rotated_intersection_bev_plain(boxes, others)
-        err = (got - ref).abs()
-        max_abs = float(err.max())
-        ok = bool((err <= atol + rtol * ref.abs()).all())
-        overlapping = float((ref > 0).float().mean())
-        del got, ref, err
-        ms = _cuda_ms(lambda: ri.rotated_intersection_bev(boxes, others),
-                      iters=20)
-        plain_ms = _cuda_ms(
-            lambda: ri.rotated_intersection_bev_plain(boxes, others),
-            iters=2, warmup=1)
-        bound_ms, bound_by, clipped, needed, per_block = \
-            _rotated_iou_bound(boxes, others)
-        case = dict(kind=kind, shape=[b, n, 5],
-                    against=[b, others.shape[1], 5], dtype="float32",
-                    max_abs_err=max_abs,
-                    tolerance=f"abs <= {atol} + {rtol} * |plain|",
-                    overlapping_share=overlapping, clipped_share=clipped,
-                    clip_needed_share=needed,
-                    clipped_share_per_block=dict(mean=per_block[0],
-                                                 max=per_block[1]),
-                    tile_rows=ri.tile_rows(b, n, others.shape[1], sms),
-                    ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
-        cases.append(case)
-        print(f"  rotated_iou {kind} ({b}, {n}, 5) x ({b}, "
-              f"{others.shape[1]}, 5) max_abs={max_abs:.3e} "
-              f"overlapping={overlapping:.4f} clipped={clipped:.4f} "
-              f"needed={needed:.4f} "
-              f"per block mean={per_block[0]:.4f} max={per_block[1]:.4f} "
-              f"kernel={ms * 1e3:8.1f}us (rows {case['tile_rows']}) "
-              f"plain={plain_ms * 1e3:9.1f}us "
-              f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
-        if not ok:
-            raise AssertionError(f"rotated_iou_intersect disagrees with its "
-                                 f"plain version: {case}")
+        cases.append(_iou_case(kind, boxes, others, sms))
     return cases
+
+
+def _iou_case(kind, boxes, others, sms):
+    """One phase 3 case of K4 on (b, n, 5) x (b, m, 5) boxes on the card:
+    against its plain version (``IOU_TOL``), timed beside it, with its
+    bound, its clipped shares and its tile height."""
+    from minddet_tpu_torch.ops import rotated_iou as ri
+
+    atol, rtol = IOU_TOL
+    b, n = boxes.shape[:2]
+    got = ri.rotated_intersection_bev(boxes, others)
+    torch.cuda.synchronize()
+    ref = ri.rotated_intersection_bev_plain(boxes, others)
+    err = (got - ref).abs()
+    max_abs = float(err.max())
+    ok = bool((err <= atol + rtol * ref.abs()).all())
+    overlapping = float((ref > 0).float().mean())
+    del got, ref, err
+    ms = _cuda_ms(lambda: ri.rotated_intersection_bev(boxes, others),
+                  iters=20)
+    plain_ms = _cuda_ms(
+        lambda: ri.rotated_intersection_bev_plain(boxes, others),
+        iters=2, warmup=1)
+    bound_ms, bound_by, clipped, needed, per_block = \
+        _rotated_iou_bound(boxes, others)
+    case = dict(kind=kind, shape=[b, n, 5],
+                against=[b, others.shape[1], 5], dtype="float32",
+                max_abs_err=max_abs,
+                tolerance=f"abs <= {atol} + {rtol} * |plain|",
+                overlapping_share=overlapping, clipped_share=clipped,
+                clip_needed_share=needed,
+                clipped_share_per_block=dict(mean=per_block[0],
+                                             max=per_block[1]),
+                tile_rows=ri.tile_rows(b, n, others.shape[1], sms),
+                ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+    print(f"  rotated_iou {kind} ({b}, {n}, 5) x ({b}, "
+          f"{others.shape[1]}, 5) max_abs={max_abs:.3e} "
+          f"overlapping={overlapping:.4f} clipped={clipped:.4f} "
+          f"needed={needed:.4f} "
+          f"per block mean={per_block[0]:.4f} max={per_block[1]:.4f} "
+          f"kernel={ms * 1e3:8.1f}us (rows {case['tile_rows']}) "
+          f"plain={plain_ms * 1e3:9.1f}us "
+          f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
+    if not ok:
+        raise AssertionError(f"rotated_iou_intersect disagrees with its "
+                             f"plain version: {case}")
+    return case
 
 
 PFN_HALF_WIDTH = 32  # the non-last PFN layer's units: K5f's channels
@@ -1350,26 +1380,30 @@ def _nusc_clouds(model, batch: int, seed: int, dev):
     return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
 
 
-def check_seg_max_kernel(dev, model):
+def check_seg_max_kernel(dev, model, shapes=None, clouds=None, stream=None):
     """Phase 3: seg_full_max (K5f) against its plain version, exactly, on
-    the streams the port's voxelizer makes of ``model``'s 120,000-point
-    clouds (pillars over the point cap, more pillars than ``max_voxels``),
-    at the serving batches and ``nuscenes_evaluate``'s batch 2 in f32 and
-    at the train step's batch 8 in bf16; x is N(0, 1), so the kernel's
-    zeros outside the kept rows show."""
+    the streams the port's voxelizer makes of ``model``'s clouds
+    (``clouds(model, batch, seed, dev)``; by default ``_nusc_clouds``'
+    120,000 points: pillars over the point cap, more pillars than
+    ``max_voxels``), at ``shapes`` (b, dtype, c): by default the serving
+    batches and ``nuscenes_evaluate``'s batch 2 in f32 and the train step's
+    batch 8 in bf16; x is N(0, 1), so the kernel's zeros outside the kept
+    rows show. ``stream`` names the clouds in each case."""
     from minddet_tpu_torch.ops import seg_max as sm
     from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
 
-    bound = model.max_points_per_voxel
-    dgen = torch.Generator(device=dev).manual_seed(2)
-    cases = []
-    for b, dtype, c in ((1, torch.float32, PFN_HALF_WIDTH),
+    shapes = shapes or ((1, torch.float32, PFN_HALF_WIDTH),
                         (CP_BATCHES[-1], torch.float32, PFN_HALF_WIDTH),
                         (1, torch.bfloat16, PFN_HALF_WIDTH),
                         (TRAIN_CP_BATCH, torch.bfloat16, PFN_HALF_WIDTH),
                         (TRAIN_CP_BATCH, torch.bfloat16, ODD_PFN_WIDTH),
-                        (NUSC_EVAL_BATCH, torch.float32, PFN_HALF_WIDTH)):
-        points, mask = _nusc_clouds(model, b, 2, dev)
+                        (NUSC_EVAL_BATCH, torch.float32, PFN_HALF_WIDTH))
+    clouds = clouds or _nusc_clouds
+    bound = model.max_points_per_voxel
+    dgen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for b, dtype, c in shapes:
+        points, mask = clouds(model, b, 2, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
                                    model.voxel_drop_order)
@@ -1405,8 +1439,11 @@ def check_seg_max_kernel(dev, model):
         if c != PFN_HALF_WIDTH:
             padded = sm.pad_channels(x[:, :1]).shape[-1]
             case["stream"] = f"C={c}, padded to {padded}"
+        if stream:
+            case["stream"] = stream
         cases.append(case)
-        print(f"  seg_full_max x{case['shape']} {case['dtype']:8s} max_abs="
+        print(f"  seg_full_max x{case['shape']} {case['dtype']:8s} "
+              f"{stream or ''} max_abs="
               f"{max_abs:.3e} kept rows {kept:.3f} kernel={ms * 1e3:8.1f}us "
               f"plain={plain_ms * 1e3:9.1f}us bound={bound_ms * 1e3:6.1f}us "
               f"({bound_by})", flush=True)
@@ -1441,14 +1478,15 @@ def proposal_boxes(b: int, n: int, pc_range, gen) -> torch.Tensor:
 GATHER_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-5, 2 ** -8)}
 
 
-def check_bilinear_kernel(dev, gen, model):
+def check_bilinear_kernel(dev, gen, model, batches=None):
     """Phase 3: bilinear_gather_fwd (K3f) against its plain version at the
     second stage's shapes: ``model``'s BEV map (B, 128 * 128, 384) and 5
     sample points for each of its 6 * 83 detection slots (2490 points) at
     the serving batches and ``nuscenes_evaluate``'s batch 2, and for each
     of the train step's 128 proposals (640 points) at its batch 8; with the
     time of ``F.grid_sample`` (bilinear, zero padding, align_corners) on
-    the same map and points."""
+    the same map and points. ``batches`` (b, slots, generator) replace those
+    shapes where given."""
     import torch.nn.functional as F
 
     from minddet_tpu_torch.models.heads.second_stage import bev_sample_points
@@ -1462,9 +1500,10 @@ def check_bilinear_kernel(dev, gen, model):
     cell_y = model.voxel_size[1] * model.out_size_factor
     cases = []
     train_gen = torch.Generator().manual_seed(6)
-    for b, slots, rng in tuple((b, serve_slots, gen) for b in CP_BATCHES) + (
-            (TRAIN_CP_BATCH, CP_PROPOSALS, train_gen),
-            (NUSC_EVAL_BATCH, serve_slots, torch.Generator().manual_seed(15))):
+    batches = batches or tuple((b, serve_slots, gen) for b in CP_BATCHES) + (
+        (TRAIN_CP_BATCH, CP_PROPOSALS, train_gen),
+        (NUSC_EVAL_BATCH, serve_slots, torch.Generator().manual_seed(15)))
+    for b, slots, rng in batches:
         bev32 = torch.randn(b, c, h, w, generator=rng).to(dev).contiguous(
             memory_format=torch.channels_last)
         boxes = proposal_boxes(b, slots, model.pc_range, rng).to(dev)
@@ -1573,34 +1612,37 @@ def _clustered_clouds(model, batch: int, seed: int, dev):
 SEG_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
 
 
-def seg_bwd_streams(dev, model):
+def seg_bwd_streams(dev, model, streams=None, clouds=None):
     """K5b's phase 3 inputs, case by case: (b, dtype, kind, c, sv, x, g).
-    Uniform clouds (the main path's; ~1.25 kept points per pillar, x ~
-    N(0, 1), no ties) and clustered clouds with x in {0, 1, 2} (pillars at
-    the cap of 20 rows, ties in every segment), at batch 1, the train
-    step's 8 and the nuScenes config's f32 batch 4; at each main path's
-    shape also a g that is the second half of a (b, n, 2c) tensor, as the
-    stream PFN's cat hands it to the backward ("strided g")."""
+    By default uniform clouds (the main path's; ~1.25 kept points per
+    pillar, x ~ N(0, 1), no ties) and clustered clouds with x in {0, 1, 2}
+    (pillars at the cap of 20 rows, ties in every segment), at batch 1,
+    the train step's 8 and the nuScenes config's f32 batch 4; at each main
+    path's shape also a g that is the second half of a (b, n, 2c) tensor,
+    as the stream PFN's cat hands it to the backward ("strided g").
+    ``clouds(model, batch, seed, dev)`` makes the clouds of the streams that
+    are not clustered (``_nusc_clouds`` by default)."""
     from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
 
+    streams = streams or (
+        (1, torch.float32, "uniform", PFN_HALF_WIDTH),
+        (1, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
+        (TRAIN_CP_BATCH, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
+        (1, torch.float32, "clustered, ties", PFN_HALF_WIDTH),
+        (1, torch.bfloat16, "clustered, ties", PFN_HALF_WIDTH),
+        (TRAIN_CP_BATCH, torch.bfloat16, f"uniform, C={ODD_PFN_WIDTH}",
+         ODD_PFN_WIDTH),
+        (NUSC_TRAIN_BATCH, torch.float32, "uniform", PFN_HALF_WIDTH),
+        (TRAIN_CP_BATCH, torch.bfloat16, "uniform, strided g",
+         PFN_HALF_WIDTH),
+        (NUSC_TRAIN_BATCH, torch.float32, "uniform, strided g",
+         PFN_HALF_WIDTH))
     bound = model.max_points_per_voxel
     dgen = torch.Generator(device=dev).manual_seed(3)
-    for b, dtype, kind, c in (
-            (1, torch.float32, "uniform", PFN_HALF_WIDTH),
-            (1, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
-            (TRAIN_CP_BATCH, torch.bfloat16, "uniform", PFN_HALF_WIDTH),
-            (1, torch.float32, "clustered, ties", PFN_HALF_WIDTH),
-            (1, torch.bfloat16, "clustered, ties", PFN_HALF_WIDTH),
-            (TRAIN_CP_BATCH, torch.bfloat16, f"uniform, C={ODD_PFN_WIDTH}",
-             ODD_PFN_WIDTH),
-            (NUSC_TRAIN_BATCH, torch.float32, "uniform", PFN_HALF_WIDTH),
-            (TRAIN_CP_BATCH, torch.bfloat16, "uniform, strided g",
-             PFN_HALF_WIDTH),
-            (NUSC_TRAIN_BATCH, torch.float32, "uniform, strided g",
-             PFN_HALF_WIDTH)):
-        clouds = (_clustered_clouds if kind.startswith("clustered")
-                  else _nusc_clouds)
-        points, mask = clouds(model, b, 3, dev)
+    for b, dtype, kind, c in streams:
+        cloud_fn = (_clustered_clouds if kind.startswith("clustered")
+                    else clouds or _nusc_clouds)
+        points, mask = cloud_fn(model, b, 3, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
                                    model.voxel_drop_order)
@@ -1619,7 +1661,7 @@ def seg_bwd_streams(dev, model):
         yield b, dtype, kind, c, sv, x, g
 
 
-def check_seg_max_bwd_kernel(dev, model):
+def check_seg_max_bwd_kernel(dev, model, streams=None, clouds=None):
     """Phase 3: seg_full_max_bwd (K5b) against its plain version on the
     streams of ``seg_bwd_streams``. Rows of segments with at most two kept
     rows, and rows that are not kept, must agree exactly; the others within
@@ -1633,7 +1675,8 @@ def check_seg_max_bwd_kernel(dev, model):
 
     bound = model.max_points_per_voxel
     cases = []
-    for b, dtype, kind, c, sv, x, g in seg_bwd_streams(dev, model):
+    for b, dtype, kind, c, sv, x, g in seg_bwd_streams(dev, model, streams,
+                                                       clouds):
         first, last = sv.first, sv.last
         n = first.shape[1]
         shape = (b, n, c)
@@ -2387,7 +2430,7 @@ PHASE_SEEDS = {"4": 40, "4d": 41, "4e": 42, "4f": 43, "4g": 44, "4h": 45,
                "4j": 70, "4k": 71, "4l": 72, "4m": 73, "5k": 74, "5l": 75,
                "5m": 76, "5n": 77, "4n": 80, "4o": 81, "4p": 82, "5o": 83,
                "5p": 84, "5q": 85, "4q": 86, "4r": 87, "4s": 88, "5r": 89,
-               "4t": 90, "5s": 91}
+               "4t": 90, "5s": 91, "4w": 92, "5t": 93}
 
 
 def _seeded(phase: str) -> torch.Generator:
@@ -7757,14 +7800,14 @@ VOXEL_TRAIN_CP_TOL = dict(PP_TRAIN_TOL, cancelled=1e-9)
 
 
 def _f32_checks(fn):
-    """``fn(dev)`` with TF32 off, the flags restored after."""
-    def run(dev):
+    """``fn(dev, *args)`` with TF32 off, the flags restored after."""
+    def run(dev, *args):
         tf32 = (torch.backends.cudnn.allow_tf32,
                 torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            return fn(dev)
+            return fn(dev, *args)
         finally:
             (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32) = tf32
@@ -8556,48 +8599,82 @@ def _relu_kinks(relu, result, bad):
     return kinked
 
 
-@_f32_checks
-def check_nuscenes_train_f32(dev):
-    """Phase 5s: the config's train step (``nuscenes_optimizer``: AdamW
-    with decay 0.01 and clip 35 under ``one_cycle(2e-3, 140000)``, the NaN
-    guard; ``loss_from_gt`` of the single-stage model) on one batch fed by
-    ``nuscenes_batches`` (NUSC_STEP_CHECK_BATCH cloud of the config's data
-    section at one thread), f32 on the card and the CPU and in f64 compute
-    on the CPU (the referee), from the seeded weights, held as 5r holds the
-    same model's voxel step (``_referee_checks`` at NUSC_STEP_TOL: the
-    loss, its parts, grad_norm, the reader's, the RPN's and the head's
-    gradients as parts and every parameter's gradient at most
-    ``referee_k`` times as far from the referee as the f32 CPU's plus a
-    floor, the BN statistics; a parameter past that bound passes only
-    upstream of a ReLU that ``_relu_kinks`` finds flipped by rounding, and
-    is reported; K5f and K5b once each on the card); and the schedule's lr on
-    the card at counts 0, 1, the peak's and the descent's equal to the
-    plain one-cycle formula's to f32 rounding (1e-6 relative)."""
-    from minddet_tpu_torch import kernels
-    from minddet_tpu_torch.entry import (CP_CONFIG, KITTI_BATCH_KEYS, SEED,
-                                         model_gt_loss, nuscenes_optimizer,
-                                         read_config)
-    from minddet_tpu_torch.models.detectors.centerpoint import CenterPoint
-    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+def _config_step_inputs(cfg, records, batches):
+    """(config, one fed raw batch, the model's arguments): ``batches``, the
+    config's data path, over ``records`` at one loader thread, a batch of
+    NUSC_STEP_CHECK_BATCH cloud."""
+    from minddet_tpu_torch.entry import (CP_FIXED_KEYS, CP_MODEL_KEYS, SEED,
+                                         _config_kwargs)
+
+    data = dict(cfg["data"], workers=1, records=records)
+    it = batches({"data": data}, NUSC_STEP_CHECK_BATCH, seed=SEED)
+    raw = next(it)
+    it.close()
+    return cfg, raw, _config_kwargs(cfg["model"], CP_MODEL_KEYS, ("type",),
+                                    CP_FIXED_KEYS, "CenterPoint")
+
+
+def _nusc_step_inputs():
+    """5s's ``_config_step_inputs``: ``configs/centerpoint_pp_nusc.yaml``,
+    ``nuscenes_batches`` over NUSC_STEP_CHECK_FRAMES keyframes."""
+    from minddet_tpu_torch.entry import CP_CONFIG, read_config
     from minddet_tpu_torch.train.synthetic import (nuscenes_batches,
                                                    synthetic_nuscenes_records)
 
+    return _config_step_inputs(read_config(CP_CONFIG),
+                               synthetic_nuscenes_records(
+                                   NUSC_STEP_CHECK_FRAMES,
+                                   seed=PHASE_SEEDS["5s"], scenes=1),
+                               nuscenes_batches)
+
+
+def _waymo_step_inputs():
+    """5t's ``_config_step_inputs``: ``waymo_config()``, ``waymo_batches``
+    over WAYMO_STEP_CHECK_FRAMES frames."""
+    from minddet_tpu_torch.entry import waymo_config
+    from minddet_tpu_torch.train.synthetic import (synthetic_waymo_records,
+                                                   waymo_batches)
+
+    return _config_step_inputs(waymo_config(), synthetic_waymo_records(
+        WAYMO_STEP_CHECK_FRAMES, seed=PHASE_SEEDS["5t"]), waymo_batches)
+
+
+@_f32_checks
+def check_config_train_f32(dev, kind: str, inputs):
+    """Phase 5s ("nuScenes") and 5t ("Waymo"): the config's train step
+    (``nuscenes_optimizer``: AdamW with decay 0.01 and clip 35 under
+    ``one_cycle(2e-3, 140000)`` or, for Waymo, ``one_cycle(3e-3, 280000)``,
+    the NaN guard; ``loss_from_gt`` of the single-stage model) on one batch
+    fed by its data path (``inputs``: ``_nusc_step_inputs`` or
+    ``_waymo_step_inputs``), f32 on the card and the
+    CPU and in f64 compute on the CPU (the referee), from the seeded
+    weights, held as 5r holds the same model's voxel step
+    (``_referee_checks`` at NUSC_STEP_TOL: the loss, its parts, grad_norm,
+    the reader's, the RPN's and the head's gradients as parts and every
+    parameter's gradient at most ``referee_k`` times as far from the
+    referee as the f32 CPU's plus a floor, the BN statistics; a parameter
+    past that bound passes only upstream of a ReLU that ``_relu_kinks``
+    finds flipped by rounding, and is reported; K5f and K5b once each on
+    the card); and the schedule's lr on the card at counts 0, 1, the
+    peak's and the descent's equal to the plain one-cycle formula's to f32
+    rounding (1e-6 relative)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (KITTI_BATCH_KEYS, SEED,
+                                         model_gt_loss, nuscenes_optimizer)
+    from minddet_tpu_torch.models.detectors.centerpoint import CenterPoint
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
     result, bad = {}, []
-    cfg = read_config(CP_CONFIG)
-    data = dict(cfg["data"], workers=1, records=synthetic_nuscenes_records(
-        NUSC_STEP_CHECK_FRAMES, seed=PHASE_SEEDS["5s"], scenes=1))
-    it = nuscenes_batches({"data": data}, NUSC_STEP_CHECK_BATCH, seed=SEED)
-    raw = next(it)
-    it.close()
+    cfg, raw, kwargs = inputs
     batch = {k: torch.from_numpy(raw[k]) for k in KITTI_BATCH_KEYS}
     result["boxes"] = int(raw["gt_mask"].sum())
-    start = CenterPoint().init_weights(
+    start = CenterPoint(**kwargs).init_weights(
         torch.Generator().manual_seed(SEED)).state_dict()
     snaps, relu = {}, {}
     for name, d, dtype in (("card", dev, torch.float32),
                            ("cpu", "cpu", torch.float32),
                            ("referee", "cpu", torch.float64)):
-        model = CenterPoint(dtype=dtype).to(
+        model = CenterPoint(**kwargs, dtype=dtype).to(
             device=d, memory_format=torch.channels_last)
         model.load_state_dict(start)
         relu[name], hooks = _hook_head_relu_inputs(model)
@@ -8610,11 +8687,11 @@ def check_nuscenes_train_f32(dev):
             h.remove()
         snaps[name] = _train_snapshot(state, metrics)
         launches = {k.name: k.launches for k in kernels.KERNELS}
-        print(f"  nuScenes {name} step {time.perf_counter() - t0:.1f} s, "
+        print(f"  {kind} {name} step {time.perf_counter() - t0:.1f} s, "
               f"loss {snaps[name]['metrics']['loss']:.6f}", flush=True)
         if name == "card" and launches != _centerpoint_launches(
                 1, ("seg_full_max", "seg_full_max_bwd")):
-            bad.append(f"the nuScenes train step launched {launches}")
+            bad.append(f"the {kind} train step launched {launches}")
         del state, model
     kinked = _relu_kinks(relu, result, bad)
     del relu
@@ -8637,43 +8714,69 @@ def check_nuscenes_train_f32(dev):
         result[f"lr_{count}"] = got
         if abs(got - want) > 1e-6 * want:
             bad.append(f"one_cycle at {count}: {got} != {want}")
-    print("  f32 nuScenes train step card vs CPU and the referee: " + " ".join(
+    print(f"  f32 {kind} train step card vs CPU and the referee: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items()), flush=True)
     if bad:
-        raise AssertionError(f"f32 nuScenes train step: {bad}: {result}")
+        raise AssertionError(f"f32 {kind} train step: {bad}: {result}")
     return result
 
 
-def nuscenes_train_main_path(dev, card):
-    """Phase 6at: the config's train step fed by ``nuscenes_batches``
-    (``centerpoint_nusc_train_entry``: f32, batch 4, AdamW with decay 0.01
-    and clip 35 under ``one_cycle``, the NaN guard; the in-memory
-    keyframes, CBGS, the GT database built from them, the sampler, the
-    augmentation, four loader threads), NUSC_FED_EPOCHS epochs of steps
-    (CBGS's epoch), each on the next batch, launch counts from 0: K5f and
-    K5b once a step, nothing else; every loss finite and every step
-    applied. The steps after the first epoch are timed with the wait for
-    each next batch apart (the loader has no back-pressure: its first
-    epoch runs ahead of the step): their mean, each timed epoch's mean,
-    and the 10th, 50th and 90th percentiles and the largest of the whole
-    step, of the wait and of the step without it; then the same step on
-    one fixed batch (what the data path adds). ms on the host clock around
-    synced work; peak memory."""
-    from minddet_tpu_torch import kernels
+def _nusc_fed_spec():
+    """6at's (entry, frames, samples an epoch, batch):
+    ``centerpoint_nusc_train_entry`` over NUSC_TRAIN_FRAMES keyframes,
+    whose CBGS epoch it counts, at the config's batch."""
     from minddet_tpu_torch.data.nuscenes import NuScenesDetection
-    from minddet_tpu_torch.entry import (NUSC_TRAIN_FRAMES, NUSC_TRAIN_SCENES,
-                                         SEED, centerpoint_nusc_train_entry)
+    from minddet_tpu_torch.entry import (CP_CONFIG, NUSC_TRAIN_FRAMES,
+                                         NUSC_TRAIN_SCENES, SEED,
+                                         centerpoint_nusc_train_entry,
+                                         read_config)
     from minddet_tpu_torch.train.synthetic import synthetic_nuscenes_records
 
-    per_epoch = len(NuScenesDetection(synthetic_nuscenes_records(
+    samples = len(NuScenesDetection(synthetic_nuscenes_records(
         NUSC_TRAIN_FRAMES, seed=SEED, scenes=NUSC_TRAIN_SCENES), cbgs=True,
-        seed=SEED)) // NUSC_TRAIN_BATCH
+        seed=SEED))
+    return (centerpoint_nusc_train_entry, NUSC_TRAIN_FRAMES, samples,
+            int(read_config(CP_CONFIG)["train"]["batch_size"]))
+
+
+def _waymo_fed_spec():
+    """6ax's (entry, frames, samples an epoch, batch):
+    ``centerpoint_waymo_train_entry`` over WAYMO_TRAIN_FRAMES frames, one
+    sample each, at the config's batch."""
+    from minddet_tpu_torch.entry import (WAYMO_TRAIN_FRAMES,
+                                         centerpoint_waymo_train_entry)
+
+    return (centerpoint_waymo_train_entry, WAYMO_TRAIN_FRAMES,
+            WAYMO_TRAIN_FRAMES, _waymo_batch_sizes()[0])
+
+
+def fed_train_main_path(dev, card, kind: str, spec):
+    """Phases 6at ("nuScenes", ``_nusc_fed_spec``) and 6ax ("Waymo",
+    ``_waymo_fed_spec``): the config's train step fed by its data path
+    (``centerpoint_nusc_train_entry``, f32, the config's batch,
+    AdamW with decay 0.01 and clip 35 under ``one_cycle``, the NaN guard;
+    the in-memory keyframes, CBGS, the GT database built from them, the
+    sampler, the augmentation, four loader threads; or
+    ``centerpoint_waymo_train_entry``, the same over Waymo-like frames
+    without CBGS), NUSC_FED_EPOCHS epochs of steps, each on the next batch,
+    launch counts from 0: K5f and K5b once a step, nothing else; every loss
+    finite and every step applied. The steps after the first epoch are
+    timed with the wait for each next batch apart (the loader has no
+    back-pressure: its first epoch runs ahead of the step): their mean,
+    each timed epoch's mean, and the 10th, 50th and 90th percentiles and
+    the largest of the whole step, of the wait and of the step without it;
+    then the same step on one fixed batch (what the data path adds). ms on
+    the host clock around synced work; peak memory."""
+    from minddet_tpu_torch import kernels
+
+    entry_fn, frames, samples, batch_size = spec
+    per_epoch = samples // batch_size
     fed_steps = NUSC_FED_EPOCHS * per_epoch
     torch.zeros(1, device=dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    step_fn, (state, batches) = centerpoint_nusc_train_entry(device=dev)
+    step_fn, (state, batches) = entry_fn(device=dev)
     kernels.reset_launches()
     history, times, waits, first_epoch = [], [], [], []
     for i in range(fed_steps):
@@ -8713,7 +8816,7 @@ def nuscenes_train_main_path(dev, card):
                     max=max(xs) * 1e3)
 
     own = [t - w for t, w in zip(times, waits)]
-    out = dict(batch=NUSC_TRAIN_BATCH, frames=NUSC_TRAIN_FRAMES,
+    out = dict(batch=batch_size, frames=frames,
                steps_per_epoch=per_epoch, steps=fed_steps,
                timed_steps=len(times), ms_per_step=mean_s * 1e3,
                ms_p50=statistics.median(times) * 1e3,
@@ -8722,7 +8825,7 @@ def nuscenes_train_main_path(dev, card):
                    for i in range(0, len(times), per_epoch)],
                step_ms=spread(times), wait_ms=spread(waits),
                step_without_wait_ms=spread(own),
-               clouds_per_s=NUSC_TRAIN_BATCH / mean_s,
+               clouds_per_s=batch_size / mean_s,
                fixed_batch_ms_per_step=fixed_s * 1e3,
                data_path_ms_per_step=(mean_s - fixed_s) * 1e3,
                next_batch_ms=wait_s * 1e3,
@@ -8736,8 +8839,8 @@ def nuscenes_train_main_path(dev, card):
     dist = "; ".join(
         f"{k} " + " / ".join(f"{v:.1f}" for v in out[k].values())
         for k in ("step_ms", "wait_ms", "step_without_wait_ms"))
-    print(f"  the nuScenes config's step fed by nuscenes_batches, batch "
-          f"{NUSC_TRAIN_BATCH}, CBGS epochs of {per_epoch} steps, epochs 2-"
+    print(f"  the {kind} config's step fed by its batches, batch "
+          f"{batch_size}, epochs of {per_epoch} steps, epochs 2-"
           f"{NUSC_FED_EPOCHS} ({len(times)} steps): {out['ms_per_step']:.3f} "
           f"ms/step (by epoch " + " / ".join(
               f"{v:.3f}" for v in out["epoch_ms_per_step"]) + f"; p10 / p50 "
@@ -8749,16 +8852,20 @@ def nuscenes_train_main_path(dev, card):
           f"data path adds {out['data_path_ms_per_step']:.3f} ms; "
           f"{out['valid_boxes']} boxes in the last batch; peak "
           f"{peak / 2 ** 30:.2f} GiB; {card}", flush=True)
+    if batch["gt_mask"].shape[0] != batch_size:
+        raise AssertionError(f"the {kind} batches hold "
+                             f"{batch['gt_mask'].shape[0]} clouds, not the "
+                             f"config's {batch_size}")
     if not all(math.isfinite(v) for m in history for v in m.values()):
-        raise AssertionError(f"the nuScenes-fed step is not finite: "
+        raise AssertionError(f"the {kind}-fed step is not finite: "
                              f"{history}")
     if applied != fed_steps + TRAIN_WARMUP + TRAIN_STEPS:
-        raise AssertionError(f"{applied} nuScenes steps applied of "
+        raise AssertionError(f"{applied} {kind} steps applied of "
                              f"{fed_steps + TRAIN_WARMUP + TRAIN_STEPS}")
     want = _centerpoint_launches(fed_steps, ("seg_full_max",
                                              "seg_full_max_bwd"))
     if launches != want:
-        raise AssertionError(f"{launches} in {fed_steps} nuScenes steps "
+        raise AssertionError(f"{launches} in {fed_steps} {kind} steps "
                              f"(want {want})")
     print(f"  kernels: {launches}: seg_full_max == seg_full_max_bwd == steps: "
           f"True", flush=True)
@@ -8878,6 +8985,385 @@ def nuscenes_tracking_main_path(dev, card):
                              f"{want})")
     print(f"  kernels: {launches}: seg_full_max == rotated_iou_intersect == "
           f"batches: True", flush=True)
+    return out
+
+
+# CenterPoint's Waymo data, train and eval paths (``entry.waymo_config``:
+# configs/centerpoint_pp_waymo.yaml at +-76.8 m and 480 x 480)
+WAYMO_SERVE_BATCHES = (1, 4)  # 6aw
+WAYMO_NMS_POST = 83      # detections kept by the one task
+WAYMO_CHECK_FRAMES = 4   # 4w: frames of one loader batch; the first two ...
+WAYMO_CHECK_EVAL = 2     # ... one evaluator batch a route, card and CPU
+WAYMO_CHECK_BATCHES = 2  # 4w: loader batches compared at one thread
+WAYMO_ORACLE_KEEP = 0.85  # 4w: the share of the GT the oracle detects ...
+WAYMO_ORACLE_FAR = 0.2   # ... and of its detections 1.5 m off (no match)
+WAYMO_TABLE_TOL = 1e-6   # 4w: every entry of the two sides' tables
+WAYMO_STEP_CHECK_FRAMES = 4  # 5t: frames the one fed cloud is drawn from
+WAYMO_ROUTE_KERNELS = {
+    "plain": ("seg_full_max", "rotated_iou_intersect"),
+    "refined": ("seg_full_max", "rotated_iou_intersect",
+                "bilinear_gather_fwd")}
+_WAYMO_CLOUDS: dict = {}
+
+
+def _waymo_batch_sizes():
+    """(the Waymo config's train batch, ``waymo_evaluate``'s predict
+    batch), read where they are set."""
+    from minddet_tpu_torch.entry import waymo_config
+    from minddet_tpu_torch.train.evaluate import WAYMO_EVAL_BATCH
+
+    return int(waymo_config()["train"]["batch_size"]), WAYMO_EVAL_BATCH
+
+
+def _waymo_clouds(model, batch: int, seed: int, dev):
+    """``batch`` Waymo-like frames as the Waymo paths feed them
+    (``entry.waymo_clouds``: 160,000 of 160,000-180,000 returns), on
+    ``dev``; drawn once per batch size (``model`` and ``seed`` are
+    ``_nusc_clouds``' arguments, which the frames do not depend on)."""
+    from minddet_tpu_torch.entry import SEED, waymo_clouds
+
+    if batch not in _WAYMO_CLOUDS:
+        _WAYMO_CLOUDS[batch] = waymo_clouds(batch, "cpu", seed=SEED + 10
+                                            + batch)
+    return tuple(t.to(dev) for t in _WAYMO_CLOUDS[batch])
+
+
+def waymo_candidate_boxes(b: int, n: int, gen) -> torch.Tensor:
+    """(b, n, 5) BEV boxes drawn as ``candidate_boxes`` draws them, their
+    centres moved from KITTI's range (x 0-69.12 m, y +-39.68 m) onto the
+    Waymo model's +-76.8 m in both axes."""
+    boxes = candidate_boxes(b, n, gen)
+    boxes[..., 0] = (boxes[..., 0] - 34.56) * (76.8 / 34.56)
+    boxes[..., 1] = boxes[..., 1] * (76.8 / 39.68)
+    return boxes
+
+
+def waymo_eval_frame_boxes(seed: int = 18):
+    """One of ``evaluate_waymo``'s IoU calls: the BEV slices that
+    ``rotated_iou_3d`` gives K4 for the vehicles of one
+    ``synthetic_waymo_records`` frame, (1, WAYMO_NMS_POST, 5) detections
+    (the plain route's kept slots: the GT moved by up to 0.3 m and turned
+    by up to 0.1 rad, the rest vehicles anywhere within 75 m) against the
+    (1, m, 5) GT, on the CPU."""
+    from minddet_tpu_torch.train.synthetic import synthetic_waymo_records
+
+    rec = synthetic_waymo_records(1, seed=seed)[0]
+    gt = rec["gt_boxes"][rec["gt_classes"] == 1][:, [0, 1, 3, 4, 6]]
+    rs = np.random.RandomState(seed)
+    det = np.zeros((WAYMO_NMS_POST, 5), np.float32)
+    k = min(len(gt), WAYMO_NMS_POST)
+    det[:k] = gt[:k]
+    det[:k, :2] += rs.uniform(-0.3, 0.3, (k, 2))
+    det[:k, 4] += rs.uniform(-0.1, 0.1, k)
+    rest = WAYMO_NMS_POST - k
+    r, a = 75.0 * np.sqrt(rs.rand(rest)), rs.uniform(-np.pi, np.pi, rest)
+    det[k:] = np.stack([r * np.cos(a), r * np.sin(a),
+                        rs.uniform(1.8, 2.4, rest), rs.uniform(4.2, 5.4, rest),
+                        rs.uniform(-np.pi, np.pi, rest)], -1)
+    return torch.from_numpy(det)[None], torch.from_numpy(gt.copy())[None]
+
+
+def check_waymo_kernels(dev):
+    """Phase 3's cases at the Waymo paths' shapes, on the two-stage model
+    of ``waymo_config(two_stage=True)`` (the plain model's geometry, 480 x
+    480, one task): K4 at the serving NMS's (B, 1000, 5)^2, B = 1 and 4,
+    and the evaluation's (2, 1000, 5)^2 on ``waymo_candidate_boxes``, and
+    at one of the evaluator's IoU calls (``waymo_eval_frame_boxes``); K5f
+    in f32 at (B, 160000, 32), B = 1, 2 and 4 (serving, the evaluation,
+    the train step) and K5b at the train step's B = 4, also on the strided
+    g the PFN's cat hands it, on the voxelizer's streams of Waymo-like
+    frames (``_waymo_clouds``); K3f at the refined route's (2, 120 * 120,
+    384) x 5 * 83 points, ``grid_sample`` beside it. Returns the cases by
+    kernel name; every case's ``stream`` or ``kind`` names Waymo."""
+    from minddet_tpu_torch.entry import build_centerpoint, waymo_config
+
+    train_batch, eval_batch = _waymo_batch_sizes()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    model = build_centerpoint(dev, waymo_config(two_stage=True))
+    iou = []
+    for kind, b in [("waymo_serve", b) for b in WAYMO_SERVE_BATCHES] + [
+            ("waymo_eval", eval_batch)]:
+        boxes = waymo_candidate_boxes(b, CP_CANDIDATES, torch.Generator(
+        ).manual_seed(20 + b)).to(dev)
+        iou.append(_iou_case(kind, boxes, boxes, sms))
+    dets, gts = (t.to(dev) for t in waymo_eval_frame_boxes())
+    iou.append(_iou_case("waymo_eval_frame", dets, gts, sms))
+    seg = check_seg_max_kernel(
+        dev, model, tuple((b, torch.float32, PFN_HALF_WIDTH) for b in (
+            1, eval_batch, train_batch)), _waymo_clouds, "waymo")
+    seg_bwd = check_seg_max_bwd_kernel(
+        dev, model, ((train_batch, torch.float32, "waymo",
+                      PFN_HALF_WIDTH),
+                     (train_batch, torch.float32, "waymo, strided g",
+                      PFN_HALF_WIDTH)), _waymo_clouds)
+    gather = check_bilinear_kernel(dev, None, model, (
+        (eval_batch, WAYMO_NMS_POST, torch.Generator().manual_seed(19)),
+    ))
+    for c in gather:
+        c["stream"] = "waymo refined"
+    _WAYMO_CLOUDS.clear()
+    del model
+    torch.cuda.empty_cache()
+    return {"rotated_iou_intersect": iou, "seg_full_max": seg,
+            "seg_full_max_bwd": seg_bwd, "bilinear_gather_fwd": gather}
+
+
+def _waymo_oracle(gt, rs):
+    """Detections made from a frame's GT anno (the evaluator's oracle), in
+    ``evaluate_waymo``'s layout: WAYMO_ORACLE_KEEP of the boxes, centres
+    +-0.05 m and headings +-0.05 rad off (IoU ~0.9 and up: a match at every
+    class's threshold), WAYMO_ORACLE_FAR of them 1.5 m off instead (below
+    every threshold), scores in [1, 2): ranked above every model
+    detection, so that the model's cannot take a GT that the oracle
+    matches first."""
+    keep = rs.rand(len(gt["boxes"])) < WAYMO_ORACLE_KEEP
+    boxes = gt["boxes"][keep].astype(np.float64)
+    n = len(boxes)
+    boxes[:, :2] += rs.uniform(-0.05, 0.05, (n, 2))
+    far = rs.rand(n) < WAYMO_ORACLE_FAR
+    ang = rs.uniform(-np.pi, np.pi, n)
+    boxes[far, 0] += 1.5 * np.cos(ang[far])
+    boxes[far, 1] += 1.5 * np.sin(ang[far])
+    boxes[:, 6] += rs.uniform(-0.05, 0.05, n)
+    return {"boxes": boxes, "classes": gt["classes"][keep].astype(np.int64),
+            "scores": rs.uniform(1.0, 2.0, n)}
+
+
+def _waymo_iou_calls(gt_annos, dt_annos, breakdowns: bool) -> int:
+    """The K4 launches ``evaluate_waymo`` makes on a card for these annos
+    (1-based ids): one per class, range shard, level and frame where the
+    shard holds both GT and detections of the class."""
+    from minddet_tpu_torch.data.waymo_eval import RANGE_BUCKETS, _bev_range
+
+    shards = [None] + (list(RANGE_BUCKETS) if breakdowns else [])
+    calls = 0
+    for cls in range(1, 4):
+        for rng in shards:
+            for g, d in zip(gt_annos, dt_annos):
+                gb = g["boxes"][g["classes"] == cls]
+                db = d["boxes"][d["classes"] == cls]
+                if rng is not None:
+                    gb = gb[(_bev_range(gb) >= rng[0])
+                            & (_bev_range(gb) < rng[1])]
+                    db = db[(_bev_range(db) >= rng[0])
+                            & (_bev_range(db) < rng[1])]
+                calls += 2 * int(len(gb) > 0 and len(db) > 0)
+    return calls
+
+
+def _as_labels(d):
+    """A detection anno as ``_nusc_pairs`` reads it (labels for classes)."""
+    return {"boxes": d["boxes"], "scores": d["scores"],
+            "labels": d["classes"]}
+
+
+@_f32_checks
+def check_waymo_f32(dev):
+    """Phase 4w: CenterPoint's Waymo path in f32 (TF32 off), card against
+    CPU, on ``synthetic_waymo_records`` (the 160,000 points the dataset
+    keeps of each frame):
+
+    - ``waymo_batches`` of the config's data section (the GT database and
+      sampler, the global augmentation) over WAYMO_CHECK_FRAMES frames at
+      one loader thread, twice: the same WAYMO_CHECK_BATCHES raw batches
+      (the host's; the card sees them as copies);
+    - ``waymo_annos`` of the first WAYMO_CHECK_EVAL frames (one evaluator
+      batch) by the plain and refined routes, models at ``waymo_config``
+      calibrated on the CPU (``calibrate_centerpoint``) and loaded on the
+      card: the same GT annos, the CPU's detections matched one to one on
+      the card (``_nusc_pairs``: at least CP_MATCHED_SHARE), the route's
+      kernels launched once each;
+    - ``evaluate_waymo`` with the range breakdowns on each side's own
+      matched detections with the same oracle's appended
+      (``_waymo_oracle``), its IoUs on the card (K4 once per call that
+      ``_waymo_iou_calls`` counts) and on the CPU: every table entry
+      within WAYMO_TABLE_TOL, and the AP inside (0, 100)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.data.waymo_eval import evaluate_waymo
+    from minddet_tpu_torch.entry import (SEED, WAYMO_ROUTES,
+                                         build_centerpoint, waymo_config)
+    from minddet_tpu_torch.train.evaluate import (WAYMO_EVAL_NAMES,
+                                                  waymo_annos, waymo_dataset)
+    from minddet_tpu_torch.train.synthetic import (synthetic_waymo_records,
+                                                   waymo_batches)
+
+    result, bad = {}, []
+    train_batch, _ = _waymo_batch_sizes()
+    records = synthetic_waymo_records(WAYMO_CHECK_FRAMES,
+                                      seed=PHASE_SEEDS["4w"])
+    data = dict(waymo_config()["data"], records=records, workers=1)
+    runs = []
+    for _ in range(2):
+        it = waymo_batches({"data": data}, train_batch, seed=SEED)
+        runs.append([next(it) for _ in range(WAYMO_CHECK_BATCHES)])
+        it.close()
+    same = all(set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+               for a, b in zip(*runs))
+    result.update(batches_equal=same, batch_keys=sorted(runs[0][0]),
+                  batch_boxes=int(runs[0][0]["gt_mask"].sum()))
+    if not same or "gt_num_points" in runs[0][0]:
+        bad.append("waymo_batches at one thread")
+
+    records = records[:WAYMO_CHECK_EVAL]
+    ds = waymo_dataset(records)
+    exs = [ds[i] for i in range(len(ds))]
+    points = torch.from_numpy(exs[0]["points"][None])
+    pmask = torch.from_numpy(exs[0]["points_mask"][None])
+    tol = {"plain": (PP_BOX_TOL, CP_SCORE_TOL),
+           "refined": (CP_REFINED_TOL, 1e-4)}
+    rs = np.random.RandomState(PHASE_SEEDS["4w"])
+    oracle = None
+    for route, flags in WAYMO_ROUTES.items():
+        cpu = build_centerpoint("cpu", waymo_config(route == "refined"))
+        with torch.no_grad():
+            calibrate_centerpoint(cpu, points, pmask)
+        gpu = build_centerpoint(dev, waymo_config(route == "refined"))
+        gpu.load_state_dict(cpu.state_dict())
+        kernels.reset_launches()
+        gt_g, dt_g = waymo_annos(gpu, waymo_dataset(records), **flags)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        t0 = time.perf_counter()
+        gt_c, dt_c = waymo_annos(cpu, waymo_dataset(records), **flags)
+        result[f"{route}_cpu_s"] = time.perf_counter() - t0
+        del cpu, gpu
+        if launches != _centerpoint_launches(1, WAYMO_ROUTE_KERNELS[route]):
+            bad.append(f"{route}: the card launched {launches}")
+        if not all(all(np.array_equal(a[k], b[k]) for k in b)
+                   for a, b in zip(gt_g, gt_c)):
+            bad.append(f"{route}: the GT annos")
+        pairs = [_nusc_pairs(_as_labels(g), _as_labels(c), *tol[route])
+                 for g, c in zip(dt_g, dt_c)]
+        n_cpu = sum(len(p) for p in pairs)
+        share = sum(int((p >= 0).sum()) for p in pairs) / max(n_cpu, 1)
+        result[f"{route}_detections_cpu"] = n_cpu
+        result[f"{route}_matched_share"] = share
+        if share < CP_MATCHED_SHARE or n_cpu == 0:
+            bad.append(f"{route}: detections as sets")
+        if oracle is None:
+            oracle = [_waymo_oracle(g, rs) for g in gt_c]
+        own_g, own_c = [], []
+        for g, c, p, o in zip(dt_g, dt_c, pairs, oracle):
+            m = p >= 0
+            own_g.append({k: np.concatenate([g[k][p[m]], o[k]]) for k in o})
+            own_c.append({k: np.concatenate([c[k][m], o[k]]) for k in o})
+        kernels.reset_launches()
+        tg = evaluate_waymo(gt_g, own_g, WAYMO_EVAL_NAMES, True, device=dev)
+        calls = kernels.ROTATED_IOU.launches
+        tc = evaluate_waymo(gt_c, own_c, WAYMO_EVAL_NAMES, True)
+        want = _waymo_iou_calls(gt_g, own_g, True)
+        result[f"{route}_evaluator_launches"] = calls
+        if calls != want:
+            bad.append(f"{route}: the evaluator launched K4 {calls} times "
+                       f"(want {want})")
+        diff = max(_table_diff(tg[k], tc[k]) for k in tc)
+        result[f"{route}_table_max_abs_diff"] = diff
+        result[f"{route}_AP_L1"] = {k: tc[k]["AP_L1"] for k in tc}
+        if diff > WAYMO_TABLE_TOL:
+            bad.append(f"{route}: the tables")
+        if not all(0 < tc[k]["AP_L1"] < 100 for k in tc):
+            bad.append(f"{route}: an AP at a bound")
+    print("  f32 Waymo path card vs CPU: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in result.items()), flush=True)
+    if bad:
+        raise AssertionError(f"f32 Waymo path, card vs CPU: {bad}: "
+                             f"{result}")
+    return result
+
+
+def _check_waymo_detections(det, b):
+    """Detections of the calibrated Waymo model: (b, 83) slots, all filled
+    (1000 valid candidates), labels of the three classes, scores in (0,
+    1], positive sizes, zero velocities' slots finite."""
+    boxes, scores, labels = det["boxes"], det["scores"], det["labels"]
+    kept = labels >= 0
+    ok = (boxes.shape == (b, WAYMO_NMS_POST, 9)
+          and scores.shape == (b, WAYMO_NMS_POST)
+          and bool(torch.isfinite(boxes).all())
+          and bool(torch.isfinite(scores).all())
+          and bool(kept.all()) and bool((labels <= 2).all())
+          and bool((scores > 0).all()) and bool((scores <= 1).all())
+          and bool((boxes[..., 3:6] > 0).all()))
+    if not ok:
+        raise AssertionError(f"Waymo CenterPoint predict at batch {b}: boxes "
+                             f"{tuple(boxes.shape)}, kept "
+                             f"{kept.sum(1).tolist()}, finite "
+                             f"{bool(torch.isfinite(boxes).all())}")
+
+
+def waymo_eval_main_path(dev, card):
+    """Phase 6ay: ``centerpoint_waymo_eval_entry`` by each route (the plain
+    model's ``predict_from_points``, the two-stage model's
+    ``predict_refined``): ``waymo_evaluate`` over the entry's
+    WAYMO_EVAL_FRAMES frames at the reference's protocol, the model
+    calibrated and warmed on the first batch, launch counts from 0: the
+    route's kernels once per batch and K4 once more per call of the
+    evaluator's IoU (``_waymo_iou_calls`` on the annos it was given, read
+    by a spy that passes the call on),
+    nothing else; ms per frame split into load, copy, predict and the
+    host's protocol (evaluate: the IoUs on the card and the matching); the
+    table finite."""
+    from unittest import mock
+
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.entry import (WAYMO_ROUTES,
+                                         centerpoint_waymo_eval_entry)
+    from minddet_tpu_torch.train import evaluate as ev
+    from minddet_tpu_torch.train.evaluate import WAYMO_EVAL_BATCH
+
+    out, launches = {}, None
+    for route in WAYMO_ROUTES:
+        evaluate_fn, (model, ds) = centerpoint_waymo_eval_entry(dev, route)
+        fresh = ev.waymo_dataset(ds.records)
+        exs = [fresh[i] for i in range(WAYMO_EVAL_BATCH)]
+        points, pmask = (torch.from_numpy(np.stack([e[k] for e in exs])).to(
+            dev) for k in ("points", "points_mask"))
+        with torch.no_grad():
+            calibrate_centerpoint(model, points, pmask)
+        ev.nuscenes_route(model, refined=route == "refined")(points, pmask)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        timings = {}
+        t0 = time.perf_counter()
+        with mock.patch.object(ev, "evaluate_waymo",
+                               wraps=ev.evaluate_waymo) as spy:
+            table = evaluate_fn(model, ds, timings=timings)
+        wall = time.perf_counter() - t0
+        got = {k.name: k.launches for k in kernels.KERNELS}
+        batches = -(-len(ds) // WAYMO_EVAL_BATCH)
+        (gt_annos, dt_annos), _ = spy.call_args
+        calls = _waymo_iou_calls(gt_annos, dt_annos, False)
+        want = _centerpoint_launches(batches, WAYMO_ROUTE_KERNELS[route])
+        want["rotated_iou_intersect"] += calls
+        r = dict(frames=len(ds), batches=batches, evaluator_launches=calls,
+                 ms_per_frame=wall / len(ds) * 1e3,
+                 parts_ms_per_frame=_per_frame(timings, len(ds)),
+                 detections_per_frame=statistics.mean(
+                     len(d["scores"]) for d in dt_annos),
+                 table=table, launches=got, card=card)
+        out[route] = r
+        print(f"  waymo_evaluate {route}: {r['ms_per_frame']:.3f} ms/frame "
+              f"over {len(ds)} frames (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in r["parts_ms_per_frame"].items())
+              + f"); {r['detections_per_frame']:.1f} detections a frame, "
+              f"{calls} IoU calls of the evaluator; AP_L1 " + " / ".join(
+                  f"{t['AP_L1']:.3f}" for t in table.values())
+              + f"; {card}", flush=True)
+        if not all(math.isfinite(v) for t in table.values()
+                   for v in t.values()):
+            raise AssertionError(f"waymo_evaluate {route}: {table}")
+        if got != want:
+            raise AssertionError(f"waymo_evaluate {route} launched {got} for "
+                                 f"{batches} batches and {calls} evaluator "
+                                 f"calls (want {want})")
+        launches = got if launches is None else {
+            k: launches[k] + v for k, v in got.items()}
+        del model, ds
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    print(f"  kernels: {launches}: each route's once per batch, K4 also once "
+          f"per evaluator call: True", flush=True)
     return out
 
 
@@ -9011,6 +9497,7 @@ def main(argv=None) -> int:
     gather_cases.extend(check_rcnn_mask_crop(dev))
     torch.cuda.empty_cache()
     warp_cases = check_coco_warp(dev, card)
+    waymo_cases = check_waymo_kernels(dev)
 
     referee_ratios = None
     if args.seeds:
@@ -9063,6 +9550,10 @@ def main(argv=None) -> int:
                       "(plain, TTA, refined), card vs CPU")
     nusc_f32 = check_nuscenes_f32(dev)
     torch.cuda.empty_cache()
+    clock.start("4w", "the f32 Waymo data and eval path (plain, refined), "
+                      "card vs CPU")
+    waymo_f32 = check_waymo_f32(dev)
+    torch.cuda.empty_cache()
 
     clock.start("5", "end to end, f32 train step, card vs CPU and the f64 "
                      "referee")
@@ -9109,7 +9600,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     clock.start("5s", "end to end, the nuScenes config's f32 train step on a "
                       "fed batch, card vs CPU and the f64 referee")
-    nusc_train_f32 = check_nuscenes_train_f32(dev)
+    nusc_train_f32 = check_config_train_f32(dev, "nuScenes",
+                                            _nusc_step_inputs())
+    torch.cuda.empty_cache()
+    clock.start("5t", "end to end, the Waymo config's f32 train step on a fed "
+                      "batch, card vs CPU and the f64 referee")
+    waymo_train_f32 = check_config_train_f32(dev, "Waymo",
+                                             _waymo_step_inputs())
     torch.cuda.empty_cache()
     forward_probe = None
     if args.probe:
@@ -9386,7 +9883,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     clock.start("6at", f"main path, the nuScenes config's f32 train step fed "
                        f"by nuscenes_batches at batch {NUSC_TRAIN_BATCH}")
-    nusc_training = nuscenes_train_main_path(dev, card)
+    nusc_training = fed_train_main_path(dev, card, "nuScenes",
+                                        _nusc_fed_spec())
     torch.cuda.empty_cache()
     clock.start("6au", "main path, nuscenes_evaluate by the plain, TTA and "
                        "refined routes (f32)")
@@ -9395,6 +9893,37 @@ def main(argv=None) -> int:
     clock.start("6av", "main path, nuscenes_tracking_evaluate over one 20 s "
                        "scene (f32)")
     nusc_tracking = nuscenes_tracking_main_path(dev, card)
+    torch.cuda.empty_cache()
+    clock.start("6aw", "main path, CenterPoint Waymo f32 serving")
+    from minddet_tpu_torch.entry import centerpoint_waymo_entry
+
+    wm_programs = {b: centerpoint_waymo_entry(device=dev, batch=b)
+                   for b in WAYMO_SERVE_BATCHES}
+    for predict, clouds in wm_programs.values():
+        calibrate_centerpoint(predict.__self__, *clouds)
+    kernels.reset_launches()
+    waymo_serving, wm_predicts = serve_clouds(
+        "CenterPoint Waymo", wm_programs, dev, _check_waymo_detections)
+    wm_launches = {k.name: k.launches for k in kernels.KERNELS}
+    if wm_launches != _centerpoint_launches(wm_predicts,
+                                            WAYMO_ROUTE_KERNELS["plain"]):
+        raise AssertionError(f"Waymo serving launched {wm_launches} for "
+                             f"{wm_predicts} requests (want one each of "
+                             f"seg_full_max and rotated_iou_intersect per "
+                             f"request, nothing else)")
+    print(f"  kernels: {wm_launches} requests={wm_predicts} seg_full_max == "
+          f"rotated_iou_intersect == requests: True", flush=True)
+    del wm_programs
+    torch.cuda.empty_cache()
+    wm_train_batch, wm_eval_batch = _waymo_batch_sizes()
+    clock.start("6ax", f"main path, the Waymo config's f32 train step fed by "
+                       f"waymo_batches at batch {wm_train_batch}")
+    waymo_training = fed_train_main_path(dev, card, "Waymo",
+                                         _waymo_fed_spec())
+    torch.cuda.empty_cache()
+    clock.start("6ay", "main path, waymo_evaluate by the plain and refined "
+                       "routes (f32)")
+    waymo_eval = waymo_eval_main_path(dev, card)
     torch.cuda.empty_cache()
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
@@ -9435,6 +9964,15 @@ def main(argv=None) -> int:
                      + [FLAT_SHAPE[1]]]
     flat_bwd_main = [c for c in flat_bwd_cases
                      if c["shape"][0] == TRAIN_BATCH and c["spread"] == 1.5]
+    # the Waymo paths' cases (phase 3): K4 at one batch-4 request's NMS and
+    # one batch-2 evaluation predict's of each route, and one IoU call of
+    # the evaluator per route; K5f at one batch-4 request's, one train
+    # step's and one batch-2 predict's of each route; K5b at one train
+    # step's; K3f at one refined batch-2 predict's
+    waymo_iou = waymo_cases["rotated_iou_intersect"]
+    waymo_seg = waymo_cases["seg_full_max"]
+    waymo_seg_bwd = waymo_cases["seg_full_max_bwd"]
+    waymo_gather = waymo_cases["bilinear_gather_fwd"]
     rows = [
         _kernel_row(kernels.HAT_SAMPLE_TAPS_FWD,
                     taps + train_launches["hat_sample_taps_fwd"]
@@ -9466,7 +10004,9 @@ def main(argv=None) -> int:
                     + cp_voxel["launches"]["rotated_iou_intersect"]
                     + cp_tta["launches"]["rotated_iou_intersect"]
                     + nusc_eval["launches"]["rotated_iou_intersect"]
-                    + nusc_tracking["launches"]["rotated_iou_intersect"],
+                    + nusc_tracking["launches"]["rotated_iou_intersect"]
+                    + wm_launches["rotated_iou_intersect"]
+                    + waymo_eval["launches"]["rotated_iou_intersect"],
                     [c for c in iou_cases if c["kind"] in (
                         "candidates", "train") and c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
@@ -9482,8 +10022,12 @@ def main(argv=None) -> int:
                     + 2 * [c for c in iou_cases if c["kind"] == "candidates"
                            and c["shape"][:2] == [CP_TASKS * CP_BATCHES[-1],
                                                   CP_CANDIDATES]]
-                    + 4 * [c for c in iou_cases if c["kind"] == "nusc_eval"],
-                    1, iou_cases),
+                    + 4 * [c for c in iou_cases if c["kind"] == "nusc_eval"]
+                    + [c for c in waymo_iou if c["kind"] == "waymo_serve"
+                       and c["shape"][0] == WAYMO_SERVE_BATCHES[-1]]
+                    + 2 * [c for c in waymo_iou if c["kind"] in (
+                        "waymo_eval", "waymo_eval_frame")],
+                    1, iou_cases + waymo_iou),
         # K5f: one f32 batch-4 CenterPoint request's call, one bf16
         # batch-8 step's of each CenterPoint train path (two- and
         # single-stage), one f32 batch-4 step's of the nuScenes config's
@@ -9495,22 +10039,31 @@ def main(argv=None) -> int:
                     + cp1_training["launches"]["seg_full_max"]
                     + nusc_training["launches"]["seg_full_max"]
                     + nusc_eval["launches"]["seg_full_max"]
-                    + nusc_tracking["launches"]["seg_full_max"],
+                    + nusc_tracking["launches"]["seg_full_max"]
+                    + wm_launches["seg_full_max"]
+                    + waymo_training["launches"]["seg_full_max"]
+                    + waymo_eval["launches"]["seg_full_max"],
                     2 * [c for c in seg_cases if c["dtype"] == "float32"
                          and c["shape"][0] == CP_BATCHES[-1]]
                     + 2 * train_case(seg_cases)
                     + 3 * [c for c in seg_cases if c["dtype"] == "float32"
-                           and c["shape"][0] == NUSC_EVAL_BATCH], 1,
-                    seg_cases),
+                           and c["shape"][0] == NUSC_EVAL_BATCH]
+                    + 2 * [c for c in waymo_seg
+                           if c["shape"][0] == wm_train_batch]
+                    + 2 * [c for c in waymo_seg
+                           if c["shape"][0] == wm_eval_batch], 1,
+                    seg_cases + waymo_seg),
         _kernel_row(kernels.SEG_FULL_MAX_BWD,
                     cp_train_launches["seg_full_max_bwd"]
                     + cp1_training["launches"]["seg_full_max_bwd"]
-                    + nusc_training["launches"]["seg_full_max_bwd"],
+                    + nusc_training["launches"]["seg_full_max_bwd"]
+                    + waymo_training["launches"]["seg_full_max_bwd"],
                     2 * train_case(seg_bwd_cases)
                     + [c for c in seg_bwd_cases if c["dtype"] == "float32"
                        and c["shape"][0] == NUSC_TRAIN_BATCH
-                       and c["stream"] == "uniform"], 1,
-                    seg_bwd_cases),
+                       and c["stream"] == "uniform"]
+                    + [c for c in waymo_seg_bwd if c["stream"] == "waymo"],
+                    1, seg_bwd_cases + waymo_seg_bwd),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
@@ -9518,8 +10071,10 @@ def main(argv=None) -> int:
                     + mask_rcnn["launches"]["bilinear_gather_fwd"]
                     + rcnn_training["launches"]["bilinear_gather_fwd"]
                     + mask_rcnn_training["launches"]["bilinear_gather_fwd"]
-                    + nusc_eval["launches"]["bilinear_gather_fwd"],
-                    [c for c in gather_cases if c["dtype"] == "float32"
+                    + nusc_eval["launches"]["bilinear_gather_fwd"]
+                    + waymo_eval["launches"]["bilinear_gather_fwd"],
+                    [c for c in waymo_gather if c["dtype"] == "float32"]
+                    + [c for c in gather_cases if c["dtype"] == "float32"
                      and c["shape"][0] in (CP_BATCHES[-1], NUSC_EVAL_BATCH)
                      and "stream" not in c]
                     + train_case(gather_cases) + rcnn_case("box")
@@ -9528,7 +10083,7 @@ def main(argv=None) -> int:
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_mask")
                     + rcnn_train_case(gather_cases, "gt_crop"), 1,
-                    gather_cases, library=True),
+                    gather_cases + waymo_gather, library=True),
         _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
                     cp_train_launches["bilinear_gather_bwd_dx"]
                     + rcnn_training["launches"]["bilinear_gather_bwd_dx"]
@@ -9640,6 +10195,12 @@ def main(argv=None) -> int:
                            nuscenes_training=nusc_training,
                            nuscenes_eval=nusc_eval,
                            nuscenes_tracking=nusc_tracking,
+                           waymo_cases=waymo_cases, waymo_f32=waymo_f32,
+                           waymo_train_f32=waymo_train_f32,
+                           waymo_serving=waymo_serving,
+                           waymo_serving_launches=wm_launches,
+                           waymo_training=waymo_training,
+                           waymo_eval=waymo_eval,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

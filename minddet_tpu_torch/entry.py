@@ -167,6 +167,19 @@ is ``nuscenes_evaluate`` (mAP, NDS and the TP errors) by the plain route
 K5f, K4 and K3f); ``centerpoint_nusc_tracking_entry()`` is
 ``nuscenes_tracking_evaluate`` (the greedy tracker, AMOTA) over one 20 s
 scene of 40 keyframes.
+
+CenterPoint's Waymo path, on ``configs/centerpoint_pp_waymo.yaml`` at
++-76.8 m and a 480 x 480 grid (``waymo_config``: the config's own 468 x
+468 cannot be built): ``centerpoint_waymo_entry()`` serves it from raw
+Waymo-like frames of 160,000 points (K5f and K4 once a request);
+``centerpoint_waymo_train_entry()`` is its train section, nothing cut
+(f32, batch 4, AdamW with decay 0.01 under ``one_cycle(3e-3, 280000)``,
+clip 35, the NaN guard), fed by ``waymo_batches`` (the GT database and
+sampler, the global augmentation, four loader threads) over frames in
+memory: K5f and K5b once a step; ``centerpoint_waymo_eval_entry(route)`` is
+``waymo_evaluate`` (L1 / L2 AP and APH) by the plain route or the refined
+one of a two-stage model at the same geometry (K5f, K4 and K3f once a
+batch, and K4 once per frame, class and level the protocol matches).
 """
 
 from __future__ import annotations
@@ -189,6 +202,7 @@ from minddet_tpu_torch.data.coco import CocoDetection
 from minddet_tpu_torch.data.kitti import KittiDetection
 from minddet_tpu_torch.data.nuscenes import NuScenesDetection
 from minddet_tpu_torch.data.seg import seg_normalize
+from minddet_tpu_torch.data.waymo import WaymoDetection
 from minddet_tpu_torch.models.backbones.resnet import ResNet
 from minddet_tpu_torch.models.detectors.centernet import CenterNet
 from minddet_tpu_torch.models.detectors.centerpoint import (
@@ -212,7 +226,8 @@ from minddet_tpu_torch.train.evaluate import (centernet_evaluate,
                                               kitti_evaluate,
                                               nuscenes_dataset,
                                               nuscenes_evaluate,
-                                              nuscenes_tracking_evaluate)
+                                              nuscenes_tracking_evaluate,
+                                              waymo_dataset, waymo_evaluate)
 from minddet_tpu_torch.train.loop import TrainState, make_train_step
 from minddet_tpu_torch.train.synthetic import (COCO_SIZES, coco_batches,
                                                kitti_batches,
@@ -221,7 +236,9 @@ from minddet_tpu_torch.train.synthetic import (COCO_SIZES, coco_batches,
                                                synthetic_detection_batch,
                                                synthetic_kitti_records,
                                                synthetic_nuscenes_records,
-                                               synthetic_seg_batches)
+                                               synthetic_seg_batches,
+                                               synthetic_waymo_records,
+                                               waymo_batches)
 
 RES = 512
 NUM_CLASSES = 80
@@ -879,8 +896,8 @@ NUSC_ROUTES = {"plain": {}, "tta": {"tta": True}, "refined": {"refined": True}}
 
 
 def nuscenes_optimizer(cfg: Mapping) -> Recipe:
-    """The optimizer of a CenterPoint nuScenes configuration's train
-    section, as the reference's ``build_optimizer`` + ``build_schedule``
+    """The optimizer of a CenterPoint nuScenes (or Waymo) configuration's
+    train section, as the reference's ``build_optimizer`` + ``build_schedule``
     make it: AdamW with the config's weight decay and global-norm clip
     under ``one_cycle(lr_max, total_steps)``, inside the NaN guard (its
     default)."""
@@ -957,6 +974,119 @@ def centerpoint_nusc_tracking_entry(device=None
     ds = nuscenes_dataset(synthetic_nuscenes_records(
         NUSC_TRACK_FRAMES, seed=SEED + 2, scenes=1))
     return nuscenes_tracking_evaluate, (model, ds)
+
+# The Waymo pillar model: configs/centerpoint_pp_waymo.yaml with its range
+# widened from +-74.88 m to +-76.8 m, the range of the JAX package's own
+# Waymo tests (tests/test_waymo_path.py). At the config's 0.32 m pillars its
+# own range gives a 468 x 468 grid, which the RPN's strides (2, 2, 2) do not
+# divide: the up strides (0.5, 1, 2) then give maps of 117, 117 and 118
+# cells, and their concatenation raises in both packages (ROADMAP.md §3).
+# 480 / 8 = 60, so every level lines up and the heads sit at 120 x 120;
+# the range still covers the config's.
+WAYMO_RANGE_XY = 76.8
+WAYMO_GRID = 480
+# the second stage's keys of configs/centerpoint_pp_nusc_two_stage.yaml,
+# taken by the refined route's model (no Waymo two-stage config exists)
+TWO_STAGE_KEYS = ("type", "num_proposals", "fg_iou", "stage2_score_weight",
+                  "stage2_box_weight", "refine_hidden")
+WAYMO_TRAIN_FRAMES = 24  # frames of the in-memory train set: 6 steps an epoch
+WAYMO_EVAL_FRAMES = 16   # frames of the in-memory eval set
+WAYMO_ROUTES = {"plain": {}, "refined": {"refined": True}}
+
+
+def waymo_config(two_stage: bool = False) -> Dict:
+    """``configs/centerpoint_pp_waymo.yaml`` with its x / y range at
+    +-WAYMO_RANGE_XY and its grid at WAYMO_GRID x WAYMO_GRID, every other key
+    its own; with ``two_stage`` the model is ``CenterPointTwoStage`` with
+    TWO_STAGE_KEYS of ``CP_TWO_STAGE_CONFIG``."""
+    cfg = read_config(CP_WAYMO_CONFIG)
+    m, r = cfg["model"], WAYMO_RANGE_XY
+    m.update(pc_range=[-r, -r, m["pc_range"][2], r, r, m["pc_range"][5]],
+             grid_ny=WAYMO_GRID, grid_nx=WAYMO_GRID)
+    if two_stage:
+        two = read_config(CP_TWO_STAGE_CONFIG)["model"]
+        m.update({k: two[k] for k in TWO_STAGE_KEYS})
+    return cfg
+
+
+def waymo_clouds(batch: int, device, seed: int = SEED
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``batch`` frames of ``synthetic_waymo_records(seed=seed)`` as
+    ``WaymoDetection`` gives them to the model (160,000 points of 5
+    features, subsampled from 160,000-180,000), on ``device``."""
+    ds = waymo_dataset(synthetic_waymo_records(batch, seed=seed))
+    exs = [ds[i] for i in range(batch)]
+    return tuple(torch.from_numpy(np.stack([e[k] for e in exs])).to(device)
+                 for k in ("points", "points_mask"))
+
+
+def centerpoint_waymo_entry(device=None, batch: int = 1
+                            ) -> Tuple[Callable[..., Dict],
+                                       Tuple[torch.Tensor, torch.Tensor]]:
+    """(predict_fn, (points, points_mask)): ``predict_fn(points,
+    points_mask)`` is ``CenterPoint.predict_from_points`` of the Waymo model
+    (``waymo_config``: one task of VEHICLE, PEDESTRIAN, CYCLIST, 480 x 480
+    pillars of 0.32 m, max_voxels 32000, 20 points a pillar; f32, seeded;
+    score threshold 0.1, top 1000, NMS IoU 0.2, 83 kept): boxes (batch, 83,
+    9), scores, labels. The clouds are ``waymo_clouds(batch)``."""
+    model = build_centerpoint(device, waymo_config())
+    return model.predict_from_points, waymo_clouds(
+        batch, next(model.parameters()).device)
+
+
+def centerpoint_waymo_train_entry(device=None
+                                  ) -> Tuple[Callable, Tuple[TrainState,
+                                                             Iterator]]:
+    """(step_fn, (state, batches)): ``step_fn(state, next(batches))`` runs
+    one train step in place and returns ``(state, metrics)`` (loss,
+    task0_hm, task0_loc, grad_norm, on the device).
+
+    The train section of ``configs/centerpoint_pp_waymo.yaml``, nothing cut,
+    on ``waymo_config``'s model seeded with ``SEED``: f32 (no dtype is
+    set), channels_last, train mode; ``nuscenes_optimizer`` (AdamW with
+    decay 0.01 and clip 35 under ``one_cycle(3e-3, 280000)``, the NaN
+    guard); ``loss_from_gt`` on 9-wide boxes with zero velocity (the head's
+    velocity code weights apply, as in the reference). ``batches`` are
+    ``waymo_batches`` at the config's batch size (4) over
+    ``synthetic_waymo_records(WAYMO_TRAIN_FRAMES)`` (the GT database built
+    from them with the config's ``min_points``, the sampler, the global
+    augmentation, the config's loader threads), copied to the device,
+    epoch after epoch."""
+    dev = resolve_device(device)
+    cfg = waymo_config()
+    model = build_centerpoint(dev, cfg).train()
+    data = dict(cfg["data"])
+    data["records"] = synthetic_waymo_records(WAYMO_TRAIN_FRAMES, seed=SEED)
+    raw = waymo_batches({"data": data}, int(cfg["train"]["batch_size"]),
+                        seed=SEED)
+    return make_train_step(model_gt_loss), (
+        TrainState.create(model, nuscenes_optimizer(cfg)),
+        kitti_device_batches(raw, dev))
+
+
+def centerpoint_waymo_eval_entry(device=None, route: str = "plain"
+                                 ) -> Tuple[Callable[..., Dict],
+                                            Tuple[CenterPoint,
+                                                  WaymoDetection]]:
+    """(evaluate_fn, (model, dataset)): ``evaluate_fn(model, dataset)`` is
+    ``waymo_evaluate`` at the reference's protocol (batch 2, score
+    threshold 0.1, L1 / L2 AP and APH per class) by ``route``
+    (WAYMO_ROUTES): "plain" (``predict_from_points`` of ``waymo_config``'s
+    model) or "refined" (``predict_refined`` of ``CenterPointTwoStage`` at
+    the same geometry with the second stage of
+    ``configs/centerpoint_pp_nusc_two_stage.yaml``: 128 proposals, fg_iou
+    0.55, refine width 128; no Waymo two-stage config exists), and returns
+    the table. The model is f32 and seeded; the dataset
+    ``synthetic_waymo_records(WAYMO_EVAL_FRAMES)`` without augmentation."""
+    if route not in WAYMO_ROUTES:
+        raise ValueError(f"route must be one of {sorted(WAYMO_ROUTES)}, got "
+                         f"{route!r}")
+    model = build_centerpoint(device, waymo_config(route == "refined"))
+    ds = waymo_dataset(synthetic_waymo_records(WAYMO_EVAL_FRAMES,
+                                               seed=SEED + 1))
+    return functools.partial(waymo_evaluate, **WAYMO_ROUTES[route]), (
+        model, ds)
+
 
 # bench.py:bench_decode_nms_p50: one CenterPoint task head's decode and
 # rotated NMS on a 128 x 128 map, chained over 20 perturbed heatmaps

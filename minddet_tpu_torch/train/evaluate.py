@@ -2,7 +2,8 @@
 ``_pad_batch``, the COCO paths ``coco_evaluate`` and ``centernet_evaluate``
 with ``_keep_res_hw`` and ``_soft_nms_per_class``, the KITTI path
 ``kitti_evaluate``, the nuScenes paths ``nuscenes_evaluate`` and
-``nuscenes_tracking_evaluate``, and the segmentation mIoU,
+``nuscenes_tracking_evaluate``, the Waymo path ``waymo_evaluate`` with
+``WAYMO_EVAL_NAMES``, and the segmentation mIoU,
 ``segmentation_evaluate``).
 
 The device runs the warp (the row-gather kernel K3f on the card), the
@@ -17,7 +18,9 @@ image on the host, and computes the official table with
 evaluations predict on the model's device (the rotated NMS through K4) and
 run the protocol's matching, the tracker and the tracking protocol on the
 host (``data/nuscenes_eval.py``, ``track.py``,
-``data/nuscenes_track_eval.py``).
+``data/nuscenes_track_eval.py``). The Waymo evaluation predicts on the
+model's device and runs the protocol's IoUs there too (``data/
+waymo_eval.py``: K4 on the card), its matching on the host.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from minddet_tpu_torch.data.nuscenes import (DETECTION_CLASSES,
 from minddet_tpu_torch.data.nuscenes_eval import evaluate_nuscenes
 from minddet_tpu_torch.data.nuscenes_track_eval import evaluate_tracking
 from minddet_tpu_torch.data.seg import SegDataset
+from minddet_tpu_torch.data.waymo import WaymoDetection
+from minddet_tpu_torch.data.waymo_eval import evaluate_waymo
 from minddet_tpu_torch.data.transforms import eval_affine, warp_images
 from minddet_tpu_torch.ops.nms import soft_nms
 from minddet_tpu_torch.track import track_sequence
@@ -548,3 +553,91 @@ def nuscenes_tracking_evaluate(model: nn.Module, records,
         timings["evaluate"] = timings.get("evaluate", 0.0) \
             + time.perf_counter() - t0
     return stats
+
+
+# Waymo: L1 / L2 AP and APH
+WAYMO_EVAL_NAMES = ("Vehicle", "Pedestrian", "Cyclist")
+WAYMO_EVAL_BATCH = 2
+WAYMO_SCORE_THRESHOLD = 0.1  # detections kept for the protocol
+
+
+def waymo_dataset(records) -> WaymoDetection:
+    """``records`` itself where it is a dataset, else ``WaymoDetection`` of
+    it (a shard pattern, a list of shard paths or records in memory)
+    without augmentation."""
+    if isinstance(records, (str, list, tuple)):
+        return WaymoDetection(records, augment=False)
+    return records
+
+
+@torch.no_grad()
+def waymo_annos(model: nn.Module, records, refined: bool = False,
+                timings: Optional[Dict[str, float]] = None
+                ) -> Tuple[List[Dict], List[Dict]]:
+    """(GT annos, detection annos) of ``evaluate_waymo`` over ``records``
+    (``waymo_dataset``), frame by frame: the GT straight from each record
+    (7-wide z-bottom boxes, classes, lidar point counts); the detections of
+    ``predict_from_points`` (``refined``: ``predict_refined`` of a
+    two-stage model, else ValueError) on the model's device,
+    WAYMO_EVAL_BATCH frames a call (the tail padded, ``_pad_batch``),
+    those above WAYMO_SCORE_THRESHOLD turned back to 7-wide z-bottom boxes
+    with 1-based classes. With ``timings`` the device is waited for between
+    parts, and their seconds are added there: load (host examples), copy
+    and predict (with the detections back on the host)."""
+    ds = waymo_dataset(records)
+    n = len(ds)
+    if n == 0:
+        raise ValueError("need at least one frame")
+    method = nuscenes_route(model, refined=refined)
+    dev = next(model.parameters()).device
+    laps = _Laps(timings, dev)
+    gt_annos, dt_annos = [], []
+    for start in range(0, n, WAYMO_EVAL_BATCH):
+        idxs = list(range(start, min(start + WAYMO_EVAL_BATCH, n)))
+        exs = [ds[i] for i in idxs]
+        pts = _pad_batch(np.stack([e["points"] for e in exs]),
+                         WAYMO_EVAL_BATCH)
+        msk = _pad_batch(np.stack([e["points_mask"] for e in exs]),
+                         WAYMO_EVAL_BATCH)
+        laps.lap("load")
+        pts, msk = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+        laps.lap("copy")
+        out = method(pts, msk)
+        boxes = out["boxes"].double().cpu().numpy()
+        scores = out["scores"].double().cpu().numpy()
+        labels = out["labels"].long().cpu().numpy()
+        laps.lap("predict")
+        for bi, i in enumerate(idxs):
+            rec = ds.records[i]
+            g = np.asarray(rec["gt_boxes"], np.float64).reshape(-1, 7)
+            gt_annos.append({
+                "boxes": g,
+                "classes": np.asarray(rec["gt_classes"], np.int32),
+                "num_points": np.asarray(rec.get(
+                    "num_points_in_gt", np.full(len(g), 100)))})
+            keep = scores[bi] > WAYMO_SCORE_THRESHOLD
+            b9 = boxes[bi][keep]
+            b7 = np.concatenate([b9[:, :2], (b9[:, 2] - b9[:, 5] / 2)[:, None],
+                                 b9[:, 3:6], b9[:, 8:9]], axis=1)
+            dt_annos.append({"boxes": b7, "classes": labels[bi][keep] + 1,
+                             "scores": scores[bi][keep]})
+    return gt_annos, dt_annos
+
+
+def waymo_evaluate(model: nn.Module, records, refined: bool = False,
+                   timings: Optional[Dict[str, float]] = None
+                   ) -> Dict[str, Dict[str, float]]:
+    """CenterPoint -> the Waymo protocol's L1 / L2 AP and APH per class of
+    WAYMO_EVAL_NAMES over ``records``: ``waymo_annos`` on the route
+    (``predict_from_points``; ``refined``: the two-stage
+    ``predict_refined``), then ``evaluate_waymo`` without the range
+    breakdowns, its IoUs on the model's device. With
+    ``timings``, the parts of ``waymo_annos`` and evaluate (the protocol:
+    the IoUs and the host's matching)."""
+    gt_annos, dt_annos = waymo_annos(model, records, refined, timings)
+    dev = next(model.parameters()).device
+    laps = _Laps(timings, dev)
+    table = evaluate_waymo(gt_annos, dt_annos, classes=WAYMO_EVAL_NAMES,
+                           device=dev)
+    laps.lap("evaluate")
+    return table

@@ -21,6 +21,11 @@ loader); ``synthetic_kitti_records`` makes KITTI-like frames in memory.
 ``NuScenesDetection`` with CBGS, the sampler and the global augmentation,
 the threaded loader); ``synthetic_nuscenes_records`` makes nuScenes-like
 keyframes in memory, scenes of moving objects seen from a moving car.
+``waymo_batches`` is the Waymo pipeline's host half (the GT database,
+``WaymoDetection`` with the sampler and the global augmentation, the
+threaded loader); ``synthetic_waymo_records`` makes Waymo-like frames in
+memory, a 64-beam top lidar's returns around vehicles, pedestrians and
+cyclists.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from minddet_tpu_torch.data.nuscenes import (DETECTION_CLASSES,
                                              NuScenesDetection,
                                              infer_attributes)
 from minddet_tpu_torch.data.seg import SegDataset
+from minddet_tpu_torch.data.waymo import (WAYMO_CLASSES, WaymoDetection,
+                                          waymo_frame_to_example)
 from minddet_tpu_torch.ops import host_ops
 from minddet_tpu_torch.data.transforms import (
     centernet_train_transform_from_draws, draw_mixup, draw_mosaic,
@@ -659,4 +666,162 @@ def synthetic_nuscenes_records(num_frames: int, seed: int = 0,
                 "global_from_lidar": T.astype(np.float32),
                 "gt_track_ids": ids[keep].astype(np.int32),
             })
+    return records
+
+
+def waymo_batches(cfg: Mapping, batch_size: int, seed: int = 0
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """Waymo records -> raw host batches (points, points_mask, gt_boxes
+    9-wide, gt_classes, gt_mask; ``step`` counting from 0), the reference's
+    recipe: the GT database loaded from ``gt_sampler.database`` where that
+    file exists, else built from the records' 7-wide boxes with the
+    config's per-class ``min_points`` (default 5); ``DataBaseSampler``
+    (``max_per_class``, default {VEHICLE: 15}); ``WaymoDetection``
+    (``max_points`` 160000, ``max_gt`` 200, ``augment`` on, by default)
+    seeded with ``seed``, this process's shard and ``cfg["data"]
+    ["workers"]`` threads (default 4). The lidar point counts are left out
+    of the batch (they feed the evaluation, not the loss). ``cfg`` is a
+    configuration mapping as its YAML file loads, with ``data.records`` a
+    shard pattern or records in memory."""
+    dcfg = cfg["data"]
+    sampler_obj = None
+    scfg = dcfg.get("gt_sampler")
+    if scfg:
+        path = scfg.get("database")
+        if path and os.path.exists(path):
+            db = load_database(path)
+        else:
+            db = build_gt_database(
+                WaymoDetection(dcfg["records"]), WAYMO_CLASSES,
+                min_points=dict(scfg.get("min_points", {})) or 5)
+        sampler_obj = DataBaseSampler(
+            db, {str(k): int(v) for k, v in dict(scfg.get(
+                "max_per_class", {"VEHICLE": 15})).items()},
+            {c: i + 1 for i, c in enumerate(WAYMO_CLASSES)})
+    ds = WaymoDetection(
+        dcfg["records"], max_points=int(dcfg.get("max_points", 160000)),
+        max_gt=int(dcfg.get("max_gt", 200)),
+        augment=bool(dcfg.get("augment", True)), gt_sampler=sampler_obj,
+        seed=seed)
+    shard_id, num_shards = process_shard()
+    sampler = DistributedSampler(len(ds), num_shards=num_shards,
+                                 shard_id=shard_id, seed=seed)
+    loader = DataLoader(ds, batch_size, sampler=sampler,
+                        num_workers=dcfg.get("workers", 4))
+    for step, raw in enumerate(loader):
+        raw.pop("gt_num_points", None)
+        raw["step"] = np.asarray(step, np.int32)
+        yield raw
+
+
+# Waymo-like frames: the top lidar, 64 beams from -17.6 to +2.4 degrees,
+# 2.1 m over the road in the vehicle frame (z = 0 on the road), 75 m range.
+# The field of view and the range are the top lidar's in Sun et al.,
+# "Scalability in Perception for Autonomous Driving: Waymo Open Dataset",
+# CVPR 2020, Table 1; the 64 beams are the rows of its range image. The
+# mount height, the returns per object, the clutter share and the ground
+# rings are this generator's own choices, not measured on real frames: the
+# frames' density (the share of pillars kept, how full they are) is theirs.
+WAYMO_POINTS = (160000, 180000)  # returns per frame, drawn in this range
+WAYMO_BEAMS = 64
+WAYMO_ELEVATION = (-17.6, 2.4)   # degrees
+WAYMO_LIDAR_Z = 2.1
+WAYMO_RANGE = 75.0
+WAYMO_OBJECTS = (10, 60)     # labelled objects per frame, drawn in range
+WAYMO_SPARSE_SHARE = 0.2     # objects with 0-5 returns (far or occluded)
+# per class: share of the objects and mean (w, l, h) in m (jittered ~8 %)
+WAYMO_OBJECT_CLASSES = {"VEHICLE": (0.6, (2.1, 4.8, 1.8)),
+                        "PEDESTRIAN": (0.3, (0.85, 0.9, 1.75)),
+                        "CYCLIST": (0.1, (0.8, 1.8, 1.75))}
+
+
+def _waymo_objects(rs: np.random.RandomState, n: int) -> np.ndarray:
+    """Up to ``n`` objects apart in BEV, within WAYMO_RANGE of the lidar:
+    (k, 8) rows [x, y, z_bottom, w, l, h, yaw, class id 1-based]."""
+    names = list(WAYMO_OBJECT_CLASSES)
+    share = np.array([WAYMO_OBJECT_CLASSES[c][0] for c in names])
+    rows = []
+    for ci in rs.choice(len(names), n, p=share / share.sum()):
+        w, l, h = np.asarray(WAYMO_OBJECT_CLASSES[names[ci]][1]) * np.exp(
+            0.08 * rs.randn(3))
+        for _ in range(20):
+            r = (WAYMO_RANGE - 2.0) * np.sqrt(rs.uniform(0.01, 1.0))
+            a = rs.uniform(-np.pi, np.pi)
+            xy = r * np.array([np.cos(a), np.sin(a)])
+            if all(np.hypot(*(xy - o[:2])) > (l + o[4]) / 2 + 0.3
+                   for o in rows):
+                rows.append(np.array([xy[0], xy[1], rs.uniform(0.0, 0.05), w,
+                                      l, h, rs.uniform(-np.pi, np.pi),
+                                      ci + 1]))
+                break
+    return np.stack(rows) if rows else np.zeros((0, 8))
+
+
+def _waymo_points(rs: np.random.RandomState, objs: np.ndarray, total: int
+                  ) -> np.ndarray:
+    """A frame's returns (total, 5) [x, y, z, intensity, elongation]: points
+    inside each object, fewer the farther and 0-5 for WAYMO_SPARSE_SHARE of
+    them; the rest on the beams' rings on the road (below every box's
+    bottom) where a beam meets it within WAYMO_RANGE, and a fifth on
+    walls and trees 15-78 m out and 0-4 m high (a few past the
+    configurations' range)."""
+    parts = []
+    for o in objs:
+        r = np.hypot(o[0], o[1])
+        if rs.rand() < WAYMO_SPARSE_SHARE:
+            k = rs.randint(0, 6)
+        else:
+            k = int(np.clip(15000.0 / max(r, 3.0) * o[4] * o[5] / 8.6, 6,
+                            3000))
+        u = rs.uniform(-0.5, 0.5, (k, 3))
+        c, s = np.cos(o[6]), np.sin(o[6])
+        dx, dy = u[:, 0] * o[3], u[:, 1] * o[4]  # w along the yaw's axis
+        parts.append(np.stack([o[0] + c * dx - s * dy, o[1] + s * dx + c * dy,
+                               o[2] + (u[:, 2] + 0.5) * o[5], rs.rand(k),
+                               rs.beta(1.0, 8.0, k)], -1))
+    rest = total - sum(len(p) for p in parts)
+    clutter = rest // 5
+    ground = rest - clutter
+    elev = np.deg2rad(np.linspace(*WAYMO_ELEVATION, WAYMO_BEAMS))
+    reach = WAYMO_LIDAR_Z / np.tan(-elev[elev < 0])
+    rings = reach[reach <= WAYMO_RANGE]
+    r = np.concatenate([rings[rs.randint(0, len(rings), ground)]
+                        * (1 + 0.01 * rs.randn(ground)),
+                        rs.uniform(15.0, 78.0, clutter)])
+    a = rs.uniform(-np.pi, np.pi, rest)
+    z = np.concatenate([rs.uniform(-0.1, -0.01, ground),
+                        rs.uniform(0.0, 4.0, clutter)])
+    parts.append(np.stack([r * np.cos(a), r * np.sin(a), z,
+                           rs.beta(0.5, 3.0, rest), rs.beta(1.0, 8.0, rest)],
+                          -1))
+    points = np.concatenate(parts).astype(np.float32)
+    return points[rs.permutation(len(points))]
+
+
+def synthetic_waymo_records(num_frames: int, seed: int = 0
+                            ) -> List[Dict[str, np.ndarray]]:
+    """Waymo-like frames in memory, from numpy ``RandomState(seed)``, in the
+    layout of ``data/waymo.py:waymo_frame_to_example``: per frame
+    WAYMO_OBJECTS vehicles, pedestrians and cyclists
+    (``WAYMO_OBJECT_CLASSES``: shares and sizes) on the road, apart in BEV,
+    any heading, and WAYMO_POINTS returns of 5 features
+    (``_waymo_points``). Each box's lidar point count is the number of the
+    frame's points inside it (BEV and height), so that the objects with 0-5
+    returns are LEVEL_2 to the evaluator."""
+    rs = np.random.RandomState(seed)
+    records = []
+    for _ in range(num_frames):
+        objs = _waymo_objects(rs, rs.randint(WAYMO_OBJECTS[0],
+                                             WAYMO_OBJECTS[1] + 1))
+        points = _waymo_points(rs, objs, rs.randint(*WAYMO_POINTS))
+        inside = host_ops.points_in_rboxes(
+            points[:, :2], objs[:, [0, 1, 3, 4, 6]].astype(np.float32))
+        z = points[:, 2:3]
+        inside &= (z >= objs[None, :, 2]) & (z <= objs[None, :, 2]
+                                              + objs[None, :, 5])
+        labels = [{"center": (o[0], o[1], o[2] + o[5] / 2),
+                   "size": (o[4], o[3], o[5]), "heading": o[6],
+                   "type": int(o[7]), "num_points": int(k)}
+                  for o, k in zip(objs, inside.sum(0))]
+        records.append(waymo_frame_to_example(points, labels))
     return records

@@ -28,7 +28,8 @@ Phases (any failure raises and exits non-zero):
    all and per 64 x 64 block, and its time at every tile height; the
    bounded segment max (K5f) at (B, 120000, 32), B = 1 and 4 in f32 and
    B = 1 and 8 (the train step's) in bf16, on streams from the port's
-   voxelizer, exactly; the bilinear row gather (K3f) at (B, 16384,
+   voxelizer, exactly, and on a clustered stream (pillars at the cap of
+   20, x in {-0, 0, 1, 2}); the bilinear row gather (K3f) at (B, 16384,
    384) x 2490 sample points, B = 1 and 4, and x 640 points at B = 8 (the
    train step's), f32 and bf16, points off the map included, with
    ``F.grid_sample`` timed beside it, and K3f, K3dx and K3dcw at C = 3 (a
@@ -1380,16 +1381,26 @@ def _nusc_clouds(model, batch: int, seed: int, dev):
     return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
 
 
-def check_seg_max_kernel(dev, model, shapes=None, clouds=None, stream=None):
-    """Phase 3: seg_full_max (K5f) against its plain version, exactly, on
-    the streams the port's voxelizer makes of ``model``'s clouds
+def clustered_values(shape, dgen, dev, nan: bool = False) -> torch.Tensor:
+    """f32 values drawn from {-0, 0, 1, 2} (and NaN where ``nan``): ties in
+    every long segment, and zero maxima whose sign the order of the max
+    decides."""
+    vals = torch.tensor([-0.0, 0.0, 1.0, 2.0] + ([math.nan] if nan else []),
+                        device=dev)
+    return vals[torch.randint(0, len(vals), shape, generator=dgen,
+                              device=dev)]
+
+
+def seg_fwd_streams(dev, model, shapes=None, clouds=None, values=None):
+    """K5f's phase 3 inputs, case by case: (b, dtype, c, sv, x), the
+    streams the port's voxelizer makes of ``model``'s clouds
     (``clouds(model, batch, seed, dev)``; by default ``_nusc_clouds``'
     120,000 points: pillars over the point cap, more pillars than
     ``max_voxels``), at ``shapes`` (b, dtype, c): by default the serving
     batches and ``nuscenes_evaluate``'s batch 2 in f32 and the train step's
-    batch 8 in bf16; x is N(0, 1), so the kernel's zeros outside the kept
-    rows show. ``stream`` names the clouds in each case."""
-    from minddet_tpu_torch.ops import seg_max as sm
+    batch 8 in bf16. x is N(0, 1), so the kernel's zeros outside the kept
+    rows show, or ``values(shape, dgen, dev)`` in f32, cast to the case's
+    type."""
     from minddet_tpu_torch.ops.voxelize import voxelize_stream_batch
 
     shapes = shapes or ((1, torch.float32, PFN_HALF_WIDTH),
@@ -1399,19 +1410,34 @@ def check_seg_max_kernel(dev, model, shapes=None, clouds=None, stream=None):
                         (TRAIN_CP_BATCH, torch.bfloat16, ODD_PFN_WIDTH),
                         (NUSC_EVAL_BATCH, torch.float32, PFN_HALF_WIDTH))
     clouds = clouds or _nusc_clouds
+    values = values or (lambda shape, dgen, dev: torch.randn(
+        shape, generator=dgen, device=dev))
     bound = model.max_points_per_voxel
     dgen = torch.Generator(device=dev).manual_seed(2)
-    cases = []
     for b, dtype, c in shapes:
         points, mask = clouds(model, b, 2, dev)
         sv = voxelize_stream_batch(points, mask, model.voxel_size,
                                    model.pc_range, model.max_voxels, bound,
                                    model.voxel_drop_order)
+        n = sv.first.shape[1]
+        yield b, dtype, c, sv, values((b, n, c), dgen, dev).to(dtype)
+
+
+def check_seg_max_kernel(dev, model, shapes=None, clouds=None, stream=None,
+                         values=None):
+    """Phase 3: seg_full_max (K5f) against its plain version, exactly, on
+    ``seg_fwd_streams(dev, model, shapes, clouds, values)``. ``stream``
+    names the clouds in each case."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    bound = model.max_points_per_voxel
+    cases = []
+    for b, dtype, c, sv, x in seg_fwd_streams(dev, model, shapes, clouds,
+                                              values):
         first, last = sv.first, sv.last
         n = first.shape[1]
         if not torch.equal(sm.seg_covered(first, last, bound), sv.keep):
             raise AssertionError("seg_covered is not the stream's keep mask")
-        x = torch.randn(b, n, c, generator=dgen, device=dev).to(dtype)
         got = sm.seg_full_max_bounded(first, last, x, bound)
         torch.cuda.synchronize()
         ref = sm.seg_full_max_bounded_plain(first, last, x, bound)
@@ -1424,13 +1450,7 @@ def check_seg_max_kernel(dev, model, shapes=None, clouds=None, stream=None):
         plain_ms = _cuda_ms(
             lambda: sm.seg_full_max_bounded_plain(first, last, x, bound),
             iters=3, warmup=1)
-        # x read once where its row is kept (the other rows' out is 0 and
-        # needs no read), out written once, the two flag planes read once;
-        # one max per kept value
-        kept_values = int(sv.keep.sum()) * c
-        bound_ms, bound_by = _bound(
-            (kept_values + x.numel()) * x.element_size() + 2 * b * n,
-            kept_values)
+        bound_ms, bound_by = _seg_fwd_bound(x, sv.keep)
         case = dict(shape=[b, n, c], bound=bound,
                     dtype=str(dtype).replace("torch.", ""),
                     max_abs_err=max_abs, tolerance="exact", kept_share=kept,
@@ -1451,6 +1471,16 @@ def check_seg_max_kernel(dev, model, shapes=None, clouds=None, stream=None):
             raise AssertionError(f"seg_full_max disagrees with its plain "
                                  f"version: {case}")
     return cases
+
+
+def _seg_fwd_bound(x, keep):
+    """(bound_ms, bound_by) of K5f on these inputs: x read once where its
+    row is kept (the other rows' out is 0 and needs no read), out written
+    once, the two flag planes read once; one max per kept value."""
+    b, n, c = x.shape
+    kept_values = int(keep.sum()) * c
+    return _bound((kept_values + x.numel()) * x.element_size() + 2 * b * n,
+                  kept_values)
 
 
 def proposal_boxes(b: int, n: int, pc_range, gen) -> torch.Tensor:
@@ -9482,6 +9512,10 @@ def main(argv=None) -> int:
     centerpoint = build_centerpoint(dev)
     iou_cases = check_rotated_iou_kernel(dev, gen, centerpoint.pc_range)
     seg_cases = check_seg_max_kernel(dev, centerpoint)
+    # pillars at the point cap, ties and signed zeros: no main path's shape
+    seg_cases += check_seg_max_kernel(
+        dev, centerpoint, ((1, torch.float32, PFN_HALF_WIDTH),),
+        _clustered_clouds, "clustered, ties", clustered_values)
     gather_cases = check_bilinear_kernel(dev, gen, centerpoint)
     seg_bwd_cases = check_seg_max_bwd_kernel(dev, centerpoint)
     gather_dx_cases, gather_dcw_cases = check_bilinear_bwd_kernels(

@@ -175,8 +175,9 @@ ROTATED_IOU = CudaKernel(
 
 SEG_FULL_MAX = CudaKernel(
     "seg_full_max", "seg_full_max.cu",
-    # x, first, last, out, B, N, C, bound, dtype, wide, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, first, last, out, B, N, C, bound, tile, chunk, smem, dtype, wide,
+    # stream
+    [_P] * 4 + [_I] * 9 + [_P],
     replaces="minddet_tpu/ops/seg_pallas.py:108 _fwd_kernel",
 )
 

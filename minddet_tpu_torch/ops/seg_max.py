@@ -26,13 +26,15 @@ its dx is 0: the result is the unpadded one. Any size the grid holds is
 one launch (``seg_max_plan`` for the forward, ``seg_max_bwd_plan`` for the
 backward).
 
-The backward kernel works on tiles of rows (``seg_max_bwd_plan``): a block
-stages the tile's flag bytes with a halo of ``bound - 1`` rows on each side
-in shared memory; a tile with no covered row writes zeros and reads no
-data; any other copies its rows of x and g into shared memory while it
-finds each row's segment once, then gives a one-row segment g and walks a
-longer one once per half vector, taking the segment's max of x itself (it
-reads no ``m``). dx is bit for bit that of the per-row kernel it replaced.
+Both kernels work on tiles of rows (``_tile_plan``): a block stages the
+tile's flag bytes with a halo of ``bound - 1`` rows on each side in shared
+memory; a tile with no covered row writes zeros and reads no data; any
+other copies its rows of x (and g) into shared memory while it finds each
+row's segment once. The forward then copies a one-row segment's x and walks
+a longer one once per vector for its max; the backward gives a one-row
+segment g and walks a longer one once per half vector, taking the
+segment's max of x itself (it reads no ``m``). Each is bit for bit the
+per-row kernel it replaced.
 It reads ``g`` in place with any row stride: the non-last stream PFN
 layer's ``torch.cat`` hands its backward the second half of a (B, N, 2C)
 gradient, and no copy of it is made (``_check_bwd``).
@@ -148,35 +150,30 @@ def _check(first, last, x, bound) -> None:
         raise ValueError("x must be 16-byte aligned")
 
 
-SEG_THREADS = 256  # threads a block of K5f
-
-
-def seg_max_plan(b: int, n: int, c: int, dtype) -> dict:
-    """K5f's launch for (b, n, c) streams (c padded to 16-byte
-    vectors): one thread per output vector, ``blocks`` of
-    ``SEG_THREADS``, ``wide`` (64-bit thread indices) from 2**31 vectors
-    on and 32-bit below, as the row gather's plans choose (64-bit ones
-    cost K5f 2.3-2.6 % at the CenterPoint shapes on an
-    H100: ``scripts/seg_max_index_width.py``); every offset is 64-bit.
-    Raises where a size does not fit the kernels' 32-bit int arguments or
-    the grid does not hold the launch."""
-    for name, v in (("B", b), ("N", n), ("C", c)):
-        if v > _INT32_MAX:
-            raise ValueError(f"{name} = {v} does not fit the kernel's 32-bit "
-                             f"size arguments")
-    vectors = b * n * (c // _VEC[dtype])
-    blocks = -(-vectors // SEG_THREADS)
-    if blocks > GRID_BLOCKS:
-        raise ValueError(f"{vectors} output vectors pass the grid")
-    return dict(wide=vectors >= 2 ** 31, blocks=blocks)
-
-
-SEG_BWD_THREADS = 128  # threads a block of K5b
-SEG_BWD_WORK = 512    # K5b: rows times 16-byte vectors a block takes
-SEG_BWD_CHUNK = 8     # ... of which vectors of a row at most
-SEG_BWD_TILE = 256    # ... and rows at most
-SEG_BWD_SLOTS = 132 * 8  # blocks an H100 holds at once (132 SMs, 8 each)
+SEG_THREADS = 128       # threads a block of K5f and of K5b
+SEG_FWD_WORK = 512      # K5f: rows times 16-byte vectors a block takes
+SEG_FWD_CHUNK = 8       # ... of which vectors of a row at most
+SEG_FWD_TILE = 256      # ... and rows at most
+SEG_BWD_WORK = 512      # K5b: the same three
+SEG_BWD_CHUNK = 8
+SEG_BWD_TILE = 256
+SEG_SLOTS = 132 * 8     # blocks an H100 holds at once (132 SMs, 8 each)
 SHARED_MEMORY_MAX = 232448  # bytes of shared memory a block may take
+
+
+def _seg_fwd_smem(tile: int, bound: int, chunk: int) -> int:
+    """K5f's shared memory: per tile row its item, per longer segment its
+    last row and head (int32 each), the warps' counts of them and the halo's
+    two edges, padded to 16 bytes; ``chunk`` vectors of x at each row of the
+    window (the tile and bound - 1 rows of halo on each side) and of a
+    segment's max at each tile row; the window's two flag planes as 32-bit
+    masks, one word a warp of each round of ``SEG_THREADS`` rows, and one
+    word more."""
+    warps = SEG_THREADS // 32
+    window = tile + 2 * (bound - 1)
+    ints = -(-(12 * tile + 4 * warps + 8) // 16) * 16
+    words = warps * -(-window // SEG_THREADS) + 1
+    return ints + (window + tile) * 16 * chunk + 8 * words
 
 
 def _seg_bwd_smem(tile: int, bound: int, chunk: int) -> int:
@@ -185,51 +182,33 @@ def _seg_bwd_smem(tile: int, bound: int, chunk: int) -> int:
     head (int32 each) and the warps' counts of both, padded to 16 bytes;
     then at each row of the window (the tile and bound - 1 rows of halo on
     each side) x's and g's ``chunk`` vectors and the two flag bytes."""
-    ints = -(-(20 * tile + 8 * (SEG_BWD_THREADS // 32)) // 16) * 16
+    ints = -(-(20 * tile + 8 * (SEG_THREADS // 32)) // 16) * 16
     return ints + (tile + 2 * (bound - 1)) * (2 * 16 * chunk + 2)
 
 
-def seg_max_bwd_plan(b: int, n: int, c: int, dtype, bound: int,
-                     g_stride: int | None = None) -> dict:
-    """K5b's launch for (b, n, c) streams (c padded to 16-byte vectors, g's
-    rows ``g_stride`` elements apart, c where None): blocks of
-    ``SEG_BWD_THREADS`` threads, each on a tile of ``tile_rows`` rows and
-    ``chunk`` vectors of each row, with a window of ``halo`` = bound - 1
-    rows on each side in ``smem`` bytes of shared memory; ``wide`` (64-bit
-    row offsets) from 2**31 vectors of g's rows on, 32-bit below.
-
-    The chunk is a whole row up to ``SEG_BWD_CHUNK`` vectors; the tile the
-    most rows up to ``SEG_BWD_TILE`` with tile x chunk <= ``SEG_BWD_WORK``
-    (64 at least), halved once where the grid would not fill the card's
-    ``SEG_BWD_SLOTS``: at the CenterPoint shapes bf16 (8, 120000, 32)
-    takes 128 x 4, f32 (4, 120000, 32) 64 x 8, the fastest of 64-256 rows
-    x 4-8 vectors on an H100 (``scripts/seg_max_bwd_turns.py``). The chunk
-    shrinks where a long bound's window would not fit. Raises where a size
-    does not fit the kernel's 32-bit int arguments, the window does not fit
-    a block's shared memory at one vector a row, or the grid does not hold
-    the launch."""
-    g_stride = c if g_stride is None else g_stride
-    for name, v in (("B", b), ("N", n), ("C", c), ("g's row stride",
-                                                   g_stride),
-                    ("bound", bound)):
-        if v > _INT32_MAX:
-            raise ValueError(f"{name} = {v} does not fit the kernel's 32-bit "
-                             f"size arguments")
+def _tile_plan(b, n, c, dtype, bound, row_vectors, work, chunk_max,
+               tile_max, fill, smem_of) -> dict:
+    """The tiled kernels' launch: a chunk of a whole row up to
+    ``chunk_max`` vectors; the most rows up to ``tile_max`` with tile x
+    chunk <= ``work`` (64 at least), halved once where ``fill`` and the grid
+    would not fill the card's ``SEG_SLOTS``; the chunk halved where a long
+    bound's window would not fit a block's shared memory. ``row_vectors`` is
+    the widest operand's vectors a row, which decides ``wide``."""
     if bound < 1:
         raise ValueError(f"bound must be >= 1, got {bound}")
     halo = bound - 1
     vec = _VEC[dtype]
     nv = c // vec
-    chunk = min(nv, SEG_BWD_CHUNK)
-    tile = SEG_BWD_TILE
-    while tile * chunk > SEG_BWD_WORK and tile > 64:
+    chunk = min(nv, chunk_max)
+    tile = tile_max
+    while tile * chunk > work and tile > 64:
         tile //= 2
     grid = lambda: b * -(-n // tile) * -(-nv // chunk)
-    if grid() < SEG_BWD_SLOTS and tile > 64:
+    if fill and grid() < SEG_SLOTS and tile > 64:
         tile //= 2
-    while chunk > 1 and _seg_bwd_smem(tile, bound, chunk) > SHARED_MEMORY_MAX:
+    while chunk > 1 and smem_of(tile, bound, chunk) > SHARED_MEMORY_MAX:
         chunk //= 2
-    smem = _seg_bwd_smem(tile, bound, chunk)
+    smem = smem_of(tile, bound, chunk)
     if smem > SHARED_MEMORY_MAX:
         raise ValueError(f"bound = {bound}: the window of {tile} rows and a "
                          f"halo of {halo} on each side takes {smem} bytes at "
@@ -239,7 +218,60 @@ def seg_max_bwd_plan(b: int, n: int, c: int, dtype, bound: int,
     if blocks > GRID_BLOCKS:
         raise ValueError(f"{blocks} tiles of {tile} rows pass the grid")
     return dict(tile_rows=tile, chunk=chunk, halo=halo, smem=smem,
-                blocks=blocks, wide=b * n * (g_stride // vec) >= 2 ** 31)
+                blocks=blocks, wide=b * n * row_vectors >= 2 ** 31)
+
+
+def _int_sizes(**sizes) -> None:
+    for name, v in sizes.items():
+        if v > _INT32_MAX:
+            raise ValueError(f"{name} = {v} does not fit the kernel's 32-bit "
+                             f"size arguments")
+
+
+def seg_max_plan(b: int, n: int, c: int, dtype, bound: int = 1) -> dict:
+    """K5f's launch for (b, n, c) streams (c padded to 16-byte vectors):
+    blocks of ``SEG_THREADS`` threads, each on a tile of ``tile_rows`` rows
+    and ``chunk`` vectors of each row, with a window of ``halo`` = bound - 1
+    rows on each side in ``smem`` bytes of shared memory; ``wide`` (64-bit
+    row offsets) from 2**31 vectors of x on, 32-bit below (offsets within a
+    sample's window are 32-bit).
+
+    ``_tile_plan`` with ``SEG_FWD_WORK``, ``SEG_FWD_CHUNK`` and
+    ``SEG_FWD_TILE``, and no halving to fill the card (halved tiles were
+    slower on every batch-1 stream): at the CenterPoint and Waymo shapes
+    f32 (B, N, 32) takes 64 x 8 and bf16 128 x 4, the fastest of 64-256
+    rows x 2-8 vectors on an H100 (``scripts/seg_max_fwd_turns.py``). The
+    kernel refuses a plan whose shared memory is short of the window of the
+    bound it is launched with (a plan made at the default bound 1 has no
+    halo). Raises where a size does not fit the kernel's 32-bit int
+    arguments, the window does not fit a block's shared memory at one
+    vector a row, or the grid does not hold the launch."""
+    _int_sizes(B=b, N=n, C=c, bound=bound)
+    return _tile_plan(b, n, c, dtype, bound, c // _VEC[dtype], SEG_FWD_WORK,
+                      SEG_FWD_CHUNK, SEG_FWD_TILE, False, _seg_fwd_smem)
+
+
+def seg_max_bwd_plan(b: int, n: int, c: int, dtype, bound: int,
+                     g_stride: int | None = None) -> dict:
+    """K5b's launch for (b, n, c) streams (c padded to 16-byte vectors, g's
+    rows ``g_stride`` elements apart, c where None): blocks of
+    ``SEG_THREADS`` threads, each on a tile of ``tile_rows`` rows and
+    ``chunk`` vectors of each row, with a window of ``halo`` = bound - 1
+    rows on each side in ``smem`` bytes of shared memory; ``wide`` (64-bit
+    row offsets) from 2**31 vectors of g's rows on, 32-bit below.
+
+    ``_tile_plan`` with ``SEG_BWD_WORK``, ``SEG_BWD_CHUNK`` and
+    ``SEG_BWD_TILE``: at the CenterPoint shapes bf16 (8, 120000, 32) takes
+    128 x 4, f32 (4, 120000, 32) 64 x 8, the fastest of 64-256 rows x 4-8
+    vectors on an H100 (``scripts/seg_max_bwd_turns.py``). Raises where a
+    size does not fit the kernel's 32-bit int arguments, the window does
+    not fit a block's shared memory at one vector a row, or the grid does
+    not hold the launch."""
+    g_stride = c if g_stride is None else g_stride
+    _int_sizes(B=b, N=n, C=c, bound=bound, **{"g's row stride": g_stride})
+    return _tile_plan(b, n, c, dtype, bound, g_stride // _VEC[dtype],
+                      SEG_BWD_WORK, SEG_BWD_CHUNK, SEG_BWD_TILE, True,
+                      _seg_bwd_smem)
 
 
 def _check_bwd(x, g) -> None:
@@ -273,12 +305,12 @@ def _seg_full_max_cuda(first, last, x, bound) -> torch.Tensor:
     if x.numel() == 0:
         return unpad_channels(out, c)
     b, n, ch = x.shape
-    plan = seg_max_plan(b, n, ch, x.dtype)
+    plan = seg_max_plan(b, n, ch, x.dtype, bound)
     fn = SEG_FULL_MAX.fn()
     SEG_FULL_MAX.launches += 1
     err = fn(x.data_ptr(), first.data_ptr(), last.data_ptr(), out.data_ptr(),
-             b, n, ch, bound, _DTYPE_CODE[x.dtype], int(plan["wide"]),
-             cuda_stream(x.device))
+             b, n, ch, bound, plan["tile_rows"], plan["chunk"], plan["smem"],
+             _DTYPE_CODE[x.dtype], int(plan["wide"]), cuda_stream(x.device))
     SEG_FULL_MAX.check(err)
     return unpad_channels(out, c)
 

@@ -89,7 +89,7 @@ def main(argv=None) -> int:
     shapes = [(int(t), int(c)) for t in args.tiles.split(",")
               for c in args.chunks.split(",")]
     default = (sm.SEG_BWD_TILE, sm.SEG_BWD_CHUNK, sm.SEG_BWD_WORK,
-               sm.SEG_BWD_SLOTS)
+               sm.SEG_SLOTS)
     ms = lambda fn: cs._cuda_ms(fn, iters=20, windows=5)
 
     def old_bwd(first, last, x, m, g):
@@ -141,13 +141,13 @@ def main(argv=None) -> int:
         def at(tile, chunk):
             def run():
                 (sm.SEG_BWD_TILE, sm.SEG_BWD_CHUNK, sm.SEG_BWD_WORK,
-                 sm.SEG_BWD_SLOTS) = tile, chunk, tile * chunk, 0
+                 sm.SEG_SLOTS) = tile, chunk, tile * chunk, 0
                 try:
                     sm.seg_full_max_bounded_bwd(first, last, xp, mp, gp,
                                                 bound)
                 finally:
                     (sm.SEG_BWD_TILE, sm.SEG_BWD_CHUNK, sm.SEG_BWD_WORK,
-                     sm.SEG_BWD_SLOTS) = default
+                     sm.SEG_SLOTS) = default
             return run
 
         sweep = _turns({tc: at(*tc) for tc in shapes}, args.rounds, ms)

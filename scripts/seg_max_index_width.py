@@ -1,7 +1,7 @@
 """Time K5f and K5b (``csrc/seg_full_max.cu``, ``csrc/seg_full_max_bwd.cu``)
-with 32-bit and with 64-bit indices (the C entries' ``wide`` argument: K5f's
-thread indices, K5b's row offsets) at the shapes the CenterPoint main paths
-give them, in turns, on one CUDA card:
+with 32-bit and with 64-bit row offsets (the C entries' ``wide``
+argument) at the shapes the CenterPoint main paths give them, in turns, on
+one CUDA card:
 
     python3 scripts/seg_max_index_width.py [--json PATH]
 
@@ -70,11 +70,13 @@ def main(argv=None) -> int:
         g = torch.randn(x.shape, generator=dgen, device=dev).to(dtype)
         code = sm._DTYPE_CODE[dtype]
         out = torch.empty_like(x)
+        fplan = sm.seg_max_plan(b, n, ch, dtype, bound)
         plan = sm.seg_max_bwd_plan(b, n, ch, dtype, bound)
         launch = {
             "K5f": lambda wide: fwd(
                 x.data_ptr(), first.data_ptr(), last.data_ptr(),
-                out.data_ptr(), b, n, ch, bound, code, wide, stream),
+                out.data_ptr(), b, n, ch, bound, fplan["tile_rows"],
+                fplan["chunk"], fplan["smem"], code, wide, stream),
             "K5b": lambda wide: bwd(
                 x.data_ptr(), g.data_ptr(), first.data_ptr(),
                 last.data_ptr(), out.data_ptr(), b, n, ch, ch, bound,

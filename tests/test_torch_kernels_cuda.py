@@ -6,7 +6,8 @@ the row gather's three kernels at widths that are not a whole number of
 16-byte vectors, the row gather (K3f) at the R-CNN's ROIAlign shapes,
 K3f and K3dcw past 2**31 values, and the segment max (K5f) and its
 backward (K5b) at widths that are not a whole number of 16-byte vectors and
-past 2**31 values.
+past 2**31 values, and their tiles (segments across tile edges, empty
+tiles, bounds past the tile, edge streams).
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a GPU host without JAX:
@@ -897,9 +898,9 @@ def test_seg_max_kernels_take_any_width(cuda, dtype, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seg_max_wide_entries_match_the_narrow_ones(cuda, dtype):
-    """The 64-bit indices (``wide`` = 1: K5f's thread indices and K5b's row
-    offsets, which the wrappers take from 2**31 vectors on) give the 32-bit
-    ones' bits on a small stream: both C entries called directly."""
+    """The 64-bit row offsets (``wide`` = 1, which the wrappers take from
+    2**31 vectors on) give the 32-bit ones' bits on a small stream: both C
+    entries called directly."""
     rs = np.random.RandomState(40)
     first, last, x = _seg_stream(rs, 3, 777, 20, 16)
     f, l = first.to(cuda), last.to(cuda)
@@ -912,9 +913,11 @@ def test_seg_max_wide_entries_match_the_narrow_ones(cuda, dtype):
     for wide in (0, 1):
         m = torch.empty_like(xt)
         dx = torch.empty_like(xt)
+        fplan = sm.seg_max_plan(3, 777, 16, dtype, 20)
         kernels.SEG_FULL_MAX.check(kernels.SEG_FULL_MAX.fn()(
             xt.data_ptr(), f.data_ptr(), l.data_ptr(), m.data_ptr(), 3, 777,
-            16, 20, code, wide, stream))
+            16, 20, fplan["tile_rows"], fplan["chunk"], fplan["smem"], code,
+            wide, stream))
         plan = sm.seg_max_bwd_plan(3, 777, 16, dtype, 20)
         kernels.SEG_FULL_MAX_BWD.check(kernels.SEG_FULL_MAX_BWD.fn()(
             xt.data_ptr(), g.data_ptr(), f.data_ptr(), l.data_ptr(),
@@ -1077,6 +1080,149 @@ def test_seg_max_bwd_stream_with_no_covered_row(cuda, dtype):
     first[0, ::7] = True
     dx = _bwd_against_plain(first, last, x, g, 20)
     assert not dx.any()
+
+
+def _fwd_against_plain(first, last, x, bound):
+    """K5f through the wrapper on the card against the plain version on
+    the CPU, exactly; returns the kernel's output."""
+    out = sm.seg_full_max_bounded(first, last, x, bound)
+    torch.cuda.synchronize()
+    ref = sm.seg_full_max_bounded_plain(first.cpu(), last.cpu(), x.cpu(),
+                                        bound)
+    got = out.cpu()
+    assert got.shape == ref.shape and out.is_contiguous()
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs()
+                                        .nan_to_num(1e9).max())
+    return got
+
+
+def _fwd_at(first, last, x, bound, tile, chunk):
+    """K5f's C entry on a plan of its own: ``tile`` rows and ``chunk``
+    vectors a block (x's C a whole number of vectors)."""
+    b, n, c = x.shape
+    out = torch.empty_like(x)
+    kernels.SEG_FULL_MAX.check(kernels.SEG_FULL_MAX.fn()(
+        x.data_ptr(), first.data_ptr(), last.data_ptr(), out.data_ptr(), b,
+        n, c, bound, tile, chunk, sm._seg_fwd_smem(tile, bound, chunk),
+        sm._DTYPE_CODE[x.dtype], 0, kernels.cuda_stream(x.device)))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_fwd_segments_straddle_tile_edges(cuda, dtype):
+    """Segments whose head lies in one tile and whose last kept row lies in
+    the next, at every tile edge, on a stream whose N is no multiple of
+    the tile (the last tile short), with ties and signed zeros."""
+    bound = 20
+    tile = sm.seg_max_plan(1, 5 * 256 + 37, 16, dtype, bound)["tile_rows"]
+    n = 5 * tile + 37
+    assert sm.seg_max_plan(1, n, 16, dtype, bound)["tile_rows"] == tile
+    first, last = _straddling_stream(n, tile, bound)
+    rs = np.random.RandomState(60)
+    x = rs.randint(0, 3, (1, n, 16)).astype(np.float32)
+    x[rs.rand(1, n, 16) < 0.2] = -0.0
+    _fwd_against_plain(first.to(cuda), last.to(cuda),
+                       torch.from_numpy(x).to(cuda, dtype), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_fwd_tiles_with_no_covered_row(cuda, dtype):
+    """Covered segments in every third tile only; the tiles between hold
+    heads and no last kept row, or no flag at all (one segment from the
+    tile before to a head at the next tile's first row): zeros there."""
+    bound = 20
+    n = 9 * 256 + 11
+    tile = sm.seg_max_plan(2, n, 8, dtype, bound)["tile_rows"]
+    rs = np.random.RandomState(61)
+    first, last, x = _seg_stream(rs, 2, n, bound, 8)
+    for t0 in range(0, n, tile):
+        if (t0 // tile) % 3:
+            last[:, t0:t0 + tile] = False
+            if (t0 // tile) % 3 == 2:
+                first[:, t0:t0 + tile] = False
+                first[:, t0 + tile:t0 + tile + 1] = True
+    got = _fwd_against_plain(first.to(cuda), last.to(cuda),
+                             x.to(cuda, dtype), bound)
+    assert got[:, tile + bound:2 * tile].abs().sum() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound,tile", [(1, 64), (20, 8), (40, 16),
+                                        (200, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_fwd_bound_one_and_bounds_past_the_tile(cuda, bound, tile,
+                                                        dtype):
+    """Bound 1 (every covered row its own segment) and bounds longer than
+    the tile: tiles of 8 and 16 rows through the C entry, and the
+    wrapper's plan (tile 0 here) at bound 200, whose tiles are shorter
+    than the bound; segments up to the bound with ties."""
+    rs = np.random.RandomState(62 + bound)
+    n = 3 * 256 + 101
+    first, last, _ = _seg_stream(rs, 2, n, bound, 24)
+    x = torch.from_numpy(rs.randint(0, 3, (2, n, 24)).astype(np.float32))
+    f, l, xt = first.to(cuda), last.to(cuda), x.to(cuda, dtype)
+    if tile == 0:
+        assert sm.seg_max_plan(2, n, 24, dtype, bound)["tile_rows"] < bound
+        _fwd_against_plain(f, l, xt, bound)
+        return
+    vec = 4 if dtype == torch.float32 else 8
+    got = _fwd_at(f, l, xt, bound, tile, 24 // vec)
+    ref = sm.seg_full_max_bounded_plain(first, last, x.to(dtype), bound)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["every row its own segment",
+                                  "no row covered", "head at row 0",
+                                  "NaN where not covered"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_max_fwd_edge_streams(cuda, case, dtype):
+    """Every row a head and a last kept row (a copy of x); heads with no
+    last kept row (all zeros, whatever x holds); a head at row 0 and a kept
+    segment ending at the last row of every sample, so that each sample's
+    first and last tiles hold segments at its edges; NaN in x at every row
+    that is not covered (those rows stay 0)."""
+    rs = np.random.RandomState(63)
+    b, n, bound = 3, 2 * 64 + 45, 20
+    first, last, x = _seg_stream(rs, b, n, bound, 16)
+    if case == "every row its own segment":
+        first[:], last[:] = True, True
+    elif case == "no row covered":
+        last[:] = False
+    elif case == "head at row 0":
+        first[:] = False
+        first[:, ::bound] = True
+        first[:, 0] = True
+        last[:] = False
+        last[:, bound - 1::bound] = True
+        last[:, -1] = True  # the sample's last segment, cut by N
+    else:
+        cov = sm.seg_covered(first, last, bound)
+        assert (~cov).any()
+        x[~cov] = float("nan")
+    got = _fwd_against_plain(first.to(cuda), last.to(cuda),
+                             x.to(cuda, dtype), bound)
+    if case == "every row its own segment":
+        assert torch.equal(got, x.to(dtype))
+    elif case == "no row covered":
+        assert not got.any()
+    elif case == "NaN where not covered":
+        cov = sm.seg_covered(first, last, bound)
+        assert not got[~cov].any() and not got.isnan().any()
+
+
+@pytest.mark.cuda
+def test_seg_max_fwd_odd_width_bf16(cuda):
+    """C = 18 in bf16 (the 36-filter PFN's non-last layer), padded to 24 by
+    the wrapper and sliced back, exactly, at a size of several tiles."""
+    rs = np.random.RandomState(64)
+    first, last, x = _seg_stream(rs, 4, 1500, 20, 18)
+    got = _fwd_against_plain(first.to(cuda), last.to(cuda),
+                             x.to(cuda, torch.bfloat16), 20)
+    assert got.shape == (4, 1500, 18)
 
 
 @pytest.mark.cuda

@@ -305,8 +305,9 @@ def test_backward_kernel_matches_plain(cuda, dtype, tol):
 def test_seg_max_wrappers_pad_any_width(dtype, c, padded):
     """The kernels take whole 16-byte vectors: a stream of any C is padded
     with zero channels to the next multiple of 4 (f32) or 8 (bf16), which
-    the launch checks accept, and the plan covers one thread per padded
-    vector (meta tensors: nothing is allocated or launched)."""
+    the launch checks accept, and K5f's plan covers every padded vector of
+    every row with its tiles and chunks (meta tensors: nothing is allocated
+    or launched)."""
     from minddet_tpu_torch.ops import seg_max as sm
 
     x = torch.empty(8, 120000, c, dtype=dtype, device="meta")
@@ -315,32 +316,169 @@ def test_seg_max_wrappers_pad_any_width(dtype, c, padded):
     assert xp.shape == (8, 120000, padded)
     sm._check(flags, flags, xp, 20)
     vec = 4 if dtype == torch.float32 else 8
-    plan = sm.seg_max_plan(8, 120000, padded, dtype)
-    assert plan == dict(wide=False, blocks=-(-8 * 120000 * padded // vec
-                                            // sm.SEG_THREADS))
+    plan = sm.seg_max_plan(8, 120000, padded, dtype, 20)
+    nv = padded // vec
+    assert plan["chunk"] == min(nv, sm.SEG_FWD_CHUNK)
+    assert plan["blocks"] == 8 * -(-120000 // plan["tile_rows"]) * -(
+        -nv // plan["chunk"])
+    assert plan["halo"] == 19 and not plan["wide"]
     if c % vec:
         with pytest.raises(ValueError, match="not padded"):
             sm._check(flags, flags, x, 20)
 
 
 def test_seg_max_plans_take_past_2_31_values_and_refuse_the_grid():
-    """Past 2**31 values the plan keeps 32-bit thread indices (offsets are
-    64-bit), past 2**31 vectors it takes 64-bit ones; it refuses a size
-    past the kernels' int arguments and a launch past the grid's blocks."""
+    """Past 2**31 values the plan keeps 32-bit row offsets (offsets are
+    64-bit only from 2**31 vectors on), past 2**31 vectors it takes 64-bit
+    ones; it refuses a size past the kernels' int arguments and a launch
+    past the grid's blocks."""
     from minddet_tpu_torch.ops import seg_max as sm
 
     n = 2 ** 28 + 4096  # 8 bf16 channels: past 2**31 values
     x = torch.empty(1, n, 8, dtype=torch.bfloat16, device="meta")
     flags = torch.empty(1, n, dtype=torch.bool, device="meta")
     sm._check(flags, flags, x, 20)
-    assert not sm.seg_max_plan(1, n, 8, torch.bfloat16)["wide"]
-    assert sm.seg_max_plan(9, n, 8, torch.bfloat16)["wide"]
-    assert sm.seg_max_plan(8, 2 ** 28, 8, torch.bfloat16)["wide"]
-    assert not sm.seg_max_plan(8, 2 ** 28 - 1, 8, torch.bfloat16)["wide"]
+    assert not sm.seg_max_plan(1, n, 8, torch.bfloat16, 20)["wide"]
+    assert sm.seg_max_plan(9, n, 8, torch.bfloat16, 20)["wide"]
+    assert sm.seg_max_plan(8, 2 ** 28, 8, torch.bfloat16, 20)["wide"]
+    assert not sm.seg_max_plan(8, 2 ** 28 - 1, 8, torch.bfloat16,
+                               20)["wide"]
     with pytest.raises(ValueError, match="32-bit"):
-        sm.seg_max_plan(1, 2 ** 31, 8, torch.bfloat16)
+        sm.seg_max_plan(1, 2 ** 31, 8, torch.bfloat16, 20)
     with pytest.raises(ValueError, match="grid"):
-        sm.seg_max_plan(2 ** 20, 2 ** 20, 2 ** 10, torch.float32)
+        sm.seg_max_plan(2 ** 20, 2 ** 20, 2 ** 10, torch.float32, 20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 18, 32, 64, 384])
+def test_seg_max_plan_tiles_with_a_halo_in_shared_memory(dtype, c):
+    """K5f's plan: chunks of up to ``SEG_FWD_CHUNK`` 16-byte vectors of a
+    row, tiles of at most ``SEG_FWD_TILE`` rows and ``SEG_FWD_WORK`` rows
+    times vectors (64 rows at least), not halved where the grid would not
+    fill the card; a halo of bound - 1 rows on each side; its shared memory
+    (per tile row three ints and a chunk of maxima, per window row x's
+    chunk and two flag bits) within a block's 227 KB at every width the
+    wrapper pads to; 32-bit offsets at the main paths' sizes."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    padded = sm.pad_channels(torch.empty(1, 1, c, dtype=dtype,
+                                         device="meta")).shape[-1]
+    nv = padded // (4 if dtype == torch.float32 else 8)
+    for b, n, bound in ((8, 120000, 20), (4, 160000, 20), (1, 120000, 20),
+                        (1, 1281, 1), (2, 255, 64)):
+        plan = sm.seg_max_plan(b, n, padded, dtype, bound)
+        tile, chunk = plan["tile_rows"], plan["chunk"]
+        assert chunk == min(nv, sm.SEG_FWD_CHUNK) and plan["halo"] == bound - 1
+        assert 64 <= tile <= sm.SEG_FWD_TILE
+        assert tile * chunk <= sm.SEG_FWD_WORK or tile == 64
+        assert plan["blocks"] == b * -(-n // tile) * -(-nv // chunk)
+        window = tile + 2 * (bound - 1)
+        assert plan["smem"] >= 12 * tile + (window + tile) * 16 * chunk \
+            + window / 4
+        assert plan["smem"] == sm._seg_fwd_smem(tile, bound, chunk)
+        assert plan["smem"] <= 227 * 1024
+        assert not plan["wide"]
+    # the main paths' shapes: a whole row of C = 32 a block, 512 row
+    # vectors, at batch 1 too
+    bf = sm.seg_max_plan(8, 120000, 32, torch.bfloat16, 20)
+    f32 = sm.seg_max_plan(4, 120000, 32, torch.float32, 20)
+    wm = sm.seg_max_plan(4, 160000, 32, torch.float32, 20)
+    one = sm.seg_max_plan(1, 120000, 32, torch.bfloat16, 20)
+    assert (bf["tile_rows"], bf["chunk"], bf["blocks"]) == (128, 4, 7504)
+    assert (f32["tile_rows"], f32["chunk"], f32["blocks"]) == (64, 8, 7500)
+    assert (wm["tile_rows"], wm["chunk"], wm["blocks"]) == (64, 8, 10000)
+    assert (one["tile_rows"], one["blocks"]) == (128, 938)
+
+
+def test_seg_max_plan_shrinks_the_chunk_and_refuses_a_window_too_large():
+    """A long bound's window shrinks the chunk until it fits a block's
+    232,448 bytes of shared memory; past that at one vector a row the plan
+    refuses; the bound at which the window no longer fits is the one the
+    byte count gives. A bound below 1 is refused."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    bf = torch.bfloat16
+    assert sm.seg_max_plan(1, 100, 32, bf, 20)["chunk"] == 4
+    assert sm.seg_max_plan(1, 100, 32, bf, 2000)["chunk"] == 2
+    assert sm.seg_max_plan(1, 100, 32, bf, 5000)["chunk"] == 1
+    tile = sm.seg_max_plan(1, 100, 8, bf, 20)["tile_rows"]
+    fits = max(bound for bound in range(1, 8000)
+               if sm._seg_fwd_smem(tile, bound, 1) <= sm.SHARED_MEMORY_MAX)
+    assert sm._seg_fwd_smem(tile, fits + 1, 1) > 232448
+    assert sm.seg_max_plan(1, 100, 8, bf, fits)["smem"] <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        sm.seg_max_plan(1, 100, 8, bf, fits + 1)
+    with pytest.raises(ValueError, match="bound"):
+        sm.seg_max_plan(1, 100, 8, bf, 0)
+
+
+def _overflowing_stream(rs, b, n, bound):
+    """``_random_stream`` with segments of up to 2 * bound rows, their last
+    kept row at most ``bound`` - 1 rows after the head (rows past it, as a
+    pillar over the point cap gives), every fifth with none (a dropped
+    pillar), and a tail of rows that belong to no kept segment."""
+    first = np.zeros((b, n), bool)
+    last = np.zeros((b, n), bool)
+    for bi in range(b):
+        i, k = 0, 0
+        tail = n - int(rs.randint(0, n // 4 + 1))
+        while i < n:
+            ln = min(int(rs.randint(1, 2 * bound + 1)), n - i)
+            first[bi, i] = True
+            if k % 5 != 4 and i < tail:
+                last[bi, i + min(ln, int(rs.randint(1, bound + 1))) - 1] = True
+            i, k = i + ln, k + 1
+    x = rs.randn(b, n, 3).astype(np.float32)
+    return first, last, x
+
+
+@pytest.mark.parametrize("bound,tile", [(1, 64), (2, 64), (20, 64),
+                                        (20, 128), (20, 8), (40, 16),
+                                        (20, None)])
+def test_seg_max_tiles_see_every_segment_through_their_halo(bound, tile):
+    """The kernels' tiling: the plain version run window by window (each
+    tile's rows with ``halo`` rows before and after, cut at the sample's
+    ends) gives, at the tile's rows, the plain version's result on the whole
+    stream. Random streams of B = 2 with segments across the tile seams,
+    rows past a segment's last kept row and segments with none; N no
+    multiple of the tile; tiles shorter than the bound; ``None``: the tile
+    and halo of K5f's plan."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    rs = np.random.RandomState(12 + bound)
+    n = 1000 + 37
+    first, last, x = _overflowing_stream(rs, 2, n, bound)
+    halo = bound - 1
+    if tile is None:
+        plan = sm.seg_max_plan(2, n, 4, torch.float32, bound)
+        tile, halo = plan["tile_rows"], plan["halo"]
+    assert n % tile
+    # a whole kept segment of ``bound`` rows whose max lies at its head,
+    # halo rows before a tile edge, and whose last kept row is the edge
+    e = tile * max(1, -(-halo // tile))
+    first[:, e - halo:e + 2] = [True] + [False] * halo + [True]
+    last[:, e - halo:e + 1] = [False] * halo + [True]
+    x[:, e - halo] = 100.0
+    f, l, xt = (torch.from_numpy(a) for a in (first, last, x))
+    whole = seg_full_max_bounded_plain(f, l, xt, bound)
+    cov = seg_covered(f, l, bound)
+    assert 0.2 < cov.float().mean() < 0.9
+    tiled = torch.full_like(whole, float("nan"))
+    for t0 in range(0, n, tile):
+        w0, w1 = max(t0 - halo, 0), min(t0 + tile + halo, n)
+        part = seg_full_max_bounded_plain(f[:, w0:w1], l[:, w0:w1],
+                                          xt[:, w0:w1], bound)
+        tiled[:, t0:t0 + tile] = part[:, t0 - w0:t0 - w0 + tile]
+    assert torch.equal(tiled, whole)
+    # a window one row short of the halo misses that segment's head
+    if halo:
+        short = torch.full_like(whole, float("nan"))
+        for t0 in range(0, n, tile):
+            w0, w1 = max(t0 - halo + 1, 0), min(t0 + tile + halo - 1, n)
+            part = seg_full_max_bounded_plain(f[:, w0:w1], l[:, w0:w1],
+                                              xt[:, w0:w1], bound)
+            short[:, t0:t0 + tile] = part[:, t0 - w0:t0 - w0 + tile]
+        assert not torch.equal(short, whole)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

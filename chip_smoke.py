@@ -389,6 +389,26 @@ once a request), time the config's step fed by ``waymo_batches`` as 6at
 size) and ``waymo_evaluate``'s ms per frame by route and part (K4 once per
 batch and per evaluator call).
 
+The config-driven CLIs (``train/train.py``, ``train/evaluate.py``): phase 3
+holds, at the shapes they give the kernels and no other case holds
+(``check_cli_kernels``), the warp kernel and K1f in f32 at
+``centernet_evaluate``'s batch 4 on each keep-res canvas of 6az's records,
+and on the two-stage CenterPoint config's geometry K5f and K5b at the
+synthetic clouds' (4, 12000, 32) f32 streams, K3f and K3dx at (4, 128^2,
+384) x 640 points and K4 at the train step's (4, 128, 5) x (4, 12, 5).
+Phase 6az (``cli_main_path``) runs ``train.main`` on
+``configs/centernet_r18_coco.yaml`` (512^2, batch 16, f32: K1f, K1b) and
+``configs/centerpoint_pp_nusc_two_stage.yaml`` (batch 4, f32: K5f, K5b,
+K3f, K3dx, K4) with ``--synthetic``, 3 steps straight and 2 + 1 with
+``--resume``, in-process in a temporary workdir, then ``evaluate_config``
+on the checkpoint (``centernet_evaluate`` on 8 in-memory records; the
+refined ``nuscenes_evaluate`` on 2 keyframes), each call's launches
+counted from 0: step 1's loss and grad_norm equal to a hand-composed
+step's (1e-6 relative), every step finite, the lr the schedule's in every
+group, the resumed state bit for bit the straight one's (or within the
+spread of a second straight run where the path is not deterministic),
+and the checkpoint's statistics equal to the in-memory model's.
+
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
 reaches yet, has 0 there and phase 5b's count under its own key; every
@@ -408,11 +428,13 @@ import argparse
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -572,50 +594,61 @@ def check_taps_kernel(dev, gen):
 
     cases = []
     for h, c, spread, x, ys, xs, sc in inputs():
-        b, dtype = x.shape[0], x.dtype
-        got = hs.hat_sample_2d_taps(x, ys, xs, sc)
-        torch.cuda.synchronize()
-        ref = hs.hat_sample_2d_taps_plain(x.float(), ys, xs, sc)
-        err = (got.float() - ref).abs()
-        max_abs = float(err.max())
-        max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
-        if dtype == torch.float32:
-            tol = "f32: abs <= 1e-5"
-            ok = max_abs <= 1e-5
-        else:  # within one bf16 ulp of the plain f32 result
-            tol = "bf16: abs <= 1e-2 + 2**-7 * |plain f32|"
-            ok = bool((err <= 1e-2 + 2 ** -7 * ref.abs()).all())
-        del got, ref, err
-        stats = torch.zeros(2, dtype=torch.int64, device=dev)
-        hs._taps_cuda(x, ys, xs, sc, stats=stats)
-        fallback, onmap = (int(v) for v in stats.tolist())
-        plan = hs.taps_fwd_plan(b, h, h, c, TAPS, h * h, x.element_size(),
-                                hs._sms(dev))
-        ms = _cuda_ms(lambda: hs.hat_sample_2d_taps(x, ys, xs, sc),
-                      **(TRAIN_TIMING if b == TRAIN_BATCH else dict(iters=20)))
-        plain_ms = _cuda_ms(
-            lambda: hs.hat_sample_2d_taps_plain(x, ys, xs, sc),
-            iters=3, warmup=1)
-        bound_ms, bound_by = _taps_bound(x, ys, xs)
-        case = dict(shape=[b, h, h, c], taps=TAPS, spread=spread,
-                    dtype=str(dtype).replace("torch.", ""),
-                    max_abs_err=max_abs, max_rel_err=max_rel,
-                    tolerance=tol, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, plan=plan,
-                    fallback_share=fallback / max(onmap, 1))
-        cases.append(case)
-        print(f"  taps x{case['shape']} K={TAPS} spread={spread:4.1f}"
-              f" {case['dtype']:8s} fallback="
-              f"{case['fallback_share']:.4f} smem={plan['smem_bytes']} "
-              f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-              f"kernel={ms * 1e3:8.1f}us plain={plain_ms * 1e3:9.1f}us "
-              f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
-        if not ok:
-            raise AssertionError(
-                f"hat_sample_taps_fwd disagrees with its plain "
-                f"version ({tol}): {case}")
+        cases.append(_taps_case(dev, spread, x, ys, xs, sc))
         del x, ys, xs, sc
     return cases
+
+
+def _taps_case(dev, spread, x, ys, xs, sc):
+    """One phase 3 case of hat_sample_taps_fwd on x (B, H, W, C) and its
+    coordinates: against its plain version (f32: abs <= 1e-5; bf16: within
+    one bf16 ulp of the plain f32 result), timed beside it, with its bound,
+    its fallback share and its plan."""
+    from minddet_tpu_torch.ops import hat_sample as hs
+
+    b, h, w, c = x.shape
+    dtype = x.dtype
+    got = hs.hat_sample_2d_taps(x, ys, xs, sc)
+    torch.cuda.synchronize()
+    ref = hs.hat_sample_2d_taps_plain(x.float(), ys, xs, sc)
+    err = (got.float() - ref).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
+    if dtype == torch.float32:
+        tol = "f32: abs <= 1e-5"
+        ok = max_abs <= 1e-5
+    else:  # within one bf16 ulp of the plain f32 result
+        tol = "bf16: abs <= 1e-2 + 2**-7 * |plain f32|"
+        ok = bool((err <= 1e-2 + 2 ** -7 * ref.abs()).all())
+    del got, ref, err
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    hs._taps_cuda(x, ys, xs, sc, stats=stats)
+    fallback, onmap = (int(v) for v in stats.tolist())
+    plan = hs.taps_fwd_plan(b, h, w, c, TAPS, h * w, x.element_size(),
+                            hs._sms(dev))
+    ms = _cuda_ms(lambda: hs.hat_sample_2d_taps(x, ys, xs, sc),
+                  **(TRAIN_TIMING if b == TRAIN_BATCH else dict(iters=20)))
+    plain_ms = _cuda_ms(
+        lambda: hs.hat_sample_2d_taps_plain(x, ys, xs, sc),
+        iters=3, warmup=1)
+    bound_ms, bound_by = _taps_bound(x, ys, xs)
+    case = dict(shape=[b, h, w, c], taps=TAPS, spread=spread,
+                dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                tolerance=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, plan=plan,
+                fallback_share=fallback / max(onmap, 1))
+    print(f"  taps x{case['shape']} K={TAPS} spread={spread:4.1f}"
+          f" {case['dtype']:8s} fallback="
+          f"{case['fallback_share']:.4f} smem={plan['smem_bytes']} "
+          f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+          f"kernel={ms * 1e3:8.1f}us plain={plain_ms * 1e3:9.1f}us "
+          f"bound={bound_ms * 1e3:6.1f}us ({bound_by})", flush=True)
+    if not ok:
+        raise AssertionError(
+            f"hat_sample_taps_fwd disagrees with its plain "
+            f"version ({tol}): {case}")
+    return case
 
 
 # K1b tolerances, err <= atol + rtol * |plain f32|, per output. The plain
@@ -1168,15 +1201,15 @@ BEV5 = (0, 1, 3, 4, 8)  # x, y, w, l, yaw of a 9-number box
 TRAIN_CP_GT = 64  # ground-truth slots per cloud of the train step
 
 
-def train_step_box_pairs(b: int, pc_range, gen):
+def train_step_box_pairs(b: int, pc_range, gen, slots: int = TRAIN_CP_GT):
     """The K4 call of one two-stage train step: (b, 128, 5) proposals against
-    (b, 64, 5) ground-truth slots. Half the slots are proposals moved by
+    (b, ``slots``, 5) ground-truth slots. Half the slots are proposals moved by
     0.1 m (foreground) or 1 m and a little in size and yaw, a quarter are
     other boxes, and the rest are empty slots (all zeros), as a padded
     ground-truth array has them."""
     props = proposal_boxes(b, CP_PROPOSALS, pc_range, gen)
-    gt = torch.zeros(b, TRAIN_CP_GT, 9)
-    k = TRAIN_CP_GT // 2
+    gt = torch.zeros(b, slots, 9)
+    k = slots // 2
     gt[:, :k] = props[:, 1:2 * k:2]  # odd slots: none of the zeroed tenths
     gt[:, 0:k:2, 0] += 0.1
     gt[:, 1:k:2, 0] += 1.0
@@ -1824,17 +1857,18 @@ def _duplicate_points(fy, fx):
     return ys, xs.contiguous()
 
 
-def check_bilinear_bwd_kernels(dev, gen, model):
+def check_bilinear_bwd_kernels(dev, gen, model, streams=None):
     """Phase 3: bilinear_gather_bwd_dx (K3dx) and bilinear_gather_bwd_dcw
     (K3dcw) against their plain versions at the train step's shapes:
     ``model``'s BEV map (B, 128 * 128, 384) and 5 sample points for each of
     its 128 proposals (640 points, some off the map); with the time of
-    ``index_add_`` into a zeroed f32 map beside K3dx."""
+    ``index_add_`` into a zeroed f32 map beside K3dx. ``streams`` (b,
+    "uniform" or "duplicate") replace the batches 1 and 8 where given."""
     from minddet_tpu_torch.ops import bilinear as bl
 
     dx_cases, dcw_cases = [], []
-    for b, stream in ((1, "uniform"), (TRAIN_CP_BATCH, "uniform"),
-                      (TRAIN_CP_BATCH, "duplicate")):
+    for b, stream in streams or ((1, "uniform"), (TRAIN_CP_BATCH, "uniform"),
+                                 (TRAIN_CP_BATCH, "duplicate")):
         bev32, fy, fx = _second_stage_inputs(model, b, gen, dev)
         _, c, h, w = bev32.shape
         hw = h * w
@@ -8633,15 +8667,14 @@ def _config_step_inputs(cfg, records, batches):
     """(config, one fed raw batch, the model's arguments): ``batches``, the
     config's data path, over ``records`` at one loader thread, a batch of
     NUSC_STEP_CHECK_BATCH cloud."""
-    from minddet_tpu_torch.entry import (CP_FIXED_KEYS, CP_MODEL_KEYS, SEED,
-                                         _config_kwargs)
+    from minddet_tpu_torch.entry import SEED
+    from minddet_tpu_torch.models.zoo import detector_kwargs
 
     data = dict(cfg["data"], workers=1, records=records)
     it = batches({"data": data}, NUSC_STEP_CHECK_BATCH, seed=SEED)
     raw = next(it)
     it.close()
-    return cfg, raw, _config_kwargs(cfg["model"], CP_MODEL_KEYS, ("type",),
-                                    CP_FIXED_KEYS, "CenterPoint")
+    return cfg, raw, detector_kwargs(cfg["model"])
 
 
 def _nusc_step_inputs():
@@ -9397,6 +9430,472 @@ def waymo_eval_main_path(dev, card):
     return out
 
 
+# The config-driven CLIs (train/train.py, train/evaluate.py): phase 3's
+# cases at their shapes (check_cli_kernels) and phase 6az, which runs them
+# in-process on the configs' files (cli_main_path).
+CLI_ROOT = Path(__file__).resolve().parent
+CLI_STEPS = 3           # (a), (b): steps of the straight run
+CLI_RESUME_SPLIT = 2    # (c): steps before the resume, then the rest
+CLI_EVAL_SEED = 23      # (d): the evaluation records' seed
+CLI_STEP_RTOL = 1e-6    # step 1's loss and grad_norm, CLI vs hand-composed
+CLI_LR_RTOL = 1e-6      # the lr in effect vs the schedule on the host
+CLI_EVAL_ATOL = 1e-6    # statistics, checkpoint vs the in-memory model
+CLI_MAX_GT = 12         # synthetic_points_batches' ground-truth slots
+
+
+def _cli_specs() -> dict:
+    """The two CLI runs of phase 6az, by name: the config, the
+    hand-composed model's batches (the synthetic generator the CLI's route
+    picks, called directly), the evaluation's records, options and
+    protocol."""
+    from minddet_tpu_torch.train.synthetic import (
+        synthetic_coco_records, synthetic_detection_batches,
+        synthetic_nuscenes_records, synthetic_points_batches)
+
+    def centernet_batches(cfg):
+        t = cfg["train"]
+        return synthetic_detection_batches(
+            int(t["batch_size"]), tuple(t["image_hw"]),
+            int(cfg["model"]["num_classes"]))
+
+    def centerpoint_batches(cfg):
+        m = cfg["model"]
+        return synthetic_points_batches(
+            int(cfg["train"]["batch_size"]), tuple(m["pc_range"]),
+            num_classes=int(sum(m["task_num_classes"])), num_features=5,
+            box_dim=9)
+
+    return {
+        "centernet": dict(
+            config=CLI_ROOT / "configs" / "centernet_r18_coco.yaml",
+            batches=centernet_batches,
+            records=lambda: synthetic_coco_records(COCO_CHECK_IMAGES,
+                                                   seed=CLI_EVAL_SEED),
+            eval_options=(), protocol="centernet"),
+        "centerpoint_two_stage": dict(
+            config=CLI_ROOT / "configs" / "centerpoint_pp_nusc_two_stage.yaml",
+            batches=centerpoint_batches,
+            records=lambda: synthetic_nuscenes_records(
+                NUSC_EVAL_BATCH, seed=CLI_EVAL_SEED, scenes=1),
+            eval_options=("refined=true",), protocol="nuscenes"),
+    }
+
+
+def _cli_clouds(model, batch: int, seed: int, dev):
+    """The two-stage CenterPoint CLI's first trained batch of clouds
+    (``synthetic_points_batches`` as the CLI calls it: 12,000 points of 5
+    features; its second draw, the first being the sample), on ``dev``
+    (``model`` and ``seed`` are ``_nusc_clouds``' arguments)."""
+    from minddet_tpu_torch.train.synthetic import synthetic_points_batches
+
+    it = synthetic_points_batches(batch, model.pc_range, num_classes=10,
+                                  num_features=5, box_dim=9)
+    next(it)
+    b = next(it)
+    return (torch.from_numpy(b["points"]).to(dev),
+            torch.from_numpy(b["points_mask"]).to(dev))
+
+
+def cli_eval_buckets(records):
+    """The keep-res canvases (h, w) that ``centernet_evaluate`` predicts
+    ``records`` on, with the number of predict calls at each."""
+    from minddet_tpu_torch.train.evaluate import EVAL_BATCH, _keep_res_hw
+
+    counts = {}
+    for r in records:
+        hw = _keep_res_hw(int(r["hw"][0]), int(r["hw"][1]))
+        counts[hw] = counts.get(hw, 0) + 1
+    return {hw: -(-n // EVAL_BATCH) for hw, n in sorted(counts.items())}
+
+
+def check_cli_kernels(dev, card):
+    """Phase 3's cases at the CLI paths' shapes that the other cases do not
+    hold: at ``centernet_evaluate``'s batch 4 on each keep-res canvas of
+    phase 6az's 8 records, the warp kernel from the (1024, 1024) canvases
+    and K1f in f32 (the three DCN stages at 1/8, 1/16 and 1/32 of the
+    canvas); on the two-stage CenterPoint config's geometry, K5f and
+    K5b (also on the strided g) in f32 at the train step's (4, N, 32) on
+    the voxelizer's stream of its 12,000-point synthetic clouds
+    (``_cli_clouds``), K3f (f32 and bf16) and K3dx / K3dcw in f32 at (4,
+    128 * 128, 384) x 640 points, and K4 at the train step's (4, 128, 5)
+    proposals x (4, 12, 5) ground-truth slots (the synthetic generator's
+    12). Returns the cases by kernel name, every one marked ``stream`` or
+    ``kind`` "cli"."""
+    from minddet_tpu_torch.entry import (CP_TWO_STAGE_CONFIG,
+                                         build_centerpoint, read_config)
+    from minddet_tpu_torch.train.evaluate import EVAL_BATCH, _keep_res_hw
+
+    gen = torch.Generator().manual_seed(24)
+    taps, warps = [], []
+    records = _cli_specs()["centernet"]["records"]()
+    for ih, iw in cli_eval_buckets(records):
+        h, w = next((int(r["hw"][0]), int(r["hw"][1])) for r in records
+                    if _keep_res_hw(int(r["hw"][0]), int(r["hw"][1]))
+                    == (ih, iw))
+        eaff = torch.tensor([[1.0, 0.0, -(iw - w) / 2.0],
+                             [0.0, 1.0, -(ih - h) / 2.0]]).expand(
+            EVAL_BATCH, 2, 3).contiguous()
+        x = _canvases(dev, [(h, w)] * EVAL_BATCH, COCO_EVAL_CANVAS, 3, gen)
+        warps.append(_warp_case(f"cli_eval_{ih}x{iw}", x, eaff.to(dev),
+                                (ih, iw), card, f" ({h} x {w} images)"))
+        del x
+        for (_, c), stride in zip(DCN_SHAPES, (8, 16, 32)):
+            h, w = ih // stride, iw // stride
+            x = torch.randn(EVAL_BATCH, h, w, c, generator=gen).to(dev)
+            ys, xs, sc = (t.to(dev) for t in _dcn_coords(
+                EVAL_BATCH, h, w, TAPS, 1.5, gen))
+            case = _taps_case(dev, 1.5, x, ys, xs, sc)
+            case.update(stream="cli", canvas=[ih, iw])
+            taps.append(case)
+            del x, ys, xs, sc
+    model = build_centerpoint(dev, CP_TWO_STAGE_CONFIG)
+    batch = int(read_config(CP_TWO_STAGE_CONFIG)["train"]["batch_size"])
+    seg = check_seg_max_kernel(dev, model, (
+        (batch, torch.float32, PFN_HALF_WIDTH),), _cli_clouds, "cli")
+    seg_bwd = check_seg_max_bwd_kernel(dev, model, (
+        (batch, torch.float32, "cli", PFN_HALF_WIDTH),
+        (batch, torch.float32, "cli, strided g", PFN_HALF_WIDTH)),
+        _cli_clouds)
+    gather = check_bilinear_kernel(dev, None, model, (
+        (batch, CP_PROPOSALS, torch.Generator().manual_seed(25)),))
+    dx, dcw = check_bilinear_bwd_kernels(
+        dev, torch.Generator().manual_seed(26), model,
+        ((batch, "uniform"),))
+    for c in gather + dx + dcw:
+        c["stream"] = "cli"
+    props, gts = (t.to(dev) for t in train_step_box_pairs(
+        batch, model.pc_range, torch.Generator().manual_seed(27),
+        slots=CLI_MAX_GT))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    iou = [_iou_case("cli_train", props, gts, sms)]
+    del model
+    torch.cuda.empty_cache()
+    return {"hat_sample_taps_fwd": taps, "bilinear_warp_affine_fwd": warps,
+            "seg_full_max": seg,
+            "seg_full_max_bwd": seg_bwd, "bilinear_gather_fwd": gather,
+            "bilinear_gather_bwd_dx": [c for c in dx
+                                       if c["dtype"] == "float32"],
+            "bilinear_gather_bwd_dcw": dcw, "rotated_iou_intersect": iou}
+
+
+def _cli_metrics(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _cli_run(fn, args, expected):
+    """One in-process CLI call ``fn(args)`` with the launch counts from 0:
+    (its result, its seconds, the counts); the counts must be
+    ``expected``."""
+    from minddet_tpu_torch import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if launches != expected:
+        named = [a for a in args if isinstance(a, str)]
+        raise AssertionError(f"{fn.__module__}.{fn.__name__} {named} "
+                             f"launched {launches}, want {expected}")
+    return out, seconds, launches
+
+
+def _cli_state_tensors(state):
+    """Every tensor a checkpoint of ``state`` holds, by name (the model's
+    parameters and buffers, each optimizer state entry, the groups' shared
+    lr and counts)."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer
+    names = {p: n for n, p in state.model.named_parameters()}
+    for p, st in opt.state.items():
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out[f"opt.{names[p]}.{k}"] = v
+    for key in ("lr", "count"):
+        out[f"opt.group0.{key}"] = opt.param_groups[0][key]
+    return out
+
+
+CLI_RESUME_GROUPS = ("params", "stats", "exp_avg", "exp_avg_sq")
+CLI_RESUME_SPREAD = 3.0  # (c): resumed vs straight, x the straight runs'
+
+
+def _cli_group_distances(a, b) -> dict:
+    """Per group of a checkpoint's tensors (the parameters, the BN
+    statistics, Adam's two moments), |a - b| / |b| over the whole group
+    (L2, in f64)."""
+    def group(k):
+        if k.startswith("model."):
+            return ("stats" if "running" in k else None
+                    if "num_batches" in k else "params")
+        return next((g for g in ("exp_avg_sq", "exp_avg")
+                     if k.endswith("." + g)), None)
+
+    num = {g: 0.0 for g in CLI_RESUME_GROUPS}
+    den = {g: 0.0 for g in CLI_RESUME_GROUPS}
+    for k, v in b.items():
+        g = group(k)
+        if g is not None:
+            num[g] += float((a[k].double() - v.double()).pow(2).sum())
+            den[g] += float(v.double().pow(2).sum())
+    return {g: math.sqrt(num[g] / max(den[g], 1e-300))
+            for g in CLI_RESUME_GROUPS}
+
+
+def _cli_resume_checks(straight, resumed, twin, result, bad):
+    """(c): the resumed run's final state against the straight run's. Bit
+    for bit where ``twin`` is None (the path is deterministic). Else
+    ``twin`` is a second straight run: its distance from the first is the
+    card's run-to-run spread (f32 atomics in the backward, amplified by
+    Adam's first steps), and the resumed run must lie within
+    CLI_RESUME_SPREAD x that spread of the straight one, group by group;
+    the step counts are equal in any case."""
+    a, b = _cli_state_tensors(resumed), _cli_state_tensors(straight)
+    if set(a) != set(b):
+        bad.append(f"resume: state entries differ {set(a) ^ set(b)}")
+        return
+    unequal = sorted(k for k in b if not torch.equal(a[k], b[k]))
+    result["resume_bit_for_bit"] = not unequal
+    result["resume_unequal_tensors"] = len(unequal)
+    counts = [k for k in unequal if k.endswith((".step", ".count"))]
+    if counts:
+        bad.append(f"resume: counts differ: {counts}")
+    if not unequal:
+        return
+    if twin is None:
+        bad.append(f"resume: {len(unequal)} tensors differ on a "
+                   f"deterministic path")
+        return
+    got = _cli_group_distances(a, b)
+    spread = _cli_group_distances(_cli_state_tensors(twin), b)
+    result["resume_distance"], result["resume_spread"] = got, spread
+    for g in CLI_RESUME_GROUPS:
+        if got[g] > CLI_RESUME_SPREAD * spread[g] + 1e-12:
+            bad.append(f"resume: {g} {got[g]:.3e} from the straight run, "
+                       f"the straight runs {spread[g]:.3e} apart")
+
+
+def _cli_lr_checks(name, state, cfg, steps, result, bad):
+    """The lr in effect after ``steps`` applied steps: every group holds the
+    same lr and count tensors (group 0's), the count is ``steps`` and the
+    lr the schedule's value at ``steps`` - 1, computed on the host."""
+    from minddet_tpu_torch.core.lr_schedules import build_schedule
+
+    groups = state.optimizer.param_groups
+    first = groups[0]
+    if any(g["lr"] is not first["lr"] or g["count"] is not first["count"]
+           for g in groups[1:]):
+        bad.append(f"{name}: the groups do not share lr and count")
+    count = int(first["count"])
+    want = float(build_schedule(dict(cfg["train"]["lr_schedule"]))(
+        torch.tensor(steps - 1)))
+    got = [float(g["lr"]) for g in groups]
+    result[f"{name}_lr"] = got[0]
+    result[f"{name}_lr_schedule"] = want
+    if count != steps or any(abs(v - want) > CLI_LR_RTOL * abs(want)
+                             for v in got):
+        bad.append(f"{name}: count {count} lr {got} (want {steps}, {want})")
+
+
+def _cli_hand_step(spec, cfg, dev):
+    """The hand-composed first step: the config's class built directly
+    from its model section, seeded as the CLI seeds it, the generator's
+    second batch (the first is the CLI's sample), ``make_train_step`` on
+    ``loss_from_gt`` under ``build_optimizer`` / ``build_schedule``."""
+    from minddet_tpu_torch.core.lr_schedules import build_schedule
+    from minddet_tpu_torch.core.optim import build_optimizer
+    from minddet_tpu_torch.models.zoo import DETECTOR_SPECS, detector_kwargs
+    from minddet_tpu_torch.train.loop import TrainState, make_train_step
+
+    mcfg = cfg["model"]
+    cls = DETECTOR_SPECS[mcfg["type"]][0]
+    model = cls(**detector_kwargs(mcfg)).init_weights(
+        torch.Generator().manual_seed(0)).to(
+        device=dev, memory_format=torch.channels_last).train()
+    tx = build_optimizer(dict(cfg["train"]["optimizer"]),
+                         build_schedule(dict(cfg["train"]["lr_schedule"])))
+    it = spec["batches"](cfg)
+    next(it)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()
+             if k != "step"}
+    step = make_train_step(lambda m, b: m.loss_from_gt(b))
+    _, metrics = step(TrainState.create(model, tx), batch)
+    out = {k: float(v) for k, v in metrics.items()}
+    del model, batch
+    return out
+
+
+def _cli_stat_checks(name, got, want, result, bad):
+    """(d): every statistic finite, equal within CLI_EVAL_ATOL to the
+    in-memory model's, inside its range (COCO: -1 where no GT of an area,
+    else [0, 1]; nuScenes: the errors >= 0, the APs and scores in [0,
+    1])."""
+    g, w = dict(got), dict(want)
+    result[f"{name}_stats"] = g
+    if set(g) != set(w):
+        bad.append(f"{name}: statistics' keys differ")
+        return
+    diff = max(abs(g[k] - w[k]) for k in w)
+    result[f"{name}_stats_max_abs_diff"] = diff
+    if diff > CLI_EVAL_ATOL:
+        bad.append(f"{name}: checkpoint vs in-memory statistics {diff:.3e}")
+    for k, v in g.items():
+        err_like = k.startswith("m") and k[1:3] in ("AT", "AS", "AO", "AV",
+                                                    "AA")
+        ok = math.isfinite(v) and (v >= 0 if err_like else (
+            v == -1 or 0 <= v <= 1))
+        if not ok:
+            bad.append(f"{name}: {k} = {v} out of range")
+
+
+def cli_main_path(dev, card):
+    """Phase 6az: the train and evaluate CLIs on the card, in-process, as a
+    user runs them (``main(argv)``), each on its config file unchanged
+    (``_cli_specs``) in a temporary workdir, the launch counts from 0 for
+    every call:
+
+    (a), (b) ``train.main --config C --synthetic --steps 3`` (with
+    ``--options train.log_every=1``, so each step is in metrics.jsonl):
+    CenterNet-R18-DCN at 512^2, batch 16, and two-stage CenterPoint at a
+    512^2 grid, batch 4, both f32; 9 K1f and 9 K1b launches a CenterNet
+    step, one each of K5f, K5b, K3f, K3dx and K4 a CenterPoint step; step
+    1's loss and grad_norm equal to the hand-composed step's
+    (``_cli_hand_step``) within CLI_STEP_RTOL; every step's loss and
+    grad_norm finite; the lr in effect the schedule's (``_cli_lr_checks``);
+    (c) ``--steps 2``, then ``--resume --steps 1`` in a second workdir:
+    the final state against the straight run's, bit for bit, or where it
+    is not, within the spread of a second straight run
+    (``_cli_resume_checks``);
+    (d) ``evaluate.main --checkpoint W/ckpt/3`` (CenterNet:
+    ``centernet_evaluate`` on COCO_CHECK_IMAGES in-memory records, K1f 9
+    a predict call; CenterPoint: ``nuscenes_evaluate`` with
+    ``refined=true`` on 2 in-memory keyframes, one K5f, K4 and K3f) through
+    ``evaluate_config`` (records in memory: the GPU host has no
+    array_record), against the same evaluator on the straight run's
+    in-memory model (``_cli_stat_checks``). Returns the launches summed
+    over the CLI calls, the seconds and the readings; fails on any
+    check."""
+    import tempfile
+
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.config import Config
+    from minddet_tpu_torch.train import evaluate as ev
+    from minddet_tpu_torch.train import train as tr
+
+    result, bad = {"card": card}, []
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    t_phase = time.perf_counter()
+    for name, spec in _cli_specs().items():
+        cfg = Config.fromfile(str(spec["config"])).to_dict()
+        per_step = (_sampler_launches(1) if name == "centernet"
+                    else _centerpoint_launches(1, CP_TRAIN_KERNELS))
+        times = lambda n: {k: n * v for k, v in per_step.items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            straight_dir = os.path.join(tmp, "straight")
+            split_dir = os.path.join(tmp, "split")
+            common = ["--config", str(spec["config"]), "--synthetic",
+                      "--options", "train.log_every=1"]
+            straight, sec, n = _cli_run(
+                tr.main, [*common, "--steps", str(CLI_STEPS), "--workdir",
+                          straight_dir], times(CLI_STEPS))
+            result[f"{name}_train_s"] = sec
+            counted = [n]
+            _, _, n = _cli_run(tr.main, [*common, "--steps",
+                                         str(CLI_RESUME_SPLIT), "--workdir",
+                                         split_dir], times(CLI_RESUME_SPLIT))
+            counted.append(n)
+            rest = CLI_STEPS - CLI_RESUME_SPLIT
+            resumed, _, n = _cli_run(tr.main, [*common, "--steps", str(rest),
+                                               "--resume", "--workdir",
+                                               split_dir], times(rest))
+            counted.append(n)
+            records = _cli_metrics(straight_dir)
+            result[f"{name}_metrics"] = records
+            if [r["step"] for r in records] != list(range(1, CLI_STEPS + 1)):
+                bad.append(f"{name}: metrics.jsonl steps "
+                           f"{[r['step'] for r in records]}")
+            for r in records:
+                if not (math.isfinite(r["loss"])
+                        and math.isfinite(r["grad_norm"])):
+                    bad.append(f"{name}: step {r['step']} not finite: {r}")
+            split_steps = [r["step"] for r in _cli_metrics(split_dir)]
+            if split_steps != list(range(1, CLI_STEPS + 1)):
+                bad.append(f"{name}: the split run logged {split_steps}")
+            ckpt_dir = os.path.join(straight_dir, "ckpt")
+            if sorted(os.listdir(ckpt_dir)) != [str(CLI_STEPS)]:
+                bad.append(f"{name}: checkpoints {os.listdir(ckpt_dir)}")
+            hand = _cli_hand_step(spec, cfg, dev)
+            first = records[0]
+            for key in ("loss", "grad_norm"):
+                rel = abs(first[key] - hand[key]) / abs(hand[key])
+                result[f"{name}_step1_{key}_rel"] = rel
+                if rel > CLI_STEP_RTOL:
+                    bad.append(f"{name}: step 1 {key} {first[key]} vs the "
+                               f"hand-composed {hand[key]}")
+            _cli_lr_checks(name, straight, cfg, CLI_STEPS, result, bad)
+            _cli_lr_checks(f"{name}_resumed", resumed, cfg, CLI_STEPS,
+                           result, bad)
+            twin = None
+            if any(not torch.equal(x, y) for x, y in zip(
+                    _cli_state_tensors(straight).values(),
+                    _cli_state_tensors(resumed).values())):
+                twin, _, n = _cli_run(
+                    tr.main, [*common, "--steps", str(CLI_STEPS),
+                              "--workdir", os.path.join(tmp, "twin")],
+                    times(CLI_STEPS))
+                counted.append(n)
+            rr = {}
+            _cli_resume_checks(straight, resumed, twin, rr, bad)
+            result.update({f"{name}_{k}": v for k, v in rr.items()})
+            del resumed, twin
+            eval_records = spec["records"]()
+            if name == "centernet":  # a warp and 9 K1f a predict call
+                calls = sum(cli_eval_buckets(eval_records).values())
+                want = dict(_sampler_launches(calls, train=False),
+                            bilinear_warp_affine_fwd=calls)
+            else:
+                want = _centerpoint_launches(1)
+            if ev.eval_protocol(Config.fromfile(str(spec["config"]))) \
+                    != spec["protocol"]:
+                bad.append(f"{name}: protocol not derived as "
+                           f"{spec['protocol']}")
+            stats, sec, n = _cli_run(
+                lambda a: ev.evaluate_config(*a),
+                [str(spec["config"]), eval_records,
+                 os.path.join(ckpt_dir, str(CLI_STEPS)), None, 0,
+                 spec["eval_options"]], want)
+            result[f"{name}_eval_s"] = sec
+            counted.append(n)
+            model = straight.model.eval()
+            if name == "centernet":
+                ref = ev.centernet_evaluate(model, eval_records,
+                                            int(cfg["model"]["num_classes"]))
+            else:
+                ref = ev.nuscenes_evaluate(model, eval_records, refined=True)
+            _cli_stat_checks(name, stats, ref, result, bad)
+            for n in counted:
+                for k, v in n.items():
+                    launches[k] += v
+            del straight, model
+            torch.cuda.empty_cache()
+        print(f"  {name}: step 1 loss {first['loss']:.6f} grad_norm "
+              f"{first['grad_norm']:.4f} (hand-composed rel "
+              f"{result[f'{name}_step1_loss_rel']:.1e} / "
+              f"{result[f'{name}_step1_grad_norm_rel']:.1e}), lr "
+              f"{result[f'{name}_lr']:.6e}, resume bit for bit "
+              f"{result[f'{name}_resume_bit_for_bit']}, train "
+              f"{result[f'{name}_train_s']:.1f} s, eval "
+              f"{result[f'{name}_eval_s']:.1f} s", flush=True)
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"  kernels: {launches}", flush=True)
+    if bad:
+        raise AssertionError(f"the CLIs: {'; '.join(bad)}")
+    return result
+
+
 class PhaseClock:
     """Every phase's seconds on the host clock: ``start(name, text)`` ends
     the phase before it (its seconds printed beside the card and kept in
@@ -9532,6 +10031,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     warp_cases = check_coco_warp(dev, card)
     waymo_cases = check_waymo_kernels(dev)
+    cli_cases = check_cli_kernels(dev, card)
 
     referee_ratios = None
     if args.seeds:
@@ -9959,6 +10459,12 @@ def main(argv=None) -> int:
                        "routes (f32)")
     waymo_eval = waymo_eval_main_path(dev, card)
     torch.cuda.empty_cache()
+    clock.start("6az", "main path, the train and evaluate CLIs on "
+                       "centernet_r18_coco.yaml and "
+                       "centerpoint_pp_nusc_two_stage.yaml (f32): train, "
+                       "resume, evaluate")
+    cli = cli_main_path(dev, card)
+    cli_launches = cli["launches"]
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -10007,16 +10513,41 @@ def main(argv=None) -> int:
     waymo_seg = waymo_cases["seg_full_max"]
     waymo_seg_bwd = waymo_cases["seg_full_max_bwd"]
     waymo_gather = waymo_cases["bilinear_gather_fwd"]
+    # the CLIs' cases (6az): K1f one f32 batch-16 CenterNet step's calls
+    # (phase 3's f32 B = 16 cases at spread 1.5) and one evaluation predict
+    # call's on the first keep-res canvas; K1b the step's; K5f, K5b, K3f,
+    # K3dx and K4 one two-stage CenterPoint step's (check_cli_kernels) and,
+    # for K5f, K3f and K4, one refined nuScenes evaluation predict's at
+    # batch 2 (phase 3's nuScenes evaluation cases)
+    cli_taps = cli_cases["hat_sample_taps_fwd"]
+    cli_fwd_main = [c for c in cases if c["dtype"] == "float32"
+                    and c["spread"] == 1.5 and c["shape"][0] == BATCH] + [
+        c for c in cli_taps if c["canvas"] == cli_taps[0]["canvas"]]
+    cli_bwd_main = [c for c in bwd_cases if c["dtype"] == "float32"
+                    and c["spread"] == 1.5 and c["shape"][0] == BATCH]
+    cli_case = lambda name: [c for c in cli_cases[name]
+                             if c.get("stream", c.get("kind")) in (
+                                 "cli", "cli_train")
+                             and c["dtype"] == "float32"]
+    nusc_eval_iou = [c for c in iou_cases if c["kind"] == "nusc_eval"]
+    nusc_eval_seg = [c for c in seg_cases if c["dtype"] == "float32"
+                     and c["shape"][0] == NUSC_EVAL_BATCH]
+    nusc_eval_gather = [c for c in gather_cases if c["dtype"] == "float32"
+                        and c["shape"][0] == NUSC_EVAL_BATCH
+                        and "stream" not in c]
     rows = [
         _kernel_row(kernels.HAT_SAMPLE_TAPS_FWD,
                     taps + train_launches["hat_sample_taps_fwd"]
                     + serve_dcn4_launches["hat_sample_taps_fwd"]
-                    + train_dcn4_launches["hat_sample_taps_fwd"], fwd_main,
-                    DCN_CALLS_PER_SHAPE, cases),
+                    + train_dcn4_launches["hat_sample_taps_fwd"]
+                    + cli_launches["hat_sample_taps_fwd"],
+                    fwd_main + cli_fwd_main, DCN_CALLS_PER_SHAPE,
+                    cases + cli_taps),
         _kernel_row(kernels.HAT_SAMPLE_TAPS_BWD,
                     train_launches["hat_sample_taps_bwd"]
-                    + train_dcn4_launches["hat_sample_taps_bwd"], bwd_main,
-                    DCN_CALLS_PER_SHAPE, bwd_cases),
+                    + train_dcn4_launches["hat_sample_taps_bwd"]
+                    + cli_launches["hat_sample_taps_bwd"],
+                    bwd_main + cli_bwd_main, DCN_CALLS_PER_SHAPE, bwd_cases),
         # K4: one batch-8 PointPillars request's call, one batch-4
         # CenterPoint request's, one CenterPoint train step's, one
         # iteration of the decode program's, one batch-4 ped_cycle
@@ -10040,7 +10571,8 @@ def main(argv=None) -> int:
                     + nusc_eval["launches"]["rotated_iou_intersect"]
                     + nusc_tracking["launches"]["rotated_iou_intersect"]
                     + wm_launches["rotated_iou_intersect"]
-                    + waymo_eval["launches"]["rotated_iou_intersect"],
+                    + waymo_eval["launches"]["rotated_iou_intersect"]
+                    + cli_launches["rotated_iou_intersect"],
                     [c for c in iou_cases if c["kind"] in (
                         "candidates", "train") and c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
@@ -10060,8 +10592,10 @@ def main(argv=None) -> int:
                     + [c for c in waymo_iou if c["kind"] == "waymo_serve"
                        and c["shape"][0] == WAYMO_SERVE_BATCHES[-1]]
                     + 2 * [c for c in waymo_iou if c["kind"] in (
-                        "waymo_eval", "waymo_eval_frame")],
-                    1, iou_cases + waymo_iou),
+                        "waymo_eval", "waymo_eval_frame")]
+                    + cli_case("rotated_iou_intersect") + nusc_eval_iou,
+                    1, iou_cases + waymo_iou
+                    + cli_cases["rotated_iou_intersect"]),
         # K5f: one f32 batch-4 CenterPoint request's call, one bf16
         # batch-8 step's of each CenterPoint train path (two- and
         # single-stage), one f32 batch-4 step's of the nuScenes config's
@@ -10076,7 +10610,8 @@ def main(argv=None) -> int:
                     + nusc_tracking["launches"]["seg_full_max"]
                     + wm_launches["seg_full_max"]
                     + waymo_training["launches"]["seg_full_max"]
-                    + waymo_eval["launches"]["seg_full_max"],
+                    + waymo_eval["launches"]["seg_full_max"]
+                    + cli_launches["seg_full_max"],
                     2 * [c for c in seg_cases if c["dtype"] == "float32"
                          and c["shape"][0] == CP_BATCHES[-1]]
                     + 2 * train_case(seg_cases)
@@ -10085,19 +10620,23 @@ def main(argv=None) -> int:
                     + 2 * [c for c in waymo_seg
                            if c["shape"][0] == wm_train_batch]
                     + 2 * [c for c in waymo_seg
-                           if c["shape"][0] == wm_eval_batch], 1,
-                    seg_cases + waymo_seg),
+                           if c["shape"][0] == wm_eval_batch]
+                    + cli_case("seg_full_max") + nusc_eval_seg, 1,
+                    seg_cases + waymo_seg + cli_cases["seg_full_max"]),
         _kernel_row(kernels.SEG_FULL_MAX_BWD,
                     cp_train_launches["seg_full_max_bwd"]
                     + cp1_training["launches"]["seg_full_max_bwd"]
                     + nusc_training["launches"]["seg_full_max_bwd"]
-                    + waymo_training["launches"]["seg_full_max_bwd"],
+                    + waymo_training["launches"]["seg_full_max_bwd"]
+                    + cli_launches["seg_full_max_bwd"],
                     2 * train_case(seg_bwd_cases)
                     + [c for c in seg_bwd_cases if c["dtype"] == "float32"
                        and c["shape"][0] == NUSC_TRAIN_BATCH
                        and c["stream"] == "uniform"]
-                    + [c for c in waymo_seg_bwd if c["stream"] == "waymo"],
-                    1, seg_bwd_cases + waymo_seg_bwd),
+                    + [c for c in waymo_seg_bwd if c["stream"] == "waymo"]
+                    + cli_case("seg_full_max_bwd"),
+                    1, seg_bwd_cases + waymo_seg_bwd
+                    + cli_cases["seg_full_max_bwd"]),
         _kernel_row(kernels.BILINEAR_GATHER_FWD,
                     cp_launches["bilinear_gather_fwd"]
                     + cp_train_launches["bilinear_gather_fwd"]
@@ -10106,7 +10645,8 @@ def main(argv=None) -> int:
                     + rcnn_training["launches"]["bilinear_gather_fwd"]
                     + mask_rcnn_training["launches"]["bilinear_gather_fwd"]
                     + nusc_eval["launches"]["bilinear_gather_fwd"]
-                    + waymo_eval["launches"]["bilinear_gather_fwd"],
+                    + waymo_eval["launches"]["bilinear_gather_fwd"]
+                    + cli_launches["bilinear_gather_fwd"],
                     [c for c in waymo_gather if c["dtype"] == "float32"]
                     + [c for c in gather_cases if c["dtype"] == "float32"
                      and c["shape"][0] in (CP_BATCHES[-1], NUSC_EVAL_BATCH)
@@ -10116,18 +10656,23 @@ def main(argv=None) -> int:
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_box")
                     + rcnn_train_case(gather_cases, "train_mask")
-                    + rcnn_train_case(gather_cases, "gt_crop"), 1,
-                    gather_cases + waymo_gather, library=True),
+                    + rcnn_train_case(gather_cases, "gt_crop")
+                    + cli_case("bilinear_gather_fwd") + nusc_eval_gather, 1,
+                    gather_cases + waymo_gather
+                    + cli_cases["bilinear_gather_fwd"], library=True),
         _kernel_row(kernels.BILINEAR_GATHER_BWD_DX,
                     cp_train_launches["bilinear_gather_bwd_dx"]
                     + rcnn_training["launches"]["bilinear_gather_bwd_dx"]
                     + mask_rcnn_training["launches"][
-                        "bilinear_gather_bwd_dx"],
+                        "bilinear_gather_bwd_dx"]
+                    + cli_launches["bilinear_gather_bwd_dx"],
                     train_case(gather_dx_cases)
                     + rcnn_training["k3dx_cases"]
-                    + mask_rcnn_training["k3dx_cases"], 1,
+                    + mask_rcnn_training["k3dx_cases"]
+                    + cli_case("bilinear_gather_bwd_dx"), 1,
                     gather_dx_cases + rcnn_training["k3dx_cases"]
-                    + mask_rcnn_training["k3dx_cases"], library=True),
+                    + mask_rcnn_training["k3dx_cases"]
+                    + cli_cases["bilinear_gather_bwd_dx"], library=True),
         # K3dcw: no entry point reaches it yet (the train step's proposals
         # are detached), so its count on the main paths is 0; phase 5b's
         # launch, through bilinear_sample_2d's gradient to the coordinates,
@@ -10146,15 +10691,19 @@ def main(argv=None) -> int:
                     flat_bwd_main, FLAT_LAYERS, flat_bwd_cases),
         # the warp kernel's COCO calls: one COCO-fed train step's warp, one
         # eval batch's at the (512, 768) bucket, one mosaic batch's four
+        # and one CLI evaluation predict call's, on its first canvas
         _kernel_row(kernels.BILINEAR_WARP_AFFINE_FWD,
                     coco_training["launches"]["bilinear_warp_affine_fwd"]
                     + coco_eval["launches"]["bilinear_warp_affine_fwd"]
-                    + coco_mosaic["launches"]["bilinear_warp_affine_fwd"],
+                    + coco_mosaic["launches"]["bilinear_warp_affine_fwd"]
+                    + cli_launches["bilinear_warp_affine_fwd"],
                     [c for c in warp_cases if c["stream"] in (
                         "coco_train", "coco_eval_512x768")]
                     + 4 * [c for c in warp_cases
-                           if c["stream"] == "coco_mosaic"], 1,
-                    warp_cases, library=True),
+                           if c["stream"] == "coco_mosaic"]
+                    + cli_cases["bilinear_warp_affine_fwd"][:1], 1,
+                    warp_cases + cli_cases["bilinear_warp_affine_fwd"],
+                    library=True),
     ]
     clock.stop()
     wall_s = time.perf_counter() - t_start
@@ -10235,6 +10784,7 @@ def main(argv=None) -> int:
                            waymo_serving_launches=wm_launches,
                            waymo_training=waymo_training,
                            waymo_eval=waymo_eval,
+                           cli_cases=cli_cases, cli=cli,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

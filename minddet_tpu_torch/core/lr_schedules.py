@@ -5,7 +5,11 @@
 them from optax's ``polynomial_schedule``,
 ``linear_schedule``, ``cosine_decay_schedule``,
 ``piecewise_constant_schedule``, ``join_schedules`` and
-``exponential_decay``).
+``exponential_decay``). The six the reference registers are in
+``LR_SCHEDULES`` under its names, and ``build_schedule`` builds one from a
+config's ``lr_schedule`` section; an option the port keeps as a constant
+(``staircase``, ``end_factor``, one-cycle's ``moms``, ``div_factor`` and
+``pct_start``: no config sets one) raises there as an unknown argument.
 
 A schedule takes the count as a tensor (a 0-d tensor on the device in the
 train step, so no step syncs the host; any integer tensor or number in a
@@ -19,6 +23,8 @@ import math
 from typing import Callable, Dict, Sequence
 
 import torch
+
+from minddet_tpu_torch.core.registry import LR_SCHEDULES
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 DECAY_FACTOR = 10.0  # multi_epochs_decay's divisor at each milestone
@@ -105,6 +111,7 @@ def join_schedules(schedules: Sequence[Schedule],
     return schedule
 
 
+@LR_SCHEDULES.register_module()
 def polynomial_decay(learning_rate: float, end_learning_rate: float,
                      decay_steps: int, power: float = 1.0,
                      warmup_steps: int = 0) -> Schedule:
@@ -121,6 +128,7 @@ def polynomial_decay(learning_rate: float, end_learning_rate: float,
     return poly
 
 
+@LR_SCHEDULES.register_module()
 def linear_warmup(learning_rate: float, warmup_steps: int, total_steps: int,
                   end_factor: float = 0.0) -> Schedule:
     """Linear warm-up from 0 to ``learning_rate`` over ``warmup_steps``,
@@ -133,6 +141,7 @@ def linear_warmup(learning_rate: float, warmup_steps: int, total_steps: int,
     return join_schedules([warm, decay], [warmup_steps])
 
 
+@LR_SCHEDULES.register_module()
 def warmup_cosine(learning_rate: float, total_steps: int,
                   warmup_steps: int = 0) -> Schedule:
     """Linear warm-up from 0 to ``learning_rate`` over ``warmup_steps`` (at
@@ -145,16 +154,17 @@ def warmup_cosine(learning_rate: float, total_steps: int,
     return join_schedules([warm, decay], [warmup_steps])
 
 
+@LR_SCHEDULES.register_module()
 def multi_epochs_decay(learning_rate: float, milestones: Sequence[int],
-                       steps_per_epoch: int, warmup_steps: int = 0
-                       ) -> Schedule:
-    """``learning_rate`` divided by ``DECAY_FACTOR`` at each milestone
+                       steps_per_epoch: int, factor: float = DECAY_FACTOR,
+                       warmup_steps: int = 0) -> Schedule:
+    """``learning_rate`` divided by ``factor`` at each milestone
     epoch (its count: milestone x ``steps_per_epoch``), after a linear
     warm-up from 0 over ``warmup_steps`` where that is positive, the
     milestones then counted from the warm-up's end (the reference's
     ``multi_epochs_decay``, its ``MultiEpochsDecayLR``)."""
     sched = piecewise_constant_schedule(
-        learning_rate, {int(m) * steps_per_epoch: 1.0 / DECAY_FACTOR
+        learning_rate, {int(m) * steps_per_epoch: 1.0 / factor
                         for m in milestones})
     if warmup_steps > 0:
         warm = linear_schedule(0.0, learning_rate, warmup_steps)
@@ -162,6 +172,7 @@ def multi_epochs_decay(learning_rate: float, milestones: Sequence[int],
     return sched
 
 
+@LR_SCHEDULES.register_module()
 def exponential_decay(learning_rate: float, decay_steps: int,
                       decay_rate: float = 0.8) -> Schedule:
     """``learning_rate * decay_rate ** floor(c / decay_steps)`` in f32, the
@@ -182,6 +193,7 @@ def exponential_decay(learning_rate: float, decay_steps: int,
     return schedule
 
 
+@LR_SCHEDULES.register_module()
 def one_cycle(lr_max: float, total_steps: int) -> Schedule:
     """fastai's one-cycle learning rate in f32 (the reference's
     ``one_cycle`` at its defaults, CenterPoint's nuScenes schedule): cosine
@@ -223,3 +235,9 @@ def one_cycle_momentum(total_steps: int) -> Schedule:
         return torch.where(step < up_steps, m_up, m_down)
 
     return schedule
+
+
+def build_schedule(cfg) -> Schedule:
+    """A config's ``lr_schedule`` section -> its schedule through the
+    ``LR_SCHEDULES`` registry."""
+    return LR_SCHEDULES.build(dict(cfg))

@@ -19,7 +19,8 @@ applies one step to the gradients in ``.grad``. AdamW
    groups.
 
 ``adam(...)`` is the reference's ``adam`` without decay, optax's ``adam``:
-the same AdamW at weight decay 0.
+the same AdamW at weight decay 0 (no config decays an ``adam``; a
+``weight_decay`` key raises).
 
 SGD (``torch.optim.SGD``, fused; ``momentum_buffer`` = optax's ``trace``,
 zero at first as optax's is): the same clip, then ``add_decayed_weights`` on
@@ -40,17 +41,27 @@ were. The test stays on the device: the fused step reads it as
 ``found_inf`` (and takes back its count's increment), so no step syncs the
 host. An AdamW with a constant lr and no guard (the CenterNet, CenterPoint
 and PointPillars train entries) stays torch's default implementation.
+
+``adam``, ``adamw`` and ``sgd`` are registered in ``OPTIMIZERS``;
+``build_optimizer(cfg, lr)`` builds a config's ``optimizer`` section with
+the NaN guard unless it sets ``nan_guard: false``. ``with_ema(tx, decay)``
+is the reference's ``optax.chain(tx, optax.ema(decay, debias=True))``: the
+update that ``tx`` makes is replaced by the bias-corrected moving average
+of ``tx``'s updates, with its own count; ``get_ema_params`` reads that
+average, as the reference's reads ``EmaState.ema``. ``load_optimizer_state``
+restores a saved state and ties the groups' shared tensors together again.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Iterable, List, Optional, Union
+from typing import Dict, Iterable, List, Optional, Union
 
 import torch
 from torch import nn
 
 from minddet_tpu_torch.core.lr_schedules import Schedule
+from minddet_tpu_torch.core.registry import OPTIMIZERS
 
 
 def _global_norm64(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -200,6 +211,82 @@ class SGD:
 Recipe = Union[AdamW, SGD]
 
 
+@dataclass(frozen=True)
+class WithEMA:
+    """``tx`` followed by optax's ``ema(decay, debias=True)``
+    (``with_ema``). Each parameter's ``"ema"`` state (made at the first
+    step, after ``tx``'s own state: torch's Adam makes its moments only in
+    an empty state) and the groups' shared ``"ema_count"`` hold the average
+    and its count."""
+
+    tx: Recipe
+    decay: float = 0.9998
+
+    def init(self, model: nn.Module) -> torch.optim.Optimizer:
+        optimizer = self.tx.init(model)
+        count = torch.zeros((), dtype=torch.int64,
+                            device=next(model.parameters()).device)
+        for group in optimizer.param_groups:
+            group["ema_count"] = count
+        return optimizer
+
+    def update(self, optimizer: torch.optim.Optimizer,
+               params: Iterable[torch.Tensor]) -> torch.Tensor:
+        """``tx``'s step, whose update u is then replaced: ema <- (1 -
+        decay) u + decay ema, count + 1, and the parameter moves by ema /
+        (1 - decay ** count) from where it was. Returns ``tx``'s global
+        norm."""
+        ps = [p for group in optimizer.param_groups for p in group["params"]]
+        before = [p.detach().clone() for p in ps]
+        norm = self.tx.update(optimizer, params)
+        with torch.no_grad():
+            emas = [optimizer.state[p].setdefault("ema", torch.zeros_like(p))
+                    for p in ps]
+            updates = torch._foreach_sub([p.detach() for p in ps], before)
+            torch._foreach_mul_(emas, self.decay)
+            torch._foreach_add_(emas, updates, alpha=1 - self.decay)
+            count = optimizer.param_groups[0]["ema_count"]
+            count.add_(1)
+            correction = 1 - torch.pow(
+                torch.full((), self.decay, device=count.device), count)
+            torch._foreach_add_(before, torch._foreach_div(emas, correction))
+            torch._foreach_copy_([p.detach() for p in ps], before)
+        return norm
+
+
+def with_ema(tx: Recipe, decay: float = 0.9998) -> WithEMA:
+    """The reference's ``with_ema``: ``tx`` chained with optax's
+    ``ema(decay, debias=True)`` (``WithEMA``)."""
+    return WithEMA(tx, decay)
+
+
+def get_ema_params(model: nn.Module, optimizer: torch.optim.Optimizer
+                   ) -> Optional[Dict[str, torch.Tensor]]:
+    """The moving average of a ``with_ema`` optimizer by parameter name of
+    ``model`` (the reference's ``EmaState.ema``), or None without one."""
+    if "ema_count" not in optimizer.param_groups[0]:
+        return None
+    return {name: optimizer.state[p].get("ema", torch.zeros_like(p))
+            for name, p in model.named_parameters()}
+
+
+SHARED_GROUP_KEYS = ("lr", "count", "ema_count")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state_dict: Dict) -> None:
+    """``optimizer.load_state_dict(state_dict)``, then every group's
+    schedule lr, count and EMA count tensors made group 0's again: the
+    groups share them (``_schedule_groups``, ``WithEMA``) and a step
+    advances group 0's only, but the load gives each group its own copy."""
+    optimizer.load_state_dict(state_dict)
+    first = optimizer.param_groups[0]
+    for group in optimizer.param_groups[1:]:
+        for key in SHARED_GROUP_KEYS:
+            if torch.is_tensor(first.get(key)):
+                group[key] = first[key]
+
+
 def skip_nonfinite_updates(tx: Recipe) -> Recipe:
     """``tx`` with optax's ``apply_if_finite`` around it (the reference's
     ``skip_nonfinite_updates``): a step whose gradients are not all finite
@@ -209,22 +296,37 @@ def skip_nonfinite_updates(tx: Recipe) -> Recipe:
     return replace(tx, nan_guard=True)
 
 
+@OPTIMIZERS.register_module()
 def adam(learning_rate: Union[float, Schedule], b1: float = 0.9,
          b2: float = 0.999, eps: float = 1e-8,
          clip_global_norm: Optional[float] = None) -> AdamW:
     """The reference's ``adam`` without weight decay (optax's ``adam``;
-    UNet's optimizer)."""
+    UNet's and CenterNet's optimizer)."""
     return AdamW(learning_rate, b1, b2, eps, 0.0, clip_global_norm)
 
 
+@OPTIMIZERS.register_module()
 def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01,
           clip_global_norm: Optional[float] = None) -> AdamW:
     return AdamW(learning_rate, b1, b2, eps, weight_decay, clip_global_norm)
 
 
+@OPTIMIZERS.register_module()
 def sgd(learning_rate: Union[float, Schedule], momentum: float = 0.9,
         nesterov: bool = False, weight_decay: float = 0.0,
         clip_global_norm: Optional[float] = None) -> SGD:
     return SGD(learning_rate, momentum, nesterov, weight_decay,
                clip_global_norm)
+
+
+def build_optimizer(cfg, learning_rate: Union[float, Schedule]) -> Recipe:
+    """A config's ``optimizer`` section -> its recipe through
+    ``OPTIMIZERS`` at ``learning_rate``, inside ``skip_nonfinite_updates``
+    unless the section sets ``nan_guard: false`` (the reference's
+    ``build_optimizer``)."""
+    cfg = dict(cfg)
+    cfg["learning_rate"] = learning_rate
+    nan_guard = cfg.pop("nan_guard", True)
+    tx = OPTIMIZERS.build(cfg)
+    return skip_nonfinite_updates(tx) if nan_guard else tx

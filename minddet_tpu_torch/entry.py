@@ -191,6 +191,7 @@ from typing import Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from minddet_tpu_torch.core.config import Config
 from minddet_tpu_torch.core.lr_schedules import (Schedule, exponential_decay,
                                                   linear_warmup,
                                                   multi_epochs_decay,
@@ -198,6 +199,7 @@ from minddet_tpu_torch.core.lr_schedules import (Schedule, exponential_decay,
                                                   warmup_cosine)
 from minddet_tpu_torch.core.optim import (Recipe, adam, adamw, sgd,
                                           skip_nonfinite_updates)
+from minddet_tpu_torch.core.registry import DETECTORS
 from minddet_tpu_torch.data.coco import CocoDetection
 from minddet_tpu_torch.data.kitti import KittiDetection
 from minddet_tpu_torch.data.nuscenes import NuScenesDetection
@@ -219,6 +221,7 @@ from minddet_tpu_torch.models.detectors.yolov8 import YOLOv8
 from minddet_tpu_torch.models.detectors.yolox import YOLOX
 from minddet_tpu_torch.models.segmentors import (DeepLabV3, DeepLabV3Plus,
                                                  UNet)
+from minddet_tpu_torch.models.zoo import detector_kwargs
 from minddet_tpu_torch.ops.decode import topk_lowest_index_first
 from minddet_tpu_torch.ops.nms import rotated_nms
 from minddet_tpu_torch.ops.targets import centernet_targets_batch
@@ -466,43 +469,15 @@ def _draw_clouds(rs: np.random.RandomState, batch: int, pc_range,
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 PP_CAR_CONFIG = CONFIGS / "pointpillars_car_kitti.yaml"
 PP_PED_CYCLE_CONFIG = CONFIGS / "pointpillars_ped_cycle_kitti.yaml"
-# the config's model keys that the port's PointPillars takes as they are;
-# rpn_space_to_depth is a TPU layout of the same function (the port keeps
-# its layout), and type names the class
-PP_MODEL_KEYS = ("num_classes", "grid_ny", "grid_nx", "voxel_size",
-                 "pc_range", "loc_weight", "dir_weight", "rpn_strides",
-                 "num_anchor_per_loc", "anchor_sizes", "anchor_strides",
-                 "anchor_offsets", "matched_thresholds",
-                 "unmatched_thresholds", "max_voxels", "max_points_per_voxel")
-PP_IGNORED_KEYS = ("type", "rpn_space_to_depth")
 
 
 def read_config(config) -> Dict:
-    """A configuration: ``config`` itself where it is a mapping, else the
-    YAML file at that path with its ``_base_`` files (a path or a list,
-    relative to it) merged under it, mapping by mapping."""
+    """A configuration as plain dicts: ``config`` itself where it is a
+    mapping, else the file at that path read by ``Config.fromfile`` (YAML,
+    JSON or Python; its ``_base_`` files merged under it)."""
     if isinstance(config, Mapping):
         return dict(config)
-    import yaml
-
-    with open(config) as f:
-        cfg = yaml.safe_load(f)
-    base = cfg.pop("_base_", None)
-    if not base:
-        return cfg
-    merged: Dict = {}
-    for b in base if isinstance(base, (list, tuple)) else [base]:
-        _merge(merged, read_config(Path(config).parent / b))
-    _merge(merged, cfg)
-    return merged
-
-
-def _merge(into: Dict, cfg: Mapping) -> None:
-    for k, v in cfg.items():
-        if isinstance(v, Mapping) and isinstance(into.get(k), dict):
-            _merge(into[k], v)
-        else:
-            into[k] = dict(v) if isinstance(v, Mapping) else v
+    return Config.fromfile(str(config)).to_dict()
 
 
 def pointpillars_config(config=PP_CAR_CONFIG) -> Dict:
@@ -510,26 +485,11 @@ def pointpillars_config(config=PP_CAR_CONFIG) -> Dict:
     return read_config(config)
 
 
-def _config_kwargs(mcfg: Mapping, keys, ignored, fixed, name: str) -> Dict:
-    """The model arguments of a configuration's model section (lists as
-    tuples): a key the port does not know, or a ``fixed`` key set to
-    another value than the port's, raises."""
-    unknown = set(mcfg) - set(keys) - set(ignored) - set(fixed)
-    wrong = {k: mcfg[k] for k in fixed if k in mcfg and mcfg[k] != fixed[k]}
-    if unknown or wrong:
-        raise ValueError(f"{name} config keys not ported: {unknown or wrong}")
-
-    def tup(v):
-        return tuple(tup(x) for x in v) if isinstance(v, list) else v
-
-    return {k: tup(v) for k, v in mcfg.items() if k in keys}
-
-
 def pointpillars_kwargs(cfg: Mapping) -> Dict:
     """The ``PointPillars`` arguments of a configuration's model section
-    (lists as tuples); a key the port does not know raises."""
-    return _config_kwargs(cfg["model"], PP_MODEL_KEYS, PP_IGNORED_KEYS, {},
-                          "PointPillars")
+    (``models/zoo.py:detector_kwargs``: lists as tuples; a key the port
+    does not implement raises)."""
+    return detector_kwargs(dict(cfg["model"], type="PointPillars"))
 
 
 def build_pointpillars(device=None, config=PP_CAR_CONFIG) -> PointPillars:
@@ -541,8 +501,8 @@ def build_pointpillars(device=None, config=PP_CAR_CONFIG) -> PointPillars:
     293,632 anchors) in eval mode, f32, with flax's default initialisers
     drawn from ``SEED``."""
     dev = resolve_device(device)
-    model = PointPillars(**pointpillars_kwargs(
-        pointpillars_config(config))).init_weights(
+    model = DETECTORS.build(dict(pointpillars_config(config)["model"],
+                                 type="PointPillars")).init_weights(
         torch.Generator().manual_seed(SEED))
     return model.eval().to(device=dev, memory_format=torch.channels_last)
 
@@ -595,23 +555,12 @@ def pointpillars_voxel_entry(device=None, batch: int = 1,
 CP_CONFIG = CONFIGS / "centerpoint_pp_nusc.yaml"
 CP_TWO_STAGE_CONFIG = CONFIGS / "centerpoint_pp_nusc_two_stage.yaml"
 CP_WAYMO_CONFIG = CONFIGS / "centerpoint_pp_waymo.yaml"
-# the config's model keys that the port's CenterPoint takes as they are;
-# the loss weights below are the port's constants (CenterHead's weight and
-# the second stage's unit weights), so a config may only restate them
-CP_MODEL_KEYS = ("task_num_classes", "grid_ny", "grid_nx", "voxel_size",
-                 "pc_range", "out_size_factor", "max_voxels",
-                 "max_points_per_voxel", "num_proposals", "fg_iou",
-                 "refine_hidden")
-CP_FIXED_KEYS = {"loc_weight": 0.25, "stage2_score_weight": 1.0,
-                 "stage2_box_weight": 1.0}
-CP_CLASSES = {"CenterPoint": CenterPoint,
-              "CenterPointTwoStage": CenterPointTwoStage}
 
 
 def build_centerpoint(device=None, config=None) -> CenterPoint:
     """The CenterPoint of ``config`` (``read_config``: a path or a mapping;
     ``configs/centerpoint_pp_nusc.yaml``, ``..._two_stage.yaml`` with its
-    ``_base_``, ``centerpoint_pp_waymo.yaml``), its ``type`` the class; by
+    ``_base_``, ``centerpoint_pp_waymo.yaml``) built by ``DETECTORS``; by
     default the two-stage nuScenes model of ``CP_TWO_STAGE_CONFIG`` with
     the port's defaults (grid 512x512, voxels 0.2 x 0.2 x 8 m, PFN (64,
     64), RPN (3, 5, 5) with up strides (0.5, 1, 2), six tasks, max_voxels
@@ -622,9 +571,7 @@ def build_centerpoint(device=None, config=None) -> CenterPoint:
     if config is None:
         model = CenterPointTwoStage()
     else:
-        mcfg = read_config(config)["model"]
-        model = CP_CLASSES[mcfg["type"]](**_config_kwargs(
-            mcfg, CP_MODEL_KEYS, ("type",), CP_FIXED_KEYS, "CenterPoint"))
+        model = DETECTORS.build(read_config(config)["model"])
     model.init_weights(torch.Generator().manual_seed(SEED))
     return model.eval().to(device=dev, memory_format=torch.channels_last)
 

@@ -36,15 +36,18 @@ Targets = Dict[str, torch.Tensor]
 
 class CenterNet(nn.Module):
     def __init__(self, num_classes: int = 80, depth: int = 18,
-                 dcn: bool = True, hm_weight: float = 1.0,
+                 dcn: bool = True, head_conv: int = 64,
+                 reg_offset: bool = True, hm_weight: float = 1.0,
                  wh_weight: float = 0.1, off_weight: float = 1.0,
                  reg_loss: str = "l1", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone = ResNet(depth=depth,
                                dcn_stages=(False, dcn, dcn, dcn))
         self.neck = CenterNetDeconvNeck(self.backbone.out_channels[-1])
-        self.head = CenterNetHead(NUM_FILTERS[-1], num_classes)
+        self.head = CenterNetHead(NUM_FILTERS[-1], num_classes, head_conv,
+                                  reg_offset)
         self.num_classes = num_classes
+        self.reg_offset = reg_offset
         self.hm_weight = hm_weight
         self.wh_weight = wh_weight
         self.off_weight = off_weight
@@ -69,7 +72,7 @@ class CenterNet(nn.Module):
                                   targets["ind"], targets["wh"],
                                   mode=self.reg_loss)
         off_loss = torch.zeros((), device=image.device)
-        if self.off_weight > 0:
+        if self.reg_offset and self.off_weight > 0:
             off_loss = gather_reg_loss(outputs["reg"], targets["reg_mask"],
                                        targets["ind"], targets["reg"],
                                        mode=self.reg_loss)

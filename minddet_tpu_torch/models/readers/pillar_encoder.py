@@ -190,3 +190,18 @@ def scatter_voxel_canvas(pillars: torch.Tensor, coords: torch.Tensor,
     flat.index_copy_(0, voxel_cell_rows(coords, ny, nx).reshape(-1),
                      pillars.reshape(b * v, c))
     return flat[:b * ny * nx].view(b, ny, nx, c).permute(0, 3, 1, 2)
+
+
+class PointPillarsScatter(nn.Module):
+    """The reference's ``PointPillarsScatter`` module: pillar features (B,
+    V, C) and coords (B, V, 3) [gz, gy, gx] -> the (B, ny, nx, C) canvas
+    (``scatter_voxel_canvas``'s NHWC view; empty slots dropped)."""
+
+    def __init__(self, ny: int, nx: int):
+        super().__init__()
+        self.ny, self.nx = ny, nx
+
+    def forward(self, pillar_features: torch.Tensor, coords: torch.Tensor
+                ) -> torch.Tensor:
+        return scatter_voxel_canvas(pillar_features, coords, self.ny,
+                                    self.nx).permute(0, 2, 3, 1)

@@ -21,10 +21,23 @@ host (``data/nuscenes_eval.py``, ``track.py``,
 ``data/nuscenes_track_eval.py``). The Waymo evaluation predicts on the
 model's device and runs the protocol's IoUs there too (``data/
 waymo_eval.py``: K4 on the card), its matching on the host.
+
+``main`` is the evaluation CLI::
+
+    python -m minddet_tpu_torch.train.evaluate --config CONFIG \
+        --records PATTERN [--checkpoint WORKDIR/ckpt/STEP] \
+        [--protocol P] [--max-images N] [--options refined=true ...]
+
+``evaluate_config`` is its body for a config, records (a pattern, records
+in memory or a dataset) and a checkpoint: the protocol derived from the
+config as the reference's CLI derives it, the model built by
+``DETECTORS``, seeded, then restored from the checkpoint's ``model``
+state dict.
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -49,7 +62,12 @@ from minddet_tpu_torch.data.nuscenes_track_eval import evaluate_tracking
 from minddet_tpu_torch.data.seg import SegDataset
 from minddet_tpu_torch.data.waymo import WaymoDetection
 from minddet_tpu_torch.data.waymo_eval import evaluate_waymo
+from minddet_tpu_torch.core.checkpoint import load_pytree
+from minddet_tpu_torch.core.config import Config
+from minddet_tpu_torch.core.metrics import logger
+from minddet_tpu_torch.core.registry import DETECTORS
 from minddet_tpu_torch.data.transforms import eval_affine, warp_images
+from minddet_tpu_torch.models import zoo  # noqa: F401  (the registry)
 from minddet_tpu_torch.ops.nms import soft_nms
 from minddet_tpu_torch.track import track_sequence
 
@@ -126,19 +144,20 @@ class _Laps:
 
 @torch.no_grad()
 def coco_evaluate(model: nn.Module, records, image_hw: Tuple[int, int],
-                  num_classes: int, batch_size: int = 8, segm: bool = False
-                  ) -> Dict[str, float]:
+                  num_classes: int, batch_size: int = 8, max_images: int = 0,
+                  segm: bool = False) -> Dict[str, float]:
     """The fixed-resolution COCO path (the 2D zoo): each image warped to
     ``image_hw`` (``eval_affine``: the longer side fit, centred), the
     model's ``predict`` on its device (the tail batch padded,
     ``_pad_batch``), the boxes mapped back to the image's pixels, the 12
-    COCO numbers over ``records`` (``coco_dataset``, 128 slots). ``predict`` returns a dict
+    COCO numbers over ``records`` (``coco_dataset``, 128 slots; its first
+    ``max_images`` predicted where positive). ``predict`` returns a dict
     (boxes, scores, labels in input pixels, and masks) or CenterNet's (B,
     K, 6) at output stride 4. With ``segm`` (Mask R-CNN) the roi masks are
     pasted at the image's resolution (``paste_masks_to_image``) and scored
     by mask IoU too, under ``segm_`` names."""
     ds = coco_dataset(records, max_objs=128, keep_raw=True)
-    n = len(ds)
+    n = min(len(ds), max_images) if max_images else len(ds)
     dev = next(model.parameters()).device
     predictions = {}
     for start in range(0, n, batch_size):
@@ -232,6 +251,7 @@ def _soft_nms_per_class(boxes: np.ndarray, scores: np.ndarray,
 
 @torch.no_grad()
 def centernet_evaluate(model: nn.Module, records, num_classes: int = 80,
+                       max_images: int = 0,
                        timings: Optional[Dict[str, float]] = None
                        ) -> Dict[str, float]:
     """The reference's CenterNet protocol at scale 1: each image placed
@@ -242,17 +262,20 @@ def centernet_evaluate(model: nn.Module, records, num_classes: int = 80,
     (``_soft_nms_per_class``), then the cross-class merge keeping every
     score at or above the ``MAX_PER_IMAGE``-th (ties may keep more); the 12
     COCO numbers over ``records`` (``coco_dataset`` on a (1024, 1024)
-    canvas, 128 slots). With ``timings`` the device is waited for between
-    parts, and their seconds are added there: load (host examples), copy
-    (to the device), warp, predict (with the detections back to the host),
-    soft_nms, evaluate (the host's protocol)."""
+    canvas, 128 slots; its first ``max_images`` predicted where positive,
+    the protocol over the whole set as the reference's). With ``timings``
+    the device is waited for between parts, and their seconds are added
+    there: load (host examples), copy (to the device), warp, predict (with
+    the detections back to the host), soft_nms, evaluate (the host's
+    protocol)."""
     ds = coco_dataset(records, max_hw=(1024, 1024), max_objs=128,
                       keep_raw=True)
     dev = next(model.parameters()).device
     laps = _Laps(timings, dev)
     raw = defaultdict(lambda: ([], [], []))
     groups = defaultdict(list)
-    for i in range(len(ds)):  # the stored sizes: no image decoded yet
+    n = min(len(ds), max_images) if max_images else len(ds)
+    for i in range(n):  # the stored sizes: no image decoded yet
         h, w = ds.records[i]["hw"]
         groups[_keep_res_hw(int(h), int(w))].append(i)
     for (ih, iw), items in groups.items():
@@ -323,11 +346,12 @@ def kitti_dataset(records) -> KittiDetection:
 
 @torch.no_grad()
 def kitti_evaluate(model: nn.Module, records,
-                   classes: Sequence[str] = ("Car",),
+                   classes: Sequence[str] = ("Car",), max_frames: int = 0,
                    timings: Optional[Dict[str, float]] = None
                    ) -> Dict[str, Dict]:
     """PointPillars -> the official KITTI table (bbox, bev, 3d and AOS)
-    over ``records`` (``kitti_dataset``): ``predict_from_points`` on the
+    over ``records`` (``kitti_dataset``; its first ``max_frames`` where
+    positive): ``predict_from_points`` on the
     model's device, KITTI_EVAL_BATCH frames a call (the tail padded,
     ``_pad_batch``); the detections above KITTI_SCORE_THRESHOLD projected
     to camera and image frames (``detections_to_kitti_annos``); the GT
@@ -338,7 +362,7 @@ def kitti_evaluate(model: nn.Module, records,
     detections back on the host), annos, overlaps and evaluate (the host's
     bookkeeping)."""
     ds = kitti_dataset(records)
-    n = len(ds)
+    n = min(len(ds), max_frames) if max_frames else len(ds)
     dev = next(model.parameters()).device
     laps = _Laps(timings, dev)
     gt_annos, dt_annos = [], []
@@ -401,11 +425,12 @@ def nuscenes_route(model: nn.Module, tta: bool = False,
 
 @torch.no_grad()
 def nuscenes_detections(model: nn.Module, records, tta: bool = False,
-                        refined: bool = False,
+                        refined: bool = False, max_frames: int = 0,
                         timings: Optional[Dict[str, float]] = None
                         ) -> List[Tuple[Dict[str, np.ndarray],
                                         Dict[str, np.ndarray]]]:
-    """Per frame of ``records`` (``nuscenes_dataset``), in order: (its
+    """Per frame of ``records`` (``nuscenes_dataset``; its first
+    ``max_frames`` where positive), in order: (its
     example's GT and tracking keys, NUSC_FRAME_KEYS; its detections above
     NUSC_SCORE_THRESHOLD: boxes (n, 9), scores, labels 0-based into
     DETECTION_CLASSES). The route's method (``nuscenes_route``) runs on the
@@ -414,7 +439,7 @@ def nuscenes_detections(model: nn.Module, records, tta: bool = False,
     parts, and their seconds are added there: load (host examples), copy
     and predict (with the detections back on the host)."""
     ds = nuscenes_dataset(records)
-    n = len(ds)
+    n = min(len(ds), max_frames) if max_frames else len(ds)
     if n == 0:
         raise ValueError("need at least one frame")
     method = nuscenes_route(model, tta, refined)
@@ -465,17 +490,19 @@ def nuscenes_metrics(frames) -> Dict[str, float]:
 
 
 def nuscenes_evaluate(model: nn.Module, records, tta: bool = False,
-                      refined: bool = False,
+                      refined: bool = False, max_frames: int = 0,
                       timings: Optional[Dict[str, float]] = None
                       ) -> Dict[str, float]:
     """CenterPoint -> the nuScenes detection protocol (mAP over {0.5, 1,
     2, 4} m, mATE, mASE, mAOE, mAVE, mAAE with attributes by the velocity
     rule, NDS, AP per class) over ``records``: ``nuscenes_detections`` on
     the route (``predict_from_points``; ``tta``: double-flip TTA;
-    ``refined``: the two-stage ``predict_refined``), then
-    ``nuscenes_metrics`` on the host. With ``timings``, the parts of
-    ``nuscenes_detections`` and evaluate (the host's protocol)."""
-    frames = nuscenes_detections(model, records, tta, refined, timings)
+    ``refined``: the two-stage ``predict_refined``; the first
+    ``max_frames`` where positive), then ``nuscenes_metrics`` on the host.
+    With ``timings``, the parts of ``nuscenes_detections`` and evaluate
+    (the host's protocol)."""
+    frames = nuscenes_detections(model, records, tta, refined, max_frames,
+                                 timings)
     laps = _Laps(timings, next(model.parameters()).device)
     stats = nuscenes_metrics(frames)
     laps.lap("evaluate")
@@ -536,16 +563,19 @@ def tracking_scenes(frames, timings: Optional[Dict[str, float]] = None):
 
 
 def nuscenes_tracking_evaluate(model: nn.Module, records,
+                               refined: bool = False, max_frames: int = 0,
                                timings: Optional[Dict[str, float]] = None
                                ) -> Dict[str, float]:
     """CenterPoint -> the greedy tracker -> the nuScenes tracking protocol
     (AMOTA, AMOTP, MOTA, IDS, per class AMOTA and AMOTP) over ``records``
-    written with tracking metadata: ``nuscenes_detections`` on
-    ``predict_from_points``, ``tracking_scenes``, ``evaluate_tracking``
-    against ``gt_track_ids``.
+    written with tracking metadata (the first ``max_frames`` where
+    positive): ``nuscenes_detections`` on ``predict_from_points``
+    (``refined``: the two-stage ``predict_refined``),
+    ``tracking_scenes``, ``evaluate_tracking`` against ``gt_track_ids``.
     With ``timings``, the parts of ``nuscenes_detections``, track and
     evaluate."""
-    frames = nuscenes_detections(model, records, timings=timings)
+    frames = nuscenes_detections(model, records, refined=refined,
+                                 max_frames=max_frames, timings=timings)
     gt_scenes, dt_scenes = tracking_scenes(frames, timings)
     t0 = time.perf_counter()
     stats = evaluate_tracking(gt_scenes, dt_scenes, DETECTION_CLASSES)
@@ -572,10 +602,12 @@ def waymo_dataset(records) -> WaymoDetection:
 
 @torch.no_grad()
 def waymo_annos(model: nn.Module, records, refined: bool = False,
+                max_frames: int = 0,
                 timings: Optional[Dict[str, float]] = None
                 ) -> Tuple[List[Dict], List[Dict]]:
     """(GT annos, detection annos) of ``evaluate_waymo`` over ``records``
-    (``waymo_dataset``), frame by frame: the GT straight from each record
+    (``waymo_dataset``; its first ``max_frames`` where positive), frame by
+    frame: the GT straight from each record
     (7-wide z-bottom boxes, classes, lidar point counts); the detections of
     ``predict_from_points`` (``refined``: ``predict_refined`` of a
     two-stage model, else ValueError) on the model's device,
@@ -585,7 +617,7 @@ def waymo_annos(model: nn.Module, records, refined: bool = False,
     parts, and their seconds are added there: load (host examples), copy
     and predict (with the detections back on the host)."""
     ds = waymo_dataset(records)
-    n = len(ds)
+    n = min(len(ds), max_frames) if max_frames else len(ds)
     if n == 0:
         raise ValueError("need at least one frame")
     method = nuscenes_route(model, refined=refined)
@@ -625,19 +657,137 @@ def waymo_annos(model: nn.Module, records, refined: bool = False,
 
 
 def waymo_evaluate(model: nn.Module, records, refined: bool = False,
+                   max_frames: int = 0, range_breakdowns: bool = False,
                    timings: Optional[Dict[str, float]] = None
                    ) -> Dict[str, Dict[str, float]]:
     """CenterPoint -> the Waymo protocol's L1 / L2 AP and APH per class of
     WAYMO_EVAL_NAMES over ``records``: ``waymo_annos`` on the route
     (``predict_from_points``; ``refined``: the two-stage
-    ``predict_refined``), then ``evaluate_waymo`` without the range
-    breakdowns, its IoUs on the model's device. With
-    ``timings``, the parts of ``waymo_annos`` and evaluate (the protocol:
-    the IoUs and the host's matching)."""
-    gt_annos, dt_annos = waymo_annos(model, records, refined, timings)
+    ``predict_refined``; the first ``max_frames`` where positive), then
+    ``evaluate_waymo``, with ``range_breakdowns`` the same per range
+    shard, its IoUs on the model's device. With ``timings``, the parts of
+    ``waymo_annos`` and evaluate (the protocol: the IoUs and the host's
+    matching)."""
+    gt_annos, dt_annos = waymo_annos(model, records, refined, max_frames,
+                                     timings)
     dev = next(model.parameters()).device
     laps = _Laps(timings, dev)
     table = evaluate_waymo(gt_annos, dt_annos, classes=WAYMO_EVAL_NAMES,
-                           device=dev)
+                           range_breakdowns=range_breakdowns, device=dev)
     laps.lap("evaluate")
     return table
+
+
+PROTOCOLS = ("coco", "centernet", "kitti", "nuscenes", "waymo", "miou",
+             "segm")
+DATA_PROTOCOLS = {"kitti": "kitti", "nuscenes": "nuscenes",
+                  "waymo": "waymo", "seg": "miou"}
+MODEL_PROTOCOLS = {"CenterNet": "centernet", "MaskRCNN": "segm"}
+
+
+def eval_protocol(cfg) -> str:
+    """The protocol of a config, as the reference's CLI derives it: by the
+    data type (kitti, nuscenes, waymo; seg -> miou), else by the model
+    (CenterNet -> centernet, MaskRCNN -> segm), else coco."""
+    data_type = cfg.data.get("type", "coco") if "data" in cfg else "coco"
+    return DATA_PROTOCOLS.get(data_type) or MODEL_PROTOCOLS.get(
+        cfg.model.get("type"), "coco")
+
+
+def _switch(opts: Dict[str, str], key: str) -> bool:
+    return opts.get(key, "").lower() in ("1", "true", "yes")
+
+
+def evaluate_config(cfg, records, checkpoint=None, protocol=None,
+                    max_images: int = 0, options: Sequence[str] = (),
+                    device=None) -> Dict:
+    """Evaluate a config's model (``DETECTORS``, weights drawn from a
+    generator seeded 0, then the ``model`` state dict of ``checkpoint``, a
+    step directory of ``core/checkpoint.py``, where given) on ``records``
+    by ``protocol`` (``eval_protocol(cfg)`` where None) on ``device`` (the
+    GPU where None), in eval mode. ``options`` are the CLI's: ``key=value``
+    overrides of the config, the undotted ones also the evaluators'
+    switches (``refined``, ``tta``, ``tracking``, ``breakdowns``). Returns
+    the evaluator's statistics (kitti and waymo: per-class tables)."""
+    from minddet_tpu_torch.entry import resolve_device
+
+    dev = resolve_device(device)
+    if not isinstance(cfg, Config):
+        cfg = Config.fromfile(cfg)
+    cfg.merge_from_options(options)
+    opts = dict(o.split("=", 1) for o in options if "=" in o)
+    protocol = protocol or eval_protocol(cfg)
+    if protocol not in PROTOCOLS:
+        raise ValueError(f"protocol must be one of {PROTOCOLS}, got "
+                         f"{protocol!r}")
+    mcfg = dict(cfg.model)
+    model = DETECTORS.build(mcfg).init_weights(
+        torch.Generator().manual_seed(0))
+    if checkpoint is not None:
+        model.load_state_dict(load_pytree(checkpoint)["model"])
+    model = model.to(device=dev, memory_format=torch.channels_last).eval()
+    num_classes = int(mcfg.get("num_classes", 80))
+    if protocol == "kitti":
+        return kitti_evaluate(model, records,
+                              classes=tuple(cfg.data.get("classes",
+                                                         ("Car",))),
+                              max_frames=max_images)
+    if protocol == "waymo":
+        return waymo_evaluate(model, records, refined=_switch(opts,
+                                                              "refined"),
+                              max_frames=max_images,
+                              range_breakdowns=_switch(opts, "breakdowns"))
+    if protocol == "nuscenes":
+        if _switch(opts, "tracking"):
+            return nuscenes_tracking_evaluate(
+                model, records, refined=_switch(opts, "refined"),
+                max_frames=max_images)
+        return nuscenes_evaluate(model, records, tta=_switch(opts, "tta"),
+                                 refined=_switch(opts, "refined"),
+                                 max_frames=max_images)
+    if protocol == "miou":
+        return segmentation_evaluate(model, records, num_classes,
+                                     max_images=max_images)
+    if protocol == "centernet":
+        return centernet_evaluate(model, records, num_classes,
+                                  max_images=max_images)
+    image_hw = tuple(cfg.train.get("image_hw", (512, 512)))
+    return coco_evaluate(model, records, image_hw, num_classes,
+                         max_images=max_images, segm=protocol == "segm")
+
+
+def main(argv=None) -> Dict:
+    """The evaluation CLI: the reference's flags (``--exported`` raises:
+    the export waits for ``ROADMAP.md`` §1.5 item 5) and ``--device``;
+    logs and returns ``evaluate_config``'s statistics."""
+    p = argparse.ArgumentParser(description="minddet_tpu_torch evaluator")
+    p.add_argument("--config", required=True)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--records", required=True)
+    p.add_argument("--max-images", type=int, default=0)
+    p.add_argument("--protocol", default=None, choices=(None,) + PROTOCOLS,
+                   help="override the data-type-derived eval protocol")
+    p.add_argument("--exported", default=None,
+                   help="an exported predict program (not ported yet)")
+    p.add_argument("--options", nargs="*", default=[])
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU)")
+    args = p.parse_args(argv)
+    if args.exported:
+        raise NotImplementedError(
+            "--exported needs the torch.export port of train/export.py "
+            "(ROADMAP.md §1.5 item 5)")
+    stats = evaluate_config(args.config, args.records, args.checkpoint,
+                            args.protocol, args.max_images, args.options,
+                            args.device)
+    for k, v in stats.items():
+        if isinstance(v, dict):
+            logger.info("%s: %s", k, " ".join(
+                f"{m}={x}" for m, x in v.items()))
+        else:
+            logger.info("%s: %.4f", k, v)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

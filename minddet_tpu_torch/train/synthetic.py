@@ -1,13 +1,15 @@
-"""Synthetic 2D detection and segmentation batches, and segmentation and
-COCO batches from records (counterpart of ``minddet_tpu/train/train.py:
-synthetic_detection_batches``, ``synthetic_seg_batches``, ``seg_batches``
+"""Synthetic 2D detection, lidar and segmentation batches, and
+segmentation and COCO batches from records (counterpart of
+``minddet_tpu/train/train.py:synthetic_detection_batches``,
+``synthetic_points_batches``, ``synthetic_seg_batches``, ``seg_batches``
 and ``coco_batches``).
 
-``synthetic_detection_batch`` is the reference generator's first batch,
-draw for draw from numpy ``RandomState(seed)``, with the boxes' slots (and
-the bitmaps' channels) padded with empty ones to ``slots``, the padded
-width the data pipeline gives a model (the COCO loader's ``max_objs``).
-``synthetic_seg_batches`` is the reference's generator, draw for draw.
+``synthetic_detection_batches``, ``synthetic_points_batches`` and
+``synthetic_seg_batches`` are the reference's generators, draw for draw
+from numpy ``RandomState(seed)``. ``synthetic_detection_batch`` is the
+first detection batch with the boxes' slots (and the bitmaps' channels)
+padded with empty ones to ``slots``, the padded width the data pipeline
+gives a model (the COCO loader's ``max_objs``).
 ``coco_batches`` is the COCO pipeline: the host half (``CocoDetection``
 through the threaded ``DataLoader``) collates raw batches, and
 ``coco_device_batch`` runs the device half of each (the affine or the
@@ -59,52 +61,123 @@ from minddet_tpu_torch.data.transforms import (
     roll_batch, warp_images)
 
 
+def synthetic_detection_batches(batch_size: int, image_hw: Tuple[int, int],
+                                num_classes: int, max_objs: int = 16,
+                                seed: int = 0, with_masks: bool = False,
+                                mask_stride: int = 4
+                                ) -> Iterator[Dict[str, np.ndarray]]:
+    """The reference's generator, draw for draw from one numpy
+    ``RandomState(seed)``, batch after batch: images uniform in [0, 1) (B,
+    H, W, 3) f32, per image 2 to ``max_objs`` - 1 boxes (top-left corners
+    uniform over 70 % of the image, sides 5-30 % of it) in ``max_objs``
+    slots, random 0-based classes in every slot, the mask of the valid
+    slots; with ``with_masks`` also ``gt_bitmaps`` (B, H / s, W / s,
+    max_objs) f32: each box's inscribed ellipse at 1 / s of the image's
+    resolution. Yields image, gt_boxes, gt_classes, gt_mask (and
+    gt_bitmaps), and ``step`` counting from 1."""
+    rng = np.random.RandomState(seed)
+    h, w = image_hw
+    step = 0
+    while True:
+        step += 1
+        n = rng.randint(2, max_objs, batch_size)
+        boxes = np.zeros((batch_size, max_objs, 4), np.float32)
+        classes = rng.randint(0, num_classes,
+                              (batch_size, max_objs)).astype(np.int32)
+        mask = np.zeros((batch_size, max_objs), bool)
+        for i in range(batch_size):
+            xy = rng.uniform(0, [w * 0.7, h * 0.7], (n[i], 2))
+            wh = rng.uniform([w * 0.05, h * 0.05], [w * 0.3, h * 0.3],
+                             (n[i], 2))
+            boxes[i, :n[i]] = np.concatenate([xy, xy + wh], -1)
+            mask[i, :n[i]] = True
+        out = {"image": rng.rand(batch_size, h, w, 3).astype(np.float32),
+               "gt_boxes": boxes, "gt_classes": classes, "gt_mask": mask,
+               "step": np.asarray(step, np.int32)}
+        if with_masks:
+            s = mask_stride
+            bm = np.zeros((batch_size, h // s, w // s, max_objs), np.float32)
+            yy, xx = np.mgrid[: h // s, : w // s]
+            for i in range(batch_size):
+                for o in range(n[i]):
+                    x1, y1, x2, y2 = boxes[i, o] / s
+                    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+                    rx = max((x2 - x1) / 2, 1e-3)
+                    ry = max((y2 - y1) / 2, 1e-3)
+                    bm[i, :, :, o] = (((xx - cx) / rx) ** 2
+                                      + ((yy - cy) / ry) ** 2 <= 1.0)
+            out["gt_bitmaps"] = bm
+        yield out
+
+
 def synthetic_detection_batch(batch_size: int, image_hw: Tuple[int, int],
                               num_classes: int, max_objs: int = 16,
                               seed: int = 0, with_masks: bool = False,
                               mask_stride: int = 4,
                               slots: Optional[int] = None
                               ) -> Dict[str, np.ndarray]:
-    """Images uniform in [0, 1) (B, H, W, 3) f32, per image 2 to
-    ``max_objs`` - 1 boxes (top-left corners uniform over 70 % of the
-    image, sides 5-30 % of it) in ``slots`` slots (``max_objs`` where not
-    given), random 0-based classes in every drawn slot (0 in the padding),
-    the mask of the valid slots; with ``with_masks`` also ``gt_bitmaps``
-    (B, H / s, W / s, slots) f32: each box's inscribed ellipse at 1 / s of
-    the image's resolution. Returns image, gt_boxes, gt_classes, gt_mask
-    (and gt_bitmaps)."""
+    """``synthetic_detection_batches``' first batch without ``step``, its
+    boxes' slots (and the bitmaps' channels) padded with empty ones (class
+    0) to ``slots`` (``max_objs`` where not given)."""
     slots = max_objs if slots is None else slots
     if slots < max_objs:
         raise ValueError(f"{slots} slots cannot hold {max_objs} drawn ones")
-    rng = np.random.RandomState(seed)
-    h, w = image_hw
-    n = rng.randint(2, max_objs, batch_size)
-    boxes = np.zeros((batch_size, slots, 4), np.float32)
-    classes = np.zeros((batch_size, slots), np.int32)
-    classes[:, :max_objs] = rng.randint(0, num_classes,
-                                        (batch_size, max_objs))
-    mask = np.zeros((batch_size, slots), bool)
-    for i in range(batch_size):
-        xy = rng.uniform(0, [w * 0.7, h * 0.7], (n[i], 2))
-        wh = rng.uniform([w * 0.05, h * 0.05], [w * 0.3, h * 0.3], (n[i], 2))
-        boxes[i, :n[i]] = np.concatenate([xy, xy + wh], -1)
-        mask[i, :n[i]] = True
-    out = {"image": rng.rand(batch_size, h, w, 3).astype(np.float32),
-           "gt_boxes": boxes, "gt_classes": classes, "gt_mask": mask}
-    if with_masks:
-        s = mask_stride
-        bm = np.zeros((batch_size, h // s, w // s, slots), np.float32)
-        yy, xx = np.mgrid[: h // s, : w // s]
-        for i in range(batch_size):
-            for o in range(n[i]):
-                x1, y1, x2, y2 = boxes[i, o] / s
-                cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
-                rx = max((x2 - x1) / 2, 1e-3)
-                ry = max((y2 - y1) / 2, 1e-3)
-                bm[i, :, :, o] = (((xx - cx) / rx) ** 2
-                                  + ((yy - cy) / ry) ** 2 <= 1.0)
-        out["gt_bitmaps"] = bm
+    out = next(synthetic_detection_batches(batch_size, image_hw, num_classes,
+                                           max_objs, seed, with_masks,
+                                           mask_stride))
+    del out["step"]
+    pad = slots - max_objs
+    for key, axis in (("gt_boxes", 1), ("gt_classes", 1), ("gt_mask", 1),
+                      ("gt_bitmaps", 3)):
+        if key in out:
+            width = [(0, 0)] * out[key].ndim
+            width[axis] = (0, pad)
+            out[key] = np.pad(out[key], width)
     return out
+
+
+def synthetic_points_batches(batch_size: int, pc_range: Sequence[float],
+                             num_points: int = 12000, max_gt: int = 12,
+                             num_classes: int = 1, seed: int = 0,
+                             num_features: int = 4, box_dim: int = 7
+                             ) -> Iterator[Dict[str, np.ndarray]]:
+    """The reference's generator, draw for draw from one numpy
+    ``RandomState(seed)``, batch after batch: clouds (B, ``num_points``,
+    ``num_features``) f32 uniform over ``pc_range`` (reflectance in [0,
+    1), any further feature, the sweep time, in [0, 0.45)), all valid; per
+    cloud 1 to ``max_gt`` - 1 car-sized boxes at the ground (centres 5 m
+    inside the range, random yaw; ``box_dim`` 9 adds (vx, vy) in [-2, 2)
+    before the yaw) in ``max_gt`` slots, random 1-based classes up to
+    ``num_classes`` in every slot. Yields points, points_mask, gt_boxes,
+    gt_classes, gt_mask and ``step`` counting from 1."""
+    rng = np.random.RandomState(seed)
+    x0, y0, z0, x1, y1, z1 = pc_range
+    step = 0
+    while True:
+        step += 1
+        size = (batch_size, num_points)
+        feats = [rng.uniform(x0, x1, size), rng.uniform(y0, y1, size),
+                 rng.uniform(z0, z1, size), rng.uniform(0, 1, size)]
+        while len(feats) < num_features:
+            feats.append(rng.uniform(0, 0.45, size))
+        pts = np.stack(feats, -1).astype(np.float32)
+        n = rng.randint(1, max_gt, batch_size)
+        boxes = np.zeros((batch_size, max_gt, box_dim), np.float32)
+        mask = np.zeros((batch_size, max_gt), bool)
+        for i in range(batch_size):
+            c = rng.uniform([x0 + 5, y0 + 5], [x1 - 5, y1 - 5], (n[i], 2))
+            cols = [c, np.full((n[i], 1), z0 + 1.2),
+                    np.tile([1.6, 3.9, 1.56], (n[i], 1))]
+            if box_dim == 9:
+                cols.append(rng.uniform(-2, 2, (n[i], 2)))
+            cols.append(rng.uniform(-np.pi, np.pi, (n[i], 1)))
+            boxes[i, :n[i]] = np.concatenate(cols, -1)
+            mask[i, :n[i]] = True
+        yield {"points": pts, "points_mask": np.ones(size, bool),
+               "gt_boxes": boxes,
+               "gt_classes": rng.randint(
+                   1, num_classes + 1, (batch_size, max_gt)).astype(np.int32),
+               "gt_mask": mask, "step": np.asarray(step, np.int32)}
 
 
 def synthetic_seg_batches(batch_size: int, image_hw: Tuple[int, int],

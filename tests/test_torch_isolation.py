@@ -1,6 +1,9 @@
 """The port stands alone: importing ``minddet_tpu_torch`` (every module of
-it) and ``chip_smoke`` pulls in no ``jax``, ``flax`` or ``minddet_tpu``.
-The GPU host has none of them."""
+it, the config, registry, metrics, checkpoint and storage modules and the
+train and evaluate CLIs among them) and ``chip_smoke`` pulls in no
+``jax``, ``flax``, ``orbax``, ``optax`` or ``minddet_tpu``. The GPU host
+has none of them. The CLIs run on the GPU unless ``--device`` says
+otherwise, and without one they raise."""
 
 import json
 import os
@@ -16,7 +19,8 @@ for m in pkgutil.walk_packages(minddet_tpu_torch.__path__, "minddet_tpu_torch.")
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "minddet_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
+                                    "minddet_tpu"))
 print(json.dumps(bad))
 """
 
@@ -44,6 +48,44 @@ def test_port_sources_name_no_jax():
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0]
-                    if top in ("jax", "jaxlib", "flax", "minddet_tpu"):
+                    if top in ("jax", "jaxlib", "flax", "orbax", "optax",
+                               "minddet_tpu"):
                         bad.append(f"{path}:{i}: {line.strip()}")
     assert not bad, bad
+
+
+NEW_MODULES = ("core.config", "core.registry", "core.metrics",
+               "core.checkpoint", "models.zoo", "utils.cloud", "train.train",
+               "train.evaluate")
+
+
+def test_new_modules_are_walked():
+    """The modules of the config-driven CLIs are among those the import
+    probe walks."""
+    import pkgutil
+
+    import minddet_tpu_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        minddet_tpu_torch.__path__, "minddet_tpu_torch.")}
+    assert {f"minddet_tpu_torch.{m}" for m in NEW_MODULES} <= walked
+
+
+def test_clis_default_to_the_card(tmp_path):
+    """Without ``--device`` the CLIs ask for the GPU: on a host without one
+    they raise before reading data; ``--device cpu`` is accepted."""
+    import pytest
+    import torch
+
+    from minddet_tpu_torch.train import evaluate, train
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    config = os.path.join(_REPO, "configs", "centernet_r18_coco.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--config", config, "--synthetic", "--steps", "1",
+                    "--workdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--config", config, "--records", "none"])
+    assert train.parse_args(["--config", config, "--device", "cpu"]).device \
+        == "cpu"

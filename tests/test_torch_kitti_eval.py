@@ -334,6 +334,15 @@ def test_kitti_evaluate_matches_the_reference(tmp_path, monkeypatch):
         np.testing.assert_allclose(got["Car"][metric], aps, rtol=0,
                                    atol=1e-6, err_msg=metric)
     assert max(got["Car"]["3d"]) > 10
+    # the CLI's --max-images: the first 3 frames only, on both sides
+    ref = jev.kitti_evaluate(jm, variables,
+                             str(tmp_path / "kitti-*.arrayrecord"),
+                             max_frames=3)
+    got = tev.kitti_evaluate(port, frames, max_frames=3)
+    assert len(seen_t["dt"]) == len(seen_j["dt"]) == 3
+    for metric, aps in ref["Car"].items():
+        np.testing.assert_allclose(got["Car"][metric], aps, rtol=0,
+                                   atol=1e-6, err_msg=metric)
 
 
 TINY_PED = dict(num_classes=2, grid_ny=32, grid_nx=32,

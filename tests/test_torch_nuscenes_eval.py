@@ -311,6 +311,24 @@ def test_nuscenes_evaluate_matches_the_reference(tiny, route, monkeypatch):
     assert 0 < got["mAP"] < 1 and 0 < got["NDS"] < 1
 
 
+def test_nuscenes_evaluate_max_frames_matches_the_reference(tiny,
+                                                           monkeypatch):
+    """The CLI's ``--max-images``: the first FRAMES - 1 keyframes only, on
+    both sides (the last evaluator batch padded)."""
+    jm, variables = tiny["jax"]["single"]
+    seen_t = _captured(monkeypatch, tev, "evaluate_nuscenes")
+    seen_j = _captured(monkeypatch, jne, "evaluate_nuscenes")
+    ref = jev.nuscenes_evaluate(jm, variables, tiny["pattern"],
+                                max_frames=FRAMES - 1)
+    with _one_torch_thread():
+        got = tev.nuscenes_evaluate(tiny["port"]["single"], tiny["records"],
+                                    max_frames=FRAMES - 1)
+    (gt_t, dt_t, _), (gt_j, _, _) = seen_t[0], seen_j[0]
+    assert all(len(gt_t[c]) == len(gt_j[c]) == FRAMES - 1
+               for c in DETECTION_CLASSES)
+    _assert_tables(got, ref, 1e-6)
+
+
 def test_nuscenes_evaluate_needs_a_two_stage_model_to_refine(tiny):
     with pytest.raises(ValueError, match="two-stage"):
         tev.nuscenes_evaluate(tiny["port"]["single"], tiny["records"],

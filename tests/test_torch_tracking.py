@@ -263,3 +263,20 @@ def test_nuscenes_tracking_evaluate_matches_the_reference(tiny,  # noqa: F811
     for k in ref:
         assert got[k] == pytest.approx(ref[k], abs=1e-6), k
     assert 0 < got["AMOTA"] < 1
+
+
+def test_nuscenes_tracking_evaluate_refined_matches_the_reference(
+        tiny):  # noqa: F811
+    """The CLI's ``--options tracking=true refined=true`` and
+    ``--max-images``: the two-stage model's refined detections tracked over
+    the first five keyframes, both sides' tables within 1e-6."""
+    jm, variables = tiny["jax"]["two"]
+    ref = jev.nuscenes_tracking_evaluate(jm, variables, tiny["pattern"],
+                                         refined=True, max_frames=5)
+    with _one_torch_thread():
+        got = tev.nuscenes_tracking_evaluate(tiny["port"]["two"],
+                                             tiny["records"], refined=True,
+                                             max_frames=5)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k] == pytest.approx(ref[k], abs=1e-6), k

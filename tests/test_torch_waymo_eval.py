@@ -421,6 +421,21 @@ def test_waymo_evaluate_matches_the_reference(tiny, route, monkeypatch):
                    1e-6)
 
 
+def test_waymo_evaluate_range_breakdowns_match_the_reference(tiny):
+    """The CLI's ``--options breakdowns=true`` and ``--max-images`` on the
+    refined route: the table with its range shards, both sides."""
+    jm, variables = tiny["jax"]["refined"]
+    ref = jev.waymo_evaluate(jm, variables, tiny["pattern"], batch_size=2,
+                             refined=True, range_breakdowns=True,
+                             max_frames=FRAMES)
+    with _one_torch_thread():
+        got = tev.waymo_evaluate(tiny["port"]["refined"], tiny["records"],
+                                 refined=True, range_breakdowns=True,
+                                 max_frames=FRAMES)
+    _assert_tables(got, ref, 1e-6)
+    assert any(len(t) > 4 for t in got.values())  # the shards' entries
+
+
 def test_waymo_evaluate_needs_a_two_stage_model_to_refine(tiny):
     with pytest.raises(ValueError, match="two-stage"):
         tev.waymo_evaluate(tiny["port"]["plain"], tiny["records"],

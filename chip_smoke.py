@@ -409,6 +409,30 @@ group, the resumed state bit for bit the straight one's (or within the
 spread of a second straight run where the path is not deterministic),
 and the checkpoint's statistics equal to the in-memory model's.
 
+The export and streaming-inference entry points (``train/export.py``,
+``evaluate --exported``, ``train/infer.py``): every kernel is a
+``torch.library`` custom op (``minddet::``), and phase 3 (a) runs
+``torch.library.opcheck`` of each op on the card at one small shape
+(``check_ops_on_card``), and holds the warp kernel at the exported
+evaluation's batch-1 warps of its (640, 640) canvases to 512^2
+(``check_export_kernels``). Phases 6ba and 6bb (``export_main_path``)
+export the flagship CenterNet serving program (512^2, bf16, batch 1: nine
+K1f op nodes) and the two-stage CenterPoint program (``predict_refined``,
+120,000 points x 5, f32, batch 1: one node each of K5f, K4 and K3f) with
+``torch.export``, save, reload and run them: the reloaded answer equal to
+the live predict bit for bit (or no farther from it than a second live
+call), every call's launches read and exactly the live program's, the
+export and reload seconds and the ms per request of both in turns, and
+what the ops add to an eager request (``_dispatch_cost``: each op call of
+a live request through its op and through its ``_*_cuda`` function
+directly, in turns). Phase 6bc
+(``exported_eval_main_path``) evaluates the reloaded CenterNet program by
+``exported_evaluate`` on 8 in-memory COCO records: statistics equal to the
+live model's ``coco_evaluate``. Phase 6bd (``infer_main_path``) runs
+``infer.main`` on the car PointPillars and the two-stage CenterPoint
+configs at full width on 6 synthetic ``.bin`` clouds each: one K4 launch a
+frame, every frame's JSON equal to the padded predict, the p50 latency.
+
 The line before the last is the ``{"kernels": [...]}`` summary (a kernel's
 ``launches`` are those of the main paths only; K3dcw, which no entry point
 reaches yet, has 0 there and phase 5b's count under its own key; every
@@ -433,6 +457,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -6098,8 +6123,8 @@ def k5b_gradient_copies(step) -> dict:
              if e.name.startswith("autograd::engine::evaluate_function:")
              and ("SegFullMax" in e.name or "CatBackward" in e.name)]
     g_shapes = [c.input_shapes[0] for e in nodes if "SegFullMax" in e.name
-                for c in e.cpu_children if c.name == "_SegFullMaxBackward"
-                and c.input_shapes]
+                for c in e.cpu_children if "SegFullMax" in c.name
+                and c.name.endswith("Backward") and c.input_shapes]
     if not g_shapes:
         raise AssertionError("the profiled step ran no segment max backward")
     sizes = {math.prod(shape) for shape in g_shapes}
@@ -9896,6 +9921,441 @@ def cli_main_path(dev, card):
     return result
 
 
+# The export and streaming-inference entry points: phase 3's op checks and
+# the exported evaluation's warps, 6ba-6bd. Each program is exported once,
+# saved, loaded and run EXPORT_CALLS times after EXPORT_WARMUP, in turns
+# with the live predict; infer runs INFER_FRAMES clouds of each config
+EXPORT_WARMUP = 2
+EXPORT_CALLS = 5
+INFER_FRAMES = 6
+INFER_CONFIGS = (("pointpillars_car", "pointpillars_car_kitti.yaml", 4,
+                  18000),
+                 ("centerpoint_two_stage",
+                  "centerpoint_pp_nusc_two_stage.yaml", 5, 120000))
+EXPORT_EVAL_HW = (512, 512)  # the flagship program's resolution
+# 6ba / 6bb also time what the ops add to an eager request: each op call of
+# one live request, DISPATCH_TURNS times through its op and through its
+# ``_*_cuda`` function directly, after one turn of warm-up
+DISPATCH_TURNS = 200
+
+
+def _op_cases(dev):
+    """Each ``minddet::`` op's arguments at a small shape on ``dev`` (the
+    gradients asked for where the op has one): taps C = 8, flat C = 5,
+    gather C = 6 (padded to 8 by the wrapper), warp C = 3, boxes (2, 7, 5)
+    x (2, 5, 5), a (2, 64, 6) stream with segments of up to 4 rows."""
+    from minddet_tpu_torch.ops import seg_max as sm
+
+    rs = np.random.RandomState(26)
+    t = lambda a, dtype=torch.float32: torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev, dtype)
+    grad = lambda x: x.detach().clone().requires_grad_()
+    x = t(rs.randn(2, 6, 7, 8))
+    ys, xs = t(rs.uniform(-1.5, 6.5, (2, 3, 10))), t(
+        rs.uniform(-1.5, 7.5, (2, 3, 10)))
+    sc = t(rs.rand(2, 3, 10))
+    g = t(rs.randn(2, 10, 24))
+    xf, gf = t(rs.randn(2, 6, 7, 5)), t(rs.randn(2, 30, 5))
+    yf, xf_, sf = (a.reshape(2, 30).contiguous() for a in (ys, xs, sc))
+    xg, gg = t(rs.randn(2, 20, 6)), t(rs.randn(2, 9, 6))
+    ci = t(rs.randint(-1, 22, (2, 9, 4)), torch.int32)
+    cw = t(rs.rand(2, 9, 4))
+    img = t(rs.rand(2, 10, 12, 3))
+    aff = t([[[0.9, 0.1, 1.0], [-0.1, 1.1, 0.5]],
+             [[1.3, 0.0, -2.0], [0.0, 1.3, -1.0]]])
+    b1 = t(np.concatenate([rs.uniform(-3, 3, (2, 7, 2)),
+                           rs.uniform(0.5, 3, (2, 7, 2)),
+                           rs.uniform(-3, 3, (2, 7, 1))], -1))
+    b2 = (b1[:, :5] + 0.3).contiguous()
+    first = np.zeros((2, 64), bool)
+    last = np.zeros((2, 64), bool)
+    for bi in range(2):
+        i = 0
+        while i < 64:
+            n = min(int(rs.randint(1, 5)), 64 - i)
+            first[bi, i], last[bi, i + n - 1] = True, True
+            i += n
+    first, last = t(first, torch.bool), t(last, torch.bool)
+    xseg, gseg = t(rs.randn(2, 64, 6)), t(rs.randn(2, 64, 6))
+    m = sm.seg_full_max_bounded_plain(first, last, xseg, 4)
+    return {
+        "TapsSample": (grad(x), grad(ys), grad(xs), grad(sc)),
+        "TapsSampleBwd": (g, x, ys, xs, sc),
+        "FlatSample": (grad(xf), grad(yf), grad(xf_), None),
+        "FlatSampleBwd": (gf, xf, yf, xf_, sf),
+        "BilinearGather": (grad(xg), ci, grad(cw)),
+        "BilinearGatherBwdDx": (gg, xg, ci, cw),
+        "BilinearGatherBwdDcw": (gg, xg, ci, cw),
+        "BilinearWarpAffine": (img, aff, [8, 9]),
+        "RotatedIntersectionBev": (b1, b2),
+        "SegFullMax": (first, last, grad(xseg), 4),
+        "SegFullMaxBwd": (first, last, xseg, m, gseg, 4),
+    }
+
+
+def check_ops_on_card(dev):
+    """Phase 3 (a): ``torch.library.opcheck`` of every ``minddet::`` op on
+    the card (schema, autograd registration, the fake implementation
+    against the CUDA one, the op under AOT dispatch with dynamic shapes,
+    gradients included), each at ``_op_cases``' shape. Returns each op's
+    seconds."""
+    from minddet_tpu_torch.train.export import load_ops
+
+    load_ops()
+    out = {}
+    for name, args in _op_cases(dev).items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(getattr(torch.ops.minddet, name).default, args)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    print(f"  opcheck on the card: {len(out)} ops passed "
+          f"({sum(out.values()):.1f} s)", flush=True)
+    return out
+
+
+def _export_eval_records():
+    from minddet_tpu_torch.train.synthetic import synthetic_coco_records
+
+    return synthetic_coco_records(COCO_CHECK_IMAGES, seed=CLI_EVAL_SEED)
+
+
+def check_export_kernels(dev, card):
+    """Phase 3's warp cases at 6bc's shapes: ``coco_evaluate`` at the
+    exported program's batch 1 warps each image's (640, 640) canvas to
+    (512, 512) under its eval affine (the longer side fit, centred); one
+    case per distinct image size of 6bc's records."""
+    from minddet_tpu_torch.data.coco import CocoDetection
+    from minddet_tpu_torch.data.transforms import eval_affine
+
+    gen = torch.Generator().manual_seed(28)
+    ds = CocoDetection(_export_eval_records(), max_objs=128, keep_raw=True)
+    cases, seen = [], set()
+    for i in range(len(ds)):
+        ex = ds[i]
+        h, w = (int(v) for v in ex["hw"])
+        if (h, w) in seen:
+            continue
+        seen.add((h, w))
+        side = ex["image"].shape[0]
+        x = _canvases(dev, [(h, w)], side, 3, gen)
+        aff = eval_affine(torch.tensor([[h, w]]), EXPORT_EVAL_HW).to(dev)
+        cases.append(_warp_case(f"exported_eval_{h}x{w}", x,
+                                aff.contiguous(), EXPORT_EVAL_HW, card,
+                                f" ({h} x {w} image)"))
+        del x
+    return cases
+
+
+def _max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.
+
+
+def _hold_to_live(label, got, live, twin, keys=None):
+    """The reloaded program's answer ``got`` against the live predict's
+    ``live``: bit for bit, or, where a second live call ``twin`` differs
+    from the first (cuDNN may choose another algorithm), no farther from
+    ``live`` than ``twin`` is, tensor by tensor. Returns the readings;
+    raises where neither holds."""
+    pick = (lambda d: {k: d[k] for k in keys}) if keys else (
+        lambda d: {"out": d})
+    got, live, twin = pick(got), pick(live), pick(twin)
+    r = {"bit_for_bit": all(torch.equal(got[k], live[k]) for k in live),
+         "live_bit_for_bit": all(torch.equal(twin[k], live[k])
+                                 for k in live)}
+    r["max_abs"] = {k: _max_abs(got[k], live[k]) for k in live}
+    r["twin_max_abs"] = {k: _max_abs(twin[k], live[k]) for k in live}
+    if not r["bit_for_bit"] and (r["live_bit_for_bit"] or any(
+            r["max_abs"][k] > r["twin_max_abs"][k] for k in live)):
+        raise AssertionError(f"{label}: the reloaded program is "
+                             f"{r['max_abs']} from the live predict, a "
+                             f"second live call {r['twin_max_abs']}")
+    return r
+
+
+def _export_round_trip(label, export, live_fn, args, path, want_ops,
+                       per_call, keys=None):
+    """Export (``export(path)``), save, load and run one program: the
+    graph's op nodes must be ``want_ops``; the first reloaded call launches
+    exactly ``per_call``; its answer is held to the live predict
+    (``_hold_to_live``); then EXPORT_CALLS reloaded and live calls in
+    turns, host clock around each synced call, the counts read after each
+    call. Returns the readings and the launches the reloaded calls made,
+    as read (each turn's must be ``per_call``, the live calls' too)."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.train import export as ex
+
+    t0 = time.perf_counter()
+    export(path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, specs = ex.load_exported_program(path)
+    load_s = time.perf_counter() - t0
+    ops = dict(ex.exported_ops(torch.export.load(path)))
+    if ops != want_ops:
+        raise AssertionError(f"{label}: the graph holds {ops}, want "
+                             f"{want_ops}")
+    live, twin = live_fn(*args), live_fn(*args)
+    kernels.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    first = {k.name: k.launches for k in kernels.KERNELS}
+    if first != per_call:
+        raise AssertionError(f"{label}: a reloaded call launched {first}, "
+                             f"want {per_call}")
+    held = _hold_to_live(label, got, live, twin, keys)
+    times = {"reloaded": [], "live": []}
+    launched = {"reloaded": dict(first), "live": dict.fromkeys(first, 0)}
+    turns = EXPORT_WARMUP + EXPORT_CALLS
+    for i in range(turns):
+        for name, f in (("reloaded", fn), ("live", live_fn)):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f(*args)
+            torch.cuda.synchronize()
+            if i >= EXPORT_WARMUP:
+                times[name].append(time.perf_counter() - t0)
+            call = {k.name: k.launches for k in kernels.KERNELS}
+            if call != per_call:
+                raise AssertionError(f"{label}: {name} call {i} launched "
+                                     f"{call}, want {per_call}")
+            for k, v in call.items():
+                launched[name][k] += v
+    r = dict(held, export_s=export_s, load_s=load_s, ops=ops,
+             input_shapes=[list(s.shape) for s in specs],
+             file_bytes=os.path.getsize(path),
+             reloaded_ms_p50=statistics.median(times["reloaded"]) * 1e3,
+             live_ms_p50=statistics.median(times["live"]) * 1e3,
+             launches=launched["reloaded"], live_launches=launched["live"])
+    print(f"  {label}: export {export_s:.1f} s, load {load_s:.1f} s, "
+          f"{r['file_bytes'] / 2 ** 20:.1f} MiB, ops {ops}; reloaded vs "
+          f"live bit for bit {r['bit_for_bit']} (max abs {r['max_abs']}, a "
+          f"second live call {r['twin_max_abs']}); ms per request p50: "
+          f"reloaded {r['reloaded_ms_p50']:.3f}, live "
+          f"{r['live_ms_p50']:.3f}", flush=True)
+    return r
+
+
+def _minddet_calls(fn, args):
+    """The ``minddet::`` op calls that one request ``fn(*args)`` makes, in
+    order: [(op name, its arguments as the dispatcher hands them to the
+    op)]."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "minddet":
+                assert not kwargs, (func, kwargs)
+                calls.append((func._schema.name.split("::")[1], args))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn(*args)
+    return calls
+
+
+def _direct_routes():
+    """Op name -> (the op as the port's wrappers call it, the ``_*_cuda``
+    function that eager no-grad calls reached directly before the kernels
+    were ops), for the ops of the serving requests."""
+    from minddet_tpu_torch.ops import bilinear, hat_sample, rotated_iou
+    from minddet_tpu_torch.ops import seg_max
+
+    def intersection(b1, b2):
+        if b1.dim() == 2:
+            return rotated_iou._intersection_cuda(b1[None], b2[None])[0]
+        return rotated_iou._intersection_cuda(b1, b2)
+
+    return {"TapsSample": (hat_sample._taps_op, hat_sample._taps_cuda),
+            "SegFullMax": (seg_max._seg_op, seg_max._seg_full_max_cuda),
+            "RotatedIntersectionBev": (rotated_iou._intersection_op,
+                                       intersection),
+            "BilinearGather": (bilinear._gather_op,
+                               bilinear._bilinear_gather_cuda)}
+
+
+@torch.no_grad()
+def _dispatch_cost(label, fn, args, card):
+    """What the ``minddet::`` ops add to one eager request ``fn(*args)``:
+    each op call it makes (``_minddet_calls``) timed through the op, as the
+    model calls it, and through its ``_*_cuda`` function directly (its
+    small inputs made contiguous beforehand), DISPATCH_TURNS turns after
+    one of warm-up, the two routes in alternating order, host clock around
+    each synced call. Returns each call's two p50s and, per request, their
+    sums and the difference (op minus direct), in microseconds."""
+    routes = _direct_routes()
+    calls = [(name, routes[name], a,
+              tuple(t.contiguous() if torch.is_tensor(t) else t for t in a))
+             for name, a in _minddet_calls(fn, args)]
+    times = {"op": [[] for _ in calls], "direct": [[] for _ in calls]}
+    for turn in range(DISPATCH_TURNS + 1):
+        for route in (("op", "direct") if turn % 2 else ("direct", "op")):
+            for i, (_, (op, direct), a, ac) in enumerate(calls):
+                f, fa = (op, a) if route == "op" else (direct, ac)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f(*fa)
+                torch.cuda.synchronize()
+                if turn:
+                    times[route][i].append(time.perf_counter() - t0)
+    p50 = {r: [statistics.median(t) * 1e6 for t in ts]
+           for r, ts in times.items()}
+    r = dict(calls=[name for name, *_ in calls], op_us_p50=p50["op"],
+             direct_us_p50=p50["direct"],
+             request_op_us=sum(p50["op"]),
+             request_direct_us=sum(p50["direct"]))
+    r["request_added_us"] = r["request_op_us"] - r["request_direct_us"]
+    print(f"  {label}, the ops' dispatch: {len(calls)} op calls a request "
+          f"({', '.join(r['calls'])}), p50 summed over the request: op "
+          f"{r['request_op_us']:.1f} us, direct {r['request_direct_us']:.1f}"
+          f" us, added {r['request_added_us']:.1f} us "
+          f"({r['request_added_us'] / len(calls):.1f} us a call); {card}",
+          flush=True)
+    return r
+
+
+def export_main_path(dev, card, tmp):
+    """Phases 6ba and 6bb: ``train/export.py`` on the card at full width.
+
+    6ba: the flagship CenterNet-R18-DCNv2 serving program (``entry()``:
+    512^2, bf16, batch 1, weights randomized as 6a's) through
+    ``export_detector``: the graph holds its nine K1f op nodes, a
+    reloaded call launches nine K1f and nothing else, and answers as the
+    live predict (``_hold_to_live``). 6bb: the two-stage CenterPoint
+    program (``centerpoint_entry()``: ``predict_refined``, 120,000 points
+    x 5, f32, batch 1, heads calibrated as 6d's) through
+    ``export_detector_3d(refined=True)``: one op node each of K5f, K4 and
+    K3f (the NMS's fixed point a ``while_loop``), one launch each a call,
+    boxes, scores and labels held as 6ba's. Each then times what the ops
+    add to its eager request (``_dispatch_cost``). Returns both readings
+    and the CenterNet model and program path, for 6bc."""
+    from minddet_tpu_torch.entry import centerpoint_entry, entry
+    from minddet_tpu_torch.train import export as ex
+
+    predict, (image,) = entry(device=dev, batch=1)
+    model = predict.__self__
+    randomize_for_check(model, _seeded("6a"))
+    cn_path = os.path.join(tmp, "centernet.pt2")
+    centernet = _export_round_trip(
+        "CenterNet bf16 batch 1",
+        lambda p: ex.export_detector(model, image, p), predict, (image,),
+        cn_path, {"TapsSample": DCN_LAYERS},
+        _sampler_launches(1, train=False))
+    centernet["dispatch"] = _dispatch_cost("CenterNet bf16 batch 1",
+                                           predict, (image,), card)
+    predict, clouds = centerpoint_entry(device=dev, batch=1)
+    cp_model = predict.__self__
+    calibrate_centerpoint(cp_model, *clouds)
+    two_stage = _export_round_trip(
+        "two-stage CenterPoint f32 batch 1",
+        lambda p: ex.export_detector_3d(cp_model, *clouds, p, refined=True),
+        predict, clouds, os.path.join(tmp, "centerpoint.pt2"),
+        {"SegFullMax": 1, "RotatedIntersectionBev": 1, "BilinearGather": 1},
+        _centerpoint_launches(1), keys=("boxes", "scores", "labels"))
+    two_stage["dispatch"] = _dispatch_cost(
+        "two-stage CenterPoint f32 batch 1", predict, clouds, card)
+    del cp_model, predict, clouds
+    torch.cuda.empty_cache()
+    return dict(centernet=centernet, two_stage=two_stage), model, cn_path
+
+
+def exported_eval_main_path(dev, card, model, path):
+    """Phase 6bc: ``evaluate --exported`` in-process
+    (``exported_evaluate``: the reloaded 6ba program, its batch 1 and 512^2
+    read from the artifact, ``configs/centernet_r18_coco.yaml`` for the
+    classes) on COCO_CHECK_IMAGES in-memory records (the GPU host has no
+    array_record); one warp and nine K1f launches an image. Its statistics
+    must equal ``coco_evaluate`` of the live model (``model``) at the same
+    batch and resolution exactly."""
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.train import evaluate as ev
+
+    records = _export_eval_records()
+    config = str(CLI_ROOT / "configs" / "centernet_r18_coco.yaml")
+    want = dict(_sampler_launches(len(records), train=False),
+                bilinear_warp_affine_fwd=len(records))
+    stats, sec, launches = _cli_run(
+        lambda a: ev.exported_evaluate(*a),
+        [config, records, path, None, 0, dev], want)
+    ref = ev.coco_evaluate(model, records, EXPORT_EVAL_HW, 80, batch_size=1)
+    if stats != ref:
+        raise AssertionError(f"evaluate --exported {stats} != the in-memory "
+                             f"route's {ref}")
+    print(f"  evaluate --exported: {len(records)} images in {sec:.2f} s, "
+          f"statistics == the in-memory model's: True (AP {stats['AP']:.4f}"
+          f"); kernels {launches}; {card}", flush=True)
+    return dict(seconds=sec, images=len(records), stats=stats,
+                launches=launches)
+
+
+def infer_main_path(dev, card, tmp):
+    """Phase 6bd: ``train/infer.py``'s ``main`` in-process, as a user runs
+    it (no ``--device``: the GPU), on ``configs/pointpillars_car_kitti.yaml``
+    and ``centerpoint_pp_nusc_two_stage.yaml`` at their full widths (seeded
+    weights), each on INFER_FRAMES synthetic ``.bin`` clouds
+    (``synthetic_clouds``: 18,000 and 120,000 points, 1,000 fewer each
+    frame) in a temporary directory, without ``--visualize``: one K4 launch
+    a frame, nothing else; each frame's JSON equal, bit for bit, to the
+    padded predict (``predict_from_points_padded``) of the same seeded
+    model on the same cloud at the config's capacity. Returns each
+    config's p50 latency, seconds and launches."""
+    import json as _json
+
+    from minddet_tpu_torch import kernels
+    from minddet_tpu_torch.core.config import Config
+    from minddet_tpu_torch.entry import synthetic_clouds
+    from minddet_tpu_torch.train import infer
+
+    out = {}
+    for name, file, features, points in INFER_CONFIGS:
+        config = CLI_ROOT / "configs" / file
+        cfg = Config.fromfile(str(config))
+        src, dst = os.path.join(tmp, name), os.path.join(tmp, name + "_out")
+        os.makedirs(src)
+        clouds, _ = synthetic_clouds(INFER_FRAMES, cfg.model.pc_range,
+                                     points, seed=29, num_features=features)
+        sizes = [points - 1000 * i for i in range(INFER_FRAMES)]
+        for i, n in enumerate(sizes):
+            clouds[i, :n].tofile(os.path.join(src, f"{i:06d}.bin"))
+        want = {k.name: INFER_FRAMES * int(k is kernels.ROTATED_IOU)
+                for k in kernels.KERNELS}
+        summary, sec, launches = _cli_run(
+            infer.main, ["--config", str(config), "--input", src,
+                         "--output", dst], want)
+        model = infer.build_served(cfg, device=dev)
+        capacity = int(cfg.data.max_points)
+        for i, n in enumerate(sizes):
+            with open(os.path.join(dst, f"{i:06d}.json")) as f:
+                frame = _json.load(f)
+            pts = torch.zeros(1, capacity, features)
+            pts[0, :n] = torch.from_numpy(clouds[i, :n])
+            mask = torch.arange(capacity)[None] < n
+            det = model.predict_from_points_padded(pts.to(dev), mask.to(dev))
+            same = (frame["frame"] == f"{i:06d}.bin" and all(
+                np.array_equal(np.array(frame[k], np.float32 if k != "labels"
+                                        else np.int64),
+                               det[k][0].cpu().numpy().astype(
+                                   np.float32 if k != "labels" else np.int64))
+                for k in ("boxes", "scores", "labels")))
+            if not same:
+                raise AssertionError(f"infer {name}: frame {i} differs from "
+                                     f"the padded predict")
+        kept = int((det["labels"] >= 0).sum())
+        out[name] = dict(p50_ms=summary["p50_ms"], seconds=sec,
+                         frame_ms=[s * 1e3 for s in summary["seconds"]],
+                         launches=launches, kept_last=kept)
+        print(f"  infer {name}: {INFER_FRAMES} frames in {sec:.2f} s, p50 "
+              f"{summary['p50_ms']:.3f} ms a frame (the first "
+              f"{summary['seconds'][0] * 1e3:.1f} ms), every frame == the "
+              f"padded predict: True, kept {kept} in the last; kernels "
+              f"{launches}; {card}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Every phase's seconds on the host clock: ``start(name, text)`` ends
     the phase before it (its seconds printed beside the card and kept in
@@ -10032,6 +10492,8 @@ def main(argv=None) -> int:
     warp_cases = check_coco_warp(dev, card)
     waymo_cases = check_waymo_kernels(dev)
     cli_cases = check_cli_kernels(dev, card)
+    op_seconds = check_ops_on_card(dev)
+    export_warps = check_export_kernels(dev, card)
 
     referee_ratios = None
     if args.seeds:
@@ -10465,6 +10927,29 @@ def main(argv=None) -> int:
                        "resume, evaluate")
     cli = cli_main_path(dev, card)
     cli_launches = cli["launches"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        clock.start("6ba", "main path, train/export.py: the flagship "
+                           "CenterNet serving program (bf16) and (6bb) the "
+                           "two-stage CenterPoint program (f32) exported, "
+                           "saved, reloaded and run")
+        exported, export_model, export_path = export_main_path(dev, card, tmp)
+        clock.start("6bc", "main path, evaluate --exported on the reloaded "
+                           "CenterNet program (bf16)")
+        exported_eval = exported_eval_main_path(dev, card, export_model,
+                                                export_path)
+        del export_model
+        torch.cuda.empty_cache()
+        clock.start("6bd", "main path, train/infer.py on the car PointPillars "
+                           "and the two-stage CenterPoint configs (f32)")
+        inferred = infer_main_path(dev, card, tmp)
+    torch.cuda.empty_cache()
+    export_launches = {
+        k.name: exported["centernet"]["launches"].get(k.name, 0)
+        + exported["two_stage"]["launches"].get(k.name, 0)
+        + exported_eval["launches"][k.name]
+        + sum(r["launches"][k.name] for r in inferred.values())
+        for k in kernels.KERNELS}
 
     # the summary rows: K1f is one bf16 batch-16 forward's nine calls (3 at
     # each DCN shape, the spread-1.5 cases) and one train step's nine at the
@@ -10540,7 +11025,8 @@ def main(argv=None) -> int:
                     taps + train_launches["hat_sample_taps_fwd"]
                     + serve_dcn4_launches["hat_sample_taps_fwd"]
                     + train_dcn4_launches["hat_sample_taps_fwd"]
-                    + cli_launches["hat_sample_taps_fwd"],
+                    + cli_launches["hat_sample_taps_fwd"]
+                    + export_launches["hat_sample_taps_fwd"],
                     fwd_main + cli_fwd_main, DCN_CALLS_PER_SHAPE,
                     cases + cli_taps),
         _kernel_row(kernels.HAT_SAMPLE_TAPS_BWD,
@@ -10572,7 +11058,8 @@ def main(argv=None) -> int:
                     + nusc_tracking["launches"]["rotated_iou_intersect"]
                     + wm_launches["rotated_iou_intersect"]
                     + waymo_eval["launches"]["rotated_iou_intersect"]
-                    + cli_launches["rotated_iou_intersect"],
+                    + cli_launches["rotated_iou_intersect"]
+                    + export_launches["rotated_iou_intersect"],
                     [c for c in iou_cases if c["kind"] in (
                         "candidates", "train") and c["shape"][:2] in (
                         [PP_BATCHES[-1], PP_CANDIDATES],
@@ -10611,7 +11098,8 @@ def main(argv=None) -> int:
                     + wm_launches["seg_full_max"]
                     + waymo_training["launches"]["seg_full_max"]
                     + waymo_eval["launches"]["seg_full_max"]
-                    + cli_launches["seg_full_max"],
+                    + cli_launches["seg_full_max"]
+                    + export_launches["seg_full_max"],
                     2 * [c for c in seg_cases if c["dtype"] == "float32"
                          and c["shape"][0] == CP_BATCHES[-1]]
                     + 2 * train_case(seg_cases)
@@ -10646,7 +11134,8 @@ def main(argv=None) -> int:
                     + mask_rcnn_training["launches"]["bilinear_gather_fwd"]
                     + nusc_eval["launches"]["bilinear_gather_fwd"]
                     + waymo_eval["launches"]["bilinear_gather_fwd"]
-                    + cli_launches["bilinear_gather_fwd"],
+                    + cli_launches["bilinear_gather_fwd"]
+                    + export_launches["bilinear_gather_fwd"],
                     [c for c in waymo_gather if c["dtype"] == "float32"]
                     + [c for c in gather_cases if c["dtype"] == "float32"
                      and c["shape"][0] in (CP_BATCHES[-1], NUSC_EVAL_BATCH)
@@ -10690,19 +11179,23 @@ def main(argv=None) -> int:
                     train_dcn4_launches["hat_sample_flat_bwd"],
                     flat_bwd_main, FLAT_LAYERS, flat_bwd_cases),
         # the warp kernel's COCO calls: one COCO-fed train step's warp, one
-        # eval batch's at the (512, 768) bucket, one mosaic batch's four
-        # and one CLI evaluation predict call's, on its first canvas
+        # eval batch's at the (512, 768) bucket, one mosaic batch's four,
+        # one CLI evaluation predict call's, on its first canvas, and one
+        # exported evaluation's (6bc), on its first image
         _kernel_row(kernels.BILINEAR_WARP_AFFINE_FWD,
                     coco_training["launches"]["bilinear_warp_affine_fwd"]
                     + coco_eval["launches"]["bilinear_warp_affine_fwd"]
                     + coco_mosaic["launches"]["bilinear_warp_affine_fwd"]
-                    + cli_launches["bilinear_warp_affine_fwd"],
+                    + cli_launches["bilinear_warp_affine_fwd"]
+                    + export_launches["bilinear_warp_affine_fwd"],
                     [c for c in warp_cases if c["stream"] in (
                         "coco_train", "coco_eval_512x768")]
                     + 4 * [c for c in warp_cases
                            if c["stream"] == "coco_mosaic"]
-                    + cli_cases["bilinear_warp_affine_fwd"][:1], 1,
-                    warp_cases + cli_cases["bilinear_warp_affine_fwd"],
+                    + cli_cases["bilinear_warp_affine_fwd"][:1]
+                    + export_warps[:1], 1,
+                    warp_cases + cli_cases["bilinear_warp_affine_fwd"]
+                    + export_warps,
                     library=True),
     ]
     clock.stop()
@@ -10785,6 +11278,10 @@ def main(argv=None) -> int:
                            waymo_training=waymo_training,
                            waymo_eval=waymo_eval,
                            cli_cases=cli_cases, cli=cli,
+                           op_check_seconds=op_seconds,
+                           export_warp_cases=export_warps,
+                           exported=exported, exported_eval=exported_eval,
+                           infer=inferred, export_launches=export_launches,
                            profile=profiled or None, kernels=rows), f,
                       indent=1)
     print(card)

@@ -35,12 +35,13 @@ def seg_normalize(images: np.ndarray) -> np.ndarray:
 
 
 def seg_examples(image_dir: str, mask_dir: str,
-                 image_hw: Tuple[int, int] = (512, 512)
+                 image_hw: Tuple[int, int] = (512, 512),
+                 ignore_label: int = IGNORE_LABEL
                  ) -> Iterator[Dict[str, Any]]:
     """Pair each image of ``image_dir`` (sorted) with the same-stem ``.png``
     (else ``.bmp``) mask of ``mask_dir``, images without one skipped; both
     resized to ``image_hw`` (the VOC / Cityscapes layout: a mask pixel is
-    the class id, ``IGNORE_LABEL`` for void). Yields image (H, W, 3) uint8
+    the class id, ``ignore_label`` for void). Yields image (H, W, 3) uint8
     BGR, mask (H, W) uint8, hw (the original size) and ignore_label."""
     import cv2
 
@@ -64,16 +65,18 @@ def seg_examples(image_dir: str, mask_dir: str,
             "mask": cv2.resize(mask, (w, h), interpolation=cv2.INTER_NEAREST
                                ).astype(np.uint8),
             "hw": np.array(img.shape[:2], np.int32),
-            "ignore_label": np.asarray(IGNORE_LABEL, np.int32),
+            "ignore_label": np.asarray(ignore_label, np.int32),
         }
 
 
 def convert_seg_to_records(image_dir: str, mask_dir: str, out_prefix: str,
                            image_hw: Tuple[int, int] = (512, 512),
-                           shard_size: int = 2048) -> List[str]:
+                           shard_size: int = 2048,
+                           ignore_label: int = IGNORE_LABEL) -> List[str]:
     """``seg_examples`` written to record shards; returns their paths."""
     return write_records(out_prefix,
-                         seg_examples(image_dir, mask_dir, image_hw),
+                         seg_examples(image_dir, mask_dir, image_hw,
+                                      ignore_label),
                          shard_size)
 
 

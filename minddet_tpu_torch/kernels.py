@@ -10,7 +10,10 @@ exception. Nothing here runs at import time.
 
 :data:`KERNELS` lists every kernel; ``chip_smoke.py`` builds them all at once
 with :func:`build_all` and reads their ``launches`` counts, which each
-wrapper bumps exactly where it launches its kernel.
+wrapper bumps exactly where it launches its kernel. The wrappers are the
+CUDA implementations of the ``torch.library`` custom ops in ``ops/`` (the
+``minddet::`` namespace, :data:`OP_MODULES`): nothing else calls a bound
+function.
 """
 
 from __future__ import annotations
@@ -135,12 +138,16 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-def device_kind(x: torch.Tensor) -> str:
-    """"cuda" or "cpu": where a wrapper launches its kernel and where it
-    runs the plain version. Any other device raises."""
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type
+def contiguous(*tensors):
+    """Each tensor contiguous (itself where it already is; None stays
+    None). An op's CUDA implementation hands its kernel the small
+    per-sample inputs (coordinates, weights, indices, flags, boxes,
+    affines) in the layout the kernel reads, whatever the caller's strides:
+    in a reloaded exported program a ``.contiguous()`` that was a no-op on
+    the traced fake tensors is not in the graph, and the card's strides
+    may differ. The maps (x, g) are not copied: a wrapper raises on a
+    layout it does not take."""
+    return tuple(None if t is None else t.contiguous() for t in tensors)
 
 
 def cuda_stream(device) -> ctypes.c_void_p:
@@ -236,6 +243,12 @@ HAT_SAMPLE_FLAT_BWD = CudaKernel(
     [_P] * 11 + [_I] * 10 + [_P],
     replaces="minddet_tpu/ops/hat_sample.py:207 _bwd_kernel",
 )
+
+# the modules whose import registers every minddet:: op
+OP_MODULES = ("minddet_tpu_torch.ops.hat_sample",
+              "minddet_tpu_torch.ops.bilinear",
+              "minddet_tpu_torch.ops.rotated_iou",
+              "minddet_tpu_torch.ops.seg_max")
 
 KERNELS: List[CudaKernel] = [HAT_SAMPLE_TAPS_FWD, HAT_SAMPLE_TAPS_BWD,
                              ROTATED_IOU, SEG_FULL_MAX, SEG_FULL_MAX_BWD,

@@ -9,8 +9,10 @@ weights. A corner with ``ci < 0`` is skipped whatever its weight; an index
 past the last row reads the last row (the reference's clipped gather). The
 sum is taken in f32 and rounded once to x's type.
 
-``bilinear_gather`` is differentiable with respect to ``x`` and ``cw``
-through a ``torch.autograd.Function``, and ``bilinear_sample_2d`` with
+``bilinear_gather`` is the ``torch.library`` custom op
+``minddet::BilinearGather``, differentiable with respect to ``x`` and ``cw``
+through the op's registered gradient (the ops ``minddet::BilinearGatherBwdDx``
+and ``minddet::BilinearGatherBwdDcw``), and ``bilinear_sample_2d`` with
 respect to the map and, through the weights, the coordinates:
 
     dx[b, q, :]  = sum_{p, c: ci[b, p, c] = q} cw[b, p, c] * g[b, p, :]
@@ -39,20 +41,24 @@ tensor it launches ``csrc/bilinear_warp.cu``, which maps each pixel and
 finds its corners in registers and reads the unpadded channels (no corners
 tensor, no pad, no slice); on a CPU tensor it runs
 ``bilinear_warp_affine_plain``, the route through the corners and the
-plain gather.
+plain gather; it is the op ``minddet::BilinearWarpAffine``.
+
+Each op has a CPU implementation (the plain version), a CUDA one (the
+kernel) and a fake one (the output's shape and type, for ``torch.export``
+and the meta device), and no implementation for any other device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from typing import Tuple
+from typing import List, Tuple
 
 from minddet_tpu_torch.kernels import (BILINEAR_GATHER_BWD_DCW,
                                        BILINEAR_GATHER_BWD_DX,
                                        BILINEAR_GATHER_FWD,
-                                       BILINEAR_WARP_AFFINE_FWD, cuda_stream,
-                                       device_kind)
+                                       BILINEAR_WARP_AFFINE_FWD, contiguous,
+                                       cuda_stream)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
@@ -298,10 +304,55 @@ def _bwd_dcw_cuda(g, x, ci, cw) -> torch.Tensor:
     return dcw
 
 
-def _forward(x, ci, cw) -> torch.Tensor:
-    if device_kind(x) == "cuda":
-        return _bilinear_gather_cuda(x, ci, cw)
+# K3f's op: the plain version on the CPU, the kernel on a CUDA tensor
+@torch.library.custom_op("minddet::BilinearGather", mutates_args=(),
+                         device_types="cpu")
+def _gather_op(x: torch.Tensor, ci: torch.Tensor,
+               cw: torch.Tensor) -> torch.Tensor:
     return bilinear_gather_plain(x, ci, cw)
+
+
+_gather_op.register_kernel("cuda")(
+    lambda x, ci, cw: _bilinear_gather_cuda(x, *contiguous(ci, cw)))
+
+
+@_gather_op.register_fake
+def _(x, ci, cw):
+    return x.new_empty(ci.shape[0], ci.shape[1], x.shape[2])
+
+
+# K3dx's op
+@torch.library.custom_op("minddet::BilinearGatherBwdDx", mutates_args=(),
+                         device_types="cpu")
+def _bwd_dx_op(g: torch.Tensor, x: torch.Tensor, ci: torch.Tensor,
+               cw: torch.Tensor) -> torch.Tensor:
+    return bilinear_gather_bwd_dx_plain(g, ci, cw, x.shape[1])
+
+
+_bwd_dx_op.register_kernel("cuda")(
+    lambda g, x, ci, cw: _bwd_dx_cuda(g, x, *contiguous(ci, cw)))
+
+
+@_bwd_dx_op.register_fake
+def _(g, x, ci, cw):
+    return g.new_empty(g.shape[0], x.shape[1], g.shape[2])
+
+
+# K3dcw's op
+@torch.library.custom_op("minddet::BilinearGatherBwdDcw", mutates_args=(),
+                         device_types="cpu")
+def _bwd_dcw_op(g: torch.Tensor, x: torch.Tensor, ci: torch.Tensor,
+                cw: torch.Tensor) -> torch.Tensor:
+    return bilinear_gather_bwd_dcw_plain(g, x, ci)
+
+
+_bwd_dcw_op.register_kernel("cuda")(
+    lambda g, x, ci, cw: _bwd_dcw_cuda(g, x, *contiguous(ci, cw)))
+
+
+@_bwd_dcw_op.register_fake
+def _(g, x, ci, cw):
+    return cw.new_empty(ci.shape, dtype=torch.float32)
 
 
 def bilinear_gather_bwd_dx(g: torch.Tensor, x: torch.Tensor,
@@ -309,66 +360,60 @@ def bilinear_gather_bwd_dx(g: torch.Tensor, x: torch.Tensor,
                            ) -> torch.Tensor:
     """The gradient of ``bilinear_gather`` with respect to ``x`` (only its
     shape, type and device are read), from the output's gradient ``g`` (B,
-    P, C): a CUDA ``x`` launches the ``bilinear_gather_bwd_dx`` kernel (g
-    contiguous, in x's type; a C that is not a whole number of 16-byte
-    vectors is zero-padded to one for the launch and dx sliced back to C)
-    and raises on what it does not take; a CPU ``x`` runs the plain
-    version."""
-    if device_kind(x) == "cuda":
-        return _bwd_dx_cuda(g, x, ci, cw)
-    return bilinear_gather_bwd_dx_plain(g, ci, cw, x.shape[1])
+    P, C), the op ``minddet::BilinearGatherBwdDx``: a CUDA ``x`` launches
+    the ``bilinear_gather_bwd_dx`` kernel (g contiguous, in x's type; a C
+    that is not a whole number of 16-byte vectors is zero-padded to one for
+    the launch and dx sliced back to C) and raises on what it does not
+    take; a CPU ``x`` runs the plain version."""
+    return _bwd_dx_op(g, x, ci, cw)
 
 
 def bilinear_gather_bwd_dcw(g: torch.Tensor, x: torch.Tensor,
                             ci: torch.Tensor, cw: torch.Tensor
                             ) -> torch.Tensor:
     """The gradient of ``bilinear_gather`` with respect to ``cw`` (B, P, 4)
-    f32 (only its shape and type are read): a CUDA ``x`` launches the
+    f32 (only its shape and type are read), the op
+    ``minddet::BilinearGatherBwdDcw``: a CUDA ``x`` launches the
     ``bilinear_gather_bwd_dcw`` kernel (g and x padded with zero channels as
     for the forward, which leaves every dot as it is) and raises on what it
     does not take; a CPU ``x`` runs the plain version."""
-    if device_kind(x) == "cuda":
-        return _bwd_dcw_cuda(g, x, ci, cw)
-    return bilinear_gather_bwd_dcw_plain(g, x, ci)
+    return _bwd_dcw_op(g, x, ci, cw)
 
 
-class _BilinearGather(torch.autograd.Function):
-    """``bilinear_gather`` with its backward; saves (x, ci, cw) as the
-    reference's ``_vjp_fwd`` does, and computes only the gradients that are
-    asked for."""
+def _gather_setup(ctx, inputs, output):
+    """Saves (x, ci, cw), as the reference's ``_vjp_fwd`` does."""
+    ctx.save_for_backward(*inputs)
 
-    @staticmethod
-    def forward(ctx, x, ci, cw):
-        ctx.save_for_backward(x, ci, cw)
-        return _forward(x, ci, cw)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, ci, cw = ctx.saved_tensors
-        g = g.contiguous()
-        dx = dcw = None
-        if ctx.needs_input_grad[0]:
-            dx = bilinear_gather_bwd_dx(g, x, ci, cw)
-        if ctx.needs_input_grad[2]:
-            dcw = bilinear_gather_bwd_dcw(g, x, ci, cw)
-        return dx, None, dcw
+def _gather_backward(ctx, g):
+    """Computes only the gradients that are asked for."""
+    x, ci, cw = ctx.saved_tensors
+    g = g.contiguous()
+    dx = dcw = None
+    if ctx.needs_input_grad[0]:
+        dx = bilinear_gather_bwd_dx(g, x, ci, cw)
+    if ctx.needs_input_grad[2]:
+        dcw = bilinear_gather_bwd_dcw(g, x, ci, cw)
+    return dx, None, dcw
+
+
+_gather_op.register_autograd(_gather_backward, setup_context=_gather_setup)
 
 
 def bilinear_gather(x: torch.Tensor, ci: torch.Tensor,
                     cw: torch.Tensor) -> torch.Tensor:
     """``out[b, p] = sum_{c<4} cw[b, p, c] * x[b, ci[b, p, c], :]``: x
     (B, HW, C), ci (B, P, 4) int32 (negative = skip), cw (B, P, 4) f32 ->
-    (B, P, C) in x's type. Differentiable with respect to x and cw.
+    (B, P, C) in x's type. The op ``minddet::BilinearGather``,
+    differentiable with respect to x and cw.
 
     A CUDA ``x`` launches the ``bilinear_gather_fwd`` kernel, and in the
     backward ``bilinear_gather_bwd_dx`` and / or ``bilinear_gather_bwd_dcw``
     (f32 or bf16, contiguous, any C >= 1: a C that is not a multiple of 4 in
     f32 or 8 in bf16 is zero-padded to one for the launch and the result
-    sliced back to C), and raises on what they do not take; a CPU ``x``
-    runs the plain versions."""
-    if torch.is_grad_enabled() and (x.requires_grad or cw.requires_grad):
-        return _BilinearGather.apply(x, ci, cw)
-    return _forward(x, ci, cw)
+    sliced back to C; ci and cw made contiguous by the op), and raises on
+    what they do not take; a CPU ``x`` runs the plain versions."""
+    return _gather_op(x, ci, cw)
 
 
 def bilinear_corners(ys: torch.Tensor, xs: torch.Tensor, h: int, w: int):
@@ -519,17 +564,34 @@ def _warp_affine_cuda(x, affines, out_hw) -> torch.Tensor:
     return out
 
 
+# The warp kernel's op
+@torch.library.custom_op("minddet::BilinearWarpAffine", mutates_args=(),
+                         device_types="cpu")
+def _warp_op(x: torch.Tensor, affines: torch.Tensor,
+             out_hw: List[int]) -> torch.Tensor:
+    return bilinear_warp_affine_plain(x, affines, tuple(out_hw))
+
+
+_warp_op.register_kernel("cuda")(
+    lambda x, affines, out_hw: _warp_affine_cuda(
+        x, *contiguous(affines), tuple(out_hw)))
+
+
+@_warp_op.register_fake
+def _(x, affines, out_hw):
+    return x.new_empty(x.shape[0], out_hw[0], out_hw[1], x.shape[3])
+
+
 def bilinear_warp_affine(x: torch.Tensor, affines: torch.Tensor,
                          out_hw: Tuple[int, int]) -> torch.Tensor:
     """Inverse-affine bilinear warp: x (B, H, W, C) sampled at every output
     pixel (x, y) of ``out_hw`` mapped through its image's (B, 2, 3) affine
-    -> (B, oh, ow, C) in x's type; corners off the map add zero. No
-    gradient.
+    -> (B, oh, ow, C) in x's type; corners off the map add zero. The op
+    ``minddet::BilinearWarpAffine``, with no gradient.
 
     A CUDA ``x`` launches the ``bilinear_warp_affine_fwd`` kernel (f32 or
-    bf16, contiguous, any C >= 1 unpadded, affines f32 contiguous on x's
-    device; ``warp_affine_plan``) and raises on what it does not take or a
-    failed build or launch; a CPU ``x`` runs the plain version."""
-    if device_kind(x) == "cuda":
-        return _warp_affine_cuda(x, affines, out_hw)
-    return bilinear_warp_affine_plain(x, affines, out_hw)
+    bf16, contiguous, any C >= 1 unpadded; affines f32 on x's device, made
+    contiguous by the op; ``warp_affine_plan``) and raises on what it does
+    not take or a failed build or launch; a CPU ``x`` runs the plain
+    version."""
+    return _warp_op(x, affines, list(out_hw))

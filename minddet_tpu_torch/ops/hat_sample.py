@@ -8,8 +8,12 @@ with every corner outside the image contributing zero.
 
 ``hat_sample_2d_taps`` is the tap-grouped form the DCN layers use: x (B, H,
 W, C) sampled at tap-major coordinates (B, K, P) into (B, P, K*C), tap k in
-channels [k*C, (k+1)*C). It is differentiable wrt x, ys, xs and scale
-through a ``torch.autograd.Function``. On a CUDA tensor the forward launches
+channels [k*C, (k+1)*C). It is the ``torch.library`` custom op
+``minddet::TapsSample``, differentiable wrt x, ys, xs and scale through the
+op's registered gradient, itself the op ``minddet::TapsSampleBwd``. Each op
+has a CPU implementation (the plain version), a CUDA one (the kernel) and a
+fake one (the output's shape and type, for ``torch.export`` and the meta
+device). On a CUDA tensor the forward launches
 ``csrc/hat_sample_taps.cu`` and the backward ``csrc/hat_sample_taps_bwd.cu``;
 on a CPU tensor they run the plain versions ``hat_sample_2d_taps_plain`` and
 ``hat_sample_2d_taps_bwd_plain``.
@@ -25,14 +29,17 @@ not copy that.
 
 ``hat_sample_2d`` is the flat form, the sampler of DCN layers whose Cin is
 not a multiple of 128: x (B, H, W, C) sampled at (B, N) coordinates into
-(B, N, C), any C >= 1. It has the same gradient and the same dispatch: a
+(B, N, C), any C >= 1, the ops ``minddet::FlatSample`` and
+``minddet::FlatSampleBwd``. It has the same gradient and the same dispatch: a
 CUDA tensor launches the ``hat_sample_flat_fwd`` entry of
 ``csrc/hat_sample_taps.cu`` and, in the backward, the ``hat_sample_flat_bwd``
 entry of ``csrc/hat_sample_taps_bwd.cu``: the tap-grouped kernels with one
 tap, since position-major flat samples are tap-grouped ones with K = 1 and
 P = N. A CPU tensor runs ``hat_sample_2d_plain`` and
-``hat_sample_2d_bwd_plain``. Neither form falls back: on a CUDA tensor a
-wrapper launches its kernel or raises.
+``hat_sample_2d_bwd_plain``. Neither form falls back: on a CUDA tensor an
+op launches its kernel or raises, and an op has no implementation for any
+other device. (The ops keep the names of the ``autograd.Function``s they
+replaced, so their gradients' nodes keep them too.)
 """
 
 from __future__ import annotations
@@ -44,8 +51,8 @@ import torch
 from minddet_tpu_torch.kernels import (HAT_SAMPLE_FLAT_BWD,
                                        HAT_SAMPLE_FLAT_FWD,
                                        HAT_SAMPLE_TAPS_BWD,
-                                       HAT_SAMPLE_TAPS_FWD, cuda_stream,
-                                       device_kind)
+                                       HAT_SAMPLE_TAPS_FWD, contiguous,
+                                       cuda_stream)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte vector
@@ -383,7 +390,9 @@ def _taps_bwd_cuda(g, x, ys, xs, scale, stats=None):
                          f"{(b, p, k * c)} tensor on {x.device}; got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
     plan = taps_bwd_plan(b, h, w, c, k, p)
-    dcoords = torch.empty(3, b, k, p, dtype=torch.float32, device=x.device)
+    # three tensors, not views of one: an op's outputs may not alias
+    dcoords = [torch.empty(b, k, p, dtype=torch.float32, device=x.device)
+               for _ in range(3)]
     # the f32 scatter-add image; for an f32 x it is dx itself
     acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
     dx = acc if x.dtype == torch.float32 else torch.empty(
@@ -400,34 +409,78 @@ def _taps_bwd_cuda(g, x, ys, xs, scale, stats=None):
     return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
 
 
+def _ones_if_none(scale, ys):
+    return torch.ones_like(ys) if scale is None else scale
+
+
+# K1f's op: the plain version on the CPU, the kernel on a CUDA tensor
+@torch.library.custom_op("minddet::TapsSample", mutates_args=(),
+                         device_types="cpu")
+def _taps_op(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+             scale: Optional[torch.Tensor]) -> torch.Tensor:
+    return hat_sample_2d_taps_plain(x, ys, xs, scale)
+
+
+_taps_op.register_kernel("cuda")(
+    lambda x, ys, xs, scale: _taps_cuda(x, *contiguous(ys, xs, scale)))
+
+
+@_taps_op.register_fake
+def _(x, ys, xs, scale):
+    return x.new_empty(ys.shape[0], ys.shape[2], ys.shape[1] * x.shape[3])
+
+
+# K1b's op: the four gradients, dscale included (of ones where the forward
+# had no scale)
+@torch.library.custom_op("minddet::TapsSampleBwd", mutates_args=(),
+                         device_types="cpu")
+def _taps_bwd_op(g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor,
+                 xs: torch.Tensor, scale: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    return hat_sample_2d_taps_bwd_plain(g, x, ys, xs,
+                                        _ones_if_none(scale, ys))
+
+
+_taps_bwd_op.register_kernel("cuda")(
+    lambda g, x, ys, xs, scale: _taps_bwd_cuda(
+        g, x, *contiguous(ys, xs, _ones_if_none(scale, ys))))
+
+
+def _bwd_fake(g, x, ys, xs, scale):
+    """dx like x; dys, dxs and dscale f32 like ys."""
+    return (x.new_empty(x.shape),
+            *(ys.new_empty(ys.shape, dtype=torch.float32) for _ in range(3)))
+
+
+_taps_bwd_op.register_fake(_bwd_fake)
+
+
 def hat_sample_2d_taps_bwd(
         g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         scale: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The sampler's backward (see ``hat_sample_2d_taps_bwd_plain``): a
-    CUDA ``x`` launches the ``hat_sample_taps_bwd`` kernel (g contiguous in
-    x's dtype, the forward's inputs as it takes them) and raises on anything
-    it does not take; a CPU ``x`` runs the plain version."""
-    if device_kind(x) == "cuda":
-        return _taps_bwd_cuda(g, x, ys, xs, scale)
-    return hat_sample_2d_taps_bwd_plain(g, x, ys, xs, scale)
+    """The sampler's backward (see ``hat_sample_2d_taps_bwd_plain``), the op
+    ``minddet::TapsSampleBwd``: a CUDA ``x`` launches the
+    ``hat_sample_taps_bwd`` kernel (g contiguous in x's dtype, the
+    forward's inputs as it takes them) and raises on anything it does not
+    take; a CPU ``x`` runs the plain version."""
+    dx, dys, dxs, dsc = _taps_bwd_op(g, x, ys, xs, scale)
+    return dx, dys, dxs, None if scale is None else dsc
 
 
-class _TapsSample(torch.autograd.Function):
-    """``hat_sample_2d_taps`` with its backward; saves (x, ys, xs, scale)
-    as the reference's ``_hat_taps_fwd`` does."""
+def _sample_setup(ctx, inputs, output):
+    """Saves (x, ys, xs, scale), as the reference's ``_hat_taps_fwd`` and
+    ``_hat_fwd`` do."""
+    ctx.save_for_backward(*inputs)
 
-    @staticmethod
-    def forward(ctx, x, ys, xs, scale):
-        ctx.save_for_backward(x, ys, xs, scale)
-        if device_kind(x) == "cuda":
-            return _taps_cuda(x, ys, xs, scale)
-        return hat_sample_2d_taps_plain(x, ys, xs, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, ys, xs, scale = ctx.saved_tensors
-        return hat_sample_2d_taps_bwd(g, x, ys, xs, scale)
+def _taps_backward(ctx, g):
+    x, ys, xs, scale = ctx.saved_tensors
+    return hat_sample_2d_taps_bwd(g.contiguous(), x, ys, xs, scale)
+
+
+_taps_op.register_autograd(_taps_backward, setup_context=_sample_setup)
 
 
 def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -435,18 +488,14 @@ def hat_sample_2d_taps(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     """Tap-grouped modulated sampling: (B, H, W, C) at (B, K, P) coords ->
     (B, P, K*C) in x.dtype, tap k in channels [k*C, (k+1)*C).
 
-    Differentiable wrt x, ys, xs and scale (``scale=None`` is ones, with no
-    gradient). A CUDA ``x`` launches the ``hat_sample_taps_fwd`` kernel, and
-    ``hat_sample_taps_bwd`` in the backward (ys, xs, scale contiguous f32
-    on the same device; bf16 or f32 x with C % 8 == 0) and raises on
-    anything they do not take; a CPU ``x`` runs the plain versions.
+    The op ``minddet::TapsSample``, differentiable wrt x, ys, xs and scale
+    (``scale=None`` is ones, with no gradient). A CUDA ``x`` launches the
+    ``hat_sample_taps_fwd`` kernel, and ``hat_sample_taps_bwd`` in the
+    backward (ys, xs, scale f32 on the same device, made contiguous by the
+    op; bf16 or f32 x with C % 8 == 0) and raises on anything they do not
+    take; a CPU ``x`` runs the plain versions.
     """
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, ys, xs, scale)):
-        return _TapsSample.apply(x, ys, xs, scale)
-    if device_kind(x) == "cuda":
-        return _taps_cuda(x, ys, xs, scale)
-    return hat_sample_2d_taps_plain(x, ys, xs, scale)
+    return _taps_op(x, ys, xs, scale)
 
 
 def _vec(c: int, *tensors) -> int:
@@ -511,7 +560,8 @@ def _flat_bwd_cuda(g, x, ys, xs, scale, stats=None):
                          f"{(b, n, c)} tensor on {x.device}; got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
     plan = flat_bwd_plan(b, h, w, c, n)
-    dcoords = torch.empty(3, b, n, dtype=torch.float32, device=x.device)
+    dcoords = [torch.empty(b, n, dtype=torch.float32, device=x.device)
+               for _ in range(3)]
     # the f32 scatter-add image; for an f32 x it is dx itself
     acc = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
     dx = acc if x.dtype == torch.float32 else torch.empty(
@@ -528,39 +578,63 @@ def _flat_bwd_cuda(g, x, ys, xs, scale, stats=None):
     return dx, dcoords[0], dcoords[1], None if scale is None else dcoords[2]
 
 
+# K2f's op
+@torch.library.custom_op("minddet::FlatSample", mutates_args=(),
+                         device_types="cpu")
+def _flat_op(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+             scale: Optional[torch.Tensor]) -> torch.Tensor:
+    return hat_sample_2d_plain(x, ys, xs, scale)
+
+
+_flat_op.register_kernel("cuda")(
+    lambda x, ys, xs, scale: _flat_cuda(x, *contiguous(ys, xs, scale)))
+
+
+@_flat_op.register_fake
+def _(x, ys, xs, scale):
+    return x.new_empty(ys.shape[0], ys.shape[1], x.shape[3])
+
+
+# K2b's op, the four gradients as K1b's
+@torch.library.custom_op("minddet::FlatSampleBwd", mutates_args=(),
+                         device_types="cpu")
+def _flat_bwd_op(g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor,
+                 xs: torch.Tensor, scale: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    return hat_sample_2d_bwd_plain(g, x, ys, xs, _ones_if_none(scale, ys))
+
+
+_flat_bwd_op.register_kernel("cuda")(
+    lambda g, x, ys, xs, scale: _flat_bwd_cuda(
+        g, x, *contiguous(ys, xs, _ones_if_none(scale, ys))))
+_flat_bwd_op.register_fake(_bwd_fake)
+
+
 def hat_sample_2d_bwd(
         g: torch.Tensor, x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         scale: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The flat sampler's backward (see ``hat_sample_2d_bwd_plain``): a CUDA
-    ``x`` launches the ``hat_sample_flat_bwd`` kernel (g contiguous in x's
-    dtype, the forward's inputs as it takes them; 16-byte vectors where C
-    allows and the rows are aligned, one channel per lane step otherwise)
-    and raises on anything it does not take; a CPU ``x`` runs the plain
-    version."""
-    if device_kind(x) == "cuda":
-        return _flat_bwd_cuda(g, x, ys, xs, scale)
-    return hat_sample_2d_bwd_plain(g, x, ys, xs, scale)
+    """The flat sampler's backward (see ``hat_sample_2d_bwd_plain``), the op
+    ``minddet::FlatSampleBwd``: a CUDA ``x`` launches the
+    ``hat_sample_flat_bwd`` kernel (g contiguous in x's dtype, the
+    forward's inputs as it takes them; 16-byte vectors where C allows and
+    the rows are aligned, one channel per lane step otherwise) and raises on
+    anything it does not take; a CPU ``x`` runs the plain version."""
+    dx, dys, dxs, dsc = _flat_bwd_op(g, x, ys, xs, scale)
+    return dx, dys, dxs, None if scale is None else dsc
 
 
-class _FlatSample(torch.autograd.Function):
-    """``hat_sample_2d`` with its backward; saves (x, ys, xs, scale) as the
-    reference's ``_hat_fwd`` does. One kernel pass gives all four
-    gradients; those autograd does not ask for are dropped."""
+def _flat_backward(ctx, g):
+    """One kernel pass gives all four gradients; those autograd does not
+    ask for are dropped."""
+    x, ys, xs, scale = ctx.saved_tensors
+    grads = hat_sample_2d_bwd(g.contiguous(), x, ys, xs, scale)
+    return tuple(d if need else None
+                 for d, need in zip(grads, ctx.needs_input_grad))
 
-    @staticmethod
-    def forward(ctx, x, ys, xs, scale):
-        ctx.save_for_backward(x, ys, xs, scale)
-        if device_kind(x) == "cuda":
-            return _flat_cuda(x, ys, xs, scale)
-        return hat_sample_2d_plain(x, ys, xs, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, ys, xs, scale = ctx.saved_tensors
-        grads = hat_sample_2d_bwd(g.contiguous(), x, ys, xs, scale)
-        return tuple(d if need else None
-                     for d, need in zip(grads, ctx.needs_input_grad))
+_flat_op.register_autograd(_flat_backward, setup_context=_sample_setup)
 
 
 def hat_sample_2d(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -568,15 +642,11 @@ def hat_sample_2d(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     """Flat modulated sampling: (B, H, W, C) at (B, N) coords -> (B, N, C)
     in x.dtype, any C >= 1.
 
-    Differentiable wrt x, ys, xs and scale (``scale=None`` is ones, with no
-    gradient). A CUDA ``x`` launches the ``hat_sample_flat_fwd`` kernel, and
-    ``hat_sample_flat_bwd`` in the backward (ys, xs, scale contiguous f32
-    on the same device; bf16 or f32 x, contiguous) and raises on anything
-    they do not take; a CPU ``x`` runs the plain versions.
+    The op ``minddet::FlatSample``, differentiable wrt x, ys, xs and scale
+    (``scale=None`` is ones, with no gradient). A CUDA ``x`` launches the
+    ``hat_sample_flat_fwd`` kernel, and ``hat_sample_flat_bwd`` in the
+    backward (ys, xs, scale f32 on the same device, made contiguous by the
+    op; bf16 or f32 x, contiguous) and raises on anything they do not take;
+    a CPU ``x`` runs the plain versions.
     """
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, ys, xs, scale)):
-        return _FlatSample.apply(x, ys, xs, scale)
-    if device_kind(x) == "cuda":
-        return _flat_cuda(x, ys, xs, scale)
-    return hat_sample_2d_plain(x, ys, xs, scale)
+    return _flat_op(x, ys, xs, scale)

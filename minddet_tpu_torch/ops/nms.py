@@ -28,23 +28,65 @@ def greedy_keep_from_iou(iou: torch.Tensor, scores: torch.Tensor,
     mask changed (a converged sample stays at its fixed point, so the
     batch gives each sample's own result) or after N passes. The test for
     a change is a host sync on a GPU. Returns (keep (B, N) bool, passes).
+
+    Under ``torch.export`` the same fixed point is ``_fixed_point_traced``:
+    a ``while_loop`` the exported program carries, whose ``passes`` is a
+    0-d int64 tensor. Eager calls keep this loop: an eager ``while_loop``
+    runs through ``torch.compile`` (dynamo traces ``cond`` and ``body``
+    again at every new (B, N) and checks its guards at every call), which
+    a served stream of varying box counts would pay on top of the same
+    one host sync a pass.
     """
+    suppress = _suppress(iou, scores, valid, iou_threshold)
+    if torch.compiler.is_exporting():
+        return _fixed_point_traced(suppress, valid)
     n = iou.shape[-1]
-    s_i = scores[..., :, None]
-    s_j = scores[..., None, :]
-    idx = torch.arange(n, device=scores.device)
-    earlier = (s_i > s_j) | ((s_i == s_j) & (idx[:, None] < idx[None, :]))
-    suppress = ((iou > iou_threshold) & earlier & valid[..., :, None]
-                & valid[..., None, :])
     keep = valid
     passes = 0
     while passes < n:
-        new_keep = valid & ~(suppress & keep[..., :, None]).any(dim=-2)
+        new_keep = _pass(suppress, valid, keep)
         passes += 1
         changed = bool((new_keep != keep).any())
         keep = new_keep
         if not changed:
             break
+    return keep, passes
+
+
+def _suppress(iou, scores, valid, iou_threshold) -> torch.Tensor:
+    """(B, N, N): i may suppress j (i earlier, both valid, IoU above the
+    threshold)."""
+    n = iou.shape[-1]
+    s_i = scores[..., :, None]
+    s_j = scores[..., None, :]
+    idx = torch.arange(n, device=scores.device)
+    earlier = (s_i > s_j) | ((s_i == s_j) & (idx[:, None] < idx[None, :]))
+    return ((iou > iou_threshold) & earlier & valid[..., :, None]
+            & valid[..., None, :])
+
+
+def _pass(suppress, valid, keep) -> torch.Tensor:
+    return valid & ~(suppress & keep[..., :, None]).any(dim=-2)
+
+
+def _fixed_point_traced(suppress, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fixed point as one ``while_loop`` whose carried flag and count
+    stay on the device: the loop runs while some sample's mask changed and
+    fewer than N passes were made."""
+    from torch._higher_order_ops import while_loop
+
+    n = suppress.shape[-1]
+
+    def cond(keep, changed, passes):
+        return changed & (passes < n)
+
+    def body(keep, changed, passes):
+        new_keep = _pass(suppress, valid, keep)
+        return new_keep, (new_keep != keep).any(), passes + 1
+
+    start = torch.ones((), dtype=torch.bool, device=valid.device)
+    zero = torch.zeros((), dtype=torch.int64, device=valid.device)
+    keep, _, passes = while_loop(cond, body, (valid.clone(), start, zero))
     return keep, passes
 
 

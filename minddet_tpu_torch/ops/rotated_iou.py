@@ -8,7 +8,10 @@ Boxes are [x, y, w, l, yaw]. ``rotated_intersection_bev`` maps (N, 5) x
 the port of the TPU kernel ``rotated_iou_pallas.py:_intersect_kernel``,
 which settles the pairs that ``separated`` finds at 0 and clips the rest;
 on a CPU tensor it runs the plain version
-``rotated_intersection_bev_plain``.
+``rotated_intersection_bev_plain``. It is the ``torch.library`` custom op
+``minddet::RotatedIntersectionBev`` (CPU: the plain version; CUDA: the
+kernel; a fake implementation for ``torch.export`` and the meta device; no
+gradient).
 
 The plain version is the kernel's own algorithm, vectorised over the pair
 axes: Sutherland-Hodgman clips quad A against the four half-planes of quad
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from minddet_tpu_torch.kernels import ROTATED_IOU, cuda_stream
+from minddet_tpu_torch.kernels import ROTATED_IOU, contiguous, cuda_stream
 from minddet_tpu_torch.ops.box import rect_corner_offsets
 
 EPS = 1e-8          # |den| guard of the clip-line intersection, IoU floor
@@ -192,19 +195,37 @@ def _intersection_cuda(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# K4's op: the plain version on the CPU, the kernel on a CUDA tensor
+@torch.library.custom_op("minddet::RotatedIntersectionBev", mutates_args=(),
+                         device_types="cpu")
+def _intersection_op(boxes1: torch.Tensor,
+                     boxes2: torch.Tensor) -> torch.Tensor:
+    return rotated_intersection_bev_plain(boxes1, boxes2)
+
+
+@_intersection_op.register_kernel("cuda")
+def _(boxes1, boxes2):
+    boxes1, boxes2 = contiguous(boxes1, boxes2)
+    if boxes1.dim() == 2:
+        return _intersection_cuda(boxes1[None], boxes2[None])[0]
+    return _intersection_cuda(boxes1, boxes2)
+
+
+@_intersection_op.register_fake
+def _(boxes1, boxes2):
+    return boxes1.new_empty((*boxes1.shape[:-1], boxes2.shape[-2]),
+                            dtype=torch.float32)
+
+
 def rotated_intersection_bev(boxes1: torch.Tensor, boxes2: torch.Tensor
                              ) -> torch.Tensor:
     """Pairwise intersection areas, (N, 5) x (M, 5) -> (N, M) or (B, N, 5)
-    x (B, M, 5) -> (B, N, M), f32. CUDA tensors launch the
-    ``rotated_iou_intersect`` kernel once (f32, contiguous) and raise on
+    x (B, M, 5) -> (B, N, M), f32; no gradient. The op
+    ``minddet::RotatedIntersectionBev``: CUDA tensors launch the
+    ``rotated_iou_intersect`` kernel once (f32, made contiguous by the op) and
+    raise on
     what it does not take; CPU tensors run the plain version."""
-    if boxes1.device.type == "cuda":
-        if boxes1.dim() == 2:
-            return _intersection_cuda(boxes1[None], boxes2[None])[0]
-        return _intersection_cuda(boxes1, boxes2)
-    if boxes1.device.type != "cpu":
-        raise ValueError(f"unsupported device {boxes1.device}")
-    return rotated_intersection_bev_plain(boxes1, boxes2)
+    return _intersection_op(boxes1, boxes2)
 
 
 def rotated_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor,

@@ -12,8 +12,13 @@ it is 0. The reference leaves those rows to whatever its shift levels
 produce, and its callers read kept rows only; ``seg_covered`` gives the mask
 of the rows where the two agree.
 
-On a CUDA tensor ``seg_full_max_bounded`` launches ``csrc/seg_full_max.cu``,
-the port of the TPU kernel ``seg_pallas.py:_fwd_kernel``, and in the
+``seg_full_max_bounded`` is the ``torch.library`` custom op
+``minddet::SegFullMax``, its gradient the op ``minddet::SegFullMaxBwd``
+(each with a CPU implementation, the plain version; a CUDA one, the kernel;
+a fake one for ``torch.export`` and the meta device; none for any other
+device). On a CUDA tensor ``seg_full_max_bounded`` launches
+``csrc/seg_full_max.cu``, the port of the TPU kernel
+``seg_pallas.py:_fwd_kernel``, and in the
 backward ``csrc/seg_full_max_bwd.cu``, the port of ``_bwd_kernel``; on a CPU
 tensor it runs the plain versions ``seg_full_max_bounded_plain`` (the
 reference's shift-level form: ``seg_running_max``, then the last row's
@@ -53,7 +58,7 @@ from __future__ import annotations
 import torch
 
 from minddet_tpu_torch.kernels import (SEG_FULL_MAX, SEG_FULL_MAX_BWD,
-                                       cuda_stream, device_kind)
+                                       contiguous, cuda_stream)
 from minddet_tpu_torch.ops.bilinear import (GRID_BLOCKS, pad_channels,
                                             unpad_channels)
 from minddet_tpu_torch.ops.voxelize import (_seg_bcast_bounded,
@@ -339,10 +344,40 @@ def _seg_full_max_bwd_cuda(first, last, x, m, g, bound) -> torch.Tensor:
     return unpad_channels(dx, c)
 
 
-def _forward(first, last, x, bound) -> torch.Tensor:
-    if device_kind(x) == "cuda":
-        return _seg_full_max_cuda(first, last, x, bound)
+# K5f's op: the plain version on the CPU, the kernel on a CUDA tensor
+@torch.library.custom_op("minddet::SegFullMax", mutates_args=(),
+                         device_types="cpu")
+def _seg_op(first: torch.Tensor, last: torch.Tensor, x: torch.Tensor,
+            bound: int) -> torch.Tensor:
     return seg_full_max_bounded_plain(first, last, x, bound)
+
+
+_seg_op.register_kernel("cuda")(
+    lambda first, last, x, bound: _seg_full_max_cuda(
+        *contiguous(first, last), x, bound))
+
+
+@_seg_op.register_fake
+def _(first, last, x, bound):
+    return torch.empty_like(x)
+
+
+# K5b's op
+@torch.library.custom_op("minddet::SegFullMaxBwd", mutates_args=(),
+                         device_types="cpu")
+def _seg_bwd_op(first: torch.Tensor, last: torch.Tensor, x: torch.Tensor,
+                m: torch.Tensor, g: torch.Tensor, bound: int) -> torch.Tensor:
+    return seg_full_max_bounded_bwd_plain(first, last, x, m, g, bound)
+
+
+_seg_bwd_op.register_kernel("cuda")(
+    lambda first, last, x, m, g, bound: _seg_full_max_bwd_cuda(
+        *contiguous(first, last), x, m, g, bound))
+
+
+@_seg_bwd_op.register_fake
+def _(first, last, x, m, g, bound):
+    return torch.empty_like(x)
 
 
 def seg_full_max_bounded_bwd(first: torch.Tensor, last: torch.Tensor,
@@ -350,37 +385,37 @@ def seg_full_max_bounded_bwd(first: torch.Tensor, last: torch.Tensor,
                              g: torch.Tensor, bound: int) -> torch.Tensor:
     """The gradient of ``seg_full_max_bounded`` with respect to ``x``, from
     the forward's output ``m`` and its gradient ``g`` (see
-    ``seg_full_max_bounded_bwd_plain``): a CUDA ``x`` launches the
-    ``seg_full_max_bwd`` kernel and raises on what it does not take (x
-    contiguous; g in x's type with any row stride that ``_check_bwd``
-    takes; any C, zero-padded to a whole number of 16-byte vectors for the
-    launch, which copies g); the kernel takes each segment's max of x
-    itself, so ``m`` is only checked for its shape there; a CPU ``x`` runs
-    the plain version."""
-    if device_kind(x) == "cuda":
-        return _seg_full_max_bwd_cuda(first, last, x, m, g, bound)
-    return seg_full_max_bounded_bwd_plain(first, last, x, m, g, bound)
+    ``seg_full_max_bounded_bwd_plain``), the op ``minddet::SegFullMaxBwd``:
+    a CUDA ``x`` launches the ``seg_full_max_bwd`` kernel and raises on what
+    it does not take (x contiguous; g in x's type with any row stride that
+    ``_check_bwd`` takes; any C, zero-padded to a whole number of 16-byte
+    vectors for the launch, which copies g); the kernel takes each
+    segment's max of x itself, so ``m`` is only checked for its shape
+    there; a CPU ``x`` runs the plain version."""
+    return _seg_bwd_op(first, last, x, m, g, bound)
 
 
-class _SegFullMax(torch.autograd.Function):
-    """``seg_full_max_bounded`` with its backward; saves (first, last, x,
-    out) as the reference's ``_op_fwd`` does (the kernel reads no ``out``;
-    the plain version does). The gradient is passed on as it comes: the
-    stream PFN's cat hands over a strided slice, which the kernel reads in
-    place."""
+def _seg_setup(ctx, inputs, output):
+    """Saves (first, last, x, out) as the reference's ``_op_fwd`` does (the
+    kernel reads no ``out``; the plain version does)."""
+    first, last, x, bound = inputs
+    ctx.save_for_backward(first, last, x, output)
+    ctx.bound = bound
 
-    @staticmethod
-    def forward(ctx, first, last, x, bound):
-        out = _forward(first, last, x, bound)
-        ctx.save_for_backward(first, last, x, out)
-        ctx.bound = bound
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        first, last, x, out = ctx.saved_tensors
-        dx = seg_full_max_bounded_bwd(first, last, x, out, g, ctx.bound)
-        return None, None, dx, None
+def _seg_backward(ctx, g):
+    """The gradient is passed on as it comes: the stream PFN's cat hands
+    over a strided slice, which the kernel reads in place. Only a gradient
+    with a zero stride (an expanded one, as ``out.sum()`` gives) is made
+    contiguous first: the kernel reads whole rows."""
+    first, last, x, out = ctx.saved_tensors
+    if 0 in g.stride():
+        g = g.contiguous()
+    dx = seg_full_max_bounded_bwd(first, last, x, out, g, ctx.bound)
+    return None, None, dx, None
+
+
+_seg_op.register_autograd(_seg_backward, setup_context=_seg_setup)
 
 
 def seg_full_max_bounded(first: torch.Tensor, last: torch.Tensor,
@@ -390,12 +425,11 @@ def seg_full_max_bounded(first: torch.Tensor, last: torch.Tensor,
     ``first`` / ``last`` (B, N) bool flag the heads and the last kept rows;
     a last kept row lies fewer than ``bound`` rows after its head.
 
-    Differentiable with respect to ``x`` (ties share the gradient evenly).
-    A CUDA ``x`` launches the ``seg_full_max`` kernel, and
-    ``seg_full_max_bwd`` in the backward (f32 or bf16, contiguous, any C:
-    one that is not a multiple of 4 in f32 or 8 in bf16 is zero-padded to
-    one for the launch and the result sliced back to C), and raises on what
-    they do not take; a CPU ``x`` runs the plain versions."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _SegFullMax.apply(first, last, x, bound)
-    return _forward(first, last, x, bound)
+    The op ``minddet::SegFullMax``, differentiable with respect to ``x``
+    (ties share the gradient evenly). A CUDA ``x`` launches the
+    ``seg_full_max`` kernel, and ``seg_full_max_bwd`` in the backward (f32
+    or bf16, contiguous, any C: one that is not a multiple of 4 in f32 or 8
+    in bf16 is zero-padded to one for the launch and the result sliced back
+    to C), and raises on what they do not take; a CPU ``x`` runs the plain
+    versions."""
+    return _seg_op(first, last, x, bound)

@@ -26,7 +26,12 @@ waymo_eval.py``: K4 on the card), its matching on the host.
 
     python -m minddet_tpu_torch.train.evaluate --config CONFIG \
         --records PATTERN [--checkpoint WORKDIR/ckpt/STEP] \
-        [--protocol P] [--max-images N] [--options refined=true ...]
+        [--protocol P] [--max-images N] [--options refined=true ...] \
+        [--exported PROGRAM.pt2] [--device cpu]
+
+With ``--exported PROGRAM.pt2`` (a predict program saved by
+``train/export.py``) it is ``exported_evaluate``: the reloaded program on
+the COCO path at the program's own batch and resolution.
 
 ``evaluate_config`` is its body for a config, records (a pattern, records
 in memory or a dataset) and a checkpoint: the protocol derived from the
@@ -40,7 +45,7 @@ from __future__ import annotations
 import argparse
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,9 +148,11 @@ class _Laps:
 
 
 @torch.no_grad()
-def coco_evaluate(model: nn.Module, records, image_hw: Tuple[int, int],
-                  num_classes: int, batch_size: int = 8, max_images: int = 0,
-                  segm: bool = False) -> Dict[str, float]:
+def coco_evaluate(model: Optional[nn.Module], records,
+                  image_hw: Tuple[int, int], num_classes: int,
+                  batch_size: int = 8, max_images: int = 0,
+                  segm: bool = False, predict_fn: Optional[Callable] = None,
+                  device=None) -> Dict[str, float]:
     """The fixed-resolution COCO path (the 2D zoo): each image warped to
     ``image_hw`` (``eval_affine``: the longer side fit, centred), the
     model's ``predict`` on its device (the tail batch padded,
@@ -155,10 +162,20 @@ def coco_evaluate(model: nn.Module, records, image_hw: Tuple[int, int],
     (boxes, scores, labels in input pixels, and masks) or CenterNet's (B,
     K, 6) at output stride 4. With ``segm`` (Mask R-CNN) the roi masks are
     pasted at the image's resolution (``paste_masks_to_image``) and scored
-    by mask IoU too, under ``segm_`` names."""
+    by mask IoU too, under ``segm_`` names.
+
+    ``predict_fn`` (the offline route of ``evaluate.py --exported``: a
+    reloaded exported program) replaces ``model.predict``; the images then
+    go to ``device``, the program's (``model`` may be None)."""
     ds = coco_dataset(records, max_objs=128, keep_raw=True)
     n = min(len(ds), max_images) if max_images else len(ds)
-    dev = next(model.parameters()).device
+    if predict_fn is None:
+        predict_fn = model.predict
+        device = next(model.parameters()).device
+    elif device is None:
+        raise ValueError("coco_evaluate: predict_fn needs the device its "
+                         "program runs on (device=)")
+    dev = torch.device(device)
     predictions = {}
     for start in range(0, n, batch_size):
         exs = [ds[i] for i in range(start, min(start + batch_size, n))]
@@ -167,7 +184,7 @@ def coco_evaluate(model: nn.Module, records, image_hw: Tuple[int, int],
         hw = torch.from_numpy(_pad_batch(
             np.stack([e["hw"] for e in exs]), batch_size)).to(dev)
         aff = eval_affine(hw, image_hw)
-        out = model.predict(warp_images(images, aff, tuple(image_hw)))
+        out = predict_fn(warp_images(images, aff, tuple(image_hw)))
         roi_masks = None
         if isinstance(out, dict):
             boxes = out["boxes"].double().cpu().numpy()
@@ -756,10 +773,43 @@ def evaluate_config(cfg, records, checkpoint=None, protocol=None,
                          max_images=max_images, segm=protocol == "segm")
 
 
+def exported_evaluate(cfg, records, exported: str, protocol=None,
+                      max_images: int = 0, device=None) -> Dict:
+    """The offline route of ``--exported``: a predict program saved by
+    ``train/export.py`` (``export_detector``) is reloaded and evaluated by
+    ``coco_evaluate`` (``segm`` for Mask R-CNN's protocol) at its own batch
+    and resolution, read from its (B, H, W, 3) input; no model is built and
+    no checkpoint read (the program holds its weights), as the reference's
+    eval-on-exported-outputs flow. The program runs on the device it was
+    exported on, which must be ``device`` (the GPU where None)."""
+    from minddet_tpu_torch.entry import resolve_device
+    from minddet_tpu_torch.train.export import load_exported_program
+
+    dev = resolve_device(device)
+    if not isinstance(cfg, Config):
+        cfg = Config.fromfile(cfg)
+    fn, specs = load_exported_program(exported)
+    shape = tuple(specs[0].shape)
+    if len(specs) != 1 or len(shape) != 4 or shape[3] != 3:
+        raise ValueError(f"--exported expects an image predict program with "
+                         f"one (B, H, W, 3) input; got input shapes "
+                         f"{[tuple(s.shape) for s in specs]}")
+    have = specs[0].device
+    if have.type != dev.type or None not in (have.index, dev.index) \
+            and have.index != dev.index:
+        raise ValueError(f"the program was exported on {specs[0].device}, "
+                         f"the evaluation runs on {dev}")
+    protocol = protocol or eval_protocol(cfg)
+    return coco_evaluate(None, records, shape[1:3],
+                         int(cfg.model.get("num_classes", 80)),
+                         batch_size=shape[0], max_images=max_images,
+                         segm=protocol == "segm", predict_fn=fn, device=have)
+
+
 def main(argv=None) -> Dict:
-    """The evaluation CLI: the reference's flags (``--exported`` raises:
-    the export waits for ``ROADMAP.md`` §1.5 item 5) and ``--device``;
-    logs and returns ``evaluate_config``'s statistics."""
+    """The evaluation CLI: the reference's flags (``--exported``:
+    ``exported_evaluate``) and ``--device``; logs and returns the
+    statistics of ``evaluate_config`` or ``exported_evaluate``."""
     p = argparse.ArgumentParser(description="minddet_tpu_torch evaluator")
     p.add_argument("--config", required=True)
     p.add_argument("--checkpoint", default=None)
@@ -768,15 +818,20 @@ def main(argv=None) -> Dict:
     p.add_argument("--protocol", default=None, choices=(None,) + PROTOCOLS,
                    help="override the data-type-derived eval protocol")
     p.add_argument("--exported", default=None,
-                   help="an exported predict program (not ported yet)")
+                   help="a predict program saved by train.export (.pt2): "
+                        "the offline fixed-shape COCO evaluation instead of "
+                        "building the model")
     p.add_argument("--options", nargs="*", default=[])
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU)")
     args = p.parse_args(argv)
     if args.exported:
-        raise NotImplementedError(
-            "--exported needs the torch.export port of train/export.py "
-            "(ROADMAP.md §1.5 item 5)")
+        stats = exported_evaluate(args.config, args.records, args.exported,
+                                  args.protocol, args.max_images,
+                                  args.device)
+        for k, v in stats.items():
+            logger.info("%s: %.4f", k, v)
+        return stats
     stats = evaluate_config(args.config, args.records, args.checkpoint,
                             args.protocol, args.max_images, args.options,
                             args.device)

@@ -15,8 +15,11 @@
   reference's CLI draws its stream from the start again (``ROADMAP.md``
   §3): after a checkpoint at step 2 the port's next step trains on the
   fourth draw (the sample, then steps 1-2), the reference's on the second.
-- A config with ``train.fsdp`` > 1 and ``evaluate --exported`` raise,
-  naming the ROADMAP items they wait for.
+- A config with ``train.fsdp`` > 1 raises, naming the ROADMAP item it
+  waits for.
+- ``evaluate --exported`` on a reloaded program of the tiny CenterNet gives
+  the in-memory model's statistics exactly and the reference's exported
+  program's within 1e-6.
 - ``evaluate.main`` on a tiny CenterNet's checkpoint and JPEG records
   gives the reference evaluator's statistics on the same weights and
   records within 1e-6, by the CenterNet protocol (derived from the
@@ -183,9 +186,50 @@ def test_cli_refusals(tmp_path):
                    dict(TINY, train=dict(TINY["train"], fsdp=2)))
     with pytest.raises(NotImplementedError, match="item 7"):
         _train(config, tmp_path / "w", "--synthetic", "--steps", "1")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tevaluate.main(["--config", config, "--records", "x",
-                        "--exported", "prog", "--device", "cpu"])
+
+
+def test_evaluate_exported_matches_the_reference(coco_records,  # noqa: F811
+                                                 tiny_centernet,  # noqa: F811
+                                                 tmp_path, monkeypatch):
+    """``--exported``: the tiny CenterNet's program, exported at batch 4 by
+    ``export_detector`` and reloaded, evaluated at the artifact's batch and
+    resolution, gives the in-memory model's statistics exactly and the
+    reference's (its reloaded ``jax.export`` program through
+    ``predict_fn``) within 1e-6, on the same predictions
+    (``_hold_predictions``); a program exported on another device than
+    ``--device`` is refused."""
+    from minddet_tpu.train.export import export_detector as j_export
+    from minddet_tpu.train.export import load_exported as j_load
+    from minddet_tpu_torch.train.export import export_detector
+
+    jmodel, variables, tmodel, _ = tiny_centernet
+    want_preds = _captured(monkeypatch, jevaluate)
+    got_preds = _captured(monkeypatch, tevaluate)
+    config = _yaml(tmp_path / "eval.yaml", {
+        "model": {"type": "CenterNet", "num_classes": CLASSES, "depth": 18,
+                  "dcn": True},
+        "train": {"image_hw": [64, 64]}})
+    image = torch.zeros(4, *COCO_HW, 3)
+    path = export_detector(tmodel, image, str(tmp_path / "cn.pt2"))
+    got = tevaluate.main(["--config", config, "--records", coco_records,
+                          "--exported", path, "--max-images", "4",
+                          "--device", "cpu"])
+    live = tevaluate.coco_evaluate(tmodel, coco_records, COCO_HW, CLASSES,
+                                   batch_size=4, max_images=4)
+    assert got == live
+    jpath = j_export(jmodel, variables, image.numpy(),
+                     str(tmp_path / "cn.stablehlo"))
+    want = jevaluate.coco_evaluate(jmodel, variables, coco_records, COCO_HW,
+                                   CLASSES, batch_size=4, max_images=4,
+                                   predict_fn=j_load(jpath))
+    assert len(got_preds[0]) == len(want_preds[0]) == 4
+    assert _hold_predictions(got_preds[0], want_preds[0]) >= 4 * 20
+    assert list(got) == list(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+    with pytest.raises(ValueError, match="exported on cpu"):
+        tevaluate.exported_evaluate(config, coco_records, path,
+                                    device="meta")
 
 
 @pytest.mark.parametrize("protocol", ["centernet", "coco"])
